@@ -1,0 +1,240 @@
+"""Ray samplers (counterpart of ``nerfstudio_tpu/model_components/ray_samplers.py``).
+
+Samplers are plain callables of (RayBundle, generator) that return
+fixed-shape RaySamples. Randomness enters only through an explicit
+``torch.Generator``; ``generator=None`` gives the deterministic midpoints of
+the eval path. The reference's comparison-count ``searchsorted_batched``
+maps to ``torch.searchsorted(side="left")`` and its one-hot
+``take_last_axis`` to ``torch.gather``."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+from nerfstudio_torch.core.rays import RayBundle, RaySamples
+
+
+def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
+    """float32 ``jnp.linspace``, bit for bit: ``start*(1-s) + stop*s`` with
+    ``s = i/(num-1)``, and ``stop`` itself as the last point."""
+    f32 = dict(dtype=torch.float32, device=device)
+    start_t = torch.tensor(start, **f32)
+    stop_t = torch.tensor(stop, **f32)
+    if num == 1:
+        return start_t.reshape(1)
+    step = torch.arange(num - 1, **f32) / (num - 1)
+    return torch.cat([start_t * (1 - step) + stop_t * step, stop_t.reshape(1)])
+
+
+# ---------------------------------------------------------------------------
+# Spaced samplers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SpacedSampler:
+    """Stratified sampling under a spacing warp (reference ray_samplers.py:31-78)."""
+
+    num_samples: int
+    spacing_fn: Callable[[torch.Tensor], torch.Tensor]
+    spacing_fn_inv: Callable[[torch.Tensor], torch.Tensor]
+    train_stratified: bool = True
+    single_jitter: bool = False
+
+    def __call__(
+        self,
+        ray_bundle: RayBundle,
+        generator: Optional[torch.Generator] = None,
+        num_samples: Optional[int] = None,
+    ) -> RaySamples:
+        n = num_samples or self.num_samples
+        num_rays = ray_bundle.shape
+        device = ray_bundle.origins.device
+        bins = linspace(0.0, 1.0, n + 1, device).expand(num_rays + (n + 1,))
+
+        if self.train_stratified and generator is not None:
+            jitter_shape = num_rays + ((1,) if self.single_jitter else (n + 1,))
+            t_rand = torch.rand(jitter_shape, generator=generator, device=device)
+            bin_centers = (bins[..., 1:] + bins[..., :-1]) / 2.0
+            bin_upper = torch.cat([bin_centers, bins[..., -1:]], dim=-1)
+            bin_lower = torch.cat([bins[..., :1], bin_centers], dim=-1)
+            bins = bin_lower + (bin_upper - bin_lower) * t_rand
+
+        s_near = self.spacing_fn(ray_bundle.nears)  # (..., 1)
+        s_far = self.spacing_fn(ray_bundle.fars)
+
+        def spacing_to_euclidean(s):
+            return self.spacing_fn_inv(s * s_far[..., 0:1] + (1 - s) * s_near[..., 0:1])
+
+        euclidean_bins = spacing_to_euclidean(bins)
+        return ray_bundle.get_ray_samples(
+            bin_starts=euclidean_bins[..., :-1, None],
+            bin_ends=euclidean_bins[..., 1:, None],
+            spacing_starts=bins[..., :-1, None],
+            spacing_ends=bins[..., 1:, None],
+            spacing_to_euclidean_fn=spacing_to_euclidean,
+        )
+
+
+def UniformSampler(num_samples: int, train_stratified=True, single_jitter=False) -> SpacedSampler:
+    """(reference :81-83)"""
+    return SpacedSampler(num_samples, lambda x: x, lambda x: x, train_stratified, single_jitter)
+
+
+def UniformLinDispPiecewiseSampler(num_samples: int, train_stratified=True, single_jitter=False) -> SpacedSampler:
+    """Half uniform up to distance 1, half linear in disparity beyond (reference :101-110)."""
+    return SpacedSampler(
+        num_samples,
+        lambda x: torch.where(x < 1, x / 2, 1 - 1 / (2 * x)),
+        lambda x: torch.where(x < 0.5, 2 * x, 1 / (2 - 2 * x)),
+        train_stratified,
+        single_jitter,
+    )
+
+
+# ---------------------------------------------------------------------------
+# PDF sampler
+# ---------------------------------------------------------------------------
+
+
+def _sorted_interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear interp of (xp, fp) at x over the last axis (reference :132-150)."""
+    idx = torch.searchsorted(xp.contiguous(), x.contiguous(), side="left")
+    n = xp.shape[-1]
+    below = torch.clamp(idx - 1, 0, n - 1)
+    above = torch.clamp(idx, 0, n - 1)
+    xp0, xp1 = torch.gather(xp, -1, below), torch.gather(xp, -1, above)
+    fp0, fp1 = torch.gather(fp, -1, below), torch.gather(fp, -1, above)
+    denom = xp1 - xp0
+    ok = denom > 1e-10
+    t = torch.where(ok, (x - xp0) / torch.where(ok, denom, torch.ones_like(denom)), torch.zeros_like(denom))
+    return fp0 + t * (fp1 - fp0)
+
+
+@dataclasses.dataclass(frozen=True)
+class PDFSampler:
+    """Inverse-CDF importance sampling from previous weights (reference :153-218)."""
+
+    num_samples: int
+    train_stratified: bool = True
+    single_jitter: bool = False
+    histogram_padding: float = 0.01
+
+    def __call__(
+        self,
+        ray_bundle: RayBundle,
+        ray_samples: RaySamples,
+        weights: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        num_samples: Optional[int] = None,
+    ) -> RaySamples:
+        n = num_samples or self.num_samples
+        num_bins = n + 1
+        w = weights[..., 0] + self.histogram_padding  # (..., S)
+
+        # degenerate-histogram guard (reference :176-180)
+        w_sum = torch.sum(w, dim=-1, keepdim=True)
+        padding = torch.clamp_min(1e-5 - w_sum, 0.0)
+        w = w + padding / w.shape[-1]
+        w_sum = w_sum + padding
+
+        pdf = w / w_sum
+        cdf = torch.clamp_max(torch.cumsum(pdf[..., :-1], dim=-1), 1.0)
+        cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf, torch.ones_like(cdf[..., :1])], dim=-1)
+
+        lead = tuple(cdf.shape[:-1])
+        u = linspace(0.0, 1.0 - (1.0 / num_bins), num_bins, cdf.device)
+        if self.train_stratified and generator is not None:
+            jitter_shape = lead + ((1,) if self.single_jitter else (num_bins,))
+            u = u + torch.rand(jitter_shape, generator=generator, device=cdf.device) / num_bins
+        else:
+            u = u + 1.0 / (2 * num_bins)
+        u = u.expand(lead + (num_bins,))
+
+        assert ray_samples.spacing_starts is not None and ray_samples.spacing_ends is not None
+        assert ray_samples.spacing_to_euclidean_fn is not None
+        existing_bins = torch.cat(
+            [ray_samples.spacing_starts[..., 0], ray_samples.spacing_ends[..., -1:, 0]], dim=-1
+        )  # (..., S+1)
+
+        bins = _sorted_interp(u, cdf, existing_bins).detach()
+        euclidean_bins = ray_samples.spacing_to_euclidean_fn(bins)
+        return ray_bundle.get_ray_samples(
+            bin_starts=euclidean_bins[..., :-1, None],
+            bin_ends=euclidean_bins[..., 1:, None],
+            spacing_starts=bins[..., :-1, None],
+            spacing_ends=bins[..., 1:, None],
+            spacing_to_euclidean_fn=ray_samples.spacing_to_euclidean_fn,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Proposal sampler (nerfacto)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ProposalNetworkSampler:
+    """Hierarchical proposal sampling (reference :226-322).
+
+    The first round's samples come from ``UniformLinDispPiecewiseSampler``.
+    ``initial_weights_fn`` (probe RaySamples -> (R, P, 1) weights) replaces
+    the first proposal round with a net-free weight source such as the
+    occupancy grid; its probes use ``num_initial_probes`` samples. The
+    proposal weight anneal is an explicit argument. The reference's other
+    initial samplers and its proposal-gradient gating (training) are not
+    ported."""
+
+    num_proposal_samples_per_ray: Tuple[int, ...] = (64,)
+    num_nerf_samples_per_ray: int = 32
+    num_proposal_network_iterations: int = 2
+    single_jitter: bool = True
+    initial_weights_fn: Optional[Callable[[RaySamples], torch.Tensor]] = None
+    num_initial_probes: int = 192
+
+    def __post_init__(self):
+        if self.num_proposal_network_iterations < 1 and self.initial_weights_fn is None:
+            raise ValueError(
+                "num_proposal_network_iterations must be >= 1 unless a net-free "
+                "initial_weights_fn (occupancy grid) drives the sampling"
+            )
+
+    def __call__(
+        self,
+        ray_bundle: RayBundle,
+        density_fns: List[Callable[[torch.Tensor], torch.Tensor]],
+        generator: Optional[torch.Generator] = None,
+        anneal: float = 1.0,
+    ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
+        assert len(density_fns) == self.num_proposal_network_iterations
+        initial = UniformLinDispPiecewiseSampler(
+            self.num_proposal_samples_per_ray[0], single_jitter=self.single_jitter
+        )
+        pdf = PDFSampler(num_samples=self.num_nerf_samples_per_ray, single_jitter=self.single_jitter)
+
+        weights_list: List[torch.Tensor] = []
+        ray_samples_list: List[RaySamples] = []
+        weights = None
+        ray_samples: Optional[RaySamples] = None
+        if self.initial_weights_fn is not None:
+            # round 0 from a net-free weight source (occupancy grid probes)
+            ray_samples = initial(ray_bundle, generator=generator, num_samples=self.num_initial_probes)
+            weights = self.initial_weights_fn(ray_samples).detach()
+        for i in range(self.num_proposal_network_iterations + 1):
+            is_prop = i < self.num_proposal_network_iterations
+            num_samples = self.num_proposal_samples_per_ray[i] if is_prop else self.num_nerf_samples_per_ray
+            if i == 0 and weights is None:
+                ray_samples = initial(ray_bundle, generator=generator, num_samples=num_samples)
+            else:
+                annealed = torch.pow(weights, anneal)  # (reference :301-305)
+                ray_samples = pdf(ray_bundle, ray_samples, annealed, generator=generator, num_samples=num_samples)
+            if is_prop:
+                density = density_fns[i](ray_samples.frustums.get_positions())
+                weights = ray_samples.get_weights(density)
+                weights_list.append(weights)
+                ray_samples_list.append(ray_samples)
+        assert ray_samples is not None
+        return ray_samples, weights_list, ray_samples_list

@@ -1,0 +1,60 @@
+"""Renderers (counterpart of ``nerfstudio_tpu/model_components/renderers.py``):
+composite per-sample (..., num_samples, C) quantities along rays."""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+_COLORS = {"black": (0.0, 0.0, 0.0), "white": (1.0, 1.0, 1.0)}
+
+
+def render_rgb(
+    rgb: torch.Tensor,
+    weights: torch.Tensor,
+    background_color: Literal["last_sample", "black", "white"] = "last_sample",
+) -> torch.Tensor:
+    """Weighted-sum compositing + background fill (reference :61-85).
+
+    rgb: (..., S, 3); weights: (..., S, 1) -> (..., 3). The random
+    background (training only) and the override context are not ported."""
+    comp = torch.sum(weights * rgb, dim=-2)
+    accumulation = torch.sum(weights, dim=-2)
+    if background_color == "last_sample":
+        bg = rgb[..., -1, :]
+    elif background_color in _COLORS:
+        bg = torch.tensor(_COLORS[background_color], device=comp.device)
+    else:
+        raise NotImplementedError(f"background {background_color!r} is not ported")
+    return comp + bg * (1.0 - accumulation)
+
+
+def render_accumulation(weights: torch.Tensor) -> torch.Tensor:
+    """(reference :139-141)"""
+    return torch.sum(weights, dim=-2)
+
+
+def render_depth(
+    weights: torch.Tensor,
+    ray_samples,
+    method: Literal["median", "expected"] = "median",
+) -> torch.Tensor:
+    """Depth compositing (reference :144-169).
+
+    median: the first sample where the cumulative weight reaches 0.5.
+    expected: the weight-normalised mean, clipped to the smallest first and
+    largest last sample midpoint over the WHOLE batch (not per ray), as the
+    reference does, so chunking changes it."""
+    steps = (ray_samples.frustums.starts + ray_samples.frustums.ends) / 2  # (..., S, 1)
+    if method == "expected":
+        eps = 1e-10
+        depth = torch.sum(weights * steps, dim=-2) / (torch.sum(weights, dim=-2) + eps)
+        return torch.clamp(depth, steps[..., 0, :].min(), steps[..., -1, :].max())
+    if method == "median":
+        cum = torch.cumsum(weights[..., 0], dim=-1).contiguous()  # (..., S)
+        split = torch.full(cum.shape[:-1] + (1,), 0.5, dtype=cum.dtype, device=cum.device)
+        idx = torch.searchsorted(cum, split, side="left")
+        idx = torch.clamp(idx, 0, steps.shape[-2] - 1)
+        return torch.gather(steps[..., 0], -1, idx)
+    raise ValueError(method)

@@ -1,0 +1,100 @@
+"""Load the JAX package's parameters and occupancy grids into the port.
+
+Takes nested dicts of numpy arrays (``jax.device_get`` of a flax params
+tree works as is) and imports no jax. Dense kernels ``(in, out)`` become
+``weight (out, in)``; hash tables keep their ``(L, S, 128)`` layout; list
+members such as ``layers_0`` become ``layers.0``. Every leaf must land on
+exactly one parameter: anything left over on either side raises."""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nerfstudio_torch.ops.occupancy import OccupancyGridState
+
+_LIST_MEMBER = re.compile(r"(layers|proposal_networks)_(\d+)")
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
+    """(state-dict key, whether the array is a dense kernel to transpose)."""
+    *modules, leaf = path
+    parts = []
+    for m in modules:
+        match = _LIST_MEMBER.fullmatch(m)
+        parts += [match[1], match[2]] if match else [m]
+    if leaf == "kernel":
+        return ".".join(parts + ["weight"]), True
+    if leaf == "bias" or leaf == "hash_table":
+        return ".".join(parts + [leaf]), False
+    if leaf == "embedding" and modules and modules[-1] == "embedding":
+        return ".".join(parts + ["weight"]), False
+    raise ValueError(f"no port parameter for JAX leaf {'/'.join(path)}")
+
+
+def params_from_jax(tree: Mapping[str, Any], model: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """A flax params tree (with or without its ``params`` collection key) ->
+    the port's state dict. With ``model``, the keys and shapes must match its
+    state dict exactly."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(tree):
+        name, transpose = _torch_name(path)
+        if name in state:
+            raise ValueError(f"two JAX leaves map to {name}")
+        arr = np.asarray(leaf, dtype=np.float32)
+        state[name] = torch.from_numpy(np.array(arr.T if transpose else arr, order="C", copy=True))
+    if model is not None:
+        expected = model.state_dict()
+        missing = sorted(set(expected) - set(state))
+        extra = sorted(set(state) - set(expected))
+        if missing or extra:
+            raise ValueError(f"parameter mismatch: missing {missing}, left over {extra}")
+        for k, v in state.items():
+            if tuple(v.shape) != tuple(expected[k].shape):
+                raise ValueError(f"{k}: JAX shape {tuple(v.shape)} vs port {tuple(expected[k].shape)}")
+    return state
+
+
+def occupancy_from_jax(state: Any) -> OccupancyGridState:
+    """The JAX ``OccupancyGridState`` (or a dict of its fields) -> the port's
+    flat grid. The reference's row-packed probe views are checked against
+    the flat arrays they were packed from and dropped."""
+    if dataclasses.is_dataclass(state):
+        fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    else:
+        fields = dict(state)
+    known = {"densities", "binary", "binary_rows", "density_rows", "aabb", "resolution"}
+    if set(fields) != known:
+        raise ValueError(
+            f"occupancy state fields: missing {sorted(known - set(fields))}, "
+            f"left over {sorted(set(fields) - known)}"
+        )
+    res = int(fields["resolution"])
+    densities = np.asarray(fields["densities"], dtype=np.float32)
+    binary = np.asarray(fields["binary"], dtype=bool)
+    for rows_name, flat in (("binary_rows", binary), ("density_rows", densities)):
+        rows = np.asarray(fields[rows_name], dtype=np.float32)
+        packed = np.zeros((res * res, max(res, 128)), np.float32)
+        packed[:, :res] = flat.reshape(res * res, res)
+        if rows.shape != packed.shape or not np.array_equal(rows, packed):
+            raise ValueError(f"{rows_name} is not the packed view of its flat array")
+    return OccupancyGridState(
+        densities=torch.from_numpy(densities.copy()),
+        binary=torch.from_numpy(binary.copy()),
+        aabb=torch.from_numpy(np.asarray(fields["aabb"], dtype=np.float32).copy()),
+        resolution=res,
+    )

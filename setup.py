@@ -4,7 +4,8 @@ setup(
     name="nerfstudio_tpu",
     version="0.1.0",
     description="TPU-native neural rendering framework (nerfstudio-class) on JAX/XLA/Pallas",
-    packages=find_packages(include=["nerfstudio_tpu*"]),
+    packages=find_packages(include=["nerfstudio_tpu*", "nerfstudio_torch*"]),
+    package_data={"nerfstudio_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     entry_points={
         "console_scripts": [

@@ -1,0 +1,102 @@
+"""Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Inputs are drawn with numpy from a seed and handed to both packages as
+numpy arrays; parameters come from the JAX model's ``init`` and reach the
+port through ``nerfstudio_torch.utils.convert.params_from_jax``."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+# Tiny nerfacto: 4 field levels at T=2^12 (levels 0-1 dense, 2-3 hashed),
+# a 4-level proposal net, 16-wide MLPs, 16 probes / 8 proposal / 8 field
+# samples, a 16^3 occupancy grid.
+TINY_MODEL = dict(
+    num_levels=4,
+    base_res=4,
+    max_res=64,
+    log2_hashmap_size=12,
+    features_per_level=4,
+    hidden_dim=16,
+    hidden_dim_color=16,
+    appearance_embed_dim=8,
+    num_proposal_samples_per_ray=(16, 8),
+    num_nerf_samples_per_ray=8,
+    occ_num_probes=16,
+    occ_grid_resolution=16,
+    average_init_density=1.0,
+    proposal_net_args_list=(
+        {"hidden_dim": 16, "log2_hashmap_size": 12, "num_levels": 4, "base_res": 4, "max_res": 32},
+        {"hidden_dim": 16, "log2_hashmap_size": 12, "num_levels": 4, "base_res": 4, "max_res": 64},
+    ),
+)
+NUM_IMAGES = 4
+HW = 16
+
+
+def orbit_c2w(n_images: int) -> np.ndarray:
+    """Orbit cameras at radius 2, height 1, looking at the origin
+    (the layout of ``__graft_entry__._synthetic_setup``)."""
+    thetas = 2 * np.pi * np.arange(n_images) / n_images
+    c2w = np.zeros((n_images, 3, 4), np.float32)
+    for i, t in enumerate(thetas):
+        pos = np.array([2 * np.cos(t), 2 * np.sin(t), 1.0])
+        fwd = pos / np.linalg.norm(pos)
+        right = np.cross(np.array([0.0, 0, 1]), fwd)
+        right /= np.linalg.norm(right)
+        c2w[i, :, 0] = right
+        c2w[i, :, 1] = np.cross(fwd, right)
+        c2w[i, :, 2] = fwd
+        c2w[i, :, 3] = pos
+    return c2w
+
+
+def jax_tiny_nerfacto():
+    """(JAX eval model, its config) at TINY_MODEL."""
+    from nerfstudio_tpu.configs.method_configs import get_method
+    from nerfstudio_tpu.models.nerfacto import NerfactoModel
+
+    cfg = dataclasses.replace(get_method("nerfacto").model, **TINY_MODEL)
+    model = NerfactoModel(
+        config=cfg, scene_aabb=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)), num_train_data=NUM_IMAGES, train=False
+    )
+    return model, cfg
+
+
+def torch_tiny_nerfacto():
+    from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
+
+    cfg = NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15, **TINY_MODEL)
+    return cfg.setup(num_train_data=NUM_IMAGES).eval()
+
+
+def init_params(init_fn, seed: int):
+    """The JAX model's own ``init`` (jitted: one compile instead of an
+    op-by-op run) at ``PRNGKey(seed)``, as numpy, with every hash table
+    redrawn uniform in +-1 from a numpy seed: the init's +-1e-3 leaves the
+    encodings without structure at this size."""
+    params = jax.device_get(jax.jit(init_fn)(jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+
+    def widen(path, x):
+        if jax.tree_util.keystr(path).endswith("['hash_table']"):
+            return rng.uniform(-1.0, 1.0, np.shape(x)).astype(np.float32)
+        return np.array(x)
+
+    return jax.tree_util.tree_map_with_path(widen, params)
+
+
+def to_torch(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def sphere_grid_binary(res: int, radius: float = 0.3) -> np.ndarray:
+    """(res^3,) occupancy: cells whose centre lies within ``radius`` of the
+    normalised cube's centre."""
+    c = (np.arange(res) + 0.5) / res - 0.5
+    d2 = c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2
+    return (d2 <= radius**2).reshape(-1)

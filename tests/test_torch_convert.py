@@ -1,0 +1,97 @@
+"""params_from_jax / occupancy_from_jax: every JAX leaf lands on exactly one
+port parameter, with dense kernels transposed and hash tables unchanged."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import NUM_IMAGES, init_params, jax_tiny_nerfacto, torch_tiny_nerfacto
+from nerfstudio_tpu.core.rays import RayBundle as JRayBundle
+from nerfstudio_tpu.ops import occupancy as jocc
+from nerfstudio_torch.utils.convert import occupancy_from_jax, params_from_jax
+
+
+def _jax_rays(n=4):
+    o = np.zeros((n, 3), np.float32)
+    d = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (n, 1))
+    return JRayBundle(origins=o, directions=d, pixel_area=np.ones((n, 1), np.float32))
+
+
+def test_full_width_nerfacto_tree_converts_with_no_leftover():
+    """The shipped nerfacto width (18.1M parameters): shapes from
+    jax.eval_shape, so no JAX compute is needed."""
+    from nerfstudio_tpu.configs.method_configs import get_method
+    from nerfstudio_tpu.models.nerfacto import NerfactoModel as JNerfacto
+    from nerfstudio_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+
+    jmodel = JNerfacto(config=get_method("nerfacto").model, num_train_data=8, train=False)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), _jax_rays(), key=None))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    model = NerfactoModel(NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15), num_train_data=8)
+    state = params_from_jax(tree, model)
+    model.load_state_dict(state, strict=True)
+    n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
+    assert n_jax == sum(p.numel() for p in model.parameters()) == 18_099_988
+    assert model.field.mlp_base.encoding.hash_table.shape == (8, 16384, 128)
+    assert model.proposal_networks[0].mlp_base.encoding.hash_table.shape == (5, 2048, 128)
+
+
+@pytest.fixture(scope="module")
+def tiny_params():
+    jmodel, _ = jax_tiny_nerfacto()
+    return init_params(lambda k: jmodel.init(k, _jax_rays(), key=None), 0)
+
+
+def test_kernels_transposed_tables_and_embeddings_kept(tiny_params):
+    model = torch_tiny_nerfacto()
+    state = params_from_jax(tiny_params, model)
+    p = tiny_params["params"]
+    np.testing.assert_array_equal(
+        state["field.mlp_head.layers.0.weight"].numpy(), p["field"]["mlp_head"]["layers_0"]["kernel"].T
+    )
+    np.testing.assert_array_equal(
+        state["proposal_networks.0.mlp_base.mlp.layers.1.bias"].numpy(),
+        p["proposal_networks_0"]["mlp_base"]["mlp"]["layers_1"]["bias"],
+    )
+    np.testing.assert_array_equal(
+        state["field.mlp_base.encoding.hash_table"].numpy(), p["field"]["mlp_base"]["encoding"]["hash_table"]
+    )
+    emb = state["field.embedding_appearance.embedding.weight"]
+    assert emb.shape == (NUM_IMAGES, 8)
+    model.load_state_dict(state, strict=True)
+
+
+def test_leftovers_on_either_side_raise(tiny_params):
+    model = torch_tiny_nerfacto()
+    p = jax.tree_util.tree_map(np.asarray, tiny_params)["params"]
+    extra = {**p, "field": {**p["field"], "mlp_extra": {"layers_0": {"bias": np.zeros(3, np.float32)}}}}
+    with pytest.raises(ValueError, match="left over"):
+        params_from_jax(extra, model)
+    missing = {**p, "field": {k: v for k, v in p["field"].items() if k != "mlp_head"}}
+    with pytest.raises(ValueError, match="missing"):
+        params_from_jax(missing, model)
+    unknown = {**p, "field": {**p["field"], "scale": np.ones(1, np.float32)}}
+    with pytest.raises(ValueError, match="no port parameter"):
+        params_from_jax(unknown, model)
+    other_collection = {"params": p, "batch_stats": {"mean": np.zeros(1, np.float32)}}
+    with pytest.raises(ValueError):
+        params_from_jax(other_collection, model)
+
+
+def test_occupancy_from_jax():
+    jgrid = jocc.init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), 8)
+    dens = np.random.default_rng(0).uniform(0, 1, 8**3).astype(np.float32)
+    jgrid = jgrid.replace(densities=jnp.asarray(dens), binary=jnp.asarray(dens > 0.5),
+                          binary_rows=jocc._pack_rows(jnp.asarray(dens > 0.5), 8),
+                          density_rows=jocc._pack_rows(jnp.asarray(dens), 8))
+    grid = occupancy_from_jax(jgrid)
+    assert grid.resolution == 8 and grid.binary.dtype == torch.bool
+    np.testing.assert_array_equal(grid.binary.numpy(), dens > 0.5)
+    np.testing.assert_array_equal(grid.densities.numpy(), dens)
+    fields = {k: getattr(jgrid, k) for k in ("densities", "binary", "binary_rows", "density_rows", "aabb", "resolution")}
+    with pytest.raises(ValueError, match="missing"):
+        occupancy_from_jax({k: v for k, v in fields.items() if k != "aabb"})
+    with pytest.raises(ValueError, match="packed view"):
+        occupancy_from_jax({**fields, "density_rows": np.zeros((64, 128), np.float32)})

@@ -1,0 +1,144 @@
+"""Parity of the port's block hash-grid encode (K1 forward, K3) with the JAX
+reference, through the plain PyTorch twins that CPU tensors take. The CUDA
+kernels are held against the same twins on the card by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfstudio_tpu.ops import hash_grid as jhg
+from nerfstudio_torch.ops import hash_grid as thg
+
+# (L, T, F, min_res, max_res): each case has dense and hashed levels
+# (dense while ((res+2)//2)^3 * 8 <= T); in the last, level 1 (res 14,
+# 8^3 blocks) sits exactly on the threshold.
+CASES = [(4, 2**12, 2, 4, 64), (4, 2**10, 4, 2, 48), (3, 2**11, 8, 3, 40), (3, 2**12, 2, 7, 28)]
+
+
+def _positions(n, seed):
+    """Uniform positions plus the boundary hazards: exact 0 and 1, outside
+    the cube (-0.1, 1.1), and exactly odd and even cells at several
+    resolutions."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    edge = np.array([0.0, 1.0, -0.1, 1.1, 0.5, 0.25, 3 / 64, 5 / 64, 0.999999], np.float32)
+    corners = np.stack(np.meshgrid(edge, edge[:3], edge[::2], indexing="ij"), -1).reshape(-1, 3)
+    return np.concatenate([pos, corners]).astype(np.float32)
+
+
+def _table(L, T, F, seed):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1.0, 1.0, (L, T * F // 128, 128)).astype(np.float32)
+
+
+@pytest.mark.parametrize("L,T,F,min_res,max_res", CASES)
+def test_block_level_geometry_matches_jax_exactly(L, T, F, min_res, max_res):
+    """Stochastic rounding hazard: rows and slot must be EXACTLY equal (a
+    single flipped coin moves a sample to another block); w8 within 1e-7
+    (the weights are products of the same float32 factors)."""
+    pos = _positions(2000, 0)
+    pos = np.clip(pos, 0.0, 1.0)  # the field clips via its selector; geometry takes [0, 1]
+    kw = dict(num_levels=L, min_res=min_res, max_res=max_res, hash_table_size=T, features_per_level=F)
+    jg = jhg.block_level_geometry(jnp.asarray(pos), **kw)
+    tg = thg.block_level_geometry(torch.from_numpy(pos), **kw)
+    for (jr, js, jw), (tr, ts, tw) in zip(jg, tg):
+        np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+        np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+        np.testing.assert_allclose(np.asarray(jw), tw.numpy(), rtol=0, atol=1e-7)
+
+
+def test_u01_hash_is_bit_exact():
+    """The odd-axis coin hashes float bits with uint32 wrap-around: the
+    int64 twin must give the same variate for every bit pattern."""
+    rng = np.random.default_rng(1)
+    o = np.concatenate(
+        [rng.uniform(0, 1, 5000), [0.0, 1.0, 0.5, np.nextafter(np.float32(1), 0), 1e-30]]
+    ).astype(np.float32)
+    for p1, p2 in thg._COIN_PRIMES:
+        ref = np.asarray(jhg._u01_hash(jnp.asarray(o), p1, p2))
+        np.testing.assert_array_equal(ref, thg._u01_hash(torch.from_numpy(o), p1, p2).numpy())
+
+
+def test_hash_corner_matches_uint32_reference():
+    rng = np.random.default_rng(2)
+    c = rng.integers(0, 2**20, (3, 5000)).astype(np.int32)
+    for size in (2**7, 2**14, 2**16 + 8):
+        ref = np.asarray(jhg._hash_corner(*(jnp.asarray(x) for x in c), size))
+        got = thg._hash_corner(*(torch.from_numpy(x) for x in c), size)
+        np.testing.assert_array_equal(ref, got.numpy())
+
+
+@pytest.mark.parametrize("L,T,F,min_res,max_res", CASES)
+def test_dense_or_hashed_layout_per_level(L, T, F, min_res, max_res):
+    """Per-level layout hazard: dense iff ((res+2)//2)^3 * 8 <= T, and every
+    case here mixes both kinds."""
+    kinds = []
+    for res in jhg.compute_level_resolutions(L, min_res, max_res):
+        bs, dense = thg._block_level_layout(int(res), T)
+        assert bs == (int(res) + 2) // 2
+        assert dense == (bs**3 * 8 <= T)
+        kinds.append(dense)
+    assert any(kinds) and not all(kinds)
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["K1_block", "K3_block_exact"])
+@pytest.mark.parametrize("L,T,F,min_res,max_res", CASES)
+def test_twin_matches_jax_hash_encode(L, T, F, min_res, max_res, exact):
+    """Twin vs JAX hash_encode(block=True / block_exact=True) within 1e-6
+    with tables in +-1: both read bf16-rounded values and sum in float32;
+    only the summation order differs."""
+    pos = _positions(3000, 3)
+    table = _table(L, T, F, 4)
+    kw = dict(num_levels=L, min_res=min_res, max_res=max_res, hash_table_size=T)
+    flag = dict(block_exact=True) if exact else dict(block=True)
+    ref = np.asarray(jhg.hash_encode(jnp.asarray(pos), jnp.asarray(table), **kw, **flag))
+    got = thg.hash_encode(torch.from_numpy(pos), torch.from_numpy(table), **kw, **flag)
+    assert got.shape == ref.shape == (pos.shape[0], L * F)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def test_table_reads_round_to_bf16_nearest_even():
+    """bf16 hazard: values exactly halfway between two bf16 numbers must
+    round to the even one, as jnp.astype(bfloat16) does, before weighting."""
+    L, T, F = 1, 2**10, 4
+    table = np.zeros((L, T * F // 128, 128), np.float32)
+    halfway = np.array([1 + 2**-8, 1 + 3 * 2**-8, -(1 + 2**-8), 1 + 2**-9], np.float32)
+    table[...] = np.resize(halfway, table.shape)
+    pos = np.full((1, 3), 0.5, np.float32)
+    kw = dict(num_levels=L, min_res=8, max_res=8, hash_table_size=T, block_exact=True)
+    ref = np.asarray(jhg.hash_encode(jnp.asarray(pos), jnp.asarray(table), **kw))
+    got = thg.hash_encode(torch.from_numpy(pos), torch.from_numpy(table), **kw).numpy()
+    np.testing.assert_array_equal(got, ref)
+    bf = torch.from_numpy(halfway).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(bf, [1.0, 1 + 4 * 2**-8, -1.0, 1.0])
+
+
+def test_cpu_tensors_take_the_twin_and_count_no_launch():
+    thg.reset_launch_counts()
+    pos = torch.from_numpy(_positions(100, 5))
+    table = torch.from_numpy(_table(2, 2**10, 4, 6))
+    kw = dict(num_levels=2, min_res=4, max_res=16, hash_table_size=2**10)
+    out_k1 = thg.hash_encode(pos, table, block=True, **kw)
+    out_k3 = thg.hash_encode(pos, table, block_exact=True, **kw)
+    assert thg.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0}
+    torch.testing.assert_close(out_k1, thg._block_stochastic_twin(pos, table, min_res=4, max_res=16, hash_table_size=2**10), rtol=0, atol=0)
+    torch.testing.assert_close(out_k3, thg._block_exact_twin(pos, table, min_res=4, max_res=16, hash_table_size=2**10), rtol=0, atol=0)
+
+
+def test_wrapper_rejects_bad_inputs():
+    pos = torch.rand(8, 3)
+    table = torch.rand(2, 32, 128)
+    kw = dict(num_levels=2, min_res=4, max_res=16, hash_table_size=2**10)
+    with pytest.raises(NotImplementedError):
+        thg.hash_encode(pos, table, **kw)  # flat layout (K7) is not ported
+    with pytest.raises(TypeError):
+        thg.hash_encode(pos.double(), table, block=True, **kw)
+    with pytest.raises(ValueError):
+        thg.hash_encode(pos, table[:1], block=True, **kw)
+    with pytest.raises(ValueError):
+        thg.hash_encode(pos.t().contiguous().t(), table, block=True, **kw)
+    with pytest.raises(ValueError):
+        thg.hash_encode(pos.to("meta"), table.to("meta"), block=True, **kw)
+    with pytest.raises(NotImplementedError):
+        thg.hash_encode(pos, table.requires_grad_(), block=True, **kw)

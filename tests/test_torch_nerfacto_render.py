@@ -1,0 +1,150 @@
+"""The slice end to end: a tiny nerfacto rendered through the JAX
+``render_camera`` and through the port's, from the same converted params and
+occupancy grid; and the port's import boundary (no jax)."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from _torch_port import (
+    HW,
+    NUM_IMAGES,
+    init_params,
+    jax_tiny_nerfacto,
+    orbit_c2w,
+    sphere_grid_binary,
+    torch_tiny_nerfacto,
+)
+from nerfstudio_tpu.cameras.cameras import Cameras as JCameras
+from nerfstudio_tpu.models.base_model import render_camera as j_render_camera
+from nerfstudio_tpu.ops import occupancy as jocc
+from nerfstudio_torch.cameras.cameras import Cameras
+from nerfstudio_torch.models.base_model import render_camera
+from nerfstudio_torch.ops import hash_grid
+from nerfstudio_torch.utils.convert import occupancy_from_jax, params_from_jax
+
+REPO = Path(__file__).resolve().parents[1]
+CHUNK = 96  # 256 rays -> 3 chunks, the last one padded with copies of the last ray
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jmodel, cfg = jax_tiny_nerfacto()
+    c2w = orbit_c2w(NUM_IMAGES)
+    cam_args = (c2w, HW * 1.2, HW * 1.2, HW / 2, HW / 2, HW, HW)
+    res = cfg.occ_grid_resolution
+    binary = jnp.asarray(sphere_grid_binary(res))
+    jgrid = jocc.init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), res)
+    jgrid = jgrid.replace(binary=binary, binary_rows=jocc._pack_rows(binary, res))
+    jcams = JCameras(*cam_args)
+    rays = jcams.generate_rays(camera_indices=0).flatten()[:8]
+    params = init_params(lambda k: jmodel.init(k, rays, key=None), 1)
+    apply = jax.jit(lambda p, rb, aux: jmodel.apply(p, rb, key=None, model_aux=aux))
+    return jcams, Cameras.create(*cam_args), jgrid, params, apply
+
+
+@pytest.fixture(scope="module", params=["k1_live", "k1_neutral"])
+def renders(request, setup):
+    """(JAX images, port images, variant). ``k1_neutral`` zeroes the proposal
+    net's hash table, so K1 returns exactly 0 whichever vertex its
+    stochastic rounding picks; ``k1_live`` keeps it in +-1."""
+    jcams, tcams, jgrid, params, apply = setup
+    if request.param == "k1_neutral":
+        params = jax.tree_util.tree_map(np.copy, params)
+        enc = params["params"]["proposal_networks_0"]["mlp_base"]["encoding"]
+        enc["hash_table"] = np.zeros_like(enc["hash_table"])
+    ref = j_render_camera(lambda rb: apply(params, rb, jgrid), jcams, 1, CHUNK)
+    model = torch_tiny_nerfacto()
+    hash_grid.reset_launch_counts()
+    got = render_camera(model, params_from_jax(params, model), tcams, 1, CHUNK, aux=occupancy_from_jax(jgrid))
+    return ref, {k: v.numpy() for k, v in got.items()}, request.param
+
+
+def test_outputs_shapes_and_finite(renders):
+    ref, got, _ = renders
+    for k, c in [("rgb", 3), ("accumulation", 1), ("depth", 1), ("expected_depth", 1), ("prop_depth_0", 1)]:
+        assert got[k].shape == (HW, HW, c) == ref[k].shape
+        assert np.isfinite(got[k]).all()
+    assert 0.2 < got["accumulation"].mean() < 0.95  # the grid's sphere is in view
+
+
+def test_rgb_and_accumulation_match(renders):
+    """Mean abs <= 5e-3 and within 5e-2 on >= 99% of pixels. With K1 live
+    the accumulation needs mean abs <= 1e-2 (measured 6.6e-3, rgb 1.2e-3):
+    K1 hashes the float bits of each sample's cell offset, and the two
+    packages sum the PDF weights in another order, so proposal positions
+    differ by ulps on about half the samples and each such sample redraws
+    its odd-axis rounding. With K1 neutral the gap is 1e-6 (measured)."""
+    ref, got, variant = renders
+    for k in ("rgb", "accumulation"):
+        err = np.abs(got[k] - ref[k])
+        limit = 1e-2 if (variant == "k1_live" and k == "accumulation") else 5e-3
+        assert err.mean() <= limit, (k, err.mean())
+        assert (err.max(axis=-1) <= 5e-2).mean() >= 0.99, k
+
+
+def test_depths_match(renders):
+    """With K1 neutral: median depths (sample midpoints picked by a
+    threshold, so a bin flip is discrete) within 1e-3 relative on >= 98% of
+    pixels, and the expected depth, clipped to the chunk's min and max (the
+    port pads chunks as the reference does), within 1e-3 on >= 98%. With K1
+    live the redrawn roundings move samples: mean relative error <= 5e-2
+    for median depths (measured 1.6%) and 1e-2 for the expected depth
+    (measured 0.4%)."""
+    ref, got, variant = renders
+    for k in ("depth", "prop_depth_0", "expected_depth"):
+        rel = np.abs(got[k] - ref[k]) / np.abs(ref[k])
+        if variant == "k1_neutral":
+            assert (rel <= 1e-3).mean() >= 0.98, k
+        else:
+            assert rel.mean() <= (1e-2 if k == "expected_depth" else 5e-2), (k, rel.mean())
+
+
+def test_cpu_render_used_the_twins(renders):
+    assert hash_grid.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0}
+
+
+@pytest.mark.parametrize(
+    "option",
+    [dict(use_occupancy_sampler=False), dict(num_proposal_iterations=0), dict(proposal_initial_sampler="uniform"),
+     dict(occ_weight_mode="density"), dict(disable_scene_contraction=True), dict(predict_normals=True),
+     dict(field_block=False), dict(prop_block=False)],
+    ids=lambda d: next(iter(d)),
+)
+def test_unported_nerfacto_options_raise(option):
+    from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
+
+    with pytest.raises(NotImplementedError):
+        NerfactoModelConfig(num_levels=2, log2_hashmap_size=10, max_res=32, **option).setup()
+
+
+def test_render_needs_grid():
+    model = torch_tiny_nerfacto()
+    cams = Cameras.create(orbit_c2w(1), 10.0, 10.0, 4.0, 4.0, 8, 8)
+    with pytest.raises(ValueError, match="model_aux"):
+        render_camera(model, None, cams, 0, 64)
+
+
+def test_render_camera_needs_eval_mode():
+    model = torch_tiny_nerfacto().train()
+    cams = Cameras.create(orbit_c2w(1), 10.0, 10.0, 4.0, 4.0, 8, 8)
+    with pytest.raises(ValueError, match="eval"):
+        render_camera(model, None, cams, 0, 64)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, import without jax (the
+    GPU machine has none)."""
+    code = (
+        "import importlib, pkgutil, sys; import nerfstudio_torch, chip_smoke; "
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages(nerfstudio_torch.__path__, 'nerfstudio_torch.')]; "
+        "import nerfstudio_torch.models.nerfacto; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'nerfstudio_tpu'))); "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
