@@ -83,6 +83,13 @@ class Cameras:
             camera_type = camera_type.value
         return cls(c2w, fx, fy, cx, cy, width, height, _column(camera_type, n, **i32))
 
+    def all_perspective(self) -> bool:
+        """Whether every camera is perspective (read once, then cached: the
+        check would otherwise sync the device on every batch)."""
+        if not hasattr(self, "_all_perspective"):
+            self._all_perspective = bool((self.camera_type == CameraType.PERSPECTIVE.value).all())
+        return self._all_perspective
+
     def get_image_coords(self, pixel_offset: float = 0.5, index: int = 0) -> torch.Tensor:
         """Dense (H, W, 2) grid of (row, col) + offset (reference :206-217)."""
         h = int(self.height[index, 0])
@@ -102,20 +109,29 @@ class Cameras:
         disable_distortion: bool = False,
     ) -> RayBundle:
         """Rays of one camera (reference :252-318): its full image when
-        ``coords`` is None, else the (..., 2) (row, col) coords given."""
+        ``coords`` is None, else the (..., 2) (row, col) coords given. The
+        camera-opt correction and distortion deltas are not ported here
+        (nerfacto applies its camera-opt to the ray bundle)."""
         if camera_opt_to_camera is not None or distortion_params_delta is not None:
             raise NotImplementedError("camera-opt corrections and distortion deltas are not ported")
         idx = int(camera_indices)
-        if int(self.camera_type[idx, 0]) != CameraType.PERSPECTIVE.value:
-            raise NotImplementedError("only perspective cameras are ported")
         if coords is None:
             coords = self.get_image_coords(index=idx)
-        num_rays_shape = tuple(coords.shape[:-1])
+        cam = torch.full(tuple(coords.shape[:-1]) + (1,), idx, dtype=torch.int32, device=coords.device)
+        return self.generate_rays_from_coords(cam, coords)
 
-        y = coords[..., 0]
-        x = coords[..., 1]
-        # float32 values as Python floats: exact, and applied in float32
-        fx, fy, cx, cy = (float(v[idx, 0]) for v in (self.fx, self.fy, self.cx, self.cy))
+    def generate_rays_from_coords(self, camera_indices: torch.Tensor, coords: torch.Tensor) -> RayBundle:
+        """Rays with a camera each (reference ``_generate_rays_from_coords``,
+        cameras.py:320-548, perspective without distortion):
+        camera_indices (..., 1) int, coords (..., 2) (row, col)."""
+        num_rays_shape = tuple(camera_indices.shape[:-1])
+        if tuple(coords.shape) != num_rays_shape + (2,):
+            raise ValueError(f"coords shape {tuple(coords.shape)} must be {num_rays_shape + (2,)}")
+        if not self.all_perspective():
+            raise NotImplementedError("only perspective cameras are ported")
+        cam = camera_indices[..., 0].long().to(self.camera_to_worlds.device)
+        y, x = coords[..., 0], coords[..., 1]
+        fx, fy, cx, cy = (v[cam, 0].to(coords.device) for v in (self.fx, self.fy, self.cx, self.cy))
         # (3, ..., 2): the pixel and its +1 neighbours in x and in y
         coord_stack = torch.stack(
             [
@@ -128,26 +144,24 @@ class Cameras:
         # OpenCV -> OpenGL (reference :384)
         coord_stack = torch.stack([coord_stack[..., 0], coord_stack[..., 1] * -1.0], dim=-1)
         dirs = torch.cat([coord_stack, -torch.ones_like(coord_stack[..., :1])], dim=-1)
-
-        c2w = self.camera_to_worlds[idx].to(coords.device)
-        rotation = c2w[:3, :3]
+        c2w = self.camera_to_worlds[cam].to(coords.device)  # (..., 3, 4)
+        rotation = c2w[..., :3, :3]
         # R @ d written out, so no matmul precision mode enters
         dirs = (
-            rotation[:, 0] * dirs[..., 0:1]
-            + rotation[:, 1] * dirs[..., 1:2]
-            + rotation[:, 2] * dirs[..., 2:3]
+            rotation[..., :, 0] * dirs[..., 0:1]
+            + rotation[..., :, 1] * dirs[..., 1:2]
+            + rotation[..., :, 2] * dirs[..., 2:3]
         )
         # summed in order in float32, as the reference's norm is
         norms = torch.sqrt(dirs[..., 0:1] ** 2 + dirs[..., 1:2] ** 2 + dirs[..., 2:3] ** 2)
         dirs = dirs / torch.clamp_min(norms, 1e-10)
-
         directions = dirs[0]
         dx = torch.sqrt(torch.sum((directions - dirs[1]) ** 2, dim=-1))
         dy = torch.sqrt(torch.sum((directions - dirs[2]) ** 2, dim=-1))
         return RayBundle(
-            origins=c2w[:3, 3].expand(num_rays_shape + (3,)).contiguous(),
+            origins=c2w[..., :3, 3].contiguous(),
             directions=directions,
             pixel_area=(dx * dy)[..., None],
-            camera_indices=torch.full(num_rays_shape + (1,), idx, dtype=torch.int32, device=coords.device),
+            camera_indices=camera_indices[..., -1:],
             metadata={"directions_norm": norms[0]},
         )

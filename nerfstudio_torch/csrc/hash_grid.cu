@@ -1,5 +1,5 @@
-// Block-layout multiresolution hash-grid encode, forward only, for Hopper
-// (sm_90a). Plain C interface, loaded with ctypes by
+// Block-layout multiresolution hash-grid encode, forward and backward, for
+// Hopper (sm_90a). Plain C interface, loaded with ctypes by
 // nerfstudio_torch/ops/hash_grid.py.
 //
 // Replaces, in the JAX reference package:
@@ -9,6 +9,10 @@
 //   * K3: nerfstudio_tpu/ops/hash_grid.py _block_exact_trilerp
 //     (hash_encode(block_exact=True)): the exact 8-corner trilinear
 //     interpolation through the same block layout.
+//   * K1 bwd with K2 folded in: nerfstudio_tpu/ops/hash_grid.py
+//     _row_gather_block_tw_bwd, _row_gather_block_tw_oh_bwd (the one-hot
+//     matmul backward of the dense coarse levels) and _grad_scale, plus
+//     XLA's autodiff of block_level_geometry down to the positions.
 //
 // Table layout, shared with the reference: table[l, row, lane], shape
 // (L, S, 128) float32. Vertex v of level l lives in block b = v >> 1 (per
@@ -50,6 +54,12 @@ struct LevelGeometry {
   int res[kMaxLevels];
   int blocks_per_axis[kMaxLevels];
   int dense[kMaxLevels];
+};
+
+// Per-level factor on the table gradient: bwd_scale on the levels of
+// bwd_levels, 0 on the others, 1 everywhere without level subsampling.
+struct LevelScales {
+  float scale[kMaxLevels];
 };
 
 // Per-axis prime pairs of the odd-axis coin (hash_grid.py block_level_geometry).
@@ -166,6 +176,125 @@ __global__ void __launch_bounds__(kThreads)
   for (int f = 0; f < F; ++f) dst[f] = acc[f];
 }
 
+// K1 backward. One thread per sample walks the levels in order, recomputing
+// each level's cell, coin, block and corner weights with the forward's
+// arithmetic, so it takes the blocks the forward read.
+//
+// Table gradient: lane (slot*8F + c*F + f) of row `rows` gets
+// (w8[c] * g[l*F+f]) * scale[l] by an f32 atomicAdd into a zeroed buffer.
+// A level of scale 0 (outside bwd_levels) writes nothing, and neither does
+// a corner of weight 0 (the unchosen parity of an odd axis). The dense
+// coarse levels, which the reference sends through a bf16 one-hot matmul
+// (K2), take the same f32 atomics: that rounding was an operand format of
+// the TPU's matrix unit, not part of the op.
+//
+// Position gradient (d_pos != nullptr): d_w8[c] = sum_f g[l*F+f] *
+// bf16(table value) on every level; an even axis carries
+// d_o = sum_c d_w8[c] * (+-1) * (the other two axes' weights), an odd axis
+// (its weights are the coin's 0/1) carries none, and d_x = d_o * res *
+// clip'(x*res - i0), where clip' is 1 inside (0, 1), 0 outside and 1/2 on
+// exactly 0 or 1, as jnp.clip's max/min pair differentiates.
+//
+// What bounds it: the atomics and the gathered rows. A (sample, level)
+// issues at most 8F atomics into one 8F-float block (on average 3.4 of the
+// 8 corners have weight) and, for the position gradient, re-reads that
+// block; the coarse levels concentrate all samples' atomics on a few
+// hundred rows. Privatising those rows in shared memory, sorting by row and
+// warp-aggregating the atomics are later work.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    block_encode_bwd_kernel(const float* __restrict__ pos,
+                            const float* __restrict__ table,
+                            const float* __restrict__ grad,
+                            float* __restrict__ d_table,
+                            float* __restrict__ d_pos, int64_t n,
+                            int64_t rows_per_level, uint32_t nblocks,
+                            LevelGeometry g, LevelScales sc) {
+  constexpr int kBlocksPerRow = kLanes / (8 * F);
+  const int num_levels = g.num_levels;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const bool need_pos = d_pos != nullptr;
+  float p[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) p[a] = __ldg(pos + 3 * i + a);
+  float dp[3] = {0.0f, 0.0f, 0.0f};
+
+  for (int l = 0; l < num_levels; ++l) {
+    const float scale = d_table != nullptr ? sc.scale[l] : 0.0f;
+    if (scale == 0.0f && !need_pos) continue;
+    const int res = g.res[l];
+    int i0[3];
+    float o[3], dodx[3];
+    bool odd[3];
+    float w01[3][2];
+    int bc[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float s = __fmul_rn(p[a], (float)res);
+      int c = (int)floorf(s);
+      c = min(max(c, 0), res - 1);
+      i0[a] = c;
+      const float t = __fsub_rn(s, (float)c);
+      o[a] = fminf(fmaxf(t, 0.0f), 1.0f);
+      dodx[a] = (t > 0.0f && t < 1.0f) ? (float)res
+                : (t == 0.0f || t == 1.0f) ? 0.5f * (float)res
+                                           : 0.0f;
+      odd[a] = (c & 1) == 1;
+      const bool up = u01_hash(o[a], kCoinPrimes[a][0], kCoinPrimes[a][1]) < o[a];
+      bc[a] = (c + ((odd[a] && up) ? 1 : 0)) >> 1;
+      const float upf = up ? 1.0f : 0.0f;
+      w01[a][0] = odd[a] ? upf : __fsub_rn(1.0f, o[a]);
+      w01[a][1] = odd[a] ? __fsub_rn(1.0f, upf) : o[a];
+    }
+    const uint32_t blk = block_index(bc[0], bc[1], bc[2], g.blocks_per_axis[l], g.dense[l], nblocks);
+    const int64_t off = (int64_t)l * rows_per_level * kLanes + (int64_t)(blk / kBlocksPerRow) * kLanes +
+                        (blk % kBlocksPerRow) * 8 * F;
+    float gl[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) gl[f] = __ldg(grad + i * (int64_t)num_levels * F + (int64_t)l * F + f);
+
+    if (scale != 0.0f) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float w = __fmul_rn(__fmul_rn(w01[0][(c >> 2) & 1], w01[1][(c >> 1) & 1]), w01[2][c & 1]);
+        if (w == 0.0f) continue;
+#pragma unroll
+        for (int f = 0; f < F; ++f) atomicAdd(d_table + off + c * F + f, __fmul_rn(__fmul_rn(w, gl[f]), scale));
+      }
+    }
+    if (need_pos) {
+      float dw8[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          acc = __fadd_rn(acc, __fmul_rn(gl[f], bf16_round(__ldg(table + off + c * F + f))));
+        dw8[c] = acc;
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        if (odd[a] || dodx[a] == 0.0f) continue;
+        const int b1 = a == 0 ? 1 : 0, b2 = a == 2 ? 1 : 2;  // the other two axes
+        float d_o = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int bit = (c >> (2 - a)) & 1;
+          const float other = __fmul_rn(w01[b1][(c >> (2 - b1)) & 1], w01[b2][(c >> (2 - b2)) & 1]);
+          const float term = __fmul_rn(dw8[c], other);
+          d_o = bit ? __fadd_rn(d_o, term) : __fsub_rn(d_o, term);
+        }
+        dp[a] = __fadd_rn(dp[a], __fmul_rn(d_o, dodx[a]));
+      }
+    }
+  }
+  if (need_pos) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) d_pos[3 * i + a] = dp[a];
+  }
+}
+
 template <bool kExact>
 cudaError_t launch(int features_per_level, const float* pos, const float* table,
                    float* out, int64_t n, int64_t rows_per_level, uint32_t nblocks,
@@ -194,6 +323,25 @@ cudaError_t launch(int features_per_level, const float* pos, const float* table,
   return cudaGetLastError();
 }
 
+// Validate the shared arguments and fill the per-level geometry.
+cudaError_t make_geometry(long long n, int num_levels, long long rows_per_level,
+                          long long hash_table_size, const int* resolutions,
+                          LevelGeometry* g) {
+  if (num_levels < 1 || num_levels > kMaxLevels || n < 0 || hash_table_size % 8 != 0 ||
+      hash_table_size / 8 > 0xFFFFFFFFLL || rows_per_level < 1)
+    return cudaErrorInvalidValue;
+  g->num_levels = num_levels;
+  for (int l = 0; l < num_levels; ++l) {
+    const long long res = resolutions[l];
+    if (res < 1) return cudaErrorInvalidValue;
+    const long long bs = (res + 2) / 2;
+    g->res[l] = (int)res;
+    g->blocks_per_axis[l] = (int)bs;
+    g->dense[l] = bs * bs * bs * 8 <= hash_table_size ? 1 : 0;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -206,20 +354,10 @@ int nst_hash_encode_block(const void* pos, const void* table, void* out,
                           long long n, int num_levels, int features_per_level,
                           long long rows_per_level, long long hash_table_size,
                           const int* resolutions, int exact, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || n < 0 || hash_table_size % 8 != 0 ||
-      hash_table_size / 8 > 0xFFFFFFFFLL || rows_per_level < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
   LevelGeometry g;
-  g.num_levels = num_levels;
-  for (int l = 0; l < num_levels; ++l) {
-    const long long res = resolutions[l];
-    if (res < 1) return (int)cudaErrorInvalidValue;
-    const long long bs = (res + 2) / 2;
-    g.res[l] = (int)res;
-    g.blocks_per_axis[l] = (int)bs;
-    g.dense[l] = bs * bs * bs * 8 <= hash_table_size ? 1 : 0;
-  }
+  const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
+  if (bad != cudaSuccess) return (int)bad;
+  if (n == 0) return (int)cudaSuccess;
   const uint32_t nblocks = (uint32_t)(hash_table_size / 8);
   const cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)pos;
@@ -229,6 +367,53 @@ int nst_hash_encode_block(const void* pos, const void* table, void* out,
       exact ? launch<true>(features_per_level, p, tab, o, n, rows_per_level, nblocks, g, s)
             : launch<false>(features_per_level, p, tab, o, n, rows_per_level, nblocks, g, s);
   return (int)err;
+}
+
+// K1 backward. pos (n, 3), table (num_levels, rows_per_level, 128) and grad
+// (n, num_levels * features_per_level) are f32 device inputs. d_table, of
+// the table's shape, must be zeroed by the caller and receives the table
+// gradient; d_pos (n, 3) receives the position gradient. Either may be
+// null to skip that output. scales is a host array of num_levels floats.
+// Returns a cudaError_t (0 on success).
+int nst_hash_encode_block_bwd(const void* pos, const void* table, const void* grad,
+                              void* d_table, void* d_pos, long long n, int num_levels,
+                              int features_per_level, long long rows_per_level,
+                              long long hash_table_size, const int* resolutions,
+                              const float* scales, void* stream) {
+  LevelGeometry g;
+  const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
+  if (bad != cudaSuccess) return (int)bad;
+  if (n == 0 || (d_table == nullptr && d_pos == nullptr)) return (int)cudaSuccess;
+  LevelScales sc;
+  for (int l = 0; l < num_levels; ++l) sc.scale[l] = scales[l];
+  const uint32_t nblocks = (uint32_t)(hash_table_size / 8);
+  const unsigned int grid = (unsigned int)((n + kThreads - 1) / kThreads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* p = (const float*)pos;
+  const float* tab = (const float*)table;
+  const float* gr = (const float*)grad;
+  float* dt = (float*)d_table;
+  float* dp = (float*)d_pos;
+  switch (features_per_level) {
+    case 1:
+      block_encode_bwd_kernel<1><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, rows_per_level, nblocks, g, sc);
+      break;
+    case 2:
+      block_encode_bwd_kernel<2><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, rows_per_level, nblocks, g, sc);
+      break;
+    case 4:
+      block_encode_bwd_kernel<4><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, rows_per_level, nblocks, g, sc);
+      break;
+    case 8:
+      block_encode_bwd_kernel<8><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, rows_per_level, nblocks, g, sc);
+      break;
+    case 16:
+      block_encode_bwd_kernel<16><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, rows_per_level, nblocks, g, sc);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* nst_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

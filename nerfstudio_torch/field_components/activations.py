@@ -1,13 +1,26 @@
 """Custom activations (counterpart of
-``nerfstudio_tpu/field_components/activations.py``), forward only."""
+``nerfstudio_tpu/field_components/activations.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 
+class _TruncExp(torch.autograd.Function):
+    """exp with the exponent clamped at 30 in the forward, so density cannot
+    overflow f32 into inf*delta NaNs in the transmittance cumsum; the
+    gradient is ``g * exp(clip(x, -15, 15))`` (reference :13-28)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(torch.clamp_max(x, 30.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """exp with the exponent clamped at 30, so density cannot overflow f32
-    into inf*delta NaNs in the transmittance cumsum (reference :13-16). The
-    reference's clamped backward is training work and is not ported."""
-    return torch.exp(torch.clamp_max(x, 30.0))
+    return _TruncExp.apply(x)

@@ -23,6 +23,9 @@ class Embedding(nn.Module):
         with torch.no_grad():
             self.embedding.weight.normal_(0.0, 1.0 / math.sqrt(self.out_dim), generator=generator)
 
+    def forward(self, indices: torch.Tensor) -> torch.Tensor:
+        return self.embedding(indices.long())
+
     def mean(self) -> torch.Tensor:
         """Average embedding (the eval-time appearance code)."""
         return self.embedding.weight.mean(dim=0)

@@ -16,8 +16,11 @@ from nerfstudio_torch.utils.spherical_harmonics import components_from_spherical
 class HashEncoding(nn.Module):
     """Instant-NGP multiresolution hash grid (reference encodings.py:162-230).
 
-    ``block=True`` runs K1 (stochastic one-block trilerp), ``block_exact=True``
-    runs K3 (exact 8-corner trilerp); both read the (L, S, 128) table."""
+    Both paths read the (L, S, 128) table: K1 (stochastic one-block trilerp,
+    differentiable) and K3 (exact 8-corner trilerp, forward only). The mode
+    picks one on every call: K3 only when ``block_exact`` is set and the
+    module is in eval mode, K1 otherwise, as the reference field's
+    ``block_exact=hash_block and not train and exact_eval``."""
 
     def __init__(
         self,
@@ -57,7 +60,10 @@ class HashEncoding(nn.Module):
         with torch.no_grad():
             self.hash_table.uniform_(-self.hash_init_scale, self.hash_init_scale, generator=generator)
 
-    def forward(self, in_tensor: torch.Tensor) -> torch.Tensor:
+    def forward(self, in_tensor: torch.Tensor, bwd_levels=None, bwd_scale: float = 1.0) -> torch.Tensor:
+        """``bwd_levels``/``bwd_scale``: the level-subsampled table backward
+        of K1 (``ops.hash_grid.hash_encode``)."""
+        exact = self.block_exact and not self.training
         return hash_encode(
             in_tensor.contiguous(),
             self.hash_table,
@@ -65,8 +71,10 @@ class HashEncoding(nn.Module):
             min_res=self.min_res,
             max_res=self.max_res,
             hash_table_size=self.hash_table_size,
-            block=self.block,
-            block_exact=self.block_exact,
+            block=not exact,
+            block_exact=exact,
+            bwd_levels=None if exact else bwd_levels,
+            bwd_scale=bwd_scale,
         )
 
 

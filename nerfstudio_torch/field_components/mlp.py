@@ -1,8 +1,10 @@
 """MLP field components (counterpart of
 ``nerfstudio_tpu/field_components/mlp.py``).
 
-Parameters are float32; products run in bfloat16 and the output is cast to
-float32, as the reference does (mlp.py:60-94). Products are
+Parameters are float32 master weights; products run in bfloat16 and the
+output is cast to float32, as the reference does (mlp.py:60-94). The casts
+are differentiable, so autograd carries the gradient back to the float32
+weights. Products are
 ``torch.nn.functional.linear`` (the reference leaves them to XLA too); the
 bias is added after the bf16 product, as flax's Dense does."""
 
@@ -123,5 +125,5 @@ class MLPWithHashEncoding(nn.Module):
     def get_out_dim(self) -> int:
         return self.mlp.get_out_dim()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp(self.encoding(x))
+    def forward(self, x: torch.Tensor, bwd_levels=None, bwd_scale: float = 1.0) -> torch.Tensor:
+        return self.mlp(self.encoding(x, bwd_levels=bwd_levels, bwd_scale=bwd_scale))

@@ -43,13 +43,14 @@ class Field(nn.Module):
         return density
 
     def forward(
-        self, ray_samples: RaySamples, compute_normals: bool = False
+        self, ray_samples: RaySamples, compute_normals: bool = False, **density_kwargs
     ) -> Dict[FieldHeadNames, torch.Tensor]:
-        """Density and heads (reference base_field.py:54-86). Normals from the
-        density gradient are not ported."""
+        """Density and heads (reference base_field.py:54-86). ``density_kwargs``
+        go to ``get_density`` (nerfacto's ``bwd_levels`` gate). Normals from
+        the density gradient are not ported."""
         if compute_normals:
             raise NotImplementedError("density-gradient normals are not ported")
-        density, density_embedding = self.get_density(ray_samples)
+        density, density_embedding = self.get_density(ray_samples, **density_kwargs)
         field_outputs = self.get_outputs(ray_samples, density_embedding=density_embedding)
         field_outputs[FieldHeadNames.DENSITY] = density
         return field_outputs

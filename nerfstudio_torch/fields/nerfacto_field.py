@@ -1,10 +1,13 @@
 """Nerfacto field (counterpart of ``nerfstudio_tpu/fields/nerfacto_field.py``).
 
 Block hash grid + base MLP -> (density, 15 geo features); SH(4) direction
-encoding; the mean appearance embedding; colour MLP (3 x 64, sigmoid). The
-eval forward only: the exact 8-corner trilerp (K3), or the stochastic one
-(K1) with ``exact_eval=False``. Transient, semantic and predicted-normal
-heads are not ported (the config can ask only for predicted normals)."""
+encoding; the per-camera appearance embedding in training, its mean at
+eval; colour MLP (3 x 64, sigmoid). The mode picks the hash path on every
+call: training (and the occupancy update) runs the stochastic trilerp K1,
+with its level-subsampled backward; eval runs the exact 8-corner trilerp
+K3, or K1 with ``exact_eval=False``. Transient, semantic and
+predicted-normal heads are not ported (the config can ask only for
+predicted normals)."""
 
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ class NerfactoField(Field):
             num_layers=num_layers,
             layer_width=hidden_dim,
             out_dim=1 + geo_feat_dim,
-            block=not exact_eval,
+            block=True,
             block_exact=exact_eval,
             device=device,
         )
@@ -92,10 +95,16 @@ class NerfactoField(Field):
             device=device,
         )
 
-    def get_density(self, ray_samples: RaySamples):
-        """(reference nerfacto_field.py:134-151)"""
-        if self.training:
-            raise NotImplementedError("the training forward is not ported: call .eval()")
+    def density_from_normalized(self, positions01: torch.Tensor) -> torch.Tensor:
+        """Density at contracted, normalised coordinates in [0,1]^3, the
+        occupancy update's hook (reference nerfacto_field.py:123-132)."""
+        selector = torch.all((positions01 > 0.0) & (positions01 < 1.0), dim=-1, keepdim=True)
+        h = self.mlp_base(positions01 * selector)
+        return self.average_init_density * trunc_exp(h[..., :1]) * selector
+
+    def get_density(self, ray_samples: RaySamples, bwd_levels=None, bwd_scale: float = 1.0):
+        """(reference nerfacto_field.py:134-151). ``bwd_levels``/``bwd_scale``:
+        the level-subsampled table backward (``ops.hash_grid.hash_encode``)."""
         positions = ray_samples.frustums.get_positions()
         if not self.disable_scene_contraction:
             positions = (SceneContraction(order="inf")(positions) + 2.0) / 4.0
@@ -104,7 +113,7 @@ class NerfactoField(Field):
             positions = SceneBox.get_normalized_positions(positions, aabb)
         selector = torch.all((positions > 0.0) & (positions < 1.0), dim=-1, keepdim=True)
         positions = positions * selector
-        h = self.mlp_base(positions)
+        h = self.mlp_base(positions, bwd_levels=bwd_levels, bwd_scale=bwd_scale)
         density_before, geo_feat = h[..., :1], h[..., 1:]
         density = self.average_init_density * trunc_exp(density_before)
         return density * selector, geo_feat
@@ -112,17 +121,19 @@ class NerfactoField(Field):
     def get_outputs(
         self, ray_samples: RaySamples, density_embedding: Optional[torch.Tensor] = None
     ) -> Dict[FieldHeadNames, torch.Tensor]:
-        """(reference nerfacto_field.py:153-199), eval branch."""
+        """(reference nerfacto_field.py:153-199)"""
         assert density_embedding is not None
         directions = get_normalized_directions(ray_samples.frustums.directions)
         head_inputs = [self.direction_encoding(directions), density_embedding]
         if self.use_appearance_embedding:
-            if self.use_average_appearance_embedding:
-                mean_emb = self.embedding_appearance.mean()
+            if self.training and ray_samples.camera_indices is not None:
+                emb = self.embedding_appearance(ray_samples.camera_indices[..., 0])
             else:
-                mean_emb = density_embedding.new_zeros((self.appearance_embedding_dim,))
-            head_inputs.append(
-                mean_emb.expand(density_embedding.shape[:-1] + (self.appearance_embedding_dim,))
-            )
+                if self.use_average_appearance_embedding:
+                    mean_emb = self.embedding_appearance.mean()
+                else:
+                    mean_emb = density_embedding.new_zeros((self.appearance_embedding_dim,))
+                emb = mean_emb.expand(density_embedding.shape[:-1] + (self.appearance_embedding_dim,))
+            head_inputs.append(emb)
         rgb = self.mlp_head(torch.cat(head_inputs, dim=-1))
         return {FieldHeadNames.RGB: rgb}

@@ -2,10 +2,12 @@
 
 Samplers are plain callables of (RayBundle, generator) that return
 fixed-shape RaySamples. Randomness enters only through an explicit
-``torch.Generator``; ``generator=None`` gives the deterministic midpoints of
-the eval path. The reference's comparison-count ``searchsorted_batched``
-maps to ``torch.searchsorted(side="left")`` and its one-hot
-``take_last_axis`` to ``torch.gather``."""
+``torch.Generator``, or as the uniforms themselves (``uniforms=``), which is
+how a test hands in the reference's draws; with neither, the samplers take
+the deterministic midpoints of the eval path. The reference's
+comparison-count ``searchsorted_batched`` maps to
+``torch.searchsorted(side="left")`` and its one-hot ``take_last_axis`` to
+``torch.gather``."""
 
 from __future__ import annotations
 
@@ -49,15 +51,20 @@ class SpacedSampler:
         ray_bundle: RayBundle,
         generator: Optional[torch.Generator] = None,
         num_samples: Optional[int] = None,
+        uniforms: Optional[torch.Tensor] = None,
     ) -> RaySamples:
+        """``uniforms``: the jitter in [0, 1), (..., 1) with ``single_jitter``
+        else (..., n+1); drawn from ``generator`` when not given."""
         n = num_samples or self.num_samples
         num_rays = ray_bundle.shape
         device = ray_bundle.origins.device
         bins = linspace(0.0, 1.0, n + 1, device).expand(num_rays + (n + 1,))
 
-        if self.train_stratified and generator is not None:
-            jitter_shape = num_rays + ((1,) if self.single_jitter else (n + 1,))
-            t_rand = torch.rand(jitter_shape, generator=generator, device=device)
+        jitter_shape = num_rays + ((1,) if self.single_jitter else (n + 1,))
+        if self.train_stratified and generator is not None and uniforms is None:
+            uniforms = torch.rand(jitter_shape, generator=generator, device=device)
+        if self.train_stratified and uniforms is not None:
+            t_rand = uniforms.reshape(jitter_shape)
             bin_centers = (bins[..., 1:] + bins[..., :-1]) / 2.0
             bin_upper = torch.cat([bin_centers, bins[..., -1:]], dim=-1)
             bin_lower = torch.cat([bins[..., :1], bin_centers], dim=-1)
@@ -130,7 +137,10 @@ class PDFSampler:
         weights: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         num_samples: Optional[int] = None,
+        uniforms: Optional[torch.Tensor] = None,
     ) -> RaySamples:
+        """``uniforms``: the jitter in [0, 1), (..., 1) with ``single_jitter``
+        else (..., n+1); drawn from ``generator`` when not given."""
         n = num_samples or self.num_samples
         num_bins = n + 1
         w = weights[..., 0] + self.histogram_padding  # (..., S)
@@ -147,9 +157,11 @@ class PDFSampler:
 
         lead = tuple(cdf.shape[:-1])
         u = linspace(0.0, 1.0 - (1.0 / num_bins), num_bins, cdf.device)
-        if self.train_stratified and generator is not None:
-            jitter_shape = lead + ((1,) if self.single_jitter else (num_bins,))
-            u = u + torch.rand(jitter_shape, generator=generator, device=cdf.device) / num_bins
+        jitter_shape = lead + ((1,) if self.single_jitter else (num_bins,))
+        if self.train_stratified and generator is not None and uniforms is None:
+            uniforms = torch.rand(jitter_shape, generator=generator, device=cdf.device)
+        if self.train_stratified and uniforms is not None:
+            u = u + uniforms.reshape(jitter_shape) / num_bins
         else:
             u = u + 1.0 / (2 * num_bins)
         u = u.expand(lead + (num_bins,))
@@ -177,6 +189,17 @@ class PDFSampler:
 
 
 @dataclasses.dataclass(frozen=True)
+class SamplerUniforms:
+    """The proposal sampler's draws, each in [0, 1): the probe jitter and
+    one jitter per round (proposal rounds, then the field's), each
+    (num_rays, 1) with ``single_jitter``. A None entry is drawn from the
+    generator."""
+
+    probes: Optional[torch.Tensor]
+    rounds: Tuple[Optional[torch.Tensor], ...]
+
+
+@dataclasses.dataclass(frozen=True)
 class ProposalNetworkSampler:
     """Hierarchical proposal sampling (reference :226-322).
 
@@ -184,9 +207,8 @@ class ProposalNetworkSampler:
     ``initial_weights_fn`` (probe RaySamples -> (R, P, 1) weights) replaces
     the first proposal round with a net-free weight source such as the
     occupancy grid; its probes use ``num_initial_probes`` samples. The
-    proposal weight anneal is an explicit argument. The reference's other
-    initial samplers and its proposal-gradient gating (training) are not
-    ported."""
+    proposal weight anneal and the proposal-gradient gate are explicit
+    arguments. The reference's other initial samplers are not ported."""
 
     num_proposal_samples_per_ray: Tuple[int, ...] = (64,)
     num_nerf_samples_per_ray: int = 32
@@ -208,8 +230,15 @@ class ProposalNetworkSampler:
         density_fns: List[Callable[[torch.Tensor], torch.Tensor]],
         generator: Optional[torch.Generator] = None,
         anneal: float = 1.0,
+        update_proposals: bool = True,
+        uniforms: Optional["SamplerUniforms"] = None,
     ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
+        """``update_proposals=False`` runs the proposal densities without a
+        graph, so no gradient reaches the proposal nets (reference :304-312).
+        ``uniforms`` replaces the draws from ``generator``."""
         assert len(density_fns) == self.num_proposal_network_iterations
+        if uniforms is None:
+            uniforms = SamplerUniforms(None, (None,) * (self.num_proposal_network_iterations + 1))
         initial = UniformLinDispPiecewiseSampler(
             self.num_proposal_samples_per_ray[0], single_jitter=self.single_jitter
         )
@@ -221,18 +250,26 @@ class ProposalNetworkSampler:
         ray_samples: Optional[RaySamples] = None
         if self.initial_weights_fn is not None:
             # round 0 from a net-free weight source (occupancy grid probes)
-            ray_samples = initial(ray_bundle, generator=generator, num_samples=self.num_initial_probes)
+            ray_samples = initial(
+                ray_bundle, generator=generator, num_samples=self.num_initial_probes, uniforms=uniforms.probes
+            )
             weights = self.initial_weights_fn(ray_samples).detach()
         for i in range(self.num_proposal_network_iterations + 1):
             is_prop = i < self.num_proposal_network_iterations
             num_samples = self.num_proposal_samples_per_ray[i] if is_prop else self.num_nerf_samples_per_ray
             if i == 0 and weights is None:
-                ray_samples = initial(ray_bundle, generator=generator, num_samples=num_samples)
+                ray_samples = initial(
+                    ray_bundle, generator=generator, num_samples=num_samples, uniforms=uniforms.rounds[i]
+                )
             else:
                 annealed = torch.pow(weights, anneal)  # (reference :301-305)
-                ray_samples = pdf(ray_bundle, ray_samples, annealed, generator=generator, num_samples=num_samples)
+                ray_samples = pdf(
+                    ray_bundle, ray_samples, annealed, generator=generator, num_samples=num_samples,
+                    uniforms=uniforms.rounds[i],
+                )
             if is_prop:
-                density = density_fns[i](ray_samples.frustums.get_positions())
+                with torch.set_grad_enabled(update_proposals and torch.is_grad_enabled()):
+                    density = density_fns[i](ray_samples.frustums.get_positions())
                 weights = ray_samples.get_weights(density)
                 weights_list.append(weights)
                 ray_samples_list.append(ray_samples)

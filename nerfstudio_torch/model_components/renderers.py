@@ -3,7 +3,7 @@ composite per-sample (..., num_samples, C) quantities along rays."""
 
 from __future__ import annotations
 
-from typing import Literal
+from typing import Literal, Optional
 
 import torch
 
@@ -14,11 +14,13 @@ def render_rgb(
     rgb: torch.Tensor,
     weights: torch.Tensor,
     background_color: Literal["last_sample", "black", "white"] = "last_sample",
-) -> torch.Tensor:
+    return_background: bool = False,
+):
     """Weighted-sum compositing + background fill (reference :61-85).
 
-    rgb: (..., S, 3); weights: (..., S, 1) -> (..., 3). The random
-    background (training only) and the override context are not ported."""
+    rgb: (..., S, 3); weights: (..., S, 1) -> (..., 3), and the background
+    used with ``return_background``. The random background and the
+    override context are not ported."""
     comp = torch.sum(weights * rgb, dim=-2)
     accumulation = torch.sum(weights, dim=-2)
     if background_color == "last_sample":
@@ -27,7 +29,25 @@ def render_rgb(
         bg = torch.tensor(_COLORS[background_color], device=comp.device)
     else:
         raise NotImplementedError(f"background {background_color!r} is not ported")
-    return comp + bg * (1.0 - accumulation)
+    out = comp + bg * (1.0 - accumulation)
+    if return_background:
+        return out, bg
+    return out
+
+
+def blend_background_for_loss_computation(
+    pred_image: torch.Tensor,
+    gt_image: torch.Tensor,
+    background: Optional[torch.Tensor] = None,
+):
+    """(pred, gt) for the rgb loss (reference :97-120): an RGBA ground truth
+    is blended over the background the renderer used (black without one);
+    RGB passes as is."""
+    if gt_image.shape[-1] != 4:
+        return pred_image, gt_image
+    alpha = gt_image[..., 3:]
+    bg = background if background is not None else torch.zeros_like(pred_image)
+    return pred_image, gt_image[..., :3] * alpha + bg * (1.0 - alpha)
 
 
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,24 @@
-"""Nerfacto, eval forward (counterpart of ``nerfstudio_tpu/models/nerfacto.py``).
+"""Nerfacto (counterpart of ``nerfstudio_tpu/models/nerfacto.py``).
 
-NearFarCollider -> occupancy-grid probes -> PDF -> block-layout proposal
-density field (K1) -> PDF -> NerfactoField (K3 exact trilerp) -> rgb,
-median and expected depth, accumulation. The config keeps the reference's
-field names and defaults. Not ported: the training forward, losses,
-callbacks and the occupancy-grid update, and the sampling options the
-shipped config does not use (checked in ``NerfactoModel.__init__``)."""
+SO3xR3 camera-opt (training) -> NearFarCollider -> occupancy-grid probes
+-> PDF -> block-layout proposal density field (K1) -> PDF -> NerfactoField
+(K1 in training, K3 exact trilerp at eval) -> rgb, median and expected
+depth, accumulation; in training also the rgb, interlevel, distortion and
+camera-opt losses, the per-step schedule (``step_kwargs``) and the
+occupancy-grid update hook (``make_aux_update_fn``). The config keeps the
+reference's field names and defaults. Not ported: the sampling options
+the shipped config does not use (checked in ``NerfactoModel.__init__``)
+and the predicted-normal losses."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Literal, Optional, Tuple
+from typing import Callable, Dict, Literal, Optional, Tuple
 
+import numpy as np
 import torch
 
+from nerfstudio_torch.cameras.camera_optimizers import CameraOptimizer, camera_opt_regularizer
 from nerfstudio_torch.core.rays import RayBundle
 from nerfstudio_torch.field_components.embedding import Embedding
 from nerfstudio_torch.field_components.encodings import HashEncoding
@@ -23,10 +28,17 @@ from nerfstudio_torch.field_components.spatial_distortions import SceneContracti
 from nerfstudio_torch.fields.density_fields import HashMLPDensityField
 from nerfstudio_torch.fields.nerfacto_field import NerfactoField
 from nerfstudio_torch.model_components import renderers
-from nerfstudio_torch.model_components.ray_samplers import ProposalNetworkSampler
+from nerfstudio_torch.model_components.losses import distortion_loss, interlevel_loss, mse_loss
+from nerfstudio_torch.model_components.ray_samplers import ProposalNetworkSampler, SamplerUniforms
 from nerfstudio_torch.model_components.scene_colliders import NearFarCollider
 from nerfstudio_torch.models.base_model import Model, ModelConfig
-from nerfstudio_torch.ops.occupancy import OccupancyGridState, init_occupancy_grid, probe_occupancy
+from nerfstudio_torch.ops.occupancy import (
+    OccupancyGridState,
+    init_occupancy_grid,
+    probe_occupancy,
+    update_occupancy_grid,
+)
+from nerfstudio_torch.utils.metrics import psnr
 
 
 @dataclasses.dataclass
@@ -96,8 +108,9 @@ class NerfactoModelConfig(ModelConfig):
 
 
 class NerfactoModel(Model):
-    """(reference nerfacto.py:180-401), eval forward of the shipped sampling
-    stack: occupancy-grid probes, then one learned proposal round."""
+    """(reference nerfacto.py:180-571) with the shipped sampling stack:
+    occupancy-grid probes, then one learned proposal round. The mode
+    (``.train()``/``.eval()``) plays the reference's ``train`` flag."""
 
     def __init__(self, config: NerfactoModelConfig, scene_aabb=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)),
                  num_train_data: int = 1, device=None):
@@ -147,6 +160,10 @@ class NerfactoModel(Model):
                 **net_args,
             )
         ])
+        self.camera_optimizer = CameraOptimizer(
+            num_cameras=num_train_data, mode=cfg.camera_optimizer_mode,
+            zero_mean_gauge=cfg.camera_opt_zero_mean, device=device,
+        )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every parameter as the reference's init does, from ``generator``."""
@@ -159,16 +176,26 @@ class NerfactoModel(Model):
         ray_bundle: RayBundle,
         model_aux: Optional[OccupancyGridState] = None,
         anneal: float = 1.0,
+        update_proposals: bool = True,
+        field_bwd_levels: Optional[Tuple[int, ...]] = None,
+        field_bwd_scale: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+        uniforms: Optional[SamplerUniforms] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Render a batch of rays; ``model_aux`` is the occupancy grid over the
-        contracted, normalised cube (``init_aux``)."""
+        """Render a batch of rays (reference :262-401); ``model_aux`` is the
+        occupancy grid over the contracted, normalised cube (``init_aux``).
+        In training the camera-opt correction applies, the samplers jitter
+        from ``generator`` (or take ``uniforms``), ``update_proposals``
+        gates the proposal gradient and ``field_bwd_levels``/``_scale`` the
+        field's table gradient; the outputs then also carry the background
+        and the per-round weights and samples the losses need."""
         cfg = self.config
-        if self.training:
-            raise NotImplementedError("the training forward is not ported: call model.eval()")
         if model_aux is None:
             raise ValueError("nerfacto renders through its occupancy grid: pass model_aux")
+        if self.training:
+            ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
         if ray_bundle.nears is None or ray_bundle.fars is None:
-            ray_bundle = NearFarCollider(cfg.near_plane, cfg.far_plane)(ray_bundle, training=False)
+            ray_bundle = NearFarCollider(cfg.near_plane, cfg.far_plane)(ray_bundle, training=self.training)
 
         def initial_weights_fn(probe_samples):
             pos01 = (SceneContraction(order="inf")(probe_samples.frustums.get_positions()) + 2.0) / 4.0
@@ -183,21 +210,121 @@ class NerfactoModel(Model):
             num_initial_probes=cfg.occ_num_probes,
         )
         density_fns = [net.density_fn for net in self.proposal_networks]
-        ray_samples, weights_list, ray_samples_list = sampler(ray_bundle, density_fns, anneal=anneal)
+        ray_samples, weights_list, ray_samples_list = sampler(
+            ray_bundle, density_fns, generator=generator if self.training else None, anneal=anneal,
+            update_proposals=update_proposals, uniforms=uniforms if self.training else None,
+        )
 
-        field_outputs = self.field(ray_samples, compute_normals=cfg.predict_normals)
+        field_outputs = self.field(
+            ray_samples, compute_normals=cfg.predict_normals,
+            bwd_levels=field_bwd_levels if self.training else None, bwd_scale=field_bwd_scale,
+        )
         weights = ray_samples.get_weights(field_outputs[FieldHeadNames.DENSITY])
-        return {
-            "rgb": renderers.render_rgb(
-                field_outputs[FieldHeadNames.RGB], weights, background_color=cfg.background_color
-            ),
+        rgb, background = renderers.render_rgb(
+            field_outputs[FieldHeadNames.RGB], weights, background_color=cfg.background_color,
+            return_background=True,
+        )
+        outputs = {
+            "rgb": rgb,
             "accumulation": renderers.render_accumulation(weights),
             "depth": renderers.render_depth(weights, ray_samples, method="median"),
             "expected_depth": renderers.render_depth(weights, ray_samples, method="expected"),
             "prop_depth_0": renderers.render_depth(weights_list[0], ray_samples_list[0], method="median"),
         }
+        if self.training:
+            outputs["background"] = background
+            outputs["weights_list"] = weights_list + [weights]
+            outputs["ray_samples_list"] = ray_samples_list + [ray_samples]
+        return outputs
+
+    def get_metrics_dict(self, outputs, batch) -> Dict[str, torch.Tensor]:
+        """(reference :448-464). The distortion metric keeps its graph: the
+        distortion loss reuses it."""
+        pred, gt = renderers.blend_background_for_loss_computation(
+            outputs["rgb"], batch["image"], background=outputs.get("background")
+        )
+        metrics = {"psnr": psnr(pred.detach(), gt)}
+        if "weights_list" in outputs:
+            metrics["distortion"] = distortion_loss(outputs["weights_list"], outputs["ray_samples_list"])
+        if self.camera_optimizer.mode != "off":
+            with torch.no_grad():
+                pose_adj = self.camera_optimizer.pose_adjustment
+                metrics["camera_opt_translation"] = torch.linalg.norm(pose_adj[:, :3], dim=-1).mean()
+                metrics["camera_opt_rotation"] = torch.linalg.norm(pose_adj[:, 3:], dim=-1).mean()
+        return metrics
+
+    def get_loss_dict(self, outputs, batch, metrics_dict=None) -> Dict[str, torch.Tensor]:
+        """(reference :466-539), without the predicted-normal losses."""
+        cfg = self.config
+        pred, gt = renderers.blend_background_for_loss_computation(
+            outputs["rgb"], batch["image"], background=outputs.get("background")
+        )
+        loss_dict = {"rgb_loss": mse_loss(pred, gt)}
+        if "weights_list" in outputs:
+            loss_dict["interlevel_loss"] = cfg.interlevel_loss_mult * interlevel_loss(
+                outputs["weights_list"], outputs["ray_samples_list"]
+            )
+            if metrics_dict and "distortion" in metrics_dict:
+                dist = metrics_dict["distortion"]
+            else:
+                dist = distortion_loss(outputs["weights_list"], outputs["ray_samples_list"])
+            loss_dict["distortion_loss"] = cfg.distortion_loss_mult * dist
+            if self.camera_optimizer.mode != "off":
+                loss_dict["camera_opt_regularizer"] = camera_opt_regularizer(
+                    self.camera_optimizer.pose_adjustment, trans_l2_penalty=1e-2, rot_l2_penalty=1e-3
+                )
+        return loss_dict
+
+    @staticmethod
+    def step_kwargs(step: int, config: NerfactoModelConfig) -> Dict:
+        """Per-step proposal-weight anneal, proposal-update gate and
+        level-subsampled field backward (reference :543-571)."""
+        kwargs = {}
+        if config.use_proposal_weight_anneal:
+            n = config.proposal_weights_anneal_max_num_iters
+            t = np.clip(step / n, 0, 1)
+            s = config.proposal_weights_anneal_slope
+            kwargs["anneal"] = float((s * t) / ((s - 1) * t + 1))
+        else:
+            kwargs["anneal"] = 1.0
+        # update every step during warm-up, ramping to every N after
+        every = int(
+            np.clip(
+                np.interp(step, [0, config.proposal_warmup], [0, config.proposal_update_every]),
+                1,
+                config.proposal_update_every,
+            )
+        )
+        kwargs["update_proposals"] = step < config.proposal_warmup or step % every == 0
+        if config.proposal_freeze_after and step >= config.proposal_freeze_after:
+            kwargs["update_proposals"] = False
+        P = config.field_bwd_level_period
+        if P and step >= config.field_bwd_level_warmup:
+            kwargs["field_bwd_levels"] = tuple(l for l in range(config.num_levels) if l % P == step % P)
+            kwargs["field_bwd_scale"] = float(P)
+        return kwargs
 
     @staticmethod
     def init_aux(model: "NerfactoModel", config: NerfactoModelConfig, device=None) -> OccupancyGridState:
         """A fully occupied grid over the contracted, normalised cube (reference :405-413)."""
         return init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), config.occ_grid_resolution, device)
+
+    @staticmethod
+    def make_aux_update_fn(model: "NerfactoModel", config: NerfactoModelConfig) -> Callable:
+        """The occupancy hook (reference :416-446): from step
+        ``occ_warmup_steps``, every ``occ_update_every`` steps, refresh
+        ``occ_cells_per_update`` random cells of ``state.aux`` with the
+        field's density (K1 forward, no graph). Call it before the step's
+        train step. ``cells``/``jitter`` hand the draws in."""
+
+        def hook(state, step: int, generator: Optional[torch.Generator] = None, cells=None, jitter=None):
+            if state.aux is None or step < config.occ_warmup_steps or step % config.occ_update_every != 0:
+                return state
+            state.aux = update_occupancy_grid(
+                state.aux, model.field.density_from_normalized, generator,
+                occ_thre=config.occ_threshold, ema_decay=config.occ_ema_decay,
+                cells_per_update=config.occ_cells_per_update, cells=cells, jitter=jitter,
+            )
+            return state
+
+        return hook

@@ -1,20 +1,22 @@
-"""Multiresolution hash-grid encoding (Instant-NGP), block-packed layout,
-forward only.
+"""Multiresolution hash-grid encoding (Instant-NGP), block-packed layout.
 
 Counterpart of ``nerfstudio_tpu/ops/hash_grid.py``. Tables keep the JAX
 package's ``(L, S, 128)`` float32 layout, so JAX tables load without
 repacking. Two paths are ported:
 
-* ``hash_encode(block=True)`` (K1 forward): one 2x2x2 vertex block per
+* ``hash_encode(block=True)`` (K1): one 2x2x2 vertex block per
   (sample, level), odd axes rounded stochastically from a hash of the cell
-  offset's float bits;
+  offset's float bits. Differentiable: a ``torch.autograd.Function`` whose
+  backward (K1 bwd, with the reference's one-hot K2 folded in) scatters the
+  table gradient and carries the corner-weight gradient to the positions.
+  ``bwd_levels``/``bwd_scale`` give the level-subsampled backward;
 * ``hash_encode(block_exact=True)`` (K3): the exact 8-corner trilerp through
-  the same layout.
+  the same layout, forward only (only the eval render reaches it).
 
 Each dispatches on the device of its inputs: CUDA tensors go to the
-hand-written kernel in ``csrc/hash_grid.cu`` (or the call raises), CPU
-tensors go to the plain PyTorch twin in this module. The flat layout (K7),
-the one-corner and z-pair paths and every backward are not ported.
+hand-written kernels in ``csrc/hash_grid.cu`` (or the call raises), CPU
+tensors go to the plain PyTorch twins in this module. The flat layout (K7)
+and the one-corner and z-pair paths are not ported.
 
 Integer hashing runs on int64 with the uint32 wrap made explicit
 (``_mul32``), so the twin reproduces the reference's uint32 arithmetic
@@ -24,7 +26,7 @@ bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +42,11 @@ _COIN_PRIMES = (
 )
 
 # Launches of each hand-written kernel, counted where the kernel is launched.
-launch_counts: Dict[str, int] = {"hash_encode_block": 0, "hash_encode_block_exact": 0}
+launch_counts: Dict[str, int] = {
+    "hash_encode_block": 0,
+    "hash_encode_block_exact": 0,
+    "hash_encode_block_bwd": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -57,7 +63,7 @@ def _mul32(a: torch.Tensor, p: int) -> torch.Tensor:
 
 def _u01_hash(o: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
     """Uniform variate in [0, 1) from a float32's bits (reference :45-50)."""
-    b = o.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    b = o.detach().contiguous().view(torch.int32).to(torch.int64) & _MASK32
     h = _mul32(b, p1) ^ _mul32(b >> 7, p2)
     return (h >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
@@ -93,15 +99,49 @@ def _block_index(bx, by, bz, bs: int, dense_b: bool, nblocks: int) -> torch.Tens
     return _hash_corner(bx, by, bz, nblocks)
 
 
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """Clip to [0, 1] with the reference's gradient: ``jnp.clip`` is a
+    max/min pair whose derivative is 1/2 where the input sits exactly on a
+    bound, and torch's ``maximum``/``minimum`` split ties the same way
+    (``torch.clamp`` would pass 1)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def _base_cells(positions: torch.Tensor, res: int):
-    """Per axis: base cell clipped to [0, res-1] and its offset in [0, 1]."""
+    """Per axis: base cell clipped to [0, res-1] and its offset in [0, 1],
+    differentiable in the positions."""
     cells = []
     for a in range(3):
         s = positions[:, a] * res
-        i0 = torch.clamp(torch.floor(s).to(torch.int64), 0, res - 1)
-        o = torch.clamp(s - i0.to(torch.float32), 0.0, 1.0)
-        cells.append((i0, o))
+        i0 = torch.clamp(torch.floor(s.detach()).to(torch.int64), 0, res - 1)
+        cells.append((i0, _clip01(s - i0.to(torch.float32))))
     return cells
+
+
+def _level_blocks(positions: torch.Tensor, res: int, hash_table_size: int, bpr: int, dtype=torch.float32):
+    """One level of the stochastic block layout: ``(rows, slot, w8)``. The
+    corner weights ``w8`` (n, 8) are built in ``dtype`` from the float32 cell
+    offsets and carry autograd to the positions through the even axes."""
+    bs, dense_b = _block_level_layout(res, hash_table_size)
+    bcoords, pweights = [], []
+    for (i0, o), (p1, p2) in zip(_base_cells(positions, res), _COIN_PRIMES):
+        odd = (i0 & 1) == 1
+        up = _u01_hash(o, p1, p2) < o
+        # block of the chosen vertex on odd axes, of the base on even ones
+        bcoords.append((i0 + (odd & up).to(torch.int64)) >> 1)
+        upf = up.to(dtype)
+        od = o.to(dtype)
+        pweights.append((torch.where(odd, upf, 1.0 - od), torch.where(odd, 1.0 - upf, od)))
+    blk = _block_index(*bcoords, bs, dense_b, hash_table_size // 8)
+    (wx0, wx1), (wy0, wy1), (wz0, wz1) = pweights
+    w8 = torch.stack(
+        [
+            (wx1 if (c >> 2) & 1 else wx0) * (wy1 if (c >> 1) & 1 else wy0) * (wz1 if c & 1 else wz0)
+            for c in range(8)
+        ],
+        dim=-1,
+    )
+    return blk // bpr, blk % bpr, w8
 
 
 def block_level_geometry(
@@ -117,35 +157,10 @@ def block_level_geometry(
     layout (reference :611-682). positions: (n, 3) in [0, 1]."""
     epr = 128 // features_per_level
     assert hash_table_size % 8 == 0 and epr % 8 == 0
-    bpr = epr // 8
-    nblocks = hash_table_size // 8
-    out = []
-    for res in compute_level_resolutions(num_levels, min_res, max_res):
-        res = int(res)
-        bs, dense_b = _block_level_layout(res, hash_table_size)
-        bcoords, pweights = [], []
-        for (i0, o), (p1, p2) in zip(_base_cells(positions, res), _COIN_PRIMES):
-            odd = (i0 & 1) == 1
-            up = _u01_hash(o, p1, p2) < o
-            # block of the chosen vertex on odd axes, of the base on even ones
-            bcoords.append((i0 + (odd & up).to(torch.int64)) >> 1)
-            upf = up.to(torch.float32)
-            pweights.append(
-                (torch.where(odd, upf, 1.0 - o), torch.where(odd, 1.0 - upf, o))
-            )
-        blk = _block_index(*bcoords, bs, dense_b, nblocks)
-        (wx0, wx1), (wy0, wy1), (wz0, wz1) = pweights
-        w8 = torch.stack(
-            [
-                (wx1 if (c >> 2) & 1 else wx0)
-                * (wy1 if (c >> 1) & 1 else wy0)
-                * (wz1 if c & 1 else wz0)
-                for c in range(8)
-            ],
-            dim=-1,
-        )
-        out.append((blk // bpr, blk % bpr, w8))
-    return out
+    return [
+        _level_blocks(positions, int(res), hash_table_size, epr // 8)
+        for res in compute_level_resolutions(num_levels, min_res, max_res)
+    ]
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -153,11 +168,17 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _block_lanes(rows: torch.Tensor, slot: torch.Tensor, f: int) -> torch.Tensor:
+    """(n, 8F) flat lane indices of each sample's block within one level."""
+    lane0 = rows * 128 + slot * (8 * f)
+    return lane0[:, None] + torch.arange(8 * f, device=rows.device)
+
+
 def _block_stochastic_twin(
     pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int, hash_table_size: int
 ) -> torch.Tensor:
     """Plain PyTorch K1 forward: (n, 3) -> (n, L*F)."""
-    L, _, lanes = table.shape
+    L = table.shape[0]
     F = 128 * table.shape[1] // hash_table_size
     n = pos.shape[0]
     geom = block_level_geometry(
@@ -165,12 +186,56 @@ def _block_stochastic_twin(
         hash_table_size=hash_table_size, features_per_level=F,
     )
     out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
-    corner_lanes = torch.arange(8 * F, device=pos.device)
     for l, (rows, slot, w8) in enumerate(geom):
-        lane0 = rows * lanes + slot * (8 * F)
-        vals = _bf16(table[l].reshape(-1)[lane0[:, None] + corner_lanes]).view(n, 8, F)
+        vals = _bf16(table[l].reshape(-1)[_block_lanes(rows, slot, F)]).view(n, 8, F)
         out[:, l * F : (l + 1) * F] = (w8[:, :, None] * vals).sum(dim=1)
     return out
+
+
+def _block_stochastic_twin_bwd(
+    pos: torch.Tensor,
+    table: torch.Tensor,
+    grad: torch.Tensor,
+    scales: Sequence[float],
+    *,
+    min_res: int,
+    max_res: int,
+    hash_table_size: int,
+    need_positions: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch K1 backward (reference ``_row_gather_block_tw_bwd`` and
+    ``_row_gather_block_tw_oh_bwd`` behind ``_grad_scale``/``stop_gradient``).
+
+    grad: (n, L*F) cotangent of the encoding. Returns ``d_table`` (L, S, 128)
+    and ``d_positions`` (n, 3) (None unless ``need_positions``), summed in
+    ``dtype``: row ``rows``, lane ``slot*8F + c*F + f`` of level l gets
+    ``scales[l] * w8[c] * g[l*F+f]`` (a level of scale 0 gets nothing), and
+    ``d_w8[c] = sum_f g[l*F+f] * bf16(table value)`` on every level goes to
+    the positions by autograd through ``_level_blocks``, whose clip carries
+    the reference's 1/2 at exact cell corners. The geometry stays float32
+    whatever ``dtype`` is, so a float64 run takes the same blocks."""
+    L, S, lanes = table.shape
+    F = 128 * S // hash_table_size
+    n = pos.shape[0]
+    d_table = torch.zeros((L, S * lanes), dtype=dtype, device=pos.device)
+    d_pos = torch.zeros((n, 3), dtype=dtype, device=pos.device) if need_positions else None
+    for l, res in enumerate(compute_level_resolutions(L, min_res, max_res)):
+        if not (scales[l] or need_positions):
+            continue
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(need_positions)
+            rows, slot, w8 = _level_blocks(p, int(res), hash_table_size, 16 // F, dtype)
+        lanes_idx = _block_lanes(rows, slot, F)
+        g = grad[:, l * F : (l + 1) * F].to(dtype)
+        if scales[l]:
+            contrib = scales[l] * w8.detach()[:, :, None] * g[:, None, :]
+            d_table[l].index_add_(0, lanes_idx.reshape(-1), contrib.reshape(-1))
+        if need_positions:
+            vals = _bf16(table[l].reshape(-1)[lanes_idx]).to(dtype).view(n, 8, F)
+            d_w8 = (g[:, None, :] * vals).sum(dim=-1)
+            d_pos += torch.autograd.grad(w8, p, d_w8)[0].to(dtype)
+    return d_table.view(L, S, lanes), d_pos
 
 
 def _block_exact_trilerp(table_l, ix0, iy0, iz0, ox, oy, oz, *, bs, dense_b, nblocks, bpr, f):
@@ -217,44 +282,106 @@ def _kernel_library() -> ctypes.CDLL:
         from nerfstudio_torch.ops import cuda_build
 
         lib = cuda_build.load("hash_grid")
-        lib.nst_hash_encode_block.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
-        ]
+        geometry = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.POINTER(ctypes.c_int)]
+        lib.nst_hash_encode_block.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_int, ctypes.c_void_p]
         lib.nst_hash_encode_block.restype = ctypes.c_int
+        lib.nst_hash_encode_block_bwd.argtypes = (
+            [ctypes.c_void_p] * 5 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+        )
+        lib.nst_hash_encode_block_bwd.restype = ctypes.c_int
         lib.nst_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nst_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
+def _launch(name: str, fn, pos: torch.Tensor, *args) -> None:
+    """Call a kernel's C entry on the current stream of ``pos``'s device,
+    raise on a refused launch, and count it."""
+    lib = _kernel_library()
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {lib.nst_cuda_error_string(err).decode()}")
+    launch_counts[name] += 1
+
+
+def _geometry_args(table: torch.Tensor, n: int, min_res: int, max_res: int, hash_table_size: int):
+    L, S, _ = table.shape
+    res = compute_level_resolutions(L, min_res, max_res)
+    return (n, L, 128 * S // hash_table_size, S, hash_table_size, (ctypes.c_int * L)(*[int(r) for r in res]))
+
+
 def _block_kernel(
     pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int,
     hash_table_size: int, exact: bool,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel (K3 if ``exact`` else K1 forward)."""
+    """Launch the CUDA forward kernel (K3 if ``exact`` else K1)."""
     L, S, _ = table.shape
-    F = 128 * S // hash_table_size
     n = pos.shape[0]
-    out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
+    out = torch.empty((n, L * (128 * S // hash_table_size)), dtype=torch.float32, device=pos.device)
     if n == 0:
         return out
-    lib = _kernel_library()
-    res = compute_level_resolutions(L, min_res, max_res)
-    res_arr = (ctypes.c_int * L)(*[int(r) for r in res])
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        err = lib.nst_hash_encode_block(
-            pos.data_ptr(), table.data_ptr(), out.data_ptr(), n, L, F, S,
-            hash_table_size, res_arr, int(exact), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"hash-grid kernel launch failed: {lib.nst_cuda_error_string(err).decode()}"
-        )
-    launch_counts["hash_encode_block_exact" if exact else "hash_encode_block"] += 1
+    _launch(
+        "hash_encode_block_exact" if exact else "hash_encode_block", "nst_hash_encode_block", pos,
+        pos.data_ptr(), table.data_ptr(), out.data_ptr(),
+        *_geometry_args(table, n, min_res, max_res, hash_table_size), int(exact),
+    )
     return out
+
+
+def _block_bwd_kernel(
+    pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, scales: Sequence[float], *,
+    min_res: int, max_res: int, hash_table_size: int, need_positions: bool = True, need_table: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch the CUDA K1 backward: (d_table or None, d_positions or None)."""
+    n = pos.shape[0]
+    d_table = torch.zeros_like(table) if need_table else None
+    d_pos = torch.empty_like(pos) if need_positions else None
+    if n == 0 or not (need_table or need_positions):
+        return d_table, d_pos
+    if grad.shape != (n, table.shape[0] * (128 * table.shape[1] // hash_table_size)) or grad.dtype != torch.float32:
+        raise ValueError(f"grad must be float32 ({n}, L*F), got {grad.dtype} {tuple(grad.shape)}")
+    L = table.shape[0]
+    _launch(
+        "hash_encode_block_bwd", "nst_hash_encode_block_bwd", pos,
+        pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(),
+        d_table.data_ptr() if need_table else None, d_pos.data_ptr() if need_positions else None,
+        *_geometry_args(table, n, min_res, max_res, hash_table_size),
+        (ctypes.c_float * L)(*[float(s) for s in scales]),
+    )
+    return d_table, d_pos
+
+
+class _BlockEncode(torch.autograd.Function):
+    """K1 forward and backward. ``scales`` is the per-level factor on the
+    table gradient (0 on levels outside ``bwd_levels``)."""
+
+    @staticmethod
+    def forward(ctx, pos, table, scales, geom):
+        ctx.save_for_backward(pos, table)
+        ctx.scales, ctx.geom = scales, geom
+        if pos.device.type == "cuda":
+            return _block_kernel(pos, table, exact=False, **geom)
+        return _block_stochastic_twin(pos, table, **geom)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pos, table = ctx.saved_tensors
+        need_pos, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        grad = grad.contiguous()
+        if pos.device.type == "cuda":
+            d_table, d_pos = _block_bwd_kernel(
+                pos, table, grad, ctx.scales, need_positions=need_pos, need_table=need_table, **ctx.geom
+            )
+        else:
+            scales = ctx.scales if need_table else [0.0] * len(ctx.scales)
+            d_table, d_pos = _block_stochastic_twin_bwd(
+                pos, table, grad, scales, need_positions=need_pos, **ctx.geom
+            )
+        return (d_pos if need_pos else None), (d_table if need_table else None), None, None
 
 
 def _check_inputs(positions: torch.Tensor, table: torch.Tensor, num_levels: int, hash_table_size: int) -> None:
@@ -267,6 +394,8 @@ def _check_inputs(positions: torch.Tensor, table: torch.Tensor, num_levels: int,
         raise ValueError(f"table must be ({num_levels}, S, 128), got {tuple(table.shape)}")
     if positions.device != table.device:
         raise ValueError(f"positions on {positions.device}, table on {table.device}")
+    if positions.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"hash_encode runs on cuda or cpu tensors, got {positions.device}")
     if not (positions.is_contiguous() and table.is_contiguous()):
         raise ValueError("hash_encode takes contiguous positions and table")
     S = table.shape[1]
@@ -275,8 +404,6 @@ def _check_inputs(positions: torch.Tensor, table: torch.Tensor, num_levels: int,
     F = 128 * S // hash_table_size
     if F not in (1, 2, 4, 8, 16):
         raise ValueError(f"features_per_level {F} must be 1, 2, 4, 8 or 16 for the block layout")
-    if torch.is_grad_enabled() and (positions.requires_grad or table.requires_grad):
-        raise NotImplementedError("hash_encode is forward only: run it under torch.no_grad()")
 
 
 def hash_encode(
@@ -289,27 +416,37 @@ def hash_encode(
     hash_table_size: int,
     block: bool = False,
     block_exact: bool = False,
+    bwd_levels: Optional[Sequence[int]] = None,
+    bwd_scale: float = 1.0,
 ) -> torch.Tensor:
     """Encode positions in [0,1]^3 (reference :755-1044).
 
     positions: (..., 3) float32; table: (num_levels, S, 128) float32 with
     S = hash_table_size * F / 128. Returns (..., num_levels * F) float32,
     column order l*F + f. ``block_exact`` takes K3, ``block`` alone takes K1.
-    CUDA tensors launch the kernel, CPU tensors run the twin; any other
-    device raises."""
+    CUDA tensors launch the kernels, CPU tensors run the twins.
+
+    ``bwd_levels`` (K1 only): the levels whose table gets a gradient, scaled
+    by ``bwd_scale``; the other levels get none. None gives every level an
+    unscaled gradient. Position gradients flow on every level either way."""
     if not (block or block_exact):
         raise NotImplementedError("the flat hash-grid layout (K7) is not ported")
     _check_inputs(positions, table, num_levels, hash_table_size)
     batch_shape = positions.shape[:-1]
     pos = positions.reshape(-1, 3)
-    kw = dict(min_res=min_res, max_res=max_res, hash_table_size=hash_table_size)
-    if pos.device.type == "cuda":
-        out = _block_kernel(pos, table, exact=block_exact, **kw)
-    elif pos.device.type == "cpu":
-        twin = _block_exact_twin if block_exact else _block_stochastic_twin
-        out = twin(pos, table, **kw)
+    geom = dict(min_res=min_res, max_res=max_res, hash_table_size=hash_table_size)
+    if block_exact:
+        if torch.is_grad_enabled() and (positions.requires_grad or table.requires_grad):
+            raise NotImplementedError("K3 (block_exact) is forward only: run it under torch.no_grad()")
+        out = _block_kernel(pos, table, exact=True, **geom) if pos.device.type == "cuda" else _block_exact_twin(
+            pos, table, **geom
+        )
     else:
-        raise ValueError(f"hash_encode runs on cuda or cpu tensors, got {pos.device}")
+        if bwd_levels is None:
+            scales = (1.0,) * num_levels
+        else:
+            scales = tuple(float(bwd_scale) if l in bwd_levels else 0.0 for l in range(num_levels))
+        out = _BlockEncode.apply(pos, table, scales, geom)
     return out.reshape(batch_shape + (out.shape[-1],))
 
 

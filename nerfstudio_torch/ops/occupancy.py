@@ -3,12 +3,13 @@
 The grid is stored flat: ``binary`` and ``densities`` are ``(res^3,)`` with
 cell (i, j, k) at ``(i*res + j)*res + k``. Probing is an index lookup, a
 stock torch gather; the reference's row-packed probe views exist only for
-the TPU's gather unit and are not kept. ``update_occupancy_grid`` is
-training work and is not ported."""
+the TPU's gather unit and are not kept. ``update_occupancy_grid`` is the
+reference's plain ``jnp`` EMA refresh, in stock torch ops."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -48,3 +49,45 @@ def _cell_indices(positions: torch.Tensor, aabb: torch.Tensor, res: int) -> torc
 def probe_occupancy(grid: OccupancyGridState, positions: torch.Tensor) -> torch.Tensor:
     """Occupancy (1.0/0.0) of the nearest cell at each position (reference :140-145)."""
     return grid.binary[_cell_indices(positions, grid.aabb, grid.resolution)].to(torch.float32)
+
+
+def update_occupancy_grid(
+    grid: OccupancyGridState,
+    density_fn: Callable[[torch.Tensor], torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    occ_thre: float = 0.01,
+    ema_decay: float = 0.95,
+    cells_per_update: Optional[int] = None,
+    cells: Optional[torch.Tensor] = None,
+    jitter: Optional[torch.Tensor] = None,
+) -> OccupancyGridState:
+    """EMA refresh at jittered cell centres (reference :78-125): the sampled
+    cells become ``max(old * decay, density)``, then
+    ``binary = densities > min(mean(densities), occ_thre)``.
+
+    ``cells_per_update`` cells are drawn uniformly with replacement (all
+    cells when None), and a uniform jitter in [0, 1)^3 per cell, from
+    ``generator``; ``cells`` (int, (k,)) and ``jitter`` ((k, 3)) hand them
+    in instead. A cell drawn more than once keeps the largest of its
+    refreshed values (the reference's ``.at[].set`` leaves the winner
+    unspecified). Returns a new state; the old one is not modified."""
+    res = grid.resolution
+    n = res**3
+    device = grid.densities.device
+    if cells is None:
+        if cells_per_update is not None and cells_per_update < n:
+            cells = torch.randint(0, n, (cells_per_update,), generator=generator, device=device)
+        else:
+            cells = torch.arange(n, device=device)
+    cells = cells.to(device=device, dtype=torch.int64)
+    if jitter is None:
+        jitter = torch.rand((cells.shape[0], 3), generator=generator, device=device)
+    ijk = torch.stack([cells // (res * res), (cells // res) % res, cells % res], dim=-1).to(torch.float32)
+    unit = (ijk + jitter) / res
+    positions = grid.aabb[0] + unit * (grid.aabb[1] - grid.aabb[0])
+    with torch.no_grad():
+        new_d = density_fn(positions)[..., 0]
+    refreshed = torch.maximum(grid.densities[cells] * ema_decay, new_d)
+    densities = grid.densities.scatter_reduce(0, cells, refreshed, reduce="amax", include_self=False)
+    thresh = torch.clamp_max(torch.mean(densities), occ_thre)
+    return OccupancyGridState(densities, densities > thresh, grid.aabb, res)

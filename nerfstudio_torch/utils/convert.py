@@ -1,10 +1,11 @@
 """Load the JAX package's parameters and occupancy grids into the port.
 
 Takes nested dicts of numpy arrays (``jax.device_get`` of a flax params
-tree works as is) and imports no jax. Dense kernels ``(in, out)`` become
-``weight (out, in)``; hash tables keep their ``(L, S, 128)`` layout; list
-members such as ``layers_0`` become ``layers.0``. Every leaf must land on
-exactly one parameter: anything left over on either side raises."""
+tree or a ``TrainState`` works as is) and imports no jax. Dense kernels
+``(in, out)`` become ``weight (out, in)``; hash tables keep their
+``(L, S, 128)`` layout; list members such as ``layers_0`` become
+``layers.0``. Every leaf must land on exactly one parameter: anything left
+over on either side raises."""
 
 from __future__ import annotations
 
@@ -37,17 +38,24 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
         parts += [match[1], match[2]] if match else [m]
     if leaf == "kernel":
         return ".".join(parts + ["weight"]), True
-    if leaf == "bias" or leaf == "hash_table":
+    if leaf in ("bias", "hash_table", "pose_adjustment"):
         return ".".join(parts + [leaf]), False
     if leaf == "embedding" and modules and modules[-1] == "embedding":
         return ".".join(parts + ["weight"]), False
     raise ValueError(f"no port parameter for JAX leaf {'/'.join(path)}")
 
 
+# Created by the reference only when first used, i.e. in training: an eval
+# model's tree has no camera optimizer. The port's model always has it, and
+# a tree without it loads the reference's init, zeros.
+_TRAIN_ONLY = ("camera_optimizer.pose_adjustment",)
+
+
 def params_from_jax(tree: Mapping[str, Any], model: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
     """A flax params tree (with or without its ``params`` collection key) ->
     the port's state dict. With ``model``, the keys and shapes must match its
-    state dict exactly."""
+    state dict exactly, except that a tree without the training-only camera
+    optimizer gets its zero init."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     state: Dict[str, torch.Tensor] = {}
@@ -59,6 +67,9 @@ def params_from_jax(tree: Mapping[str, Any], model: Optional[torch.nn.Module] = 
         state[name] = torch.from_numpy(np.array(arr.T if transpose else arr, order="C", copy=True))
     if model is not None:
         expected = model.state_dict()
+        for k in _TRAIN_ONLY:
+            if k in expected and k not in state:
+                state[k] = torch.zeros(expected[k].shape, dtype=torch.float32)
         missing = sorted(set(expected) - set(state))
         extra = sorted(set(state) - set(expected))
         if missing or extra:
@@ -97,4 +108,17 @@ def occupancy_from_jax(state: Any) -> OccupancyGridState:
         binary=torch.from_numpy(binary.copy()),
         aabb=torch.from_numpy(np.asarray(fields["aabb"], dtype=np.float32).copy()),
         resolution=res,
+    )
+
+
+def train_state_from_jax(state: Any, model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Optional[OccupancyGridState], int]:
+    """The JAX ``TrainState`` (or a dict of its fields) -> (the port's state
+    dict, its occupancy grid or None, the step). The optax state is not
+    carried: the port's optimizer starts fresh, as ``bench.py``'s does."""
+    fields = state if isinstance(state, Mapping) else {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    aux = fields.get("aux")
+    return (
+        params_from_jax(fields["params"], model),
+        None if aux is None else occupancy_from_jax(aux),
+        int(np.asarray(fields["step"])),
     )

@@ -55,23 +55,70 @@ def orbit_c2w(n_images: int) -> np.ndarray:
     return c2w
 
 
-def jax_tiny_nerfacto():
-    """(JAX eval model, its config) at TINY_MODEL."""
+# The nerfacto method config's training schedule (configs/method_configs.py
+# :92-110), which the model-config defaults leave off.
+METHOD_SCHEDULE = dict(field_bwd_level_period=2, proposal_freeze_after=2500)
+
+
+def jax_tiny_nerfacto(train: bool = False):
+    """(JAX model, its config) at TINY_MODEL with the nerfacto method
+    config's other settings."""
     from nerfstudio_tpu.configs.method_configs import get_method
     from nerfstudio_tpu.models.nerfacto import NerfactoModel
 
     cfg = dataclasses.replace(get_method("nerfacto").model, **TINY_MODEL)
     model = NerfactoModel(
-        config=cfg, scene_aabb=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)), num_train_data=NUM_IMAGES, train=False
+        config=cfg, scene_aabb=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)), num_train_data=NUM_IMAGES, train=train
     )
     return model, cfg
 
 
-def torch_tiny_nerfacto():
+def torch_tiny_nerfacto(train: bool = False):
+    """The port's model at TINY_MODEL and the method config's schedule, in
+    eval mode (or training mode with ``train``)."""
     from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
 
-    cfg = NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15, **TINY_MODEL)
-    return cfg.setup(num_train_data=NUM_IMAGES).eval()
+    cfg = NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15, **TINY_MODEL, **METHOD_SCHEDULE)
+    return cfg.setup(num_train_data=NUM_IMAGES).train(train)
+
+
+def jax_step_draws(key, num_rays: int, num_images: int, height: int, width: int, n_rounds: int = 2):
+    """The port's ``StepDraws`` holding what the JAX train step draws from
+    ``key`` (base_pipeline.py train_step): pixel indices from its first
+    half (pixel_samplers.sample_pixel_indices), then, from the model's key,
+    the sampler's keys (ray_samplers.py:280-290): round i jitters from key
+    i, the occupancy probes from the last; (num_rays, 1) each with
+    single_jitter."""
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws
+
+    k_pix, k_model = jax.random.split(key)
+    kc, kr, kw = jax.random.split(k_pix, 3)
+    pixels = np.stack(
+        [
+            np.asarray(jax.random.randint(kc, (num_rays,), 0, num_images)),
+            np.asarray(jax.random.randint(kr, (num_rays,), 0, height)),
+            np.asarray(jax.random.randint(kw, (num_rays,), 0, width)),
+        ],
+        axis=-1,
+    ).astype(np.int64)
+    k_samp, _ = jax.random.split(k_model)
+    keys = jax.random.split(k_samp, n_rounds + 1)
+    jitter = [to_torch(jax.random.uniform(k, (num_rays, 1))) for k in keys]
+    return StepDraws(to_torch(pixels), SamplerUniforms(jitter[n_rounds], tuple(jitter[:n_rounds])))
+
+
+def jax_occupancy_draws(key, resolution: int, cells_per_update: int):
+    """(cells, jitter) as torch tensors, as ``ops/occupancy.py``'s
+    ``update_occupancy_grid`` draws them from ``key`` (every cell in order
+    when the update covers the grid)."""
+    n = resolution**3
+    k_idx, k_jit = jax.random.split(key)
+    if cells_per_update < n:
+        cells = np.asarray(jax.random.randint(k_idx, (cells_per_update,), 0, n, jax.numpy.int32))
+    else:
+        cells = np.arange(n)
+    return to_torch(cells.astype(np.int64)), to_torch(jax.random.uniform(k_jit, (cells.shape[0], 3)))
 
 
 def init_params(init_fn, seed: int):

@@ -16,24 +16,27 @@ from nerfstudio_torch.utils.convert import occupancy_from_jax, params_from_jax
 def _jax_rays(n=4):
     o = np.zeros((n, 3), np.float32)
     d = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (n, 1))
-    return JRayBundle(origins=o, directions=d, pixel_area=np.ones((n, 1), np.float32))
+    return JRayBundle(origins=o, directions=d, pixel_area=np.ones((n, 1), np.float32),
+                      camera_indices=np.zeros((n, 1), np.int32))
 
 
 def test_full_width_nerfacto_tree_converts_with_no_leftover():
-    """The shipped nerfacto width (18.1M parameters): shapes from
-    jax.eval_shape, so no JAX compute is needed."""
+    """The shipped nerfacto width (18.1M parameters, and the 8 x 6 camera-opt
+    tangents a training model adds): shapes from jax.eval_shape, so no JAX
+    compute is needed."""
     from nerfstudio_tpu.configs.method_configs import get_method
     from nerfstudio_tpu.models.nerfacto import NerfactoModel as JNerfacto
     from nerfstudio_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 
-    jmodel = JNerfacto(config=get_method("nerfacto").model, num_train_data=8, train=False)
+    jmodel = JNerfacto(config=get_method("nerfacto").model, num_train_data=8, train=True)
     shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), _jax_rays(), key=None))
     tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     model = NerfactoModel(NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15), num_train_data=8)
     state = params_from_jax(tree, model)
     model.load_state_dict(state, strict=True)
     n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
-    assert n_jax == sum(p.numel() for p in model.parameters()) == 18_099_988
+    assert n_jax == sum(p.numel() for p in model.parameters()) == 18_099_988 + 8 * 6
+    assert state["camera_optimizer.pose_adjustment"].shape == (8, 6)
     assert model.field.mlp_base.encoding.hash_table.shape == (8, 16384, 128)
     assert model.proposal_networks[0].mlp_base.encoding.hash_table.shape == (5, 2048, 128)
 

@@ -127,8 +127,12 @@ def test_nerfacto_field_eval(exact_eval):
 
 
 def test_nerfacto_field_training_forward_is_not_ported():
+    """The training forward now runs (K1, with gradients); what it still
+    lacks is the density-gradient normals, which raise."""
     tf = NerfactoField(num_levels=2, base_res=4, max_res=8, log2_hashmap_size=10, features_per_level=4)
     _, trs, _ = _samples(8, 6)
+    out = tf(trs)
+    out[FieldHeadNames.RGB].sum().backward()
+    assert tf.mlp_base.encoding.hash_table.grad is not None
     with pytest.raises(NotImplementedError):
-        with torch.no_grad():
-            tf(trs)
+        tf(trs, compute_normals=True)

@@ -121,7 +121,7 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     kw = dict(num_levels=2, min_res=4, max_res=16, hash_table_size=2**10)
     out_k1 = thg.hash_encode(pos, table, block=True, **kw)
     out_k3 = thg.hash_encode(pos, table, block_exact=True, **kw)
-    assert thg.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0}
+    assert thg.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0}
     torch.testing.assert_close(out_k1, thg._block_stochastic_twin(pos, table, min_res=4, max_res=16, hash_table_size=2**10), rtol=0, atol=0)
     torch.testing.assert_close(out_k3, thg._block_exact_twin(pos, table, min_res=4, max_res=16, hash_table_size=2**10), rtol=0, atol=0)
 
@@ -141,4 +141,4 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         thg.hash_encode(pos.to("meta"), table.to("meta"), block=True, **kw)
     with pytest.raises(NotImplementedError):
-        thg.hash_encode(pos, table.requires_grad_(), block=True, **kw)
+        thg.hash_encode(pos, table.requires_grad_(), block_exact=True, **kw)  # K3 is forward only

@@ -105,7 +105,7 @@ def test_depths_match(renders):
 
 
 def test_cpu_render_used_the_twins(renders):
-    assert hash_grid.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0}
+    assert hash_grid.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0}
 
 
 @pytest.mark.parametrize(
