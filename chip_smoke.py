@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``nerfstudio_torch/csrc``, holds each
-against its plain PyTorch twin at the shapes the nerfacto render and
-training give it (K1 forward, K3, K1 backward against a float64 run of its
-twin), then drives the port's two paths at the shipped width from random
-weights: the render (four 512x512 frames through ``render_camera``, the
-kernels launched once per chunk; a 128x128 frame on the card against the
-CPU twins) and the training step (bench.py's setup: steps 256-259, then
-12 warm-up and 50 timed steady-state steps from step 6000, with the kernels'
-launches checked per step; a torch.profiler breakdown of three steady
-steps; one step on the card against the CPU twins). Times the kernels,
-their twins, a frame and the training rays/s.
+Builds the hand-written kernels from ``nerfstudio_torch/csrc`` (one nvcc
+per source, in parallel), holds each against its plain PyTorch twin at the
+shapes its path gives it, and drives the port's paths from random weights:
+
+* nerfacto at the shipped width (phases 3-12): K1 forward, K3, K1 backward
+  against a float64 run of its twin; the render (four 512x512 frames
+  through ``render_camera``, the kernels launched once per chunk; a
+  128x128 frame on the card against the CPU twins) and the training step
+  (bench.py's setup: steps 256-259, then 12 warm-up and 50 timed
+  steady-state steps from step 6000, with the kernels' launches checked per
+  step; a torch.profiler breakdown of three steady steps; one step on the
+  card against the CPU twins);
+* splatfacto at the shipped config on tools/bench_models.py's setup
+  (phases 13-19): K4 forward and backward, K5 and K6 forward and backward
+  against their twins at 100,000 slots and 512^2; training through
+  ``SplatPipeline.train``'s schedule from step 6000 (the step, refine with
+  an opacity reset, 5 warm-up and 30 timed steps, one launch of each of the
+  five kernels checked per step); a profile of three steps, one refine and
+  one 512^2 eval render timed; one 128^2 step on the card against the CPU
+  twins.
+
+Times the kernels and their twins, the nerfacto frame and training rays/s,
+and the splatfacto step, refine and eval frame.
 
 Phases print one line each. Any failure raises, so the exit code is nonzero
 and the final line is missing. On success the last two lines are the
@@ -213,12 +225,12 @@ def check_kernel_bwd(name, n, num_levels, log2_t, features, min_res, max_res, sc
 # the slice: nerfacto eval render
 
 
-def orbit_cameras(n: int, hw: int, device):
+def orbit_cameras(n: int, hw: int, device, radius: float = 2.0, height: float = 1.0):
     from nerfstudio_torch.cameras.cameras import Cameras
 
     c2w = np.zeros((n, 3, 4), np.float32)
     for i, t in enumerate(2 * np.pi * np.arange(n) / n):
-        pos = np.array([2 * np.cos(t), 2 * np.sin(t), 1.0])
+        pos = np.array([radius * np.cos(t), radius * np.sin(t), height])
         fwd = pos / np.linalg.norm(pos)
         right = np.cross(np.array([0.0, 0, 1]), fwd)
         right /= np.linalg.norm(right)
@@ -338,17 +350,23 @@ def train_steps(cfg, pipeline, state, hook, steps, gen, check_launches=True):
 
 
 def profile_steps(cfg, pipeline, state, hook, start, gen):
-    """Device time by kernel over PROFILED_STEPS steady steps
-    (torch.profiler). Returns (rows (name, ms per step) by time, device-busy
-    ms per step (the union of the kernels' intervals), device activities per
-    step), or None when the profiler saw no device activity. The profiler
-    slows the host, so the caller sets the busy time against an unprofiled
-    step."""
+    """Device time by kernel over PROFILED_STEPS steady nerfacto steps."""
+    return profile_device(
+        lambda: train_steps(cfg, pipeline, state, hook, range(start, start + PROFILED_STEPS), gen))
+
+
+def profile_device(run):
+    """Device time by kernel over ``run()``, which takes PROFILED_STEPS
+    steps (torch.profiler). Returns (rows (name, ms per step) by time,
+    device-busy ms per step (the union of the kernels' intervals), device
+    activities per step), or None when the profiler saw no device activity.
+    The profiler slows the host, so the caller sets the busy time against an
+    unprofiled step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_steps(cfg, pipeline, state, hook, range(start, start + PROFILED_STEPS), gen)
+        run()
         torch.cuda.synchronize()
     spans, by_name = [], {}
     for e in prof.events():
@@ -370,6 +388,8 @@ def profile_steps(cfg, pipeline, state, hook, start, gen):
 
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
     ("hash-grid kernels", ("block_encode",)),
+    ("gsplat kernels", ("project_fwd", "project_bwd", "tile_keys", "tile_ranges", "blend_fwd", "blend_bwd")),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
     ("Adam (foreach)", ("multi_tensor_apply",)),
     ("cat", ("catarray",)),
@@ -450,6 +470,268 @@ def card_vs_cpu_step(devices=("cuda", "cpu")):
     return m_card, m_cpu, loss_rel, grad_rel, table_rel
 
 
+# --------------------------------------------------------------------------
+# the splatfacto slice: training step and eval render
+
+
+SPLAT_HW = 512  # tools/bench_models.py:105-170
+SPLAT_SLOTS, SPLAT_RANDOM, SPLAT_SCALE = 100_000, 50_000, 1.5
+SPLAT_CAMERAS = 8
+SPLAT_START, SPLAT_WARMUP, SPLAT_TIMED = 6000, 5, 30
+SPLAT_CHECK_HW, SPLAT_CHECK_GAUSS = 128, 4096
+SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "blend_saturating",
+                 "blend_saturating_bwd")
+
+# K4 kernel vs twin: the same float32 operations in the same order (the
+# library is built without FMA contraction), so the forward differs only
+# where the CUDA and the PyTorch square roots and divisions round apart:
+# 1e-5 of each output's peak. radii and valid may flip only where ceil's
+# argument is within 1e-5 of an integer. The backward is a hand-derived
+# chain of ~300 float32 operations against autograd through the twin's:
+# against a float64 run of the twin, the kernel may be off by at most twice
+# the float32 twin's own error plus 1e-6 of the peak.
+K4_REL = 1e-5
+# K6 kernel vs twin, forward: both blend the same entries in the same order,
+# but the twin's transmittance is a cumprod and its sums a matmul. A pixel
+# whose transmittance lands within rounding of 1e-4 may stop one entry
+# apart, which moves each channel by at most 1e-4 of its largest value, and
+# a float32 sum of up to a few thousand terms adds ~1e-5: 2e-4 of each
+# channel's largest value. Backward: the same cutoff seen from the replay,
+# plus atomics in any order: 1e-3 of each array's peak.
+K6_FWD_REL = 2e-4
+K6_BWD_REL = 1e-3
+# Card vs CPU twins, one splatfacto training step at 128^2 from the same
+# params and draws: K6's sums and the cutoff, and cuDNN's against the CPU's
+# SSIM convolutions (both full float32), differ in summation order only:
+# the loss within 1e-4 relative, each gradient within 2e-3 of its peak.
+SPLAT_LOSS_RTOL = 1e-4
+SPLAT_GRAD_REL = 2e-3
+
+
+def build_splat(device, hw=SPLAT_HW, slots=SPLAT_SLOTS, n_random=SPLAT_RANDOM, params=None):
+    """splatfacto at the shipped config (sh_degree 3, saturating blend,
+    big_frac 16, random background, DefaultStrategy) on
+    tools/bench_models.py's setup: ``max_gaussians`` slots, ``n_random``
+    random-init gaussians at random_scale 1.5 and scene_scale 1.5, no
+    downscales, 8 orbit cameras at radius 2.5 and height 1.2 over random
+    images from SEED. ``params`` (CPU tensors) replace the init's."""
+    from nerfstudio_torch.data.datamanagers import FullImageDatamanager
+    from nerfstudio_torch.models.splatfacto import SplatfactoModel, SplatfactoModelConfig
+    from nerfstudio_torch.pipelines.splat_pipeline import SplatPipeline
+
+    cfg = SplatfactoModelConfig(max_gaussians=slots, num_random=n_random, random_init=True, random_scale=SPLAT_SCALE,
+                                num_downscales=0)
+    images = np.random.default_rng(SEED).uniform(size=(SPLAT_CAMERAS, hw, hw, 3)).astype(np.float32)
+    dm = FullImageDatamanager(orbit_cameras(SPLAT_CAMERAS, hw, "cpu", radius=2.5, height=1.2),
+                              torch.from_numpy(images), seed=SEED, device=device)
+    pipeline = SplatPipeline(dm, SplatfactoModel(cfg, scene_scale=SPLAT_SCALE), max_steps=30000)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        return pipeline, pipeline.init_state(scene_scale=SPLAT_SCALE, generator=gen, device=device)
+    from nerfstudio_torch.models.splatfacto import SplatAux
+
+    alive = torch.arange(slots, device=device) < n_random
+    zeros = torch.zeros((slots,), device=device)
+    aux = SplatAux(alive=alive, grad_accum=zeros, grad_count=zeros.clone(), max_radii=zeros.clone())
+    return pipeline, pipeline.state_from({k: v.to(device) for k, v in params.items()}, aux)
+
+
+def splat_kernel_inputs(pipeline, state, gen):
+    """The main path's tensors at its shapes (every slot, camera 0 at
+    512^2), from the initial state with scales made anisotropic and random
+    quaternions (the init's isotropic scales leave the quaternion gradient
+    pure rounding noise), opacities uniform in [0.05, 0.95] on the alive
+    slots and random colours."""
+    from nerfstudio_torch.ops.gsplat.projection import get_viewmat
+
+    p = state.params
+    n, dev = p["means"].shape[0], p["means"].device
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    means = p["means"].detach().clone()
+    scales = torch.exp(p["scales"].detach() + u(n, 3) - 0.5)
+    quats = torch.randn((n, 4), generator=gen, device=dev)
+    c2w, K, w, h = pipeline.camera(pipeline.datamanager.train_cameras, 0)
+    cam_args = (get_viewmat(c2w), *K, w, h, pipeline.model.config.near_plane, 0.3, False)
+    opac = (u(n) * 0.9 + 0.05) * state.aux.alive
+    return dict(means=means, scales=scales, quats=quats, cam_args=cam_args, opac=opac, colors=u(n, 3),
+                alive=state.aux.alive, width=w, height=h)
+
+
+def near_integer_radius(conics: torch.Tensor) -> torch.Tensor:
+    """Where ceil(3 sqrt(v1)) has its argument within 1e-5 of an integer,
+    v1 recomputed in float64 from the conic."""
+    c = conics.double()
+    det = c[:, 0] * c[:, 2] - c[:, 1] ** 2
+    a, b, cc = c[:, 2] / det, -c[:, 1] / det, c[:, 0] / det
+    half = 0.5 * (a + cc)
+    arg = 3.0 * torch.sqrt(half + torch.sqrt(torch.clamp_min(half * half - (a * cc - b * b), 0.01)))
+    return (arg - torch.round(arg)).abs() < 1e-5
+
+
+def check_k4(name, x, gen):
+    """K4 forward and backward against the twin, in the main path's classic
+    mode and antialiased (the compensation factor and its cotangent).
+    Returns (max abs err, the classic mode's timing, its outputs and the
+    visible mask)."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    m, s, q = x["means"], x["scales"], x["quats"]
+    runs, lines, failed, max_abs = {}, [], False, 0.0
+    for antialiased in (False, True):
+        cam = x["cam_args"][:-1] + (antialiased,)
+        with torch.no_grad():
+            out = pj._project_kernel(m, s, q, cam)
+            ref = pj._project_twin(m, s, q, *cam)
+        torch.cuda.synchronize()
+        front = ref[1] > 1e-3  # behind the camera z is clamped to 1e-6: see the projection parity test
+        pairs = dict(zip(("means2d", "depths", "conics", "compensations"), zip(out[:3] + out[5:], ref[:3] + ref[5:])))
+        errs = {}
+        for k, (a, b) in pairs.items():
+            if not torch.isfinite(a[front]).all():
+                raise AssertionError(f"{name}: non-finite {k}")
+            errs[k] = float((a[front] - b[front]).abs().max() / b[front].abs().max())
+            max_abs = max(max_abs, float((a[front] - b[front]).abs().max()))
+        flips = (out[3] != ref[3]) | (out[4] != ref[4])
+        bad_flips = int((flips & ~near_integer_radius(ref[2])).sum())
+        valid = ref[4] & x["alive"]
+        cots = [torch.randn(t.shape, generator=gen, device=m.device) * valid.view(-1, *([1] * (t.ndim - 1)))
+                for t in ref[:3] + ref[5:]]
+        got = pj._project_bwd_kernel(m, s, q, cam, *cots)
+        twin = pj._project_twin_bwd(m, s, q, cam, *cots)
+        ref64 = pj._project_twin_bwd(m.double(), s.double(), q.double(), cam, *(c.double() for c in cots))
+        torch.cuda.synchronize()
+        bwd_over, bwd_errs = [], {}
+        for k, a, b, r in zip(("means", "scales", "quats"), got, twin, ref64):
+            e_k, e_t = float((a.double() - r).abs().max()), float((b.double() - r).abs().max())
+            peak = float(r.abs().max())
+            bwd_errs[k] = (e_k / peak, e_t / peak)
+            max_abs = max(max_abs, float((a - b).abs().max()))
+            if e_k > 2 * e_t + 1e-6 * peak or not torch.isfinite(a).all():
+                bwd_over.append(k)
+        failed = failed or max(errs.values()) > K4_REL or bad_flips or bool(bwd_over)
+        lines.append(
+            f"{'antialiased' if antialiased else 'classic'}: forward max |kernel - twin| / peak "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f", radii/valid flips {int(flips.sum())} "
+            f"({bad_flips} away from an integer ceil); backward max |x - float64 twin| / peak (kernel, float32 "
+            "twin) " + ", ".join(f"{k} {a:.3g}/{b:.3g}" for k, (a, b) in bwd_errs.items())
+            + f", over the limit: {bwd_over}")
+        runs[antialiased] = (out, valid, cots, cam)
+    log(name, f"N={m.shape[0]} ({int(runs[False][1].sum())} visible of {int(x['alive'].sum())} alive) "
+        f"{x['width']}x{x['height']} (limit {K4_REL}): " + "; ".join(lines))
+    if failed:
+        raise AssertionError(f"{name}: kernel disagrees with its twin")
+    out, valid, cots, cam = runs[False]
+    timing = dict(
+        fwd=lambda: pj._project_kernel(m, s, q, cam), fwd_twin=lambda: pj._project_twin(m, s, q, *cam),
+        bwd=lambda: pj._project_bwd_kernel(m, s, q, cam, *cots),
+        bwd_twin=lambda: pj._project_twin_bwd(m, s, q, cam, *cots),
+    )
+    return max_abs, timing, (out, valid)
+
+
+def check_k5(name, x, projected):
+    """K5 against its twin: keys, ids and tile ranges exactly equal."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    (m2, z, con, radii, *_), valid = projected
+    tiles_x, tiles_y = (x["width"] + 15) // 16, (x["height"] + 15) // 16
+    args = (m2, radii, z, valid, tiles_x, tiles_y, 16, 16, 64)
+    got = rz._tile_bin_kernel(*args)
+    ref = rz._tile_bin_twin(*args)
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(getattr(got, k), getattr(ref, k))) for k in ("packed", "ids", "starts", "counts")}
+    counts = ref.counts.double()
+    log(name, f"{int(valid.sum())} visible gaussians, {tiles_x}x{tiles_y} tiles: {got.packed.numel()} keys, "
+        f"{int(counts.sum())} in tiles (per tile mean {float(counts.mean()):.0f}, max {int(counts.max())}); "
+        f"kernel == twin: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{name}: kernel disagrees with its twin")
+    return 0.0, dict(kernel=lambda: rz._tile_bin_kernel(*args), twin=lambda: rz._tile_bin_twin(*args)), got
+
+
+def check_k6(name, x, projected, bins, gen):
+    """K6 forward and backward against the twins."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    (m2, z, con, *_), _ = projected
+    w, h = x["width"], x["height"]
+    ch = torch.cat([x["colors"], z[:, None], torch.ones_like(z)[:, None]], dim=-1)
+    op = x["opac"]
+    with torch.no_grad():
+        out, T, last = rz._blend_kernel(m2, con, ch, op, bins, w, h)
+        ref = rz._blend_twin(m2, con, ch, op, bins, w, h)
+    torch.cuda.synchronize()
+    ch_peak = ch[x["alive"]].abs().amax(dim=0).clamp_min(1.0)
+    fwd_rel = float(((out - ref).abs().amax(dim=(0, 1)) / ch_peak).max())
+    # training-like cotangent: rgb, and the accumulation through rgb + bg (1 - alpha)
+    g_rgb = torch.randn((h, w, 3), generator=gen, device=m2.device)
+    bg = torch.rand((3,), generator=gen, device=m2.device)
+    g_ch = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1]), -(g_rgb * bg).sum(-1, keepdim=True)], dim=-1)
+    got = rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch)
+    twin = rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch)
+    torch.cuda.synchronize()
+    bwd_rel = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for k, a, b in zip(("means2d", "conics", "ch", "opac"), got, twin)}
+    acc = out[..., 4]
+    log(name, f"{w}x{h}: mean accumulation {float(acc.mean()):.3f}, pixels at T < 1e-4: "
+        f"{float((T < 1e-4).float().mean()):.3f}, entries blended per pixel mean {float(last.float().mean()):.0f}; "
+        f"forward max |kernel - twin| / channel peak {fwd_rel:.3g} (limit {K6_FWD_REL}); backward max "
+        f"|kernel - twin| / peak " + ", ".join(f"{k} {v:.3g}" for k, v in bwd_rel.items()) + f" (limit {K6_BWD_REL})")
+    if fwd_rel > K6_FWD_REL or max(bwd_rel.values()) > K6_BWD_REL or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: kernel disagrees with its twin")
+    fwd_abs = float((out - ref).abs().max())
+    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, twin))
+    timing = dict(
+        fwd=lambda: rz._blend_kernel(m2, con, ch, op, bins, w, h),
+        fwd_twin=lambda: rz._blend_twin(m2, con, ch, op, bins, w, h),
+        bwd=lambda: rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch),
+        bwd_twin=lambda: rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch),
+    )
+    return (fwd_abs, bwd_abs), timing
+
+
+def splat_steps(pipeline, state, n, gen):
+    """``n`` steps through ``SplatPipeline.train``'s schedule, each checked
+    for exactly one launch of each of the five kernels. Returns the last
+    step's metrics."""
+    from nerfstudio_torch.ops.gsplat import _cuda as sc
+
+    metrics = None
+    for _ in range(n):
+        before = dict(sc.launch_counts)
+        state, metrics = pipeline.train(state, state.step + 1, gen)
+        got = {k: sc.launch_counts[k] - before[k] for k in SPLAT_KERNELS}
+        if got != dict.fromkeys(SPLAT_KERNELS, 1):
+            raise AssertionError(f"step {state.step - 1}: launches {got}, expected one of each")
+    return metrics
+
+
+def splat_card_vs_cpu():
+    """One splatfacto training step at 128^2 with SPLAT_CHECK_GAUSS
+    gaussians on the card and on the CPU twins, from the same params (the
+    CPU init with anisotropic scales, random quaternions and SH rest
+    coefficients, so every gradient has structure) and the same background."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    _, state = build_splat("cpu", SPLAT_CHECK_HW, SPLAT_CHECK_GAUSS, SPLAT_CHECK_GAUSS)
+    n = SPLAT_CHECK_GAUSS
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    params["scales"] += torch.rand((n, 3), generator=gen) - 0.5
+    params["quats"] = torch.randn((n, 4), generator=gen)
+    params["features_rest"] = torch.randn(params["features_rest"].shape, generator=gen) * 0.1
+    bg = torch.rand((3,), generator=gen)
+    runs = []
+    for device in ("cuda", "cpu"):
+        pipeline, state = build_splat(device, SPLAT_CHECK_HW, n, n, params=params)
+        c2w, K, w, h = pipeline.camera(pipeline.datamanager.train_cameras, 1)
+        image = pipeline.datamanager.train_images[1]
+        metrics = pipeline.train_step(state, c2w, K, image, bg.to(device), w, h, 3)
+        grads = {k: p.grad.detach().cpu().double() for k, p in state.params.items()}
+        runs.append((float(metrics["loss"]), grads))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    rel = {k: float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu}
+    return l_card, l_cpu, abs(l_card - l_cpu) / abs(l_cpu), rel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -460,7 +742,9 @@ def main() -> int:
     from nerfstudio_torch.ops import cuda_build
     from nerfstudio_torch.ops import hash_grid as hg
 
-    n_phases = 12
+    from nerfstudio_torch.ops.gsplat import _cuda as sc
+
+    n_phases = 19
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -469,11 +753,13 @@ def main() -> int:
     log(ph(1, "card"), f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    lib_path, nvcc_s = cuda_build.build("hash_grid")
+    built = cuda_build.build_all(["hash_grid", "gsplat"])
     hg._kernel_library()
-    log(ph(2, "build"), f"{lib_path.name}: nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s")
+    sc.kernel_library()
+    log(ph(2, "build"), ", ".join(f"{p.name}: nvcc {s:.1f} s" for p, s in built.values())
+        + f"; build+load {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # 3-6. kernels vs twins at the slices' shapes: K1 (the proposal net of the
@@ -601,8 +887,121 @@ def main() -> int:
         f"K1 bwd proposal {times['bwd_prop']:.3f} ms (twin {times['bwd_prop_twin']:.3f} ms), "
         f"{FRAME_HW}^2 frame {frame_ms:.1f} ms = {FRAME_HW * FRAME_HW / (frame_ms / 1e3):,.0f} rays/s, "
         f"training {rays_per_s:,.0f} rays/s")
+    del model, grid
+
+    # 13-15. K4, K5, K6 vs twins at the splatfacto slice's shapes
+    splat_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pipeline, state = build_splat("cuda")
+    x = splat_kernel_inputs(pipeline, state, splat_gen)
+    k4_err, k4_timing, projected = check_k4(ph(13, "K4 vs twin"), x, splat_gen)
+    k5_err, k5_timing, bins = check_k5(ph(14, "K5 vs twin"), x, projected)
+    (k6_err, k6_bwd_err), k6_timing = check_k6(ph(15, "K6 vs twin"), x, projected, bins, splat_gen)
+    del x, projected, bins
+
+    # 16. the splatfacto training slice at full scale from step 6000: the
+    # step, then refine with an opacity reset; warm-up; timed steps
+    state.step = SPLAT_START
+    alive0 = int(state.aux.alive.sum())
+    torch.cuda.synchronize()
+    sc.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = splat_steps(pipeline, state, 1, splat_gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    alive1 = int(state.aux.alive.sum())
+    max_opac = float(torch.sigmoid(state.params["opacities"].detach()[state.aux.alive]).max())
+    log(ph(16, "splatfacto training, step 6000"), f"loss {float(metrics['loss']):.5f}, refine with reset: "
+        f"{alive0} -> {alive1} alive, max opacity after the reset {max_opac:.4f}, {first_s:.2f} s including warm-up")
+    splat_steps(pipeline, state, SPLAT_WARMUP, splat_gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = splat_steps(pipeline, state, SPLAT_TIMED, splat_gen)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    splat_step_ms = start.elapsed_time(end) / SPLAT_TIMED
+    splat_launches = {k: sc.launch_counts[k] for k in SPLAT_KERNELS}
+    n_alive = int(state.aux.alive.sum())
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"splatfacto loss {loss} at step {state.step - 1}")
+    log(ph(16, "splatfacto training, steady state"), f"steps {SPLAT_START + 1}-{state.step - 1} ({SPLAT_WARMUP} "
+        f"warm-up, {SPLAT_TIMED} timed), {n_alive} alive of {SPLAT_SLOTS} slots, {SPLAT_HW}^2: loss {loss:.5f}, "
+        f"psnr {float(metrics['psnr']):.2f}, {splat_step_ms:.2f} ms/step = "
+        f"{n_alive / (splat_step_ms / 1e3):,.0f} gaussians/s on {card} (CUDA events; host clock "
+        f"{wall_s * 1e3 / SPLAT_TIMED:.2f} ms/step); launches since step 6000 {splat_launches}")
+
+    # 17. device-idle share, one refine, one 512^2 eval render
+    prof = profile_device(lambda: splat_steps(pipeline, state, PROFILED_STEPS, splat_gen))
+    if prof is None:
+        log(ph(17, "splatfacto profile"), "torch.profiler saw no device activity: device time not measured")
+    else:
+        rows, busy_ms, activities = prof
+        classes = {}
+        for name, t in rows:
+            classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + t
+        log(ph(17, "splatfacto profile"), f"{PROFILED_STEPS} steady steps under torch.profiler: "
+            f"{activities:.0f} device activities and {busy_ms:.2f} ms of device-busy time per step, i.e. "
+            f"the device idles {1 - busy_ms / splat_step_ms:.1%} of the unprofiled {splat_step_ms:.2f} ms step; "
+            "by class (ms/step): "
+            + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
+        for name, t in rows[:12]:
+            print(f"    {t:8.3f} ms/step  {name[:110]}", flush=True)
+    refine_ms = median_ms(lambda: pipeline.refine(state, pipeline.refine_draws(splat_gen), do_split=True,
+                                                  do_cull_scale=True, reset_alpha=False), runs=3, warmup=1)
+    sc.reset_launch_counts()
+    eval_metrics, out = pipeline.get_eval_image_metrics(state, 0)
+    eval_launches = {k: sc.launch_counts[k] for k in SPLAT_KERNELS}
+    for k, c in (("rgb", 3), ("accumulation", 1), ("depth", 1)):
+        if tuple(out[k].shape) != (SPLAT_HW, SPLAT_HW, c) or not torch.isfinite(out[k]).all():
+            raise AssertionError(f"eval {k}: shape {tuple(out[k].shape)} or non-finite values")
+    want = dict.fromkeys(SPLAT_KERNELS, 0)
+    want.update(project_gaussians=1, tile_bin=1, blend_saturating=1)
+    if eval_launches != want:
+        raise AssertionError(f"eval render launches {eval_launches}, expected {want}")
+    frame_ms = median_ms(lambda: pipeline.render_eval_image(state, 0), runs=10, warmup=2)
+    log(ph(17, "splatfacto refine and eval"), f"refine {refine_ms:.2f} ms ({int(state.aux.alive.sum())} alive "
+        f"after); eval render {SPLAT_HW}^2 at sh_degree 3: {frame_ms:.2f} ms/frame, psnr "
+        f"{eval_metrics['psnr']:.2f}, ssim {eval_metrics['ssim']:.4f}, launches {eval_launches}")
+    del pipeline, state
+
+    # 18. card vs CPU twins: one splatfacto step at 128^2
+    l_card, l_cpu, loss_rel, grad_rel = splat_card_vs_cpu()
+    log(ph(18, "splatfacto card vs cpu"), f"{SPLAT_CHECK_HW}^2, {SPLAT_CHECK_GAUSS} gaussians, sh_degree 3: loss "
+        f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2g}, limit {SPLAT_LOSS_RTOL}); gradients max |card - cpu| / "
+        "peak " + ", ".join(f"{k} {v:.3g}" for k, v in grad_rel.items()) + f" (limit {SPLAT_GRAD_REL})")
+    if loss_rel > SPLAT_LOSS_RTOL or max(grad_rel.values()) > SPLAT_GRAD_REL:
+        raise AssertionError("card and CPU splatfacto steps disagree")
+
+    # 19. the splatting kernels against their twins (twins: few runs)
+    with torch.no_grad():
+        t = {}
+        for key, fn in (("k4", k4_timing["fwd"]), ("k5", k5_timing["kernel"]), ("k6", k6_timing["fwd"])):
+            t[key] = median_ms(fn)
+        for key, fn in (("k4_twin", k4_timing["fwd_twin"]), ("k5_twin", k5_timing["twin"]),
+                        ("k6_twin", k6_timing["fwd_twin"])):
+            t[key] = median_ms(fn, runs=3, warmup=1)
+    t["k4_bwd"] = median_ms(k4_timing["bwd"])
+    t["k6_bwd"] = median_ms(k6_timing["bwd"])
+    t["k4_bwd_twin"] = median_ms(k4_timing["bwd_twin"], runs=3, warmup=1)
+    t["k6_bwd_twin"] = median_ms(k6_timing["bwd_twin"], runs=3, warmup=1)
+    log(ph(19, "splatting timing"), f"on {card}: " + ", ".join(
+        f"{k} {t[k]:.3f} ms (twin {t[k + '_twin']:.3f} ms)" for k in ("k4", "k4_bwd", "k5", "k6", "k6_bwd"))
+        + f"; splatfacto step {splat_step_ms:.2f} ms, refine {refine_ms:.2f} ms, eval frame {frame_ms:.2f} ms")
 
     source = "nerfstudio_torch/csrc/hash_grid.cu"
+    gs_source = "nerfstudio_torch/csrc/gsplat.cu"
+    splat_entries = [
+        ("project_gaussians (K4 fwd)", "project_gaussians", "nerfstudio_tpu/ops/gsplat/projection.py:39", k4_err, "k4"),
+        ("project_gaussians_bwd (K4 bwd)", "project_gaussians_bwd", "nerfstudio_tpu/ops/gsplat/projection.py:39",
+         k4_err, "k4_bwd"),
+        ("tile_bin (K5)", "tile_bin", "nerfstudio_tpu/ops/gsplat/rasterize.py:266", k5_err, "k5"),
+        ("blend_saturating (K6 fwd)", "blend_saturating", "nerfstudio_tpu/ops/gsplat/rasterize.py:94", k6_err, "k6"),
+        ("blend_saturating_bwd (K6 bwd)", "blend_saturating_bwd", "nerfstudio_tpu/ops/gsplat/rasterize.py:142",
+         k6_bwd_err, "k6_bwd"),
+    ]
     print(json.dumps({"kernels": [
         {"name": "hash_encode_block (K1 fwd)", "route": "cuda", "source": source,
          "replaces": "nerfstudio_tpu/ops/hash_grid.py:352",
@@ -617,6 +1016,10 @@ def main() -> int:
          "launches": render_launches["hash_encode_block_bwd"] + train_launches["hash_encode_block_bwd"],
          "max_abs_err": max(bwd_field_err, bwd_prop_err), "ms": times["bwd_field"],
          "plain_ms": times["bwd_field_twin"]},
+    ] + [
+        {"name": name, "route": "cuda", "source": gs_source, "replaces": replaces, "launches": splat_launches[count],
+         "max_abs_err": err, "ms": t[key], "plain_ms": t[key + "_twin"]}
+        for name, count, replaces, err, key in splat_entries
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,749 @@
+// Gaussian-splatting kernels for Hopper (sm_90a): EWA projection forward and
+// backward (K4), tile binning (K5) and the saturating front-to-back blend
+// forward and backward (K6). Plain C interface, loaded with ctypes by
+// nerfstudio_torch/ops/gsplat/_cuda.py.
+//
+// Replaces, in the JAX reference package:
+//   * K4: nerfstudio_tpu/ops/gsplat/projection.py project_gaussians (with
+//     quat_to_rotmat and compute_cov3d expanded into it, and the antialiased
+//     compensation) and XLA's autodiff of it. The backward is the hand-derived VJP of exactly the forward's
+//     chain, recomputed per gaussian from the inputs.
+//   * K5: nerfstudio_tpu/ops/gsplat/rasterize.py _tile_keys_packed and
+//     _window_tile_ids (key emission, with the big_frac second window and its
+//     duplicate suppression) and the per-tile searchsorted after the sort.
+//     The sort between the two kernels stays a library sort, as the
+//     reference's lax.sort sits outside any kernel.
+//   * K6: nerfstudio_tpu/ops/gsplat/rasterize.py _blend_saturating
+//     (_blend_sat_batch_fwd, _alpha_from_gathered) and
+//     _blend_saturating_bwd.
+//
+// What bounds them on this card:
+//   * K4 is a fused elementwise pass: ~40 bytes in and ~30 bytes out per
+//     gaussian and a few hundred flops, so it is bound by memory traffic and
+//     launch latency. One thread per gaussian, structure of arrays.
+//   * K5's emission writes 8 bytes per (gaussian, window slot) and reads a
+//     few floats per gaussian: bound by its stores. The range kernel is one
+//     binary search per tile plus an id unpack per entry.
+//   * K6 is bound by the per-entry work inside a tile: each entry of a
+//     tile's depth-sorted list costs every pixel of the tile an exp and a
+//     few flops, and the backward adds a warp reduction and 11 atomics per
+//     warp. One block per 16x16 tile, one thread per pixel; the entries are
+//     staged through shared memory 256 at a time, so each is read from
+//     device memory once per tile. A pixel stops once its transmittance
+//     falls below 1e-4 (after blending the entry that took it there), and a
+//     block stops when all its pixels have; the backward replays each pixel
+//     from its last blended entry back to the front, recovering T by
+//     division, as gsplat does.
+//
+// The library is built with -fmad=false (cuda_build.NVCC_FLAGS), so every
+// product and sum rounds as the plain PyTorch twins' do; the twins differ
+// only in summation order.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 16;
+constexpr int kThreads = 256;
+constexpr int kGradStride = 11;  // packed per-gaussian K6 gradient row
+constexpr float kMinAlpha = 1.0f / 255.0f;
+constexpr float kMaxAlpha = 0.999f;
+constexpr float kTransmittanceEps = 1e-4f;
+// Window arithmetic runs in int32: float tile coordinates are clamped to
+// +-2^30 before the cast (only invalid gaussians, which emit no key, can
+// reach beyond), so no cast is out of range.
+constexpr float kCoordLimit = 1073741824.0f;
+
+// w2c rotation (row-major) and translation, intrinsics, the clip limits of
+// the EWA Jacobian (computed in float32 by the caller, as the reference
+// does), the image size, the near plane and the 2D dilation.
+struct Camera {
+  float R[9];
+  float t[3];
+  float fx, fy, cx, cy;
+  float lim_x, lim_y;
+  float near_plane, eps2d;
+  int width, height;
+  int antialiased;  // write the compensation factor (else 1) and take its cotangent
+};
+
+// Gradient factor of max(x, y) with respect to x (ties split in halves, as
+// the reference's autodiff does), and of min(x, y).
+__device__ __forceinline__ float dmax(float x, float y) { return x > y ? 1.0f : (x == y ? 0.5f : 0.0f); }
+__device__ __forceinline__ float dmin(float x, float y) { return x < y ? 1.0f : (x == y ? 0.5f : 0.0f); }
+
+// ---------------------------------------------------------------------------
+// K4: EWA projection
+
+// Everything the backward needs from the forward chain of one gaussian.
+struct Projected {
+  float mx, my, mz;
+  float px, py, z, inv_z, xs, ys;
+  float Q[4], qnorm, qden, q[4];  // raw and normalised wxyz
+  float g[9];                     // rotation of the gaussian, row-major
+  float sc[3], s[3];              // linear scales and their squares
+  float c[6];                     // cov3d: 00 01 02 11 12 22
+  float a[9];                     // A = R_cam cov3d, row-major
+  float v[6];                     // V = A R_cam^T: 00 01 02 11 12 22
+  float txz, tyz, jx, jy, kx, ky;
+  float cov00, cov01, cov11;      // cov2d after the dilation
+  float pre00, pre11, det_orig;   // before the dilation
+  float det, det_safe, inv_det;
+};
+
+// projection.py:64-150, operation for operation.
+__device__ __forceinline__ void project_one(const float* __restrict__ means, const float* __restrict__ scales,
+                                            const float* __restrict__ quats, int64_t i, const Camera& cam,
+                                            Projected& p) {
+  const float* R = cam.R;
+  p.mx = means[3 * i];
+  p.my = means[3 * i + 1];
+  p.mz = means[3 * i + 2];
+  p.px = R[0] * p.mx + R[1] * p.my + R[2] * p.mz + cam.t[0];
+  p.py = R[3] * p.mx + R[4] * p.my + R[5] * p.mz + cam.t[1];
+  p.z = R[6] * p.mx + R[7] * p.my + R[8] * p.mz + cam.t[2];
+  p.inv_z = 1.0f / fmaxf(p.z, 1e-6f);
+  p.xs = p.px * p.inv_z;
+  p.ys = p.py * p.inv_z;
+
+  for (int k = 0; k < 4; ++k) p.Q[k] = quats[4 * i + k];
+  p.qnorm = sqrtf(p.Q[0] * p.Q[0] + p.Q[1] * p.Q[1] + p.Q[2] * p.Q[2] + p.Q[3] * p.Q[3]);
+  p.qden = fmaxf(p.qnorm, 1e-8f);
+  for (int k = 0; k < 4; ++k) p.q[k] = p.Q[k] / p.qden;
+  const float qw = p.q[0], qx = p.q[1], qy = p.q[2], qz = p.q[3];
+  float* g = p.g;
+  g[0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+  g[1] = 2.0f * (qx * qy - qw * qz);
+  g[2] = 2.0f * (qx * qz + qw * qy);
+  g[3] = 2.0f * (qx * qy + qw * qz);
+  g[4] = 1.0f - 2.0f * (qx * qx + qz * qz);
+  g[5] = 2.0f * (qy * qz - qw * qx);
+  g[6] = 2.0f * (qx * qz - qw * qy);
+  g[7] = 2.0f * (qy * qz + qw * qx);
+  g[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
+  for (int k = 0; k < 3; ++k) {
+    p.sc[k] = scales[3 * i + k];
+    p.s[k] = p.sc[k] * p.sc[k];
+  }
+  // c_ij = sum_k g_ik g_jk s_k over the upper triangle
+  const int ci[6] = {0, 0, 0, 1, 1, 2}, cj[6] = {0, 1, 2, 1, 2, 2};
+  for (int e = 0; e < 6; ++e) {
+    const float* gi = g + 3 * ci[e];
+    const float* gj = g + 3 * cj[e];
+    p.c[e] = gi[0] * gj[0] * p.s[0] + gi[1] * gj[1] * p.s[1] + gi[2] * gj[2] * p.s[2];
+  }
+  const float c00 = p.c[0], c01 = p.c[1], c02 = p.c[2], c11 = p.c[3], c12 = p.c[4], c22 = p.c[5];
+  for (int r = 0; r < 3; ++r) {  // _rowA
+    const float r0 = R[3 * r], r1 = R[3 * r + 1], r2 = R[3 * r + 2];
+    p.a[3 * r + 0] = r0 * c00 + r1 * c01 + r2 * c02;
+    p.a[3 * r + 1] = r0 * c01 + r1 * c11 + r2 * c12;
+    p.a[3 * r + 2] = r0 * c02 + r1 * c12 + r2 * c22;
+  }
+  // v_ij = sum_k a_ik R_jk over the upper triangle
+  for (int e = 0; e < 6; ++e) {
+    const float* ai = p.a + 3 * ci[e];
+    const float* rj = R + 3 * cj[e];
+    p.v[e] = ai[0] * rj[0] + ai[1] * rj[1] + ai[2] * rj[2];
+  }
+  p.txz = fminf(fmaxf(p.xs, -cam.lim_x), cam.lim_x);
+  p.tyz = fminf(fmaxf(p.ys, -cam.lim_y), cam.lim_y);
+  p.jx = cam.fx * p.inv_z;
+  p.jy = cam.fy * p.inv_z;
+  p.kx = -cam.fx * p.txz * p.inv_z;
+  p.ky = -cam.fy * p.tyz * p.inv_z;
+  const float v00 = p.v[0], v01 = p.v[1], v02 = p.v[2], v11 = p.v[3], v12 = p.v[4], v22 = p.v[5];
+  const float jx = p.jx, jy = p.jy, kx = p.kx, ky = p.ky;
+  p.cov00 = jx * (jx * v00 + kx * v02) + kx * (jx * v02 + kx * v22);
+  p.cov01 = jy * (jx * v01 + kx * v12) + ky * (jx * v02 + kx * v22);
+  p.cov11 = jy * (jy * v11 + ky * v12) + ky * (jy * v12 + ky * v22);
+  p.pre00 = p.cov00;
+  p.pre11 = p.cov11;
+  p.det_orig = p.cov00 * p.cov11 - p.cov01 * p.cov01;
+  p.cov00 = p.cov00 + cam.eps2d;
+  p.cov11 = p.cov11 + cam.eps2d;
+  p.det = p.cov00 * p.cov11 - p.cov01 * p.cov01;
+  p.det_safe = fmaxf(p.det, 1e-10f);
+  p.inv_det = 1.0f / p.det_safe;
+}
+
+__global__ void __launch_bounds__(kThreads) project_fwd_kernel(
+    const float* __restrict__ means, const float* __restrict__ scales, const float* __restrict__ quats,
+    int64_t n, Camera cam, float* __restrict__ means2d, float* __restrict__ depths, float* __restrict__ conics,
+    float* __restrict__ radii, uint8_t* __restrict__ valid, float* __restrict__ comp) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Projected p;
+  project_one(means, scales, quats, i, cam, p);
+  const float m2x = p.xs * cam.fx + cam.cx;
+  const float m2y = p.ys * cam.fy + cam.cy;
+  const float b = 0.5f * (p.cov00 + p.cov11);
+  const float v1 = b + sqrtf(fmaxf(b * b - p.det_safe, 0.01f));
+  const float r = ceilf(3.0f * sqrtf(v1));
+  const bool inside = (m2x + r > 0.0f) && (m2x - r < (float)cam.width) && (m2y + r > 0.0f) &&
+                      (m2y - r < (float)cam.height);
+  const bool ok = (p.z > cam.near_plane) && inside && (p.det > 0.0f);
+  means2d[2 * i] = m2x;
+  means2d[2 * i + 1] = m2y;
+  depths[i] = p.z;
+  conics[3 * i] = p.cov11 * p.inv_det;
+  conics[3 * i + 1] = -p.cov01 * p.inv_det;
+  conics[3 * i + 2] = p.cov00 * p.inv_det;
+  radii[i] = ok ? r : 0.0f;
+  valid[i] = ok ? 1 : 0;
+  // antialiasing compensation sqrt(max(det_orig / det_safe, 0)) (reference :131)
+  comp[i] = cam.antialiased ? sqrtf(fmaxf(p.det_orig / p.det_safe, 0.0f)) : 1.0f;
+}
+
+// The VJP of project_one's chain into means, scales and quats, given the
+// cotangents of means2d, depths, conics and, antialiased, the compensation
+// (radii and valid carry none).
+__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
+    const float* __restrict__ means, const float* __restrict__ scales, const float* __restrict__ quats,
+    int64_t n, Camera cam, const float* __restrict__ d_means2d, const float* __restrict__ d_depths,
+    const float* __restrict__ d_conics, const float* __restrict__ d_comp, float* __restrict__ d_means,
+    float* __restrict__ d_scales, float* __restrict__ d_quats) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float dm2x = d_means2d[2 * i], dm2y = d_means2d[2 * i + 1], dz_out = d_depths[i];
+  const float dc0 = d_conics[3 * i], dc1 = d_conics[3 * i + 1], dc2 = d_conics[3 * i + 2];
+  const float dk = cam.antialiased ? d_comp[i] : 0.0f;
+  if (dm2x == 0.0f && dm2y == 0.0f && dz_out == 0.0f && dc0 == 0.0f && dc1 == 0.0f && dc2 == 0.0f && dk == 0.0f) {
+    // no cotangent (e.g. a gaussian no tile blended): the gradient is zero
+    for (int k = 0; k < 3; ++k) d_means[3 * i + k] = d_scales[3 * i + k] = 0.0f;
+    for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = 0.0f;
+    return;
+  }
+  Projected p;
+  project_one(means, scales, quats, i, cam, p);
+  const float* R = cam.R;
+
+  // conics = (cov11, -cov01, cov00) * inv_det
+  float d_cov00 = dc2 * p.inv_det, d_cov01 = -dc1 * p.inv_det, d_cov11 = dc0 * p.inv_det;
+  const float d_inv_det = dc0 * p.cov11 + dc1 * (-p.cov01) + dc2 * p.cov00;
+  float d_det_safe = -d_inv_det * p.inv_det * p.inv_det;
+  if (dk != 0.0f) {
+    // comp = sqrt(max(r, 0)), r = det_orig / det_safe; det_orig of the
+    // undilated cov2d, whose entries have the dilated ones' gradient
+    const float r = p.det_orig / p.det_safe;
+    const float m = fmaxf(r, 0.0f);
+    const float d_r = m > 0.0f ? dk * 0.5f / sqrtf(m) * dmax(r, 0.0f) : 0.0f;
+    const float d_det_orig = d_r / p.det_safe;
+    d_det_safe += -d_r * p.det_orig / (p.det_safe * p.det_safe);
+    d_cov00 += d_det_orig * p.pre11;
+    d_cov11 += d_det_orig * p.pre00;
+    d_cov01 += -2.0f * p.cov01 * d_det_orig;
+  }
+  const float d_det = d_det_safe * dmax(p.det, 1e-10f);
+  d_cov00 += d_det * p.cov11;
+  d_cov11 += d_det * p.cov00;
+  d_cov01 += -2.0f * p.cov01 * d_det;
+
+  // cov2d = J V J^T, J = [[jx, 0, kx], [0, jy, ky]]
+  const float v00 = p.v[0], v01 = p.v[1], v02 = p.v[2], v11 = p.v[3], v12 = p.v[4], v22 = p.v[5];
+  const float jx = p.jx, jy = p.jy, kx = p.kx, ky = p.ky;
+  float dv[6];
+  dv[0] = d_cov00 * jx * jx;
+  dv[1] = d_cov01 * jy * jx;
+  dv[2] = d_cov00 * 2.0f * jx * kx + d_cov01 * ky * jx;
+  dv[3] = d_cov11 * jy * jy;
+  dv[4] = d_cov01 * jy * kx + d_cov11 * 2.0f * jy * ky;
+  dv[5] = d_cov00 * kx * kx + d_cov01 * ky * kx + d_cov11 * ky * ky;
+  const float d_jx = d_cov00 * (2.0f * jx * v00 + 2.0f * kx * v02) + d_cov01 * (jy * v01 + ky * v02);
+  const float d_kx = d_cov00 * (2.0f * jx * v02 + 2.0f * kx * v22) + d_cov01 * (jy * v12 + ky * v22);
+  const float d_jy = d_cov01 * (jx * v01 + kx * v12) + d_cov11 * (2.0f * jy * v11 + 2.0f * ky * v12);
+  const float d_ky = d_cov01 * (jx * v02 + kx * v22) + d_cov11 * (2.0f * jy * v12 + 2.0f * ky * v22);
+
+  // jx = fx inv_z, kx = -fx txz inv_z (and y)
+  float d_inv_z = d_jx * cam.fx + d_jy * cam.fy - d_kx * cam.fx * p.txz - d_ky * cam.fy * p.tyz;
+  const float d_txz = -d_kx * cam.fx * p.inv_z;
+  const float d_tyz = -d_ky * cam.fy * p.inv_z;
+  // txz = min(max(xs, -lim), lim)
+  float d_xs = d_txz * dmax(p.xs, -cam.lim_x) * dmin(fmaxf(p.xs, -cam.lim_x), cam.lim_x);
+  float d_ys = d_tyz * dmax(p.ys, -cam.lim_y) * dmin(fmaxf(p.ys, -cam.lim_y), cam.lim_y);
+  // means2d = (xs fx + cx, ys fy + cy), xs = px inv_z
+  d_xs += dm2x * cam.fx;
+  d_ys += dm2y * cam.fy;
+  const float d_px = d_xs * p.inv_z;
+  const float d_py = d_ys * p.inv_z;
+  d_inv_z += d_xs * p.px + d_ys * p.py;
+  // inv_z = 1 / max(z, 1e-6); depths = z
+  const float d_z = dz_out - d_inv_z * p.inv_z * p.inv_z * dmax(p.z, 1e-6f);
+  d_means[3 * i + 0] = R[0] * d_px + R[3] * d_py + R[6] * d_z;
+  d_means[3 * i + 1] = R[1] * d_px + R[4] * d_py + R[7] * d_z;
+  d_means[3 * i + 2] = R[2] * d_px + R[5] * d_py + R[8] * d_z;
+
+  // V = A R^T over the upper triangle: v_ij = sum_k a_ik R_jk
+  float da[9];
+  for (int k = 0; k < 3; ++k) {
+    da[0 + k] = dv[0] * R[k] + dv[1] * R[3 + k] + dv[2] * R[6 + k];
+    da[3 + k] = dv[3] * R[3 + k] + dv[4] * R[6 + k];
+    da[6 + k] = dv[5] * R[6 + k];
+  }
+  // A = R cov3d with cov3d symmetric: a_ik = sum_m R_im c_mk
+  float dC[3][3];  // gradient per (m, k) entry of the full matrix
+  for (int m = 0; m < 3; ++m)
+    for (int k = 0; k < 3; ++k) dC[m][k] = da[k] * R[m] + da[3 + k] * R[3 + m] + da[6 + k] * R[6 + m];
+  // stored entries: the diagonal once, each off-diagonal for both (m, k) and (k, m)
+  float dc[6];
+  dc[0] = dC[0][0];
+  dc[1] = dC[0][1] + dC[1][0];
+  dc[2] = dC[0][2] + dC[2][0];
+  dc[3] = dC[1][1];
+  dc[4] = dC[1][2] + dC[2][1];
+  dc[5] = dC[2][2];
+
+  // c_ij = sum_k g_ik g_jk s_k
+  const int ci[6] = {0, 0, 0, 1, 1, 2}, cj[6] = {0, 1, 2, 1, 2, 2};
+  float dg[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+  float ds[3] = {0, 0, 0};
+  for (int e = 0; e < 6; ++e) {
+    const int a = ci[e], b = cj[e];
+    for (int k = 0; k < 3; ++k) {
+      ds[k] += dc[e] * p.g[3 * a + k] * p.g[3 * b + k];
+      dg[3 * a + k] += dc[e] * p.g[3 * b + k] * p.s[k];
+      dg[3 * b + k] += dc[e] * p.g[3 * a + k] * p.s[k];
+    }
+  }
+  for (int k = 0; k < 3; ++k) d_scales[3 * i + k] = 2.0f * p.sc[k] * ds[k];
+
+  // rotation from the normalised quaternion
+  const float qw = p.q[0], qx = p.q[1], qy = p.q[2], qz = p.q[3];
+  float dq[4];
+  dq[0] = 2.0f * (-qz * dg[1] + qy * dg[2] + qz * dg[3] - qx * dg[5] - qy * dg[6] + qx * dg[7]);
+  dq[1] = 2.0f * (qy * dg[1] + qz * dg[2] + qy * dg[3] - 2.0f * qx * dg[4] - qw * dg[5] + qz * dg[6] +
+                  qw * dg[7] - 2.0f * qx * dg[8]);
+  dq[2] = 2.0f * (-2.0f * qy * dg[0] + qx * dg[1] + qw * dg[2] + qx * dg[3] + qz * dg[5] - qw * dg[6] +
+                  qz * dg[7] - 2.0f * qy * dg[8]);
+  dq[3] = 2.0f * (-2.0f * qz * dg[0] - qw * dg[1] + qx * dg[2] + qw * dg[3] - 2.0f * qz * dg[4] + qy * dg[5] +
+                  qx * dg[6] + qy * dg[7]);
+  // q = Q / max(|Q|, 1e-8)
+  float dot = 0.0f;
+  for (int k = 0; k < 4; ++k) dot += dq[k] * p.Q[k];
+  const float d_den = -dot / (p.qden * p.qden);
+  const float d_norm = p.qnorm > 0.0f ? d_den * dmax(p.qnorm, 1e-8f) / p.qnorm : 0.0f;
+  for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = dq[k] / p.qden + d_norm * p.Q[k];
+}
+
+// ---------------------------------------------------------------------------
+// K5: tile binning
+
+struct TileGrid {
+  int tiles_x, tiles_y, num_tiles;
+  int depth_bits, id_bits;
+};
+
+__device__ __forceinline__ int tile_coord(float x) {
+  return (int)fminf(fmaxf(floorf(x), -kCoordLimit), kCoordLimit);
+}
+
+// The emission window of _window_tile_ids: its bbox in tiles and its start.
+struct Window {
+  int x0t, y0t, x1t, y1t, sx, sy;
+};
+
+__device__ __forceinline__ Window make_window(float mx, float my, float r, const TileGrid& tg, int d) {
+  Window w;
+  w.x0t = tile_coord((mx - r) / (float)kTile);
+  w.y0t = tile_coord((my - r) / (float)kTile);
+  w.x1t = tile_coord((mx + r) / (float)kTile);
+  w.y1t = tile_coord((my + r) / (float)kTile);
+  const int cxt = tile_coord(mx / (float)kTile);
+  const int cyt = tile_coord(my / (float)kTile);
+  const int half_w = (d - 1) / 2;
+  const int lo_x = max(w.x0t, 0), hi_x = min(w.x1t, tg.tiles_x - 1);
+  const int lo_y = max(w.y0t, 0), hi_y = min(w.y1t, tg.tiles_y - 1);
+  w.sx = min(max(cxt - half_w, lo_x), max(lo_x, hi_x - d + 1));
+  w.sy = min(max(cyt - half_w, lo_y), max(lo_y, hi_y - d + 1));
+  return w;
+}
+
+// Tile of window slot (dx, dy), or num_tiles when the slot falls outside the
+// screen or the bbox.
+__device__ __forceinline__ int window_tile(const Window& w, int dx, int dy, const TileGrid& tg) {
+  const int tx = w.sx + dx, ty = w.sy + dy;
+  const bool ok = tx >= 0 && tx < tg.tiles_x && tx >= w.x0t && tx <= w.x1t && ty >= 0 && ty < tg.tiles_y &&
+                  ty >= w.y0t && ty <= w.y1t;
+  return ok ? ty * tg.tiles_x + tx : tg.num_tiles;
+}
+
+// One thread per (window slot, gaussian): the base window's d*d slots for
+// all n gaussians (slot-major), then the big window's d_big*d_big slots for
+// the n_big largest. Writes ((tile << depth_bits | depth bits) << id_bits | id).
+__global__ void __launch_bounds__(kThreads) tile_keys_kernel(
+    const float* __restrict__ means2d, const float* __restrict__ radii, const float* __restrict__ depths,
+    const uint8_t* __restrict__ valid, int64_t n, const int64_t* __restrict__ idx_big, int64_t n_big, TileGrid tg,
+    int d, int d_big, int64_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n_base = (int64_t)d * d * n;
+  if (i >= n_base + (int64_t)d_big * d_big * n_big) return;
+  int64_t gid;
+  int tile = tg.num_tiles;
+  if (i < n_base) {
+    const int slot = (int)(i / n);
+    gid = i % n;
+    if (valid[gid]) {
+      const Window w = make_window(means2d[2 * gid], means2d[2 * gid + 1], radii[gid], tg, d);
+      tile = window_tile(w, slot % d, slot / d, tg);
+    }
+  } else {
+    const int64_t j = i - n_base;
+    const int slot = (int)(j / n_big);
+    gid = idx_big[j % n_big];
+    // only splats wider than the base window get the big pass
+    if (valid[gid] && radii[gid] > (float)(d * kTile) / 2.0f) {
+      const float mx = means2d[2 * gid], my = means2d[2 * gid + 1], r = radii[gid];
+      const Window wb = make_window(mx, my, r, tg, d_big);
+      tile = window_tile(wb, slot % d_big, slot / d_big, tg);
+      if (tile < tg.num_tiles) {
+        // drop the tiles the base window already emitted
+        const Window w = make_window(mx, my, r, tg, d);
+        const int tx = tile % tg.tiles_x, ty = tile / tg.tiles_x;
+        if (tx >= w.sx && tx < w.sx + d && ty >= w.sy && ty < w.sy + d) tile = tg.num_tiles;
+      }
+    }
+  }
+  // monotone depth bits: positive float32 bit patterns order as the floats
+  const uint32_t dq = __float_as_uint(fmaxf(depths[gid], 1e-20f)) >> (32 - tg.depth_bits);
+  const uint64_t key = ((uint64_t)(uint32_t)tile << tg.depth_bits) | dq;
+  out[i] = (int64_t)((key << tg.id_bits) | (uint64_t)gid);
+}
+
+__device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ a, int64_t m, int64_t v) {
+  int64_t lo = 0, hi = m;
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (a[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Thread i < m unpacks the id of sorted entry i; thread t < num_tiles finds
+// tile t's [start, start + count) by searching its first possible key.
+__global__ void __launch_bounds__(kThreads) tile_ranges_kernel(const int64_t* __restrict__ packed, int64_t m,
+                                                               TileGrid tg, int32_t* __restrict__ ids,
+                                                               int32_t* __restrict__ starts,
+                                                               int32_t* __restrict__ counts) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < m) ids[i] = (int32_t)(packed[i] & ((1LL << tg.id_bits) - 1));
+  if (i < tg.num_tiles) {
+    const int shift = tg.depth_bits + tg.id_bits;
+    const int64_t lo = lower_bound(packed, m, i << shift);
+    const int64_t hi = lower_bound(packed, m, (i + 1) << shift);
+    starts[i] = (int32_t)lo;
+    counts[i] = (int32_t)(hi - lo);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: saturating blend
+
+struct BlendArgs {
+  const float* means2d;  // (N, 2)
+  const float* conics;   // (N, 3)
+  const float* opac;     // (N,)
+  const float* ch;       // (N, 5)
+  const int32_t* ids;    // (M,) sorted gaussian ids
+  const int32_t* starts;
+  const int32_t* counts;
+  int tiles_x, width, height;
+};
+
+// One tile's entries, staged in shared memory.
+struct Staged {
+  int32_t id[kThreads];
+  float mx[kThreads], my[kThreads];
+  float a[kThreads], b[kThreads], c[kThreads];
+  float o[kThreads];
+  float ch[5][kThreads];
+};
+
+__device__ __forceinline__ void stage(Staged& s, int slot, const BlendArgs& args, int32_t gid) {
+  s.id[slot] = gid;
+  s.mx[slot] = args.means2d[2 * gid];
+  s.my[slot] = args.means2d[2 * gid + 1];
+  s.a[slot] = args.conics[3 * gid];
+  s.b[slot] = args.conics[3 * gid + 1];
+  s.c[slot] = args.conics[3 * gid + 2];
+  s.o[slot] = args.opac[gid];
+  for (int k = 0; k < 5; ++k) s.ch[k][slot] = args.ch[5 * gid + k];
+}
+
+// sigma of _alpha_from_gathered: 0.5 (a dx^2 + c dy^2) + b dx dy
+__device__ __forceinline__ float gauss_sigma(const Staged& s, int j, float dx, float dy) {
+  return 0.5f * (s.a[j] * (dx * dx) + s.c[j] * (dy * dy)) + s.b[j] * dx * dy;
+}
+
+__global__ void __launch_bounds__(kThreads) blend_fwd_kernel(BlendArgs args, float* __restrict__ out_ch,
+                                                             float* __restrict__ out_T,
+                                                             int32_t* __restrict__ out_last) {
+  __shared__ Staged s;
+  const int tile = blockIdx.x;
+  const int tx = tile % args.tiles_x, ty = tile / args.tiles_x;
+  const int lx = threadIdx.x % kTile, ly = threadIdx.x / kTile;
+  const int x = tx * kTile + lx, y = ty * kTile + ly;
+  const bool inside = x < args.width && y < args.height;
+  const float px = ((float)lx + 0.5f) + (float)(tx * kTile);
+  const float py = ((float)ly + 0.5f) + (float)(ty * kTile);
+  const int start = args.starts[tile], count = args.counts[tile];
+
+  float T = 1.0f, acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  int last = 0;
+  bool done = !inside;
+  for (int base = 0; base < count; base += kThreads) {
+    // a barrier too: no thread still reads the previous batch
+    if (__syncthreads_count(done) == kThreads) break;
+    if (base + (int)threadIdx.x < count) stage(s, threadIdx.x, args, args.ids[start + base + threadIdx.x]);
+    __syncthreads();
+    const int nb = min(kThreads, count - base);
+    for (int j = 0; j < nb && !done; ++j) {
+      const float dx = px - s.mx[j], dy = py - s.my[j];
+      const float sigma = gauss_sigma(s, j, dx, dy);
+      if (sigma < 0.0f) continue;
+      const float alpha = fminf(kMaxAlpha, s.o[j] * expf(-sigma));
+      if (!(alpha > kMinAlpha)) continue;
+      const float w = alpha * T;
+      for (int k = 0; k < 5; ++k) acc[k] += w * s.ch[k][j];
+      T = T * (1.0f - alpha);
+      last = base + j + 1;
+      if (T < kTransmittanceEps) done = true;
+    }
+  }
+  if (inside) {
+    const int64_t pix = (int64_t)y * args.width + x;
+    for (int k = 0; k < 5; ++k) out_ch[5 * pix + k] = acc[k];
+    out_T[pix] = T;
+    out_last[pix] = last;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) blend_bwd_kernel(BlendArgs args, const float* __restrict__ T_final,
+                                                             const int32_t* __restrict__ last_entry,
+                                                             const float* __restrict__ g_ch,
+                                                             float* __restrict__ grads) {
+  __shared__ Staged s;
+  __shared__ int block_last;
+  const int tile = blockIdx.x;
+  const int tx = tile % args.tiles_x, ty = tile / args.tiles_x;
+  const int lx = threadIdx.x % kTile, ly = threadIdx.x / kTile;
+  const int x = tx * kTile + lx, y = ty * kTile + ly;
+  const bool inside = x < args.width && y < args.height;
+  const float px = ((float)lx + 0.5f) + (float)(tx * kTile);
+  const float py = ((float)ly + 0.5f) + (float)(ty * kTile);
+  const int start = args.starts[tile];
+  const int64_t pix = (int64_t)y * args.width + x;
+
+  float T = inside ? T_final[pix] : 1.0f;
+  const int last = inside ? last_entry[pix] : 0;
+  float g[5];
+  for (int k = 0; k < 5; ++k) g[k] = inside ? g_ch[5 * pix + k] : 0.0f;
+  float suffix = 0.0f;  // sum over the later blended entries of w * (g . ch)
+
+  if (threadIdx.x == 0) block_last = 0;
+  __syncthreads();
+  const unsigned warp_last = __reduce_max_sync(0xffffffffu, (unsigned)last);
+  if (threadIdx.x % 32 == 0) atomicMax(&block_last, (int)warp_last);
+  __syncthreads();
+  const int end_all = block_last;
+
+  for (int end = end_all; end > 0; end -= kThreads) {
+    const int b0 = max(0, end - kThreads);
+    __syncthreads();  // no thread still reads the previous batch
+    if (b0 + (int)threadIdx.x < end) stage(s, threadIdx.x, args, args.ids[start + b0 + threadIdx.x]);
+    __syncthreads();
+    for (int j = end - b0 - 1; j >= 0; --j) {
+      float d[kGradStride];
+      bool hit = false;
+      if (b0 + j < last) {
+        const float dx = px - s.mx[j], dy = py - s.my[j];
+        const float sigma = gauss_sigma(s, j, dx, dy);
+        if (sigma >= 0.0f) {
+          const float vis = expf(-sigma);
+          const float raw = s.o[j] * vis;
+          const float alpha = fminf(kMaxAlpha, raw);
+          if (alpha > kMinAlpha) {
+            hit = true;
+            const float one_m = 1.0f - alpha;
+            T = T / one_m;  // transmittance in front of this entry
+            float G = 0.0f;
+            for (int k = 0; k < 5; ++k) G += g[k] * s.ch[k][j];
+            const float w = alpha * T;
+            const float d_alpha = T * G - suffix / one_m;
+            suffix += w * G;
+            for (int k = 0; k < 5; ++k) d[5 + k] = w * g[k];
+            const float d_raw = d_alpha * dmin(raw, kMaxAlpha);
+            d[10] = d_raw * vis;
+            const float d_sigma = -d_raw * raw;
+            d[2] = d_sigma * 0.5f * (dx * dx);
+            d[3] = d_sigma * dx * dy;
+            d[4] = d_sigma * 0.5f * (dy * dy);
+            d[0] = -d_sigma * (s.a[j] * dx + s.b[j] * dy);
+            d[1] = -d_sigma * (s.c[j] * dy + s.b[j] * dx);
+          }
+        }
+      }
+      if (!__any_sync(0xffffffffu, hit)) continue;
+      if (!hit)
+        for (int k = 0; k < kGradStride; ++k) d[k] = 0.0f;
+      for (int k = 0; k < kGradStride; ++k) d[k] = warp_sum(d[k]);
+      if (threadIdx.x % 32 == 0) {
+        float* row = grads + (int64_t)kGradStride * s.id[j];
+        for (int k = 0; k < kGradStride; ++k) atomicAdd(row + k, d[k]);
+      }
+    }
+  }
+}
+
+unsigned int grid_for(int64_t work) { return (unsigned int)((work + kThreads - 1) / kThreads); }
+
+Camera make_camera(const float* params, int width, int height, int antialiased) {
+  // params: viewmat rows 0-2 (12 floats, [R | t]), fx, fy, cx, cy, lim_x,
+  // lim_y, near, eps2d
+  Camera cam;
+  for (int r = 0; r < 3; ++r) {
+    for (int k = 0; k < 3; ++k) cam.R[3 * r + k] = params[4 * r + k];
+    cam.t[r] = params[4 * r + 3];
+  }
+  cam.fx = params[12];
+  cam.fy = params[13];
+  cam.cx = params[14];
+  cam.cy = params[15];
+  cam.lim_x = params[16];
+  cam.lim_y = params[17];
+  cam.near_plane = params[18];
+  cam.eps2d = params[19];
+  cam.width = width;
+  cam.height = height;
+  cam.antialiased = antialiased;
+  return cam;
+}
+
+BlendArgs make_blend_args(const void* means2d, const void* conics, const void* opac, const void* ch,
+                          const void* ids, const void* starts, const void* counts, int tiles_x, int width,
+                          int height) {
+  BlendArgs a;
+  a.means2d = (const float*)means2d;
+  a.conics = (const float*)conics;
+  a.opac = (const float*)opac;
+  a.ch = (const float*)ch;
+  a.ids = (const int32_t*)ids;
+  a.starts = (const int32_t*)starts;
+  a.counts = (const int32_t*)counts;
+  a.tiles_x = tiles_x;
+  a.width = width;
+  a.height = height;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4 forward. means, scales (n, 3) and quats (n, 4) are f32 device inputs
+// (scales linear, quats wxyz, any norm); cam is a host array of 20 floats
+// (see make_camera). Outputs: means2d (n, 2), depths (n,), conics (n, 3),
+// radii (n,) f32, valid (n,) uint8 and comp (n,) f32, the antialiasing
+// compensation (1 unless antialiased). Returns a cudaError_t (0 on success).
+int nst_gsplat_project_fwd(const void* means, const void* scales, const void* quats, const float* cam,
+                           int width, int height, int antialiased, long long n, void* means2d, void* depths,
+                           void* conics, void* radii, void* valid, void* comp, void* stream) {
+  if (n < 0 || width < 1 || height < 1) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  project_fwd_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)means, (const float*)scales, (const float*)quats, n,
+      make_camera(cam, width, height, antialiased), (float*)means2d, (float*)depths, (float*)conics,
+      (float*)radii, (uint8_t*)valid, (float*)comp);
+  return (int)cudaGetLastError();
+}
+
+// K4 backward: the cotangents d_means2d (n, 2), d_depths (n,), d_conics
+// (n, 3) and d_comp (n,) (read only when antialiased) in; d_means (n, 3),
+// d_scales (n, 3), d_quats (n, 4) out (every row written). Returns a
+// cudaError_t.
+int nst_gsplat_project_bwd(const void* means, const void* scales, const void* quats, const float* cam,
+                           int width, int height, int antialiased, long long n, const void* d_means2d,
+                           const void* d_depths, const void* d_conics, const void* d_comp, void* d_means,
+                           void* d_scales, void* d_quats, void* stream) {
+  if (n < 0 || width < 1 || height < 1) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  project_bwd_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)means, (const float*)scales, (const float*)quats, n,
+      make_camera(cam, width, height, antialiased), (const float*)d_means2d, (const float*)d_depths,
+      (const float*)d_conics, (const float*)d_comp, (float*)d_means, (float*)d_scales, (float*)d_quats);
+  return (int)cudaGetLastError();
+}
+
+// K5 emission. means2d (n, 2), radii, depths (n,) f32 and valid (n,) uint8
+// are device inputs; idx_big (n_big,) int64 holds the big window's gaussians
+// (the n_big largest radii). out (d*d*n + d_big*d_big*n_big,) int64 receives
+// the packed keys. Returns a cudaError_t.
+int nst_gsplat_tile_keys(const void* means2d, const void* radii, const void* depths, const void* valid,
+                         long long n, const void* idx_big, long long n_big, int tiles_x, int tiles_y, int d,
+                         int d_big, int depth_bits, int id_bits, void* out, void* stream) {
+  if (n < 1 || n_big < 0 || d < 1 || d_big < 1 || depth_bits < 1 || id_bits < 1 ||
+      32 + id_bits > 63 || tiles_x < 1 || tiles_y < 1)
+    return (int)cudaErrorInvalidValue;
+  const TileGrid tg = {tiles_x, tiles_y, tiles_x * tiles_y, depth_bits, id_bits};
+  const int64_t work = (int64_t)d * d * n + (int64_t)d_big * d_big * n_big;
+  tile_keys_kernel<<<grid_for(work), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)means2d, (const float*)radii, (const float*)depths, (const uint8_t*)valid, n,
+      (const int64_t*)idx_big, n_big, tg, d, d_big, (int64_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K5 ranges. packed (m,) int64 sorted ascending; ids (m,), starts and counts
+// (tiles_x * tiles_y,) int32 out. Returns a cudaError_t.
+int nst_gsplat_tile_ranges(const void* packed, long long m, int tiles_x, int tiles_y, int depth_bits,
+                           int id_bits, void* ids, void* starts, void* counts, void* stream) {
+  if (m < 0 || m > 0x7FFFFFFFLL || tiles_x < 1 || tiles_y < 1) return (int)cudaErrorInvalidValue;
+  const TileGrid tg = {tiles_x, tiles_y, tiles_x * tiles_y, depth_bits, id_bits};
+  const int64_t work = m > tg.num_tiles ? m : tg.num_tiles;
+  tile_ranges_kernel<<<grid_for(work), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)packed, m, tg, (int32_t*)ids, (int32_t*)starts, (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
+
+// K6 forward. means2d (N, 2), conics (N, 3), opac (N,), ch (N, 5) f32 and
+// ids (M,), starts, counts (tiles,) int32 are device inputs. Outputs over
+// the image: out_ch (height, width, 5), out_T (height, width) f32 and
+// out_last (height, width) int32. Returns a cudaError_t.
+int nst_gsplat_blend_fwd(const void* means2d, const void* conics, const void* opac, const void* ch,
+                         const void* ids, const void* starts, const void* counts, int tiles_x, int tiles_y,
+                         int width, int height, void* out_ch, void* out_T, void* out_last, void* stream) {
+  if (tiles_x < 1 || tiles_y < 1 || width < 1 || height < 1 || width > tiles_x * kTile ||
+      height > tiles_y * kTile)
+    return (int)cudaErrorInvalidValue;
+  blend_fwd_kernel<<<tiles_x * tiles_y, kThreads, 0, (cudaStream_t)stream>>>(
+      make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height), (float*)out_ch,
+      (float*)out_T, (int32_t*)out_last);
+  return (int)cudaGetLastError();
+}
+
+// K6 backward. The forward's inputs, its T_final and last outputs and the
+// cotangent g_ch (height, width, 5) in; grads (N, 11) f32, zeroed by the
+// caller, accumulates [d means2d (2), d conics (3), d ch (5), d opac].
+// Returns a cudaError_t.
+int nst_gsplat_blend_bwd(const void* means2d, const void* conics, const void* opac, const void* ch,
+                         const void* ids, const void* starts, const void* counts, int tiles_x, int tiles_y,
+                         int width, int height, const void* T_final, const void* last, const void* g_ch,
+                         void* grads, void* stream) {
+  if (tiles_x < 1 || tiles_y < 1 || width < 1 || height < 1 || width > tiles_x * kTile ||
+      height > tiles_y * kTile)
+    return (int)cudaErrorInvalidValue;
+  blend_bwd_kernel<<<tiles_x * tiles_y, kThreads, 0, (cudaStream_t)stream>>>(
+      make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height),
+      (const float*)T_final, (const int32_t*)last, (const float*)g_ch, (float*)grads);
+  return (int)cudaGetLastError();
+}
+
+const char* nst_gsplat_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

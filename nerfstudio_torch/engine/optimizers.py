@@ -1,4 +1,6 @@
-"""Per-group Adam (counterpart of ``nerfstudio_tpu/engine/optimizers.py``).
+"""Per-group Adam (counterpart of ``nerfstudio_tpu/engine/optimizers.py``),
+and splatfacto's per-array Adam (``SplatAdam``, counterpart of
+``nerfstudio_tpu/pipelines/splat_pipeline.py:build_splat_optimizers``).
 
 The reference builds one optax ``multi_transform`` whose labels come from
 the top-level modules of the param tree; here each group is one
@@ -17,7 +19,7 @@ without a schedule are not ported."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -99,3 +101,90 @@ class PerGroupAdam:
                 pg["lr"] = self.schedules[group](self.count)
             opt.step()
         self.count += 1
+
+
+# splatfacto's constant rates (reference pipelines/splat_pipeline.py:50-65);
+# ``means`` follows ``splat_means_lr``.
+SPLAT_LRS = {
+    "features_dc": 0.0025,
+    "features_rest": 0.0025 / 20,
+    "opacities": 0.05,
+    "scales": 0.005,
+    "quats": 0.001,
+}
+
+
+def splat_means_lr(count: int, max_steps: int = 30000) -> float:
+    """1.6e-4 decaying exponentially to 1.6e-6 over ``max_steps`` (reference
+    ``means_lr_schedule``, optax ``exponential_decay``)."""
+    return 1.6e-4 * (1.6e-6 / 1.6e-4) ** (count / max_steps)
+
+
+class SplatAdam:
+    """Splatfacto's per-array Adam (reference ``build_splat_optimizers``):
+    one ``torch.optim.Adam`` with a param group per array, ``eps=1e-15``,
+    the ``means`` rate scheduled by the optimizer's own update count (optax's
+    ``scale_by_schedule``). An array without a gradient is stepped on zeros,
+    as optax steps it.
+
+    ``zero_rows`` and ``reset`` are the moment surgery of ``refine``: they
+    change the moments in place and keep the count, so bias correction still
+    uses the group's count."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], max_steps: int = 30000):
+        unknown = set(params) - set(SPLAT_LRS) - {"means"}
+        if unknown:
+            raise NotImplementedError(f"no optimizer for {sorted(unknown)}")
+        self.params = params
+        self.max_steps = max_steps
+        self.optimizer = torch.optim.Adam(
+            [{"params": [p], "lr": SPLAT_LRS.get(name, 0.0), "name": name} for name, p in params.items()],
+            betas=(0.9, 0.999), eps=1e-15,
+        )
+        self.count = 0  # updates applied so far, the schedule's index
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for pg in self.optimizer.param_groups:
+            p = pg["params"][0]
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if pg["name"] == "means":
+                pg["lr"] = splat_means_lr(self.count, self.max_steps)
+        self.optimizer.step()
+        self.count += 1
+
+    def _moments(self, name: str):
+        state = self.optimizer.state.get(self.params[name])
+        return () if not state else (state["exp_avg"], state["exp_avg_sq"])
+
+    @torch.no_grad()
+    def zero_rows(self, rows: torch.Tensor) -> None:
+        """Zero every array's moments on the rows where ``rows`` (N,) is true."""
+        for name in self.params:
+            for m in self._moments(name):
+                m.masked_fill_(rows.view((-1,) + (1,) * (m.ndim - 1)), 0.0)
+
+    @torch.no_grad()
+    def reset(self, name: str) -> None:
+        """Zero all of one array's moments."""
+        for m in self._moments(name):
+            m.zero_()
+
+    def load_moments(self, moments: Dict[str, Tuple[int, torch.Tensor, torch.Tensor]]) -> None:
+        """Set each array's (count, first moment, second moment); every count
+        must be the same."""
+        counts = {int(c) for c, _, _ in moments.values()}
+        if set(moments) != set(self.params) or len(counts) != 1:
+            raise ValueError(f"moments for {sorted(moments)} with counts {sorted(counts)}, "
+                             f"arrays {sorted(self.params)}")
+        for name, (count, mu, nu) in moments.items():
+            p = self.params[name]
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu.to(p.device, torch.float32).clone(),
+                "exp_avg_sq": nu.to(p.device, torch.float32).clone(),
+            }
+        self.count = counts.pop()

@@ -15,8 +15,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerfstudio_torch"
@@ -24,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerfstudio_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-    # the stochastic rounding hashes float bits: no FMA contraction anywhere
+    # the stochastic rounding hashes float bits, and the splatting kernels
+    # round as their twins: no FMA contraction anywhere
     "-fmad=false",
     "-Xptxas", "-v",
 )
@@ -66,6 +68,13 @@ def build(name: str) -> Tuple[Path, float]:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib, seconds
+
+
+def build_all(names) -> Dict[str, Tuple[Path, float]]:
+    """``build`` every source at once (one nvcc process each, started
+    together): {name: (library path, seconds compiling)}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,7 +5,8 @@ tree or a ``TrainState`` works as is) and imports no jax. Dense kernels
 ``(in, out)`` become ``weight (out, in)``; hash tables keep their
 ``(L, S, 128)`` layout; list members such as ``layers_0`` become
 ``layers.0``. Every leaf must land on exactly one parameter: anything left
-over on either side raises."""
+over on either side raises. ``splat_state_from_jax`` carries a splatfacto
+train state whole: gaussians, densification state and Adam moments."""
 
 from __future__ import annotations
 
@@ -109,6 +110,49 @@ def occupancy_from_jax(state: Any) -> OccupancyGridState:
         aabb=torch.from_numpy(np.asarray(fields["aabb"], dtype=np.float32).copy()),
         resolution=res,
     )
+
+
+def _fields(obj: Any) -> Dict[str, Any]:
+    if isinstance(obj, Mapping):
+        return dict(obj)
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _tensor(x: Any, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(dtype)
+
+
+def splat_state_from_jax(state: Any):
+    """The JAX ``SplatTrainState`` (numpy leaves, e.g. ``jax.device_get`` of
+    it) -> (params, ``SplatAux``, Adam moments, step) of the port, for
+    ``SplatPipeline.state_from``. The moments are {array: (count, mu, nu)},
+    read from the per-array optax Adams of ``build_splat_optimizers``; the
+    ``means`` schedule's count must equal its Adam's."""
+    from nerfstudio_torch.models.splatfacto import GAUSSIAN_ARRAYS, SplatAux
+
+    fields = _fields(state)
+    params = {k: _tensor(v) for k, v in _fields(fields["params"]).items()}
+    if set(params) != set(GAUSSIAN_ARRAYS):
+        raise ValueError(f"splat params {sorted(params)}: the port has exactly {sorted(GAUSSIAN_ARRAYS)}")
+    aux_fields = _fields(fields["aux"])
+    aux = SplatAux(
+        alive=_tensor(aux_fields["alive"], torch.bool),
+        grad_accum=_tensor(aux_fields["grad_accum"]),
+        grad_count=_tensor(aux_fields["grad_count"]),
+        max_radii=_tensor(aux_fields["max_radii"]),
+    )
+    inner = fields["opt_state"].inner_states
+    if set(inner) != set(params):
+        raise ValueError(f"optimizer groups {sorted(inner)} vs params {sorted(params)}")
+    moments = {}
+    for name in params:
+        adam, *schedule = inner[name].inner_state
+        count = int(np.asarray(adam.count))
+        for s in schedule:
+            if "count" in getattr(s, "_fields", ()) and int(np.asarray(s.count)) != count:
+                raise ValueError(f"{name}: schedule count {int(np.asarray(s.count))} vs Adam count {count}")
+        moments[name] = (count, _tensor(adam.mu[name]), _tensor(adam.nu[name]))
+    return params, aux, moments, int(np.asarray(fields["step"]))
 
 
 def train_state_from_jax(state: Any, model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Optional[OccupancyGridState], int]:

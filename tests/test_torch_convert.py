@@ -83,6 +83,67 @@ def test_leftovers_on_either_side_raise(tiny_params):
         params_from_jax(other_collection, model)
 
 
+def _jax_splat_state():
+    """A JAX SplatTrainState at 64 slots after one optax update (nonzero
+    moments, count 1), as numpy leaves."""
+    import optax
+
+    from nerfstudio_tpu.models.splatfacto import SplatfactoModelConfig, init_gaussian_params
+    from nerfstudio_tpu.pipelines.splat_pipeline import SplatTrainState, build_splat_optimizers
+
+    cfg = SplatfactoModelConfig(max_gaussians=64, num_random=40, random_init=True, sh_degree=2)
+    params, aux = init_gaussian_params(cfg)
+    tx = build_splat_optimizers(cfg, max_steps=100)
+    rng = np.random.default_rng(0)
+    grads = {k: jnp.asarray(rng.normal(size=v.shape).astype(np.float32)) for k, v in params.items()}
+    updates, opt_state = tx.update(grads, tx.init(params), params)
+    aux = aux.replace(grad_accum=jnp.asarray(rng.uniform(size=64).astype(np.float32)))
+    state = SplatTrainState(params=optax.apply_updates(params, updates), opt_state=opt_state, aux=aux,
+                            step=jnp.asarray(1, jnp.int32))
+    return jax.device_get(state), cfg
+
+
+def test_splat_state_from_jax_round_trip():
+    """Params, aux and each array's (count, mu, nu) land unchanged, and the
+    port's pipeline takes them whole."""
+    from nerfstudio_torch.models.splatfacto import SplatfactoModel, SplatfactoModelConfig
+    from nerfstudio_torch.pipelines.splat_pipeline import SplatPipeline
+    from nerfstudio_torch.utils.convert import splat_state_from_jax
+
+    jstate, cfg = _jax_splat_state()
+    params, aux, moments, step = splat_state_from_jax(jstate)
+    assert step == 1
+    for k, v in jstate.params.items():
+        np.testing.assert_array_equal(params[k].numpy(), np.asarray(v))
+        count, mu, nu = moments[k]
+        adam = jstate.opt_state.inner_states[k].inner_state[0]
+        assert count == 1
+        np.testing.assert_array_equal(mu.numpy(), np.asarray(adam.mu[k]))
+        np.testing.assert_array_equal(nu.numpy(), np.asarray(adam.nu[k]))
+    assert aux.alive.dtype == torch.bool and int(aux.alive.sum()) == 40
+    np.testing.assert_array_equal(aux.grad_accum.numpy(), np.asarray(jstate.aux.grad_accum))
+    port_cfg = SplatfactoModelConfig(max_gaussians=64, num_random=40, random_init=True, sh_degree=2)
+    st = SplatPipeline(None, SplatfactoModel(port_cfg), max_steps=100).state_from(params, aux, moments, step)
+    assert st.optimizer.count == 1 and st.step == 1
+    s = st.optimizer.optimizer.state[st.params["means"]]
+    np.testing.assert_array_equal(s["exp_avg"].numpy(), moments["means"][1].numpy())
+
+
+def test_splat_state_from_jax_rejects_mismatches():
+    from nerfstudio_torch.models.splatfacto import SplatfactoModel, SplatfactoModelConfig
+    from nerfstudio_torch.pipelines.splat_pipeline import SplatPipeline
+    from nerfstudio_torch.utils.convert import splat_state_from_jax
+
+    jstate, _ = _jax_splat_state()
+    extra = jstate.replace(params={**jstate.params, "camera_opt": np.zeros((4, 6), np.float32)})
+    with pytest.raises(ValueError, match="splat params"):
+        splat_state_from_jax(extra)
+    params, aux, moments, step = splat_state_from_jax(jstate)
+    pipeline = SplatPipeline(None, SplatfactoModel(SplatfactoModelConfig(max_gaussians=64)), max_steps=100)
+    with pytest.raises(ValueError, match="counts"):
+        pipeline.state_from(params, aux, {**moments, "means": (2,) + moments["means"][1:]}, step)
+
+
 def test_occupancy_from_jax():
     jgrid = jocc.init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), 8)
     dens = np.random.default_rng(0).uniform(0, 1, 8**3).astype(np.float32)
