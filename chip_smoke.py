@@ -22,10 +22,21 @@ shapes its path gives it, and drives the port's paths from random weights:
   an opacity reset, 5 warm-up and 30 timed steps, one launch of each of the
   five kernels checked per step); a profile of three steps, one refine and
   one 512^2 eval render timed; one 128^2 step on the card against the CPU
-  twins.
+  twins;
+* neus-facto at the shipped config (phases 20-27): K7 forward and backward
+  against their twins (the backward against a float64 run) at the proposal
+  nets' shapes; the five gather probes at their own shapes through their
+  entry points, against their twins and their PyTorch library calls;
+  training on bench.py's scene at 2048 rays (steps 300-301, then warm-up
+  and timed steps from 6000, two K7 forward and two backward launches
+  checked per step), a profile of three steps, one 512^2 eval frame through
+  ``render_camera`` and one step on the card against the CPU twins.
 
-Times the kernels and their twins, the nerfacto frame and training rays/s,
-and the splatfacto step, refine and eval frame.
+Times the kernels, their twins and their library calls, the nerfacto frame
+and training rays/s, the splatfacto step, refine and eval frame, and the
+neus-facto step and eval frame; computes each kernel's bound (the least
+time the card could take for the same work: bytes at 3.35 TB/s or float32
+operations at 67 TFLOP/s, whichever is longer).
 
 Phases print one line each. Any failure raises, so the exit code is nonzero
 and the final line is missing. On success the last two lines are the
@@ -63,6 +74,39 @@ TIMED_RUNS = 20
 # choice or a different block.
 KERNEL_MAX_ABS = 1e-5
 KERNEL_FLIP = 1e-3
+
+# The least time the card could take (H100 SXM data sheet): HBM bytes per
+# second, and float32
+# operations per second outside the tensor cores (every kernel here is
+# float32 scalar arithmetic).
+H100_BYTES_PER_S = 3.35e12
+H100_F32_PER_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, operations: float):
+    """(bound_ms, bound_by) of a kernel that reads its inputs once, writes
+    its outputs once and does ``operations`` float32 operations."""
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = operations / H100_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# float32 operations per (sample, level) of the hash-grid kernels, counted
+# from their sources: three axes (scale, floor, offset, clip, and the
+# odd-axis coin where there is one) ~24, eight corner weights 16, and F
+# multiply-adds per corner; the backward adds F more per corner for the
+# table gradient, F for the weights' gradient and 72 for the positions'.
+def hash_fwd_ops(n, levels, f):
+    return n * levels * (24 + 16 + 16 * f)
+
+
+def hash_bwd_ops(n, levels, f):
+    return n * levels * (24 + 16 + 32 * f + 72)
+
 
 # Card vs CPU twins, rgb and accumulation mean abs: the MLPs run in bf16 on
 # both sides but round products in another order (a bf16 ulp is 0.4%), and
@@ -147,7 +191,7 @@ def check_kernel(name, exact, n, num_levels, log2_t, features, min_res, max_res,
         kernel=lambda: hg._block_kernel(pos, table, exact=exact, **kw),
         twin=lambda: twin(pos, table, **kw),
     )
-    return max_abs, timing
+    return max_abs, timing, bound(nbytes(pos, table, out), hash_fwd_ops(n, num_levels, features))
 
 
 U32 = 2.0**-24  # float32 unit roundoff
@@ -218,7 +262,7 @@ def check_kernel_bwd(name, n, num_levels, log2_t, features, min_res, max_res, sc
         kernel=lambda: hg._block_bwd_kernel(pos, table, g, scales, **kw),
         twin=lambda: hg._block_stochastic_twin_bwd(pos, table, g, scales, **kw),
     )
-    return max_abs, timing
+    return max_abs, timing, bound(nbytes(pos, table, g, d_tab, d_pos), hash_bwd_ops(n, num_levels, features))
 
 
 # --------------------------------------------------------------------------
@@ -359,17 +403,20 @@ def profile_device(run):
     """Device time by kernel over ``run()``, which takes PROFILED_STEPS
     steps (torch.profiler). Returns (rows (name, ms per step) by time,
     device-busy ms per step (the union of the kernels' intervals), device
-    activities per step), or None when the profiler saw no device activity.
-    The profiler slows the host, so the caller sets the busy time against an
-    unprofiled step."""
+    activities per step, matrix-product FLOPs per step (the profiler's count
+    for the aten mm/addmm/bmm/baddbmm calls, from their shapes)), or None
+    when the profiler saw no device activity. The profiler slows the host,
+    so the caller sets the busy time against an unprofiled step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_flops=True) as prof:
         run()
         torch.cuda.synchronize()
-    spans, by_name = [], {}
+    spans, by_name, gemm_flops = [], {}, 0
     for e in prof.events():
+        if e.name in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm"):
+            gemm_flops += getattr(e, "flops", 0) or 0
         # device activities only: kernels, memsets, copies; not the ranges
         # that annotations such as Optimizer.step project onto the device
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
@@ -383,7 +430,7 @@ def profile_device(run):
             busy_us += b - max(a, end)
             end = b
     rows = sorted(((n, t / PROFILED_STEPS) for n, t in by_name.items()), key=lambda r: -r[1])
-    return rows, busy_us / 1e3 / PROFILED_STEPS, len(spans) / PROFILED_STEPS
+    return rows, busy_us / 1e3 / PROFILED_STEPS, len(spans) / PROFILED_STEPS, gemm_flops / PROFILED_STEPS
 
 
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
@@ -621,12 +668,17 @@ def check_k4(name, x, gen):
     if failed:
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     out, valid, cots, cam = runs[False]
+    n = m.shape[0]
+    # ~250 float32 operations per gaussian forward (rotation, covariance,
+    # Jacobian, conic, radius), ~700 backward, counted from the sources
+    outs = [t for t in out if isinstance(t, torch.Tensor)]
+    bounds = (bound(nbytes(m, s, q, *outs), 250 * n), bound(nbytes(m, s, q, *cots, m, s, q), 700 * n))
     timing = dict(
         fwd=lambda: pj._project_kernel(m, s, q, cam), fwd_twin=lambda: pj._project_twin(m, s, q, *cam),
         bwd=lambda: pj._project_bwd_kernel(m, s, q, cam, *cots),
         bwd_twin=lambda: pj._project_twin_bwd(m, s, q, cam, *cots),
     )
-    return max_abs, timing, (out, valid)
+    return max_abs, timing, (out, valid), bounds
 
 
 def check_k5(name, x, projected):
@@ -646,7 +698,13 @@ def check_k5(name, x, projected):
         f"kernel == twin: {same}")
     if not all(same.values()):
         raise AssertionError(f"{name}: kernel disagrees with its twin")
-    return 0.0, dict(kernel=lambda: rz._tile_bin_kernel(*args), twin=lambda: rz._tile_bin_twin(*args)), got
+    # the inputs once, the sorted keys, ids and tile ranges once (no flops to
+    # speak of); the library call is the sort alone, of these keys shuffled
+    bnd = bound(nbytes(m2, radii, z, valid, got.packed, got.ids, got.starts, got.counts), 0)
+    shuffled = got.packed[torch.randperm(got.packed.numel(), device=got.packed.device)]
+    timing = dict(kernel=lambda: rz._tile_bin_kernel(*args), twin=lambda: rz._tile_bin_twin(*args),
+                  library=lambda: torch.sort(shuffled))
+    return 0.0, timing, got, bnd
 
 
 def check_k6(name, x, projected, bins, gen):
@@ -681,13 +739,20 @@ def check_k6(name, x, projected, bins, gen):
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     fwd_abs = float((out - ref).abs().max())
     bwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, twin))
+    # data-dependent work: the entries each pixel walked (``last``), ~15
+    # operations each forward (conic, exp, alpha, blend of 5 channels) and
+    # ~40 backward
+    walked = float(last.double().sum())
+    bin_t = (bins.ids, bins.starts, bins.counts)
+    bounds = (bound(nbytes(m2, con, ch, op, *bin_t, out, T, last), 15 * walked),
+              bound(nbytes(m2, con, ch, op, *bin_t, T, last, g_ch, *got), 40 * walked))
     timing = dict(
         fwd=lambda: rz._blend_kernel(m2, con, ch, op, bins, w, h),
         fwd_twin=lambda: rz._blend_twin(m2, con, ch, op, bins, w, h),
         bwd=lambda: rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch),
         bwd_twin=lambda: rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch),
     )
-    return (fwd_abs, bwd_abs), timing
+    return (fwd_abs, bwd_abs), timing, bounds
 
 
 def splat_steps(pipeline, state, n, gen):
@@ -732,6 +797,283 @@ def splat_card_vs_cpu():
     return l_card, l_cpu, abs(l_card - l_cpu) / abs(l_cpu), rel
 
 
+# --------------------------------------------------------------------------
+# the neus-facto slice: K7, the gather probes, training and eval
+
+
+# neus-facto's proposal nets (fields/density_fields.py defaults, no
+# contraction): L5 F2 T=2^17, resolutions 16..128 (3 dense, 2 hashed levels)
+PROP_LEVELS, PROP_LOG2_T, PROP_F, PROP_MIN_RES, PROP_MAX_RES = 5, 17, 2, 16, 128
+NEUS_RAYS = 2048  # the method config's train_num_rays_per_batch and eval chunk
+NEUS_SAMPLES = (256, 96)  # proposal samples per ray, rounds 1 and 2
+NEUS_EARLY, NEUS_START, NEUS_WARMUP, NEUS_TIMED = 300, 6000, 3, 10
+NEUS_CHECK_RAYS = 128
+NEUS_KERNELS = ("hash_encode_flat", "hash_encode_flat_bwd")
+
+# K7 kernel vs twin: the same float32 operations in the same order (the
+# library is built without FMA contraction), so the forward is expected
+# equal; 1e-5 on values in +-1 would mean a different corner or rounding.
+K7_MAX_ABS = 1e-5
+# Card vs CPU twins, one neus-facto step at full width from the same
+# weights and draws: the SDF field runs float32 on both sides (cuBLAS and
+# the CPU's products sum in another order), the proposal MLPs bf16 (a bf16
+# ulp is 0.4%), which moves samples by float32 ulps; the eikonal term's
+# second derivative amplifies those through the positional encoding's top
+# frequency (the CPU tests measured 3e-3 of peak on those layers). The loss
+# is a mean over the batch and moved by 1.0e-7 relative on an H100 80GB
+# HBM3 (700 W): within 1e-5 relative; each gradient within 5e-2 of its
+# peak (4.8e-3 measured there, at the first proposal MLP layer, bf16).
+NEUS_LOSS_RTOL = 1e-5
+NEUS_GRAD_REL = 5e-2
+
+
+def flat_table_grad_bound(pos, table, g, kw):
+    """Per-entry limit on |kernel - float64 twin| of K7's table gradient:
+    (terms - 1) * u * sum|t| for a float32 sum in any order, plus two
+    roundings per term (w = (wx*wy)*wz, then w*g); sum|t| is the float64
+    twin on |g|, the term count each lane's from the corners of nonzero
+    weight."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    L, S, lanes = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    abs_sum, _ = hg._flat_twin_bwd(pos, table, g.abs(), need_positions=False, dtype=torch.float64, **kw)
+    counts = torch.zeros((L, S * lanes), dtype=torch.float64, device=pos.device)
+    feat = torch.arange(F, device=pos.device)
+    for l, res in enumerate(hg.compute_level_resolutions(L, kw["min_res"], kw["max_res"])):
+        entries, weights = hg._level_corners(pos, int(res), kw["hash_table_size"])
+        w8 = torch.stack([hg._corner_weight(weights, c) for c in range(8)], dim=-1)
+        idx = entries[:, :, None] * F + feat
+        live = (w8 != 0)[:, :, None].expand_as(idx)
+        counts[l] += torch.bincount(idx[live], minlength=S * lanes).double()
+    return ((counts + 4.0) * U32 * abs_sum.view(L, -1)).view(L, S, lanes)
+
+
+def check_flat(name, n, gen):
+    """K7 forward against its twin at one of the proposal nets' shapes."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    pos, table = kernel_inputs(n, PROP_LEVELS, PROP_LOG2_T, PROP_F, PROP_MIN_RES, PROP_MAX_RES, "cuda", gen)
+    kw = dict(min_res=PROP_MIN_RES, max_res=PROP_MAX_RES, hash_table_size=2**PROP_LOG2_T)
+    with torch.no_grad():
+        out = hg._flat_kernel(pos, table, **kw)
+        ref = hg._flat_twin(pos, table, **kw)
+    torch.cuda.synchronize()
+    max_abs = float((out - ref).abs().max())
+    equal = bool(torch.equal(out, ref))
+    log(name, f"N={n} L={PROP_LEVELS} F={PROP_F} T=2^{PROP_LOG2_T} res {PROP_MIN_RES}-{PROP_MAX_RES}: "
+        f"max |kernel - twin| = {max_abs:.3g} (limit {K7_MAX_ABS}), bit-equal: {equal}")
+    if not torch.isfinite(out).all() or max_abs > K7_MAX_ABS:
+        raise AssertionError(f"{name}: kernel disagrees with its twin")
+    timing = dict(kernel=lambda: hg._flat_kernel(pos, table, **kw), twin=lambda: hg._flat_twin(pos, table, **kw))
+    return max_abs, timing, bound(nbytes(pos, table, out), hash_fwd_ops(n, PROP_LEVELS, PROP_F))
+
+
+def check_flat_bwd(name, n, gen):
+    """K7 backward (table and positions) against its float64 twin."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    pos, table = kernel_inputs(n, PROP_LEVELS, PROP_LOG2_T, PROP_F, PROP_MIN_RES, PROP_MAX_RES, "cuda", gen)
+    g = torch.randn((n, PROP_LEVELS * PROP_F), generator=gen, device="cuda")
+    kw = dict(min_res=PROP_MIN_RES, max_res=PROP_MAX_RES, hash_table_size=2**PROP_LOG2_T)
+    d_tab, d_pos = hg._flat_bwd_kernel(pos, table, g, **kw)
+    ref_tab, ref_pos = hg._flat_twin_bwd(pos, table, g, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    tab_err = (d_tab.double() - ref_tab).abs()
+    pos_err = (d_pos.double() - ref_pos).abs()
+    tab_over = int((tab_err > flat_table_grad_bound(pos, table, g, kw)).sum())
+    pos_over = int((pos_err > position_grad_bound(g, PROP_LEVELS, PROP_F, PROP_MIN_RES, PROP_MAX_RES)).sum())
+    max_abs = max(float(tab_err.max()), float(pos_err.max()))
+    log(name, f"N={n} L={PROP_LEVELS} F={PROP_F} T=2^{PROP_LOG2_T}: max |kernel - float64 twin| d_table "
+        f"{float(tab_err.max()):.3g} (peak {float(ref_tab.abs().max()):.3g}), d_positions {float(pos_err.max()):.3g} "
+        f"(peak {float(ref_pos.abs().max()):.3g}); entries over their summation-order limit: {tab_over} of "
+        f"d_table, {pos_over} of d_positions")
+    if tab_over or pos_over or not (torch.isfinite(d_tab).all() and torch.isfinite(d_pos).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its twin")
+    timing = dict(kernel=lambda: hg._flat_bwd_kernel(pos, table, g, **kw),
+                  twin=lambda: hg._flat_twin_bwd(pos, table, g, **kw))
+    return max_abs, timing, bound(nbytes(pos, table, g, d_tab, d_pos), hash_bwd_ops(n, PROP_LEVELS, PROP_F))
+
+
+def probe_inputs(gen):
+    """Each probe's arguments at its script's shapes and table types, as
+    {probe: {variant: args}}: fused_gather (exp/pallas_gather.py), stage1
+    and stage2 (pallas_gather2.py) on bfloat16 and float32 tables; run_case
+    on pallas_gather3.py's two tables, 16384 and 512 rows of float32; f4
+    (gather_bench.py) on float32. Tables normal, indices uniform over the
+    table's rows, slots over the row's 128/F entries, weights uniform in
+    [0, 1)."""
+    from nerfstudio_torch.ops import gather_probes as gp
+
+    def table(rows, dtype=torch.float32):
+        return torch.randn((rows, 128), generator=gen, device="cuda").to(dtype)
+
+    def ints(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    def unif(shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    c, nb, s, f = gp.CORNERS, gp.N_BLOCKS, gp.S, gp.F
+    nb2 = gp.M // 8 // gp.BLK
+    types = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    return {
+        "fused_gather": {k: (table(s, t), ints(s, (c, nb, s)), ints(128 // f, (c, nb, s)), unif((c, nb, s)))
+                         for k, t in types.items()},
+        "stage1": {k: (table(s, t), ints(s, (gp.M // gp.BLK, gp.BLK))) for k, t in types.items()},
+        "stage2": {k: (table(s, t), ints(s, (nb2, c, gp.BLK)), ints(128 // f, (nb2, c, gp.BLK)),
+                       unif((nb2, c, gp.BLK))) for k, t in types.items()},
+        "run_case": {f"T={rows} float32": (table(rows), ints(rows, (gp.RUN_CASE_ROWS, 128)))
+                     for rows in gp.RUN_CASE_TABLES},
+        "f4": {"float32": (table(gp.F4_TABLE_ROWS), ints(gp.F4_TABLE_ROWS, (gp.F4_ROWS, 128)))},
+    }
+
+
+PROBE_REPLACES = {
+    "fused_gather": "exp/pallas_gather.py:40",
+    "stage1": "exp/pallas_gather2.py:41",
+    "stage2": "exp/pallas_gather2.py:96",
+    "run_case": "exp/pallas_gather3.py:26",
+    "f4": "exp/gather_bench.py:83",
+}
+
+
+def check_probes(name, gen):
+    """The probe entry point's main path: each probe once per variant of
+    ``probe_inputs``, launch counts zeroed just before and read just after;
+    then each output against its twin (exact: the same float32 operations
+    in the same order, bfloat16 widened exactly) and against the one
+    PyTorch call that computes the same function where there is one
+    (``index_select`` for stage1's whole rows, ``torch.gather`` for
+    run_case's and f4's per-lane rows; gather leaves out f4's modulo, which
+    is the identity on these rows in [0, S), and takes int64 indices,
+    converted before timing). Returns (launches per probe, {probe: {variant:
+    (max abs err, timing, bound)}})."""
+    from nerfstudio_torch.ops import gather_probes as gp
+
+    inputs = probe_inputs(gen)
+    fns = {k: getattr(gp, k) for k in PROBE_REPLACES}
+    torch.cuda.synchronize()
+    gp.reset_launch_counts()
+    outs = {k: {v: fns[k](*args) for v, args in variants.items()} for k, variants in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(gp.launch_counts)
+    twins = {
+        "fused_gather": lambda t, r, sl, w: gp._gather_select_twin(t, r.view(8, -1), sl.view(8, -1), w.view(8, -1),
+                                                                   gp.F, False).view(gp.N_BLOCKS, gp.S, 128),
+        "stage1": gp._row_gather_twin,
+        "stage2": lambda t, r, sl, w: gp._gather_select_twin(
+            t, *(x.permute(1, 0, 2).reshape(8, -1) for x in (r, sl, w)), gp.F, True),
+        "run_case": lambda t, r: gp._lane_gather_twin(t, r, False),
+        "f4": lambda t, r: gp._lane_gather_twin(t, r, True),
+    }
+
+    def library(k, t, r, *_):
+        if k == "stage1":
+            return lambda: torch.index_select(t, 0, r.view(-1))
+        if k in ("run_case", "f4"):
+            r64 = r.long()
+            return lambda: torch.gather(t, 0, r64)
+        return None
+
+    results, lines = {}, []
+    for k, variants in inputs.items():
+        results[k] = {}
+        for v, args in variants.items():
+            out = outs[k][v]
+            lib = library(k, *args)
+            with torch.no_grad():
+                ref = twins[k](*args)
+                err = float((out.float() - ref.float()).abs().max())
+                lib_err = float((lib().float() - ref.float()).abs().max()) if lib else None
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != ref.dtype or err != 0.0 or (lib_err is not None and lib_err != 0.0):
+                raise AssertionError(f"{name}: {k} {v} disagrees with its twin ({err}) or its library call ({lib_err})")
+            n_out = out.shape[0] * (out.shape[1] if out.ndim == 3 else 1)
+            ops = 8 * n_out * 128 * 2 if k in ("fused_gather", "stage2") else 0  # corner multiply-adds per lane
+            results[k][v] = (err, dict(kernel=lambda f=fns[k], a=args: f(*a), twin=lambda f=twins[k], a=args: f(*a),
+                                       library=lib), bound(nbytes(*args, out), ops))
+            lines.append(f"{k} {v} {tuple(out.shape)} {str(out.dtype)[6:]} max |kernel - twin| {err:.3g}"
+                         + ("" if lib_err is None else f", library {lib_err:.3g}"))
+    log(name, f"launches {launches}; " + "; ".join(lines))
+    want = {k: len(v) for k, v in inputs.items()}
+    if launches != want:
+        raise AssertionError(f"{name}: probe launches {launches}, expected {want} (one per variant)")
+    del outs
+    return launches, results
+
+
+def build_neus(device, rays):
+    """neus-facto at the method config (configs/method_configs.py:341-357:
+    8x256 SDF net, 4x256 colour net, two L5 F2 T=2^17 proposal nets, 256/96
+    proposal and 48 NeuS samples, the field and proposal optimizers),
+    random weights from SEED, on bench.py's synthetic scene (16 orbit
+    cameras of 128^2 random images). Returns (config, pipeline, state)."""
+    from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
+    from nerfstudio_torch.engine.optimizers import PerGroupAdam, neus_facto_optimizers
+    from nerfstudio_torch.models.neus import NeuSFactoModelConfig
+    from nerfstudio_torch.pipelines.base_pipeline import TrainState, VanillaPipeline
+
+    cfg = NeuSFactoModelConfig(eval_num_rays_per_chunk=NEUS_RAYS)
+    model = cfg.setup(num_train_data=TRAIN_IMAGES, device=device).train()
+    model.reset_parameters(torch.Generator(device=device).manual_seed(SEED))
+    images = np.random.default_rng(SEED).integers(0, 255, (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW, 3)).astype(np.uint8)
+    dm = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=rays),
+                                orbit_cameras(TRAIN_IMAGES, TRAIN_HW, device), torch.from_numpy(images), device)
+    return cfg, VanillaPipeline(dm, model), TrainState(PerGroupAdam(neus_facto_optimizers(), model))
+
+
+def neus_steps(cfg, pipeline, state, steps, gen):
+    """The trainer's loop over ``steps``, each checked for two K7 forward
+    launches (one per proposal net) and two backward. Returns the last
+    step's metrics."""
+    from nerfstudio_torch.models.neus import NeuSFactoModel
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    metrics = None
+    for step in steps:
+        before = dict(hg.launch_counts)
+        state.step = step
+        metrics = pipeline.train_step(state, gen, **NeuSFactoModel.step_kwargs(step, cfg))
+        got = {k: hg.launch_counts[k] - before[k] for k in NEUS_KERNELS}
+        if got != dict.fromkeys(NEUS_KERNELS, 2):
+            raise AssertionError(f"neus-facto step {step}: launches {got}, expected two of each")
+    return metrics
+
+
+def neus_card_vs_cpu():
+    """One neus-facto training step at full width on the card and on the CPU
+    twins, from the card's initial weights and the same draws (pixels and
+    the three rounds' jitters)."""
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.models.neus import NeuSFactoModel
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    draws = StepDraws(
+        torch.stack([torch.randint(0, n, (NEUS_CHECK_RAYS,), generator=gen)
+                     for n in (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW)], dim=-1),
+        SamplerUniforms(None, tuple(torch.rand((NEUS_CHECK_RAYS, 1), generator=gen) for _ in range(3))),
+    )
+    runs, weights = [], None
+    for device in ("cuda", "cpu"):
+        cfg, pipeline, state = build_neus(device, NEUS_CHECK_RAYS)
+        if weights is None:
+            weights = {k: v.detach().cpu().clone() for k, v in pipeline.model.state_dict().items()}
+        pipeline.model.load_state_dict(weights)
+        dev_draws = StepDraws(draws.pixels.to(device),
+                              SamplerUniforms(None, tuple(u.to(device) for u in draws.sampler.rounds)))
+        metrics = pipeline.train_step(state, draws=dev_draws, **NeuSFactoModel.step_kwargs(NEUS_EARLY, cfg))
+        grads = {n: p.grad.detach().cpu().double() for n, p in pipeline.model.named_parameters()}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads))
+        del pipeline, state
+    (m_card, g_card), (m_cpu, g_cpu) = runs
+    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    grad_rel = {n: float((g_card[n] - ref).abs().max() / ref.abs().max()) for n, ref in g_cpu.items()
+                if ref.abs().max() > 0}
+    return m_card, m_cpu, loss_rel, grad_rel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -741,10 +1083,10 @@ def main() -> int:
     from nerfstudio_torch.models.base_model import render_camera
     from nerfstudio_torch.ops import cuda_build
     from nerfstudio_torch.ops import hash_grid as hg
-
+    from nerfstudio_torch.ops import gather_probes as gp
     from nerfstudio_torch.ops.gsplat import _cuda as sc
 
-    n_phases = 19
+    n_phases = 27
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -755,9 +1097,10 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    built = cuda_build.build_all(["hash_grid", "gsplat"])
+    built = cuda_build.build_all(["hash_grid", "gsplat", "gather_probes"])
     hg._kernel_library()
     sc.kernel_library()
+    gp.kernel_library()
     log(ph(2, "build"), ", ".join(f"{p.name}: nvcc {s:.1f} s" for p, s in built.values())
         + f"; build+load {time.perf_counter() - t0:.1f} s")
 
@@ -765,11 +1108,11 @@ def main() -> int:
     # 3-6. kernels vs twins at the slices' shapes: K1 (the proposal net of the
     # render), K3 (the field at eval), K1 bwd (the field at steady state:
     # P=2 on levels 0, 2, 4, 6; the proposal net with live proposals)
-    k1_err, k1_timing = check_kernel(ph(3, "K1 vs twin"), False, 2_097_152, 5, 17, 2, 16, 256, gen)
-    k3_err, k3_timing = check_kernel(ph(4, "K3 vs twin"), True, 1_048_576, 8, 19, 4, 16, 2048, gen)
-    bwd_field_err, bwd_field_timing = check_kernel_bwd(
+    k1_err, k1_timing, k1_bound = check_kernel(ph(3, "K1 vs twin"), False, 2_097_152, 5, 17, 2, 16, 256, gen)
+    k3_err, k3_timing, k3_bound = check_kernel(ph(4, "K3 vs twin"), True, 1_048_576, 8, 19, 4, 16, 2048, gen)
+    bwd_field_err, bwd_field_timing, bwd_field_bound = check_kernel_bwd(
         ph(5, "K1 bwd vs twin, field"), TRAIN_RAYS * 32, 8, 19, 4, 16, 2048, (2.0, 0.0) * 4, gen)
-    bwd_prop_err, bwd_prop_timing = check_kernel_bwd(
+    bwd_prop_err, bwd_prop_timing, _ = check_kernel_bwd(
         ph(6, "K1 bwd vs twin, proposal"), TRAIN_RAYS * 64, 5, 17, 2, 16, 256, (1.0,) * 5, gen)
 
     # 7. the render slice: four 512^2 frames through render_camera
@@ -786,7 +1129,8 @@ def main() -> int:
     for images in frames:
         check_outputs(images, FRAME_HW)
     want = NUM_FRAMES * chunks_per_frame
-    if render_launches != {"hash_encode_block": want, "hash_encode_block_exact": want, "hash_encode_block_bwd": 0}:
+    if render_launches != {"hash_encode_block": want, "hash_encode_block_exact": want, "hash_encode_block_bwd": 0,
+                           "hash_encode_flat": 0, "hash_encode_flat_bwd": 0}:
         raise AssertionError(f"kernel launches {render_launches}, expected {want} of each forward (one per chunk)")
     acc = float(torch.stack([f["accumulation"].mean() for f in frames]).mean())
     log(ph(7, "render slice"), f"{NUM_FRAMES} frames {FRAME_HW}x{FRAME_HW} in {chunks_per_frame} chunks each: "
@@ -848,7 +1192,7 @@ def main() -> int:
     if prof is None:
         log(ph(10, "training profile"), "torch.profiler saw no device activity: device time not measured")
     else:
-        rows, busy_ms, activities = prof
+        rows, busy_ms, activities, gemm_flops = prof
         classes = {}
         for name, t in rows:
             classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + t
@@ -893,9 +1237,9 @@ def main() -> int:
     splat_gen = torch.Generator(device="cuda").manual_seed(SEED)
     pipeline, state = build_splat("cuda")
     x = splat_kernel_inputs(pipeline, state, splat_gen)
-    k4_err, k4_timing, projected = check_k4(ph(13, "K4 vs twin"), x, splat_gen)
-    k5_err, k5_timing, bins = check_k5(ph(14, "K5 vs twin"), x, projected)
-    (k6_err, k6_bwd_err), k6_timing = check_k6(ph(15, "K6 vs twin"), x, projected, bins, splat_gen)
+    k4_err, k4_timing, projected, k4_bounds = check_k4(ph(13, "K4 vs twin"), x, splat_gen)
+    k5_err, k5_timing, bins, k5_bound = check_k5(ph(14, "K5 vs twin"), x, projected)
+    (k6_err, k6_bwd_err), k6_timing, k6_bounds = check_k6(ph(15, "K6 vs twin"), x, projected, bins, splat_gen)
     del x, projected, bins
 
     # 16. the splatfacto training slice at full scale from step 6000: the
@@ -938,7 +1282,7 @@ def main() -> int:
     if prof is None:
         log(ph(17, "splatfacto profile"), "torch.profiler saw no device activity: device time not measured")
     else:
-        rows, busy_ms, activities = prof
+        rows, busy_ms, activities, gemm_flops = prof
         classes = {}
         for name, t in rows:
             classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + t
@@ -987,40 +1331,188 @@ def main() -> int:
     t["k6_bwd"] = median_ms(k6_timing["bwd"])
     t["k4_bwd_twin"] = median_ms(k4_timing["bwd_twin"], runs=3, warmup=1)
     t["k6_bwd_twin"] = median_ms(k6_timing["bwd_twin"], runs=3, warmup=1)
+    t["k5_sort"] = median_ms(k5_timing["library"])
     log(ph(19, "splatting timing"), f"on {card}: " + ", ".join(
         f"{k} {t[k]:.3f} ms (twin {t[k + '_twin']:.3f} ms)" for k in ("k4", "k4_bwd", "k5", "k6", "k6_bwd"))
-        + f"; splatfacto step {splat_step_ms:.2f} ms, refine {refine_ms:.2f} ms, eval frame {frame_ms:.2f} ms")
+        + f"; K5's torch.sort alone {t['k5_sort']:.3f} ms; splatfacto step {splat_step_ms:.2f} ms, refine "
+        f"{refine_ms:.2f} ms, eval frame {frame_ms:.2f} ms")
+    del k4_timing, k5_timing, k6_timing
+
+    # 20-21. K7 forward and backward vs twins at the proposal nets' shapes:
+    # round 1 (256 samples per ray) and round 2 (96)
+    k7 = {}
+    for i, samples in enumerate(NEUS_SAMPLES):
+        n = NEUS_RAYS * samples
+        k7[f"fwd_{samples}"] = check_flat(ph(20, f"K7 vs twin, {samples} samples/ray"), n, gen)
+        k7[f"bwd_{samples}"] = check_flat_bwd(ph(21, f"K7 bwd vs float64 twin, {samples} samples/ray"), n, gen)
+
+    # 22. the gather probes' entry point at the probes' own shapes
+    probe_launches, probes = check_probes(ph(22, "gather probes"), gen)
+
+    # 23. the neus-facto training slice at full width: steps 300-301, then
+    # steady state from 6000 (launches zeroed before, read after)
+    cfg, pipeline, state = build_neus("cuda", NEUS_RAYS)
+    neus_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    hg.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = neus_steps(cfg, pipeline, state, range(NEUS_EARLY, NEUS_EARLY + 2), neus_gen)
+    torch.cuda.synchronize()
+    early_s = time.perf_counter() - t0
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"neus-facto loss {loss} at step {NEUS_EARLY + 1}")
+    log(ph(23, "neus-facto training, steps 300-301"), f"{NEUS_RAYS} rays/step, loss {loss:.5f} (eikonal "
+        f"{float(metrics['eikonal_loss']):.5f}, interlevel {float(metrics['interlevel_loss']):.5f}), "
+        f"{early_s:.2f} s including warm-up")
+    neus_steps(cfg, pipeline, state, range(NEUS_START, NEUS_START + NEUS_WARMUP), neus_gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    first = NEUS_START + NEUS_WARMUP
+    metrics = neus_steps(cfg, pipeline, state, range(first, first + NEUS_TIMED), neus_gen)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    neus_step_ms = start.elapsed_time(end) / NEUS_TIMED
+    neus_launches = {k: hg.launch_counts[k] for k in NEUS_KERNELS}
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"neus-facto loss {loss} at step {first + NEUS_TIMED - 1}")
+    neus_rays_per_s = NEUS_RAYS / (neus_step_ms / 1e3)
+    log(ph(23, "neus-facto training, steady state"), f"steps {NEUS_START}-{first + NEUS_TIMED - 1} "
+        f"({NEUS_WARMUP} warm-up, {NEUS_TIMED} timed): loss {loss:.5f}, psnr {float(metrics['psnr']):.2f}, "
+        f"{neus_step_ms:.2f} ms/step = {neus_rays_per_s:,.0f} rays/s on {card} (CUDA events; host clock "
+        f"{wall_s * 1e3 / NEUS_TIMED:.2f} ms/step); launches over both training runs {neus_launches}")
+
+    # 24. device-idle share of the neus-facto step
+    prof = profile_device(lambda: neus_steps(cfg, pipeline, state, range(first + NEUS_TIMED,
+                                                                          first + NEUS_TIMED + PROFILED_STEPS),
+                                             neus_gen))
+    neus_idle = None
+    if prof is None:
+        log(ph(24, "neus-facto profile"), "torch.profiler saw no device activity: device time not measured")
+    else:
+        rows, busy_ms, activities, gemm_flops = prof
+        neus_idle = 1 - busy_ms / neus_step_ms
+        classes = {}
+        for name, tm in rows:
+            cls = "K7 (flat hash grid)" if "flat_encode" in name.lower() else kernel_class(name)
+            classes[cls] = classes.get(cls, 0.0) + tm
+        log(ph(24, "neus-facto profile"), f"{PROFILED_STEPS} steady steps under torch.profiler: "
+            f"{activities:.0f} device activities and {busy_ms:.2f} ms of device-busy time per step, i.e. "
+            f"the device idles {neus_idle:.1%} of the unprofiled {neus_step_ms:.2f} ms step; by class (ms/step): "
+            + ", ".join(f"{c} {tm:.3f}" for c, tm in sorted(classes.items(), key=lambda kv: -kv[1]))
+            + f"; matrix products {gemm_flops / 1e9:.1f} GFLOP per step (profiler count), i.e. "
+            + (f"{gemm_flops / (classes['GEMMs'] * 1e-3) / 1e12:.1f} TFLOP/s over the GEMM class"
+               if classes.get("GEMMs") else "no GEMM class"))
+        for name, tm in rows[:12]:
+            print(f"    {tm:8.3f} ms/step  {name[:110]}", flush=True)
+
+    # 25. one 512^2 eval frame through render_camera, 2048-ray chunks
+    model = pipeline.model.eval()
+    cams = orbit_cameras(NUM_CAMERAS, FRAME_HW, "cuda")
+    chunks = math.ceil(FRAME_HW * FRAME_HW / NEUS_RAYS)
+    torch.cuda.synchronize()
+    hg.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    frame = render_camera(model, None, cams, 0, NEUS_RAYS)
+    end.record()
+    end.synchronize()
+    neus_frame_ms = start.elapsed_time(end)
+    eval_launches = {k: hg.launch_counts[k] for k in NEUS_KERNELS}
+    for k, c in (("rgb", 3), ("accumulation", 1), ("depth", 1), ("normals", 3)):
+        if tuple(frame[k].shape) != (FRAME_HW, FRAME_HW, c) or not torch.isfinite(frame[k]).all():
+            raise AssertionError(f"neus-facto eval {k}: shape {tuple(frame[k].shape)} or non-finite values")
+    if eval_launches != {"hash_encode_flat": 2 * chunks, "hash_encode_flat_bwd": 0}:
+        raise AssertionError(f"neus-facto eval launches {eval_launches}, expected {2 * chunks} forward, no backward")
+    normal_len = float(torch.linalg.norm(frame["normals"], dim=-1).mean())
+    first_frame_ms = neus_frame_ms
+    neus_frame_ms = median_ms(lambda: render_camera(model, None, cams, 1, NEUS_RAYS), runs=1, warmup=0)
+    log(ph(25, "neus-facto eval frame"), f"{FRAME_HW}^2 in {chunks} chunks of {NEUS_RAYS}: {neus_frame_ms:.1f} ms "
+        f"(second frame, CUDA events; the first, with warm-up, {first_frame_ms:.1f} ms), mean accumulation "
+        f"{float(frame['accumulation'].mean()):.3f}, mean |normal| {normal_len:.3f}, launches {eval_launches}")
+    del pipeline, state, model, frame
+
+    # 26. card vs CPU twins: one neus-facto step
+    m_card, m_cpu, loss_rel, grad_rel = neus_card_vs_cpu()
+    worst = max(grad_rel, key=grad_rel.get)
+    log(ph(26, "neus-facto card vs cpu"), f"{NEUS_CHECK_RAYS} rays of {TRAIN_HW}^2 images, full width: loss "
+        f"{m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {NEUS_LOSS_RTOL}); gradients max "
+        f"|card - cpu| / peak {grad_rel[worst]:.3g} at {worst} (limit {NEUS_GRAD_REL})")
+    if loss_rel > NEUS_LOSS_RTOL or grad_rel[worst] > NEUS_GRAD_REL:
+        raise AssertionError("card and CPU neus-facto steps disagree")
+
+    # 27. K7 and the probes against their twins and library calls
+    for key, (_, timing, _) in k7.items():
+        t[f"k7_{key}"] = median_ms(timing["kernel"])
+        t[f"k7_{key}_twin"] = median_ms(timing["twin"], runs=3, warmup=1)
+    probe_t = {}  # probe -> variant -> kernel, twin and library ms
+    with torch.no_grad():
+        for key, variants in probes.items():
+            for v, (_, timing, _) in variants.items():
+                probe_t.setdefault(key, {})[v] = dict(
+                    ms=median_ms(timing["kernel"]), plain_ms=median_ms(timing["twin"], runs=3, warmup=1),
+                    library_ms=median_ms(timing["library"]) if timing["library"] else None)
+    log(ph(27, "neus-facto timing"), f"on {card}: " + ", ".join(
+        f"K7 {k.replace('_', ' ')} samples/ray {t['k7_' + k]:.3f} ms (twin {t['k7_' + k + '_twin']:.3f} ms)"
+        for k in k7) + "; " + ", ".join(
+        f"{k} {v} {pt['ms']:.3f} ms (twin {pt['plain_ms']:.3f} ms, library "
+        + ("none" if pt["library_ms"] is None else f"{pt['library_ms']:.3f} ms") + ")"
+        for k, variants in probe_t.items() for v, pt in variants.items())
+        + f"; neus-facto step {neus_step_ms:.2f} ms = {neus_rays_per_s:,.0f} rays/s, idle "
+        + ("not measured" if neus_idle is None else f"{neus_idle:.1%}") + f", eval frame {neus_frame_ms:.1f} ms")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
 
     source = "nerfstudio_torch/csrc/hash_grid.cu"
     gs_source = "nerfstudio_torch/csrc/gsplat.cu"
-    splat_entries = [
-        ("project_gaussians (K4 fwd)", "project_gaussians", "nerfstudio_tpu/ops/gsplat/projection.py:39", k4_err, "k4"),
-        ("project_gaussians_bwd (K4 bwd)", "project_gaussians_bwd", "nerfstudio_tpu/ops/gsplat/projection.py:39",
-         k4_err, "k4_bwd"),
-        ("tile_bin (K5)", "tile_bin", "nerfstudio_tpu/ops/gsplat/rasterize.py:266", k5_err, "k5"),
-        ("blend_saturating (K6 fwd)", "blend_saturating", "nerfstudio_tpu/ops/gsplat/rasterize.py:94", k6_err, "k6"),
-        ("blend_saturating_bwd (K6 bwd)", "blend_saturating_bwd", "nerfstudio_tpu/ops/gsplat/rasterize.py:142",
-         k6_bwd_err, "k6_bwd"),
+    hash_launch = {k: render_launches[k] + train_launches[k] for k in render_launches}
+    kernels = [
+        entry("hash_encode_block (K1 fwd)", source, "nerfstudio_tpu/ops/hash_grid.py:352",
+              hash_launch["hash_encode_block"], k1_err, times["k1"], times["k1_twin"], k1_bound),
+        entry("hash_encode_block_exact (K3)", source, "nerfstudio_tpu/ops/hash_grid.py:696",
+              hash_launch["hash_encode_block_exact"], k3_err, times["k3"], times["k3_twin"], k3_bound),
+        entry("hash_encode_block_bwd (K1 bwd + K2), field shape", source, "nerfstudio_tpu/ops/hash_grid.py:439",
+              hash_launch["hash_encode_block_bwd"], max(bwd_field_err, bwd_prop_err), times["bwd_field"],
+              times["bwd_field_twin"], bwd_field_bound),
+        entry("project_gaussians (K4 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/projection.py:39",
+              splat_launches["project_gaussians"], k4_err, t["k4"], t["k4_twin"], k4_bounds[0]),
+        entry("project_gaussians_bwd (K4 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/projection.py:39",
+              splat_launches["project_gaussians_bwd"], k4_err, t["k4_bwd"], t["k4_bwd_twin"], k4_bounds[1]),
+        entry("tile_bin (K5)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:266", splat_launches["tile_bin"],
+              k5_err, t["k5"], t["k5_twin"], k5_bound, t["k5_sort"]),
+        entry("blend_saturating (K6 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:94",
+              splat_launches["blend_saturating"], k6_err, t["k6"], t["k6_twin"], k6_bounds[0]),
+        entry("blend_saturating_bwd (K6 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:142",
+              splat_launches["blend_saturating_bwd"], k6_bwd_err, t["k6_bwd"], t["k6_bwd_twin"], k6_bounds[1]),
     ]
-    print(json.dumps({"kernels": [
-        {"name": "hash_encode_block (K1 fwd)", "route": "cuda", "source": source,
-         "replaces": "nerfstudio_tpu/ops/hash_grid.py:352",
-         "launches": render_launches["hash_encode_block"] + train_launches["hash_encode_block"],
-         "max_abs_err": k1_err, "ms": times["k1"], "plain_ms": times["k1_twin"]},
-        {"name": "hash_encode_block_exact (K3)", "route": "cuda", "source": source,
-         "replaces": "nerfstudio_tpu/ops/hash_grid.py:696",
-         "launches": render_launches["hash_encode_block_exact"] + train_launches["hash_encode_block_exact"],
-         "max_abs_err": k3_err, "ms": times["k3"], "plain_ms": times["k3_twin"]},
-        {"name": "hash_encode_block_bwd (K1 bwd + K2), field shape", "route": "cuda", "source": source,
-         "replaces": "nerfstudio_tpu/ops/hash_grid.py:439",
-         "launches": render_launches["hash_encode_block_bwd"] + train_launches["hash_encode_block_bwd"],
-         "max_abs_err": max(bwd_field_err, bwd_prop_err), "ms": times["bwd_field"],
-         "plain_ms": times["bwd_field_twin"]},
-    ] + [
-        {"name": name, "route": "cuda", "source": gs_source, "replaces": replaces, "launches": splat_launches[count],
-         "max_abs_err": err, "ms": t[key], "plain_ms": t[key + "_twin"]}
-        for name, count, replaces, err, key in splat_entries
-    ]}), flush=True)
+    big = f"fwd_{NEUS_SAMPLES[0]}"
+    kernels.append(entry("hash_encode_flat (K7 fwd), 256 samples/ray", source, "nerfstudio_tpu/ops/hash_grid.py:63",
+                         neus_launches["hash_encode_flat"], max(k7[k][0] for k in k7 if k.startswith("fwd")),
+                         t["k7_" + big], t["k7_" + big + "_twin"], k7[big][2]))
+    big = f"bwd_{NEUS_SAMPLES[0]}"
+    kernels.append(entry("hash_encode_flat_bwd (K7 bwd), 256 samples/ray", source,
+                         "nerfstudio_tpu/ops/hash_grid.py:90", neus_launches["hash_encode_flat_bwd"],
+                         max(k7[k][0] for k in k7 if k.startswith("bwd")), t["k7_" + big],
+                         t["k7_" + big + "_twin"], k7[big][2]))
+    # one entry per probe: its first float32 variant's times, the largest
+    # error and every launch over its variants; "variants" lists them all
+    for k, variants in probes.items():
+        main_v = next(v for v in variants if "float32" in v)
+        pt = probe_t[k][main_v]
+        e = entry(f"{k} (probe), {main_v}", "nerfstudio_torch/csrc/gather_probes.cu", PROBE_REPLACES[k],
+                  probe_launches[k], max(err for err, _, _ in variants.values()), pt["ms"], pt["plain_ms"],
+                  variants[main_v][2], pt["library_ms"])
+        e["variants"] = [dict(variant=v, max_abs_err=err, bound_ms=bnd[0], bound_by=bnd[1], **probe_t[k][v])
+                         for v, (err, _, bnd) in variants.items()]
+        kernels.append(e)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -15,6 +15,7 @@ from torch import nn
 
 from nerfstudio_torch.cameras.lie_groups import exp_map_SE3, exp_map_SO3xR3
 from nerfstudio_torch.core.rays import RayBundle
+from nerfstudio_torch.utils.device import resolve_device
 
 
 class CameraOptimizer(nn.Module):
@@ -37,7 +38,7 @@ class CameraOptimizer(nn.Module):
         self.mode = mode
         self.zero_mean_gauge = zero_mean_gauge
         if mode != "off":
-            self.pose_adjustment = nn.Parameter(torch.zeros((num_cameras, 6), device=device))
+            self.pose_adjustment = nn.Parameter(torch.zeros((num_cameras, 6), device=resolve_device(device)))
 
     def forward(self, indices: torch.Tensor) -> torch.Tensor:
         """indices: (...,) int -> (..., 3, 4) correction transforms."""

@@ -16,6 +16,7 @@ from typing import Optional, Union
 import torch
 
 from nerfstudio_torch.core.rays import RayBundle
+from nerfstudio_torch.utils.device import resolve_device
 
 
 class CameraType(enum.Enum):
@@ -67,10 +68,11 @@ class Cameras:
         camera_type: Union[CameraType, int] = CameraType.PERSPECTIVE,
         device=None,
     ) -> "Cameras":
-        """Build from tensors, arrays or scalars, as the reference's constructor."""
+        """Build from tensors, arrays or scalars, as the reference's
+        constructor, on ``device`` (None: the GPU, ``utils.device``)."""
         if distortion_params is not None:
             raise NotImplementedError("camera distortion is not ported")
-        c2w = torch.as_tensor(camera_to_worlds, dtype=torch.float32, device=device)
+        c2w = torch.as_tensor(camera_to_worlds, dtype=torch.float32, device=resolve_device(device))
         if c2w.ndim == 2:
             c2w = c2w[None]
         n = c2w.shape[0]

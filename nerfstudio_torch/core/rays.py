@@ -11,6 +11,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from nerfstudio_torch.utils.math import clip
+
 
 @dataclasses.dataclass
 class Frustums:
@@ -45,6 +47,15 @@ class RaySamples:
     def get_weights(self, densities: torch.Tensor) -> torch.Tensor:
         """Transmittance-weighted alpha compositing weights."""
         return render_weights_from_density(densities, self.deltas)
+
+    @staticmethod
+    def get_weights_and_transmittance_from_alphas(alphas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weights, transmittance) from per-sample alphas (..., S, 1)
+        (reference rays.py:100): the exclusive product of (1 - alpha) taken
+        as a cumulative sum of logs, 1 - alpha clipped to [1e-10, 1]."""
+        log_1m = torch.log(clip(1.0 - alphas, 1e-10, 1.0))
+        transmittance = torch.exp(torch.cumsum(log_1m, dim=-2) - log_1m)
+        return alphas * transmittance, transmittance
 
 
 def render_weights_from_density(densities: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:

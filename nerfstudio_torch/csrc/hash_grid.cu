@@ -1,8 +1,11 @@
-// Block-layout multiresolution hash-grid encode, forward and backward, for
-// Hopper (sm_90a). Plain C interface, loaded with ctypes by
+// Multiresolution hash-grid encode, block and flat layouts, forward and
+// backward, for Hopper (sm_90a). Plain C interface, loaded with ctypes by
 // nerfstudio_torch/ops/hash_grid.py.
 //
 // Replaces, in the JAX reference package:
+//   * K7 fwd and bwd: nerfstudio_tpu/ops/hash_grid.py hash_encode's flat
+//     8-corner path (:991-1031) through _row_gather_select (:62-107) and
+//     _hash_corner (:732): flat_encode_kernel, flat_encode_bwd_kernel below.
 //   * K1 fwd: nerfstudio_tpu/ops/hash_grid.py block_level_geometry +
 //     _row_gather_block_tw (hash_encode(block=True)): one stochastically
 //     rounded 2x2x2 vertex block per (sample, level).
@@ -295,6 +298,176 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K7: the flat layout (hash_encode with neither block flag; neus-facto's
+// proposal nets). Entry e of level l holds its F features at
+// table[l] + e*F: the (S, 128) rows pack 128/F entries each, row-major, so
+// no repacking is needed. A level is dense when (res+1)^3 <= T: corner
+// coordinates are clipped to [0, res] and indexed (cx*side + cy)*side + cz;
+// otherwise they are hashed (uint32 XOR of the coordinate-prime products,
+// negative coordinates wrapping as the reference's astype(uint32)) mod T.
+// Unlike the block layout nothing is clipped before the hash: the offset
+// is x*res - floor(x*res), whose derivative is res everywhere.
+struct FlatGeometry {
+  int num_levels;
+  int res[kMaxLevels];
+  int dense[kMaxLevels];
+};
+
+__device__ __forceinline__ int64_t flat_entry(int cx, int cy, int cz, int res, int dense,
+                                              uint32_t hash_table_size) {
+  if (dense) {
+    const int side = res + 1;
+    cx = min(max(cx, 0), side - 1);
+    cy = min(max(cy, 0), side - 1);
+    cz = min(max(cz, 0), side - 1);
+    return ((int64_t)cx * side + cy) * side + cz;
+  }
+  const uint32_t h = ((uint32_t)cx * 1u) ^ ((uint32_t)cy * 2654435761u) ^ ((uint32_t)cz * 805459861u);
+  return (int64_t)(h % hash_table_size);
+}
+
+// Base vertex and offset of one axis: s = x*res rounded once, o = s - floor(s).
+__device__ __forceinline__ void flat_axis(float p, int res, int* i0, float* o) {
+  const float s = __fmul_rn(p, (float)res);
+  const float fl = floorf(s);
+  *i0 = (int)fl;
+  *o = __fsub_rn(s, fl);
+}
+
+// K7 forward. One thread per (sample, level), level fastest, as K1. The
+// eight corners are summed in the reference's order 0..7 of
+// c = dx<<2 | dy<<1 | dz, each term w_c * bf16(value) with
+// w_c = ((x-weight * y-weight) * z-weight), all rounded as the reference
+// rounds them, so the output is bit-exact.
+//
+// What bounds it: eight random F-float gathers per (sample, level), each
+// in its own 32-byte sector on the hashed levels (the dense coarse levels
+// stay in L2), against a few dozen flops. Latency and sector count of the
+// loads, not flops; the design is the simple one.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    flat_encode_kernel(const float* __restrict__ pos, const float* __restrict__ table,
+                       float* __restrict__ out, int64_t n, int64_t level_stride,
+                       uint32_t hash_table_size, FlatGeometry g) {
+  const int num_levels = g.num_levels;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * num_levels) return;
+  const int64_t i = t / num_levels;
+  const int l = (int)(t - i * num_levels);
+  const int res = g.res[l];
+  int i0[3];
+  float o[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) flat_axis(__ldg(pos + 3 * i + a), res, &i0[a], &o[a]);
+  float w01[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    w01[a][0] = __fsub_rn(1.0f, o[a]);
+    w01[a][1] = o[a];
+  }
+  const float* level_table = table + (int64_t)l * level_stride;
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
+    const float w = __fmul_rn(__fmul_rn(w01[0][dx], w01[1][dy]), w01[2][dz]);
+    const float* src = level_table + flat_entry(i0[0] + dx, i0[1] + dy, i0[2] + dz, res, g.dense[l],
+                                                hash_table_size) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, bf16_round(__ldg(src + f))));
+  }
+  float* dst = out + i * (int64_t)num_levels * F + (int64_t)l * F;
+#pragma unroll
+  for (int f = 0; f < F; ++f) dst[f] = acc[f];
+}
+
+// K7 backward. One thread per sample walks the levels, recomputing each
+// level's corners and weights with the forward's arithmetic.
+//
+// Table gradient (d_table != nullptr): entry e of corner c gets
+// w_c * g[l*F+f] by an f32 atomicAdd into a zeroed buffer (the reference's
+// unsorted row scatter-add, hash_grid.py _row_gather_select_bwd); f32 end
+// to end, the bf16 rounding is the forward's read precision only. A corner
+// of weight 0 writes nothing.
+//
+// Position gradient (d_pos != nullptr): d_w_c = sum_f g[l*F+f] *
+// bf16(value), d_o[a] = sum_c d_w_c * (+1 if corner c is up on axis a else
+// -1) * (the other two axes' weights), d_x[a] += res * d_o[a].
+//
+// What bounds it: 8F atomics per (sample, level) into random entries; on
+// the dense coarse levels many samples hit the same few thousand entries,
+// so those atomics contend. Privatising the coarse levels in shared memory
+// is later work.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    flat_encode_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ table,
+                           const float* __restrict__ grad, float* __restrict__ d_table,
+                           float* __restrict__ d_pos, int64_t n, int64_t level_stride,
+                           uint32_t hash_table_size, FlatGeometry g) {
+  const int num_levels = g.num_levels;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const bool need_pos = d_pos != nullptr;
+  float p[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) p[a] = __ldg(pos + 3 * i + a);
+  float dp[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < num_levels; ++l) {
+    const int res = g.res[l];
+    int i0[3];
+    float o[3], w01[3][2];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      flat_axis(p[a], res, &i0[a], &o[a]);
+      w01[a][0] = __fsub_rn(1.0f, o[a]);
+      w01[a][1] = o[a];
+    }
+    float gl[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) gl[f] = __ldg(grad + i * (int64_t)num_levels * F + (int64_t)l * F + f);
+    const int64_t level_off = (int64_t)l * level_stride;
+    float dw8[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
+      const float w = __fmul_rn(__fmul_rn(w01[0][dx], w01[1][dy]), w01[2][dz]);
+      const int64_t off = level_off + flat_entry(i0[0] + dx, i0[1] + dy, i0[2] + dz, res, g.dense[l],
+                                                 hash_table_size) * F;
+      if (d_table != nullptr && w != 0.0f) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) atomicAdd(d_table + off + f, __fmul_rn(w, gl[f]));
+      }
+      if (need_pos) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc = __fadd_rn(acc, __fmul_rn(gl[f], bf16_round(__ldg(table + off + f))));
+        dw8[c] = acc;
+      }
+    }
+    if (need_pos) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int b1 = a == 0 ? 1 : 0, b2 = a == 2 ? 1 : 2;  // the other two axes
+        float d_o = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int bit = (c >> (2 - a)) & 1;
+          const float other = __fmul_rn(w01[b1][(c >> (2 - b1)) & 1], w01[b2][(c >> (2 - b2)) & 1]);
+          const float term = __fmul_rn(dw8[c], other);
+          d_o = bit ? __fadd_rn(d_o, term) : __fsub_rn(d_o, term);
+        }
+        dp[a] = __fadd_rn(dp[a], __fmul_rn(d_o, (float)res));
+      }
+    }
+  }
+  if (need_pos) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) d_pos[3 * i + a] = dp[a];
+  }
+}
+
 template <bool kExact>
 cudaError_t launch(int features_per_level, const float* pos, const float* table,
                    float* out, int64_t n, int64_t rows_per_level, uint32_t nblocks,
@@ -338,6 +511,21 @@ cudaError_t make_geometry(long long n, int num_levels, long long rows_per_level,
     g->res[l] = (int)res;
     g->blocks_per_axis[l] = (int)bs;
     g->dense[l] = bs * bs * bs * 8 <= hash_table_size ? 1 : 0;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t make_flat_geometry(long long n, int num_levels, long long rows_per_level,
+                               long long hash_table_size, const int* resolutions, FlatGeometry* g) {
+  if (num_levels < 1 || num_levels > kMaxLevels || n < 0 || hash_table_size < 1 ||
+      hash_table_size > 0xFFFFFFFFLL || rows_per_level < 1)
+    return cudaErrorInvalidValue;
+  g->num_levels = num_levels;
+  for (int l = 0; l < num_levels; ++l) {
+    const long long res = resolutions[l];
+    if (res < 1) return cudaErrorInvalidValue;
+    g->res[l] = (int)res;
+    g->dense[l] = (res + 1) * (res + 1) * (res + 1) <= hash_table_size ? 1 : 0;
   }
   return cudaSuccess;
 }
@@ -412,6 +600,67 @@ int nst_hash_encode_block_bwd(const void* pos, const void* table, const void* gr
       break;
     default:
       return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7 forward (flat layout). pos (n, 3), table (num_levels, rows_per_level,
+// 128) and out (n, num_levels * features_per_level) are contiguous f32
+// device pointers; resolutions is a host array of num_levels ints.
+// Returns a cudaError_t (0 on success).
+int nst_hash_encode_flat(const void* pos, const void* table, void* out, long long n, int num_levels,
+                         int features_per_level, long long rows_per_level, long long hash_table_size,
+                         const int* resolutions, void* stream) {
+  FlatGeometry g;
+  const cudaError_t bad = make_flat_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
+  if (bad != cudaSuccess) return (int)bad;
+  if (n == 0) return (int)cudaSuccess;
+  const unsigned int grid = (unsigned int)((n * num_levels + kThreads - 1) / kThreads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* p = (const float*)pos;
+  const float* tab = (const float*)table;
+  float* o = (float*)out;
+  const int64_t stride = rows_per_level * kLanes;
+  const uint32_t t = (uint32_t)hash_table_size;
+  switch (features_per_level) {
+    case 1: flat_encode_kernel<1><<<grid, kThreads, 0, s>>>(p, tab, o, n, stride, t, g); break;
+    case 2: flat_encode_kernel<2><<<grid, kThreads, 0, s>>>(p, tab, o, n, stride, t, g); break;
+    case 4: flat_encode_kernel<4><<<grid, kThreads, 0, s>>>(p, tab, o, n, stride, t, g); break;
+    case 8: flat_encode_kernel<8><<<grid, kThreads, 0, s>>>(p, tab, o, n, stride, t, g); break;
+    case 16: flat_encode_kernel<16><<<grid, kThreads, 0, s>>>(p, tab, o, n, stride, t, g); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7 backward. pos, table and grad as for the forward (grad of out's
+// shape). d_table, of the table's shape, must be zeroed by the caller and
+// receives the table gradient; d_pos (n, 3) receives the position
+// gradient. Either may be null to skip it. Returns a cudaError_t.
+int nst_hash_encode_flat_bwd(const void* pos, const void* table, const void* grad, void* d_table,
+                             void* d_pos, long long n, int num_levels, int features_per_level,
+                             long long rows_per_level, long long hash_table_size, const int* resolutions,
+                             void* stream) {
+  FlatGeometry g;
+  const cudaError_t bad = make_flat_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
+  if (bad != cudaSuccess) return (int)bad;
+  if (n == 0 || (d_table == nullptr && d_pos == nullptr)) return (int)cudaSuccess;
+  const unsigned int grid = (unsigned int)((n + kThreads - 1) / kThreads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* p = (const float*)pos;
+  const float* tab = (const float*)table;
+  const float* gr = (const float*)grad;
+  float* dt = (float*)d_table;
+  float* dp = (float*)d_pos;
+  const int64_t stride = rows_per_level * kLanes;
+  const uint32_t t = (uint32_t)hash_table_size;
+  switch (features_per_level) {
+    case 1: flat_encode_bwd_kernel<1><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, stride, t, g); break;
+    case 2: flat_encode_bwd_kernel<2><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, stride, t, g); break;
+    case 4: flat_encode_bwd_kernel<4><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, stride, t, g); break;
+    case 8: flat_encode_bwd_kernel<8><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, stride, t, g); break;
+    case 16: flat_encode_bwd_kernel<16><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, stride, t, g); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,7 @@ import torch
 
 from nerfstudio_torch.cameras.cameras import Cameras
 from nerfstudio_torch.data.pixel_samplers import gather_pixels, sample_pixel_indices
+from nerfstudio_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -33,6 +34,7 @@ class DeviceCacheDataManager:
             raise ValueError(f"images must be (N, H, W, C), got {tuple(images.shape)}")
         if not cameras.all_perspective():
             raise NotImplementedError("only perspective cameras are ported")
+        device = resolve_device(device)
         self.config = config
         self.train_images = images.to(device)
         self.train_cameras = dataclasses.replace(
@@ -74,6 +76,7 @@ class FullImageDatamanager:
             raise NotImplementedError("only perspective cameras are ported")
         host = lambda c: dataclasses.replace(  # noqa: E731
             c, **{f.name: getattr(c, f.name).cpu() for f in dataclasses.fields(c)})
+        device = resolve_device(device)
         self.train_cameras = host(cameras)
         self.train_images = images.to(device)
         self.eval_cameras = self.train_cameras if eval_cameras is None else host(eval_cameras)

@@ -23,7 +23,11 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from nerfstudio_torch.engine.schedulers import ExponentialDecaySchedulerConfig
+from nerfstudio_torch.engine.schedulers import (
+    CosineDecaySchedulerConfig,
+    ExponentialDecaySchedulerConfig,
+    MultiStepSchedulerConfig,
+)
 
 
 @dataclasses.dataclass
@@ -49,6 +53,22 @@ def nerfacto_optimizers(max_steps: int = 30000) -> Dict[str, Dict[str, Any]]:
         "camera_optimizer": {
             "optimizer": AdamOptimizerConfig(lr=6e-4, eps=1e-15),
             "scheduler": ExponentialDecaySchedulerConfig(lr_final=6e-6, max_steps=max_steps),
+        },
+    }
+
+
+def neus_facto_optimizers(max_steps: int = 20000) -> Dict[str, Dict[str, Any]]:
+    """neus-facto's groups (reference configs/method_configs.py:341-357): the
+    SDF field with a cosine decay after a 500-step warm-up, the proposal
+    nets at a multi-step rate whose milestones lie past ``max_steps``."""
+    return {
+        "field": {
+            "optimizer": AdamOptimizerConfig(lr=5e-4, eps=1e-15),
+            "scheduler": CosineDecaySchedulerConfig(warm_up_end=500, max_steps=max_steps),
+        },
+        "proposal_networks": {
+            "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+            "scheduler": MultiStepSchedulerConfig(),
         },
     }
 

@@ -9,13 +9,15 @@ from typing import Optional
 import torch
 from torch import nn
 
+from nerfstudio_torch.utils.device import resolve_device
+
 
 class Embedding(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, device=None):
         super().__init__()
         self.in_dim = in_dim  # number of embeddings
         self.out_dim = out_dim  # embedding size
-        self.embedding = nn.Embedding(in_dim, out_dim, device=device)
+        self.embedding = nn.Embedding(in_dim, out_dim, device=resolve_device(device))
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

@@ -18,6 +18,7 @@ import torch.nn.functional as Fn
 from torch import nn
 
 from nerfstudio_torch.field_components.encodings import HashEncoding
+from nerfstudio_torch.utils.device import resolve_device
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -52,6 +53,7 @@ class MLP(nn.Module):
         self.act = _ACTIVATIONS[activation]
         self.out_act = _ACTIVATIONS[out_activation]
         widths = [in_dim] + [layer_width] * (num_layers - 1) + [self.get_out_dim()]
+        device = resolve_device(device)
         self.layers = nn.ModuleList(
             nn.Linear(a, b, device=device) for a, b in zip(widths[:-1], widths[1:])
         )
@@ -101,6 +103,7 @@ class MLPWithHashEncoding(nn.Module):
         device=None,
     ):
         super().__init__()
+        device = resolve_device(device)
         self.encoding = HashEncoding(
             num_levels=num_levels,
             min_res=min_res,

@@ -1,5 +1,6 @@
 """Proposal density field (counterpart of
-``nerfstudio_tpu/fields/density_fields.py``): block hash grid (K1) + tiny MLP."""
+``nerfstudio_tpu/fields/density_fields.py``): hash grid (block layout K1,
+or the flat layout K7) + tiny MLP."""
 
 from __future__ import annotations
 
@@ -13,12 +14,14 @@ from nerfstudio_torch.field_components.activations import trunc_exp
 from nerfstudio_torch.field_components.mlp import MLPWithHashEncoding
 from nerfstudio_torch.field_components.spatial_distortions import SceneContraction
 from nerfstudio_torch.fields.base_field import Field
+from nerfstudio_torch.utils.device import resolve_device
 
 
 class HashMLPDensityField(Field):
-    """(reference density_fields.py:21-78). Only the block-layout hash grid is
-    ported; like the reference it keeps the stochastic K1 path at eval, since
-    proposal density only places samples."""
+    """(reference density_fields.py:21-78). ``block`` takes the block layout,
+    whose stochastic K1 path the field keeps at eval as the reference does
+    (proposal density only places samples); the default, as the
+    reference's, is the flat layout (K7), neus-facto's."""
 
     def __init__(
         self,
@@ -35,12 +38,11 @@ class HashMLPDensityField(Field):
         log2_hashmap_size: int = 17,
         features_per_level: int = 2,
         average_init_density: float = 1.0,
-        block: bool = True,
+        block: bool = False,
         device=None,
     ):
         super().__init__()
-        if not block:
-            raise NotImplementedError("only the block-layout proposal field is ported")
+        device = resolve_device(device)
         self.aabb = aabb
         self.average_init_density = average_init_density
         self.mlp_base = MLPWithHashEncoding(
@@ -52,7 +54,7 @@ class HashMLPDensityField(Field):
             num_layers=num_layers,
             layer_width=hidden_dim,
             out_dim=1,
-            block=True,
+            block=block,
             device=device,
         )
         self._distortion = SceneContraction(order="inf") if use_spatial_distortion else None

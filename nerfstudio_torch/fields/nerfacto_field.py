@@ -24,6 +24,7 @@ from nerfstudio_torch.field_components.field_heads import FieldHeadNames
 from nerfstudio_torch.field_components.mlp import MLP, MLPWithHashEncoding
 from nerfstudio_torch.field_components.spatial_distortions import SceneContraction
 from nerfstudio_torch.fields.base_field import Field, get_normalized_directions
+from nerfstudio_torch.utils.device import resolve_device
 
 
 class NerfactoField(Field):
@@ -61,6 +62,7 @@ class NerfactoField(Field):
             raise NotImplementedError("the predicted-normal head is not ported")
         if not hash_block:
             raise NotImplementedError("only the block-layout hash grid is ported")
+        device = resolve_device(device)
         self.aabb = aabb
         self.geo_feat_dim = geo_feat_dim
         self.appearance_embedding_dim = appearance_embedding_dim

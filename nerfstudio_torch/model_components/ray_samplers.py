@@ -203,12 +203,13 @@ class SamplerUniforms:
 class ProposalNetworkSampler:
     """Hierarchical proposal sampling (reference :226-322).
 
-    The first round's samples come from ``UniformLinDispPiecewiseSampler``.
-    ``initial_weights_fn`` (probe RaySamples -> (R, P, 1) weights) replaces
+    The first round's samples come from ``initial_sampler``, by default
+    ``UniformLinDispPiecewiseSampler`` (neus-facto passes a
+    ``UniformSampler``). ``initial_weights_fn`` (probe RaySamples -> (R, P, 1) weights) replaces
     the first proposal round with a net-free weight source such as the
     occupancy grid; its probes use ``num_initial_probes`` samples. The
     proposal weight anneal and the proposal-gradient gate are explicit
-    arguments. The reference's other initial samplers are not ported."""
+    arguments."""
 
     num_proposal_samples_per_ray: Tuple[int, ...] = (64,)
     num_nerf_samples_per_ray: int = 32
@@ -216,6 +217,7 @@ class ProposalNetworkSampler:
     single_jitter: bool = True
     initial_weights_fn: Optional[Callable[[RaySamples], torch.Tensor]] = None
     num_initial_probes: int = 192
+    initial_sampler: Optional[SpacedSampler] = None
 
     def __post_init__(self):
         if self.num_proposal_network_iterations < 1 and self.initial_weights_fn is None:
@@ -239,7 +241,7 @@ class ProposalNetworkSampler:
         assert len(density_fns) == self.num_proposal_network_iterations
         if uniforms is None:
             uniforms = SamplerUniforms(None, (None,) * (self.num_proposal_network_iterations + 1))
-        initial = UniformLinDispPiecewiseSampler(
+        initial = self.initial_sampler or UniformLinDispPiecewiseSampler(
             self.num_proposal_samples_per_ray[0], single_jitter=self.single_jitter
         )
         pdf = PDFSampler(num_samples=self.num_nerf_samples_per_ray, single_jitter=self.single_jitter)

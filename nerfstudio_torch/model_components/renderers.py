@@ -50,6 +50,14 @@ def blend_background_for_loss_computation(
     return pred_image, gt_image[..., :3] * alpha + bg * (1.0 - alpha)
 
 
+def render_normals(normals: torch.Tensor, weights: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Weighted sum of per-sample normals, normalised (reference :182-187)."""
+    n = torch.sum(weights * normals, dim=-2)
+    if normalize:
+        n = n / torch.clamp_min(torch.linalg.norm(n, dim=-1, keepdim=True), 1e-10)
+    return n
+
+
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:
     """(reference :139-141)"""
     return torch.sum(weights, dim=-2)

@@ -70,9 +70,12 @@ def render_camera(
 
     ``params`` (a state dict, or None for the model's own) is applied with
     ``torch.func.functional_call``; ``aux`` is the model's auxiliary state
-    (nerfacto's occupancy grid). The flattened rays are padded to a chunk
+    (nerfacto's occupancy grid; None for a model without one, which then
+    gets no ``model_aux``). The flattened rays are padded to a chunk
     multiple with copies of the last ray, each chunk is rendered, and the
-    outputs come back as (H, W, C) tensors on the model's device."""
+    outputs come back as (H, W, C) tensors on the model's device. A model
+    that needs gradients at eval (the SDF field's normals) enables them
+    itself inside this no-grad render."""
     if model.training:
         raise ValueError("render_camera renders the eval forward: call model.eval() first")
     device = next(model.parameters()).device
@@ -84,13 +87,14 @@ def render_camera(
     if n_pad:
         flat = flat.map(lambda x: torch.cat([x, x[-1:].expand((n_pad,) + x.shape[1:])], dim=0))
 
+    kwargs = {} if aux is None else {"model_aux": aux}
     chunk_outs = []
     for start in range(0, n + n_pad, chunk_size):
         rb_i = flat.map(lambda x: x[start : start + chunk_size])
         if params is None:
-            out = model(rb_i, model_aux=aux)
+            out = model(rb_i, **kwargs)
         else:
-            out = torch.func.functional_call(model, params, (rb_i,), {"model_aux": aux})
+            out = torch.func.functional_call(model, params, (rb_i,), kwargs)
         chunk_outs.append({k: v for k, v in out.items() if isinstance(v, torch.Tensor)})
     images = {}
     for k in chunk_outs[0]:

@@ -38,6 +38,7 @@ from nerfstudio_torch.ops.occupancy import (
     probe_occupancy,
     update_occupancy_grid,
 )
+from nerfstudio_torch.utils.device import resolve_device
 from nerfstudio_torch.utils.metrics import psnr
 
 
@@ -122,11 +123,15 @@ class NerfactoModel(Model):
             'proposal_initial_sampler="uniform"': cfg.proposal_initial_sampler != "piecewise",
             'occ_weight_mode="density"': cfg.occ_weight_mode != "binary",
             "disable_scene_contraction=True": cfg.disable_scene_contraction,
+            # the reference's non-block proposal net takes the one-corner
+            # stochastic path (prop_stochastic_corner), which is not ported
+            "prop_block=False": not cfg.prop_block,
         }
         if any(unported.values()):
             raise NotImplementedError(
                 "nerfacto options not ported: " + ", ".join(k for k, v in unported.items() if v)
             )
+        device = resolve_device(device)
         self.field = NerfactoField(
             aabb=scene_aabb,
             num_images=num_train_data,
@@ -307,7 +312,8 @@ class NerfactoModel(Model):
     @staticmethod
     def init_aux(model: "NerfactoModel", config: NerfactoModelConfig, device=None) -> OccupancyGridState:
         """A fully occupied grid over the contracted, normalised cube (reference :405-413)."""
-        return init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), config.occ_grid_resolution, device)
+        return init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), config.occ_grid_resolution,
+                                   resolve_device(device))
 
     @staticmethod
     def make_aux_update_fn(model: "NerfactoModel", config: NerfactoModelConfig) -> Callable:

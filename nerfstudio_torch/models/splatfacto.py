@@ -24,6 +24,7 @@ import torch
 from nerfstudio_torch.models.base_model import ModelConfig
 from nerfstudio_torch.ops.gsplat.projection import get_viewmat, project_gaussians, quat_to_rotmat
 from nerfstudio_torch.ops.gsplat.rasterize import rasterize
+from nerfstudio_torch.utils.device import resolve_device
 from nerfstudio_torch.utils.math import k_nearest_neighbors, random_quat
 from nerfstudio_torch.utils.metrics import psnr, ssim
 from nerfstudio_torch.utils.spherical_harmonics import eval_sh, num_sh_bases, rgb_to_sh
@@ -131,6 +132,7 @@ def init_gaussian_params(
     ``max_gaussians`` slots (reference :136-201). Draws come from ``draws``
     when given, else from ``generator`` on ``device``."""
     n_cap = config.max_gaussians
+    device = resolve_device(device)
     use_seed = seed_points is not None and not config.random_init and len(seed_points[0]) > 0
     n = len(seed_points[0]) if use_seed else config.num_random
     if draws is None:

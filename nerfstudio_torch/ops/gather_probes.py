@@ -1,0 +1,218 @@
+"""The hash-table gather probes (counterparts of the Pallas probes in the
+JAX package's ``exp/``), one function per probe, named as there:
+
+* ``fused_gather`` (``exp/pallas_gather.py:40``): per corner c and index
+  block b, gather whole rows ``table[rows[c, b]]``, take lanes
+  ``slots*F + lane % F`` (the entry's F values repeated over the 128 lanes),
+  weight by ``w[c, b]`` and sum the corners in order 0..7:
+  (CORNERS, N_BLOCKS, S) indices -> (N_BLOCKS, S, 128) float32;
+* ``stage1`` (``exp/pallas_gather2.py:41``): whole-row gather, (nb, BLK)
+  rows -> (nb*BLK, 128);
+* ``stage2`` (``exp/pallas_gather2.py:96``): row gather, one-hot lane mask
+  ``lane // F == slot`` and an 8-corner weighted sum from zero, (nb, 8,
+  BLK) indices -> (nb*BLK, 128) float32: K7's forward inner loop for one
+  level with the lanes left unreduced;
+* ``run_case`` (``exp/pallas_gather3.py:26``): per-lane gather
+  ``out[i, j] = table[rows[i, j], j]``, (M, 128) rows;
+* ``f4`` (``exp/gather_bench.py:83``): ``take_along_axis(tab, rows % S,
+  axis=0)``, (n, 128) rows.
+
+The probes' output index maps in ``pallas_gather2.py`` and
+``pallas_gather3.py`` give element offsets (``b * BLK``) where Pallas takes
+block indices, which is right for block 0 only; these functions compute
+the intended function (block b -> output rows b*BLK ...). Tables are
+(rows, 128) float32 or bfloat16; indices int32; weights float32. Indices
+must lie in the table (slots in its rows): the twins raise on one that
+does not, the kernels clamp it, as XLA's gather does, and never read past
+the table.
+
+CUDA tensors launch the kernels of ``csrc/gather_probes.cu``
+(``row_gather_kernel``, ``lane_gather_kernel``, ``gather_select_kernel``)
+or raise; CPU tensors run the plain twins below. The module constants are
+the probes' own shapes."""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+# exp/pallas_gather.py
+S, F, N_BLOCKS, CORNERS = 16384, 4, 16, 8
+# exp/pallas_gather2.py
+M, BLK = 1 << 21, 2048
+# exp/pallas_gather3.py (run_case's cases) and exp/gather_bench.py (f4)
+RUN_CASE_ROWS, RUN_CASE_TABLES = 1 << 20, (16384, 512)
+F4_TABLE_ROWS, F4_ROWS = (2**19) // 128, 4_000_000 // 128
+
+_LANES = 128
+
+# Launches of each probe's kernel, counted where it is launched.
+launch_counts: Dict[str, int] = dict.fromkeys(("fused_gather", "stage1", "stage2", "run_case", "f4"), 0)
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# --------------------------------------------------------------------------
+# plain twins
+
+
+def _row_gather_twin(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    return table[rows.reshape(-1).long()]
+
+
+def _lane_gather_twin(table: torch.Tensor, rows: torch.Tensor, modulo: bool) -> torch.Tensor:
+    idx = rows.long()
+    if modulo:
+        idx = torch.remainder(idx, table.shape[0])
+    return torch.gather(table, 0, idx)
+
+
+def _gather_select_twin(table: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, w: torch.Tensor,
+                        features: int, masked: bool) -> torch.Tensor:
+    """rows, slots, w corner-major (C, n) -> (n, 128) float32, summed in the
+    probes' order: ``stage2`` from zero, ``fused_gather`` from corner 0."""
+    lane = torch.arange(_LANES, device=table.device)
+    acc = torch.zeros((rows.shape[1], _LANES), dtype=torch.float32, device=table.device) if masked else None
+    for c in range(rows.shape[0]):
+        g = table[rows[c].long()].float()  # (n, 128)
+        if masked:
+            sel = torch.where((lane // features)[None, :] == slots[c][:, None], g, 0.0)
+            acc = acc + sel * w[c][:, None]
+        else:
+            sel = torch.gather(g, 1, slots[c].long()[:, None] * features + (lane % features)[None, :])
+            term = sel * w[c][:, None]
+            acc = term if acc is None else acc + term
+    return acc
+
+
+# --------------------------------------------------------------------------
+# kernels
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def kernel_library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from nerfstudio_torch.ops import cuda_build
+
+        lib = cuda_build.load("gather_probes")
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.nst_probe_row_gather.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
+        lib.nst_probe_row_gather.restype = i
+        lib.nst_probe_gather_select.argtypes = [vp, ll, i, vp, vp, vp, vp, ll, i, ll, ll, ll, i, i, vp]
+        lib.nst_probe_gather_select.restype = i
+        lib.nst_probe_error_string.argtypes = [i]
+        lib.nst_probe_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+    lib = kernel_library()
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {lib.nst_probe_error_string(err).decode()}")
+    launch_counts[name] += 1
+
+
+def _check(name: str, table: torch.Tensor, *indices: torch.Tensor) -> None:
+    if table.ndim != 2 or table.shape[1] != _LANES or table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: table must be (rows, 128) float32 or bfloat16, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    for x in (table,) + indices:
+        if x.device != table.device or not x.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous and on one device")
+    if table.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {table.device}")
+
+
+def _check_lane_rows(name: str, rows: torch.Tensor) -> None:
+    if rows.ndim != 2 or rows.shape[1] != _LANES:
+        raise ValueError(f"{name}: rows must be (m, 128), got {tuple(rows.shape)}")
+
+
+def _row_gather(name: str, table: torch.Tensor, rows: torch.Tensor, out_shape, mode: int) -> torch.Tensor:
+    """Launch the row gather (mode 0 whole rows, 1 per lane, 2 per lane mod
+    the table's rows) on int32 ``rows``."""
+    if rows.dtype != torch.int32:
+        raise TypeError(f"{name}: rows must be int32, got {rows.dtype}")
+    out = torch.empty(out_shape, dtype=table.dtype, device=table.device)
+    _launch(name, "nst_probe_row_gather", table.device, table.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            out_shape[0], table.shape[0], table.element_size(), mode)
+    return out
+
+
+def _gather_select(name: str, table, rows, slots, w, features: int, masked: bool, block: int,
+                   block_stride: int, corner_stride: int, corners: int, n: int) -> torch.Tensor:
+    if rows.dtype != torch.int32 or slots.dtype != torch.int32 or w.dtype != torch.float32:
+        raise TypeError(f"{name}: rows and slots must be int32 and w float32")
+    if _LANES % features:
+        raise ValueError(f"{name}: features {features} must divide 128")
+    out = torch.empty((n, _LANES), dtype=torch.float32, device=table.device)
+    _launch(name, "nst_probe_gather_select", table.device, table.data_ptr(), table.shape[0], table.element_size(),
+            rows.data_ptr(), slots.data_ptr(), w.data_ptr(), out.data_ptr(), n, features, block, block_stride,
+            corner_stride, corners, int(masked))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the probes
+
+
+def fused_gather(table: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, w: torch.Tensor,
+                 features: int = F) -> torch.Tensor:
+    """(rows, 128) table; rows, slots, w (corners, blocks, s) -> (blocks, s,
+    128) float32."""
+    _check("fused_gather", table, rows, slots, w)
+    c, nb, s = rows.shape
+    if table.device.type == "cpu":
+        out = _gather_select_twin(table, rows.view(c, -1), slots.view(c, -1), w.view(c, -1), features, False)
+    else:
+        n = nb * s
+        out = _gather_select("fused_gather", table, rows, slots, w, features, False, n, 0, n, c, n)
+    return out.view(nb, s, _LANES)
+
+
+def stage1(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(rows, 128) table; (nb, blk) rows -> (nb*blk, 128) whole rows."""
+    _check("stage1", table, rows)
+    if table.device.type == "cpu":
+        return _row_gather_twin(table, rows)
+    return _row_gather("stage1", table, rows, (rows.numel(), _LANES), 0)
+
+
+def stage2(table: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, w: torch.Tensor,
+           features: int = F) -> torch.Tensor:
+    """(rows, 128) table; rows, slots, w (nb, corners, blk) -> (nb*blk, 128)
+    float32."""
+    _check("stage2", table, rows, slots, w)
+    nb, c, blk = rows.shape
+    if table.device.type == "cpu":
+        cm = lambda x: x.permute(1, 0, 2).reshape(c, nb * blk)  # noqa: E731  corner-major
+        return _gather_select_twin(table, cm(rows), cm(slots), cm(w), features, True)
+    return _gather_select("stage2", table, rows, slots, w, features, True, blk, c * blk, blk, c, nb * blk)
+
+
+def run_case(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(T, 128) table; (m, 128) rows in [0, T) -> out[i, j] = table[rows[i, j], j]."""
+    _check("run_case", table, rows)
+    _check_lane_rows("run_case", rows)
+    if table.device.type == "cpu":
+        return _lane_gather_twin(table, rows, modulo=False)
+    return _row_gather("run_case", table, rows, tuple(rows.shape), 1)
+
+
+def f4(tab: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(S, 128) table; (n, 128) rows -> out[i, j] = tab[rows[i, j] mod S, j]."""
+    _check("f4", tab, rows)
+    _check_lane_rows("f4", rows)
+    if tab.device.type == "cpu":
+        return _lane_gather_twin(tab, rows, modulo=True)
+    return _row_gather("f4", tab, rows, tuple(rows.shape), 2)

@@ -1,8 +1,8 @@
-"""Multiresolution hash-grid encoding (Instant-NGP), block-packed layout.
+"""Multiresolution hash-grid encoding (Instant-NGP).
 
 Counterpart of ``nerfstudio_tpu/ops/hash_grid.py``. Tables keep the JAX
 package's ``(L, S, 128)`` float32 layout, so JAX tables load without
-repacking. Two paths are ported:
+repacking. Three paths are ported:
 
 * ``hash_encode(block=True)`` (K1): one 2x2x2 vertex block per
   (sample, level), odd axes rounded stochastically from a hash of the cell
@@ -11,12 +11,18 @@ repacking. Two paths are ported:
   table gradient and carries the corner-weight gradient to the positions.
   ``bwd_levels``/``bwd_scale`` give the level-subsampled backward;
 * ``hash_encode(block_exact=True)`` (K3): the exact 8-corner trilerp through
-  the same layout, forward only (only the eval render reaches it).
+  the same layout, forward only (only the eval render reaches it);
+* ``hash_encode()`` with neither flag (K7): the exact 8-corner trilerp over
+  the flat layout, entry e of a level at lanes e*F..e*F+F-1 of the
+  row-major (S, 128) table, dense or hashed per level, so JAX's tables
+  load without repacking. Differentiable: its backward scatters the table
+  gradient in float32 and carries the corner-weight gradient to the
+  positions.
 
 Each dispatches on the device of its inputs: CUDA tensors go to the
 hand-written kernels in ``csrc/hash_grid.cu`` (or the call raises), CPU
-tensors go to the plain PyTorch twins in this module. The flat layout (K7)
-and the one-corner and z-pair paths are not ported.
+tensors go to the plain PyTorch twins in this module. The one-corner and
+z-pair paths are not ported.
 
 Integer hashing runs on int64 with the uint32 wrap made explicit
 (``_mul32``), so the twin reproduces the reference's uint32 arithmetic
@@ -30,6 +36,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from nerfstudio_torch.utils.device import resolve_device
+from nerfstudio_torch.utils.math import clip
 
 _PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
@@ -46,6 +55,8 @@ launch_counts: Dict[str, int] = {
     "hash_encode_block": 0,
     "hash_encode_block_exact": 0,
     "hash_encode_block_bwd": 0,
+    "hash_encode_flat": 0,
+    "hash_encode_flat_bwd": 0,
 }
 
 
@@ -100,11 +111,8 @@ def _block_index(bx, by, bz, bs: int, dense_b: bool, nblocks: int) -> torch.Tens
 
 
 def _clip01(x: torch.Tensor) -> torch.Tensor:
-    """Clip to [0, 1] with the reference's gradient: ``jnp.clip`` is a
-    max/min pair whose derivative is 1/2 where the input sits exactly on a
-    bound, and torch's ``maximum``/``minimum`` split ties the same way
-    (``torch.clamp`` would pass 1)."""
-    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+    """Clip to [0, 1] with the reference's gradient (``utils.math.clip``)."""
+    return clip(x, 0.0, 1.0)
 
 
 def _base_cells(positions: torch.Tensor, res: int):
@@ -290,6 +298,10 @@ def _kernel_library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
         )
         lib.nst_hash_encode_block_bwd.restype = ctypes.c_int
+        lib.nst_hash_encode_flat.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_void_p]
+        lib.nst_hash_encode_flat.restype = ctypes.c_int
+        lib.nst_hash_encode_flat_bwd.argtypes = [ctypes.c_void_p] * 5 + geometry + [ctypes.c_void_p]
+        lib.nst_hash_encode_flat_bwd.restype = ctypes.c_int
         lib.nst_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nst_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -298,7 +310,7 @@ def _kernel_library() -> ctypes.CDLL:
 
 def _launch(name: str, fn, pos: torch.Tensor, *args) -> None:
     """Call a kernel's C entry on the current stream of ``pos``'s device,
-    raise on a refused launch, and count it."""
+    raise on a refused launch, and count it in ``launch_counts``."""
     lib = _kernel_library()
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
@@ -384,6 +396,157 @@ class _BlockEncode(torch.autograd.Function):
         return (d_pos if need_pos else None), (d_table if need_table else None), None, None
 
 
+# --------------------------------------------------------------------------
+# K7: the flat layout (reference ``hash_encode``'s 8-corner path, :991-1031,
+# through ``_row_gather_select`` :62-107 and ``_hash_corner`` :732). Entry e
+# of level l holds its F features at ``table[l].reshape(-1)[e*F : e*F + F]``.
+# Per level: s = x*res, the base vertex floor(s), the offset s - floor(s)
+# (not clipped: its derivative is res everywhere); corners c = dx<<2 | dy<<1
+# | dz in the order 0..7, each indexed densely ((cx*side + cy)*side + cz
+# with coordinates clipped to [0, side-1], side = res+1) when side^3 <= T
+# and hashed otherwise; the value of a corner is its table entry rounded to
+# bf16, weighted by ((wx*wy)*wz). The backward scatters w_c*g into the
+# table in float32 and carries d_w_c = <g, bf16 value> to the positions.
+
+
+def _features(table: torch.Tensor, hash_table_size: int) -> int:
+    return 128 * table.shape[1] // hash_table_size
+
+
+def _level_corners(pos: torch.Tensor, res: int, hash_table_size: int, dtype=torch.float32):
+    """One level: (entries (n, 8) int64, per-axis weights [(w0, w1)] * 3 in
+    ``dtype``). The offsets are computed in float32 whatever ``dtype`` is,
+    so a float64 run indexes the same corners."""
+    side = res + 1
+    dense = side**3 <= hash_table_size
+    base, weights = [], []
+    for a in range(3):
+        s = pos[:, a] * res
+        fl = torch.floor(s)
+        base.append(fl.to(torch.int64))
+        o = (s - fl).to(dtype)
+        weights.append((1.0 - o, o))
+    entries = []
+    for c in range(8):
+        v = [base[a] + ((c >> (2 - a)) & 1) for a in range(3)]
+        if dense:
+            v = [torch.clamp(x, 0, side - 1) for x in v]
+            entries.append((v[0] * side + v[1]) * side + v[2])
+        else:
+            entries.append(_hash_corner(*v, hash_table_size))
+    return torch.stack(entries, dim=-1), weights
+
+
+def _corner_weight(weights, c: int) -> torch.Tensor:
+    (wx, wy, wz) = weights
+    return wx[(c >> 2) & 1] * wy[(c >> 1) & 1] * wz[c & 1]
+
+
+def _flat_twin(pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int,
+               hash_table_size: int) -> torch.Tensor:
+    """Plain PyTorch K7 forward: (n, 3) -> (n, L*F), summed in the
+    reference's order."""
+    L = table.shape[0]
+    F = _features(table, hash_table_size)
+    feat = torch.arange(F, device=pos.device)
+    out = torch.empty((pos.shape[0], L * F), dtype=torch.float32, device=pos.device)
+    for l, res in enumerate(compute_level_resolutions(L, min_res, max_res)):
+        entries, weights = _level_corners(pos, int(res), hash_table_size)
+        vals = _bf16(table[l].reshape(-1)[entries[:, :, None] * F + feat])  # (n, 8, F)
+        acc = _corner_weight(weights, 0)[:, None] * vals[:, 0]
+        for c in range(1, 8):
+            acc = acc + _corner_weight(weights, c)[:, None] * vals[:, c]
+        out[:, l * F : (l + 1) * F] = acc
+    return out
+
+
+def _flat_twin_bwd(
+    pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, *, min_res: int, max_res: int,
+    hash_table_size: int, need_positions: bool = True, need_table: bool = True, dtype: torch.dtype = torch.float32,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain PyTorch K7 backward in ``dtype``: (d_table (L, S, 128) or None,
+    d_positions (n, 3) or None) for the cotangent ``grad`` (n, L*F)."""
+    L, S, lanes = table.shape
+    F = _features(table, hash_table_size)
+    n = pos.shape[0]
+    feat = torch.arange(F, device=pos.device)
+    d_table = torch.zeros((L, S * lanes), dtype=dtype, device=pos.device) if need_table else None
+    d_pos = torch.zeros((n, 3), dtype=dtype, device=pos.device) if need_positions else None
+    for l, res in enumerate(compute_level_resolutions(L, min_res, max_res)):
+        entries, weights = _level_corners(pos, int(res), hash_table_size, dtype)
+        w8 = torch.stack([_corner_weight(weights, c) for c in range(8)], dim=-1)  # (n, 8)
+        lanes_idx = entries[:, :, None] * F + feat
+        g = grad[:, l * F : (l + 1) * F].to(dtype)
+        if need_table:
+            d_table[l].index_add_(0, lanes_idx.reshape(-1), (w8[:, :, None] * g[:, None, :]).reshape(-1))
+        if need_positions:
+            vals = _bf16(table[l].reshape(-1)[lanes_idx]).to(dtype)
+            d_w8 = (g[:, None, :] * vals).sum(dim=-1)  # (n, 8)
+            for a in range(3):
+                b1, b2 = [b for b in range(3) if b != a]
+                d_o = torch.zeros((n,), dtype=dtype, device=pos.device)
+                for c in range(8):
+                    other = weights[b1][(c >> (2 - b1)) & 1] * weights[b2][(c >> (2 - b2)) & 1]
+                    term = d_w8[:, c] * other
+                    d_o = d_o + term if (c >> (2 - a)) & 1 else d_o - term
+                d_pos[:, a] += d_o * res
+    return (None if d_table is None else d_table.view(L, S, lanes)), d_pos
+
+
+def _flat_kernel(pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int,
+                 hash_table_size: int) -> torch.Tensor:
+    """Launch the CUDA K7 forward."""
+    n = pos.shape[0]
+    out = torch.empty((n, table.shape[0] * _features(table, hash_table_size)), dtype=torch.float32,
+                      device=pos.device)
+    if n:
+        _launch("hash_encode_flat", "nst_hash_encode_flat", pos, pos.data_ptr(), table.data_ptr(), out.data_ptr(),
+                *_geometry_args(table, n, min_res, max_res, hash_table_size))
+    return out
+
+
+def _flat_bwd_kernel(
+    pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, *, min_res: int, max_res: int,
+    hash_table_size: int, need_positions: bool = True, need_table: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch the CUDA K7 backward: (d_table or None, d_positions or None)."""
+    n = pos.shape[0]
+    d_table = torch.zeros_like(table) if need_table else None
+    d_pos = torch.empty_like(pos) if need_positions else None
+    if n == 0 or not (need_table or need_positions):
+        return d_table, d_pos
+    if grad.shape != (n, table.shape[0] * _features(table, hash_table_size)) or grad.dtype != torch.float32:
+        raise ValueError(f"grad must be float32 ({n}, L*F), got {grad.dtype} {tuple(grad.shape)}")
+    _launch(
+        "hash_encode_flat_bwd", "nst_hash_encode_flat_bwd", pos,
+        pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(),
+        d_table.data_ptr() if need_table else None, d_pos.data_ptr() if need_positions else None,
+        *_geometry_args(table, n, min_res, max_res, hash_table_size),
+    )
+    return d_table, d_pos
+
+
+class _FlatEncode(torch.autograd.Function):
+    """K7 forward and backward."""
+
+    @staticmethod
+    def forward(ctx, pos, table, geom):
+        ctx.save_for_backward(pos, table)
+        ctx.geom = geom
+        if pos.device.type == "cuda":
+            return _flat_kernel(pos, table, **geom)
+        return _flat_twin(pos, table, **geom)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pos, table = ctx.saved_tensors
+        need_pos, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        grad = grad.contiguous()
+        bwd = _flat_bwd_kernel if pos.device.type == "cuda" else _flat_twin_bwd
+        d_table, d_pos = bwd(pos, table, grad, need_positions=need_pos, need_table=need_table, **ctx.geom)
+        return d_pos, d_table, None
+
+
 def _check_inputs(positions: torch.Tensor, table: torch.Tensor, num_levels: int, hash_table_size: int) -> None:
     """Validate shapes, types, devices and layout."""
     if positions.dtype != torch.float32 or table.dtype != torch.float32:
@@ -403,7 +566,7 @@ def _check_inputs(positions: torch.Tensor, table: torch.Tensor, num_levels: int,
         raise ValueError(f"table rows {S} do not match hash_table_size {hash_table_size}")
     F = 128 * S // hash_table_size
     if F not in (1, 2, 4, 8, 16):
-        raise ValueError(f"features_per_level {F} must be 1, 2, 4, 8 or 16 for the block layout")
+        raise ValueError(f"features_per_level {F} must be 1, 2, 4, 8 or 16")
 
 
 def hash_encode(
@@ -423,19 +586,22 @@ def hash_encode(
 
     positions: (..., 3) float32; table: (num_levels, S, 128) float32 with
     S = hash_table_size * F / 128. Returns (..., num_levels * F) float32,
-    column order l*F + f. ``block_exact`` takes K3, ``block`` alone takes K1.
-    CUDA tensors launch the kernels, CPU tensors run the twins.
+    column order l*F + f. ``block_exact`` takes K3, ``block`` alone takes K1,
+    neither takes the flat layout (K7). CUDA tensors launch the kernels, CPU
+    tensors run the twins.
 
     ``bwd_levels`` (K1 only): the levels whose table gets a gradient, scaled
     by ``bwd_scale``; the other levels get none. None gives every level an
     unscaled gradient. Position gradients flow on every level either way."""
-    if not (block or block_exact):
-        raise NotImplementedError("the flat hash-grid layout (K7) is not ported")
     _check_inputs(positions, table, num_levels, hash_table_size)
     batch_shape = positions.shape[:-1]
     pos = positions.reshape(-1, 3)
     geom = dict(min_res=min_res, max_res=max_res, hash_table_size=hash_table_size)
-    if block_exact:
+    if not (block or block_exact):
+        if bwd_levels is not None:
+            raise ValueError("bwd_levels is a block-layout (K1) option")
+        out = _FlatEncode.apply(pos, table, geom)
+    elif block_exact:
         if torch.is_grad_enabled() and (positions.requires_grad or table.requires_grad):
             raise NotImplementedError("K3 (block_exact) is forward only: run it under torch.no_grad()")
         out = _block_kernel(pos, table, exact=True, **geom) if pos.device.type == "cuda" else _block_exact_twin(
@@ -453,13 +619,15 @@ def hash_encode(
 def init_hash_table(
     num_levels: int, hash_table_size: int, features_per_level: int, scale: float = 1e-4, device=None
 ) -> torch.Tensor:
-    """Uniform(-scale, scale) table in the (L, S, 128) layout (reference :1047-1071)."""
+    """Uniform(-scale, scale) table in the (L, S, 128) layout (reference
+    :1047-1071), on ``device`` (None: the GPU, ``utils.device``)."""
     if 128 % features_per_level or hash_table_size % (128 // features_per_level):
         raise ValueError(
             f"features_per_level {features_per_level} must divide 128 and 128/F must divide "
             f"hash_table_size {hash_table_size}"
         )
     table = torch.empty(
-        (num_levels, hash_table_size * features_per_level // 128, 128), dtype=torch.float32, device=device
+        (num_levels, hash_table_size * features_per_level // 128, 128), dtype=torch.float32,
+        device=resolve_device(device),
     )
     return table.uniform_(-scale, scale)

@@ -13,6 +13,8 @@ from typing import Callable, Optional
 
 import torch
 
+from nerfstudio_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class OccupancyGridState:
@@ -28,8 +30,10 @@ class OccupancyGridState:
 
 
 def init_occupancy_grid(aabb, resolution: int = 128, device=None) -> OccupancyGridState:
-    """A fully occupied grid with zero densities (reference :57-68)."""
+    """A fully occupied grid with zero densities (reference :57-68), on
+    ``device`` (None: the GPU)."""
     n = resolution**3
+    device = resolve_device(device)
     return OccupancyGridState(
         densities=torch.zeros((n,), dtype=torch.float32, device=device),
         binary=torch.ones((n,), dtype=torch.bool, device=device),

@@ -27,8 +27,8 @@ from nerfstudio_torch.models.base_model import Model
 class TrainState:
     """What a step advances (reference :37-45): the optimizer (which holds
     the Adam moments and the schedule's count), the step, and the model's
-    auxiliary state (nerfacto's occupancy grid). The parameters are the
-    model's."""
+    auxiliary state (nerfacto's occupancy grid; None for a model without
+    one, such as neus-facto). The parameters are the model's."""
 
     optimizer: Any
     step: int = 0
@@ -59,16 +59,18 @@ class VanillaPipeline:
         **step_kwargs,
     ) -> Dict[str, torch.Tensor]:
         """One optimizer step on a fresh ray batch; ``step_kwargs`` are the
-        model's (``NerfactoModel.step_kwargs``). Returns the loss, the loss
-        terms and the metrics, detached and on the device."""
+        model's (``NerfactoModel.step_kwargs``, ``NeuSFactoModel.step_kwargs``).
+        A state without aux passes the model no ``model_aux``. Returns the
+        loss, the loss terms and the metrics, detached and on the device."""
         model = self.model
         if not model.training:
             raise ValueError("train_step trains the model: call model.train() first")
         idx, batch = self.datamanager.sample_train_batch(generator, indices=None if draws is None else draws.pixels)
         ray_bundle = generate_rays_from_indices(self.datamanager.train_cameras, idx)
+        if state.aux is not None:
+            step_kwargs = {"model_aux": state.aux, **step_kwargs}
         outputs = model(
-            ray_bundle, model_aux=state.aux, generator=generator,
-            uniforms=None if draws is None else draws.sampler, **step_kwargs,
+            ray_bundle, generator=generator, uniforms=None if draws is None else draws.sampler, **step_kwargs,
         )
         metrics = model.get_metrics_dict(outputs, batch)
         loss_dict = model.get_loss_dict(outputs, batch, metrics)

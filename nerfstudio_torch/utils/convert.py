@@ -2,9 +2,11 @@
 
 Takes nested dicts of numpy arrays (``jax.device_get`` of a flax params
 tree or a ``TrainState`` works as is) and imports no jax. Dense kernels
-``(in, out)`` become ``weight (out, in)``; hash tables keep their
-``(L, S, 128)`` layout; list members such as ``layers_0`` become
-``layers.0``. Every leaf must land on exactly one parameter: anything left
+``(in, out)`` become ``weight (out, in)`` (the SDF field's weight-normed
+kernels too, beside their ``scale``); hash tables keep their ``(L, S,
+128)`` layout, block and flat alike; list members such as ``layers_0``,
+``glin_0`` or ``proposal_networks_1`` become ``layers.0``, ``glin.0``,
+``proposal_networks.1``; ``LearnedVariance``'s scalar stays a scalar. Every leaf must land on exactly one parameter: anything left
 over on either side raises. ``splat_state_from_jax`` carries a splatfacto
 train state whole: gaussians, densification state and Adam moments."""
 
@@ -19,7 +21,7 @@ import torch
 
 from nerfstudio_torch.ops.occupancy import OccupancyGridState
 
-_LIST_MEMBER = re.compile(r"(layers|proposal_networks)_(\d+)")
+_LIST_MEMBER = re.compile(r"(layers|glin|clin|proposal_networks)_(\d+)")
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -40,6 +42,10 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     if leaf == "kernel":
         return ".".join(parts + ["weight"]), True
     if leaf in ("bias", "hash_table", "pose_adjustment"):
+        return ".".join(parts + [leaf]), False
+    if (leaf == "scale" and modules and modules[-1].startswith("glin_")) or (
+        leaf == "variance" and modules and modules[-1] == "deviation_network"
+    ):  # WNDense's scale, LearnedVariance's scalar
         return ".".join(parts + [leaf]), False
     if leaf == "embedding" and modules and modules[-1] == "embedding":
         return ".".join(parts + ["weight"]), False

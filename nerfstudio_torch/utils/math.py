@@ -1,5 +1,6 @@
-"""Math helpers of splatfacto's init (counterpart of the matching functions
-of ``nerfstudio_tpu/utils/math.py``)."""
+"""Math helpers (counterpart of the matching functions of
+``nerfstudio_tpu/utils/math.py``): splatfacto's init, and ``clip`` with
+``jnp.clip``'s gradient."""
 
 from __future__ import annotations
 
@@ -7,6 +8,12 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip`` with its gradient: a max/min pair, whose derivative is 1/2
+    where ``x`` sits exactly on a bound (``torch.clamp`` passes 1 there)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def random_quat(n: int, generator: Optional[torch.Generator] = None, uniforms: Optional[torch.Tensor] = None,

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import NUM_IMAGES, init_params, jax_tiny_nerfacto, torch_tiny_nerfacto
+from _torch_port import CPU, NUM_IMAGES, init_params, jax_tiny_nerfacto, torch_tiny_nerfacto
 from nerfstudio_tpu.core.rays import RayBundle as JRayBundle
 from nerfstudio_tpu.ops import occupancy as jocc
 from nerfstudio_torch.utils.convert import occupancy_from_jax, params_from_jax
@@ -31,7 +31,7 @@ def test_full_width_nerfacto_tree_converts_with_no_leftover():
     jmodel = JNerfacto(config=get_method("nerfacto").model, num_train_data=8, train=True)
     shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), _jax_rays(), key=None))
     tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
-    model = NerfactoModel(NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15), num_train_data=8)
+    model = NerfactoModel(NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15), num_train_data=8, device=CPU)
     state = params_from_jax(tree, model)
     model.load_state_dict(state, strict=True)
     n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
@@ -45,6 +45,34 @@ def test_full_width_nerfacto_tree_converts_with_no_leftover():
 def tiny_params():
     jmodel, _ = jax_tiny_nerfacto()
     return init_params(lambda k: jmodel.init(k, _jax_rays(), key=None), 0)
+
+
+def test_full_width_neus_facto_tree_converts_with_no_leftover():
+    """The shipped neus-facto (an 8x256 weight-normed SDF net with its skip,
+    a 4x256 colour net, the learned variance and two flat-layout L5 F2
+    T=2^17 proposal nets), shapes from jax.eval_shape: kernels transposed
+    beside their scales, the flat tables kept as (L, S, 128), the variance a
+    scalar."""
+    from nerfstudio_tpu.configs.method_configs import get_method
+    from nerfstudio_tpu.models.neus import NeuSFactoModel as JNeuSFacto
+    from nerfstudio_torch.models.neus import NeuSFactoModelConfig
+
+    jmodel = JNeuSFacto(config=get_method("neus-facto").model, num_train_data=8, train=True)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), _jax_rays(), key=None))
+    tree = jax.tree_util.tree_map(lambda s: np.full(s.shape, 0.5, s.dtype), shapes)
+    model = NeuSFactoModelConfig().setup(num_train_data=8, device=CPU)
+    state = params_from_jax(tree, model)
+    model.load_state_dict(state, strict=True)
+    n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
+    assert n_jax == sum(p.numel() for p in model.parameters())
+    assert model.field.skips == (4,) and state["field.glin.3.weight"].shape == (256 - 39, 256)
+    assert state["field.glin.4.weight"].shape == (256, 256) and state["field.glin.0.scale"].shape == (256,)
+    assert state["field.deviation_network.variance"].shape == ()
+    for i in range(2):
+        table = state[f"proposal_networks.{i}.mlp_base.encoding.hash_table"]
+        assert table.shape == (5, 2**17 * 2 // 128, 128) and bool((table == 0.5).all())
+    leaf = tree["params"]["field"]["glin_0"]["kernel"]
+    assert state["field.glin.0.weight"].shape == leaf.shape[::-1]
 
 
 def test_kernels_transposed_tables_and_embeddings_kept(tiny_params):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import init_params, to_torch
+from _torch_port import CPU, init_params, to_torch
 from nerfstudio_tpu.core.rays import Frustums as JFrustums
 from nerfstudio_tpu.core.rays import RaySamples as JRaySamples
 from nerfstudio_tpu.field_components.activations import trunc_exp as j_trunc_exp
@@ -72,7 +72,7 @@ def test_mlp_bf16_matches_flax():
     x = rng.normal(0, 1, (512, 24)).astype(np.float32)
     jm = JMLP(in_dim=24, num_layers=3, layer_width=32, out_dim=5, out_activation="sigmoid")
     params = init_params(lambda k: jm.init(k, jnp.asarray(x)), 0)
-    tm = MLP(in_dim=24, num_layers=3, layer_width=32, out_dim=5, out_activation="sigmoid")
+    tm = MLP(in_dim=24, num_layers=3, layer_width=32, out_dim=5, out_activation="sigmoid", device=CPU)
     tm.load_state_dict(params_from_jax(params, tm))
     with torch.no_grad():
         got = tm(to_torch(x))
@@ -97,7 +97,7 @@ def test_hash_mlp_density_field_k1(contraction):
     jrs, trs, _ = _samples(3000, 2)
     jf = JDensityField(block=True, **kw)
     params = init_params(lambda k: jf.init(k, jrs, method=JDensityField.get_density), 3)
-    tf = HashMLPDensityField(block=True, **kw)
+    tf = HashMLPDensityField(block=True, device=CPU, **kw)
     tf.load_state_dict(params_from_jax(params, tf))
     ref, _ = jf.apply(params, jrs, method=JDensityField.get_density)
     with torch.no_grad():
@@ -115,7 +115,7 @@ def test_nerfacto_field_eval(exact_eval):
     jrs, trs, _ = _samples(3000, 4)
     jf = JNerfactoField(train=False, **kw)
     params = init_params(lambda k: jf.init(k, jrs), 5)
-    tf = NerfactoField(**kw).eval()
+    tf = NerfactoField(device=CPU, **kw).eval()
     tf.load_state_dict(params_from_jax(params, tf))
     ref = jf.apply(params, jrs)
     with torch.no_grad():
@@ -129,7 +129,7 @@ def test_nerfacto_field_eval(exact_eval):
 def test_nerfacto_field_training_forward_is_not_ported():
     """The training forward now runs (K1, with gradients); what it still
     lacks is the density-gradient normals, which raise."""
-    tf = NerfactoField(num_levels=2, base_res=4, max_res=8, log2_hashmap_size=10, features_per_level=4)
+    tf = NerfactoField(num_levels=2, base_res=4, max_res=8, log2_hashmap_size=10, features_per_level=4, device=CPU)
     _, trs, _ = _samples(8, 6)
     out = tf(trs)
     out[FieldHeadNames.RGB].sum().backward()

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import NO_HASH_LAUNCHES
 from nerfstudio_tpu.ops import hash_grid as jhg
 from nerfstudio_torch.ops import hash_grid as thg
 
@@ -121,7 +122,7 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     kw = dict(num_levels=2, min_res=4, max_res=16, hash_table_size=2**10)
     out_k1 = thg.hash_encode(pos, table, block=True, **kw)
     out_k3 = thg.hash_encode(pos, table, block_exact=True, **kw)
-    assert thg.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0}
+    assert thg.launch_counts == NO_HASH_LAUNCHES
     torch.testing.assert_close(out_k1, thg._block_stochastic_twin(pos, table, min_res=4, max_res=16, hash_table_size=2**10), rtol=0, atol=0)
     torch.testing.assert_close(out_k3, thg._block_exact_twin(pos, table, min_res=4, max_res=16, hash_table_size=2**10), rtol=0, atol=0)
 
@@ -130,8 +131,7 @@ def test_wrapper_rejects_bad_inputs():
     pos = torch.rand(8, 3)
     table = torch.rand(2, 32, 128)
     kw = dict(num_levels=2, min_res=4, max_res=16, hash_table_size=2**10)
-    with pytest.raises(NotImplementedError):
-        thg.hash_encode(pos, table, **kw)  # flat layout (K7) is not ported
+    assert thg.hash_encode(pos, table, **kw).shape == (8, 2 * 4)  # the flat layout (K7) is ported
     with pytest.raises(TypeError):
         thg.hash_encode(pos.double(), table, block=True, **kw)
     with pytest.raises(ValueError):

@@ -11,7 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from _torch_port import (
+    CPU,
     HW,
+    NO_HASH_LAUNCHES,
     NUM_IMAGES,
     init_params,
     jax_tiny_nerfacto,
@@ -44,7 +46,7 @@ def setup():
     rays = jcams.generate_rays(camera_indices=0).flatten()[:8]
     params = init_params(lambda k: jmodel.init(k, rays, key=None), 1)
     apply = jax.jit(lambda p, rb, aux: jmodel.apply(p, rb, key=None, model_aux=aux))
-    return jcams, Cameras.create(*cam_args), jgrid, params, apply
+    return jcams, Cameras.create(*cam_args, device=CPU), jgrid, params, apply
 
 
 @pytest.fixture(scope="module", params=["k1_live", "k1_neutral"])
@@ -105,7 +107,7 @@ def test_depths_match(renders):
 
 
 def test_cpu_render_used_the_twins(renders):
-    assert hash_grid.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0}
+    assert hash_grid.launch_counts == NO_HASH_LAUNCHES
 
 
 @pytest.mark.parametrize(
@@ -119,19 +121,19 @@ def test_unported_nerfacto_options_raise(option):
     from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
 
     with pytest.raises(NotImplementedError):
-        NerfactoModelConfig(num_levels=2, log2_hashmap_size=10, max_res=32, **option).setup()
+        NerfactoModelConfig(num_levels=2, log2_hashmap_size=10, max_res=32, **option).setup(device=CPU)
 
 
 def test_render_needs_grid():
     model = torch_tiny_nerfacto()
-    cams = Cameras.create(orbit_c2w(1), 10.0, 10.0, 4.0, 4.0, 8, 8)
+    cams = Cameras.create(orbit_c2w(1), 10.0, 10.0, 4.0, 4.0, 8, 8, device=CPU)
     with pytest.raises(ValueError, match="model_aux"):
         render_camera(model, None, cams, 0, 64)
 
 
 def test_render_camera_needs_eval_mode():
     model = torch_tiny_nerfacto().train()
-    cams = Cameras.create(orbit_c2w(1), 10.0, 10.0, 4.0, 4.0, 8, 8)
+    cams = Cameras.create(orbit_c2w(1), 10.0, 10.0, 4.0, 4.0, 8, 8, device=CPU)
     with pytest.raises(ValueError, match="eval"):
         render_camera(model, None, cams, 0, 64)
 

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import orbit_c2w, sphere_grid_binary, to_torch
+from _torch_port import CPU, orbit_c2w, sphere_grid_binary, to_torch
 from nerfstudio_tpu.cameras.cameras import Cameras as JCameras
 from nerfstudio_tpu.core.rays import RayBundle as JRayBundle
 from nerfstudio_tpu.core.rays import render_weights_from_density as j_weights
@@ -49,7 +49,7 @@ def close(got, ref, **tol):
 def _cameras(hw=12, n=3):
     c2w = orbit_c2w(n)
     args = (c2w, hw * 1.1, hw * 0.9, hw / 2 + 0.3, hw / 2 - 0.2, hw, hw + 2)
-    return JCameras(*args), Cameras.create(*args)
+    return JCameras(*args), Cameras.create(*args, device=CPU)
 
 
 def _bundles(num_rays=64, seed=0):

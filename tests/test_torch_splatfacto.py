@@ -16,6 +16,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port import CPU
 from nerfstudio_tpu.models.splatfacto import SplatAux as JAux
 from nerfstudio_tpu.models.splatfacto import SplatfactoModel as JModel
 from nerfstudio_tpu.models.splatfacto import SplatfactoModelConfig as JConfig
@@ -121,7 +122,7 @@ def test_init_gaussian_params_matches_jax():
     (the log of kNN distances, and the sin/cos of the quaternions)."""
     jcfg, tcfg = JConfig(**TINY), SplatfactoModelConfig(**TINY)
     jp, jaux = j_init(jcfg, scene_scale=1.5, seed=7)
-    tp, taux = init_gaussian_params(tcfg, scene_scale=1.5, draws=jax_init_draws(7, 300))
+    tp, taux = init_gaussian_params(tcfg, scene_scale=1.5, draws=jax_init_draws(7, 300), device=CPU)
     for k, v in jp.items():
         assert tp[k].shape == v.shape, k
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(v), atol=1e-6, err_msg=k)
@@ -263,8 +264,8 @@ def test_refine_schedule_follows_jax_train():
     images = torch.zeros((2, 8, 8, 3))
     from nerfstudio_torch.cameras.cameras import Cameras
 
-    cams = Cameras.create(np.stack([_c2w(0.0), _c2w(1.0)]), 8.0, 8.0, 4.0, 4.0, 8, 8)
-    pipeline = SplatPipeline(FullImageDatamanager(cams, images), SplatfactoModel(cfg))
+    cams = Cameras.create(np.stack([_c2w(0.0), _c2w(1.0)]), 8.0, 8.0, 4.0, 4.0, 8, 8, device=CPU)
+    pipeline = SplatPipeline(FullImageDatamanager(cams, images, device=CPU), SplatfactoModel(cfg))
     calls = []
     pipeline.train_step = lambda state, *a: setattr(state, "step", state.step + 1) or {}
     pipeline.refine = lambda state, normals, **flags: calls.append((state.step - 1, flags))
@@ -303,11 +304,11 @@ def test_train_downscales_image_and_intrinsics_as_jax():
     cfg = SplatfactoModelConfig(**{**TINY, "num_downscales": 2})
     rng = np.random.default_rng(8)
     image = rng.uniform(size=(1, 48, 64, 3)).astype(np.float32)
-    cams = Cameras.create(_c2w()[None], *K, W, H)
-    pipeline = SplatPipeline(FullImageDatamanager(cams, _t(image)), SplatfactoModel(cfg))
+    cams = Cameras.create(_c2w()[None], *K, W, H, device=CPU)
+    pipeline = SplatPipeline(FullImageDatamanager(cams, _t(image), device=CPU), SplatfactoModel(cfg))
     seen = {}
     pipeline.train_step = lambda state, c2w, k, img, bg, w, h, sh: seen.update(k=k, img=img, wh=(w, h), sh=sh) or {}
-    pipeline.train(pipeline.init_state(draws=jax_init_draws(0, 300)), 1,
+    pipeline.train(pipeline.init_state(draws=jax_init_draws(0, 300), device=CPU), 1,
                    torch.Generator().manual_seed(0))
     assert seen["wh"] == (16, 12) and seen["sh"] == 0
     np.testing.assert_array_equal(np.array(seen["k"], np.float32), np.array(K, np.float32) / np.float32(4))
@@ -319,8 +320,8 @@ def test_datamanager_camera_order_is_the_seeded_permutation():
     from nerfstudio_torch.cameras.cameras import Cameras
 
     images = torch.arange(5, dtype=torch.uint8).view(5, 1, 1, 1).expand(5, 2, 2, 3).contiguous()
-    cams = Cameras.create(np.stack([_c2w(t) for t in range(5)]), 2.0, 2.0, 1.0, 1.0, 2, 2)
-    dm = FullImageDatamanager(cams, images, seed=3)
+    cams = Cameras.create(np.stack([_c2w(t) for t in range(5)]), 2.0, 2.0, 1.0, 1.0, 2, 2, device=CPU)
+    dm = FullImageDatamanager(cams, images, seed=3, device=CPU)
     rng = np.random.default_rng(3)
     want = list(rng.permutation(5)) + list(rng.permutation(5))
     got = [dm.next_train(i) for i in range(10)]
@@ -415,8 +416,8 @@ def test_eval_render_and_metrics_match_jax(jax_steps, mode):
         jnp.asarray(_c2w(0.9)), K, W, H, sh_degree_active=3, background=jnp.zeros(3))
     from nerfstudio_torch.cameras.cameras import Cameras
 
-    cams = Cameras.create(_c2w(0.9)[None], *K, W, H)
-    dm = FullImageDatamanager(cams, _t(gt)[None])
+    cams = Cameras.create(_c2w(0.9)[None], *K, W, H, device=CPU)
+    dm = FullImageDatamanager(cams, _t(gt)[None], device=CPU)
     pipeline = SplatPipeline(dm, SplatfactoModel(SplatfactoModelConfig(**TINY, rasterize_mode=mode), scene_scale=1.5))
     st = pipeline.state_from(params, aux)
     metrics, out = pipeline.get_eval_image_metrics(st, 0)

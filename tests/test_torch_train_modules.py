@@ -17,7 +17,7 @@ import optax
 import pytest
 import torch
 
-from _torch_port import init_params, jax_occupancy_draws, to_torch
+from _torch_port import CPU, NO_HASH_LAUNCHES, init_params, jax_occupancy_draws, to_torch
 from nerfstudio_tpu.cameras import camera_optimizers as jcopt
 from nerfstudio_tpu.cameras import lie_groups as jlie
 from nerfstudio_tpu.configs.method_configs import _nerfacto_optimizers
@@ -99,7 +99,7 @@ def test_camera_optimizer_apply_and_gradient():
         return jnp.sum(rb.origins * a) + jnp.sum(rb.directions * b), rb
 
     (_, jrb2), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(adj))
-    tco = tcopt.CameraOptimizer(num_cameras=n_cam, mode="SO3xR3", zero_mean_gauge=True)
+    tco = tcopt.CameraOptimizer(num_cameras=n_cam, mode="SO3xR3", zero_mean_gauge=True, device=CPU)
     with torch.no_grad():
         tco.pose_adjustment.copy_(to_torch(adj))
     trb = tco.apply_to_raybundle(RayBundle(to_torch(o), to_torch(d), torch.ones(n, 1), camera_indices=to_torch(cam)))
@@ -250,7 +250,7 @@ def _occupancy_pair(res, seed):
     dens = rng.uniform(0, 2e-3, res**3).astype(np.float32)  # around the 1e-3 threshold
     jgrid = jocc.init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), res)
     jgrid = jgrid.replace(densities=jnp.asarray(dens), density_rows=jocc._pack_rows(jnp.asarray(dens), res))
-    tgrid = tocc.init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), res)
+    tgrid = tocc.init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), res, CPU)
     tgrid.densities = to_torch(dens)
     return jgrid, tgrid
 
@@ -347,7 +347,7 @@ def test_nerfacto_field_training_forward_and_backward(bwd):
         return jnp.sum(rgb * a) + jnp.sum(jnp.tanh(density) * b), (rgb, density)
 
     (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(params)
-    tf = NerfactoField(**FIELD_KW).train()
+    tf = NerfactoField(device=CPU, **FIELD_KW).train()
     tf.load_state_dict(params_from_jax(params, tf))
     thg.reset_launch_counts()
     out = tf(trs, bwd_levels=bwd, bwd_scale=scale)
@@ -368,7 +368,7 @@ def test_nerfacto_field_training_forward_and_backward(bwd):
     for l in range(FIELD_KW["num_levels"]):
         assert bool(table[l].any()) == (bwd is None or l in bwd), l
     # the appearance embedding of cameras that no sample shows gets nothing
-    assert thg.launch_counts == {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0}
+    assert thg.launch_counts == NO_HASH_LAUNCHES
 
 
 def test_field_hash_path_follows_the_mode(monkeypatch):
@@ -389,7 +389,7 @@ def test_field_hash_path_follows_the_mode(monkeypatch):
 
     monkeypatch.setattr(thg, "_block_stochastic_twin", spy("k1", k1))
     monkeypatch.setattr(thg, "_block_exact_twin", spy("k3", k3))
-    tf = NerfactoField(**FIELD_KW)
+    tf = NerfactoField(device=CPU, **FIELD_KW)
     _, trs = _train_samples(64, 14)
     expected = []
     for mode in ("train", "eval", "train"):
