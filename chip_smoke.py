@@ -30,7 +30,14 @@ shapes its path gives it, and drives the port's paths from random weights:
   training on bench.py's scene at 2048 rays (steps 300-301, then warm-up
   and timed steps from 6000, two K7 forward and two backward launches
   checked per step), a profile of three steps, one 512^2 eval frame through
-  ``render_camera`` and one step on the card against the CPU twins.
+  ``render_camera`` and one step on the card against the CPU twins;
+* the two kernels with a second design (phases 28-29), each design against
+  the twin and timed in turns on the same inputs: K6's backward
+  (block-reduced, and the earlier warp-atomic design) at the check inputs
+  and at the inputs of one trained-state splat step; the per-lane gather of
+  run_case and f4 (shared-memory table columns at the planned lanes per
+  block and at fewer, and one thread per element) at every variant of the
+  probes and at f4 with indices over the whole int32 range.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -141,6 +148,34 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 10) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' durations
+    under torch.profiler over ``runs`` calls (after one warm-up), divided by
+    ``runs``; unlike CUDA events around a single call it leaves out the host's
+    time to launch it. NaN when the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return sum(spans) / 1e3 / runs if spans else float("nan")
+
+
+def paired_ms(fns, runs: int = TIMED_RUNS):
+    """{key: (mean, [median, median])} of ``median_ms`` taken twice per
+    function, in order and then in reverse, so versions compared within one
+    run share its drift."""
+    got = {k: [] for k in fns}
+    for k in list(fns) + list(reversed(fns)):
+        got[k].append(median_ms(fns[k], runs=runs))
+    return {k: (statistics.fmean(v), v) for k, v in got.items()}
 
 
 # --------------------------------------------------------------------------
@@ -707,8 +742,41 @@ def check_k5(name, x, projected):
     return 0.0, timing, got, bnd
 
 
+# Designs of K6's backward: the launcher's ``_atomic`` argument.
+K6_BWD_DESIGNS = {"block-reduced": False, "warp-atomic": True}
+
+
+def k6_bwd_designs(m2, con, ch, op, bins, T, last, g_ch):
+    """K6's backward in both designs against its twin (run once) on one set
+    of inputs: ({design: max |kernel - twin| / peak over the four arrays},
+    {design: max abs err}, {design: timing fn}, bound, walked). The work
+    depends on the data: the entries each pixel walked (``last``), ~40
+    float32 operations each."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    twin = rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch)
+    rel, err, timing = {}, {}, {}
+    for design, atomic in K6_BWD_DESIGNS.items():
+        got = rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch, _atomic=atomic)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"K6 backward ({design}): non-finite gradient")
+        rel[design] = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                       for k, a, b in zip(("means2d", "conics", "ch", "opac"), got, twin)}
+        err[design] = max(float((a - b).abs().max()) for a, b in zip(got, twin))
+        timing[design] = lambda a=atomic: rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch, _atomic=a)
+    walked = float(last.double().sum())
+    bnd = bound(nbytes(m2, con, ch, op, bins.ids, bins.starts, bins.counts, T, last, g_ch, *twin), 40 * walked)
+    return rel, err, timing, bnd, walked
+
+
+def k6_bwd_line(rel) -> str:
+    return "; ".join(f"{d} max |kernel - twin| / peak " + ", ".join(f"{k} {v:.3g}" for k, v in r.items())
+                     for d, r in rel.items()) + f" (limit {K6_BWD_REL})"
+
+
 def check_k6(name, x, projected, bins, gen):
-    """K6 forward and backward against the twins."""
+    """K6 forward and backward (both designs) against the twins."""
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
     (m2, z, con, *_), _ = projected
@@ -725,34 +793,50 @@ def check_k6(name, x, projected, bins, gen):
     g_rgb = torch.randn((h, w, 3), generator=gen, device=m2.device)
     bg = torch.rand((3,), generator=gen, device=m2.device)
     g_ch = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1]), -(g_rgb * bg).sum(-1, keepdim=True)], dim=-1)
-    got = rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch)
-    twin = rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch)
-    torch.cuda.synchronize()
-    bwd_rel = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-               for k, a, b in zip(("means2d", "conics", "ch", "opac"), got, twin)}
+    bwd_rel, bwd_err, bwd_timing, bwd_bound, walked = k6_bwd_designs(m2, con, ch, op, bins, T, last, g_ch)
     acc = out[..., 4]
     log(name, f"{w}x{h}: mean accumulation {float(acc.mean()):.3f}, pixels at T < 1e-4: "
         f"{float((T < 1e-4).float().mean()):.3f}, entries blended per pixel mean {float(last.float().mean()):.0f}; "
-        f"forward max |kernel - twin| / channel peak {fwd_rel:.3g} (limit {K6_FWD_REL}); backward max "
-        f"|kernel - twin| / peak " + ", ".join(f"{k} {v:.3g}" for k, v in bwd_rel.items()) + f" (limit {K6_BWD_REL})")
-    if fwd_rel > K6_FWD_REL or max(bwd_rel.values()) > K6_BWD_REL or not torch.isfinite(out).all():
+        f"forward max |kernel - twin| / channel peak {fwd_rel:.3g} (limit {K6_FWD_REL}); backward "
+        + k6_bwd_line(bwd_rel))
+    worst = max(v for r in bwd_rel.values() for v in r.values())
+    if fwd_rel > K6_FWD_REL or worst > K6_BWD_REL or not torch.isfinite(out).all():
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     fwd_abs = float((out - ref).abs().max())
-    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, twin))
     # data-dependent work: the entries each pixel walked (``last``), ~15
-    # operations each forward (conic, exp, alpha, blend of 5 channels) and
-    # ~40 backward
-    walked = float(last.double().sum())
+    # operations each forward (conic, exp, alpha, blend of 5 channels)
     bin_t = (bins.ids, bins.starts, bins.counts)
-    bounds = (bound(nbytes(m2, con, ch, op, *bin_t, out, T, last), 15 * walked),
-              bound(nbytes(m2, con, ch, op, *bin_t, T, last, g_ch, *got), 40 * walked))
+    bounds = (bound(nbytes(m2, con, ch, op, *bin_t, out, T, last), 15 * walked), bwd_bound)
     timing = dict(
         fwd=lambda: rz._blend_kernel(m2, con, ch, op, bins, w, h),
         fwd_twin=lambda: rz._blend_twin(m2, con, ch, op, bins, w, h),
-        bwd=lambda: rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch),
+        bwd=bwd_timing["block-reduced"],
+        bwd_designs=bwd_timing,
         bwd_twin=lambda: rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch),
     )
-    return (fwd_abs, bwd_abs), timing, bounds
+    return (fwd_abs, bwd_err), timing, bounds, walked
+
+
+def capture_k6_bwd(pipeline, state, gen):
+    """The arguments of K6's backward in one steady-state splat step, as
+    the step's own autograd call hands them over (tensors cloned): means2d,
+    conics, ch, opac, the bins, T, last and the cotangent g_ch."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    seen, launch = [], rz._blend_bwd_kernel
+
+    def capture(*args):
+        seen.append([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args])
+        return launch(*args)
+
+    rz._blend_bwd_kernel = capture
+    try:
+        splat_steps(pipeline, state, 1, gen)
+    finally:
+        rz._blend_bwd_kernel = launch
+    if len(seen) != 1:
+        raise AssertionError(f"one splat step called K6's backward {len(seen)} times")
+    return seen[0]
 
 
 def splat_steps(pipeline, state, n, gen):
@@ -947,8 +1031,10 @@ def check_probes(name, gen):
     (``index_select`` for stage1's whole rows, ``torch.gather`` for
     run_case's and f4's per-lane rows; gather leaves out f4's modulo, which
     is the identity on these rows in [0, S), and takes int64 indices,
-    converted before timing). Returns (launches per probe, {probe: {variant:
-    (max abs err, timing, bound)}})."""
+    converted before timing). run_case and f4 must take the shared-memory
+    lane gather at every variant (``lane_gather_smem`` counts those
+    launches). Returns (launches per probe, {probe: {variant: (max abs err,
+    timing, bound)}}, the inputs)."""
     from nerfstudio_torch.ops import gather_probes as gp
 
     inputs = probe_inputs(gen)
@@ -997,10 +1083,79 @@ def check_probes(name, gen):
                          + ("" if lib_err is None else f", library {lib_err:.3g}"))
     log(name, f"launches {launches}; " + "; ".join(lines))
     want = {k: len(v) for k, v in inputs.items()}
+    want["lane_gather_smem"] = want["run_case"] + want["f4"]
     if launches != want:
-        raise AssertionError(f"{name}: probe launches {launches}, expected {want} (one per variant)")
+        raise AssertionError(f"{name}: probe launches {launches}, expected {want} (one per variant, run_case's "
+                             "and f4's through the shared-memory lane gather)")
     del outs
-    return launches, results
+    return launches, results, inputs
+
+
+def lane_variants(inputs, gen):
+    """(probe, variant, args) of the lane gather: run_case's and f4's
+    variants of ``probe_inputs``, and f4 on its table with indices drawn over
+    the whole int32 range (the script's lie in [0, S) and never take the
+    modulo), the extremes INT32_MIN, INT32_MAX, -1, 0, 1, S - 1, S, -S,
+    -S - 1 and 2S in its first rows."""
+    out = [(k, v, args) for k in ("run_case", "f4") for v, args in inputs[k].items()]
+    tab, rows = inputs["f4"]["float32"]
+    s = tab.shape[0]
+    wide = torch.randint(-2**31, 2**31, tuple(rows.shape), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    edges = [-2**31, 2**31 - 1, -1, 0, 1, s - 1, s, -s, -s - 1, 2 * s]
+    wide[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device="cuda")[:, None]
+    out.append(("f4", "float32, rows over the int32 range", (tab, wide)))
+    return out
+
+
+def check_lane_designs(name, inputs, gen):
+    """The per-lane gather in each design on each of ``lane_variants``:
+    shared-memory table columns at ``_lane_plan``'s lanes per block, at half
+    and a quarter of them (more blocks per SM), and one thread per element;
+    each exactly equal to the twin, then all timed in turns with
+    ``torch.gather`` (int64 indices converted before timing; none for the
+    full int32 range, where no single call takes the modulo), by CUDA events
+    around single calls and by the profiler's device time. Returns {(probe,
+    variant): record}."""
+    from nerfstudio_torch.ops import gather_probes as gp
+
+    records, lines = {}, []
+    for k, v, (tab, rows) in lane_variants(inputs, gen):
+        modulo = k == "f4"
+        elem = tab.element_size()
+        plan = gp._lane_plan(tab.shape[0], elem)
+        designs = {"shared-columns": plan}
+        for div in (2, 4):
+            if plan // div:
+                designs[f"shared-columns, {plan // div} lanes"] = plan // div
+        designs["per-element"] = 0
+        with torch.no_grad():
+            ref = gp._lane_gather_twin(tab, rows, modulo)
+            errs = {}
+            for d, l in designs.items():
+                out = gp._lane_gather(k, tab, rows, modulo, lanes=l)
+                torch.cuda.synchronize()
+                errs[d] = float((out.float() - ref.float()).abs().max())
+                if out.dtype != ref.dtype or not torch.equal(out, ref):
+                    raise AssertionError(f"{name}: {k} {v} ({d}, {l} lanes) differs from its twin by {errs[d]}")
+            fns = {d: (lambda l=l: gp._lane_gather(k, tab, rows, modulo, lanes=l)) for d, l in designs.items()}
+            in_range = "int32 range" not in v
+            if in_range:
+                r64 = rows.long()
+                fns["torch.gather"] = lambda: torch.gather(tab, 0, r64)
+            times = paired_ms(fns)
+            dev = {d: device_ms(fn) for d, fn in fns.items()}
+        records[(k, v)] = dict(
+            lanes=plan, bound=bound(nbytes(tab, rows, ref), 0),
+            library_ms=times["torch.gather"][0] if in_range else None,
+            library_device_ms=dev["torch.gather"] if in_range else None,
+            designs=[dict(design=d, lanes=l, max_abs_err=errs[d], ms=times[d][0], ms_runs=times[d][1],
+                          device_ms=dev[d]) for d, l in designs.items()])
+        lines.append(f"{k} {v} (plan {plan} lanes; events / device ms): "
+                     + ", ".join(f"{d} {times[d][0]:.4f} / {dev[d]:.4f}" for d in fns) + ", all equal to the twin")
+        del ref
+    log(name, "; ".join(lines))
+    return records
 
 
 def build_neus(device, rays):
@@ -1086,7 +1241,7 @@ def main() -> int:
     from nerfstudio_torch.ops import gather_probes as gp
     from nerfstudio_torch.ops.gsplat import _cuda as sc
 
-    n_phases = 27
+    n_phases = 29
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -1239,7 +1394,8 @@ def main() -> int:
     x = splat_kernel_inputs(pipeline, state, splat_gen)
     k4_err, k4_timing, projected, k4_bounds = check_k4(ph(13, "K4 vs twin"), x, splat_gen)
     k5_err, k5_timing, bins, k5_bound = check_k5(ph(14, "K5 vs twin"), x, projected)
-    (k6_err, k6_bwd_err), k6_timing, k6_bounds = check_k6(ph(15, "K6 vs twin"), x, projected, bins, splat_gen)
+    (k6_err, k6_bwd_err), k6_timing, k6_bounds, k6_walked = check_k6(ph(15, "K6 vs twin"), x, projected, bins,
+                                                                     splat_gen)
     del x, projected, bins
 
     # 16. the splatfacto training slice at full scale from step 6000: the
@@ -1293,6 +1449,8 @@ def main() -> int:
             + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
         for name, t in rows[:12]:
             print(f"    {t:8.3f} ms/step  {name[:110]}", flush=True)
+    # K6 backward's inputs in one more steady step, for phase 28
+    k6_trained = capture_k6_bwd(pipeline, state, splat_gen)
     refine_ms = median_ms(lambda: pipeline.refine(state, pipeline.refine_draws(splat_gen), do_split=True,
                                                   do_cull_scale=True, reset_alpha=False), runs=3, warmup=1)
     sc.reset_launch_counts()
@@ -1329,6 +1487,7 @@ def main() -> int:
             t[key] = median_ms(fn, runs=3, warmup=1)
     t["k4_bwd"] = median_ms(k4_timing["bwd"])
     t["k6_bwd"] = median_ms(k6_timing["bwd"])
+    k6_bwd_designs_timing = k6_timing["bwd_designs"]
     t["k4_bwd_twin"] = median_ms(k4_timing["bwd_twin"], runs=3, warmup=1)
     t["k6_bwd_twin"] = median_ms(k6_timing["bwd_twin"], runs=3, warmup=1)
     t["k5_sort"] = median_ms(k5_timing["library"])
@@ -1347,7 +1506,7 @@ def main() -> int:
         k7[f"bwd_{samples}"] = check_flat_bwd(ph(21, f"K7 bwd vs float64 twin, {samples} samples/ray"), n, gen)
 
     # 22. the gather probes' entry point at the probes' own shapes
-    probe_launches, probes = check_probes(ph(22, "gather probes"), gen)
+    probe_launches, probes, probe_args = check_probes(ph(22, "gather probes"), gen)
 
     # 23. the neus-facto training slice at full width: steps 300-301, then
     # steady state from 6000 (launches zeroed before, read after)
@@ -1465,10 +1624,35 @@ def main() -> int:
         + f"; neus-facto step {neus_step_ms:.2f} ms = {neus_rays_per_s:,.0f} rays/s, idle "
         + ("not measured" if neus_idle is None else f"{neus_idle:.1%}") + f", eval frame {neus_frame_ms:.1f} ms")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+    # 28. K6 backward, both designs, at the check inputs and at the inputs
+    # of one trained-state step (captured after phase 17), timed in turns
+    m2, con, ch, op, tb, T, last, g_ch = k6_trained
+    tr_rel, tr_err, tr_timing, tr_bound, tr_walked = k6_bwd_designs(m2, con, ch, op, tb, T, last, g_ch)
+    tr_worst = max(v for r in tr_rel.values() for v in r.values())
+    check_t = paired_ms(k6_bwd_designs_timing)
+    trained_t = paired_ms(tr_timing)
+    check_dev = {d: device_ms(fn) for d, fn in k6_bwd_designs_timing.items()}
+    trained_dev = {d: device_ms(fn) for d, fn in tr_timing.items()}
+    log(ph(28, "K6 backward designs"), f"on {card}: trained state ({tb.tiles_x * 16}x{tb.tiles_y * 16}, "
+        f"{int(tb.counts.sum())} entries in tiles, max {int(tb.counts.max())} per tile, walked {tr_walked:.0f}, "
+        f"bound {tr_bound[0]:.4f} ms by {tr_bound[1]}): " + k6_bwd_line(tr_rel) + "; times (two medians each) "
+        + ", ".join(f"{d} {trained_t[d][0]:.4f} ms {trained_t[d][1]} (device {trained_dev[d]:.4f})"
+                    for d in K6_BWD_DESIGNS)
+        + f"; check inputs (walked {k6_walked:.0f}, bound {k6_bounds[1][0]:.4f} ms): "
+        + ", ".join(f"{d} {check_t[d][0]:.4f} ms {check_t[d][1]} (device {check_dev[d]:.4f})"
+                    for d in K6_BWD_DESIGNS))
+    if tr_worst > K6_BWD_REL:
+        raise AssertionError("K6 backward disagrees with its twin at the trained state")
+    del k6_trained, m2, con, ch, op, tb, T, last, g_ch, tr_timing, k6_bwd_designs_timing
+
+    # 29. the per-lane gather (run_case, f4), every design on every variant
+    lane = check_lane_designs(ph(29, "lane gather designs"), probe_args, gen)
+    del probe_args
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None, design="first"):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, "design": design}
 
     source = "nerfstudio_torch/csrc/hash_grid.cu"
     gs_source = "nerfstudio_torch/csrc/gsplat.cu"
@@ -1490,8 +1674,19 @@ def main() -> int:
         entry("blend_saturating (K6 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:94",
               splat_launches["blend_saturating"], k6_err, t["k6"], t["k6_twin"], k6_bounds[0]),
         entry("blend_saturating_bwd (K6 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:142",
-              splat_launches["blend_saturating_bwd"], k6_bwd_err, t["k6_bwd"], t["k6_bwd_twin"], k6_bounds[1]),
+              splat_launches["blend_saturating_bwd"], k6_bwd_err["block-reduced"], check_t["block-reduced"][0],
+              t["k6_bwd_twin"], k6_bounds[1], design="block-reduced"),
     ]
+    # K6 backward: the check inputs' walk, the trained state's, and both designs at both
+    kernels[-1].update(
+        walked=k6_walked,
+        device_ms=check_dev["block-reduced"],
+        trained={"walked": tr_walked, "ms": trained_t["block-reduced"][0], "device_ms": trained_dev["block-reduced"],
+                 "bound_ms": tr_bound[0], "bound_by": tr_bound[1], "max_abs_err": tr_err["block-reduced"]},
+        designs=[{"design": d, "ms": check_t[d][0], "ms_runs": check_t[d][1], "device_ms": check_dev[d],
+                  "max_abs_err": k6_bwd_err[d], "trained_ms": trained_t[d][0], "trained_ms_runs": trained_t[d][1],
+                  "trained_device_ms": trained_dev[d], "trained_max_abs_err": tr_err[d]}
+                 for d in K6_BWD_DESIGNS])
     big = f"fwd_{NEUS_SAMPLES[0]}"
     kernels.append(entry("hash_encode_flat (K7 fwd), 256 samples/ray", source, "nerfstudio_tpu/ops/hash_grid.py:63",
                          neus_launches["hash_encode_flat"], max(k7[k][0] for k in k7 if k.startswith("fwd")),
@@ -1503,14 +1698,27 @@ def main() -> int:
                          t["k7_" + big + "_twin"], k7[big][2]))
     # one entry per probe: its first float32 variant's times, the largest
     # error and every launch over its variants; "variants" lists them all
+    # run_case's and f4's variants add their designs (phase 29), and f4 its
+    # variant over the int32 range, which the main path does not run
     for k, variants in probes.items():
         main_v = next(v for v in variants if "float32" in v)
         pt = probe_t[k][main_v]
+        design = "shared-columns" if k in ("run_case", "f4") else "first"
         e = entry(f"{k} (probe), {main_v}", "nerfstudio_torch/csrc/gather_probes.cu", PROBE_REPLACES[k],
                   probe_launches[k], max(err for err, _, _ in variants.values()), pt["ms"], pt["plain_ms"],
-                  variants[main_v][2], pt["library_ms"])
-        e["variants"] = [dict(variant=v, max_abs_err=err, bound_ms=bnd[0], bound_by=bnd[1], **probe_t[k][v])
+                  variants[main_v][2], pt["library_ms"], design=design)
+        designs_of = lambda r: dict(lanes=r["lanes"], device_ms=r["designs"][0]["device_ms"],  # noqa: E731
+                                    library_device_ms=r["library_device_ms"], designs=r["designs"])
+        e["variants"] = [dict(variant=v, max_abs_err=err, bound_ms=bnd[0], bound_by=bnd[1], design=design,
+                              **probe_t[k][v], **(designs_of(lane[(k, v)]) if (k, v) in lane else {}))
                          for v, (err, _, bnd) in variants.items()]
+        e["variants"] += [dict(variant=v, max_abs_err=r["designs"][0]["max_abs_err"], bound_ms=r["bound"][0],
+                               bound_by=r["bound"][1], design=design, ms=r["designs"][0]["ms"],
+                               library_ms=r["library_ms"], **designs_of(r))
+                          for (kk, v), r in lane.items() if kk == k and v not in variants]
+        if (k, main_v) in lane:
+            e["device_ms"] = lane[(k, main_v)]["designs"][0]["device_ms"]
+            e["library_device_ms"] = lane[(k, main_v)]["library_device_ms"]
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,14 +26,29 @@
 //     binary search per tile plus an id unpack per entry.
 //   * K6 is bound by the per-entry work inside a tile: each entry of a
 //     tile's depth-sorted list costs every pixel of the tile an exp and a
-//     few flops, and the backward adds a warp reduction and 11 atomics per
-//     warp. One block per 16x16 tile, one thread per pixel; the entries are
-//     staged through shared memory 256 at a time, so each is read from
-//     device memory once per tile. A pixel stops once its transmittance
-//     falls below 1e-4 (after blending the entry that took it there), and a
-//     block stops when all its pixels have; the backward replays each pixel
-//     from its last blended entry back to the front, recovering T by
-//     division, as gsplat does.
+//     few flops, and the backward adds the reduction of 11 gradient values
+//     per (pixel, entry) over the tile. One block per 16x16 tile, one thread
+//     per pixel; the entries are staged through shared memory 256 at a
+//     time, so each is read from device memory once per tile. A pixel stops
+//     once its transmittance falls below 1e-4 (after blending the entry that
+//     took it there), and a block stops when all its pixels have; the
+//     backward replays each pixel from its last blended entry back to the
+//     front, recovering T by division, as gsplat does.
+//   * K6's backward (blend_bwd_kernel) reduces in the block before it
+//     touches device memory. Per staged batch each entry has 11 float
+//     accumulators in shared memory; a warp sums its pixels' 11 values in
+//     one butterfly (16 shuffles, not 11 tree sums of 5), adds them with one
+//     shared-memory atomic per value, and after the batch the block flushes
+//     every non-zero accumulator with one global atomic: one flush per entry
+//     and tile instead of one per warp, and no two warps of a tile contend
+//     for the same L2 line. Each warp replays from its own largest `last`,
+//     not the block's. The staged entries keep the structure-of-arrays
+//     layout of the forward (no float4 packing). blend_bwd_atomic_kernel,
+//     the earlier design (a tree sum per value and 11 global atomics per
+//     warp and entry, every warp from the block's largest `last`), is kept
+//     only so that chip_smoke.py can time the two on the same inputs in one
+//     run (through a private argument of rasterize._blend_bwd_kernel); the
+//     package's autograd path never launches it.
 //
 // The library is built with -fmad=false (cuda_build.NVCC_FLAGS), so every
 // product and sum rounds as the plain PyTorch twins' do; the twins differ
@@ -525,10 +540,133 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One stage of the warp's multi-value butterfly: a lane holding 2N partial
+// sums keeps the upper half if its bit 2N is set (else the lower), sends
+// the other half to the lane 2N away and adds what that lane sent.
+template <int N>
+__device__ __forceinline__ void butterfly_stage(float (&a)[16], int lane) {
+  const bool upper = (lane & (2 * N)) != 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = upper ? a[i] : a[N + i];
+    const float keep = upper ? a[N + i] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * N);
+  }
+}
+
+// The warp's sums of d[0..10] in 16 shuffles: lanes 2c and 2c + 1 return
+// the sum of d[c] (c < 11; lanes 22-31 the sums of the zero padding).
+__device__ __forceinline__ float warp_sum11(const float (&d)[kGradStride], int lane) {
+  float a[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) a[k] = k < kGradStride ? d[k] : 0.0f;
+  butterfly_stage<8>(a, lane);
+  butterfly_stage<4>(a, lane);
+  butterfly_stage<2>(a, lane);
+  butterfly_stage<1>(a, lane);
+  return a[0] + __shfl_xor_sync(0xffffffffu, a[0], 1);
+}
+
+// The 11 gradient values of one (pixel, entry j of the staged batch), or
+// false where the pixel did not blend it: the back-to-front step of the
+// replay, updating the pixel's T (to the transmittance in front of the
+// entry) and its suffix sum.
+__device__ __forceinline__ bool replay_entry(const Staged& s, int j, float px, float py, const float (&g)[5],
+                                             float& T, float& suffix, float (&d)[kGradStride]) {
+  const float dx = px - s.mx[j], dy = py - s.my[j];
+  const float sigma = gauss_sigma(s, j, dx, dy);
+  if (sigma < 0.0f) return false;
+  const float vis = expf(-sigma);
+  const float raw = s.o[j] * vis;
+  const float alpha = fminf(kMaxAlpha, raw);
+  if (!(alpha > kMinAlpha)) return false;
+  const float one_m = 1.0f - alpha;
+  T = T / one_m;  // transmittance in front of this entry
+  float G = 0.0f;
+  for (int k = 0; k < 5; ++k) G += g[k] * s.ch[k][j];
+  const float w = alpha * T;
+  const float d_alpha = T * G - suffix / one_m;
+  suffix += w * G;
+  for (int k = 0; k < 5; ++k) d[5 + k] = w * g[k];
+  const float d_raw = d_alpha * dmin(raw, kMaxAlpha);
+  d[10] = d_raw * vis;
+  const float d_sigma = -d_raw * raw;
+  d[2] = d_sigma * 0.5f * (dx * dx);
+  d[3] = d_sigma * dx * dy;
+  d[4] = d_sigma * 0.5f * (dy * dy);
+  d[0] = -d_sigma * (s.a[j] * dx + s.b[j] * dy);
+  d[1] = -d_sigma * (s.c[j] * dy + s.b[j] * dx);
+  return true;
+}
+
 __global__ void __launch_bounds__(kThreads) blend_bwd_kernel(BlendArgs args, const float* __restrict__ T_final,
                                                              const int32_t* __restrict__ last_entry,
                                                              const float* __restrict__ g_ch,
                                                              float* __restrict__ grads) {
+  __shared__ Staged s;
+  __shared__ float acc[kThreads * kGradStride];  // acc[j * 11 + c]: value c of staged entry j, over the tile
+  __shared__ int block_last;
+  const int tile = blockIdx.x;
+  const int tx = tile % args.tiles_x, ty = tile / args.tiles_x;
+  const int lx = threadIdx.x % kTile, ly = threadIdx.x / kTile;
+  const int lane = threadIdx.x % 32;
+  const int x = tx * kTile + lx, y = ty * kTile + ly;
+  const bool inside = x < args.width && y < args.height;
+  const float px = ((float)lx + 0.5f) + (float)(tx * kTile);
+  const float py = ((float)ly + 0.5f) + (float)(ty * kTile);
+  const int start = args.starts[tile];
+  const int64_t pix = (int64_t)y * args.width + x;
+
+  float T = inside ? T_final[pix] : 1.0f;
+  const int last = inside ? last_entry[pix] : 0;
+  float g[5];
+  for (int k = 0; k < 5; ++k) g[k] = inside ? g_ch[5 * pix + k] : 0.0f;
+  float suffix = 0.0f;  // sum over the later blended entries of w * (g . ch)
+
+  for (int e = threadIdx.x; e < kThreads * kGradStride; e += kThreads) acc[e] = 0.0f;
+  if (threadIdx.x == 0) block_last = 0;
+  __syncthreads();
+  const int warp_last = (int)__reduce_max_sync(0xffffffffu, (unsigned)last);
+  if (lane == 0) atomicMax(&block_last, warp_last);
+  __syncthreads();
+  const int end_all = block_last;
+
+  for (int end = end_all; end > 0; end -= kThreads) {
+    const int b0 = max(0, end - kThreads);
+    const int nb = end - b0;
+    __syncthreads();  // no thread still reads the previous batch or flushes its sums
+    if ((int)threadIdx.x < nb) stage(s, threadIdx.x, args, args.ids[start + b0 + threadIdx.x]);
+    __syncthreads();
+    // the warp's own entries of the batch: none at or past its largest last
+    for (int j = min(end, warp_last) - b0 - 1; j >= 0; --j) {
+      float d[kGradStride];
+      const bool hit = b0 + j < last && replay_entry(s, j, px, py, g, T, suffix, d);
+      if (!__any_sync(0xffffffffu, hit)) continue;
+      if (!hit)
+        for (int k = 0; k < kGradStride; ++k) d[k] = 0.0f;
+      const float sum = warp_sum11(d, lane);
+      if ((lane & 1) == 0 && lane < 2 * kGradStride) atomicAdd(&acc[j * kGradStride + lane / 2], sum);
+    }
+    __syncthreads();  // every warp's sums are in
+    for (int e = threadIdx.x; e < nb * kGradStride; e += kThreads) {
+      const float v = acc[e];
+      if (v != 0.0f) {
+        const int j = e / kGradStride;
+        atomicAdd(grads + (int64_t)kGradStride * s.id[j] + (e - j * kGradStride), v);
+        acc[e] = 0.0f;
+      }
+    }
+  }
+}
+
+// The earlier design of blend_bwd_kernel: 11 tree sums and 11 global
+// atomics per warp and entry, every warp from the block's largest last.
+// Kept only for chip_smoke.py's same-run comparison of the two.
+__global__ void __launch_bounds__(kThreads) blend_bwd_atomic_kernel(BlendArgs args,
+                                                                    const float* __restrict__ T_final,
+                                                                    const int32_t* __restrict__ last_entry,
+                                                                    const float* __restrict__ g_ch,
+                                                                    float* __restrict__ grads) {
   __shared__ Staged s;
   __shared__ int block_last;
   const int tile = blockIdx.x;
@@ -643,6 +781,21 @@ BlendArgs make_blend_args(const void* means2d, const void* conics, const void* o
   return a;
 }
 
+typedef void (*BlendBwdKernel)(BlendArgs, const float*, const int32_t*, const float*, float*);
+
+int launch_blend_bwd(BlendBwdKernel kernel, const void* means2d, const void* conics, const void* opac,
+                     const void* ch, const void* ids, const void* starts, const void* counts, int tiles_x,
+                     int tiles_y, int width, int height, const void* T_final, const void* last, const void* g_ch,
+                     void* grads, void* stream) {
+  if (tiles_x < 1 || tiles_y < 1 || width < 1 || height < 1 || width > tiles_x * kTile ||
+      height > tiles_y * kTile)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<tiles_x * tiles_y, kThreads, 0, (cudaStream_t)stream>>>(
+      make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height),
+      (const float*)T_final, (const int32_t*)last, (const float*)g_ch, (float*)grads);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -735,13 +888,18 @@ int nst_gsplat_blend_bwd(const void* means2d, const void* conics, const void* op
                          const void* ids, const void* starts, const void* counts, int tiles_x, int tiles_y,
                          int width, int height, const void* T_final, const void* last, const void* g_ch,
                          void* grads, void* stream) {
-  if (tiles_x < 1 || tiles_y < 1 || width < 1 || height < 1 || width > tiles_x * kTile ||
-      height > tiles_y * kTile)
-    return (int)cudaErrorInvalidValue;
-  blend_bwd_kernel<<<tiles_x * tiles_y, kThreads, 0, (cudaStream_t)stream>>>(
-      make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height),
-      (const float*)T_final, (const int32_t*)last, (const float*)g_ch, (float*)grads);
-  return (int)cudaGetLastError();
+  return launch_blend_bwd(blend_bwd_kernel, means2d, conics, opac, ch, ids, starts, counts, tiles_x, tiles_y,
+                          width, height, T_final, last, g_ch, grads, stream);
+}
+
+// The same through blend_bwd_atomic_kernel, the earlier design (same
+// arguments, same result up to summation order).
+int nst_gsplat_blend_bwd_atomic(const void* means2d, const void* conics, const void* opac, const void* ch,
+                                const void* ids, const void* starts, const void* counts, int tiles_x,
+                                int tiles_y, int width, int height, const void* T_final, const void* last,
+                                const void* g_ch, void* grads, void* stream) {
+  return launch_blend_bwd(blend_bwd_atomic_kernel, means2d, conics, opac, ch, ids, starts, counts, tiles_x,
+                          tiles_y, width, height, T_final, last, g_ch, grads, stream);
 }
 
 const char* nst_gsplat_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -27,14 +27,15 @@ does not, the kernels clamp it, as XLA's gather does, and never read past
 the table.
 
 CUDA tensors launch the kernels of ``csrc/gather_probes.cu``
-(``row_gather_kernel``, ``lane_gather_kernel``, ``gather_select_kernel``)
-or raise; CPU tensors run the plain twins below. The module constants are
-the probes' own shapes."""
+(``row_gather_kernel``, ``lane_gather_smem_kernel`` or, for a table whose
+one column does not fit in shared memory, ``lane_gather_kernel``,
+``gather_select_kernel``) or raise; CPU tensors run the plain twins below.
+The module constants are the probes' own shapes."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,9 +48,14 @@ RUN_CASE_ROWS, RUN_CASE_TABLES = 1 << 20, (16384, 512)
 F4_TABLE_ROWS, F4_ROWS = (2**19) // 128, 4_000_000 // 128
 
 _LANES = 128
+# Shared memory one block may take on Hopper (227 KB, opted into above 48 KB).
+_SMEM_BUDGET = 232448
 
-# Launches of each probe's kernel, counted where it is launched.
-launch_counts: Dict[str, int] = dict.fromkeys(("fused_gather", "stage1", "stage2", "run_case", "f4"), 0)
+# Launches of each probe's kernel, counted where it is launched;
+# "lane_gather_smem" counts the run_case and f4 launches that took the
+# shared-memory kernel.
+launch_counts: Dict[str, int] = dict.fromkeys(
+    ("fused_gather", "stage1", "stage2", "run_case", "f4", "lane_gather_smem"), 0)
 
 
 def reset_launch_counts() -> None:
@@ -96,6 +102,30 @@ def _gather_select_twin(table: torch.Tensor, rows: torch.Tensor, slots: torch.Te
 _LIB: Optional[ctypes.CDLL] = None
 
 
+def _lane_plan(table_rows: int, elem_bytes: int) -> int:
+    """Lanes per block of the shared-memory lane gather: the largest power
+    of two dividing 128 whose table columns (``table_rows * elem_bytes``
+    bytes each) fit in one block's shared memory, or 0 (one thread per
+    element, the table read through L2) when not even one column fits."""
+    lanes = _LANES
+    while lanes and lanes * table_rows * elem_bytes > _SMEM_BUDGET:
+        lanes //= 2
+    return lanes
+
+
+def _divisor_magic(s: int) -> Tuple[int, int]:
+    """(magic, shift) with ``x // s == (x * magic >> 32) >> shift`` for every
+    0 <= x < 2^31: l = ceil(log2 s), magic = ceil(2^(31 + l) / s) < 2^32,
+    shift = l - 1. The kernels take f4's modulo with it in 32 bits; s = 1
+    gives (0, 0), which they never use (x mod 1 is 0)."""
+    if not 1 <= s < 2**31:
+        raise ValueError(f"divisor {s} outside [1, 2^31)")
+    if s == 1:
+        return 0, 0
+    log2 = (s - 1).bit_length()
+    return -(-(1 << (31 + log2)) // s), log2 - 1
+
+
 def kernel_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
@@ -103,8 +133,10 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = cuda_build.load("gather_probes")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.nst_probe_row_gather.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
+        lib.nst_probe_row_gather.argtypes = [vp, vp, vp, ll, ll, i, vp]
         lib.nst_probe_row_gather.restype = i
+        lib.nst_probe_lane_gather.argtypes = [vp, vp, vp, ll, ll, i, i, i, ctypes.c_uint, i, vp]
+        lib.nst_probe_lane_gather.restype = i
         lib.nst_probe_gather_select.argtypes = [vp, ll, i, vp, vp, vp, vp, ll, i, ll, ll, ll, i, i, vp]
         lib.nst_probe_gather_select.restype = i
         lib.nst_probe_error_string.argtypes = [i]
@@ -138,14 +170,35 @@ def _check_lane_rows(name: str, rows: torch.Tensor) -> None:
         raise ValueError(f"{name}: rows must be (m, 128), got {tuple(rows.shape)}")
 
 
-def _row_gather(name: str, table: torch.Tensor, rows: torch.Tensor, out_shape, mode: int) -> torch.Tensor:
-    """Launch the row gather (mode 0 whole rows, 1 per lane, 2 per lane mod
-    the table's rows) on int32 ``rows``."""
+def _row_gather(name: str, table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Launch the whole-row gather on int32 ``rows``."""
     if rows.dtype != torch.int32:
         raise TypeError(f"{name}: rows must be int32, got {rows.dtype}")
-    out = torch.empty(out_shape, dtype=table.dtype, device=table.device)
+    out = torch.empty((rows.numel(), _LANES), dtype=table.dtype, device=table.device)
     _launch(name, "nst_probe_row_gather", table.device, table.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            out_shape[0], table.shape[0], table.element_size(), mode)
+            rows.numel(), table.shape[0], table.element_size())
+    return out
+
+
+def _lane_gather(name: str, table: torch.Tensor, rows: torch.Tensor, modulo: bool,
+                 lanes: Optional[int] = None) -> torch.Tensor:
+    """Launch the per-lane gather on int32 ``rows`` (m, 128): rows clamped
+    to the table, or with ``modulo`` taken mod its rows. ``lanes`` is the
+    table columns each block holds in shared memory, ``_lane_plan``'s by
+    default; 0 takes the one-thread-per-element kernel."""
+    if rows.dtype != torch.int32:
+        raise TypeError(f"{name}: rows must be int32, got {rows.dtype}")
+    t, elem = table.shape[0], table.element_size()
+    if lanes is None:
+        lanes = _lane_plan(t, elem)
+    if lanes and (table.data_ptr() % 16 or rows.data_ptr() % 16):
+        raise ValueError(f"{name}: table and rows must be 16-byte aligned")
+    magic, shift = _divisor_magic(t)
+    out = torch.empty(rows.shape, dtype=table.dtype, device=table.device)
+    _launch(name, "nst_probe_lane_gather", table.device, table.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            rows.shape[0], t, elem, int(modulo), lanes, magic, shift)
+    if lanes:
+        launch_counts["lane_gather_smem"] += 1
     return out
 
 
@@ -185,7 +238,7 @@ def stage1(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     _check("stage1", table, rows)
     if table.device.type == "cpu":
         return _row_gather_twin(table, rows)
-    return _row_gather("stage1", table, rows, (rows.numel(), _LANES), 0)
+    return _row_gather("stage1", table, rows)
 
 
 def stage2(table: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, w: torch.Tensor,
@@ -206,7 +259,7 @@ def run_case(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     _check_lane_rows("run_case", rows)
     if table.device.type == "cpu":
         return _lane_gather_twin(table, rows, modulo=False)
-    return _row_gather("run_case", table, rows, tuple(rows.shape), 1)
+    return _lane_gather("run_case", table, rows, modulo=False)
 
 
 def f4(tab: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -215,4 +268,4 @@ def f4(tab: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     _check_lane_rows("f4", rows)
     if tab.device.type == "cpu":
         return _lane_gather_twin(tab, rows, modulo=True)
-    return _row_gather("f4", tab, rows, tuple(rows.shape), 2)
+    return _lane_gather("f4", tab, rows, modulo=True)

@@ -10,11 +10,23 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 # The port's entry points run on the GPU unless asked otherwise; every port
 # test runs on the CPU and says so with this device.
 CPU = "cpu"
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device, for the tests of kernels that run only on the
+    card; decided when the test runs (never at import), skipped without one.
+    chip_smoke.py runs the same checks on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc): the hand-written kernels run only on the card")
+    return torch.device("cuda")
+
 
 # hash_grid's launch counts after a run on the CPU: no kernel launched.
 NO_HASH_LAUNCHES = {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0,

@@ -27,7 +27,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from _torch_port import to_torch
+from _torch_port import cuda_device, to_torch  # noqa: F401  (cuda_device: a fixture)
 from nerfstudio_torch.ops import gather_probes as gp
 
 EXP = Path(__file__).resolve().parents[1] / "exp"
@@ -144,6 +144,104 @@ def test_f4_matches_take_along_axis():
     want = np.asarray(jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(rows) % s, axis=0))
     got = gp.f4(to_torch(tab), to_torch(rows)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+@pytest.mark.parametrize("s", [96, gp.F4_TABLE_ROWS])
+def test_f4_wraps_every_int32(s):
+    """f4's modulo at the int32 extremes and around the table's edges
+    (INT32_MIN, INT32_MAX, -1, -S, S and their neighbours), and over the
+    whole int32 range: the values the kernels' 32-bit modulo must get right,
+    against ``jnp``'s ``%``."""
+    rng = np.random.default_rng(8)
+    tab = rng.normal(size=(s, 128)).astype(np.float32)
+    edges = [INT32_MIN, INT32_MIN + 1, INT32_MAX, INT32_MAX - 1, -1, 0, 1, -s, -s - 1, -s + 1, s, s - 1, s + 1]
+    rows = rng.integers(INT32_MIN, INT32_MAX, (64, 128), dtype=np.int64, endpoint=True).astype(np.int32)
+    rows[: len(edges)] = np.asarray(edges, np.int32)[:, None]
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(rows) % s, axis=0))
+    np.testing.assert_array_equal(gp.f4(to_torch(tab), to_torch(rows)).numpy(), want)
+
+
+@pytest.mark.parametrize("table_rows,dtype,lanes", [
+    (gp.F4_TABLE_ROWS, torch.float32, 8),     # f4: 8 columns of 16 KB
+    (gp.RUN_CASE_TABLES[0], torch.float32, 2),  # run_case, 16384 rows: 2 of 64 KB
+    (gp.RUN_CASE_TABLES[1], torch.float32, 64),  # run_case, 512 rows: 64 of 2 KB
+    (gp.F4_TABLE_ROWS, torch.bfloat16, 16),
+    (gp.RUN_CASE_TABLES[0], torch.bfloat16, 4),
+    (gp.RUN_CASE_TABLES[1], torch.bfloat16, 128),  # the whole table
+    (58_112, torch.float32, 1),   # one column of 227 KB exactly
+    (58_113, torch.float32, 0),   # one column too many: the per-element path
+    (116_225, torch.bfloat16, 0),
+])
+def test_lane_plan(table_rows, dtype, lanes):
+    """The lanes each block of the shared-memory lane gather holds: a power
+    of two dividing 128 whose columns fit a block's 227 KB, the largest such
+    (or all 128), and 0 exactly where one column does not fit."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    got = gp._lane_plan(table_rows, elem)
+    assert got == lanes
+    column = table_rows * elem
+    if got:
+        assert 128 % got == 0 and got & (got - 1) == 0
+        assert got * column <= gp._SMEM_BUDGET
+        assert got == 128 or 2 * got * column > gp._SMEM_BUDGET
+    else:
+        assert column > gp._SMEM_BUDGET
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 7, 96, 512, gp.F4_TABLE_ROWS, 4097, 16384, 58_113, 2**30 - 1, 2**30,
+                               2**30 + 1, 2**31 - 1])
+def test_divisor_magic_gives_pythons_modulo(s):
+    """The kernels' 32-bit modulo, step for step in numpy: x = r for r >= 0
+    and ~r = -r - 1 below (both in [0, 2^31)), q = umulhi(x, magic) >>
+    shift, x - q*s, mirrored below zero; equal to Python's ``r % s`` for the
+    int32 extremes, the multiples of s and their neighbours, and random
+    int32 values. s = 1 never reaches the multiply (x mod 1 is 0)."""
+    magic, shift = gp._divisor_magic(s)
+    assert 0 <= magic < 2**32 and 0 <= shift <= 31
+    rng = np.random.default_rng(s)
+    mult = np.arange(-(2**31) // s, 2**31 // s + 1, max(1, 2**31 // s // 500), dtype=np.int64) * s
+    r = np.concatenate([np.asarray([INT32_MIN, INT32_MIN + 1, INT32_MAX, INT32_MAX - 1, -1, 0, 1], np.int64),
+                        mult - 1, mult, mult + 1,
+                        rng.integers(INT32_MIN, INT32_MAX, 20_000, dtype=np.int64, endpoint=True)])
+    r = r[(r >= INT32_MIN) & (r <= INT32_MAX)]
+    x = np.where(r >= 0, r, -r - 1).astype(np.uint64)
+    if s == 1:
+        got = np.zeros_like(r)
+    else:
+        q = ((x * np.uint64(magic)) >> np.uint64(32)) >> np.uint64(shift)
+        rem = (x - q * np.uint64(s)).astype(np.int64)
+        got = np.where(r >= 0, rem, s - 1 - rem)
+    np.testing.assert_array_equal(got, r % s)
+
+
+@pytest.mark.parametrize("table_rows,dtype,modulo", [
+    (gp.F4_TABLE_ROWS, torch.float32, True),
+    (gp.RUN_CASE_TABLES[0], torch.float32, False),
+    (gp.RUN_CASE_TABLES[1], torch.float32, False),
+    (gp.RUN_CASE_TABLES[1], torch.bfloat16, True),
+    (70_000, torch.float32, False),  # no column fits: the per-element path only
+])
+def test_lane_gather_kernels_match_the_twin_on_the_card(cuda_device, table_rows, dtype, modulo):
+    """Both lane-gather kernels (shared-memory columns at the planned lanes
+    and at fewer, one thread per element) equal the twin exactly on the
+    card, on a row count that leaves a ragged last tile and rows over the
+    whole int32 range (clamped, or taken mod the table's rows)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    tab = torch.randn((table_rows, 128), generator=gen, device=cuda_device).to(dtype)
+    rows = torch.randint(INT32_MIN, INT32_MAX, (3001, 128), generator=gen, device=cuda_device,
+                         dtype=torch.int64).to(torch.int32)
+    if not modulo:
+        rows[100:] = torch.remainder(rows[100:], table_rows)  # mostly in the table, some clamped
+    want = gp._lane_gather_twin(tab.cpu(), rows.cpu(), modulo) if modulo else torch.gather(
+        tab.cpu(), 0, rows.cpu().long().clamp(0, table_rows - 1))
+    plan = gp._lane_plan(table_rows, tab.element_size())
+    for lanes in sorted({plan, plan // 2, 0}):
+        got = gp._lane_gather("f4" if modulo else "run_case", tab, rows, modulo, lanes=lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), lanes
 
 
 def test_probe_shapes_are_the_scripts():

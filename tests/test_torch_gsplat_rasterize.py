@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import cuda_device  # noqa: F401  (a fixture)
 from nerfstudio_tpu.ops.gsplat import projection as jproj
 from nerfstudio_tpu.ops.gsplat import rasterize as jras
 from nerfstudio_torch.ops.gsplat import rasterize as tras
@@ -167,6 +168,57 @@ def test_blend_vjp_matches_jax(blend_scene, cotangent):
         assert np.abs(a - b).max() <= tol * np.abs(a).max(), (name, np.abs(a - b).max(), np.abs(a).max())
     # every array but one (colors or depths, which only one cotangent reaches) gets a gradient
     assert sum(np.abs(np.asarray(g)).max() > 0 for g in jgrads) == 4
+
+
+@pytest.fixture(scope="module")
+def dense_scene():
+    """3000 gaussians over 64x48: tiles of more than two staged batches (256
+    entries each) of the CUDA backward, pixels that saturate long before
+    their tile's last entry. (means2d, conics, ch, opac, bins, w, h) as CPU
+    tensors."""
+    w, h, n = 64, 48, 3000
+    m2, conics, depths, radii, valid = _scene(n, w, h, seed=6, log_scale=(-3.0, -1.5))
+    rng = np.random.default_rng(7)
+    ch = np.concatenate([rng.uniform(0, 1, (n, 3)), depths[:, None], np.ones((n, 1))], -1).astype(np.float32)
+    opac = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    bins = tras.tile_bin(*_t(m2, radii, depths, valid), w, h, **BINNING)
+    return (*_t(m2, conics, ch, opac), bins, w, h)
+
+
+def test_dense_scene_spans_several_staged_batches(dense_scene):
+    """The premise of the card test below, checked on the twin: some tiles
+    hold more than two 256-entry batches, and most pixels saturate (their
+    replay starts inside a batch, not at a tile's end)."""
+    m2, conics, ch, opac, bins, w, h = dense_scene
+    assert int(bins.counts.max()) > 2 * 256 and int((bins.counts > 256).sum()) >= 4
+    acc = tras._blend_twin(m2, conics, ch, opac, bins, w, h)[..., 4]
+    assert float((acc > 1 - 1e-4).float().mean()) > 0.5
+
+
+def test_blend_bwd_kernels_match_the_twin_on_the_card(cuda_device, dense_scene):
+    """Both designs of K6's backward (block-reduced, and the earlier
+    per-warp atomics) against the twin's autograd on the card, within 1e-3
+    of each array's peak (the T < 1e-4 cutoff seen from the replay, sums in
+    another order), on tiles of several staged batches whose pixels stop
+    mid-batch."""
+    m2, conics, ch, opac, bins, w, h = dense_scene
+    dev = lambda x: x.to(cuda_device)  # noqa: E731
+    m2, conics, ch, opac = map(dev, (m2, conics, ch, opac))
+    bins = tras.TileBins(*map(dev, (bins.packed, bins.ids, bins.starts, bins.counts)), bins.tiles_x, bins.tiles_y,
+                         bins.depth_bits, bins.id_bits)
+    _, T, last = tras._blend_kernel(m2, conics, ch, opac, bins, w, h)
+    tile = (torch.arange(h, device=cuda_device)[:, None] // 16) * bins.tiles_x + \
+        torch.arange(w, device=cuda_device)[None, :] // 16
+    stopped = (T < 1e-4) & (last < bins.counts[tile])
+    assert bool((stopped & (last % 256 != 0) & (last > 256)).any())
+    g = torch.randn((h, w, 5), generator=torch.Generator(device=cuda_device).manual_seed(10), device=cuda_device)
+    want = tras._blend_twin_bwd(m2, conics, ch, opac, bins, g)
+    for atomic in (False, True):
+        got = tras._blend_bwd_kernel(m2, conics, ch, opac, bins, T, last, g, _atomic=atomic)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), atomic
 
 
 def test_bounded_mode_is_retired(blend_scene):
