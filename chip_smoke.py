@@ -7,14 +7,17 @@ Builds the hand-written kernels from ``nerfstudio_torch/csrc`` (one nvcc
 per source, in parallel), holds each against its plain PyTorch twin at the
 shapes its path gives it, and drives the port's paths from random weights:
 
-* nerfacto at the shipped width (phases 3-12): K1 forward, K3, K1 backward
-  against a float64 run of its twin; the render (four 512x512 frames
-  through ``render_camera``, the kernels launched once per chunk; a
-  128x128 frame on the card against the CPU twins) and the training step
-  (bench.py's setup: steps 256-259, then 12 warm-up and 50 timed
-  steady-state steps from step 6000, with the kernels' launches checked per
-  step; a torch.profiler breakdown of three steady steps; one step on the
-  card against the CPU twins);
+* nerfacto at the shipped width (phases 3-12): K1 forward and K3, each in
+  every design, and K1 backward against a float64 run of its twin; the
+  render (four 512x512 frames through ``render_camera``, the kernels
+  launched once per chunk in their default design; a 128x128 frame on the
+  card against the CPU twins) and the training step (bench.py's setup:
+  steps 256-259, then 12 warm-up and 50 timed steady-state steps from step
+  6000, with the kernels' launches checked per step; a torch.profiler
+  breakdown of three steady steps; one step on the card against the CPU
+  twins); the 512x512 frame timed with K1 and K3 in each design in turns,
+  a profile of one frame in each, and the positions and tables that one of
+  its chunks hands to K1 and K3, captured for phase 30;
 * splatfacto at the shipped config on tools/bench_models.py's setup
   (phases 13-19): K4 forward and backward, K5 and K6 forward and backward
   against their twins at 100,000 slots and 512^2; training through
@@ -31,13 +34,14 @@ shapes its path gives it, and drives the port's paths from random weights:
   and timed steps from 6000, two K7 forward and two backward launches
   checked per step), a profile of three steps, one 512^2 eval frame through
   ``render_camera`` and one step on the card against the CPU twins;
-* the two kernels with a second design (phases 28-29), each design against
-  the twin and timed in turns on the same inputs: K6's backward
-  (block-reduced, and the earlier warp-atomic design) at the check inputs
-  and at the inputs of one trained-state splat step; the per-lane gather of
-  run_case and f4 (shared-memory table columns at the planned lanes per
-  block and at fewer, and one thread per element) at every variant of the
-  probes and at f4 with indices over the whole int32 range.
+* K6's backward at the inputs of one trained-state splat step (phase 28);
+* the kernels with more than one design (phases 29-30), each design
+  against the twin and timed in turns on the same inputs: the per-lane
+  gather of run_case and f4 (shared-memory table columns at the lanes that
+  fit and at fewer, and one thread per element) at every variant of the
+  probes and at f4 with indices over the whole int32 range; K1's forward
+  and K3 (lane groups, one thread per stencil) at the check inputs and at
+  the captured inputs of a render chunk.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -205,28 +209,109 @@ def kernel_inputs(n, num_levels, log2_t, features, min_res, max_res, device, gen
 
 
 def check_kernel(name, exact, n, num_levels, log2_t, features, min_res, max_res, gen):
-    from nerfstudio_torch.ops import hash_grid as hg
-
+    """K1 (or K3 if ``exact``) in every design against its twin at one of
+    the slice's shapes, on ``kernel_inputs``."""
     pos, table = kernel_inputs(n, num_levels, log2_t, features, min_res, max_res, "cuda", gen)
     kw = dict(min_res=min_res, max_res=max_res, hash_table_size=2**log2_t)
+    return check_block_designs(name, exact, pos, table, kw,
+                               f"N={n} L={num_levels} F={features} T=2^{log2_t} max_res={max_res}")
+
+
+def check_block_designs(name, exact, pos, table, kw, what):
+    """Every design of K1 (or K3) against the twin on ``pos``, ``table``:
+    each within KERNEL_MAX_ABS, no sample off by KERNEL_FLIP. Returns ({design:
+    max abs err}, timing {design: fn, "kernel": the default design, "twin":
+    the twin}, bound)."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
     twin = hg._block_exact_twin if exact else hg._block_stochastic_twin
+    errs, parts, bad = {}, [], []
     with torch.no_grad():
-        out = hg._block_kernel(pos, table, exact=exact, **kw)
         ref = twin(pos, table, **kw)
-    torch.cuda.synchronize()
-    diff = (out - ref).abs()
-    max_abs = float(diff.max())
-    flipped = int((diff.amax(dim=-1) > KERNEL_FLIP).sum())
-    ok = torch.isfinite(out).all() and max_abs <= KERNEL_MAX_ABS and flipped == 0
-    log(name, f"N={n} L={num_levels} F={features} T=2^{log2_t} max_res={max_res}: "
-        f"max |kernel - twin| = {max_abs:.3g} (limit {KERNEL_MAX_ABS}), samples off by > {KERNEL_FLIP}: {flipped}")
-    if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with its twin")
-    timing = dict(
-        kernel=lambda: hg._block_kernel(pos, table, exact=exact, **kw),
-        twin=lambda: twin(pos, table, **kw),
-    )
-    return max_abs, timing, bound(nbytes(pos, table, out), hash_fwd_ops(n, num_levels, features))
+        for design in hg.BLOCK_DESIGNS:
+            out = hg._block_kernel(pos, table, exact=exact, _design=design, **kw)
+            torch.cuda.synchronize()
+            diff = (out - ref).abs()
+            errs[design] = float(diff.max())
+            flipped = int((diff.amax(dim=-1) > KERNEL_FLIP).sum())
+            parts.append(f"{design}: max |kernel - twin| = {errs[design]:.3g}, samples off by > {KERNEL_FLIP}: "
+                         f"{flipped}")
+            if not torch.isfinite(out).all() or errs[design] > KERNEL_MAX_ABS or flipped:
+                bad.append(design)
+    log(name, what + f" (limit {KERNEL_MAX_ABS}); " + "; ".join(parts))
+    if bad:
+        raise AssertionError(f"{name}: the {bad} kernels disagree with their twin")
+    timing = {d: (lambda d=d: hg._block_kernel(pos, table, exact=exact, _design=d, **kw)) for d in hg.BLOCK_DESIGNS}
+    timing["kernel"] = lambda: hg._block_kernel(pos, table, exact=exact, **kw)
+    timing["twin"] = lambda: twin(pos, table, **kw)
+    L, S, _ = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    return errs, timing, bound(nbytes(pos, table, ref), hash_fwd_ops(pos.shape[0], L, F))
+
+
+def capture_block_inputs(model, grid, cams):
+    """The positions and table that one chunk of a FRAME_HW^2 frame hands to
+    K1 (the proposal net) and to K3 (the field), as ``render_camera``'s own
+    calls of ``hash_grid._block_kernel`` pass them (cloned): the frame's
+    middle chunk, whose rays cross the occupied sphere. {exact: (pos, table,
+    geometry kwargs)}."""
+    from nerfstudio_torch.models.base_model import render_camera
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    chunks = math.ceil(FRAME_HW * FRAME_HW / CHUNK)
+    pick = chunks // 2
+    seen, launch = {False: [], True: []}, hg._block_kernel
+
+    def capture(pos, table, *, exact, **kw):
+        calls = seen[exact]
+        calls.append((pos.clone(), table.detach().clone(), kw) if len(calls) == pick else None)
+        return launch(pos, table, exact=exact, **kw)
+
+    hg._block_kernel = capture
+    try:
+        render_camera(model, None, cams, 0, CHUNK, aux=grid)
+    finally:
+        hg._block_kernel = launch
+    if any(len(calls) != chunks for calls in seen.values()):
+        raise AssertionError(f"one frame called K1 and K3 {[len(c) for c in seen.values()]} times, not {chunks}")
+    return {exact: calls[pick] for exact, calls in seen.items()}
+
+
+def render_in_design(model, grid, cams, design):
+    """One FRAME_HW^2 frame through ``render_camera`` with K1 and K3 launched
+    in ``design`` (one of ``hash_grid.BLOCK_DESIGNS``): the frame's time is
+    compared across designs in one call."""
+    from nerfstudio_torch.models.base_model import render_camera
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    launch = hg._block_kernel
+    hg._block_kernel = lambda pos, table, **kw: launch(pos, table, _design=design, **kw)
+    try:
+        return render_camera(model, None, cams, 0, CHUNK, aux=grid)
+    finally:
+        hg._block_kernel = launch
+
+
+def time_block_designs(timing):
+    """Every design of K1 or K3 timed in turns (``paired_ms``) and by the
+    profiler's device time: ({design: (mean, [medians])}, {design: ms})."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    fns = {d: timing[d] for d in hg.BLOCK_DESIGNS}
+    with torch.no_grad():
+        return paired_ms(fns), {d: device_ms(fn) for d, fn in fns.items()}
+
+
+def hash_kernel_of(name: str):
+    """"K1" or "K3" for a hash-grid forward kernel's profiler name, else
+    None: the lane kernels by name, the per-thread kernel by its kExact
+    template argument."""
+    name = name.lower()
+    if "block_stochastic_lanes" in name or ("block_encode_kernel<" in name and "false>" in name):
+        return "K1"
+    if "block_exact_lanes" in name or ("block_encode_kernel<" in name and "true>" in name):
+        return "K3"
+    return None
 
 
 U32 = 2.0**-24  # float32 unit roundoff
@@ -407,7 +492,8 @@ def train_steps(cfg, pipeline, state, hook, steps, gen, check_launches=True):
     kwargs, one train step. With ``check_launches``, each step must launch
     one field K1 forward and backward, one proposal K1 forward, a proposal
     backward only when ``update_proposals`` is on, one more K1 forward on an
-    occupancy update, and no K3. Returns the last step's metrics."""
+    occupancy update, no K3, and no K1 in the per-thread design. Returns
+    the last step's metrics."""
     from nerfstudio_torch.models.nerfacto import NerfactoModel
     from nerfstudio_torch.ops import hash_grid as hg
 
@@ -421,7 +507,7 @@ def train_steps(cfg, pipeline, state, hook, steps, gen, check_launches=True):
         if check_launches:
             occ = step >= cfg.occ_warmup_steps and step % cfg.occ_update_every == 0
             want = {"hash_encode_block": 2 + occ, "hash_encode_block_exact": 0,
-                    "hash_encode_block_bwd": 1 + bool(kwargs["update_proposals"])}
+                    "hash_encode_block_bwd": 1 + bool(kwargs["update_proposals"]), "hash_encode_block_per_thread": 0}
             got = {k: hg.launch_counts[k] - before[k] for k in want}
             if got != want:
                 raise AssertionError(f"step {step} ({kwargs}): launches {got}, expected {want}")
@@ -434,9 +520,9 @@ def profile_steps(cfg, pipeline, state, hook, start, gen):
         lambda: train_steps(cfg, pipeline, state, hook, range(start, start + PROFILED_STEPS), gen))
 
 
-def profile_device(run):
-    """Device time by kernel over ``run()``, which takes PROFILED_STEPS
-    steps (torch.profiler). Returns (rows (name, ms per step) by time,
+def profile_device(run, per=PROFILED_STEPS):
+    """Device time by kernel over ``run()``, which takes ``per`` steps (or
+    frames) (torch.profiler). Returns (rows (name, ms per step) by time,
     device-busy ms per step (the union of the kernels' intervals), device
     activities per step, matrix-product FLOPs per step (the profiler's count
     for the aten mm/addmm/bmm/baddbmm calls, from their shapes)), or None
@@ -464,12 +550,12 @@ def profile_device(run):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    rows = sorted(((n, t / PROFILED_STEPS) for n, t in by_name.items()), key=lambda r: -r[1])
-    return rows, busy_us / 1e3 / PROFILED_STEPS, len(spans) / PROFILED_STEPS, gemm_flops / PROFILED_STEPS
+    rows = sorted(((n, t / per) for n, t in by_name.items()), key=lambda r: -r[1])
+    return rows, busy_us / 1e3 / per, len(spans) / per, gemm_flops / per
 
 
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
-    ("hash-grid kernels", ("block_encode",)),
+    ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact")),
     ("gsplat kernels", ("project_fwd", "project_bwd", "tile_keys", "tile_ranges", "blend_fwd", "blend_bwd")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
@@ -742,41 +828,33 @@ def check_k5(name, x, projected):
     return 0.0, timing, got, bnd
 
 
-# Designs of K6's backward: the launcher's ``_atomic`` argument.
-K6_BWD_DESIGNS = {"block-reduced": False, "warp-atomic": True}
-
-
-def k6_bwd_designs(m2, con, ch, op, bins, T, last, g_ch):
-    """K6's backward in both designs against its twin (run once) on one set
-    of inputs: ({design: max |kernel - twin| / peak over the four arrays},
-    {design: max abs err}, {design: timing fn}, bound, walked). The work
+def k6_bwd_check(m2, con, ch, op, bins, T, last, g_ch):
+    """K6's backward against its twin on one set of inputs: (max |kernel -
+    twin| / peak per array, max abs err, timing fn, bound, walked). The work
     depends on the data: the entries each pixel walked (``last``), ~40
     float32 operations each."""
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
     twin = rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch)
-    rel, err, timing = {}, {}, {}
-    for design, atomic in K6_BWD_DESIGNS.items():
-        got = rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch, _atomic=atomic)
-        torch.cuda.synchronize()
-        if not all(torch.isfinite(a).all() for a in got):
-            raise AssertionError(f"K6 backward ({design}): non-finite gradient")
-        rel[design] = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                       for k, a, b in zip(("means2d", "conics", "ch", "opac"), got, twin)}
-        err[design] = max(float((a - b).abs().max()) for a, b in zip(got, twin))
-        timing[design] = lambda a=atomic: rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch, _atomic=a)
+    got = rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(a).all() for a in got):
+        raise AssertionError("K6 backward: non-finite gradient")
+    rel = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for k, a, b in zip(("means2d", "conics", "ch", "opac"), got, twin)}
+    err = max(float((a - b).abs().max()) for a, b in zip(got, twin))
     walked = float(last.double().sum())
     bnd = bound(nbytes(m2, con, ch, op, bins.ids, bins.starts, bins.counts, T, last, g_ch, *twin), 40 * walked)
-    return rel, err, timing, bnd, walked
+    return rel, err, (lambda: rz._blend_bwd_kernel(m2, con, ch, op, bins, T, last, g_ch)), bnd, walked
 
 
 def k6_bwd_line(rel) -> str:
-    return "; ".join(f"{d} max |kernel - twin| / peak " + ", ".join(f"{k} {v:.3g}" for k, v in r.items())
-                     for d, r in rel.items()) + f" (limit {K6_BWD_REL})"
+    return "max |kernel - twin| / peak " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + \
+        f" (limit {K6_BWD_REL})"
 
 
 def check_k6(name, x, projected, bins, gen):
-    """K6 forward and backward (both designs) against the twins."""
+    """K6 forward and backward against the twins."""
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
     (m2, z, con, *_), _ = projected
@@ -793,14 +871,13 @@ def check_k6(name, x, projected, bins, gen):
     g_rgb = torch.randn((h, w, 3), generator=gen, device=m2.device)
     bg = torch.rand((3,), generator=gen, device=m2.device)
     g_ch = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1]), -(g_rgb * bg).sum(-1, keepdim=True)], dim=-1)
-    bwd_rel, bwd_err, bwd_timing, bwd_bound, walked = k6_bwd_designs(m2, con, ch, op, bins, T, last, g_ch)
+    bwd_rel, bwd_err, bwd_timing, bwd_bound, walked = k6_bwd_check(m2, con, ch, op, bins, T, last, g_ch)
     acc = out[..., 4]
     log(name, f"{w}x{h}: mean accumulation {float(acc.mean()):.3f}, pixels at T < 1e-4: "
         f"{float((T < 1e-4).float().mean()):.3f}, entries blended per pixel mean {float(last.float().mean()):.0f}; "
         f"forward max |kernel - twin| / channel peak {fwd_rel:.3g} (limit {K6_FWD_REL}); backward "
         + k6_bwd_line(bwd_rel))
-    worst = max(v for r in bwd_rel.values() for v in r.values())
-    if fwd_rel > K6_FWD_REL or worst > K6_BWD_REL or not torch.isfinite(out).all():
+    if fwd_rel > K6_FWD_REL or max(bwd_rel.values()) > K6_BWD_REL or not torch.isfinite(out).all():
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     fwd_abs = float((out - ref).abs().max())
     # data-dependent work: the entries each pixel walked (``last``), ~15
@@ -810,8 +887,7 @@ def check_k6(name, x, projected, bins, gen):
     timing = dict(
         fwd=lambda: rz._blend_kernel(m2, con, ch, op, bins, w, h),
         fwd_twin=lambda: rz._blend_twin(m2, con, ch, op, bins, w, h),
-        bwd=bwd_timing["block-reduced"],
-        bwd_designs=bwd_timing,
+        bwd=bwd_timing,
         bwd_twin=lambda: rz._blend_twin_bwd(m2, con, ch, op, bins, g_ch),
     )
     return (fwd_abs, bwd_err), timing, bounds, walked
@@ -1032,8 +1108,9 @@ def check_probes(name, gen):
     run_case's and f4's per-lane rows; gather leaves out f4's modulo, which
     is the identity on these rows in [0, S), and takes int64 indices,
     converted before timing). run_case and f4 must take the shared-memory
-    lane gather at every variant (``lane_gather_smem`` counts those
-    launches). Returns (launches per probe, {probe: {variant: (max abs err,
+    lane gather exactly where ``_lane_plan`` gives lanes (f4, run_case's
+    512-row table; ``lane_gather_smem`` counts those launches) and the
+    per-element kernel elsewhere (run_case's 16384-row table). Returns (launches per probe, {probe: {variant: (max abs err,
     timing, bound)}}, the inputs)."""
     from nerfstudio_torch.ops import gather_probes as gp
 
@@ -1083,10 +1160,11 @@ def check_probes(name, gen):
                          + ("" if lib_err is None else f", library {lib_err:.3g}"))
     log(name, f"launches {launches}; " + "; ".join(lines))
     want = {k: len(v) for k, v in inputs.items()}
-    want["lane_gather_smem"] = want["run_case"] + want["f4"]
+    want["lane_gather_smem"] = sum(1 for k in ("run_case", "f4") for tab, _ in inputs[k].values()
+                                   if gp._lane_plan(tab.shape[0], tab.element_size()))
     if launches != want:
         raise AssertionError(f"{name}: probe launches {launches}, expected {want} (one per variant, run_case's "
-                             "and f4's through the shared-memory lane gather)")
+                             "and f4's through the shared-memory lane gather where _lane_plan gives lanes)")
     del outs
     return launches, results, inputs
 
@@ -1110,25 +1188,29 @@ def lane_variants(inputs, gen):
 
 def check_lane_designs(name, inputs, gen):
     """The per-lane gather in each design on each of ``lane_variants``:
-    shared-memory table columns at ``_lane_plan``'s lanes per block, at half
-    and a quarter of them (more blocks per SM), and one thread per element;
-    each exactly equal to the twin, then all timed in turns with
-    ``torch.gather`` (int64 indices converted before timing; none for the
-    full int32 range, where no single call takes the modulo), by CUDA events
-    around single calls and by the profiler's device time. Returns {(probe,
-    variant): record}."""
+    shared-memory table columns at the most lanes per block whose columns
+    fit (``_columns_that_fit``), at half and a quarter of them (more blocks
+    per SM), and one thread per element; each exactly equal to the twin,
+    then all timed in turns with ``torch.gather`` (int64 indices converted
+    before timing; none for the full int32 range, where no single call takes
+    the modulo), by CUDA events around single calls and by the profiler's
+    device time. ``default`` names the design ``_lane_plan`` takes (the
+    per-element kernel where the columns that fit are less than a sector of
+    a row). Returns {(probe, variant): record}."""
     from nerfstudio_torch.ops import gather_probes as gp
 
     records, lines = {}, []
     for k, v, (tab, rows) in lane_variants(inputs, gen):
         modulo = k == "f4"
         elem = tab.element_size()
+        fit = gp._columns_that_fit(tab.shape[0], elem)
         plan = gp._lane_plan(tab.shape[0], elem)
-        designs = {"shared-columns": plan}
+        designs = {"shared-columns": fit}
         for div in (2, 4):
-            if plan // div:
-                designs[f"shared-columns, {plan // div} lanes"] = plan // div
+            if fit // div:
+                designs[f"shared-columns, {fit // div} lanes"] = fit // div
         designs["per-element"] = 0
+        default = "shared-columns" if plan else "per-element"
         with torch.no_grad():
             ref = gp._lane_gather_twin(tab, rows, modulo)
             errs = {}
@@ -1146,12 +1228,12 @@ def check_lane_designs(name, inputs, gen):
             times = paired_ms(fns)
             dev = {d: device_ms(fn) for d, fn in fns.items()}
         records[(k, v)] = dict(
-            lanes=plan, bound=bound(nbytes(tab, rows, ref), 0),
+            lanes=plan, default=default, bound=bound(nbytes(tab, rows, ref), 0),
             library_ms=times["torch.gather"][0] if in_range else None,
             library_device_ms=dev["torch.gather"] if in_range else None,
             designs=[dict(design=d, lanes=l, max_abs_err=errs[d], ms=times[d][0], ms_runs=times[d][1],
                           device_ms=dev[d]) for d, l in designs.items()])
-        lines.append(f"{k} {v} (plan {plan} lanes; events / device ms): "
+        lines.append(f"{k} {v} (plan {plan} lanes: {default}; events / device ms): "
                      + ", ".join(f"{d} {times[d][0]:.4f} / {dev[d]:.4f}" for d in fns) + ", all equal to the twin")
         del ref
     log(name, "; ".join(lines))
@@ -1241,7 +1323,7 @@ def main() -> int:
     from nerfstudio_torch.ops import gather_probes as gp
     from nerfstudio_torch.ops.gsplat import _cuda as sc
 
-    n_phases = 29
+    n_phases = 30
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -1261,8 +1343,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # 3-6. kernels vs twins at the slices' shapes: K1 (the proposal net of the
-    # render), K3 (the field at eval), K1 bwd (the field at steady state:
-    # P=2 on levels 0, 2, 4, 6; the proposal net with live proposals)
+    # render) and K3 (the field at eval), each in every design; K1 bwd (the
+    # field at steady state: P=2 on levels 0, 2, 4, 6; the proposal net
+    # with live proposals)
     k1_err, k1_timing, k1_bound = check_kernel(ph(3, "K1 vs twin"), False, 2_097_152, 5, 17, 2, 16, 256, gen)
     k3_err, k3_timing, k3_bound = check_kernel(ph(4, "K3 vs twin"), True, 1_048_576, 8, 19, 4, 16, 2048, gen)
     bwd_field_err, bwd_field_timing, bwd_field_bound = check_kernel_bwd(
@@ -1285,8 +1368,9 @@ def main() -> int:
         check_outputs(images, FRAME_HW)
     want = NUM_FRAMES * chunks_per_frame
     if render_launches != {"hash_encode_block": want, "hash_encode_block_exact": want, "hash_encode_block_bwd": 0,
-                           "hash_encode_flat": 0, "hash_encode_flat_bwd": 0}:
-        raise AssertionError(f"kernel launches {render_launches}, expected {want} of each forward (one per chunk)")
+                           "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_per_thread": 0}:
+        raise AssertionError(f"kernel launches {render_launches}, expected {want} of each forward (one per chunk, "
+                             "in the default design)")
     acc = float(torch.stack([f["accumulation"].mean() for f in frames]).mean())
     log(ph(7, "render slice"), f"{NUM_FRAMES} frames {FRAME_HW}x{FRAME_HW} in {chunks_per_frame} chunks each: "
         f"all outputs finite with the right shapes, mean accumulation {acc:.3f}, launches {render_launches}, "
@@ -1379,13 +1463,46 @@ def main() -> int:
     times["bwd_field_twin"] = median_ms(bwd_field_timing["twin"], runs=5, warmup=1)
     times["bwd_prop"] = median_ms(bwd_prop_timing["kernel"])
     times["bwd_prop_twin"] = median_ms(bwd_prop_timing["twin"], runs=5, warmup=1)
-    frame_ms = median_ms(lambda: render_camera(model, None, cams, 0, CHUNK, aux=grid), runs=10, warmup=2)
+    # the frame with K1 and K3 in each design, in turns (the default's mean
+    # is the frame's time), and one profiled frame in each
+    block_default = hg._block_design(2)
+    frame_t = paired_ms({d: (lambda d=d: render_in_design(model, grid, cams, d)) for d in hg.BLOCK_DESIGNS},
+                        runs=10)
+    frame_ms = frame_t[block_default][0]
+    frame_profs = {d: profile_device(lambda d=d: render_in_design(model, grid, cams, d), per=1)
+                   for d in hg.BLOCK_DESIGNS}
+    frame_prof = frame_profs[block_default]
+    frame_busy = {d: (None if fp is None else fp[1]) for d, fp in frame_profs.items()}
+    block_render = capture_block_inputs(model, grid, cams)  # for phase 30
     log(ph(12, "timing"), f"on {card}: K1 {times['k1']:.3f} ms (twin {times['k1_twin']:.3f} ms), "
         f"K3 {times['k3']:.3f} ms (twin {times['k3_twin']:.3f} ms), "
         f"K1 bwd field {times['bwd_field']:.3f} ms (twin {times['bwd_field_twin']:.3f} ms), "
         f"K1 bwd proposal {times['bwd_prop']:.3f} ms (twin {times['bwd_prop_twin']:.3f} ms), "
         f"{FRAME_HW}^2 frame {frame_ms:.1f} ms = {FRAME_HW * FRAME_HW / (frame_ms / 1e3):,.0f} rays/s, "
         f"training {rays_per_s:,.0f} rays/s")
+    log(ph(12, "frame by design"), f"on {card}, in turns (CUDA events, mean [two medians of 10]; profiled "
+        "device-busy ms): " + ", ".join(
+            f"{d} {frame_t[d][0]:.2f} {[round(m, 2) for m in frame_t[d][1]]} / "
+            + ("not measured" if frame_busy[d] is None else f"{frame_busy[d]:.2f}") for d in hg.BLOCK_DESIGNS)
+        + f"; the default is {block_default}")
+    frame_idle, frame_hash = None, {}
+    if frame_prof is None:
+        log(ph(12, "frame profile"), "torch.profiler saw no device activity: device time not measured")
+    else:
+        rows, busy_ms, activities, _ = frame_prof
+        frame_idle = 1 - busy_ms / frame_ms
+        classes = {}
+        for name, tm in rows:
+            cls = hash_kernel_of(name) or kernel_class(name)
+            classes[cls] = classes.get(cls, 0.0) + tm
+        frame_hash = {"K1": classes.get("K1", 0.0), "K3": classes.get("K3", 0.0)}
+        log(ph(12, "frame profile"), f"one {FRAME_HW}^2 frame under torch.profiler: {activities:.0f} device "
+            f"activities and {busy_ms:.2f} ms of device-busy time, i.e. the device idles {frame_idle:.1%} of the "
+            f"unprofiled {frame_ms:.1f} ms frame; K1 {frame_hash['K1']:.3f} ms ({frame_hash['K1'] / busy_ms:.1%} "
+            f"of busy), K3 {frame_hash['K3']:.3f} ms ({frame_hash['K3'] / busy_ms:.1%}); by class (ms/frame): "
+            + ", ".join(f"{c} {tm:.3f}" for c, tm in sorted(classes.items(), key=lambda kv: -kv[1])))
+        for name, tm in rows[:12]:
+            print(f"    {tm:8.3f} ms/frame  {name[:110]}", flush=True)
     del model, grid
 
     # 13-15. K4, K5, K6 vs twins at the splatfacto slice's shapes
@@ -1487,7 +1604,7 @@ def main() -> int:
             t[key] = median_ms(fn, runs=3, warmup=1)
     t["k4_bwd"] = median_ms(k4_timing["bwd"])
     t["k6_bwd"] = median_ms(k6_timing["bwd"])
-    k6_bwd_designs_timing = k6_timing["bwd_designs"]
+    k6_bwd_check_fn = k6_timing["bwd"]
     t["k4_bwd_twin"] = median_ms(k4_timing["bwd_twin"], runs=3, warmup=1)
     t["k6_bwd_twin"] = median_ms(k6_timing["bwd_twin"], runs=3, warmup=1)
     t["k5_sort"] = median_ms(k5_timing["library"])
@@ -1624,30 +1741,48 @@ def main() -> int:
         + f"; neus-facto step {neus_step_ms:.2f} ms = {neus_rays_per_s:,.0f} rays/s, idle "
         + ("not measured" if neus_idle is None else f"{neus_idle:.1%}") + f", eval frame {neus_frame_ms:.1f} ms")
 
-    # 28. K6 backward, both designs, at the check inputs and at the inputs
-    # of one trained-state step (captured after phase 17), timed in turns
+    # 28. K6 backward at the check inputs and at the inputs of one
+    # trained-state step (captured after phase 17)
     m2, con, ch, op, tb, T, last, g_ch = k6_trained
-    tr_rel, tr_err, tr_timing, tr_bound, tr_walked = k6_bwd_designs(m2, con, ch, op, tb, T, last, g_ch)
-    tr_worst = max(v for r in tr_rel.values() for v in r.values())
-    check_t = paired_ms(k6_bwd_designs_timing)
-    trained_t = paired_ms(tr_timing)
-    check_dev = {d: device_ms(fn) for d, fn in k6_bwd_designs_timing.items()}
-    trained_dev = {d: device_ms(fn) for d, fn in tr_timing.items()}
-    log(ph(28, "K6 backward designs"), f"on {card}: trained state ({tb.tiles_x * 16}x{tb.tiles_y * 16}, "
+    tr_rel, tr_err, tr_fn, tr_bound, tr_walked = k6_bwd_check(m2, con, ch, op, tb, T, last, g_ch)
+    k6_t = paired_ms({"check": k6_bwd_check_fn, "trained": tr_fn})
+    k6_dev = {"check": device_ms(k6_bwd_check_fn), "trained": device_ms(tr_fn)}
+    log(ph(28, "K6 backward, trained state"), f"on {card}: trained state ({tb.tiles_x * 16}x{tb.tiles_y * 16}, "
         f"{int(tb.counts.sum())} entries in tiles, max {int(tb.counts.max())} per tile, walked {tr_walked:.0f}, "
         f"bound {tr_bound[0]:.4f} ms by {tr_bound[1]}): " + k6_bwd_line(tr_rel) + "; times (two medians each) "
-        + ", ".join(f"{d} {trained_t[d][0]:.4f} ms {trained_t[d][1]} (device {trained_dev[d]:.4f})"
-                    for d in K6_BWD_DESIGNS)
-        + f"; check inputs (walked {k6_walked:.0f}, bound {k6_bounds[1][0]:.4f} ms): "
-        + ", ".join(f"{d} {check_t[d][0]:.4f} ms {check_t[d][1]} (device {check_dev[d]:.4f})"
-                    for d in K6_BWD_DESIGNS))
-    if tr_worst > K6_BWD_REL:
+        f"{k6_t['trained'][0]:.4f} ms {k6_t['trained'][1]} (device {k6_dev['trained']:.4f}); check inputs "
+        f"(walked {k6_walked:.0f}, bound {k6_bounds[1][0]:.4f} ms): {k6_t['check'][0]:.4f} ms {k6_t['check'][1]} "
+        f"(device {k6_dev['check']:.4f})")
+    if max(tr_rel.values()) > K6_BWD_REL:
         raise AssertionError("K6 backward disagrees with its twin at the trained state")
-    del k6_trained, m2, con, ch, op, tb, T, last, g_ch, tr_timing, k6_bwd_designs_timing
+    del k6_trained, m2, con, ch, op, tb, T, last, g_ch, tr_fn, k6_bwd_check_fn
 
     # 29. the per-lane gather (run_case, f4), every design on every variant
     lane = check_lane_designs(ph(29, "lane gather designs"), probe_args, gen)
     del probe_args
+
+    # 30. K1 and K3, every design against the twin at the inputs of one
+    # render chunk (captured in phase 12), then every design timed in turns
+    # at the check inputs (phases 3-4) and at the render chunk's
+    render_checks, render_twin_ms, block_t, lines = {}, {}, {}, []
+    for exact, check_timing in ((False, k1_timing), (True, k3_timing)):
+        label = "K3" if exact else "K1"
+        pos, table, kw = block_render[exact]
+        L, S, _ = table.shape
+        render_checks[exact] = check_block_designs(
+            ph(30, f"{label} designs, render inputs"), exact, pos, table, kw,
+            f"one {FRAME_HW}^2 chunk: N={pos.shape[0]} L={L} F={128 * S // kw['hash_table_size']} "
+            f"T={kw['hash_table_size']} max_res={kw['max_res']}")
+        with torch.no_grad():
+            render_twin_ms[exact] = median_ms(render_checks[exact][1]["twin"], runs=3, warmup=1)
+        for inputs, timing in (("check", check_timing), ("render", render_checks[exact][1])):
+            block_t[(exact, inputs)] = ev, dev = time_block_designs(timing)
+            lines.append(f"{label} at the {inputs} inputs: " + ", ".join(
+                f"{d} {ev[d][0]:.4f} {ev[d][1]} / {dev[d]:.4f}" for d in hg.BLOCK_DESIGNS))
+    block_n = {exact: inputs[0].shape[0] for exact, inputs in block_render.items()}
+    del block_render
+    log(ph(30, "K1 and K3 designs, timing"), f"on {card} (events: mean [two medians] / device ms); "
+        + "; ".join(lines) + f"; default at F=2 and 4: {hg._block_design(2)}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None, design="first"):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -1657,11 +1792,32 @@ def main() -> int:
     source = "nerfstudio_torch/csrc/hash_grid.cu"
     gs_source = "nerfstudio_torch/csrc/gsplat.cu"
     hash_launch = {k: render_launches[k] + train_launches[k] for k in render_launches}
+
+    def block_entry(name, replaces, exact, features, errs, bnd, twin_ms):
+        """K1's or K3's entry in its default design, with every design at the
+        check and the render inputs, and the render inputs' own record."""
+        default = hg._block_design(features)
+        (ct, cdev), (rt, rdev) = block_t[(exact, "check")], block_t[(exact, "render")]
+        r_errs, _, r_bnd = render_checks[exact]
+        key = "hash_encode_block_exact" if exact else "hash_encode_block"
+        e = entry(name, source, replaces, hash_launch[key], errs[default], ct[default][0], twin_ms, bnd,
+                  design=default)
+        e["device_ms"] = cdev[default]
+        e["designs"] = [dict(design=d, ms=ct[d][0], ms_runs=ct[d][1], device_ms=cdev[d], max_abs_err=errs[d],
+                             render_ms=rt[d][0], render_ms_runs=rt[d][1], render_device_ms=rdev[d],
+                             render_max_abs_err=r_errs[d]) for d in hg.BLOCK_DESIGNS]
+        e["render"] = dict(n=int(block_n[exact]), ms=rt[default][0], device_ms=rdev[default],
+                           plain_ms=render_twin_ms[exact], bound_ms=r_bnd[0], bound_by=r_bnd[1],
+                           max_abs_err=r_errs[default], frame_ms=frame_hash.get("K3" if exact else "K1"),
+                           frames=[dict(design=d, ms=frame_t[d][0], ms_runs=frame_t[d][1], busy_ms=frame_busy[d])
+                                   for d in hg.BLOCK_DESIGNS])
+        return e
+
     kernels = [
-        entry("hash_encode_block (K1 fwd)", source, "nerfstudio_tpu/ops/hash_grid.py:352",
-              hash_launch["hash_encode_block"], k1_err, times["k1"], times["k1_twin"], k1_bound),
-        entry("hash_encode_block_exact (K3)", source, "nerfstudio_tpu/ops/hash_grid.py:696",
-              hash_launch["hash_encode_block_exact"], k3_err, times["k3"], times["k3_twin"], k3_bound),
+        block_entry("hash_encode_block (K1 fwd)", "nerfstudio_tpu/ops/hash_grid.py:352", False, 2, k1_err,
+                    k1_bound, times["k1_twin"]),
+        block_entry("hash_encode_block_exact (K3)", "nerfstudio_tpu/ops/hash_grid.py:696", True, 4, k3_err,
+                    k3_bound, times["k3_twin"]),
         entry("hash_encode_block_bwd (K1 bwd + K2), field shape", source, "nerfstudio_tpu/ops/hash_grid.py:439",
               hash_launch["hash_encode_block_bwd"], max(bwd_field_err, bwd_prop_err), times["bwd_field"],
               times["bwd_field_twin"], bwd_field_bound),
@@ -1674,19 +1830,14 @@ def main() -> int:
         entry("blend_saturating (K6 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:94",
               splat_launches["blend_saturating"], k6_err, t["k6"], t["k6_twin"], k6_bounds[0]),
         entry("blend_saturating_bwd (K6 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:142",
-              splat_launches["blend_saturating_bwd"], k6_bwd_err["block-reduced"], check_t["block-reduced"][0],
-              t["k6_bwd_twin"], k6_bounds[1], design="block-reduced"),
+              splat_launches["blend_saturating_bwd"], k6_bwd_err, k6_t["check"][0], t["k6_bwd_twin"], k6_bounds[1],
+              design="block-reduced"),
     ]
-    # K6 backward: the check inputs' walk, the trained state's, and both designs at both
+    # K6 backward: the check inputs' walk, and the trained state's
     kernels[-1].update(
-        walked=k6_walked,
-        device_ms=check_dev["block-reduced"],
-        trained={"walked": tr_walked, "ms": trained_t["block-reduced"][0], "device_ms": trained_dev["block-reduced"],
-                 "bound_ms": tr_bound[0], "bound_by": tr_bound[1], "max_abs_err": tr_err["block-reduced"]},
-        designs=[{"design": d, "ms": check_t[d][0], "ms_runs": check_t[d][1], "device_ms": check_dev[d],
-                  "max_abs_err": k6_bwd_err[d], "trained_ms": trained_t[d][0], "trained_ms_runs": trained_t[d][1],
-                  "trained_device_ms": trained_dev[d], "trained_max_abs_err": tr_err[d]}
-                 for d in K6_BWD_DESIGNS])
+        walked=k6_walked, device_ms=k6_dev["check"],
+        trained={"walked": tr_walked, "ms": k6_t["trained"][0], "device_ms": k6_dev["trained"],
+                 "bound_ms": tr_bound[0], "bound_by": tr_bound[1], "max_abs_err": tr_err})
     big = f"fwd_{NEUS_SAMPLES[0]}"
     kernels.append(entry("hash_encode_flat (K7 fwd), 256 samples/ray", source, "nerfstudio_tpu/ops/hash_grid.py:63",
                          neus_launches["hash_encode_flat"], max(k7[k][0] for k in k7 if k.startswith("fwd")),
@@ -1700,24 +1851,27 @@ def main() -> int:
     # error and every launch over its variants; "variants" lists them all
     # run_case's and f4's variants add their designs (phase 29), and f4 its
     # variant over the int32 range, which the main path does not run
+    def default_of(r):  # the record of the design _lane_plan takes
+        return next(d for d in r["designs"] if d["design"] == r["default"])
+
     for k, variants in probes.items():
         main_v = next(v for v in variants if "float32" in v)
         pt = probe_t[k][main_v]
-        design = "shared-columns" if k in ("run_case", "f4") else "first"
+        design_of = lambda v: lane[(k, v)]["default"] if (k, v) in lane else "first"  # noqa: E731
         e = entry(f"{k} (probe), {main_v}", "nerfstudio_torch/csrc/gather_probes.cu", PROBE_REPLACES[k],
                   probe_launches[k], max(err for err, _, _ in variants.values()), pt["ms"], pt["plain_ms"],
-                  variants[main_v][2], pt["library_ms"], design=design)
-        designs_of = lambda r: dict(lanes=r["lanes"], device_ms=r["designs"][0]["device_ms"],  # noqa: E731
+                  variants[main_v][2], pt["library_ms"], design=design_of(main_v))
+        designs_of = lambda r: dict(lanes=r["lanes"], device_ms=default_of(r)["device_ms"],  # noqa: E731
                                     library_device_ms=r["library_device_ms"], designs=r["designs"])
-        e["variants"] = [dict(variant=v, max_abs_err=err, bound_ms=bnd[0], bound_by=bnd[1], design=design,
+        e["variants"] = [dict(variant=v, max_abs_err=err, bound_ms=bnd[0], bound_by=bnd[1], design=design_of(v),
                               **probe_t[k][v], **(designs_of(lane[(k, v)]) if (k, v) in lane else {}))
                          for v, (err, _, bnd) in variants.items()]
-        e["variants"] += [dict(variant=v, max_abs_err=r["designs"][0]["max_abs_err"], bound_ms=r["bound"][0],
-                               bound_by=r["bound"][1], design=design, ms=r["designs"][0]["ms"],
+        e["variants"] += [dict(variant=v, max_abs_err=default_of(r)["max_abs_err"], bound_ms=r["bound"][0],
+                               bound_by=r["bound"][1], design=r["default"], ms=default_of(r)["ms"],
                                library_ms=r["library_ms"], **designs_of(r))
                           for (kk, v), r in lane.items() if kk == k and v not in variants]
         if (k, main_v) in lane:
-            e["device_ms"] = lane[(k, main_v)]["designs"][0]["device_ms"]
+            e["device_ms"] = default_of(lane[(k, main_v)])["device_ms"]
             e["library_device_ms"] = lane[(k, main_v)]["library_device_ms"]
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)

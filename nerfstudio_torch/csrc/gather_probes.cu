@@ -39,8 +39,9 @@
 //     rows[i, l0:l0+k] and writing out[i, l0:l0+k] as contiguous vectors
 //     and looking every index up in shared memory. k, the lanes per block,
 //     is the largest power of two dividing 128 whose columns fit
-//     (gather_probes._lane_plan); a table whose one column does not fit
-//     takes lane_gather_kernel. Blocks of one row range (the k-lane groups)
+//     (gather_probes._lane_plan); a table whose one column does not fit,
+//     or whose k lanes are less than a 32-byte sector, takes
+//     lane_gather_kernel (see below). Blocks of one row range (the k-lane groups)
 //     sit next to each other in the grid and run together, so an index
 //     sector that several groups share is fetched from HBM once. The grid
 //     is one wave of blocks; each block loops over its row tiles.
@@ -50,7 +51,8 @@
 //     (f4, 8 lanes; the 512-row table, 64). Where the k lanes are less than
 //     a sector (the 16384-row table of run_case, k = 2: 8 bytes) four SMs
 //     write each sector in pieces, and the kernel is slower than
-//     lane_gather_kernel (chip_smoke.py times both). Clusters that shared
+//     lane_gather_kernel (chip_smoke.py times both), so _lane_plan sends
+//     such tables to lane_gather_kernel. Clusters that shared
 //     their columns through distributed shared memory, so that each block
 //     read and wrote whole sectors, were no faster.
 //   * f4's modulo runs in 32 bits: a multiply-high by a precomputed magic

@@ -43,12 +43,7 @@
 //     and tile instead of one per warp, and no two warps of a tile contend
 //     for the same L2 line. Each warp replays from its own largest `last`,
 //     not the block's. The staged entries keep the structure-of-arrays
-//     layout of the forward (no float4 packing). blend_bwd_atomic_kernel,
-//     the earlier design (a tree sum per value and 11 global atomics per
-//     warp and entry, every warp from the block's largest `last`), is kept
-//     only so that chip_smoke.py can time the two on the same inputs in one
-//     run (through a private argument of rasterize._blend_bwd_kernel); the
-//     package's autograd path never launches it.
+//     layout of the forward (no float4 packing).
 //
 // The library is built with -fmad=false (cuda_build.NVCC_FLAGS), so every
 // product and sum rounds as the plain PyTorch twins' do; the twins differ
@@ -535,11 +530,6 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(BlendArgs args, flo
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // One stage of the warp's multi-value butterfly: a lane holding 2N partial
 // sums keeps the upper half if its bit 2N is set (else the lower), sends
 // the other half to the lane 2N away and adds what that lane sent.
@@ -659,87 +649,6 @@ __global__ void __launch_bounds__(kThreads) blend_bwd_kernel(BlendArgs args, con
   }
 }
 
-// The earlier design of blend_bwd_kernel: 11 tree sums and 11 global
-// atomics per warp and entry, every warp from the block's largest last.
-// Kept only for chip_smoke.py's same-run comparison of the two.
-__global__ void __launch_bounds__(kThreads) blend_bwd_atomic_kernel(BlendArgs args,
-                                                                    const float* __restrict__ T_final,
-                                                                    const int32_t* __restrict__ last_entry,
-                                                                    const float* __restrict__ g_ch,
-                                                                    float* __restrict__ grads) {
-  __shared__ Staged s;
-  __shared__ int block_last;
-  const int tile = blockIdx.x;
-  const int tx = tile % args.tiles_x, ty = tile / args.tiles_x;
-  const int lx = threadIdx.x % kTile, ly = threadIdx.x / kTile;
-  const int x = tx * kTile + lx, y = ty * kTile + ly;
-  const bool inside = x < args.width && y < args.height;
-  const float px = ((float)lx + 0.5f) + (float)(tx * kTile);
-  const float py = ((float)ly + 0.5f) + (float)(ty * kTile);
-  const int start = args.starts[tile];
-  const int64_t pix = (int64_t)y * args.width + x;
-
-  float T = inside ? T_final[pix] : 1.0f;
-  const int last = inside ? last_entry[pix] : 0;
-  float g[5];
-  for (int k = 0; k < 5; ++k) g[k] = inside ? g_ch[5 * pix + k] : 0.0f;
-  float suffix = 0.0f;  // sum over the later blended entries of w * (g . ch)
-
-  if (threadIdx.x == 0) block_last = 0;
-  __syncthreads();
-  const unsigned warp_last = __reduce_max_sync(0xffffffffu, (unsigned)last);
-  if (threadIdx.x % 32 == 0) atomicMax(&block_last, (int)warp_last);
-  __syncthreads();
-  const int end_all = block_last;
-
-  for (int end = end_all; end > 0; end -= kThreads) {
-    const int b0 = max(0, end - kThreads);
-    __syncthreads();  // no thread still reads the previous batch
-    if (b0 + (int)threadIdx.x < end) stage(s, threadIdx.x, args, args.ids[start + b0 + threadIdx.x]);
-    __syncthreads();
-    for (int j = end - b0 - 1; j >= 0; --j) {
-      float d[kGradStride];
-      bool hit = false;
-      if (b0 + j < last) {
-        const float dx = px - s.mx[j], dy = py - s.my[j];
-        const float sigma = gauss_sigma(s, j, dx, dy);
-        if (sigma >= 0.0f) {
-          const float vis = expf(-sigma);
-          const float raw = s.o[j] * vis;
-          const float alpha = fminf(kMaxAlpha, raw);
-          if (alpha > kMinAlpha) {
-            hit = true;
-            const float one_m = 1.0f - alpha;
-            T = T / one_m;  // transmittance in front of this entry
-            float G = 0.0f;
-            for (int k = 0; k < 5; ++k) G += g[k] * s.ch[k][j];
-            const float w = alpha * T;
-            const float d_alpha = T * G - suffix / one_m;
-            suffix += w * G;
-            for (int k = 0; k < 5; ++k) d[5 + k] = w * g[k];
-            const float d_raw = d_alpha * dmin(raw, kMaxAlpha);
-            d[10] = d_raw * vis;
-            const float d_sigma = -d_raw * raw;
-            d[2] = d_sigma * 0.5f * (dx * dx);
-            d[3] = d_sigma * dx * dy;
-            d[4] = d_sigma * 0.5f * (dy * dy);
-            d[0] = -d_sigma * (s.a[j] * dx + s.b[j] * dy);
-            d[1] = -d_sigma * (s.c[j] * dy + s.b[j] * dx);
-          }
-        }
-      }
-      if (!__any_sync(0xffffffffu, hit)) continue;
-      if (!hit)
-        for (int k = 0; k < kGradStride; ++k) d[k] = 0.0f;
-      for (int k = 0; k < kGradStride; ++k) d[k] = warp_sum(d[k]);
-      if (threadIdx.x % 32 == 0) {
-        float* row = grads + (int64_t)kGradStride * s.id[j];
-        for (int k = 0; k < kGradStride; ++k) atomicAdd(row + k, d[k]);
-      }
-    }
-  }
-}
-
 unsigned int grid_for(int64_t work) { return (unsigned int)((work + kThreads - 1) / kThreads); }
 
 Camera make_camera(const float* params, int width, int height, int antialiased) {
@@ -779,21 +688,6 @@ BlendArgs make_blend_args(const void* means2d, const void* conics, const void* o
   a.width = width;
   a.height = height;
   return a;
-}
-
-typedef void (*BlendBwdKernel)(BlendArgs, const float*, const int32_t*, const float*, float*);
-
-int launch_blend_bwd(BlendBwdKernel kernel, const void* means2d, const void* conics, const void* opac,
-                     const void* ch, const void* ids, const void* starts, const void* counts, int tiles_x,
-                     int tiles_y, int width, int height, const void* T_final, const void* last, const void* g_ch,
-                     void* grads, void* stream) {
-  if (tiles_x < 1 || tiles_y < 1 || width < 1 || height < 1 || width > tiles_x * kTile ||
-      height > tiles_y * kTile)
-    return (int)cudaErrorInvalidValue;
-  kernel<<<tiles_x * tiles_y, kThreads, 0, (cudaStream_t)stream>>>(
-      make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height),
-      (const float*)T_final, (const int32_t*)last, (const float*)g_ch, (float*)grads);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -888,18 +782,13 @@ int nst_gsplat_blend_bwd(const void* means2d, const void* conics, const void* op
                          const void* ids, const void* starts, const void* counts, int tiles_x, int tiles_y,
                          int width, int height, const void* T_final, const void* last, const void* g_ch,
                          void* grads, void* stream) {
-  return launch_blend_bwd(blend_bwd_kernel, means2d, conics, opac, ch, ids, starts, counts, tiles_x, tiles_y,
-                          width, height, T_final, last, g_ch, grads, stream);
-}
-
-// The same through blend_bwd_atomic_kernel, the earlier design (same
-// arguments, same result up to summation order).
-int nst_gsplat_blend_bwd_atomic(const void* means2d, const void* conics, const void* opac, const void* ch,
-                                const void* ids, const void* starts, const void* counts, int tiles_x,
-                                int tiles_y, int width, int height, const void* T_final, const void* last,
-                                const void* g_ch, void* grads, void* stream) {
-  return launch_blend_bwd(blend_bwd_atomic_kernel, means2d, conics, opac, ch, ids, starts, counts, tiles_x,
-                          tiles_y, width, height, T_final, last, g_ch, grads, stream);
+  if (tiles_x < 1 || tiles_y < 1 || width < 1 || height < 1 || width > tiles_x * kTile ||
+      height > tiles_y * kTile)
+    return (int)cudaErrorInvalidValue;
+  blend_bwd_kernel<<<tiles_x * tiles_y, kThreads, 0, (cudaStream_t)stream>>>(
+      make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height),
+      (const float*)T_final, (const int32_t*)last, (const float*)g_ch, (float*)grads);
+  return (int)cudaGetLastError();
 }
 
 const char* nst_gsplat_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -25,15 +25,56 @@
 // bpr = 16 / F blocks share one 128-lane row and corner is the vertex's
 // parity bits (px<<2 | py<<1 | pz).
 //
+// Block b of a level is the 8F floats at level_table + b*8F: rows of 128
+// lanes hold bpr whole blocks each, so the row/slot split is the block's
+// offset divided by 128 and needs no arithmetic of its own. A block is
+// 32F bytes, 32F-byte aligned (the level stride is a multiple of 512
+// bytes): one 128-byte line at F=4, half of one at F=2.
+//
 // What bounds it: random gathers. One (sample, level) reads at most eight
 // F-float groups; at F=4 a K3 stencil touches at most eight 128-byte lines
 // (one per corner block) and a K1 stencil exactly one 8F-float block. The
-// arithmetic is a few dozen flops per gather, so the kernel is bound by the
-// latency and the sector count of its loads, not by flops. The design keeps
-// it simple: one thread per (sample, level), level fastest, so the threads
-// of a warp share the sample's position loads and write one contiguous run
-// of output columns; table reads go through the read-only cache (__ldg).
-// Making the gathers coalesce across samples is work for a later change.
+// arithmetic is a few dozen flops per gather, so the kernels are bound by
+// the latency and the request count of their loads, not by flops.
+//
+// Two designs of the forward:
+//   * block_encode_kernel (the first design, "per-thread"): one thread per
+//     (sample, level), level fastest, 8F scalar 4-byte loads per thread.
+//     Each lane of a warp is another stencil, so one load instruction asks
+//     L1 for up to 32 lines. Kept for F in {1, 8, 16}, which no shipped
+//     config uses, and so that chip_smoke.py can time it beside the second
+//     design; the package's paths take it only for those widths.
+//   * block_stochastic_lanes_kernel (K1) and block_exact_lanes_kernel (K3),
+//     the "lane groups" design, for F in {2, 4}. Each lane first computes
+//     one stencil's geometry, as the first design does: its cells, K1's
+//     odd-axis coins and block, K3's eight corner blocks (each axis's two
+//     block coordinates and hash products once), and the eight weights. It
+//     writes each corner's table offset and weight to a per-warp table in
+//     shared memory. Then a group of lanes serves one stencil: K1's 2F lanes
+//     read its block as 2F 16-byte vectors (one line at F=4), K3's 8 lanes
+//     one corner each, its F floats as one 8- or 16-byte vector; corners of
+//     one block are neighbouring pieces of one line. A warp's load
+//     instruction covers 32/G stencils in a few lines, instead of 32
+//     stencils in 32 lines, and one instruction loads what took F. Each lane
+//     weights its values, the group sums them with a butterfly that halves
+//     the values each lane holds (log2 F stages) and then adds, and F lanes
+//     store one feature each, so a warp's store covers its stencils'
+//     contiguous outputs. The geometry is computed once per stencil:
+//     recomputed in every lane of a group it costs G times the
+//     instructions (eight times for K3), and the kernel is then bound by
+//     instruction issue, not by its loads. The shared table is
+//     k-major with rows rotated so that neither its writes nor a round's
+//     reads conflict in banks beyond two-way. A shuffle could not hand the
+//     offsets over: it reads one register of the source lane, and each lane
+//     of a group needs another corner's. The index math has no divide: the
+//     hash's mod nblocks and the level split of the stencil index are a
+//     mask and a shift for powers of two, else a multiply-high by a magic
+//     number (hash_grid._u32_divisor), all in 32 bits. Levels run fastest
+//     within the grid, so a warp's stencils are neighbouring levels of a few
+//     samples and their outputs are contiguous. Running the levels along
+//     blockIdx.y instead (a warp's stencils neighbouring samples of one
+//     level) was slower on the H100 at both the check and the render inputs
+//     (PERF.md).
 //
 // Bit-exactness with the reference: the stochastic odd-axis choice hashes
 // the float bits of the cell offset o = clip(x*res - floor(x*res), 0, 1), so
@@ -177,6 +218,246 @@ __global__ void __launch_bounds__(kThreads)
   float* dst = out + i * (int64_t)num_levels * F + (int64_t)l * F;
 #pragma unroll
   for (int f = 0; f < F; ++f) dst[f] = acc[f];
+}
+
+// Unsigned 32-bit division by a runtime divisor d with no divide
+// instruction (hash_grid._u32_divisor): magic 0 marks a power of two,
+// d = 2^shift; otherwise x / d = (t + ((x - t) >> 1)) >> (shift - 1), t =
+// umulhi(x, magic), exact for every uint32 x.
+struct U32Divisor {
+  uint32_t d, magic, shift;
+};
+
+__device__ __forceinline__ uint32_t udiv(uint32_t x, const U32Divisor& v) {
+  if (v.magic == 0) return x >> v.shift;
+  const uint32_t t = __umulhi(x, v.magic);
+  return (t + ((x - t) >> 1)) >> (v.shift - 1);
+}
+
+__device__ __forceinline__ uint32_t umod(uint32_t x, const U32Divisor& v) {
+  return v.magic == 0 ? (x & (v.d - 1)) : x - udiv(x, v) * v.d;
+}
+
+// One halving stage of a group's butterfly: a lane holding N values keeps
+// the upper half if its bit kOff is set (else the lower), sends the other
+// half to the lane kOff away and adds what that lane sent.
+template <int N, int kOff>
+__device__ __forceinline__ void halve_stage(float* a, unsigned lane) {
+  const bool upper = (lane & kOff) != 0;
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const float send = upper ? a[k] : a[N / 2 + k];
+    const float keep = upper ? a[N / 2 + k] : a[k];
+    a[k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, kOff));
+  }
+}
+
+// The sums of a[0..F-1] over each group of G consecutive lanes (F = 2 or
+// 4, F <= G): log2 F halving stages, then adds. Lane r of a group returns
+// the sum of value r / (G / F); 4 shuffles at F=4, G=8 against 12 for F
+// full sums. Every lane of the warp takes part.
+template <int G, int F>
+__device__ __forceinline__ float group_sum_scatter(float (&a)[F], unsigned lane) {
+  static_assert(F == 2 || F == 4, "two or four values per lane");
+  halve_stage<F, G / 2>(a, lane);
+  if constexpr (F == 4) halve_stage<2, G / 4>(a, lane);
+  float s = a[0];
+#pragma unroll
+  for (int off = G / (2 * F); off >= 1; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+  return s;
+}
+
+// Round a float to bf16 (nearest even) and back, two at a time.
+__device__ __forceinline__ void bf16_round2(float& x, float& y) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x, y);
+  x = __low2float(b);
+  y = __high2float(b);
+}
+
+// The arguments of both lane kernels.
+struct LaneArgs {
+  const float* pos;
+  const float* table;
+  float* out;
+  uint32_t n;
+  uint32_t level_stride;  // floats; the whole table holds fewer than 2^32
+  U32Divisor levels;      // d = the level count
+  U32Divisor nblocks;     // d = T / 8
+};
+
+// Stencils of one warp: lane s of warp w owns stencil t = (block, w, s) of
+// the grid, levels fastest: sample t / L, level t % L, output row t. Valid
+// stencils are a prefix of the warp's lanes.
+__device__ __forceinline__ bool stencil_of(const LaneArgs& a, uint32_t t, uint32_t* i, int* l) {
+  *i = udiv(t, a.levels);
+  *l = (int)(t - *i * a.levels.d);
+  return *i < a.n;
+}
+
+// Slot of (group lane k, stencil s) in a warp's shared table: k-major, each
+// row rotated by R*k, so that the lanes of one round (R stencils, G lanes
+// each, R*G = 32) read 32 distinct slots mod 16 twice over, and the 32
+// lanes writing one k write a rotation of one row.
+template <int R>
+__device__ __forceinline__ int slot(int k, int s) {
+  return k * 32 + ((s + R * k) & 31);
+}
+
+// K3, lane groups. Phase 1: lane s computes its stencil's cells, its eight
+// corners' table offsets and trilinear weights (each axis's two block
+// coordinates and hash products once) and writes them to the warp's table.
+// Phase 2: 8 rounds of 4 stencils; lane 8q + c reads corner c of stencil
+// 4r + q as one F-float vector, weights it, and the 8 lanes of the stencil
+// sum with group_sum_scatter.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    block_exact_lanes_kernel(LaneArgs a, LevelGeometry g) {
+  constexpr int G = 8, R = 32 / G;
+  __shared__ uint2 corners[kThreads / 32][8 * 32];  // (offset, weight bits)
+  const unsigned lane = threadIdx.x & 31u;
+  uint2* tab = corners[threadIdx.x >> 5];
+  const uint32_t t0 = blockIdx.x * kThreads + (threadIdx.x & ~31u);
+  uint32_t i;
+  int l;
+  const bool valid = stencil_of(a, t0 + lane, &i, &l);
+  if (valid) {
+    const int res = g.res[l];
+    const uint32_t bs = (uint32_t)g.blocks_per_axis[l];
+    const bool dense = g.dense[l] != 0;
+    uint32_t bc[3][2], par[3][2];
+    float w[3][2];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      int i0;
+      float o;
+      axis_cell(__ldg(a.pos + 3 * (int64_t)i + ax), res, &i0, &o);
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        bc[ax][d] = (uint32_t)(i0 + d) >> 1;
+        par[ax][d] = (uint32_t)(i0 + d) & 1u;
+      }
+      w[ax][0] = __fsub_rn(1.0f, o);
+      w[ax][1] = o;
+    }
+    if (!dense) {  // the hash's per-axis products
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        bc[1][d] *= 2654435761u;
+        bc[2][d] *= 805459861u;
+      }
+    }
+    const uint32_t base = (uint32_t)l * a.level_stride;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
+      const uint32_t blk = dense ? (bc[0][dx] * bs + bc[1][dy]) * bs + bc[2][dz]
+                                 : umod(bc[0][dx] ^ bc[1][dy] ^ bc[2][dz], a.nblocks);
+      const uint32_t parity = (par[0][dx] << 2) | (par[1][dy] << 1) | par[2][dz];
+      const float wc = __fmul_rn(__fmul_rn(w[0][dx], w[1][dy]), w[2][dz]);
+      tab[slot<R>(c, lane)] = make_uint2(base + blk * (8 * F) + parity * F, __float_as_uint(wc));
+    }
+  }
+  const int count = __popc(__ballot_sync(0xffffffffu, valid));
+  __syncwarp();
+  const int c = lane & (G - 1), q = lane / G;
+#pragma unroll 2
+  for (int r = 0; r < 32 / R; ++r) {
+    if (R * r >= count) break;  // the same for the whole warp
+    const int s = R * r + q;
+    const bool live = s < count;
+    const uint2 e = tab[slot<R>(c, live ? s : 0)];
+    const float wc = __uint_as_float(e.y);
+    const float* src = a.table + (live ? e.x : 0u);
+    float acc[F];
+    if constexpr (F == 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+      acc[0] = v.x, acc[1] = v.y, acc[2] = v.z, acc[3] = v.w;
+      bf16_round2(acc[2], acc[3]);
+    } else {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(src));
+      acc[0] = v.x, acc[1] = v.y;
+    }
+    bf16_round2(acc[0], acc[1]);
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = __fmul_rn(wc, acc[f]);
+    const float sum = group_sum_scatter<G, F>(acc, lane);
+    if (live && (c & (G / F - 1)) == 0) a.out[(int64_t)(t0 + s) * F + c / (G / F)] = sum;
+  }
+}
+
+// K1, lane groups. Phase 1: lane s computes its stencil's cells, odd-axis
+// coins, block offset and eight corner weights and writes them to the
+// warp's table. Phase 2: 2F rounds of 32/(2F) stencils; lane 2Fq + k reads
+// the k-th 16-byte vector of stencil R*r + q's block (its corners
+// 4k/F .. 4k/F + 4/F - 1), weights it, and the 2F lanes sum.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    block_stochastic_lanes_kernel(LaneArgs a, LevelGeometry g) {
+  constexpr int G = 2 * F, R = 32 / G, kCorners = 4 / F;
+  __shared__ uint32_t offsets[kThreads / 32][32];
+  __shared__ float weights[kThreads / 32][G * 32 * kCorners];
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t t0 = blockIdx.x * kThreads + (threadIdx.x & ~31u);
+  uint32_t i;
+  int l;
+  const bool valid = stencil_of(a, t0 + lane, &i, &l);
+  if (valid) {
+    const int res = g.res[l];
+    uint32_t bc[3];
+    float w01[3][2];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      int i0;
+      float o;
+      axis_cell(__ldg(a.pos + 3 * (int64_t)i + ax), res, &i0, &o);
+      const bool odd = (i0 & 1) == 1;
+      const bool up = u01_hash(o, kCoinPrimes[ax][0], kCoinPrimes[ax][1]) < o;
+      bc[ax] = (uint32_t)(i0 + ((odd && up) ? 1 : 0)) >> 1;
+      const float upf = up ? 1.0f : 0.0f;
+      w01[ax][0] = odd ? upf : __fsub_rn(1.0f, o);
+      w01[ax][1] = odd ? __fsub_rn(1.0f, upf) : o;
+    }
+    const uint32_t blk = g.dense[l] ? (bc[0] * (uint32_t)g.blocks_per_axis[l] + bc[1]) *
+                                              (uint32_t)g.blocks_per_axis[l] + bc[2]
+                                        : umod(bc[0] ^ (bc[1] * 2654435761u) ^ (bc[2] * 805459861u), a.nblocks);
+    offsets[warp][lane] = (uint32_t)l * a.level_stride + blk * (8 * F);
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+#pragma unroll
+      for (int m = 0; m < kCorners; ++m) {
+        const int c = k * kCorners + m;
+        weights[warp][slot<R>(k, lane) * kCorners + m] =
+            __fmul_rn(__fmul_rn(w01[0][(c >> 2) & 1], w01[1][(c >> 1) & 1]), w01[2][c & 1]);
+      }
+    }
+  }
+  const int count = __popc(__ballot_sync(0xffffffffu, valid));
+  __syncwarp();
+  const int k = lane & (G - 1), q = lane / G;
+#pragma unroll 2
+  for (int r = 0; r < 32 / R; ++r) {
+    if (R * r >= count) break;  // the same for the whole warp
+    const int s = R * r + q;
+    const bool live = s < count;
+    const int sl = slot<R>(k, live ? s : 0) * kCorners;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(a.table + (live ? offsets[warp][s] : 0u)) + k);
+    float vals[4] = {v.x, v.y, v.z, v.w};
+    bf16_round2(vals[0], vals[1]);
+    bf16_round2(vals[2], vals[3]);
+    float acc[F];
+#pragma unroll
+    for (int m = 0; m < kCorners; ++m) {
+      const float wc = weights[warp][sl + m];
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float term = __fmul_rn(wc, vals[m * F + f]);
+        acc[f] = m == 0 ? term : __fadd_rn(acc[f], term);
+      }
+    }
+    const float sum = group_sum_scatter<G, F>(acc, lane);
+    if (live && (k & (G / F - 1)) == 0) a.out[(int64_t)(t0 + s) * F + k / (G / F)] = sum;
+  }
 }
 
 // K1 backward. One thread per sample walks the levels in order, recomputing
@@ -496,6 +777,18 @@ cudaError_t launch(int features_per_level, const float* pos, const float* table,
   return cudaGetLastError();
 }
 
+// The lane-group kernel of K1 or K3 at F: one thread per stencil, levels
+// fastest over the grid.
+template <int F>
+void launch_lanes(bool exact, const LaneArgs& a, cudaStream_t stream, const LevelGeometry& g) {
+  const uint64_t stencils = (uint64_t)a.n * a.levels.d;
+  const unsigned int grid = (unsigned int)((stencils + kThreads - 1) / kThreads);
+  if (exact)
+    block_exact_lanes_kernel<F><<<grid, kThreads, 0, stream>>>(a, g);
+  else
+    block_stochastic_lanes_kernel<F><<<grid, kThreads, 0, stream>>>(a, g);
+}
+
 // Validate the shared arguments and fill the per-level geometry.
 cudaError_t make_geometry(long long n, int num_levels, long long rows_per_level,
                           long long hash_table_size, const int* resolutions,
@@ -537,11 +830,16 @@ extern "C" {
 // pos (n, 3) f32, table (num_levels, rows_per_level, 128) f32 and out
 // (n, num_levels * features_per_level) f32 are contiguous device pointers;
 // resolutions is a host array of num_levels ints. exact = 1 selects K3,
-// 0 selects K1. Returns a cudaError_t (0 on success).
+// 0 selects K1. design 0 takes block_encode_kernel (one thread per
+// (sample, level)); 1 the lane groups. The lane groups take F = 2 or 4, a
+// 16-byte aligned table of fewer than 2^32 floats, n * num_levels < 2^31,
+// and the divisors (magic, shift) of the level count and of T/8 from
+// hash_grid._u32_divisor. Returns a cudaError_t (0 on success).
 int nst_hash_encode_block(const void* pos, const void* table, void* out,
                           long long n, int num_levels, int features_per_level,
                           long long rows_per_level, long long hash_table_size,
-                          const int* resolutions, int exact, void* stream) {
+                          const int* resolutions, int exact, int design, unsigned level_magic,
+                          unsigned level_shift, unsigned block_magic, unsigned block_shift, void* stream) {
   LevelGeometry g;
   const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
   if (bad != cudaSuccess) return (int)bad;
@@ -551,10 +849,29 @@ int nst_hash_encode_block(const void* pos, const void* table, void* out,
   const float* p = (const float*)pos;
   const float* tab = (const float*)table;
   float* o = (float*)out;
-  const cudaError_t err =
-      exact ? launch<true>(features_per_level, p, tab, o, n, rows_per_level, nblocks, g, s)
-            : launch<false>(features_per_level, p, tab, o, n, rows_per_level, nblocks, g, s);
-  return (int)err;
+  if (design == 0) {
+    const cudaError_t err =
+        exact ? launch<true>(features_per_level, p, tab, o, n, rows_per_level, nblocks, g, s)
+              : launch<false>(features_per_level, p, tab, o, n, rows_per_level, nblocks, g, s);
+    return (int)err;
+  }
+  if (design != 1 || (features_per_level != 2 && features_per_level != 4) ||
+      (uint64_t)n * (uint64_t)num_levels >= (1ull << 31) ||
+      (uint64_t)num_levels * (uint64_t)rows_per_level * kLanes >= (1ull << 32) || (uintptr_t)table % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  LaneArgs a;
+  a.pos = p;
+  a.table = tab;
+  a.out = o;
+  a.n = (uint32_t)n;
+  a.level_stride = (uint32_t)(rows_per_level * kLanes);
+  a.levels = {(uint32_t)num_levels, level_magic, level_shift};
+  a.nblocks = {nblocks, block_magic, block_shift};
+  if (features_per_level == 2)
+    launch_lanes<2>(exact, a, s, g);
+  else
+    launch_lanes<4>(exact, a, s, g);
+  return (int)cudaGetLastError();
 }
 
 // K1 backward. pos (n, 3), table (num_levels, rows_per_level, 128) and grad

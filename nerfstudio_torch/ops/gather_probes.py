@@ -28,7 +28,8 @@ the table.
 
 CUDA tensors launch the kernels of ``csrc/gather_probes.cu``
 (``row_gather_kernel``, ``lane_gather_smem_kernel`` or, for a table whose
-one column does not fit in shared memory, ``lane_gather_kernel``,
+columns do not fit in shared memory a sector's width at a time,
+``lane_gather_kernel``,
 ``gather_select_kernel``) or raise; CPU tensors run the plain twins below.
 The module constants are the probes' own shapes."""
 
@@ -50,6 +51,8 @@ F4_TABLE_ROWS, F4_ROWS = (2**19) // 128, 4_000_000 // 128
 _LANES = 128
 # Shared memory one block may take on Hopper (227 KB, opted into above 48 KB).
 _SMEM_BUDGET = 232448
+# One sector of a global-memory access: the unit of the L2's reads and writes.
+_SECTOR_BYTES = 32
 
 # Launches of each probe's kernel, counted where it is launched;
 # "lane_gather_smem" counts the run_case and f4 launches that took the
@@ -102,15 +105,24 @@ def _gather_select_twin(table: torch.Tensor, rows: torch.Tensor, slots: torch.Te
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _lane_plan(table_rows: int, elem_bytes: int) -> int:
-    """Lanes per block of the shared-memory lane gather: the largest power
-    of two dividing 128 whose table columns (``table_rows * elem_bytes``
-    bytes each) fit in one block's shared memory, or 0 (one thread per
-    element, the table read through L2) when not even one column fits."""
+def _columns_that_fit(table_rows: int, elem_bytes: int) -> int:
+    """The largest power of two dividing 128 whose table columns
+    (``table_rows * elem_bytes`` bytes each) fit in one block's shared
+    memory, or 0 when not even one column fits."""
     lanes = _LANES
     while lanes and lanes * table_rows * elem_bytes > _SMEM_BUDGET:
         lanes //= 2
     return lanes
+
+
+def _lane_plan(table_rows: int, elem_bytes: int) -> int:
+    """Lanes per block of the shared-memory lane gather: ``_columns_that_fit``
+    where a block's piece of an output row (``lanes * elem_bytes``) fills at
+    least one 32-byte sector, else 0 (one thread per element, the table read
+    through L2). Below a sector, several SMs write each output sector in
+    pieces, which costs more than the shared-memory columns save."""
+    lanes = _columns_that_fit(table_rows, elem_bytes)
+    return lanes if lanes * elem_bytes >= _SECTOR_BYTES else 0
 
 
 def _divisor_magic(s: int) -> Tuple[int, int]:

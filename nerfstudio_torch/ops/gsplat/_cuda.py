@@ -12,16 +12,13 @@ from typing import Dict, Optional
 import torch
 
 # Launches of each hand-written kernel entry (K5 counts one binning: its
-# emission and range kernels, launched around one sort;
-# "blend_saturating_bwd_atomic" the earlier K6 backward, which only a
-# same-run comparison launches).
+# emission and range kernels, launched around one sort).
 launch_counts: Dict[str, int] = {
     "project_gaussians": 0,
     "project_gaussians_bwd": 0,
     "tile_bin": 0,
     "blend_saturating": 0,
     "blend_saturating_bwd": 0,
-    "blend_saturating_bwd_atomic": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -47,7 +44,6 @@ def kernel_library() -> ctypes.CDLL:
             "nst_gsplat_tile_ranges": [p, ll, i, i, i, i, p, p, p, p],
             "nst_gsplat_blend_fwd": [p] * 7 + [i] * 4 + [p] * 3 + [p],
             "nst_gsplat_blend_bwd": [p] * 7 + [i] * 4 + [p] * 4 + [p],
-            "nst_gsplat_blend_bwd_atomic": [p] * 7 + [i] * 4 + [p] * 4 + [p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

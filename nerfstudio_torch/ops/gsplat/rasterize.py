@@ -310,17 +310,13 @@ def _blend_kernel(means2d, conics, ch, opac, bins: TileBins, width: int, height:
     return out, T, last
 
 
-def _blend_bwd_kernel(means2d, conics, ch, opac, bins: TileBins, T, last, g_ch, _atomic: bool = False):
-    """Launch K6 backward: (d means2d, d conics, d ch, d opac). ``_atomic``
-    launches the earlier design (per-warp global atomics) instead, for a
-    same-run timing of the two; the autograd path never sets it."""
+def _blend_bwd_kernel(means2d, conics, ch, opac, bins: TileBins, T, last, g_ch):
+    """Launch K6 backward: (d means2d, d conics, d ch, d opac)."""
     g_ch = g_ch.contiguous()
     _cuda.check_cuda("blend_saturating backward", means2d, conics, ch, opac, T, last, g_ch)
     height, width = T.shape
     grads = means2d.new_zeros((means2d.shape[0], 11))
-    name, fn = ("blend_saturating_bwd_atomic", "nst_gsplat_blend_bwd_atomic") if _atomic else \
-        ("blend_saturating_bwd", "nst_gsplat_blend_bwd")
-    _cuda.launch(name, fn, means2d.device, means2d.data_ptr(),
+    _cuda.launch("blend_saturating_bwd", "nst_gsplat_blend_bwd", means2d.device, means2d.data_ptr(),
                  conics.data_ptr(), opac.data_ptr(), ch.data_ptr(), bins.ids.data_ptr(), bins.starts.data_ptr(),
                  bins.counts.data_ptr(), bins.tiles_x, bins.tiles_y, width, height, T.data_ptr(),
                  last.data_ptr(), g_ch.data_ptr(), grads.data_ptr())

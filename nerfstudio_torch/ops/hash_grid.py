@@ -24,6 +24,11 @@ hand-written kernels in ``csrc/hash_grid.cu`` (or the call raises), CPU
 tensors go to the plain PyTorch twins in this module. The one-corner and
 z-pair paths are not ported.
 
+K1's forward and K3 have two designs on the card (``BLOCK_DESIGNS``): a
+group of lanes per (sample, level) with 16-byte loads, which F = 2 and 4
+take, and the first design, one thread per (sample, level), which the
+other widths take. ``chip_smoke.py`` times both.
+
 Integer hashing runs on int64 with the uint32 wrap made explicit
 (``_mul32``), so the twin reproduces the reference's uint32 arithmetic
 bit for bit.
@@ -32,6 +37,7 @@ bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,7 +63,20 @@ launch_counts: Dict[str, int] = {
     "hash_encode_block_bwd": 0,
     "hash_encode_flat": 0,
     "hash_encode_flat_bwd": 0,
+    # K1 or K3 launches (counted above too) that took the per-thread design
+    "hash_encode_block_per_thread": 0,
 }
+
+# Designs of the block-layout forward (K1, K3): nst_hash_encode_block's
+# design codes. "per-thread": one thread per (sample, level); "lane-groups":
+# a group of lanes per (sample, level), levels fastest over the grid.
+BLOCK_DESIGNS = {"per-thread": 0, "lane-groups": 1}
+# The widths the lane groups take, and the design K1 and K3 take there: the
+# faster for both kernels at a 512^2 render chunk's inputs on the H100
+# (chip_smoke.py times both designs; PERF.md records the times).
+# Other widths take the per-thread kernel.
+_LANE_WIDTHS = (2, 4)
+_BLOCK_DEFAULT = "lane-groups"
 
 
 def reset_launch_counts() -> None:
@@ -284,6 +303,36 @@ def _block_exact_twin(
 _LIB: Optional[ctypes.CDLL] = None
 
 
+@functools.lru_cache(maxsize=None)
+def _u32_divisor(d: int) -> Tuple[int, int]:
+    """(magic, shift) with which the lane kernels divide a uint32 ``x`` by
+    ``d`` without a divide instruction. A power of two d = 2^shift gives
+    magic 0: ``x >> shift`` and ``x & (d - 1)``. Otherwise shift =
+    ceil(log2 d), magic = floor(2^32 (2^shift - d) / d) + 1 < 2^32 (the
+    round-up multiplier 2^32 + magic, one bit too wide for 32), and
+    ``x // d == (t + ((x - t) >> 1)) >> (shift - 1)`` with ``t = (x * magic)
+    >> 32`` for every x < 2^32. The hash is a full uint32, so the 31-bit
+    magic of ``gather_probes._divisor_magic`` does not cover it."""
+    if not 1 <= d < 2**32:
+        raise ValueError(f"divisor {d} outside [1, 2^32)")
+    shift = (d - 1).bit_length()
+    if d & (d - 1) == 0:
+        return 0, shift
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def _block_design(features: int, design: Optional[str] = None) -> str:
+    """The design of K1 or K3 at ``features`` per level: ``design``,
+    checked, or the default."""
+    if design is None:
+        return _BLOCK_DEFAULT if features in _LANE_WIDTHS else "per-thread"
+    if design not in BLOCK_DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {list(BLOCK_DESIGNS)}")
+    if design != "per-thread" and features not in _LANE_WIDTHS:
+        raise ValueError(f"the {design} design takes F in {_LANE_WIDTHS}, got F={features}")
+    return design
+
+
 def _kernel_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
@@ -292,7 +341,9 @@ def _kernel_library() -> ctypes.CDLL:
         lib = cuda_build.load("hash_grid")
         geometry = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                     ctypes.POINTER(ctypes.c_int)]
-        lib.nst_hash_encode_block.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_int, ctypes.c_void_p]
+        lib.nst_hash_encode_block.argtypes = (
+            [ctypes.c_void_p] * 3 + geometry + [ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 4 + [ctypes.c_void_p]
+        )
         lib.nst_hash_encode_block.restype = ctypes.c_int
         lib.nst_hash_encode_block_bwd.argtypes = (
             [ctypes.c_void_p] * 5 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
@@ -328,19 +379,32 @@ def _geometry_args(table: torch.Tensor, n: int, min_res: int, max_res: int, hash
 
 def _block_kernel(
     pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int,
-    hash_table_size: int, exact: bool,
+    hash_table_size: int, exact: bool, _design: Optional[str] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA forward kernel (K3 if ``exact`` else K1)."""
+    """Launch the CUDA forward kernel (K3 if ``exact`` else K1) in its
+    default design, or in ``_design`` (one of ``BLOCK_DESIGNS``), which
+    only chip_smoke.py's comparison of the designs sets."""
     L, S, _ = table.shape
     n = pos.shape[0]
-    out = torch.empty((n, L * (128 * S // hash_table_size)), dtype=torch.float32, device=pos.device)
+    F = 128 * S // hash_table_size
+    design = _block_design(F, _design)
+    out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
     if n == 0:
         return out
+    if design != "per-thread":
+        if table.data_ptr() % 16:
+            raise ValueError("the lane-group kernels take a 16-byte aligned table")
+        if n * L >= 2**31 or table.numel() >= 2**32:
+            raise ValueError(f"the lane-group kernels take n * num_levels < 2^31 and a table of fewer than 2^32 "
+                             f"floats, got {n} * {L} and {table.numel()}")
     _launch(
         "hash_encode_block_exact" if exact else "hash_encode_block", "nst_hash_encode_block", pos,
         pos.data_ptr(), table.data_ptr(), out.data_ptr(),
-        *_geometry_args(table, n, min_res, max_res, hash_table_size), int(exact),
+        *_geometry_args(table, n, min_res, max_res, hash_table_size), int(exact), BLOCK_DESIGNS[design],
+        *_u32_divisor(L), *_u32_divisor(hash_table_size // 8),
     )
+    if design == "per-thread":
+        launch_counts["hash_encode_block_per_thread"] += 1
     return out
 
 
@@ -589,6 +653,11 @@ def hash_encode(
     column order l*F + f. ``block_exact`` takes K3, ``block`` alone takes K1,
     neither takes the flat layout (K7). CUDA tensors launch the kernels, CPU
     tensors run the twins.
+
+    On the card, K1's forward and K3 at F = 2 or 4 (every shipped config)
+    take the lane-group kernels, which index in 32 bits: they take fewer
+    than 2^31 (sample, level) pairs, a table of fewer than 2^32 floats,
+    16-byte aligned, and raise ValueError otherwise.
 
     ``bwd_levels`` (K1 only): the levels whose table gets a gradient, scaled
     by ``bwd_scale``; the other levels get none. None gives every level an

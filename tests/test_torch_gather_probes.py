@@ -164,24 +164,27 @@ def test_f4_wraps_every_int32(s):
     np.testing.assert_array_equal(gp.f4(to_torch(tab), to_torch(rows)).numpy(), want)
 
 
-@pytest.mark.parametrize("table_rows,dtype,lanes", [
-    (gp.F4_TABLE_ROWS, torch.float32, 8),     # f4: 8 columns of 16 KB
-    (gp.RUN_CASE_TABLES[0], torch.float32, 2),  # run_case, 16384 rows: 2 of 64 KB
+@pytest.mark.parametrize("table_rows,dtype,fit", [
+    (gp.F4_TABLE_ROWS, torch.float32, 8),     # f4: 8 columns of 16 KB, 32 B of a row
+    (gp.RUN_CASE_TABLES[0], torch.float32, 2),  # run_case, 16384 rows: 2 of 64 KB, 8 B
     (gp.RUN_CASE_TABLES[1], torch.float32, 64),  # run_case, 512 rows: 64 of 2 KB
     (gp.F4_TABLE_ROWS, torch.bfloat16, 16),
     (gp.RUN_CASE_TABLES[0], torch.bfloat16, 4),
     (gp.RUN_CASE_TABLES[1], torch.bfloat16, 128),  # the whole table
     (58_112, torch.float32, 1),   # one column of 227 KB exactly
-    (58_113, torch.float32, 0),   # one column too many: the per-element path
+    (58_113, torch.float32, 0),   # one column too many
     (116_225, torch.bfloat16, 0),
 ])
-def test_lane_plan(table_rows, dtype, lanes):
-    """The lanes each block of the shared-memory lane gather holds: a power
-    of two dividing 128 whose columns fit a block's 227 KB, the largest such
-    (or all 128), and 0 exactly where one column does not fit."""
+def test_lane_plan(table_rows, dtype, fit):
+    """The columns a block of the shared-memory lane gather can hold: a
+    power of two dividing 128 whose columns fit a block's 227 KB, the
+    largest such (or all 128), 0 exactly where one column does not fit. The
+    plan takes them where they fill a 32-byte sector of an output row (f4,
+    and run_case's 512-row table), and 0 (the per-element kernel) below
+    that (run_case's 16384-row table)."""
     elem = torch.empty((), dtype=dtype).element_size()
-    got = gp._lane_plan(table_rows, elem)
-    assert got == lanes
+    got = gp._columns_that_fit(table_rows, elem)
+    assert got == fit
     column = table_rows * elem
     if got:
         assert 128 % got == 0 and got & (got - 1) == 0
@@ -189,6 +192,12 @@ def test_lane_plan(table_rows, dtype, lanes):
         assert got == 128 or 2 * got * column > gp._SMEM_BUDGET
     else:
         assert column > gp._SMEM_BUDGET
+    plan = gp._lane_plan(table_rows, elem)
+    assert plan == (fit if fit * elem >= 32 else 0)
+    if (table_rows, dtype) == (gp.RUN_CASE_TABLES[0], torch.float32):
+        assert plan == 0
+    if (table_rows, dtype) in ((gp.F4_TABLE_ROWS, torch.float32), (gp.RUN_CASE_TABLES[1], torch.float32)):
+        assert plan > 0
 
 
 @pytest.mark.parametrize("s", [1, 2, 3, 7, 96, 512, gp.F4_TABLE_ROWS, 4097, 16384, 58_113, 2**30 - 1, 2**30,
@@ -225,7 +234,7 @@ def test_divisor_magic_gives_pythons_modulo(s):
     (70_000, torch.float32, False),  # no column fits: the per-element path only
 ])
 def test_lane_gather_kernels_match_the_twin_on_the_card(cuda_device, table_rows, dtype, modulo):
-    """Both lane-gather kernels (shared-memory columns at the planned lanes
+    """Both lane-gather kernels (shared-memory columns at the lanes that fit
     and at fewer, one thread per element) equal the twin exactly on the
     card, on a row count that leaves a ragged last tile and rows over the
     whole int32 range (clamped, or taken mod the table's rows)."""
@@ -237,8 +246,8 @@ def test_lane_gather_kernels_match_the_twin_on_the_card(cuda_device, table_rows,
         rows[100:] = torch.remainder(rows[100:], table_rows)  # mostly in the table, some clamped
     want = gp._lane_gather_twin(tab.cpu(), rows.cpu(), modulo) if modulo else torch.gather(
         tab.cpu(), 0, rows.cpu().long().clamp(0, table_rows - 1))
-    plan = gp._lane_plan(table_rows, tab.element_size())
-    for lanes in sorted({plan, plan // 2, 0}):
+    fit = gp._columns_that_fit(table_rows, tab.element_size())
+    for lanes in sorted({fit, fit // 2, 0}):
         got = gp._lane_gather("f4" if modulo else "run_case", tab, rows, modulo, lanes=lanes)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), lanes

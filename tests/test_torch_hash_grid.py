@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import NO_HASH_LAUNCHES
+from _torch_port import NO_HASH_LAUNCHES, cuda_device  # noqa: F401  (cuda_device: a fixture)
 from nerfstudio_tpu.ops import hash_grid as jhg
 from nerfstudio_torch.ops import hash_grid as thg
 
@@ -142,3 +142,78 @@ def test_wrapper_rejects_bad_inputs():
         thg.hash_encode(pos.to("meta"), table.to("meta"), block=True, **kw)
     with pytest.raises(NotImplementedError):
         thg.hash_encode(pos, table.requires_grad_(), block_exact=True, **kw)  # K3 is forward only
+
+
+# The shipped divisors (levels L5 and L8; T/8 at T = 2^17 and 2^19, and at
+# this file's Ts) and others that take the multiply: small odd ones, T/8 of
+# non-power-of-two tables, and the uint32 extremes.
+U32_DIVISORS = [1, 2, 5, 8, 2**14, 2**16, 128, 256, 512, 3, 6, 7, 384, 8193, 65_537, 2**31 - 1, 2**31,
+                2**31 + 1, 2**32 - 1]
+
+
+@pytest.mark.parametrize("d", U32_DIVISORS)
+def test_u32_divisor_divides_every_uint32(d):
+    """The lane kernels' 32-bit divide, step for step in numpy: a mask and
+    a shift for a power of two, else t = umulhi(x, magic), q = (t + ((x -
+    t) >> 1)) >> (shift - 1); equal to x // d and x % d at 0, 1, 2^31 - 1,
+    2^31, 2^32 - 1, the multiples of d and their neighbours, and random
+    uint32 values (the hash of a block coordinate spans all of them)."""
+    magic, shift = thg._u32_divisor(d)
+    assert 0 <= magic < 2**32 and 0 <= shift <= 32
+    assert (magic == 0) == (d & (d - 1) == 0)
+    rng = np.random.default_rng(d % 2**32)
+    mult = np.arange(0, 2**32 // d + 1, max(1, 2**32 // d // 500), dtype=np.uint64) * np.uint64(d)
+    x = np.concatenate([np.asarray([0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1], np.uint64),
+                        mult, mult + np.uint64(1), mult[1:] - np.uint64(1),
+                        rng.integers(0, 2**32, 20_000, dtype=np.uint64)])
+    x = x[x < 2**32]
+    if magic == 0:
+        q, r = x >> np.uint64(shift), x & np.uint64(d - 1)
+    else:
+        t = (x * np.uint64(magic)) >> np.uint64(32)
+        q = (t + ((x - t) >> np.uint64(1))) >> np.uint64(shift - 1)
+        r = x - q * np.uint64(d)
+    np.testing.assert_array_equal(q, x // np.uint64(d))
+    np.testing.assert_array_equal(r, x % np.uint64(d))
+
+
+def test_block_design_defaults_and_checks():
+    """F = 2 and 4 (every shipped config) take the lane-group design by
+    default, the other widths the per-thread kernel; a lane design at
+    another width, or an unknown name, raises."""
+    for f in (2, 4):
+        assert thg._block_design(f) == thg._BLOCK_DEFAULT != "per-thread"
+    for f in (1, 8, 16):
+        assert thg._block_design(f) == "per-thread"
+    for d in thg.BLOCK_DESIGNS:
+        assert thg._block_design(4, d) == d
+    with pytest.raises(ValueError):
+        thg._block_design(8, "lane-groups")
+    with pytest.raises(ValueError):
+        thg._block_design(4, "no such design")
+
+
+# (L, T, F, min_res, max_res) of the card test: both lane widths, dense and
+# hashed levels, level counts and T/8 that are powers of two and not.
+CARD_CASES = [(4, 2**12, 2, 4, 64), (5, 3 * 2**10, 4, 4, 64), (8, 2**13, 4, 16, 512), (5, 3 * 2**11, 2, 7, 28)]
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["K1_block", "K3_block_exact"])
+@pytest.mark.parametrize("L,T,F,min_res,max_res", CARD_CASES)
+def test_block_encode_kernels_match_the_twin_on_the_card(cuda_device, L, T, F, min_res, max_res, exact):
+    """Every design of K1's forward and K3 against the twin on the card,
+    within 1e-5 abs and no sample off by 1e-3 (the same geometry bits; only
+    the order of the 8-term sum differs), on a sample count that leaves a
+    ragged last block of threads."""
+    pos = torch.from_numpy(_positions(3001, 7)).to(cuda_device)
+    table = torch.from_numpy(_table(L, T, F, 8)).to(cuda_device)
+    kw = dict(min_res=min_res, max_res=max_res, hash_table_size=T)
+    twin = thg._block_exact_twin if exact else thg._block_stochastic_twin
+    want = twin(pos, table, **kw)
+    for design in thg.BLOCK_DESIGNS:
+        got = thg._block_kernel(pos, table, exact=exact, _design=design, **kw)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        assert torch.isfinite(got).all(), design
+        assert float(diff.max()) <= 1e-5, design
+        assert int((diff.amax(dim=-1) > 1e-3).sum()) == 0, design
