@@ -41,7 +41,15 @@ shapes its path gives it, and drives the port's paths from random weights:
   fit and at fewer, and one thread per element) at every variant of the
   probes and at f4 with indices over the whole int32 range; K1's forward
   and K3 (lane groups, one thread per stencil) at the check inputs and at
-  the captured inputs of a render chunk.
+  the captured inputs of a render chunk;
+* K1's and K7's backward in both designs (phase 31): one thread per sample,
+  and lane groups with vector reductions (K7's, asked for the table
+  gradient alone as a neus-facto step asks, with the dense coarse levels
+  privatised in shared memory), each against the float64 twin and timed in
+  turns beside the "scatter alone" yardstick (``index_add_`` of the same
+  (entry, value) pairs), at the check inputs of phases 5, 6 and 21 and at
+  the inputs captured from one steady nerfacto step and from both K7
+  backward calls of one steady neus-facto step.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -109,14 +117,15 @@ def bound(bytes_moved: float, operations: float):
 # float32 operations per (sample, level) of the hash-grid kernels, counted
 # from their sources: three axes (scale, floor, offset, clip, and the
 # odd-axis coin where there is one) ~24, eight corner weights 16, and F
-# multiply-adds per corner; the backward adds F more per corner for the
-# table gradient, F for the weights' gradient and 72 for the positions'.
+# multiply-adds per corner; the backward has the geometry, F per corner for
+# the table gradient and, where the positions' gradient is asked, F more for
+# the weights' gradient and 72 for the positions'.
 def hash_fwd_ops(n, levels, f):
     return n * levels * (24 + 16 + 16 * f)
 
 
-def hash_bwd_ops(n, levels, f):
-    return n * levels * (24 + 16 + 32 * f + 72)
+def hash_bwd_ops(n, levels, f, need_positions=True):
+    return n * levels * (24 + 16 + 16 * f + (16 * f + 72 if need_positions else 0))
 
 
 # Card vs CPU twins, rgb and accumulation mean abs: the MLPs run in bf16 on
@@ -228,7 +237,7 @@ def check_block_designs(name, exact, pos, table, kw, what):
     errs, parts, bad = {}, [], []
     with torch.no_grad():
         ref = twin(pos, table, **kw)
-        for design in hg.BLOCK_DESIGNS:
+        for design in hg.DESIGNS:
             out = hg._block_kernel(pos, table, exact=exact, _design=design, **kw)
             torch.cuda.synchronize()
             diff = (out - ref).abs()
@@ -241,7 +250,7 @@ def check_block_designs(name, exact, pos, table, kw, what):
     log(name, what + f" (limit {KERNEL_MAX_ABS}); " + "; ".join(parts))
     if bad:
         raise AssertionError(f"{name}: the {bad} kernels disagree with their twin")
-    timing = {d: (lambda d=d: hg._block_kernel(pos, table, exact=exact, _design=d, **kw)) for d in hg.BLOCK_DESIGNS}
+    timing = {d: (lambda d=d: hg._block_kernel(pos, table, exact=exact, _design=d, **kw)) for d in hg.DESIGNS}
     timing["kernel"] = lambda: hg._block_kernel(pos, table, exact=exact, **kw)
     timing["twin"] = lambda: twin(pos, table, **kw)
     L, S, _ = table.shape
@@ -279,7 +288,7 @@ def capture_block_inputs(model, grid, cams):
 
 def render_in_design(model, grid, cams, design):
     """One FRAME_HW^2 frame through ``render_camera`` with K1 and K3 launched
-    in ``design`` (one of ``hash_grid.BLOCK_DESIGNS``): the frame's time is
+    in ``design`` (one of ``hash_grid.DESIGNS``): the frame's time is
     compared across designs in one call."""
     from nerfstudio_torch.models.base_model import render_camera
     from nerfstudio_torch.ops import hash_grid as hg
@@ -297,7 +306,7 @@ def time_block_designs(timing):
     profiler's device time: ({design: (mean, [medians])}, {design: ms})."""
     from nerfstudio_torch.ops import hash_grid as hg
 
-    fns = {d: timing[d] for d in hg.BLOCK_DESIGNS}
+    fns = {d: timing[d] for d in hg.DESIGNS}
     with torch.no_grad():
         return paired_ms(fns), {d: device_ms(fn) for d, fn in fns.items()}
 
@@ -322,7 +331,9 @@ def table_grad_bound(pos, table, g, scales, kw):
     float32 sum of k terms in any order is off by at most (k-1) * u * sum|t|
     (u = 2^-24), plus the four roundings of each term w8*g*scale. sum|t| is the
     float64 twin on |g| (weights and scales are >= 0); k counts each entry's
-    terms from the geometry."""
+    terms from the geometry. Every design rounds each term as the first
+    does; the lane groups' vector reductions only regroup the sum, so the
+    bound holds for each unchanged."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     L, S, lanes = table.shape
@@ -382,7 +393,8 @@ def check_kernel_bwd(name, n, num_levels, log2_t, features, min_res, max_res, sc
         kernel=lambda: hg._block_bwd_kernel(pos, table, g, scales, **kw),
         twin=lambda: hg._block_stochastic_twin_bwd(pos, table, g, scales, **kw),
     )
-    return max_abs, timing, bound(nbytes(pos, table, g, d_tab, d_pos), hash_bwd_ops(n, num_levels, features))
+    return (max_abs, timing, bound(nbytes(pos, table, g, d_tab, d_pos), hash_bwd_ops(n, num_levels, features)),
+            (pos, table, g, kw))
 
 
 # --------------------------------------------------------------------------
@@ -492,8 +504,8 @@ def train_steps(cfg, pipeline, state, hook, steps, gen, check_launches=True):
     kwargs, one train step. With ``check_launches``, each step must launch
     one field K1 forward and backward, one proposal K1 forward, a proposal
     backward only when ``update_proposals`` is on, one more K1 forward on an
-    occupancy update, no K3, and no K1 in the per-thread design. Returns
-    the last step's metrics."""
+    occupancy update, no K3, and no K1 forward or backward in the per-thread
+    design. Returns the last step's metrics."""
     from nerfstudio_torch.models.nerfacto import NerfactoModel
     from nerfstudio_torch.ops import hash_grid as hg
 
@@ -507,7 +519,8 @@ def train_steps(cfg, pipeline, state, hook, steps, gen, check_launches=True):
         if check_launches:
             occ = step >= cfg.occ_warmup_steps and step % cfg.occ_update_every == 0
             want = {"hash_encode_block": 2 + occ, "hash_encode_block_exact": 0,
-                    "hash_encode_block_bwd": 1 + bool(kwargs["update_proposals"]), "hash_encode_block_per_thread": 0}
+                    "hash_encode_block_bwd": 1 + bool(kwargs["update_proposals"]), "hash_encode_block_per_thread": 0,
+                    "hash_encode_bwd_per_thread": 0}
             got = {k: hg.launch_counts[k] - before[k] for k in want}
             if got != want:
                 raise AssertionError(f"step {step} ({kwargs}): launches {got}, expected {want}")
@@ -555,7 +568,7 @@ def profile_device(run, per=PROFILED_STEPS):
 
 
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
-    ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact")),
+    ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact", "bwd_lanes", "bwd_private")),
     ("gsplat kernels", ("project_fwd", "project_bwd", "tile_keys", "tile_ranges", "blend_fwd", "blend_bwd")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
@@ -568,6 +581,14 @@ KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
     ("memset/memcpy", ("memset", "memcpy")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+
+
+def is_k7(name: str) -> bool:
+    """A K7 kernel's profiler name: the flat forward and first-design
+    backward and the private pass (K7 only) by name, the lane pass by its
+    kBlock = false template argument."""
+    name = name.lower()
+    return "flat_encode" in name or "bwd_private" in name or ("bwd_lanes" in name and "false>" in name)
 
 
 def kernel_class(name: str) -> str:
@@ -992,7 +1013,9 @@ def flat_table_grad_bound(pos, table, g, kw):
     (terms - 1) * u * sum|t| for a float32 sum in any order, plus two
     roundings per term (w = (wx*wy)*wz, then w*g); sum|t| is the float64
     twin on |g|, the term count each lane's from the corners of nonzero
-    weight."""
+    weight. As for table_grad_bound, every design rounds each term the same
+    way and only regroups the sum: the lane groups' vector reductions, and
+    the privatised levels' warp scans, shared copies and slab sums."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     L, S, lanes = table.shape
@@ -1052,7 +1075,150 @@ def check_flat_bwd(name, n, gen):
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     timing = dict(kernel=lambda: hg._flat_bwd_kernel(pos, table, g, **kw),
                   twin=lambda: hg._flat_twin_bwd(pos, table, g, **kw))
-    return max_abs, timing, bound(nbytes(pos, table, g, d_tab, d_pos), hash_bwd_ops(n, PROP_LEVELS, PROP_F))
+    return (max_abs, timing, bound(nbytes(pos, table, g, d_tab, d_pos), hash_bwd_ops(n, PROP_LEVELS, PROP_F)),
+            (pos, table, g, kw))
+
+
+# --------------------------------------------------------------------------
+# the backward's designs (K1 bwd, K7 bwd): every design against the float64
+# twin and timed in turns, at the check inputs and at a step's own inputs
+
+
+def capture_calls(name, run):
+    """The arguments of every call of ``hash_grid.<name>`` (a backward's
+    launcher) during ``run()``, as the step's own autograd hands them over
+    (tensors cloned): [(args, kwargs)]."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    seen, launch = [], getattr(hg, name)
+
+    def capture(*args, **kw):
+        seen.append(([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args], dict(kw)))
+        return launch(*args, **kw)
+
+    setattr(hg, name, capture)
+    try:
+        run()
+    finally:
+        setattr(hg, name, launch)
+    return seen
+
+
+def scatter_pairs(kind, pos, table, g, scales, kw):
+    """The (flat table index, value) pairs the backward adds into the table
+    gradient, from the twin's geometry: corners of nonzero weight on levels
+    with a gradient, value w*g (K7) or scale*w*g (K1). ``index_add_`` of
+    them is the "scatter alone" yardstick: the scatter without the geometry,
+    the position gradient or the vector reductions."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    L, S, lanes = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    idx, vals = [], []
+    if kind == "K1":
+        geom = hg.block_level_geometry(pos, num_levels=L, features_per_level=F, **kw)
+        for l, (rows, slot, w8) in enumerate(geom):
+            if scales[l]:
+                live = (w8 != 0)[:, :, None].expand(-1, -1, F)
+                idx.append((hg._block_lanes(rows, slot, F).view(-1, 8, F) + l * S * lanes)[live])
+                vals.append((scales[l] * w8[:, :, None] * g[:, None, l * F:(l + 1) * F])[live])
+    else:
+        feat = torch.arange(F, device=pos.device)
+        for l, res in enumerate(hg.compute_level_resolutions(L, kw["min_res"], kw["max_res"])):
+            entries, weights = hg._level_corners(pos, int(res), kw["hash_table_size"])
+            w8 = torch.stack([hg._corner_weight(weights, c) for c in range(8)], dim=-1)
+            live = (w8 != 0)[:, :, None].expand(-1, -1, F)
+            idx.append((entries[:, :, None] * F + feat + l * S * lanes)[live])
+            vals.append((w8[:, :, None] * g[:, None, l * F:(l + 1) * F])[live])
+    return torch.cat(idx), torch.cat(vals)
+
+
+def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions=True, need_table=True):
+    """Every design of K1's (``kind`` "K1", with ``scales``) or K7's backward
+    against the float64 twin on one set of inputs: the table gradient within
+    its summation-order bound on every entry, the positions within theirs,
+    K1's levels of scale 0 untouched; then every design and the "scatter
+    alone" yardstick timed in turns (CUDA events, ``paired_ms``) and by the
+    profiler's device time. Returns a record: n, scales, needs, bound,
+    {design: errors and times}, the yardstick's times."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    L, S, _ = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    n = pos.shape[0]
+    needs = dict(need_positions=need_positions, need_table=need_table)
+    if kind == "K7":
+        ref_tab, ref_pos = hg._flat_twin_bwd(pos, table, g, dtype=torch.float64, **needs, **kw)
+        tab_bound = flat_table_grad_bound(pos, table, g, kw) if need_table else None
+        run = lambda d: hg._flat_bwd_kernel(pos, table, g, _design=d, **needs, **kw)  # noqa: E731
+        scales = [1.0] * L
+    else:
+        active = list(scales) if need_table else [0.0] * L
+        ref_tab, ref_pos = hg._block_stochastic_twin_bwd(pos, table, g, active, need_positions=need_positions,
+                                                         dtype=torch.float64, **kw)
+        tab_bound = table_grad_bound(pos, table, g, active, kw) if need_table else None
+        run = lambda d: hg._block_bwd_kernel(pos, table, g, scales, _design=d, **needs, **kw)  # noqa: E731
+    pos_bound = position_grad_bound(g, L, F, kw["min_res"], kw["max_res"]) if need_positions else None
+    designs, bad, outs = {}, [], None
+    for d in hg.DESIGNS:
+        d_tab, d_pos = run(d)
+        torch.cuda.synchronize()
+        rec = dict(table_over=0, positions_over=0, max_abs_err=0.0)
+        finite = True
+        if need_table:
+            err = (d_tab.double() - ref_tab).abs()
+            rec.update(table_over=int((err > tab_bound).sum()), max_abs_err=float(err.max()),
+                       silent=all(not d_tab[l].any() for l in range(L) if not scales[l]))
+            finite = finite and bool(torch.isfinite(d_tab).all())
+        if need_positions:
+            err = (d_pos.double() - ref_pos).abs()
+            rec.update(positions_over=int((err > pos_bound).sum()),
+                       max_abs_err=max(rec["max_abs_err"], float(err.max())))
+            finite = finite and bool(torch.isfinite(d_pos).all())
+        designs[d] = rec
+        if rec["table_over"] or rec["positions_over"] or not rec.get("silent", True) or not finite:
+            bad.append(d)
+        outs = [t for t in (d_tab, d_pos) if t is not None]
+    log(name, f"N={n} L={L} F={F} T={kw['hash_table_size']} scales={list(scales)} need_positions={need_positions} "
+        f"need_table={need_table}; " + "; ".join(
+            f"{d}: max |kernel - float64 twin| {r['max_abs_err']:.3g}, over the limit {r['table_over']} of d_table, "
+            f"{r['positions_over']} of d_positions" + (f", scale-0 levels untouched {r['silent']}" if "silent" in r
+                                                         else "") for d, r in designs.items()))
+    if bad:
+        raise AssertionError(f"{name}: the {bad} designs disagree with the float64 twin")
+    del ref_tab, ref_pos, tab_bound
+    fns = {d: (lambda d=d: run(d)) for d in hg.DESIGNS}
+    if need_table:
+        idx, vals = scatter_pairs(kind, pos, table, g, scales, kw)
+        target = torch.zeros(table.numel(), device=table.device)
+        fns["scatter alone"] = lambda: target.index_add_(0, idx, vals)
+    times = paired_ms(fns)
+    dev = {k: device_ms(fn) for k, fn in fns.items()}
+    for d in hg.DESIGNS:
+        designs[d].update(ms=times[d][0], ms_runs=times[d][1], device_ms=dev[d])
+    # the table is read only for the position gradient; each gradient asked
+    # is written once
+    bnd = bound(nbytes(pos, g, *([table] if need_positions else []), *outs),
+                hash_bwd_ops(n, L, F, need_positions))
+    # the levels K7's lane groups privatise at these inputs
+    private = (list(hg.bwd_plan(hg.compute_level_resolutions(L, kw["min_res"], kw["max_res"]),
+                                kw["hash_table_size"], F)[0])
+               if kind == "K7" and need_table and not need_positions else [])
+    return dict(n=n, scales=list(scales), **needs, privatised_levels=private, bound_ms=bnd[0], bound_by=bnd[1],
+                designs=designs,
+                scatter_alone=(dict(ms=times["scatter alone"][0], device_ms=dev["scatter alone"], pairs=int(idx.numel()))
+                               if need_table else None))
+
+
+def bwd_design_line(label, rec) -> str:
+    """One input set's times: events mean [two medians] / device ms."""
+    parts = [f"{d} {r['ms']:.4f} {[round(m, 4) for m in r['ms_runs']]} / {r['device_ms']:.4f}"
+             for d, r in rec["designs"].items()]
+    if rec["scatter_alone"]:
+        parts.append(f"scatter alone ({rec['scatter_alone']['pairs']} pairs) {rec['scatter_alone']['ms']:.4f} / "
+                     f"{rec['scatter_alone']['device_ms']:.4f}")
+    return (f"{label} (N={rec['n']}, privatised levels {rec['privatised_levels']}, bound {rec['bound_ms']:.4f} ms "
+            f"by {rec['bound_by']}): " + ", ".join(parts))
 
 
 def probe_inputs(gen):
@@ -1262,8 +1428,8 @@ def build_neus(device, rays):
 
 def neus_steps(cfg, pipeline, state, steps, gen):
     """The trainer's loop over ``steps``, each checked for two K7 forward
-    launches (one per proposal net) and two backward. Returns the last
-    step's metrics."""
+    launches (one per proposal net) and two backward, none of them in the
+    backward's per-thread design. Returns the last step's metrics."""
     from nerfstudio_torch.models.neus import NeuSFactoModel
     from nerfstudio_torch.ops import hash_grid as hg
 
@@ -1272,9 +1438,9 @@ def neus_steps(cfg, pipeline, state, steps, gen):
         before = dict(hg.launch_counts)
         state.step = step
         metrics = pipeline.train_step(state, gen, **NeuSFactoModel.step_kwargs(step, cfg))
-        got = {k: hg.launch_counts[k] - before[k] for k in NEUS_KERNELS}
-        if got != dict.fromkeys(NEUS_KERNELS, 2):
-            raise AssertionError(f"neus-facto step {step}: launches {got}, expected two of each")
+        got = {k: hg.launch_counts[k] - before[k] for k in NEUS_KERNELS + ("hash_encode_bwd_per_thread",)}
+        if got != dict(dict.fromkeys(NEUS_KERNELS, 2), hash_encode_bwd_per_thread=0):
+            raise AssertionError(f"neus-facto step {step}: launches {got}, expected two of each, none per-thread")
     return metrics
 
 
@@ -1323,7 +1489,7 @@ def main() -> int:
     from nerfstudio_torch.ops import gather_probes as gp
     from nerfstudio_torch.ops.gsplat import _cuda as sc
 
-    n_phases = 30
+    n_phases = 31
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -1348,9 +1514,9 @@ def main() -> int:
     # with live proposals)
     k1_err, k1_timing, k1_bound = check_kernel(ph(3, "K1 vs twin"), False, 2_097_152, 5, 17, 2, 16, 256, gen)
     k3_err, k3_timing, k3_bound = check_kernel(ph(4, "K3 vs twin"), True, 1_048_576, 8, 19, 4, 16, 2048, gen)
-    bwd_field_err, bwd_field_timing, bwd_field_bound = check_kernel_bwd(
+    bwd_field_err, bwd_field_timing, bwd_field_bound, bwd_field_inputs = check_kernel_bwd(
         ph(5, "K1 bwd vs twin, field"), TRAIN_RAYS * 32, 8, 19, 4, 16, 2048, (2.0, 0.0) * 4, gen)
-    bwd_prop_err, bwd_prop_timing, _ = check_kernel_bwd(
+    bwd_prop_err, bwd_prop_timing, _, bwd_prop_inputs = check_kernel_bwd(
         ph(6, "K1 bwd vs twin, proposal"), TRAIN_RAYS * 64, 5, 17, 2, 16, 256, (1.0,) * 5, gen)
 
     # 7. the render slice: four 512^2 frames through render_camera
@@ -1368,7 +1534,8 @@ def main() -> int:
         check_outputs(images, FRAME_HW)
     want = NUM_FRAMES * chunks_per_frame
     if render_launches != {"hash_encode_block": want, "hash_encode_block_exact": want, "hash_encode_block_bwd": 0,
-                           "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_per_thread": 0}:
+                           "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_per_thread": 0,
+                           "hash_encode_bwd_per_thread": 0}:
         raise AssertionError(f"kernel launches {render_launches}, expected {want} of each forward (one per chunk, "
                              "in the default design)")
     acc = float(torch.stack([f["accumulation"].mean() for f in frames]).mean())
@@ -1442,6 +1609,14 @@ def main() -> int:
             + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
         for name, t in rows[:12]:
             print(f"    {t:8.3f} ms/step  {name[:110]}", flush=True)
+    # K1 backward's arguments in one more steady step, an even one (its level
+    # subset holds level 0), for phase 31
+    cap = first + STEADY_TIMED + PROFILED_STEPS
+    cap += cap % 2
+    k1_step = capture_calls("_block_bwd_kernel",
+                            lambda: train_steps(cfg, pipeline, state, hook, range(cap, cap + 1), train_gen))
+    if len(k1_step) != 1:
+        raise AssertionError(f"steady step {cap} called K1's backward {len(k1_step)} times, not once")
     del pipeline, state
 
     # 11. card vs CPU twins: one training step
@@ -1465,12 +1640,12 @@ def main() -> int:
     times["bwd_prop_twin"] = median_ms(bwd_prop_timing["twin"], runs=5, warmup=1)
     # the frame with K1 and K3 in each design, in turns (the default's mean
     # is the frame's time), and one profiled frame in each
-    block_default = hg._block_design(2)
-    frame_t = paired_ms({d: (lambda d=d: render_in_design(model, grid, cams, d)) for d in hg.BLOCK_DESIGNS},
+    block_default = hg._pick_design(2)
+    frame_t = paired_ms({d: (lambda d=d: render_in_design(model, grid, cams, d)) for d in hg.DESIGNS},
                         runs=10)
     frame_ms = frame_t[block_default][0]
     frame_profs = {d: profile_device(lambda d=d: render_in_design(model, grid, cams, d), per=1)
-                   for d in hg.BLOCK_DESIGNS}
+                   for d in hg.DESIGNS}
     frame_prof = frame_profs[block_default]
     frame_busy = {d: (None if fp is None else fp[1]) for d, fp in frame_profs.items()}
     block_render = capture_block_inputs(model, grid, cams)  # for phase 30
@@ -1483,7 +1658,7 @@ def main() -> int:
     log(ph(12, "frame by design"), f"on {card}, in turns (CUDA events, mean [two medians of 10]; profiled "
         "device-busy ms): " + ", ".join(
             f"{d} {frame_t[d][0]:.2f} {[round(m, 2) for m in frame_t[d][1]]} / "
-            + ("not measured" if frame_busy[d] is None else f"{frame_busy[d]:.2f}") for d in hg.BLOCK_DESIGNS)
+            + ("not measured" if frame_busy[d] is None else f"{frame_busy[d]:.2f}") for d in hg.DESIGNS)
         + f"; the default is {block_default}")
     frame_idle, frame_hash = None, {}
     if frame_prof is None:
@@ -1616,11 +1791,12 @@ def main() -> int:
 
     # 20-21. K7 forward and backward vs twins at the proposal nets' shapes:
     # round 1 (256 samples per ray) and round 2 (96)
-    k7 = {}
+    k7, k7_bwd_inputs = {}, {}
     for i, samples in enumerate(NEUS_SAMPLES):
         n = NEUS_RAYS * samples
         k7[f"fwd_{samples}"] = check_flat(ph(20, f"K7 vs twin, {samples} samples/ray"), n, gen)
-        k7[f"bwd_{samples}"] = check_flat_bwd(ph(21, f"K7 bwd vs float64 twin, {samples} samples/ray"), n, gen)
+        *k7[f"bwd_{samples}"], k7_bwd_inputs[samples] = check_flat_bwd(
+            ph(21, f"K7 bwd vs float64 twin, {samples} samples/ray"), n, gen)
 
     # 22. the gather probes' entry point at the probes' own shapes
     probe_launches, probes, probe_args = check_probes(ph(22, "gather probes"), gen)
@@ -1674,7 +1850,7 @@ def main() -> int:
         neus_idle = 1 - busy_ms / neus_step_ms
         classes = {}
         for name, tm in rows:
-            cls = "K7 (flat hash grid)" if "flat_encode" in name.lower() else kernel_class(name)
+            cls = "K7 (flat hash grid)" if is_k7(name) else kernel_class(name)
             classes[cls] = classes.get(cls, 0.0) + tm
         log(ph(24, "neus-facto profile"), f"{PROFILED_STEPS} steady steps under torch.profiler: "
             f"{activities:.0f} device activities and {busy_ms:.2f} ms of device-busy time per step, i.e. "
@@ -1685,6 +1861,11 @@ def main() -> int:
                if classes.get("GEMMs") else "no GEMM class"))
         for name, tm in rows[:12]:
             print(f"    {tm:8.3f} ms/step  {name[:110]}", flush=True)
+    # both K7 backward calls of one more steady step, for phase 31
+    cap = first + NEUS_TIMED + PROFILED_STEPS
+    k7_step = capture_calls("_flat_bwd_kernel", lambda: neus_steps(cfg, pipeline, state, range(cap, cap + 1), neus_gen))
+    if len(k7_step) != 2:
+        raise AssertionError(f"neus-facto step {cap} called K7's backward {len(k7_step)} times, not twice")
 
     # 25. one 512^2 eval frame through render_camera, 2048-ray chunks
     model = pipeline.model.eval()
@@ -1778,11 +1959,35 @@ def main() -> int:
         for inputs, timing in (("check", check_timing), ("render", render_checks[exact][1])):
             block_t[(exact, inputs)] = ev, dev = time_block_designs(timing)
             lines.append(f"{label} at the {inputs} inputs: " + ", ".join(
-                f"{d} {ev[d][0]:.4f} {ev[d][1]} / {dev[d]:.4f}" for d in hg.BLOCK_DESIGNS))
+                f"{d} {ev[d][0]:.4f} {ev[d][1]} / {dev[d]:.4f}" for d in hg.DESIGNS))
     block_n = {exact: inputs[0].shape[0] for exact, inputs in block_render.items()}
     del block_render
     log(ph(30, "K1 and K3 designs, timing"), f"on {card} (events: mean [two medians] / device ms); "
-        + "; ".join(lines) + f"; default at F=2 and 4: {hg._block_design(2)}")
+        + "; ".join(lines) + f"; default at F=2 and 4: {hg._pick_design(2)}")
+
+    # 31. K1's and K7's backward, every design against the float64 twin and
+    # timed in turns, at the check inputs (phases 5, 6 and 21) and at the
+    # inputs captured from one steady nerfacto step and one neus-facto step
+    bwd_sets = {"K1": [("check, field", *bwd_field_inputs, (2.0, 0.0) * 4, {}),
+                       ("check, proposal", *bwd_prop_inputs, (1.0,) * 5, {})],
+                "K7": [(f"check, {s} samples/ray", *k7_bwd_inputs[s], None, {}) for s in NEUS_SAMPLES]}
+    for kind, calls in (("K1", k1_step), ("K7", k7_step)):
+        for c, (args, kwargs) in enumerate(calls):
+            pos, table, g, *scales = args
+            kw = dict(kwargs)
+            needs = {k: kw.pop(k) for k in ("need_positions", "need_table")}
+            label = "nerfacto step" if kind == "K1" else f"neus-facto step, call {c + 1}"
+            bwd_sets[kind].append((label, pos, table, g, kw, scales[0] if scales else None, needs))
+    del k1_step, k7_step, bwd_field_inputs, bwd_prop_inputs, k7_bwd_inputs
+    bwd_recs, lines = {"K1": {}, "K7": {}}, []
+    for kind, sets in bwd_sets.items():
+        for label, pos, table, g, kw, scales, needs in sets:
+            rec = check_bwd_designs(ph(31, f"{kind} bwd designs, {label}"), kind, pos, table, g, kw, scales, **needs)
+            bwd_recs[kind][label] = rec
+            lines.append(bwd_design_line(f"{kind} bwd at the {label} inputs", rec))
+    del bwd_sets
+    log(ph(31, "K1 bwd and K7 bwd designs, timing"), f"on {card} (events: mean [two medians] / device ms); "
+        + "; ".join(lines) + f"; default at F=2 and 4: {hg._pick_design(2)}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None, design="first"):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -1796,7 +2001,7 @@ def main() -> int:
     def block_entry(name, replaces, exact, features, errs, bnd, twin_ms):
         """K1's or K3's entry in its default design, with every design at the
         check and the render inputs, and the render inputs' own record."""
-        default = hg._block_design(features)
+        default = hg._pick_design(features)
         (ct, cdev), (rt, rdev) = block_t[(exact, "check")], block_t[(exact, "render")]
         r_errs, _, r_bnd = render_checks[exact]
         key = "hash_encode_block_exact" if exact else "hash_encode_block"
@@ -1805,12 +2010,12 @@ def main() -> int:
         e["device_ms"] = cdev[default]
         e["designs"] = [dict(design=d, ms=ct[d][0], ms_runs=ct[d][1], device_ms=cdev[d], max_abs_err=errs[d],
                              render_ms=rt[d][0], render_ms_runs=rt[d][1], render_device_ms=rdev[d],
-                             render_max_abs_err=r_errs[d]) for d in hg.BLOCK_DESIGNS]
+                             render_max_abs_err=r_errs[d]) for d in hg.DESIGNS]
         e["render"] = dict(n=int(block_n[exact]), ms=rt[default][0], device_ms=rdev[default],
                            plain_ms=render_twin_ms[exact], bound_ms=r_bnd[0], bound_by=r_bnd[1],
                            max_abs_err=r_errs[default], frame_ms=frame_hash.get("K3" if exact else "K1"),
                            frames=[dict(design=d, ms=frame_t[d][0], ms_runs=frame_t[d][1], busy_ms=frame_busy[d])
-                                   for d in hg.BLOCK_DESIGNS])
+                                   for d in hg.DESIGNS])
         return e
 
     kernels = [
@@ -1820,7 +2025,7 @@ def main() -> int:
                     k3_bound, times["k3_twin"]),
         entry("hash_encode_block_bwd (K1 bwd + K2), field shape", source, "nerfstudio_tpu/ops/hash_grid.py:439",
               hash_launch["hash_encode_block_bwd"], max(bwd_field_err, bwd_prop_err), times["bwd_field"],
-              times["bwd_field_twin"], bwd_field_bound),
+              times["bwd_field_twin"], bwd_field_bound, design=hg._pick_design(4)),
         entry("project_gaussians (K4 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/projection.py:39",
               splat_launches["project_gaussians"], k4_err, t["k4"], t["k4_twin"], k4_bounds[0]),
         entry("project_gaussians_bwd (K4 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/projection.py:39",
@@ -1846,7 +2051,22 @@ def main() -> int:
     kernels.append(entry("hash_encode_flat_bwd (K7 bwd), 256 samples/ray", source,
                          "nerfstudio_tpu/ops/hash_grid.py:90", neus_launches["hash_encode_flat_bwd"],
                          max(k7[k][0] for k in k7 if k.startswith("bwd")), t["k7_" + big],
-                         t["k7_" + big + "_twin"], k7[big][2]))
+                         t["k7_" + big + "_twin"], k7[big][2], design=hg._pick_design(2)))
+    # the backward entries: every design at every input set of phase 31, the
+    # input sets (bound, the "scatter alone" yardstick), and the steps' own
+    for e, kind in ((kernels[2], "K1"), (kernels[-1], "K7")):
+        recs = bwd_recs[kind]
+        default = e["design"]
+        e["device_ms"] = next(iter(recs.values()))["designs"][default]["device_ms"]
+        e["designs"] = [dict(design=d, inputs=[dict(inputs=label, n=r["n"], **r["designs"][d])
+                                               for label, r in recs.items()]) for d in hg.DESIGNS]
+        e["inputs"] = [dict(inputs=label, **{k: v for k, v in r.items() if k != "designs"})
+                       for label, r in recs.items()]
+        e["step"] = [dict(inputs=label, n=r["n"], ms=r["designs"][default]["ms"],
+                          device_ms=r["designs"][default]["device_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], scatter_alone=r["scatter_alone"],
+                          designs={d: dict(ms=x["ms"], device_ms=x["device_ms"]) for d, x in r["designs"].items()})
+                     for label, r in recs.items() if "step" in label]
     # one entry per probe: its first float32 variant's times, the largest
     # error and every launch over its variants; "variants" lists them all
     # run_case's and f4's variants add their designs (phase 29), and f4 its

@@ -17,6 +17,13 @@
 //     matmul backward of the dense coarse levels) and _grad_scale, plus
 //     XLA's autodiff of block_level_geometry down to the positions.
 //
+// Both backward kernels (K1 bwd, K7 bwd) have two designs too: one thread
+// per sample walking the levels with scalar atomics (block_encode_bwd_kernel,
+// flat_encode_bwd_kernel), and, for F = 2 and 4, lane groups with vector
+// reductions (bwd_lanes_kernel), before which K7, asked for the table
+// gradient alone, reduces its dense coarse levels in shared memory
+// (bwd_private_kernel). See the comment above bwd_private_kernel.
+//
 // Table layout, shared with the reference: table[l, row, lane], shape
 // (L, S, 128) float32. Vertex v of level l lives in block b = v >> 1 (per
 // axis); the block index is dense ((bx*bs + by)*bs + bz) when the level's
@@ -483,8 +490,9 @@ __global__ void __launch_bounds__(kThreads)
 // issues at most 8F atomics into one 8F-float block (on average 3.4 of the
 // 8 corners have weight) and, for the position gradient, re-reads that
 // block; the coarse levels concentrate all samples' atomics on a few
-// hundred rows. Privatising those rows in shared memory, sorting by row and
-// warp-aggregating the atomics are later work.
+// hundred rows. The first design, kept for F in {1, 8, 16} and for
+// chip_smoke.py's comparison; F = 2 and 4 take the second (bwd_lanes_kernel
+// and bwd_private_kernel below).
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     block_encode_bwd_kernel(const float* __restrict__ pos,
@@ -679,8 +687,8 @@ __global__ void __launch_bounds__(kThreads)
 //
 // What bounds it: 8F atomics per (sample, level) into random entries; on
 // the dense coarse levels many samples hit the same few thousand entries,
-// so those atomics contend. Privatising the coarse levels in shared memory
-// is later work.
+// so those atomics contend. The first design, kept as K1's backward is;
+// F = 2 and 4 take the second (below).
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     flat_encode_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ table,
@@ -747,6 +755,527 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int a = 0; a < 3; ++a) d_pos[3 * i + a] = dp[a];
   }
+}
+
+// ---------------------------------------------------------------------------
+// The backward's second design, K1 bwd and K7 bwd at F = 2 and 4.
+//
+// What bounds the first design (block_encode_bwd_kernel,
+// flat_encode_bwd_kernel above): 8F scalar f32 atomics per (sample, level),
+// and on the dense coarse levels every sample's atomics land on a few
+// thousand addresses, where same-address atomics serialise in L2 (K7's
+// level 0 takes ~850 atomics per float at the proposal nets' 524,288
+// positions). The position gradient re-reads each corner with F scalar
+// loads. Up to three kernels, launched by one C call:
+//
+//   * bwd_private_kernel (K7 only, and only when the table gradient alone is
+//     asked: with the position gradient the lane pass walks every level
+//     anyway, and the private pass lost there, PERF.md) owns the table
+//     gradient of the levels the host's plan privatises (hash_grid.bwd_plan):
+//     dense levels whose copies fit one block's shared memory together
+//     (levels 0-1 of the proposal nets at F=2, 192 KB). Each block zeroes its
+//     copy and walks a
+//     contiguous range of samples, a warp of 32 consecutive samples at a
+//     time: the terms of a run of lanes with the same stencil (ray-ordered
+//     samples share a coarse cell for several steps) are summed by a
+//     segmented warp scan, and the run's sums go to the copy with shared f32
+//     atomics. The block stores its copy to a scratch slab of its own;
+//     bwd_private_sum_kernel adds the slabs in block order and stores the
+//     sums. Global reductions of each block's copy instead of the slabs hit
+//     the same few thousand addresses from every block and cost more than
+//     the scatter they saved. K1 takes no private pass: its lane pass walks
+//     every level for the positions anyway, and its level 0's vector
+//     reductions cost no more than another level's (PERF.md).
+//   * bwd_lanes_kernel takes the other levels' table gradient and every
+//     level's position gradient, in K1's and K3's lane-group structure (see
+//     block_stochastic_lanes_kernel): lane s of a warp computes stencil s's
+//     geometry once and writes it to a per-warp table in shared memory, then
+//     a group of G lanes serves each stencil. K7: 8 lanes, one corner each,
+//     its F floats as one 8- or 16-byte vector; K1: 2F lanes, one 16-byte
+//     quarter of the 8F-float block each. A lane adds its weighted
+//     cotangent with one vector reduction (atomicAdd on float2/float4,
+//     native for global memory on sm_90: one reduction where the first
+//     design issued F or 4), and for the position gradient loads the same
+//     vector, forms its corners' d_w = <g, bf16 value> terms of the three
+//     axes' d_o, and the group sums them with shuffles. A warp holds
+//     32 / levels whole samples, levels fastest, so each sample's levels
+//     sum in shared memory in level order and d_pos is written once, with
+//     no atomic.
+//
+// Numerics: every term is rounded as the first design rounds it (w*g, or
+// (w*g)*scale for K1) and only the summation tree changes, so the
+// summation-order bounds of chip_smoke.py hold as they are (warp scans and
+// slab sums are subtrees of that sum). Levels of
+// scale 0 write nothing; corners of weight 0 add nothing, except a K1 lane
+// at F=2 whose 16 bytes hold one live and one dead corner, which adds an
+// exact +-0 to the dead one.
+//
+// Index math is 32-bit, as the forward's lane kernels: n * num_levels <
+// 2^31, a table of fewer than 2^32 floats, table and gradient 16-byte
+// aligned; the hash's modulus is hash_grid._u32_divisor's multiply-high.
+
+constexpr int kPrivThreads = 1024;
+// one block's opt-in maximum on the H100; hash_grid.bwd_plan plans against
+// its own copy (SHARED_BYTES_PER_BLOCK) and make_bwd_levels re-checks here
+constexpr int kMaxSharedBytes = 232448;
+
+struct BwdArgs {
+  const float* pos;
+  const float* table;
+  const float* grad;
+  float* d_table;  // null: no table gradient
+  float* d_pos;    // null: no position gradient
+  uint32_t n;
+  uint32_t num_levels;
+  uint32_t level_stride;  // floats
+  U32Divisor modulus;     // K1: T/8 (the block hash), K7: T (the entry hash)
+};
+
+// The levels of the two passes, from the host's plan (make_bwd_levels).
+struct BwdLevels {
+  int lane_count;               // levels the lane pass runs, in order
+  int lane_level[kMaxLevels];
+  float scale[kMaxLevels];      // factor on the table gradient the lane pass adds (K7: 1); 0: none
+  int private_count;            // levels the private pass owns, in order (K7 only)
+  int private_level[kMaxLevels];
+  uint32_t private_base[kMaxLevels];    // float offset of a level's copy in shared memory
+  uint32_t private_floats[kMaxLevels];  // its floats, a multiple of 4
+  uint32_t shared_floats;               // all copies
+};
+
+// K7's stencil at one level: each corner's entry offset within the level
+// (floats), its weight ((wx*wy)*wz, as the forward), and each axis's upper
+// weight o.
+template <int F>
+__device__ __forceinline__ void flat_stencil(const float p[3], int res, bool dense, const U32Divisor& t,
+                                             uint32_t off[8], float w[8], float w1[3]) {
+  int i0[3];
+  float wa[3][2];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    flat_axis(p[ax], res, &i0[ax], &w1[ax]);
+    wa[ax][0] = __fsub_rn(1.0f, w1[ax]);
+    wa[ax][1] = w1[ax];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
+    uint32_t e;
+    if (dense) {
+      const uint32_t side = (uint32_t)res + 1u;
+      const uint32_t cx = (uint32_t)min(max(i0[0] + dx, 0), res), cy = (uint32_t)min(max(i0[1] + dy, 0), res),
+                     cz = (uint32_t)min(max(i0[2] + dz, 0), res);
+      e = (cx * side + cy) * side + cz;
+    } else {
+      e = umod((uint32_t)(i0[0] + dx) ^ ((uint32_t)(i0[1] + dy) * 2654435761u) ^
+                   ((uint32_t)(i0[2] + dz) * 805459861u), t);
+    }
+    off[c] = e * F;
+    w[c] = __fmul_rn(__fmul_rn(wa[0][dx], wa[1][dy]), wa[2][dz]);
+  }
+}
+
+// K1's stencil at one level, with the forward's arithmetic: returns the
+// block index; w are the eight corner weights, w1 each axis's upper weight
+// (o on an even axis, the coin's 0/1 on an odd one) and fx each axis's
+// d_x / d_o: 0 on an odd axis, else res * clip'(x*res - i0), clip' 1 inside
+// (0, 1), 1/2 on exactly 0 or 1 (jnp.clip's max/min pair), 0 outside.
+__device__ __forceinline__ uint32_t block_stencil(const float p[3], int res, uint32_t bs, bool dense,
+                                                  const U32Divisor& nblocks, float w[8], float w1[3],
+                                                  float fx[3]) {
+  uint32_t bc[3];
+  float w01[3][2];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float s = __fmul_rn(p[ax], (float)res);
+    int c = (int)floorf(s);
+    c = min(max(c, 0), res - 1);
+    const float t = __fsub_rn(s, (float)c);
+    const float o = fminf(fmaxf(t, 0.0f), 1.0f);
+    const bool odd = (c & 1) == 1;
+    const bool up = u01_hash(o, kCoinPrimes[ax][0], kCoinPrimes[ax][1]) < o;
+    bc[ax] = (uint32_t)(c + ((odd && up) ? 1 : 0)) >> 1;
+    const float upf = up ? 1.0f : 0.0f;
+    w01[ax][0] = odd ? upf : __fsub_rn(1.0f, o);
+    w01[ax][1] = odd ? __fsub_rn(1.0f, upf) : o;
+    w1[ax] = w01[ax][1];
+    fx[ax] = odd ? 0.0f
+             : (t > 0.0f && t < 1.0f)   ? (float)res
+             : (t == 0.0f || t == 1.0f) ? 0.5f * (float)res
+                                        : 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    w[c] = __fmul_rn(__fmul_rn(w01[0][(c >> 2) & 1], w01[1][(c >> 1) & 1]), w01[2][c & 1]);
+  return dense ? (bc[0] * bs + bc[1]) * bs + bc[2] : umod(bc[0] ^ (bc[1] * 2654435761u) ^ (bc[2] * 805459861u), nblocks);
+}
+
+// Corner c's terms of d_o on the three axes: d_w * (+1 if c is up on the
+// axis, else -1) * (the other two axes' weights), each axis's lower weight
+// 1 - w1 as the forward rounds it; added to t.
+__device__ __forceinline__ void add_corner_terms(float dw, int c, const float w1[3], float t[3]) {
+  float w01[3][2];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    w01[ax][0] = __fsub_rn(1.0f, w1[ax]);
+    w01[ax][1] = w1[ax];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int b1 = a == 0 ? 1 : 0, b2 = a == 2 ? 1 : 2;  // the other two axes
+    const float other = __fmul_rn(w01[b1][(c >> (2 - b1)) & 1], w01[b2][(c >> (2 - b2)) & 1]);
+    const float term = __fmul_rn(dw, other);
+    t[a] = ((c >> (2 - a)) & 1) ? __fadd_rn(t[a], term) : __fsub_rn(t[a], term);
+  }
+}
+
+// K7's table-gradient pass of the privatised levels. Dynamic shared memory:
+// lv.shared_floats floats, the levels' copies side by side. The block walks
+// its contiguous range of samples 32 consecutive samples per warp at a
+// time. Ray-ordered samples that share a coarse stencil are runs of
+// consecutive lanes: per level, a segmented scan (shuffles, as deep as the
+// warp's longest run) sums each run's terms, and the run's last lane adds
+// the sums to the copy with shared f32 atomics, one per nonzero float. The
+// block then stores its copy to its slab of `partial` (gridDim.x slabs of
+// lv.shared_floats floats); bwd_private_sum_kernel adds the slabs.
+template <int F>
+__global__ void __launch_bounds__(kPrivThreads, 1)
+    bwd_private_kernel(BwdArgs a, LevelGeometry g, BwdLevels lv, float* __restrict__ partial) {
+  extern __shared__ float4 copies4[];
+  float* copies = reinterpret_cast<float*>(copies4);
+  const uint32_t floats4 = lv.shared_floats / 4;
+  for (uint32_t j = threadIdx.x; j < floats4; j += kPrivThreads) copies4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const unsigned lane = threadIdx.x & 31u;
+  const uint32_t chunk = (a.n + gridDim.x - 1) / gridDim.x;
+  const uint32_t start = blockIdx.x * chunk;
+  const uint32_t end = min(a.n, start + chunk);
+  for (uint32_t t0 = start + (threadIdx.x & ~31u); t0 < end; t0 += kPrivThreads) {  // the same for the whole warp
+    const uint32_t i = t0 + lane;
+    const bool valid = i < end;  // a lane past the end adds zero terms
+    float p[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) p[ax] = valid ? __ldg(a.pos + 3 * (size_t)i + ax) : 0.0f;
+    for (int k = 0; k < lv.private_count; ++k) {
+      const int l = lv.private_level[k];
+      float gv[F], w[8], w1[3];
+#pragma unroll
+      for (int f = 0; f < F; ++f) gv[f] = valid ? __ldg(a.grad + ((size_t)i * a.num_levels + l) * F + f) : 0.0f;
+      uint32_t o[8];
+      flat_stencil<F>(p, g.res[l], true, a.modulus, o, w, w1);
+      // runs of lanes with one stencil (a dense level's stencil is fixed by
+      // its first and last corner): each lane's run head, the run's last
+      // lane, the warp's longest run
+      const uint32_t prev0 = __shfl_up_sync(0xffffffffu, o[0], 1), prev7 = __shfl_up_sync(0xffffffffu, o[7], 1);
+      const bool head = lane == 0 || prev0 != o[0] || prev7 != o[7];
+      const unsigned heads = __ballot_sync(0xffffffffu, head);
+      const unsigned first = 31u - __clz(heads & (0xffffffffu >> (31u - lane)));
+      const bool last = lane == 31u || ((heads >> (lane + 1u)) & 1u) != 0u;
+      const unsigned longest = __reduce_max_sync(0xffffffffu, lane - first + 1u);
+      float* dst = copies + lv.private_base[k];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float v[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = __fmul_rn(w[c], gv[f]);
+#pragma unroll
+        for (unsigned d = 1; d < 32u; d <<= 1) {
+          if (d >= longest) break;  // the same for the whole warp
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float up = __shfl_up_sync(0xffffffffu, v[f], d);
+            if (lane >= first + d) v[f] = __fadd_rn(v[f], up);
+          }
+        }
+        if (last) {
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            if (v[f] != 0.0f) atomicAdd(dst + o[c] + f, v[f]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float4* slab = reinterpret_cast<float4*>(partial + (size_t)blockIdx.x * lv.shared_floats);
+  for (uint32_t j = threadIdx.x; j < floats4; j += kPrivThreads) slab[j] = copies4[j];
+}
+
+// Sum the private pass's slabs in block order (one thread per 16 bytes of
+// the copies) and store the sum into the table gradient, where the lane
+// pass writes nothing. Only this sum across blocks has a fixed order: within
+// a block the runs' sums reach the copy through shared atomics in the order
+// the warps arrive, so the last bits may differ from run to run.
+__global__ void __launch_bounds__(kThreads)
+    bwd_private_sum_kernel(const float* __restrict__ partial, uint32_t blocks, BwdLevels lv,
+                           float* __restrict__ d_table, uint32_t level_stride) {
+  const uint32_t floats4 = lv.shared_floats / 4;
+  const uint32_t j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= floats4) return;
+  const float4* slabs = reinterpret_cast<const float4*>(partial);
+  float4 s = slabs[j];
+  for (uint32_t b = 1; b < blocks; ++b) {
+    const float4 v = slabs[(size_t)b * floats4 + j];
+    s.x = __fadd_rn(s.x, v.x), s.y = __fadd_rn(s.y, v.y), s.z = __fadd_rn(s.z, v.z), s.w = __fadd_rn(s.w, v.w);
+  }
+  int k = 0;
+  while (4 * j >= lv.private_base[k] + lv.private_floats[k]) ++k;
+  float* dst = d_table + (size_t)lv.private_level[k] * level_stride + (4 * j - lv.private_base[k]);
+  *reinterpret_cast<float4*>(dst) = s;
+}
+
+// The lane pass: table gradient of the levels the private pass does not
+// own (scale != 0), position gradient of every level.
+template <int F, bool kBlock>
+__global__ void __launch_bounds__(kThreads) bwd_lanes_kernel(BwdArgs a, LevelGeometry g, BwdLevels lv) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int G = kBlock ? 2 * F : 8;         // lanes per stencil
+  constexpr int R = 32 / G;                     // stencils per round
+  constexpr int kCorners = kBlock ? 4 / F : 1;  // corners per lane
+  constexpr int kVec = kCorners * F;            // floats per lane: 2 or 4
+  __shared__ uint32_t offsets[kWarps][kBlock ? 32 : 8 * 32];  // K1: block; K7: corners (slot layout)
+  __shared__ float weights[kWarps][8 * 32];                   // slot layout, kCorners per slot
+  __shared__ float grads[kWarps][32 * F];
+  __shared__ float scales[kWarps][32];
+  __shared__ float w1s[kWarps][3 * 32];
+  __shared__ float fxs[kWarps][3 * 32];
+  __shared__ float dxs[kWarps][3 * 32];
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = threadIdx.x >> 5;
+  const int lc = lv.lane_count;
+  const int spw = 32 / lc;  // whole samples per warp
+  const int js = (int)lane / lc, ls = (int)lane - js * lc;
+  const uint32_t i = (blockIdx.x * kWarps + warp) * (uint32_t)spw + (uint32_t)js;
+  const bool valid = js < spw && i < a.n;  // a prefix of the warp's lanes
+  const bool need_pos = a.d_pos != nullptr;
+  if (valid) {
+    const int l = lv.lane_level[ls];
+    float p[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) p[ax] = __ldg(a.pos + 3 * (size_t)i + ax);
+    const uint32_t base = (uint32_t)l * a.level_stride;
+    float w[8], w1[3], fx[3];
+    if constexpr (kBlock) {
+      const uint32_t blk =
+          block_stencil(p, g.res[l], (uint32_t)g.blocks_per_axis[l], g.dense[l] != 0, a.modulus, w, w1, fx);
+      offsets[warp][lane] = base + blk * (8 * F);
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+#pragma unroll
+        for (int m = 0; m < kCorners; ++m) weights[warp][slot<R>(k, lane) * kCorners + m] = w[k * kCorners + m];
+      }
+    } else {
+      uint32_t off[8];
+      flat_stencil<F>(p, g.res[l], g.dense[l] != 0, a.modulus, off, w, w1);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        offsets[warp][slot<R>(c, lane)] = base + off[c];
+        weights[warp][slot<R>(c, lane)] = w[c];
+      }
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) fx[ax] = (float)g.res[l];
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) grads[warp][lane * F + f] = __ldg(a.grad + ((size_t)i * a.num_levels + l) * F + f);
+    scales[warp][lane] = lv.scale[l];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      w1s[warp][3 * lane + ax] = w1[ax];
+      fxs[warp][3 * lane + ax] = fx[ax];
+    }
+  }
+  const int count = __popc(__ballot_sync(0xffffffffu, valid));
+  if (count == 0) return;  // the same for the whole warp
+  __syncwarp();
+  const int k = lane & (G - 1), q = lane / G;
+#pragma unroll 2
+  for (int r = 0; r < 32 / R; ++r) {
+    if (R * r >= count) break;  // the same for the whole warp
+    const int s = R * r + q;
+    const bool live = s < count;
+    const int ss = live ? s : 0;
+    float gv[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) gv[f] = grads[warp][ss * F + f];
+    const float sc = live ? scales[warp][ss] : 0.0f;
+    uint32_t off;
+    float wc[kCorners];
+    if constexpr (kBlock) {
+      off = offsets[warp][ss] + 4 * k;
+#pragma unroll
+      for (int m = 0; m < kCorners; ++m) wc[m] = weights[warp][slot<R>(k, ss) * kCorners + m];
+    } else {
+      off = offsets[warp][slot<R>(k, ss)];
+      wc[0] = weights[warp][slot<R>(k, ss)];
+    }
+    bool any = false;
+#pragma unroll
+    for (int m = 0; m < kCorners; ++m) any = any || wc[m] != 0.0f;
+    if (sc != 0.0f && any) {
+      float v[kVec];
+#pragma unroll
+      for (int m = 0; m < kCorners; ++m) {
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          v[m * F + f] = kBlock ? __fmul_rn(__fmul_rn(wc[m], gv[f]), sc) : __fmul_rn(wc[m], gv[f]);
+      }
+      if constexpr (kVec == 4)
+        atomicAdd(reinterpret_cast<float4*>(a.d_table + off), make_float4(v[0], v[1], v[2], v[3]));
+      else
+        atomicAdd(reinterpret_cast<float2*>(a.d_table + off), make_float2(v[0], v[1]));
+    }
+    if (need_pos) {  // the same for the whole grid
+      float tv[kVec];
+      const float* src = a.table + (live ? off : 0u);
+      if constexpr (kVec == 4) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+        tv[0] = x.x, tv[1] = x.y, tv[2] = x.z, tv[3] = x.w;
+        bf16_round2(tv[2], tv[3]);
+      } else {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(src));
+        tv[0] = x.x, tv[1] = x.y;
+      }
+      bf16_round2(tv[0], tv[1]);
+      float w1[3];
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) w1[ax] = w1s[warp][3 * ss + ax];
+      float t[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int m = 0; m < kCorners; ++m) {
+        float dw = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) dw = __fadd_rn(dw, __fmul_rn(gv[f], tv[m * F + f]));
+        add_corner_terms(dw, kBlock ? k * kCorners + m : k, w1, t);
+      }
+#pragma unroll
+      for (int o = G / 2; o >= 1; o >>= 1) {
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) t[ax] = __fadd_rn(t[ax], __shfl_xor_sync(0xffffffffu, t[ax], o));
+      }
+      if (live && k == 0) {
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) {
+          const float fx = fxs[warp][3 * ss + ax];
+          dxs[warp][3 * ss + ax] = fx != 0.0f ? __fmul_rn(t[ax], fx) : 0.0f;
+        }
+      }
+    }
+  }
+  if (need_pos) {
+    __syncwarp();
+    if (valid && ls == 0) {  // the sample's first stencil sums its levels in order
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        float acc = 0.0f;
+        for (int m = 0; m < lc; ++m) acc = __fadd_rn(acc, dxs[warp][3 * ((int)lane + m) + ax]);
+        a.d_pos[3 * (size_t)i + ax] = acc;
+      }
+    }
+  }
+}
+
+template <int F, bool kBlock>
+cudaError_t launch_bwd_lanes(const BwdArgs& a, const LevelGeometry& g, const BwdLevels& lv, float* partial,
+                             uint32_t private_blocks, cudaStream_t s) {
+  if (!kBlock && lv.private_count > 0) {
+    // the opt-in above 48 KB, raised to the maximum once per process (the
+    // port drives one card)
+    static bool raised = false;
+    cudaError_t err;
+    if (!raised) {
+      err = cudaFuncSetAttribute(bwd_private_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSharedBytes);
+      if (err != cudaSuccess) return err;
+      raised = true;
+    }
+    const int bytes = (int)lv.shared_floats * 4;
+    bwd_private_kernel<F><<<private_blocks, kPrivThreads, bytes, s>>>(a, g, lv, partial);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const uint32_t sum_grid = (lv.shared_floats / 4 + kThreads - 1) / kThreads;
+    bwd_private_sum_kernel<<<sum_grid, kThreads, 0, s>>>(partial, private_blocks, lv, a.d_table, a.level_stride);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (lv.lane_count > 0) {
+    const uint32_t spw = 32u / (uint32_t)lv.lane_count;
+    const uint32_t warps = (a.n + spw - 1) / spw;
+    const uint32_t grid = (warps + kThreads / 32 - 1) / (kThreads / 32);
+    bwd_lanes_kernel<F, kBlock><<<grid, kThreads, 0, s>>>(a, g, lv);
+  }
+  return cudaGetLastError();
+}
+
+// The passes' levels from the host's plan (bit l of private_mask
+// privatises level l), checked: only K7 privatises, and only when the
+// position gradient is not asked; a privatised level must be dense and get
+// a table gradient, and shared_bytes must be its copies'
+// bytes as hash_grid.bwd_plan counts them ((res+1)^3 * F floats rounded up
+// to a multiple of 4), at most kMaxSharedBytes. scales: K1's per-level
+// factors, null for K7 (1 on every level). Returns cudaErrorInvalidValue for
+// a plan the planner does not produce.
+cudaError_t make_bwd_levels(bool block, int features, const LevelGeometry& g, const float* scales,
+                            bool need_table, bool need_pos, unsigned private_mask, long long shared_bytes,
+                            BwdLevels* lv) {
+  if (((block || need_pos) && private_mask != 0) || (g.num_levels < 32 && (private_mask >> g.num_levels) != 0))
+    return cudaErrorInvalidValue;
+  lv->lane_count = 0;
+  lv->private_count = 0;
+  uint64_t total = 0;
+  for (int l = 0; l < g.num_levels; ++l) {
+    const float sc = need_table ? (block ? scales[l] : 1.0f) : 0.0f;
+    const bool priv = ((private_mask >> l) & 1u) != 0;
+    if (priv) {
+      if (!g.dense[l] || sc == 0.0f) return cudaErrorInvalidValue;
+      const uint64_t side = (uint64_t)g.res[l] + 1;
+      const uint64_t floats = (side * side * side * features + 3) / 4 * 4;
+      if (total + floats > (uint64_t)kMaxSharedBytes / 4) return cudaErrorInvalidValue;
+      const int k = lv->private_count++;
+      lv->private_level[k] = l;
+      lv->private_base[k] = (uint32_t)total;
+      lv->private_floats[k] = (uint32_t)floats;
+      total += floats;
+    }
+    lv->scale[l] = priv ? 0.0f : sc;
+    if (lv->scale[l] != 0.0f || need_pos) lv->lane_level[lv->lane_count++] = l;
+  }
+  if ((long long)total * 4 != shared_bytes) return cudaErrorInvalidValue;
+  lv->shared_floats = (uint32_t)total;
+  return cudaSuccess;
+}
+
+// The second design's entry: checks its limits, builds the passes' levels
+// and launches them.
+cudaError_t launch_bwd_design(bool block, const float* pos, const float* table, const float* grad, float* d_table,
+                              float* d_pos, long long n, int features, long long rows_per_level,
+                              const LevelGeometry& g, const float* scales, unsigned private_mask,
+                              long long shared_bytes, float* partial, int private_blocks, unsigned magic,
+                              unsigned shift, uint32_t modulus, cudaStream_t s) {
+  if ((features != 2 && features != 4) || (uint64_t)n * (uint64_t)g.num_levels >= (1ull << 31) ||
+      (uint64_t)g.num_levels * (uint64_t)rows_per_level * kLanes >= (1ull << 32) || (uintptr_t)table % 16 != 0 ||
+      (uintptr_t)d_table % 16 != 0)
+    return cudaErrorInvalidValue;
+  BwdLevels lv;
+  const cudaError_t bad = make_bwd_levels(block, features, g, scales, d_table != nullptr, d_pos != nullptr,
+                                          private_mask, shared_bytes, &lv);
+  if (bad != cudaSuccess) return bad;
+  if (lv.private_count > 0 && (partial == nullptr || private_blocks < 1 || (uintptr_t)partial % 16 != 0))
+    return cudaErrorInvalidValue;
+  // one private block per slab, each with at least one sample per thread
+  const long long enough = (n + kPrivThreads - 1) / kPrivThreads;
+  const uint32_t pb = (uint32_t)(private_blocks < enough ? private_blocks : enough);
+  BwdArgs a;
+  a.pos = pos;
+  a.table = table;
+  a.grad = grad;
+  a.d_table = d_table;
+  a.d_pos = d_pos;
+  a.n = (uint32_t)n;
+  a.num_levels = (uint32_t)g.num_levels;
+  a.level_stride = (uint32_t)(rows_per_level * kLanes);
+  a.modulus = {modulus, magic, shift};
+  if (block)
+    return features == 2 ? launch_bwd_lanes<2, true>(a, g, lv, partial, pb, s)
+                         : launch_bwd_lanes<4, true>(a, g, lv, partial, pb, s);
+  return features == 2 ? launch_bwd_lanes<2, false>(a, g, lv, partial, pb, s)
+                       : launch_bwd_lanes<4, false>(a, g, lv, partial, pb, s);
 }
 
 template <bool kExact>
@@ -879,26 +1408,33 @@ int nst_hash_encode_block(const void* pos, const void* table, void* out,
 // the table's shape, must be zeroed by the caller and receives the table
 // gradient; d_pos (n, 3) receives the position gradient. Either may be
 // null to skip that output. scales is a host array of num_levels floats.
-// Returns a cudaError_t (0 on success).
+// design 0 takes block_encode_bwd_kernel; 1 the lane groups (F = 2 or 4,
+// the lane kernels' 32-bit limits, table and d_table 16-byte aligned) with
+// the divisor (magic, shift) of T/8. Returns a cudaError_t (0 on success).
 int nst_hash_encode_block_bwd(const void* pos, const void* table, const void* grad,
                               void* d_table, void* d_pos, long long n, int num_levels,
                               int features_per_level, long long rows_per_level,
                               long long hash_table_size, const int* resolutions,
-                              const float* scales, void* stream) {
+                              const float* scales, int design, unsigned block_magic, unsigned block_shift,
+                              void* stream) {
   LevelGeometry g;
   const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
   if (bad != cudaSuccess) return (int)bad;
+  if (design != 0 && design != 1) return (int)cudaErrorInvalidValue;
   if (n == 0 || (d_table == nullptr && d_pos == nullptr)) return (int)cudaSuccess;
-  LevelScales sc;
-  for (int l = 0; l < num_levels; ++l) sc.scale[l] = scales[l];
   const uint32_t nblocks = (uint32_t)(hash_table_size / 8);
-  const unsigned int grid = (unsigned int)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)pos;
   const float* tab = (const float*)table;
   const float* gr = (const float*)grad;
   float* dt = (float*)d_table;
   float* dp = (float*)d_pos;
+  if (design == 1)
+    return (int)launch_bwd_design(true, p, tab, gr, dt, dp, n, features_per_level, rows_per_level, g, scales, 0,
+                                  0, nullptr, 0, block_magic, block_shift, nblocks, s);
+  LevelScales sc;
+  for (int l = 0; l < num_levels; ++l) sc.scale[l] = scales[l];
+  const unsigned int grid = (unsigned int)((n + kThreads - 1) / kThreads);
   switch (features_per_level) {
     case 1:
       block_encode_bwd_kernel<1><<<grid, kThreads, 0, s>>>(p, tab, gr, dt, dp, n, rows_per_level, nblocks, g, sc);
@@ -953,22 +1489,46 @@ int nst_hash_encode_flat(const void* pos, const void* table, void* out, long lon
 // K7 backward. pos, table and grad as for the forward (grad of out's
 // shape). d_table, of the table's shape, must be zeroed by the caller and
 // receives the table gradient; d_pos (n, 3) receives the position
-// gradient. Either may be null to skip it. Returns a cudaError_t.
+// gradient. Either may be null to skip it. design 0 takes
+// flat_encode_bwd_kernel (private_mask 0, shared_bytes 0); 1 the second
+// design (F = 2 or 4, the lane kernels' 32-bit limits, table and d_table
+// 16-byte aligned) with hash_grid.bwd_plan's privatised levels (a bit mask;
+// only with d_table and without d_pos) and shared bytes, and the private
+// pass's scratch `partial` of private_blocks slabs of shared_bytes each
+// (16-byte aligned; null without privatised levels), one block per slab at
+// most; (magic, shift) divide by hash_table_size. Returns a cudaError_t (0
+// on success); cudaErrorInvalidValue for a plan the planner does not
+// produce.
 int nst_hash_encode_flat_bwd(const void* pos, const void* table, const void* grad, void* d_table,
                              void* d_pos, long long n, int num_levels, int features_per_level,
                              long long rows_per_level, long long hash_table_size, const int* resolutions,
-                             void* stream) {
+                             int design, unsigned private_mask, long long shared_bytes, void* partial,
+                             int private_blocks, unsigned magic, unsigned shift, void* stream) {
   FlatGeometry g;
   const cudaError_t bad = make_flat_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
   if (bad != cudaSuccess) return (int)bad;
+  if (design != 0 && design != 1) return (int)cudaErrorInvalidValue;
+  if (design == 0 && (private_mask != 0 || shared_bytes != 0)) return (int)cudaErrorInvalidValue;
   if (n == 0 || (d_table == nullptr && d_pos == nullptr)) return (int)cudaSuccess;
-  const unsigned int grid = (unsigned int)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)pos;
   const float* tab = (const float*)table;
   const float* gr = (const float*)grad;
   float* dt = (float*)d_table;
   float* dp = (float*)d_pos;
+  if (design == 1) {
+    LevelGeometry lg;  // the flat levels in the block geometry's record (blocks_per_axis unused)
+    lg.num_levels = num_levels;
+    for (int l = 0; l < num_levels; ++l) {
+      lg.res[l] = g.res[l];
+      lg.blocks_per_axis[l] = 0;
+      lg.dense[l] = g.dense[l];
+    }
+    return (int)launch_bwd_design(false, p, tab, gr, dt, dp, n, features_per_level, rows_per_level, lg, nullptr,
+                                  private_mask, shared_bytes, (float*)partial, private_blocks, magic, shift,
+                                  (uint32_t)hash_table_size, s);
+  }
+  const unsigned int grid = (unsigned int)((n + kThreads - 1) / kThreads);
   const int64_t stride = rows_per_level * kLanes;
   const uint32_t t = (uint32_t)hash_table_size;
   switch (features_per_level) {

@@ -24,10 +24,14 @@ hand-written kernels in ``csrc/hash_grid.cu`` (or the call raises), CPU
 tensors go to the plain PyTorch twins in this module. The one-corner and
 z-pair paths are not ported.
 
-K1's forward and K3 have two designs on the card (``BLOCK_DESIGNS``): a
-group of lanes per (sample, level) with 16-byte loads, which F = 2 and 4
-take, and the first design, one thread per (sample, level), which the
-other widths take. ``chip_smoke.py`` times both.
+K1's forward, K3 and the backward of K1 and of K7 have two designs on the
+card (``DESIGNS``): a group of lanes per (sample, level) with 16-byte loads
+and, in the backward, one vector reduction per corner, which F = 2 and 4
+take; and the first design, one thread per (sample, level) or, in the
+backward, per sample with scalar atomics, which the other widths take.
+K7's backward in lane groups, asked for the table gradient alone, first
+reduces the dense coarse levels in shared memory (``bwd_plan``).
+``chip_smoke.py`` times every design.
 
 Integer hashing runs on int64 with the uint32 wrap made explicit
 (``_mul32``), so the twin reproduces the reference's uint32 arithmetic
@@ -65,18 +69,28 @@ launch_counts: Dict[str, int] = {
     "hash_encode_flat_bwd": 0,
     # K1 or K3 launches (counted above too) that took the per-thread design
     "hash_encode_block_per_thread": 0,
+    # K1 bwd or K7 bwd launches (counted above too) that took the per-thread design
+    "hash_encode_bwd_per_thread": 0,
 }
 
-# Designs of the block-layout forward (K1, K3): nst_hash_encode_block's
-# design codes. "per-thread": one thread per (sample, level); "lane-groups":
-# a group of lanes per (sample, level), levels fastest over the grid.
-BLOCK_DESIGNS = {"per-thread": 0, "lane-groups": 1}
-# The widths the lane groups take, and the design K1 and K3 take there: the
-# faster for both kernels at a 512^2 render chunk's inputs on the H100
-# (chip_smoke.py times both designs; PERF.md records the times).
-# Other widths take the per-thread kernel.
+# Designs of K1's forward, K3 and the backward of K1 and K7, by their C
+# design codes. "per-thread": one thread per (sample, level) (the forward)
+# or per sample (the backward, with scalar atomics); "lane-groups": a group
+# of lanes per (sample, level) with 16-byte loads, and in the backward one
+# vector reduction per corner. K7's backward in lane groups also reduces
+# the dense coarse levels in shared memory first when it is asked for the
+# table gradient alone (``bwd_plan``).
+DESIGNS = {"per-thread": 0, "lane-groups": 1}
+# The widths the lane groups take, where every kernel takes them by default:
+# the faster design at a 512^2 render chunk's inputs (forward) and at the
+# training steps' own inputs (backward) on the H100 (chip_smoke.py phases
+# 30 and 31 time both designs in turns; PERF.md records the times). Other
+# widths take the per-thread kernels.
 _LANE_WIDTHS = (2, 4)
-_BLOCK_DEFAULT = "lane-groups"
+_DEFAULT = "lane-groups"
+# Shared memory one block may take on the H100 (227 KB, opt-in above 48 KB).
+# The CUDA entry re-checks a plan against its own copy (kMaxSharedBytes).
+SHARED_BYTES_PER_BLOCK = 232_448
 
 
 def reset_launch_counts() -> None:
@@ -321,16 +335,50 @@ def _u32_divisor(d: int) -> Tuple[int, int]:
     return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
 
 
-def _block_design(features: int, design: Optional[str] = None) -> str:
-    """The design of K1 or K3 at ``features`` per level: ``design``,
+def _pick_design(features: int, design: Optional[str] = None) -> str:
+    """The design of a kernel at ``features`` per level: ``design``,
     checked, or the default."""
     if design is None:
-        return _BLOCK_DEFAULT if features in _LANE_WIDTHS else "per-thread"
-    if design not in BLOCK_DESIGNS:
-        raise ValueError(f"design {design!r} is not one of {list(BLOCK_DESIGNS)}")
+        return _DEFAULT if features in _LANE_WIDTHS else "per-thread"
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {list(DESIGNS)}")
     if design != "per-thread" and features not in _LANE_WIDTHS:
         raise ValueError(f"the {design} design takes F in {_LANE_WIDTHS}, got F={features}")
     return design
+
+
+def _private_floats(res: int, hash_table_size: int, features: int) -> Optional[int]:
+    """Floats of one level's table-gradient copy in K7's private pass, or
+    None for a hashed level: a dense level's (res+1)^3 entries of F floats,
+    rounded up to a multiple of 4 (the pass stores 16 bytes at a time). The
+    CUDA entry counts the same (make_bwd_levels) and refuses a mismatch."""
+    side = res + 1
+    return -(-(side**3) * features // 4) * 4 if side**3 <= hash_table_size else None
+
+
+def bwd_plan(resolutions: Sequence[int], hash_table_size: int, features: int) -> Tuple[Tuple[int, ...], int]:
+    """The levels whose table gradient K7's private pass reduces in shared
+    memory when the table gradient alone is asked, and the shared bytes one
+    of its blocks takes: every dense level, coarse first, whose copy fits
+    ``SHARED_BYTES_PER_BLOCK`` together with those picked before it. The
+    CUDA entry refuses a plan that this function does not give."""
+    picked, total = [], 0
+    for l, res in enumerate(resolutions):
+        f = _private_floats(int(res), hash_table_size, features)
+        if f is not None and total + 4 * f <= SHARED_BYTES_PER_BLOCK:
+            picked.append(l)
+            total += 4 * f
+    return tuple(picked), total
+
+
+def _check_lane_limits(table: torch.Tensor, n: int, *tensors: torch.Tensor) -> None:
+    """The lane kernels' 32-bit limits and alignment (forward and backward)."""
+    if any(t.data_ptr() % 16 for t in (table, *tensors)):
+        raise ValueError("the lane-group kernels take a 16-byte aligned table (and table gradient)")
+    L = table.shape[0]
+    if n * L >= 2**31 or table.numel() >= 2**32:
+        raise ValueError(f"the lane-group kernels take n * num_levels < 2^31 and a table of fewer than 2^32 "
+                         f"floats, got {n} * {L} and {table.numel()}")
 
 
 def _kernel_library() -> ctypes.CDLL:
@@ -345,13 +393,19 @@ def _kernel_library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 3 + geometry + [ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 4 + [ctypes.c_void_p]
         )
         lib.nst_hash_encode_block.restype = ctypes.c_int
+        # scales, design, divisor (magic, shift), stream
         lib.nst_hash_encode_block_bwd.argtypes = (
-            [ctypes.c_void_p] * 5 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_int] + [ctypes.c_uint] * 2
+            + [ctypes.c_void_p]
         )
         lib.nst_hash_encode_block_bwd.restype = ctypes.c_int
         lib.nst_hash_encode_flat.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_void_p]
         lib.nst_hash_encode_flat.restype = ctypes.c_int
-        lib.nst_hash_encode_flat_bwd.argtypes = [ctypes.c_void_p] * 5 + geometry + [ctypes.c_void_p]
+        # design, private level mask, shared bytes, private-pass scratch and
+        # block count, divisor (magic, shift), stream
+        lib.nst_hash_encode_flat_bwd.argtypes = [ctypes.c_void_p] * 5 + geometry + [
+            ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+            ctypes.c_uint, ctypes.c_void_p]
         lib.nst_hash_encode_flat_bwd.restype = ctypes.c_int
         lib.nst_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nst_cuda_error_string.restype = ctypes.c_char_p
@@ -382,25 +436,21 @@ def _block_kernel(
     hash_table_size: int, exact: bool, _design: Optional[str] = None,
 ) -> torch.Tensor:
     """Launch the CUDA forward kernel (K3 if ``exact`` else K1) in its
-    default design, or in ``_design`` (one of ``BLOCK_DESIGNS``), which
-    only chip_smoke.py's comparison of the designs sets."""
+    default design, or in ``_design`` (one of ``DESIGNS``), which only
+    chip_smoke.py's comparison of the designs sets."""
     L, S, _ = table.shape
     n = pos.shape[0]
     F = 128 * S // hash_table_size
-    design = _block_design(F, _design)
+    design = _pick_design(F, _design)
     out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
     if n == 0:
         return out
     if design != "per-thread":
-        if table.data_ptr() % 16:
-            raise ValueError("the lane-group kernels take a 16-byte aligned table")
-        if n * L >= 2**31 or table.numel() >= 2**32:
-            raise ValueError(f"the lane-group kernels take n * num_levels < 2^31 and a table of fewer than 2^32 "
-                             f"floats, got {n} * {L} and {table.numel()}")
+        _check_lane_limits(table, n)
     _launch(
         "hash_encode_block_exact" if exact else "hash_encode_block", "nst_hash_encode_block", pos,
         pos.data_ptr(), table.data_ptr(), out.data_ptr(),
-        *_geometry_args(table, n, min_res, max_res, hash_table_size), int(exact), BLOCK_DESIGNS[design],
+        *_geometry_args(table, n, min_res, max_res, hash_table_size), int(exact), DESIGNS[design],
         *_u32_divisor(L), *_u32_divisor(hash_table_size // 8),
     )
     if design == "per-thread":
@@ -408,26 +458,68 @@ def _block_kernel(
     return out
 
 
+def _bwd_launch_plan(design: str, table: torch.Tensor, d_table: Optional[torch.Tensor], n: int, min_res: int,
+                     max_res: int, hash_table_size: int, privatise: bool = False):
+    """(design code, private level mask, shared bytes) of a backward launch
+    in ``design``, with ``bwd_plan``'s levels if ``privatise`` (K7 asked for
+    the table gradient alone) and the design is the lane groups; checks the
+    lane kernels' limits."""
+    code = DESIGNS[design]
+    if not code:
+        return 0, 0, 0
+    _check_lane_limits(table, n, *([] if d_table is None else [d_table]))
+    if not privatise:
+        return code, 0, 0
+    L, S, _ = table.shape
+    return (code, *_private_mask(L, min_res, max_res, hash_table_size, 128 * S // hash_table_size))
+
+
+@functools.lru_cache(maxsize=None)
+def _private_mask(L: int, min_res: int, max_res: int, hash_table_size: int, features: int) -> Tuple[int, int]:
+    """``bwd_plan``'s levels as a bit mask, and its bytes, for one shape
+    (cached: a training step asks the same twice per step)."""
+    levels, nbytes = bwd_plan(compute_level_resolutions(L, min_res, max_res), hash_table_size, features)
+    return sum(1 << l for l in levels), nbytes
+
+
+def _private_scratch(pos: torch.Tensor, nbytes: int) -> Tuple[Optional[torch.Tensor], int]:
+    """The private pass's scratch, one slab of ``nbytes`` per SM, and the
+    slab count; the CUDA entry launches one block per slab or fewer (none
+    with less than one sample per thread). (None, 0) without privatised
+    levels."""
+    if not nbytes:
+        return None, 0
+    sms = torch.cuda.get_device_properties(pos.device).multi_processor_count
+    return torch.empty(sms * nbytes // 4, dtype=torch.float32, device=pos.device), sms
+
+
 def _block_bwd_kernel(
     pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, scales: Sequence[float], *,
     min_res: int, max_res: int, hash_table_size: int, need_positions: bool = True, need_table: bool = True,
+    _design: Optional[str] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Launch the CUDA K1 backward: (d_table or None, d_positions or None)."""
+    """Launch the CUDA K1 backward in its default design, or in ``_design``
+    (one of ``DESIGNS``, which only chip_smoke.py's comparison of the
+    designs sets): (d_table or None, d_positions or None)."""
     n = pos.shape[0]
+    L, S, _ = table.shape
+    design = _pick_design(128 * S // hash_table_size, _design)
     d_table = torch.zeros_like(table) if need_table else None
     d_pos = torch.empty_like(pos) if need_positions else None
     if n == 0 or not (need_table or need_positions):
         return d_table, d_pos
-    if grad.shape != (n, table.shape[0] * (128 * table.shape[1] // hash_table_size)) or grad.dtype != torch.float32:
+    if grad.shape != (n, L * (128 * S // hash_table_size)) or grad.dtype != torch.float32:
         raise ValueError(f"grad must be float32 ({n}, L*F), got {grad.dtype} {tuple(grad.shape)}")
-    L = table.shape[0]
+    code, _, _ = _bwd_launch_plan(design, table, d_table, n, min_res, max_res, hash_table_size)
     _launch(
         "hash_encode_block_bwd", "nst_hash_encode_block_bwd", pos,
         pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(),
         d_table.data_ptr() if need_table else None, d_pos.data_ptr() if need_positions else None,
         *_geometry_args(table, n, min_res, max_res, hash_table_size),
-        (ctypes.c_float * L)(*[float(s) for s in scales]),
+        (ctypes.c_float * L)(*[float(s) for s in scales]), code, *_u32_divisor(hash_table_size // 8),
     )
+    if design == "per-thread":
+        launch_counts["hash_encode_bwd_per_thread"] += 1
     return d_table, d_pos
 
 
@@ -571,22 +663,35 @@ def _flat_kernel(pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_re
 
 def _flat_bwd_kernel(
     pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, *, min_res: int, max_res: int,
-    hash_table_size: int, need_positions: bool = True, need_table: bool = True,
+    hash_table_size: int, need_positions: bool = True, need_table: bool = True, _design: Optional[str] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Launch the CUDA K7 backward: (d_table or None, d_positions or None)."""
+    """Launch the CUDA K7 backward in its default design, or in ``_design``
+    (one of ``DESIGNS``, set only by chip_smoke.py): (d_table or None,
+    d_positions or None). The lane groups privatise ``bwd_plan``'s levels
+    when the table gradient alone is asked (a neus-facto step's case); with
+    the position gradient, which walks every level anyway, they do not
+    (PERF.md records both)."""
     n = pos.shape[0]
+    L = table.shape[0]
+    design = _pick_design(_features(table, hash_table_size), _design)
     d_table = torch.zeros_like(table) if need_table else None
     d_pos = torch.empty_like(pos) if need_positions else None
     if n == 0 or not (need_table or need_positions):
         return d_table, d_pos
-    if grad.shape != (n, table.shape[0] * _features(table, hash_table_size)) or grad.dtype != torch.float32:
+    if grad.shape != (n, L * _features(table, hash_table_size)) or grad.dtype != torch.float32:
         raise ValueError(f"grad must be float32 ({n}, L*F), got {grad.dtype} {tuple(grad.shape)}")
+    plan = _bwd_launch_plan(design, table, d_table, n, min_res, max_res, hash_table_size,
+                            privatise=need_table and not need_positions)
+    scratch, blocks = _private_scratch(pos, plan[2])
     _launch(
         "hash_encode_flat_bwd", "nst_hash_encode_flat_bwd", pos,
         pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(),
         d_table.data_ptr() if need_table else None, d_pos.data_ptr() if need_positions else None,
-        *_geometry_args(table, n, min_res, max_res, hash_table_size),
+        *_geometry_args(table, n, min_res, max_res, hash_table_size), *plan,
+        scratch.data_ptr() if blocks else None, blocks, *_u32_divisor(hash_table_size),
     )
+    if design == "per-thread":
+        launch_counts["hash_encode_bwd_per_thread"] += 1
     return d_table, d_pos
 
 
@@ -657,7 +762,11 @@ def hash_encode(
     On the card, K1's forward and K3 at F = 2 or 4 (every shipped config)
     take the lane-group kernels, which index in 32 bits: they take fewer
     than 2^31 (sample, level) pairs, a table of fewer than 2^32 floats,
-    16-byte aligned, and raise ValueError otherwise.
+    16-byte aligned, and raise ValueError otherwise. The backward of K1 and
+    of K7 at F = 2 or 4 takes the same limits (its table gradient is
+    allocated aligned): lane groups with vector reductions; K7, asked for
+    the table gradient alone, first reduces the dense coarse levels whose
+    gradient fits one block's shared memory (``bwd_plan``).
 
     ``bwd_levels`` (K1 only): the levels whose table gets a gradient, scaled
     by ``bwd_scale``; the other levels get none. None gives every level an

@@ -17,6 +17,15 @@ import torch
 # test runs on the CPU and says so with this device.
 CPU = "cpu"
 
+# torch's CPU sin runs MKL's threaded vmsSin, asked for high accuracy. On
+# the first call in a process one of MKL's threads now and then computes its
+# chunk in MKL's enhanced-performance mode instead (~11 bits, up to 1.5e-4
+# off; bit-equal to vmsSin with VML_EP); the next call is within 4e-8. The
+# NeRF-encoding parity test compares sines at 3e-5 and is the first test of
+# its xdist worker, so every test process makes a first call here, on
+# enough values to reach each of MKL's threads.
+torch.sin(torch.linspace(-4.0, 4.0, 1 << 16))
+
 
 @pytest.fixture
 def cuda_device():
@@ -30,7 +39,8 @@ def cuda_device():
 
 # hash_grid's launch counts after a run on the CPU: no kernel launched.
 NO_HASH_LAUNCHES = {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0,
-                    "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_per_thread": 0}
+                    "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_per_thread": 0,
+                    "hash_encode_bwd_per_thread": 0}
 
 # Tiny nerfacto: 4 field levels at T=2^12 (levels 0-1 dense, 2-3 hashed),
 # a 4-level proposal net, 16-wide MLPs, 16 probes / 8 proposal / 8 field
@@ -155,6 +165,18 @@ def init_params(init_fn, seed: int):
         return np.array(x)
 
     return jax.tree_util.tree_map_with_path(widen, params)
+
+
+def ray_positions(rng: np.random.Generator, rays: int = 4, samples: int = 1000, clip: bool = True) -> np.ndarray:
+    """(rays * samples, 3) float32 positions on straight rays through the
+    unit cube, in ray order as a sampler lays them out, spaced ~1/1000 of
+    the cube: the coarse levels' entries each take hundreds of terms.
+    Without ``clip`` the rays run out of the cube at both ends."""
+    o = rng.uniform(0.2, 0.8, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    p = o + np.linspace(-0.6, 0.6, samples)[None, :, None] * d
+    return (np.clip(p, 0.0, 1.0) if clip else p).reshape(-1, 3).astype(np.float32)
 
 
 def to_torch(x) -> torch.Tensor:

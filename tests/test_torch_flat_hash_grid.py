@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import CPU, NO_HASH_LAUNCHES, init_params, to_torch
+from _torch_port import CPU, NO_HASH_LAUNCHES, init_params, ray_positions, to_torch
 from nerfstudio_tpu.core.rays import Frustums as JFrustums
 from nerfstudio_tpu.core.rays import RaySamples as JRaySamples
 from nerfstudio_tpu.fields.density_fields import HashMLPDensityField as JDensityField
@@ -36,12 +36,20 @@ CASES = {
     "proposal": (5, 16, 128, 15, 2),
     "f1": (3, 4, 32, 10, 1),
     "f4": (3, 4, 32, 11, 4),
+    # the proposal grid at ray-ordered positions (_torch_port.ray_positions):
+    # the coarse levels' entries each take hundreds of terms (up to ~500
+    # at level 0), as in the neus-facto step
+    "proposal_rays": (5, 16, 128, 15, 2),
 }
 
 
 def _inputs(case, n=600, seed=0):
     L, lo, hi, log2_t, F = CASES[case]
     rng = np.random.default_rng(seed)
+    if case.endswith("_rays"):
+        pos = ray_positions(rng)
+        table = rng.uniform(-1, 1, (L, 2**log2_t * F // 128, 128)).astype(np.float32)
+        return pos, table, dict(num_levels=L, min_res=lo, max_res=hi, hash_table_size=2**log2_t)
     pos = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
     res = compute_level_resolutions(L, lo, hi)
     # exact vertices and cell centres of every level, and the cube's faces

@@ -180,17 +180,22 @@ def test_u32_divisor_divides_every_uint32(d):
 def test_block_design_defaults_and_checks():
     """F = 2 and 4 (every shipped config) take the lane-group design by
     default, the other widths the per-thread kernel; a lane design at
-    another width, or an unknown name, raises."""
+    another width, or an unknown name, raises. K1's forward, K3 and both
+    backwards (K1 bwd, K7 bwd) pick from the same designs, with the C design
+    codes 0 (per-thread) and 1 (lane groups); K7's private pass is no design
+    of its own but follows the input (``test_k7_launch_plan_by_design``)."""
+    assert thg.DESIGNS == {"per-thread": 0, "lane-groups": 1}
     for f in (2, 4):
-        assert thg._block_design(f) == thg._BLOCK_DEFAULT != "per-thread"
+        assert thg._pick_design(f) == thg._DEFAULT == "lane-groups"
     for f in (1, 8, 16):
-        assert thg._block_design(f) == "per-thread"
-    for d in thg.BLOCK_DESIGNS:
-        assert thg._block_design(4, d) == d
+        assert thg._pick_design(f) == "per-thread"
+    for d in thg.DESIGNS:
+        assert thg._pick_design(4, d) == d
     with pytest.raises(ValueError):
-        thg._block_design(8, "lane-groups")
-    with pytest.raises(ValueError):
-        thg._block_design(4, "no such design")
+        thg._pick_design(8, "lane-groups")
+    for name in ("no such design", "privatised"):
+        with pytest.raises(ValueError):
+            thg._pick_design(4, name)
 
 
 # (L, T, F, min_res, max_res) of the card test: both lane widths, dense and
@@ -210,7 +215,7 @@ def test_block_encode_kernels_match_the_twin_on_the_card(cuda_device, L, T, F, m
     kw = dict(min_res=min_res, max_res=max_res, hash_table_size=T)
     twin = thg._block_exact_twin if exact else thg._block_stochastic_twin
     want = twin(pos, table, **kw)
-    for design in thg.BLOCK_DESIGNS:
+    for design in thg.DESIGNS:
         got = thg._block_kernel(pos, table, exact=exact, _design=design, **kw)
         torch.cuda.synchronize()
         diff = (got - want).abs()

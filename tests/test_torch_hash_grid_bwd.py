@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import NO_HASH_LAUNCHES
+from _torch_port import NO_HASH_LAUNCHES, ray_positions
 from nerfstudio_tpu.ops import hash_grid as jhg
 from nerfstudio_torch.ops import hash_grid as thg
 
@@ -34,7 +34,13 @@ CASES = [
     (4, 2**10, 4, 2, 48),
     (4, 2**16, 8, 8, 80),
     (3, 2**12, 2, 7, 28),
+    (4, 2**12, 4, 4, 64),
 ]
+# Cases run at ray-ordered positions (_torch_port.ray_positions, running out
+# of the cube at both ends): the coarse levels' entries each take hundreds
+# of terms, as in the training step, whose inputs chip_smoke.py holds every
+# backward design to this twin at.
+RAY_CASES = {(4, 2**12, 4, 4, 64)}
 SUBSETS = {"all": None, "P2": "even", "none": ()}
 
 
@@ -66,7 +72,10 @@ def _bwd_levels(subset, L):
 
 def _run_both(L, T, F, min_res, max_res, bwd_levels, scale, seed=0, n=2500):
     res = [int(r) for r in jhg.compute_level_resolutions(L, min_res, max_res)]
-    pos = _positions(n, seed, res)
+    if (L, T, F, min_res, max_res) in RAY_CASES:
+        pos = ray_positions(np.random.default_rng(seed), clip=False)
+    else:
+        pos = _positions(n, seed, res)
     rng = np.random.default_rng(seed + 1)
     table = rng.uniform(-1.0, 1.0, (L, T * F // 128, 128)).astype(np.float32)
     g = rng.normal(0.0, 1.0, (pos.shape[0], L * F)).astype(np.float32)
