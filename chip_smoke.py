@@ -20,7 +20,11 @@ shapes its path gives it, and drives the port's paths from random weights:
   its chunks hands to K1 and K3, captured for phase 30;
 * splatfacto at the shipped config on tools/bench_models.py's setup
   (phases 13-19): K4 forward and backward, K5 and K6 forward and backward
-  against their twins at 100,000 slots and 512^2; training through
+  against their twins at 100,000 slots and 512^2 (K5 in both designs,
+  tile-bucketed and sorted, at the check inputs, with one tile longer
+  than one block of the bucketed sort orders at once, and at one trained
+  step's own inputs, then timed in turns beside torch.sort of the live
+  keys and of all the slots' keys); training through
   ``SplatPipeline.train``'s schedule from step 6000 (the step, refine with
   an opacity reset, 5 warm-up and 30 timed steps, one launch of each of the
   five kernels checked per step); a profile of three steps, one refine and
@@ -28,12 +32,15 @@ shapes its path gives it, and drives the port's paths from random weights:
   twins;
 * neus-facto at the shipped config (phases 20-27): K7 forward and backward
   against their twins (the backward against a float64 run) at the proposal
-  nets' shapes; the five gather probes at their own shapes through their
+  nets' shapes, the forward in every design, also at both calls of one
+  eval frame chunk, and timed in turns; the five gather probes at their own shapes through their
   entry points, against their twins and their PyTorch library calls;
   training on bench.py's scene at 2048 rays (steps 300-301, then warm-up
   and timed steps from 6000, two K7 forward and two backward launches
   checked per step), a profile of three steps, one 512^2 eval frame through
-  ``render_camera`` and one step on the card against the CPU twins;
+  ``render_camera`` (timed with K7's forward in each design in turns, and
+  profiled by kernel class) and one step on the card against the CPU
+  twins;
 * K6's backward at the inputs of one trained-state splat step (phase 28);
 * the kernels with more than one design (phases 29-30), each design
   against the twin and timed in turns on the same inputs: the per-lane
@@ -569,7 +576,8 @@ def profile_device(run, per=PROFILED_STEPS):
 
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
     ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact", "bwd_lanes", "bwd_private")),
-    ("gsplat kernels", ("project_fwd", "project_bwd", "tile_keys", "tile_ranges", "blend_fwd", "blend_bwd")),
+    ("gsplat kernels", ("project_fwd", "project_bwd", "tile_keys", "tile_ranges", "tile_count", "tile_scan",
+                        "tile_scatter", "tile_sort", "blend_fwd", "blend_bwd")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
     ("Adam (foreach)", ("multi_tensor_apply",)),
@@ -584,11 +592,12 @@ KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
 
 
 def is_k7(name: str) -> bool:
-    """A K7 kernel's profiler name: the flat forward and first-design
-    backward and the private pass (K7 only) by name, the lane pass by its
-    kBlock = false template argument."""
+    """A K7 kernel's profiler name: the flat forward (both designs), the
+    first-design backward and the private pass (K7 only) by name, the lane
+    pass by its kBlock = false template argument."""
     name = name.lower()
-    return "flat_encode" in name or "bwd_private" in name or ("bwd_lanes" in name and "false>" in name)
+    return ("flat_encode" in name or "flat_lanes" in name or "bwd_private" in name
+            or ("bwd_lanes" in name and "false>" in name))
 
 
 def kernel_class(name: str) -> str:
@@ -668,8 +677,8 @@ SPLAT_SLOTS, SPLAT_RANDOM, SPLAT_SCALE = 100_000, 50_000, 1.5
 SPLAT_CAMERAS = 8
 SPLAT_START, SPLAT_WARMUP, SPLAT_TIMED = 6000, 5, 30
 SPLAT_CHECK_HW, SPLAT_CHECK_GAUSS = 128, 4096
-SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "blend_saturating",
-                 "blend_saturating_bwd")
+SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile_bin_bucketed",
+                 "blend_saturating", "blend_saturating_bwd")
 
 # K4 kernel vs twin: the same float32 operations in the same order (the
 # library is built without FMA contraction), so the forward differs only
@@ -823,30 +832,93 @@ def check_k4(name, x, gen):
     return max_abs, timing, (out, valid), bounds
 
 
-def check_k5(name, x, projected):
-    """K5 against its twin: keys, ids and tile ranges exactly equal."""
-    from nerfstudio_torch.ops.gsplat import rasterize as rz
-
+def k5_args(x, projected):
+    """K5's arguments at the main path's shapes (tile_bin's, shipped binning)."""
     (m2, z, con, radii, *_), valid = projected
     tiles_x, tiles_y = (x["width"] + 15) // 16, (x["height"] + 15) // 16
-    args = (m2, radii, z, valid, tiles_x, tiles_y, 16, 16, 64)
-    got = rz._tile_bin_kernel(*args)
+    return (m2, radii, z, valid, tiles_x, tiles_y, 16, 16, 64)
+
+
+def overflow_args(args):
+    """``args`` with one tile made longer than one block of the bucketed
+    sort orders at once (its merge path): the first TILE_SORT_KEYS + 4000
+    gaussians moved into tile (10, 10) at radius 2, made valid, their depths
+    kept."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    m2, radii, z, valid, *rest = args
+    k = rz.TILE_SORT_KEYS + 4000
+    gen = torch.Generator(device=m2.device).manual_seed(SEED + 5)
+    m2, radii, valid = m2.clone(), radii.clone(), valid.clone()
+    m2[:k] = 162.0 + 12.0 * torch.rand((k, 2), generator=gen, device=m2.device)
+    radii[:k] = 2.0
+    valid[:k] = True
+    return (m2, radii, z, valid, *rest)
+
+
+def check_k5(name, args, what):
+    """Every design of K5 against its twin on ``args``: starts, counts and
+    the live entries (the first counts.sum()) of packed and ids exactly
+    equal; the first design also its sentinel tail, as before. Logs the
+    live pairs, the sentinels the first design writes, and the pairs per
+    tile. Returns a record: sizes, bound, the bins, timing fns (each design,
+    the twin, and torch.sort of the live keys shuffled and of all of the
+    first design's keys shuffled)."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
     ref = rz._tile_bin_twin(*args)
-    torch.cuda.synchronize()
-    same = {k: bool(torch.equal(getattr(got, k), getattr(ref, k))) for k in ("packed", "ids", "starts", "counts")}
+    total = int(ref.counts.sum())
+    got, same = {}, {}
+    for d in rz.TILE_BIN_DESIGNS:
+        got[d] = rz._tile_bin_kernel(*args, _design=d)
+        torch.cuda.synchronize()
+        upto = None if d == "sorted" else total
+        same[d] = {k: bool(torch.equal(getattr(got[d], k)[:upto], getattr(ref, k)[:upto]))
+                   for k in ("packed", "ids")}
+        same[d].update({k: bool(torch.equal(getattr(got[d], k), getattr(ref, k))) for k in ("starts", "counts")})
     counts = ref.counts.double()
-    log(name, f"{int(valid.sum())} visible gaussians, {tiles_x}x{tiles_y} tiles: {got.packed.numel()} keys, "
-        f"{int(counts.sum())} in tiles (per tile mean {float(counts.mean()):.0f}, max {int(counts.max())}); "
-        f"kernel == twin: {same}")
-    if not all(same.values()):
-        raise AssertionError(f"{name}: kernel disagrees with its twin")
-    # the inputs once, the sorted keys, ids and tile ranges once (no flops to
-    # speak of); the library call is the sort alone, of these keys shuffled
-    bnd = bound(nbytes(m2, radii, z, valid, got.packed, got.ids, got.starts, got.counts), 0)
-    shuffled = got.packed[torch.randperm(got.packed.numel(), device=got.packed.device)]
-    timing = dict(kernel=lambda: rz._tile_bin_kernel(*args), twin=lambda: rz._tile_bin_twin(*args),
-                  library=lambda: torch.sort(shuffled))
-    return 0.0, timing, got, bnd
+    slots = ref.packed.numel()
+    m2, radii, z, valid, tiles_x, tiles_y = args[:6]
+    rec = dict(what=what, tiles=tiles_x * tiles_y, slots=slots, live=total, sentinels=slots - total,
+               per_tile_mean=float(counts.mean()), per_tile_max=int(counts.max()),
+               longer_than_shared=int((ref.counts > rz.TILE_SORT_KEYS).sum()))
+    log(name, f"{what}: {int(valid.sum())} valid gaussians, {tiles_x}x{tiles_y} tiles, {slots} window slots: "
+        f"{total} live pairs, {slots - total} sentinels in the first design, per tile mean "
+        f"{rec['per_tile_mean']:.0f} max {rec['per_tile_max']} ({rec['longer_than_shared']} tiles over the "
+        f"{rz.TILE_SORT_KEYS} keys one block sorts at once); equal to the twin: {same}")
+    if not all(all(v.values()) for v in same.values()):
+        raise AssertionError(f"{name}: a design disagrees with its twin ({what})")
+    n_big = max(m2.shape[0] // args[7], 1) if args[7] else 0
+    # the inputs once (the big window's indices too), the tiles' ranges and
+    # the live entries of packed and ids once; no flops to speak of
+    rec["bound"] = bound(nbytes(m2, radii, z, valid) + 8 * n_big + 8 * tiles_x * tiles_y + 12 * total, 0)
+    dev = m2.device
+    live = ref.packed[:total].to(dev)
+    live = live[torch.randperm(total, device=dev)]
+    every = got["sorted"].packed[torch.randperm(slots, device=dev)]
+    rec["timing"] = {d: (lambda d=d: rz._tile_bin_kernel(*args, _design=d)) for d in rz.TILE_BIN_DESIGNS}
+    rec["timing"].update({"torch.sort, live keys": lambda: torch.sort(live),
+                          "torch.sort, all keys": lambda: torch.sort(every)})
+    rec["twin"] = lambda: rz._tile_bin_twin(*args)
+    rec["bins"] = got[rz.TILE_BIN_DESIGNS[0]]
+    return rec
+
+
+def time_k5(rec):
+    """Every design and both torch.sort yardsticks in turns (``paired_ms``)
+    and by the profiler's device time, into ``rec``."""
+    with torch.no_grad():
+        ev = paired_ms(rec["timing"])
+        dev = {k: device_ms(fn) for k, fn in rec["timing"].items()}
+    rec["times"] = {k: dict(ms=ev[k][0], ms_runs=ev[k][1], device_ms=dev[k]) for k in rec["timing"]}
+    return rec
+
+
+def k5_line(rec) -> str:
+    return (f"{rec['what']} ({rec['live']} live of {rec['slots']}, max {rec['per_tile_max']} per tile, bound "
+            f"{rec['bound'][0]:.4f} ms): " + ", ".join(
+                f"{k} {v['ms']:.4f} {[round(m, 4) for m in v['ms_runs']]} / {v['device_ms']:.4f}"
+                for k, v in rec["times"].items()))
 
 
 def k6_bwd_check(m2, con, ch, op, bins, T, last, g_ch):
@@ -914,26 +986,33 @@ def check_k6(name, x, projected, bins, gen):
     return (fwd_abs, bwd_err), timing, bounds, walked
 
 
-def capture_k6_bwd(pipeline, state, gen):
-    """The arguments of K6's backward in one steady-state splat step, as
-    the step's own autograd call hands them over (tensors cloned): means2d,
-    conics, ch, opac, the bins, T, last and the cotangent g_ch."""
+def capture_splat_calls(pipeline, state, gen):
+    """The arguments of K5 (``_tile_bin_kernel``) and of K6's backward in one
+    steady-state splat step, as the step's own calls hand them over
+    (tensors cloned): {"tile_bin": args, "blend_bwd": (means2d, conics, ch,
+    opac, the bins, T, last, the cotangent g_ch)}."""
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    seen, launch = [], rz._blend_bwd_kernel
+    names = {"tile_bin": "_tile_bin_kernel", "blend_bwd": "_blend_bwd_kernel"}
+    seen = {k: [] for k in names}
+    launch = {k: getattr(rz, f) for k, f in names.items()}
 
-    def capture(*args):
-        seen.append([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args])
-        return launch(*args)
+    def capture(k):
+        def run(*args):
+            seen[k].append([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args])
+            return launch[k](*args)
+        return run
 
-    rz._blend_bwd_kernel = capture
+    for k, f in names.items():
+        setattr(rz, f, capture(k))
     try:
         splat_steps(pipeline, state, 1, gen)
     finally:
-        rz._blend_bwd_kernel = launch
-    if len(seen) != 1:
-        raise AssertionError(f"one splat step called K6's backward {len(seen)} times")
-    return seen[0]
+        for k, f in names.items():
+            setattr(rz, f, launch[k])
+    if any(len(v) != 1 for v in seen.values()):
+        raise AssertionError(f"one splat step called K5 and K6's backward {[len(v) for v in seen.values()]} times")
+    return {k: v[0] for k, v in seen.items()}
 
 
 def splat_steps(pipeline, state, n, gen):
@@ -990,6 +1069,7 @@ NEUS_SAMPLES = (256, 96)  # proposal samples per ray, rounds 1 and 2
 NEUS_EARLY, NEUS_START, NEUS_WARMUP, NEUS_TIMED = 300, 6000, 3, 10
 NEUS_CHECK_RAYS = 128
 NEUS_KERNELS = ("hash_encode_flat", "hash_encode_flat_bwd")
+PER_THREAD = ("hash_encode_flat_per_thread", "hash_encode_bwd_per_thread")  # K7 launches in the first designs
 
 # K7 kernel vs twin: the same float32 operations in the same order (the
 # library is built without FMA contraction), so the forward is expected
@@ -1032,24 +1112,99 @@ def flat_table_grad_bound(pos, table, g, kw):
     return ((counts + 4.0) * U32 * abs_sum.view(L, -1)).view(L, S, lanes)
 
 
-def check_flat(name, n, gen):
-    """K7 forward against its twin at one of the proposal nets' shapes."""
+def check_flat(name, pos, table, kw, what):
+    """Every design of K7's forward (``hash_grid.DESIGNS``) against its twin on
+    ``pos``, ``table``: within K7_MAX_ABS (bit-equal expected). Returns
+    ({design: max abs err}, timing {design: fn, "kernel": the default
+    design, "twin": the twin}, bound)."""
     from nerfstudio_torch.ops import hash_grid as hg
 
-    pos, table = kernel_inputs(n, PROP_LEVELS, PROP_LOG2_T, PROP_F, PROP_MIN_RES, PROP_MAX_RES, "cuda", gen)
-    kw = dict(min_res=PROP_MIN_RES, max_res=PROP_MAX_RES, hash_table_size=2**PROP_LOG2_T)
+    L, S, _ = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    errs, parts, bad = {}, [], []
     with torch.no_grad():
-        out = hg._flat_kernel(pos, table, **kw)
         ref = hg._flat_twin(pos, table, **kw)
-    torch.cuda.synchronize()
-    max_abs = float((out - ref).abs().max())
-    equal = bool(torch.equal(out, ref))
-    log(name, f"N={n} L={PROP_LEVELS} F={PROP_F} T=2^{PROP_LOG2_T} res {PROP_MIN_RES}-{PROP_MAX_RES}: "
-        f"max |kernel - twin| = {max_abs:.3g} (limit {K7_MAX_ABS}), bit-equal: {equal}")
-    if not torch.isfinite(out).all() or max_abs > K7_MAX_ABS:
-        raise AssertionError(f"{name}: kernel disagrees with its twin")
-    timing = dict(kernel=lambda: hg._flat_kernel(pos, table, **kw), twin=lambda: hg._flat_twin(pos, table, **kw))
-    return max_abs, timing, bound(nbytes(pos, table, out), hash_fwd_ops(n, PROP_LEVELS, PROP_F))
+        for v in hg.DESIGNS:
+            out = hg._flat_kernel(pos, table, _design=v, **kw)
+            torch.cuda.synchronize()
+            errs[v] = float((out - ref).abs().max())
+            parts.append(f"{v}: max |kernel - twin| = {errs[v]:.3g}, bit-equal {bool(torch.equal(out, ref))}")
+            if not torch.isfinite(out).all() or errs[v] > K7_MAX_ABS:
+                bad.append(v)
+    log(name, f"{what}: N={pos.shape[0]} L={L} F={F} T={kw['hash_table_size']} res {kw['min_res']}-{kw['max_res']} "
+        f"(limit {K7_MAX_ABS}); " + "; ".join(parts))
+    if bad:
+        raise AssertionError(f"{name}: the {bad} kernels disagree with their twin")
+    timing = {v: (lambda v=v: hg._flat_kernel(pos, table, _design=v, **kw)) for v in hg.DESIGNS}
+    timing["kernel"] = lambda: hg._flat_kernel(pos, table, **kw)
+    timing["twin"] = lambda: hg._flat_twin(pos, table, **kw)
+    return errs, timing, bound(nbytes(pos, table, ref), hash_fwd_ops(pos.shape[0], L, F))
+
+
+def time_flat(timing):
+    """Every K7 forward design in turns (``paired_ms``) and by the profiler's
+    device time: {design: (events mean, [medians], device ms)}."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    fns = {v: timing[v] for v in hg.DESIGNS}
+    with torch.no_grad():
+        ev = paired_ms(fns)
+        return {v: (ev[v][0], ev[v][1], device_ms(fn)) for v, fn in fns.items()}
+
+
+def capture_flat_inputs(model, cams):
+    """The positions and tables that the middle chunk of a FRAME_HW^2
+    neus-facto frame hands to K7 (both proposal nets' calls), as
+    ``render_camera``'s own calls of ``hash_grid._flat_kernel`` pass them
+    (cloned): [(pos, table, geometry kwargs)] * 2."""
+    from nerfstudio_torch.models.base_model import render_camera
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    chunks = math.ceil(FRAME_HW * FRAME_HW / NEUS_RAYS)
+    pick, seen, launch = chunks // 2, [], hg._flat_kernel
+
+    def capture(pos, table, **kw):
+        seen.append((pos.clone(), table.detach().clone(), kw) if len(seen) // 2 == pick else None)
+        return launch(pos, table, **kw)
+
+    hg._flat_kernel = capture
+    try:
+        render_camera(model, None, cams, 0, NEUS_RAYS)
+    finally:
+        hg._flat_kernel = launch
+    if len(seen) != 2 * chunks:
+        raise AssertionError(f"one neus-facto frame called K7 {len(seen)} times, not {2 * chunks}")
+    return [c for c in seen if c is not None]
+
+
+def neus_frame_in(model, cams, design):
+    """One FRAME_HW^2 neus-facto frame through ``render_camera`` with K7's
+    forward launched in ``design`` (one of ``hash_grid.DESIGNS``)."""
+    from nerfstudio_torch.models.base_model import render_camera
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    launch = hg._flat_kernel
+    hg._flat_kernel = lambda pos, table, **kw: launch(pos, table, _design=design, **kw)
+    try:
+        return render_camera(model, None, cams, 1, NEUS_RAYS)
+    finally:
+        hg._flat_kernel = launch
+
+
+def frames_in_turns(model, cams):
+    """One neus-facto frame per K7 forward design, in order and then in
+    reverse (CUDA events): {design: (mean, [two frames' ms])}."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    got = {v: [] for v in hg.DESIGNS}
+    for v in list(hg.DESIGNS) + list(reversed(hg.DESIGNS)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        neus_frame_in(model, cams, v)
+        end.record()
+        end.synchronize()
+        got[v].append(start.elapsed_time(end))
+    return {v: (statistics.fmean(ms), ms) for v, ms in got.items()}
 
 
 def check_flat_bwd(name, n, gen):
@@ -1428,8 +1583,8 @@ def build_neus(device, rays):
 
 def neus_steps(cfg, pipeline, state, steps, gen):
     """The trainer's loop over ``steps``, each checked for two K7 forward
-    launches (one per proposal net) and two backward, none of them in the
-    backward's per-thread design. Returns the last step's metrics."""
+    launches (one per proposal net) and two backward, none of them in a
+    per-thread design. Returns the last step's metrics."""
     from nerfstudio_torch.models.neus import NeuSFactoModel
     from nerfstudio_torch.ops import hash_grid as hg
 
@@ -1438,8 +1593,8 @@ def neus_steps(cfg, pipeline, state, steps, gen):
         before = dict(hg.launch_counts)
         state.step = step
         metrics = pipeline.train_step(state, gen, **NeuSFactoModel.step_kwargs(step, cfg))
-        got = {k: hg.launch_counts[k] - before[k] for k in NEUS_KERNELS + ("hash_encode_bwd_per_thread",)}
-        if got != dict(dict.fromkeys(NEUS_KERNELS, 2), hash_encode_bwd_per_thread=0):
+        got = {k: hg.launch_counts[k] - before[k] for k in NEUS_KERNELS + PER_THREAD}
+        if got != dict(dict.fromkeys(NEUS_KERNELS, 2), **dict.fromkeys(PER_THREAD, 0)):
             raise AssertionError(f"neus-facto step {step}: launches {got}, expected two of each, none per-thread")
     return metrics
 
@@ -1535,7 +1690,7 @@ def main() -> int:
     want = NUM_FRAMES * chunks_per_frame
     if render_launches != {"hash_encode_block": want, "hash_encode_block_exact": want, "hash_encode_block_bwd": 0,
                            "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_per_thread": 0,
-                           "hash_encode_bwd_per_thread": 0}:
+                           "hash_encode_bwd_per_thread": 0, "hash_encode_flat_per_thread": 0}:
         raise AssertionError(f"kernel launches {render_launches}, expected {want} of each forward (one per chunk, "
                              "in the default design)")
     acc = float(torch.stack([f["accumulation"].mean() for f in frames]).mean())
@@ -1685,10 +1840,17 @@ def main() -> int:
     pipeline, state = build_splat("cuda")
     x = splat_kernel_inputs(pipeline, state, splat_gen)
     k4_err, k4_timing, projected, k4_bounds = check_k4(ph(13, "K4 vs twin"), x, splat_gen)
-    k5_err, k5_timing, bins, k5_bound = check_k5(ph(14, "K5 vs twin"), x, projected)
+    # K5 in both designs at the check inputs and with one tile longer than
+    # one block of the bucketed sort orders at once; a trained step's inputs
+    # after phase 17
+    k5_check = k5_args(x, projected)
+    k5_recs = {"check": check_k5(ph(14, "K5 designs vs twin"), k5_check, "check inputs"),
+               "overflow": check_k5(ph(14, "K5 designs vs twin"), overflow_args(k5_check),
+                                    "check inputs with one tile longer than one sort")}
+    bins = k5_recs["check"].pop("bins")
     (k6_err, k6_bwd_err), k6_timing, k6_bounds, k6_walked = check_k6(ph(15, "K6 vs twin"), x, projected, bins,
                                                                      splat_gen)
-    del x, projected, bins
+    del x, projected, bins, k5_recs["overflow"]["bins"]
 
     # 16. the splatfacto training slice at full scale from step 6000: the
     # step, then refine with an opacity reset; warm-up; timed steps
@@ -1741,8 +1903,12 @@ def main() -> int:
             + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
         for name, t in rows[:12]:
             print(f"    {t:8.3f} ms/step  {name[:110]}", flush=True)
-    # K6 backward's inputs in one more steady step, for phase 28
-    k6_trained = capture_k6_bwd(pipeline, state, splat_gen)
+    # K5's and K6 backward's inputs in one more steady step (K6: phase 28)
+    captured = capture_splat_calls(pipeline, state, splat_gen)
+    k6_trained = captured["blend_bwd"]
+    k5_recs["trained"] = check_k5(ph(14, "K5 designs vs twin"), tuple(captured.pop("tile_bin")),
+                                  "a trained splat step's inputs")
+    del k5_recs["trained"]["bins"], captured
     refine_ms = median_ms(lambda: pipeline.refine(state, pipeline.refine_draws(splat_gen), do_split=True,
                                                   do_cull_scale=True, reset_alpha=False), runs=3, warmup=1)
     sc.reset_launch_counts()
@@ -1752,7 +1918,7 @@ def main() -> int:
         if tuple(out[k].shape) != (SPLAT_HW, SPLAT_HW, c) or not torch.isfinite(out[k]).all():
             raise AssertionError(f"eval {k}: shape {tuple(out[k].shape)} or non-finite values")
     want = dict.fromkeys(SPLAT_KERNELS, 0)
-    want.update(project_gaussians=1, tile_bin=1, blend_saturating=1)
+    want.update(project_gaussians=1, tile_bin=1, tile_bin_bucketed=1, blend_saturating=1)
     if eval_launches != want:
         raise AssertionError(f"eval render launches {eval_launches}, expected {want}")
     frame_ms = median_ms(lambda: pipeline.render_eval_image(state, 0), runs=10, warmup=2)
@@ -1772,9 +1938,10 @@ def main() -> int:
     # 19. the splatting kernels against their twins (twins: few runs)
     with torch.no_grad():
         t = {}
-        for key, fn in (("k4", k4_timing["fwd"]), ("k5", k5_timing["kernel"]), ("k6", k6_timing["fwd"])):
+        for key, fn in (("k4", k4_timing["fwd"]), ("k5", k5_recs["check"]["timing"]["bucketed"]),
+                        ("k6", k6_timing["fwd"])):
             t[key] = median_ms(fn)
-        for key, fn in (("k4_twin", k4_timing["fwd_twin"]), ("k5_twin", k5_timing["twin"]),
+        for key, fn in (("k4_twin", k4_timing["fwd_twin"]), ("k5_twin", k5_recs["check"]["twin"]),
                         ("k6_twin", k6_timing["fwd_twin"])):
             t[key] = median_ms(fn, runs=3, warmup=1)
     t["k4_bwd"] = median_ms(k4_timing["bwd"])
@@ -1782,19 +1949,29 @@ def main() -> int:
     k6_bwd_check_fn = k6_timing["bwd"]
     t["k4_bwd_twin"] = median_ms(k4_timing["bwd_twin"], runs=3, warmup=1)
     t["k6_bwd_twin"] = median_ms(k6_timing["bwd_twin"], runs=3, warmup=1)
-    t["k5_sort"] = median_ms(k5_timing["library"])
+    t["k5_sort"] = median_ms(k5_recs["check"]["timing"]["torch.sort, live keys"])
     log(ph(19, "splatting timing"), f"on {card}: " + ", ".join(
         f"{k} {t[k]:.3f} ms (twin {t[k + '_twin']:.3f} ms)" for k in ("k4", "k4_bwd", "k5", "k6", "k6_bwd"))
-        + f"; K5's torch.sort alone {t['k5_sort']:.3f} ms; splatfacto step {splat_step_ms:.2f} ms, refine "
-        f"{refine_ms:.2f} ms, eval frame {frame_ms:.2f} ms")
-    del k4_timing, k5_timing, k6_timing
+        + f"; torch.sort of K5's live keys alone {t['k5_sort']:.3f} ms; splatfacto step {splat_step_ms:.2f} ms, "
+        f"refine {refine_ms:.2f} ms, eval frame {frame_ms:.2f} ms")
+    del k4_timing, k6_timing
+    # K5's designs and the two torch.sort yardsticks in turns at the three inputs
+    for rec in k5_recs.values():
+        time_k5(rec)
+        del rec["timing"], rec["twin"]
+    log(ph(14, "K5 designs, timing"), f"on {card} (events: mean [two medians] / device ms); "
+        + "; ".join(k5_line(rec) for rec in k5_recs.values()) + "; default: bucketed")
 
     # 20-21. K7 forward and backward vs twins at the proposal nets' shapes:
     # round 1 (256 samples per ray) and round 2 (96)
     k7, k7_bwd_inputs = {}, {}
+    prop_kw = dict(min_res=PROP_MIN_RES, max_res=PROP_MAX_RES, hash_table_size=2**PROP_LOG2_T)
     for i, samples in enumerate(NEUS_SAMPLES):
         n = NEUS_RAYS * samples
-        k7[f"fwd_{samples}"] = check_flat(ph(20, f"K7 vs twin, {samples} samples/ray"), n, gen)
+        pos, table = kernel_inputs(n, PROP_LEVELS, PROP_LOG2_T, PROP_F, PROP_MIN_RES, PROP_MAX_RES, "cuda", gen)
+        k7[f"fwd_{samples}"] = check_flat(ph(20, f"K7 designs vs twin, {samples} samples/ray"), pos, table,
+                                          prop_kw, "check inputs")
+        del pos, table
         *k7[f"bwd_{samples}"], k7_bwd_inputs[samples] = check_flat_bwd(
             ph(21, f"K7 bwd vs float64 twin, {samples} samples/ray"), n, gen)
 
@@ -1879,19 +2056,64 @@ def main() -> int:
     end.record()
     end.synchronize()
     neus_frame_ms = start.elapsed_time(end)
-    eval_launches = {k: hg.launch_counts[k] for k in NEUS_KERNELS}
+    eval_launches = {k: hg.launch_counts[k] for k in NEUS_KERNELS + PER_THREAD}
     for k, c in (("rgb", 3), ("accumulation", 1), ("depth", 1), ("normals", 3)):
         if tuple(frame[k].shape) != (FRAME_HW, FRAME_HW, c) or not torch.isfinite(frame[k]).all():
             raise AssertionError(f"neus-facto eval {k}: shape {tuple(frame[k].shape)} or non-finite values")
-    if eval_launches != {"hash_encode_flat": 2 * chunks, "hash_encode_flat_bwd": 0}:
-        raise AssertionError(f"neus-facto eval launches {eval_launches}, expected {2 * chunks} forward, no backward")
+    if eval_launches != dict(dict.fromkeys(NEUS_KERNELS + PER_THREAD, 0), hash_encode_flat=2 * chunks):
+        raise AssertionError(f"neus-facto eval launches {eval_launches}, expected {2 * chunks} forward in the "
+                             "default design, no backward")
     normal_len = float(torch.linalg.norm(frame["normals"], dim=-1).mean())
     first_frame_ms = neus_frame_ms
     neus_frame_ms = median_ms(lambda: render_camera(model, None, cams, 1, NEUS_RAYS), runs=1, warmup=0)
     log(ph(25, "neus-facto eval frame"), f"{FRAME_HW}^2 in {chunks} chunks of {NEUS_RAYS}: {neus_frame_ms:.1f} ms "
         f"(second frame, CUDA events; the first, with warm-up, {first_frame_ms:.1f} ms), mean accumulation "
         f"{float(frame['accumulation'].mean()):.3f}, mean |normal| {normal_len:.3f}, launches {eval_launches}")
+    # the frame with K7's forward in each design, in turns; one profiled
+    # frame in the default design; both K7 calls of its middle chunk (for
+    # phase 20's check at the frame's own inputs)
+    neus_frames = frames_in_turns(model, cams)
+    flat_default = hg._pick_design(PROP_F)
+    log(ph(25, "neus-facto frame by K7 design"), f"on {card}, in turns (CUDA events, mean [two frames]): "
+        + ", ".join(f"{v} {ms:.1f} {[round(m, 1) for m in runs]}" for v, (ms, runs) in neus_frames.items())
+        + f"; the default is {flat_default}")
+    neus_prof = profile_device(lambda: render_camera(model, None, cams, 1, NEUS_RAYS), per=1)
+    neus_frame_prof = None
+    if neus_prof is None:
+        log(ph(25, "neus-facto frame profile"), "torch.profiler saw no device activity: device time not measured")
+    else:
+        rows, busy_ms, activities, gemm_flops = neus_prof
+        classes = {}
+        for name, tm in rows:
+            cls = "K7 (flat hash grid)" if is_k7(name) else kernel_class(name)
+            classes[cls] = classes.get(cls, 0.0) + tm
+        k7_ms = classes.get("K7 (flat hash grid)", 0.0)
+        neus_frame_prof = dict(busy_ms=busy_ms, idle=1 - busy_ms / neus_frame_ms, activities=activities, k7_ms=k7_ms,
+                               classes=classes)
+        log(ph(25, "neus-facto frame profile"), f"one {FRAME_HW}^2 frame under torch.profiler: {activities:.0f} "
+            f"device activities and {busy_ms:.2f} ms of device-busy time, i.e. the device idles "
+            f"{1 - busy_ms / neus_frame_ms:.1%} of the unprofiled {neus_frame_ms:.1f} ms frame; K7 {k7_ms:.3f} ms "
+            f"({k7_ms / busy_ms:.1%} of busy); matrix products {gemm_flops / 1e9:.1f} GFLOP; by class (ms/frame): "
+            + ", ".join(f"{c} {tm:.3f}" for c, tm in sorted(classes.items(), key=lambda kv: -kv[1])))
+        for name, tm in rows[:12]:
+            print(f"    {tm:8.3f} ms/frame  {name[:110]}", flush=True)
+    flat_eval = capture_flat_inputs(model, cams)
     del pipeline, state, model, frame
+
+    # 20 (continued). K7's forward in every design at the frame chunk's own
+    # inputs, then every design timed in turns there and at the check inputs
+    k7_eval = []
+    for c, (pos, table, kw) in enumerate(flat_eval):
+        k7_eval.append(check_flat(ph(20, "K7 designs vs twin, eval chunk"), pos, table, kw,
+                                  f"the middle chunk of a {FRAME_HW}^2 frame, call {c + 1}") + (pos.shape[0],))
+    del flat_eval
+    k7_sets = {f"check, {s} samples/ray": (*k7[f"fwd_{s}"], NEUS_RAYS * s) for s in NEUS_SAMPLES}
+    k7_sets.update({f"eval chunk, call {c + 1}": rec for c, rec in enumerate(k7_eval)})
+    k7_times = {label: time_flat(rec[1]) for label, rec in k7_sets.items()}
+    log(ph(20, "K7 designs, timing"), f"on {card} (events: mean [two medians] / device ms); " + "; ".join(
+        f"K7 at the {label} inputs (N={k7_sets[label][3]}, bound {k7_sets[label][2][0]:.4f} ms): " + ", ".join(
+            f"{v} {ev:.4f} {[round(m, 4) for m in runs]} / {dev:.4f}" for v, (ev, runs, dev) in tm.items())
+        for label, tm in k7_times.items()) + f"; default at F=2 and 4: {hg._pick_design(2)}")
 
     # 26. card vs CPU twins: one neus-facto step
     m_card, m_cpu, loss_rel, grad_rel = neus_card_vs_cpu()
@@ -2031,7 +2253,7 @@ def main() -> int:
         entry("project_gaussians_bwd (K4 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/projection.py:39",
               splat_launches["project_gaussians_bwd"], k4_err, t["k4_bwd"], t["k4_bwd_twin"], k4_bounds[1]),
         entry("tile_bin (K5)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:266", splat_launches["tile_bin"],
-              k5_err, t["k5"], t["k5_twin"], k5_bound, t["k5_sort"]),
+              0.0, t["k5"], t["k5_twin"], k5_recs["check"]["bound"], t["k5_sort"], design="bucketed"),
         entry("blend_saturating (K6 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:94",
               splat_launches["blend_saturating"], k6_err, t["k6"], t["k6_twin"], k6_bounds[0]),
         entry("blend_saturating_bwd (K6 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:142",
@@ -2043,10 +2265,28 @@ def main() -> int:
         walked=k6_walked, device_ms=k6_dev["check"],
         trained={"walked": tr_walked, "ms": k6_t["trained"][0], "device_ms": k6_dev["trained"],
                  "bound_ms": tr_bound[0], "bound_by": tr_bound[1], "max_abs_err": tr_err})
+    # K5: the launches of its default design, every design and yardstick at
+    # the three inputs of phase 14
+    k5_entry = next(e for e in kernels if e["name"].startswith("tile_bin"))
+    k5_entry.update(bucketed_launches=splat_launches["tile_bin_bucketed"],
+                    device_ms=k5_recs["check"]["times"]["bucketed"]["device_ms"],
+                    inputs=[dict(inputs=label, bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                                 **{k: v for k, v in r.items() if k != "bound"}) for label, r in k5_recs.items()])
     big = f"fwd_{NEUS_SAMPLES[0]}"
+    k7_errs = [rec[0][flat_default] for rec in k7_sets.values()]
     kernels.append(entry("hash_encode_flat (K7 fwd), 256 samples/ray", source, "nerfstudio_tpu/ops/hash_grid.py:63",
-                         neus_launches["hash_encode_flat"], max(k7[k][0] for k in k7 if k.startswith("fwd")),
-                         t["k7_" + big], t["k7_" + big + "_twin"], k7[big][2]))
+                         neus_launches["hash_encode_flat"], max(k7_errs), t["k7_" + big], t["k7_" + big + "_twin"],
+                         k7[big][2], design=flat_default))
+    # K7 fwd: every design at the check and eval-chunk inputs, the frame
+    kernels[-1].update(
+        device_ms=k7_times[f"check, {NEUS_SAMPLES[0]} samples/ray"][flat_default][2],
+        eval_launches=eval_launches["hash_encode_flat"],
+        designs=[dict(design=v, inputs=[dict(inputs=label, n=k7_sets[label][3], ms=tm[v][0], ms_runs=tm[v][1],
+                                             device_ms=tm[v][2], max_abs_err=k7_sets[label][0][v])
+                                        for label, tm in k7_times.items()]) for v in hg.DESIGNS],
+        inputs=[dict(inputs=label, n=rec[3], bound_ms=rec[2][0], bound_by=rec[2][1]) for label, rec in k7_sets.items()],
+        frame=dict(ms=neus_frame_ms, **(neus_frame_prof or {}),
+                   designs={v: dict(ms=ms, ms_runs=runs) for v, (ms, runs) in neus_frames.items()}))
     big = f"bwd_{NEUS_SAMPLES[0]}"
     kernels.append(entry("hash_encode_flat_bwd (K7 bwd), 256 samples/ray", source,
                          "nerfstudio_tpu/ops/hash_grid.py:90", neus_launches["hash_encode_flat_bwd"],

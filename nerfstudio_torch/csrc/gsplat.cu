@@ -10,9 +10,10 @@
 //     chain, recomputed per gaussian from the inputs.
 //   * K5: nerfstudio_tpu/ops/gsplat/rasterize.py _tile_keys_packed and
 //     _window_tile_ids (key emission, with the big_frac second window and its
-//     duplicate suppression) and the per-tile searchsorted after the sort.
-//     The sort between the two kernels stays a library sort, as the
-//     reference's lax.sort sits outside any kernel.
+//     duplicate suppression), the sort and the per-tile searchsorted after
+//     it: tile-bucketed by default (count, scan, scatter, per-tile sort,
+//     all by hand); the first design's emission and range kernels, with a
+//     library sort between them, stay for chip_smoke.py's comparison.
 //   * K6: nerfstudio_tpu/ops/gsplat/rasterize.py _blend_saturating
 //     (_blend_sat_batch_fwd, _alpha_from_gathered) and
 //     _blend_saturating_bwd.
@@ -21,9 +22,10 @@
 //   * K4 is a fused elementwise pass: ~40 bytes in and ~30 bytes out per
 //     gaussian and a few hundred flops, so it is bound by memory traffic and
 //     launch latency. One thread per gaussian, structure of arrays.
-//   * K5's emission writes 8 bytes per (gaussian, window slot) and reads a
-//     few floats per gaussian: bound by its stores. The range kernel is one
-//     binary search per tile plus an id unpack per entry.
+//   * K5 reads a few floats per gaussian and writes 12 bytes per live
+//     (tile, gaussian) pair: bound by bytes at best, in practice by its
+//     passes over the window slots and the per-tile sorts (see the comment
+//     above tile_count_kernel).
 //   * K6 is bound by the per-entry work inside a tile: each entry of a
 //     tile's depth-sorted list costs every pixel of the tile an exp and a
 //     few flops, and the backward adds the reduction of 11 gradient values
@@ -49,6 +51,7 @@
 // product and sum rounds as the plain PyTorch twins' do; the twins differ
 // only in summation order.
 
+#include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -377,46 +380,80 @@ __device__ __forceinline__ int window_tile(const Window& w, int dx, int dy, cons
   return ok ? ty * tg.tiles_x + tx : tg.num_tiles;
 }
 
-// One thread per (window slot, gaussian): the base window's d*d slots for
-// all n gaussians (slot-major), then the big window's d_big*d_big slots for
-// the n_big largest. Writes ((tile << depth_bits | depth bits) << id_bits | id).
-__global__ void __launch_bounds__(kThreads) tile_keys_kernel(
-    const float* __restrict__ means2d, const float* __restrict__ radii, const float* __restrict__ depths,
-    const uint8_t* __restrict__ valid, int64_t n, const int64_t* __restrict__ idx_big, int64_t n_big, TileGrid tg,
-    int d, int d_big, int64_t* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t n_base = (int64_t)d * d * n;
-  if (i >= n_base + (int64_t)d_big * d_big * n_big) return;
-  int64_t gid;
+// The emission's (tile, gaussian) pairs, numbered as the reference
+// concatenates its slots: pair i < d*d*n is base-window slot i / n of
+// gaussian i % n (slot-major), pair d*d*n + j is big-window slot j / n_big
+// of gaussian idx_big[j % n_big] (the n_big largest radii).
+struct Emission {
+  const float* means2d;
+  const float* radii;
+  const float* depths;
+  const uint8_t* valid;
+  int64_t n;
+  const int64_t* idx_big;
+  int64_t n_big;
+  TileGrid tg;
+  int d, d_big;
+};
+
+__host__ __device__ __forceinline__ int64_t pair_count(const Emission& e) {
+  return (int64_t)e.d * e.d * e.n + (int64_t)e.d_big * e.d_big * e.n_big;
+}
+
+// Pair i's tile, or num_tiles when the slot is dead (an invalid gaussian, a
+// slot off screen or outside the bbox, a big-window tile the base window
+// already emitted), and its gaussian.
+__device__ __forceinline__ int pair_tile(const Emission& e, int64_t i, int64_t* gid) {
+  const TileGrid& tg = e.tg;
+  const int64_t n_base = (int64_t)e.d * e.d * e.n;
   int tile = tg.num_tiles;
   if (i < n_base) {
-    const int slot = (int)(i / n);
-    gid = i % n;
-    if (valid[gid]) {
-      const Window w = make_window(means2d[2 * gid], means2d[2 * gid + 1], radii[gid], tg, d);
-      tile = window_tile(w, slot % d, slot / d, tg);
+    const int slot = (int)(i / e.n);
+    const int64_t g = i % e.n;
+    *gid = g;
+    if (e.valid[g]) {
+      const Window w = make_window(e.means2d[2 * g], e.means2d[2 * g + 1], e.radii[g], tg, e.d);
+      tile = window_tile(w, slot % e.d, slot / e.d, tg);
     }
   } else {
     const int64_t j = i - n_base;
-    const int slot = (int)(j / n_big);
-    gid = idx_big[j % n_big];
+    const int slot = (int)(j / e.n_big);
+    const int64_t g = e.idx_big[j % e.n_big];
+    *gid = g;
     // only splats wider than the base window get the big pass
-    if (valid[gid] && radii[gid] > (float)(d * kTile) / 2.0f) {
-      const float mx = means2d[2 * gid], my = means2d[2 * gid + 1], r = radii[gid];
-      const Window wb = make_window(mx, my, r, tg, d_big);
-      tile = window_tile(wb, slot % d_big, slot / d_big, tg);
+    if (e.valid[g] && e.radii[g] > (float)(e.d * kTile) / 2.0f) {
+      const float mx = e.means2d[2 * g], my = e.means2d[2 * g + 1], r = e.radii[g];
+      const Window wb = make_window(mx, my, r, tg, e.d_big);
+      tile = window_tile(wb, slot % e.d_big, slot / e.d_big, tg);
       if (tile < tg.num_tiles) {
         // drop the tiles the base window already emitted
-        const Window w = make_window(mx, my, r, tg, d);
+        const Window w = make_window(mx, my, r, tg, e.d);
         const int tx = tile % tg.tiles_x, ty = tile / tg.tiles_x;
-        if (tx >= w.sx && tx < w.sx + d && ty >= w.sy && ty < w.sy + d) tile = tg.num_tiles;
+        if (tx >= w.sx && tx < w.sx + e.d && ty >= w.sy && ty < w.sy + e.d) tile = tg.num_tiles;
       }
     }
   }
-  // monotone depth bits: positive float32 bit patterns order as the floats
-  const uint32_t dq = __float_as_uint(fmaxf(depths[gid], 1e-20f)) >> (32 - tg.depth_bits);
-  const uint64_t key = ((uint64_t)(uint32_t)tile << tg.depth_bits) | dq;
-  out[i] = (int64_t)((key << tg.id_bits) | (uint64_t)gid);
+  return tile;
+}
+
+// ((tile << depth_bits | depth bits) << id_bits | id): the depth bits are
+// the top bits of the positive float32 pattern, which orders as the floats.
+__device__ __forceinline__ uint64_t packed_key(const Emission& e, int tile, int64_t gid) {
+  const uint32_t dq = __float_as_uint(fmaxf(e.depths[gid], 1e-20f)) >> (32 - e.tg.depth_bits);
+  const uint64_t key = ((uint64_t)(uint32_t)tile << e.tg.depth_bits) | dq;
+  return (key << e.tg.id_bits) | (uint64_t)gid;
+}
+
+// The first design ("sorted"): one thread per pair writes its packed key,
+// sentinel tile num_tiles for a dead slot; torch.sort sorts all of them and
+// tile_ranges_kernel finds the tiles' ranges. Kept so that chip_smoke.py
+// can time it beside the tile-bucketed design.
+__global__ void __launch_bounds__(kThreads) tile_keys_kernel(Emission e, int64_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pair_count(e)) return;
+  int64_t gid;
+  const int tile = pair_tile(e, i, &gid);
+  out[i] = (int64_t)packed_key(e, tile, gid);
 }
 
 __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ a, int64_t m, int64_t v) {
@@ -445,6 +482,253 @@ __global__ void __launch_bounds__(kThreads) tile_ranges_kernel(const int64_t* __
     const int64_t hi = lower_bound(packed, m, (i + 1) << shift);
     starts[i] = (int32_t)lo;
     counts[i] = (int32_t)(hi - lo);
+  }
+}
+
+// The live pairs of emission unit u, as fn(tile, gaussian): unit u < n is
+// gaussian u's base window, unit n + j the big window of idx_big[j] minus
+// the base window's slots. These are pair_tile's live pairs: the slots of
+// a window that lie on screen and inside the bbox form one rectangle of
+// tiles, so a unit computes its windows once and walks that rectangle.
+template <class Fn>
+__device__ __forceinline__ void unit_pairs(const Emission& e, int64_t u, Fn&& fn) {
+  const TileGrid& tg = e.tg;
+  const bool base = u < e.n;
+  const int64_t g = base ? u : e.idx_big[u - e.n];
+  if (!e.valid[g]) return;
+  const float mx = e.means2d[2 * g], my = e.means2d[2 * g + 1], r = e.radii[g];
+  // only splats wider than the base window get the big pass
+  if (!base && !(r > (float)(e.d * kTile) / 2.0f)) return;
+  const int side = base ? e.d : e.d_big;
+  const Window w = make_window(mx, my, r, tg, side);
+  const int x0 = max(max(w.sx, w.x0t), 0), x1 = min(min(w.sx + side - 1, w.x1t), tg.tiles_x - 1);
+  const int y0 = max(max(w.sy, w.y0t), 0), y1 = min(min(w.sy + side - 1, w.y1t), tg.tiles_y - 1);
+  int bx0 = 1, bx1 = 0, by0 = 1, by1 = 0;  // the base window's slots, skipped by the big one
+  if (!base) {
+    const Window wb = make_window(mx, my, r, tg, e.d);
+    bx0 = wb.sx, bx1 = wb.sx + e.d - 1, by0 = wb.sy, by1 = wb.sy + e.d - 1;
+  }
+  for (int ty = y0; ty <= y1; ++ty) {
+    for (int tx = x0; tx <= x1; ++tx) {
+      if (!(tx >= bx0 && tx <= bx1 && ty >= by0 && ty <= by1)) fn(ty * tg.tiles_x + tx, g);
+    }
+  }
+}
+
+// The second design ("bucketed", the default): a counting sort by tile,
+// then a sort of each tile's keys in shared memory. What bounds the first
+// design is its sort: every slot of the window emits a 64-bit key, dead
+// slots a sentinel (1.1M of 2.0M at splatfacto's 100k slots and 512^2),
+// and torch.sort moves all of them several times and returns indices. The
+// tile is the primary key and there are few tiles (1,024 at 512^2), so:
+//   1. tile_count_kernel: one thread per gaussian (and per big-window
+//      gaussian) computes its window once and walks its live tiles
+//      (unit_pairs); each pair adds one to its tile's count in a per-block
+//      histogram in shared memory (num_tiles ints), flushed with one global
+//      atomic per nonzero bin;
+//   2. tile_scan_kernel: one block scans the counts into the tiles' starts
+//      (and a copy, the scatter's cursors);
+//   3. tile_scatter_kernel: each block counts its units' pairs, reserves each
+//      tile's run of slots with one atomic on the tile's cursor, and writes
+//      its live pairs' packed keys there in any order;
+//   4. tile_sort_kernel: one block per tile sorts the tile's keys (CUB's
+//      block radix sort on the bits below the tile prefix, 1,024 or 2,048
+//      keys at once) and writes the packed keys and the ids. A longer tile
+//      is sorted in runs of 2,048 keys, which the block then merges pairwise
+//      in global memory (merge path: each thread binary-searches the split
+//      of its range of outputs and merges it sequentially), ping-ponging
+//      between the scatter's buffer and the output.
+// Every (tile, gaussian) pair is emitted once, so the keys within a tile are
+// unique, and the result is exactly the first design's on the live entries,
+// whatever order the atomics ran in. Nothing is read back to the host.
+// Entries of packed and ids at and after the live count are not written.
+constexpr int kBinThreads = 1024;
+constexpr int kSortThreads = 256;
+constexpr int kSortItems = 8;  // keys per thread in a tile's sort
+constexpr int kSortKeys = kSortThreads * kSortItems;  // a tile sorted at once: 2,048 keys
+constexpr int kMaxSharedBytes = 232448;  // one block's opt-in maximum on the H100
+
+__global__ void __launch_bounds__(kBinThreads) tile_count_kernel(Emission e, int32_t* __restrict__ counts) {
+  extern __shared__ int32_t hist[];
+  const int nt = e.tg.num_tiles;
+  for (int j = threadIdx.x; j < nt; j += kBinThreads) hist[j] = 0;
+  __syncthreads();
+  const int64_t units = e.n + e.n_big;
+  for (int64_t u = (int64_t)blockIdx.x * kBinThreads + threadIdx.x; u < units; u += (int64_t)gridDim.x * kBinThreads)
+    unit_pairs(e, u, [&](int tile, int64_t) { atomicAdd(&hist[tile], 1); });
+  __syncthreads();
+  for (int j = threadIdx.x; j < nt; j += kBinThreads)
+    if (hist[j] != 0) atomicAdd(&counts[j], hist[j]);
+}
+
+// Exclusive scan of the counts into starts and cursor (the same values),
+// kBinThreads tiles at a time: warp scans, a scan of the warps' sums, and a
+// carry across rounds.
+__global__ void __launch_bounds__(kBinThreads) tile_scan_kernel(const int32_t* __restrict__ counts, int nt,
+                                                                int32_t* __restrict__ starts,
+                                                                int32_t* __restrict__ cursor) {
+  __shared__ int32_t sums[kBinThreads / 32];
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = threadIdx.x >> 5;
+  int32_t carry = 0;
+  for (int b = 0; b < nt; b += kBinThreads) {
+    const int j = b + threadIdx.x;
+    const int32_t v = j < nt ? counts[j] : 0;
+    int32_t x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= (unsigned)o) x += y;
+    }
+    if (lane == 31u) sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int32_t y = sums[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int32_t z = __shfl_up_sync(0xffffffffu, y, o);
+        if (lane >= (unsigned)o) y += z;
+      }
+      sums[lane] = y;
+    }
+    __syncthreads();
+    const int32_t excl = carry + (warp > 0 ? sums[warp - 1] : 0) + x - v;
+    if (j < nt) {
+      starts[j] = excl;
+      cursor[j] = excl;
+    }
+    carry += sums[kBinThreads / 32 - 1];
+    __syncthreads();  // sums is rewritten in the next round
+  }
+}
+
+// A block first counts its own units' pairs per tile, then reserves that
+// many slots of each tile with one atomic on the tile's cursor.
+__global__ void __launch_bounds__(kBinThreads) tile_scatter_kernel(Emission e, int32_t* __restrict__ cursor,
+                                                                   int64_t* __restrict__ keys) {
+  extern __shared__ int32_t next[];  // per tile: this block's count, then its next slot
+  const int nt = e.tg.num_tiles;
+  for (int j = threadIdx.x; j < nt; j += kBinThreads) next[j] = 0;
+  __syncthreads();
+  const int64_t units = e.n + e.n_big;
+  const int64_t first = (int64_t)blockIdx.x * kBinThreads + threadIdx.x, stride = (int64_t)gridDim.x * kBinThreads;
+  for (int64_t u = first; u < units; u += stride)
+    unit_pairs(e, u, [&](int tile, int64_t) { atomicAdd(&next[tile], 1); });
+  __syncthreads();
+  for (int j = threadIdx.x; j < nt; j += kBinThreads) {
+    const int32_t c = next[j];
+    if (c != 0) next[j] = atomicAdd(&cursor[j], c);
+  }
+  __syncthreads();
+  for (int64_t u = first; u < units; u += stride)
+    unit_pairs(e, u, [&](int tile, int64_t g) { keys[atomicAdd(&next[tile], 1)] = (int64_t)packed_key(e, tile, g); });
+}
+
+// A tile's keys sorted by one block with CUB's block radix sort (a tool
+// inside this kernel, not a library kernel) on the bits below the tile
+// prefix: kSortThreads * kItems keys at once, striped in and out so that
+// loads and stores are coalesced; padding keys (~0) sort last, since a real
+// key's top depth bit, the depth's float sign, is 0.
+template <int kItems>
+using TileSort = cub::BlockRadixSort<unsigned long long, kSortThreads, kItems>;
+
+union TileSortStorage {
+  typename TileSort<kSortItems / 2>::TempStorage half;
+  typename TileSort<kSortItems>::TempStorage full;
+};
+
+// src[0, m) sorted into dst[0, m) (src may be dst), and each key's id into
+// ids[0, m) unless ids is null; m <= kSortThreads * kItems. The caller
+// syncs the block before it uses `storage` again.
+template <int kItems>
+__device__ void sort_run(const unsigned long long* src, int m, int end_bit, TileSortStorage& storage,
+                         unsigned long long* dst, int32_t* ids, unsigned long long id_mask) {
+  unsigned long long k[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int idx = i * kSortThreads + (int)threadIdx.x;
+    k[i] = idx < m ? src[idx] : ~0ull;
+  }
+  TileSort<kItems>(reinterpret_cast<typename TileSort<kItems>::TempStorage&>(storage))
+      .SortBlockedToStriped(k, 0, end_bit);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int idx = i * kSortThreads + (int)threadIdx.x;
+    if (idx < m) {
+      dst[idx] = k[i];
+      if (ids != nullptr) ids[idx] = (int32_t)(k[i] & id_mask);
+    }
+  }
+}
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// Elements [k0, k1) of the merge of sorted a[0, la) and b[0, lb), a first
+// on ties, into out[k0, k1): a binary search finds the split of k0 (how
+// many of the first k0 come from a), then a sequential merge.
+__device__ void merge_range(const unsigned long long* a, int64_t la, const unsigned long long* b, int64_t lb,
+                            int64_t k0, int64_t k1, unsigned long long* out) {
+  int64_t lo = k0 > lb ? k0 - lb : 0, hi = k0 < la ? k0 : la;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (a[mid] <= b[k0 - 1 - mid])
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int64_t i = lo, j = k0 - lo;
+  for (int64_t k = k0; k < k1; ++k) out[k] = (j >= lb || (i < la && a[i] <= b[j])) ? a[i++] : b[j++];
+}
+
+// One block per tile: keys[starts[t], + counts[t]) (the scatter's, unsorted)
+// sorted into packed and ids at the same place, on the low end_bit bits
+// (depth and id; the tile prefix is the same for all).
+__global__ void __launch_bounds__(kSortThreads) tile_sort_kernel(const int32_t* __restrict__ starts,
+                                                                 const int32_t* __restrict__ counts, int64_t* keys,
+                                                                 int64_t* packed, int32_t* __restrict__ ids,
+                                                                 int end_bit, int id_bits) {
+  __shared__ TileSortStorage storage;
+  const int m = counts[blockIdx.x];
+  if (m == 0) return;
+  const int64_t start = starts[blockIdx.x];
+  const unsigned long long id_mask = (1ull << id_bits) - 1ull;
+  unsigned long long* in = reinterpret_cast<unsigned long long*>(keys) + start;
+  unsigned long long* out = reinterpret_cast<unsigned long long*>(packed) + start;
+  if (m <= kSortKeys / 2) {
+    sort_run<kSortItems / 2>(in, m, end_bit, storage, out, ids + start, id_mask);
+    return;
+  }
+  if (m <= kSortKeys) {
+    sort_run<kSortItems>(in, m, end_bit, storage, out, ids + start, id_mask);
+    return;
+  }
+  // a long tile: sorted runs of kSortKeys keys in place, then merges of
+  // pairs of runs, each pass from one buffer into the other
+  for (int r = 0; r < m; r += kSortKeys) {
+    sort_run<kSortItems>(in + r, m - r < kSortKeys ? m - r : kSortKeys, end_bit, storage, in + r, nullptr, 0);
+    __syncthreads();
+  }
+  unsigned long long *src = in, *dst = out;
+  const int64_t per_thread = (m + kSortThreads - 1) / kSortThreads;
+  for (int64_t width = kSortKeys; width < m; width *= 2) {
+    // thread t writes outputs [t * per_thread, + per_thread), a piece per
+    // pair of runs it overlaps
+    const int64_t end = min64((int64_t)(threadIdx.x + 1) * per_thread, m);
+    for (int64_t k = (int64_t)threadIdx.x * per_thread; k < end;) {
+      const int64_t lo = k / (2 * width) * (2 * width);
+      const int64_t mid = min64(lo + width, m), hi = min64(lo + 2 * width, m), stop = min64(hi, end);
+      merge_range(src + lo, mid - lo, src + mid, hi - mid, k - lo, stop - lo, dst + lo);
+      k = stop;
+    }
+    __syncthreads();
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  for (int i = threadIdx.x; i < m; i += kSortThreads) {
+    const unsigned long long v = src[i];
+    if (src != out) out[i] = v;
+    ids[start + i] = (int32_t)(v & id_mask);
   }
 }
 
@@ -690,6 +974,21 @@ BlendArgs make_blend_args(const void* means2d, const void* conics, const void* o
   return a;
 }
 
+// K5's emission arguments, checked: means2d (n, 2), radii, depths (n,)
+// f32 and valid (n,) uint8 device inputs; idx_big (n_big,) int64, the big
+// window's gaussians; fewer than 2^31 pairs.
+cudaError_t make_emission(const void* means2d, const void* radii, const void* depths, const void* valid,
+                          long long n, const void* idx_big, long long n_big, int tiles_x, int tiles_y, int d,
+                          int d_big, int depth_bits, int id_bits, Emission* e) {
+  if (n < 1 || n_big < 0 || (n_big > 0 && idx_big == nullptr) || d < 1 || d_big < 1 || depth_bits < 1 ||
+      id_bits < 1 || 32 + id_bits > 63 || tiles_x < 1 || tiles_y < 1 ||
+      (int64_t)d * d * n + (int64_t)d_big * d_big * n_big >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  *e = {(const float*)means2d, (const float*)radii, (const float*)depths, (const uint8_t*)valid, n,
+        (const int64_t*)idx_big, n_big, {tiles_x, tiles_y, tiles_x * tiles_y, depth_bits, id_bits}, d, d_big};
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -728,21 +1027,73 @@ int nst_gsplat_project_bwd(const void* means, const void* scales, const void* qu
   return (int)cudaGetLastError();
 }
 
-// K5 emission. means2d (n, 2), radii, depths (n,) f32 and valid (n,) uint8
-// are device inputs; idx_big (n_big,) int64 holds the big window's gaussians
-// (the n_big largest radii). out (d*d*n + d_big*d_big*n_big,) int64 receives
-// the packed keys. Returns a cudaError_t.
+// K5's first design, its emission (make_emission's inputs). out
+// (d*d*n + d_big*d_big*n_big,) int64 receives every pair's packed key, a
+// dead slot's with tile num_tiles. Returns a cudaError_t.
 int nst_gsplat_tile_keys(const void* means2d, const void* radii, const void* depths, const void* valid,
                          long long n, const void* idx_big, long long n_big, int tiles_x, int tiles_y, int d,
                          int d_big, int depth_bits, int id_bits, void* out, void* stream) {
-  if (n < 1 || n_big < 0 || d < 1 || d_big < 1 || depth_bits < 1 || id_bits < 1 ||
-      32 + id_bits > 63 || tiles_x < 1 || tiles_y < 1)
-    return (int)cudaErrorInvalidValue;
-  const TileGrid tg = {tiles_x, tiles_y, tiles_x * tiles_y, depth_bits, id_bits};
-  const int64_t work = (int64_t)d * d * n + (int64_t)d_big * d_big * n_big;
-  tile_keys_kernel<<<grid_for(work), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)means2d, (const float*)radii, (const float*)depths, (const uint8_t*)valid, n,
-      (const int64_t*)idx_big, n_big, tg, d, d_big, (int64_t*)out);
+  Emission e;
+  const cudaError_t bad = make_emission(means2d, radii, depths, valid, n, idx_big, n_big, tiles_x, tiles_y, d, d_big,
+                                        depth_bits, id_bits, &e);
+  if (bad != cudaSuccess) return (int)bad;
+  tile_keys_kernel<<<grid_for(pair_count(e)), kThreads, 0, (cudaStream_t)stream>>>(e, (int64_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K5's second design (tile-bucketed), make_emission's inputs. counts,
+// starts and cursor (tiles_x * tiles_y,) int32 and keys, packed (pairs,)
+// int64 and ids (pairs,) int32 are device buffers; starts, counts and the
+// first counts.sum() entries of packed and ids receive the bins (the rest
+// is not written), cursor and keys are scratch. sort_keys: the keys one
+// block sorts at once, which must be kSortKeys (rasterize.TILE_SORT_KEYS);
+// the histograms take 4 bytes per tile, at most kMaxSharedBytes. Returns
+// a cudaError_t.
+int nst_gsplat_tile_bin(const void* means2d, const void* radii, const void* depths, const void* valid, long long n,
+                        const void* idx_big, long long n_big, int tiles_x, int tiles_y, int d, int d_big,
+                        int depth_bits, int id_bits, int sort_keys, void* counts, void* starts, void* cursor,
+                        void* keys, void* packed, void* ids, void* stream) {
+  Emission e;
+  cudaError_t err = make_emission(means2d, radii, depths, valid, n, idx_big, n_big, tiles_x, tiles_y, d, d_big,
+                                  depth_bits, id_bits, &e);
+  if (err != cudaSuccess) return (int)err;
+  const int nt = e.tg.num_tiles;
+  const int hist_bytes = nt * 4;
+  if ((int64_t)nt * 4 > kMaxSharedBytes || sort_keys != kSortKeys) return (int)cudaErrorInvalidValue;
+  // once per process (the port drives one card): the histograms' opt-in
+  // above 48 KB, the SMs
+  static int sms = 0;
+  if (sms == 0) {
+    const void* kernels[] = {(const void*)tile_count_kernel, (const void*)tile_scatter_kernel};
+    for (const void* k : kernels) {
+      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes)) != cudaSuccess)
+        return (int)err;
+    }
+    int dev;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+  }
+  // the binning passes: one thread per unit (gaussian or big-window
+  // gaussian), at most as many blocks as fit on the card at once
+  int per_sm;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tile_scatter_kernel, kBinThreads, hist_bytes)) !=
+      cudaSuccess)
+    return (int)err;
+  const int64_t needed = (e.n + e.n_big + kBinThreads - 1) / kBinThreads;
+  const int64_t fit = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned int grid = (unsigned int)(needed < fit ? needed : fit);
+  const cudaStream_t s = (cudaStream_t)stream;
+  int32_t* c = (int32_t*)counts;
+  if ((err = cudaMemsetAsync(c, 0, (size_t)hist_bytes, s)) != cudaSuccess) return (int)err;
+  tile_count_kernel<<<grid, kBinThreads, hist_bytes, s>>>(e, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  tile_scan_kernel<<<1, kBinThreads, 0, s>>>(c, nt, (int32_t*)starts, (int32_t*)cursor);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  tile_scatter_kernel<<<grid, kBinThreads, hist_bytes, s>>>(e, (int32_t*)cursor, (int64_t*)keys);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  tile_sort_kernel<<<nt, kSortThreads, 0, s>>>((const int32_t*)starts, c, (int64_t*)keys, (int64_t*)packed,
+                                                (int32_t*)ids, e.tg.depth_bits + e.tg.id_bits, e.tg.id_bits);
   return (int)cudaGetLastError();
 }
 

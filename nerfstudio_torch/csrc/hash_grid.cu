@@ -5,7 +5,8 @@
 // Replaces, in the JAX reference package:
 //   * K7 fwd and bwd: nerfstudio_tpu/ops/hash_grid.py hash_encode's flat
 //     8-corner path (:991-1031) through _row_gather_select (:62-107) and
-//     _hash_corner (:732): flat_encode_kernel, flat_encode_bwd_kernel below.
+//     _hash_corner (:732): flat_encode_kernel and flat_lanes_kernel (the
+//     forward's two designs), flat_encode_bwd_kernel below.
 //   * K1 fwd: nerfstudio_tpu/ops/hash_grid.py block_level_geometry +
 //     _row_gather_block_tw (hash_encode(block=True)): one stochastically
 //     rounded 2x2x2 vertex block per (sample, level).
@@ -16,6 +17,11 @@
 //     _row_gather_block_tw_bwd, _row_gather_block_tw_oh_bwd (the one-hot
 //     matmul backward of the dense coarse levels) and _grad_scale, plus
 //     XLA's autodiff of block_level_geometry down to the positions.
+//
+// K7's forward has the same two designs: one thread per (sample, level)
+// (flat_encode_kernel) and, for F = 2 and 4, lane pairs with one level per
+// warp, whose load instructions take a z-pair of corners of 16
+// neighbouring samples (flat_lanes_kernel).
 //
 // Both backward kernels (K1 bwd, K7 bwd) have two designs too: one thread
 // per sample walking the levels with scalar atomics (block_encode_bwd_kernel,
@@ -281,7 +287,7 @@ __device__ __forceinline__ void bf16_round2(float& x, float& y) {
   y = __high2float(b);
 }
 
-// The arguments of both lane kernels.
+// The arguments of the forward lane kernels (K1, K3, K7).
 struct LaneArgs {
   const float* pos;
   const float* table;
@@ -289,7 +295,7 @@ struct LaneArgs {
   uint32_t n;
   uint32_t level_stride;  // floats; the whole table holds fewer than 2^32
   U32Divisor levels;      // d = the level count
-  U32Divisor nblocks;     // d = T / 8
+  U32Divisor modulus;     // K1, K3: T / 8 (the block hash); K7: T (the entry hash)
 };
 
 // Stencils of one warp: lane s of warp w owns stencil t = (block, w, s) of
@@ -358,7 +364,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 8; ++c) {
       const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
       const uint32_t blk = dense ? (bc[0][dx] * bs + bc[1][dy]) * bs + bc[2][dz]
-                                 : umod(bc[0][dx] ^ bc[1][dy] ^ bc[2][dz], a.nblocks);
+                                 : umod(bc[0][dx] ^ bc[1][dy] ^ bc[2][dz], a.modulus);
       const uint32_t parity = (par[0][dx] << 2) | (par[1][dy] << 1) | par[2][dz];
       const float wc = __fmul_rn(__fmul_rn(w[0][dx], w[1][dy]), w[2][dz]);
       tab[slot<R>(c, lane)] = make_uint2(base + blk * (8 * F) + parity * F, __float_as_uint(wc));
@@ -427,7 +433,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     const uint32_t blk = g.dense[l] ? (bc[0] * (uint32_t)g.blocks_per_axis[l] + bc[1]) *
                                               (uint32_t)g.blocks_per_axis[l] + bc[2]
-                                        : umod(bc[0] ^ (bc[1] * 2654435761u) ^ (bc[2] * 805459861u), a.nblocks);
+                                        : umod(bc[0] ^ (bc[1] * 2654435761u) ^ (bc[2] * 805459861u), a.modulus);
     offsets[warp][lane] = (uint32_t)l * a.level_stride + blk * (8 * F);
 #pragma unroll
     for (int k = 0; k < G; ++k) {
@@ -623,16 +629,17 @@ __device__ __forceinline__ void flat_axis(float p, int res, int* i0, float* o) {
   *o = __fsub_rn(s, fl);
 }
 
-// K7 forward. One thread per (sample, level), level fastest, as K1. The
-// eight corners are summed in the reference's order 0..7 of
-// c = dx<<2 | dy<<1 | dz, each term w_c * bf16(value) with
-// w_c = ((x-weight * y-weight) * z-weight), all rounded as the reference
-// rounds them, so the output is bit-exact.
+// K7 forward, the first design ("per-thread"). One thread per (sample,
+// level), level fastest, as K1. The eight corners are summed in the
+// reference's order 0..7 of c = dx<<2 | dy<<1 | dz, each term
+// w_c * bf16(value) with w_c = ((x-weight * y-weight) * z-weight), all
+// rounded as the reference rounds them, so the output is bit-exact.
 //
 // What bounds it: eight random F-float gathers per (sample, level), each
 // in its own 32-byte sector on the hashed levels (the dense coarse levels
 // stay in L2), against a few dozen flops. Latency and sector count of the
-// loads, not flops; the design is the simple one.
+// loads, not flops. Kept for F in {1, 8, 16}, which no shipped config
+// uses, and so that chip_smoke.py can time it beside flat_lanes_kernel.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     flat_encode_kernel(const float* __restrict__ pos, const float* __restrict__ table,
@@ -670,6 +677,149 @@ __global__ void __launch_bounds__(kThreads)
   float* dst = out + i * (int64_t)num_levels * F + (int64_t)l * F;
 #pragma unroll
   for (int f = 0; f < F; ++f) dst[f] = acc[f];
+}
+
+// K7's stencil at one level: each corner's entry offset within the level
+// (floats), its weight ((wx*wy)*wz, as the forward), and each axis's upper
+// weight o.
+template <int F>
+__device__ __forceinline__ void flat_stencil(const float p[3], int res, bool dense, const U32Divisor& t,
+                                             uint32_t off[8], float w[8], float w1[3]) {
+  int i0[3];
+  float wa[3][2];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    flat_axis(p[ax], res, &i0[ax], &w1[ax]);
+    wa[ax][0] = __fsub_rn(1.0f, w1[ax]);
+    wa[ax][1] = w1[ax];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
+    uint32_t e;
+    if (dense) {
+      const uint32_t side = (uint32_t)res + 1u;
+      const uint32_t cx = (uint32_t)min(max(i0[0] + dx, 0), res), cy = (uint32_t)min(max(i0[1] + dy, 0), res),
+                     cz = (uint32_t)min(max(i0[2] + dz, 0), res);
+      e = (cx * side + cy) * side + cz;
+    } else {
+      e = umod((uint32_t)(i0[0] + dx) ^ ((uint32_t)(i0[1] + dy) * 2654435761u) ^
+                   ((uint32_t)(i0[2] + dz) * 805459861u), t);
+    }
+    off[c] = e * F;
+    w[c] = __fmul_rn(__fmul_rn(wa[0][dx], wa[1][dy]), wa[2][dz]);
+  }
+}
+
+// K7 forward, lane groups (F = 2 and 4, where it is the default design).
+// What bounds the per-thread design above: its warps mix the levels (and
+// so the dense and the hashed index paths, which then run one after the
+// other), and one load instruction of a warp asks for corner c of 32
+// stencils, six samples at five levels, of which at most six can share a
+// cell where neighbouring samples do. Here a block takes kFlatSamples
+// consecutive samples and warp l their level l (blockDim = 32 * levels),
+// 16 samples at a time: lanes 2j and 2j + 1 serve sample j. Each lane of
+// the pair computes the cells and the four corners of its z parity b
+// (corners 2k + b) and loads them as float2 (F=2) or float4 (F=4), so one
+// load instruction of the warp covers a z-pair of corners (neighbouring
+// entries of a dense level) of 16 neighbouring samples of one level, which
+// along a ray share cells. Each lane rounds its values to bf16 and weights
+// them; the odd lane hands its four products to the even one by shuffles,
+// which adds the eight in the reference's order 0..7, rounded as the twin
+// rounds them (bit-equal), into the block's output rows in shared memory;
+// the block then stores its rows, which are contiguous in the output. An
+// earlier lane-group design (8 lanes per stencil, one corner each, levels
+// mixed in a warp) lost to the per-thread design at a neus-facto eval
+// chunk's inputs, and one that handed each stencil's corners through
+// shared memory lost to this one (PERF.md).
+constexpr int kFlatSamples = 32;
+
+template <int F>
+__global__ void __launch_bounds__(32 * kMaxLevels) flat_lanes_kernel(LaneArgs a, LevelGeometry g) {
+  extern __shared__ float4 smem4[];
+  const int L = (int)a.levels.d;
+  const unsigned lane = threadIdx.x & 31u;
+  const int l = threadIdx.x >> 5;
+  float* rows = reinterpret_cast<float*>(smem4);  // [sample][level][F]
+  const uint32_t i0 = blockIdx.x * kFlatSamples;
+  const uint32_t count = min(a.n - i0, (uint32_t)kFlatSamples);
+  const int res = g.res[l];
+  const bool dense = g.dense[l] != 0;
+  const uint32_t base = (uint32_t)l * a.level_stride;
+  const uint32_t b = lane & 1u;  // the lane's z parity: corners 2k + b
+#pragma unroll
+  for (uint32_t h = 0; h < kFlatSamples / 16; ++h) {
+    const uint32_t j = 16u * h + (lane >> 1);
+    const bool valid = j < count;
+    float prod[4][F];
+    if (valid) {
+      int i0a[3];
+      float wa[3][2];
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        float o;
+        flat_axis(__ldg(a.pos + 3 * (size_t)(i0 + j) + ax), res, &i0a[ax], &o);
+        wa[ax][0] = __fsub_rn(1.0f, o);
+        wa[ax][1] = o;
+      }
+      uint32_t off[4];
+      float w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int dx = k >> 1, dy = k & 1, dz = (int)b;
+        uint32_t e;
+        if (dense) {
+          const uint32_t side = (uint32_t)res + 1u;
+          const uint32_t cx = (uint32_t)min(max(i0a[0] + dx, 0), res), cy = (uint32_t)min(max(i0a[1] + dy, 0), res),
+                         cz = (uint32_t)min(max(i0a[2] + dz, 0), res);
+          e = (cx * side + cy) * side + cz;
+        } else {
+          e = umod((uint32_t)(i0a[0] + dx) ^ ((uint32_t)(i0a[1] + dy) * 2654435761u) ^
+                       ((uint32_t)(i0a[2] + dz) * 805459861u), a.modulus);
+        }
+        off[k] = base + e * F;
+        w[k] = __fmul_rn(__fmul_rn(wa[0][dx], wa[1][dy]), wa[2][dz]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float v[F];
+        if constexpr (F == 4) {
+          const float4 x = __ldg(reinterpret_cast<const float4*>(a.table + off[k]));
+          v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+          bf16_round2(v[2], v[3]);
+        } else {
+          const float2 x = __ldg(reinterpret_cast<const float2*>(a.table + off[k]));
+          v[0] = x.x, v[1] = x.y;
+        }
+        bf16_round2(v[0], v[1]);
+#pragma unroll
+        for (int f = 0; f < F; ++f) prod[k][f] = __fmul_rn(w[k], v[f]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int f = 0; f < F; ++f) prod[k][f] = 0.0f;
+    }
+    float odd[4][F];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int f = 0; f < F; ++f) odd[k][f] = __shfl_down_sync(0xffffffffu, prod[k][f], 1);
+    if (valid && b == 0u) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        float acc = prod[0][f];
+        acc = __fadd_rn(acc, odd[0][f]);
+#pragma unroll
+        for (int k = 1; k < 4; ++k) acc = __fadd_rn(__fadd_rn(acc, prod[k][f]), odd[k][f]);
+        rows[(j * L + l) * F + f] = acc;
+      }
+    }
+  }
+  __syncthreads();
+  float* out = a.out + (size_t)i0 * L * F;
+  for (uint32_t t = threadIdx.x; t < count * L * F; t += blockDim.x) out[t] = rows[t];
 }
 
 // K7 backward. One thread per sample walks the levels, recomputing each
@@ -842,38 +992,6 @@ struct BwdLevels {
   uint32_t private_floats[kMaxLevels];  // its floats, a multiple of 4
   uint32_t shared_floats;               // all copies
 };
-
-// K7's stencil at one level: each corner's entry offset within the level
-// (floats), its weight ((wx*wy)*wz, as the forward), and each axis's upper
-// weight o.
-template <int F>
-__device__ __forceinline__ void flat_stencil(const float p[3], int res, bool dense, const U32Divisor& t,
-                                             uint32_t off[8], float w[8], float w1[3]) {
-  int i0[3];
-  float wa[3][2];
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    flat_axis(p[ax], res, &i0[ax], &w1[ax]);
-    wa[ax][0] = __fsub_rn(1.0f, w1[ax]);
-    wa[ax][1] = w1[ax];
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
-    uint32_t e;
-    if (dense) {
-      const uint32_t side = (uint32_t)res + 1u;
-      const uint32_t cx = (uint32_t)min(max(i0[0] + dx, 0), res), cy = (uint32_t)min(max(i0[1] + dy, 0), res),
-                     cz = (uint32_t)min(max(i0[2] + dz, 0), res);
-      e = (cx * side + cy) * side + cz;
-    } else {
-      e = umod((uint32_t)(i0[0] + dx) ^ ((uint32_t)(i0[1] + dy) * 2654435761u) ^
-                   ((uint32_t)(i0[2] + dz) * 805459861u), t);
-    }
-    off[c] = e * F;
-    w[c] = __fmul_rn(__fmul_rn(wa[0][dx], wa[1][dy]), wa[2][dz]);
-  }
-}
 
 // K1's stencil at one level, with the forward's arithmetic: returns the
 // block index; w are the eight corner weights, w1 each axis's upper weight
@@ -1318,6 +1436,16 @@ void launch_lanes(bool exact, const LaneArgs& a, cudaStream_t stream, const Leve
     block_stochastic_lanes_kernel<F><<<grid, kThreads, 0, stream>>>(a, g);
 }
 
+// K7's forward in lane groups: one block of 32 * levels threads per
+// kFlatSamples samples, its output rows in dynamic shared memory (128 *
+// levels * F bytes, at most 16 KB).
+template <int F>
+cudaError_t launch_flat_lanes(const LaneArgs& a, const LevelGeometry& g, cudaStream_t s) {
+  const uint32_t grid = (a.n + kFlatSamples - 1) / kFlatSamples;
+  flat_lanes_kernel<F><<<grid, 32 * a.levels.d, kFlatSamples * a.levels.d * F * 4, s>>>(a, g);
+  return cudaGetLastError();
+}
+
 // Validate the shared arguments and fill the per-level geometry.
 cudaError_t make_geometry(long long n, int num_levels, long long rows_per_level,
                           long long hash_table_size, const int* resolutions,
@@ -1335,6 +1463,19 @@ cudaError_t make_geometry(long long n, int num_levels, long long rows_per_level,
     g->dense[l] = bs * bs * bs * 8 <= hash_table_size ? 1 : 0;
   }
   return cudaSuccess;
+}
+
+// The flat levels in the block geometry's record (blocks_per_axis unused),
+// which the lane kernels take.
+LevelGeometry level_geometry_of(const FlatGeometry& g) {
+  LevelGeometry lg;
+  lg.num_levels = g.num_levels;
+  for (int l = 0; l < g.num_levels; ++l) {
+    lg.res[l] = g.res[l];
+    lg.blocks_per_axis[l] = 0;
+    lg.dense[l] = g.dense[l];
+  }
+  return lg;
 }
 
 cudaError_t make_flat_geometry(long long n, int num_levels, long long rows_per_level,
@@ -1395,7 +1536,7 @@ int nst_hash_encode_block(const void* pos, const void* table, void* out,
   a.n = (uint32_t)n;
   a.level_stride = (uint32_t)(rows_per_level * kLanes);
   a.levels = {(uint32_t)num_levels, level_magic, level_shift};
-  a.nblocks = {nblocks, block_magic, block_shift};
+  a.modulus = {nblocks, block_magic, block_shift};
   if (features_per_level == 2)
     launch_lanes<2>(exact, a, s, g);
   else
@@ -1459,20 +1600,41 @@ int nst_hash_encode_block_bwd(const void* pos, const void* table, const void* gr
 
 // K7 forward (flat layout). pos (n, 3), table (num_levels, rows_per_level,
 // 128) and out (n, num_levels * features_per_level) are contiguous f32
-// device pointers; resolutions is a host array of num_levels ints.
-// Returns a cudaError_t (0 on success).
+// device pointers; resolutions is a host array of num_levels ints. design
+// 0 takes flat_encode_kernel (one thread per (sample, level)); 1 the lane
+// groups (F = 2 or 4, a 16-byte aligned table of fewer than 2^32 floats,
+// n * num_levels < 2^31) with the divisors (magic, shift) of the level
+// count and of hash_table_size from hash_grid._u32_divisor. Returns a
+// cudaError_t (0 on success).
 int nst_hash_encode_flat(const void* pos, const void* table, void* out, long long n, int num_levels,
                          int features_per_level, long long rows_per_level, long long hash_table_size,
-                         const int* resolutions, void* stream) {
+                         const int* resolutions, int design, unsigned level_magic, unsigned level_shift,
+                         unsigned magic, unsigned shift, void* stream) {
   FlatGeometry g;
   const cudaError_t bad = make_flat_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
   if (bad != cudaSuccess) return (int)bad;
+  if (design != 0 && design != 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  const unsigned int grid = (unsigned int)((n * num_levels + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)pos;
   const float* tab = (const float*)table;
   float* o = (float*)out;
+  if (design == 1) {
+    if ((features_per_level != 2 && features_per_level != 4) || (uint64_t)n * (uint64_t)num_levels >= (1ull << 31) ||
+        (uint64_t)num_levels * (uint64_t)rows_per_level * kLanes >= (1ull << 32) || (uintptr_t)table % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    LaneArgs a;
+    a.pos = p;
+    a.table = tab;
+    a.out = o;
+    a.n = (uint32_t)n;
+    a.level_stride = (uint32_t)(rows_per_level * kLanes);
+    a.levels = {(uint32_t)num_levels, level_magic, level_shift};
+    a.modulus = {(uint32_t)hash_table_size, magic, shift};
+    const LevelGeometry lg = level_geometry_of(g);
+    return (int)(features_per_level == 2 ? launch_flat_lanes<2>(a, lg, s) : launch_flat_lanes<4>(a, lg, s));
+  }
+  const unsigned int grid = (unsigned int)((n * num_levels + kThreads - 1) / kThreads);
   const int64_t stride = rows_per_level * kLanes;
   const uint32_t t = (uint32_t)hash_table_size;
   switch (features_per_level) {
@@ -1516,18 +1678,11 @@ int nst_hash_encode_flat_bwd(const void* pos, const void* table, const void* gra
   const float* gr = (const float*)grad;
   float* dt = (float*)d_table;
   float* dp = (float*)d_pos;
-  if (design == 1) {
-    LevelGeometry lg;  // the flat levels in the block geometry's record (blocks_per_axis unused)
-    lg.num_levels = num_levels;
-    for (int l = 0; l < num_levels; ++l) {
-      lg.res[l] = g.res[l];
-      lg.blocks_per_axis[l] = 0;
-      lg.dense[l] = g.dense[l];
-    }
-    return (int)launch_bwd_design(false, p, tab, gr, dt, dp, n, features_per_level, rows_per_level, lg, nullptr,
+  if (design == 1)
+    return (int)launch_bwd_design(false, p, tab, gr, dt, dp, n, features_per_level, rows_per_level,
+                                  level_geometry_of(g), nullptr,
                                   private_mask, shared_bytes, (float*)partial, private_blocks, magic, shift,
                                   (uint32_t)hash_table_size, s);
-  }
   const unsigned int grid = (unsigned int)((n + kThreads - 1) / kThreads);
   const int64_t stride = rows_per_level * kLanes;
   const uint32_t t = (uint32_t)hash_table_size;

@@ -11,12 +11,15 @@ from typing import Dict, Optional
 
 import torch
 
-# Launches of each hand-written kernel entry (K5 counts one binning: its
-# emission and range kernels, launched around one sort).
+# Launches of each hand-written kernel entry. K5 counts one binning under
+# "tile_bin" in either design, and once more under "tile_bin_bucketed" when
+# it took the tile-bucketed design (its count, scan, scatter and per-tile
+# sort kernels, launched by one C entry).
 launch_counts: Dict[str, int] = {
     "project_gaussians": 0,
     "project_gaussians_bwd": 0,
     "tile_bin": 0,
+    "tile_bin_bucketed": 0,
     "blend_saturating": 0,
     "blend_saturating_bwd": 0,
 }
@@ -41,6 +44,7 @@ def kernel_library() -> ctypes.CDLL:
             "nst_gsplat_project_fwd": [p, p, p, cam, i, i, i, ll] + [p] * 6 + [p],
             "nst_gsplat_project_bwd": [p, p, p, cam, i, i, i, ll] + [p] * 7 + [p],
             "nst_gsplat_tile_keys": [p, p, p, p, ll, p, ll, i, i, i, i, i, i, p, p],
+            "nst_gsplat_tile_bin": [p, p, p, p, ll, p, ll, i, i, i, i, i, i, i] + [p] * 6 + [p],
             "nst_gsplat_tile_ranges": [p, ll, i, i, i, i, p, p, p, p],
             "nst_gsplat_blend_fwd": [p] * 7 + [i] * 4 + [p] * 3 + [p],
             "nst_gsplat_blend_bwd": [p] * 7 + [i] * 4 + [p] * 4 + [p],

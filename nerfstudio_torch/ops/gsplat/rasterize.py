@@ -5,10 +5,14 @@
    key ``(tile << depth_bits | top depth bits) << id_bits | id`` for each
    slot of a fixed window around its tile (the top ``N // big_frac`` by
    radius also a wider one, minus the tiles the first already covered);
-   one sort; each tile's [start, count) found by searching its first
-   possible key. Packing the id under the reference's uint32 key makes the
-   order within a tile deterministic (the reference's ``lax.sort`` on the
-   key alone is not stable).
+   the keys sorted, each tile's [start, count) in them. Packing the id
+   under the reference's uint32 key makes the order within a tile
+   deterministic (the reference's ``lax.sort`` on the key alone is not
+   stable). The twin and the card's first design emit every slot, dead
+   ones with the sentinel tile ``num_tiles``, sort them all and search each
+   tile's first possible key; the card's default design (``"bucketed"``)
+   counts the live pairs per tile, scans the counts, scatters the keys to
+   their tiles and sorts each tile in shared memory, with no host sync.
 2. K6, the saturating blend (``_BlendSaturating``): each 16x16 tile blends
    its full depth-sorted list front to back; a pixel stops once its
    transmittance falls below 1e-4 (gsplat's rule, which the reference
@@ -17,9 +21,9 @@
    gradient: d means2d, d conics, d channels [rgb, depth, 1], d opacity,
    summed over each tile in shared memory before one flush per entry.
 
-On CUDA tensors the hand-written kernels of ``csrc/gsplat.cu`` run (the
-sort between K5's two kernels is ``torch.sort``, as the reference's sort
-sits outside any kernel); on CPU tensors the plain PyTorch twins in this
+On CUDA tensors the hand-written kernels of ``csrc/gsplat.cu`` run (in
+K5's first design, which only chip_smoke.py takes, the sort between its two
+kernels is ``torch.sort``); on CPU tensors the plain PyTorch twins in this
 module. ``mode="bounded"`` is retired and not ported."""
 
 from __future__ import annotations
@@ -38,12 +42,64 @@ _COORD_LIMIT = float(2**30)
 _TWIN_BATCH_ELEMENTS = 1 << 24
 
 
+# K5's designs on the card: "bucketed" (the default), a counting sort by tile
+# and a sort of each tile's keys in shared memory; "sorted", every slot's
+# key, one torch.sort and a binary search per tile. chip_smoke.py times both.
+TILE_BIN_DESIGNS = ("bucketed", "sorted")
+# Keys that one block of the bucketed design's per-tile sort orders at once
+# (a block radix sort of 256 threads x 8 keys; the CUDA entry checks it
+# against its kSortKeys). A longer tile is sorted in runs of this many keys,
+# which the block merges in global memory.
+TILE_SORT_KEYS = 2048
+# Shared memory one block may take on the H100 (227 KB, opt-in above 48 KB);
+# the CUDA entry re-checks against its own copy (kMaxSharedBytes).
+SHARED_BYTES_PER_BLOCK = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class BinPlan:
+    """The bucketed design's sizes for one call: ``pairs`` window slots (the
+    length of ``packed``, ``ids`` and the scatter's key buffer), the keys
+    one sorting block orders at once (``sort_keys``), the binning passes' per-block
+    histogram (``hist_bytes``, 4 per tile) and the scratch the wrapper
+    allocates besides the outputs (the tiles' cursors and the unsorted
+    keys)."""
+
+    pairs: int
+    sort_keys: int
+    hist_bytes: int
+    scratch_bytes: int
+
+
+def bin_plan(n: int, n_big: int, d: int, d_big: int, num_tiles: int) -> BinPlan:
+    """The plan of a bucketed binning of ``n`` gaussians in a ``d`` x ``d``
+    window and ``n_big`` in a ``d_big`` x ``d_big`` one over ``num_tiles``
+    tiles; raises ValueError beyond the design's limits: fewer than 2^31
+    window slots (int32 starts and ids) and a histogram that fits one block's
+    shared memory (58,112 tiles; a 3840x2160 frame has 32,400)."""
+    pairs = d * d * n + d_big * d_big * n_big
+    if pairs >= 2**31:
+        raise ValueError(f"the tile-bucketed binning takes fewer than 2^31 window slots, got {pairs}")
+    if 4 * num_tiles > SHARED_BYTES_PER_BLOCK:
+        raise ValueError(f"the tile-bucketed binning takes at most {SHARED_BYTES_PER_BLOCK // 4} tiles (a 4-byte "
+                         f"histogram bin per tile in one block's shared memory), got {num_tiles}")
+    return BinPlan(pairs, TILE_SORT_KEYS, 4 * num_tiles, 4 * num_tiles + 8 * pairs)
+
+
 @dataclasses.dataclass
 class TileBins:
     """K5's result: the sorted packed keys, the gaussian id of each sorted
-    entry, and each tile's [start, start + count) in them."""
+    entry, and each tile's [start, start + count) in them.
 
-    packed: torch.Tensor  # (M,) int64, ascending
+    ``packed`` and ``ids`` have the capacity length d^2 N + d_big^2 N_big
+    (every window slot); the first ``counts.sum()`` entries are the live
+    pairs, sorted. After them the twin (and the card's first design) keep
+    the sorted sentinel keys of the dead slots; on the card's default design
+    those entries are undefined. ``starts``, ``counts`` and the live entries
+    are equal in every design and the twin. K6 reads only ``ids``,
+    ``starts`` and ``counts``."""
+
+    packed: torch.Tensor  # (M,) int64, ascending over the live entries
     ids: torch.Tensor  # (M,) int32
     starts: torch.Tensor  # (tiles,) int32
     counts: torch.Tensor  # (tiles,) int32
@@ -171,8 +227,11 @@ def _tile_bin_twin(means2d, radii, depths, valid, tiles_x, tiles_y, tiles_per_ga
 
 
 def _tile_bin_kernel(means2d, radii, depths, valid, tiles_x, tiles_y, tiles_per_gauss, big_frac,
-                     big_tiles_per_gauss) -> TileBins:
-    """Launch K5: key emission, ``torch.sort``, tile ranges."""
+                     big_tiles_per_gauss, _design: str = "bucketed") -> TileBins:
+    """Launch K5 in the tile-bucketed design, or in ``_design`` (one of
+    ``TILE_BIN_DESIGNS``), which only chip_smoke.py's comparison sets."""
+    if _design not in TILE_BIN_DESIGNS:
+        raise ValueError(f"design {_design!r} is not one of {TILE_BIN_DESIGNS}")
     _cuda.check_cuda("tile_bin", means2d, radii, depths, valid)
     n = means2d.shape[0]
     num_tiles = tiles_x * tiles_y
@@ -181,18 +240,24 @@ def _tile_bin_kernel(means2d, radii, depths, valid, tiles_x, tiles_y, tiles_per_
     d_big = max(int(np.sqrt(big_tiles_per_gauss)), 1)
     idx_big = big_gaussians(radii, valid, big_frac) if big_frac else None
     n_big = 0 if idx_big is None else idx_big.shape[0]
-    packed = torch.empty((d * d * n + d_big * d_big * n_big,), dtype=torch.int64, device=means2d.device)
     dev = means2d.device
-    big_ptr = None if idx_big is None else idx_big.data_ptr()
-    _cuda.launch(None, "nst_gsplat_tile_keys", dev, means2d.data_ptr(), radii.data_ptr(), depths.data_ptr(),
-                 valid.data_ptr(), n, big_ptr, n_big, tiles_x, tiles_y, d, d_big, depth_bits, ib, packed.data_ptr())
-    packed = torch.sort(packed).values
-    m = packed.shape[0]
-    ids = torch.empty((m,), dtype=torch.int32, device=dev)
-    starts = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
-    counts = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
-    _cuda.launch(None, "nst_gsplat_tile_ranges", dev, packed.data_ptr(), m, tiles_x, tiles_y, depth_bits, ib,
-                 ids.data_ptr(), starts.data_ptr(), counts.data_ptr())
+    emission = (means2d.data_ptr(), radii.data_ptr(), depths.data_ptr(), valid.data_ptr(), n,
+                None if idx_big is None else idx_big.data_ptr(), n_big, tiles_x, tiles_y, d, d_big, depth_bits, ib)
+    i32 = dict(dtype=torch.int32, device=dev)
+    starts, counts = torch.empty((num_tiles,), **i32), torch.empty((num_tiles,), **i32)
+    if _design == "sorted":
+        packed = torch.empty((d * d * n + d_big * d_big * n_big,), dtype=torch.int64, device=dev)
+        _cuda.launch(None, "nst_gsplat_tile_keys", dev, *emission, packed.data_ptr())
+        packed = torch.sort(packed).values
+        ids = torch.empty(packed.shape, **i32)
+        _cuda.launch(None, "nst_gsplat_tile_ranges", dev, packed.data_ptr(), packed.shape[0], tiles_x, tiles_y,
+                     depth_bits, ib, ids.data_ptr(), starts.data_ptr(), counts.data_ptr())
+    else:
+        plan = bin_plan(n, n_big, d, d_big, num_tiles)
+        packed, keys = (torch.empty((plan.pairs,), dtype=torch.int64, device=dev) for _ in range(2))
+        ids, cursor = torch.empty((plan.pairs,), **i32), torch.empty((num_tiles,), **i32)
+        _cuda.launch("tile_bin_bucketed", "nst_gsplat_tile_bin", dev, *emission, plan.sort_keys, counts.data_ptr(),
+                     starts.data_ptr(), cursor.data_ptr(), keys.data_ptr(), packed.data_ptr(), ids.data_ptr())
     _cuda.launch_counts["tile_bin"] += 1
     return TileBins(packed, ids, starts, counts, tiles_x, tiles_y, depth_bits, ib)
 
@@ -234,15 +299,17 @@ def _pixel_centers(tiles: torch.Tensor, tiles_x: int) -> torch.Tensor:
     return local[None] + origin[:, None, :]
 
 
-def _blend_tiles(means2d, conics, ch, opac, bins: TileBins, t0: int, t1: int, k: int) -> torch.Tensor:
+def _blend_tiles(means2d, conics, ch, opac, bins: TileBins, t0: int, t1: int, k: int, live: int) -> torch.Tensor:
     """Plain PyTorch K6 on tiles [t0, t1) padded to k entries: (C, 256, 5),
-    differentiable in the four arrays."""
+    differentiable in the four arrays. Reads only the ``live`` first entries
+    of ``bins.ids`` (``TileBins``: the rest may be undefined); a padding
+    entry takes the last live one's gaussian and is masked out."""
     dev = means2d.device
     tiles = torch.arange(t0, t1, device=dev)
     off = torch.arange(k, device=dev)
     in_seg = off[None, :] < bins.counts[t0:t1, None]
-    entry = torch.clamp_max(bins.starts[t0:t1, None].long() + off[None, :], max(bins.ids.shape[0] - 1, 0))
-    gids = bins.ids[entry].long()
+    entry = torch.clamp_max(bins.starts[t0:t1, None].long() + off[None, :], max(live - 1, 0))
+    gids = bins.ids[entry].long() if live else torch.zeros_like(entry)
     pix = _pixel_centers(tiles, bins.tiles_x)
     # _alpha_from_gathered (reference :47-63)
     d = pix[:, :, None, :] - means2d[gids][:, None, :, :]
@@ -277,8 +344,9 @@ def _image_to_tiles(img: torch.Tensor, bins: TileBins) -> torch.Tensor:
 def _blend_twin(means2d, conics, ch, opac, bins: TileBins, width: int, height: int) -> torch.Tensor:
     """Plain PyTorch K6 forward: (height, width, 5)."""
     out = means2d.new_zeros((bins.tiles_x * bins.tiles_y, TILE * TILE, 5))
-    for t0, t1, k in _tile_batches(bins.counts.cpu().numpy()):
-        out[t0:t1] = _blend_tiles(means2d, conics, ch, opac, bins, t0, t1, k)
+    counts = bins.counts.cpu().numpy()
+    for t0, t1, k in _tile_batches(counts):
+        out[t0:t1] = _blend_tiles(means2d, conics, ch, opac, bins, t0, t1, k, int(counts.sum()))
     return _tiles_to_image(out, bins, width, height)
 
 
@@ -287,10 +355,11 @@ def _blend_twin_bwd(means2d, conics, ch, opac, bins: TileBins, g_ch: torch.Tenso
     at a time): (d means2d, d conics, d ch, d opac)."""
     g_tiles = _image_to_tiles(g_ch, bins)
     grads = [torch.zeros_like(x) for x in (means2d, conics, ch, opac)]
-    for t0, t1, k in _tile_batches(bins.counts.cpu().numpy()):
+    counts = bins.counts.cpu().numpy()
+    for t0, t1, k in _tile_batches(counts):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(True) for x in (means2d, conics, ch, opac)]
-            out = _blend_tiles(*leaves, bins, t0, t1, k)
+            out = _blend_tiles(*leaves, bins, t0, t1, k, int(counts.sum()))
             for acc, g in zip(grads, torch.autograd.grad(out, leaves, g_tiles[t0:t1], allow_unused=True)):
                 if g is not None:
                     acc += g

@@ -24,11 +24,12 @@ hand-written kernels in ``csrc/hash_grid.cu`` (or the call raises), CPU
 tensors go to the plain PyTorch twins in this module. The one-corner and
 z-pair paths are not ported.
 
-K1's forward, K3 and the backward of K1 and of K7 have two designs on the
-card (``DESIGNS``): a group of lanes per (sample, level) with 16-byte loads
-and, in the backward, one vector reduction per corner, which F = 2 and 4
-take; and the first design, one thread per (sample, level) or, in the
-backward, per sample with scalar atomics, which the other widths take.
+Every kernel (the forward and backward of K1 and K7, and K3) has two
+designs on the card (``DESIGNS``): a group of lanes per (sample, level)
+with 8- or 16-byte loads and, in the backward, one vector reduction per
+corner, which F = 2 and 4 take; and the first design, one thread per
+(sample, level) or, in the backward, per sample with scalar atomics,
+which the other widths take.
 K7's backward in lane groups, asked for the table gradient alone, first
 reduces the dense coarse levels in shared memory (``bwd_plan``).
 ``chip_smoke.py`` times every design.
@@ -71,20 +72,24 @@ launch_counts: Dict[str, int] = {
     "hash_encode_block_per_thread": 0,
     # K1 bwd or K7 bwd launches (counted above too) that took the per-thread design
     "hash_encode_bwd_per_thread": 0,
+    # K7 forward launches (counted above too) that took the per-thread design
+    "hash_encode_flat_per_thread": 0,
 }
 
-# Designs of K1's forward, K3 and the backward of K1 and K7, by their C
-# design codes. "per-thread": one thread per (sample, level) (the forward)
-# or per sample (the backward, with scalar atomics); "lane-groups": a group
-# of lanes per (sample, level) with 16-byte loads, and in the backward one
-# vector reduction per corner. K7's backward in lane groups also reduces
-# the dense coarse levels in shared memory first when it is asked for the
-# table gradient alone (``bwd_plan``).
+# Designs of every hash-grid kernel (K1 and K7 forward and backward, K3),
+# by their C design codes. "per-thread": one thread per (sample, level)
+# (the forward) or per sample (the backward, with scalar atomics);
+# "lane-groups": a stencil's corners loaded by a group of lanes as 8- or
+# 16-byte vectors (K7's forward: a lane pair per stencil, one level per
+# warp, a load instruction a z-pair of corners of 16 neighbouring
+# samples), and in the backward one vector reduction per corner. K7's backward in lane
+# groups also reduces the dense coarse levels in shared memory first when
+# it is asked for the table gradient alone (``bwd_plan``).
 DESIGNS = {"per-thread": 0, "lane-groups": 1}
 # The widths the lane groups take, where every kernel takes them by default:
-# the faster design at a 512^2 render chunk's inputs (forward) and at the
+# the faster design at a render chunk's inputs (forward) and at the
 # training steps' own inputs (backward) on the H100 (chip_smoke.py phases
-# 30 and 31 time both designs in turns; PERF.md records the times). Other
+# 20, 30 and 31 time both designs in turns; PERF.md records the times). Other
 # widths take the per-thread kernels.
 _LANE_WIDTHS = (2, 4)
 _DEFAULT = "lane-groups"
@@ -399,7 +404,10 @@ def _kernel_library() -> ctypes.CDLL:
             + [ctypes.c_void_p]
         )
         lib.nst_hash_encode_block_bwd.restype = ctypes.c_int
-        lib.nst_hash_encode_flat.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_void_p]
+        # design, divisors (magic, shift) of L and T, stream
+        lib.nst_hash_encode_flat.argtypes = (
+            [ctypes.c_void_p] * 3 + geometry + [ctypes.c_int] + [ctypes.c_uint] * 4 + [ctypes.c_void_p]
+        )
         lib.nst_hash_encode_flat.restype = ctypes.c_int
         # design, private level mask, shared bytes, private-pass scratch and
         # block count, divisor (magic, shift), stream
@@ -649,15 +657,25 @@ def _flat_twin_bwd(
     return (None if d_table is None else d_table.view(L, S, lanes)), d_pos
 
 
-def _flat_kernel(pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int,
-                 hash_table_size: int) -> torch.Tensor:
-    """Launch the CUDA K7 forward."""
+def _flat_kernel(pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int, hash_table_size: int,
+                 _design: Optional[str] = None) -> torch.Tensor:
+    """Launch the CUDA K7 forward in its default design, or in ``_design``
+    (one of ``DESIGNS``), which only chip_smoke.py's comparison of the
+    designs sets."""
     n = pos.shape[0]
-    out = torch.empty((n, table.shape[0] * _features(table, hash_table_size)), dtype=torch.float32,
-                      device=pos.device)
-    if n:
-        _launch("hash_encode_flat", "nst_hash_encode_flat", pos, pos.data_ptr(), table.data_ptr(), out.data_ptr(),
-                *_geometry_args(table, n, min_res, max_res, hash_table_size))
+    L = table.shape[0]
+    F = _features(table, hash_table_size)
+    design = _pick_design(F, _design)
+    out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
+    if n == 0:
+        return out
+    if design != "per-thread":
+        _check_lane_limits(table, n)
+    _launch("hash_encode_flat", "nst_hash_encode_flat", pos, pos.data_ptr(), table.data_ptr(), out.data_ptr(),
+            *_geometry_args(table, n, min_res, max_res, hash_table_size), DESIGNS[design],
+            *_u32_divisor(L), *_u32_divisor(hash_table_size))
+    if design == "per-thread":
+        launch_counts["hash_encode_flat_per_thread"] += 1
     return out
 
 
@@ -759,10 +777,10 @@ def hash_encode(
     neither takes the flat layout (K7). CUDA tensors launch the kernels, CPU
     tensors run the twins.
 
-    On the card, K1's forward and K3 at F = 2 or 4 (every shipped config)
-    take the lane-group kernels, which index in 32 bits: they take fewer
-    than 2^31 (sample, level) pairs, a table of fewer than 2^32 floats,
-    16-byte aligned, and raise ValueError otherwise. The backward of K1 and
+    On the card, the forward of K1 and K7 and K3 at F = 2 or 4 (every
+    shipped config) take the lane-group kernels, which index in 32 bits:
+    they take fewer than 2^31 (sample, level) pairs, a table of fewer than
+    2^32 floats, 16-byte aligned, and raise ValueError otherwise. The backward of K1 and
     of K7 at F = 2 or 4 takes the same limits (its table gradient is
     allocated aligned): lane groups with vector reductions; K7, asked for
     the table gradient alone, first reduces the dense coarse levels whose
