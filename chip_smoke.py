@@ -19,7 +19,8 @@ shapes its path gives it, and drives the port's paths from random weights:
   a profile of one frame in each, and the positions and tables that one of
   its chunks hands to K1 and K3, captured for phase 30;
 * splatfacto at the shipped config on tools/bench_models.py's setup
-  (phases 13-19): K4 forward and backward, K5 and K6 forward and backward
+  (phases 13-19): K4 forward and backward (device time too), K5 and K6
+  forward and backward
   against their twins at 100,000 slots and 512^2 (K5 in both designs,
   tile-bucketed and sorted, at the check inputs, with one tile longer
   than one block of the bucketed sort orders at once, and at one trained
@@ -27,9 +28,10 @@ shapes its path gives it, and drives the port's paths from random weights:
   keys and of all the slots' keys); training through
   ``SplatPipeline.train``'s schedule from step 6000 (the step, refine with
   an opacity reset, 5 warm-up and 30 timed steps, one launch of each of the
-  five kernels checked per step); a profile of three steps, one refine and
-  one 512^2 eval render timed; one 128^2 step on the card against the CPU
-  twins;
+  five kernels checked per step, in their default designs); a profile of
+  three steps and of one 512^2 eval render, each with one row per gsplat
+  kernel, one refine and the eval render timed; one 128^2 step on the card
+  against the CPU twins;
 * neus-facto at the shipped config (phases 20-27): K7 forward and backward
   against their twins (the backward against a float64 run) at the proposal
   nets' shapes, the forward in every design, also at both calls of one
@@ -42,6 +44,11 @@ shapes its path gives it, and drives the port's paths from random weights:
   profiled by kernel class) and one step on the card against the CPU
   twins;
 * K6's backward at the inputs of one trained-state splat step (phase 28);
+* K6's forward in both designs (phase 32), culled per warp and per pixel:
+  bit-equal to each other (out, T and last), each against the twin, and
+  timed in turns, at the check inputs, with one long tile and at a
+  trained step's inputs, with the share of (warp, staged entry) pairs the
+  culled design skips;
 * the kernels with more than one design (phases 29-30), each design
   against the twin and timed in turns on the same inputs: the per-lane
   gather of run_case and f4 (shared-memory table columns at the lanes that
@@ -186,6 +193,47 @@ def device_ms(fn, runs: int = 10) -> float:
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     return sum(spans) / 1e3 / runs if spans else float("nan")
+
+
+def kernel_records_ms(fn, key: str, runs: int = 10):
+    """(mean device ms of one kernel record whose name holds ``key``, the
+    records seen) under torch.profiler over ``runs`` calls of ``fn`` (after
+    one warm-up): unlike ``device_ms`` it holds if the profiler drops
+    records, as long as ``fn`` launches that kernel once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name]
+    return (sum(spans) / 1e3 / len(spans) if spans else float("nan")), len(spans)
+
+
+def batch_ms(fn, calls: int = 50) -> float:
+    """CUDA events around ``calls`` back-to-back calls, per call: the
+    device's time where a call's kernels take longer than the host's issue
+    of it."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def card_clocks() -> str:
+    """The SM clock, its maximum, the power draw and the temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0].strip()
 
 
 def paired_ms(fns, runs: int = TIMED_RUNS):
@@ -540,6 +588,11 @@ def profile_steps(cfg, pipeline, state, hook, start, gen):
         lambda: train_steps(cfg, pipeline, state, hook, range(start, start + PROFILED_STEPS), gen))
 
 
+# kernel records by name in the last profile_device run (a kernel launched
+# once per step shows whether the profiler dropped any)
+PROFILE_RECORDS = {}
+
+
 def profile_device(run, per=PROFILED_STEPS):
     """Device time by kernel over ``run()``, which takes ``per`` steps (or
     frames) (torch.profiler). Returns (rows (name, ms per step) by time,
@@ -555,6 +608,7 @@ def profile_device(run, per=PROFILED_STEPS):
         run()
         torch.cuda.synchronize()
     spans, by_name, gemm_flops = [], {}, 0
+    PROFILE_RECORDS.clear()
     for e in prof.events():
         if e.name in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm"):
             gemm_flops += getattr(e, "flops", 0) or 0
@@ -563,6 +617,7 @@ def profile_device(run, per=PROFILED_STEPS):
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+            PROFILE_RECORDS[e.name] = PROFILE_RECORDS.get(e.name, 0) + 1
     if not spans:
         return None
     busy_us, end = 0.0, -math.inf
@@ -678,7 +733,16 @@ SPLAT_CAMERAS = 8
 SPLAT_START, SPLAT_WARMUP, SPLAT_TIMED = 6000, 5, 30
 SPLAT_CHECK_HW, SPLAT_CHECK_GAUSS = 128, 4096
 SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile_bin_bucketed",
-                 "blend_saturating", "blend_saturating_bwd")
+                 "blend_saturating", "blend_saturating_per_pixel", "blend_saturating_bwd")
+# launches of each per splat step: one of every kernel in its default
+# design, none of K6 forward's per-pixel design
+SPLAT_STEP_LAUNCHES = {**dict.fromkeys(SPLAT_KERNELS, 1), "blend_saturating_per_pixel": 0}
+# the gsplat kernels by profiler name (first match), one row each in the
+# splat profiles: every kernel K4, K5 and K6 launch
+GSPLAT_ROWS = (("K4 fwd", "project_fwd"), ("K4 bwd", "project_bwd"), ("K5 tile_count", "tile_count"),
+               ("K5 tile_scan", "tile_scan"), ("K5 tile_scatter", "tile_scatter"), ("K5 tile_sort", "tile_sort"),
+               ("K5 sorted design", "tile_keys"), ("K5 sorted design", "tile_ranges"), ("K6 fwd", "blend_fwd"),
+               ("K6 bwd", "blend_bwd"))
 
 # K4 kernel vs twin: the same float32 operations in the same order (the
 # library is built without FMA contraction), so the forward differs only
@@ -986,6 +1050,128 @@ def check_k6(name, x, projected, bins, gen):
     return (fwd_abs, bwd_err), timing, bounds, walked
 
 
+def cull_share(m2, con, op, bins, T, last):
+    """The share of (warp, staged entry) pairs that the culled design skips,
+    from the same predicate in torch (``rasterize._warp_culled``): a warp
+    tests a batch of 256 entries where it is not yet done at the batch's
+    start (one of its pixels has T >= 1e-4 at the end, or blends past the
+    batch's start); a block stages no batch after all its warps are done.
+    Returns (skipped, tested)."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    ext = rz._cull_extents(m2, con, op)
+    t_tiles = rz._image_to_tiles(T[..., None], bins)[..., 0]
+    l_tiles = rz._image_to_tiles(last[..., None], bins)[..., 0]
+    counts = bins.counts.cpu().numpy()
+    live = int(counts.sum())
+    skipped = tested = 0
+    for t0, t1, k in rz._tile_batches(counts):
+        dev = m2.device
+        tiles = torch.arange(t0, t1, device=dev)
+        off = torch.arange(k, device=dev)
+        in_seg = off[None, :] < bins.counts[t0:t1, None]
+        entry = torch.clamp_max(bins.starts[t0:t1, None].long() + off[None, :], max(live - 1, 0))
+        culled = rz._warp_culled(m2, ext, bins.ids[entry].long(), tiles, bins.tiles_x)  # (C, 8, k)
+        warp_T = t_tiles[t0:t1][:, rz.warp_pixels(dev)]  # (C, 8, 32)
+        warp_last = l_tiles[t0:t1][:, rz.warp_pixels(dev)]
+        batch_start = (off // 256) * 256
+        active = (warp_T >= 1e-4).any(-1)[..., None] | (warp_last.amax(-1)[..., None] > batch_start)
+        pairs = active & in_seg[:, None, :]
+        tested += int(pairs.sum())
+        skipped += int((pairs & culled).sum())
+    return skipped, tested
+
+
+def check_k6_designs(name, label, m2, con, ch, op, bins, w, h):
+    """Every design of K6's forward on one set of inputs: out, T and last
+    bit-equal to the per-pixel design's (torch.equal), and each within
+    K6_FWD_REL of each channel's peak of the twin. Returns a record: sizes,
+    entries walked, bound (``check_k6``'s formula), cull share, errors, and
+    each design's timing fn."""
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    designs = rz.BLEND_FWD_DESIGNS
+    with torch.no_grad():
+        ref = rz._blend_twin(m2, con, ch, op, bins, w, h)
+        got = {d: rz._blend_kernel(m2, con, ch, op, bins, w, h, _design=d) for d in designs}
+    torch.cuda.synchronize()
+    live = int(bins.counts.sum())
+    ch_peak = ch[bins.ids[:live].long()].abs().amax(dim=0).clamp_min(1.0)
+    equal = {d: all(torch.equal(a, b) for a, b in zip(got[d], got["per_pixel"])) for d in designs}
+    rel = {d: float(((got[d][0] - ref).abs().amax(dim=(0, 1)) / ch_peak).max()) for d in designs}
+    err = {d: float((got[d][0] - ref).abs().max()) for d in designs}
+    out, T, last = got[rz.BLEND_FWD_DESIGNS[0]]
+    walked = float(last.double().sum())
+    skipped, tested = cull_share(m2, con, op, bins, T, last)
+    rec = dict(inputs=label, entries=live, per_tile_max=int(bins.counts.max()), walked=walked,
+               bound=bound(nbytes(m2, con, ch, op, bins.ids, bins.starts, bins.counts, out, T, last), 15 * walked),
+               cull_share=skipped / max(tested, 1), pairs_tested=tested, bit_equal=equal, rel=rel, max_abs_err=err,
+               saturated=float((T < 1e-4).float().mean()))
+    log(name, f"{label} ({w}x{h}, {live} entries in tiles, max {rec['per_tile_max']} a tile, {walked / (w * h):.0f} "
+        f"walked per pixel, bound {rec['bound'][0]:.4f} ms by {rec['bound'][1]}): bit-equal to per_pixel {equal}; "
+        "max |design - twin| / channel peak " + ", ".join(f"{d} {v:.3g}" for d, v in rel.items())
+        + f" (limit {K6_FWD_REL}); cull share {rec['cull_share']:.3f} of {tested} (warp, staged entry) pairs")
+    if not all(equal.values()) or max(rel.values()) > K6_FWD_REL or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: a design of K6's forward is not bit-equal to the per-pixel one or "
+                             f"disagrees with the twin ({label})")
+    rec["timing"] = {d: (lambda d=d: rz._blend_kernel(m2, con, ch, op, bins, w, h, _design=d)) for d in designs}
+    return rec
+
+
+def non_finite_inputs(m2, con, ch, op, bins, w, h):
+    """K6's inputs with a NaN or infinite conic value or opacity on every
+    7th gaussian of the tiles' lists: the reference's mask skips an entry
+    whose sigma or alpha is NaN (both designs must too)."""
+    con, op = con.clone(), op.clone()
+    ids = bins.ids[: int(bins.counts.sum())].long().unique()[::7]
+    bad = torch.tensor([float("nan"), float("inf")], device=con.device)
+    k = torch.arange(ids.shape[0], device=con.device)
+    on_conic = k % 4 < 3
+    con[ids[on_conic], (k % 3)[on_conic]] = bad[k[on_conic] % 2]
+    op[ids[~on_conic]] = bad[k[~on_conic] % 2]
+    return m2, con, ch, op, bins, w, h
+
+
+def time_k6(rec):
+    """Every design of K6's forward in turns: CUDA events around one call
+    (``paired_ms``) and around 50 back to back (``batch_ms``), the
+    profiler's device time per call (``device_ms``) and per kernel record
+    (``kernel_records_ms``, with the records seen of 10), into ``rec``;
+    with the card's clocks before and after."""
+    rec["clocks"] = [card_clocks()]
+    with torch.no_grad():
+        ev = paired_ms(rec["timing"])
+        batch = {k: batch_ms(fn) for k, fn in rec["timing"].items()}
+        dev = {k: device_ms(fn) for k, fn in rec["timing"].items()}
+        per_record = {k: kernel_records_ms(fn, "blend_fwd") for k, fn in rec["timing"].items()}
+    rec["clocks"].append(card_clocks())
+    rec["times"] = {k: dict(ms=ev[k][0], ms_runs=ev[k][1], batch_ms=batch[k], device_ms=dev[k],
+                            record_ms=per_record[k][0], records=per_record[k][1]) for k in rec.pop("timing")}
+    return rec
+
+
+def k6_line(rec) -> str:
+    return (f"{rec['inputs']} (bound {rec['bound'][0]:.4f} ms, cull share {rec['cull_share']:.3f}; clocks, power, "
+            f"temperature before / after {rec['clocks']}): " + ", ".join(
+                f"{k} {v['ms']:.4f} {[round(m, 4) for m in v['ms_runs']]} / batched {v['batch_ms']:.4f} / device "
+                f"{v['device_ms']:.4f} / per record {v['record_ms']:.4f} ({v['records']} records)"
+                for k, v in rec["times"].items()))
+
+
+def gsplat_rows(rows) -> str:
+    """The profile's gsplat kernels, one row per kernel (``GSPLAT_ROWS``),
+    and their sum, which is the gsplat class's total."""
+    got, records = {}, {}
+    for name, t in rows:
+        if kernel_class(name) != "gsplat kernels":
+            continue
+        label = next((lab for lab, key in GSPLAT_ROWS if key in name.lower()), name[:40])
+        got[label] = got.get(label, 0.0) + t
+        records[label] = records.get(label, 0) + PROFILE_RECORDS.get(name, 0)
+    return ", ".join(f"{k} {v:.4f} ({records[k]} records)" for k, v in got.items()) + \
+        f"; sum {sum(got.values()):.4f}"
+
+
 def capture_splat_calls(pipeline, state, gen):
     """The arguments of K5 (``_tile_bin_kernel``) and of K6's backward in one
     steady-state splat step, as the step's own calls hand them over
@@ -1017,8 +1203,8 @@ def capture_splat_calls(pipeline, state, gen):
 
 def splat_steps(pipeline, state, n, gen):
     """``n`` steps through ``SplatPipeline.train``'s schedule, each checked
-    for exactly one launch of each of the five kernels. Returns the last
-    step's metrics."""
+    for exactly one launch of each of the five kernels in its default
+    design (``SPLAT_STEP_LAUNCHES``). Returns the last step's metrics."""
     from nerfstudio_torch.ops.gsplat import _cuda as sc
 
     metrics = None
@@ -1026,8 +1212,8 @@ def splat_steps(pipeline, state, n, gen):
         before = dict(sc.launch_counts)
         state, metrics = pipeline.train(state, state.step + 1, gen)
         got = {k: sc.launch_counts[k] - before[k] for k in SPLAT_KERNELS}
-        if got != dict.fromkeys(SPLAT_KERNELS, 1):
-            raise AssertionError(f"step {state.step - 1}: launches {got}, expected one of each")
+        if got != SPLAT_STEP_LAUNCHES:
+            raise AssertionError(f"step {state.step - 1}: launches {got}, expected {SPLAT_STEP_LAUNCHES}")
     return metrics
 
 
@@ -1643,8 +1829,9 @@ def main() -> int:
     from nerfstudio_torch.ops import hash_grid as hg
     from nerfstudio_torch.ops import gather_probes as gp
     from nerfstudio_torch.ops.gsplat import _cuda as sc
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 31
+    n_phases = 32
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -1844,13 +2031,21 @@ def main() -> int:
     # one block of the bucketed sort orders at once; a trained step's inputs
     # after phase 17
     k5_check = k5_args(x, projected)
+    long_tile = overflow_args(k5_check)
     k5_recs = {"check": check_k5(ph(14, "K5 designs vs twin"), k5_check, "check inputs"),
-               "overflow": check_k5(ph(14, "K5 designs vs twin"), overflow_args(k5_check),
+               "overflow": check_k5(ph(14, "K5 designs vs twin"), long_tile,
                                     "check inputs with one tile longer than one sort")}
     bins = k5_recs["check"].pop("bins")
     (k6_err, k6_bwd_err), k6_timing, k6_bounds, k6_walked = check_k6(ph(15, "K6 vs twin"), x, projected, bins,
                                                                      splat_gen)
-    del x, projected, bins, k5_recs["overflow"]["bins"]
+    # K6 forward's designs at three inputs (phase 32): these, the long
+    # tile's (its moved means and bins), a trained step's (after phase 17)
+    (m2, z, con, *_), _ = projected
+    k6_ch = torch.cat([x["colors"], z[:, None], torch.ones_like(z)[:, None]], dim=-1)
+    k6_inputs = {"check inputs": (m2, con, k6_ch, x["opac"], bins, x["width"], x["height"]),
+                 "check inputs with one long tile": (long_tile[0], con, k6_ch, x["opac"],
+                                                     k5_recs["overflow"].pop("bins"), x["width"], x["height"])}
+    del x, projected, bins, long_tile, m2, z, con, k6_ch
 
     # 16. the splatfacto training slice at full scale from step 6000: the
     # step, then refine with an opacity reset; warm-up; timed steps
@@ -1900,12 +2095,14 @@ def main() -> int:
             f"{activities:.0f} device activities and {busy_ms:.2f} ms of device-busy time per step, i.e. "
             f"the device idles {1 - busy_ms / splat_step_ms:.1%} of the unprofiled {splat_step_ms:.2f} ms step; "
             "by class (ms/step): "
-            + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
+            + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1]))
+            + "; gsplat kernels (ms/step): " + gsplat_rows(rows))
         for name, t in rows[:12]:
             print(f"    {t:8.3f} ms/step  {name[:110]}", flush=True)
     # K5's and K6 backward's inputs in one more steady step (K6: phase 28)
     captured = capture_splat_calls(pipeline, state, splat_gen)
     k6_trained = captured["blend_bwd"]
+    k6_inputs["a trained splat step's inputs"] = (*k6_trained[:5], k6_trained[5].shape[1], k6_trained[5].shape[0])
     k5_recs["trained"] = check_k5(ph(14, "K5 designs vs twin"), tuple(captured.pop("tile_bin")),
                                   "a trained splat step's inputs")
     del k5_recs["trained"]["bins"], captured
@@ -1925,6 +2122,15 @@ def main() -> int:
     log(ph(17, "splatfacto refine and eval"), f"refine {refine_ms:.2f} ms ({int(state.aux.alive.sum())} alive "
         f"after); eval render {SPLAT_HW}^2 at sh_degree 3: {frame_ms:.2f} ms/frame, psnr "
         f"{eval_metrics['psnr']:.2f}, ssim {eval_metrics['ssim']:.4f}, launches {eval_launches}")
+    splat_frame_prof = profile_device(lambda: pipeline.render_eval_image(state, 0), per=1)
+    if splat_frame_prof is None:
+        log(ph(17, "splatfacto eval profile"), "torch.profiler saw no device activity: device time not measured")
+    else:
+        rows, busy_ms, activities, _ = splat_frame_prof
+        log(ph(17, "splatfacto eval profile"), f"one {SPLAT_HW}^2 eval frame under torch.profiler: "
+            f"{activities:.0f} device activities and {busy_ms:.3f} ms of device-busy time, i.e. the device idles "
+            f"{1 - busy_ms / frame_ms:.1%} of the unprofiled {frame_ms:.2f} ms frame; gsplat kernels (ms/frame): "
+            + gsplat_rows(rows))
     del pipeline, state
 
     # 18. card vs CPU twins: one splatfacto step at 128^2
@@ -1946,12 +2152,20 @@ def main() -> int:
             t[key] = median_ms(fn, runs=3, warmup=1)
     t["k4_bwd"] = median_ms(k4_timing["bwd"])
     t["k6_bwd"] = median_ms(k6_timing["bwd"])
+    with torch.no_grad():
+        k4_dev = {"fwd": device_ms(k4_timing["fwd"]), "bwd": device_ms(k4_timing["bwd"])}
+        k4_rec = {"fwd": kernel_records_ms(k4_timing["fwd"], "project_fwd"),
+                  "bwd": kernel_records_ms(k4_timing["bwd"], "project_bwd")}
+        k4_batch = {"fwd": batch_ms(k4_timing["fwd"]), "bwd": batch_ms(k4_timing["bwd"])}
     k6_bwd_check_fn = k6_timing["bwd"]
     t["k4_bwd_twin"] = median_ms(k4_timing["bwd_twin"], runs=3, warmup=1)
     t["k6_bwd_twin"] = median_ms(k6_timing["bwd_twin"], runs=3, warmup=1)
     t["k5_sort"] = median_ms(k5_recs["check"]["timing"]["torch.sort, live keys"])
     log(ph(19, "splatting timing"), f"on {card}: " + ", ".join(
         f"{k} {t[k]:.3f} ms (twin {t[k + '_twin']:.3f} ms)" for k in ("k4", "k4_bwd", "k5", "k6", "k6_bwd"))
+        + f"; K4 device ms fwd {k4_dev['fwd']:.4f}, bwd {k4_dev['bwd']:.4f} (per kernel record "
+        f"{k4_rec['fwd'][0]:.4f} of {k4_rec['fwd'][1]}, {k4_rec['bwd'][0]:.4f} of {k4_rec['bwd'][1]} records; 50 "
+        f"calls back to back {k4_batch['fwd']:.4f}, {k4_batch['bwd']:.4f} ms a call)"
         + f"; torch.sort of K5's live keys alone {t['k5_sort']:.3f} ms; splatfacto step {splat_step_ms:.2f} ms, "
         f"refine {refine_ms:.2f} ms, eval frame {frame_ms:.2f} ms")
     del k4_timing, k6_timing
@@ -2160,6 +2374,17 @@ def main() -> int:
         raise AssertionError("K6 backward disagrees with its twin at the trained state")
     del k6_trained, m2, con, ch, op, tb, T, last, g_ch, tr_fn, k6_bwd_check_fn
 
+    # 32. K6's forward, every design against the per-pixel one (bit-equal)
+    # and the twin, and timed in turns, at the check inputs, with one long
+    # tile and at a trained step's inputs
+    check_k6_designs(ph(32, "K6 fwd designs"), "check inputs with non-finite entries",
+                     *non_finite_inputs(*k6_inputs["check inputs"]))
+    k6_recs = {label: time_k6(check_k6_designs(ph(32, "K6 fwd designs"), label, *args))
+               for label, args in k6_inputs.items()}
+    del k6_inputs
+    log(ph(32, "K6 fwd designs, timing"), f"on {card} (events: mean [two medians] / device ms); "
+        + "; ".join(k6_line(rec) for rec in k6_recs.values()) + f"; default: {rz.BLEND_FWD_DESIGNS[0]}")
+
     # 29. the per-lane gather (run_case, f4), every design on every variant
     lane = check_lane_designs(ph(29, "lane gather designs"), probe_args, gen)
     del probe_args
@@ -2255,11 +2480,28 @@ def main() -> int:
         entry("tile_bin (K5)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:266", splat_launches["tile_bin"],
               0.0, t["k5"], t["k5_twin"], k5_recs["check"]["bound"], t["k5_sort"], design="bucketed"),
         entry("blend_saturating (K6 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:94",
-              splat_launches["blend_saturating"], k6_err, t["k6"], t["k6_twin"], k6_bounds[0]),
+              splat_launches["blend_saturating"], k6_err, t["k6"], t["k6_twin"], k6_bounds[0],
+              design=rz.BLEND_FWD_DESIGNS[0]),
         entry("blend_saturating_bwd (K6 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:142",
               splat_launches["blend_saturating_bwd"], k6_bwd_err, k6_t["check"][0], t["k6_bwd_twin"], k6_bounds[1],
               design="block-reduced"),
     ]
+    # K4 and K6 forward: device ms per kernel record (the profiler may drop
+    # records; device_ms divides by the calls made), the sum over calls too
+    for e, k in ((kernels[3], "fwd"), (kernels[4], "bwd")):
+        e.update(device_ms=k4_rec[k][0], records=k4_rec[k][1], profiler_sum_ms=k4_dev[k], batch_ms=k4_batch[k])
+    # K6 forward: every design at the three inputs of phase 32, the
+    # per-pixel design's launches (0 on the main path)
+    kernels[-2].update(
+        per_pixel_launches=splat_launches["blend_saturating_per_pixel"],
+        device_ms=k6_recs["check inputs"]["times"][rz.BLEND_FWD_DESIGNS[0]]["record_ms"],
+        designs=[dict(design=d, inputs=[dict(inputs=label, **r["times"][d], max_abs_err=r["max_abs_err"][d],
+                                             rel_err=r["rel"][d], bit_equal_to_per_pixel=r["bit_equal"][d])
+                                        for label, r in k6_recs.items()]) for d in rz.BLEND_FWD_DESIGNS],
+        inputs=[dict(inputs=label, entries=r["entries"], per_tile_max=r["per_tile_max"], walked=r["walked"],
+                     bound_ms=r["bound"][0], bound_by=r["bound"][1], cull_share=r["cull_share"],
+                     pairs_tested=r["pairs_tested"], saturated=r["saturated"], clocks=r["clocks"])
+                for label, r in k6_recs.items()])
     # K6 backward: the check inputs' walk, and the trained state's
     kernels[-1].update(
         walked=k6_walked, device_ms=k6_dev["check"],

@@ -31,7 +31,10 @@
 //     few flops, and the backward adds the reduction of 11 gradient values
 //     per (pixel, entry) over the tile. One block per 16x16 tile, one thread
 //     per pixel; the entries are staged through shared memory 256 at a
-//     time, so each is read from device memory once per tile. A pixel stops
+//     time, so each is read from device memory once per tile. The
+//     forward's default design culls per warp: each warp walks only the
+//     staged entries whose conservative box meets its 8x4 pixels (bit-equal
+//     to the first, per-pixel design, kept for chip_smoke.py). A pixel stops
 //     once its transmittance falls below 1e-4 (after blending the entry that
 //     took it there), and a block stops when all its pixels have; the
 //     backward replays each pixel from its last blended entry back to the
@@ -771,6 +774,28 @@ __device__ __forceinline__ float gauss_sigma(const Staged& s, int j, float dx, f
   return 0.5f * (s.a[j] * (dx * dx) + s.c[j] * (dy * dy)) + s.b[j] * dx * dy;
 }
 
+// One front-to-back step of a pixel at (px, py) over staged entry j, entry
+// `index` of its tile: the reference's mask (sigma >= 0 and alpha > 1/255,
+// false for a NaN sigma or a NaN alpha, as jnp.minimum propagates NaN),
+// then the blend. Both forward designs take every (pixel, entry) step
+// here, so they round alike.
+__device__ __forceinline__ void blend_entry(const Staged& s, int j, int index, float px, float py, float& T,
+                                            float (&acc)[5], int& last, bool& done) {
+  const float dx = px - s.mx[j], dy = py - s.my[j];
+  const float sigma = gauss_sigma(s, j, dx, dy);
+  if (!(sigma >= 0.0f)) return;
+  const float raw = s.o[j] * expf(-sigma);
+  if (!(raw > kMinAlpha)) return;  // alpha = min(raw, 0.999) > 1/255 exactly when raw > 1/255
+  const float alpha = fminf(kMaxAlpha, raw);
+  const float w = alpha * T;
+  for (int k = 0; k < 5; ++k) acc[k] += w * s.ch[k][j];
+  T = T * (1.0f - alpha);
+  last = index + 1;
+  if (T < kTransmittanceEps) done = true;
+}
+
+// K6 forward, the first design ("per_pixel"): every pixel walks every
+// staged entry of its tile until it is done.
 __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(BlendArgs args, float* __restrict__ out_ch,
                                                              float* __restrict__ out_T,
                                                              int32_t* __restrict__ out_last) {
@@ -793,17 +818,145 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(BlendArgs args, flo
     if (base + (int)threadIdx.x < count) stage(s, threadIdx.x, args, args.ids[start + base + threadIdx.x]);
     __syncthreads();
     const int nb = min(kThreads, count - base);
-    for (int j = 0; j < nb && !done; ++j) {
-      const float dx = px - s.mx[j], dy = py - s.my[j];
-      const float sigma = gauss_sigma(s, j, dx, dy);
-      if (sigma < 0.0f) continue;
-      const float alpha = fminf(kMaxAlpha, s.o[j] * expf(-sigma));
-      if (!(alpha > kMinAlpha)) continue;
-      const float w = alpha * T;
-      for (int k = 0; k < 5; ++k) acc[k] += w * s.ch[k][j];
-      T = T * (1.0f - alpha);
-      last = base + j + 1;
-      if (T < kTransmittanceEps) done = true;
+    for (int j = 0; j < nb && !done; ++j) blend_entry(s, j, base + j, px, py, T, acc, last, done);
+  }
+  if (inside) {
+    const int64_t pix = (int64_t)y * args.width + x;
+    for (int k = 0; k < 5; ++k) out_ch[5 * pix + k] = acc[k];
+    out_T[pix] = T;
+    out_last[pix] = last;
+  }
+}
+
+// K6 forward, the culled design (the default). What bounds the per-pixel
+// design: it issues ~35 instructions per (pixel, staged entry), and a warp
+// walks every entry of its tile, though many touch only part of the tile
+// (alpha <= 1/255 at all 32 of the warp's pixels). Here each staged entry
+// also gets a box in pixel space outside which no pixel blends it
+// (cull_extents); each warp, which holds an 8 x 4 rectangle of its tile's
+// pixels, tests the rectangle against the batch's boxes (a lane tests 8 of
+// the 256 entries, one ballot per 32), writes the indices that survive, in
+// order, to its own list in shared memory, and walks only that list. A
+// skipped entry would have failed the mask at every pixel of the warp, so
+// T, the sums and `last` come out bit-equal to the per-pixel design's. The
+// done exit and the block's break stay. Measured against the options
+// tried (PERF.md): 16 x 2 rectangles cull fewer entries, an extra pixel on
+// the box culls fewer, and two pixels per thread, 8-byte staging loads,
+// heaviest tiles first, 32 registers, the next index loaded a step ahead
+// and a sigma threshold before the exp did not pay.
+//
+// Why the box is conservative. Let u = 2^-24 and X, Y the float32
+// differences px - mx, py - my that blend_entry computes. Without FMA
+// contraction (-fmad=false) the computed sigma is within 3u P (1 + u) of
+// Q = 0.5 (a X^2 + c Y^2) + b X Y, where P = 0.5 (a X^2 + c Y^2) + |b X Y|.
+// For a > 0 and det = a c - b^2 > 0, 0.5 (a X^2 + c Y^2) >= sqrt(a c) |X Y|
+// gives P <= Q (1 + r) / (1 - r) = Q (sqrt(a c) + |b|)^2 / det with r =
+// |b| / sqrt(a c), so sigma >= Q (1 - kappa) with kappa = kCullKappa
+// (sqrt(a c) + |b|)^2 / det (4 u needed, 1e-6 = 16.8 u taken). The alpha
+// test fails once sigma >= S0 = log(255 o) + margins (logf and expf are
+// within 2 ulp; the margins are 1e-3 relative and 1e-3 absolute), and
+// Q >= S0 / (1 - kappa) = S wherever |X| >= sqrt(2 S c / det) or |Y| >=
+// sqrt(2 S a / det) (the minimum of Q over Y at fixed X is X^2 det /
+// (2 c)). det is taken 1e-6 a c low (its own rounding is <= 3 u a c), the
+// extents 1e-3 high. Rounding is monotone, so the rectangle's extreme
+// pixels' computed differences bound every pixel's. No box (never culled):
+// a non-finite input, a conic that is not positive definite after the det
+// margin, or kappa >= 1/2 (along a diagonal, an eigenvalue ratio of ~5
+// 10^5: a gaussian 0.55 px wide, as thin as K4's 0.3 px^2 dilation leaves
+// one, and ~400 px long). An empty box (always culled): o <= 1/255
+// (expf(-sigma) <= 1 for sigma >= 0, so alpha <= o). A NaN sigma or alpha
+// fails the mask in both designs (blend_entry).
+constexpr float kCullSigmaRel = 1e-3f;
+constexpr float kCullSigmaAbs = 1e-3f;
+constexpr float kCullDet = 1e-6f;
+constexpr float kCullKappa = 1e-6f;
+constexpr float kCullExtentScale = 1.001f;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRectW = 8, kRectH = 4;  // a warp's rectangle of pixels
+constexpr int kRectsX = kTile / kRectW;
+
+// The box's half-extents (ex, ey) around (mx, my): a pixel blends the entry
+// only where |px - mx| < ex and |py - my| < ey. NaN: no box (never
+// culled); -inf: empty (always culled). rasterize._cull_extents is its
+// PyTorch twin, op for op.
+__device__ __forceinline__ float2 cull_extents(float mx, float my, float a, float b, float c, float o) {
+  const float none = __int_as_float(0x7fffffff), inf = __int_as_float(0x7f800000);
+  if (!(fabsf(mx) < inf && fabsf(my) < inf && fabsf(a) < inf && fabsf(b) < inf && fabsf(c) < inf && fabsf(o) < inf))
+    return make_float2(none, none);
+  const float ac = a * c;
+  const float det_lo = (ac - b * b) - kCullDet * ac;
+  if (!(a > 0.0f && c > 0.0f && det_lo > 0.0f)) return make_float2(none, none);
+  if (!(o > kMinAlpha)) return make_float2(-inf, -inf);
+  float s0 = logf(o * 255.0f);
+  s0 = (s0 + kCullSigmaRel * fabsf(s0)) + kCullSigmaAbs;
+  const float amp = sqrtf(ac) + fabsf(b);
+  const float kappa = kCullKappa * (amp * amp / det_lo);
+  if (!(kappa < 0.5f)) return make_float2(none, none);
+  const float s = s0 / (1.0f - kappa);
+  return make_float2(sqrtf(2.0f * s * c / det_lo) * kCullExtentScale, sqrtf(2.0f * s * a / det_lo) * kCullExtentScale);
+}
+
+// The culled design's shared state besides the staged entries: each staged
+// entry's box, and each warp's list of the entries it walks.
+struct CullLists {
+  float2 ext[kThreads];
+  uint16_t list[kWarps][kThreads];
+};
+
+__global__ void __launch_bounds__(kThreads) blend_fwd_culled_kernel(BlendArgs args, float* __restrict__ out_ch,
+                                                                    float* __restrict__ out_T,
+                                                                    int32_t* __restrict__ out_last) {
+  __shared__ Staged s;
+  __shared__ CullLists cl;
+  const int tile = blockIdx.x;
+  const int tx = tile % args.tiles_x, ty = tile / args.tiles_x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col0 = (warp % kRectsX) * kRectW, row0 = (warp / kRectsX) * kRectH;  // the warp's rectangle
+  const int lx = col0 + lane % kRectW, ly = row0 + lane / kRectW;
+  const int x = tx * kTile + lx, y = ty * kTile + ly;
+  const bool inside = x < args.width && y < args.height;
+  const float px = ((float)lx + 0.5f) + (float)(tx * kTile);
+  const float py = ((float)ly + 0.5f) + (float)(ty * kTile);
+  const int start = args.starts[tile], count = args.counts[tile];
+  // the rectangle's extreme pixel centres, computed as its pixels' are
+  const float px_lo = ((float)col0 + 0.5f) + (float)(tx * kTile);
+  const float px_hi = ((float)(col0 + kRectW - 1) + 0.5f) + (float)(tx * kTile);
+  const float py_lo = ((float)row0 + 0.5f) + (float)(ty * kTile);
+  const float py_hi = ((float)(row0 + kRectH - 1) + 0.5f) + (float)(ty * kTile);
+
+  float T = 1.0f, acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  int last = 0;
+  bool done = !inside;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = 0; base < count; base += kThreads) {
+    // a barrier too: no thread still reads the previous batch or list
+    if (__syncthreads_count(done) == kThreads) break;
+    if (base + (int)threadIdx.x < count) {
+      const int t = threadIdx.x;
+      stage(s, t, args, args.ids[start + base + t]);
+      cl.ext[t] = cull_extents(s.mx[t], s.my[t], s.a[t], s.b[t], s.c[t], s.o[t]);
+    }
+    __syncthreads();
+    const int nb = min(kThreads, count - base);
+    int n = 0;
+    if (!__all_sync(0xffffffffu, done)) {
+      for (int j0 = 0; j0 < nb; j0 += 32) {
+        const int j = j0 + lane;
+        bool keep = false;
+        if (j < nb) {
+          const float2 e = cl.ext[j];
+          const float mx = s.mx[j], my = s.my[j];
+          keep = !((px_lo - mx >= e.x) || (px_hi - mx <= -e.x) || (py_lo - my >= e.y) || (py_hi - my <= -e.y));
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, keep);
+        if (keep) cl.list[warp][n + __popc(m & below)] = (uint16_t)j;
+        n += __popc(m);
+      }
+      __syncwarp();
+    }
+    for (int i = 0; i < n && !done; ++i) {
+      const int j = cl.list[warp][i];
+      blend_entry(s, j, base + j, px, py, T, acc, last, done);
     }
   }
   if (inside) {
@@ -849,11 +1002,11 @@ __device__ __forceinline__ bool replay_entry(const Staged& s, int j, float px, f
                                              float& T, float& suffix, float (&d)[kGradStride]) {
   const float dx = px - s.mx[j], dy = py - s.my[j];
   const float sigma = gauss_sigma(s, j, dx, dy);
-  if (sigma < 0.0f) return false;
+  if (!(sigma >= 0.0f)) return false;  // the forward's mask (blend_entry)
   const float vis = expf(-sigma);
   const float raw = s.o[j] * vis;
+  if (!(raw > kMinAlpha)) return false;
   const float alpha = fminf(kMaxAlpha, raw);
-  if (!(alpha > kMinAlpha)) return false;
   const float one_m = 1.0f - alpha;
   T = T / one_m;  // transmittance in front of this entry
   float G = 0.0f;
@@ -1112,16 +1265,23 @@ int nst_gsplat_tile_ranges(const void* packed, long long m, int tiles_x, int til
 // K6 forward. means2d (N, 2), conics (N, 3), opac (N,), ch (N, 5) f32 and
 // ids (M,), starts, counts (tiles,) int32 are device inputs. Outputs over
 // the image: out_ch (height, width, 5), out_T (height, width) f32 and
-// out_last (height, width) int32. Returns a cudaError_t.
+// out_last (height, width) int32. design: 1 the culled design, 0 the
+// per-pixel one. Returns a cudaError_t.
 int nst_gsplat_blend_fwd(const void* means2d, const void* conics, const void* opac, const void* ch,
                          const void* ids, const void* starts, const void* counts, int tiles_x, int tiles_y,
-                         int width, int height, void* out_ch, void* out_T, void* out_last, void* stream) {
+                         int width, int height, int design, void* out_ch, void* out_T, void* out_last,
+                         void* stream) {
   if (tiles_x < 1 || tiles_y < 1 || width < 1 || height < 1 || width > tiles_x * kTile ||
-      height > tiles_y * kTile)
+      height > tiles_y * kTile || (design != 0 && design != 1))
     return (int)cudaErrorInvalidValue;
-  blend_fwd_kernel<<<tiles_x * tiles_y, kThreads, 0, (cudaStream_t)stream>>>(
-      make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height), (float*)out_ch,
-      (float*)out_T, (int32_t*)out_last);
+  const BlendArgs args = make_blend_args(means2d, conics, opac, ch, ids, starts, counts, tiles_x, width, height);
+  const int nt = tiles_x * tiles_y;
+  if (design == 1)
+    blend_fwd_culled_kernel<<<nt, kThreads, 0, (cudaStream_t)stream>>>(args, (float*)out_ch, (float*)out_T,
+                                                                        (int32_t*)out_last);
+  else
+    blend_fwd_kernel<<<nt, kThreads, 0, (cudaStream_t)stream>>>(args, (float*)out_ch, (float*)out_T,
+                                                                 (int32_t*)out_last);
   return (int)cudaGetLastError();
 }
 

@@ -14,13 +14,16 @@ import torch
 # Launches of each hand-written kernel entry. K5 counts one binning under
 # "tile_bin" in either design, and once more under "tile_bin_bucketed" when
 # it took the tile-bucketed design (its count, scan, scatter and per-tile
-# sort kernels, launched by one C entry).
+# sort kernels, launched by one C entry). K6's forward counts one launch
+# under "blend_saturating" in either design, and once more under
+# "blend_saturating_per_pixel" when it took the per-pixel design.
 launch_counts: Dict[str, int] = {
     "project_gaussians": 0,
     "project_gaussians_bwd": 0,
     "tile_bin": 0,
     "tile_bin_bucketed": 0,
     "blend_saturating": 0,
+    "blend_saturating_per_pixel": 0,
     "blend_saturating_bwd": 0,
 }
 
@@ -46,7 +49,7 @@ def kernel_library() -> ctypes.CDLL:
             "nst_gsplat_tile_keys": [p, p, p, p, ll, p, ll, i, i, i, i, i, i, p, p],
             "nst_gsplat_tile_bin": [p, p, p, p, ll, p, ll, i, i, i, i, i, i, i] + [p] * 6 + [p],
             "nst_gsplat_tile_ranges": [p, ll, i, i, i, i, p, p, p, p],
-            "nst_gsplat_blend_fwd": [p] * 7 + [i] * 4 + [p] * 3 + [p],
+            "nst_gsplat_blend_fwd": [p] * 7 + [i] * 5 + [p] * 3 + [p],
             "nst_gsplat_blend_bwd": [p] * 7 + [i] * 4 + [p] * 4 + [p],
         }
         for name, argtypes in signatures.items():

@@ -17,9 +17,14 @@
    its full depth-sorted list front to back; a pixel stops once its
    transmittance falls below 1e-4 (gsplat's rule, which the reference
    approximates per 64-tile batch), after blending the entry that took it
-   there. The backward replays back to front into a packed (N, 11)
-   gradient: d means2d, d conics, d channels [rgb, depth, 1], d opacity,
-   summed over each tile in shared memory before one flush per entry.
+   there. On the card the default design ("culled") gives each staged
+   entry a box outside which no pixel blends it (``_cull_extents``), and
+   each warp (8x4 pixels) walks only the entries whose box its rectangle
+   meets (``_warp_culled``): bit-equal to the first design ("per_pixel"),
+   which walks every entry. The backward replays back to front into a
+   packed (N, 11) gradient: d means2d, d conics, d channels [rgb, depth,
+   1], d opacity, summed over each tile in shared memory before one flush
+   per entry.
 
 On CUDA tensors the hand-written kernels of ``csrc/gsplat.cu`` run (in
 K5's first design, which only chip_smoke.py takes, the sort between its two
@@ -41,6 +46,25 @@ _COORD_LIMIT = float(2**30)
 # Elements of one (tiles, pixels, entries) intermediate in the K6 twins.
 _TWIN_BATCH_ELEMENTS = 1 << 24
 
+
+# K6 forward's designs on the card, by their C design codes: "culled" (the
+# default), each warp walks only the staged entries whose box its
+# rectangle meets; "per_pixel", every pixel walks every entry. Bit-equal;
+# chip_smoke.py times both in turns.
+BLEND_FWD_DESIGNS = ("culled", "per_pixel")
+_BLEND_FWD_CODES = {"culled": 1, "per_pixel": 0}
+# The culled design's warp rectangles: (width, height) in pixels, 8 a tile,
+# warp w at columns (w % 2) * 8 and rows (w // 2) * 4 of its tile.
+WARP_RECT = (8, 4)
+# Margins of the culled design's box (csrc/gsplat.cu, cull_extents, which
+# derives them): on sigma* = log(255 o), relative and absolute; on the
+# conic's determinant, relative to a c; sigma's rounding per unit of
+# (sqrt(a c) + |b|)^2 / det; on the half-extents, a scale.
+_CULL_SIGMA_REL = 1e-3
+_CULL_SIGMA_ABS = 1e-3
+_CULL_DET = 1e-6
+_CULL_KAPPA = 1e-6
+_CULL_EXTENT_SCALE = 1.001
 
 # K5's designs on the card: "bucketed" (the default), a counting sort by tile
 # and a sort of each tile's keys in shared memory; "sorted", every slot's
@@ -299,11 +323,69 @@ def _pixel_centers(tiles: torch.Tensor, tiles_x: int) -> torch.Tensor:
     return local[None] + origin[:, None, :]
 
 
-def _blend_tiles(means2d, conics, ch, opac, bins: TileBins, t0: int, t1: int, k: int, live: int) -> torch.Tensor:
+def _cull_extents(means2d: torch.Tensor, conics: torch.Tensor, opac: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The culled design's box per gaussian, op for op as the kernel's
+    ``cull_extents`` computes it: half-extents (ex, ey) around the mean
+    outside which no pixel blends the gaussian (sigma >= 0 and alpha >
+    1/255 fail). NaN: no box, never culled (a non-finite input, a conic not
+    positive definite after the margin on its determinant, or a conic so
+    thin that sigma's rounding bound exceeds half of it); -inf: an empty
+    box, always culled (opacity <= 1/255)."""
+    mx, my = means2d[:, 0], means2d[:, 1]
+    a, b, c = conics[:, 0], conics[:, 1], conics[:, 2]
+    finite = torch.stack([mx, my, a, b, c, opac]).abs().lt(float("inf")).all(dim=0)
+    ac = a * c
+    det_lo = (ac - b * b) - _CULL_DET * ac
+    s0 = torch.log(opac * 255.0)
+    s0 = (s0 + _CULL_SIGMA_REL * s0.abs()) + _CULL_SIGMA_ABS
+    amp = torch.sqrt(ac) + b.abs()
+    kappa = _CULL_KAPPA * (amp * amp / det_lo)
+    s = s0 / (1.0 - kappa)
+    pd = finite & (a > 0) & (c > 0) & (det_lo > 0)
+    empty = pd & ~(opac > 1.0 / 255.0)
+    boxed = pd & ~empty & (kappa < 0.5)
+    out = []
+    for q in (c, a):
+        e = torch.sqrt(2.0 * s * q / det_lo) * _CULL_EXTENT_SCALE
+        out.append(torch.where(boxed, e, torch.where(empty, -float("inf"), float("nan"))))
+    return out[0], out[1]
+
+
+def warp_pixels(device=None) -> torch.Tensor:
+    """(8, 32) int64: the tile pixels (y * 16 + x) of each warp of the culled
+    design, in lane order."""
+    w, h = WARP_RECT
+    warp, lane = torch.arange(8, device=device)[:, None], torch.arange(32, device=device)[None, :]
+    col0, row0 = (warp % (TILE // w)) * w, (warp // (TILE // w)) * h
+    return (row0 + lane // w) * TILE + col0 + lane % w
+
+
+def _warp_culled(means2d, ext: Tuple[torch.Tensor, torch.Tensor], gids: torch.Tensor, tiles: torch.Tensor,
+                 tiles_x: int) -> torch.Tensor:
+    """(C, 8, K) bool: whether warp w of tile ``tiles[c]`` (``warp_pixels``)
+    skips entry ``gids[c, k]``, whose box ``ext`` (``_cull_extents``) its
+    rectangle of pixel centres misses. The rectangle's extreme differences
+    are computed as the kernel computes every pixel's."""
+    w, h = WARP_RECT
+    ex, ey = ext[0][gids][:, None, :], ext[1][gids][:, None, :]
+    mx, my = means2d[gids, 0][:, None, :], means2d[gids, 1][:, None, :]
+    warp = torch.arange(8, device=gids.device)
+    col0 = ((warp % (TILE // w)) * w).to(torch.float32)[None, :, None]
+    row0 = ((warp // (TILE // w)) * h).to(torch.float32)[None, :, None]
+    ox = ((tiles % tiles_x) * TILE).to(torch.float32)[:, None, None]
+    oy = ((tiles // tiles_x) * TILE).to(torch.float32)[:, None, None]
+    return (((col0 + 0.5) + ox) - mx >= ex) | (((col0 + (w - 1 + 0.5)) + ox) - mx <= -ex) | \
+        (((row0 + 0.5) + oy) - my >= ey) | (((row0 + (h - 1 + 0.5)) + oy) - my <= -ey)
+
+
+def _blend_tiles(means2d, conics, ch, opac, bins: TileBins, t0: int, t1: int, k: int, live: int,
+                 culled: bool = False) -> torch.Tensor:
     """Plain PyTorch K6 on tiles [t0, t1) padded to k entries: (C, 256, 5),
     differentiable in the four arrays. Reads only the ``live`` first entries
     of ``bins.ids`` (``TileBins``: the rest may be undefined); a padding
-    entry takes the last live one's gaussian and is masked out."""
+    entry takes the last live one's gaussian and is masked out. ``culled``:
+    each warp's culled entries (``_warp_culled``) are dropped as well, as
+    the culled design drops them."""
     dev = means2d.device
     tiles = torch.arange(t0, t1, device=dev)
     off = torch.arange(k, device=dev)
@@ -318,6 +400,13 @@ def _blend_tiles(means2d, conics, ch, opac, bins: TileBins, t0: int, t1: int, k:
     sigma = 0.5 * (a * (d[..., 0] * d[..., 0]) + c * (d[..., 1] * d[..., 1])) + b * d[..., 0] * d[..., 1]
     alpha = torch.minimum(opac[gids][:, None, :] * torch.exp(-sigma), sigma.new_tensor(0.999))
     keep = (sigma >= 0) & in_seg[:, None, :] & (alpha > 1.0 / 255.0)
+    if culled:
+        with torch.no_grad():
+            ext = _cull_extents(means2d, conics, opac)
+            skip = _warp_culled(means2d, ext, gids, tiles, bins.tiles_x)
+        warp_of_pixel = torch.empty(TILE * TILE, dtype=torch.int64, device=dev)
+        warp_of_pixel[warp_pixels(dev)] = torch.arange(8, device=dev)[:, None]
+        keep = keep & ~skip[:, warp_of_pixel, :]
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
     # front to back; a pixel blends an entry while its transmittance in
     # front of it is at least 1e-4
@@ -341,12 +430,15 @@ def _image_to_tiles(img: torch.Tensor, bins: TileBins) -> torch.Tensor:
     return full.view(bins.tiles_y, TILE, bins.tiles_x, TILE, c).permute(0, 2, 1, 3, 4).reshape(-1, TILE * TILE, c)
 
 
-def _blend_twin(means2d, conics, ch, opac, bins: TileBins, width: int, height: int) -> torch.Tensor:
-    """Plain PyTorch K6 forward: (height, width, 5)."""
+def _blend_twin(means2d, conics, ch, opac, bins: TileBins, width: int, height: int,
+                culled: bool = False) -> torch.Tensor:
+    """Plain PyTorch K6 forward: (height, width, 5); ``culled``: with each
+    warp's culled entries dropped (``_blend_tiles``), which must change
+    nothing."""
     out = means2d.new_zeros((bins.tiles_x * bins.tiles_y, TILE * TILE, 5))
     counts = bins.counts.cpu().numpy()
     for t0, t1, k in _tile_batches(counts):
-        out[t0:t1] = _blend_tiles(means2d, conics, ch, opac, bins, t0, t1, k, int(counts.sum()))
+        out[t0:t1] = _blend_tiles(means2d, conics, ch, opac, bins, t0, t1, k, int(counts.sum()), culled)
     return _tiles_to_image(out, bins, width, height)
 
 
@@ -366,16 +458,22 @@ def _blend_twin_bwd(means2d, conics, ch, opac, bins: TileBins, g_ch: torch.Tenso
     return tuple(grads)
 
 
-def _blend_kernel(means2d, conics, ch, opac, bins: TileBins, width: int, height: int):
-    """Launch K6 forward: (channels (H, W, 5), final T (H, W), last entry (H, W))."""
+def _blend_kernel(means2d, conics, ch, opac, bins: TileBins, width: int, height: int, _design: str = "culled"):
+    """Launch K6 forward in the culled design, or in ``_design`` (one of
+    ``BLEND_FWD_DESIGNS``), which only chip_smoke.py's comparison sets:
+    (channels (H, W, 5), final T (H, W), last entry (H, W))."""
+    if _design not in BLEND_FWD_DESIGNS:
+        raise ValueError(f"design {_design!r} is not one of {BLEND_FWD_DESIGNS}")
     _cuda.check_cuda("blend_saturating", means2d, conics, ch, opac, bins.ids, bins.starts, bins.counts)
     out = means2d.new_empty((height, width, 5))
     T = means2d.new_empty((height, width))
     last = torch.empty((height, width), dtype=torch.int32, device=means2d.device)
     _cuda.launch("blend_saturating", "nst_gsplat_blend_fwd", means2d.device, means2d.data_ptr(),
                  conics.data_ptr(), opac.data_ptr(), ch.data_ptr(), bins.ids.data_ptr(), bins.starts.data_ptr(),
-                 bins.counts.data_ptr(), bins.tiles_x, bins.tiles_y, width, height, out.data_ptr(), T.data_ptr(),
-                 last.data_ptr())
+                 bins.counts.data_ptr(), bins.tiles_x, bins.tiles_y, width, height, _BLEND_FWD_CODES[_design],
+                 out.data_ptr(), T.data_ptr(), last.data_ptr())
+    if _design == "per_pixel":
+        _cuda.launch_counts["blend_saturating_per_pixel"] += 1
     return out, T, last
 
 
