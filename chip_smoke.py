@@ -56,6 +56,13 @@ shapes its path gives it, and drives the port's paths from random weights:
   probes and at f4 with indices over the whole int32 range; K1's forward
   and K3 (lane groups, one thread per stencil) at the check inputs and at
   the captured inputs of a render chunk;
+* the gather-select of fused_gather and stage2 in both designs (phase 33),
+  one warp per output row and one thread per output element: each
+  ``torch.equal`` to the twin and bit-equal to the other at the four probe
+  variants, bit-equal to each other at edge inputs (rows and slots over the
+  int32 range, NaN, infinite and negative weights, F = 1, 2, 8, 16 and
+  128, a block and an n that are not multiples of 32, 3 corners), and timed
+  in turns (50 calls back to back, single calls, profiler records);
 * K1's and K7's backward in both designs (phase 31): one thread per sample,
   and lane groups with vector reductions (K7's, asked for the table
   gradient alone as a neus-facto step asks, with the dense coarse levels
@@ -1629,11 +1636,9 @@ def check_probes(name, gen):
     torch.cuda.synchronize()
     launches = dict(gp.launch_counts)
     twins = {
-        "fused_gather": lambda t, r, sl, w: gp._gather_select_twin(t, r.view(8, -1), sl.view(8, -1), w.view(8, -1),
-                                                                   gp.F, False).view(gp.N_BLOCKS, gp.S, 128),
+        "fused_gather": lambda *a: select_twin("fused_gather", a).view(gp.N_BLOCKS, gp.S, 128),
         "stage1": gp._row_gather_twin,
-        "stage2": lambda t, r, sl, w: gp._gather_select_twin(
-            t, *(x.permute(1, 0, 2).reshape(8, -1) for x in (r, sl, w)), gp.F, True),
+        "stage2": lambda *a: select_twin("stage2", a),
         "run_case": lambda t, r: gp._lane_gather_twin(t, r, False),
         "f4": lambda t, r: gp._lane_gather_twin(t, r, True),
     }
@@ -1667,11 +1672,14 @@ def check_probes(name, gen):
                          + ("" if lib_err is None else f", library {lib_err:.3g}"))
     log(name, f"launches {launches}; " + "; ".join(lines))
     want = {k: len(v) for k, v in inputs.items()}
+    want["gather_select_rows"] = want["fused_gather"] + want["stage2"]  # the default design
+    want["gather_select_per_element"] = 0
     want["lane_gather_smem"] = sum(1 for k in ("run_case", "f4") for tab, _ in inputs[k].values()
                                    if gp._lane_plan(tab.shape[0], tab.element_size()))
     if launches != want:
         raise AssertionError(f"{name}: probe launches {launches}, expected {want} (one per variant, run_case's "
-                             "and f4's through the shared-memory lane gather where _lane_plan gives lanes)")
+                             "and f4's through the shared-memory lane gather where _lane_plan gives lanes, "
+                             "fused_gather's and stage2's in the rows design)")
     del outs
     return launches, results, inputs
 
@@ -1744,6 +1752,161 @@ def check_lane_designs(name, inputs, gen):
                      + ", ".join(f"{d} {times[d][0]:.4f} / {dev[d]:.4f}" for d in fns) + ", all equal to the twin")
         del ref
     log(name, "; ".join(lines))
+    return records
+
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+SELECT_KERNELS = {"rows": "gather_select_rows_kernel", "per_element": "gather_select_kernel"}  # profiler names
+
+
+def select_call(probe, args, design, features=None):
+    """``fused_gather``'s or ``stage2``'s gather-select on ``args`` (table,
+    rows, slots, w) in ``design`` (one of ``GATHER_SELECT_DESIGNS``): (n,
+    128)."""
+    from nerfstudio_torch.ops import gather_probes as gp
+
+    return gp._gather_select(probe, *args, gp.F if features is None else features, probe == "stage2",
+                             _design=design)
+
+
+def select_twin(probe, args, features=None):
+    """The plain twin of ``select_call`` on the card: (n, 128)."""
+    from nerfstudio_torch.ops import gather_probes as gp
+
+    table, *idx = args
+    c = idx[0].shape[1] if probe == "stage2" else idx[0].shape[0]
+    cm = (lambda x: x.permute(1, 0, 2).reshape(c, -1)) if probe == "stage2" else (lambda x: x.reshape(c, -1))
+    return gp._gather_select_twin(table, *(cm(x) for x in idx), gp.F if features is None else features,
+                                  probe == "stage2")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal float32 tensors (NaN payloads and signed zeros too)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def select_edge_inputs(gen):
+    """[(label, probe, args, features, in range)] of phase 33: the edge
+    inputs of the gather-select at smaller sizes, in both layouts (fused_gather's
+    (corners, blocks, s), stage2's (blocks, corners, blk)) and table types.
+    ``in range``: indices in the table and slots in the row, where the twin
+    applies."""
+    def table(rows, dtype):
+        return torch.randn((rows, 128), generator=gen, device="cuda").to(dtype)
+
+    def ints(low, high, shape):
+        return torch.randint(low, high, shape, generator=gen, device="cuda", dtype=torch.int64).to(torch.int32)
+
+    def layout(probe, c, nb, blk):
+        return (nb, c, blk) if probe == "stage2" else (c, nb, blk)
+
+    out = []
+    types = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for probe in ("fused_gather", "stage2"):
+        for tname, dt in types.items():
+            rows_t = 4096
+            shape = layout(probe, 8, 4, 2048)
+            tab = table(rows_t, dt)
+            # rows and slots over the whole int32 range and around the edges
+            r = ints(INT32_MIN, INT32_MAX + 1, shape)
+            sl = ints(INT32_MIN, INT32_MAX + 1, shape)
+            edges = torch.tensor([INT32_MIN, INT32_MIN + 1, -1, 0, 1, 31, 32, 127, 128, rows_t - 1, rows_t,
+                                  rows_t + 1, INT32_MAX - 1, INT32_MAX], dtype=torch.int32, device="cuda")
+            flat_r, flat_s = r.view(-1), sl.view(-1)
+            flat_r[: edges.numel()] = edges
+            flat_s[: edges.numel()] = edges.flip(0)
+            flat_s[edges.numel(): 8192] = ints(-2, 34, (8192 - edges.numel(),))  # near the entries' range
+            w = torch.rand(shape, generator=gen, device="cuda")
+            out.append((f"{tname}, rows and slots over the int32 range", probe, (tab, r, sl, w), None, False))
+            # NaN, +-inf and negative weights, indices in range
+            r = ints(0, rows_t, shape)
+            sl = ints(0, 128 // 4, shape)
+            w = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+            special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, -1.5], device="cuda")
+            pick = torch.randint(0, 40, shape, generator=gen, device="cuda")
+            w = torch.where(pick < special.numel(), special[pick.clamp(max=special.numel() - 1)], w)
+            out.append((f"{tname}, NaN, infinite and negative weights", probe, (tab, r, sl, w), None, True))
+        for f in (1, 2, 8, 16, 128):
+            for tname, dt in types.items():
+                shape = layout(probe, 8, 2, 1024)
+                args = (table(512, dt), ints(0, 512, shape), ints(0, 128 // f, shape),
+                        torch.rand(shape, generator=gen, device="cuda"))
+                out.append((f"{tname}, F={f}", probe, args, f, True))
+    # a block that is not a multiple of 32 (stage2's layout, BLK = 1000), n
+    # not a multiple of 32 in both layouts, and 3 corners at F = 4 (the
+    # per-lane walk)
+    for probe, shape, label in (("stage2", (7, 8, 1000), "BLK=1000"), ("stage2", (3, 8, 999), "BLK=999, n=2997"),
+                                ("fused_gather", (8, 3, 1001), "n=3003"), ("stage2", (4, 3, 1024), "3 corners"),
+                                ("fused_gather", (3, 4, 1024), "3 corners")):
+        for tname, dt in types.items():
+            args = (table(1024, dt), ints(0, 1024, shape), ints(0, 32, shape),
+                    torch.rand(shape, generator=gen, device="cuda"))
+            out.append((f"{tname}, {label}", probe, args, None, True))
+    return out
+
+
+def check_select_designs(name, inputs, gen):
+    """The gather-select of fused_gather and stage2 in both designs of
+    ``GATHER_SELECT_DESIGNS``: at the four probe variants of ``probe_inputs``
+    (fused_gather and stage2, float32 and bfloat16 tables) each design
+    ``torch.equal`` to the twin and bit-equal to the others; at the edge
+    inputs of ``select_edge_inputs`` the designs bit-equal to each other (and
+    to the twin where the indices lie in range, NaN matching NaN); then
+    every design timed in turns at the four variants: 50 calls back to back
+    (``batch_ms``), single calls between CUDA events, and the profiler's time
+    per kernel record with the records seen. Returns {(probe, variant):
+    record}."""
+    from nerfstudio_torch.ops import gather_probes as gp
+
+    designs = list(gp.GATHER_SELECT_DESIGNS)
+    edges = select_edge_inputs(gen)
+    with torch.no_grad():
+        for label, probe, args, features, in_range in edges:
+            outs = {d: select_call(probe, args, d, features) for d in designs}
+            torch.cuda.synchronize()
+            for d in designs[1:]:
+                if not same_bits(outs[d], outs[designs[0]]):
+                    bad = int((outs[d].view(torch.int32) != outs[designs[0]].view(torch.int32)).sum())
+                    raise AssertionError(f"{name}: {probe} {label}: {d} differs from {designs[0]} in {bad} values")
+            if in_range:
+                ref = select_twin(probe, args, features)
+                o = outs[designs[0]]
+                if not bool(((o == ref) | (o.isnan() & ref.isnan())).all()):
+                    raise AssertionError(f"{name}: {probe} {label}: the designs differ from the twin")
+            del outs
+    log(name, f"{len(edges)} edge inputs, every design bit-equal to the others: "
+        + "; ".join(f"{probe} {label}" for label, probe, *_ in edges))
+
+    records, lines = {}, []
+    with torch.no_grad():
+        for probe in ("fused_gather", "stage2"):
+            for v, args in inputs[probe].items():
+                ref = select_twin(probe, args)
+                outs = {d: select_call(probe, args, d) for d in designs}
+                torch.cuda.synchronize()
+                for d, o in outs.items():
+                    if not torch.equal(o, ref) or not same_bits(o, outs[designs[0]]):
+                        raise AssertionError(f"{name}: {probe} {v} ({d}) differs from the twin or the default")
+                n = ref.shape[0]
+                bnd = bound(nbytes(*args, ref), 8 * n * 128 * 2)
+                del outs, ref
+                fns = {d: (lambda d=d: select_call(probe, args, d)) for d in designs}
+                batch = {d: [] for d in designs}
+                for d in designs + designs[::-1]:
+                    batch[d].append(batch_ms(fns[d]))
+                events = paired_ms(fns)
+                rec_ms = {d: kernel_records_ms(fns[d], SELECT_KERNELS[d]) for d in designs}
+                records[(probe, v)] = dict(
+                    n=n, bound_ms=bnd[0], bound_by=bnd[1], clocks=card_clocks(),
+                    designs=[dict(design=d, batch_ms=statistics.fmean(batch[d]), batch_ms_runs=batch[d],
+                                  ms=events[d][0], ms_runs=events[d][1], device_ms=rec_ms[d][0],
+                                  records=rec_ms[d][1]) for d in designs])
+                lines.append(f"{probe} {v} (bound {bnd[0]:.4f} ms by {bnd[1]}; back to back / events / device "
+                             "[records]): " + ", ".join(
+                                 f"{d} {statistics.fmean(batch[d]):.4f} / {events[d][0]:.4f} / {rec_ms[d][0]:.4f} "
+                                 f"[{rec_ms[d][1]}]" for d in designs))
+    log(name, "every design torch.equal to the twin at the probe variants; on " + card_line() + ": "
+        + "; ".join(lines) + f"; default: {gp.GATHER_SELECT_DESIGNS[0]}")
     return records
 
 
@@ -1831,7 +1994,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 32
+    n_phases = 33
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -2387,6 +2550,9 @@ def main() -> int:
 
     # 29. the per-lane gather (run_case, f4), every design on every variant
     lane = check_lane_designs(ph(29, "lane gather designs"), probe_args, gen)
+    # 33. the gather-select (fused_gather, stage2) in both designs: bit-equal
+    # at the probe variants and at edge inputs, and timed in turns
+    select = check_select_designs(ph(33, "gather-select designs"), probe_args, gen)
     del probe_args
 
     # 30. K1 and K3, every design against the twin at the inputs of one
@@ -2575,6 +2741,10 @@ def main() -> int:
         if (k, main_v) in lane:
             e["device_ms"] = default_of(lane[(k, main_v)])["device_ms"]
             e["library_device_ms"] = lane[(k, main_v)]["library_device_ms"]
+        if (k, main_v) in select:  # fused_gather, stage2: both designs at each variant (phase 33)
+            e["design"] = gp.GATHER_SELECT_DESIGNS[0]
+            e["device_ms"] = next(d["device_ms"] for d in select[(k, main_v)]["designs"] if d["design"] == e["design"])
+            e["designs"] = [dict(variant=v, **r) for (kk, v), r in select.items() if kk == k]
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,12 @@
 //     run_case (its nested kernel), out[i, j] = table[rows[i, j], j], and
 //     exp/gather_bench.py f4 (gather_kernel), the same with rows[i, j] mod S
 //     (Python's modulo);
-//   * gather_select_kernel: exp/pallas_gather.py fused_gather (kernel) and
-//     exp/pallas_gather2.py stage2 (g2_kernel), a row gather per corner, a
-//     lane select and an 8-corner weighted sum: fused_gather broadcasts the
-//     entry's F values to all 128 lanes (lane l reads slot*F + l%F),
-//     stage2 keeps the lanes of the entry (l/F == slot) and zeroes the
-//     rest.
+//   * gather_select_rows_kernel (the default) and gather_select_kernel:
+//     exp/pallas_gather.py fused_gather (kernel) and exp/pallas_gather2.py
+//     stage2 (g2_kernel), a row gather per corner, a lane select and an
+//     8-corner weighted sum: fused_gather broadcasts the entry's F values
+//     to all 128 lanes (lane l reads slot*F + l%F), stage2 keeps the lanes
+//     of the entry (l/F == slot) and zeroes the rest.
 //
 // Tables are (rows, 128) of float32 or bfloat16 (elem_bytes 4 or 2);
 // indices are int32; weights float32; sums float32 in the probes' order.
@@ -26,9 +26,19 @@
 // indices read once; a gathered table row is 512 B (256 B in bf16) that
 // stays in L2 at the probes' table sizes (8 MB at most, against 50 MB). So
 // the write of the output and the index reads set the bound.
-//   * row_gather_kernel and gather_select_kernel follow the output:
-//     consecutive threads write consecutive 16-byte vectors (row gather) or
-//     consecutive lanes, so stores coalesce; the table reads hit L2.
+//   * row_gather_kernel follows the output: consecutive threads write
+//     consecutive 16-byte vectors, so stores coalesce; the table reads hit
+//     L2.
+//   * The gather-select writes a 512-byte float32 row per sample (134 MB at
+//     the probes' shapes) from 8 corners' indices (25 MB) and 16 bytes of
+//     the table per corner. One thread per output element
+//     (gather_select_kernel) repeated each sample's index loads and
+//     address arithmetic, with 64-bit and runtime divisions, in all 128
+//     threads of the sample, and took ~12x the bytes' time on the H100
+//     (chip_smoke.py phase 33). gather_select_rows_kernel (below) does a
+//     sample's work once, in one lane, and writes rows as whole-warp float4
+//     streaming stores; at the probes' shape its walk over a group's rows
+//     is one shared-memory read and one store per row.
 //   * The per-lane gather cannot read the table that way: lane j of a warp
 //     reads 4 bytes of a random row, one 32-byte L2 sector per element, so
 //     the one-thread-per-element lane_gather_kernel moves 8x (f32) the
@@ -188,7 +198,223 @@ __global__ void __launch_bounds__(kGatherThreads, 1)
   }
 }
 
-// One thread per output element (sample k, lane). Corner c of sample k
+// One warp per output row: the gather-select in rows (the default design,
+// gather_select_rows_kernel). A warp takes 32 samples at a time (a group),
+// lane j serving sample j while staging; the warp then writes the group's
+// 32 rows, lane l owning output lanes 4l .. 4l+3, each row one coalesced
+// 512-byte warp store of float4 streaming stores (__stcs).
+//   * The probes' shape (F = 4, 8 corners; kSums): lane j computes its own
+//     sample's sums while staging, in the probes' float32 operations and
+//     order, and the warp only reads them back and stores.
+//       - broadcast (fused_gather): the row is one float4, the sum over the
+//         corners of table[row, clamp(slot)*4 .. +3] * w, repeated 32 times.
+//       - masked (stage2): output group l sums, from zero, (l == slot_c ?
+//         v_c * w_c : 0 * w_c) over the corners. Every group that no corner
+//         selects holds the same value b, the sum of the 0 * w_c (0, or NaN
+//         where a weight is NaN or infinite, as in the twin); lane j stages
+//         b, the sum of each group its corners select (at most 8, kept at
+//         the first corner that selects it) and a byte map group -> corner.
+//     The table is read as one 16-byte (bf16: 8-byte) vector per corner and
+//     sample. The grid is one wave of blocks whose warps stride over the
+//     groups, each loading its next group's indices before it sums and
+//     stores the current one, so that index reads overlap the writes.
+//   * Any other F (a power of two dividing 128) or corner count walks per
+//     lane: lane j stages per corner {table offset, slot, weight bits}, and
+//     for each sample every lane reads each corner's entry back (a
+//     broadcast 16-byte shared load) and loads, per output element, the
+//     value it selects (shifts and masks by log2 F, scalar loads).
+// Sums as gather_select_kernel's (__fmul_rn, __fadd_rn, no contraction), so
+// the two designs are bit-equal for every input. Offsets into the indices
+// and the table are 32-bit (the wrapper keeps them below 2^31); only the
+// final addresses are 64-bit.
+constexpr int kGroup = 32;  // samples per pass of a warp, one per lane while staging
+constexpr int kRowsWarps = 4;
+constexpr int kSumsCorners = 8;
+constexpr unsigned char kNoSlot = 0xff;
+
+__device__ __forceinline__ float4 load4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float4 load4(const unsigned short* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u), __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float4 weighted(float4 v, float wc) {
+  return make_float4(__fmul_rn(v.x, wc), __fmul_rn(v.y, wc), __fmul_rn(v.z, wc), __fmul_rn(v.w, wc));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 t) {
+  return make_float4(__fadd_rn(a.x, t.x), __fadd_rn(a.y, t.y), __fadd_rn(a.z, t.z), __fadd_rn(a.w, t.w));
+}
+
+// One sample's indices and weights as loaded (clamped where used).
+struct SampleInputs {
+  int row[kSumsCorners];
+  int slot[kSumsCorners];
+  float w[kSumsCorners];
+};
+
+__device__ __forceinline__ void load_sample(SampleInputs& x, const int* __restrict__ rows,
+                                            const int* __restrict__ slots, const float* __restrict__ w, int n, int k,
+                                            int block, int block_stride, int corner_stride) {
+  if (k >= n) return;
+  const unsigned q = (unsigned)k / (unsigned)block;
+  const int base = (int)(q * (unsigned)block_stride + ((unsigned)k - q * (unsigned)block));
+#pragma unroll
+  for (int c = 0; c < kSumsCorners; ++c) {
+    const int o = base + c * corner_stride;
+    x.row[c] = __ldg(rows + o);
+    x.slot[c] = __ldg(slots + o);
+    x.w[c] = __ldg(w + o);
+  }
+}
+
+// Stage lane `lane`'s sample: broadcast sums[lane]; masked sums[lane * 8 +
+// c], background[lane] and slot_of[lane * 32 + group].
+template <typename T, bool kMasked>
+__device__ __forceinline__ void stage_sums(const SampleInputs& x, const T* __restrict__ table, int table_rows,
+                                           int lane, float4* sums, float* background, unsigned char* slot_of) {
+  if constexpr (!kMasked) {
+    float4 acc;
+#pragma unroll
+    for (int c = 0; c < kSumsCorners; ++c) {  // corner 0 assigns
+      const int off = clamp_row32(x.row[c], table_rows) * kLanes + min(max(x.slot[c], 0), kLanes / 4 - 1) * 4;
+      const float4 t = weighted(load4(table + off), x.w[c]);
+      acc = c == 0 ? t : add4(acc, t);
+    }
+    sums[lane] = acc;
+  } else {
+    int sel[kSumsCorners];  // the output group corner c selects, or -1
+    float4 t[kSumsCorners];
+    float z[kSumsCorners];
+#pragma unroll
+    for (int c = 0; c < kSumsCorners; ++c) {
+      sel[c] = (unsigned)x.slot[c] < (unsigned)(kLanes / 4) ? x.slot[c] : -1;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (sel[c] >= 0) v = load4(table + clamp_row32(x.row[c], table_rows) * kLanes + 4 * sel[c]);
+      t[c] = weighted(v, x.w[c]);
+      z[c] = __fmul_rn(0.0f, x.w[c]);
+    }
+    float b = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kSumsCorners; ++c) b = __fadd_rn(b, z[c]);
+    background[lane] = b;
+    uint4* map = reinterpret_cast<uint4*>(slot_of + lane * 32);
+    map[0] = map[1] = make_uint4(~0u, ~0u, ~0u, ~0u);
+#pragma unroll
+    for (int c = 0; c < kSumsCorners; ++c) {
+      bool first = sel[c] >= 0;
+#pragma unroll
+      for (int d = 0; d < c; ++d) first = first && sel[d] != sel[c];
+      if (first) {
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int d = 0; d < kSumsCorners; ++d)
+          acc = add4(acc, sel[d] == sel[c] ? t[d] : make_float4(z[d], z[d], z[d], z[d]));
+        sums[lane * kSumsCorners + c] = acc;
+        slot_of[lane * 32 + sel[c]] = (unsigned char)c;
+      }
+    }
+  }
+}
+
+// The per-lane walk's values for lane l's four outputs 4l+i at one corner:
+// e = {table offset, slot, weight bits}. Masked: 0 where the output's entry
+// is not the slot.
+template <typename T, bool kMasked>
+__device__ __forceinline__ float4 corner_values(const T* __restrict__ table, const int4 e, int lane, int log2f) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float* vv = &v.x;
+  const int fmask = (1 << log2f) - 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = 4 * lane + i;
+    if (!kMasked) vv[i] = to_f32(__ldg(table + e.x + (m & fmask)));
+    else if ((m >> log2f) == e.y) vv[i] = to_f32(__ldg(table + e.x + m));
+  }
+  return v;
+}
+
+template <typename T, bool kMasked, bool kSums>
+__global__ void __launch_bounds__(kRowsWarps * 32)
+    gather_select_rows_kernel(const T* __restrict__ table, const int* __restrict__ rows,
+                              const int* __restrict__ slots, const float* __restrict__ w, float* __restrict__ out,
+                              int n, int table_rows, int log2f, int block, int block_stride, int corner_stride,
+                              int corners) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (n + kGroup - 1) / kGroup;
+  const int stride = gridDim.x * kRowsWarps;
+  auto store = [&](int k0, int s, float4 v) {
+    __stcs(reinterpret_cast<float4*>(out + (int64_t)(k0 + s) * kLanes + 4 * lane), v);
+  };
+  if constexpr (kSums) {
+    // per warp: 32 x 8 sums, 32 background values, a 32 x 32 byte map
+    float4* sums = reinterpret_cast<float4*>(smem_raw) + warp * kGroup * kSumsCorners;
+    float* background =
+        reinterpret_cast<float*>(reinterpret_cast<float4*>(smem_raw) + kRowsWarps * kGroup * kSumsCorners);
+    unsigned char* slot_of = reinterpret_cast<unsigned char*>(background + kRowsWarps * kGroup) + warp * kGroup * 32;
+    background += warp * kGroup;
+    int g = blockIdx.x * kRowsWarps + warp;
+    SampleInputs x;
+    if (g < groups) load_sample(x, rows, slots, w, n, g * kGroup + lane, block, block_stride, corner_stride);
+    for (; g < groups; g += stride) {
+      const int k0 = g * kGroup;
+      const int in_group = min(kGroup, n - k0);
+      SampleInputs next;  // in flight while this group is summed and stored
+      if (g + stride < groups)
+        load_sample(next, rows, slots, w, n, (g + stride) * kGroup + lane, block, block_stride, corner_stride);
+      __syncwarp();  // the last group's sums are read
+      if (lane < in_group) stage_sums<T, kMasked>(x, table, table_rows, lane, sums, background, slot_of);
+      __syncwarp();
+      for (int s = 0; s < in_group; ++s) {
+        if (!kMasked) {
+          store(k0, s, sums[s]);
+        } else {
+          const unsigned char c = slot_of[s * 32 + lane];
+          const float b = background[s];
+          store(k0, s, c == kNoSlot ? make_float4(b, b, b, b) : sums[s * kSumsCorners + c]);
+        }
+      }
+      x = next;
+    }
+  } else {
+    int4* stage = reinterpret_cast<int4*>(smem_raw) + warp * corners * kGroup;  // corners x 32 entries per warp
+    for (int g = blockIdx.x * kRowsWarps + warp; g < groups; g += stride) {
+      const int k0 = g * kGroup;
+      const int in_group = min(kGroup, n - k0);
+      __syncwarp();  // the last group's entries are read
+      if (lane < in_group) {
+        const unsigned k = (unsigned)(k0 + lane), q = k / (unsigned)block;
+        const int base = (int)(q * (unsigned)block_stride + (k - q * (unsigned)block));
+#pragma unroll 8
+        for (int c = 0; c < corners; ++c) {
+          const int o = base + c * corner_stride;
+          const int sl = __ldg(slots + o);
+          int off = clamp_row32(__ldg(rows + o), table_rows) * kLanes;
+          if (!kMasked) off += min(max(sl, 0), (kLanes >> log2f) - 1) << log2f;
+          stage[c * kGroup + lane] = make_int4(off, sl, __float_as_int(__ldg(w + o)), 0);
+        }
+      }
+      __syncwarp();
+      for (int s = 0; s < in_group; ++s) {
+        const int4 e0 = stage[s];
+        const float4 t0 = weighted(corner_values<T, kMasked>(table, e0, lane, log2f), __int_as_float(e0.z));
+        // masked sums from zero, broadcast assigns corner 0
+        float4 acc = kMasked ? add4(make_float4(0.0f, 0.0f, 0.0f, 0.0f), t0) : t0;
+#pragma unroll 7
+        for (int c = 1; c < corners; ++c) {
+          const int4 e = stage[c * kGroup + s];
+          acc = add4(acc, weighted(corner_values<T, kMasked>(table, e, lane, log2f), __int_as_float(e.z)));
+        }
+        store(k0, s, acc);
+      }
+    }
+  }
+}
+
+// One thread per output element (sample k, lane): the first design, kept
+// for chip_smoke.py's comparison. Corner c of sample k
 // sits at (k / block) * block_stride + c * corner_stride + k % block in
 // rows, slots and w, which covers fused_gather's (corners, blocks, S) and
 // stage2's (blocks, corners, BLK) layouts.
@@ -264,6 +490,46 @@ cudaError_t launch_lane_gather(const void* table, const int* rows, void* out, in
   if (k == 1) return launch_smem<T, 1, kModulo>(table, rows, out, m, table_rows, k, div, s);
   if (k == 2) return launch_smem<T, 2, kModulo>(table, rows, out, m, table_rows, k, div, s);
   return launch_smem<T, 4, kModulo>(table, rows, out, m, table_rows, k, div, s);
+}
+
+// Launch gather_select_rows_kernel as one wave of blocks (as many as fit
+// on every SM, fewer where the groups run out), whose warps stride over the
+// 32-sample groups.
+template <typename T, bool kMasked, bool kSums>
+cudaError_t launch_rows(const void* table, int table_rows, const int* rows, const int* slots, const float* w,
+                        float* out, int n, int log2f, int block, int block_stride, int corner_stride, int corners,
+                        cudaStream_t s) {
+  auto kernel = gather_select_rows_kernel<T, kMasked, kSums>;
+  const size_t smem = (size_t)kRowsWarps * kGroup *
+                      (kSums ? kSumsCorners * sizeof(float4) + sizeof(float) + 32 : (size_t)corners * sizeof(int4));
+  if (smem > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess)
+    return err;
+  int dev = 0, sms = 0, fit = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kRowsWarps * 32, smem)) != cudaSuccess)
+    return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  const int groups = (n + kGroup - 1) / kGroup;
+  int blocks = (groups + kRowsWarps - 1) / kRowsWarps;
+  blocks = blocks < sms * fit ? blocks : sms * fit;
+  kernel<<<blocks, kRowsWarps * 32, smem, s>>>((const T*)table, rows, slots, w, out, n, table_rows, log2f, block,
+                                               block_stride, corner_stride, corners);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kMasked>
+cudaError_t launch_rows_of(const void* table, int table_rows, const int* rows, const int* slots, const float* w,
+                           float* out, int n, int log2f, int block, int block_stride, int corner_stride, int corners,
+                           cudaStream_t s) {
+  if (log2f == 2 && corners == kSumsCorners)
+    return launch_rows<T, kMasked, true>(table, table_rows, rows, slots, w, out, n, log2f, block, block_stride,
+                                         corner_stride, corners, s);
+  return launch_rows<T, kMasked, false>(table, table_rows, rows, slots, w, out, n, log2f, block, block_stride,
+                                        corner_stride, corners, s);
 }
 
 }  // namespace
@@ -342,6 +608,40 @@ int nst_probe_gather_select(const void* table, long long table_rows, int elem_by
   }
 #undef NST_SELECT
   return (int)cudaGetLastError();
+}
+
+// The same gather, lane select and corner sum in rows (the default
+// design): gather_select_rows_kernel, bit-equal to nst_probe_gather_select.
+// features a power of two dividing 128; n, table_rows * 128 and every
+// index offset below 2^31; with F = 4 and 8 corners the table 16-byte
+// aligned. Returns a cudaError_t.
+int nst_probe_gather_select_rows(const void* table, long long table_rows, int elem_bytes, const void* rows,
+                                 const void* slots, const void* w, void* out, long long n, int features,
+                                 long long block, long long block_stride, long long corner_stride, int corners,
+                                 int masked, void* stream) {
+  int log2f = 0;
+  while ((1 << log2f) < features && log2f < 8) ++log2f;
+  if (n < 0 || n > 0x7FFFFFFFLL || table_rows < 1 || table_rows > (0x7FFFFFFFLL / kLanes) || features < 1 ||
+      (1 << log2f) != features || kLanes % features != 0 || block < 1 || block > 0x7FFFFFFFLL ||
+      block_stride < 0 || corner_stride < 0 || corners < 1 || (elem_bytes != 2 && elem_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const long long last = n - 1;
+  const long long max_offset = (last / block) * block_stride + (block < n ? block - 1 : last) +
+                               (long long)(corners - 1) * corner_stride;
+  if (max_offset > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const int* r = (const int*)rows;
+  const int* sl = (const int*)slots;
+  const float* wt = (const float*)w;
+  float* o = (float*)out;
+#define NST_ROWS(T, M)                                                                                        \
+  launch_rows_of<T, M>(table, (int)table_rows, r, sl, wt, o, (int)n, log2f, (int)block, (int)block_stride,    \
+                       (int)corner_stride, corners, (cudaStream_t)stream)
+  cudaError_t err;
+  if (elem_bytes == 4) err = masked ? NST_ROWS(float, true) : NST_ROWS(float, false);
+  else err = masked ? NST_ROWS(unsigned short, true) : NST_ROWS(unsigned short, false);
+#undef NST_ROWS
+  return (int)err;
 }
 
 const char* nst_probe_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

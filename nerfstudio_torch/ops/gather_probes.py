@@ -29,9 +29,9 @@ the table.
 CUDA tensors launch the kernels of ``csrc/gather_probes.cu``
 (``row_gather_kernel``, ``lane_gather_smem_kernel`` or, for a table whose
 columns do not fit in shared memory a sector's width at a time,
-``lane_gather_kernel``,
-``gather_select_kernel``) or raise; CPU tensors run the plain twins below.
-The module constants are the probes' own shapes."""
+``lane_gather_kernel``, and ``gather_select_rows_kernel``, one warp per
+output row, for ``fused_gather`` and ``stage2``) or raise; CPU tensors run
+the plain twins below. The module constants are the probes' own shapes."""
 
 from __future__ import annotations
 
@@ -54,11 +54,25 @@ _SMEM_BUDGET = 232448
 # One sector of a global-memory access: the unit of the L2's reads and writes.
 _SECTOR_BYTES = 32
 
+# The gather-select's designs (fused_gather, stage2), the default first:
+# one warp per output row (gather_select_rows_kernel), and one thread per
+# output element (gather_select_kernel), kept for chip_smoke.py's comparison.
+GATHER_SELECT_DESIGNS = ("rows", "per_element")
+# The rows design sums the probes' shape (F = 4, 8 corners) per sample with
+# vector loads of the table; any other shape walks per lane, staging 16
+# bytes per (sample, corner) for 32 samples in each of a block's 4 warps.
+_ROWS_VECTOR_SHAPE = (4, 8)
+_ROWS_MAX_CORNERS = _SMEM_BUDGET // (4 * 32 * 16)
+# Its offsets are 32-bit: table_rows * 128 and n below 2^31.
+_ROWS_MAX_TABLE_ROWS = (2**31 - 1) // _LANES
+
 # Launches of each probe's kernel, counted where it is launched;
 # "lane_gather_smem" counts the run_case and f4 launches that took the
-# shared-memory kernel.
+# shared-memory kernel, "gather_select_<design>" the fused_gather and
+# stage2 launches that took each design.
 launch_counts: Dict[str, int] = dict.fromkeys(
-    ("fused_gather", "stage1", "stage2", "run_case", "f4", "lane_gather_smem"), 0)
+    ("fused_gather", "stage1", "stage2", "run_case", "f4", "lane_gather_smem")
+    + tuple(f"gather_select_{d}" for d in GATHER_SELECT_DESIGNS), 0)
 
 
 def reset_launch_counts() -> None:
@@ -151,6 +165,8 @@ def kernel_library() -> ctypes.CDLL:
         lib.nst_probe_lane_gather.restype = i
         lib.nst_probe_gather_select.argtypes = [vp, ll, i, vp, vp, vp, vp, ll, i, ll, ll, ll, i, i, vp]
         lib.nst_probe_gather_select.restype = i
+        lib.nst_probe_gather_select_rows.argtypes = [vp, ll, i, vp, vp, vp, vp, ll, i, ll, ll, ll, i, i, vp]
+        lib.nst_probe_gather_select_rows.restype = i
         lib.nst_probe_error_string.argtypes = [i]
         lib.nst_probe_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -214,16 +230,48 @@ def _lane_gather(name: str, table: torch.Tensor, rows: torch.Tensor, modulo: boo
     return out
 
 
-def _gather_select(name: str, table, rows, slots, w, features: int, masked: bool, block: int,
-                   block_stride: int, corner_stride: int, corners: int, n: int) -> torch.Tensor:
+def _gather_select(name: str, table: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, w: torch.Tensor,
+                   features: int, masked: bool, _design: str = "rows") -> torch.Tensor:
+    """The gather-select of ``fused_gather`` (``masked`` False: rows, slots
+    and w (corners, blocks, s)) or ``stage2`` (True: (blocks, corners,
+    blk)) -> (n, 128) float32. On CUDA tensors it launches the kernel of
+    ``_design`` (one of ``GATHER_SELECT_DESIGNS``; only chip_smoke.py's
+    comparison sets it); on CPU tensors every design takes the twin."""
+    if _design not in GATHER_SELECT_DESIGNS:
+        raise ValueError(f"design {_design!r} is not one of {GATHER_SELECT_DESIGNS}")
+    _check(name, table, rows, slots, w)
+    if rows.ndim != 3 or slots.shape != rows.shape or w.shape != rows.shape:
+        raise ValueError(f"{name}: rows, slots and w must share one 3-d shape, got {tuple(rows.shape)}, "
+                         f"{tuple(slots.shape)} and {tuple(w.shape)}")
     if rows.dtype != torch.int32 or slots.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError(f"{name}: rows and slots must be int32 and w float32")
-    if _LANES % features:
+    if features < 1 or _LANES % features:
         raise ValueError(f"{name}: features {features} must divide 128")
+    if masked:
+        nb, c, blk = rows.shape
+        n, block, block_stride, corner_stride = nb * blk, blk, c * blk, blk
+    else:
+        c, nb, s = rows.shape
+        n = nb * s
+        block, block_stride, corner_stride = n, 0, n
+    if _design == "rows" and (features, c) == _ROWS_VECTOR_SHAPE and table.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must be 16-byte aligned (the rows design reads its entries as "
+                         "vectors at F = 4 and 8 corners)")
+    if table.device.type == "cpu":
+        cm = (lambda x: x.permute(1, 0, 2).reshape(c, n)) if masked else (lambda x: x.reshape(c, n))  # noqa: E731
+        return _gather_select_twin(table, cm(rows), cm(slots), cm(w), features, masked)
     out = torch.empty((n, _LANES), dtype=torch.float32, device=table.device)
-    _launch(name, "nst_probe_gather_select", table.device, table.data_ptr(), table.shape[0], table.element_size(),
-            rows.data_ptr(), slots.data_ptr(), w.data_ptr(), out.data_ptr(), n, features, block, block_stride,
-            corner_stride, corners, int(masked))
+    args = (table.data_ptr(), table.shape[0], table.element_size(), rows.data_ptr(), slots.data_ptr(), w.data_ptr(),
+            out.data_ptr(), n, features, block, block_stride, corner_stride, c, int(masked))
+    if _design == "rows":
+        if c > _ROWS_MAX_CORNERS or table.shape[0] > _ROWS_MAX_TABLE_ROWS or rows.numel() >= 2**31:
+            raise ValueError(f"{name}: the rows design takes at most {_ROWS_MAX_CORNERS} corners, "
+                             f"{_ROWS_MAX_TABLE_ROWS} table rows and 2^31 - 1 indices, got {c}, {table.shape[0]}, "
+                             f"{rows.numel()}")
+        _launch(name, "nst_probe_gather_select_rows", table.device, *args)
+    else:
+        _launch(name, "nst_probe_gather_select", table.device, *args)
+    launch_counts[f"gather_select_{_design}"] += 1
     return out
 
 
@@ -235,14 +283,8 @@ def fused_gather(table: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, w
                  features: int = F) -> torch.Tensor:
     """(rows, 128) table; rows, slots, w (corners, blocks, s) -> (blocks, s,
     128) float32."""
-    _check("fused_gather", table, rows, slots, w)
-    c, nb, s = rows.shape
-    if table.device.type == "cpu":
-        out = _gather_select_twin(table, rows.view(c, -1), slots.view(c, -1), w.view(c, -1), features, False)
-    else:
-        n = nb * s
-        out = _gather_select("fused_gather", table, rows, slots, w, features, False, n, 0, n, c, n)
-    return out.view(nb, s, _LANES)
+    out = _gather_select("fused_gather", table, rows, slots, w, features, False)
+    return out.view(rows.shape[1], rows.shape[2], _LANES)
 
 
 def stage1(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -257,12 +299,7 @@ def stage2(table: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, w: torc
            features: int = F) -> torch.Tensor:
     """(rows, 128) table; rows, slots, w (nb, corners, blk) -> (nb*blk, 128)
     float32."""
-    _check("stage2", table, rows, slots, w)
-    nb, c, blk = rows.shape
-    if table.device.type == "cpu":
-        cm = lambda x: x.permute(1, 0, 2).reshape(c, nb * blk)  # noqa: E731  corner-major
-        return _gather_select_twin(table, cm(rows), cm(slots), cm(w), features, True)
-    return _gather_select("stage2", table, rows, slots, w, features, True, blk, c * blk, blk, c, nb * blk)
+    return _gather_select("stage2", table, rows, slots, w, features, True)
 
 
 def run_case(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -54,11 +54,18 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.float().numpy()
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_fused_gather_matches_pallas(dtype, monkeypatch):
+# (dtype, F): the probes' F = 4 keeps its dtype-only id; F = 2 and 8 are
+# served by the kernels' general path, and the Pallas kernels read F from
+# their module at trace time, patched for the call.
+DTYPE_F = [pytest.param(d, f, id=d if f == 4 else f"{d}-F{f}") for f in (4, 2, 8) for d in DTYPES]
+
+
+@pytest.mark.parametrize("dtype,f", DTYPE_F)
+def test_fused_gather_matches_pallas(dtype, f, monkeypatch):
     mod = _probe("pallas_gather")
     s, nb = 512, 2
     monkeypatch.setattr(mod, "S", s)
+    monkeypatch.setattr(mod, "F", f)
     rng = np.random.default_rng(1)
     jt, tt = _table(s, dtype)
     rows = rng.integers(0, s, (8, nb, s)).astype(np.int32)
@@ -73,7 +80,7 @@ def test_fused_gather_matches_pallas(dtype, monkeypatch):
         out_shape=jax.ShapeDtypeStruct((nb, s, 128), jnp.float32),
         interpret=True,
     )(jt, rows, slots, w)
-    got = gp.fused_gather(tt, to_torch(rows), to_torch(slots), to_torch(w))
+    got = gp.fused_gather(tt, to_torch(rows), to_torch(slots), to_torch(w), features=f)
     assert got.shape == (nb, s, 128) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -98,11 +105,12 @@ def test_stage1_matches_pallas(dtype, monkeypatch):
     np.testing.assert_array_equal(_np(got), np.asarray(want.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_stage2_matches_pallas(dtype, monkeypatch):
+@pytest.mark.parametrize("dtype,f", DTYPE_F)
+def test_stage2_matches_pallas(dtype, f, monkeypatch):
     mod = _probe("pallas_gather2")
     s, blk, nb = 1024, 256, 2
     monkeypatch.setattr(mod, "BLK", blk)
+    monkeypatch.setattr(mod, "F", f)
     rng = np.random.default_rng(4)
     jt, tt = _table(s, dtype, seed=5)
     rows = rng.integers(0, s, (nb, 8, blk)).astype(np.int32)
@@ -118,7 +126,7 @@ def test_stage2_matches_pallas(dtype, monkeypatch):
         out_shape=jax.ShapeDtypeStruct((nb * blk, 128), jnp.float32),
         interpret=True,
     )(jt, rows, slots, w)
-    got = gp.stage2(tt, to_torch(rows), to_torch(slots), to_torch(w))
+    got = gp.stage2(tt, to_torch(rows), to_torch(slots), to_torch(w), features=f)
     assert got.shape == (nb * blk, 128) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -273,3 +281,162 @@ def test_cpu_takes_the_twins_and_inputs_are_checked():
         gp.stage1(torch.zeros((8, 64)), rows)
     with pytest.raises(ValueError):
         gp.run_case(tab, rows[:, :64].contiguous())
+
+
+def _select_inputs(rng, shape, table_rows, n_slots):
+    rows = rng.integers(0, table_rows, shape).astype(np.int32)
+    slots = rng.integers(0, n_slots, shape).astype(np.int32)
+    w = rng.uniform(size=shape).astype(np.float32)
+    return rows, slots, w
+
+
+@pytest.mark.parametrize("probe", ["fused_gather", "stage2"])
+def test_gather_select_checks_shapes_and_alignment(probe):
+    """slots and w must have rows' shape (a shorter one would be read past
+    its end on the card), on every device; the table must be 16-byte
+    aligned for the rows design's vector loads (F = 4)."""
+    fn = getattr(gp, probe)
+    rng = np.random.default_rng(10)
+    shape = (2, 8, 64) if probe == "stage2" else (8, 2, 64)  # 8 corners
+    rows, slots, w = (to_torch(x) for x in _select_inputs(rng, shape, 32, 32))
+    tab = torch.zeros((32, 128))
+    fn(tab, rows, slots, w)
+    for bad in ((rows, slots[:, :, :32].contiguous(), w), (rows, slots, w[:1].contiguous()),
+                (rows, slots.reshape(shape[0], -1), w)):
+        with pytest.raises(ValueError, match="share one 3-d shape"):
+            fn(tab, *bad)
+    with pytest.raises(ValueError, match="3-d"):
+        fn(tab, *(x.reshape(shape[0], -1) for x in (rows, slots, w)))
+    shifted = torch.zeros(32 * 128 + 1)[1:].view(32, 128)  # 4 bytes past an aligned allocation
+    assert shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(shifted, rows, slots, w)
+    fn(shifted, rows, slots, w, features=2)  # the per-lane walk takes any alignment
+    three = (lambda x: x[:, :3].contiguous()) if probe == "stage2" else (lambda x: x[:3].contiguous())  # noqa: E731
+    fn(shifted, three(rows), three(slots), three(w))  # and any corner count but 8
+    with pytest.raises(ValueError, match="must divide 128"):
+        fn(tab, rows, slots, w, features=3)
+
+
+def test_gather_select_designs_on_the_cpu():
+    """An unknown design raises; on the CPU every design takes the twin and
+    launches nothing."""
+    rng = np.random.default_rng(11)
+    tab = to_torch(rng.normal(size=(64, 128)).astype(np.float32))
+    gp.reset_launch_counts()
+    for masked, probe, shape in ((False, "fused_gather", (8, 2, 40)), (True, "stage2", (2, 8, 40))):
+        rows, slots, w = (to_torch(x) for x in _select_inputs(rng, shape, 64, 32))
+        want = getattr(gp, probe)(tab, rows, slots, w).reshape(-1, 128)
+        for design in gp.GATHER_SELECT_DESIGNS:
+            got = gp._gather_select(probe, tab, rows, slots, w, gp.F, masked, _design=design)
+            assert torch.equal(got, want), design
+        with pytest.raises(ValueError, match="is not one of"):
+            gp._gather_select(probe, tab, rows, slots, w, gp.F, masked, _design="per_lane")
+    assert all(v == 0 for v in gp.launch_counts.values())
+    assert gp.GATHER_SELECT_DESIGNS[0] == "rows"
+
+
+def _assert_same_bits(got: np.ndarray, want: np.ndarray) -> None:
+    """Equal float32 bits, signed zeros included, and NaN where the other
+    has NaN: on the CPU a NaN's payload depends on the operand order that
+    vectorised code picks (the card's NaN is canonical)."""
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    bits = lambda x: np.ascontiguousarray(x, np.float32).view(np.int32)[~nan]  # noqa: E731
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def _staged_sums(tab, rows, slots, w):
+    """(stage2's rows, fused_gather's rows) as the rows design's staged sums
+    compute them (F = 4, 8 corners), in numpy float32, from corner-major (8,
+    n) indices; see test_staged_sums_equal_the_twin_bit_for_bit."""
+    n, zero = rows.shape[1], np.float32(0.0)
+    masked = np.empty((n, 128), np.float32)
+    broadcast = np.empty((n, 128), np.float32)
+    with np.errstate(invalid="ignore"):  # 0 * inf and inf - inf: NaN, as the probes give
+        for k in range(n):
+            sel = [int(s) if 0 <= s < 32 else -1 for s in slots[:, k]]
+            t = [tab[rows[c, k], 4 * sel[c]:4 * sel[c] + 4] * w[c, k] if sel[c] >= 0 else None for c in range(8)]
+            z = [zero * w[c, k] for c in range(8)]
+            b = zero
+            for c in range(8):
+                b = np.float32(b + z[c])
+            row = np.full((32, 4), b, np.float32)
+            for c in range(8):
+                if sel[c] >= 0 and sel[c] not in sel[:c]:
+                    acc = np.zeros(4, np.float32)
+                    for d in range(8):
+                        acc = (acc + (t[d] if sel[d] == sel[c] else np.full(4, z[d], np.float32))).astype(np.float32)
+                    row[sel[c]] = acc
+            masked[k] = row.reshape(-1)
+            acc = None
+            for c in range(8):
+                e = min(max(int(slots[c, k]), 0), 31)
+                term = (tab[rows[c, k], 4 * e:4 * e + 4] * w[c, k]).astype(np.float32)
+                acc = term if acc is None else (acc + term).astype(np.float32)
+            broadcast[k] = np.tile(acc, 32)
+    return masked, broadcast
+
+
+def test_staged_sums_equal_the_twin_bit_for_bit():
+    """The rows design's staged sums (F = 4, 8 corners), step for step in
+    numpy float32: for stage2 each sample's background b = 0 + 0*w_0 + ...
+    + 0*w_7 fills every output group no corner selects, and each selected
+    group's sum runs over all eight corners from zero, (group == slot_c ?
+    v_c * w_c : 0 * w_c); for fused_gather the row is one four-value sum
+    repeated. Bit-equal to the twin with corners sharing a slot, slots
+    outside the row's entries, and NaN, infinite, negative and -0 weights."""
+    rng = np.random.default_rng(12)
+    n, rows_t = 96, 40
+    tab = rng.normal(size=(rows_t, 128)).astype(np.float32)
+    rows = rng.integers(0, rows_t, (8, n)).astype(np.int32)
+    slots = rng.integers(-2, 35, (8, n)).astype(np.int32)
+    slots[:4, :16] = 5  # shared slots
+    w = rng.uniform(-1, 1, (8, n)).astype(np.float32)
+    special = np.asarray([np.nan, np.inf, -np.inf, -0.0, 0.0], np.float32)
+    pick = rng.integers(0, 30, (8, n))
+    w = np.where(pick < special.size, special[np.minimum(pick, special.size - 1)], w).astype(np.float32)
+    masked, broadcast = _staged_sums(tab, rows, slots, w)
+
+    args = (to_torch(tab), to_torch(rows), to_torch(slots), to_torch(w))
+    _assert_same_bits(masked, gp._gather_select_twin(*args, 4, True).numpy())
+    # the twin reads slot*F + l%F, so it takes the clamped slots the kernels take
+    clamped = to_torch(np.clip(slots, 0, 31).astype(np.int32))
+    _assert_same_bits(broadcast, gp._gather_select_twin(args[0], args[1], clamped, args[3], 4, False).numpy())
+    assert np.isnan(masked).any() and (masked == 0).any() and np.isfinite(masked).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 4, 16])
+@pytest.mark.parametrize("probe", ["fused_gather", "stage2"])
+def test_gather_select_designs_match_on_the_card(cuda_device, probe, f, dtype):
+    """Both designs bit-equal to each other on the card (NaN payloads
+    included), and to the twin where the indices lie in range: at a block
+    that is not a multiple of 32 (stage2's BLK = 1000; fused_gather's n =
+    3000), with rows and slots over the whole int32 range, and with NaN,
+    infinite and negative weights."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    table_rows = 1024
+    shape = (3, 8, 1000) if probe == "stage2" else (8, 3, 1000)
+    tab = torch.randn((table_rows, 128), generator=gen, device=cuda_device).to(dtype)
+    rows = torch.randint(0, table_rows, shape, generator=gen, device=cuda_device, dtype=torch.int32)
+    slots = torch.randint(0, 128 // f, shape, generator=gen, device=cuda_device, dtype=torch.int32)
+    w = torch.rand(shape, generator=gen, device=cuda_device) * 2 - 1
+    w.view(-1)[::7] = float("nan")
+    w.view(-1)[3::11] = float("inf")
+    wide = lambda: torch.randint(INT32_MIN, INT32_MAX, shape, generator=gen, device=cuda_device,  # noqa: E731
+                                 dtype=torch.int64).to(torch.int32)
+    masked = probe == "stage2"
+
+    def run(design, *idx):
+        out = gp._gather_select(probe, tab, *idx, w, f, masked, _design=design)
+        torch.cuda.synchronize()
+        return out
+
+    cm = (lambda x: x.permute(1, 0, 2).reshape(8, -1)) if masked else (lambda x: x.reshape(8, -1))  # noqa: E731
+    for idx, in_range in (((rows, slots), True), ((wide(), wide()), False)):
+        rows_design, element = (run(d, *idx) for d in gp.GATHER_SELECT_DESIGNS)
+        assert torch.equal(rows_design.view(torch.int32), element.view(torch.int32))
+        if in_range:
+            ref = gp._gather_select_twin(tab, cm(idx[0]), cm(idx[1]), cm(w), f, masked)
+            assert bool(((rows_design == ref) | (rows_design.isnan() & ref.isnan())).all())
