@@ -70,13 +70,32 @@ shapes its path gives it, and drives the port's paths from random weights:
   turns beside the "scatter alone" yardstick (``index_add_`` of the same
   (entry, value) pairs), at the check inputs of phases 5, 6 and 21 and at
   the inputs captured from one steady nerfacto step and from both K7
-  backward calls of one steady neus-facto step.
+  backward calls of one steady neus-facto step;
+* K5 at a frame above the bucketed design's tile limit (phase 14: 4096x4352,
+  69,632 tiles) through the default routing, which must take the sorted
+  design and equal the twin exactly;
+* training from a scene on disk through the user's entry points (phases
+  34-38): tools/make_synthetic_dataset.py's ``basic`` scene at the JAX
+  gate records' protocol (48 frames of 200^2), ``scripts.train`` nerfacto
+  for 300 steps with a save at 150, a resume to 400, the eval of the first
+  save and ``scripts.eval`` of the end (the PSNR must rise); the nerfacto
+  and splatfacto gates through ``scripts.gate`` at their full steps (5000
+  and 8000; PSNR > 20 and SSIM > 0.7), beside the JAX records' quality;
+  neus-facto for 200 steps through the trainer (the loss must fall). Each
+  path's kernel launches are zeroed before it and read after; each must
+  launch its kernels. Then every kernel of each path is held against its
+  twin at the inputs of one more step from its trained state (nerfacto's
+  K3 at one eval chunk's), at the tolerances of the phases above, and the
+  gates' device idle share is profiled over 3 more steps.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
 neus-facto step and eval frame; computes each kernel's bound (the least
 time the card could take for the same work: bytes at 3.35 TB/s or float32
-operations at 67 TFLOP/s, whichever is longer).
+operations at 67 TFLOP/s, whichever is longer). A kernel's profiler time
+(``device_ms``) is each kernel's mean duration per record times its
+records per call, which holds when the profiler drops records; phases
+28-31 add CUDA events around 50 calls back to back.
 
 Phases print one line each. Any failure raises, so the exit code is nonzero
 and the final line is missing. On success the last two lines are the
@@ -90,9 +109,11 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -184,22 +205,39 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 10) -> float:
-    """Device time of one call of ``fn``: the sum of its kernels' durations
-    under torch.profiler over ``runs`` calls (after one warm-up), divided by
-    ``runs``; unlike CUDA events around a single call it leaves out the host's
-    time to launch it. NaN when the profiler sees no device activity."""
+def _kernel_records(fn, calls: int):
+    """{kernel name: [durations in us]} of the device activities under
+    torch.profiler over ``calls`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    return sum(spans) / 1e3 / runs if spans else float("nan")
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            out.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    return out
+
+
+def device_ms(fn, runs: int = 10) -> float:
+    """Device time of one call of ``fn`` under torch.profiler: each kernel's
+    mean duration per record over ``runs`` calls (after one warm-up), times
+    the records of that kernel one call launches (the most of: a profiled
+    single call's count, and the ``runs`` calls' count per call rounded
+    up). Late in a long process the profiler drops records (3-9 of 10 seen),
+    so dividing the summed durations by the calls made would read low; the
+    mean per record holds. Unlike CUDA events around a single call it
+    leaves out the host's time to launch it. NaN when the profiler sees no
+    device activity."""
+    fn()
+    torch.cuda.synchronize()
+    one, many = _kernel_records(fn, 1), _kernel_records(fn, runs)
+    if not many:
+        return float("nan")
+    per_call = {k: max(len(one.get(k, ())), math.ceil(len(v) / runs)) for k, v in many.items()}
+    return sum(statistics.fmean(many[k]) * c for k, c in per_call.items()) / 1e3
 
 
 def kernel_records_ms(fn, key: str, runs: int = 10):
@@ -364,13 +402,15 @@ def render_in_design(model, grid, cams, design):
 
 
 def time_block_designs(timing):
-    """Every design of K1 or K3 timed in turns (``paired_ms``) and by the
-    profiler's device time: ({design: (mean, [medians])}, {design: ms})."""
+    """Every design of K1 or K3 timed in turns (``paired_ms``), by the
+    profiler's device time and by CUDA events around 50 calls back to back:
+    ({design: (mean, [medians])}, {design: device ms}, {design: ms})."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     fns = {d: timing[d] for d in hg.DESIGNS}
     with torch.no_grad():
-        return paired_ms(fns), {d: device_ms(fn) for d, fn in fns.items()}
+        return (paired_ms(fns), {d: device_ms(fn) for d, fn in fns.items()},
+                {d: batch_ms(fn) for d, fn in fns.items()})
 
 
 def hash_kernel_of(name: str):
@@ -386,6 +426,7 @@ def hash_kernel_of(name: str):
 
 
 U32 = 2.0**-24  # float32 unit roundoff
+FLT_MIN = 2.0**-126  # the smallest normal float32
 
 
 def table_grad_bound(pos, table, g, scales, kw):
@@ -393,9 +434,12 @@ def table_grad_bound(pos, table, g, scales, kw):
     float32 sum of k terms in any order is off by at most (k-1) * u * sum|t|
     (u = 2^-24), plus the four roundings of each term w8*g*scale. sum|t| is the
     float64 twin on |g| (weights and scales are >= 0); k counts each entry's
-    terms from the geometry. Every design rounds each term as the first
-    does; the lane groups' vector reductions only regroup the sum, so the
-    bound holds for each unchanged."""
+    terms from the geometry. A float atomic add to global memory flushes a
+    subnormal result to zero (as index_add_ on the card does), so each term
+    and each partial sum may also lose up to FLT_MIN: (k + 4) * FLT_MIN more
+    (a cotangent below 1e-37 shows it). Every design rounds each term as the
+    first does; the lane groups' vector reductions only regroup the sum, so
+    the bound holds for each unchanged."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     L, S, lanes = table.shape
@@ -409,21 +453,23 @@ def table_grad_bound(pos, table, g, scales, kw):
             idx = hg._block_lanes(rows, slot, F).view(-1, 8, F)
             live = (w8 != 0)[:, :, None].expand_as(idx)
             counts[l] += torch.bincount(idx[live], minlength=S * lanes).double()
-    return ((counts + 4.0) * U32 * abs_sum.view(L, -1)).view(L, S, lanes)
+    return ((counts + 4.0) * (U32 * abs_sum.view(L, -1) + FLT_MIN)).view(L, S, lanes)
 
 
-def position_grad_bound(g, num_levels, features, min_res, max_res):
+def position_grad_bound(g, table, num_levels, features, min_res, max_res):
     """Per-sample limit on |kernel - float64 twin| of the position gradient.
     Each level adds res * clip' * d_o, d_o a signed sum of 8 terms
     d_w8[c] * (two weights in [0, 1]), d_w8[c] a sum of F products with
-    bf16 table values in +-1; every step rounds once, so a level is off by
-    at most ~(F + 12) u times res * 8 * sum_f |g_lf|, and the levels' sum
-    adds L roundings more."""
+    bf16 table values within +-T (T the level's largest |value|, bf16-
+    rounded, at least 1: a trained table holds values of several units);
+    every step rounds once, so a level is off by at most ~(F + 12) u times
+    res * 8 * T * sum_f |g_lf|, and the levels' sum adds L roundings more."""
     from nerfstudio_torch.ops.hash_grid import compute_level_resolutions
 
     res = torch.tensor(compute_level_resolutions(num_levels, min_res, max_res), dtype=torch.float64,
                        device=g.device)
-    per_level = g.abs().double().view(g.shape[0], num_levels, features).sum(-1) * res * 8.0
+    peak = (table.detach().reshape(num_levels, -1).abs().amax(-1).double() * (1 + 2.0**-8)).clamp_min(1.0)
+    per_level = g.abs().double().view(g.shape[0], num_levels, features).sum(-1) * res * 8.0 * peak
     return (features + 12 + num_levels) * U32 * per_level.sum(-1, keepdim=True)
 
 
@@ -440,7 +486,7 @@ def check_kernel_bwd(name, n, num_levels, log2_t, features, min_res, max_res, sc
     tab_err = (d_tab.double() - ref_tab).abs()
     pos_err = (d_pos.double() - ref_pos).abs()
     tab_over = int((tab_err > table_grad_bound(pos, table, g, scales, kw)).sum())
-    pos_over = int((pos_err > position_grad_bound(g, num_levels, features, min_res, max_res)).sum())
+    pos_over = int((pos_err > position_grad_bound(g, table, num_levels, features, min_res, max_res)).sum())
     inactive = [l for l, s in enumerate(scales) if not s]
     silent = all(not d_tab[l].any() for l in inactive)
     max_abs = max(float(tab_err.max()), float(pos_err.max()))
@@ -739,11 +785,12 @@ SPLAT_SLOTS, SPLAT_RANDOM, SPLAT_SCALE = 100_000, 50_000, 1.5
 SPLAT_CAMERAS = 8
 SPLAT_START, SPLAT_WARMUP, SPLAT_TIMED = 6000, 5, 30
 SPLAT_CHECK_HW, SPLAT_CHECK_GAUSS = 128, 4096
-SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile_bin_bucketed",
+SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile_bin_bucketed", "tile_bin_sorted",
                  "blend_saturating", "blend_saturating_per_pixel", "blend_saturating_bwd")
 # launches of each per splat step: one of every kernel in its default
-# design, none of K6 forward's per-pixel design
-SPLAT_STEP_LAUNCHES = {**dict.fromkeys(SPLAT_KERNELS, 1), "blend_saturating_per_pixel": 0}
+# design, none of K6 forward's per-pixel design nor of K5's sorted one (a
+# 512^2 frame is far below the bucketed design's tile limit)
+SPLAT_STEP_LAUNCHES = {**dict.fromkeys(SPLAT_KERNELS, 1), "blend_saturating_per_pixel": 0, "tile_bin_sorted": 0}
 # the gsplat kernels by profiler name (first match), one row each in the
 # splat profiles: every kernel K4, K5 and K6 launch
 GSPLAT_ROWS = (("K4 fwd", "project_fwd"), ("K4 bwd", "project_bwd"), ("K5 tile_count", "tile_count"),
@@ -837,6 +884,58 @@ def near_integer_radius(conics: torch.Tensor) -> torch.Tensor:
     return (arg - torch.round(arg)).abs() < 1e-5
 
 
+def k4_fwd_errors(name, m, s, q, cam):
+    """K4's forward against the twin at one call's inputs: (outputs, twin
+    outputs, max |kernel - twin| / peak per output over the gaussians in
+    front of the camera, radii/valid flips, flips away from an integer
+    ceil, max abs err)."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    with torch.no_grad():
+        out = pj._project_kernel(m, s, q, cam)
+        ref = pj._project_twin(m, s, q, *cam)
+    torch.cuda.synchronize()
+    front = ref[1] > 1e-3  # behind the camera z is clamped to 1e-6: see the projection parity test
+    pairs = dict(zip(("means2d", "depths", "conics", "compensations"), zip(out[:3] + out[5:], ref[:3] + ref[5:])))
+    errs, max_abs = {}, 0.0
+    for k, (a, b) in pairs.items():
+        if not torch.isfinite(a[front]).all():
+            raise AssertionError(f"{name}: non-finite {k}")
+        errs[k] = float((a[front] - b[front]).abs().max() / b[front].abs().max())
+        max_abs = max(max_abs, float((a[front] - b[front]).abs().max()))
+    flips = (out[3] != ref[3]) | (out[4] != ref[4])
+    bad_flips = int((flips & ~near_integer_radius(ref[2])).sum())
+    return out, ref, errs, int(flips.sum()), bad_flips, max_abs
+
+
+def k4_bwd_errors(m, s, q, cam, cots):
+    """K4's backward at one call's inputs against a float64 run of the twin:
+    ({array: (kernel's, float32 twin's error / peak)}, the arrays over the
+    limit, max |kernel - float32 twin|)."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    got = pj._project_bwd_kernel(m, s, q, cam, *cots)
+    twin = pj._project_twin_bwd(m, s, q, cam, *cots)
+    ref64 = pj._project_twin_bwd(m.double(), s.double(), q.double(), cam, *(c.double() for c in cots))
+    torch.cuda.synchronize()
+    over, errs, max_abs = [], {}, 0.0
+    for k, a, b, r in zip(("means", "scales", "quats"), got, twin, ref64):
+        e_k, e_t = float((a.double() - r).abs().max()), float((b.double() - r).abs().max())
+        peak = float(r.abs().max())
+        errs[k] = (e_k / peak, e_t / peak)
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        if e_k > 2 * e_t + 1e-6 * peak or not torch.isfinite(a).all():
+            over.append(k)
+    return errs, over, max_abs
+
+
+def k4_line(label, errs, flips, bad_flips, bwd_errs, bwd_over) -> str:
+    return (f"{label}: forward max |kernel - twin| / peak " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f", radii/valid flips {flips} ({bad_flips} away from an integer ceil); backward max |x - float64 "
+            "twin| / peak (kernel, float32 twin) " + ", ".join(f"{k} {a:.3g}/{b:.3g}" for k, (a, b) in
+                                                            bwd_errs.items()) + f", over the limit: {bwd_over}")
+
+
 def check_k4(name, x, gen):
     """K4 forward and backward against the twin, in the main path's classic
     mode and antialiased (the compensation factor and its cotangent).
@@ -848,42 +947,14 @@ def check_k4(name, x, gen):
     runs, lines, failed, max_abs = {}, [], False, 0.0
     for antialiased in (False, True):
         cam = x["cam_args"][:-1] + (antialiased,)
-        with torch.no_grad():
-            out = pj._project_kernel(m, s, q, cam)
-            ref = pj._project_twin(m, s, q, *cam)
-        torch.cuda.synchronize()
-        front = ref[1] > 1e-3  # behind the camera z is clamped to 1e-6: see the projection parity test
-        pairs = dict(zip(("means2d", "depths", "conics", "compensations"), zip(out[:3] + out[5:], ref[:3] + ref[5:])))
-        errs = {}
-        for k, (a, b) in pairs.items():
-            if not torch.isfinite(a[front]).all():
-                raise AssertionError(f"{name}: non-finite {k}")
-            errs[k] = float((a[front] - b[front]).abs().max() / b[front].abs().max())
-            max_abs = max(max_abs, float((a[front] - b[front]).abs().max()))
-        flips = (out[3] != ref[3]) | (out[4] != ref[4])
-        bad_flips = int((flips & ~near_integer_radius(ref[2])).sum())
+        out, ref, errs, flips, bad_flips, fwd_abs = k4_fwd_errors(name, m, s, q, cam)
         valid = ref[4] & x["alive"]
         cots = [torch.randn(t.shape, generator=gen, device=m.device) * valid.view(-1, *([1] * (t.ndim - 1)))
                 for t in ref[:3] + ref[5:]]
-        got = pj._project_bwd_kernel(m, s, q, cam, *cots)
-        twin = pj._project_twin_bwd(m, s, q, cam, *cots)
-        ref64 = pj._project_twin_bwd(m.double(), s.double(), q.double(), cam, *(c.double() for c in cots))
-        torch.cuda.synchronize()
-        bwd_over, bwd_errs = [], {}
-        for k, a, b, r in zip(("means", "scales", "quats"), got, twin, ref64):
-            e_k, e_t = float((a.double() - r).abs().max()), float((b.double() - r).abs().max())
-            peak = float(r.abs().max())
-            bwd_errs[k] = (e_k / peak, e_t / peak)
-            max_abs = max(max_abs, float((a - b).abs().max()))
-            if e_k > 2 * e_t + 1e-6 * peak or not torch.isfinite(a).all():
-                bwd_over.append(k)
+        bwd_errs, bwd_over, bwd_abs = k4_bwd_errors(m, s, q, cam, cots)
+        max_abs = max(max_abs, fwd_abs, bwd_abs)
         failed = failed or max(errs.values()) > K4_REL or bad_flips or bool(bwd_over)
-        lines.append(
-            f"{'antialiased' if antialiased else 'classic'}: forward max |kernel - twin| / peak "
-            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f", radii/valid flips {int(flips.sum())} "
-            f"({bad_flips} away from an integer ceil); backward max |x - float64 twin| / peak (kernel, float32 "
-            "twin) " + ", ".join(f"{k} {a:.3g}/{b:.3g}" for k, (a, b) in bwd_errs.items())
-            + f", over the limit: {bwd_over}")
+        lines.append(k4_line("antialiased" if antialiased else "classic", errs, flips, bad_flips, bwd_errs, bwd_over))
         runs[antialiased] = (out, valid, cots, cam)
     log(name, f"N={m.shape[0]} ({int(runs[False][1].sum())} visible of {int(x['alive'].sum())} alive) "
         f"{x['width']}x{x['height']} (limit {K4_REL}): " + "; ".join(lines))
@@ -983,6 +1054,42 @@ def time_k5(rec):
         dev = {k: device_ms(fn) for k, fn in rec["timing"].items()}
     rec["times"] = {k: dict(ms=ev[k][0], ms_runs=ev[k][1], device_ms=dev[k]) for k in rec["timing"]}
     return rec
+
+
+ABOVE_LIMIT_HW = (4096, 4352)  # 256 x 272 = 69,632 tiles, above the bucketed design's 58,112
+
+
+def check_k5_above_limit(name, args, width, height):
+    """K5 at a frame above the bucketed design's tile limit: ``args``'s
+    gaussians (the check inputs, at ``width`` x ``height``) spread over a
+    4096x4352 frame (means and radii scaled), through the default routing.
+    The sorted design must take it (one ``tile_bin_sorted`` launch, no
+    bucketed one) and equal the twin exactly on starts, counts and the live
+    entries. Returns a record for the kernels line."""
+    from nerfstudio_torch.ops.gsplat import _cuda as sc
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    m2, radii, z, valid, _, _, *binning = args
+    W, H = ABOVE_LIMIT_HW
+    scale = torch.tensor([W / width, H / height], device=m2.device)
+    big = (m2 * scale, (radii * (H / height)).to(radii.dtype), z, valid, (W + 15) // 16, (H + 15) // 16, *binning)
+    tiles = big[4] * big[5]
+    sc.reset_launch_counts()
+    got = rz._tile_bin_kernel(*big)
+    torch.cuda.synchronize()
+    routed = {k: sc.launch_counts[k] for k in ("tile_bin", "tile_bin_bucketed", "tile_bin_sorted")}
+    ref = rz._tile_bin_twin(*big)
+    total = int(ref.counts.sum())
+    same = {k: bool(torch.equal(getattr(got, k), getattr(ref, k))) for k in ("starts", "counts")}
+    same.update({k: bool(torch.equal(getattr(got, k)[:total], getattr(ref, k)[:total])) for k in ("packed", "ids")})
+    ms = median_ms(lambda: rz._tile_bin_kernel(*big), runs=5, warmup=1)
+    log(name, f"a {W}x{H} frame, {tiles} tiles (the bucketed design takes {rz.SHARED_BYTES_PER_BLOCK // 4}): "
+        f"design {rz.tile_bin_design(tiles)}, launches {routed}; {total} live pairs, max "
+        f"{int(ref.counts.max())} per tile; equal to the twin: {same}; {ms:.3f} ms")
+    if routed != {"tile_bin": 1, "tile_bin_bucketed": 0, "tile_bin_sorted": 1} or not all(same.values()):
+        raise AssertionError(f"{name}: the frame above the tile limit was not binned exactly by the sorted design")
+    return dict(width=W, height=H, tiles=tiles, design=rz.tile_bin_design(tiles), launches=routed, live=total,
+                equal_to_twin=same, ms=ms)
 
 
 def k5_line(rec) -> str:
@@ -1179,6 +1286,29 @@ def gsplat_rows(rows) -> str:
         f"; sum {sum(got.values()):.4f}"
 
 
+def capture_kernel_calls(targets, run):
+    """The arguments of every call of each launcher in ``targets`` ({label:
+    (module, function name)}) during ``run()``, as the path's own calls hand
+    them over (tensors detached and cloned): {label: [(args, kwargs)]}."""
+    seen = {k: [] for k in targets}
+    launch = {k: getattr(mod, f) for k, (mod, f) in targets.items()}
+
+    def capture(k):
+        def call(*args, **kw):
+            seen[k].append(([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args], dict(kw)))
+            return launch[k](*args, **kw)
+        return call
+
+    for k, (mod, f) in targets.items():
+        setattr(mod, f, capture(k))
+    try:
+        run()
+    finally:
+        for k, (mod, f) in targets.items():
+            setattr(mod, f, launch[k])
+    return seen
+
+
 def capture_splat_calls(pipeline, state, gen):
     """The arguments of K5 (``_tile_bin_kernel``) and of K6's backward in one
     steady-state splat step, as the step's own calls hand them over
@@ -1186,26 +1316,11 @@ def capture_splat_calls(pipeline, state, gen):
     opac, the bins, T, last, the cotangent g_ch)}."""
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    names = {"tile_bin": "_tile_bin_kernel", "blend_bwd": "_blend_bwd_kernel"}
-    seen = {k: [] for k in names}
-    launch = {k: getattr(rz, f) for k, f in names.items()}
-
-    def capture(k):
-        def run(*args):
-            seen[k].append([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args])
-            return launch[k](*args)
-        return run
-
-    for k, f in names.items():
-        setattr(rz, f, capture(k))
-    try:
-        splat_steps(pipeline, state, 1, gen)
-    finally:
-        for k, f in names.items():
-            setattr(rz, f, launch[k])
+    seen = capture_kernel_calls({"tile_bin": (rz, "_tile_bin_kernel"), "blend_bwd": (rz, "_blend_bwd_kernel")},
+                                lambda: splat_steps(pipeline, state, 1, gen))
     if any(len(v) != 1 for v in seen.values()):
         raise AssertionError(f"one splat step called K5 and K6's backward {[len(v) for v in seen.values()]} times")
-    return {k: v[0] for k, v in seen.items()}
+    return {k: v[0][0] for k, v in seen.items()}
 
 
 def splat_steps(pipeline, state, n, gen):
@@ -1284,11 +1399,13 @@ NEUS_GRAD_REL = 5e-2
 def flat_table_grad_bound(pos, table, g, kw):
     """Per-entry limit on |kernel - float64 twin| of K7's table gradient:
     (terms - 1) * u * sum|t| for a float32 sum in any order, plus two
-    roundings per term (w = (wx*wy)*wz, then w*g); sum|t| is the float64
-    twin on |g|, the term count each lane's from the corners of nonzero
-    weight. As for table_grad_bound, every design rounds each term the same
-    way and only regroups the sum: the lane groups' vector reductions, and
-    the privatised levels' warp scans, shared copies and slab sums."""
+    roundings per term (w = (wx*wy)*wz, then w*g), plus FLT_MIN per term and
+    partial sum for the atomics' flush of subnormals (table_grad_bound);
+    sum|t| is the float64 twin on |g|, the term count each lane's from the
+    corners of nonzero weight. As for table_grad_bound, every design rounds
+    each term the same way and only regroups the sum: the lane groups'
+    vector reductions, and the privatised levels' warp scans, shared copies
+    and slab sums."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     L, S, lanes = table.shape
@@ -1302,7 +1419,7 @@ def flat_table_grad_bound(pos, table, g, kw):
         idx = entries[:, :, None] * F + feat
         live = (w8 != 0)[:, :, None].expand_as(idx)
         counts[l] += torch.bincount(idx[live], minlength=S * lanes).double()
-    return ((counts + 4.0) * U32 * abs_sum.view(L, -1)).view(L, S, lanes)
+    return ((counts + 4.0) * (U32 * abs_sum.view(L, -1) + FLT_MIN)).view(L, S, lanes)
 
 
 def check_flat(name, pos, table, kw, what):
@@ -1413,7 +1530,7 @@ def check_flat_bwd(name, n, gen):
     tab_err = (d_tab.double() - ref_tab).abs()
     pos_err = (d_pos.double() - ref_pos).abs()
     tab_over = int((tab_err > flat_table_grad_bound(pos, table, g, kw)).sum())
-    pos_over = int((pos_err > position_grad_bound(g, PROP_LEVELS, PROP_F, PROP_MIN_RES, PROP_MAX_RES)).sum())
+    pos_over = int((pos_err > position_grad_bound(g, table, PROP_LEVELS, PROP_F, PROP_MIN_RES, PROP_MAX_RES)).sum())
     max_abs = max(float(tab_err.max()), float(pos_err.max()))
     log(name, f"N={n} L={PROP_LEVELS} F={PROP_F} T=2^{PROP_LOG2_T}: max |kernel - float64 twin| d_table "
         f"{float(tab_err.max()):.3g} (peak {float(ref_tab.abs().max()):.3g}), d_positions {float(pos_err.max()):.3g} "
@@ -1434,22 +1551,10 @@ def check_flat_bwd(name, n, gen):
 
 def capture_calls(name, run):
     """The arguments of every call of ``hash_grid.<name>`` (a backward's
-    launcher) during ``run()``, as the step's own autograd hands them over
-    (tensors cloned): [(args, kwargs)]."""
+    launcher) during ``run()``: [(args, kwargs)]."""
     from nerfstudio_torch.ops import hash_grid as hg
 
-    seen, launch = [], getattr(hg, name)
-
-    def capture(*args, **kw):
-        seen.append(([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args], dict(kw)))
-        return launch(*args, **kw)
-
-    setattr(hg, name, capture)
-    try:
-        run()
-    finally:
-        setattr(hg, name, launch)
-    return seen
+    return capture_kernel_calls({name: (hg, name)}, run)[name]
 
 
 def scatter_pairs(kind, pos, table, g, scales, kw):
@@ -1481,14 +1586,13 @@ def scatter_pairs(kind, pos, table, g, scales, kw):
     return torch.cat(idx), torch.cat(vals)
 
 
-def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions=True, need_table=True):
+def bwd_designs_vs_twin(name, kind, pos, table, g, kw, scales=None, need_positions=True, need_table=True):
     """Every design of K1's (``kind`` "K1", with ``scales``) or K7's backward
     against the float64 twin on one set of inputs: the table gradient within
     its summation-order bound on every entry, the positions within theirs,
-    K1's levels of scale 0 untouched; then every design and the "scatter
-    alone" yardstick timed in turns (CUDA events, ``paired_ms``) and by the
-    profiler's device time. Returns a record: n, scales, needs, bound,
-    {design: errors and times}, the yardstick's times."""
+    K1's levels of scale 0 untouched. Raises on a miss. Returns ({design:
+    errors}, the launcher by design, the last design's outputs, the
+    scales)."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     L, S, _ = table.shape
@@ -1506,7 +1610,7 @@ def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions
                                                          dtype=torch.float64, **kw)
         tab_bound = table_grad_bound(pos, table, g, active, kw) if need_table else None
         run = lambda d: hg._block_bwd_kernel(pos, table, g, scales, _design=d, **needs, **kw)  # noqa: E731
-    pos_bound = position_grad_bound(g, L, F, kw["min_res"], kw["max_res"]) if need_positions else None
+    pos_bound = position_grad_bound(g, table, L, F, kw["min_res"], kw["max_res"]) if need_positions else None
     designs, bad, outs = {}, [], None
     for d in hg.DESIGNS:
         d_tab, d_pos = run(d)
@@ -1534,7 +1638,21 @@ def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions
                                                          else "") for d, r in designs.items()))
     if bad:
         raise AssertionError(f"{name}: the {bad} designs disagree with the float64 twin")
-    del ref_tab, ref_pos, tab_bound
+    return designs, run, outs, scales
+
+
+def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions=True, need_table=True):
+    """``bwd_designs_vs_twin``, then every design and the "scatter alone"
+    yardstick timed in turns (CUDA events, ``paired_ms``) and by the
+    profiler's device time. Returns a record: n, scales, needs, bound,
+    {design: errors and times}, the yardstick's times."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    needs = dict(need_positions=need_positions, need_table=need_table)
+    designs, run, outs, scales = bwd_designs_vs_twin(name, kind, pos, table, g, kw, scales, **needs)
+    L, S, _ = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    n = pos.shape[0]
     fns = {d: (lambda d=d: run(d)) for d in hg.DESIGNS}
     if need_table:
         idx, vals = scatter_pairs(kind, pos, table, g, scales, kw)
@@ -1542,8 +1660,9 @@ def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions
         fns["scatter alone"] = lambda: target.index_add_(0, idx, vals)
     times = paired_ms(fns)
     dev = {k: device_ms(fn) for k, fn in fns.items()}
+    bat = {k: batch_ms(fn) for k, fn in fns.items()}
     for d in hg.DESIGNS:
-        designs[d].update(ms=times[d][0], ms_runs=times[d][1], device_ms=dev[d])
+        designs[d].update(ms=times[d][0], ms_runs=times[d][1], device_ms=dev[d], batch_ms=bat[d])
     # the table is read only for the position gradient; each gradient asked
     # is written once
     bnd = bound(nbytes(pos, g, *([table] if need_positions else []), *outs),
@@ -1554,17 +1673,18 @@ def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions
                if kind == "K7" and need_table and not need_positions else [])
     return dict(n=n, scales=list(scales), **needs, privatised_levels=private, bound_ms=bnd[0], bound_by=bnd[1],
                 designs=designs,
-                scatter_alone=(dict(ms=times["scatter alone"][0], device_ms=dev["scatter alone"], pairs=int(idx.numel()))
+                scatter_alone=(dict(ms=times["scatter alone"][0], device_ms=dev["scatter alone"],
+                                    batch_ms=bat["scatter alone"], pairs=int(idx.numel()))
                                if need_table else None))
 
 
 def bwd_design_line(label, rec) -> str:
-    """One input set's times: events mean [two medians] / device ms."""
-    parts = [f"{d} {r['ms']:.4f} {[round(m, 4) for m in r['ms_runs']]} / {r['device_ms']:.4f}"
+    """One input set's times: events mean [two medians] / device ms / back to back."""
+    parts = [f"{d} {r['ms']:.4f} {[round(m, 4) for m in r['ms_runs']]} / {r['device_ms']:.4f} / {r['batch_ms']:.4f}"
              for d, r in rec["designs"].items()]
     if rec["scatter_alone"]:
-        parts.append(f"scatter alone ({rec['scatter_alone']['pairs']} pairs) {rec['scatter_alone']['ms']:.4f} / "
-                     f"{rec['scatter_alone']['device_ms']:.4f}")
+        sa = rec["scatter_alone"]
+        parts.append(f"scatter alone ({sa['pairs']} pairs) {sa['ms']:.4f} / {sa['device_ms']:.4f} / {sa['batch_ms']:.4f}")
     return (f"{label} (N={rec['n']}, privatised levels {rec['privatised_levels']}, bound {rec['bound_ms']:.4f} ms "
             f"by {rec['bound_by']}): " + ", ".join(parts))
 
@@ -1742,14 +1862,17 @@ def check_lane_designs(name, inputs, gen):
                 fns["torch.gather"] = lambda: torch.gather(tab, 0, r64)
             times = paired_ms(fns)
             dev = {d: device_ms(fn) for d, fn in fns.items()}
+            bat = {d: batch_ms(fn) for d, fn in fns.items()}
         records[(k, v)] = dict(
             lanes=plan, default=default, bound=bound(nbytes(tab, rows, ref), 0),
             library_ms=times["torch.gather"][0] if in_range else None,
             library_device_ms=dev["torch.gather"] if in_range else None,
+            library_batch_ms=bat["torch.gather"] if in_range else None,
             designs=[dict(design=d, lanes=l, max_abs_err=errs[d], ms=times[d][0], ms_runs=times[d][1],
-                          device_ms=dev[d]) for d, l in designs.items()])
-        lines.append(f"{k} {v} (plan {plan} lanes: {default}; events / device ms): "
-                     + ", ".join(f"{d} {times[d][0]:.4f} / {dev[d]:.4f}" for d in fns) + ", all equal to the twin")
+                          device_ms=dev[d], batch_ms=bat[d]) for d, l in designs.items()])
+        lines.append(f"{k} {v} (plan {plan} lanes: {default}; events / device ms / back to back): "
+                     + ", ".join(f"{d} {times[d][0]:.4f} / {dev[d]:.4f} / {bat[d]:.4f}" for d in fns)
+                     + ", all equal to the twin")
         del ref
     log(name, "; ".join(lines))
     return records
@@ -1981,6 +2104,311 @@ def neus_card_vs_cpu():
     return m_card, m_cpu, loss_rel, grad_rel
 
 
+# --------------------------------------------------------------------------
+# training from a scene on disk, through the user's entry points
+
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the JAX package's gate records (benchmarks/gate_*.json): PSNR and SSIM
+# only; their times were taken on a TPU and are no target here
+JAX_GATES = {"nerfacto": (25.1164, 0.899), "splatfacto": (25.7855, 0.9)}
+# the scene of those records: run_gate_matrix.py's --make-scenes defaults
+SCENE_ARGS = ("--hw", "200", "--n-train", "40", "--n-test", "8")
+CLI_STEPS, CLI_SAVE, CLI_RESUME_TO = 300, 150, 400
+NEUS_DISK_STEPS = 200
+# the kernels each from-disk path must launch (every design counted once)
+NERFACTO_KERNELS = ("hash_encode_block", "hash_encode_block_bwd", "hash_encode_block_exact")
+SPLAT_PATH_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile_bin_bucketed",
+                      "blend_saturating", "blend_saturating_bwd")
+NEUS_PATH_KERNELS = ("hash_encode_flat", "hash_encode_flat_bwd")
+
+
+def zero_counts() -> None:
+    from nerfstudio_torch.ops import gather_probes as gp
+    from nerfstudio_torch.ops import hash_grid as hg
+    from nerfstudio_torch.ops.gsplat import _cuda as sc
+
+    hg.reset_launch_counts()
+    sc.reset_launch_counts()
+    gp.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from nerfstudio_torch.ops import hash_grid as hg
+    from nerfstudio_torch.ops.gsplat import _cuda as sc
+
+    return {**hg.launch_counts, **sc.launch_counts}
+
+
+def check_path(name, counts, want, none=PER_THREAD + ("hash_encode_block_per_thread", "blend_saturating_per_pixel")):
+    """Every kernel of ``want`` launched on the path, none of ``none``."""
+    missing = [k for k in want if not counts.get(k)]
+    stray = {k: counts[k] for k in none if counts.get(k)}
+    if missing or stray:
+        raise AssertionError(f"{name}: kernels not launched {missing}, launched and not expected {stray}")
+
+
+def train_losses(run_dir) -> list:
+    """The train losses the writer logged for a run, in order."""
+    with open(os.path.join(run_dir, "scalars.jsonl"), encoding="utf-8") as f:
+        return [r["loss"] for r in map(json.loads, f) if r["prefix"] == "train"]
+
+
+def make_scene(name, root):
+    """tools/make_synthetic_dataset.py ROOT/basic --scene basic at the JAX
+    gate records' protocol (``tools/run_gate_matrix.py --make-scenes``:
+    SCENE_ARGS), in its own process (it reads the JAX package's numpy-only
+    ply writer; without JAX_PLATFORMS that package imports no JAX)."""
+    t0 = time.perf_counter()
+    scene = os.path.join(root, "basic")
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    subprocess.run([sys.executable, os.path.join(REPO, "tools", "make_synthetic_dataset.py"), scene, "--scene",
+                    "basic", *SCENE_ARGS], check=True, env=env, capture_output=True, text=True)
+    with open(os.path.join(scene, "transforms.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    log(name, f"the basic scene: {len(meta['frames'])} frames of {meta['w']}x{meta['h']}, "
+        f"points3D.ply; {time.perf_counter() - t0:.1f} s wall")
+    return scene
+
+
+def cli_round_trip(name, scene, root, card):
+    """``scripts.train nerfacto --data SCENE`` for CLI_STEPS steps with a
+    save every CLI_SAVE, a resume from that run to CLI_RESUME_TO, the eval
+    of the first save (``eval_setup``) and ``scripts.eval`` of the resumed
+    run. The losses must be finite and the PSNR must rise from the first
+    save to the end."""
+    from nerfstudio_torch.scripts import eval as eval_script
+    from nerfstudio_torch.scripts import train as train_script
+    from nerfstudio_torch.utils.eval_utils import eval_setup
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "runs")
+    common = ["nerfacto", "--data", scene, "--trainer.output_dir", out, "--trainer.vis", "none",
+              "--trainer.steps_per_eval_batch", "0", "--trainer.steps_per_eval_image", "0",
+              "--trainer.steps_per_eval_all_images", "0", "--trainer.save_only_latest_checkpoint", "false",
+              "--trainer.steps_per_save", str(CLI_SAVE)]
+    zero_counts()
+    train_script.main(common + ["--trainer.max_num_iterations", str(CLI_STEPS), "--trainer.timestamp", "run1"])
+    run1 = os.path.join(out, "basic", "nerfacto", "run1")
+    train_script.main(common + ["--trainer.max_num_iterations", str(CLI_RESUME_TO), "--trainer.timestamp", "run2",
+                                "--trainer.load_dir", os.path.join(run1, "nerfstudio_models")])
+    run2 = os.path.join(out, "basic", "nerfacto", "run2")
+    _, pipeline, state = eval_setup(run1, load_step=CLI_SAVE)
+    first = pipeline.get_average_eval_image_metrics(state)
+    del pipeline, state
+    last = eval_script.main([run2, "--output-path", os.path.join(root, "eval.json")])["results"]
+    counts = read_counts()
+    check_path(name, counts, NERFACTO_KERNELS)
+    losses = train_losses(run1) + train_losses(run2)
+    wall = time.perf_counter() - t0
+    log(name, f"trained {CLI_STEPS} steps (saves at {CLI_SAVE} and {CLI_STEPS}), resumed to {CLI_RESUME_TO}: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; eval over the held-out views: psnr "
+        f"{first['psnr']:.2f} at step {CLI_SAVE} -> {last['psnr']:.2f} at {CLI_RESUME_TO}, ssim {first['ssim']:.3f} "
+        f"-> {last['ssim']:.3f}; launches {({k: v for k, v in counts.items() if v})}; {wall:.1f} s wall on {card}")
+    if not all(math.isfinite(x) for x in losses) or not last["psnr"] > first["psnr"]:
+        raise AssertionError(f"{name}: losses finite {all(map(math.isfinite, losses))}, psnr {first['psnr']} -> "
+                             f"{last['psnr']}")
+    return dict(steps=CLI_RESUME_TO, psnr=(first["psnr"], last["psnr"]), launches=counts, wall_s=wall)
+
+
+def check_splat_step(name, one_step, label):
+    """K4, K5 and K6, forward and backward, against their twins at the
+    inputs that one more step of ``one_step`` hands them (each called once):
+    K4 within K4_REL of each output's peak and its backward against the
+    float64 twin (``k4_fwd_errors``, ``k4_bwd_errors``), K5 exact in every
+    design (``check_k5``), K6's forward bit-equal across designs and within
+    K6_FWD_REL (``check_k6_designs``), its backward within K6_BWD_REL.
+    Returns {kernel: max abs err}."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    calls = capture_kernel_calls({"K4": (pj, "_project_kernel"), "K4 bwd": (pj, "_project_bwd_kernel"),
+                                  "K5": (rz, "_tile_bin_kernel"), "K6": (rz, "_blend_kernel"),
+                                  "K6 bwd": (rz, "_blend_bwd_kernel")}, one_step)
+    if any(len(v) != 1 for v in calls.values()):
+        raise AssertionError(f"{name}: one step called {({k: len(v) for k, v in calls.items()})}")
+    (m, s, q, cam), _ = calls["K4"][0]
+    out, ref, errs, flips, bad_flips, fwd_abs = k4_fwd_errors(name, m, s, q, cam)
+    bwd_errs, bwd_over, bwd_abs = k4_bwd_errors(m, s, q, cam, calls["K4 bwd"][0][0][4:])
+    log(name, f"K4 at {label}: N={m.shape[0]} ({int(ref[4].sum())} visible) {cam[5]}x{cam[6]} (limit {K4_REL}): "
+        + k4_line("mode antialiased" if cam[-1] else "mode classic", errs, flips, bad_flips, bwd_errs, bwd_over))
+    if max(errs.values()) > K4_REL or bad_flips or bwd_over:
+        raise AssertionError(f"{name}: K4 disagrees with its twin at {label}")
+    check_k5(name, tuple(calls["K5"][0][0]), label)
+    k6 = check_k6_designs(name, label, *calls["K6"][0][0])
+    rel, k6_bwd_err, _, _, walked = k6_bwd_check(*calls["K6 bwd"][0][0])
+    log(name, f"K6 backward at {label} (walked {walked:.0f}): " + k6_bwd_line(rel))
+    if max(rel.values()) > K6_BWD_REL:
+        raise AssertionError(f"{name}: K6's backward disagrees with its twin at {label}")
+    return {"project_gaussians": fwd_abs, "project_gaussians_bwd": bwd_abs, "tile_bin": 0.0,
+            "blend_saturating": k6["max_abs_err"][rz.BLEND_FWD_DESIGNS[0]], "blend_saturating_bwd": k6_bwd_err}
+
+
+def check_hash_step(name, one_step, label, kind):
+    """K1's (``kind`` "K1") or K7's forward and backward, every design,
+    against the twins at every call that one more step of ``one_step``
+    makes (``check_block_designs`` or ``check_flat``; the backward against
+    the float64 twin, ``bwd_designs_vs_twin``). Returns {kernel: max abs
+    err}."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    fwd, bwd = ("_block_kernel", "_block_bwd_kernel") if kind == "K1" else ("_flat_kernel", "_flat_bwd_kernel")
+    calls = capture_kernel_calls({"fwd": (hg, fwd), "bwd": (hg, bwd)}, one_step)
+    if not calls["fwd"] or not calls["bwd"]:
+        raise AssertionError(f"{name}: one step called {kind} {({k: len(v) for k, v in calls.items()})} times")
+    key = "hash_encode_block" if kind == "K1" else "hash_encode_flat"
+    out = {key: 0.0, key + "_bwd": 0.0}
+    for i, ((pos, table), kw) in enumerate(calls["fwd"]):
+        what = f"{label}, {kind} forward call {i + 1}"
+        if kind == "K1":
+            errs = check_block_designs(name, kw.pop("exact"), pos, table, kw, what)[0]
+        else:
+            errs = check_flat(name, pos, table, kw, what)[0]
+        out[key] = max(out[key], *errs.values())
+    for (pos, table, g, *scales), kw in calls["bwd"]:
+        needs = {k: kw.pop(k) for k in ("need_positions", "need_table")}
+        designs = bwd_designs_vs_twin(f"{name}, {label}", kind, pos, table, g, kw, scales[0] if scales else None,
+                                      **needs)[0]
+        out[key + "_bwd"] = max(out[key + "_bwd"], *(r["max_abs_err"] for r in designs.values()))
+    return out
+
+
+def check_eval_chunk(name, pipeline, state, label):
+    """K3 (and the proposal nets' K1) in every design against the twins at
+    the inputs of the middle chunk of the first eval view, rendered in
+    gate.EVAL_CHUNK-ray chunks. Returns {kernel: max abs err}."""
+    from nerfstudio_torch.ops import hash_grid as hg
+    from nerfstudio_torch.scripts import gate
+
+    cam_idx = pipeline.datamanager.eval_image(0)[0]
+    calls = capture_kernel_calls({"fwd": (hg, "_block_kernel")},
+                                 lambda: pipeline.render_eval_camera(state, cam_idx, gate.EVAL_CHUNK))["fwd"]
+    exact = [c for c in calls if c[1]["exact"]]
+    pick, per_chunk = len(exact) // 2, len(calls) // max(len(exact), 1)
+    if not exact or len(calls) != per_chunk * len(exact):
+        raise AssertionError(f"{name}: an eval view called K3 {len(exact)} times among {len(calls)} K1/K3 calls")
+    out = {"hash_encode_block": 0.0, "hash_encode_block_exact": 0.0}
+    for (pos, table), kw in calls[pick * per_chunk:(pick + 1) * per_chunk]:
+        ex = kw.pop("exact")
+        errs = check_block_designs(name, ex, pos, table, kw, f"{label}, eval chunk {pick + 1} of {len(exact)}, "
+                                   f"{'K3' if ex else 'K1'}")[0]
+        k = "hash_encode_block_exact" if ex else "hash_encode_block"
+        out[k] = max(out[k], *errs.values())
+    return out
+
+
+def profiled_idle(name, one_step, step_ms, label):
+    """Device-busy time per step over PROFILED_STEPS more steps of
+    ``one_step`` under the profiler, and the idle share of an unprofiled
+    ``step_ms`` step; None where the profiler saw no device activity."""
+    prof = profile_device(lambda: [one_step() for _ in range(PROFILED_STEPS)])
+    if prof is None:
+        log(name, f"{label}: torch.profiler saw no device activity: idle share not measured")
+        return None
+    rows, busy_ms, activities, _ = prof
+    classes = {}
+    for n, t in rows:
+        classes[kernel_class(n)] = classes.get(kernel_class(n), 0.0) + t
+    idle = 1 - busy_ms / step_ms
+    log(name, f"{label}: {PROFILED_STEPS} steps under torch.profiler: {activities:.0f} device activities and "
+        f"{busy_ms:.2f} ms of device-busy time per step, i.e. the device idles {idle:.1%} of the unprofiled "
+        f"{step_ms:.2f} ms step (host clock, the median 1000-step block); by class (ms/step): "
+        + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
+    return dict(busy_ms=busy_ms, step_ms=step_ms, idle=idle, activities=activities)
+
+
+def gate_phase(name, method, scene, root, card, want):
+    """``scripts.gate.run_gate`` at the method's gate steps on the scene: it
+    fails unless PSNR > 20 and SSIM > 0.7. Prints the result beside the JAX
+    record's quality (the same scene protocol), the train seconds and
+    rays/s of the user's loop, the launches per step by kernel. Then, at
+    the trained state: every kernel of the path against its twin at one
+    more step's inputs (and, for nerfacto, one eval chunk's), and the
+    device's idle share over a few profiled steps."""
+    from nerfstudio_torch.scripts import gate
+
+    t0 = time.perf_counter()
+    zero_counts()
+    res, run = gate.run_gate(method, scene, os.path.join(root, "gate"))
+    counts = read_counts()
+    check_path(name, counts, want)
+    wall = time.perf_counter() - t0
+    m, (jp, js) = res["metrics"], JAX_GATES[method]
+    per_step = {k: v / res["steps"] for k, v in res["launches"]["train"].items() if v}
+    log(name, f"{method} on basic ({' '.join(SCENE_ARGS)}), shipped config, {res['steps']} steps: psnr "
+        f"{m['psnr']:.2f} (JAX record {jp}), ssim {m['ssim']:.3f} (JAX record {js}), over every held-out view; "
+        f"gates {res['gates']} -> pass {res['pass']}; train {res['train_seconds']:.1f} s = "
+        f"{res['train_rays_per_sec']:,.0f} rays/s, {1e3 / res['steps_per_sec']:.2f} ms/step (host clock, the "
+        f"user's loop with its final save; per {res['step_ms_by_block']['steps_per_block']} steps: "
+        f"{[round(x, 2) for x in res['step_ms_by_block']['ms']]})"
+        + (f", {res['num_alive']} live gaussians at the end" if "num_alive" in res else "")
+        + f"; launches per train step {per_step}, eval {({k: v for k, v in res['launches']['eval'].items() if v})}; "
+        f"{wall:.1f} s wall on {card}")
+    print(json.dumps(res), flush=True)
+    if not res["pass"]:
+        raise AssertionError(f"{name}: {method} missed the gate: psnr {m['psnr']}, ssim {m['ssim']}")
+    label = f"the {method} gate's trained state"
+    if method == "splatfacto":
+        errs = check_splat_step(name, run["one_step"], label)
+    else:
+        errs = check_hash_step(name, run["one_step"], label, "K1")
+        for k, v in check_eval_chunk(name, run["pipeline"], run["state"], label).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    step_ms = statistics.median(res["step_ms_by_block"]["ms"][:-1] or res["step_ms_by_block"]["ms"])
+    idle = profiled_idle(name, run["one_step"], step_ms, label)
+    del run
+    torch.cuda.empty_cache()
+    return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs, idle=idle)
+
+
+def neus_from_disk(name, scene, root, card):
+    """neus-facto through ``factory.build_trainer`` and ``Trainer.train`` on
+    the scene for NEUS_DISK_STEPS steps: losses finite and falling (the mean
+    of the last 20 below the first 20's), two K7 forward and two backward
+    launches per step."""
+    from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.pipelines.factory import build_trainer
+
+    t0 = time.perf_counter()
+    config = get_method("neus-facto")
+    config.data = scene
+    t = config.trainer
+    t.output_dir, t.timestamp, t.vis, t.max_num_iterations = os.path.join(root, "runs"), "neus", "none", NEUS_DISK_STEPS
+    t.steps_per_eval_batch = t.steps_per_eval_image = t.steps_per_eval_all_images = t.steps_per_save = 0
+    trainer = build_trainer(config)
+    losses, step_once = [], trainer.train_iteration
+
+    def iteration(step):
+        metrics = step_once(step)
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_iteration = iteration
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    counts = read_counts()
+    check_path(name, counts, NEUS_PATH_KERNELS)
+    losses = [float(x) for x in losses]
+    head, tail = statistics.fmean(losses[:20]), statistics.fmean(losses[-20:])
+    per_step = {k: counts[k] / NEUS_DISK_STEPS for k in NEUS_PATH_KERNELS}
+    wall = time.perf_counter() - t0
+    log(name, f"{NEUS_DISK_STEPS} steps through the trainer, {config.datamanager.train_num_rays_per_batch} rays: "
+        f"loss mean of the first 20 {head:.4f}, of the last 20 {tail:.4f}; launches per step {per_step}; "
+        f"{train_s * 1e3 / NEUS_DISK_STEPS:.1f} ms/step (host clock, with the final save); {wall:.1f} s wall on {card}")
+    if not all(map(math.isfinite, losses)) or not tail < head or per_step != dict.fromkeys(NEUS_PATH_KERNELS, 2.0):
+        raise AssertionError(f"{name}: losses finite and falling, two K7 launches each way per step expected")
+    trainer.train_iteration = step_once
+    errs = check_hash_step(name, lambda: trainer.train_iteration(int(trainer.state.step)),
+                           "neus-facto's trained state", "K7")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(steps=NEUS_DISK_STEPS, loss=(head, tail), launches=counts, wall_s=wall, max_abs_err=errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -1994,7 +2422,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 33
+    n_phases = 38
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -2199,6 +2627,7 @@ def main() -> int:
                "overflow": check_k5(ph(14, "K5 designs vs twin"), long_tile,
                                     "check inputs with one tile longer than one sort")}
     bins = k5_recs["check"].pop("bins")
+    k5_above = check_k5_above_limit(ph(14, "K5 above the tile limit"), k5_check, x["width"], x["height"])
     (k6_err, k6_bwd_err), k6_timing, k6_bounds, k6_walked = check_k6(ph(15, "K6 vs twin"), x, projected, bins,
                                                                      splat_gen)
     # K6 forward's designs at three inputs (phase 32): these, the long
@@ -2527,12 +2956,14 @@ def main() -> int:
     tr_rel, tr_err, tr_fn, tr_bound, tr_walked = k6_bwd_check(m2, con, ch, op, tb, T, last, g_ch)
     k6_t = paired_ms({"check": k6_bwd_check_fn, "trained": tr_fn})
     k6_dev = {"check": device_ms(k6_bwd_check_fn), "trained": device_ms(tr_fn)}
+    k6_bat = {"check": batch_ms(k6_bwd_check_fn), "trained": batch_ms(tr_fn)}
     log(ph(28, "K6 backward, trained state"), f"on {card}: trained state ({tb.tiles_x * 16}x{tb.tiles_y * 16}, "
         f"{int(tb.counts.sum())} entries in tiles, max {int(tb.counts.max())} per tile, walked {tr_walked:.0f}, "
         f"bound {tr_bound[0]:.4f} ms by {tr_bound[1]}): " + k6_bwd_line(tr_rel) + "; times (two medians each) "
-        f"{k6_t['trained'][0]:.4f} ms {k6_t['trained'][1]} (device {k6_dev['trained']:.4f}); check inputs "
+        f"{k6_t['trained'][0]:.4f} ms {k6_t['trained'][1]} (device {k6_dev['trained']:.4f}, back to back "
+        f"{k6_bat['trained']:.4f}); check inputs "
         f"(walked {k6_walked:.0f}, bound {k6_bounds[1][0]:.4f} ms): {k6_t['check'][0]:.4f} ms {k6_t['check'][1]} "
-        f"(device {k6_dev['check']:.4f})")
+        f"(device {k6_dev['check']:.4f}, back to back {k6_bat['check']:.4f})")
     if max(tr_rel.values()) > K6_BWD_REL:
         raise AssertionError("K6 backward disagrees with its twin at the trained state")
     del k6_trained, m2, con, ch, op, tb, T, last, g_ch, tr_fn, k6_bwd_check_fn
@@ -2570,12 +3001,13 @@ def main() -> int:
         with torch.no_grad():
             render_twin_ms[exact] = median_ms(render_checks[exact][1]["twin"], runs=3, warmup=1)
         for inputs, timing in (("check", check_timing), ("render", render_checks[exact][1])):
-            block_t[(exact, inputs)] = ev, dev = time_block_designs(timing)
+            block_t[(exact, inputs)] = ev, dev, bat = time_block_designs(timing)
             lines.append(f"{label} at the {inputs} inputs: " + ", ".join(
-                f"{d} {ev[d][0]:.4f} {ev[d][1]} / {dev[d]:.4f}" for d in hg.DESIGNS))
+                f"{d} {ev[d][0]:.4f} {ev[d][1]} / {dev[d]:.4f} / {bat[d]:.4f}" for d in hg.DESIGNS))
     block_n = {exact: inputs[0].shape[0] for exact, inputs in block_render.items()}
     del block_render
-    log(ph(30, "K1 and K3 designs, timing"), f"on {card} (events: mean [two medians] / device ms); "
+    log(ph(30, "K1 and K3 designs, timing"), f"on {card} (events: mean [two medians] / device ms / 50 back to "
+        "back); "
         + "; ".join(lines) + f"; default at F=2 and 4: {hg._pick_design(2)}")
 
     # 31. K1's and K7's backward, every design against the float64 twin and
@@ -2599,8 +3031,23 @@ def main() -> int:
             bwd_recs[kind][label] = rec
             lines.append(bwd_design_line(f"{kind} bwd at the {label} inputs", rec))
     del bwd_sets
-    log(ph(31, "K1 bwd and K7 bwd designs, timing"), f"on {card} (events: mean [two medians] / device ms); "
+    log(ph(31, "K1 bwd and K7 bwd designs, timing"), f"on {card} (events: mean [two medians] / device ms / 50 "
+        "back to back); "
         + "; ".join(lines) + f"; default at F=2 and 4: {hg._pick_design(2)}")
+
+    # 34-38. a scene on disk through the user's entry points: the train and
+    # eval scripts with a resume, both gates, neus-facto through the trainer
+    disk_root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        scene = make_scene(ph(34, "scene"), disk_root)
+        disk = {"cli": cli_round_trip(ph(35, "CLI round trip"), scene, disk_root, card),
+                "gate_nerfacto": gate_phase(ph(36, "gate nerfacto"), "nerfacto", scene, disk_root, card,
+                                            NERFACTO_KERNELS),
+                "gate_splatfacto": gate_phase(ph(37, "gate splatfacto"), "splatfacto", scene, disk_root, card,
+                                              SPLAT_PATH_KERNELS),
+                "neus_facto": neus_from_disk(ph(38, "neus-facto from disk"), scene, disk_root, card)}
+    finally:
+        shutil.rmtree(disk_root, ignore_errors=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None, design="first"):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -2615,16 +3062,17 @@ def main() -> int:
         """K1's or K3's entry in its default design, with every design at the
         check and the render inputs, and the render inputs' own record."""
         default = hg._pick_design(features)
-        (ct, cdev), (rt, rdev) = block_t[(exact, "check")], block_t[(exact, "render")]
+        (ct, cdev, cbat), (rt, rdev, rbat) = block_t[(exact, "check")], block_t[(exact, "render")]
         r_errs, _, r_bnd = render_checks[exact]
         key = "hash_encode_block_exact" if exact else "hash_encode_block"
         e = entry(name, source, replaces, hash_launch[key], errs[default], ct[default][0], twin_ms, bnd,
                   design=default)
-        e["device_ms"] = cdev[default]
-        e["designs"] = [dict(design=d, ms=ct[d][0], ms_runs=ct[d][1], device_ms=cdev[d], max_abs_err=errs[d],
-                             render_ms=rt[d][0], render_ms_runs=rt[d][1], render_device_ms=rdev[d],
+        e["device_ms"], e["batch_ms"] = cdev[default], cbat[default]
+        e["designs"] = [dict(design=d, ms=ct[d][0], ms_runs=ct[d][1], device_ms=cdev[d], batch_ms=cbat[d],
+                             max_abs_err=errs[d], render_ms=rt[d][0], render_ms_runs=rt[d][1],
+                             render_device_ms=rdev[d], render_batch_ms=rbat[d],
                              render_max_abs_err=r_errs[d]) for d in hg.DESIGNS]
-        e["render"] = dict(n=int(block_n[exact]), ms=rt[default][0], device_ms=rdev[default],
+        e["render"] = dict(n=int(block_n[exact]), ms=rt[default][0], device_ms=rdev[default], batch_ms=rbat[default],
                            plain_ms=render_twin_ms[exact], bound_ms=r_bnd[0], bound_by=r_bnd[1],
                            max_abs_err=r_errs[default], frame_ms=frame_hash.get("K3" if exact else "K1"),
                            frames=[dict(design=d, ms=frame_t[d][0], ms_runs=frame_t[d][1], busy_ms=frame_busy[d])
@@ -2670,8 +3118,9 @@ def main() -> int:
                 for label, r in k6_recs.items()])
     # K6 backward: the check inputs' walk, and the trained state's
     kernels[-1].update(
-        walked=k6_walked, device_ms=k6_dev["check"],
+        walked=k6_walked, device_ms=k6_dev["check"], batch_ms=k6_bat["check"],
         trained={"walked": tr_walked, "ms": k6_t["trained"][0], "device_ms": k6_dev["trained"],
+                 "batch_ms": k6_bat["trained"],
                  "bound_ms": tr_bound[0], "bound_by": tr_bound[1], "max_abs_err": tr_err})
     # K5: the launches of its default design, every design and yardstick at
     # the three inputs of phase 14
@@ -2711,9 +3160,11 @@ def main() -> int:
         e["inputs"] = [dict(inputs=label, **{k: v for k, v in r.items() if k != "designs"})
                        for label, r in recs.items()]
         e["step"] = [dict(inputs=label, n=r["n"], ms=r["designs"][default]["ms"],
-                          device_ms=r["designs"][default]["device_ms"], bound_ms=r["bound_ms"],
+                          device_ms=r["designs"][default]["device_ms"], batch_ms=r["designs"][default]["batch_ms"],
+                          bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], scatter_alone=r["scatter_alone"],
-                          designs={d: dict(ms=x["ms"], device_ms=x["device_ms"]) for d, x in r["designs"].items()})
+                          designs={d: dict(ms=x["ms"], device_ms=x["device_ms"], batch_ms=x["batch_ms"])
+                                   for d, x in r["designs"].items()})
                      for label, r in recs.items() if "step" in label]
     # one entry per probe: its first float32 variant's times, the largest
     # error and every launch over its variants; "variants" lists them all
@@ -2746,6 +3197,24 @@ def main() -> int:
             e["device_ms"] = next(d["device_ms"] for d in select[(k, main_v)]["designs"] if d["design"] == e["design"])
             e["designs"] = [dict(variant=v, **r) for (kk, v), r in select.items() if kk == k]
         kernels.append(e)
+    # each kernel's launches on the from-disk paths (phases 35-38; the gates'
+    # counts include their eval renders) and K5 at the frame above its
+    # bucketed design's tile limit (phase 14)
+    launch_key = {"hash_encode_block (K1 fwd)": "hash_encode_block", "hash_encode_block_exact (K3)":
+                  "hash_encode_block_exact", "project_gaussians (K4 fwd)": "project_gaussians",
+                  "project_gaussians_bwd (K4 bwd)": "project_gaussians_bwd", "tile_bin (K5)": "tile_bin",
+                  "blend_saturating (K6 fwd)": "blend_saturating", "blend_saturating_bwd (K6 bwd)":
+                  "blend_saturating_bwd"}
+    for e in kernels:
+        key = launch_key.get(e["name"]) or next(
+            (k for k in ("hash_encode_block_bwd", "hash_encode_flat_bwd", "hash_encode_flat")
+             if e["name"].startswith(k + " ")), None)
+        if key is not None:
+            e["disk_launches"] = {path: rec["launches"].get(key, 0) for path, rec in disk.items()}
+            # against the twin at each path's own inputs (phases 36-38)
+            e["disk_max_abs_err"] = {path: rec["max_abs_err"][key] for path, rec in disk.items()
+                                     if key in rec.get("max_abs_err", {})}
+    k5_entry["above_limit"] = k5_above
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

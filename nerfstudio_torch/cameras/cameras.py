@@ -4,8 +4,8 @@
 Perspective cameras without distortion: OpenGL-convention camera-to-world
 matrices (x right, y up, z back), image coords (row + 0.5, col + 0.5), and
 pixel area from the finite difference of neighbouring ray directions. The
-other camera types, distortion and pose-optimiser corrections are not
-ported."""
+other camera types, non-zero distortion and pose-optimiser corrections are
+not ported."""
 
 from __future__ import annotations
 
@@ -53,6 +53,9 @@ class Cameras:
     width: torch.Tensor  # (N, 1) int
     height: torch.Tensor  # (N, 1) int
     camera_type: torch.Tensor  # (N, 1) int
+    # (N, 6) OpenCV k1..k4, p1, p2, all zero (a dataparser's frames without
+    # distortion keys give zeros), or None
+    distortion_params: Optional[torch.Tensor] = None
 
     @classmethod
     def create(
@@ -69,9 +72,9 @@ class Cameras:
         device=None,
     ) -> "Cameras":
         """Build from tensors, arrays or scalars, as the reference's
-        constructor, on ``device`` (None: the GPU, ``utils.device``)."""
-        if distortion_params is not None:
-            raise NotImplementedError("camera distortion is not ported")
+        constructor, on ``device`` (None: the GPU, ``utils.device``).
+        ``distortion_params`` may be all zeros, the identity; a non-zero
+        entry raises."""
         c2w = torch.as_tensor(camera_to_worlds, dtype=torch.float32, device=resolve_device(device))
         if c2w.ndim == 2:
             c2w = c2w[None]
@@ -83,7 +86,17 @@ class Cameras:
         height = (cy * 2).to(torch.int32) if height is None else _column(height, n, **i32)
         if isinstance(camera_type, CameraType):
             camera_type = camera_type.value
-        return cls(c2w, fx, fy, cx, cy, width, height, _column(camera_type, n, **i32))
+        if distortion_params is not None:
+            distortion_params = torch.as_tensor(distortion_params, **f32).reshape(n, 6)
+            if bool(distortion_params.any()):
+                raise NotImplementedError("camera distortion is not ported (non-zero distortion_params)")
+        return cls(c2w, fx, fy, cx, cy, width, height, _column(camera_type, n, **i32), distortion_params)
+
+    def to(self, device) -> "Cameras":
+        """The same cameras with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None})
 
     def all_perspective(self) -> bool:
         """Whether every camera is perspective (read once, then cached: the

@@ -122,6 +122,17 @@ class PerGroupAdam:
             opt.step()
         self.count += 1
 
+    def state_dict(self) -> Dict[str, Any]:
+        """Every group's Adam moments and step counts, and the schedules' count."""
+        return {"count": self.count, "optimizers": {g: opt.state_dict() for g, opt in self.optimizers.items()}}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if set(state["optimizers"]) != set(self.optimizers):
+            raise ValueError(f"optimizer groups {sorted(state['optimizers'])} vs {sorted(self.optimizers)}")
+        for g, opt in self.optimizers.items():
+            opt.load_state_dict(state["optimizers"][g])
+        self.count = int(state["count"])
+
 
 # splatfacto's constant rates (reference pipelines/splat_pipeline.py:50-65);
 # ``means`` follows ``splat_means_lr``.
@@ -192,6 +203,17 @@ class SplatAdam:
         """Zero all of one array's moments."""
         for m in self._moments(name):
             m.zero_()
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Every array's Adam moments and step count, and the schedule's count."""
+        return {"count": self.count, "adam": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        names = [pg["name"] for pg in state["adam"]["param_groups"]]
+        if names != list(self.params):
+            raise ValueError(f"Adam state for arrays {names}, this optimizer's are {list(self.params)}")
+        self.optimizer.load_state_dict(state["adam"])
+        self.count = int(state["count"])
 
     def load_moments(self, moments: Dict[str, Tuple[int, torch.Tensor, torch.Tensor]]) -> None:
         """Set each array's (count, first moment, second moment); every count

@@ -14,7 +14,8 @@ import torch
 # Launches of each hand-written kernel entry. K5 counts one binning under
 # "tile_bin" in either design, and once more under "tile_bin_bucketed" when
 # it took the tile-bucketed design (its count, scan, scatter and per-tile
-# sort kernels, launched by one C entry). K6's forward counts one launch
+# sort kernels, launched by one C entry) or under "tile_bin_sorted" when it
+# took the sorted one (frames above the bucketed design's tile limit). K6's forward counts one launch
 # under "blend_saturating" in either design, and once more under
 # "blend_saturating_per_pixel" when it took the per-pixel design.
 launch_counts: Dict[str, int] = {
@@ -22,6 +23,7 @@ launch_counts: Dict[str, int] = {
     "project_gaussians_bwd": 0,
     "tile_bin": 0,
     "tile_bin_bucketed": 0,
+    "tile_bin_sorted": 0,
     "blend_saturating": 0,
     "blend_saturating_per_pixel": 0,
     "blend_saturating_bwd": 0,

@@ -34,7 +34,7 @@ module. ``mode="bounded"`` is retired and not ported."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +68,9 @@ _CULL_EXTENT_SCALE = 1.001
 
 # K5's designs on the card: "bucketed" (the default), a counting sort by tile
 # and a sort of each tile's keys in shared memory; "sorted", every slot's
-# key, one torch.sort and a binary search per tile. chip_smoke.py times both.
+# key, one torch.sort and a binary search per tile, which has no tile limit
+# and takes every frame above the bucketed design's (``tile_bin_design``).
+# chip_smoke.py times both.
 TILE_BIN_DESIGNS = ("bucketed", "sorted")
 # Keys that one block of the bucketed design's per-tile sort orders at once
 # (a block radix sort of 256 threads x 8 keys; the CUDA entry checks it
@@ -108,6 +110,13 @@ def bin_plan(n: int, n_big: int, d: int, d_big: int, num_tiles: int) -> BinPlan:
         raise ValueError(f"the tile-bucketed binning takes at most {SHARED_BYTES_PER_BLOCK // 4} tiles (a 4-byte "
                          f"histogram bin per tile in one block's shared memory), got {num_tiles}")
     return BinPlan(pairs, TILE_SORT_KEYS, 4 * num_tiles, 4 * num_tiles + 8 * pairs)
+
+
+def tile_bin_design(num_tiles: int) -> str:
+    """K5's design on the card for a frame of ``num_tiles`` tiles: the
+    bucketed one while its histogram fits one block's shared memory (58,112
+    tiles), else the sorted one."""
+    return "sorted" if 4 * num_tiles > SHARED_BYTES_PER_BLOCK else "bucketed"
 
 
 @dataclasses.dataclass
@@ -251,9 +260,12 @@ def _tile_bin_twin(means2d, radii, depths, valid, tiles_x, tiles_y, tiles_per_ga
 
 
 def _tile_bin_kernel(means2d, radii, depths, valid, tiles_x, tiles_y, tiles_per_gauss, big_frac,
-                     big_tiles_per_gauss, _design: str = "bucketed") -> TileBins:
-    """Launch K5 in the tile-bucketed design, or in ``_design`` (one of
-    ``TILE_BIN_DESIGNS``), which only chip_smoke.py's comparison sets."""
+                     big_tiles_per_gauss, _design: Optional[str] = None) -> TileBins:
+    """Launch K5 in the design ``tile_bin_design`` picks for the frame, or in
+    ``_design`` (one of ``TILE_BIN_DESIGNS``), which only chip_smoke.py's
+    comparison sets."""
+    if _design is None:
+        _design = tile_bin_design(tiles_x * tiles_y)
     if _design not in TILE_BIN_DESIGNS:
         raise ValueError(f"design {_design!r} is not one of {TILE_BIN_DESIGNS}")
     _cuda.check_cuda("tile_bin", means2d, radii, depths, valid)
@@ -274,8 +286,8 @@ def _tile_bin_kernel(means2d, radii, depths, valid, tiles_x, tiles_y, tiles_per_
         _cuda.launch(None, "nst_gsplat_tile_keys", dev, *emission, packed.data_ptr())
         packed = torch.sort(packed).values
         ids = torch.empty(packed.shape, **i32)
-        _cuda.launch(None, "nst_gsplat_tile_ranges", dev, packed.data_ptr(), packed.shape[0], tiles_x, tiles_y,
-                     depth_bits, ib, ids.data_ptr(), starts.data_ptr(), counts.data_ptr())
+        _cuda.launch("tile_bin_sorted", "nst_gsplat_tile_ranges", dev, packed.data_ptr(), packed.shape[0], tiles_x,
+                     tiles_y, depth_bits, ib, ids.data_ptr(), starts.data_ptr(), counts.data_ptr())
     else:
         plan = bin_plan(n, n_big, d, d_big, num_tiles)
         packed, keys = (torch.empty((plan.pairs,), dtype=torch.int64, device=dev) for _ in range(2))

@@ -5,22 +5,29 @@
 One step samples pixels from the device-resident images, generates their
 rays, runs the model's training forward, the metrics and the losses, then
 the backward and the optimizer step. Nothing in it reads a device value on
-the host: ``loss.item()`` and the like are the caller's. The reference's
-multi-step scan dispatch (``build_train_step_scan``), the per-loss
-coefficients (every caller keeps the default 1) and the eval and render
-programs (``render_camera`` is the model's) are not ported."""
+the host: ``loss.item()`` and the like are the caller's. The eval side
+renders eval images in chunks (``models.base_model.render_camera``) and
+reports PSNR, SSIM and render speed. The reference's multi-step scan
+dispatch (``build_train_step_scan``), the per-loss coefficients (every
+caller keeps the default 1), the viewer's preview renderer, LPIPS and the
+eval background override (a dataparser ``alpha_color``, ROADMAP queue 1
+item 8) are not ported."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from nerfstudio_torch.data.datamanagers import DeviceCacheDataManager
 from nerfstudio_torch.model_components.ray_generators import generate_rays_from_indices
 from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
-from nerfstudio_torch.models.base_model import Model
+from nerfstudio_torch.models.base_model import Model, render_camera
+from nerfstudio_torch.utils.metrics import psnr, ssim
 
 
 @dataclasses.dataclass
@@ -50,6 +57,13 @@ class VanillaPipeline:
     def __init__(self, datamanager: DeviceCacheDataManager, model: Model):
         self.datamanager = datamanager
         self.model = model
+        # the model's hook on the train state before each step (nerfacto's
+        # occupancy update): ``fn(state, step, generator)``
+        self.aux_update_fn: Optional[Callable] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.datamanager.train_images.device
 
     def train_step(
         self,
@@ -80,3 +94,85 @@ class VanillaPipeline:
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in {"loss": loss, **loss_dict, **metrics}.items()}
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _eval_model(self):
+        """The model in eval mode for a ``with`` block, then its mode back."""
+        was_training = self.model.training
+        try:
+            yield self.model.eval()
+        finally:
+            self.model.train(was_training)
+
+    def _check_eval_background(self) -> None:
+        dpo = getattr(self.datamanager.eval_dataset, "_dataparser_outputs", None)
+        if getattr(dpo, "alpha_color", None) is not None:
+            raise NotImplementedError("eval renders over a dataparser's alpha_color (the reference's background "
+                                      "override) are not ported (ROADMAP queue 1 item 8)")
+
+    def eval_rays(self, state: TrainState, ray_bundle) -> Dict[str, torch.Tensor]:
+        """The eval forward of a batch of rays (reference's eval chunk)."""
+        self._check_eval_background()
+        kwargs = {} if state.aux is None else {"model_aux": state.aux}
+        with self._eval_model() as model, torch.no_grad():
+            return model(ray_bundle, **kwargs)
+
+    def render_eval_camera(self, state: TrainState, camera_idx: int, chunk_size: Optional[int] = None):
+        """One eval camera's image outputs (H, W, C), rendered in chunks of
+        ``chunk_size`` rays (None: the model's ``eval_num_rays_per_chunk``)."""
+        self._check_eval_background()
+        chunk = chunk_size or self.model.config.eval_num_rays_per_chunk
+        with self._eval_model() as model:
+            return render_camera(model, None, self.datamanager.eval_cameras, camera_idx, chunk, aux=state.aux)
+
+    def get_eval_image_metrics_and_images(self, state: TrainState, camera_idx: int,
+                                          chunk_size: Optional[int] = None) -> Tuple[Dict[str, float], Dict]:
+        """PSNR, SSIM and the render's rays/s and fps of one eval image, and
+        the images (reference base_pipeline.py:334-382). An RGBA ground truth
+        is blended over the model's background colour (black for
+        ``last_sample`` and ``random``)."""
+        cam_idx, batch = self.datamanager.eval_image(camera_idx)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        outputs = self.render_eval_camera(state, cam_idx, chunk_size)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        render_dt = time.perf_counter() - t0
+        gt = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(self.device)
+        pred = outputs["rgb"]
+        if gt.shape[-1] == 4:
+            bg = getattr(self.model.config, "background_color", "black")
+            color = 1.0 if bg == "white" else 0.0
+            gt = gt[..., :3] * gt[..., 3:] + color * (1.0 - gt[..., 3:])
+        h, w = pred.shape[:2]
+        metrics = {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt)),
+                   "num_rays_per_sec": h * w / render_dt, "fps": 1.0 / render_dt}
+        images = {"img": torch.cat([gt, pred], dim=1).cpu().numpy()}
+        images.update({k: v for k, v in outputs.items() if k != "rgb"})
+        return metrics, images
+
+    def get_average_eval_image_metrics(self, state: TrainState, chunk_size: Optional[int] = None) -> Dict[str, float]:
+        """Every eval image's metrics, mean and std (reference
+        base_pipeline.py:384-414), after one untimed render per image size."""
+        cams = self.datamanager.eval_cameras
+        n = len(self.datamanager.eval_dataset)
+        seen = set()
+        for i in range(n):
+            cam_idx, _ = self.datamanager.eval_image(i)
+            hw = (int(cams.height[cam_idx, 0]), int(cams.width[cam_idx, 0]))
+            if hw not in seen:
+                seen.add(hw)
+                self.render_eval_camera(state, cam_idx, chunk_size)
+        return average_metrics([self.get_eval_image_metrics_and_images(state, i, chunk_size)[0] for i in range(n)])
+
+
+def average_metrics(all_metrics) -> Dict[str, float]:
+    """{k: mean, k_std: std} over a list of metric dicts."""
+    out = {}
+    for k in all_metrics[0]:
+        vals = np.array([m[k] for m in all_metrics], dtype=np.float64)
+        out[k] = float(vals.mean())
+        out[f"{k}_std"] = float(vals.std())
+    return out

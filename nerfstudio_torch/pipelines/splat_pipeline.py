@@ -5,12 +5,18 @@ A train step is render (K4, K5, K6 forward), L1 + SSIM, backward (K6, then
 K4 backward), the per-array Adam, then the densification statistics from
 the ``means2d`` gradient. The gaussians stay in padded tensors of
 ``max_gaussians`` slots: the reference's capacity buckets and their re-jits
-have no counterpart. The multi-camera mesh step, checkpoints and the CLI
-are not ported."""
+have no counterpart. ``build_splat_pipeline`` builds it from a method
+config and ``train_splat`` is the CLI's training run; a checkpoint (one
+``torch.save`` file, ``engine.trainer.write_checkpoint``) holds the
+gaussians, the Adam moments and counts, the densification state, the step
+and the generators' and camera order's states, so a resumed run continues
+bit-equal. The multi-camera mesh step and LPIPS are not ported."""
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 
 from nerfstudio_torch.data.datamanagers import FullImageDatamanager
 from nerfstudio_torch.engine.optimizers import SplatAdam
+from nerfstudio_torch.engine.trainer import aux_from_state, aux_state, read_checkpoint, write_checkpoint
 from nerfstudio_torch.models.splatfacto import InitDraws, SplatAux, SplatfactoModel, init_gaussian_params
 from nerfstudio_torch.utils.metrics import psnr, ssim
 
@@ -123,11 +130,15 @@ class SplatPipeline:
         return (cameras.camera_to_worlds[idx], K, int(cameras.width[idx, 0]) // downscale,
                 int(cameras.height[idx, 0]) // downscale)
 
-    def train(self, state: SplatTrainState, num_iterations: int, generator: Optional[torch.Generator] = None):
+    def train(self, state: SplatTrainState, num_iterations: int, generator: Optional[torch.Generator] = None,
+              writer=None, ckpt_dir: Optional[Path] = None, steps_per_save: int = 0,
+              only_latest: bool = True):
         """Steps ``state.step`` to ``num_iterations - 1`` with the refine
         schedule (reference :511-651). Each step draws its background from
         ``generator`` when the config asks for a random one, and each refine
-        its two normal draws. Returns (state, the last step's metrics)."""
+        its two normal draws. Every 50 steps the metrics go to
+        ``writer``; every ``steps_per_save`` steps a checkpoint to
+        ``ckpt_dir``. Returns (state, the last step's metrics)."""
         cfg = self.model.config
         dm = self.datamanager
         metrics = None
@@ -153,16 +164,53 @@ class SplatPipeline:
                     reset_alpha=step % reset_period == 0 and step < cfg.stop_split_at,
                     use_screen_size=reset_period < step < cfg.stop_screen_size_at,
                 )
+            if writer is not None and step % 50 == 0:
+                writer.put_dict("train", {k: float(v) for k, v in metrics.items()}, step)
+            if ckpt_dir is not None and steps_per_save and (step + 1) % steps_per_save == 0:
+                self.save_checkpoint(state, ckpt_dir, step + 1, generator, only_latest)
         return state, metrics
 
     # ------------------------------------------------------------------
+    def save_checkpoint(self, state: SplatTrainState, ckpt_dir: Path, step: int,
+                        generator: Optional[torch.Generator] = None, only_latest: bool = True) -> None:
+        """(reference :435-452) One file at ``step``: the gaussians, the Adam
+        state, the densification state, the step, the generator's state and
+        the camera order's."""
+        write_checkpoint(ckpt_dir, step, {
+            "step": state.step, "params": {k: v.detach() for k, v in state.params.items()},
+            "optimizer": state.optimizer.state_dict(), "aux": aux_state(state.aux),
+            "generator": None if generator is None else generator.get_state(),
+            "datamanager": self.datamanager.rng_state(),
+        }, only_latest)
+
+    def load_checkpoint(self, state: SplatTrainState, ckpt_dir: Path, step: Optional[int] = None,
+                        generator: Optional[torch.Generator] = None) -> SplatTrainState:
+        """(reference :454-508) ``state`` (and ``generator``) set in place from
+        the checkpoint at ``step`` (None: the latest)."""
+        step, payload = read_checkpoint(ckpt_dir, step)
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(payload["params"][k])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.aux = aux_from_state(state.aux, payload["aux"], state.params["means"].device)
+        state.step = int(payload["step"])
+        if generator is not None and payload["generator"] is not None:
+            generator.set_state(payload["generator"])
+        if payload["datamanager"] is not None:
+            self.datamanager.set_rng_state(payload["datamanager"])
+        print(f"loaded splat checkpoint at step {step} from {ckpt_dir}", flush=True)
+        return state
+
+    # ------------------------------------------------------------------
     def _eval_background(self) -> Optional[torch.Tensor]:
-        """A fixed eval background: black for a random training background
-        (reference :670-685; the port has no dataparser alpha colour), else
-        the configured colour."""
+        """A fixed eval background for a random training background: the
+        eval dataset's alpha colour where it has one, else black (reference
+        :670-685); None (the configured colour) otherwise."""
         if self.model.config.background_color != "random":
             return None
-        return torch.zeros((3,), device=self.datamanager.train_images.device)
+        dev = self.datamanager.train_images.device
+        alpha_color = getattr(self.datamanager.eval_dataset, "alpha_color", None)
+        return torch.zeros((3,), device=dev) if alpha_color is None else alpha_color.to(dev, torch.float32)
 
     @torch.no_grad()
     def render_eval_image(self, state: SplatTrainState, camera_idx: int) -> Dict[str, torch.Tensor]:
@@ -175,7 +223,83 @@ class SplatPipeline:
         """PSNR and SSIM of one eval view (reference :687-726; LPIPS is not
         ported): (metrics, outputs)."""
         out = self.render_eval_image(state, camera_idx)
+        return self._image_metrics(out, camera_idx), out
+
+    def _image_metrics(self, out: Dict[str, torch.Tensor], camera_idx: int) -> Dict[str, float]:
         gt = self.datamanager.eval_image(camera_idx)
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + out["background"] * (1 - gt[..., 3:])
-        return {"psnr": float(psnr(out["rgb"], gt)), "ssim": float(ssim(out["rgb"], gt))}, out
+        return {"psnr": float(psnr(out["rgb"], gt)), "ssim": float(ssim(out["rgb"], gt))}
+
+    def get_average_eval_image_metrics(self, state: SplatTrainState) -> Dict[str, float]:
+        """Every eval view's PSNR, SSIM and render rays/s and fps, mean and
+        std, after one untimed render per image size (reference
+        base_pipeline.py:384-414)."""
+        from nerfstudio_torch.pipelines.base_pipeline import average_metrics
+
+        cams, dev = self.datamanager.eval_cameras, self.datamanager.train_images.device
+        n = cams.camera_to_worlds.shape[0]
+        seen = set()
+        for i in range(n):
+            if (hw := (int(cams.height[i, 0]), int(cams.width[i, 0]))) not in seen:
+                seen.add(hw)
+                self.render_eval_image(state, i)
+        all_metrics = []
+        for i in range(n):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = self.render_eval_image(state, i)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0  # the render alone, as the ray pipeline times it
+            h, w = out["rgb"].shape[:2]
+            all_metrics.append({**self._image_metrics(out, i), "num_rays_per_sec": h * w / dt, "fps": 1.0 / dt})
+        return average_metrics(all_metrics)
+
+
+def build_splat_pipeline(config) -> Tuple[SplatPipeline, SplatTrainState]:
+    """A splatfacto method config as (pipeline, state) (reference
+    :729-750): seeded from the train split's ``points3D_xyz``/``_rgb`` where
+    the parser gives them, ``scene_scale`` the aabb's largest coordinate,
+    the init's draws from a generator seeded with ``config.seed``."""
+    from nerfstudio_torch.pipelines.factory import build_datasets
+
+    device = config.machine.device()
+    config.model.check_ported()
+    train_ds, eval_ds, train_out = build_datasets(config)
+    dm = FullImageDatamanager.from_datasets(config.datamanager, train_ds, eval_ds, device)
+    scene_scale = float(train_out.scene_box.aabb.max())
+    model = SplatfactoModel(config.model, scene_scale=scene_scale)
+    pipeline = SplatPipeline(dm, model, max_steps=config.trainer.max_num_iterations)
+    md = train_out.metadata
+    seed_pts = None
+    if md.get("points3D_xyz") is not None:
+        rgb = md.get("points3D_rgb")
+        seed_pts = (md["points3D_xyz"].numpy(), None if rgb is None else rgb.numpy())
+    gen = torch.Generator(device=device).manual_seed(config.seed)
+    return pipeline, pipeline.init_state(seed_points=seed_pts, scene_scale=scene_scale, generator=gen, device=device)
+
+
+def train_splat(config) -> Tuple[SplatPipeline, SplatTrainState]:
+    """A whole splatfacto run, the CLI's path for splatfacto (reference
+    :753-771): resume from ``trainer.load_dir`` when set, train with
+    checkpoints every ``trainer.steps_per_save`` steps, save at the end and
+    print the first eval view's metrics."""
+    from nerfstudio_torch.utils.writer import EventWriter
+
+    pipeline, state = build_splat_pipeline(config)
+    tcfg = config.trainer
+    base = tcfg.get_base_dir()
+    ckpt_dir = tcfg.get_checkpoint_dir(base)
+    gen = torch.Generator(device=state.params["means"].device).manual_seed(config.seed)
+    if tcfg.load_dir is not None:
+        pipeline.load_checkpoint(state, tcfg.load_dir, tcfg.load_step, generator=gen)
+    state, _ = pipeline.train(state, tcfg.max_num_iterations, gen, writer=EventWriter(base, vis=tcfg.vis),
+                              ckpt_dir=ckpt_dir, steps_per_save=tcfg.steps_per_save,
+                              only_latest=tcfg.save_only_latest_checkpoint)
+    pipeline.save_checkpoint(state, ckpt_dir, state.step, gen, tcfg.save_only_latest_checkpoint)
+    metrics, _ = pipeline.get_eval_image_metrics(state, 0)
+    print("eval:", metrics, flush=True)
+    print(f"training finished; checkpoints in {ckpt_dir}", flush=True)
+    return pipeline, state

@@ -1,0 +1,204 @@
+"""Quality gate of a method on a synthetic scene (counterpart of
+``tools/run_gate_matrix.py``'s ``run_gate`` for nerfacto and splatfacto on
+the ``basic`` scene of ``tools/make_synthetic_dataset.py``):
+
+    python -m nerfstudio_torch.scripts.gate METHOD SCENE_DIR OUT.json [--steps N] [--a.b value ...]
+
+The method's shipped config, read through the nerfstudio parser at
+``train_split_fraction=0.9`` and downscale 1, is trained for the method's
+gate steps (nerfacto 5000, splatfacto 8000, as in
+``benchmarks/gate_*.json``) through the loop ``scripts.train`` runs, with
+every eval cadence and intermediate save off, then every held-out view is
+rendered (ray methods in 16,384-ray chunks). The
+JSON has the keys of ``benchmarks/gate_nerfacto.json``, the card's name
+and power limit, and the kernel launches of training and eval. The gates:
+PSNR > 20 and SSIM > 0.7. ``--a.b value`` flags override the config
+(``--machine.device_type cpu`` runs on the CPU); any other than the machine
+marks the run as not at shipped defaults."""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+GATE_STEPS = {"nerfacto": 5000, "splatfacto": 8000}
+PSNR_GATE, SSIM_GATE = 20.0, 0.7
+EVAL_CHUNK = 1 << 14
+BLOCK = 1000  # steps between the host-clock readings of the training time
+
+
+def card() -> Dict[str, str]:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    if not torch.cuda.is_available():
+        return {"device": "cpu", "power_limit": "none"}
+    line = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name, limit = (x.strip() for x in line.rsplit(",", 1))
+    return {"device": name, "power_limit": limit}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every hand-written kernel's launches so far."""
+    from nerfstudio_torch.ops import hash_grid
+    from nerfstudio_torch.ops.gsplat import _cuda
+
+    return {**hash_grid.launch_counts, **_cuda.launch_counts}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] = None,
+             overrides: Optional[List[str]] = None) -> Tuple[dict, Dict[str, Any]]:
+    """Train and evaluate one gate cell through the user's own loop, its
+    run directory (scalars, the final checkpoint) under ``run_dir``:
+    ``Trainer.train`` for a ray method, ``SplatPipeline.train`` with the
+    writer and a final save as ``train_splat`` runs it for splatfacto. The
+    training time is the whole loop's, host syncs and writes included.
+    Returns (the result record, {"pipeline", "state", "one_step"}), where
+    ``one_step()`` trains one more step of the same loop."""
+    from nerfstudio_torch.configs.cli import apply_overrides
+    from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
+    from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
+
+    if method not in GATE_STEPS:
+        raise NotImplementedError(f"the gate runner takes {sorted(GATE_STEPS)}, not {method!r}")
+    steps = steps or GATE_STEPS[method]
+    config = get_method(method)
+    config.dataparser = NerfstudioDataParserConfig(
+        data=Path(scene_dir), train_split_fraction=0.9, downscale_factor=1,
+        load_3D_points=config.dataparser.load_3D_points)
+    config.data = Path(scene_dir)
+    t = config.trainer
+    t.max_num_iterations, t.output_dir, t.experiment_name, t.timestamp, t.vis = (
+        steps, Path(run_dir), Path(scene_dir).name, "gate", "none")
+    t.steps_per_eval_batch = t.steps_per_eval_image = t.steps_per_eval_all_images = t.steps_per_save = 0
+    overrides = list(overrides or [])
+    rest = apply_overrides(config, overrides)
+    if rest:
+        raise SystemExit(f"unrecognized arguments: {rest}")
+    model_overrides = {overrides[i][2:]: overrides[i + 1] for i in range(0, len(overrides) - 1, 2)
+                       if not overrides[i].startswith("--machine.")}
+    result = {"method": method, "scene": Path(scene_dir).name, "steps": steps,
+              "shipped_defaults": not model_overrides, "overrides": model_overrides,
+              "gates": {"psnr": PSNR_GATE, "ssim": SSIM_GATE}, **card()}
+    before = launch_counts()
+    blocks = []
+
+    if isinstance(config.model, SplatfactoModelConfig):
+        from nerfstudio_torch.pipelines.splat_pipeline import build_splat_pipeline
+        from nerfstudio_torch.utils.writer import EventWriter
+
+        pipeline, state = build_splat_pipeline(config)
+        device = state.params["means"].device
+        gen = torch.Generator(device=device).manual_seed(config.seed)
+        base = t.get_base_dir()
+        writer = EventWriter(base, vis=t.vis)
+        cams = pipeline.datamanager.train_cameras
+        _sync(device)
+        t0 = time.perf_counter()
+        start = 0
+        for end in list(range(BLOCK, steps, BLOCK)) + [steps]:
+            tb = time.perf_counter()
+            state, metrics = pipeline.train(state, end, gen, writer=writer)
+            _sync(device)
+            blocks.append((time.perf_counter() - tb) * 1e3 / (end - start))
+            start = end
+        pipeline.save_checkpoint(state, t.get_checkpoint_dir(base), state.step, gen)
+        _sync(device)
+        train_s = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        # pixels rendered per step at the resolution schedule's downscale
+        pixels = sum((int(cams.height[0, 0]) // pipeline.model.downscale_at(s)) *
+                     (int(cams.width[0, 0]) // pipeline.model.downscale_at(s)) for s in range(steps))
+        result["train_rays_per_sec"] = pixels / train_s
+        result["num_alive"] = int(state.aux.alive.sum())
+        after_train = launch_counts()
+        eval_metrics = pipeline.get_average_eval_image_metrics(state)
+
+        def one_step():
+            return pipeline.train(state, state.step + 1, gen)[1]
+    else:
+        from nerfstudio_torch.pipelines.factory import build_trainer
+
+        trainer = build_trainer(config)
+        pipeline, state, device = trainer.pipeline, trainer.state, trainer.pipeline.device
+        last, step_once = {}, trainer.train_iteration
+        tick = [0.0]
+
+        def iteration(step):
+            last["metrics"] = step_once(step)
+            if (step + 1) % BLOCK == 0 or step + 1 == steps:  # one sync per block
+                _sync(device)
+                now = time.perf_counter()
+                blocks.append((now - tick[0]) * 1e3 / ((step % BLOCK) + 1))
+                tick[0] = now
+            return last["metrics"]
+
+        trainer.train_iteration = iteration
+        _sync(device)
+        t0 = tick[0] = time.perf_counter()
+        trainer.train()
+        _sync(device)
+        train_s = time.perf_counter() - t0
+        trainer.train_iteration = step_once
+        loss = float(last["metrics"]["loss"])
+        result["train_rays_per_sec"] = config.datamanager.train_num_rays_per_batch * steps / train_s
+        after_train = launch_counts()
+        eval_metrics = pipeline.get_average_eval_image_metrics(state, chunk_size=EVAL_CHUNK)
+
+        def one_step():
+            return trainer.train_iteration(int(state.step))
+    if not math.isfinite(loss):
+        raise AssertionError(f"{method} diverged: loss {loss} at step {steps - 1}")
+    after_eval = launch_counts()
+    result["train_seconds"] = train_s
+    result["steps_per_sec"] = steps / train_s
+    # host clock, each block synced; the last block holds the final save
+    result["step_ms_by_block"] = {"steps_per_block": BLOCK, "ms": blocks}
+    result["final_loss"] = loss
+    result["eval_config"] = {"eval_chunk": EVAL_CHUNK,
+                             "exact_eval_trilerp": bool(getattr(config.model, "eval_exact_trilerp", False)),
+                             "hash_block_layout": bool(getattr(config.model, "field_block", False))}
+    result["metrics"] = {k: round(float(v), 4) for k, v in eval_metrics.items()}
+    result["launches"] = {"train": {k: after_train[k] - before[k] for k in before},
+                          "eval": {k: after_eval[k] - after_train[k] for k in before}}
+    result["pass_psnr"] = bool(eval_metrics["psnr"] > PSNR_GATE)
+    result["pass_ssim"] = bool(eval_metrics["ssim"] > SSIM_GATE)
+    result["pass"] = result["pass_psnr"] and result["pass_ssim"]
+    return result, {"pipeline": pipeline, "state": state, "one_step": one_step}
+
+
+def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if len(argv) < 3 or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return {}
+    method, scene_dir, out = argv[0], Path(argv[1]), Path(argv[2])
+    rest, steps = argv[3:], None
+    if "--steps" in rest:
+        i = rest.index("--steps")
+        steps = int(rest[i + 1])
+        rest = rest[:i] + rest[i + 2:]
+    with tempfile.TemporaryDirectory(prefix="gate_") as run_dir:
+        result, _ = run_gate(method, scene_dir, Path(run_dir), steps, overrides=rest)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1), encoding="utf-8")
+    print(json.dumps(result), flush=True)
+    print(f"wrote {out}", flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

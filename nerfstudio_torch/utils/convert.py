@@ -8,7 +8,12 @@ kernels too, beside their ``scale``); hash tables keep their ``(L, S,
 ``glin_0`` or ``proposal_networks_1`` become ``layers.0``, ``glin.0``,
 ``proposal_networks.1``; ``LearnedVariance``'s scalar stays a scalar. Every leaf must land on exactly one parameter: anything left
 over on either side raises. ``splat_state_from_jax`` carries a splatfacto
-train state whole: gaussians, densification state and Adam moments."""
+train state whole: gaussians, densification state and Adam moments.
+``trainer_checkpoint_from_jax`` turns a JAX train state (nerfacto's or
+neus-facto's ``TrainState``, or a ``SplatTrainState``) into the port's
+checkpoint payload, so a JAX-trained run resumes in the port;
+``dataparser_outputs_from_jax`` turns the JAX parser's outputs into the
+port's."""
 
 from __future__ import annotations
 
@@ -119,8 +124,11 @@ def occupancy_from_jax(state: Any) -> OccupancyGridState:
 
 
 def _fields(obj: Any) -> Dict[str, Any]:
+    """A mapping, a named tuple (optax's states) or a dataclass as a dict."""
     if isinstance(obj, Mapping):
         return dict(obj)
+    if hasattr(obj, "_asdict"):
+        return obj._asdict()
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
@@ -172,3 +180,113 @@ def train_state_from_jax(state: Any, model: torch.nn.Module) -> Tuple[Dict[str, 
         None if aux is None else occupancy_from_jax(aux),
         int(np.asarray(fields["step"])),
     )
+
+
+def _adam_states(tree: Any):
+    """The (count, mu, nu) of every optax ``ScaleByAdamState`` in an optimizer
+    state, and the largest schedule count beside them."""
+    if hasattr(tree, "mu") and hasattr(tree, "nu") and hasattr(tree, "count"):
+        return [tree]
+    if isinstance(tree, Mapping):
+        return [a for v in tree.values() for a in _adam_states(v)]
+    if isinstance(tree, tuple):
+        return [a for v in tree for a in _adam_states(v)]
+    return []
+
+
+def _present(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A masked optax tree without its ``MaskedNode`` (empty tuple) leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            if sub := _present(v):
+                out[k] = sub
+        elif not (isinstance(v, tuple) and len(v) == 0):
+            out[k] = v
+    return out
+
+
+def trainer_checkpoint_from_jax(state: Any, model: Optional[torch.nn.Module] = None, optimizer: Any = None,
+                                max_steps: int = 30000) -> Dict[str, Any]:
+    """A JAX train state (numpy leaves) -> the port's checkpoint payload
+    (``engine.trainer.write_checkpoint``): for a ``TrainState`` the
+    model's state dict (``model`` gives the names and shapes), the per-group
+    Adam moments and counts laid out as ``optimizer`` (the port's
+    ``PerGroupAdam`` over ``model``) holds them, the occupancy grid and the
+    step; for a ``SplatTrainState`` the gaussians, ``SplatAdam``'s state
+    (means schedule over ``max_steps``), the densification state and the
+    step. The generators' states are not carried: the resumed run draws
+    from its own seed."""
+    fields = _fields(state)
+    if "means" in _fields(fields["params"]):
+        from nerfstudio_torch.engine.optimizers import SplatAdam
+        from nerfstudio_torch.engine.trainer import aux_state
+
+        from nerfstudio_torch.models.splatfacto import GAUSSIAN_ARRAYS
+
+        params, aux, moments, step = splat_state_from_jax(state)
+        params = {k: params[k] for k in GAUSSIAN_ARRAYS}  # the order the port's init makes them in
+        adam = SplatAdam({k: v.clone().requires_grad_(True) for k, v in params.items()}, max_steps)
+        adam.load_moments(moments)
+        return {"step": step, "params": params, "optimizer": adam.state_dict(), "aux": aux_state(aux),
+                "generator": None, "datamanager": None}
+    if model is None or optimizer is None:
+        raise ValueError("a TrainState converts against the port's model and its PerGroupAdam")
+    state_dict, grid, step = train_state_from_jax(state, model)
+    inner = _fields(fields["opt_state"])["inner_states"]
+    if set(inner) != set(optimizer.optimizers):
+        raise ValueError(f"optimizer groups {sorted(inner)} vs the port's {sorted(optimizer.optimizers)}")
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    groups, counts = {}, set()
+    for group, opt in optimizer.optimizers.items():
+        adams = _adam_states(inner[group])
+        if len(adams) != 1:
+            raise ValueError(f"group {group}: {len(adams)} Adam states")
+        adam = adams[0]
+        count = int(np.asarray(adam.count))
+        counts.add(count)
+        mu, nu = (params_from_jax(_present(_fields(x))) for x in (adam.mu, adam.nu))
+        template = opt.state_dict()
+        names = [name_of[id(p)] for pg in opt.param_groups for p in pg["params"]]
+        if set(names) != set(mu):
+            raise ValueError(f"group {group}: moments for {sorted(mu)}, parameters {sorted(names)}")
+        template["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                             for i, n in enumerate(names)} if count else {}
+        groups[group] = template
+    if len(counts) != 1:
+        raise ValueError(f"the groups' Adam counts differ: {sorted(counts)}")
+    from nerfstudio_torch.engine.trainer import aux_state
+
+    return {"step": step, "model": state_dict, "optimizer": {"count": counts.pop(), "optimizers": groups},
+            "aux": aux_state(grid), "generator": None}
+
+
+def dataparser_outputs_from_jax(outputs: Any):
+    """The JAX dataparser's ``DataparserOutputs`` -> the port's, cameras on
+    the CPU (a non-zero distortion raises, as the port's cameras do)."""
+    from nerfstudio_torch.cameras.cameras import Cameras
+    from nerfstudio_torch.data.dataparsers.base_dataparser import DataparserOutputs
+    from nerfstudio_torch.data.scene_box import SceneBox
+
+    cams = outputs.cameras
+    arr = lambda x: None if x is None else np.array(x, copy=True)  # noqa: E731
+    n = arr(cams.camera_to_worlds).reshape(-1, 3, 4).shape[0]
+    cameras = Cameras.create(
+        arr(cams.camera_to_worlds).reshape(n, 3, 4), arr(cams.fx), arr(cams.fy), arr(cams.cx), arr(cams.cy),
+        np.broadcast_to(arr(cams.width).reshape(-1), (n,)).copy(),
+        np.broadcast_to(arr(cams.height).reshape(-1), (n,)).copy(),
+        distortion_params=arr(cams.distortion_params),
+        camera_type=1 if cams.camera_type is None else _tensor(arr(cams.camera_type).reshape(-1), torch.int32),
+        device="cpu")
+    metadata = {}
+    for k in ("points3D_xyz", "points3D_rgb"):
+        if outputs.metadata.get(k) is not None:
+            metadata[k] = torch.from_numpy(np.array(outputs.metadata[k], copy=True))
+    alpha = outputs.alpha_color
+    return DataparserOutputs(
+        image_filenames=list(outputs.image_filenames), cameras=cameras,
+        alpha_color=None if alpha is None else _tensor(alpha),
+        scene_box=SceneBox(aabb=_tensor(outputs.scene_box.aabb)),
+        mask_filenames=None if outputs.mask_filenames is None else list(outputs.mask_filenames),
+        metadata=metadata, dataparser_transform=np.asarray(outputs.dataparser_transform, dtype=np.float32),
+        dataparser_scale=float(outputs.dataparser_scale))

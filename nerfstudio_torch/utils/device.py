@@ -15,13 +15,12 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``device`` as a ``torch.device``; None means ``cuda``, which must be
-    available."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as a ``torch.device``; None means ``cuda``. A CUDA device
+    must be available."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "nerfstudio_torch runs on a CUDA device by default and none is available: "
             'pass device="cpu" to run on the CPU'
         )
-    return torch.device("cuda")
+    return device

@@ -189,3 +189,18 @@ def sphere_grid_binary(res: int, radius: float = 0.3) -> np.ndarray:
     c = (np.arange(res) + 0.5) / res - 0.5
     d2 = c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2
     return (d2 <= radius**2).reshape(-1)
+
+
+def make_synthetic_scene(root) -> "Path":
+    """``tools/make_synthetic_dataset.py ROOT --hw 32 --n-train 8 --n-test 2
+    --n-points 500`` (the ``basic`` scene, small): transforms.json over the
+    10 train and test frames, the Blender splits and points3D.ply."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    subprocess.run([sys.executable, str(repo / "tools" / "make_synthetic_dataset.py"), str(root), "--hw", "32",
+                    "--n-train", "8", "--n-test", "2", "--n-points", "500"], check=True, capture_output=True,
+                   timeout=300)
+    return Path(root)

@@ -1,0 +1,162 @@
+"""The port's CLI: ``apply_overrides`` against JAX's on the same argv; the
+train script trains, saves, resumes and evaluates on the CPU; the gate
+runner writes the keys of ``benchmarks/gate_nerfacto.json``; the method
+registry names the unported methods; without a card the default device
+raises."""
+
+import dataclasses
+import json
+from pathlib import Path
+
+import pytest
+import torch
+
+from _torch_port import make_synthetic_scene
+from fixtures import make_nerfstudio_fixture
+from nerfstudio_tpu.configs.cli import apply_overrides as japply_overrides
+from nerfstudio_tpu.configs.method_configs import get_method as jget_method
+from nerfstudio_torch.configs.cli import apply_overrides, describe
+from nerfstudio_torch.configs.method_configs import NOT_PORTED, get_method
+from nerfstudio_torch.scripts import eval as teval
+from nerfstudio_torch.scripts import gate, train
+
+REPO = Path(__file__).resolve().parent.parent
+
+ARGV = {
+    "nerfacto": ["--trainer.max_num_iterations", "123", "--trainer.load_dir", "a/b", "--trainer.load-step=7",
+                 "--trainer.save_only_latest_checkpoint", "false", "--model.num-levels", "6",
+                 "--model.num_proposal_samples_per_ray", "128,32", "--model.background_color", "white",
+                 "--model.use_appearance_embedding", "0", "--datamanager.train_num_rays_per_batch=512",
+                 "--dataparser.eval_mode", "interval", "--dataparser.downscale_factor", "none",
+                 "--data", "scene", "--seed", "5", "leftover"],
+    "splatfacto": ["--model.sh_degree", "2", "--model.rasterize_mode", "antialiased", "--model.max_gaussians",
+                   "1000", "--dataparser.load_3D_points", "false", "--trainer.steps_per_save", "10"],
+    "neus-facto": ["--model.num_neus_samples_per_ray", "24", "--model.eikonal_loss_mult", "0.5",
+                   "--trainer.vis", "none", "--datamanager.eval_num_rays_per_batch", "64"],
+}
+
+
+def _leaves(obj, prefix=""):
+    """{dotted name: value} of a config's plain fields (its optimizers and
+    ``_target`` aside)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        if f.name.startswith("_") or f.name == "optimizers":
+            continue
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(_leaves(v, f"{prefix}{f.name}."))
+        else:
+            out[f"{prefix}{f.name}"] = v
+    return out
+
+
+@pytest.mark.parametrize("method", sorted(ARGV))
+def test_apply_overrides_matches_jax(method):
+    """The same argv on both packages' method configs: the same leftovers,
+    every field the two share equal, and the trainer, datamanager and
+    dataparser with exactly JAX's fields (the port's config adds
+    ``machine``); the optimizer groups' rates, eps and schedules equal."""
+    jcfg, tcfg = jget_method(method), get_method(method)
+    assert japply_overrides(jcfg, list(ARGV[method])) == apply_overrides(tcfg, list(ARGV[method]))
+    j, t = _leaves(jcfg), _leaves(tcfg)
+    shared = set(j) & set(t)
+    assert {k: t[k] for k in shared} == {k: j[k] for k in shared}
+    for part in ("trainer.", "datamanager.", "dataparser."):
+        assert {k for k in t if k.startswith(part)} == {k for k in j if k.startswith(part)}, part
+    assert set(t) - set(j) <= {k for k in t if k.startswith(("machine.", "model."))}
+    assert len({k for k in shared if k.startswith("model.")}) >= 20
+    assert set(tcfg.optimizers) == set(jcfg.optimizers)
+    for g, jo in jcfg.optimizers.items():
+        to = tcfg.optimizers[g]
+        assert (to["optimizer"].lr, to["optimizer"].eps) == (jo["optimizer"].lr, jo["optimizer"].eps), g
+        js, ts = jo["scheduler"], to["scheduler"]
+        assert type(ts).__name__ == type(js).__name__, g
+        for f in dataclasses.fields(ts):
+            assert getattr(ts, f.name) == getattr(js, f.name), (g, f.name)
+    assert any("--machine.device-type" in line for line in describe(tcfg))
+
+
+def test_unported_methods_name_their_roadmap_item():
+    for name, item in NOT_PORTED.items():
+        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+            get_method(name)
+    with pytest.raises(SystemExit):
+        get_method("no-such-method")
+
+
+def test_machine_seed_is_refused(tmp_path):
+    """The seed is the method config's ``--seed``: the port has no
+    ``machine.seed`` to ignore, so the flag is refused."""
+    with pytest.raises(SystemExit, match="unknown config field: machine.seed"):
+        apply_overrides(get_method("nerfacto"), ["--seed", "4", "--machine.seed", "3"])
+    with pytest.raises(SystemExit, match="unknown config field: machine.seed"):
+        train.main(["nerfacto", "--data", str(tmp_path), "--machine.seed", "3"])
+
+
+TINY = ["--datamanager.train_num_rays_per_batch", "64", "--model.log2_hashmap_size", "12", "--model.max_res", "64",
+        "--model.occ_grid_resolution", "16", "--model.hidden_dim", "16", "--model.hidden_dim_color", "16",
+        "--model.num_nerf_samples_per_ray", "8", "--model.eval_num_rays_per_chunk", "512"]
+
+
+def test_train_script_trains_saves_resumes_and_evaluates(tmp_path, capsys):
+    """8 steps on the CPU with a save at 4, a resume from that run's
+    checkpoints to 12, then ``scripts/eval.py`` on the resumed run."""
+    scene = make_nerfstudio_fixture(tmp_path / "scene", n=5, hw=16)
+    common = ["nerfacto", "--data", str(scene), "--machine.device_type", "cpu", "--trainer.output_dir",
+              str(tmp_path / "out"), "--trainer.vis", "none", "--trainer.steps_per_save", "4",
+              "--trainer.steps_per_eval_image", "6", "--trainer.steps_per_eval_batch", "5", *TINY]
+    train.main(common + ["--trainer.max_num_iterations", "8", "--trainer.timestamp", "run1"])
+    run1 = tmp_path / "out" / "scene" / "nerfacto" / "run1"
+    assert json.loads((run1 / "config.yml").read_text())["machine"]["device_type"] == "cpu"
+    train.main(common + ["--trainer.max_num_iterations", "12", "--trainer.timestamp", "run2",
+                         "--trainer.load_dir", str(run1 / "nerfstudio_models")])
+    out = capsys.readouterr().out
+    assert "loaded checkpoint at step 8" in out and "[eval 6]" in out and "[eval_batch 5]" in out
+    run2 = tmp_path / "out" / "scene" / "nerfacto" / "run2"
+    assert sorted(p.name for p in (run2 / "nerfstudio_models").iterdir()) == ["step-000000012.ckpt"]
+    info = teval.main([str(run2), "--output-path", str(tmp_path / "eval.json")])
+    assert info["step"] == 12 and json.loads((tmp_path / "eval.json").read_text())["results"] == info["results"]
+    assert {"psnr", "ssim", "num_rays_per_sec", "fps", "psnr_std"} <= set(info["results"])
+
+
+def test_train_script_splatfacto_resumes(tmp_path, capsys):
+    scene = make_nerfstudio_fixture(tmp_path / "scene", n=5, hw=16)
+    common = ["splatfacto", "--data", str(scene), "--machine.device_type", "cpu", "--trainer.output_dir",
+              str(tmp_path / "out"), "--trainer.vis", "none", "--trainer.steps_per_save", "3",
+              "--model.max_gaussians", "300", "--model.num_random", "100", "--model.random_init", "true"]
+    train.main(common + ["--trainer.max_num_iterations", "3", "--trainer.timestamp", "run1"])
+    ckpt = tmp_path / "out" / "scene" / "splatfacto" / "run1" / "nerfstudio_models"
+    train.main(common + ["--trainer.max_num_iterations", "5", "--trainer.timestamp", "run2",
+                         "--trainer.load_dir", str(ckpt)])
+    assert "loaded splat checkpoint at step 3" in capsys.readouterr().out
+
+
+def test_gate_runner_writes_the_gate_record_keys(tmp_path):
+    """nerfacto at its shipped config for 4 steps on the small synthetic
+    scene, on the CPU: every key of the JAX gate record (and of its
+    metrics), the card's name and power limit, and the launches."""
+    scene = make_synthetic_scene(tmp_path / "synthetic")
+    out = tmp_path / "gate.json"
+    gate.main(["nerfacto", str(scene), str(out), "--steps", "4", "--machine.device_type", "cpu"])
+    got = json.loads(out.read_text())
+    want = json.loads((REPO / "benchmarks" / "gate_nerfacto.json").read_text())
+    assert set(want) <= set(got) and set(want["metrics"]) == set(got["metrics"])
+    assert got["steps"] == 4 and got["shipped_defaults"] and got["device"] == "cpu" and "power_limit" in got
+    assert got["gates"] == want["gates"] and set(got["launches"]) == {"train", "eval"}
+
+
+def test_default_device_without_a_card_raises(tmp_path, monkeypatch):
+    """The shipped ``machine.device_type`` is cuda: without a card the
+    factory and the train script raise instead of running on the CPU."""
+    from nerfstudio_torch.pipelines.factory import build_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = make_nerfstudio_fixture(tmp_path / "scene", n=3, hw=8)
+    config = get_method("nerfacto")
+    config.data = scene
+    assert config.machine.device_type == "cuda"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_pipeline(config)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train.main(["splatfacto", "--data", str(scene), "--trainer.output_dir", str(tmp_path / "out")])

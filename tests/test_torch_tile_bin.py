@@ -121,3 +121,45 @@ def test_tile_bin_designs_match_the_twin_on_the_card(cuda_device):
                 assert torch.equal(getattr(got, k), getattr(want, k)), (design, k)
             for k in ("packed", "ids"):
                 assert torch.equal(getattr(got, k)[:total], getattr(want, k)[:total]), (design, k)
+
+
+@pytest.mark.parametrize("over", [0, 1], ids=["at_the_limit", "one_tile_over"])
+def test_routing_by_tile_count(monkeypatch, over):
+    """A frame of more tiles than the bucketed design's histogram holds
+    takes the sorted design (its two C entries, counted under
+    ``tile_bin_sorted``); a frame at the limit the bucketed one. Shared
+    memory is cut to a 12-tile histogram; the C entries are recorded, not
+    run (CPU tensors)."""
+    monkeypatch.setattr(tras, "SHARED_BYTES_PER_BLOCK", 4 * 12)
+    calls = []
+    monkeypatch.setattr(sc, "launch", lambda name, fn, dev, *args: calls.append((name, fn)))
+    m2, radii, depths, valid = (torch.from_numpy(x) for x in _gaussians(50, 64, 48, 5))
+    tiles_x, tiles_y = (4, 3) if not over else (13, 1)
+    assert tras.tile_bin_design(tiles_x * tiles_y) == ("sorted" if over else "bucketed")
+    sc.reset_launch_counts()
+    bins = tras._tile_bin_kernel(m2, radii, depths, valid, tiles_x, tiles_y, 16, 16, 64)
+    if over:
+        assert calls == [(None, "nst_gsplat_tile_keys"), ("tile_bin_sorted", "nst_gsplat_tile_ranges")]
+    else:
+        assert calls == [("tile_bin_bucketed", "nst_gsplat_tile_bin")]
+    assert sc.launch_counts["tile_bin"] == 1 and bins.starts.shape == (tiles_x * tiles_y,)
+    monkeypatch.undo()
+    assert tras.tile_bin_design(58_112) == "bucketed" and tras.tile_bin_design(58_113) == "sorted"
+
+
+def test_frame_above_the_tile_limit_matches_the_twin_on_the_card(cuda_device):
+    """A 4096x4352 frame (69,632 tiles, above the bucketed design's 58,112)
+    through the default routing: the sorted design, exact against the twin
+    on starts, counts and the live entries."""
+    m2, radii, depths, valid = (torch.from_numpy(x).to(cuda_device) for x in _gaussians(20_000, 4096, 4352, 6))
+    args = (m2, radii, depths, valid, 256, 272, 16, 16, 64)
+    sc.reset_launch_counts()
+    got = tras._tile_bin_kernel(*args)
+    want = tras._tile_bin_twin(*args)
+    torch.cuda.synchronize()
+    assert sc.launch_counts["tile_bin_sorted"] == 1 and sc.launch_counts["tile_bin_bucketed"] == 0
+    total = int(want.counts.sum())
+    for k in ("starts", "counts"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    for k in ("packed", "ids"):
+        assert torch.equal(getattr(got, k)[:total], getattr(want, k)[:total]), k
