@@ -86,7 +86,24 @@ shapes its path gives it, and drives the port's paths from random weights:
   launch its kernels. Then every kernel of each path is held against its
   twin at the inputs of one more step from its trained state (nerfacto's
   K3 at one eval chunk's), at the tolerances of the phases above, and the
-  gates' device idle share is profiled over 3 more steps.
+  gates' device idle share is profiled over 3 more steps;
+* captures beyond the clean pinhole (phases 39-46): every camera type's
+  rays on the card against the CPU (perspective with all six OpenCV terms,
+  fisheye, equirectangular, ODS and VR180 left and right, orthophoto,
+  Fisheye624 with 12 terms, and one batch mixing the types; a 512^2 image
+  each, then random pixels without and with a camera-opt pose and a
+  distortion delta per ray); every sampling path on the card against the
+  CPU with the CPU's draws handed in, exact (the fisheye, equirectangular,
+  patch and pair samplers, the masked table, masked, bucketed and
+  masked-bucket batches, a resident subset before and after a reload);
+  the tool's ``distorted`` and ``masked`` scenes and a mixed-resolution
+  masked scene (the masked one beside a 120^2 render); the nerfacto and
+  splatfacto gates on ``distorted`` and ``masked`` at their full steps,
+  each beside its JAX record and followed by its path's kernels against
+  their twins at its trained state (the host time of undistorting the
+  splat train images too); and 200 nerfacto steps through the resolution
+  buckets of the mixed-resolution masked scene (the loss must fall), with
+  one step on the card against the CPU twins.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -763,17 +780,24 @@ def card_vs_cpu_step(devices=("cuda", "cpu")):
         runs.append(({k: float(v) for k, v in metrics.items()}, grads, pipeline.model))
         del pipeline, state
     (m_card, g_card, model), (m_cpu, g_cpu, _) = runs
+    return (m_card, m_cpu) + step_rel(m_card, g_card, m_cpu, g_cpu, model)
+
+
+def step_rel(m_card, g_card, m_cpu, g_cpu, model):
+    """(the loss's relative gap, the non-table gradients' largest gap over
+    each one's peak, the tables' largest gap per level and feature over
+    the peak) between a card step and a CPU step."""
     loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
     grad_rel, table_rel = 0.0, 0.0
     for n, ref in g_cpu.items():
         got = g_card[n]
         if n.endswith("hash_table"):
             F = model.get_submodule(n.rsplit(".", 1)[0]).features_per_level
-            sums = lambda x: x.reshape(x.shape[0], -1, F).sum(dim=1)
+            sums = lambda x: x.reshape(x.shape[0], -1, F).sum(dim=1)  # noqa: E731
             table_rel = max(table_rel, float((sums(got) - sums(ref)).abs().max() / sums(ref).abs().max()))
         elif ref.abs().max() > 0:
             grad_rel = max(grad_rel, float((got - ref).abs().max() / ref.abs().max()))
-    return m_card, m_cpu, loss_rel, grad_rel, table_rel
+    return loss_rel, grad_rel, table_rel
 
 
 # --------------------------------------------------------------------------
@@ -2109,11 +2133,12 @@ def neus_card_vs_cpu():
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# the JAX package's gate records (benchmarks/gate_*.json): PSNR and SSIM
-# only; their times were taken on a TPU and are no target here
-JAX_GATES = {"nerfacto": (25.1164, 0.899), "splatfacto": (25.7855, 0.9)}
 # the scene of those records: run_gate_matrix.py's --make-scenes defaults
 SCENE_ARGS = ("--hw", "200", "--n-train", "40", "--n-test", "8")
+# the mixed-resolution masked scene: the masked scene above beside the
+# tool's masked scene at 120^2 (16 + 2 views), one capture of two sizes
+SMALL_SCENE_ARGS = ("--hw", "120", "--n-train", "16", "--n-test", "2")
+BUCKET_STEPS = 200
 CLI_STEPS, CLI_SAVE, CLI_RESUME_TO = 300, 150, 400
 NEUS_DISK_STEPS = 200
 # the kernels each from-disk path must launch (every design counted once)
@@ -2154,21 +2179,52 @@ def train_losses(run_dir) -> list:
         return [r["loss"] for r in map(json.loads, f) if r["prefix"] == "train"]
 
 
-def make_scene(name, root):
-    """tools/make_synthetic_dataset.py ROOT/basic --scene basic at the JAX
+def make_scene(name, root, scene="basic", args=SCENE_ARGS, log_it=True):
+    """tools/make_synthetic_dataset.py ROOT/SCENE --scene SCENE at the JAX
     gate records' protocol (``tools/run_gate_matrix.py --make-scenes``:
     SCENE_ARGS), in its own process (it reads the JAX package's numpy-only
     ply writer; without JAX_PLATFORMS that package imports no JAX)."""
     t0 = time.perf_counter()
-    scene = os.path.join(root, "basic")
+    out = os.path.join(root, scene if args == SCENE_ARGS else f"{scene}_{args[1]}")
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
-    subprocess.run([sys.executable, os.path.join(REPO, "tools", "make_synthetic_dataset.py"), scene, "--scene",
-                    "basic", *SCENE_ARGS], check=True, env=env, capture_output=True, text=True)
-    with open(os.path.join(scene, "transforms.json"), encoding="utf-8") as f:
+    subprocess.run([sys.executable, os.path.join(REPO, "tools", "make_synthetic_dataset.py"), out, "--scene",
+                    scene, *args], check=True, env=env, capture_output=True, text=True)
+    with open(os.path.join(out, "transforms.json"), encoding="utf-8") as f:
         meta = json.load(f)
-    log(name, f"the basic scene: {len(meta['frames'])} frames of {meta['w']}x{meta['h']}, "
-        f"points3D.ply; {time.perf_counter() - t0:.1f} s wall")
-    return scene
+    extra = {k: meta[k] for k in ("k1", "k2") if k in meta}
+    masks = sum("mask_path" in fr for fr in meta["frames"])
+    if log_it:
+        log(name, f"the {scene} scene: {len(meta['frames'])} frames of {meta['w']}x{meta['h']}"
+            + (f", OpenCV {extra}" if extra else "") + (f", {masks} masks" if masks else "")
+            + f", points3D.ply; {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
+def make_mixed_scene(name, root, masked):
+    """One masked capture of two resolutions: the tool's masked scene at
+    SMALL_SCENE_ARGS (written by the tool's own PNG writer; the card has no
+    Pillow) beside ``masked``, under one transforms.json with per-frame
+    intrinsics and sizes (the same geometry and orbit radius, so one
+    scene)."""
+    t0 = time.perf_counter()
+    small = make_scene(name, root, "masked", SMALL_SCENE_ARGS, log_it=False)
+    out = os.path.join(root, "mixed")
+    os.makedirs(out)
+    frames, sizes = [], {}
+    for sub, src in (("big", masked), ("small", small)):
+        os.symlink(src, os.path.join(out, sub))
+        with open(os.path.join(src, "transforms.json"), encoding="utf-8") as f:
+            meta = json.load(f)
+        per_frame = {k: meta[k] for k in ("fl_x", "fl_y", "cx", "cy", "w", "h")}
+        for fr in meta["frames"]:
+            frames.append(dict(fr, file_path=f"{sub}/{fr['file_path']}", mask_path=f"{sub}/{fr['mask_path']}",
+                               **per_frame))
+        sizes[f"{meta['w']}x{meta['h']}"] = len(meta["frames"])
+    with open(os.path.join(out, "transforms.json"), "w", encoding="utf-8") as f:
+        json.dump({"camera_model": "OPENCV", "frames": frames}, f)
+    log(name, f"the mixed-resolution masked scene: {sizes} frames, every one masked; "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    return out
 
 
 def cli_round_trip(name, scene, root, card):
@@ -2327,21 +2383,26 @@ def gate_phase(name, method, scene, root, card, want):
     device's idle share over a few profiled steps."""
     from nerfstudio_torch.scripts import gate
 
+    undistort = undistort_host_ms(scene) if method == "splatfacto" else None
     t0 = time.perf_counter()
     zero_counts()
     res, run = gate.run_gate(method, scene, os.path.join(root, "gate"))
     counts = read_counts()
     check_path(name, counts, want)
     wall = time.perf_counter() - t0
-    m, (jp, js) = res["metrics"], JAX_GATES[method]
+    # the JAX package's record of the cell (gate.jax_record, read from
+    # benchmarks/): PSNR and SSIM only; its times were taken on a TPU
+    m, (jp, js) = res["metrics"], res["jax_record"].values()
     per_step = {k: v / res["steps"] for k, v in res["launches"]["train"].items() if v}
-    log(name, f"{method} on basic ({' '.join(SCENE_ARGS)}), shipped config, {res['steps']} steps: psnr "
+    log(name, f"{method} on {res['scene']} ({' '.join(SCENE_ARGS)}), shipped config, {res['steps']} steps: psnr "
         f"{m['psnr']:.2f} (JAX record {jp}), ssim {m['ssim']:.3f} (JAX record {js}), over every held-out view; "
         f"gates {res['gates']} -> pass {res['pass']}; train {res['train_seconds']:.1f} s = "
         f"{res['train_rays_per_sec']:,.0f} rays/s, {1e3 / res['steps_per_sec']:.2f} ms/step (host clock, the "
         f"user's loop with its final save; per {res['step_ms_by_block']['steps_per_block']} steps: "
         f"{[round(x, 2) for x in res['step_ms_by_block']['ms']]})"
         + (f", {res['num_alive']} live gaussians at the end" if "num_alive" in res else "")
+        + (f"; undistorting the {undistort['images']} train images of {undistort['hw']} on the host took "
+           f"{undistort['ms']:.1f} ms" if undistort else "")
         + f"; launches per train step {per_step}, eval {({k: v for k, v in res['launches']['eval'].items() if v})}; "
         f"{wall:.1f} s wall on {card}")
     print(json.dumps(res), flush=True)
@@ -2358,7 +2419,8 @@ def gate_phase(name, method, scene, root, card, want):
     idle = profiled_idle(name, run["one_step"], step_ms, label)
     del run
     torch.cuda.empty_cache()
-    return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs, idle=idle)
+    return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs, idle=idle,
+                undistort=undistort)
 
 
 def neus_from_disk(name, scene, root, card):
@@ -2409,6 +2471,340 @@ def neus_from_disk(name, scene, root, card):
     return dict(steps=NEUS_DISK_STEPS, loss=(head, tail), launches=counts, wall_s=wall, max_abs_err=errs)
 
 
+# --------------------------------------------------------------------------
+# cameras beyond the pinhole, the samplers, distorted and masked captures
+
+RAYGEN_HW = 512
+RAYGEN_RAYS = 1 << 16  # random pixels of the batch with a camera each
+# Card vs CPU, the same float32 ops in the same order: origins and unit
+# directions within 1e-5 abs (transcendentals and the Newton and Fisheye624
+# solves may differ by ulps), the direction norms within 1e-5 relative, the
+# pixel areas within 1e-3 of the largest (a difference of two neighbouring
+# directions ~1e-3 apart) or of a nominal pixel's (1 / f)^2, whichever is
+# larger: VR180's rays do not move with x, so its areas are ~0 up to the
+# rounding of its sines (in the reference too).
+RAYGEN_ATOL = 1e-5
+RAYGEN_AREA_REL = 1e-3
+OPENCV_TERMS = (-0.18, 0.04, 0.01, -0.002, 1e-3, -2e-3)  # k1..k4, p1, p2: all six non-zero
+FISHEYE_TERMS = (0.05, -0.01, 0.002, -1e-4, 0.0, 0.0)
+FISHEYE624_TERMS = (0.03, -0.01, 0.002, -1e-4, 1e-5, -1e-6, 1e-3, -5e-4, 2e-4, -1e-4, 1e-4, -5e-5)
+
+
+def raygen_cases():
+    """{label: (camera types, distortion row or None)}: every camera type,
+    and one batch mixing every type that takes six parameters."""
+    from nerfstudio_torch.cameras.cameras import CameraType as T
+
+    one = {"perspective, OpenCV 6 terms": (T.PERSPECTIVE, OPENCV_TERMS), "fisheye": (T.FISHEYE, FISHEYE_TERMS),
+           "equirectangular": (T.EQUIRECTANGULAR, None), "ODS L": (T.OMNIDIRECTIONALSTEREO_L, None),
+           "ODS R": (T.OMNIDIRECTIONALSTEREO_R, None), "VR180 L": (T.VR180_L, None), "VR180 R": (T.VR180_R, None),
+           "orthophoto": (T.ORTHOPHOTO, None), "FISHEYE624, 12 terms": (T.FISHEYE624, FISHEYE624_TERMS)}
+    cases = {k: ([t] * 2, d) for k, (t, d) in one.items()}
+    cases["mixed (every type but FISHEYE624)"] = ([t for t, d in one.values() if t != T.FISHEYE624], OPENCV_TERMS)
+    return cases
+
+
+def raygen_cameras(types, d, device):
+    """Cameras of ``types`` at RAYGEN_HW^2 with random poses and
+    intrinsics (numpy seed), the distortion row ``d`` for each."""
+    from nerfstudio_torch.cameras.cameras import Cameras
+
+    n = len(types)
+    rng = np.random.default_rng(SEED + 3)
+    q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    q *= np.sign(np.linalg.det(q))[:, None, None]
+    c2w = np.concatenate([q, rng.uniform(-2, 2, (n, 3, 1))], axis=-1).astype(np.float32)
+    f = rng.uniform(0.8, 1.1, (2, n)).astype(np.float32) * RAYGEN_HW
+    c = (RAYGEN_HW / 2 + rng.uniform(-8, 8, (2, n))).astype(np.float32)
+    dist = None if d is None else np.tile(np.asarray(d, np.float32), (n, 1))
+    return Cameras.create(c2w, f[0], f[1], c[0], c[1], RAYGEN_HW, RAYGEN_HW, distortion_params=dist,
+                          camera_type=torch.tensor([t.value for t in types]), device=device)
+
+
+def small_poses(n, gen):
+    """n random (3, 4) rigid corrections: rotations of ~0.05 rad (the
+    exponential of a random skew matrix), translations of ~0.02."""
+    a = torch.randn((n, 3), generator=gen) * 0.05
+    skew = torch.zeros((n, 3, 3))
+    skew[:, 0, 1], skew[:, 0, 2], skew[:, 1, 2] = -a[:, 2], a[:, 1], -a[:, 0]
+    skew = skew - skew.transpose(1, 2)
+    return torch.cat([torch.linalg.matrix_exp(skew), torch.randn((n, 3, 1), generator=gen) * 0.02], dim=-1)
+
+
+def bundle_errors(a, b, nominal_area):
+    """Card bundle ``a`` against CPU bundle ``b``; the pixel areas against
+    the larger of their peak and ``nominal_area``."""
+    area = max(float(b.pixel_area.abs().max()), nominal_area)
+    return {"origins": float((a.origins.cpu() - b.origins).abs().max()),
+            "directions": float((a.directions.cpu() - b.directions).abs().max()),
+            "pixel_area": float((a.pixel_area.cpu() - b.pixel_area).abs().max() / area),
+            "directions_norm": float(((a.metadata["directions_norm"].cpu() - b.metadata["directions_norm"])
+                                      / b.metadata["directions_norm"]).abs().max())}
+
+
+def raygen_phase(name, card):
+    """Every camera type's rays on the card against the CPU: one full
+    RAYGEN_HW^2 image per case through ``generate_rays``, then RAYGEN_RAYS
+    random pixels with a camera each through ``generate_rays_from_coords``,
+    without and with a camera-opt pose correction and a distortion delta
+    per ray. Returns {case: worst errors} and the card ms of each full
+    image."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    worst, rows = {}, []
+    for label, (types, d) in raygen_cases().items():
+        cams = {dev: raygen_cameras(types, d, dev) for dev in ("cuda", "cpu")}
+        nominal = float(cams["cpu"].fx.max()) ** -2
+        errs = {"full image": bundle_errors(cams["cuda"].generate_rays(1), cams["cpu"].generate_rays(1), nominal)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cams["cuda"].generate_rays(1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = len(types)
+        idx = torch.stack([torch.randint(0, n, (RAYGEN_RAYS,), generator=gen),
+                           torch.randint(0, RAYGEN_HW, (RAYGEN_RAYS,), generator=gen),
+                           torch.randint(0, RAYGEN_HW, (RAYGEN_RAYS,), generator=gen)], dim=-1)
+        coords = idx[:, 1:].float() + 0.5
+        opt = small_poses(RAYGEN_RAYS, gen)
+        width = 6 if d is None else len(d)
+        delta = torch.randn((RAYGEN_RAYS, width), generator=gen) * 1e-3
+        for what, o, dd in (("pixels", None, None), ("pixels, camera opt", opt, None),
+                            ("pixels, distortion delta", None, delta), ("pixels, both", opt, delta)):
+            a, b = (cams[dev].generate_rays_from_coords(idx[:, :1].to(dev), coords.to(dev),
+                                                        None if o is None else o.to(dev),
+                                                        None if dd is None else dd.to(dev))
+                    for dev in ("cuda", "cpu"))
+            errs[what] = bundle_errors(a, b, nominal)
+        worst[label] = {k: max(e[k] for e in errs.values()) for k in next(iter(errs.values()))}
+        worst[label]["full_image_ms"] = ms
+        rows.append(f"{label}: " + ", ".join(f"{k} {v:.2g}" for k, v in worst[label].items()))
+    log(name, f"{RAYGEN_HW}^2 images and {RAYGEN_RAYS} random pixels with a camera each, without and with a "
+        f"camera-opt pose and a distortion delta per ray, card vs CPU (limits: origins, directions {RAYGEN_ATOL} abs, "
+        f"norms {RAYGEN_ATOL} rel, pixel area {RAYGEN_AREA_REL} of the peak or of (1 / f)^2; full-image ms on the card, host "
+        f"clock, on {card}): " + "; ".join(rows))
+    bad = {k: v for k, v in worst.items() if max(v["origins"], v["directions"], v["directions_norm"]) > RAYGEN_ATOL
+           or v["pixel_area"] > RAYGEN_AREA_REL or not all(map(math.isfinite, v.values()))}
+    if bad:
+        raise AssertionError(f"{name}: card rays disagree with the CPU's: {bad}")
+    return worst
+
+
+SAMPLE_IMAGES, SAMPLE_HW, SAMPLE_RAYS = 8, 200, 4096
+
+
+def sample_data(gen):
+    """Random uint8 images, masks without each image's left quarter, and
+    a split of two resolutions (SAMPLE_HW^2 and 120^2) as buckets."""
+    images = torch.randint(0, 256, (SAMPLE_IMAGES, SAMPLE_HW, SAMPLE_HW, 3), generator=gen, dtype=torch.uint8)
+    masks = np.ones((SAMPLE_IMAGES, SAMPLE_HW, SAMPLE_HW, 1), bool)
+    masks[:, :, : SAMPLE_HW // 4] = False
+    buckets = []
+    for hw, ids in ((SAMPLE_HW, [0, 2, 3, 5, 6]), (120, [1, 4, 7])):
+        m = np.ones((len(ids), hw, hw, 1), bool)
+        m[:, :, : hw // 4] = False
+        buckets.append({"images": torch.randint(0, 256, (len(ids), hw, hw, 3), generator=gen,
+                                                dtype=torch.uint8).numpy(),
+                        "camera_indices": np.asarray(ids, np.int32), "masks": m})
+    return images, masks, buckets
+
+
+def sampling_phase(name, card):
+    """The sampling paths on the card against the CPU with the same draws
+    handed in (drawn on the CPU), exact on the indices and the pixels: the
+    fisheye, equirectangular, patch and pair samplers, the masked table,
+    the masked, bucketed and masked-bucket batches of the datamanager, and
+    a resident subset before and after a reload. Each manager also draws
+    from the card's own generator: every index in range, and masked ones
+    on valid pixels."""
+    import copy as copy_lib
+
+    from nerfstudio_torch.cameras.cameras import Cameras
+    from nerfstudio_torch.data import pixel_samplers as ps
+    from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    n, hw, r = SAMPLE_IMAGES, SAMPLE_HW, SAMPLE_RAYS
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen)  # noqa: E731
+    ru = lambda shape: torch.rand(shape, generator=gen)  # noqa: E731
+    samplers = {
+        "fisheye": (ps.sample_pixel_indices_fisheye, (r, n, hw, hw), (ri(0, n, (r,)), ru((r,)), ru((r,)))),
+        "equirectangular": (ps.sample_pixel_indices_equirectangular, (r, n, hw, hw),
+                            (ri(0, n, (r,)), ru((r,)), ri(0, hw, (r,)))),
+        "patch": (ps.sample_patch_pixel_indices, (r, 8, n, hw, hw),
+                  (ri(0, n, (r // 64,)), ri(0, hw - 7, (r // 64,)), ri(0, hw - 7, (r // 64,)))),
+        "pair": (ps.sample_pair_pixel_indices, (r, n, hw, hw),
+                 (ri(0, n, (r // 2,)), ri(2, hw - 2, (r // 2,)), ri(2, hw - 2, (r // 2,)), ri(-2, 3, (r // 2, 2)))),
+    }
+    results, bad = {}, []
+    for label, (fn, args, draws) in samplers.items():
+        a, b = (fn(*args, draws=tuple(x.to(dev) for x in draws)) for dev in ("cuda", "cpu"))
+        results[label] = dict(equal=bool(torch.equal(a.cpu(), b)), rows=int(b.shape[0]))
+    images, masks, buckets = sample_data(gen)
+    sizes = np.array([120 if i in (1, 4, 7) else hw for i in range(n)])
+    cams = {k: Cameras.create(np.tile(np.eye(4, dtype=np.float32)[:3], (n, 1, 1)), hw, hw, hw / 2, hw / 2, w, w,
+                              device="cpu") for k, w in (("flat", hw), ("bucketed", sizes))}
+    managers = {
+        "masked": lambda cfg, dev: DeviceCacheDataManager(cfg, cams["flat"], images, dev, masks=masks),
+        "bucketed": lambda cfg, dev: DeviceCacheDataManager(
+            cfg, cams["bucketed"], device=dev, buckets=[{k: v for k, v in b.items() if k != "masks"} for b in buckets]),
+        "masked buckets": lambda cfg, dev: DeviceCacheDataManager(cfg, cams["bucketed"], device=dev,
+                                                                  buckets=copy_lib.deepcopy(buckets)),
+        "resident subset": lambda cfg, dev: DeviceCacheDataManager(cfg, cams["flat"], images, dev),
+    }
+    valid = torch.from_numpy(ps.build_valid_indices(masks)).long()
+    pick = ri(0, valid.shape[0], (r,))
+    a, b = (ps.sample_pixel_indices_from_valid(r, valid.to(dev), draws=(pick.to(dev),)) for dev in ("cuda", "cpu"))
+    results["masked table"] = dict(equal=bool(torch.equal(a.cpu(), b)), rows=r)
+    for label, make in managers.items():
+        cfg = DataManagerConfig(train_num_rays_per_batch=r, max_images_in_memory=3 if label == "resident subset"
+                                else None, steps_per_reload=10)
+        dms = {dev: make(cfg, dev) for dev in ("cuda", "cpu")}
+        rec = {}
+        for when in (("before reload", "after reload") if label == "resident subset" else ("batch",)):
+            if when == "after reload":
+                for dm in dms.values():
+                    dm.maybe_reload(10)
+                rec["resident_map_equal"] = bool(torch.equal(dms["cuda"].resident_map.cpu(),
+                                                             dms["cpu"].resident_map))
+            cpu = dms["cpu"]
+            if isinstance(cpu.train_images, tuple):  # each bucket's (slot, row, col): from its table, or uniform
+                alloc = cpu._bucket_ray_alloc(r)
+                if cpu.bucket_valid is not None:
+                    draws = tuple(v[ri(0, v.shape[0], (k,))] for v, k in zip(cpu.bucket_valid, alloc))
+                else:
+                    draws = tuple(torch.stack([ri(0, hi, (k,)) for hi in im.shape[:3]], dim=-1)
+                                  for im, k in zip(cpu.train_images, alloc))
+            elif cpu.valid_indices is not None:
+                draws = cpu.valid_indices[pick]
+            else:
+                draws = torch.stack([ri(0, 3, (r,)), ri(0, hw, (r,)), ri(0, hw, (r,))], dim=-1)
+            (ia, ba), (ib, bb) = (dm.sample_train_batch(num_rays=r, indices=draws) for dm in dms.values())
+            rec[when] = bool(torch.equal(ia.cpu(), ib) and torch.equal(ba["image"].cpu(), bb["image"]))
+        own, _ = dms["cuda"].sample_train_batch(torch.Generator(device="cuda").manual_seed(SEED), num_rays=r)
+        own = own.cpu()
+        cam = dms["cpu"].train_cameras
+        h, w = cam.height[own[:, 0], 0].long(), cam.width[own[:, 0], 0].long()
+        rec["own_draws_valid"] = bool((own.min() >= 0) and (own[:, 1] < h).all() and (own[:, 2] < w).all()
+                                      and ("masked" not in label or (own[:, 2] >= w // 4).all()))
+        results[label] = rec
+    for label, rec in results.items():
+        if not all(v for k, v in rec.items() if k != "rows"):
+            bad.append(label)
+    log(name, f"{r} rays per path, card vs CPU with the CPU's draws handed in (exact on indices and pixels): "
+        + "; ".join(f"{k}: {v}" for k, v in results.items()) + f"; on {card}")
+    if bad:
+        raise AssertionError(f"{name}: the card's sampling disagrees with the CPU's on {bad}")
+    return results
+
+
+def undistort_host_ms(scene):
+    """Host ms of ``maybe_undistort_dataset`` on the gate's train split of
+    ``scene`` (decoding excluded); None where its cameras carry no
+    distortion."""
+    from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
+    from nerfstudio_torch.data.datasets import InputDataset
+    from nerfstudio_torch.data.undistort import maybe_undistort_dataset
+
+    ds = InputDataset(NerfstudioDataParserConfig(data=scene, train_split_fraction=0.9, downscale_factor=1)
+                      .setup().get_dataparser_outputs("train"))
+    if not ds.cameras.distorted:
+        return None
+    images = ds.load_all()["images"]
+    t0 = time.perf_counter()
+    maybe_undistort_dataset(images, ds.cameras)
+    return dict(ms=(time.perf_counter() - t0) * 1e3, images=int(images.shape[0]), hw=list(images.shape[1:3]))
+
+
+def bucketed_run(name, scene, root, card):
+    """nerfacto at the shipped config through ``factory.build_trainer`` and
+    ``Trainer.train`` for BUCKET_STEPS steps on the mixed-resolution masked
+    scene (one resolution bucket per size, each drawing from its mask-valid
+    table): losses finite and falling (the mean of the last 20 below the
+    first 20's); then one step from the trained weights (flat hash tables,
+    as phase 11) on the card and on the CPU twins with the same draws, at
+    phase 11's limits."""
+    from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.engine.trainer import aux_from_state, aux_state
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.models.nerfacto import NerfactoModel
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws
+    from nerfstudio_torch.pipelines.factory import build_pipeline, build_trainer
+
+    def configure(device_type):
+        config = get_method("nerfacto")
+        config.data = scene
+        config.machine.device_type = device_type
+        t = config.trainer
+        t.output_dir, t.timestamp, t.vis, t.max_num_iterations = os.path.join(root, "runs"), "buckets", "none", \
+            BUCKET_STEPS
+        t.steps_per_eval_batch = t.steps_per_eval_image = t.steps_per_eval_all_images = t.steps_per_save = 0
+        return config
+
+    t0 = time.perf_counter()
+    config = configure("cuda")
+    trainer = build_trainer(config)
+    dm = trainer.pipeline.datamanager
+    if not isinstance(dm.train_images, tuple) or dm.bucket_valid is None:
+        raise AssertionError(f"{name}: the mixed-resolution masked scene did not load as masked buckets")
+    shapes = [tuple(im.shape[:3]) for im in dm.train_images]
+    losses, step_once = [], trainer.train_iteration
+
+    def iteration(step):
+        metrics = step_once(step)
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_iteration = iteration
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    counts = read_counts()
+    check_path(name, counts, ("hash_encode_block", "hash_encode_block_bwd"))
+    losses = [float(x) for x in losses]
+    head, tail = statistics.fmean(losses[:20]), statistics.fmean(losses[-20:])
+    trainer.train_iteration = step_once
+    # one step on the card and on the CPU from the same weights and draws
+    gen = torch.Generator().manual_seed(SEED + 6)
+    flatten_tables(trainer.pipeline.model, torch.Generator().manual_seed(SEED + 7))
+    weights = {k: v.detach().cpu().clone() for k, v in trainer.pipeline.model.state_dict().items()}
+    cpu_pipe, cpu_state, _ = build_pipeline(configure("cpu"))
+    cpu_pipe.model.load_state_dict(weights)
+    cpu_state.aux = aux_from_state(cpu_state.aux, aux_state(trainer.state.aux), torch.device("cpu"))
+    cdm = cpu_pipe.datamanager
+    pixels = tuple(v[torch.randint(0, v.shape[0], (k,), generator=gen)]
+                   for v, k in zip(cdm.bucket_valid, cdm._bucket_ray_alloc(CHECK_RAYS)))
+    uniforms = [torch.rand((CHECK_RAYS, 1), generator=gen) for _ in range(3)]
+    kwargs = NerfactoModel.step_kwargs(300, config.model)  # live proposals, full field backward
+    runs = []
+    for pipe, state, dev in ((trainer.pipeline, trainer.state, "cuda"), (cpu_pipe, cpu_state, "cpu")):
+        draws = StepDraws(tuple(p.to(dev) for p in pixels),
+                          SamplerUniforms(uniforms[0].to(dev), tuple(u.to(dev) for u in uniforms[1:])))
+        metrics = pipe.train_step(state, draws=draws, **kwargs)
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.detach().cpu().double() for n, p in pipe.model.named_parameters()}))
+    (m_card, g_card), (m_cpu, g_cpu) = runs
+    loss_rel, grad_rel, table_rel = step_rel(m_card, g_card, m_cpu, g_cpu, cpu_pipe.model)
+    wall = time.perf_counter() - t0
+    log(name, f"{BUCKET_STEPS} steps through the trainer at {config.datamanager.train_num_rays_per_batch} rays "
+        f"over buckets {shapes} (rays per bucket {dm._bucket_ray_alloc(config.datamanager.train_num_rays_per_batch)}"
+        f", from their mask-valid tables): loss mean of the first 20 {head:.4f}, of the last 20 {tail:.4f}; "
+        f"{train_s * 1e3 / BUCKET_STEPS:.1f} ms/step (host clock, with the final save); one step of "
+        f"{CHECK_RAYS} rays card vs CPU: loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, "
+        f"limit {STEP_LOSS_RTOL}), gradients {grad_rel:.3g} of the peak (limit {STEP_GRAD_REL}), tables per level "
+        f"and feature {table_rel:.3g} (limit {STEP_TABLE_SUM_REL}); {wall:.1f} s wall on {card}")
+    if not all(map(math.isfinite, losses)) or not tail < head:
+        raise AssertionError(f"{name}: losses finite and falling expected: {head} -> {tail}")
+    if loss_rel > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL or table_rel > STEP_TABLE_SUM_REL:
+        raise AssertionError(f"{name}: the card's step disagrees with the CPU's")
+    del trainer, cpu_pipe
+    torch.cuda.empty_cache()
+    return dict(steps=BUCKET_STEPS, buckets=shapes, loss=(head, tail), launches=counts, wall_s=wall,
+                card_vs_cpu=dict(loss_rel=loss_rel, grad_rel=grad_rel, table_rel=table_rel))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -2422,7 +2818,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 38
+    n_phases = 46
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -3046,6 +3442,20 @@ def main() -> int:
                 "gate_splatfacto": gate_phase(ph(37, "gate splatfacto"), "splatfacto", scene, disk_root, card,
                                               SPLAT_PATH_KERNELS),
                 "neus_facto": neus_from_disk(ph(38, "neus-facto from disk"), scene, disk_root, card)}
+        # 39-46. every camera type's rays and every sampling path on the card
+        # against the CPU; distorted and masked captures: the four gates and
+        # a mixed-resolution masked run through the resolution buckets
+        raygen_phase(ph(39, "ray generation, card vs CPU"), card)
+        sampling_phase(ph(40, "sampling, card vs CPU"), card)
+        distorted = make_scene(ph(41, "scenes"), disk_root, "distorted")
+        masked = make_scene(ph(41, "scenes"), disk_root, "masked")
+        mixed = make_mixed_scene(ph(41, "scenes"), disk_root, masked)
+        for i, (method, path) in enumerate(((m, p) for p in (distorted, masked) for m in ("nerfacto", "splatfacto"))):
+            want = NERFACTO_KERNELS if method == "nerfacto" else SPLAT_PATH_KERNELS
+            key = f"gate_{method}_{os.path.basename(path)}"
+            disk[key] = gate_phase(ph(42 + i, f"gate {method} {os.path.basename(path)}"), method, path, disk_root,
+                                   card, want)
+        disk["buckets"] = bucketed_run(ph(46, "nerfacto on masked buckets"), mixed, disk_root, card)
     finally:
         shutil.rmtree(disk_root, ignore_errors=True)
 
@@ -3197,8 +3607,8 @@ def main() -> int:
             e["device_ms"] = next(d["device_ms"] for d in select[(k, main_v)]["designs"] if d["design"] == e["design"])
             e["designs"] = [dict(variant=v, **r) for (kk, v), r in select.items() if kk == k]
         kernels.append(e)
-    # each kernel's launches on the from-disk paths (phases 35-38; the gates'
-    # counts include their eval renders) and K5 at the frame above its
+    # each kernel's launches on the from-disk paths (phases 35-38 and 42-46;
+    # the gates' counts include their eval renders) and K5 at the frame above its
     # bucketed design's tile limit (phase 14)
     launch_key = {"hash_encode_block (K1 fwd)": "hash_encode_block", "hash_encode_block_exact (K3)":
                   "hash_encode_block_exact", "project_gaussians (K4 fwd)": "project_gaussians",
@@ -3211,7 +3621,7 @@ def main() -> int:
              if e["name"].startswith(k + " ")), None)
         if key is not None:
             e["disk_launches"] = {path: rec["launches"].get(key, 0) for path, rec in disk.items()}
-            # against the twin at each path's own inputs (phases 36-38)
+            # against the twin at each path's own inputs (phases 36-38, 42-45)
             e["disk_max_abs_err"] = {path: rec["max_abs_err"][key] for path, rec in disk.items()
                                      if key in rec.get("max_abs_err", {})}
     k5_entry["above_limit"] = k5_above

@@ -1,13 +1,16 @@
 """Nerfstudio-format (transforms.json) dataparser (counterpart of
 ``nerfstudio_tpu/data/dataparsers/nerfstudio_dataparser.py``).
 
-Global or per-frame intrinsics, zero distortion (a frame without distortion
-keys gets zeros, as in the reference; non-zero distortion raises in
-``Cameras.create``), the "up"/"pca"/"vertical" orientation with centring,
-auto pose scaling, the fraction, interval and all eval splits, downscale
+Every camera model of the reference's ``CAMERA_MODEL_TO_TYPE`` (any other
+name is perspective), global or per-frame intrinsics and distortion (a
+frame without distortion keys gets zeros, as in the reference; a
+``distortion_params`` list of 12 for Fisheye624), per-frame masks
+(``mask_path``), the "up"/"pca"/"vertical" orientation with centring, auto
+pose scaling, the fraction, interval and all eval splits, downscale
 factors, and the ply seed points for splatfacto. The poses are numpy
 float32 through the reference's numpy math, then a float32 tensor.
-Not ported: mask, depth and semantic images, and the filename split."""
+Not ported: depth and semantic images (ROADMAP queue 1 item 8) and the
+filename split."""
 
 from __future__ import annotations
 
@@ -21,15 +24,11 @@ import numpy as np
 import torch
 
 from nerfstudio_torch.cameras import camera_utils
-from nerfstudio_torch.cameras.cameras import Cameras, CameraType
+from nerfstudio_torch.cameras.cameras import CAMERA_MODEL_TO_TYPE, Cameras, CameraType
 from nerfstudio_torch.data.dataparsers.base_dataparser import DataParser, DataParserConfig, DataparserOutputs
 from nerfstudio_torch.data.scene_box import SceneBox
 
 MAX_AUTO_RESOLUTION = 1600
-# the models the reference's CAMERA_MODEL_TO_TYPE maps to another type than
-# perspective (any other name is perspective there): not ported
-_OTHER_MODELS = ("OPENCV_FISHEYE", "EQUIRECTANGULAR", "OMNIDIRECTIONALSTEREO_L", "OMNIDIRECTIONALSTEREO_R",
-                 "VR180_L", "VR180_R", "ORTHOPHOTO", "FISHEYE624")
 
 
 @dataclasses.dataclass
@@ -62,11 +61,7 @@ class Nerfstudio(DataParser):
         data_dir = meta_path.parent
         with open(meta_path, encoding="utf-8") as f:
             meta = json.load(f)
-        camera_model = meta.get("camera_model", "OPENCV")
-        if camera_model in _OTHER_MODELS:
-            raise NotImplementedError(f"camera model {camera_model!r} is not ported (ROADMAP queue 1 item 4)")
-
-        image_filenames, poses = [], []
+        image_filenames, mask_filenames, poses = [], [], []
         fx, fy, cx, cy, height, width, distort = [], [], [], [], [], [], []
         distort_fixed = any(k in meta for k in ("k1", "k2", "k3", "p1", "p2", "distortion_params"))
 
@@ -80,10 +75,12 @@ class Nerfstudio(DataParser):
 
         frames = sorted(meta["frames"], key=lambda fr: fr["file_path"])
         for frame in frames:
-            for key in ("mask_path", "depth_file_path", "semantic_path"):
+            for key in ("depth_file_path", "semantic_path"):
                 if key in frame:
-                    raise NotImplementedError(f"frames with {key!r} are not ported (ROADMAP queue 1 items 5, 8)")
+                    raise NotImplementedError(f"frames with {key!r} are not ported (ROADMAP queue 1 item 8)")
             image_filenames.append(data_dir / frame["file_path"])
+            if "mask_path" in frame:
+                mask_filenames.append(data_dir / frame["mask_path"])
             poses.append(np.asarray(frame["transform_matrix"], dtype=np.float32))
             for lst, key, typ in ((fx, "fl_x", float), (fy, "fl_y", float), (cx, "cx", float), (cy, "cy", float),
                                   (height, "h", int), (width, "w", int)):
@@ -91,6 +88,8 @@ class Nerfstudio(DataParser):
                     lst.append(typ(frame[key]))
             if not distort_fixed:
                 distort.append(get_distort(frame))
+        if len(mask_filenames) not in (0, len(image_filenames)):
+            raise ValueError(f"{len(mask_filenames)} of {len(image_filenames)} frames have a mask_path: all or none")
 
         # train/eval split (reference :119-136)
         num_images = len(image_filenames)
@@ -151,8 +150,11 @@ class Nerfstudio(DataParser):
             w_arr = np.asarray(width, dtype=np.int32)[indices]
         if distort_fixed:
             d_arr = np.tile(get_distort(meta), (len(indices), 1))
-        else:
+        elif distort:
             d_arr = np.stack(distort, axis=0)[indices]
+        else:
+            d_arr = None
+        cam_type = CAMERA_MODEL_TO_TYPE.get(meta.get("camera_model", "OPENCV"), CameraType.PERSPECTIVE)
 
         df = cfg.downscale_factor
         if df is None:
@@ -171,7 +173,7 @@ class Nerfstudio(DataParser):
 
         cameras = Cameras.create(
             camera_to_worlds=poses[indices], fx=fx_arr, fy=fy_arr, cx=cx_arr, cy=cy_arr, width=w_arr, height=h_arr,
-            distortion_params=d_arr, camera_type=CameraType.PERSPECTIVE, device="cpu",
+            distortion_params=d_arr, camera_type=cam_type, device="cpu",
         )
         metadata = {}
         if cfg.load_3D_points:
@@ -189,6 +191,7 @@ class Nerfstudio(DataParser):
             image_filenames=[image_filenames[i] for i in indices],
             cameras=cameras,
             scene_box=scene_box,
+            mask_filenames=[mask_filenames[i] for i in indices] if mask_filenames else None,
             dataparser_transform=np.asarray(transform_matrix, dtype=np.float32)[:3],
             dataparser_scale=scale,
             metadata=metadata,

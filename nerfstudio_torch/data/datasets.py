@@ -4,13 +4,16 @@
 Images decode through ``data/image_io`` (PNG with zlib and a host routine
 for the row filters, JPEG through Pillow where it imports) to uint8, then float32 in [0, 1] with the
 alpha blended over the dataparser's ``alpha_color`` as the reference does.
-``load_all`` stacks the split for the datamanagers, which upload it to the
-device once. Masks, resizing by ``scale_factor``, resolution buckets, the
-C++ batch loader and the depth, semantic and SDF datasets are not ported."""
+Masks decode through the same reader and keep their first channel, > 127
+valid. ``load_all`` stacks the split (and its masks) for the datamanagers,
+which upload it to the device once; ``load_all_bucketed`` groups a
+mixed-resolution split into one stack per resolution. Resizing by
+``scale_factor``, the C++ batch loader and the depth, semantic and SDF
+datasets are not ported."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -24,8 +27,6 @@ class InputDataset:
     def __init__(self, dataparser_outputs: DataparserOutputs, scale_factor: float = 1.0):
         if scale_factor != 1.0:
             raise NotImplementedError("resizing a dataset's images (scale_factor != 1) is not ported")
-        if dataparser_outputs.mask_filenames is not None:
-            raise NotImplementedError("per-pixel masks are not ported (ROADMAP queue 1 item 5)")
         self._dataparser_outputs = dataparser_outputs
         self.scale_factor = scale_factor
         self.scene_box = dataparser_outputs.scene_box
@@ -57,12 +58,42 @@ class InputDataset:
                 image = image[..., :3] * image[..., 3:]
         return image
 
+    def get_mask(self, image_idx: int) -> Optional[np.ndarray]:
+        """(H, W, 1) bool: the mask's first channel > 127; None without masks
+        (reference :68-76)."""
+        if self._dataparser_outputs.mask_filenames is None:
+            return None
+        return (read_image(self._dataparser_outputs.mask_filenames[image_idx])[..., 0] > 127)[..., None]
+
     def load_all(self) -> Dict[str, np.ndarray]:
-        """The whole split as one uint8 stack (N, H, W, C) (reference
-        :114-137); images of different sizes raise."""
+        """The whole split as one uint8 stack (N, H, W, C), and its masks
+        (N, H, W, 1) where the split has them (reference :119-141); images of
+        different sizes raise ``ValueError``: ``load_all_bucketed`` takes
+        them."""
         images = [self.get_numpy_image(i) for i in range(len(self))]
         shapes = {im.shape for im in images}
         if len(shapes) != 1:
-            raise NotImplementedError(f"variable resolutions {shapes}: resolution buckets are not ported "
-                                      "(ROADMAP queue 1 item 5)")
-        return {"images": np.stack(images, axis=0)}
+            raise ValueError(f"variable resolutions {shapes}: use load_all_bucketed() "
+                             "(the datamanager does this automatically)")
+        out = {"images": np.stack(images, axis=0)}
+        if self._dataparser_outputs.mask_filenames is not None:
+            out["masks"] = np.stack([self.get_mask(i) for i in range(len(self))], axis=0)
+        return out
+
+    def load_all_bucketed(self) -> List[Dict[str, np.ndarray]]:
+        """A mixed-resolution split as one stack per exact (H, W, C), largest
+        bucket (images times pixels) first (reference :142-193): each
+        ``{"images": (B, H, W, C) uint8, "camera_indices": (B,) int32[,
+        "masks": (B, H, W, 1) bool]}``."""
+        images = [self.get_numpy_image(i) for i in range(len(self))]
+        has_masks = self._dataparser_outputs.mask_filenames is not None
+        buckets: Dict[tuple, List[int]] = {}
+        for i, im in enumerate(images):
+            buckets.setdefault(im.shape, []).append(i)
+        out = []
+        for _, idxs in sorted(buckets.items(), key=lambda kv: -len(kv[1]) * kv[0][0] * kv[0][1]):
+            b = {"images": np.stack([images[i] for i in idxs], axis=0), "camera_indices": np.asarray(idxs, np.int32)}
+            if has_masks:
+                b["masks"] = np.stack([self.get_mask(i) for i in idxs], axis=0)
+            out.append(b)
+        return out

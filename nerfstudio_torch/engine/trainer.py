@@ -157,8 +157,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
-        """(reference trainer.py:155-172): the auxiliary hook, then one step."""
+        """(reference trainer.py:165-180): the resident images' reload on its
+        cadence, the auxiliary hook, then one step."""
         kwargs = self.step_kwargs_fn(step)
+        self.pipeline.datamanager.maybe_reload(step)
         if self.pipeline.aux_update_fn is not None:
             self.pipeline.aux_update_fn(self.state, step, self.generator)
         return self.pipeline.train_step(self.state, self.generator, **kwargs)

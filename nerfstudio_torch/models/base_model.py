@@ -64,6 +64,7 @@ def render_camera(
     camera_idx: int,
     chunk_size: int = 4096,
     aux=None,
+    camera_opt_to_camera: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Chunked full-image inference (reference base_model.py:92-141 and the
     pipeline's render_camera, base_pipeline.py:318).
@@ -75,11 +76,12 @@ def render_camera(
     multiple with copies of the last ray, each chunk is rendered, and the
     outputs come back as (H, W, C) tensors on the model's device. A model
     that needs gradients at eval (the SDF field's normals) enables them
-    itself inside this no-grad render."""
+    itself inside this no-grad render. ``camera_opt_to_camera`` (3, 4)
+    corrects the camera's pose (reference base_model.py:97)."""
     if model.training:
         raise ValueError("render_camera renders the eval forward: call model.eval() first")
     device = next(model.parameters()).device
-    rb = cameras.generate_rays(camera_indices=camera_idx)
+    rb = cameras.generate_rays(camera_indices=camera_idx, camera_opt_to_camera=camera_opt_to_camera)
     h, w = rb.shape
     flat = rb.flatten().map(lambda x: x.to(device))
     n = h * w

@@ -63,7 +63,7 @@ class VanillaPipeline:
 
     @property
     def device(self) -> torch.device:
-        return self.datamanager.train_images.device
+        return self.datamanager.device
 
     def train_step(
         self,

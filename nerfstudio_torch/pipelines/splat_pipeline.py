@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from nerfstudio_torch.data.datamanagers import FullImageDatamanager
+from nerfstudio_torch.data.undistort import undistort_view
 from nerfstudio_torch.engine.optimizers import SplatAdam
 from nerfstudio_torch.engine.trainer import aux_from_state, aux_state, read_checkpoint, write_checkpoint
 from nerfstudio_torch.models.splatfacto import InitDraws, SplatAux, SplatfactoModel, init_gaussian_params
@@ -226,7 +227,13 @@ class SplatPipeline:
         return self._image_metrics(out, camera_idx), out
 
     def _image_metrics(self, out: Dict[str, torch.Tensor], camera_idx: int) -> Dict[str, float]:
+        """PSNR and SSIM against the view's ground truth, undistorted on the
+        host first where its camera carries distortion (the render is a
+        pinhole's; reference :687-705)."""
         gt = self.datamanager.eval_image(camera_idx)
+        cams = self.datamanager.eval_cameras
+        if cams.distorted:
+            gt = torch.from_numpy(undistort_view(gt.cpu().numpy(), cams, camera_idx)).to(gt.device)
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + out["background"] * (1 - gt[..., 3:])
         return {"psnr": float(psnr(out["rgb"], gt)), "ssim": float(ssim(out["rgb"], gt))}

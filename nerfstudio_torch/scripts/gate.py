@@ -1,6 +1,7 @@
 """Quality gate of a method on a synthetic scene (counterpart of
 ``tools/run_gate_matrix.py``'s ``run_gate`` for nerfacto and splatfacto on
-the ``basic`` scene of ``tools/make_synthetic_dataset.py``):
+the scenes of ``tools/make_synthetic_dataset.py``: ``basic``,
+``distorted``, ``masked``; the cell is named after the scene's directory):
 
     python -m nerfstudio_torch.scripts.gate METHOD SCENE_DIR OUT.json [--steps N] [--a.b value ...]
 
@@ -12,7 +13,10 @@ every eval cadence and intermediate save off, then every held-out view is
 rendered (ray methods in 16,384-ray chunks). The
 JSON has the keys of ``benchmarks/gate_nerfacto.json``, the card's name
 and power limit, and the kernel launches of training and eval. The gates:
-PSNR > 20 and SSIM > 0.7. ``--a.b value`` flags override the config
+PSNR > 20 and SSIM > 0.7. Beside the result stands the JAX package's
+record of the same cell (``benchmarks/gate_<method>[_<scene>].json``, the
+``basic`` scene without a suffix), its PSNR and SSIM only: its times were
+taken on another accelerator. ``--a.b value`` flags override the config
 (``--machine.device_type cpu`` runs on the CPU); any other than the machine
 marks the run as not at shipped defaults."""
 
@@ -30,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 GATE_STEPS = {"nerfacto": 5000, "splatfacto": 8000}
+RECORDS = Path(__file__).resolve().parents[2] / "benchmarks"
 PSNR_GATE, SSIM_GATE = 20.0, 0.7
 EVAL_CHUNK = 1 << 14
 BLOCK = 1000  # steps between the host-clock readings of the training time
@@ -43,6 +48,16 @@ def card() -> Dict[str, str]:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     name, limit = (x.strip() for x in line.rsplit(",", 1))
     return {"device": name, "power_limit": limit}
+
+
+def jax_record(method: str, scene: str) -> Optional[Dict[str, float]]:
+    """PSNR and SSIM of the JAX package's gate record of the cell, None
+    where the repo has none."""
+    path = RECORDS / f"gate_{method}{'' if scene == 'basic' else '_' + scene}.json"
+    if not path.is_file():
+        return None
+    metrics = json.loads(path.read_text(encoding="utf-8"))["metrics"]
+    return {"psnr": metrics["psnr"], "ssim": metrics["ssim"]}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -92,7 +107,8 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
                        if not overrides[i].startswith("--machine.")}
     result = {"method": method, "scene": Path(scene_dir).name, "steps": steps,
               "shipped_defaults": not model_overrides, "overrides": model_overrides,
-              "gates": {"psnr": PSNR_GATE, "ssim": SSIM_GATE}, **card()}
+              "gates": {"psnr": PSNR_GATE, "ssim": SSIM_GATE},
+              "jax_record": jax_record(method, Path(scene_dir).name), **card()}
     before = launch_counts()
     blocks = []
 

@@ -262,8 +262,8 @@ def trainer_checkpoint_from_jax(state: Any, model: Optional[torch.nn.Module] = N
 
 
 def dataparser_outputs_from_jax(outputs: Any):
-    """The JAX dataparser's ``DataparserOutputs`` -> the port's, cameras on
-    the CPU (a non-zero distortion raises, as the port's cameras do)."""
+    """The JAX dataparser's ``DataparserOutputs`` -> the port's, cameras
+    (types and distortion too) on the CPU."""
     from nerfstudio_torch.cameras.cameras import Cameras
     from nerfstudio_torch.data.dataparsers.base_dataparser import DataparserOutputs
     from nerfstudio_torch.data.scene_box import SceneBox

@@ -146,6 +146,18 @@ def test_gate_runner_writes_the_gate_record_keys(tmp_path):
     assert got["gates"] == want["gates"] and set(got["launches"]) == {"train", "eval"}
 
 
+@pytest.mark.parametrize("method", ["nerfacto", "splatfacto"])
+@pytest.mark.parametrize("scene", ["basic", "distorted", "masked"])
+def test_gate_record_of_each_scene(method, scene):
+    """The JAX record the gate runner sets beside its result: the scene's
+    own file (``basic`` without a suffix), PSNR and SSIM only; none for a
+    scene without a record."""
+    want = json.loads((REPO / "benchmarks" / f"gate_{method}{'' if scene == 'basic' else '_' + scene}.json")
+                      .read_text())["metrics"]
+    assert gate.jax_record(method, scene) == {"psnr": want["psnr"], "ssim": want["ssim"]}
+    assert gate.jax_record(method, "synthetic") is None
+
+
 def test_default_device_without_a_card_raises(tmp_path, monkeypatch):
     """The shipped ``machine.device_type`` is cuda: without a card the
     factory and the train script raise instead of running on the CPU."""

@@ -124,16 +124,63 @@ def test_registry_ports_two_parsers_and_names_the_rest():
 
 def test_cameras_take_zero_distortion_and_refuse_any_other():
     """All-zero distortion parameters (a frame without distortion keys) are
-    the identity and kept; one non-zero entry raises."""
+    the identity and kept, and the cameras read as undistorted; a non-zero
+    entry, which the port once refused, is kept too and marks them
+    distorted (ray generation then runs the Newton solve)."""
     from nerfstudio_torch.cameras.cameras import Cameras
 
     c2w = np.tile(np.eye(4, dtype=np.float32)[:3], (2, 1, 1))
     cams = Cameras.create(c2w, 10.0, 10.0, 4.0, 4.0, 8, 8, distortion_params=np.zeros((2, 6)), device="cpu")
-    assert torch.equal(cams.distortion_params, torch.zeros(2, 6))
+    assert torch.equal(cams.distortion_params, torch.zeros(2, 6)) and not cams.distorted
     d = np.zeros((2, 6))
     d[1, 4] = 1e-3
-    with pytest.raises(NotImplementedError, match="distortion"):
-        Cameras.create(c2w, 10.0, 10.0, 4.0, 4.0, 8, 8, distortion_params=d, device="cpu")
+    cams = Cameras.create(c2w, 10.0, 10.0, 4.0, 4.0, 8, 8, distortion_params=d, device="cpu")
+    assert cams.distorted and torch.equal(cams.distortion_params, torch.tensor(d, dtype=torch.float32))
+
+
+CAMERA_CASES = {
+    "fisheye": dict(camera_model="OPENCV_FISHEYE", k1=0.05, k2=-0.01, k3=0.002, k4=-1e-4),
+    "equirectangular": dict(camera_model="EQUIRECTANGULAR"),
+    "fisheye624": dict(camera_model="FISHEYE624", distortion_params=[0.03, -0.01, 0.002, -1e-4, 1e-5, -1e-6, 1e-3,
+                                                                        -5e-4, 2e-4, -1e-4, 1e-4, -5e-5]),
+    "opencv_per_frame": dict(camera_model="OPENCV"),
+    "unknown_model": dict(camera_model="THIN_PRISM_FISHEYE"),
+}
+
+
+@pytest.mark.parametrize("case", list(CAMERA_CASES))
+def test_camera_models_and_masks_as_jax(scenes, tmp_path, case):
+    """The fixture capture rewritten to another camera model (global
+    distortion, a 12-value list for Fisheye624, per-frame OpenCV terms; a
+    name the reference does not know is perspective), each frame with a
+    ``mask_path``: the port's cameras (types and arrays) and mask filenames
+    equal the JAX parser's at both splits."""
+    root = tmp_path / case
+    root.mkdir()
+    (root / "images").symlink_to(scenes["ns"] / "images")
+    meta = json.loads((scenes["ns"] / "transforms.json").read_text())
+    for k in ("k1", "k2", "p1", "p2"):
+        meta.pop(k)
+    meta.update(CAMERA_CASES[case])
+    for i, fr in enumerate(meta["frames"]):
+        fr["mask_path"] = f"masks/m_{i}.png"
+        if case == "opencv_per_frame":
+            fr.update(k1=-0.1 * i / 10, k2=0.01 * i, p1=1e-4 * i)
+    (root / "transforms.json").write_text(json.dumps(meta))
+    for split in ("train", "val"):
+        j = JNerfstudio(data=root).setup().get_dataparser_outputs(split)
+        t = NerfstudioDataParserConfig(data=root).setup().get_dataparser_outputs(split)
+        assert_outputs_match(j, t)
+        np.testing.assert_array_equal(t.cameras.camera_type.numpy(),
+                                      np.broadcast_to(np.asarray(j.cameras.camera_type).reshape(-1, 1),
+                                                      t.cameras.camera_type.shape))
+        assert [str(p) for p in t.mask_filenames] == [str(p) for p in j.mask_filenames]
+    for key in ("depth_file_path", "semantic_path"):
+        meta["frames"][0][key] = "x.png"
+        (root / "transforms.json").write_text(json.dumps(meta))
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+            NerfstudioDataParserConfig(data=root).setup().get_dataparser_outputs("train")
+        del meta["frames"][0][key]
 
 
 @pytest.mark.parametrize("scene", ["synthetic", "blender"])
