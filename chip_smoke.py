@@ -103,7 +103,26 @@ shapes its path gives it, and drives the port's paths from random weights:
   their twins at its trained state (the host time of undistorting the
   splat train images too); and 200 nerfacto steps through the resolution
   buckets of the mixed-resolution masked scene (the loss must fall), with
-  one step on the card against the CPU twins.
+  one step on the card against the CPU twins. The four gates on
+  ``distorted`` and ``masked`` run 1000 of their 8000 or 5000 steps (cut in
+  depth): their loss must fall, and every kernel of each path holds at its
+  trained state;
+* splatfacto's options and methods (phases 47-52): K4's backward with the
+  viewmat gradient (camera optimisation) against a float64 run of the twin
+  at the check inputs, at 1,000,000 random slots and at one trained MCMC
+  step's inputs (bit-equal across two runs), timed in turns beside the
+  default backward; K8 (``grid_sample_1d/2d/3d``, ``resize_linear``) and the
+  bilateral slice with their gradients and one ``color_correct`` on the card
+  against the CPU; one MCMC step (its noise draw handed in), one step with
+  the bilateral grid, SO3xR3 camera optimisation and scale regularisation
+  (the grids' and tangents' gradients compared too) and one MCMC refine, slot
+  for slot with the CPU's draws, on the card against the CPU; the
+  splatfacto-mcmc and splatfacto-big gates on ``basic`` at their full 8000
+  steps and 1,000,000 slots, beside the JAX records, each followed by its
+  path's kernels against their twins at its trained state and its idle
+  share; splatfacto with the three options on for 400 steps through
+  ``scripts.gate``'s loop (the loss must fall, the tangents stay finite,
+  every step launches the viewmat backward, the eval colour-corrects).
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -257,21 +276,27 @@ def device_ms(fn, runs: int = 10) -> float:
     return sum(statistics.fmean(many[k]) * c for k, c in per_call.items()) / 1e3
 
 
-def kernel_records_ms(fn, key: str, runs: int = 10):
+def kernel_records_ms(fn, key: str, runs: int = 10, tries: int = 3):
     """(mean device ms of one kernel record whose name holds ``key``, the
     records seen) under torch.profiler over ``runs`` calls of ``fn`` (after
     one warm-up): unlike ``device_ms`` it holds if the profiler drops
-    records, as long as ``fn`` launches that kernel once."""
+    records, as long as ``fn`` launches that kernel once. A profile that
+    saw no such record is taken again, up to ``tries`` in all (late in the
+    process one profile can lose every record of a kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name]
+    spans = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name]
+        if spans:
+            break
     return (sum(spans) / 1e3 / len(spans) if spans else float("nan")), len(spans)
 
 
@@ -701,8 +726,8 @@ def profile_device(run, per=PROFILED_STEPS):
 
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
     ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact", "bwd_lanes", "bwd_private")),
-    ("gsplat kernels", ("project_fwd", "project_bwd", "tile_keys", "tile_ranges", "tile_count", "tile_scan",
-                        "tile_scatter", "tile_sort", "blend_fwd", "blend_bwd")),
+    ("gsplat kernels", ("project_fwd", "project_bwd", "view_reduce", "tile_keys", "tile_ranges", "tile_count",
+                        "tile_scan", "tile_scatter", "tile_sort", "blend_fwd", "blend_bwd")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
     ("Adam (foreach)", ("multi_tensor_apply",)),
@@ -817,7 +842,8 @@ SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile
 SPLAT_STEP_LAUNCHES = {**dict.fromkeys(SPLAT_KERNELS, 1), "blend_saturating_per_pixel": 0, "tile_bin_sorted": 0}
 # the gsplat kernels by profiler name (first match), one row each in the
 # splat profiles: every kernel K4, K5 and K6 launch
-GSPLAT_ROWS = (("K4 fwd", "project_fwd"), ("K4 bwd", "project_bwd"), ("K5 tile_count", "tile_count"),
+GSPLAT_ROWS = (("K4 fwd", "project_fwd"), ("K4 bwd", "project_bwd"), ("K4 bwd viewmat sum", "view_reduce"),
+               ("K5 tile_count", "tile_count"),
                ("K5 tile_scan", "tile_scan"), ("K5 tile_scatter", "tile_scatter"), ("K5 tile_sort", "tile_sort"),
                ("K5 sorted design", "tile_keys"), ("K5 sorted design", "tile_ranges"), ("K6 fwd", "blend_fwd"),
                ("K6 bwd", "blend_bwd"))
@@ -848,19 +874,20 @@ SPLAT_LOSS_RTOL = 1e-4
 SPLAT_GRAD_REL = 2e-3
 
 
-def build_splat(device, hw=SPLAT_HW, slots=SPLAT_SLOTS, n_random=SPLAT_RANDOM, params=None):
+def build_splat(device, hw=SPLAT_HW, slots=SPLAT_SLOTS, n_random=SPLAT_RANDOM, params=None, **options):
     """splatfacto at the shipped config (sh_degree 3, saturating blend,
-    big_frac 16, random background, DefaultStrategy) on
-    tools/bench_models.py's setup: ``max_gaussians`` slots, ``n_random``
-    random-init gaussians at random_scale 1.5 and scene_scale 1.5, no
-    downscales, 8 orbit cameras at radius 2.5 and height 1.2 over random
-    images from SEED. ``params`` (CPU tensors) replace the init's."""
+    big_frac 16, random background, DefaultStrategy; ``options`` override
+    config fields) on tools/bench_models.py's setup: ``max_gaussians``
+    slots, ``n_random`` random-init gaussians at random_scale 1.5 and
+    scene_scale 1.5, no downscales, 8 orbit cameras at radius 2.5 and height
+    1.2 over random images from SEED. ``params`` (CPU tensors) replace the
+    init's."""
     from nerfstudio_torch.data.datamanagers import FullImageDatamanager
     from nerfstudio_torch.models.splatfacto import SplatfactoModel, SplatfactoModelConfig
     from nerfstudio_torch.pipelines.splat_pipeline import SplatPipeline
 
     cfg = SplatfactoModelConfig(max_gaussians=slots, num_random=n_random, random_init=True, random_scale=SPLAT_SCALE,
-                                num_downscales=0)
+                                num_downscales=0, **options)
     images = np.random.default_rng(SEED).uniform(size=(SPLAT_CAMERAS, hw, hw, 3)).astype(np.float32)
     dm = FullImageDatamanager(orbit_cameras(SPLAT_CAMERAS, hw, "cpu", radius=2.5, height=1.2),
                               torch.from_numpy(images), seed=SEED, device=device)
@@ -989,7 +1016,7 @@ def check_k4(name, x, gen):
     # ~250 float32 operations per gaussian forward (rotation, covariance,
     # Jacobian, conic, radius), ~700 backward, counted from the sources
     outs = [t for t in out if isinstance(t, torch.Tensor)]
-    bounds = (bound(nbytes(m, s, q, *outs), 250 * n), bound(nbytes(m, s, q, *cots, m, s, q), 700 * n))
+    bounds = (bound(nbytes(m, s, q, *outs), 250 * n), k4_bwd_bounds(m, s, q, cots, cam[-1])[0])
     timing = dict(
         fwd=lambda: pj._project_kernel(m, s, q, cam), fwd_twin=lambda: pj._project_twin(m, s, q, *cam),
         bwd=lambda: pj._project_bwd_kernel(m, s, q, cam, *cots),
@@ -2267,14 +2294,16 @@ def cli_round_trip(name, scene, root, card):
     return dict(steps=CLI_RESUME_TO, psnr=(first["psnr"], last["psnr"]), launches=counts, wall_s=wall)
 
 
-def check_splat_step(name, one_step, label):
+def check_splat_step(name, one_step, label, keep=None):
     """K4, K5 and K6, forward and backward, against their twins at the
     inputs that one more step of ``one_step`` hands them (each called once):
     K4 within K4_REL of each output's peak and its backward against the
-    float64 twin (``k4_fwd_errors``, ``k4_bwd_errors``), K5 exact in every
-    design (``check_k5``), K6's forward bit-equal across designs and within
-    K6_FWD_REL (``check_k6_designs``), its backward within K6_BWD_REL.
-    Returns {kernel: max abs err}."""
+    float64 twin (``k4_fwd_errors``, ``k4_bwd_errors``; with the viewmat's
+    gradient where the step asked for it, ``k4_viewmat_errors``), K5 exact
+    in every design (``check_k5``), K6's forward bit-equal across designs
+    and within K6_FWD_REL (``check_k6_designs``), its backward within
+    K6_BWD_REL. Returns {kernel: max abs err}; ``keep`` (a dict) receives
+    K4 backward's inputs under "k4_bwd"."""
     from nerfstudio_torch.ops.gsplat import projection as pj
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
@@ -2285,19 +2314,28 @@ def check_splat_step(name, one_step, label):
         raise AssertionError(f"{name}: one step called {({k: len(v) for k, v in calls.items()})}")
     (m, s, q, cam), _ = calls["K4"][0]
     out, ref, errs, flips, bad_flips, fwd_abs = k4_fwd_errors(name, m, s, q, cam)
-    bwd_errs, bwd_over, bwd_abs = k4_bwd_errors(m, s, q, cam, calls["K4 bwd"][0][0][4:])
+    (bm, bs, bq, bcam, *cots), bkw = calls["K4 bwd"][0]
+    if keep is not None:
+        keep["k4_bwd"] = (bm, bs, bq, bcam, cots)
+    bwd_errs, bwd_over, bwd_abs = k4_bwd_errors(m, s, q, cam, cots)
     log(name, f"K4 at {label}: N={m.shape[0]} ({int(ref[4].sum())} visible) {cam[5]}x{cam[6]} (limit {K4_REL}): "
         + k4_line("mode antialiased" if cam[-1] else "mode classic", errs, flips, bad_flips, bwd_errs, bwd_over))
     if max(errs.values()) > K4_REL or bad_flips or bwd_over:
         raise AssertionError(f"{name}: K4 disagrees with its twin at {label}")
+    view_abs = None
+    if bkw.get("need_viewmat"):
+        view_abs = check_k4_viewmat(name, f"{label}, the step's own call", bm, bs, bq, bcam, cots)["max_abs_err"]
     check_k5(name, tuple(calls["K5"][0][0]), label)
     k6 = check_k6_designs(name, label, *calls["K6"][0][0])
     rel, k6_bwd_err, _, _, walked = k6_bwd_check(*calls["K6 bwd"][0][0])
     log(name, f"K6 backward at {label} (walked {walked:.0f}): " + k6_bwd_line(rel))
     if max(rel.values()) > K6_BWD_REL:
         raise AssertionError(f"{name}: K6's backward disagrees with its twin at {label}")
-    return {"project_gaussians": fwd_abs, "project_gaussians_bwd": bwd_abs, "tile_bin": 0.0,
+    errs = {"project_gaussians": fwd_abs, "project_gaussians_bwd": bwd_abs, "tile_bin": 0.0,
             "blend_saturating": k6["max_abs_err"][rz.BLEND_FWD_DESIGNS[0]], "blend_saturating_bwd": k6_bwd_err}
+    if view_abs is not None:
+        errs["project_gaussians_bwd_viewmat"] = view_abs
+    return errs
 
 
 def check_hash_step(name, one_step, label, kind):
@@ -2373,28 +2411,45 @@ def profiled_idle(name, one_step, step_ms, label):
     return dict(busy_ms=busy_ms, step_ms=step_ms, idle=idle, activities=activities)
 
 
-def gate_phase(name, method, scene, root, card, want):
+def loss_fell(run_dir):
+    """(mean of the first quarter of the logged train losses, of the last
+    quarter, all finite and falling)."""
+    losses = train_losses(run_dir)
+    q = max(len(losses) // 4, 1)
+    head, tail = statistics.fmean(losses[:q]), statistics.fmean(losses[-q:])
+    return head, tail, all(map(math.isfinite, losses)) and tail < head
+
+
+def gate_phase(name, method, scene, root, card, want, steps=None, keep=None):
     """``scripts.gate.run_gate`` at the method's gate steps on the scene: it
     fails unless PSNR > 20 and SSIM > 0.7. Prints the result beside the JAX
     record's quality (the same scene protocol), the train seconds and
     rays/s of the user's loop, the launches per step by kernel. Then, at
     the trained state: every kernel of the path against its twin at one
     more step's inputs (and, for nerfacto, one eval chunk's), and the
-    device's idle share over a few profiled steps."""
+    device's idle share over a few profiled steps. With ``steps`` (a run cut
+    in depth) the gate is not asked: the logged loss must be finite and
+    fall (first quarter's mean against the last's). ``keep`` receives the
+    splat step's K4 backward inputs (``check_splat_step``)."""
     from nerfstudio_torch.scripts import gate
 
-    undistort = undistort_host_ms(scene) if method == "splatfacto" else None
+    splat = method.startswith("splatfacto")
+    undistort = undistort_host_ms(scene) if splat else None
     t0 = time.perf_counter()
     zero_counts()
-    res, run = gate.run_gate(method, scene, os.path.join(root, "gate"))
+    res, run = gate.run_gate(method, scene, os.path.join(root, "gate"), steps)
     counts = read_counts()
-    check_path(name, counts, want)
+    check_path(name, counts, want, none=PER_THREAD + ("hash_encode_block_per_thread", "blend_saturating_per_pixel",
+                                                    "project_gaussians_bwd_viewmat"))
     wall = time.perf_counter() - t0
     # the JAX package's record of the cell (gate.jax_record, read from
     # benchmarks/): PSNR and SSIM only; its times were taken on a TPU
     m, (jp, js) = res["metrics"], res["jax_record"].values()
     per_step = {k: v / res["steps"] for k, v in res["launches"]["train"].items() if v}
-    log(name, f"{method} on {res['scene']} ({' '.join(SCENE_ARGS)}), shipped config, {res['steps']} steps: psnr "
+    head, tail, fell = loss_fell(run["base_dir"])
+    log(name, f"{method} on {res['scene']} ({' '.join(SCENE_ARGS)}), shipped config, {res['steps']} steps"
+        + (f" (cut in depth from {gate.GATE_STEPS[method]}: the gate is not asked; logged loss {head:.4f} -> "
+           f"{tail:.4f}, first quarter's mean to the last's)" if steps else "") + ": psnr "
         f"{m['psnr']:.2f} (JAX record {jp}), ssim {m['ssim']:.3f} (JAX record {js}), over every held-out view; "
         f"gates {res['gates']} -> pass {res['pass']}; train {res['train_seconds']:.1f} s = "
         f"{res['train_rays_per_sec']:,.0f} rays/s, {1e3 / res['steps_per_sec']:.2f} ms/step (host clock, the "
@@ -2406,11 +2461,13 @@ def gate_phase(name, method, scene, root, card, want):
         + f"; launches per train step {per_step}, eval {({k: v for k, v in res['launches']['eval'].items() if v})}; "
         f"{wall:.1f} s wall on {card}")
     print(json.dumps(res), flush=True)
-    if not res["pass"]:
+    if steps and not fell:
+        raise AssertionError(f"{name}: {method}'s loss did not fall over {steps} steps: {head} -> {tail}")
+    if not steps and not res["pass"]:
         raise AssertionError(f"{name}: {method} missed the gate: psnr {m['psnr']}, ssim {m['ssim']}")
-    label = f"the {method} gate's trained state"
-    if method == "splatfacto":
-        errs = check_splat_step(name, run["one_step"], label)
+    label = f"the {method} {'run' if steps else 'gate'}'s trained state"
+    if splat:
+        errs = check_splat_step(name, run["one_step"], label, keep)
     else:
         errs = check_hash_step(name, run["one_step"], label, "K1")
         for k, v in check_eval_chunk(name, run["pipeline"], run["state"], label).items():
@@ -2420,7 +2477,7 @@ def gate_phase(name, method, scene, root, card, want):
     del run
     torch.cuda.empty_cache()
     return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs, idle=idle,
-                undistort=undistort)
+                undistort=undistort, loss=(head, tail))
 
 
 def neus_from_disk(name, scene, root, card):
@@ -2805,6 +2862,456 @@ def bucketed_run(name, scene, root, card):
                 card_vs_cpu=dict(loss_rel=loss_rel, grad_rel=grad_rel, table_rel=table_rel))
 
 
+# --------------------------------------------------------------------------
+# splatfacto's options and methods (phases 47-52): K4 with the viewmat
+# gradient, K8 and the bilateral grid, MCMC, splatfacto-big
+
+
+K4_VIEW_SLOTS = 1_000_000  # splatfacto-big and splatfacto-mcmc's max_gaussians
+# K4 backward's viewmat gradient against a float64 run of the twin: a sum
+# over every gaussian of ~60 products each, reduced in another order than
+# autograd's. Per entry the kernel may be off by twice the float32 twin's
+# own error plus 32 float32 roundings of the sum of the entry's |terms|
+# (float64, from one viewmat per gaussian): the reduction's depth is below
+# 32 at 2^20 gaussians. The other arrays keep k4_bwd_errors' limit.
+K4_VIEW_ROUNDINGS = 32
+# K8 and the bilateral grid, card vs CPU: the same float32 operations, so
+# values within 1e-6; the gathers' cotangents are scattered with atomics in
+# any order on the card: gradients within 1e-5 of their peak.
+# color_correct is a 10x10 ridge solve in float32 whose normal equations sum
+# every pixel, each device in its own order, and the solve amplifies those
+# roundings: each device's fit is held to a float64 fit of the same inputs,
+# the card's error within COLOR_CORRECT_FACTOR times the CPU's plus 1e-5.
+K8_VALUE_ABS, K8_GRAD_REL, COLOR_CORRECT_FACTOR = 1e-6, 1e-5, 4.0
+OPTIONS_STEPS = 400  # the three options' run through scripts.gate's loop
+OPTIONS_FLAGS = ("--model.use-bilateral-grid", "True", "--model.camera-optimizer-mode", "SO3xR3",
+                 "--model.use-scale-regularization", "True")
+CUT_GATE_STEPS = 1000  # the distorted and masked gates, cut in depth (their full runs: PERF.md §6)
+
+
+def k4_view_random(n, gen, hw=SPLAT_HW):
+    """``n`` random gaussians in front of the first orbit camera at hw^2
+    (means in the orbit's view, scales exp(U(-5, -2)), normal quaternions),
+    that camera's K4 arguments with its viewmat on the card, and
+    cotangents on the visible ones: (m, s, q, cam, cots)."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    dev = torch.device("cuda")
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    m = (u(n, 3) - 0.5) * 3.0
+    s = torch.exp(u(n, 3) * 3.0 - 5.0)
+    q = torch.randn((n, 4), generator=gen, device=dev)
+    cams = orbit_cameras(1, hw, "cpu", radius=2.5, height=1.2)
+    fx, fy, cx, cy = (float(getattr(cams, f)[0, 0]) for f in ("fx", "fy", "cx", "cy"))
+    cam = (pj.get_viewmat(cams.camera_to_worlds[0]).to(dev), fx, fy, cx, cy, hw, hw, 0.01, 0.3, False)
+    with torch.no_grad():
+        out = pj._project_kernel(m, s, q, cam)
+    valid = out[4]
+    cots = [torch.randn(t.shape, generator=gen, device=dev) * valid.view(-1, *([1] * (t.ndim - 1)))
+            for t in out[:3] + out[5:]]
+    return m, s, q, cam, cots
+
+
+def k4_viewmat_errors(m, s, q, cam, cots):
+    """K4's backward with the viewmat gradient at one call's inputs against
+    a float64 run of the twin: (the kernel's outputs, {array: (kernel's,
+    float32 twin's error / peak)}, the arrays over their limits, the
+    viewmat's worst error / limit, max |kernel - float32 twin|)."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    cam = (cam[0].to(m.device),) + tuple(cam[1:])
+    got = pj._project_bwd_kernel(m, s, q, cam, *cots, need_viewmat=True)
+    twin = pj._project_twin_bwd(m, s, q, cam, *cots, need_viewmat=True)
+    d64 = (m.double(), s.double(), q.double())
+    c64 = [c.double() for c in cots]
+    ref64 = pj._project_twin_bwd(*d64, cam, *c64, need_viewmat=True)
+    per = pj._project_twin_bwd(*d64, (cam[0].double().expand(m.shape[0], 4, 4),) + cam[1:], *c64,
+                               need_viewmat=True)[3]
+    abs_sum = per.abs().sum(0)
+    del per
+    torch.cuda.synchronize()
+    over, errs, max_abs, view_ratio = [], {}, 0.0, 0.0
+    for k, a, b, r in zip(("means", "scales", "quats", "viewmat"), got, twin, ref64):
+        e_k, e_t = (a.double() - r).abs(), (b.double() - r).abs()
+        peak = float(r.abs().max())
+        errs[k] = (float(e_k.max()) / peak, float(e_t.max()) / peak)
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        if k == "viewmat":
+            lim = 2 * e_t + K4_VIEW_ROUNDINGS * U32 * abs_sum
+            view_ratio = float((e_k[:3] / lim[:3].clamp_min(1e-300)).max())
+            bad = view_ratio > 1 or bool(a[3].any())
+        else:
+            bad = float(e_k.max()) > 2 * float(e_t.max()) + 1e-6 * peak
+        if bad or not torch.isfinite(a).all():
+            over.append(k)
+    return got, errs, over, view_ratio, max_abs
+
+
+def check_k4_viewmat(name, label, m, s, q, cam, cots):
+    """``k4_viewmat_errors`` at one input set, logged; raises over a limit.
+    Also checks that two runs give the same bits. Returns its record."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    got, errs, over, view_ratio, max_abs = k4_viewmat_errors(m, s, q, cam, cots)
+    again = pj._project_bwd_kernel(m, s, q, (cam[0].to(m.device),) + tuple(cam[1:]), *cots, need_viewmat=True)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(name, f"K4 bwd with the viewmat gradient at {label}: N={m.shape[0]} ({int((cots[0] != 0).any(-1).sum())} with a "
+        f"cotangent) {cam[5]}x{cam[6]}: max |x - float64 twin| / peak (kernel, float32 twin) "
+        + ", ".join(f"{k} {a:.3g}/{b:.3g}" for k, (a, b) in errs.items())
+        + f"; viewmat worst error / limit (2 x twin + {K4_VIEW_ROUNDINGS} U32 sum|terms|) {view_ratio:.3g}; two runs "
+        f"bit-equal {same}; over the limit: {over}")
+    if over or not same:
+        raise AssertionError(f"{name}: K4's viewmat backward disagrees with the float64 twin at {label}")
+    return dict(inputs=label, n=int(m.shape[0]), errs=errs, view_ratio=view_ratio, max_abs_err=max_abs,
+                bit_equal_runs=same)
+
+
+def k4_bwd_bounds(m, s, q, cots, antialiased):
+    """(bound without, with the viewmat gradient) of K4's backward: the
+    gaussians and the cotangents it reads once (d_comp, ``cots[3]``, only
+    when antialiased, as the kernel reads it), the gradients written once;
+    with the viewmat gradient also the viewmat's 12 floats read, the
+    per-block partials written and read back and d(viewmat)'s 12 floats
+    written. ~700 float32 operations per gaussian, ~100 more for the
+    viewmat's 12 sums."""
+    from nerfstudio_torch.ops.gsplat import _cuda as sc
+
+    n = m.shape[0]
+    moved = nbytes(m, s, q, *(cots if antialiased else cots[:3]), m, s, q)
+    partials = sc.kernel_library().nst_gsplat_view_partials(n)
+    return bound(moved, 700 * n), bound(moved + 4 * (12 + 2 * partials + 12), 800 * n)
+
+
+def time_k4_viewmat(name, m, s, q, cam, cots, label):
+    """K4's backward at the same inputs along its three routes, in turns:
+    without the viewmat gradient from the host's viewmat (the default
+    path) and from the card's, and with the gradient (the card's). Each by
+    CUDA events around one call (median), around 50 calls back to back,
+    and profiler device ms, the mean per kernel record of the backward
+    kernel and of the viewmat's reducing kernel (robust to dropped records,
+    ``kernel_records_ms``); the twin with the gradient, once."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    host = (cam[0].cpu(),) + tuple(cam[1:])
+    dev = (cam[0].to(m.device),) + tuple(cam[1:])
+    fns = {"default": lambda: pj._project_bwd_kernel(m, s, q, host, *cots),
+           "device_viewmat": lambda: pj._project_bwd_kernel(m, s, q, dev, *cots),
+           "viewmat": lambda: pj._project_bwd_kernel(m, s, q, dev, *cots, need_viewmat=True)}
+    rec = {}
+    for _ in range(2):
+        for k, fn in fns.items():
+            r = rec.setdefault(k, {"ms": [], "batch_ms": [], "device_ms": [], "bwd_record_ms": [],
+                                   "reduce_record_ms": []})
+            r["ms"].append(median_ms(fn))
+            r["batch_ms"].append(batch_ms(fn))
+            r["bwd_record_ms"].append(kernel_records_ms(fn, "project_bwd")[0])
+            r["reduce_record_ms"].append(kernel_records_ms(fn, "view_reduce")[0] if k == "viewmat" else 0.0)
+            r["device_ms"].append(r["bwd_record_ms"][-1] + r["reduce_record_ms"][-1])
+    plain_ms = median_ms(lambda: pj._project_twin_bwd(m, s, q, dev, *cots, need_viewmat=True), runs=3, warmup=1)
+    out = {k: {kk: statistics.fmean(v) for kk, v in r.items()} for k, r in rec.items()}
+    b_default, b_view = k4_bwd_bounds(m, s, q, cots, cam[-1])
+    log(name, f"K4 bwd at {label} (N={m.shape[0]}) on {card_line()}, in turns (events one call / 50 back to back / "
+        f"device ms): default (the host's viewmat) " + " / ".join(f"{out['default'][k]:.4f}" for k in
+                                                                   ("ms", "batch_ms", "device_ms"))
+        + ", the card's viewmat without the gradient " + " / ".join(f"{out['device_viewmat'][k]:.4f}" for k in
+                                                                      ("ms", "batch_ms", "device_ms"))
+        + ", with the viewmat gradient " + " / ".join(f"{out['viewmat'][k]:.4f}" for k in
+                                                     ("ms", "batch_ms", "device_ms"))
+        + f" (the backward kernel {out['viewmat']['bwd_record_ms']:.4f}, the viewmat's sum "
+        f"{out['viewmat']['reduce_record_ms']:.4f}); bounds {b_default[0]:.4f} / {b_view[0]:.4f} ms ({b_view[1]}); "
+        f"twin with the viewmat {plain_ms:.3f} ms")
+    return dict(inputs=label, n=int(m.shape[0]), plain_ms=plain_ms, bound=b_view, default_bound=b_default, **out)
+
+
+def k8_card_vs_cpu(name, gen):
+    """K8 (``grid_sample_1d/2d/3d``, ``resize_linear``) and the bilateral
+    slice with their gradients, and one ``color_correct``, on the card
+    against the CPU from the same inputs, at the bilateral grid's shapes
+    (a (12, 8, 16, 16) grid over 512^2 pixels). Returns the worst value
+    and gradient errors."""
+    from nerfstudio_torch.model_components import bilateral_grid as bg
+    from nerfstudio_torch.ops import interp
+
+    g = torch.Generator().manual_seed(SEED + 11)
+    hw = SPLAT_HW
+    cases = {
+        "grid_sample_1d": (interp.grid_sample_1d, (torch.randn(12, 16, generator=g),
+                                                   torch.rand(hw * hw, generator=g) * 2.6 - 1.3)),
+        "grid_sample_2d": (interp.grid_sample_2d, (torch.randn(12, 16, 16, generator=g),
+                                                   torch.rand(hw * hw, 2, generator=g) * 2.6 - 1.3)),
+        "grid_sample_3d": (interp.grid_sample_3d, (torch.randn(12, 8, 16, 16, generator=g),
+                                                   torch.rand(hw * hw, 3, generator=g) * 2.6 - 1.3)),
+        "resize_linear up": (lambda x: interp.resize_linear(x, (16, 32, 32)),
+                             (torch.randn(12, 8, 16, 16, generator=g),)),
+        "resize_linear down": (lambda x: interp.resize_linear(x, (4, 8, 5)),
+                               (torch.randn(12, 8, 16, 16, generator=g),)),
+        "slice_bilateral_grid": (bg.slice_bilateral_grid, (
+            bg.init_bilateral_grid(1, device="cpu")[0] + torch.randn(12, 8, 16, 16, generator=g) * 0.1,
+            torch.rand(hw, hw, 3, generator=g))),
+    }
+    rec, lines = {}, []
+    for label, (fn, args) in cases.items():
+        runs = []
+        for device in ("cuda", "cpu"):
+            leaves = [a.to(device).requires_grad_(True) for a in args]
+            out = fn(*leaves)
+            cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED + 12)).to(device)
+            grads = torch.autograd.grad(out, leaves, cot)
+            runs.append((out.detach().cpu(), [x.cpu() for x in grads]))
+        (o_card, g_card), (o_cpu, g_cpu) = runs
+        v_err = float((o_card - o_cpu).abs().max())
+        g_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_card, g_cpu) if b.abs().max() > 0)
+        rec[label] = (v_err, g_err)
+        lines.append(f"{label} {v_err:.3g} / {g_err:.3g}")
+    ref = torch.rand(hw, hw, 3, generator=g)
+    img = torch.clamp(ref * 0.8 + 0.07 + torch.randn(hw, hw, 3, generator=g) * 0.02, 0, 1)
+    cc = [bg.color_correct(img.to(d), ref.to(d)).cpu().double() for d in ("cuda", "cpu")]
+    cc64 = bg.color_correct(img.double().cuda(), ref.double().cuda()).cpu()
+    e_card, e_cpu = (float((c - cc64).abs().max()) for c in cc)
+    cc_err = float((cc[0] - cc[1]).abs().max())
+    torch.cuda.synchronize()
+    log(name, f"card vs CPU at {hw}^2 (value max abs / gradient max abs over peak): " + ", ".join(lines)
+        + f" (limits {K8_VALUE_ABS} / {K8_GRAD_REL}); color_correct card vs CPU {cc_err:.3g}, against the float64 "
+        f"fit card {e_card:.3g}, CPU {e_cpu:.3g} (limit {COLOR_CORRECT_FACTOR:g} x the CPU's + 1e-5)")
+    if any(v > K8_VALUE_ABS or ge > K8_GRAD_REL for v, ge in rec.values()) or \
+            e_card > COLOR_CORRECT_FACTOR * e_cpu + 1e-5:
+        raise AssertionError(f"{name}: K8 or the bilateral grid disagrees between the card and the CPU")
+    return dict(cases=rec, color_correct=cc_err, color_correct_vs_float64=(e_card, e_cpu))
+
+
+def options_params(n, gen, num_images=SPLAT_CAMERAS):
+    """The CPU splat parameters of ``splat_card_vs_cpu`` (anisotropic
+    scales, random quaternions, SH rest coefficients, some gaussians near
+    MCMC's dead opacity) with perturbed bilateral grids and small camera-opt
+    tangents for ``num_images`` images."""
+    from nerfstudio_torch.model_components.bilateral_grid import init_bilateral_grid
+
+    _, state = build_splat("cpu", SPLAT_CHECK_HW, n, n)
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    params["scales"] += torch.rand((n, 3), generator=gen) - 0.5
+    params["quats"] = torch.randn((n, 4), generator=gen)
+    params["features_rest"] = torch.randn(params["features_rest"].shape, generator=gen) * 0.1
+    params["opacities"] = torch.rand((n, 1), generator=gen) * 6.0 - 3.0
+    params["opacities"][: n // 20] = -6.0 - torch.rand((n // 20, 1), generator=gen)
+    params["bilateral_grids"] = init_bilateral_grid(num_images, device="cpu") + torch.randn(
+        (num_images, 12, 8, 16, 16), generator=gen) * 0.05
+    params["camera_opt"] = torch.randn((num_images, 6), generator=gen) * 1e-3
+    return params
+
+
+def option_steps_card_vs_cpu(name):
+    """One splat step at 128^2 on the card and on the CPU twins, from the
+    same params and draws, for the MCMC config (its noise draw handed in;
+    the means after the noise compared too) and for the bilateral grid,
+    SO3xR3 camera optimisation and scale regularisation together (camera 1:
+    the viewmat's gradient through K4, and the grids' and tangents'
+    gradients compared with the gaussians'), at phase 18's limits."""
+    gen = torch.Generator().manual_seed(SEED + 13)
+    n = SPLAT_CHECK_GAUSS
+    base = options_params(n, gen)
+    bg = torch.rand((3,), generator=gen)
+    noise = torch.randn((n, 3), generator=gen)
+    configs = {"mcmc": dict(strategy="mcmc"),
+               "bilateral grid + camera opt + scale reg": dict(use_bilateral_grid=True,
+                                                               camera_optimizer_mode="SO3xR3",
+                                                               use_scale_regularization=True)}
+    recs = {}
+    for label, options in configs.items():
+        params = {k: v for k, v in base.items()
+                  if k not in ("bilateral_grids", "camera_opt") or options.get("use_bilateral_grid")}
+        runs = []
+        zero_counts()
+        for device in ("cuda", "cpu"):
+            pipeline, state = build_splat(device, SPLAT_CHECK_HW, n, n, params=params, **options)
+            c2w, K, w, h = pipeline.camera(pipeline.datamanager.train_cameras, 1)
+            image = pipeline.datamanager.train_images[1]
+            before = state.params["means"].detach().clone()
+            metrics = pipeline.train_step(state, c2w, K, image, bg.to(device), w, h, 3, cam_idx=1,
+                                          noise=noise.to(device), means_lr=1.6e-4)
+            grads = {k: p.grad.detach().cpu().double() for k, p in state.params.items()}
+            runs.append((float(metrics["loss"]), grads, (state.params["means"].detach() - before).cpu().double()))
+        counts = read_counts()
+        (l_card, g_card, mv_card), (l_cpu, g_cpu, mv_cpu) = runs
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        rel = {k: float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu}
+        # the means' move: Adam's ~lr steps where the gradient is strong, plus the noise
+        strong = g_cpu["means"].abs() >= 1e-2 * g_cpu["means"].abs().max()
+        move_rel = float((mv_card - mv_cpu).abs()[strong].max() / mv_cpu.abs().max())
+        want = "project_gaussians_bwd_viewmat" if "camera_opt" in g_cpu else None
+        recs[label] = dict(loss_rel=loss_rel, grad_rel=rel, move_rel=move_rel, launches=counts)
+        log(name, f"{label}, {SPLAT_CHECK_HW}^2, {n} gaussians: loss {l_card:.6f} vs {l_cpu:.6f} (rel "
+            f"{loss_rel:.2g}, limit {SPLAT_LOSS_RTOL}); gradients max |card - cpu| / peak "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + f" (limit {SPLAT_GRAD_REL}); the means' move "
+            f"where their gradient is strong {move_rel:.3g} of the largest (limit 1e-2); card launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+        if loss_rel > SPLAT_LOSS_RTOL or max(rel.values()) > SPLAT_GRAD_REL or move_rel > 1e-2:
+            raise AssertionError(f"{name}: card and CPU steps disagree ({label})")
+        if want and counts.get(want) != 1:
+            raise AssertionError(f"{name}: the camera-opt step launched {want} {counts.get(want)} times")
+    return recs
+
+
+def full_image_card_vs_cpu(name):
+    """A uint8 train and eval image holding every value 0..255, through
+    ``FullImageDatamanager`` on the card and on the CPU: the card's float32
+    images equal the CPU's (uint8 / 255) bit for bit."""
+    from nerfstudio_torch.data.datamanagers import FullImageDatamanager
+
+    img = torch.randint(0, 256, (1, SPLAT_CHECK_HW, SPLAT_CHECK_HW, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(SEED + 16))
+    img.view(-1)[:256] = torch.arange(256, dtype=torch.uint8)
+    cams = orbit_cameras(1, SPLAT_CHECK_HW, "cpu")
+    out = []
+    for device in ("cuda", "cpu"):
+        dm = FullImageDatamanager(cams, img, cams, img, device=device)
+        out.append((dm.next_train(0)[1].cpu(), dm.eval_image(0).cpu()))
+    same = all(torch.equal(a, b) for a, b in zip(*out))
+    quotient = torch.equal(out[1][0], img[0].to(torch.float32) / 255.0)
+    log(name, f"FullImageDatamanager, a {SPLAT_CHECK_HW}^2 uint8 image with every value: the card's train and eval "
+        f"images bit-equal to the CPU's {same}, the CPU's the quotient by 255 {quotient}")
+    if not same or not quotient:
+        raise AssertionError(f"{name}: the card's full images differ from the CPU's")
+    return same
+
+
+def refine_mcmc_card_vs_cpu(name):
+    """One MCMC refine on the card and on the CPU from the same state
+    (options_params' gaussians, 5% of them dead, random moments at count
+    5) with the CPU's categorical draw handed to both: alive and the
+    moments equal, every slot within 1e-6 of the largest value of its
+    array (the relocation's pow, log and binomial sums)."""
+    from nerfstudio_torch.models.splatfacto import SplatAux
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    n = SPLAT_CHECK_GAUSS
+    params = {k: v for k, v in options_params(n, gen).items() if k not in ("bilateral_grids", "camera_opt")}
+    moments = {k: (5, torch.rand(v.shape, generator=gen), torch.rand(v.shape, generator=gen))
+               for k, v in params.items()}
+    cfg = dict(strategy="mcmc", max_refine_new=1024)
+    cpu_pipe, cpu_state = build_splat("cpu", SPLAT_CHECK_HW, n, n, params=params, **cfg)
+    src = cpu_pipe.mcmc_draws(cpu_state, torch.Generator().manual_seed(SEED + 15))
+    out = []
+    for device in ("cuda", "cpu"):
+        pipeline, state = build_splat(device, SPLAT_CHECK_HW, n, n, params=params, **cfg)
+        state.optimizer.load_moments({k: (c, a.to(device), b.to(device)) for k, (c, a, b) in moments.items()})
+        pipeline.refine_mcmc(state, src.to(device))
+        out.append(({k: v.detach().cpu() for k, v in state.params.items()}, state.aux.alive.cpu(),
+                    {k: [x.cpu() for x in state.optimizer._moments(k)] for k in params}))
+    (p_card, a_card, m_card), (p_cpu, a_cpu, m_cpu) = out
+    rel = {k: float((p_card[k] - p_cpu[k]).abs().max() / p_cpu[k].abs().max()) for k in p_cpu}
+    moments_equal = all(torch.equal(a, b) for k in m_cpu for a, b in zip(m_card[k], m_cpu[k]))
+    alive_equal = torch.equal(a_card, a_cpu)
+    log(name, f"one MCMC refine, {n} gaussians ({int((torch.sigmoid(params['opacities'][:, 0]) < 0.005).sum())} "
+        f"dead), the CPU's {src.numel()} draws ({len(torch.unique(src))} distinct sources): alive equal "
+        f"{alive_equal}, moments equal {moments_equal}, params max |card - cpu| / peak "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + " (limit 1e-6)")
+    if not alive_equal or not moments_equal or max(rel.values()) > 1e-6:
+        raise AssertionError(f"{name}: the card's MCMC refine differs from the CPU's")
+    return dict(rel=rel)
+
+
+def options_run(name, scene, root, card):
+    """splatfacto with the bilateral grid, SO3xR3 camera optimisation and
+    scale regularisation on, OPTIONS_STEPS steps through ``scripts.gate``'s
+    loop (not a gate: no JAX record exists): the logged loss falls, the
+    camera-opt tangents stay finite, every step launches K4's backward with
+    the viewmat gradient, and the eval colour-corrects every held-out view.
+    Then every kernel of the path against its twin at the trained state,
+    the viewmat's gradient at the step's own call included."""
+    from nerfstudio_torch.pipelines import splat_pipeline
+    from nerfstudio_torch.scripts import gate
+
+    corrected = []
+    color_correct = splat_pipeline.color_correct
+
+    def counted(img, ref):
+        corrected.append(tuple(img.shape))
+        return color_correct(img, ref)
+
+    t0 = time.perf_counter()
+    zero_counts()
+    splat_pipeline.color_correct = counted
+    try:
+        res, run = gate.run_gate("splatfacto", scene, os.path.join(root, "options"), OPTIONS_STEPS,
+                                 overrides=list(OPTIONS_FLAGS))
+    finally:
+        splat_pipeline.color_correct = color_correct
+    counts = read_counts()
+    check_path(name, counts, SPLAT_PATH_KERNELS + ("project_gaussians_bwd_viewmat",))
+    head, tail, fell = loss_fell(run["base_dir"])
+    co = run["state"].params["camera_opt"].detach()
+    n_eval = run["pipeline"].datamanager.eval_cameras.camera_to_worlds.shape[0]
+    train = res["launches"]["train"]
+    wall = time.perf_counter() - t0
+    log(name, f"splatfacto {' '.join(OPTIONS_FLAGS)} on {res['scene']}, {OPTIONS_STEPS} steps: logged loss "
+        f"{head:.4f} -> {tail:.4f} (first quarter's mean to the last's); camera_opt tangents finite "
+        f"{bool(torch.isfinite(co).all())}, largest |translation| {float(co[:, :3].abs().max()):.3g}, |rotation| "
+        f"{float(co[:, 3:].abs().max()):.3g}; eval over {n_eval} held-out views colour-corrected "
+        f"({len(corrected)} calls): psnr {res['metrics']['psnr']:.2f}, ssim {res['metrics']['ssim']:.3f}; "
+        f"{1e3 / res['steps_per_sec']:.2f} ms/step (host clock); launches per train step "
+        f"{({k: v / OPTIONS_STEPS for k, v in train.items() if v})}; {wall:.1f} s wall on {card}")
+    if not fell or not torch.isfinite(co).all() or len(corrected) < n_eval:
+        raise AssertionError(f"{name}: loss {head} -> {tail}, camera_opt finite {bool(torch.isfinite(co).all())}, "
+                             f"{len(corrected)} colour corrections for {n_eval} views")
+    if train["project_gaussians_bwd_viewmat"] != OPTIONS_STEPS:
+        raise AssertionError(f"{name}: {train['project_gaussians_bwd_viewmat']} viewmat backward launches in "
+                             f"{OPTIONS_STEPS} steps")
+    keep = {}
+    errs = check_splat_step(name, run["one_step"], "the options run's trained state", keep)
+    del run
+    torch.cuda.empty_cache()
+    return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs,
+                loss=(head, tail), color_corrected=len(corrected))
+
+
+def options_and_methods(ph, card, scene, disk_root, disk):
+    """Phases 47-52: K4's backward with the viewmat gradient against the
+    float64 twin (the check inputs, 1M random slots, and after phase 50 a
+    trained MCMC step's inputs), timed beside the default backward; K8 and
+    the bilateral grid card vs CPU; one MCMC step, one step with the three
+    options and one MCMC refine card vs CPU; the splatfacto-mcmc and
+    splatfacto-big gates at full steps and 1,000,000 slots on ``scene``;
+    the three options' run through scripts.gate's loop. Adds the runs to
+    ``disk``; returns the records of phases 47-49."""
+    from nerfstudio_torch.ops.gsplat import projection as pj
+
+    vgen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    pipeline, state = build_splat("cuda")
+    x = splat_kernel_inputs(pipeline, state, vgen)
+    del pipeline, state
+    with torch.no_grad():
+        ref = pj._project_kernel(x["means"], x["scales"], x["quats"], x["cam_args"])
+    valid = ref[4] & x["alive"]
+    chk = (x["means"], x["scales"], x["quats"], x["cam_args"],
+           [torch.randn(t.shape, generator=vgen, device="cuda") * valid.view(-1, *([1] * (t.ndim - 1)))
+            for t in ref[:3] + ref[5:]])
+    del x, ref, valid
+    big = k4_view_random(K4_VIEW_SLOTS, vgen)
+    k4v_recs = [check_k4_viewmat(ph(47, "K4 bwd with the viewmat gradient"), "the check inputs", *chk),
+                check_k4_viewmat(ph(47, "K4 bwd with the viewmat gradient"), f"{K4_VIEW_SLOTS:,} random slots",
+                                 *big)]
+    k4v_times = [time_k4_viewmat(ph(47, "K4 bwd timing"), *chk, "the check inputs"),
+                 time_k4_viewmat(ph(47, "K4 bwd timing"), *big, f"{K4_VIEW_SLOTS:,} slots")]
+    del chk, big
+    torch.cuda.empty_cache()
+    k8 = k8_card_vs_cpu(ph(48, "K8 and the bilateral grid, card vs CPU"), vgen)
+    full_image_card_vs_cpu(ph(49, "full images, card vs CPU"))
+    option_steps = option_steps_card_vs_cpu(ph(49, "option steps, card vs CPU"))
+    mcmc_refine = refine_mcmc_card_vs_cpu(ph(49, "MCMC refine, card vs CPU"))
+    keep = {}
+    disk["gate_splatfacto-mcmc"] = gate_phase(ph(50, "gate splatfacto-mcmc"), "splatfacto-mcmc", scene, disk_root,
+                                              card, SPLAT_PATH_KERNELS, keep=keep)
+    m, s_, q, cam, cots = keep.pop("k4_bwd")
+    label = "one trained splatfacto-mcmc step's inputs"
+    k4v_recs.append(check_k4_viewmat(ph(47, "K4 bwd with the viewmat gradient"), label, m, s_, q, cam, cots))
+    k4v_times.append(time_k4_viewmat(ph(47, "K4 bwd timing"), m, s_, q, cam, cots, label))
+    del m, s_, q, cam, cots
+    disk["gate_splatfacto-big"] = gate_phase(ph(51, "gate splatfacto-big"), "splatfacto-big", scene, disk_root,
+                                             card, SPLAT_PATH_KERNELS)
+    disk["options"] = options_run(ph(52, "splatfacto with the three options"), scene, disk_root, card)
+    return dict(k4v_recs=k4v_recs, k4v_times=k4v_times, k8=k8, option_steps=option_steps, mcmc_refine=mcmc_refine)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -2818,7 +3325,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 46
+    n_phases = 52
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -3453,9 +3960,12 @@ def main() -> int:
         for i, (method, path) in enumerate(((m, p) for p in (distorted, masked) for m in ("nerfacto", "splatfacto"))):
             want = NERFACTO_KERNELS if method == "nerfacto" else SPLAT_PATH_KERNELS
             key = f"gate_{method}_{os.path.basename(path)}"
-            disk[key] = gate_phase(ph(42 + i, f"gate {method} {os.path.basename(path)}"), method, path, disk_root,
-                                   card, want)
+            disk[key] = gate_phase(ph(42 + i, f"{method} {os.path.basename(path)}, {CUT_GATE_STEPS} steps"), method,
+                                   path, disk_root, card, want, steps=CUT_GATE_STEPS)
         disk["buckets"] = bucketed_run(ph(46, "nerfacto on masked buckets"), mixed, disk_root, card)
+
+        # 47-52. splatfacto's options and methods
+        options = options_and_methods(ph, card, scene, disk_root, disk)
     finally:
         shutil.rmtree(disk_root, ignore_errors=True)
 
@@ -3607,12 +4117,29 @@ def main() -> int:
             e["device_ms"] = next(d["device_ms"] for d in select[(k, main_v)]["designs"] if d["design"] == e["design"])
             e["designs"] = [dict(variant=v, **r) for (kk, v), r in select.items() if kk == k]
         kernels.append(e)
+    # K4's backward with the viewmat gradient: launches on the options run
+    # (phase 52), its times at 1M slots, every input set of phase 47
+    k4v_recs, k4v_times = options["k4v_recs"], options["k4v_times"]
+    kv = k4v_times[1]
+    kernels.append(entry("project_gaussians_bwd_viewmat (K4 bwd with the viewmat gradient)", gs_source,
+                         "nerfstudio_tpu/ops/gsplat/projection.py:39",
+                         disk["options"]["launches"]["project_gaussians_bwd_viewmat"],
+                         max(r["max_abs_err"] for r in k4v_recs), kv["viewmat"]["ms"], kv["plain_ms"], kv["bound"],
+                         design="block partials, one-block sum"))
+    kernels[-1].update(device_ms=kv["viewmat"]["device_ms"], batch_ms=kv["viewmat"]["batch_ms"], checks=k4v_recs,
+                       times=[dict(t, bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                                   default_bound_ms=t["default_bound"][0]) for t in k4v_times],
+                       k8_card_vs_cpu=options["k8"], option_steps_card_vs_cpu=options["option_steps"],
+                       mcmc_refine_card_vs_cpu=options["mcmc_refine"])
+    for t in kernels[-1]["times"]:
+        del t["bound"], t["default_bound"]
     # each kernel's launches on the from-disk paths (phases 35-38 and 42-46;
     # the gates' counts include their eval renders) and K5 at the frame above its
     # bucketed design's tile limit (phase 14)
     launch_key = {"hash_encode_block (K1 fwd)": "hash_encode_block", "hash_encode_block_exact (K3)":
                   "hash_encode_block_exact", "project_gaussians (K4 fwd)": "project_gaussians",
                   "project_gaussians_bwd (K4 bwd)": "project_gaussians_bwd", "tile_bin (K5)": "tile_bin",
+                  "project_gaussians_bwd_viewmat (K4 bwd with the viewmat gradient)": "project_gaussians_bwd_viewmat",
                   "blend_saturating (K6 fwd)": "blend_saturating", "blend_saturating_bwd (K6 bwd)":
                   "blend_saturating_bwd"}
     for e in kernels:

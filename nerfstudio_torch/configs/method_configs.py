@@ -46,6 +46,8 @@ method_configs: Dict[str, MethodConfig] = {}
 descriptions = {
     "nerfacto": "Recommended real->nerf model. Hash grid + proposal sampling.",
     "splatfacto": "3D Gaussian Splatting.",
+    "splatfacto-big": "3DGS with more gaussians.",
+    "splatfacto-mcmc": "3DGS with MCMC densification.",
     "neus-facto": "NeuS with proposal sampling.",
 }
 
@@ -67,6 +69,26 @@ method_configs["splatfacto"] = MethodConfig(
     optimizers={},  # the splat pipeline builds its own per-array Adam
 )
 
+method_configs["splatfacto-big"] = MethodConfig(
+    method_name="splatfacto-big",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500, steps_per_save=2000),
+    datamanager=DataManagerConfig(),
+    dataparser=NerfstudioDataParserConfig(load_3D_points=True),
+    model=SplatfactoModelConfig(cull_alpha_thresh=0.005, densify_grad_thresh=0.0006, max_gaussians=1000000),
+    optimizers={},
+)
+
+# MCMC: relocation and growth toward max_gaussians, per-step position noise,
+# the opacity and scale regularisers (reference :222-233)
+method_configs["splatfacto-mcmc"] = MethodConfig(
+    method_name="splatfacto-mcmc",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500, steps_per_save=2000),
+    datamanager=DataManagerConfig(),
+    dataparser=NerfstudioDataParserConfig(load_3D_points=True),
+    model=SplatfactoModelConfig(strategy="mcmc", cull_alpha_thresh=0.005, max_gaussians=1000000),
+    optimizers={},
+)
+
 method_configs["neus-facto"] = MethodConfig(
     method_name="neus-facto",
     trainer=TrainerConfig(max_num_iterations=20000, steps_per_eval_image=2500),
@@ -80,7 +102,7 @@ method_configs["neus-facto"] = MethodConfig(
 NOT_PORTED = {
     "nerfacto-big": 8, "nerfacto-huge": 8, "depth-nerfacto": 8, "semantic-nerfw": 8, "phototourism": 8,
     "instant-ngp": 9, "instant-ngp-bounded": 9, "vanilla-nerf": 10, "mipnerf": 10, "dnerf": 10, "tensorf": 11,
-    "splatfacto-big": 6, "splatfacto-mcmc": 6, "neus": 7, "generfacto": 12,
+    "neus": 7, "generfacto": 12,
 }
 
 

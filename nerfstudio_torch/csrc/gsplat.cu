@@ -6,7 +6,7 @@
 // Replaces, in the JAX reference package:
 //   * K4: nerfstudio_tpu/ops/gsplat/projection.py project_gaussians (with
 //     quat_to_rotmat and compute_cov3d expanded into it, and the antialiased
-//     compensation) and XLA's autodiff of it. The backward is the hand-derived VJP of exactly the forward's
+//     compensation) and XLA's autodiff of it, into the viewmat too. The backward is the hand-derived VJP of exactly the forward's
 //     chain, recomputed per gaussian from the inputs.
 //   * K5: nerfstudio_tpu/ops/gsplat/rasterize.py _tile_keys_packed and
 //     _window_tile_ids (key emission, with the big_frac second window and its
@@ -21,7 +21,11 @@
 // What bounds them on this card:
 //   * K4 is a fused elementwise pass: ~40 bytes in and ~30 bytes out per
 //     gaussian and a few hundred flops, so it is bound by memory traffic and
-//     launch latency. One thread per gaussian, structure of arrays.
+//     launch latency. One thread per gaussian, structure of arrays. Under
+//     camera optimisation the viewmat comes from device memory and the
+//     backward also sums d(viewmat) over the gaussians: per-block partials
+//     (shuffle tree, then the warps in order) and one block that sums them,
+//     so the gradient is deterministic.
 //   * K5 reads a few floats per gaussian and writes 12 bytes per live
 //     (tile, gaussian) pair: bound by bytes at best, in practice by its
 //     passes over the window slots and the per-tile sorts (see the comment
@@ -183,12 +187,30 @@ __device__ __forceinline__ void project_one(const float* __restrict__ means, con
   p.inv_det = 1.0f / p.det_safe;
 }
 
+// The camera of a launch: the host's, with rows 0-2 of the viewmat read
+// from device memory instead when kDevView (a viewmat the step computes on
+// the card, e.g. under camera optimisation, is never copied to the host).
+template <bool kDevView>
+__device__ __forceinline__ Camera camera_of(const Camera& host, const float* __restrict__ view) {
+  Camera cam = host;
+  if (kDevView) {
+    for (int r = 0; r < 3; ++r) {
+      for (int k = 0; k < 3; ++k) cam.R[3 * r + k] = __ldg(view + 4 * r + k);
+      cam.t[r] = __ldg(view + 4 * r + 3);
+    }
+  }
+  return cam;
+}
+
+template <bool kDevView>
 __global__ void __launch_bounds__(kThreads) project_fwd_kernel(
     const float* __restrict__ means, const float* __restrict__ scales, const float* __restrict__ quats,
-    int64_t n, Camera cam, float* __restrict__ means2d, float* __restrict__ depths, float* __restrict__ conics,
-    float* __restrict__ radii, uint8_t* __restrict__ valid, float* __restrict__ comp) {
+    int64_t n, Camera host_cam, const float* __restrict__ view, float* __restrict__ means2d,
+    float* __restrict__ depths, float* __restrict__ conics, float* __restrict__ radii, uint8_t* __restrict__ valid,
+    float* __restrict__ comp) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const Camera cam = camera_of<kDevView>(host_cam, view);
   Projected p;
   project_one(means, scales, quats, i, cam, p);
   const float m2x = p.xs * cam.fx + cam.cx;
@@ -211,16 +233,17 @@ __global__ void __launch_bounds__(kThreads) project_fwd_kernel(
   comp[i] = cam.antialiased ? sqrtf(fmaxf(p.det_orig / p.det_safe, 0.0f)) : 1.0f;
 }
 
-// The VJP of project_one's chain into means, scales and quats, given the
-// cotangents of means2d, depths, conics and, antialiased, the compensation
-// (radii and valid carry none).
-__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
+// The VJP of project_one's chain for gaussian i into means, scales and
+// quats, given the cotangents of means2d, depths, conics and, antialiased,
+// the compensation (radii and valid carry none). With kGradView it also
+// adds gaussian i's contribution to d(viewmat rows 0-2) into dview (row-major
+// [R | t], 12 floats): through t = R m + T and through V = R cov3d R^T.
+template <bool kGradView>
+__device__ __forceinline__ void project_bwd_one(
     const float* __restrict__ means, const float* __restrict__ scales, const float* __restrict__ quats,
-    int64_t n, Camera cam, const float* __restrict__ d_means2d, const float* __restrict__ d_depths,
+    int64_t i, const Camera& cam, const float* __restrict__ d_means2d, const float* __restrict__ d_depths,
     const float* __restrict__ d_conics, const float* __restrict__ d_comp, float* __restrict__ d_means,
-    float* __restrict__ d_scales, float* __restrict__ d_quats) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+    float* __restrict__ d_scales, float* __restrict__ d_quats, float* dview) {
   const float dm2x = d_means2d[2 * i], dm2y = d_means2d[2 * i + 1], dz_out = d_depths[i];
   const float dc0 = d_conics[3 * i], dc1 = d_conics[3 * i + 1], dc2 = d_conics[3 * i + 2];
   const float dk = cam.antialiased ? d_comp[i] : 0.0f;
@@ -288,6 +311,13 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
   d_means[3 * i + 0] = R[0] * d_px + R[3] * d_py + R[6] * d_z;
   d_means[3 * i + 1] = R[1] * d_px + R[4] * d_py + R[7] * d_z;
   d_means[3 * i + 2] = R[2] * d_px + R[5] * d_py + R[8] * d_z;
+  if (kGradView) {  // p = R m + t
+    const float dp[3] = {d_px, d_py, d_z}, m[3] = {p.mx, p.my, p.mz};
+    for (int r = 0; r < 3; ++r) {
+      for (int k = 0; k < 3; ++k) dview[4 * r + k] += dp[r] * m[k];
+      dview[4 * r + 3] += dp[r];
+    }
+  }
 
   // V = A R^T over the upper triangle: v_ij = sum_k a_ik R_jk
   float da[9];
@@ -300,6 +330,17 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
   float dC[3][3];  // gradient per (m, k) entry of the full matrix
   for (int m = 0; m < 3; ++m)
     for (int k = 0; k < 3; ++k) dC[m][k] = da[k] * R[m] + da[3 + k] * R[3 + m] + da[6 + k] * R[6 + m];
+  if (kGradView) {
+    // v_e = sum_k a[ci][k] R[cj][k] over the upper triangle, and
+    // a_rk = sum_m R_rm C_mk with C the full symmetric cov3d
+    const int vi[6] = {0, 0, 0, 1, 1, 2}, vj[6] = {0, 1, 2, 1, 2, 2};
+    for (int e = 0; e < 6; ++e)
+      for (int k = 0; k < 3; ++k) dview[4 * vj[e] + k] += dv[e] * p.a[3 * vi[e] + k];
+    const float C[9] = {p.c[0], p.c[1], p.c[2], p.c[1], p.c[3], p.c[4], p.c[2], p.c[4], p.c[5]};
+    for (int r = 0; r < 3; ++r)
+      for (int m = 0; m < 3; ++m)
+        dview[4 * r + m] += da[3 * r] * C[3 * m] + da[3 * r + 1] * C[3 * m + 1] + da[3 * r + 2] * C[3 * m + 2];
+  }
   // stored entries: the diagonal once, each off-diagonal for both (m, k) and (k, m)
   float dc[6];
   dc[0] = dC[0][0];
@@ -339,6 +380,56 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
   const float d_den = -dot / (p.qden * p.qden);
   const float d_norm = p.qnorm > 0.0f ? d_den * dmax(p.qnorm, 1e-8f) / p.qnorm : 0.0f;
   for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = dq[k] / p.qden + d_norm * p.Q[k];
+}
+
+// Sums v (12 values per thread) over the block in a fixed order (a
+// shuffle tree in each warp, then the warps in turn) into out[0..11] by
+// thread 0's warp: the same inputs give the same bits on every run.
+__device__ __forceinline__ void block_sum_12(float* v, float* __restrict__ out) {
+  __shared__ float warp_sums[kThreads / 32][12];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < 12; ++k)
+    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+  if (lane == 0)
+    for (int k = 0; k < 12; ++k) warp_sums[warp][k] = v[k];
+  __syncthreads();
+  if (threadIdx.x < 12) {
+    float acc = 0.0f;
+    for (int w = 0; w < kThreads / 32; ++w) acc += warp_sums[w][threadIdx.x];
+    out[threadIdx.x] = acc;
+  }
+}
+
+// K4 backward over one gaussian per thread. With kGradView each block
+// writes its gaussians' summed d(viewmat rows 0-2) to view_partials (12
+// floats per block), which view_reduce_kernel then sums: no float atomics,
+// so two runs give the same bits.
+template <bool kDevView, bool kGradView>
+__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
+    const float* __restrict__ means, const float* __restrict__ scales, const float* __restrict__ quats,
+    int64_t n, Camera host_cam, const float* __restrict__ view, const float* __restrict__ d_means2d,
+    const float* __restrict__ d_depths, const float* __restrict__ d_conics, const float* __restrict__ d_comp,
+    float* __restrict__ d_means, float* __restrict__ d_scales, float* __restrict__ d_quats,
+    float* __restrict__ view_partials) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kGradView && i >= n) return;
+  float dview[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  if (i < n) {
+    const Camera cam = camera_of<kDevView>(host_cam, view);
+    project_bwd_one<kGradView>(means, scales, quats, i, cam, d_means2d, d_depths, d_conics, d_comp, d_means,
+                               d_scales, d_quats, dview);
+  }
+  if (kGradView) block_sum_12(dview, view_partials + 12 * (int64_t)blockIdx.x);
+}
+
+// One block: d_view[k] = sum over the partials' blocks, each thread taking
+// the blocks t, t + kThreads, ... in order, then block_sum_12.
+__global__ void __launch_bounds__(kThreads) view_reduce_kernel(const float* __restrict__ partials, int64_t blocks,
+                                                               float* __restrict__ d_view) {
+  float v[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  for (int64_t b = threadIdx.x; b < blocks; b += kThreads)
+    for (int k = 0; k < 12; ++k) v[k] += partials[12 * b + k];
+  block_sum_12(v, d_view);
 }
 
 // ---------------------------------------------------------------------------
@@ -1148,35 +1239,54 @@ extern "C" {
 
 // K4 forward. means, scales (n, 3) and quats (n, 4) are f32 device inputs
 // (scales linear, quats wxyz, any norm); cam is a host array of 20 floats
-// (see make_camera). Outputs: means2d (n, 2), depths (n,), conics (n, 3),
-// radii (n,) f32, valid (n,) uint8 and comp (n,) f32, the antialiasing
-// compensation (1 unless antialiased). Returns a cudaError_t (0 on success).
+// (see make_camera); view, when not null, is a device array of 12 floats
+// (viewmat rows 0-2, row-major) that replaces cam's first 12. Outputs:
+// means2d (n, 2), depths (n,), conics (n, 3), radii (n,) f32, valid (n,)
+// uint8 and comp (n,) f32, the antialiasing compensation (1 unless
+// antialiased). Returns a cudaError_t (0 on success).
 int nst_gsplat_project_fwd(const void* means, const void* scales, const void* quats, const float* cam,
-                           int width, int height, int antialiased, long long n, void* means2d, void* depths,
-                           void* conics, void* radii, void* valid, void* comp, void* stream) {
+                           const void* view, int width, int height, int antialiased, long long n, void* means2d,
+                           void* depths, void* conics, void* radii, void* valid, void* comp, void* stream) {
   if (n < 0 || width < 1 || height < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  project_fwd_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)means, (const float*)scales, (const float*)quats, n,
-      make_camera(cam, width, height, antialiased), (float*)means2d, (float*)depths, (float*)conics,
-      (float*)radii, (uint8_t*)valid, (float*)comp);
+  const Camera c = make_camera(cam, width, height, antialiased);
+  auto kernel = view ? project_fwd_kernel<true> : project_fwd_kernel<false>;
+  kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)means, (const float*)scales, (const float*)quats, n, c, (const float*)view, (float*)means2d,
+      (float*)depths, (float*)conics, (float*)radii, (uint8_t*)valid, (float*)comp);
   return (int)cudaGetLastError();
 }
 
+// The floats of view_partials that nst_gsplat_project_bwd needs for n
+// gaussians: 12 per block of its grid.
+long long nst_gsplat_view_partials(long long n) { return n < 0 ? 0 : 12LL * grid_for(n); }
+
 // K4 backward: the cotangents d_means2d (n, 2), d_depths (n,), d_conics
 // (n, 3) and d_comp (n,) (read only when antialiased) in; d_means (n, 3),
-// d_scales (n, 3), d_quats (n, 4) out (every row written). Returns a
-// cudaError_t.
+// d_scales (n, 3), d_quats (n, 4) out (every row written); cam and view as
+// the forward's. With d_view not null (then view must not be null either)
+// also d(viewmat rows 0-2), 12 floats, through view_partials, a device
+// scratch of nst_gsplat_view_partials(n) floats. Returns a cudaError_t.
 int nst_gsplat_project_bwd(const void* means, const void* scales, const void* quats, const float* cam,
-                           int width, int height, int antialiased, long long n, const void* d_means2d,
-                           const void* d_depths, const void* d_conics, const void* d_comp, void* d_means,
-                           void* d_scales, void* d_quats, void* stream) {
-  if (n < 0 || width < 1 || height < 1) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
-  project_bwd_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)means, (const float*)scales, (const float*)quats, n,
-      make_camera(cam, width, height, antialiased), (const float*)d_means2d, (const float*)d_depths,
-      (const float*)d_conics, (const float*)d_comp, (float*)d_means, (float*)d_scales, (float*)d_quats);
+                           const void* view, int width, int height, int antialiased, long long n,
+                           const void* d_means2d, const void* d_depths, const void* d_conics, const void* d_comp,
+                           void* d_means, void* d_scales, void* d_quats, void* view_partials, void* d_view,
+                           void* stream) {
+  if (n < 0 || width < 1 || height < 1 || (d_view && (!view || !view_partials))) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n == 0) return (int)(d_view ? cudaMemsetAsync(d_view, 0, 12 * sizeof(float), st) : cudaSuccess);
+  const Camera c = make_camera(cam, width, height, antialiased);
+  auto kernel = d_view ? project_bwd_kernel<true, true>
+                       : (view ? project_bwd_kernel<true, false> : project_bwd_kernel<false, false>);
+  kernel<<<grid_for(n), kThreads, 0, st>>>(
+      (const float*)means, (const float*)scales, (const float*)quats, n, c, (const float*)view,
+      (const float*)d_means2d, (const float*)d_depths, (const float*)d_conics, (const float*)d_comp, (float*)d_means,
+      (float*)d_scales, (float*)d_quats, (float*)view_partials);
+  if (d_view) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    view_reduce_kernel<<<1, kThreads, 0, st>>>((const float*)view_partials, (int64_t)grid_for(n), (float*)d_view);
+  }
   return (int)cudaGetLastError();
 }
 

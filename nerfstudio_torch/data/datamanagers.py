@@ -27,6 +27,7 @@ import torch
 from nerfstudio_torch.cameras.cameras import Cameras
 from nerfstudio_torch.data.datasets import InputDataset
 from nerfstudio_torch.data.pixel_samplers import (
+    _unit_table,
     build_valid_indices,
     gather_pixels,
     sample_pair_pixel_indices,
@@ -354,4 +355,6 @@ class FullImageDatamanager:
 
 
 def _as_float(img: torch.Tensor) -> torch.Tensor:
-    return img.to(torch.float32) / 255.0 if img.dtype == torch.uint8 else img
+    """uint8 images looked up in ``_unit_table`` (the CPU's quotients on
+    every device, as ``gather_pixels`` does); float32 ones as they are."""
+    return _unit_table(img.device)[img.long()] if img.dtype == torch.uint8 else img

@@ -134,14 +134,17 @@ class PerGroupAdam:
         self.count = int(state["count"])
 
 
-# splatfacto's constant rates (reference pipelines/splat_pipeline.py:50-65);
-# ``means`` follows ``splat_means_lr``.
+# splatfacto's constant rates (reference pipelines/splat_pipeline.py:50-65),
+# the per-image bilateral grids and camera-opt tangents included; ``means``
+# follows ``splat_means_lr``.
 SPLAT_LRS = {
     "features_dc": 0.0025,
     "features_rest": 0.0025 / 20,
     "opacities": 0.05,
     "scales": 0.005,
     "quats": 0.001,
+    "bilateral_grids": 5e-3,
+    "camera_opt": 1e-4,
 }
 
 
@@ -160,7 +163,9 @@ class SplatAdam:
 
     ``zero_rows`` and ``reset`` are the moment surgery of ``refine``: they
     change the moments in place and keep the count, so bias correction still
-    uses the group's count."""
+    uses the group's count. ``zero_rows`` touches only the arrays with one
+    row per slot, never the per-image ones, as the reference masks only
+    leaves of ``max_gaussians`` rows."""
 
     def __init__(self, params: Dict[str, torch.Tensor], max_steps: int = 30000):
         unknown = set(params) - set(SPLAT_LRS) - {"means"}
@@ -193,8 +198,11 @@ class SplatAdam:
 
     @torch.no_grad()
     def zero_rows(self, rows: torch.Tensor) -> None:
-        """Zero every array's moments on the rows where ``rows`` (N,) is true."""
-        for name in self.params:
+        """Zero the moments of each array of N rows on the rows where
+        ``rows`` (N,) is true."""
+        for name, p in self.params.items():
+            if p.shape[0] != rows.shape[0]:
+                continue
             for m in self._moments(name):
                 m.masked_fill_(rows.view((-1,) + (1,) * (m.ndim - 1)), 0.0)
 

@@ -11,7 +11,9 @@ from typing import Dict, Optional
 
 import torch
 
-# Launches of each hand-written kernel entry. K5 counts one binning under
+# Launches of each hand-written kernel entry. K4's backward counts once
+# more under "project_gaussians_bwd_viewmat" when it also reduced the
+# viewmat's gradient (its second kernel). K5 counts one binning under
 # "tile_bin" in either design, and once more under "tile_bin_bucketed" when
 # it took the tile-bucketed design (its count, scan, scatter and per-tile
 # sort kernels, launched by one C entry) or under "tile_bin_sorted" when it
@@ -21,6 +23,7 @@ import torch
 launch_counts: Dict[str, int] = {
     "project_gaussians": 0,
     "project_gaussians_bwd": 0,
+    "project_gaussians_bwd_viewmat": 0,
     "tile_bin": 0,
     "tile_bin_bucketed": 0,
     "tile_bin_sorted": 0,
@@ -46,8 +49,8 @@ def kernel_library() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         cam = ctypes.POINTER(ctypes.c_float)
         signatures = {
-            "nst_gsplat_project_fwd": [p, p, p, cam, i, i, i, ll] + [p] * 6 + [p],
-            "nst_gsplat_project_bwd": [p, p, p, cam, i, i, i, ll] + [p] * 7 + [p],
+            "nst_gsplat_project_fwd": [p, p, p, cam, p, i, i, i, ll] + [p] * 6 + [p],
+            "nst_gsplat_project_bwd": [p, p, p, cam, p, i, i, i, ll] + [p] * 9 + [p],
             "nst_gsplat_tile_keys": [p, p, p, p, ll, p, ll, i, i, i, i, i, i, p, p],
             "nst_gsplat_tile_bin": [p, p, p, p, ll, p, ll, i, i, i, i, i, i, i] + [p] * 6 + [p],
             "nst_gsplat_tile_ranges": [p, ll, i, i, i, i, p, p, p, p],
@@ -58,6 +61,8 @@ def kernel_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.nst_gsplat_view_partials.argtypes = [ll]
+        lib.nst_gsplat_view_partials.restype = ll
         lib.nst_gsplat_error_string.argtypes = [ctypes.c_int]
         lib.nst_gsplat_error_string.restype = ctypes.c_char_p
         _LIB = lib

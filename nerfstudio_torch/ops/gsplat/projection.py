@@ -7,7 +7,10 @@ w2c viewmat, intrinsics (fx, fy, cx, cy), quats wxyz (normalised inside).
 ``project_gaussians`` is K4: a ``torch.autograd.Function`` over the
 hand-written forward and backward kernels of ``csrc/gsplat.cu`` on CUDA
 tensors, over the plain PyTorch twin ``_project_twin`` (whose backward is
-autograd through it) on CPU tensors."""
+autograd through it) on CPU tensors. The backward returns the viewmat's
+gradient too when autograd asks for it (camera optimisation); the kernel
+then sums it over the gaussians deterministically and counts the launch
+once more under ``project_gaussians_bwd_viewmat``."""
 
 from __future__ import annotations
 
@@ -50,30 +53,40 @@ def get_viewmat(c2w_opengl: torch.Tensor) -> torch.Tensor:
     return viewmat
 
 
-def camera_params(viewmat: torch.Tensor, fx: float, fy: float, cx: float, cy: float, width: int, height: int,
-                  near: float, eps2d: float) -> np.ndarray:
-    """The 20 float32 camera values the kernels read: viewmat rows 0-2, the
-    intrinsics, the EWA clip limits 1.3 * W / (2 fx) computed in float32 as
-    the reference computes them, the near plane and the dilation."""
+def intrinsics(fx: float, fy: float, cx: float, cy: float, width: int, height: int, near: float,
+               eps2d: float) -> np.ndarray:
+    """The 8 float32 camera values after the viewmat's 12 that the kernels
+    read: the intrinsics, the EWA clip limits 1.3 * W / (2 fx) computed in
+    float32 as the reference computes them, the near plane and the dilation."""
     f32 = np.float32
     lim_x = f32(1.3) * (f32(width) / (f32(2.0) * f32(fx)))
     lim_y = f32(1.3) * (f32(height) / (f32(2.0) * f32(fy)))
+    return np.array([fx, fy, cx, cy, lim_x, lim_y, near, eps2d], np.float32)
+
+
+def camera_params(viewmat: torch.Tensor, fx: float, fy: float, cx: float, cy: float, width: int, height: int,
+                  near: float, eps2d: float) -> np.ndarray:
+    """The 20 float32 camera values of a host launch: viewmat rows 0-2
+    (read on the host) and ``intrinsics``."""
     rows = viewmat.detach().to("cpu", torch.float32).numpy()[:3].reshape(-1)
-    return np.concatenate([rows, np.array([fx, fy, cx, cy, lim_x, lim_y, near, eps2d], np.float32)]).astype(f32)
+    return np.concatenate([rows, intrinsics(fx, fy, cx, cy, width, height, near, eps2d)]).astype(np.float32)
 
 
 def _project_twin(means, scales, quats, viewmat, fx, fy, cx, cy, width, height, near=0.01, eps2d=0.3,
                   antialiased=False):
     """Plain PyTorch K4 forward, operation for operation as the reference
-    (:64-154): (means2d, depths, conics, radii, valid, compensations)."""
-    cam = torch.from_numpy(camera_params(viewmat, fx, fy, cx, cy, width, height, near, eps2d)).to(means.device)
-    R = cam[:12].view(3, 4)[:, :3]
-    t = cam[:12].view(3, 4)[:, 3]
-    fx, fy, cx, cy, lim_x, lim_y = (cam[12 + k] for k in range(6))
+    (:64-154): (means2d, depths, conics, radii, valid, compensations). The
+    viewmat (4, 4), or one per gaussian (N, 4, 4), enters as a tensor in
+    the means' dtype, so autograd carries a gradient into it."""
+    cam = torch.from_numpy(intrinsics(fx, fy, cx, cy, width, height, near, eps2d)).to(means.device)
+    view = viewmat.to(device=means.device, dtype=means.dtype)[..., :3, :]
+    R = lambda r, k: view[..., r, k]  # noqa: E731
+    t = lambda r: view[..., r, 3]  # noqa: E731
+    fx, fy, cx, cy, lim_x, lim_y = (cam[k] for k in range(6))
     mx, my, mz = means.unbind(-1)
-    px = R[0, 0] * mx + R[0, 1] * my + R[0, 2] * mz + t[0]
-    py = R[1, 0] * mx + R[1, 1] * my + R[1, 2] * mz + t[1]
-    z = R[2, 0] * mx + R[2, 1] * my + R[2, 2] * mz + t[2]
+    px = R(0, 0) * mx + R(0, 1) * my + R(0, 2) * mz + t(0)
+    py = R(1, 0) * mx + R(1, 1) * my + R(1, 2) * mz + t(1)
+    z = R(2, 0) * mx + R(2, 1) * my + R(2, 2) * mz + t(2)
     inv_z = 1.0 / torch.maximum(z, z.new_tensor(1e-6))
     xs = px * inv_z
     ys = py * inv_z
@@ -93,12 +106,12 @@ def _project_twin(means, scales, quats, viewmat, fx, fy, cx, cy, width, height, 
          for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))}
     c00, c01, c02, c11, c12, c22 = (c[k] for k in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)))
     a = [
-        (R[r, 0] * c00 + R[r, 1] * c01 + R[r, 2] * c02,
-         R[r, 0] * c01 + R[r, 1] * c11 + R[r, 2] * c12,
-         R[r, 0] * c02 + R[r, 1] * c12 + R[r, 2] * c22)
+        (R(r, 0) * c00 + R(r, 1) * c01 + R(r, 2) * c02,
+         R(r, 0) * c01 + R(r, 1) * c11 + R(r, 2) * c12,
+         R(r, 0) * c02 + R(r, 1) * c12 + R(r, 2) * c22)
         for r in range(3)
     ]
-    v = {(i, j): a[i][0] * R[j, 0] + a[i][1] * R[j, 1] + a[i][2] * R[j, 2]
+    v = {(i, j): a[i][0] * R(j, 0) + a[i][1] * R(j, 1) + a[i][2] * R(j, 2)
          for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))}
     txz = torch.minimum(torch.maximum(xs, -lim_x), lim_x)
     tyz = torch.minimum(torch.maximum(ys, -lim_y), lim_y)
@@ -110,8 +123,8 @@ def _project_twin(means, scales, quats, viewmat, fx, fy, cx, cy, width, height, 
     cov01 = jy * (jx * v[0, 1] + kx * v[1, 2]) + ky * (jx * v[0, 2] + kx * v[2, 2])
     cov11 = jy * (jy * v[1, 1] + ky * v[1, 2]) + ky * (jy * v[1, 2] + ky * v[2, 2])
     det_orig = cov00 * cov11 - cov01 * cov01
-    cov00 = cov00 + cam[19]
-    cov11 = cov11 + cam[19]
+    cov00 = cov00 + cam[7]
+    cov11 = cov11 + cam[7]
     det = cov00 * cov11 - cov01 * cov01
     det_safe = torch.maximum(det, det.new_tensor(1e-10))
     inv_det = 1.0 / det_safe
@@ -127,26 +140,46 @@ def _project_twin(means, scales, quats, viewmat, fx, fy, cx, cy, width, height, 
         radii = torch.ceil(3.0 * torch.sqrt(v1))
         m2x, m2y = means2d[:, 0], means2d[:, 1]
         inside = (m2x + radii > 0) & (m2x - radii < width) & (m2y + radii > 0) & (m2y - radii < height)
-        valid = (z > cam[18]) & inside & (det > 0)
+        valid = (z > cam[6]) & inside & (det > 0)
         radii = torch.where(valid, radii, torch.zeros_like(radii))
     return means2d, z, conics, radii, valid, comp
 
 
-def _project_twin_bwd(means, scales, quats, cam_args, d_means2d, d_depths, d_conics, d_comp):
-    """Plain PyTorch K4 backward: autograd through the twin."""
+def _project_twin_bwd(means, scales, quats, cam_args, d_means2d, d_depths, d_conics, d_comp, need_viewmat=False):
+    """Plain PyTorch K4 backward, autograd through the twin: (d_means,
+    d_scales, d_quats, d_viewmat or None). ``cam_args[0]``, the viewmat, may
+    be one per gaussian (N, 4, 4): its gradient then keeps every gaussian's
+    contribution apart."""
+    viewmat, *rest = cam_args
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (means, scales, quats)]
-        m2, z, con, _, _, comp = _project_twin(*leaves, *cam_args)
+        if need_viewmat:
+            leaves.append(viewmat.detach().to(means.dtype).requires_grad_(True))
+        m2, z, con, _, _, comp = _project_twin(*leaves[:3], leaves[3] if need_viewmat else viewmat, *rest)
         outs, cots = [m2, z, con], [d_means2d, d_depths, d_conics]
         if comp.requires_grad:
             outs.append(comp)
             cots.append(d_comp)
-        return torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+        grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    return (*grads[:3], grads[3] if need_viewmat else None)
+
+
+def _launch_camera(viewmat: torch.Tensor, means: torch.Tensor, cam_args):
+    """(the 20 host floats, the device viewmat rows or None) of a launch: a
+    viewmat on the card is read there (rows 0-2 as 12 contiguous floats),
+    one on the host is copied into the host array."""
+    _, fx, fy, cx, cy, width, height, near, eps2d, _ = cam_args
+    if viewmat.device.type == "cuda":
+        rows = viewmat.detach()[:3].to(torch.float32).contiguous()
+        _cuda.check_cuda("project_gaussians viewmat", means, rows)
+        cam = np.concatenate([np.zeros(12, np.float32), intrinsics(fx, fy, cx, cy, width, height, near, eps2d)])
+        return cam, rows
+    return camera_params(viewmat, fx, fy, cx, cy, width, height, near, eps2d), None
 
 
 def _project_kernel(means, scales, quats, cam_args):
     """Launch K4 forward: (means2d, depths, conics, radii, valid, compensations)."""
-    viewmat, fx, fy, cx, cy, width, height, near, eps2d, antialiased = cam_args
+    viewmat, _, _, _, _, width, height, _, _, antialiased = cam_args
     _cuda.check_cuda("project_gaussians", means, scales, quats)
     n = means.shape[0]
     means2d = means.new_empty((n, 2))
@@ -155,40 +188,56 @@ def _project_kernel(means, scales, quats, cam_args):
     radii = means.new_empty((n,))
     valid = torch.empty((n,), dtype=torch.bool, device=means.device)
     comp = means.new_empty((n,))
-    cam = camera_params(viewmat, fx, fy, cx, cy, width, height, near, eps2d)
+    cam, rows = _launch_camera(viewmat, means, cam_args)
     _cuda.launch(
         "project_gaussians", "nst_gsplat_project_fwd", means.device,
         means.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-        cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float)), int(width), int(height), int(antialiased),
-        n, means2d.data_ptr(), depths.data_ptr(), conics.data_ptr(), radii.data_ptr(), valid.data_ptr(),
-        comp.data_ptr(),
+        cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float)), None if rows is None else rows.data_ptr(),
+        int(width), int(height), int(antialiased), n, means2d.data_ptr(), depths.data_ptr(), conics.data_ptr(),
+        radii.data_ptr(), valid.data_ptr(), comp.data_ptr(),
     )
     return means2d, depths, conics, radii, valid, comp
 
 
-def _project_bwd_kernel(means, scales, quats, cam_args, d_means2d, d_depths, d_conics, d_comp):
-    """Launch K4 backward: (d_means, d_scales, d_quats)."""
-    viewmat, fx, fy, cx, cy, width, height, near, eps2d, antialiased = cam_args
+def _project_bwd_kernel(means, scales, quats, cam_args, d_means2d, d_depths, d_conics, d_comp, need_viewmat=False):
+    """Launch K4 backward: (d_means, d_scales, d_quats, d_viewmat or None).
+    With ``need_viewmat`` the kernel also sums d(viewmat) over the gaussians
+    (per-block partials, then one block), which needs the viewmat on the
+    card; d_viewmat is (4, 4) on the viewmat's device, its last row zero."""
+    viewmat, _, _, _, _, width, height, _, _, antialiased = cam_args
     cots = [x.contiguous() for x in (d_means2d, d_depths, d_conics, d_comp)]
     _cuda.check_cuda("project_gaussians backward", means, scales, quats, *cots)
     d_means, d_scales, d_quats = torch.empty_like(means), torch.empty_like(scales), torch.empty_like(quats)
-    cam = camera_params(viewmat, fx, fy, cx, cy, width, height, near, eps2d)
+    dev_view = viewmat.to(means.device) if need_viewmat else viewmat
+    cam, rows = _launch_camera(dev_view, means, cam_args)
+    partials = d_view = None
+    if need_viewmat:
+        partials = means.new_empty((_cuda.kernel_library().nst_gsplat_view_partials(means.shape[0]),))
+        d_view = means.new_empty((12,))
     _cuda.launch(
         "project_gaussians_bwd", "nst_gsplat_project_bwd", means.device,
         means.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-        cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float)), int(width), int(height), int(antialiased),
-        means.shape[0], *(c.data_ptr() for c in cots), d_means.data_ptr(), d_scales.data_ptr(), d_quats.data_ptr(),
+        cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float)), None if rows is None else rows.data_ptr(),
+        int(width), int(height), int(antialiased), means.shape[0], *(c.data_ptr() for c in cots), d_means.data_ptr(),
+        d_scales.data_ptr(), d_quats.data_ptr(), None if partials is None else partials.data_ptr(),
+        None if d_view is None else d_view.data_ptr(),
     )
-    return d_means, d_scales, d_quats
+    if not need_viewmat:
+        return d_means, d_scales, d_quats, None
+    _cuda.launch_counts["project_gaussians_bwd_viewmat"] += 1
+    d_viewmat = torch.cat([d_view.view(3, 4), d_view.new_zeros((1, 4))]).to(viewmat.device, viewmat.dtype)
+    return d_means, d_scales, d_quats, d_viewmat
 
 
 class _ProjectGaussians(torch.autograd.Function):
-    """K4 forward and backward; the twins on CPU tensors."""
+    """K4 forward and backward; the twins on CPU tensors. The backward
+    computes d(viewmat) only when autograd asks for it."""
 
     @staticmethod
-    def forward(ctx, means, scales, quats, cam_args):
-        ctx.save_for_backward(means, scales, quats)
+    def forward(ctx, means, scales, quats, viewmat, cam_args):
+        ctx.save_for_backward(means, scales, quats, viewmat)
         ctx.cam_args = cam_args
+        cam_args = (viewmat, *cam_args)
         if means.device.type == "cuda":
             out = _project_kernel(means, scales, quats, cam_args)
         else:
@@ -200,15 +249,17 @@ class _ProjectGaussians(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_means2d, d_depths, d_conics, _d_radii, _d_valid, d_comp):
-        means, scales, quats = ctx.saved_tensors
+        means, scales, quats, viewmat = ctx.saved_tensors
         n = means.shape[0]
         zeros = lambda *shape: torch.zeros((n,) + shape, device=means.device)  # noqa: E731
         cots = (zeros(2) if d_means2d is None else d_means2d, zeros() if d_depths is None else d_depths,
                 zeros(3) if d_conics is None else d_conics, zeros() if d_comp is None else d_comp)
+        cam_args = (viewmat, *ctx.cam_args)
+        need_viewmat = ctx.needs_input_grad[3]
         if means.device.type == "cuda":
-            grads = _project_bwd_kernel(means, scales, quats, ctx.cam_args, *cots)
+            grads = _project_bwd_kernel(means, scales, quats, cam_args, *cots, need_viewmat=need_viewmat)
         else:
-            grads = _project_twin_bwd(means, scales, quats, ctx.cam_args, *cots)
+            grads = _project_twin_bwd(means, scales, quats, cam_args, *cots, need_viewmat=need_viewmat)
         return (*grads, None)
 
 
@@ -230,7 +281,9 @@ def project_gaussians(
     """EWA splatting projection (reference :39-154).
 
     means, scales (linear) (N, 3) and quats (N, 4) float32; viewmat (4, 4)
-    w2c (read on the host: keep it on the CPU). Returns (means2d (N, 2),
+    w2c, read on the host where it lies on the CPU and from device memory
+    where it lies on the card (no copy to the host: the camera-opt step's
+    viewmat, whose gradient the backward then returns). Returns (means2d (N, 2),
     depths (N,), conics (N, 3) packed (a, b, c) of [[a, b], [b, c]], radii
     (N,) float, valid (N,) bool, compensations (N,)): radii and valid carry
     no gradient; compensations are gsplat's antialiasing factor
@@ -240,6 +293,8 @@ def project_gaussians(
             raise ValueError(f"{name} must be float32 (N, {k}), got {x.dtype} {tuple(x.shape)}")
     if means.device.type not in ("cuda", "cpu"):
         raise ValueError(f"project_gaussians runs on cuda or cpu tensors, got {means.device}")
-    cam_args = (viewmat, float(fx), float(fy), float(cx), float(cy), int(width), int(height), float(near),
-                float(eps2d), bool(antialiased))
-    return _ProjectGaussians.apply(means.contiguous(), scales.contiguous(), quats.contiguous(), cam_args)
+    if viewmat.shape != (4, 4):
+        raise ValueError(f"viewmat must be (4, 4), got {tuple(viewmat.shape)}")
+    cam_args = (float(fx), float(fy), float(cx), float(cy), int(width), int(height), float(near), float(eps2d),
+                bool(antialiased))
+    return _ProjectGaussians.apply(means.contiguous(), scales.contiguous(), quats.contiguous(), viewmat, cam_args)

@@ -3,14 +3,20 @@
 
 A train step is render (K4, K5, K6 forward), L1 + SSIM, backward (K6, then
 K4 backward), the per-array Adam, then the densification statistics from
-the ``means2d`` gradient. The gaussians stay in padded tensors of
+the ``means2d`` gradient. As configured, the step first corrects the pose
+by the camera's camera-opt tangent (the K4 backward then returns the
+viewmat's gradient), slices the image's bilateral grid over the render,
+adds the regularisers, and after Adam moves the means by MCMC's position
+noise; ``train`` refines by the default strategy or by MCMC's relocation.
+The gaussians stay in padded tensors of
 ``max_gaussians`` slots: the reference's capacity buckets and their re-jits
 have no counterpart. ``build_splat_pipeline`` builds it from a method
 config and ``train_splat`` is the CLI's training run; a checkpoint (one
 ``torch.save`` file, ``engine.trainer.write_checkpoint``) holds the
 gaussians, the Adam moments and counts, the densification state, the step
 and the generators' and camera order's states, so a resumed run continues
-bit-equal. The multi-camera mesh step and LPIPS are not ported."""
+bit-equal. The multi-camera mesh step (the reference takes it only on a
+mesh of more than one device) and LPIPS are not ported."""
 
 from __future__ import annotations
 
@@ -23,12 +29,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nerfstudio_torch.cameras.lie_groups import exp_map_SE3, exp_map_SO3xR3
 from nerfstudio_torch.data.datamanagers import FullImageDatamanager
 from nerfstudio_torch.data.undistort import undistort_view
-from nerfstudio_torch.engine.optimizers import SplatAdam
+from nerfstudio_torch.engine.optimizers import SplatAdam, splat_means_lr
 from nerfstudio_torch.engine.trainer import aux_from_state, aux_state, read_checkpoint, write_checkpoint
+from nerfstudio_torch.model_components.bilateral_grid import color_correct, slice_bilateral_grid
 from nerfstudio_torch.models.splatfacto import InitDraws, SplatAux, SplatfactoModel, init_gaussian_params
+from nerfstudio_torch.utils.math import clip
 from nerfstudio_torch.utils.metrics import psnr, ssim
+from nerfstudio_torch.utils.poses import multiply as pose_multiply
 
 
 @dataclasses.dataclass
@@ -49,10 +59,12 @@ class SplatPipeline:
 
     def init_state(self, seed_points=None, scene_scale: float = 1.0, generator: Optional[torch.Generator] = None,
                    draws: Optional[InitDraws] = None, device=None) -> SplatTrainState:
-        """(reference :88-106) Fresh gaussians at ``max_gaussians`` slots and
-        a fresh optimizer."""
+        """(reference :88-106) Fresh gaussians at ``max_gaussians`` slots, one
+        bilateral grid and camera-opt tangent per training image where the
+        config asks for them, and a fresh optimizer."""
         params, aux = init_gaussian_params(self.model.config, seed_points, scene_scale, generator=generator,
-                                           draws=draws, device=device)
+                                           draws=draws, device=device,
+                                           num_images=self.datamanager.train_cameras.camera_to_worlds.shape[0])
         return self.state_from(params, aux)
 
     def state_from(self, params: Dict[str, torch.Tensor], aux: SplatAux, moments=None, step: int = 0) -> SplatTrainState:
@@ -74,19 +86,41 @@ class SplatPipeline:
         width: int,
         height: int,
         sh_degree: int,
+        cam_idx: int = 0,
+        noise: Optional[torch.Tensor] = None,
+        means_lr: float = 0.0,
     ) -> Dict[str, torch.Tensor]:
-        """One step (reference :162-254), in place on ``state``. c2w (3, 4) on
-        the CPU; ``background`` (3,) is the random background draw (None for
-        the configured colour). Returns the step's metrics as tensors."""
+        """One step (reference :162-254), in place on ``state``. c2w (3, 4),
+        on the CPU or, under camera optimisation, best on the gaussians'
+        device (no copy per step); ``background`` (3,) is the random
+        background draw (None for the configured colour); ``cam_idx`` picks
+        the image's camera-opt tangent and bilateral grid; ``noise`` (N, 3),
+        MCMC's normal draw, moves the means after Adam at ``means_lr``.
+        Returns the step's metrics as tensors."""
+        cfg = self.model.config
         params = state.params
         aux = state.aux
-        probe = torch.zeros((params["means"].shape[0], 2), device=params["means"].device, requires_grad=True)
+        dev = params["means"].device
+        probe = torch.zeros((params["means"].shape[0], 2), device=dev, requires_grad=True)
+        if cfg.camera_optimizer_mode != "off":
+            exp_map = exp_map_SE3 if cfg.camera_optimizer_mode == "SE3" else exp_map_SO3xR3
+            # zero-mean gauge: a drift of every camera at once goes back into the world frame
+            co = params["camera_opt"] - torch.mean(params["camera_opt"], dim=0, keepdim=True)
+            c2w = pose_multiply(exp_map(co[cam_idx][None])[0], c2w.to(dev))
         outputs = self.model.render(params, aux.alive, c2w, K, width, height, sh_degree, background=background,
                                     means2d_probe=probe)
-        loss, loss_dict = self.model.get_loss(outputs, gt_image)
+        if cfg.use_bilateral_grid:
+            outputs["rgb_raw"] = outputs["rgb"]
+            outputs["rgb"] = clip(slice_bilateral_grid(params["bilateral_grids"][cam_idx], outputs["rgb"]), 0.0, 1.0)
+        loss, loss_dict = self.model.get_loss(outputs, gt_image, params, aux.alive)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
+        if cfg.strategy == "mcmc":
+            if noise is None:
+                raise ValueError("the mcmc strategy's step needs its (N, 3) noise draw")
+            with torch.no_grad():
+                params["means"].copy_(self.model.mcmc_noise(params, aux.alive, noise, means_lr))
         with torch.no_grad():
             # screen-gradient norm in pixel units (reference :231-243)
             g_norm = torch.linalg.vector_norm(probe.grad, dim=-1) * (0.5 * max(width, height))
@@ -115,6 +149,20 @@ class SplatPipeline:
                                       use_screen_size=use_screen_size)
         return state
 
+    def refine_mcmc(self, state: SplatTrainState, src: torch.Tensor) -> SplatTrainState:
+        """(reference :394-403) In place on ``state``; ``src`` (m,) the
+        sources' draw (``mcmc_draws``)."""
+        state.aux = self.model.refine_mcmc(state.params, state.optimizer, state.aux, src)
+        return state
+
+    def mcmc_draws(self, state: SplatTrainState, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The (m,) sources of one MCMC refine, drawn with replacement in
+        proportion to ``model.mcmc_src_probs`` (the reference's
+        ``jax.random.categorical``)."""
+        m = min(self.model.config.max_refine_new, state.params["means"].shape[0])
+        return torch.multinomial(self.model.mcmc_src_probs(state.params, state.aux), m, replacement=True,
+                                 generator=generator)
+
     def refine_draws(self, generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The two ``normal((m, 3))`` draws of one refine."""
         n_cap = self.model.config.max_gaussians
@@ -135,14 +183,19 @@ class SplatPipeline:
               writer=None, ckpt_dir: Optional[Path] = None, steps_per_save: int = 0,
               only_latest: bool = True):
         """Steps ``state.step`` to ``num_iterations - 1`` with the refine
-        schedule (reference :511-651). Each step draws its background from
-        ``generator`` when the config asks for a random one, and each refine
-        its two normal draws. Every 50 steps the metrics go to
+        schedule (reference :511-651): the default strategy's, or MCMC's
+        while ``step < stop_split_at``. Each step draws its background from
+        ``generator`` when the config asks for a random one, then, under
+        MCMC, its (N, 3) position noise; each refine draws its two normal
+        draws or its MCMC sources. Every 50 steps the metrics go to
         ``writer``; every ``steps_per_save`` steps a checkpoint to
         ``ckpt_dir``. Returns (state, the last step's metrics)."""
         cfg = self.model.config
         dm = self.datamanager
         metrics = None
+        c2w_dev = None
+        if cfg.camera_optimizer_mode != "off":  # the corrected pose is made on the card: no copy per step
+            c2w_dev = dm.train_cameras.camera_to_worlds.to(state.params["means"].device)
         for step in range(state.step, num_iterations):
             d = self.model.downscale_at(step)
             cam_idx, image = dm.next_train(step)
@@ -151,20 +204,29 @@ class SplatPipeline:
                 # the reference's jax.image.resize "linear" (antialiased)
                 image = F.interpolate(image.permute(2, 0, 1)[None], size=(h, w), mode="bilinear",
                                       antialias=True, align_corners=False)[0].permute(1, 2, 0)
-            background = None
+            background = noise = None
+            dev = generator.device if generator is not None else image.device
             if cfg.background_color == "random":
-                dev = generator.device if generator is not None else image.device
                 background = torch.rand((3,), generator=generator, device=dev).to(image.device)
-            metrics = self.train_step(state, c2w, K, image, background, w, h, self.model.sh_degree_at(step))
+            if cfg.strategy == "mcmc":
+                noise = torch.randn(tuple(state.params["means"].shape), generator=generator, device=dev)
+            if c2w_dev is not None:
+                c2w = c2w_dev[cam_idx]
+            metrics = self.train_step(state, c2w, K, image, background, w, h, self.model.sh_degree_at(step),
+                                      cam_idx=cam_idx, noise=noise, means_lr=splat_means_lr(step, self.max_steps))
             if step > cfg.warmup_length and step % cfg.refine_every == 0:
-                reset_period = cfg.reset_alpha_every * cfg.refine_every
-                self.refine(
-                    state, self.refine_draws(generator),
-                    do_split=step < cfg.stop_split_at,
-                    do_cull_scale=step > reset_period,
-                    reset_alpha=step % reset_period == 0 and step < cfg.stop_split_at,
-                    use_screen_size=reset_period < step < cfg.stop_screen_size_at,
-                )
+                if cfg.strategy == "mcmc":
+                    if step < cfg.stop_split_at:
+                        self.refine_mcmc(state, self.mcmc_draws(state, generator))
+                else:
+                    reset_period = cfg.reset_alpha_every * cfg.refine_every
+                    self.refine(
+                        state, self.refine_draws(generator),
+                        do_split=step < cfg.stop_split_at,
+                        do_cull_scale=step > reset_period,
+                        reset_alpha=step % reset_period == 0 and step < cfg.stop_split_at,
+                        use_screen_size=reset_period < step < cfg.stop_screen_size_at,
+                    )
             if writer is not None and step % 50 == 0:
                 writer.put_dict("train", {k: float(v) for k, v in metrics.items()}, step)
             if ckpt_dir is not None and steps_per_save and (step + 1) % steps_per_save == 0:
@@ -224,19 +286,25 @@ class SplatPipeline:
         """PSNR and SSIM of one eval view (reference :687-726; LPIPS is not
         ported): (metrics, outputs)."""
         out = self.render_eval_image(state, camera_idx)
-        return self._image_metrics(out, camera_idx), out
+        return self._image_metrics(out, camera_idx, self.model.config.use_bilateral_grid), out
 
-    def _image_metrics(self, out: Dict[str, torch.Tensor], camera_idx: int) -> Dict[str, float]:
+    def _image_metrics(self, out: Dict[str, torch.Tensor], camera_idx: int,
+                       color_corrected: bool = False) -> Dict[str, float]:
         """PSNR and SSIM against the view's ground truth, undistorted on the
         host first where its camera carries distortion (the render is a
-        pinhole's; reference :687-705)."""
+        pinhole's; reference :687-705), of the render colour-corrected to it
+        with ``color_corrected`` (a config that trains bilateral grids)."""
         gt = self.datamanager.eval_image(camera_idx)
         cams = self.datamanager.eval_cameras
         if cams.distorted:
             gt = torch.from_numpy(undistort_view(gt.cpu().numpy(), cams, camera_idx)).to(gt.device)
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + out["background"] * (1 - gt[..., 3:])
-        return {"psnr": float(psnr(out["rgb"], gt)), "ssim": float(ssim(out["rgb"], gt))}
+        pred = out["rgb"]
+        if color_corrected:
+            # eval views have no learned grid: fit the colours post hoc (reference :708-714)
+            pred = color_correct(pred, gt)
+        return {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt))}
 
     def get_average_eval_image_metrics(self, state: SplatTrainState) -> Dict[str, float]:
         """Every eval view's PSNR, SSIM and render rays/s and fps, mean and
@@ -261,7 +329,8 @@ class SplatPipeline:
                 torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0  # the render alone, as the ray pipeline times it
             h, w = out["rgb"].shape[:2]
-            all_metrics.append({**self._image_metrics(out, i), "num_rays_per_sec": h * w / dt, "fps": 1.0 / dt})
+            all_metrics.append({**self._image_metrics(out, i, self.model.config.use_bilateral_grid),
+                                "num_rays_per_sec": h * w / dt, "fps": 1.0 / dt})
         return average_metrics(all_metrics)
 
 

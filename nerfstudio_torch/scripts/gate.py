@@ -7,15 +7,15 @@ the scenes of ``tools/make_synthetic_dataset.py``: ``basic``,
 
 The method's shipped config, read through the nerfstudio parser at
 ``train_split_fraction=0.9`` and downscale 1, is trained for the method's
-gate steps (nerfacto 5000, splatfacto 8000, as in
-``benchmarks/gate_*.json``) through the loop ``scripts.train`` runs, with
+gate steps (nerfacto 5000, splatfacto, splatfacto-big and splatfacto-mcmc
+8000, as in ``benchmarks/gate_*.json``) through the loop ``scripts.train`` runs, with
 every eval cadence and intermediate save off, then every held-out view is
 rendered (ray methods in 16,384-ray chunks). The
 JSON has the keys of ``benchmarks/gate_nerfacto.json``, the card's name
 and power limit, and the kernel launches of training and eval. The gates:
 PSNR > 20 and SSIM > 0.7. Beside the result stands the JAX package's
 record of the same cell (``benchmarks/gate_<method>[_<scene>].json``, the
-``basic`` scene without a suffix), its PSNR and SSIM only: its times were
+method's hyphens as underscores, the ``basic`` scene without a suffix), its PSNR and SSIM only: its times were
 taken on another accelerator. ``--a.b value`` flags override the config
 (``--machine.device_type cpu`` runs on the CPU); any other than the machine
 marks the run as not at shipped defaults."""
@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-GATE_STEPS = {"nerfacto": 5000, "splatfacto": 8000}
+GATE_STEPS = {"nerfacto": 5000, "splatfacto": 8000, "splatfacto-big": 8000, "splatfacto-mcmc": 8000}
 RECORDS = Path(__file__).resolve().parents[2] / "benchmarks"
 PSNR_GATE, SSIM_GATE = 20.0, 0.7
 EVAL_CHUNK = 1 << 14
@@ -53,7 +53,7 @@ def card() -> Dict[str, str]:
 def jax_record(method: str, scene: str) -> Optional[Dict[str, float]]:
     """PSNR and SSIM of the JAX package's gate record of the cell, None
     where the repo has none."""
-    path = RECORDS / f"gate_{method}{'' if scene == 'basic' else '_' + scene}.json"
+    path = RECORDS / f"gate_{method.replace('-', '_')}{'' if scene == 'basic' else '_' + scene}.json"
     if not path.is_file():
         return None
     metrics = json.loads(path.read_text(encoding="utf-8"))["metrics"]
@@ -80,8 +80,9 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     ``Trainer.train`` for a ray method, ``SplatPipeline.train`` with the
     writer and a final save as ``train_splat`` runs it for splatfacto. The
     training time is the whole loop's, host syncs and writes included.
-    Returns (the result record, {"pipeline", "state", "one_step"}), where
-    ``one_step()`` trains one more step of the same loop."""
+    Returns (the result record, {"pipeline", "state", "one_step",
+    "base_dir"}), where ``one_step()`` trains one more step of the same
+    loop and ``base_dir`` holds the run's scalars."""
     from nerfstudio_torch.configs.cli import apply_overrides
     from nerfstudio_torch.configs.method_configs import get_method
     from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
@@ -193,7 +194,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     result["pass_psnr"] = bool(eval_metrics["psnr"] > PSNR_GATE)
     result["pass_ssim"] = bool(eval_metrics["ssim"] > SSIM_GATE)
     result["pass"] = result["pass_psnr"] and result["pass_ssim"]
-    return result, {"pipeline": pipeline, "state": state, "one_step": one_step}
+    return result, {"pipeline": pipeline, "state": state, "one_step": one_step, "base_dir": t.get_base_dir()}
 
 
 def main(argv=None) -> dict:

@@ -139,15 +139,20 @@ def _tensor(x: Any, dtype=torch.float32) -> torch.Tensor:
 def splat_state_from_jax(state: Any):
     """The JAX ``SplatTrainState`` (numpy leaves, e.g. ``jax.device_get`` of
     it) -> (params, ``SplatAux``, Adam moments, step) of the port, for
-    ``SplatPipeline.state_from``. The moments are {array: (count, mu, nu)},
-    read from the per-array optax Adams of ``build_splat_optimizers``; the
-    ``means`` schedule's count must equal its Adam's."""
-    from nerfstudio_torch.models.splatfacto import GAUSSIAN_ARRAYS, SplatAux
+    ``SplatPipeline.state_from``: the six gaussian arrays and, where the
+    state has them, the per-image ``bilateral_grids`` and ``camera_opt``,
+    in the order the port's init makes them. The moments are {array:
+    (count, mu, nu)}, read from the per-array optax Adams of
+    ``build_splat_optimizers``; the ``means`` schedule's count must equal
+    its Adam's."""
+    from nerfstudio_torch.models.splatfacto import GAUSSIAN_ARRAYS, IMAGE_ARRAYS, SplatAux
 
     fields = _fields(state)
-    params = {k: _tensor(v) for k, v in _fields(fields["params"]).items()}
-    if set(params) != set(GAUSSIAN_ARRAYS):
-        raise ValueError(f"splat params {sorted(params)}: the port has exactly {sorted(GAUSSIAN_ARRAYS)}")
+    jparams = _fields(fields["params"])
+    if not set(GAUSSIAN_ARRAYS) <= set(jparams) or not set(jparams) <= set(GAUSSIAN_ARRAYS + IMAGE_ARRAYS):
+        raise ValueError(f"splat params {sorted(jparams)}: the port has {sorted(GAUSSIAN_ARRAYS)} and optionally "
+                         f"{sorted(IMAGE_ARRAYS)}")
+    params = {k: _tensor(jparams[k]) for k in GAUSSIAN_ARRAYS + IMAGE_ARRAYS if k in jparams}
     aux_fields = _fields(fields["aux"])
     aux = SplatAux(
         alive=_tensor(aux_fields["alive"], torch.bool),
@@ -222,10 +227,7 @@ def trainer_checkpoint_from_jax(state: Any, model: Optional[torch.nn.Module] = N
         from nerfstudio_torch.engine.optimizers import SplatAdam
         from nerfstudio_torch.engine.trainer import aux_state
 
-        from nerfstudio_torch.models.splatfacto import GAUSSIAN_ARRAYS
-
         params, aux, moments, step = splat_state_from_jax(state)
-        params = {k: params[k] for k in GAUSSIAN_ARRAYS}  # the order the port's init makes them in
         adam = SplatAdam({k: v.clone().requires_grad_(True) for k, v in params.items()}, max_steps)
         adam.load_moments(moments)
         return {"step": step, "params": params, "optimizer": adam.state_dict(), "aux": aux_state(aux),

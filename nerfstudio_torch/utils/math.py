@@ -12,8 +12,10 @@ import torch
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip`` with its gradient: a max/min pair, whose derivative is 1/2
-    where ``x`` sits exactly on a bound (``torch.clamp`` passes 1 there)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    where ``x`` sits exactly on a bound (``torch.clamp`` passes 1 there). The
+    bounds are filled on ``x``'s device (``new_tensor`` would copy them
+    from the host and wait for the card)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 def random_quat(n: int, generator: Optional[torch.Generator] = None, uniforms: Optional[torch.Tensor] = None,

@@ -31,6 +31,9 @@ ARGV = {
                  "--data", "scene", "--seed", "5", "leftover"],
     "splatfacto": ["--model.sh_degree", "2", "--model.rasterize_mode", "antialiased", "--model.max_gaussians",
                    "1000", "--dataparser.load_3D_points", "false", "--trainer.steps_per_save", "10"],
+    "splatfacto-big": ["--model.densify_grad_thresh", "0.001", "--trainer.max_num_iterations", "8000"],
+    "splatfacto-mcmc": ["--model.mcmc_noise_lr", "1e5", "--model.use_bilateral_grid", "true",
+                        "--model.camera_optimizer_mode", "SO3xR3", "--model.use_scale_regularization", "1"],
     "neus-facto": ["--model.num_neus_samples_per_ray", "24", "--model.eikonal_loss_mult", "0.5",
                    "--trainer.vis", "none", "--datamanager.eval_num_rays_per_batch", "64"],
 }
@@ -156,6 +159,32 @@ def test_gate_record_of_each_scene(method, scene):
                       .read_text())["metrics"]
     assert gate.jax_record(method, scene) == {"psnr": want["psnr"], "ssim": want["ssim"]}
     assert gate.jax_record(method, "synthetic") is None
+
+
+@pytest.mark.parametrize("method", ["splatfacto-big", "splatfacto-mcmc"])
+def test_gate_record_of_the_big_and_mcmc_methods(method):
+    """The methods' records are named with underscores; both run 8000 steps."""
+    want = json.loads((REPO / "benchmarks" / f"gate_{method.replace('-', '_')}.json").read_text())
+    assert gate.jax_record(method, "basic") == {"psnr": want["metrics"]["psnr"], "ssim": want["metrics"]["ssim"]}
+    assert gate.GATE_STEPS[method] == want["steps"] == 8000
+
+
+@pytest.mark.parametrize("method", ["splatfacto-big", "splatfacto-mcmc"])
+def test_train_script_trains_the_big_and_mcmc_methods(method, tmp_path, capsys):
+    """Each method at its shipped config but for the slots, on the CPU:
+    trains past a refine (warm-up cut to 2 steps, refine every 2), saves,
+    resumes from the save."""
+    scene = make_nerfstudio_fixture(tmp_path / "scene", n=5, hw=16)
+    common = [method, "--data", str(scene), "--machine.device_type", "cpu", "--trainer.output_dir",
+              str(tmp_path / "out"), "--trainer.vis", "none", "--trainer.steps_per_save", "4",
+              "--model.max_gaussians", "300", "--model.num_random", "100", "--model.random_init", "true",
+              "--model.max_refine_new", "32", "--model.warmup_length", "2", "--model.refine_every", "2"]
+    train.main(common + ["--trainer.max_num_iterations", "4", "--trainer.timestamp", "run1"])
+    ckpt = tmp_path / "out" / "scene" / method / "run1" / "nerfstudio_models"
+    train.main(common + ["--trainer.max_num_iterations", "6", "--trainer.timestamp", "run2",
+                         "--trainer.load_dir", str(ckpt)])
+    out = capsys.readouterr().out
+    assert "loaded splat checkpoint at step 4" in out and "eval:" in out
 
 
 def test_default_device_without_a_card_raises(tmp_path, monkeypatch):

@@ -163,9 +163,12 @@ def test_splat_state_from_jax_rejects_mismatches():
     from nerfstudio_torch.utils.convert import splat_state_from_jax
 
     jstate, _ = _jax_splat_state()
-    extra = jstate.replace(params={**jstate.params, "camera_opt": np.zeros((4, 6), np.float32)})
+    extra = jstate.replace(params={**jstate.params, "appearance": np.zeros((4, 6), np.float32)})
     with pytest.raises(ValueError, match="splat params"):
         splat_state_from_jax(extra)
+    missing = jstate.replace(params={k: v for k, v in jstate.params.items() if k != "quats"})
+    with pytest.raises(ValueError, match="splat params"):
+        splat_state_from_jax(missing)
     params, aux, moments, step = splat_state_from_jax(jstate)
     pipeline = SplatPipeline(None, SplatfactoModel(SplatfactoModelConfig(max_gaussians=64)), max_steps=100)
     with pytest.raises(ValueError, match="counts"):

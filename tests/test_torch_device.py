@@ -16,6 +16,7 @@ from nerfstudio_torch.fields.density_fields import HashMLPDensityField
 from nerfstudio_torch.fields.sdf_field import SDFField
 from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
 from nerfstudio_torch.models.neus import NeuSFactoModelConfig
+from nerfstudio_torch.model_components.bilateral_grid import init_bilateral_grid
 from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig, init_gaussian_params
 from nerfstudio_torch.utils.device import resolve_device
 
@@ -39,6 +40,7 @@ ENTRY_POINTS = {
     "full-image datamanager": lambda **kw: FullImageDatamanager(
         _cameras(), torch.zeros((2, 8, 8, 3), dtype=torch.uint8), **kw),
     "splat init": lambda **kw: init_gaussian_params(SplatfactoModelConfig(max_gaussians=16, num_random=8), **kw),
+    "bilateral grids": lambda **kw: init_bilateral_grid(2, **kw),
 }
 
 

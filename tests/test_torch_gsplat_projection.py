@@ -137,3 +137,81 @@ def test_projection_checks_inputs():
         tproj.project_gaussians(means, scales, quats[:, :3], vm, 10.0, 10.0, 8.0, 8.0, 16, 16)
     with pytest.raises(ValueError, match="float32"):
         tproj.project_gaussians(means.double(), scales, quats, vm, 10.0, 10.0, 8.0, 8.0, 16, 16)
+
+
+def _vjp_both(means, scales, quats, c2w, cots, outs, antialiased, fx=FX, fy=FY):
+    """JAX's and the port's VJP into (means, scales, quats, c2w) through
+    get_viewmat, as the camera-opt step differentiates the corrected pose."""
+    _, pull = jax.vjp(lambda m, s, q, c: tuple(jproj.project_gaussians(
+        m, s, q, jproj.get_viewmat(c), fx, fy, CX, CY, W, H, antialiased=antialiased)[i] for i in outs),
+                      *(jnp.asarray(x) for x in (means, scales, quats, c2w)))
+    jgrads = pull(tuple(jnp.asarray(c) for c in cots))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (means, scales, quats, c2w)]
+    out = tproj.project_gaussians(*leaves[:3], tproj.get_viewmat(leaves[3]), fx, fy, CX, CY, W, H,
+                                  antialiased=antialiased)
+    tgrads = torch.autograd.grad([out[i] for i in outs], leaves, [torch.from_numpy(c) for c in cots])
+    return jgrads, tgrads
+
+
+@pytest.mark.parametrize("antialiased", [False, True])
+def test_projection_viewmat_vjp_matches_jax(antialiased):
+    """The VJP into the camera (c2w through get_viewmat) beside means,
+    scales and quats, against ``jax.vjp`` of the reference, every
+    gradient within 1e-5 of its peak (the viewmat's sums over the 2000
+    gaussians in another order)."""
+    means, scales, quats = _gaussians(seed=3)
+    rng = np.random.default_rng(4)
+    _, _, j, _ = _both(means, scales, quats, antialiased)
+    valid = np.asarray(j[4])
+    outs = (0, 1, 2, 5) if antialiased else (0, 1, 2)
+    cots = [rng.normal(size=np.shape(j[i])).astype(np.float32) * valid.reshape((-1,) + (1,) * (np.ndim(j[i]) - 1))
+            for i in outs]
+    jgrads, tgrads = _vjp_both(means, scales, quats, _c2w(), cots, outs, antialiased)
+    for name, a, b in zip(("means", "scales", "quats", "c2w"), jgrads, tgrads):
+        a, b = np.asarray(a), b.numpy()
+        assert np.isfinite(b).all() and np.abs(a).max() > 0, name
+        assert np.abs(a - b).max() <= REL * np.abs(a).max(), (name, np.abs(a - b).max(), np.abs(a).max())
+
+
+def test_projection_viewmat_vjp_at_the_clip_limits():
+    """Gaussians whose screen coordinate sits exactly on the EWA clip limit
+    (an axis-aligned camera at the origin, z = 1 exactly): JAX's clip passes
+    half the gradient there, and so does the port, into the means and into
+    the camera."""
+    c2w = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)  # looks along -z
+    lim_x = np.float32(1.3) * (np.float32(W) / (np.float32(2.0) * FX))
+    lim_y = np.float32(1.3) * (np.float32(H) / (np.float32(2.0) * FY))
+    means = np.array([[lim_x, 0.0, -1.0], [-lim_x, 0.1, -1.0], [0.05, lim_y, -1.0], [0.2, -lim_y, -1.0],
+                      [0.1, 0.1, -2.0]], np.float32)
+    rng = np.random.default_rng(6)
+    scales = np.full((5, 3), 0.05, np.float32) * rng.uniform(0.5, 2.0, (5, 3)).astype(np.float32)
+    quats = rng.normal(size=(5, 4)).astype(np.float32)
+    cots = [rng.normal(size=(5, 2)).astype(np.float32), rng.normal(size=(5,)).astype(np.float32),
+            rng.normal(size=(5, 3)).astype(np.float32)]
+    jgrads, tgrads = _vjp_both(means, scales, quats, c2w, cots, (0, 1, 2), False)
+    for name, a, b in zip(("means", "scales", "quats", "c2w"), jgrads, tgrads):
+        a, b = np.asarray(a), b.numpy()
+        assert np.abs(a - b).max() <= REL * np.abs(a).max(), (name, np.abs(a - b).max(), np.abs(a).max())
+
+
+def test_twin_takes_one_viewmat_per_gaussian():
+    """A viewmat per gaussian (N, 4, 4), as chip_smoke.py uses it for the
+    viewmat gradient's rounding bound: the same outputs, and its gradient
+    summed over the gaussians is the shared viewmat's."""
+    means, scales, quats = (torch.from_numpy(x) for x in _gaussians(300, seed=5))
+    vm = tproj.get_viewmat(torch.from_numpy(_c2w()))
+    cam = (vm, FX, FY, CX, CY, W, H, 0.01, 0.3, False)
+    out = tproj._project_twin(means, scales, quats, *cam)
+    per = tproj._project_twin(means, scales, quats, vm.expand(300, 4, 4), *cam[1:])
+    for a, b in zip(out, per):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(7)
+    cots = [torch.from_numpy(rng.normal(size=tuple(out[i].shape)).astype(np.float32)) * out[4].view(
+        (-1,) + (1,) * (out[i].ndim - 1)) for i in (0, 1, 2, 5)]
+    g = tproj._project_twin_bwd(means.double(), scales.double(), quats.double(), cam,
+                                *(c.double() for c in cots), need_viewmat=True)
+    g_per = tproj._project_twin_bwd(means.double(), scales.double(), quats.double(), (vm.expand(300, 4, 4),) + cam[1:],
+                                    *(c.double() for c in cots), need_viewmat=True)
+    assert g[3].shape == (4, 4) and g_per[3].shape == (300, 4, 4)
+    torch.testing.assert_close(g_per[3].sum(0), g[3], rtol=1e-12, atol=1e-12)
+    assert not g[3][3].any()

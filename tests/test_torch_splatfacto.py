@@ -267,7 +267,7 @@ def test_refine_schedule_follows_jax_train():
     cams = Cameras.create(np.stack([_c2w(0.0), _c2w(1.0)]), 8.0, 8.0, 4.0, 4.0, 8, 8, device=CPU)
     pipeline = SplatPipeline(FullImageDatamanager(cams, images, device=CPU), SplatfactoModel(cfg))
     calls = []
-    pipeline.train_step = lambda state, *a: setattr(state, "step", state.step + 1) or {}
+    pipeline.train_step = lambda state, *a, **kw: setattr(state, "step", state.step + 1) or {}
     pipeline.refine = lambda state, normals, **flags: calls.append((state.step - 1, flags))
 
     class S:
@@ -307,7 +307,8 @@ def test_train_downscales_image_and_intrinsics_as_jax():
     cams = Cameras.create(_c2w()[None], *K, W, H, device=CPU)
     pipeline = SplatPipeline(FullImageDatamanager(cams, _t(image), device=CPU), SplatfactoModel(cfg))
     seen = {}
-    pipeline.train_step = lambda state, c2w, k, img, bg, w, h, sh: seen.update(k=k, img=img, wh=(w, h), sh=sh) or {}
+    pipeline.train_step = lambda state, c2w, k, img, bg, w, h, sh, **kw: seen.update(k=k, img=img, wh=(w, h),
+                                                                                     sh=sh) or {}
     pipeline.train(pipeline.init_state(draws=jax_init_draws(0, 300), device=CPU), 1,
                    torch.Generator().manual_seed(0))
     assert seen["wh"] == (16, 12) and seen["sh"] == 0
@@ -327,6 +328,22 @@ def test_datamanager_camera_order_is_the_seeded_permutation():
     got = [dm.next_train(i) for i in range(10)]
     assert [i for i, _ in got] == want
     assert all(img.dtype == torch.float32 and float(img[0, 0, 0]) == np.float32(i) / np.float32(255) for i, img in got)
+
+
+def test_full_image_uint8_is_the_quotient_by_255():
+    """Every uint8 value of a train and an eval image reaches the step as
+    np.float32(v) / 255 exactly, through the CPU-made table the card
+    gathers from too (a CUDA division by a scalar is 1 ulp off it for some
+    values)."""
+    from nerfstudio_torch.cameras.cameras import Cameras
+
+    img = torch.arange(256, dtype=torch.uint8).view(1, 16, 16, 1).expand(1, 16, 16, 3).contiguous()
+    cams = Cameras.create(_c2w()[None], 16.0, 16.0, 8.0, 8.0, 16, 16, device=CPU)
+    dm = FullImageDatamanager(cams, img, cams, img, device=CPU)
+    want = np.arange(256, dtype=np.float32).reshape(16, 16) / np.float32(255)
+    for got in (dm.next_train(0)[1], dm.eval_image(0)):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got[..., 1].numpy(), want)
 
 
 @pytest.fixture(scope="module")
@@ -432,5 +449,25 @@ def test_eval_render_and_metrics_match_jax(jax_steps, mode):
     dict(use_scale_regularization=True), dict(blend_mode="bounded"),
 ])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        SplatfactoModel(SplatfactoModelConfig(**TINY, **option))
+    """``blend_mode="bounded"`` is still refused; each option ported since
+    builds and takes one finite step on the CPU through ``train`` (the
+    per-image arrays made for the datamanager's two cameras)."""
+    if option.get("blend_mode") == "bounded":
+        with pytest.raises(NotImplementedError):
+            SplatfactoModel(SplatfactoModelConfig(**TINY, **option))
+        return
+    from nerfstudio_torch.cameras.cameras import Cameras
+
+    cfg = SplatfactoModelConfig(**TINY, **option)
+    rng = np.random.default_rng(9)
+    cams = Cameras.create(np.stack([_c2w(0.3), _c2w(0.9)]), *K, W, H, device=CPU)
+    dm = FullImageDatamanager(cams, _t(rng.uniform(size=(2, H, W, 3)).astype(np.float32)), device=CPU)
+    pipeline = SplatPipeline(dm, SplatfactoModel(cfg, scene_scale=1.5), max_steps=100)
+    st = pipeline.init_state(scene_scale=1.5, draws=jax_init_draws(0, 300), device=CPU)
+    assert ("bilateral_grids" in st.params) == cfg.use_bilateral_grid
+    assert ("camera_opt" in st.params) == (cfg.camera_optimizer_mode != "off")
+    before = {k: v.detach().clone() for k, v in st.params.items()}
+    _, metrics = pipeline.train(st, 1, torch.Generator().manual_seed(0))
+    assert st.step == 1 and math.isfinite(float(metrics["loss"]))
+    assert all(torch.isfinite(v).all() for v in st.params.values())
+    assert not torch.equal(before["means"], st.params["means"])
