@@ -79,9 +79,10 @@ shapes its path gives it, and drives the port's paths from random weights:
   gate records' protocol (48 frames of 200^2), ``scripts.train`` nerfacto
   for 300 steps with a save at 150, a resume to 400, the eval of the first
   save and ``scripts.eval`` of the end (the PSNR must rise); the nerfacto
-  and splatfacto gates through ``scripts.gate`` at their full steps (5000
-  and 8000; PSNR > 20 and SSIM > 0.7), beside the JAX records' quality;
-  neus-facto for 200 steps through the trainer (the loss must fall). Each
+  and splatfacto gate runs through ``scripts.gate``, cut in depth to 1000
+  of their 5000 and 8000 steps (the loss must fall; their full runs stand
+  in PERF.md), beside the JAX records' quality; neus-facto for 200 steps
+  through the trainer (the loss must fall). Each
   path's kernel launches are zeroed before it and read after; each must
   launch its kernels. Then every kernel of each path is held against its
   twin at the inputs of one more step from its trained state (nerfacto's
@@ -117,12 +118,28 @@ shapes its path gives it, and drives the port's paths from random weights:
   the bilateral grid, SO3xR3 camera optimisation and scale regularisation
   (the grids' and tangents' gradients compared too) and one MCMC refine, slot
   for slot with the CPU's draws, on the card against the CPU; the
-  splatfacto-mcmc and splatfacto-big gates on ``basic`` at their full 8000
-  steps and 1,000,000 slots, beside the JAX records, each followed by its
-  path's kernels against their twins at its trained state and its idle
-  share; splatfacto with the three options on for 400 steps through
-  ``scripts.gate``'s loop (the loss must fall, the tangents stay finite,
-  every step launches the viewmat backward, the eval colour-corrects).
+  splatfacto-mcmc and splatfacto-big gate runs on ``basic`` at 1,000,000
+  slots, cut in depth to 1000 of their 8000 steps (the loss must fall; their
+  full runs stand in PERF.md), each followed by its path's kernels against
+  their twins at its trained state and its idle share; splatfacto with the
+  three options on for 400 steps through ``scripts.gate``'s loop (the loss
+  must fall, the tangents stay finite, every step launches the viewmat
+  backward, the eval colour-corrects);
+* the largest ray methods and plain NeuS (phases 53-57): one nerfacto-huge
+  step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
+  table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
+  twins; the nerfacto-huge (1500 steps, 16,384 rays) and nerfacto-big (3000
+  steps, 8192 rays) gates on ``basic`` at full width beside the JAX
+  records, each followed by K1's forward (the step's proposal and field
+  calls, the proposal's at an eval chunk) and backward (both calls) and K3
+  (one eval chunk of 32,768 rays) at its trained state, every design
+  against its twin and timed (CUDA events in turns, device time, 50 calls
+  back to back) beside a bound that reads each touched 128-byte table line
+  once, and by a 3-step profile (idle share, the hash grid's share, rays/s);
+  one plain-neus step (the sampler's draws handed in) and one eval chunk on
+  the card against the CPU; plain neus on the ``blender`` scene through the
+  Blender parser, cut in depth to 1000 of its gate's 12,000 steps (the loss
+  must fall; the PSNR stands beside the JAX record), and its idle share.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -265,12 +282,15 @@ def device_ms(fn, runs: int = 10) -> float:
     up). Late in a long process the profiler drops records (3-9 of 10 seen),
     so dividing the summed durations by the calls made would read low; the
     mean per record holds. Unlike CUDA events around a single call it
-    leaves out the host's time to launch it. NaN when the profiler sees no
-    device activity."""
+    leaves out the host's time to launch it. NaN when three profiles in a
+    row see no device activity."""
     fn()
     torch.cuda.synchronize()
-    one, many = _kernel_records(fn, 1), _kernel_records(fn, runs)
-    if not many:
+    for _ in range(3):  # late in the process one profile can lose every record
+        one, many = _kernel_records(fn, 1), _kernel_records(fn, runs)
+        if many:
+            break
+    else:
         return float("nan")
     per_call = {k: max(len(one.get(k, ())), math.ceil(len(v) / runs)) for k, v in many.items()}
     return sum(statistics.fmean(many[k]) * c for k, c in per_call.items()) / 1e3
@@ -628,10 +648,11 @@ STEP_GRAD_REL = 5e-2
 STEP_TABLE_SUM_REL = 1e-2
 
 
-def build_training(device, rays):
+def build_training(device, rays, method=None):
     """nerfacto at the method config's width and schedule
     (configs/method_configs.py:92-110: field_bwd_level_period=2,
-    proposal_freeze_after=2500), random weights from SEED, bench.py's
+    proposal_freeze_after=2500), or ``method``'s shipped model config and
+    optimizers (nerfacto-huge), random weights from SEED, bench.py's
     synthetic scene, its pipeline, a fresh per-group Adam and the occupancy
     hook. Returns (config, pipeline, train state, hook)."""
     from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
@@ -640,12 +661,18 @@ def build_training(device, rays):
     from nerfstudio_torch.pipelines.base_pipeline import TrainState, VanillaPipeline
 
     cfg = NerfactoModelConfig(eval_num_rays_per_chunk=CHUNK, field_bwd_level_period=2, proposal_freeze_after=2500)
+    optimizers = nerfacto_optimizers()
+    if method is not None:
+        from nerfstudio_torch.configs.method_configs import get_method
+
+        config = get_method(method)
+        cfg, optimizers = config.model, config.optimizers
     model = cfg.setup(num_train_data=TRAIN_IMAGES, device=device).train()
     model.reset_parameters(torch.Generator(device=device).manual_seed(SEED))
     images = np.random.default_rng(SEED).integers(0, 255, (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW, 3)).astype(np.uint8)
     dm = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=rays),
                                 orbit_cameras(TRAIN_IMAGES, TRAIN_HW, device), torch.from_numpy(images), device)
-    state = TrainState(PerGroupAdam(nerfacto_optimizers(), model), aux=model.init_aux(model, cfg, device))
+    state = TrainState(PerGroupAdam(optimizers, model), aux=model.init_aux(model, cfg, device))
     return cfg, VanillaPipeline(dm, model), state, NerfactoModel.make_aux_update_fn(model, cfg)
 
 
@@ -675,6 +702,19 @@ def train_steps(cfg, pipeline, state, hook, steps, gen, check_launches=True):
             if got != want:
                 raise AssertionError(f"step {step} ({kwargs}): launches {got}, expected {want}")
     return metrics
+
+
+def occupancy_bounds(res, cells, probes):
+    """Byte bounds (ms, "bytes") of the occupancy grid's two functions, which
+    are stock torch ops with no kernel of their own: the update (the
+    reference's EMA at ``cells`` jittered cells, the field's densities there
+    handed in: read the cells, their jitter and new densities, read and
+    write the res^3 densities once, write the binary grid) and the probe of
+    ``probes`` positions (read 12 bytes, write a 4-byte weight each; the
+    binary grid read once)."""
+    update = bound(9 * res**3 + cells * (8 + 12 + 4), 0)
+    probe = bound(res**3 + probes * (12 + 4), 0)
+    return update, probe
 
 
 def profile_steps(cfg, pipeline, state, hook, start, gen):
@@ -771,10 +811,10 @@ def flatten_tables(model, gen):
                 m.hash_table.copy_(values.repeat(1, 128 // F)[:, None, :].expand(L, S, 128))
 
 
-def card_vs_cpu_step(devices=("cuda", "cpu")):
-    """One training step of the full-width model on the card and on the CPU
-    twins: same weights (the card's, with flat tables), same grid, same
-    draws."""
+def card_vs_cpu_step(devices=("cuda", "cpu"), method=None):
+    """One training step of the full-width model (or ``method``'s) on the
+    card and on the CPU twins: same weights (the card's, with flat tables),
+    same grid, same draws."""
     from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
     from nerfstudio_torch.models.nerfacto import NerfactoModel
     from nerfstudio_torch.pipelines.base_pipeline import StepDraws
@@ -789,7 +829,7 @@ def card_vs_cpu_step(devices=("cuda", "cpu")):
     )
     weights = None
     for device in devices:
-        cfg, pipeline, state, _ = build_training(device, CHECK_RAYS)
+        cfg, pipeline, state, _ = build_training(device, CHECK_RAYS, method)
         if weights is None:
             flatten_tables(pipeline.model, torch.Generator().manual_seed(SEED + 2))
             weights = {k: v.detach().cpu().clone() for k, v in pipeline.model.state_dict().items()}
@@ -1692,11 +1732,13 @@ def bwd_designs_vs_twin(name, kind, pos, table, g, kw, scales=None, need_positio
     return designs, run, outs, scales
 
 
-def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions=True, need_table=True):
-    """``bwd_designs_vs_twin``, then every design and the "scatter alone"
-    yardstick timed in turns (CUDA events, ``paired_ms``) and by the
-    profiler's device time. Returns a record: n, scales, needs, bound,
-    {design: errors and times}, the yardstick's times."""
+def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions=True, need_table=True,
+                      yardstick=True):
+    """``bwd_designs_vs_twin``, then every design and (with ``yardstick``)
+    the "scatter alone" yardstick timed in turns (CUDA events,
+    ``paired_ms``) and by the profiler's device time. Returns a record: n,
+    scales, needs, bound, {design: errors and times}, the yardstick's
+    times."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     needs = dict(need_positions=need_positions, need_table=need_table)
@@ -1705,7 +1747,8 @@ def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions
     F = 128 * S // kw["hash_table_size"]
     n = pos.shape[0]
     fns = {d: (lambda d=d: run(d)) for d in hg.DESIGNS}
-    if need_table:
+    yardstick = yardstick and need_table
+    if yardstick:
         idx, vals = scatter_pairs(kind, pos, table, g, scales, kw)
         target = torch.zeros(table.numel(), device=table.device)
         fns["scatter alone"] = lambda: target.index_add_(0, idx, vals)
@@ -1726,7 +1769,7 @@ def check_bwd_designs(name, kind, pos, table, g, kw, scales=None, need_positions
                 designs=designs,
                 scatter_alone=(dict(ms=times["scatter alone"][0], device_ms=dev["scatter alone"],
                                     batch_ms=bat["scatter alone"], pairs=int(idx.numel()))
-                               if need_table else None))
+                               if yardstick else None))
 
 
 def bwd_design_line(label, rec) -> str:
@@ -2408,7 +2451,7 @@ def profiled_idle(name, one_step, step_ms, label):
         f"{busy_ms:.2f} ms of device-busy time per step, i.e. the device idles {idle:.1%} of the unprofiled "
         f"{step_ms:.2f} ms step (host clock, the median 1000-step block); by class (ms/step): "
         + ", ".join(f"{c} {t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
-    return dict(busy_ms=busy_ms, step_ms=step_ms, idle=idle, activities=activities)
+    return dict(busy_ms=busy_ms, step_ms=step_ms, idle=idle, activities=activities, classes=classes)
 
 
 def loss_fell(run_dir):
@@ -2420,7 +2463,7 @@ def loss_fell(run_dir):
     return head, tail, all(map(math.isfinite, losses)) and tail < head
 
 
-def gate_phase(name, method, scene, root, card, want, steps=None, keep=None):
+def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, timed=False):
     """``scripts.gate.run_gate`` at the method's gate steps on the scene: it
     fails unless PSNR > 20 and SSIM > 0.7. Prints the result beside the JAX
     record's quality (the same scene protocol), the train seconds and
@@ -2430,7 +2473,10 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None):
     device's idle share over a few profiled steps. With ``steps`` (a run cut
     in depth) the gate is not asked: the logged loss must be finite and
     fall (first quarter's mean against the last's). ``keep`` receives the
-    splat step's K4 backward inputs (``check_splat_step``)."""
+    splat step's K4 backward inputs (``check_splat_step``). With ``timed``
+    (a ray method) the kernels at the trained state are also timed
+    (``timed_hash_kernels``); a path without kernels (``want`` empty: plain
+    neus) has none to check."""
     from nerfstudio_torch.scripts import gate
 
     splat = method.startswith("splatfacto")
@@ -2466,8 +2512,13 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None):
     if not steps and not res["pass"]:
         raise AssertionError(f"{name}: {method} missed the gate: psnr {m['psnr']}, ssim {m['ssim']}")
     label = f"the {method} {'run' if steps else 'gate'}'s trained state"
+    kernels = None
     if splat:
         errs = check_splat_step(name, run["one_step"], label, keep)
+    elif not want:
+        errs = {}  # plain neus: the SDF field and NeuSSampler are plain PyTorch
+    elif timed:
+        errs, kernels = timed_hash_kernels(name, run, label, card)
     else:
         errs = check_hash_step(name, run["one_step"], label, "K1")
         for k, v in check_eval_chunk(name, run["pipeline"], run["state"], label).items():
@@ -2477,7 +2528,7 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None):
     del run
     torch.cuda.empty_cache()
     return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs, idle=idle,
-                undistort=undistort, loss=(head, tail))
+                undistort=undistort, loss=(head, tail), kernels=kernels)
 
 
 def neus_from_disk(name, scene, root, card):
@@ -2886,7 +2937,10 @@ K8_VALUE_ABS, K8_GRAD_REL, COLOR_CORRECT_FACTOR = 1e-6, 1e-5, 4.0
 OPTIONS_STEPS = 400  # the three options' run through scripts.gate's loop
 OPTIONS_FLAGS = ("--model.use-bilateral-grid", "True", "--model.camera-optimizer-mode", "SO3xR3",
                  "--model.use-scale-regularization", "True")
-CUT_GATE_STEPS = 1000  # the distorted and masked gates, cut in depth (their full runs: PERF.md §6)
+# every gate of phases 36-51 (nerfacto and splatfacto on basic, distorted
+# and masked; splatfacto-mcmc and -big), cut in depth (their full runs:
+# PERF.md §6)
+CUT_GATE_STEPS = 1000
 
 
 def k4_view_random(n, gen, hw=SPLAT_HW):
@@ -3258,10 +3312,19 @@ def options_run(name, scene, root, card):
                              f"{OPTIONS_STEPS} steps")
     keep = {}
     errs = check_splat_step(name, run["one_step"], "the options run's trained state", keep)
-    del run
+    # K8 (plain PyTorch, no kernel of its own) at the step's own call: its
+    # byte bound, the grid and coordinates read and the coefficients written
+    from nerfstudio_torch.model_components import bilateral_grid as bg
+
+    (grid, coords), _ = capture_kernel_calls({"k8": (bg, "grid_sample_3d")}, run["one_step"])["k8"][0]
+    points = coords.numel() // coords.shape[-1]
+    k8_bound = bound(nbytes(grid, coords) + points * grid.shape[0] * 4, points * grid.shape[0] * 16)
+    log(name, f"K8 grid_sample_3d at one step's call: a {tuple(grid.shape)} grid at {points} pixels "
+        f"({tuple(coords.shape)} coordinates), bound {k8_bound[0]:.5f} ms by {k8_bound[1]}")
+    del run, grid, coords
     torch.cuda.empty_cache()
     return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs,
-                loss=(head, tail), color_corrected=len(corrected))
+                loss=(head, tail), color_corrected=len(corrected), k8_bound_ms=k8_bound[0], k8_bound_by=k8_bound[1])
 
 
 def options_and_methods(ph, card, scene, disk_root, disk):
@@ -3270,7 +3333,8 @@ def options_and_methods(ph, card, scene, disk_root, disk):
     trained MCMC step's inputs), timed beside the default backward; K8 and
     the bilateral grid card vs CPU; one MCMC step, one step with the three
     options and one MCMC refine card vs CPU; the splatfacto-mcmc and
-    splatfacto-big gates at full steps and 1,000,000 slots on ``scene``;
+    splatfacto-big gate runs at 1,000,000 slots on ``scene``, cut in depth
+    to CUT_GATE_STEPS;
     the three options' run through scripts.gate's loop. Adds the runs to
     ``disk``; returns the records of phases 47-49."""
     from nerfstudio_torch.ops.gsplat import projection as pj
@@ -3299,17 +3363,258 @@ def options_and_methods(ph, card, scene, disk_root, disk):
     option_steps = option_steps_card_vs_cpu(ph(49, "option steps, card vs CPU"))
     mcmc_refine = refine_mcmc_card_vs_cpu(ph(49, "MCMC refine, card vs CPU"))
     keep = {}
-    disk["gate_splatfacto-mcmc"] = gate_phase(ph(50, "gate splatfacto-mcmc"), "splatfacto-mcmc", scene, disk_root,
-                                              card, SPLAT_PATH_KERNELS, keep=keep)
+    disk["gate_splatfacto-mcmc"] = gate_phase(ph(50, f"splatfacto-mcmc, {CUT_GATE_STEPS} steps"), "splatfacto-mcmc",
+                                              scene, disk_root, card, SPLAT_PATH_KERNELS, steps=CUT_GATE_STEPS,
+                                              keep=keep)
     m, s_, q, cam, cots = keep.pop("k4_bwd")
     label = "one trained splatfacto-mcmc step's inputs"
     k4v_recs.append(check_k4_viewmat(ph(47, "K4 bwd with the viewmat gradient"), label, m, s_, q, cam, cots))
     k4v_times.append(time_k4_viewmat(ph(47, "K4 bwd timing"), m, s_, q, cam, cots, label))
     del m, s_, q, cam, cots
-    disk["gate_splatfacto-big"] = gate_phase(ph(51, "gate splatfacto-big"), "splatfacto-big", scene, disk_root,
-                                             card, SPLAT_PATH_KERNELS)
+    disk["gate_splatfacto-big"] = gate_phase(ph(51, f"splatfacto-big, {CUT_GATE_STEPS} steps"), "splatfacto-big",
+                                             scene, disk_root, card, SPLAT_PATH_KERNELS, steps=CUT_GATE_STEPS)
     disk["options"] = options_run(ph(52, "splatfacto with the three options"), scene, disk_root, card)
     return dict(k4v_recs=k4v_recs, k4v_times=k4v_times, k8=k8, option_steps=option_steps, mcmc_refine=mcmc_refine)
+
+
+# --------------------------------------------------------------------------
+# nerfacto-big and nerfacto-huge at full width; plain neus
+
+
+NEUS_PLAIN_STEPS = 1000  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
+NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
+# Card vs CPU, plain neus's eval chunk: the SDF field is float32 on both
+# sides, but the sampler's four SDF passes sum in another order, which moves
+# the upsampled bins by float32 ulps; the eval parity test against JAX
+# (tests/test_torch_neus_plain.py) holds the same render at this limit. A
+# normal counts by its ray's accumulation: a ray that barely meets the
+# surface has a normal of no weight.
+NEUS_PLAIN_EVAL_ATOL = 1e-3
+
+
+def touched_line_bytes(pos, table, kw, exact):
+    """Bytes of the distinct 128-byte lines of ``table`` that K1 (the
+    8-corner block it picks per level) or K3 (``exact``: each of the 8
+    corners' blocks) reads at ``pos``, over every level: each line read
+    once from HBM, at most the table's own size. A table beyond the 50 MB
+    L2 cannot be kept there between calls, so every line a call touches
+    comes from HBM at least once; within L2 this is the least, too."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    L, S, _ = table.shape
+    T = kw["hash_table_size"]
+    F = 128 * S // T
+    bpr = 16 // F  # blocks per 128-float row
+    total = 0
+    with torch.no_grad():
+        for res in hg.compute_level_resolutions(L, kw["min_res"], kw["max_res"]):
+            res = int(res)
+            if exact:
+                bs, dense_b = hg._block_level_layout(res, T)
+                (ix0, _), (iy0, _), (iz0, _) = hg._base_cells(pos, res)
+                blocks = [hg._block_index((ix0 + ((c >> 2) & 1)) >> 1, (iy0 + ((c >> 1) & 1)) >> 1,
+                                          (iz0 + (c & 1)) >> 1, bs, dense_b, T // 8) for c in range(8)]
+                blk = torch.cat(blocks)
+            else:
+                rows, slot, _ = hg._level_blocks(pos, res, T, bpr)
+                blk = rows * bpr + slot
+            # a block of 8F floats (32F bytes) starts at a multiple of 32F
+            # bytes: it lies within one 128-byte line (32 floats) at F <= 4
+            lanes = (blk // bpr) * 128 + (blk % bpr) * (8 * F)
+            total += int(torch.unique(lanes // 32).numel()) * 128
+    return total
+
+
+def timed_hash_kernels(name, run, label, card):
+    """K1's forward and backward at every call of one more step of
+    ``run["one_step"]``, and K3 and the proposal's K1 at the first eval
+    chunk of the model's own ``eval_num_rays_per_chunk`` (the first eval
+    view): every design against its twin (``check_block_designs``;
+    ``check_bwd_designs`` against the float64 twin, without the "scatter
+    alone" yardstick), then timed in turns (CUDA events), by the profiler's
+    device time and over 50 calls back to back, beside the twin's time and
+    two bounds: the function's (``bound``: the whole table read) and one
+    that reads once each 128-byte table line the samples touch
+    (``touched_line_bytes``; the backward's dense table gradient is still
+    written whole). Returns ({kernel: max abs err}, [records])."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    calls = capture_kernel_calls({"fwd": (hg, "_block_kernel"), "bwd": (hg, "_block_bwd_kernel")}, run["one_step"])
+    pipeline, state = run["pipeline"], run["state"]
+    chunk = pipeline.model.config.eval_num_rays_per_chunk
+    cam_idx = pipeline.datamanager.eval_image(0)[0]
+    ev = capture_kernel_calls({"fwd": (hg, "_block_kernel")},
+                              lambda: pipeline.render_eval_camera(state, cam_idx, chunk))["fwd"]
+    k3 = [i for i, (_, kw) in enumerate(ev) if kw["exact"]]
+    if not calls["fwd"] or not calls["bwd"] or not k3:
+        raise AssertionError(f"{name}: one step called K1 {len(calls['fwd'])} and its backward {len(calls['bwd'])} "
+                             f"times, an eval view K3 {len(k3)} times")
+    errs = {"hash_encode_block": 0.0, "hash_encode_block_exact": 0.0, "hash_encode_block_bwd": 0.0}
+    recs = []
+    fwd_sets = [("a trained step", c) for c in calls["fwd"]] + [(f"the first {chunk}-ray eval chunk", c)
+                                                                 for c in ev[:k3[0] + 1]]
+    for where, ((pos, table), kw) in fwd_sets:
+        kw = dict(kw)
+        exact = kw.pop("exact")
+        L, S, _ = table.shape
+        F = 128 * S // kw["hash_table_size"]
+        n = pos.shape[0]
+        kernel = "K3" if exact else "K1 fwd"
+        what = (f"{label}, {where}, {kernel}: N={n} L={L} F={F} T=2^{kw['hash_table_size'].bit_length() - 1} "
+                f"max_res={kw['max_res']}, table {nbytes(table) / 2**20:.0f} MiB")
+        design_errs, timing, fn_bound = check_block_designs(name, exact, pos, table, kw, what)
+        key = "hash_encode_block_exact" if exact else "hash_encode_block"
+        errs[key] = max(errs[key], *design_errs.values())
+        events, dev, bat = time_block_designs(timing)
+        with torch.no_grad():
+            twin_ms = median_ms(timing["twin"], runs=3, warmup=1)
+        lines = touched_line_bytes(pos, table, kw, exact)
+        line_bound = bound(nbytes(pos) + n * L * F * 4 + lines, hash_fwd_ops(n, L, F))
+        recs.append(dict(kernel=kernel, inputs=where, n=n, levels=L, features=F, hash_table_size=kw["hash_table_size"],
+                         max_res=kw["max_res"], table_bytes=nbytes(table), touched_bytes=lines,
+                         design=hg._pick_design(F), plain_ms=twin_ms, bound_ms=fn_bound[0], bound_by=fn_bound[1],
+                         line_bound_ms=line_bound[0], line_bound_by=line_bound[1],
+                         designs={d: dict(ms=events[d][0], ms_runs=events[d][1], device_ms=dev[d], batch_ms=bat[d],
+                                          max_abs_err=design_errs[d]) for d in hg.DESIGNS}))
+    for (pos, table, g, scales), kw in calls["bwd"]:
+        kw = dict(kw)
+        needs = {k: kw.pop(k) for k in ("need_positions", "need_table")}
+        L, S, _ = table.shape
+        F = 128 * S // kw["hash_table_size"]
+        n = pos.shape[0]
+        rec = check_bwd_designs(f"{name}, {label}, a trained step", "K1", pos, table, g, kw, scales, yardstick=False,
+                                **needs)
+        errs["hash_encode_block_bwd"] = max(errs["hash_encode_block_bwd"],
+                                            *(r["max_abs_err"] for r in rec["designs"].values()))
+        lines = touched_line_bytes(pos, table, kw, False) if needs["need_positions"] else 0
+        moved = (nbytes(pos, g) + lines + (nbytes(table) if needs["need_table"] else 0)
+                 + (nbytes(pos) if needs["need_positions"] else 0))
+        line_bound = bound(moved, hash_bwd_ops(n, L, F, needs["need_positions"]))
+        recs.append(dict(kernel="K1 bwd", inputs="a trained step", n=n, levels=L, features=F,
+                         hash_table_size=kw["hash_table_size"], max_res=kw["max_res"], table_bytes=nbytes(table),
+                         touched_bytes=lines, scales=rec["scales"], **needs, design=hg._pick_design(F),
+                         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], line_bound_ms=line_bound[0],
+                         line_bound_by=line_bound[1], designs=rec["designs"]))
+    for r in recs:
+        d = r["designs"][r["design"]]
+        log(name, f"{r['kernel']} at {label}, {r['inputs']} (N={r['n']} L={r['levels']} F={r['features']} "
+            f"T={r['hash_table_size']}, table {r['table_bytes'] / 2**20:.0f} MiB, touched lines "
+            f"{r['touched_bytes'] / 2**20:.1f} MiB) on {card}: {r['design']} {d['ms']:.4f} ms "
+            f"{[round(m, 4) for m in d['ms_runs']]} (events), device {d['device_ms']:.4f}, back to back "
+            f"{d['batch_ms']:.4f}; bound {r['line_bound_ms']:.4f} ms by {r['line_bound_by']} (the touched lines; "
+            f"the whole table's {r['bound_ms']:.4f})"
+            + (f"; twin {r['plain_ms']:.3f} ms" if "plain_ms" in r else "") + "; the other designs: "
+            + ", ".join(f"{k} {v['ms']:.4f} / {v['device_ms']:.4f} / {v['batch_ms']:.4f}"
+                        for k, v in r["designs"].items() if k != r["design"]))
+    del calls, ev
+    return errs, recs
+
+
+def neus_plain_card_vs_cpu(name):
+    """One plain-neus training step at the shipped width (the method config's
+    model and optimizer) on the card and on the CPU twins, from the card's
+    initial weights and the same draws (pixels, the uniform round's jitter
+    and the four upsampling rounds'), on bench.py's scene; then one eval
+    chunk (a NEUS_PLAIN_EVAL_HW^2 frame, one 1024-ray chunk) from the
+    stepped weights. Returns (card metrics, CPU metrics, loss rel, {param:
+    grad rel}, {output: max abs gap})."""
+    from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
+    from nerfstudio_torch.engine.optimizers import PerGroupAdam
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.models.base_model import render_camera
+    from nerfstudio_torch.models.neus import NeuSModel
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws, TrainState, VanillaPipeline
+
+    config = get_method("neus")
+    cfg = config.model
+    gen = torch.Generator().manual_seed(SEED + 5)
+    draws = StepDraws(
+        torch.stack([torch.randint(0, n, (NEUS_CHECK_RAYS,), generator=gen)
+                     for n in (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW)], dim=-1),
+        SamplerUniforms(None, tuple(torch.rand((NEUS_CHECK_RAYS, 1), generator=gen)
+                                    for _ in range(cfg.num_upsample_steps + 1))),
+    )
+    images = np.random.default_rng(SEED).integers(0, 255, (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW, 3)).astype(np.uint8)
+    runs, weights = [], None
+    for device in ("cuda", "cpu"):
+        model = cfg.setup(num_train_data=TRAIN_IMAGES, device=device).train()
+        model.reset_parameters(torch.Generator(device=device).manual_seed(SEED))
+        if weights is None:
+            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        dm = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=NEUS_CHECK_RAYS),
+                                    orbit_cameras(TRAIN_IMAGES, TRAIN_HW, device), torch.from_numpy(images), device)
+        pipeline = VanillaPipeline(dm, model)
+        state = TrainState(PerGroupAdam(config.optimizers, model))
+        dev_draws = StepDraws(draws.pixels.to(device),
+                              SamplerUniforms(None, tuple(u.to(device) for u in draws.sampler.rounds)))
+        metrics = pipeline.train_step(state, draws=dev_draws, **NeuSModel.step_kwargs(NEUS_EARLY, cfg))
+        grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+        model.eval()
+        frame = render_camera(model, None, orbit_cameras(NUM_CAMERAS, NEUS_PLAIN_EVAL_HW, device), 0,
+                              NEUS_PLAIN_EVAL_HW**2)
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads, {k: v.cpu() for k, v in frame.items()}))
+        del pipeline, state, model
+    (m_card, g_card, f_card), (m_cpu, g_cpu, f_cpu) = runs
+    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    grad_rel = {n: float((g_card[n] - ref).abs().max() / ref.abs().max()) for n, ref in g_cpu.items()
+                if ref.abs().max() > 0}
+    gaps = {k: float((f_card[k] - f_cpu[k]).abs().max()) for k in ("rgb", "accumulation")}
+    gaps["depth (relative)"] = float(((f_card["depth"] - f_cpu["depth"]).abs() / f_cpu["depth"].abs().clamp_min(1.0))
+                                     .max())
+    gaps["normals x accumulation"] = float(((f_card["normals"] - f_cpu["normals"]).abs()
+                                            * f_cpu["accumulation"]).max())
+    for k, c in (("rgb", 3), ("accumulation", 1), ("depth", 1), ("normals", 3)):
+        if tuple(f_card[k].shape) != (NEUS_PLAIN_EVAL_HW, NEUS_PLAIN_EVAL_HW, c) or not torch.isfinite(f_card[k]).all():
+            raise AssertionError(f"{name}: eval {k}: shape {tuple(f_card[k].shape)} or non-finite values")
+    worst = max(grad_rel, key=grad_rel.get)
+    log(name, f"{NEUS_CHECK_RAYS} rays of {TRAIN_HW}^2 images, the shipped width ({cfg.num_samples} uniform + "
+        f"{cfg.num_upsample_steps} x {cfg.num_samples_importance // cfg.num_upsample_steps} upsampled samples per "
+        f"ray), the draws handed in: loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit "
+        f"{NEUS_LOSS_RTOL}); gradients max |card - cpu| / peak {grad_rel[worst]:.3g} at {worst} (limit "
+        f"{NEUS_GRAD_REL}); one {NEUS_PLAIN_EVAL_HW ** 2}-ray eval chunk, max |card - cpu|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()) + f" (limit {NEUS_PLAIN_EVAL_ATOL})")
+    if loss_rel > NEUS_LOSS_RTOL or grad_rel[worst] > NEUS_GRAD_REL or max(gaps.values()) > NEUS_PLAIN_EVAL_ATOL:
+        raise AssertionError(f"{name}: card and CPU plain-neus steps or eval chunks disagree")
+    return dict(loss=(m_card["loss"], m_cpu["loss"]), loss_rel=loss_rel, grad_rel=grad_rel[worst], eval=gaps)
+
+
+def big_methods_and_neus(ph, card, scene, disk_root, disk):
+    """Phases 53-57: one nerfacto-huge step at 1024 rays card vs CPU; the
+    nerfacto-huge (1500 steps) and nerfacto-big (3000) gates on ``scene`` at
+    full width, each followed by K1's forward and backward and K3 at its
+    trained state in every design against the twins, timed, and by its
+    device's idle share and the hash grid's share of the busy time; one
+    plain-neus step and eval chunk card vs CPU; plain neus on the
+    ``blender`` scene for NEUS_PLAIN_STEPS steps (cut in depth: the loss
+    must fall), its idle share. Adds the runs to ``disk``; returns the
+    card-vs-CPU records."""
+    name = ph(53, "nerfacto-huge step, card vs cpu")
+    m_card, m_cpu, loss_rel, grad_rel, table_rel = card_vs_cpu_step(method="nerfacto-huge")
+    log(name, f"{CHECK_RAYS} rays, the shipped width (field L16 F4 T=2^21, 256-wide MLPs; proposal L7), flat "
+        f"tables: loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}); "
+        f"non-table gradients max |card - cpu| / peak {grad_rel:.3g} (limit {STEP_GRAD_REL}); table gradients per "
+        f"level and feature {table_rel:.3g} of the peak (limit {STEP_TABLE_SUM_REL})")
+    if loss_rel > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL or table_rel > STEP_TABLE_SUM_REL:
+        raise AssertionError(f"{name}: card and CPU nerfacto-huge steps disagree")
+    huge_step = dict(loss_rel=loss_rel, grad_rel=grad_rel, table_rel=table_rel)
+    torch.cuda.empty_cache()
+    for i, method in ((54, "nerfacto-huge"), (55, "nerfacto-big")):
+        name = ph(i, f"gate {method}")
+        rec = disk[f"gate_{method}"] = gate_phase(name, method, scene, disk_root, card, NERFACTO_KERNELS, timed=True)
+        idle = rec["idle"]
+        if idle is not None:
+            hash_ms = idle["classes"].get("hash-grid kernels", 0.0)
+            rec["hash_share"] = hash_ms / idle["busy_ms"]
+            log(name, f"{method}: {rec['train_rays_per_sec']:,.0f} rays/s over the gate (host clock); the hash-grid "
+                f"kernels {hash_ms:.3f} ms of {idle['busy_ms']:.2f} ms device-busy per step "
+                f"({rec['hash_share']:.1%}), idle {idle['idle']:.1%} on {card}")
+    neus_step = neus_plain_card_vs_cpu(ph(56, "plain neus step and eval chunk, card vs cpu"))
+    blender = make_scene(ph(57, "scene"), disk_root, "blender")
+    disk["neus"] = gate_phase(ph(57, f"neus on blender, {NEUS_PLAIN_STEPS} steps"), "neus", blender, disk_root, card,
+                              (), steps=NEUS_PLAIN_STEPS)
+    return dict(huge_step=huge_step, neus_step=neus_step)
 
 
 def main() -> int:
@@ -3325,7 +3630,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 52
+    n_phases = 57
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -3407,9 +3712,14 @@ def main() -> int:
     occupied = float(state.aux.binary.float().mean())
     if not math.isfinite(loss):
         raise AssertionError(f"training loss {loss} at step 259")
+    occ_update_bound, occ_probe_bound = occupancy_bounds(state.aux.resolution, cfg.occ_cells_per_update,
+                                                         CHUNK * cfg.occ_num_probes)
     log(ph(9, "training, steps 256-259"), f"{TRAIN_RAYS} rays/step, loss {loss:.5f} at step 259, "
         f"occupied after the update at 256: {occupied:.3f}, launches {dict(hg.launch_counts)}, "
-        f"{early_s:.2f} s including warm-up")
+        f"{early_s:.2f} s including warm-up; occupancy bounds (stock ops, no kernel): the update of "
+        f"{cfg.occ_cells_per_update} cells of {state.aux.resolution}^3 {occ_update_bound[0]:.4f} ms, the probe of "
+        f"one {CHUNK}-ray render chunk's {CHUNK * cfg.occ_num_probes} positions {occ_probe_bound[0]:.4f} ms "
+        "(by bytes)")
     train_steps(cfg, pipeline, state, hook, range(STEADY_START, STEADY_START + STEADY_WARMUP), train_gen)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3944,10 +4254,10 @@ def main() -> int:
     try:
         scene = make_scene(ph(34, "scene"), disk_root)
         disk = {"cli": cli_round_trip(ph(35, "CLI round trip"), scene, disk_root, card),
-                "gate_nerfacto": gate_phase(ph(36, "gate nerfacto"), "nerfacto", scene, disk_root, card,
-                                            NERFACTO_KERNELS),
-                "gate_splatfacto": gate_phase(ph(37, "gate splatfacto"), "splatfacto", scene, disk_root, card,
-                                              SPLAT_PATH_KERNELS),
+                "gate_nerfacto": gate_phase(ph(36, f"nerfacto, {CUT_GATE_STEPS} steps"), "nerfacto", scene,
+                                            disk_root, card, NERFACTO_KERNELS, steps=CUT_GATE_STEPS),
+                "gate_splatfacto": gate_phase(ph(37, f"splatfacto, {CUT_GATE_STEPS} steps"), "splatfacto", scene,
+                                              disk_root, card, SPLAT_PATH_KERNELS, steps=CUT_GATE_STEPS),
                 "neus_facto": neus_from_disk(ph(38, "neus-facto from disk"), scene, disk_root, card)}
         # 39-46. every camera type's rays and every sampling path on the card
         # against the CPU; distorted and masked captures: the four gates and
@@ -3966,6 +4276,8 @@ def main() -> int:
 
         # 47-52. splatfacto's options and methods
         options = options_and_methods(ph, card, scene, disk_root, disk)
+        # 53-57. nerfacto-huge and nerfacto-big at full width, plain neus
+        card_vs_cpu = big_methods_and_neus(ph, card, scene, disk_root, disk)
     finally:
         shutil.rmtree(disk_root, ignore_errors=True)
 
@@ -4152,6 +4464,13 @@ def main() -> int:
             e["disk_max_abs_err"] = {path: rec["max_abs_err"][key] for path, rec in disk.items()
                                      if key in rec.get("max_abs_err", {})}
     k5_entry["above_limit"] = k5_above
+    # K1 forward and backward and K3 at nerfacto-huge's and nerfacto-big's
+    # trained state (phases 54-55): every call of one step, one eval chunk
+    for method in ("nerfacto-huge", "nerfacto-big"):
+        recs = disk[f"gate_{method}"]["kernels"]
+        for e, kernel in ((kernels[0], "K1 fwd"), (kernels[1], "K3"), (kernels[2], "K1 bwd")):
+            e.setdefault("trained_shapes", {})[method] = [r for r in recs if r["kernel"] == kernel]
+    kernels[0]["huge_step_card_vs_cpu"] = card_vs_cpu["huge_step"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,11 +14,11 @@ from nerfstudio_torch.configs.base_config import MachineConfig
 from nerfstudio_torch.data.datamanagers import DataManagerConfig
 from nerfstudio_torch.data.dataparsers.base_dataparser import DataParserConfig
 from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
-from nerfstudio_torch.engine.optimizers import neus_facto_optimizers, nerfacto_optimizers
+from nerfstudio_torch.engine.optimizers import nerfacto_optimizers, neus_facto_optimizers, neus_optimizers
 from nerfstudio_torch.engine.trainer import TrainerConfig
 from nerfstudio_torch.models.base_model import ModelConfig
 from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
-from nerfstudio_torch.models.neus import NeuSFactoModelConfig
+from nerfstudio_torch.models.neus import NeuSFactoModelConfig, NeuSModelConfig
 from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
 
 
@@ -45,9 +45,12 @@ class MethodConfig:
 method_configs: Dict[str, MethodConfig] = {}
 descriptions = {
     "nerfacto": "Recommended real->nerf model. Hash grid + proposal sampling.",
+    "nerfacto-big": "Larger nerfacto (more features, longer schedule).",
+    "nerfacto-huge": "Largest nerfacto.",
     "splatfacto": "3D Gaussian Splatting.",
     "splatfacto-big": "3DGS with more gaussians.",
     "splatfacto-mcmc": "3DGS with MCMC densification.",
+    "neus": "NeuS SDF surface reconstruction.",
     "neus-facto": "NeuS with proposal sampling.",
 }
 
@@ -58,6 +61,56 @@ method_configs["nerfacto"] = MethodConfig(
     dataparser=NerfstudioDataParserConfig(),
     model=NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15, field_bwd_level_period=2, proposal_freeze_after=2500),
     optimizers=nerfacto_optimizers(),
+)
+
+# the reference's two largest ray configs (reference :112-161), its
+# speed knobs scaled to their 100k-step schedule
+method_configs["nerfacto-big"] = MethodConfig(
+    method_name="nerfacto-big",
+    trainer=TrainerConfig(max_num_iterations=100000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=8192),
+    dataparser=NerfstudioDataParserConfig(),
+    model=NerfactoModelConfig(
+        eval_num_rays_per_chunk=1 << 15,
+        num_nerf_samples_per_ray=128,
+        num_proposal_samples_per_ray=(512, 256),
+        hidden_dim=128,
+        hidden_dim_color=128,
+        appearance_embed_dim=32,
+        max_res=4096,
+        proposal_weights_anneal_max_num_iters=5000,
+        log2_hashmap_size=21,
+        field_bwd_level_period=2,
+        proposal_freeze_after=8000,
+    ),
+    optimizers=nerfacto_optimizers(max_steps=100000),
+)
+
+method_configs["nerfacto-huge"] = MethodConfig(
+    method_name="nerfacto-huge",
+    trainer=TrainerConfig(max_num_iterations=100000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=16384),
+    dataparser=NerfstudioDataParserConfig(),
+    model=NerfactoModelConfig(
+        eval_num_rays_per_chunk=1 << 15,
+        num_nerf_samples_per_ray=64,
+        num_proposal_samples_per_ray=(512, 512),
+        proposal_net_args_list=(
+            {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 5, "max_res": 512},
+            {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 7, "max_res": 2048},
+        ),
+        hidden_dim=256,
+        hidden_dim_color=256,
+        appearance_embed_dim=32,
+        max_res=8192,
+        proposal_weights_anneal_max_num_iters=5000,
+        log2_hashmap_size=21,
+        features_per_level=4,
+        num_levels=16,
+        field_bwd_level_period=2,
+        proposal_freeze_after=8000,
+    ),
+    optimizers=nerfacto_optimizers(max_steps=100000),
 )
 
 method_configs["splatfacto"] = MethodConfig(
@@ -89,6 +142,15 @@ method_configs["splatfacto-mcmc"] = MethodConfig(
     optimizers={},
 )
 
+method_configs["neus"] = MethodConfig(
+    method_name="neus",
+    trainer=TrainerConfig(max_num_iterations=100000, steps_per_eval_image=2500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=1024),
+    dataparser=NerfstudioDataParserConfig(),
+    model=NeuSModelConfig(eval_num_rays_per_chunk=1024),
+    optimizers=neus_optimizers(),
+)
+
 method_configs["neus-facto"] = MethodConfig(
     method_name="neus-facto",
     trainer=TrainerConfig(max_num_iterations=20000, steps_per_eval_image=2500),
@@ -100,9 +162,8 @@ method_configs["neus-facto"] = MethodConfig(
 
 # the reference's other methods, by the ROADMAP queue 1 item that ports them
 NOT_PORTED = {
-    "nerfacto-big": 8, "nerfacto-huge": 8, "depth-nerfacto": 8, "semantic-nerfw": 8, "phototourism": 8,
-    "instant-ngp": 9, "instant-ngp-bounded": 9, "vanilla-nerf": 10, "mipnerf": 10, "dnerf": 10, "tensorf": 11,
-    "neus": 7, "generfacto": 12,
+    "depth-nerfacto": 8, "semantic-nerfw": 8, "phototourism": 8, "instant-ngp": 9, "instant-ngp-bounded": 9,
+    "vanilla-nerf": 10, "mipnerf": 10, "dnerf": 10, "tensorf": 11, "generfacto": 12,
 }
 
 

@@ -57,6 +57,18 @@ def nerfacto_optimizers(max_steps: int = 30000) -> Dict[str, Dict[str, Any]]:
     }
 
 
+def neus_optimizers() -> Dict[str, Dict[str, Any]]:
+    """plain neus's one group (reference configs/method_configs.py:327-339):
+    the SDF field at Adam's default eps, a cosine decay over 300,000 steps
+    after a 5000-step warm-up."""
+    return {
+        "field": {
+            "optimizer": AdamOptimizerConfig(lr=5e-4),
+            "scheduler": CosineDecaySchedulerConfig(warm_up_end=5000, max_steps=300000),
+        },
+    }
+
+
 def neus_facto_optimizers(max_steps: int = 20000) -> Dict[str, Dict[str, Any]]:
     """neus-facto's groups (reference configs/method_configs.py:341-357): the
     SDF field with a cosine decay after a 500-step warm-up, the proposal

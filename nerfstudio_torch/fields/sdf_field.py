@@ -9,8 +9,13 @@ a beta=100 softplus to (sdf, geo features); the colour network maps
 The SDF gradient is taken by autograd (also in eval, where the caller's
 no-grad is lifted locally); in training its graph is kept
 (``create_graph``) so the eikonal loss and the normals reach the weights.
-NeuS alphas follow the reference's cos annealing. Everything runs in
-float32. Not ported: numerical gradients and the appearance embedding."""
+With ``use_numerical_gradients`` the SDF gradient is instead the central
+difference over six more geometric passes at +-``NUMERICAL_GRADIENT_DELTA``
+per axis, differentiable in the weights. The colour network also takes a
+per-image appearance embedding when asked: the camera's own in training,
+their mean at eval under ``use_average_appearance_embedding``, else
+zeros. NeuS alphas follow the reference's cos annealing. Everything runs
+in float32."""
 
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn.functional as Fn
 from torch import nn
 
 from nerfstudio_torch.core.rays import RaySamples
+from nerfstudio_torch.field_components.embedding import Embedding
 from nerfstudio_torch.field_components.encodings import NeRFEncoding
 from nerfstudio_torch.field_components.field_heads import FieldHeadNames
 from nerfstudio_torch.utils.device import resolve_device
@@ -85,13 +91,15 @@ class WNDense(nn.Module):
 
 # The geometric layer that takes [xyz, PE(xyz)] again (reference :128).
 SKIP_IN = (4,)
+# The numerical gradient's step on each axis (reference :126).
+NUMERICAL_GRADIENT_DELTA = 1e-4
 
 
 class SDFField(nn.Module):
     """(reference sdf_field.py:111-460), the fields and defaults of the JAX
-    ``SDFField`` that neus-facto's config sets; the geometric init is always
-    on and the skip always at layer 4, as every config of the reference
-    leaves them."""
+    ``SDFField`` that the NeuS configs set; the geometric init is always on
+    and the skip always at layer 4, as every config of the reference leaves
+    them."""
 
     def __init__(
         self,
@@ -103,15 +111,22 @@ class SDFField(nn.Module):
         bias: float = 0.8,
         inside_outside: bool = False,
         weight_norm: bool = True,
+        appearance_embedding_dim: int = 32,
+        num_images: int = 1,
         use_appearance_embedding: bool = False,
+        use_average_appearance_embedding: bool = False,
+        use_numerical_gradients: bool = False,
         device=None,
     ):
         super().__init__()
-        if use_appearance_embedding:
-            raise NotImplementedError("the SDF field's appearance embedding is not ported")
         device = resolve_device(device)
         self.bias_init = bias
         self.inside_outside = inside_outside
+        self.appearance_embedding_dim = appearance_embedding_dim if use_appearance_embedding else 0
+        self.use_average_appearance_embedding = use_average_appearance_embedding
+        self.use_numerical_gradients = use_numerical_gradients
+        if use_appearance_embedding:
+            self.embedding_appearance = Embedding(num_images, appearance_embedding_dim, device=device)
         self.position_encoding = NeRFEncoding(3, num_frequencies=6, min_freq_exp=0.0, max_freq_exp=5.0)
         self.direction_encoding = NeRFEncoding(3, num_frequencies=4, min_freq_exp=0.0, max_freq_exp=3.0,
                                                include_input=True)
@@ -127,7 +142,7 @@ class SDFField(nn.Module):
             layers.append(WNDense(dims[i], out_dim, device) if weight_norm else nn.Linear(dims[i], out_dim,
                                                                                          device=device))
         self.glin = nn.ModuleList(layers)
-        color_in = 3 + self.direction_encoding.get_out_dim() + 3 + geo_feat_dim
+        color_in = 3 + self.direction_encoding.get_out_dim() + 3 + geo_feat_dim + self.appearance_embedding_dim
         cdims = [color_in] + [hidden_dim_color] * (num_layers_color - 1) + [3]
         self.clin = nn.ModuleList(nn.Linear(a, b, device=device) for a, b in zip(cdims[:-1], cdims[1:]))
         self.reset_parameters()
@@ -137,7 +152,8 @@ class SDFField(nn.Module):
         the geometric layers (first layer live on the raw xyz only, the skip
         layer dead on the re-fed PE, the last layer a sphere of radius
         ``bias``), weight-norm scales at the initial row norms, and flax's
-        LeCun truncated normal for the colour layers."""
+        LeCun truncated normal for the colour layers, and flax's Embed init
+        for the appearance embedding."""
 
         device = self.deviation_network.variance.device
 
@@ -169,6 +185,8 @@ class SDFField(nn.Module):
             for layer in self.clin:
                 lecun(layer)
                 layer.bias.zero_()
+        if self.appearance_embedding_dim:
+            self.embedding_appearance.reset_parameters(generator)
 
     def forward_geonetwork(self, positions: torch.Tensor) -> torch.Tensor:
         """positions (..., 3) -> [sdf, geo features] (..., 1 + geo_feat_dim)."""
@@ -200,8 +218,31 @@ class SDFField(nn.Module):
         prev_cdf = torch.sigmoid(est_prev * inv_s)
         return clip((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
 
-    def get_colors(self, points, directions, normals, geo_features) -> torch.Tensor:
-        h = torch.cat([points, self.direction_encoding(directions), normals, geo_features], dim=-1)
+    def numerical_gradient(self, positions: torch.Tensor) -> torch.Tensor:
+        """Central differences of the SDF at +-delta on each axis (reference
+        :207-227): six geometric passes, differentiable in the weights."""
+        d = NUMERICAL_GRADIENT_DELTA
+        offsets = torch.tensor([[d, 0, 0], [-d, 0, 0], [0, d, 0], [0, -d, 0], [0, 0, d], [0, 0, -d]],
+                               dtype=positions.dtype, device=positions.device)
+        pts = positions[..., None, :] + offsets  # (..., 6, 3)
+        sdf = self.forward_geonetwork(pts.reshape(-1, 3))[..., 0].reshape(positions.shape[:-1] + (6,))
+        return torch.stack([(sdf[..., 2 * a] - sdf[..., 2 * a + 1]) / (2 * d) for a in range(3)], dim=-1)
+
+    def get_colors(self, points, directions, normals, geo_features,
+                   camera_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(reference :258-285) the colour network; with the appearance
+        embedding, the camera's code in training, else the mean code (under
+        ``use_average_appearance_embedding``) or zeros."""
+        inputs = [points, self.direction_encoding(directions), normals, geo_features]
+        if self.appearance_embedding_dim:
+            if camera_indices is not None and self.training:
+                emb = self.embedding_appearance(camera_indices[..., 0])
+            else:
+                shape = points.shape[:-1] + (self.appearance_embedding_dim,)
+                emb = (self.embedding_appearance.mean().expand(shape) if self.use_average_appearance_embedding
+                       else points.new_zeros(shape))
+            inputs.append(emb)
+        h = torch.cat(inputs, dim=-1)
         for i, layer in enumerate(self.clin):
             h = layer(h)
             if i < len(self.clin) - 1:
@@ -211,21 +252,26 @@ class SDFField(nn.Module):
     def forward(self, ray_samples: RaySamples, cos_anneal_ratio: float = 1.0) -> Dict[FieldHeadNames, torch.Tensor]:
         """(reference :222-244) rgb, sdf, alpha, normals and the SDF gradient.
         The geometric network runs once; its output is differentiated with
-        respect to the positions, with the graph kept when the caller
-        records one (training: the eikonal loss and the normals backprop
-        through the gradient)."""
+        respect to the positions (or differenced, with numerical
+        gradients), with the graph kept when the caller records one
+        (training: the eikonal loss and the normals backprop through the
+        gradient)."""
         positions = ray_samples.frustums.get_positions()
         keep_graph = torch.is_grad_enabled()
-        with torch.enable_grad():
-            p = positions.detach().requires_grad_(True)
-            h = self.forward_geonetwork(p)
-            (gradients,) = torch.autograd.grad(h[..., 0].sum(), p, create_graph=keep_graph)
-        if not keep_graph:
-            h = h.detach()
+        if self.use_numerical_gradients:
+            h = self.forward_geonetwork(positions)
+            gradients = self.numerical_gradient(positions)
+        else:
+            with torch.enable_grad():
+                p = positions.detach().requires_grad_(True)
+                h = self.forward_geonetwork(p)
+                (gradients,) = torch.autograd.grad(h[..., 0].sum(), p, create_graph=keep_graph)
+            if not keep_graph:
+                h = h.detach()
         sdf, geo = h[..., :1], h[..., 1:]
         normals = gradients / torch.clamp_min(torch.linalg.norm(gradients, dim=-1, keepdim=True), 1e-10)
         alpha = self.get_alpha(ray_samples, sdf, gradients, cos_anneal_ratio)
-        rgb = self.get_colors(positions, ray_samples.frustums.directions, normals, geo)
+        rgb = self.get_colors(positions, ray_samples.frustums.directions, normals, geo, ray_samples.camera_indices)
         return {
             FieldHeadNames.RGB: rgb,
             FieldHeadNames.SDF: sdf,

@@ -39,14 +39,26 @@ def blend_background_for_loss_computation(
     pred_image: torch.Tensor,
     gt_image: torch.Tensor,
     background: Optional[torch.Tensor] = None,
+    background_color="black",
 ):
     """(pred, gt) for the rgb loss (reference :97-120): an RGBA ground truth
-    is blended over the background the renderer used (black without one);
-    RGB passes as is."""
+    is blended over a concrete colour, so the background is supervised:
+    ``background`` (the colour the renderer used) where given, else
+    ``background_color`` (a name or an RGB triple; ``last_sample`` and
+    ``random`` blend over black). RGB passes as is."""
     if gt_image.shape[-1] != 4:
         return pred_image, gt_image
     alpha = gt_image[..., 3:]
-    bg = background if background is not None else torch.zeros_like(pred_image)
+    if background is not None:
+        bg = background
+    elif background_color in ("last_sample", "random"):
+        bg = torch.zeros_like(pred_image)
+    elif isinstance(background_color, str):
+        if background_color not in _COLORS:
+            raise ValueError(f"background colour {background_color!r}")
+        bg = torch.tensor(_COLORS[background_color], dtype=pred_image.dtype, device=pred_image.device)
+    else:
+        bg = torch.as_tensor(background_color, dtype=pred_image.dtype, device=pred_image.device)
     return pred_image, gt_image[..., :3] * alpha + bg * (1.0 - alpha)
 
 

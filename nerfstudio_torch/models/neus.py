@@ -1,12 +1,12 @@
 """NeuS surface models (counterpart of ``nerfstudio_tpu/models/neus.py``).
 
-``NeuSModel`` holds what the NeuS family shares: the SDF field, NeuS alpha
+``NeuSModel`` (plain neus) samples each ray by ``NeuSSampler``'s
+SDF-guided upsampling inside the unit sphere (or between the near and far
+planes) and holds what the NeuS family shares: the SDF field, NeuS alpha
 compositing (``sample_and_render``), the metrics, the rgb and eikonal
 losses and the cos-anneal schedule. ``NeuSFactoModel`` (neus-facto) samples
 through two flat-layout proposal density fields (K7) after a uniform first
-round inside the unit sphere, and adds the interlevel loss. Plain neus
-(``NeuSSampler``'s SDF-guided upsampling) is not ported: its
-``get_outputs`` raises."""
+round inside the unit sphere, and adds the interlevel loss."""
 
 from __future__ import annotations
 
@@ -24,8 +24,13 @@ from nerfstudio_torch.fields.density_fields import HashMLPDensityField
 from nerfstudio_torch.fields.sdf_field import SDFField
 from nerfstudio_torch.model_components import renderers
 from nerfstudio_torch.model_components.losses import interlevel_loss, mse_loss
-from nerfstudio_torch.model_components.ray_samplers import ProposalNetworkSampler, SamplerUniforms, UniformSampler
-from nerfstudio_torch.model_components.scene_colliders import SphereCollider
+from nerfstudio_torch.model_components.ray_samplers import (
+    NeuSSampler,
+    ProposalNetworkSampler,
+    SamplerUniforms,
+    UniformSampler,
+)
+from nerfstudio_torch.model_components.scene_colliders import NearFarCollider, SphereCollider
 from nerfstudio_torch.models.base_model import Model, ModelConfig
 from nerfstudio_torch.utils.device import resolve_device
 from nerfstudio_torch.utils.metrics import psnr
@@ -33,14 +38,17 @@ from nerfstudio_torch.utils.metrics import psnr
 
 @dataclasses.dataclass
 class NeuSModelConfig(ModelConfig):
-    """(reference neus.py:32-55): the same fields and defaults, without the
-    plain-neus sampler's (``num_samples``, ``num_samples_importance``,
-    ``num_upsample_steps``, the near/far planes and the collider switch),
-    which neus-facto does not read."""
+    """(reference neus.py:32-55): the same fields and defaults."""
 
+    num_samples: int = 64
+    num_samples_importance: int = 64
+    num_upsample_steps: int = 4
+    near_plane: float = 0.05
+    far_plane: float = 4.0
     background_color: str = "black"
     eikonal_loss_mult: float = 0.1
     cos_anneal_end: int = 20000
+    use_sphere_collider: bool = True
     num_layers: int = 8
     hidden_dim: int = 256
     geo_feat_dim: int = 256
@@ -73,6 +81,7 @@ class NeuSModel(Model):
             bias=cfg.sdf_bias,
             inside_outside=cfg.inside_outside,
             weight_norm=cfg.sdf_weight_norm,
+            num_images=num_train_data,
             use_appearance_embedding=cfg.use_appearance_embedding,
             device=resolve_device(device),
         )
@@ -106,8 +115,28 @@ class NeuSModel(Model):
             outputs["background"] = background
         return outputs
 
-    def get_outputs(self, ray_bundle: RayBundle, **kwargs) -> Dict[str, torch.Tensor]:
-        raise NotImplementedError("plain neus (NeuSSampler's SDF-guided upsampling) is not ported")
+    def get_outputs(
+        self,
+        ray_bundle: RayBundle,
+        cosine_anneal: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+        uniforms: Optional[SamplerUniforms] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Render a batch of rays (reference :109-140): the unit sphere's
+        nears and fars (or the planes' without ``use_sphere_collider``), then
+        ``NeuSSampler`` over the field's SDF. In training the sampler
+        jitters from ``generator`` or takes ``uniforms`` (the rounds'
+        jitters: the uniform round's, then one per upsampling round)."""
+        cfg = self.config
+        if ray_bundle.nears is None or ray_bundle.fars is None:
+            collider = (SphereCollider((0.0, 0.0, 0.0), 1.0) if cfg.use_sphere_collider
+                        else NearFarCollider(cfg.near_plane, cfg.far_plane))
+            ray_bundle = collider(ray_bundle, training=self.training)
+        sampler = NeuSSampler(num_samples=cfg.num_samples, num_samples_importance=cfg.num_samples_importance,
+                              num_upsample_steps=cfg.num_upsample_steps)
+        ray_samples = sampler(ray_bundle, self.field.get_sdf, generator=generator if self.training else None,
+                              uniforms=uniforms if self.training else None)
+        return self.sample_and_render(ray_samples, cosine_anneal)
 
     def get_metrics_dict(self, outputs, batch) -> Dict[str, torch.Tensor]:
         """(reference :139-149) PSNR against the ground truth blended over
@@ -118,10 +147,13 @@ class NeuSModel(Model):
         return {"psnr": psnr(pred.detach(), gt)}
 
     def get_loss_dict(self, outputs, batch, metrics_dict=None) -> Dict[str, torch.Tensor]:
-        """(reference :151-166) rgb MSE, and in training the eikonal term
-        ``mult * mean((|grad sdf| - 1)^2)`` over every sample."""
+        """(reference :151-166) rgb MSE (an RGBA ground truth blended over the
+        renderer's background, else the config's colour), and in training
+        the eikonal term ``mult * mean((|grad sdf| - 1)^2)`` over every
+        sample."""
         pred, gt = renderers.blend_background_for_loss_computation(
-            outputs["rgb"], batch["image"], background=outputs.get("background")
+            outputs["rgb"], batch["image"], background=outputs.get("background"),
+            background_color=self.config.background_color,
         )
         loss_dict = {"rgb_loss": mse_loss(pred, gt)}
         if "eikonal_gradients" in outputs:

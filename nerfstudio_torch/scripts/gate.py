@@ -1,16 +1,20 @@
 """Quality gate of a method on a synthetic scene (counterpart of
-``tools/run_gate_matrix.py``'s ``run_gate`` for nerfacto and splatfacto on
-the scenes of ``tools/make_synthetic_dataset.py``: ``basic``,
+``tools/run_gate_matrix.py``'s ``run_gate`` for the ported methods on the
+scenes of ``tools/make_synthetic_dataset.py``: ``basic``, ``blender``,
 ``distorted``, ``masked``; the cell is named after the scene's directory):
 
     python -m nerfstudio_torch.scripts.gate METHOD SCENE_DIR OUT.json [--steps N] [--a.b value ...]
 
 The method's shipped config, read through the nerfstudio parser at
 ``train_split_fraction=0.9`` and downscale 1, is trained for the method's
-gate steps (nerfacto 5000, splatfacto, splatfacto-big and splatfacto-mcmc
-8000, as in ``benchmarks/gate_*.json``) through the loop ``scripts.train`` runs, with
-every eval cadence and intermediate save off, then every held-out view is
-rendered (ray methods in 16,384-ray chunks). The
+gate steps (``GATE_STEPS``, as in ``benchmarks/gate_*.json``) through the
+loop ``scripts.train`` runs, with every eval cadence and intermediate save
+off, then every held-out view is rendered (ray methods in 16,384-ray
+chunks, or the model's own eval chunk where it is smaller). A method of
+``BLENDER_METHODS`` (neus) reads the Blender format instead, the ``blender``
+scene beside a given ``basic`` one, with its train split and every test
+view: a method that renders over black takes the ground truth RGBA, blended
+over black for the loss and the metrics (the JAX runner's route). The
 JSON has the keys of ``benchmarks/gate_nerfacto.json``, the card's name
 and power limit, and the kernel launches of training and eval. The gates:
 PSNR > 20 and SSIM > 0.7. Beside the result stands the JAX package's
@@ -33,7 +37,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-GATE_STEPS = {"nerfacto": 5000, "splatfacto": 8000, "splatfacto-big": 8000, "splatfacto-mcmc": 8000}
+GATE_STEPS = {"nerfacto": 5000, "nerfacto-big": 3000, "nerfacto-huge": 1500, "neus": 12000, "splatfacto": 8000,
+              "splatfacto-big": 8000, "splatfacto-mcmc": 8000}
+# methods the JAX runner trains on the Blender protocol (tools/run_gate_matrix.py:64-65)
+BLENDER_METHODS = ("neus",)
 RECORDS = Path(__file__).resolve().parents[2] / "benchmarks"
 PSNR_GATE, SSIM_GATE = 20.0, 0.7
 EVAL_CHUNK = 1 << 14
@@ -85,6 +92,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     loop and ``base_dir`` holds the run's scalars."""
     from nerfstudio_torch.configs.cli import apply_overrides
     from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.data.dataparsers.blender_dataparser import BlenderDataParserConfig
     from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
     from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
 
@@ -92,13 +100,20 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
         raise NotImplementedError(f"the gate runner takes {sorted(GATE_STEPS)}, not {method!r}")
     steps = steps or GATE_STEPS[method]
     config = get_method(method)
-    config.dataparser = NerfstudioDataParserConfig(
-        data=Path(scene_dir), train_split_fraction=0.9, downscale_factor=1,
-        load_3D_points=config.dataparser.load_3D_points)
-    config.data = Path(scene_dir)
+    scene_dir = Path(scene_dir)
+    if method in BLENDER_METHODS and scene_dir.name not in ("distorted", "masked"):
+        if scene_dir.name == "basic" and (scene_dir.parent / "blender").is_dir():
+            scene_dir = scene_dir.parent / "blender"
+        alpha = None if getattr(config.model, "background_color", "") == "black" else "white"
+        config.dataparser = BlenderDataParserConfig(data=scene_dir, alpha_color=alpha)
+    else:
+        config.dataparser = NerfstudioDataParserConfig(
+            data=scene_dir, train_split_fraction=0.9, downscale_factor=1,
+            load_3D_points=config.dataparser.load_3D_points)
+    config.data = scene_dir
     t = config.trainer
     t.max_num_iterations, t.output_dir, t.experiment_name, t.timestamp, t.vis = (
-        steps, Path(run_dir), Path(scene_dir).name, "gate", "none")
+        steps, Path(run_dir), scene_dir.name, "gate", "none")
     t.steps_per_eval_batch = t.steps_per_eval_image = t.steps_per_eval_all_images = t.steps_per_save = 0
     overrides = list(overrides or [])
     rest = apply_overrides(config, overrides)
@@ -106,12 +121,13 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
         raise SystemExit(f"unrecognized arguments: {rest}")
     model_overrides = {overrides[i][2:]: overrides[i + 1] for i in range(0, len(overrides) - 1, 2)
                        if not overrides[i].startswith("--machine.")}
-    result = {"method": method, "scene": Path(scene_dir).name, "steps": steps,
+    result = {"method": method, "scene": scene_dir.name, "steps": steps,
               "shipped_defaults": not model_overrides, "overrides": model_overrides,
               "gates": {"psnr": PSNR_GATE, "ssim": SSIM_GATE},
-              "jax_record": jax_record(method, Path(scene_dir).name), **card()}
+              "jax_record": jax_record(method, scene_dir.name), **card()}
     before = launch_counts()
     blocks = []
+    eval_chunk = EVAL_CHUNK
 
     if isinstance(config.model, SplatfactoModelConfig):
         from nerfstudio_torch.pipelines.splat_pipeline import build_splat_pipeline
@@ -151,6 +167,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
 
         trainer = build_trainer(config)
         pipeline, state, device = trainer.pipeline, trainer.state, trainer.pipeline.device
+        eval_chunk = min(EVAL_CHUNK, config.model.eval_num_rays_per_chunk)
         last, step_once = {}, trainer.train_iteration
         tick = [0.0]
 
@@ -173,7 +190,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
         loss = float(last["metrics"]["loss"])
         result["train_rays_per_sec"] = config.datamanager.train_num_rays_per_batch * steps / train_s
         after_train = launch_counts()
-        eval_metrics = pipeline.get_average_eval_image_metrics(state, chunk_size=EVAL_CHUNK)
+        eval_metrics = pipeline.get_average_eval_image_metrics(state, chunk_size=eval_chunk)
 
         def one_step():
             return trainer.train_iteration(int(state.step))
@@ -185,7 +202,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     # host clock, each block synced; the last block holds the final save
     result["step_ms_by_block"] = {"steps_per_block": BLOCK, "ms": blocks}
     result["final_loss"] = loss
-    result["eval_config"] = {"eval_chunk": EVAL_CHUNK,
+    result["eval_config"] = {"eval_chunk": eval_chunk,
                              "exact_eval_trilerp": bool(getattr(config.model, "eval_exact_trilerp", False)),
                              "hash_block_layout": bool(getattr(config.model, "field_block", False))}
     result["metrics"] = {k: round(float(v), 4) for k, v in eval_metrics.items()}
