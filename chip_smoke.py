@@ -139,7 +139,21 @@ shapes its path gives it, and drives the port's paths from random weights:
   one plain-neus step (the sampler's draws handed in) and one eval chunk on
   the card against the CPU; plain neus on the ``blender`` scene through the
   Blender parser, cut in depth to 1000 of its gate's 12,000 steps (the loss
-  must fall; the PSNR stands beside the JAX record), and its idle share.
+  must fall; the PSNR stands beside the JAX record), and its idle share;
+* the rest of the nerfacto family (phases 58-60), each through
+  ``scripts.gate``'s loop at its shipped config, cut in depth to 500 of its
+  gate's 5000 steps: depth-nerfacto on ``basic`` with the SfM depth of its
+  30,000 seed points, semantic-nerfw on the tool's ``semantic`` scene and
+  phototourism on ``appearance`` (both beside ``basic``, made while the
+  earlier phases run; neither has nerfacto's speed knobs, so K1's backward
+  runs over every field level and the proposal's on every step). The rgb
+  loss and the method's own term (the depth or the semantic loss) must
+  fall; then, at the trained state, K1's forward and backward at one more
+  step's calls and K3 at one eval chunk against the twins, one step of the
+  trained model (its tables set flat) on the card against the CPU twins
+  with the same draws, every loss term compared, and a 3-step profile
+  (idle share, the hash grid's share, launches per step); phototourism's
+  kernels are also timed there, as nerfacto-huge's are.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -2216,6 +2230,16 @@ NERFACTO_KERNELS = ("hash_encode_block", "hash_encode_block_bwd", "hash_encode_b
 SPLAT_PATH_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile_bin_bucketed",
                       "blend_saturating", "blend_saturating_bwd")
 NEUS_PATH_KERNELS = ("hash_encode_flat", "hash_encode_flat_bwd")
+# the rest of the nerfacto family (phases 58-60): each method, the tool's
+# scene its gate runs on (tools/run_gate_matrix.py:94-105) and its own loss
+# term, which must fall as the rgb loss does; cut in depth from the gates'
+# 5000 steps (the full gates: their own chip calls, PERF.md)
+FAMILY = (("depth-nerfacto", "basic", "depth_loss"), ("semantic-nerfw", "semantic", "semantics_loss"),
+          ("phototourism", "appearance", None))
+FAMILY_STEPS = 500
+# the method whose kernels are also timed at its trained state: K1's
+# backward over every field level, with the proposal's every step
+FAMILY_TIMED = "phototourism"
 
 
 def zero_counts() -> None:
@@ -2243,31 +2267,50 @@ def check_path(name, counts, want, none=PER_THREAD + ("hash_encode_block_per_thr
         raise AssertionError(f"{name}: kernels not launched {missing}, launched and not expected {stray}")
 
 
-def train_losses(run_dir) -> list:
-    """The train losses the writer logged for a run, in order."""
+def train_losses(run_dir, key="loss") -> list:
+    """The train losses (or the loss term ``key``) the writer logged for a
+    run, in order."""
     with open(os.path.join(run_dir, "scalars.jsonl"), encoding="utf-8") as f:
-        return [r["loss"] for r in map(json.loads, f) if r["prefix"] == "train"]
+        return [r[key] for r in map(json.loads, f) if r["prefix"] == "train"]
 
 
-def make_scene(name, root, scene="basic", args=SCENE_ARGS, log_it=True):
-    """tools/make_synthetic_dataset.py ROOT/SCENE --scene SCENE at the JAX
-    gate records' protocol (``tools/run_gate_matrix.py --make-scenes``:
-    SCENE_ARGS), in its own process (it reads the JAX package's numpy-only
-    ply writer; without JAX_PLATFORMS that package imports no JAX)."""
-    t0 = time.perf_counter()
+def start_scene(root, scene="basic", args=SCENE_ARGS):
+    """Start tools/make_synthetic_dataset.py ROOT/SCENE --scene SCENE at the
+    JAX gate records' protocol (``tools/run_gate_matrix.py --make-scenes``:
+    SCENE_ARGS) in its own process (it reads the JAX package's numpy-only
+    ply writer; without JAX_PLATFORMS that package imports no JAX). Returns
+    (the process, the scene's directory, the start time)."""
     out = os.path.join(root, scene if args == SCENE_ARGS else f"{scene}_{args[1]}")
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
-    subprocess.run([sys.executable, os.path.join(REPO, "tools", "make_synthetic_dataset.py"), out, "--scene",
-                    scene, *args], check=True, env=env, capture_output=True, text=True)
+    proc = subprocess.Popen([sys.executable, os.path.join(REPO, "tools", "make_synthetic_dataset.py"), out,
+                             "--scene", scene, *args], env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_scene(name, job, log_it=True):
+    """Wait for a ``start_scene`` job (raising if the tool failed) and log
+    the scene; returns its directory."""
+    proc, out, t0 = job
+    _, err = proc.communicate()
+    if proc.returncode:
+        raise subprocess.CalledProcessError(proc.returncode, proc.args, stderr=err)
     with open(os.path.join(out, "transforms.json"), encoding="utf-8") as f:
         meta = json.load(f)
     extra = {k: meta[k] for k in ("k1", "k2") if k in meta}
     masks = sum("mask_path" in fr for fr in meta["frames"])
+    labels = sum("semantic_path" in fr for fr in meta["frames"])
     if log_it:
-        log(name, f"the {scene} scene: {len(meta['frames'])} frames of {meta['w']}x{meta['h']}"
+        log(name, f"the {os.path.basename(out)} scene: {len(meta['frames'])} frames of {meta['w']}x{meta['h']}"
             + (f", OpenCV {extra}" if extra else "") + (f", {masks} masks" if masks else "")
-            + f", points3D.ply; {time.perf_counter() - t0:.1f} s wall")
+            + (f", {labels} label images of {len(meta['semantic_classes'])} classes" if labels else "")
+            + f", points3D.ply; {time.perf_counter() - t0:.1f} s wall from its start to its use")
     return out
+
+
+def make_scene(name, root, scene="basic", args=SCENE_ARGS, log_it=True):
+    """``start_scene`` and ``finish_scene``: the scene's directory."""
+    return finish_scene(name, start_scene(root, scene, args), log_it)
 
 
 def make_mixed_scene(name, root, masked):
@@ -2454,16 +2497,16 @@ def profiled_idle(name, one_step, step_ms, label):
     return dict(busy_ms=busy_ms, step_ms=step_ms, idle=idle, activities=activities, classes=classes)
 
 
-def loss_fell(run_dir):
-    """(mean of the first quarter of the logged train losses, of the last
-    quarter, all finite and falling)."""
-    losses = train_losses(run_dir)
+def loss_fell(run_dir, key="loss"):
+    """(mean of the first quarter of the logged train losses (or of the
+    term ``key``), of the last quarter, all finite and falling)."""
+    losses = train_losses(run_dir, key)
     q = max(len(losses) // 4, 1)
     head, tail = statistics.fmean(losses[:q]), statistics.fmean(losses[-q:])
     return head, tail, all(map(math.isfinite, losses)) and tail < head
 
 
-def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, timed=False):
+def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, timed=False, after=None):
     """``scripts.gate.run_gate`` at the method's gate steps on the scene: it
     fails unless PSNR > 20 and SSIM > 0.7. Prints the result beside the JAX
     record's quality (the same scene protocol), the train seconds and
@@ -2476,7 +2519,8 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, tim
     splat step's K4 backward inputs (``check_splat_step``). With ``timed``
     (a ray method) the kernels at the trained state are also timed
     (``timed_hash_kernels``); a path without kernels (``want`` empty: plain
-    neus) has none to check."""
+    neus) has none to check. ``after(run)`` runs last at the trained state
+    (after the profile); its result joins the record as ``after``."""
     from nerfstudio_torch.scripts import gate
 
     splat = method.startswith("splatfacto")
@@ -2525,10 +2569,11 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, tim
             errs[k] = max(errs.get(k, 0.0), v)
     step_ms = statistics.median(res["step_ms_by_block"]["ms"][:-1] or res["step_ms_by_block"]["ms"])
     idle = profiled_idle(name, run["one_step"], step_ms, label)
+    extra = None if after is None else after(run)
     del run
     torch.cuda.empty_cache()
     return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs, idle=idle,
-                undistort=undistort, loss=(head, tail), kernels=kernels)
+                undistort=undistort, loss=(head, tail), kernels=kernels, after=extra)
 
 
 def neus_from_disk(name, scene, root, card):
@@ -3617,6 +3662,111 @@ def big_methods_and_neus(ph, card, scene, disk_root, disk):
     return dict(huge_step=huge_step, neus_step=neus_step)
 
 
+def trained_step_card_vs_cpu(run):
+    """One training step at the trained state of a from-disk run on the
+    card and on the CPU twins: copies of the trained model with every hash
+    table set flat per level and feature (phase 11's device against the
+    stochastic rounding, which hashes float bits) and of its occupancy
+    grid; the scene's train images, depths and labels; the same CHECK_RAYS
+    pixels and sampler jitter, drawn on the host; the step kwargs of the
+    run's next step; a fresh optimizer each (the family's groups, which
+    move no gradient). Returns (card metrics, CPU
+    metrics, loss rel, grads rel, tables rel, {term: rel})."""
+    from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
+    from nerfstudio_torch.engine.optimizers import PerGroupAdam, nerfacto_optimizers
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws, TrainState, VanillaPipeline
+
+    pipeline, state = run["pipeline"], run["state"]
+    dm, trained = pipeline.datamanager, pipeline.model
+    step = int(state.step)
+    kwargs = type(trained).step_kwargs(step, trained.config)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n, h, w = dm.train_images.shape[:3]
+    draws = StepDraws(
+        torch.stack([torch.randint(0, m, (CHECK_RAYS,), generator=gen) for m in (n, h, w)], dim=-1),
+        SamplerUniforms(torch.rand((CHECK_RAYS, 1), generator=gen),
+                        (torch.rand((CHECK_RAYS, 1), generator=gen), torch.rand((CHECK_RAYS, 1), generator=gen))))
+    stacks = {k: None if getattr(dm, f"train_{k}") is None else getattr(dm, f"train_{k}").cpu()
+              for k in ("depths", "semantics")}
+    weights, runs = None, []
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(trained).to(device).train()
+        if weights is None:
+            flatten_tables(model, torch.Generator().manual_seed(SEED + 2))
+            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        data = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=CHECK_RAYS),
+                                      dm.train_cameras.to(device), dm.train_images.cpu(), device, **stacks)
+        twin = VanillaPipeline(data, model)
+        st = TrainState(PerGroupAdam(nerfacto_optimizers(), model), aux=state.aux.to(device))
+        dev_draws = StepDraws(draws.pixels.to(device), SamplerUniforms(
+            draws.sampler.probes.to(device), tuple(u.to(device) for u in draws.sampler.rounds)))
+        metrics = twin.train_step(st, draws=dev_draws, **kwargs)
+        grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads, model))
+        del twin, st, data
+    (m_card, g_card, model), (m_cpu, g_cpu, _) = runs
+    terms = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+             for k in m_cpu if k.endswith("_loss") and m_cpu[k] != 0}
+    return (m_card, m_cpu) + step_rel(m_card, g_card, m_cpu, g_cpu, model) + (terms,)
+
+
+def family_after(name, method, term, card):
+    """The checks ``nerfacto_family`` runs at each trained state: the rgb
+    loss and ``term`` fell over the run, one step card vs CPU within phase
+    11's limits (every loss term too), the hash grid's share of the
+    profiled steps' busy time."""
+
+    def after(run):
+        falls = {k: loss_fell(run["base_dir"], k) for k in ("rgb_loss",) + ((term,) if term else ())}
+        for k, (head, tail, fell) in falls.items():
+            if not fell:
+                raise AssertionError(f"{name}: {method}'s {k} did not fall: {head} -> {tail}")
+        m_card, m_cpu, loss_rel, grad_rel, table_rel, terms = trained_step_card_vs_cpu(run)
+        log(name, f"{method}: " + ", ".join(f"{k} {h:.5f} -> {t:.5f}" for k, (h, t, _) in falls.items())
+            + f" (first quarter's mean to the last's); one step at the trained state ({CHECK_RAYS} rays, flat "
+            f"tables, the next step's kwargs) card vs CPU: loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel "
+            f"{loss_rel:.2g}, limit {STEP_LOSS_RTOL}), terms " + ", ".join(f"{k} {v:.2g}" for k, v in terms.items())
+            + f"; non-table gradients {grad_rel:.3g} of the peak (limit {STEP_GRAD_REL}); tables per level and "
+            f"feature {table_rel:.3g} (limit {STEP_TABLE_SUM_REL}) on {card}")
+        if (loss_rel > STEP_LOSS_RTOL or max(terms.values()) > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL
+                or table_rel > STEP_TABLE_SUM_REL):
+            raise AssertionError(f"{name}: card and CPU {method} steps disagree")
+        return dict(falls={k: v[:2] for k, v in falls.items()}, loss_rel=loss_rel, terms=terms, grad_rel=grad_rel,
+                    table_rel=table_rel)
+
+    return after
+
+
+def nerfacto_family(ph, card, scene, disk_root, disk, jobs):
+    """Phases 58-60: depth-nerfacto, semantic-nerfw and phototourism through
+    ``scripts.gate``'s loop for FAMILY_STEPS steps each, on their gates'
+    scenes (the semantic and appearance ones from ``jobs``, {scene:
+    ``start_scene`` job}), each checked
+    at its trained state (``gate_phase`` and ``family_after``; FAMILY_TIMED's
+    kernels also timed, ``timed_hash_kernels``); the hash grid's share of
+    the profiled steps' busy time and the launches per step. Adds the runs
+    to ``disk``."""
+    for i, (method, scene_name, term) in enumerate(FAMILY):
+        name = ph(58 + i, f"{method}, {FAMILY_STEPS} steps")
+        if scene_name in jobs:
+            finish_scene(ph(58 + i, "scene"), jobs.pop(scene_name))
+        rec = disk[f"gate_{method}"] = gate_phase(name, method, scene, disk_root, card, NERFACTO_KERNELS,
+                                                  steps=FAMILY_STEPS, timed=method == FAMILY_TIMED,
+                                                  after=family_after(name, method, term, card))
+        if rec["scene"] != scene_name:
+            raise AssertionError(f"{name}: the gate ran {method} on {rec['scene']}, not {scene_name}")
+        per_step = {k: v / rec["steps"] for k, v in rec["gate_launches"]["train"].items() if v}
+        idle = rec["idle"]
+        if idle is not None:
+            rec["hash_share"] = idle["classes"].get("hash-grid kernels", 0.0) / idle["busy_ms"]
+        log(name, f"{method}: launches per train step {per_step}; the hash-grid kernels "
+            + ("not measured" if idle is None else
+               f"{idle['classes'].get('hash-grid kernels', 0.0):.3f} ms of {idle['busy_ms']:.2f} ms device-busy per "
+               f"profiled step ({rec['hash_share']:.1%}), idle {idle['idle']:.1%}") + f" on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -3630,7 +3780,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 57
+    n_phases = 60
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -4251,8 +4401,11 @@ def main() -> int:
     # 34-38. a scene on disk through the user's entry points: the train and
     # eval scripts with a resume, both gates, neus-facto through the trainer
     disk_root = tempfile.mkdtemp(prefix="chip_smoke_")
+    jobs = {}
     try:
         scene = make_scene(ph(34, "scene"), disk_root)
+        # the scenes of phases 59-60, made while phases 35-58 run
+        jobs = {s: start_scene(disk_root, s) for s in ("semantic", "appearance")}
         disk = {"cli": cli_round_trip(ph(35, "CLI round trip"), scene, disk_root, card),
                 "gate_nerfacto": gate_phase(ph(36, f"nerfacto, {CUT_GATE_STEPS} steps"), "nerfacto", scene,
                                             disk_root, card, NERFACTO_KERNELS, steps=CUT_GATE_STEPS),
@@ -4278,7 +4431,12 @@ def main() -> int:
         options = options_and_methods(ph, card, scene, disk_root, disk)
         # 53-57. nerfacto-huge and nerfacto-big at full width, plain neus
         card_vs_cpu = big_methods_and_neus(ph, card, scene, disk_root, disk)
+        # 58-60. depth-nerfacto, semantic-nerfw and phototourism
+        nerfacto_family(ph, card, scene, disk_root, disk, jobs)
     finally:
+        for proc, _, _ in jobs.values():
+            proc.kill()
+            proc.wait()
         shutil.rmtree(disk_root, ignore_errors=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None, design="first"):
@@ -4464,13 +4622,19 @@ def main() -> int:
             e["disk_max_abs_err"] = {path: rec["max_abs_err"][key] for path, rec in disk.items()
                                      if key in rec.get("max_abs_err", {})}
     k5_entry["above_limit"] = k5_above
-    # K1 forward and backward and K3 at nerfacto-huge's and nerfacto-big's
-    # trained state (phases 54-55): every call of one step, one eval chunk
-    for method in ("nerfacto-huge", "nerfacto-big"):
+    # K1 forward and backward and K3 at nerfacto-huge's, nerfacto-big's and
+    # phototourism's trained state (phases 54-55, 60): every call of one
+    # step, one eval chunk
+    for method in ("nerfacto-huge", "nerfacto-big", FAMILY_TIMED):
         recs = disk[f"gate_{method}"]["kernels"]
         for e, kernel in ((kernels[0], "K1 fwd"), (kernels[1], "K3"), (kernels[2], "K1 bwd")):
             e.setdefault("trained_shapes", {})[method] = [r for r in recs if r["kernel"] == kernel]
     kernels[0]["huge_step_card_vs_cpu"] = card_vs_cpu["huge_step"]
+    # the nerfacto family's trained steps on the card against the CPU twins,
+    # the hash grid's share of their profiled steps (phases 58-60)
+    kernels[0]["family"] = {method: dict(disk[f"gate_{method}"]["after"],
+                                         hash_share=disk[f"gate_{method}"].get("hash_share"))
+                            for method, _, _ in FAMILY}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,9 @@
 """Method registry (counterpart of ``nerfstudio_tpu/configs/method_configs.py``):
 the ported methods' full configs (trainer, datamanager, dataparser, model,
 per-group optimizers), with the reference's settings. The reference's other
-methods raise ``NotImplementedError`` naming their ROADMAP item."""
+methods raise ``NotImplementedError`` naming their ROADMAP item, and so do
+the unported parsers phototourism and semantic-nerfw ship, until
+``--dataparser`` names a ported one."""
 
 from __future__ import annotations
 
@@ -14,11 +16,14 @@ from nerfstudio_torch.configs.base_config import MachineConfig
 from nerfstudio_torch.data.datamanagers import DataManagerConfig
 from nerfstudio_torch.data.dataparsers.base_dataparser import DataParserConfig
 from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
+from nerfstudio_torch.data.dataparsers.registry import UnportedDataParserConfig
 from nerfstudio_torch.engine.optimizers import nerfacto_optimizers, neus_facto_optimizers, neus_optimizers
 from nerfstudio_torch.engine.trainer import TrainerConfig
 from nerfstudio_torch.models.base_model import ModelConfig
+from nerfstudio_torch.models.depth_nerfacto import DepthNerfactoModelConfig
 from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
 from nerfstudio_torch.models.neus import NeuSFactoModelConfig, NeuSModelConfig
+from nerfstudio_torch.models.semantic_nerfw import SemanticNerfWModelConfig
 from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
 
 
@@ -47,6 +52,9 @@ descriptions = {
     "nerfacto": "Recommended real->nerf model. Hash grid + proposal sampling.",
     "nerfacto-big": "Larger nerfacto (more features, longer schedule).",
     "nerfacto-huge": "Largest nerfacto.",
+    "depth-nerfacto": "Nerfacto with depth supervision.",
+    "semantic-nerfw": "Nerfacto with a semantic head.",
+    "phototourism": "Nerfacto on unstructured photo collections.",
     "splatfacto": "3D Gaussian Splatting.",
     "splatfacto-big": "3DGS with more gaussians.",
     "splatfacto-mcmc": "3DGS with MCMC densification.",
@@ -113,6 +121,42 @@ method_configs["nerfacto-huge"] = MethodConfig(
     optimizers=nerfacto_optimizers(max_steps=100000),
 )
 
+# depth supervision (reference :261-274): the ply's points feed the SfM
+# depth where the capture ships no depth files
+method_configs["depth-nerfacto"] = MethodConfig(
+    method_name="depth-nerfacto",
+    dataset="depth",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
+    dataparser=NerfstudioDataParserConfig(load_3D_points=True),
+    model=DepthNerfactoModelConfig(eval_num_rays_per_chunk=1 << 15, field_bwd_level_period=2,
+                                   proposal_freeze_after=2500),
+    optimizers=nerfacto_optimizers(),
+)
+
+# nerfacto with the semantic head (reference :371-379), without nerfacto's
+# speed knobs; it ships the sitcoms3d parser
+method_configs["semantic-nerfw"] = MethodConfig(
+    method_name="semantic-nerfw",
+    dataset="semantic",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
+    dataparser=UnportedDataParserConfig(name="sitcoms3d-data"),
+    model=SemanticNerfWModelConfig(eval_num_rays_per_chunk=1 << 14),
+    optimizers=nerfacto_optimizers(),
+)
+
+# nerfacto on photo collections (reference :384-392): the phototourism
+# parser, the appearance embedding, no speed knobs
+method_configs["phototourism"] = MethodConfig(
+    method_name="phototourism",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
+    dataparser=UnportedDataParserConfig(name="phototourism-data"),
+    model=NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15, use_appearance_embedding=True),
+    optimizers=nerfacto_optimizers(),
+)
+
 method_configs["splatfacto"] = MethodConfig(
     method_name="splatfacto",
     trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500, steps_per_save=2000),
@@ -162,8 +206,8 @@ method_configs["neus-facto"] = MethodConfig(
 
 # the reference's other methods, by the ROADMAP queue 1 item that ports them
 NOT_PORTED = {
-    "depth-nerfacto": 8, "semantic-nerfw": 8, "phototourism": 8, "instant-ngp": 9, "instant-ngp-bounded": 9,
-    "vanilla-nerf": 10, "mipnerf": 10, "dnerf": 10, "tensorf": 11, "generfacto": 12,
+    "instant-ngp": 9, "instant-ngp-bounded": 9, "vanilla-nerf": 10, "mipnerf": 10, "dnerf": 10, "tensorf": 11,
+    "generfacto": 12,
 }
 
 

@@ -12,7 +12,11 @@ resident subset of the images, swapped for another every
 its train images on the host once and orders its cameras at random or by
 farthest point. Each is built from tensors or, through ``from_datasets``,
 from a split's datasets, whose images are uploaded to the device once.
-Depth and semantics images are not ported (ROADMAP queue 1 item 8);
+A split's per-pixel depths (depth-nerfacto) and class labels
+(semantic-nerfw) live on the device beside its images, as (N, H, W, 1)
+float32 and int32 stacks, subset with the resident images and gathered
+with each batch's indices into ``depth_image`` and ``semantics``; a
+bucketed split carries depths, not labels, as the reference does.
 ``camera_res_scale_factor`` is declared and never read, as in the
 reference."""
 
@@ -61,12 +65,15 @@ Images = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 class DeviceCacheDataManager:
     """Train images and their cameras on one device (reference :64-384).
     ``images`` is one (N, H, W, C) uint8 stack, with ``masks`` (N, H, W, 1)
-    bool where the split has them; or ``buckets``, a mixed-resolution
-    split as ``InputDataset.load_all_bucketed`` gives it. An RGBA bucket
-    among RGB ones is blended over ``alpha_color`` (None: black) first."""
+    bool, ``depths`` (N, H, W, 1) float32 and ``semantics`` (N, H, W, 1)
+    int32 where the split has them; or ``buckets``, a mixed-resolution
+    split as ``InputDataset.load_all_bucketed`` gives it (depths included).
+    An RGBA bucket among RGB ones is blended over ``alpha_color`` (None:
+    black) first."""
 
     def __init__(self, config: DataManagerConfig, cameras: Cameras, images=None, device=None, masks=None,
-                 buckets: Optional[List[Dict[str, np.ndarray]]] = None, alpha_color=None):
+                 buckets: Optional[List[Dict[str, np.ndarray]]] = None, alpha_color=None, depths=None,
+                 semantics=None):
         device = resolve_device(device)
         self.config = config
         self.device = device
@@ -74,7 +81,15 @@ class DeviceCacheDataManager:
         self.train_dataset = self.eval_dataset = None
         self._buckets = buckets
         self.bucket_valid = None
+        self.bucket_depths = None
         self.valid_indices = None
+        # (N, H, W, 1) float32 depths and int32 labels of the whole split,
+        # on the host; the resident ones go to the device
+        self._all_depths = None if depths is None else torch.as_tensor(np.asarray(depths, np.float32))
+        self._all_semantics = None if semantics is None else torch.as_tensor(np.asarray(semantics, np.int32))
+        if buckets is not None and semantics is not None:
+            raise NotImplementedError("semantic labels of a mixed-resolution split are not supported (as in the "
+                                      "reference): the labels are gathered from one stack")
         if buckets is None:
             images = torch.as_tensor(images)
             if images.ndim != 4:
@@ -102,6 +117,11 @@ class DeviceCacheDataManager:
             raise NotImplementedError("max_images_in_memory with per-pixel masks is unsupported: the mask-valid "
                                       "index tables are built over the full image stacks (as in the reference)")
         if buckets is not None:
+            self.train_depths = self.train_semantics = None  # the buckets carry their own depths
+            has_depths = any("depths" in b for b in buckets)
+            if self._subsetting and has_depths:
+                raise NotImplementedError("max_images_in_memory with bucketed depth supervision is unsupported (as "
+                                          "in the reference): the depth stacks are not reloaded with the images")
             if self._subsetting:
                 # fixed per-bucket resident counts, proportional to bucket size
                 sizes = np.array([len(b["camera_indices"]) for b in buckets])
@@ -112,6 +132,8 @@ class DeviceCacheDataManager:
                 self.train_images = tuple(self._put(b["images"]) for b in buckets)
                 self.bucket_cam_maps = tuple(self._put(b["camera_indices"]) for b in buckets)
                 self.resident_map = None
+                if has_depths:
+                    self.bucket_depths = tuple(self._put(b["depths"]) for b in buckets)
             if has_masks:
                 self.bucket_valid = tuple(self._put(build_valid_indices(b["masks"])) for b in buckets)
         else:
@@ -122,15 +144,28 @@ class DeviceCacheDataManager:
     @classmethod
     def from_datasets(cls, config: DataManagerConfig, train_dataset: InputDataset,
                       eval_dataset: Optional[InputDataset] = None, device=None) -> "DeviceCacheDataManager":
-        """The train split's images (and masks), uploaded once, and its
-        cameras; a mixed-resolution split as resolution buckets (reference
-        :66-197). Eval images are read from ``eval_dataset`` when asked."""
+        """The train split's images (and masks, depths and class labels),
+        uploaded once, and its cameras; a mixed-resolution split as
+        resolution buckets (reference :66-197). Eval images are read from
+        ``eval_dataset`` when asked."""
         try:
             data = train_dataset.load_all()
-            dm = cls(config, train_dataset.cameras, torch.from_numpy(data["images"]), device, masks=data.get("masks"))
         except ValueError:  # a mixed-resolution capture (reference :76-84)
+            data = None
+        if data is None:
+            if getattr(train_dataset, "semantics", None) is not None:
+                print("[datamanager] WARNING: a mixed-resolution split's semantic labels are not used (as in the "
+                      "reference): the buckets carry images, masks and depths", flush=True)
             dm = cls(config, train_dataset.cameras, device=device, buckets=train_dataset.load_all_bucketed(),
                      alpha_color=train_dataset.alpha_color)
+        else:
+            metas = [train_dataset.get_metadata(i) for i in range(len(train_dataset))]
+
+            def stack(key, dtype):  # the split's per-pixel maps of ``key``, if it has them
+                return np.stack([m[key] for m in metas]).astype(dtype) if metas and key in metas[0] else None
+
+            dm = cls(config, train_dataset.cameras, torch.from_numpy(data["images"]), device, masks=data.get("masks"),
+                     depths=stack("depth_image", np.float32), semantics=stack("semantics", np.int32))
         dm.train_dataset = train_dataset
         dm.eval_dataset = eval_dataset or train_dataset
         dm.eval_cameras = dm.eval_dataset.cameras.to(dm.device)
@@ -150,8 +185,10 @@ class DeviceCacheDataManager:
     def _load_subset(self, subset: np.ndarray) -> None:
         """Upload the resident images and their slot -> camera map
         (reference :205-223)."""
-        whole = self._all_images if not self._subsetting else self._all_images[torch.from_numpy(subset)]
-        self.train_images = whole.to(self.device)
+        pick = (lambda x: x) if not self._subsetting else (lambda x: x[torch.from_numpy(subset)])
+        self.train_images = pick(self._all_images).to(self.device)
+        self.train_depths = None if self._all_depths is None else pick(self._all_depths).to(self.device)
+        self.train_semantics = None if self._all_semantics is None else pick(self._all_semantics).to(self.device)
         self._resident = subset
         self.resident_map = self._put(np.asarray(subset, np.int32))
 
@@ -224,11 +261,13 @@ class DeviceCacheDataManager:
 
     def _sample_train_batch_bucketed(self, generator, images, num_rays, indices, cam_maps):
         """(reference :295-320) Each bucket's share of the rays, drawn
-        uniformly over its pixels or its mask-valid table."""
+        uniformly over its pixels or its mask-valid table, with its depths
+        where the buckets carry them."""
         alloc = self._bucket_ray_alloc(num_rays)
         valids = self.bucket_valid or (None,) * len(images)
-        idx_parts, rgb_parts = [], []
-        for b, (img, cmap, valid, r) in enumerate(zip(images, cam_maps, valids, alloc)):
+        depths = self.bucket_depths or (None,) * len(images)
+        idx_parts, rgb_parts, depth_parts = [], [], []
+        for b, (img, cmap, valid, dep, r) in enumerate(zip(images, cam_maps, valids, depths, alloc)):
             if indices is not None:
                 idx_b = indices[b].to(self.device).long()
             elif valid is not None:
@@ -236,9 +275,14 @@ class DeviceCacheDataManager:
             else:
                 idx_b = sample_pixel_indices(r, img.shape[0], img.shape[1], img.shape[2], generator, self.device)
             rgb_parts.append(gather_pixels(img, idx_b))
+            if dep is not None:
+                depth_parts.append(gather_pixels(dep, idx_b))
             idx_parts.append(torch.cat([cmap[idx_b[:, 0]][:, None], idx_b[:, 1:]], dim=-1))
         idx = torch.cat(idx_parts, dim=0)
-        return idx, {"image": torch.cat(rgb_parts, dim=0), "indices": idx}
+        batch = {"image": torch.cat(rgb_parts, dim=0), "indices": idx}
+        if depth_parts:
+            batch["depth_image"] = torch.cat(depth_parts, dim=0)
+        return idx, batch
 
     def sample_train_batch(
         self,
@@ -249,7 +293,8 @@ class DeviceCacheDataManager:
         resident_map: Optional[Union[torch.Tensor, Tuple[torch.Tensor, ...]]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """-> (ray indices (R, 3) (camera, row, col), {"image": (R, C),
-        "indices": ...}) (reference :322-376). ``indices`` hands the draw in:
+        "indices": ...[, "depth_image": (R, 1) float32][, "semantics": (R,
+        1) int32]}) (reference :322-376). ``indices`` hands the draw in:
         the (slot, row, col) rows into ``images`` (a tuple of them, one per
         bucket, for a bucketed split); otherwise they come from
         ``generator``. ``images`` and ``resident_map`` default to the
@@ -265,6 +310,10 @@ class DeviceCacheDataManager:
             indices = self._draw_indices(num_rays, images.shape[0], generator)
         indices = indices.to(self.device).long()
         batch = {"image": gather_pixels(images, indices)}
+        if self.train_depths is not None:
+            batch["depth_image"] = gather_pixels(self.train_depths, indices)
+        if self.train_semantics is not None:
+            batch["semantics"] = gather_pixels(self.train_semantics, indices)
         if resident_map is not None:  # resident slot -> original camera
             indices = torch.cat([resident_map[indices[:, 0]][:, None], indices[:, 1:]], dim=-1)
         batch["indices"] = indices

@@ -4,7 +4,7 @@
 A DataParser reads a capture from disk (host-side numpy) and returns
 DataparserOutputs: filenames, the cameras (on the CPU: the datamanagers
 move them to their device), the scene bounds and metadata (splatfacto's
-seed points live there)."""
+seed points, the depth files and the semantic labels live there)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,17 @@ import torch
 
 from nerfstudio_torch.cameras.cameras import Cameras
 from nerfstudio_torch.data.scene_box import SceneBox
+
+
+@dataclasses.dataclass
+class Semantics:
+    """Semantic label info (reference base_dataparser.py:22-28): a label
+    image per frame, the class names and a colour per class."""
+
+    filenames: List[Path]
+    classes: List[str]
+    colors: np.ndarray
+    mask_classes: List[str] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass

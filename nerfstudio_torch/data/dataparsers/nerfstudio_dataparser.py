@@ -5,12 +5,14 @@ Every camera model of the reference's ``CAMERA_MODEL_TO_TYPE`` (any other
 name is perspective), global or per-frame intrinsics and distortion (a
 frame without distortion keys gets zeros, as in the reference; a
 ``distortion_params`` list of 12 for Fisheye624), per-frame masks
-(``mask_path``), the "up"/"pca"/"vertical" orientation with centring, auto
-pose scaling, the fraction, interval and all eval splits, downscale
-factors, and the ply seed points for splatfacto. The poses are numpy
-float32 through the reference's numpy math, then a float32 tensor.
-Not ported: depth and semantic images (ROADMAP queue 1 item 8) and the
-filename split."""
+(``mask_path``), depth maps (``depth_file_path``, in units of
+``depth_unit_scale_factor``) and semantic label images (``semantic_path``,
+with the capture's ``semantic_classes``, else 256 numbered classes), the
+"up"/"pca"/"vertical" orientation with centring, auto pose scaling, the
+fraction, interval and all eval splits, downscale factors, and the ply seed
+points (splatfacto's init, depth-nerfacto's SfM depth). The poses are
+numpy float32 through the reference's numpy math, then a float32 tensor.
+Not ported: the filename split."""
 
 from __future__ import annotations
 
@@ -25,7 +27,12 @@ import torch
 
 from nerfstudio_torch.cameras import camera_utils
 from nerfstudio_torch.cameras.cameras import CAMERA_MODEL_TO_TYPE, Cameras, CameraType
-from nerfstudio_torch.data.dataparsers.base_dataparser import DataParser, DataParserConfig, DataparserOutputs
+from nerfstudio_torch.data.dataparsers.base_dataparser import (
+    DataParser,
+    DataParserConfig,
+    DataparserOutputs,
+    Semantics,
+)
 from nerfstudio_torch.data.scene_box import SceneBox
 
 MAX_AUTO_RESOLUTION = 1600
@@ -61,7 +68,7 @@ class Nerfstudio(DataParser):
         data_dir = meta_path.parent
         with open(meta_path, encoding="utf-8") as f:
             meta = json.load(f)
-        image_filenames, mask_filenames, poses = [], [], []
+        image_filenames, mask_filenames, depth_filenames, semantic_filenames, poses = [], [], [], [], []
         fx, fy, cx, cy, height, width, distort = [], [], [], [], [], [], []
         distort_fixed = any(k in meta for k in ("k1", "k2", "k3", "p1", "p2", "distortion_params"))
 
@@ -74,13 +81,13 @@ class Nerfstudio(DataParser):
             )
 
         frames = sorted(meta["frames"], key=lambda fr: fr["file_path"])
+        per_frame_files = ((mask_filenames, "mask_path"), (depth_filenames, "depth_file_path"),
+                           (semantic_filenames, "semantic_path"))
         for frame in frames:
-            for key in ("depth_file_path", "semantic_path"):
-                if key in frame:
-                    raise NotImplementedError(f"frames with {key!r} are not ported (ROADMAP queue 1 item 8)")
             image_filenames.append(data_dir / frame["file_path"])
-            if "mask_path" in frame:
-                mask_filenames.append(data_dir / frame["mask_path"])
+            for lst, key in per_frame_files:
+                if key in frame:
+                    lst.append(data_dir / frame[key])
             poses.append(np.asarray(frame["transform_matrix"], dtype=np.float32))
             for lst, key, typ in ((fx, "fl_x", float), (fy, "fl_y", float), (cx, "cx", float), (cy, "cy", float),
                                   (height, "h", int), (width, "w", int)):
@@ -88,8 +95,9 @@ class Nerfstudio(DataParser):
                     lst.append(typ(frame[key]))
             if not distort_fixed:
                 distort.append(get_distort(frame))
-        if len(mask_filenames) not in (0, len(image_filenames)):
-            raise ValueError(f"{len(mask_filenames)} of {len(image_filenames)} frames have a mask_path: all or none")
+        for lst, key in per_frame_files:
+            if len(lst) not in (0, len(image_filenames)):
+                raise ValueError(f"{len(lst)} of {len(image_filenames)} frames have a {key}: all or none")
 
         # train/eval split (reference :119-136)
         num_images = len(image_filenames)
@@ -175,7 +183,15 @@ class Nerfstudio(DataParser):
             camera_to_worlds=poses[indices], fx=fx_arr, fy=fy_arr, cx=cx_arr, cy=cy_arr, width=w_arr, height=h_arr,
             distortion_params=d_arr, camera_type=cam_type, device="cpu",
         )
-        metadata = {}
+        metadata = {
+            "depth_filenames": [depth_filenames[i] for i in indices] if depth_filenames else None,
+            "depth_unit_scale_factor": cfg.depth_unit_scale_factor,
+        }
+        if semantic_filenames:  # the reference's classes and colours (:225-240)
+            classes = list(meta.get("semantic_classes", [])) or [f"class_{i}" for i in range(256)]
+            metadata["semantics"] = Semantics(
+                filenames=[semantic_filenames[i] for i in indices], classes=classes,
+                colors=np.random.default_rng(0).uniform(size=(len(classes), 3)).astype(np.float32))
         if cfg.load_3D_points:
             ply_path = meta.get("ply_file_path")
             if ply_path is not None and (data_dir / ply_path).exists():

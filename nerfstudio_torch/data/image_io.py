@@ -1,11 +1,12 @@
-"""Image files to uint8 arrays without Pillow or libpng (the datasets'
+"""Image files to arrays without Pillow or libpng (the datasets'
 decoder; the JAX package reads through Pillow and a C++ loader).
 
 PNG is decoded here with the standard library's ``zlib`` and a small host
-routine (``csrc/png_unfilter.cpp``) for the row filters: 8-bit samples, no
-interlacing, colour types 0 (grey), 2 (RGB), 4 (grey and alpha) and 6
-(RGBA), and all five row filters. JPEG goes through Pillow where it
-imports; without it a JPEG raises ``ImportError``."""
+routine (``csrc/png_unfilter.cpp``) for the row filters: 8-bit samples of
+colour types 0 (grey), 2 (RGB), 4 (grey and alpha) and 6 (RGBA) as uint8,
+16-bit grey (the depth maps users ship) as uint16, no interlacing, and all
+five row filters. JPEG goes through Pillow where it imports; without it a
+JPEG raises ``ImportError``."""
 
 from __future__ import annotations
 
@@ -67,15 +68,21 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8, C = 1, 2, 3 or 4 as stored."""
+    """PNG bytes -> (H, W, C) as stored: uint8 with C = 1, 2, 3 or 4, or
+    uint16 with C = 1 for 16-bit grey (as Pillow reads it for the reference's
+    ``DepthDataset``)."""
     w, h, depth, ctype, interlace = _header(data)
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+    if ctype not in _CHANNELS or interlace != 0 or (depth, ctype) not in ((8, ctype), (16, 0)):
         raise NotImplementedError(
-            f"PNG with bit depth {depth}, colour type {ctype}, interlace {interlace}: only 8-bit, "
-            "non-interlaced grey, RGB, grey+alpha and RGBA are decoded")
+            f"PNG with bit depth {depth}, colour type {ctype}, interlace {interlace}: only non-interlaced 8-bit "
+            "grey, RGB, grey+alpha and RGBA, and 16-bit grey, are decoded")
     idat = b"".join(body for tag, body in _chunks(data) if tag == b"IDAT")
     c = _CHANNELS[ctype]
-    return _unfilter(zlib.decompress(idat), h, w * c, c).reshape(h, w, c)
+    bpp = c * depth // 8  # the filters work on bytes, bpp bytes to the left
+    rows = _unfilter(zlib.decompress(idat), h, w * bpp, bpp)
+    if depth == 16:  # big-endian samples
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, c)
+    return rows.reshape(h, w, c)
 
 
 def _is_jpeg(path: Path) -> bool:
@@ -92,7 +99,8 @@ def _pillow():
 
 
 def read_image(path: Path) -> np.ndarray:
-    """An image file -> (H, W, C) uint8 as stored (C = 1, 2, 3 or 4)."""
+    """An image file -> (H, W, C) as stored: uint8 (C = 1, 2, 3 or 4), or
+    uint16 (C = 1) for a 16-bit grey PNG."""
     if _is_jpeg(path):
         with _pillow().open(path) as im:
             arr = np.asarray(im, dtype=np.uint8)

@@ -5,9 +5,11 @@ encoding; the per-camera appearance embedding in training, its mean at
 eval; colour MLP (3 x 64, sigmoid). The mode picks the hash path on every
 call: training (and the occupancy update) runs the stochastic trilerp K1,
 with its level-subsampled backward; eval runs the exact 8-corner trilerp
-K3, or K1 with ``exact_eval=False``. Transient, semantic and
+K3, or K1 with ``exact_eval=False``. With ``use_semantics``, a semantic
+head (MLP 2 x 64 and a linear layer to ``num_semantic_classes`` logits)
+reads the geometry feature with its gradient stopped. The transient and
 predicted-normal heads are not ported (the config can ask only for
-predicted normals)."""
+predicted normals; the JAX package's semantic-nerfw refuses transients)."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from nerfstudio_torch.data.scene_box import SceneBox
 from nerfstudio_torch.field_components.activations import trunc_exp
 from nerfstudio_torch.field_components.embedding import Embedding
 from nerfstudio_torch.field_components.encodings import SHEncoding
-from nerfstudio_torch.field_components.field_heads import FieldHeadNames
+from nerfstudio_torch.field_components.field_heads import FieldHeadNames, SemanticFieldHead
 from nerfstudio_torch.field_components.mlp import MLP, MLPWithHashEncoding
 from nerfstudio_torch.field_components.spatial_distortions import SceneContraction
 from nerfstudio_torch.fields.base_field import Field, get_normalized_directions
@@ -49,6 +51,8 @@ class NerfactoField(Field):
         hidden_dim_color: int = 64,
         appearance_embedding_dim: int = 32,
         use_average_appearance_embedding: bool = True,
+        use_semantics: bool = False,
+        num_semantic_classes: int = 100,
         use_pred_normals: bool = False,
         use_appearance_embedding: bool = True,
         disable_scene_contraction: bool = False,
@@ -84,6 +88,10 @@ class NerfactoField(Field):
             block_exact=exact_eval,
             device=device,
         )
+        self.use_semantics = use_semantics
+        if use_semantics:  # (reference :105-107)
+            self.mlp_semantics = MLP(in_dim=geo_feat_dim, num_layers=2, layer_width=64, out_dim=64, device=device)
+            self.field_head_semantics = SemanticFieldHead(64, num_semantic_classes, device=device)
         color_in = self.direction_encoding.get_out_dim() + geo_feat_dim
         if self.use_appearance_embedding:
             self.embedding_appearance = Embedding(num_images, appearance_embedding_dim, device=device)
@@ -125,6 +133,10 @@ class NerfactoField(Field):
     ) -> Dict[FieldHeadNames, torch.Tensor]:
         """(reference nerfacto_field.py:153-199)"""
         assert density_embedding is not None
+        outputs = {}
+        if self.use_semantics:
+            outputs[FieldHeadNames.SEMANTICS] = self.field_head_semantics(
+                self.mlp_semantics(density_embedding.detach()))
         directions = get_normalized_directions(ray_samples.frustums.directions)
         head_inputs = [self.direction_encoding(directions), density_embedding]
         if self.use_appearance_embedding:
@@ -137,5 +149,5 @@ class NerfactoField(Field):
                     mean_emb = density_embedding.new_zeros((self.appearance_embedding_dim,))
                 emb = mean_emb.expand(density_embedding.shape[:-1] + (self.appearance_embedding_dim,))
             head_inputs.append(emb)
-        rgb = self.mlp_head(torch.cat(head_inputs, dim=-1))
-        return {FieldHeadNames.RGB: rgb}
+        outputs[FieldHeadNames.RGB] = self.mlp_head(torch.cat(head_inputs, dim=-1))
+        return outputs

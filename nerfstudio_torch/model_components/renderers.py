@@ -70,6 +70,11 @@ def render_normals(normals: torch.Tensor, weights: torch.Tensor, normalize: bool
     return n
 
 
+def render_semantics(semantics: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Per-class logits composited along the ray (reference :177-179)."""
+    return torch.sum(weights * semantics, dim=-2)
+
+
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:
     """(reference :139-141)"""
     return torch.sum(weights, dim=-2)

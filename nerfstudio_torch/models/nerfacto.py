@@ -3,12 +3,14 @@
 SO3xR3 camera-opt (training) -> NearFarCollider -> occupancy-grid probes
 -> PDF -> block-layout proposal density field (K1) -> PDF -> NerfactoField
 (K1 in training, K3 exact trilerp at eval) -> rgb, median and expected
-depth, accumulation; in training also the rgb, interlevel, distortion and
-camera-opt losses, the per-step schedule (``step_kwargs``) and the
-occupancy-grid update hook (``make_aux_update_fn``). The config keeps the
-reference's field names and defaults. Not ported: the sampling options
-the shipped config does not use (checked in ``NerfactoModel.__init__``)
-and the predicted-normal losses."""
+depth, accumulation (and the semantic logits of a config with
+``use_semantics``, semantic-nerfw's); in training also the rgb,
+interlevel, distortion and camera-opt losses, the per-step schedule
+(``step_kwargs``) and the occupancy-grid update hook
+(``make_aux_update_fn``). The config keeps the reference's field names and
+defaults. Not ported: the sampling options the shipped config does not
+use (checked in ``NerfactoModel.__init__``) and the predicted-normal
+losses."""
 
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from nerfstudio_torch.cameras.camera_optimizers import CameraOptimizer, camera_o
 from nerfstudio_torch.core.rays import RayBundle
 from nerfstudio_torch.field_components.embedding import Embedding
 from nerfstudio_torch.field_components.encodings import HashEncoding
-from nerfstudio_torch.field_components.field_heads import FieldHeadNames
+from nerfstudio_torch.field_components.field_heads import FieldHeadNames, SemanticFieldHead
 from nerfstudio_torch.field_components.mlp import MLP
 from nerfstudio_torch.field_components.spatial_distortions import SceneContraction
 from nerfstudio_torch.fields.density_fields import HashMLPDensityField
@@ -146,6 +148,9 @@ class NerfactoModel(Model):
             use_appearance_embedding=cfg.use_appearance_embedding,
             appearance_embedding_dim=cfg.appearance_embed_dim if cfg.use_appearance_embedding else 0,
             use_pred_normals=cfg.predict_normals,
+            # semantic-nerfw's config fields (reference nerfacto.py:201-203)
+            use_semantics=getattr(cfg, "use_semantics", False),
+            num_semantic_classes=getattr(cfg, "num_semantic_classes", 16),
             average_init_density=cfg.average_init_density,
             hash_block=cfg.field_block,
             exact_eval=cfg.eval_exact_trilerp,
@@ -173,7 +178,7 @@ class NerfactoModel(Model):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every parameter as the reference's init does, from ``generator``."""
         for m in self.modules():
-            if isinstance(m, (HashEncoding, MLP, Embedding)):
+            if isinstance(m, (HashEncoding, MLP, Embedding, SemanticFieldHead)):
                 m.reset_parameters(generator)
 
     def get_outputs(
@@ -236,6 +241,10 @@ class NerfactoModel(Model):
             "expected_depth": renderers.render_depth(weights, ray_samples, method="expected"),
             "prop_depth_0": renderers.render_depth(weights_list[0], ray_samples_list[0], method="median"),
         }
+        if FieldHeadNames.SEMANTICS in field_outputs:
+            # the weights detached unless pass_semantic_gradients (reference :367-378)
+            sem_w = weights if getattr(cfg, "pass_semantic_gradients", False) else weights.detach()
+            outputs["semantics"] = renderers.render_semantics(field_outputs[FieldHeadNames.SEMANTICS], sem_w)
         if self.training:
             outputs["background"] = background
             outputs["weights_list"] = weights_list + [weights]

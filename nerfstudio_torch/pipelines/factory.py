@@ -1,6 +1,7 @@
 """A method config into a runnable pipeline and trainer (counterpart of
 ``nerfstudio_tpu/pipelines/factory.py``): the dataparser's splits as
-datasets, the datamanager, the model at the scene's aabb with its
+the method's datasets (images, or with depths or class labels), the
+datamanager, the model at the scene's aabb (and the dataset's classes) with its
 parameters drawn from ``config.seed``, the per-group Adam, the auxiliary
 state and hook, on the device ``config.machine`` names."""
 
@@ -12,7 +13,7 @@ from typing import Tuple
 import torch
 
 from nerfstudio_torch.data.datamanagers import DeviceCacheDataManager
-from nerfstudio_torch.data.datasets import InputDataset
+from nerfstudio_torch.data.datasets import DepthDataset, InputDataset, SemanticDataset
 from nerfstudio_torch.engine.optimizers import PerGroupAdam
 from nerfstudio_torch.engine.trainer import Trainer
 from nerfstudio_torch.pipelines.base_pipeline import TrainState, VanillaPipeline
@@ -24,11 +25,16 @@ def _eval_split_candidates(parser) -> Tuple[str, ...]:
     return ("test", "val") if "blender" in type(parser).__name__.lower() else ("val", "test")
 
 
+# the dataset class a method names (reference :41-52)
+DATASETS = {"input": InputDataset, "depth": DepthDataset, "semantic": SemanticDataset}
+
+
 def build_datasets(config):
     """(train dataset, eval dataset, the train split's parser outputs)
-    (reference :25-48)."""
-    if config.dataset != "input":
-        raise NotImplementedError(f"dataset {config.dataset!r} is not ported (only InputDataset)")
+    (reference :25-52), of the class ``config.dataset`` names."""
+    if config.dataset == "sdf":
+        raise NotImplementedError("the SDF dataset (sdfstudio captures) is not ported yet (ROADMAP queue 1 item 13)")
+    cls = DATASETS[config.dataset]
     if config.data is not None:
         config.dataparser.data = Path(config.data)
     parser = config.dataparser.setup()
@@ -40,7 +46,7 @@ def build_datasets(config):
             break
         except FileNotFoundError:
             continue
-    return InputDataset(train_out), InputDataset(eval_out), train_out
+    return cls(train_out), cls(eval_out), train_out
 
 
 def scene_aabb(outputs) -> Tuple[Tuple[float, ...], ...]:
@@ -49,11 +55,15 @@ def scene_aabb(outputs) -> Tuple[Tuple[float, ...], ...]:
 
 def build_pipeline(config) -> Tuple[VanillaPipeline, TrainState, object]:
     """(pipeline, train state, config) of a ray-based method (reference
-    :51-90). The model's parameters are drawn from a generator seeded with
-    ``config.seed``."""
+    :55-90). A semantic dataset's classes set the model's
+    ``num_semantic_classes``. The model's parameters are drawn from a
+    generator seeded with ``config.seed``."""
     device = config.machine.device()
     train_ds, eval_ds, train_out = build_datasets(config)
     datamanager = DeviceCacheDataManager.from_datasets(config.datamanager, train_ds, eval_ds, device)
+    sem = getattr(train_ds, "semantics", None)
+    if sem is not None and sem.classes and hasattr(config.model, "num_semantic_classes"):
+        config.model.num_semantic_classes = len(sem.classes)
     model_cls = config.model._target
     model = config.model.setup(scene_aabb=scene_aabb(train_out), num_train_data=len(train_ds), device=device).train()
     model.reset_parameters(torch.Generator(device=device).manual_seed(config.seed))

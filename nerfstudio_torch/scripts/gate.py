@@ -1,7 +1,8 @@
 """Quality gate of a method on a synthetic scene (counterpart of
 ``tools/run_gate_matrix.py``'s ``run_gate`` for the ported methods on the
 scenes of ``tools/make_synthetic_dataset.py``: ``basic``, ``blender``,
-``distorted``, ``masked``; the cell is named after the scene's directory):
+``distorted``, ``masked``, ``semantic``, ``appearance``; the cell is named
+after the scene's directory):
 
     python -m nerfstudio_torch.scripts.gate METHOD SCENE_DIR OUT.json [--steps N] [--a.b value ...]
 
@@ -10,7 +11,11 @@ The method's shipped config, read through the nerfstudio parser at
 gate steps (``GATE_STEPS``, as in ``benchmarks/gate_*.json``) through the
 loop ``scripts.train`` runs, with every eval cadence and intermediate save
 off, then every held-out view is rendered (ray methods in 16,384-ray
-chunks, or the model's own eval chunk where it is smaller). A method of
+chunks, or the model's own eval chunk where it is smaller). A method that
+ships the nerfstudio parser keeps its ``load_3D_points`` (depth-nerfacto's
+SfM depth). Given a ``basic`` scene, semantic-nerfw trains on the
+``semantic`` scene beside it and phototourism on ``appearance``
+(``SCENE_ROUTES``, the JAX runner's routes). A method of
 ``BLENDER_METHODS`` (neus) reads the Blender format instead, the ``blender``
 scene beside a given ``basic`` one, with its train split and every test
 view: a method that renders over black takes the ground truth RGBA, blended
@@ -37,10 +42,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-GATE_STEPS = {"nerfacto": 5000, "nerfacto-big": 3000, "nerfacto-huge": 1500, "neus": 12000, "splatfacto": 8000,
+GATE_STEPS = {"nerfacto": 5000, "nerfacto-big": 3000, "nerfacto-huge": 1500, "depth-nerfacto": 5000,
+              "semantic-nerfw": 5000, "phototourism": 5000, "neus": 12000, "splatfacto": 8000,
               "splatfacto-big": 8000, "splatfacto-mcmc": 8000}
 # methods the JAX runner trains on the Blender protocol (tools/run_gate_matrix.py:64-65)
 BLENDER_METHODS = ("neus",)
+# the scene beside a given basic one that exercises a method's own machinery
+# (tools/run_gate_matrix.py:94-105): the labels, the per-view exposure
+SCENE_ROUTES = {"semantic-nerfw": "semantic", "phototourism": "appearance"}
 RECORDS = Path(__file__).resolve().parents[2] / "benchmarks"
 PSNR_GATE, SSIM_GATE = 20.0, 0.7
 EVAL_CHUNK = 1 << 14
@@ -101,6 +110,9 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     steps = steps or GATE_STEPS[method]
     config = get_method(method)
     scene_dir = Path(scene_dir)
+    route = SCENE_ROUTES.get(method)
+    if route and scene_dir.name == "basic" and (scene_dir.parent / route).is_dir():
+        scene_dir = scene_dir.parent / route
     if method in BLENDER_METHODS and scene_dir.name not in ("distorted", "masked"):
         if scene_dir.name == "basic" and (scene_dir.parent / "blender").is_dir():
             scene_dir = scene_dir.parent / "blender"
@@ -109,7 +121,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     else:
         config.dataparser = NerfstudioDataParserConfig(
             data=scene_dir, train_split_fraction=0.9, downscale_factor=1,
-            load_3D_points=config.dataparser.load_3D_points)
+            load_3D_points=getattr(config.dataparser, "load_3D_points", False))
     config.data = scene_dir
     t = config.trainer
     t.max_num_iterations, t.output_dir, t.experiment_name, t.timestamp, t.vis = (

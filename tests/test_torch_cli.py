@@ -1,7 +1,9 @@
 """The port's CLI: ``apply_overrides`` against JAX's on the same argv; the
-train script trains, saves, resumes and evaluates on the CPU; the gate
-runner writes the keys of ``benchmarks/gate_nerfacto.json``; the method
-registry names the unported methods; without a card the default device
+train script trains, saves, resumes and evaluates on the CPU (depth-nerfacto,
+semantic-nerfw and phototourism through ``--dataparser nerfstudio-data``);
+the gate runner writes the keys of ``benchmarks/gate_nerfacto.json`` and
+routes each method to its scene and JAX record; the method registry names
+the unported methods and parsers; without a card the default device
 raises."""
 
 import dataclasses
@@ -36,6 +38,8 @@ ARGV = {
                         "--model.camera_optimizer_mode", "SO3xR3", "--model.use_scale_regularization", "1"],
     "neus-facto": ["--model.num_neus_samples_per_ray", "24", "--model.eikonal_loss_mult", "0.5",
                    "--trainer.vis", "none", "--datamanager.eval_num_rays_per_batch", "64"],
+    "depth-nerfacto": ["--model.depth_loss_type", "urf", "--model.depth_sigma", "0.02",
+                       "--dataparser.depth_unit_scale_factor", "0.01", "--model.field_bwd_level_period", "0"],
 }
 
 
@@ -201,3 +205,72 @@ def test_default_device_without_a_card_raises(tmp_path, monkeypatch):
         build_pipeline(config)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         train.main(["splatfacto", "--data", str(scene), "--trainer.output_dir", str(tmp_path / "out")])
+
+
+@pytest.fixture(scope="module")
+def tool_scenes(tmp_path_factory):
+    """The synthetic tool's basic, semantic and appearance scenes side by
+    side at 32^2 (8 train, 2 test frames, 500 seed points)."""
+    import subprocess
+    import sys
+
+    root = tmp_path_factory.mktemp("tool_scenes")
+    for scene in ("basic", "semantic", "appearance"):
+        subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_dataset.py"), str(root / scene), "--hw",
+                        "32", "--n-train", "8", "--n-test", "2", "--n-points", "500", "--scene", scene], check=True,
+                       capture_output=True, timeout=300)
+    return root
+
+
+@pytest.mark.parametrize("method, scene", [("depth-nerfacto", "basic"), ("semantic-nerfw", "semantic"),
+                                           ("phototourism", "appearance")])
+def test_train_script_trains_and_evaluates_the_nerfacto_family(method, scene, tool_scenes, tmp_path, capsys):
+    """Two steps on the CPU through ``scripts/train.py --dataparser
+    nerfstudio-data`` with the method's own loss term logged, then
+    ``scripts/eval.py`` on the run. ``--dataparser`` sets a fresh parser
+    config, as JAX's train script does, so depth-nerfacto asks for the
+    seed points of its SfM depth again."""
+    points = ["--dataparser.load_3D_points", "true"] if method == "depth-nerfacto" else []
+    train.main([method, "--data", str(tool_scenes / scene), "--dataparser", "nerfstudio-data", *points,
+                "--machine.device_type", "cpu", "--trainer.output_dir", str(tmp_path / "out"), "--trainer.vis", "none",
+                "--trainer.max_num_iterations", "2", "--trainer.timestamp", "run", *TINY])
+    out = capsys.readouterr().out
+    term = {"depth-nerfacto": "depth_loss=", "semantic-nerfw": "semantics_loss=", "phototourism": "rgb_loss="}[method]
+    assert "[train 0]" in out and term in out
+    run = tmp_path / "out" / scene / method / "run"
+    info = teval.main([str(run), "--output-path", str(tmp_path / "eval.json")])
+    assert info["step"] == 2 and {"psnr", "ssim"} <= set(info["results"])
+
+
+@pytest.mark.parametrize("method", ["semantic-nerfw", "phototourism"])
+def test_the_shipped_parser_names_its_roadmap_item(method, tool_scenes, tmp_path):
+    """Without ``--dataparser`` the method's own parser (sitcoms3d's,
+    phototourism's) is refused, naming ROADMAP queue 1 item 13 and the
+    flag that reads the capture."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 13.*--dataparser nerfstudio-data"):
+        train.main([method, "--data", str(tool_scenes / "basic"), "--machine.device_type", "cpu",
+                    "--trainer.output_dir", str(tmp_path / "out"), "--trainer.vis", "none", *TINY])
+
+
+@pytest.mark.parametrize("method, scene", [("depth-nerfacto", "basic"), ("semantic-nerfw", "semantic"),
+                                           ("phototourism", "appearance")])
+def test_gate_runner_routes_the_nerfacto_family(method, scene, tool_scenes, tmp_path):
+    """Given the basic scene, semantic-nerfw trains on the semantic scene
+    beside it and phototourism on the appearance one (the JAX runner's
+    routes); depth-nerfacto loads the seed points for its SfM depth. The
+    JAX record set beside each cell is the cell's own file, at the gate's
+    5000 steps."""
+    result, run = gate.run_gate(method, tool_scenes / "basic", tmp_path, steps=2,
+                                overrides=["--machine.device_type", "cpu", *TINY])
+    assert result["scene"] == scene and result["steps"] == 2
+    want = json.loads((REPO / "benchmarks" / f"gate_{method.replace('-', '_')}"
+                       f"{'' if scene == 'basic' else '_' + scene}.json").read_text())
+    assert result["jax_record"] == {"psnr": want["metrics"]["psnr"], "ssim": want["metrics"]["ssim"]}
+    assert gate.GATE_STEPS[method] == want["steps"] == 5000
+    dataset = run["pipeline"].datamanager.train_dataset
+    assert type(dataset).__name__ == {"depth-nerfacto": "DepthDataset", "semantic-nerfw": "SemanticDataset",
+                                      "phototourism": "InputDataset"}[method]
+    if method == "depth-nerfacto":
+        assert dataset.provides_depth and dataset._sfm_points is not None
+    if method == "semantic-nerfw":
+        assert run["pipeline"].model.config.num_semantic_classes == len(dataset.semantics.classes) == 6

@@ -154,7 +154,9 @@ def test_camera_models_and_masks_as_jax(scenes, tmp_path, case):
     distortion, a 12-value list for Fisheye624, per-frame OpenCV terms; a
     name the reference does not know is perspective), each frame with a
     ``mask_path``: the port's cameras (types and arrays) and mask filenames
-    equal the JAX parser's at both splits."""
+    equal the JAX parser's at both splits; then with a ``depth_file_path``
+    and a ``semantic_path`` on every frame too, the depth files, their unit
+    scale and the semantic labels' files, classes and colours as well."""
     root = tmp_path / case
     root.mkdir()
     (root / "images").symlink_to(scenes["ns"] / "images")
@@ -175,12 +177,21 @@ def test_camera_models_and_masks_as_jax(scenes, tmp_path, case):
                                       np.broadcast_to(np.asarray(j.cameras.camera_type).reshape(-1, 1),
                                                       t.cameras.camera_type.shape))
         assert [str(p) for p in t.mask_filenames] == [str(p) for p in j.mask_filenames]
-    for key in ("depth_file_path", "semantic_path"):
-        meta["frames"][0][key] = "x.png"
-        (root / "transforms.json").write_text(json.dumps(meta))
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            NerfstudioDataParserConfig(data=root).setup().get_dataparser_outputs("train")
-        del meta["frames"][0][key]
+    # the same frames with a depth file and a label image each: their
+    # filenames, unit scale and classes parse as JAX's beside the masks
+    for i, fr in enumerate(meta["frames"]):
+        fr.update(depth_file_path=f"depths/d_{i}.png", semantic_path=f"labels/s_{i}.png")
+    (root / "transforms.json").write_text(json.dumps(meta))
+    for split in ("train", "val"):
+        j = JNerfstudio(data=root).setup().get_dataparser_outputs(split)
+        t = NerfstudioDataParserConfig(data=root).setup().get_dataparser_outputs(split)
+        assert_outputs_match(j, t)
+        assert [str(p) for p in t.metadata["depth_filenames"]] == [str(p) for p in j.metadata["depth_filenames"]]
+        assert t.metadata["depth_unit_scale_factor"] == j.metadata["depth_unit_scale_factor"]
+        ts, js = t.metadata["semantics"], j.metadata["semantics"]
+        assert [str(p) for p in ts.filenames] == [str(p) for p in js.filenames] and ts.classes == js.classes
+        np.testing.assert_array_equal(ts.colors, js.colors)
+        assert [str(p) for p in t.mask_filenames] == [str(p) for p in j.mask_filenames]
 
 
 @pytest.mark.parametrize("scene", ["synthetic", "blender"])

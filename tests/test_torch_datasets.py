@@ -120,9 +120,16 @@ def test_unported_png_and_jpeg_without_pillow_raise(tmp_path, monkeypatch):
     Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(tmp_path / "p.png")
     with pytest.raises(NotImplementedError, match="colour type 3"):
         image_io.read_image(tmp_path / "p.png")
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "i16.png")
-    with pytest.raises(NotImplementedError, match="bit depth 16"):
-        image_io.read_image(tmp_path / "i16.png")
+    # 16-bit grey (the depth maps) decodes as Pillow reads it; 16-bit colour
+    # does not
+    grey16 = (np.arange(16).reshape(4, 4) * 4099).astype(np.uint16)
+    Image.fromarray(grey16).save(tmp_path / "i16.png")
+    got = image_io.read_image(tmp_path / "i16.png")
+    assert got.dtype == np.uint16 and np.array_equal(got[..., 0], np.asarray(Image.open(tmp_path / "i16.png")))
+    ihdr = struct.pack(">IIBBBBB", 4, 4, 16, 2, 0, 0, 0)
+    rgb16 = b"\x89PNG\r\n\x1a\n" + struct.pack(">I", len(ihdr)) + b"IHDR" + ihdr + b"\0\0\0\0"
+    with pytest.raises(NotImplementedError, match="bit depth 16, colour type 2"):
+        image_io.decode_png(rgb16)
     img = _image(np.random.default_rng(3), 16, 16, 3)
     Image.fromarray(img).save(tmp_path / "a.jpg")
     assert np.array_equal(image_io.read_image(tmp_path / "a.jpg"), _pillow(tmp_path / "a.jpg"))
