@@ -79,7 +79,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   gate records' protocol (48 frames of 200^2), ``scripts.train`` nerfacto
   for 300 steps with a save at 150, a resume to 400, the eval of the first
   save and ``scripts.eval`` of the end (the PSNR must rise); the nerfacto
-  and splatfacto gate runs through ``scripts.gate``, cut in depth to 1000
+  and splatfacto gate runs through ``scripts.gate``, cut in depth to 600
   of their 5000 and 8000 steps (the loss must fall; their full runs stand
   in PERF.md), beside the JAX records' quality; neus-facto for 200 steps
   through the trainer (the loss must fall). Each
@@ -105,7 +105,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   splat train images too); and 200 nerfacto steps through the resolution
   buckets of the mixed-resolution masked scene (the loss must fall), with
   one step on the card against the CPU twins. The four gates on
-  ``distorted`` and ``masked`` run 1000 of their 8000 or 5000 steps (cut in
+  ``distorted`` and ``masked`` run 600 of their 8000 or 5000 steps (cut in
   depth): their loss must fall, and every kernel of each path holds at its
   trained state;
 * splatfacto's options and methods (phases 47-52): K4's backward with the
@@ -119,7 +119,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   (the grids' and tangents' gradients compared too) and one MCMC refine, slot
   for slot with the CPU's draws, on the card against the CPU; the
   splatfacto-mcmc and splatfacto-big gate runs on ``basic`` at 1,000,000
-  slots, cut in depth to 1000 of their 8000 steps (the loss must fall; their
+  slots, cut in depth to 600 of their 8000 steps (the loss must fall; their
   full runs stand in PERF.md), each followed by its path's kernels against
   their twins at its trained state and its idle share; splatfacto with the
   three options on for 400 steps through ``scripts.gate``'s loop (the loss
@@ -128,9 +128,10 @@ shapes its path gives it, and drives the port's paths from random weights:
 * the largest ray methods and plain NeuS (phases 53-57): one nerfacto-huge
   step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
   table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
-  twins; the nerfacto-huge (1500 steps, 16,384 rays) and nerfacto-big (3000
-  steps, 8192 rays) gates on ``basic`` at full width beside the JAX
-  records, each followed by K1's forward (the step's proposal and field
+  twins; the nerfacto-huge gate (1500 steps, 16,384 rays) and the
+  nerfacto-big run (1500 of its gate's 3000 steps, 8192 rays: its loss
+  must fall) on ``basic`` at full width beside the JAX records, each
+  followed by K1's forward (the step's proposal and field
   calls, the proposal's at an eval chunk) and backward (both calls) and K3
   (one eval chunk of 32,768 rays) at its trained state, every design
   against its twin and timed (CUDA events in turns, device time, 50 calls
@@ -138,10 +139,10 @@ shapes its path gives it, and drives the port's paths from random weights:
   once, and by a 3-step profile (idle share, the hash grid's share, rays/s);
   one plain-neus step (the sampler's draws handed in) and one eval chunk on
   the card against the CPU; plain neus on the ``blender`` scene through the
-  Blender parser, cut in depth to 1000 of its gate's 12,000 steps (the loss
+  Blender parser, cut in depth to 750 of its gate's 12,000 steps (the loss
   must fall; the PSNR stands beside the JAX record), and its idle share;
 * the rest of the nerfacto family (phases 58-60), each through
-  ``scripts.gate``'s loop at its shipped config, cut in depth to 500 of its
+  ``scripts.gate``'s loop at its shipped config, cut in depth to 300 of its
   gate's 5000 steps: depth-nerfacto on ``basic`` with the SfM depth of its
   30,000 seed points, semantic-nerfw on the tool's ``semantic`` scene and
   phototourism on ``appearance`` (both beside ``basic``, made while the
@@ -153,7 +154,26 @@ shapes its path gives it, and drives the port's paths from random weights:
   trained model (its tables set flat) on the card against the CPU twins
   with the same draws, every loss term compared, and a 3-step profile
   (idle share, the hash grid's share, launches per step); phototourism's
-  kernels are also timed there, as nerfacto-huge's are.
+  kernels are also timed there, as nerfacto-huge's are;
+* the Blender-protocol methods (phases 61-63): first a double backward
+  through K1, K7, K4 and K6 on the card, which must raise (their backwards
+  are once differentiable); then through ``scripts.gate``'s loop on the
+  ``blender`` scene of phase 57, at their shipped configs: tensorf cut to
+  2200 of its 5000 steps, through its first grid upsample (step 2000, R 128
+  -> 152, the optimizer re-initialised: the loss must fall before it and
+  again after it, the grids must be at 152 and the optimizer's count must
+  have restarted there), vanilla-nerf and mipnerf cut to 500 of their 8000
+  steps (both passes' rgb losses must fall). None launches a hand-written
+  kernel. At each trained state one step (256 rays, the draws handed in,
+  the MLPs' products in float32) on the card against the CPU, every loss
+  term and gradient compared, one 1024-ray eval chunk under the white
+  background override against the CPU, and a 3-step profile by class;
+  K8 (plain PyTorch) at tensorf's step's own 18 calls, replayed alone:
+  events and profiler time, launches, bound, share of the busy step.
+
+Since phases 61-63 came, phases 36-37, 42-45 and 50-51 run 600 steps
+(1000 before), 55 (nerfacto-big) 1500 of its gate's 3000, 57 750 (1000
+before) and 58-60 300 (500 before), to keep the run inside its budget.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -503,6 +523,7 @@ def hash_kernel_of(name: str):
 
 U32 = 2.0**-24  # float32 unit roundoff
 FLT_MIN = 2.0**-126  # the smallest normal float32
+SUBNORMAL_ULP = 2.0**-149  # the spacing of float32 subnormals
 
 
 def table_grad_bound(pos, table, g, scales, kw):
@@ -539,14 +560,21 @@ def position_grad_bound(g, table, num_levels, features, min_res, max_res):
     bf16 table values within +-T (T the level's largest |value|, bf16-
     rounded, at least 1: a trained table holds values of several units);
     every step rounds once, so a level is off by at most ~(F + 12) u times
-    res * 8 * T * sum_f |g_lf|, and the levels' sum adds L roundings more."""
+    res * 8 * T * sum_f |g_lf|, and the levels' sum adds L roundings more.
+    A result in the subnormal range rounds to an absolute 2^-150 instead
+    of a relative u (a trained scene's cotangents reach 1e-41, where a
+    sample's whole gradient is subnormal and the relative term alone would
+    ask for more bits than subnormals hold): each of a level's ~(F + 12)
+    roundings per corner adds up to SUBNORMAL_ULP before the scaling by res,
+    8 corners a level, L more in the levels' sum."""
     from nerfstudio_torch.ops.hash_grid import compute_level_resolutions
 
     res = torch.tensor(compute_level_resolutions(num_levels, min_res, max_res), dtype=torch.float64,
                        device=g.device)
     peak = (table.detach().reshape(num_levels, -1).abs().amax(-1).double() * (1 + 2.0**-8)).clamp_min(1.0)
     per_level = g.abs().double().view(g.shape[0], num_levels, features).sum(-1) * res * 8.0 * peak
-    return (features + 12 + num_levels) * U32 * per_level.sum(-1, keepdim=True)
+    subnormal = (float((res * 8.0 * (features + 12)).sum()) + num_levels) * SUBNORMAL_ULP
+    return (features + 12 + num_levels) * U32 * per_level.sum(-1, keepdim=True) + subnormal
 
 
 def check_kernel_bwd(name, n, num_levels, log2_t, features, min_res, max_res, scales, gen):
@@ -2236,7 +2264,7 @@ NEUS_PATH_KERNELS = ("hash_encode_flat", "hash_encode_flat_bwd")
 # 5000 steps (the full gates: their own chip calls, PERF.md)
 FAMILY = (("depth-nerfacto", "basic", "depth_loss"), ("semantic-nerfw", "semantic", "semantics_loss"),
           ("phototourism", "appearance", None))
-FAMILY_STEPS = 500
+FAMILY_STEPS = 300
 # the method whose kernels are also timed at its trained state: K1's
 # backward over every field level, with the proposal's every step
 FAMILY_TIMED = "phototourism"
@@ -2984,8 +3012,9 @@ OPTIONS_FLAGS = ("--model.use-bilateral-grid", "True", "--model.camera-optimizer
                  "--model.use-scale-regularization", "True")
 # every gate of phases 36-51 (nerfacto and splatfacto on basic, distorted
 # and masked; splatfacto-mcmc and -big), cut in depth (their full runs:
-# PERF.md §6)
-CUT_GATE_STEPS = 1000
+# PERF.md §6): 600, past the splat methods' first refine at step 500, to
+# fit phases 61-63
+CUT_GATE_STEPS = 600
 
 
 def k4_view_random(n, gen, hw=SPLAT_HW):
@@ -3426,7 +3455,10 @@ def options_and_methods(ph, card, scene, disk_root, disk):
 # nerfacto-big and nerfacto-huge at full width; plain neus
 
 
-NEUS_PLAIN_STEPS = 1000  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
+# nerfacto-big's gate run (phase 55), cut in depth from its 3000 steps to
+# fit phases 61-63 (the full gate: PERF.md §6)
+BIG_CUT_STEPS = 1500
+NEUS_PLAIN_STEPS = 750  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
 NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
 # Card vs CPU, plain neus's eval chunk: the SDF field is float32 on both
 # sides, but the sampler's four SDF passes sum in another order, which moves
@@ -3645,9 +3677,10 @@ def big_methods_and_neus(ph, card, scene, disk_root, disk):
         raise AssertionError(f"{name}: card and CPU nerfacto-huge steps disagree")
     huge_step = dict(loss_rel=loss_rel, grad_rel=grad_rel, table_rel=table_rel)
     torch.cuda.empty_cache()
-    for i, method in ((54, "nerfacto-huge"), (55, "nerfacto-big")):
-        name = ph(i, f"gate {method}")
-        rec = disk[f"gate_{method}"] = gate_phase(name, method, scene, disk_root, card, NERFACTO_KERNELS, timed=True)
+    for i, method, steps in ((54, "nerfacto-huge", None), (55, "nerfacto-big", BIG_CUT_STEPS)):
+        name = ph(i, f"gate {method}" + (f", {steps} steps" if steps else ""))
+        rec = disk[f"gate_{method}"] = gate_phase(name, method, scene, disk_root, card, NERFACTO_KERNELS, steps=steps,
+                                                  timed=True)
         idle = rec["idle"]
         if idle is not None:
             hash_ms = idle["classes"].get("hash-grid kernels", 0.0)
@@ -3767,6 +3800,327 @@ def nerfacto_family(ph, card, scene, disk_root, disk, jobs):
                f"profiled step ({rec['hash_share']:.1%}), idle {idle['idle']:.1%}") + f" on {card}")
 
 
+# -- the Blender-protocol methods (phases 61-63) ---------------------------------
+
+# tensorf, vanilla-nerf and mipnerf on the blender scene of phase 57 through
+# scripts.gate's loop at their shipped configs, cut in depth: tensorf past
+# its first grid upsample (step 2000, R 128 -> 152, the optimizer
+# re-initialised), the NeRFs to 500 of their 8000 steps (the full gates:
+# their own chip call, PERF.md)
+BLENDER_RUNS = (("tensorf", 2200), ("vanilla-nerf", 500), ("mipnerf", 500))
+BLENDER_CHECK_RAYS = 256  # the card-vs-CPU step: the CPU runs the 8x256 bfloat16 NeRF MLPs
+BLENDER_EVAL_RAYS = 1024  # the card-vs-CPU eval chunk: rays spread evenly over the first test view
+
+
+def segment_fell(losses):
+    """(first quarter's mean, last quarter's, finite and falling) of a run
+    of logged losses."""
+    q = max(len(losses) // 4, 1)
+    head, tail = statistics.fmean(losses[:q]), statistics.fmean(losses[-q:])
+    return head, tail, all(map(math.isfinite, losses)) and tail < head
+
+
+def logged(run_dir, key="loss"):
+    """[(step, value)] of a logged train term."""
+    with open(os.path.join(run_dir, "scalars.jsonl"), encoding="utf-8") as f:
+        return [(r["step"], r[key]) for r in map(json.loads, f) if r["prefix"] == "train"]
+
+
+def k8_step(name, run, card):
+    """K8 (``grid_sample_1d/2d``, plain PyTorch) at one tensorf step's own
+    calls: each call's grid and coordinates captured (the coarse pass's
+    under no_grad, the fine pass's with the planes' gradient), then replayed
+    alone, forward and, for the fine calls, the backward into the grids,
+    with the step's cotangent shapes: CUDA events around one replay
+    (median), its profiler device time and kernel launches, beside the
+    bound (each grid, coordinate and output byte once; the backward reads
+    the cotangents and writes the grids' gradients)."""
+    from nerfstudio_torch.field_components import encodings as enc
+
+    calls = []
+    originals = {f: getattr(enc, f) for f in ("grid_sample_1d", "grid_sample_2d")}
+
+    def capture(f):
+        def call(grid, coords):
+            calls.append((f, grid.detach().clone(), coords.detach().clone(), torch.is_grad_enabled()
+                          and grid.requires_grad))
+            return originals[f](grid, coords)
+        return call
+
+    for f in originals:
+        setattr(enc, f, capture(f))
+    try:
+        run["one_step"]()
+    finally:
+        for f, fn in originals.items():
+            setattr(enc, f, fn)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    leaves = [(f, g.requires_grad_(True) if want else g, c, want) for f, g, c, want in calls]
+    trained = [x for x in leaves if x[3]]
+    points = lambda f, c: c.numel() // (2 if f.endswith("2d") else 1)  # noqa: E731
+    taps = lambda f: 4 if f.endswith("2d") else 2  # noqa: E731
+    lead = lambda f, c: tuple(c.shape[:-1] if f.endswith("2d") else c.shape)  # noqa: E731
+    cots = [torch.rand(lead(f, c) + (g.shape[0],), generator=gen, device="cuda") for f, g, c, _ in trained]
+
+    def replay():
+        with torch.no_grad():
+            for f, g, c, want in leaves:
+                if not want:
+                    originals[f](g, c)
+        for _, g, _, _ in trained:
+            g.grad = None
+        torch.autograd.backward([originals[f](g, c) for f, g, c, _ in trained], cots)
+
+    ms = median_ms(replay, runs=10)
+    dev = device_ms(replay)
+    launches = sum(len(v) for v in _kernel_records(replay, 1).values())
+    # forward: each grid and coordinate read once, each output written once;
+    # backward: each cotangent and coordinate read, each grid's gradient
+    # written; a multiply-add per tap and channel each way
+    moved = sum(nbytes(g, c) + points(f, c) * g.shape[0] * 4 for f, g, c, _ in leaves)
+    moved += sum(nbytes(cot, c, g) for (f, g, c, _), cot in zip(trained, cots))
+    ops = sum(2 * taps(f) * points(f, c) * g.shape[0] for f, g, c, _ in leaves + trained)
+    bnd = bound(moved, ops)
+    shapes = sorted({(f, tuple(g.shape), points(f, c), w) for f, g, c, w in leaves})
+    log(name, f"K8 at one trained step's own calls: {len(calls)} calls ({len(trained)} with the planes' gradient; "
+        f"shapes {shapes}), replayed alone: {ms:.4f} ms events, {dev:.4f} ms device (torch.profiler), "
+        f"{launches} kernel launches; bound {bnd[0]:.4f} ms ({bnd[1]}) on {card}")
+    return dict(calls=len(calls), grad_calls=len(trained), ms=ms, device_ms=dev, launches=launches,
+                bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def blender_step_card_vs_cpu(run, method):
+    """One training step at the trained state on the card and on the CPU:
+    copies of the trained model with every MLP and head computing its
+    products in float32 (the shipped bfloat16 rounds the 8x256 NeRF nets'
+    products in another order on each side, which moves vanilla-nerf's
+    first fine layer's gradient by ~6% of its peak on the H100), the run's train
+    images and cameras, the same BLENDER_CHECK_RAYS pixels and sampler
+    jitter drawn on the host, a fresh optimizer of the method's groups
+    each. Returns (card metrics, CPU metrics, loss rel, {term: rel},
+    {param: grad max |card - cpu| / peak})."""
+    from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
+    from nerfstudio_torch.engine.optimizers import PerGroupAdam
+    from nerfstudio_torch.field_components.field_heads import FieldHead
+    from nerfstudio_torch.field_components.mlp import MLP
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws, TrainState, VanillaPipeline
+
+    pipeline = run["pipeline"]
+    dm, trained = pipeline.datamanager, pipeline.model
+    cfg = trained.config
+    widths = ((1, cfg.num_samples + 1) if method == "tensorf"
+              else (cfg.num_coarse_samples + 1, cfg.num_importance_samples + 1))
+    gen = torch.Generator().manual_seed(SEED + 8)
+    n, h, w = dm.train_images.shape[:3]
+    pixels = torch.stack([torch.randint(0, m, (BLENDER_CHECK_RAYS,), generator=gen) for m in (n, h, w)], dim=-1)
+    jitter = tuple(torch.rand((BLENDER_CHECK_RAYS, k), generator=gen) for k in widths)
+    runs = []
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(trained).to(device).train()
+        for m in model.modules():
+            if isinstance(m, (MLP, FieldHead)):
+                m.dtype = torch.float32
+        data = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=BLENDER_CHECK_RAYS),
+                                      dm.train_cameras.to(device), dm.train_images.cpu(), device)
+        twin = VanillaPipeline(data, model)
+        st = TrainState(PerGroupAdam(get_method(method).optimizers, model))
+        metrics = twin.train_step(st, draws=StepDraws(pixels.to(device),
+                                                      SamplerUniforms(None, tuple(u.to(device) for u in jitter))))
+        grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads))
+        del twin, st, data, model
+    (m_card, g_card), (m_cpu, g_cpu) = runs
+    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    terms = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu if "loss" in k or "reg" in k}
+    grad_rel = {k: float((g_card[k] - ref).abs().max() / ref.abs().max()) for k, ref in g_cpu.items()
+                if ref.abs().max() > 0}
+    return m_card, m_cpu, loss_rel, terms, grad_rel
+
+
+def blender_eval_card_vs_cpu(run):
+    """One eval chunk (BLENDER_EVAL_RAYS rays spread evenly over the first
+    test view, object and background) through the pipeline's eval path on
+    the card, which renders under the background override (the parser's
+    white), and through a CPU copy of the model under the same override.
+    Returns ({output: mean |card - cpu|}, {output: max}, the override, the
+    card's mean rgb where the accumulation is below 1e-3: white expected)."""
+    from nerfstudio_torch.model_components import renderers
+
+    pipeline, state = run["pipeline"], run["state"]
+    cams = pipeline.datamanager.eval_cameras
+    cam_idx = pipeline.datamanager.eval_image(0)[0]
+    rb = cams.generate_rays(camera_indices=cam_idx).flatten()
+    stride = max(rb.shape[0] // BLENDER_EVAL_RAYS, 1)
+    rb = rb.map(lambda x: x[::stride][:BLENDER_EVAL_RAYS])
+    color = pipeline._eval_background()
+    card = pipeline.eval_rays(state, rb.map(lambda x: x.to("cuda")))
+    model = copy.deepcopy(pipeline.model).to("cpu").eval()
+    with torch.no_grad(), renderers.background_color_override_context(color.cpu()):
+        cpu = model(rb.map(lambda x: x.cpu()))
+    keys = ("rgb", "accumulation", "depth")
+    mean = {k: float((card[k].cpu() - cpu[k]).abs().mean()) for k in keys}
+    peak = {k: float((card[k].cpu() - cpu[k]).abs().max()) for k in keys}
+    empty = card["accumulation"][..., 0] < 1e-3
+    bg = float(card["rgb"][empty].mean()) if bool(empty.any()) else float("nan")
+    del model
+    return mean, peak, color.tolist(), bg
+
+
+def blender_after(name, method, card):
+    """The checks at each trained state after the gate loop: the losses fell
+    (tensorf's before its upsample and again after it, with the grids at
+    152 and the optimizer's count restarted at the upsample; both passes'
+    rgb losses of the NeRFs); one step card vs CPU (loss and every term
+    within STEP_LOSS_RTOL, every gradient within STEP_GRAD_REL of its peak);
+    one eval chunk under the override card vs CPU (rgb and accumulation
+    within CARD_VS_CPU_MEAN_ABS mean abs); tensorf's K8 at its step's own
+    calls (``k8_step``)."""
+
+    def after(run):
+        base = run["base_dir"]
+        rec = {}
+        if method == "tensorf":
+            steps = logged(base)
+            model, state = run["pipeline"].model, run["state"]
+            first, want = model.config.upsampling_iters[0], type(model).upsample_resolutions(model.config)[0]
+            res = (model.field.density_encoding.resolution, model.field.color_encoding.resolution)
+            count, step = state.optimizer.count, int(state.step)
+            pre = segment_fell([v for s, v in steps if s < first])
+            post = segment_fell([v for s, v in steps if s >= first])
+            jump = ([v for s, v in steps if s < first][-1], [v for s, v in steps if s >= first][0])
+            rec.update(before=pre[:2], after=post[:2], jump=jump, resolution=res, count=count, step=step)
+            log(name, f"tensorf: loss {pre[0]:.5f} -> {pre[1]:.5f} over steps 0-{first - 1}, {jump[0]:.5f} at the "
+                f"last log before the upsample, {jump[1]:.5f} at the first after, then {post[0]:.5f} -> "
+                f"{post[1]:.5f} (first quarter's mean to the last's); grids at {res} (want {want}), the "
+                f"optimizer's count {count} at step {step}")
+            if not (pre[2] and post[2]) or res != (want, want) or count != step - first:
+                raise AssertionError(f"{name}: tensorf's loss, upsample or optimizer reset is wrong: {rec}")
+        else:
+            falls = {k: segment_fell([v for _, v in logged(base, k)]) for k in ("rgb_loss_coarse", "rgb_loss_fine")}
+            log(name, f"{method}: " + ", ".join(f"{k} {h:.5f} -> {t:.5f}" for k, (h, t, _) in falls.items())
+                + " (first quarter's mean to the last's)")
+            if not all(f for _, _, f in falls.values()):
+                raise AssertionError(f"{name}: {method}'s losses did not fall: {falls}")
+            rec["falls"] = {k: v[:2] for k, v in falls.items()}
+        m_card, m_cpu, loss_rel, terms, grad_rel = blender_step_card_vs_cpu(run, method)
+        worst = max(grad_rel, key=grad_rel.get)
+        mean, peak, color, bg = blender_eval_card_vs_cpu(run)
+        log(name, f"{method}: one step at the trained state ({BLENDER_CHECK_RAYS} rays, the draws handed in, the "
+            f"MLPs' products in float32) card "
+            f"vs CPU: loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}), "
+            "terms " + ", ".join(f"{k} {v:.2g}" for k, v in terms.items()) + f"; gradients max |card - cpu| / "
+            f"peak {grad_rel[worst]:.3g} at {worst} (limit {STEP_GRAD_REL}); one {BLENDER_EVAL_RAYS}-ray eval "
+            f"chunk under the override {color}, mean |card - cpu| " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                                                                mean.items())
+            + " (max " + ", ".join(f"{k} {v:.3g}" for k, v in peak.items()) + f"; limit {CARD_VS_CPU_MEAN_ABS} "
+            f"on rgb and accumulation), the card's rgb where the accumulation < 1e-3: {bg:.4f} on {card}")
+        if (loss_rel > STEP_LOSS_RTOL or max(terms.values()) > STEP_LOSS_RTOL or grad_rel[worst] > STEP_GRAD_REL
+                or max(mean["rgb"], mean["accumulation"]) > CARD_VS_CPU_MEAN_ABS):
+            raise AssertionError(f"{name}: card and CPU {method} steps or eval chunks disagree")
+        rec.update(loss_rel=loss_rel, terms=terms, grad_rel=grad_rel[worst], eval_mean=mean, eval_max=peak,
+                   background=color, empty_rgb=bg)
+        if method == "tensorf":
+            rec["k8"] = k8_step(name, run, card)
+        return rec
+
+    return after
+
+
+def double_backward_refused(name, card):
+    """K1's, K7's, K4's and K6's autograd functions on the card: gradients
+    taken with ``create_graph=True`` (a cotangent that carries a graph) must
+    equal a plain backward's (within 1e-5 of their peak: the backwards sum
+    with float atomics, in no fixed order), and their own backward must
+    raise (the kernels' gradients carry no graph: once differentiable).
+    Returns {kernel: largest gap / peak}."""
+    from nerfstudio_torch.ops import hash_grid as hg
+    from nerfstudio_torch.ops.gsplat import projection as pj
+    from nerfstudio_torch.ops.gsplat import rasterize as rz
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    geom = dict(num_levels=4, min_res=4, max_res=64, hash_table_size=2**12)
+    pos = torch.rand((4096, 3), generator=gen, device="cuda").requires_grad_(True)
+    table = (torch.rand((4, 64, 128), generator=gen, device="cuda") * 2 - 1).requires_grad_(True)
+    means = (torch.rand((256, 3), generator=gen, device="cuda") - 0.5) * 1.5 + torch.tensor([0.0, 0.0, 3.0],
+                                                                                             device="cuda")
+    scales = torch.full((256, 3), 0.05, device="cuda")
+    quats = torch.nn.functional.normalize(torch.randn((256, 4), generator=gen, device="cuda"), dim=-1)
+    cam = (64.0, 64.0, 32.0, 32.0, 64, 64)
+    with torch.no_grad():
+        m2, dep, con, radii, valid, _ = pj.project_gaussians(means, scales, quats, torch.eye(4), *cam)
+    colors = torch.rand((256, 3), generator=gen, device="cuda").requires_grad_(True)
+
+    def k6(c):
+        rgb, alpha, _ = rz.rasterize(m2, con, c, torch.full((256,), 0.6, device="cuda"), dep, radii, valid,
+                                     width=64, height=64)
+        return (rgb * rgb).sum() + alpha.sum()
+
+    cases = {
+        "K1": ((pos, table), lambda: 0.5 * hg.hash_encode(pos, table, block=True, **geom).square().sum()),
+        "K7": ((pos, table), lambda: 0.5 * hg.hash_encode(pos, table, **geom).square().sum()),
+        "K4": ((means.requires_grad_(True),), lambda: pj.project_gaussians(means, scales, quats, torch.eye(4),
+                                                                          *cam)[0].square().sum()),
+        "K6": ((colors,), lambda: k6(colors)),
+    }
+    out = {}
+    for k, (inputs, loss) in cases.items():
+        grads = torch.autograd.grad(loss(), inputs, create_graph=True)
+        plain = torch.autograd.grad(loss(), inputs)
+        gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(grads, plain))
+        same = gap <= 1e-5
+        try:
+            sum(g.square().sum() for g in grads).backward()
+            raised = False
+        except RuntimeError as e:
+            raised = "once_differentiable" in str(e)
+        if not (same and raised):
+            raise AssertionError(f"{name}: {k}'s double backward on the card: first order gap {gap:.3g} of the "
+                                 f"peak, second order refused {raised}")
+        out[k] = gap
+    log(name, f"a double backward through K1, K7, K4 and K6 on the card raises (once differentiable); the "
+        f"gradients taken with create_graph against a plain backward's, max gap / peak: "
+        + ", ".join(f"{k} {v:.2g}" for k, v in out.items()) + f" (limit 1e-5) on {card}")
+    return out
+
+
+def blender_methods(ph, card, disk_root, disk):
+    """Phases 61-63: a double backward through the kernels refused on the
+    card (``double_backward_refused``); tensorf (BLENDER_RUNS' steps,
+    through its first grid upsample), vanilla-nerf and mipnerf on the blender scene of phase 57
+    through ``scripts.gate``'s loop, each checked at its trained state
+    (``gate_phase`` with ``blender_after``; none launches a hand-written
+    kernel), profiled over 3 steps by class, and tensorf's K8 at its step's
+    own calls. Adds the runs to ``disk``; returns (tensorf's K8 record, the
+    double backward's record)."""
+    blender = os.path.join(disk_root, "blender")
+    double = double_backward_refused(ph(61, "double backward"), card)
+    k8 = None
+    for i, (method, steps) in enumerate(BLENDER_RUNS):
+        name = ph(61 + i, f"{method} on blender, {steps} steps")
+        rec = disk[f"gate_{method}"] = gate_phase(name, method, blender, disk_root, card, (), steps=steps,
+                                                  after=blender_after(name, method, card))
+        if rec["scene"] != "blender":
+            raise AssertionError(f"{name}: the gate ran {method} on {rec['scene']}")
+        idle = rec["idle"]
+        if method == "tensorf":
+            k8 = rec["after"]["k8"]
+            k8["busy_ms"] = None if idle is None else idle["busy_ms"]
+            k8["share"] = None if idle is None else k8["device_ms"] / idle["busy_ms"]
+            log(name, "K8's share of the profiled step's device-busy time: " + (
+                "not measured" if idle is None else f"{k8['share']:.1%} ({k8['device_ms']:.4f} of "
+                f"{idle['busy_ms']:.2f} ms)") + f" on {card}")
+        if idle is not None:
+            cls = idle["classes"]
+            log(name, f"{method}: {rec['train_rays_per_sec']:,.0f} rays/s over the run (host clock); per profiled "
+                f"step {idle['busy_ms']:.2f} ms device-busy, idle {idle['idle']:.1%}; GEMMs "
+                f"{cls.get('GEMMs', 0.0):.3f} ms, elementwise {cls.get('elementwise', 0.0):.3f}, "
+                f"index/scatter/gather (K8's gathers and scatters among them) {cls.get('index/scatter/gather', 0.0):.3f}"
+                f" on {card}")
+    return k8, double
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -3780,7 +4134,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 60
+    n_phases = 63
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -4433,6 +4787,8 @@ def main() -> int:
         card_vs_cpu = big_methods_and_neus(ph, card, scene, disk_root, disk)
         # 58-60. depth-nerfacto, semantic-nerfw and phototourism
         nerfacto_family(ph, card, scene, disk_root, disk, jobs)
+        # 61-63. tensorf, vanilla-nerf and mipnerf on blender
+        k8_tensorf, double_backward = blender_methods(ph, card, disk_root, disk)
     finally:
         for proc, _, _ in jobs.values():
             proc.kill()
@@ -4635,6 +4991,14 @@ def main() -> int:
     kernels[0]["family"] = {method: dict(disk[f"gate_{method}"]["after"],
                                          hash_share=disk[f"gate_{method}"].get("hash_share"))
                             for method, _, _ in FAMILY}
+    # the Blender-protocol methods (phases 61-63), none of which launches a
+    # hand-written kernel: their checks at the trained state, and K8 (plain
+    # PyTorch, no kernel of its own) at tensorf's step, beside the bilateral
+    # grid's card-vs-CPU record of phase 48
+    kernels[0]["blender_methods"] = {method: dict(disk[f"gate_{method}"]["after"], idle=disk[f"gate_{method}"]["idle"])
+                                     for method, _ in BLENDER_RUNS}
+    kernels[0]["double_backward_gap"] = double_backward  # K1, K7, K4, K6: refused, first order vs plain
+    kernels[-1]["k8_tensorf_step"] = k8_tensorf
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -27,5 +27,5 @@ class MachineConfig:
 
     def device(self) -> torch.device:
         if self.num_devices not in (None, 1) or self.num_machines != 1:
-            raise NotImplementedError("training on more than one device is not ported (ROADMAP queue 1 item 15)")
+            raise NotImplementedError("training on more than one device is not ported (ROADMAP queue 1 item 17)")
         return resolve_device(self.device_type)

@@ -15,16 +15,27 @@ from typing import Any, Dict, Optional
 from nerfstudio_torch.configs.base_config import MachineConfig
 from nerfstudio_torch.data.datamanagers import DataManagerConfig
 from nerfstudio_torch.data.dataparsers.base_dataparser import DataParserConfig
+from nerfstudio_torch.data.dataparsers.blender_dataparser import BlenderDataParserConfig
 from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
 from nerfstudio_torch.data.dataparsers.registry import UnportedDataParserConfig
-from nerfstudio_torch.engine.optimizers import nerfacto_optimizers, neus_facto_optimizers, neus_optimizers
+from nerfstudio_torch.engine.optimizers import (
+    AdamOptimizerConfig,
+    RAdamOptimizerConfig,
+    nerfacto_optimizers,
+    neus_facto_optimizers,
+    neus_optimizers,
+)
+from nerfstudio_torch.engine.schedulers import ExponentialDecaySchedulerConfig
 from nerfstudio_torch.engine.trainer import TrainerConfig
 from nerfstudio_torch.models.base_model import ModelConfig
 from nerfstudio_torch.models.depth_nerfacto import DepthNerfactoModelConfig
+from nerfstudio_torch.models.mipnerf import MipNerfModelConfig
 from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
 from nerfstudio_torch.models.neus import NeuSFactoModelConfig, NeuSModelConfig
 from nerfstudio_torch.models.semantic_nerfw import SemanticNerfWModelConfig
 from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
+from nerfstudio_torch.models.tensorf import TensoRFModelConfig
+from nerfstudio_torch.models.vanilla_nerf import VanillaModelConfig
 
 
 @dataclasses.dataclass
@@ -60,6 +71,9 @@ descriptions = {
     "splatfacto-mcmc": "3DGS with MCMC densification.",
     "neus": "NeuS SDF surface reconstruction.",
     "neus-facto": "NeuS with proposal sampling.",
+    "vanilla-nerf": "Original NeRF (coarse/fine MLPs).",
+    "mipnerf": "Mip-NeRF with integrated positional encoding.",
+    "tensorf": "TensoRF vector-matrix decomposition.",
 }
 
 method_configs["nerfacto"] = MethodConfig(
@@ -204,11 +218,47 @@ method_configs["neus-facto"] = MethodConfig(
     optimizers=neus_facto_optimizers(),
 )
 
+# the Blender-protocol methods (reference :237-255, 277-291, 313-325): RAdam
+# at a constant rate for the NeRFs (vanilla-nerf's temporal_distortion group
+# has no parameters without D-NeRF's distortion), Adam decaying 1e-3 -> 1e-4
+# over 30,000 steps for TensoRF
+method_configs["vanilla-nerf"] = MethodConfig(
+    method_name="vanilla-nerf",
+    trainer=TrainerConfig(max_num_iterations=16500, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=1024),
+    dataparser=BlenderDataParserConfig(),
+    model=VanillaModelConfig(),
+    optimizers={
+        "field": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-8), "scheduler": None},
+        "temporal_distortion": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-8), "scheduler": None},
+    },
+)
+
+method_configs["mipnerf"] = MethodConfig(
+    method_name="mipnerf",
+    trainer=TrainerConfig(max_num_iterations=1000000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=1024),
+    dataparser=BlenderDataParserConfig(),
+    model=MipNerfModelConfig(num_coarse_samples=128, num_importance_samples=128, eval_num_rays_per_chunk=8192),
+    optimizers={"field": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-8), "scheduler": None}},
+)
+
+method_configs["tensorf"] = MethodConfig(
+    method_name="tensorf",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
+    dataparser=BlenderDataParserConfig(),
+    model=TensoRFModelConfig(),
+    optimizers={
+        "field": {
+            "optimizer": AdamOptimizerConfig(lr=0.001),
+            "scheduler": ExponentialDecaySchedulerConfig(lr_final=0.0001, max_steps=30000),
+        },
+    },
+)
+
 # the reference's other methods, by the ROADMAP queue 1 item that ports them
-NOT_PORTED = {
-    "instant-ngp": 9, "instant-ngp-bounded": 9, "vanilla-nerf": 10, "mipnerf": 10, "dnerf": 10, "tensorf": 11,
-    "generfacto": 12,
-}
+NOT_PORTED = {"instant-ngp": 11, "instant-ngp-bounded": 11, "dnerf": 15, "generfacto": 14}
 
 
 def get_method(name: str) -> MethodConfig:

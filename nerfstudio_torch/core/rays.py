@@ -11,7 +11,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from nerfstudio_torch.utils.math import clip
+from nerfstudio_torch.utils.math import clip, conical_frustum_to_gaussian
 
 
 @dataclasses.dataclass
@@ -27,6 +27,12 @@ class Frustums:
     def get_positions(self) -> torch.Tensor:
         """Midpoint positions."""
         return self.origins + self.directions * (self.starts + self.ends) / 2
+
+    def get_gaussian_blob(self):
+        """mip-NeRF's Gaussian of each frustum (reference rays.py:43-55): a
+        cone of radius sqrt(pixel_area) / sqrt(pi) per unit distance."""
+        return conical_frustum_to_gaussian(self.origins, self.directions, self.starts, self.ends,
+                                           torch.sqrt(self.pixel_area) / 1.7724538509055159)
 
 
 @dataclasses.dataclass

@@ -25,7 +25,7 @@ NOT_PORTED = ("colmap", "instant-ngp-data", "minimal-parser", "dnerf-data", "pho
 
 
 def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"dataparser {name!r} is not ported yet (ROADMAP queue 1 item 13); pass "
+    return NotImplementedError(f"dataparser {name!r} is not ported yet (ROADMAP queue 1 item 15); pass "
                                "--dataparser nerfstudio-data (or blender-data) to read the capture with a ported one")
 
 

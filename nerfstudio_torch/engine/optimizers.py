@@ -1,26 +1,31 @@
-"""Per-group Adam (counterpart of ``nerfstudio_tpu/engine/optimizers.py``),
-and splatfacto's per-array Adam (``SplatAdam``, counterpart of
+"""Per-group Adam and RAdam (counterpart of
+``nerfstudio_tpu/engine/optimizers.py``), and splatfacto's per-array Adam
+(``SplatAdam``, counterpart of
 ``nerfstudio_tpu/pipelines/splat_pipeline.py:build_splat_optimizers``).
 
 The reference builds one optax ``multi_transform`` whose labels come from
 the top-level modules of the param tree; here each group is one
-``torch.optim.Adam`` over the parameters of the top-level modules whose
-names start with the group's name. Two properties of optax are kept:
+``torch.optim.Adam`` (or ``RAdam``, optax's rectified Adam) over the
+parameters of the top-level modules whose names start with the group's
+name. Three properties of optax are kept:
 
 * a parameter with no gradient (``.grad is None``, e.g. a frozen proposal
   net) is stepped on a zero gradient, so its moments decay and its Adam
   step count stays the group's;
 * the learning rate follows the optimizer's own step count (optax's
-  ``scale_by_schedule``), not the trainer's step.
+  ``scale_by_schedule``), not the trainer's step; a group without a
+  schedule keeps its rate;
+* ``reset`` is a fresh ``init``: every moment and every count back to 0
+  (TensoRF's upsampling re-initialises its optimizer so).
 
-Gradient clipping, weight decay, RAdam, gradient accumulation and groups
-without a schedule are not ported."""
+Gradient clipping, weight decay and gradient accumulation are not ported."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from nerfstudio_torch.engine.schedulers import (
@@ -37,6 +42,64 @@ class AdamOptimizerConfig:
     lr: float = 5e-4
     eps: float = 1e-8
     betas: tuple = (0.9, 0.999)
+
+
+@dataclasses.dataclass
+class RAdamOptimizerConfig:
+    """(reference optimizers.py:58-67), without clipping."""
+
+    lr: float = 5e-4
+    eps: float = 1e-8
+    betas: tuple = (0.9, 0.999)
+
+
+class RAdam(torch.optim.Optimizer):
+    """``optax.radam`` (``scale_by_radam`` then the learning rate), not
+    ``torch.optim.RAdam``, which places ``eps`` and the rectification
+    otherwise. Per parameter, at count t after the increment: the moments
+    m = (1 - b1) g + b1 m and v = (1 - b2) g^2 + b2 v, their bias-corrected
+    m^ and v^, and rho_t = rho_inf - 2 t b2^t / (1 - b2^t) with rho_inf =
+    2 / (1 - b2) - 1; the update is r m^ / (sqrt(v^) + eps), r the
+    rectification, where rho_t >= 5 (optax's threshold), else m^ alone;
+    then p += -lr * update. The scalars are float32, computed on the host.
+    Every parameter has a gradient (``PerGroupAdam.step`` fills zeros)."""
+
+    THRESHOLD = 5.0
+
+    def __init__(self, params, lr: float = 5e-4, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
+
+    @staticmethod
+    def scalars(t: int, b1: float, b2: float) -> Tuple[float, float, Optional[float]]:
+        """(1 - b1^t, 1 - b2^t, r or None below the threshold), in float32."""
+        f32 = np.float32
+        b2t = f32(b2) ** f32(t)
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        ro = f32(ro_inf) - f32(2 * t) * b2t / (f32(1) - b2t)
+        r = None
+        if ro >= RAdam.THRESHOLD:
+            r = float(np.sqrt((ro - f32(4)) * (ro - f32(2)) * f32(ro_inf)
+                              / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)))
+        return float(f32(1) - f32(b1) ** f32(t)), float(f32(1) - b2t), r
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st.update(step=0, exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+                st["step"] += 1
+                m, v = st["exp_avg"], st["exp_avg_sq"]
+                m.copy_((1 - b1) * g + b1 * m)
+                v.copy_((1 - b2) * (g * g) + b2 * v)
+                bc1, bc2, r = self.scalars(st["step"], b1, b2)
+                update = m / bc1
+                if r is not None:
+                    update = r * update / (torch.sqrt(v / bc2) + group["eps"])
+                p.add_(update * -group["lr"])
 
 
 def nerfacto_optimizers(max_steps: int = 30000) -> Dict[str, Dict[str, Any]]:
@@ -101,20 +164,31 @@ def group_parameters(model: torch.nn.Module, group_names) -> Dict[str, List[torc
 
 
 class PerGroupAdam:
-    """One Adam per group, stepped together (reference ``build_optimizers``)."""
+    """One Adam (or RAdam) per group, stepped together (reference
+    ``build_optimizers``)."""
 
     def __init__(self, optimizer_configs: Dict[str, Dict[str, Any]], model: torch.nn.Module):
-        """``optimizer_configs``: {group: {"optimizer": AdamOptimizerConfig,
-        "scheduler": ExponentialDecaySchedulerConfig}}."""
-        self.optimizers: Dict[str, torch.optim.Adam] = {}
+        """``optimizer_configs``: {group: {"optimizer": AdamOptimizerConfig or
+        RAdamOptimizerConfig, "scheduler": a scheduler config or None (a
+        constant rate)}}. A group without parameters (vanilla-nerf's
+        ``temporal_distortion`` while the distortion is off) steps nothing."""
+        self.optimizers: Dict[str, torch.optim.Optimizer] = {}
         self.schedules = {}
         for group, params in group_parameters(model, optimizer_configs).items():
             if not params:  # e.g. the camera optimizer with mode "off"
                 continue
-            cfg: AdamOptimizerConfig = optimizer_configs[group]["optimizer"]
-            self.schedules[group] = optimizer_configs[group]["scheduler"].build(cfg.lr)
-            self.optimizers[group] = torch.optim.Adam(params, lr=cfg.lr, betas=tuple(cfg.betas), eps=cfg.eps)
+            cfg = optimizer_configs[group]["optimizer"]
+            sched = optimizer_configs[group].get("scheduler")
+            self.schedules[group] = (lambda count, lr=cfg.lr: lr) if sched is None else sched.build(cfg.lr)
+            kind = RAdam if isinstance(cfg, RAdamOptimizerConfig) else torch.optim.Adam
+            self.optimizers[group] = kind(params, lr=cfg.lr, betas=tuple(cfg.betas), eps=cfg.eps)
         self.count = 0  # updates applied so far, the schedules' index
+
+    def reset(self) -> None:
+        """Every moment and count back to 0, as a fresh optax ``init``."""
+        for opt in self.optimizers.values():
+            opt.state.clear()
+        self.count = 0
 
     def learning_rates(self) -> Dict[str, float]:
         """The rates the next ``step`` applies."""

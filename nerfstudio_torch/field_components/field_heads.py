@@ -1,7 +1,7 @@
 """Field output names and heads (counterpart of
-``nerfstudio_tpu/field_components/field_heads.py``). Of the head modules
-the semantic head is ported (the other heads belong to fields the port
-does not have yet)."""
+``nerfstudio_tpu/field_components/field_heads.py``): the density and RGB
+heads of the NeRF field and nerfacto's semantic head, each one linear
+layer in bfloat16 products with float32 parameters and output."""
 
 from __future__ import annotations
 
@@ -33,15 +33,17 @@ class FieldHeadNames(enum.Enum):
     GRADIENT = "gradient"
 
 
-class SemanticFieldHead(nn.Module):
-    """Per-class logits, a linear layer with no activation (reference
-    field_heads.py:29-42, 87-92): float32 parameters, the product and the
-    bias in bfloat16 as flax's Dense computes them at the reference's
-    ``dtype``, the output float32."""
+class FieldHead(nn.Module):
+    """A linear layer and an activation (reference field_heads.py:29-42):
+    float32 parameters, the product and the bias in bfloat16 as flax's Dense
+    computes them at the reference's ``dtype``, the output float32 before
+    the activation."""
 
-    def __init__(self, in_dim: int, num_classes: int, device=None):
+    def __init__(self, in_dim: int, out_dim: int, activation=None, device=None):
         super().__init__()
-        self.layer = nn.Linear(in_dim, num_classes, device=resolve_device(device))
+        self.layer = nn.Linear(in_dim, out_dim, device=resolve_device(device))
+        self.activation = activation
+        self.dtype = torch.bfloat16
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -52,5 +54,32 @@ class SemanticFieldHead(nn.Module):
             self.layer.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = Fn.linear(x.to(torch.bfloat16), self.layer.weight.to(torch.bfloat16)) + self.layer.bias.to(torch.bfloat16)
-        return h.to(torch.float32)
+        h = Fn.linear(x.to(self.dtype), self.layer.weight.to(self.dtype)) + self.layer.bias.to(self.dtype)
+        h = h.to(torch.float32)
+        return h if self.activation is None else self.activation(h)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class DensityFieldHead(FieldHead):
+    """Density, softplus of one output (reference field_heads.py:45-48)."""
+
+    def __init__(self, in_dim: int, device=None):
+        super().__init__(in_dim, 1, softplus, device)
+
+
+class RGBFieldHead(FieldHead):
+    """Colour, sigmoid of three outputs (reference field_heads.py:51-54)."""
+
+    def __init__(self, in_dim: int, device=None):
+        super().__init__(in_dim, 3, torch.sigmoid, device)
+
+
+class SemanticFieldHead(FieldHead):
+    """Per-class logits, no activation (reference field_heads.py:29-42, 87-92)."""
+
+    def __init__(self, in_dim: int, num_classes: int, device=None):
+        super().__init__(in_dim, num_classes, None, device)

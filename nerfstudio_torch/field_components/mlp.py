@@ -29,8 +29,11 @@ _ACTIVATIONS = {
 
 
 class MLP(nn.Module):
-    """Multi-layer perceptron (reference mlp.py:40-94). Skip connections are
-    not ported."""
+    """Multi-layer perceptron (reference mlp.py:40-94). At each hidden
+    layer ``i`` of ``skip_connections`` the layer reads ``cat([h, x0])``,
+    ``x0`` the input in the compute dtype (bfloat16); the output layer
+    takes none. ``dtype`` float32 runs every product in float32 (the step
+    tests hold the bias gradients so)."""
 
     def __init__(
         self,
@@ -42,10 +45,13 @@ class MLP(nn.Module):
         activation: str = "relu",
         out_activation: Optional[str] = None,
         device=None,
+        dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
-        if skip_connections:
-            raise NotImplementedError("MLP skip connections are not ported")
+        self.skips = frozenset(skip_connections or ())
+        if 0 in self.skips:
+            raise ValueError("a skip connection at layer 0 is nonsensical")
+        self.dtype = dtype
         self.in_dim = in_dim
         self.num_layers = num_layers
         self.layer_width = layer_width
@@ -53,10 +59,9 @@ class MLP(nn.Module):
         self.act = _ACTIVATIONS[activation]
         self.out_act = _ACTIVATIONS[out_activation]
         widths = [in_dim] + [layer_width] * (num_layers - 1) + [self.get_out_dim()]
+        ins = [w + (in_dim if i in self.skips and i < num_layers - 1 else 0) for i, w in enumerate(widths[:-1])]
         device = resolve_device(device)
-        self.layers = nn.ModuleList(
-            nn.Linear(a, b, device=device) for a, b in zip(widths[:-1], widths[1:])
-        )
+        self.layers = nn.ModuleList(nn.Linear(a, b, device=device) for a, b in zip(ins, widths[1:]))
         self.reset_parameters()
 
     def get_out_dim(self) -> int:
@@ -72,10 +77,13 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
-        h = x.to(torch.bfloat16)
+        h = x0 = x.to(self.dtype)
+        last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
-            h = Fn.linear(h, layer.weight.to(torch.bfloat16)) + layer.bias.to(torch.bfloat16)
-            if i < len(self.layers) - 1:
+            if i in self.skips and i < last:
+                h = torch.cat([h, x0], dim=-1)
+            h = Fn.linear(h, layer.weight.to(self.dtype)) + layer.bias.to(self.dtype)
+            if i < last:
                 h = self.act(h)
         h = h.to(torch.float32 if in_dtype == torch.float32 else in_dtype)
         return self.out_act(h)

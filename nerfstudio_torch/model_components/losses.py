@@ -1,12 +1,13 @@
 """Losses (counterpart of ``nerfstudio_tpu/model_components/losses.py``):
-the rgb MSE, mip-NeRF 360's interlevel and distortion losses, and the
-depth supervision of depth-nerfacto (DS-NeRF's likelihood and URF's
+the rgb MSE, mip-NeRF 360's interlevel and distortion losses, TensoRF's
+total variation of its feature planes (``tv_loss``), and the depth
+supervision of depth-nerfacto (DS-NeRF's likelihood and URF's
 line-of-sight loss, ``depth_loss``). The reference's comparison-count
 searchsorted maps to ``torch.searchsorted`` with the same side, and its
 one-hot lane select to ``torch.gather``. Not ported: the orientation and
 predicted-normal losses (they need the density-gradient normals, ROADMAP
-queue 1 item 8), and ``masked_l1``, the MonoSDF normal loss, the scale-
-and shift-invariant depth loss, the TV loss, the depth ranking loss and
+queue 1 item 12), and ``masked_l1``, the MonoSDF normal loss, the scale-
+and shift-invariant depth loss, the depth ranking loss and
 ``scale_gradients_by_distance_squared``, which no ported method calls."""
 
 from __future__ import annotations
@@ -126,3 +127,11 @@ def depth_loss(weights: torch.Tensor, ray_samples: RaySamples, termination_depth
     if depth_loss_type == "urf":
         return urf_depth_loss(weights, termination_depth, predicted_depth, steps, sigma)
     raise ValueError(depth_loss_type)
+
+
+def tv_loss(grids: torch.Tensor) -> torch.Tensor:
+    """Total variation of feature grids (..., C, H, W): the mean squared
+    difference of neighbours along H plus along W (reference :236-240)."""
+    h_tv = torch.mean((grids[..., 1:, :] - grids[..., :-1, :]) ** 2)
+    w_tv = torch.mean((grids[..., :, 1:] - grids[..., :, :-1]) ** 2)
+    return h_tv + w_tv

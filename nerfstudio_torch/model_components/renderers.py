@@ -1,34 +1,68 @@
 """Renderers (counterpart of ``nerfstudio_tpu/model_components/renderers.py``):
-composite per-sample (..., num_samples, C) quantities along rays."""
+composite per-sample (..., num_samples, C) quantities along rays, and the
+background override the eval renders run under (``BACKGROUND_COLOR_OVERRIDE``,
+set by ``background_color_override_context``)."""
 
 from __future__ import annotations
 
-from typing import Literal, Optional
+import contextlib
+from typing import Literal, Optional, Union
 
 import torch
 
 _COLORS = {"black": (0.0, 0.0, 0.0), "white": (1.0, 1.0, 1.0)}
 
+BackgroundColor = Union[Literal["last_sample", "black", "white"], torch.Tensor]
+
+# the colour every render composites over while set (reference :24-41)
+BACKGROUND_COLOR_OVERRIDE: Optional[torch.Tensor] = None
+
+
+@contextlib.contextmanager
+def background_color_override_context(color: torch.Tensor):
+    """Render over ``color`` (3,) inside the block, whatever the model's
+    background (reference :33-41); the previous override comes back after."""
+    global BACKGROUND_COLOR_OVERRIDE
+    old = BACKGROUND_COLOR_OVERRIDE
+    try:
+        BACKGROUND_COLOR_OVERRIDE = color
+        yield
+    finally:
+        BACKGROUND_COLOR_OVERRIDE = old
+
+
+def get_background_color(background_color: BackgroundColor, shape, device) -> torch.Tensor:
+    """The background of ``shape`` (..., 3) (reference :44-58): the override
+    where one is set, else a named colour or an RGB triple. The random
+    background comes with instant-ngp (ROADMAP queue 1 item 11)."""
+    if BACKGROUND_COLOR_OVERRIDE is not None:
+        return BACKGROUND_COLOR_OVERRIDE.to(device, torch.float32).expand(shape)
+    if isinstance(background_color, str):
+        if background_color in _COLORS:
+            return torch.tensor(_COLORS[background_color], device=device).expand(shape)
+        if background_color == "random":
+            raise NotImplementedError("the random background is not ported yet (ROADMAP queue 1 item 11)")
+        raise ValueError(f"background colour {background_color!r}")
+    return torch.as_tensor(background_color, dtype=torch.float32, device=device).expand(shape)
+
 
 def render_rgb(
     rgb: torch.Tensor,
     weights: torch.Tensor,
-    background_color: Literal["last_sample", "black", "white"] = "last_sample",
+    background_color: BackgroundColor = "last_sample",
     return_background: bool = False,
 ):
     """Weighted-sum compositing + background fill (reference :61-85).
 
     rgb: (..., S, 3); weights: (..., S, 1) -> (..., 3), and the background
-    used with ``return_background``. The random background and the
-    override context are not ported."""
+    used (..., 3) with ``return_background``. The override replaces every
+    background, ``last_sample`` too."""
     comp = torch.sum(weights * rgb, dim=-2)
     accumulation = torch.sum(weights, dim=-2)
-    if background_color == "last_sample":
+    if isinstance(background_color, str) and background_color == "last_sample" and BACKGROUND_COLOR_OVERRIDE is None:
         bg = rgb[..., -1, :]
-    elif background_color in _COLORS:
-        bg = torch.tensor(_COLORS[background_color], device=comp.device)
     else:
-        raise NotImplementedError(f"background {background_color!r} is not ported")
+        bg = get_background_color(background_color, comp.shape, comp.device)
     out = comp + bg * (1.0 - accumulation)
     if return_background:
         return out, bg

@@ -1,6 +1,6 @@
 """Scene colliders (counterpart of
-``nerfstudio_tpu/model_components/scene_colliders.py``): ``NearFarCollider``
-and ``SphereCollider``."""
+``nerfstudio_tpu/model_components/scene_colliders.py``): ``AABBBoxCollider``,
+``NearFarCollider`` and ``SphereCollider``."""
 
 from __future__ import annotations
 
@@ -10,6 +10,29 @@ from typing import Tuple
 import torch
 
 from nerfstudio_torch.core.rays import RayBundle
+
+
+@dataclasses.dataclass(frozen=True)
+class AABBBoxCollider:
+    """Slab test against the scene box (reference scene_colliders.py:17-37):
+    a direction component under 1e-10 in magnitude is taken as 1e-10; nears
+    at least ``near_plane`` in training (0 at eval), fars at least nears +
+    1e-6, so a ray that misses the box gets an empty interval past it."""
+
+    aabb: Tuple[Tuple[float, float, float], Tuple[float, float, float]]
+    near_plane: float = 0.0
+
+    def __call__(self, ray_bundle: RayBundle, training: bool = True) -> RayBundle:
+        aabb = torch.tensor(self.aabb, dtype=torch.float32, device=ray_bundle.origins.device)
+        d, o = ray_bundle.directions, ray_bundle.origins
+        inv_d = 1.0 / torch.where(torch.abs(d) < 1e-10, torch.full_like(d, 1e-10), d)
+        t_min = (aabb[0] - o) * inv_d
+        t_max = (aabb[1] - o) * inv_d
+        nears = torch.amax(torch.minimum(t_min, t_max), dim=-1, keepdim=True)
+        fars = torch.amin(torch.maximum(t_min, t_max), dim=-1, keepdim=True)
+        nears = torch.clamp_min(nears, self.near_plane if training else 0.0)
+        fars = torch.maximum(fars, nears + 1e-6)
+        return dataclasses.replace(ray_bundle, nears=nears, fars=fars)
 
 
 @dataclasses.dataclass(frozen=True)

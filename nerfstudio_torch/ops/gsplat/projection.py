@@ -231,7 +231,8 @@ def _project_bwd_kernel(means, scales, quats, cam_args, d_means2d, d_depths, d_c
 
 class _ProjectGaussians(torch.autograd.Function):
     """K4 forward and backward; the twins on CPU tensors. The backward
-    computes d(viewmat) only when autograd asks for it."""
+    computes d(viewmat) only when autograd asks for it; it is once
+    differentiable (the kernel's gradients carry no graph)."""
 
     @staticmethod
     def forward(ctx, means, scales, quats, viewmat, cam_args):
@@ -248,6 +249,7 @@ class _ProjectGaussians(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, d_means2d, d_depths, d_conics, _d_radii, _d_valid, d_comp):
         means, scales, quats, viewmat = ctx.saved_tensors
         n = means.shape[0]

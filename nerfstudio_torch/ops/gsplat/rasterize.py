@@ -503,7 +503,8 @@ def _blend_bwd_kernel(means2d, conics, ch, opac, bins: TileBins, T, last, g_ch):
 
 
 class _BlendSaturating(torch.autograd.Function):
-    """K6 forward and backward; the twins on CPU tensors."""
+    """K6 forward and backward; the twins on CPU tensors. The backward is
+    once differentiable (the kernel's gradients carry no graph)."""
 
     @staticmethod
     def forward(ctx, means2d, conics, ch, opac, bins, width, height):
@@ -517,6 +518,7 @@ class _BlendSaturating(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g_ch):
         if g_ch.device.type == "cuda":
             means2d, conics, ch, opac, T, last = ctx.saved_tensors

@@ -533,7 +533,10 @@ def _block_bwd_kernel(
 
 class _BlockEncode(torch.autograd.Function):
     """K1 forward and backward. ``scales`` is the per-level factor on the
-    table gradient (0 on levels outside ``bwd_levels``)."""
+    table gradient (0 on levels outside ``bwd_levels``). The backward is
+    once differentiable: the kernel's gradients carry no graph, so a
+    ``create_graph=True`` backward gives gradients whose own backward
+    raises, on the card and on the CPU alike."""
 
     @staticmethod
     def forward(ctx, pos, table, scales, geom):
@@ -544,6 +547,7 @@ class _BlockEncode(torch.autograd.Function):
         return _block_stochastic_twin(pos, table, **geom)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         pos, table = ctx.saved_tensors
         need_pos, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
@@ -714,7 +718,7 @@ def _flat_bwd_kernel(
 
 
 class _FlatEncode(torch.autograd.Function):
-    """K7 forward and backward."""
+    """K7 forward and backward, once differentiable as K1's."""
 
     @staticmethod
     def forward(ctx, pos, table, geom):
@@ -725,6 +729,7 @@ class _FlatEncode(torch.autograd.Function):
         return _flat_twin(pos, table, **geom)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         pos, table = ctx.saved_tensors
         need_pos, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]

@@ -7,11 +7,12 @@ rays, runs the model's training forward, the metrics and the losses, then
 the backward and the optimizer step. Nothing in it reads a device value on
 the host: ``loss.item()`` and the like are the caller's. The eval side
 renders eval images in chunks (``models.base_model.render_camera``) and
-reports PSNR, SSIM and render speed. The reference's multi-step scan
-dispatch (``build_train_step_scan``), the per-loss coefficients (every
-caller keeps the default 1), the viewer's preview renderer, LPIPS and the
-eval background override (a dataparser ``alpha_color``, ROADMAP queue 1
-item 8) are not ported."""
+reports PSNR, SSIM and render speed; where the eval dataset's parser
+blends RGBA onto an ``alpha_color`` the eval renders composite onto that
+colour too (the reference's eval background override). The reference's
+multi-step scan dispatch (``build_train_step_scan``), the per-loss
+coefficients (every caller keeps the default 1), the viewer's preview
+renderer and LPIPS are not ported."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from nerfstudio_torch.data.datamanagers import DeviceCacheDataManager
+from nerfstudio_torch.model_components.renderers import background_color_override_context
 from nerfstudio_torch.model_components.ray_generators import generate_rays_from_indices
 from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
 from nerfstudio_torch.models.base_model import Model, render_camera
@@ -105,25 +107,36 @@ class VanillaPipeline:
         finally:
             self.model.train(was_training)
 
-    def _check_eval_background(self) -> None:
-        dpo = getattr(self.datamanager.eval_dataset, "_dataparser_outputs", None)
-        if getattr(dpo, "alpha_color", None) is not None:
-            raise NotImplementedError("eval renders over a dataparser's alpha_color (the reference's background "
-                                      "override) are not ported (ROADMAP queue 1 item 8)")
+    def _eval_background(self) -> Optional[torch.Tensor]:
+        """The eval renders' background (reference :248-261): the eval
+        dataset's ``alpha_color``, onto which its parser blends RGBA ground
+        truth at load, on the device; None where it has none."""
+        color = getattr(getattr(self.datamanager.eval_dataset, "_dataparser_outputs", None), "alpha_color", None)
+        return None if color is None else torch.as_tensor(color, dtype=torch.float32).to(self.device)
+
+    @contextlib.contextmanager
+    def _eval_context(self):
+        """The model in eval mode, under the eval background's override
+        where there is one (reference ``build_eval_chunk``, :263-279)."""
+        color = self._eval_background()
+        with self._eval_model() as model:
+            if color is None:
+                yield model
+            else:
+                with background_color_override_context(color):
+                    yield model
 
     def eval_rays(self, state: TrainState, ray_bundle) -> Dict[str, torch.Tensor]:
         """The eval forward of a batch of rays (reference's eval chunk)."""
-        self._check_eval_background()
         kwargs = {} if state.aux is None else {"model_aux": state.aux}
-        with self._eval_model() as model, torch.no_grad():
+        with self._eval_context() as model, torch.no_grad():
             return model(ray_bundle, **kwargs)
 
     def render_eval_camera(self, state: TrainState, camera_idx: int, chunk_size: Optional[int] = None):
         """One eval camera's image outputs (H, W, C), rendered in chunks of
         ``chunk_size`` rays (None: the model's ``eval_num_rays_per_chunk``)."""
-        self._check_eval_background()
         chunk = chunk_size or self.model.config.eval_num_rays_per_chunk
-        with self._eval_model() as model:
+        with self._eval_context() as model:
             return render_camera(model, None, self.datamanager.eval_cameras, camera_idx, chunk, aux=state.aux)
 
     def get_eval_image_metrics_and_images(self, state: TrainState, camera_idx: int,

@@ -3,7 +3,8 @@
 the method's datasets (images, or with depths or class labels), the
 datamanager, the model at the scene's aabb (and the dataset's classes) with its
 parameters drawn from ``config.seed``, the per-group Adam, the auxiliary
-state and hook, on the device ``config.machine`` names."""
+state and hook (nerfacto's occupancy update, TensoRF's grid upsampling), on
+the device ``config.machine`` names."""
 
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def build_datasets(config):
     """(train dataset, eval dataset, the train split's parser outputs)
     (reference :25-52), of the class ``config.dataset`` names."""
     if config.dataset == "sdf":
-        raise NotImplementedError("the SDF dataset (sdfstudio captures) is not ported yet (ROADMAP queue 1 item 13)")
+        raise NotImplementedError("the SDF dataset (sdfstudio captures) is not ported yet (ROADMAP queue 1 item 15)")
     cls = DATASETS[config.dataset]
     if config.data is not None:
         config.dataparser.data = Path(config.data)
@@ -69,6 +70,8 @@ def build_pipeline(config) -> Tuple[VanillaPipeline, TrainState, object]:
     model.reset_parameters(torch.Generator(device=device).manual_seed(config.seed))
     pipeline = VanillaPipeline(datamanager, model)
     aux = None
+    if hasattr(model_cls, "make_upsample_hook"):
+        pipeline.aux_update_fn = model_cls.make_upsample_hook(model, config.model)
     if hasattr(model_cls, "init_aux"):
         aux = model_cls.init_aux(model, config.model, device)
         pipeline.aux_update_fn = model_cls.make_aux_update_fn(model, config.model)

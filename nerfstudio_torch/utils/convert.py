@@ -7,7 +7,8 @@ kernels too, beside their ``scale``); hash tables keep their ``(L, S,
 128)`` layout, block and flat alike; list members such as ``layers_0``,
 ``glin_0`` or ``proposal_networks_1`` become ``layers.0``, ``glin.0``,
 ``proposal_networks.1``; a field head's one ``Dense_0`` (the semantic
-head's) becomes its ``layer``; ``LearnedVariance``'s scalar stays a
+head's, the NeRF field's density and colour heads') becomes its ``layer``;
+TensoRF's ``plane_coef`` and ``line_coef`` keep their layouts; ``LearnedVariance``'s scalar stays a
 scalar. Every leaf must land on exactly one parameter: anything left
 over on either side raises. ``splat_state_from_jax`` carries a splatfacto
 train state whole: gaussians, densification state and Adam moments.
@@ -45,13 +46,13 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     parts = []
     for m in modules:
         match = _LIST_MEMBER.fullmatch(m)
-        if m == "Dense_0" and parts and parts[-1].startswith("field_head_"):
+        if m == "Dense_0" and parts and parts[-1].startswith(("field_head_", "field_output_")):
             parts.append("layer")  # FieldHead's compact Dense
         else:
             parts += [match[1], match[2]] if match else [m]
     if leaf == "kernel":
         return ".".join(parts + ["weight"]), True
-    if leaf in ("bias", "hash_table", "pose_adjustment"):
+    if leaf in ("bias", "hash_table", "pose_adjustment", "plane_coef", "line_coef"):
         return ".".join(parts + [leaf]), False
     if (leaf == "scale" and modules and modules[-1].startswith("glin_")) or (
         leaf == "variance" and modules and modules[-1] == "deviation_network"

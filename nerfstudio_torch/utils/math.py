@@ -1,13 +1,74 @@
 """Math helpers (counterpart of the matching functions of
-``nerfstudio_tpu/utils/math.py``): splatfacto's init, and ``clip`` with
-``jnp.clip``'s gradient."""
+``nerfstudio_tpu/utils/math.py``): mip-NeRF's conical-frustum Gaussians and
+``expected_sin``, the ray/AABB slab test, splatfacto's init, and ``clip``
+with ``jnp.clip``'s gradient."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass
+class Gaussians:
+    """Mean (..., 3) and covariance (..., 3, 3) (reference :20-27)."""
+
+    mean: torch.Tensor
+    cov: torch.Tensor
+
+
+def compute_3d_gaussian(directions: torch.Tensor, means: torch.Tensor, dir_variance: torch.Tensor,
+                        radius_variance: torch.Tensor) -> Gaussians:
+    """A Gaussian along ``directions`` from its variance along the ray and
+    across it (reference :30-43)."""
+    dir_outer = directions[..., :, None] * directions[..., None, :]
+    dir_mag_sq = torch.clamp_min(torch.sum(directions * directions, dim=-1, keepdim=True), 1e-10)
+    eye = torch.eye(3, dtype=directions.dtype, device=directions.device)
+    null_outer = eye - directions[..., :, None] * (directions / dir_mag_sq)[..., None, :]
+    dir_cov = dir_variance[..., None, None] * dir_outer
+    radius_cov = radius_variance[..., None, None] * null_outer
+    return Gaussians(mean=means, cov=dir_cov + radius_cov)
+
+
+def conical_frustum_to_gaussian(origins: torch.Tensor, directions: torch.Tensor, starts: torch.Tensor,
+                                ends: torch.Tensor, radius: torch.Tensor) -> Gaussians:
+    """mip-NeRF's Gaussian of a conical frustum (reference :46-58), in the
+    reference's float32 order (squares and fourth powers as products)."""
+    mu = (starts + ends) / 2.0
+    hw = (ends - starts) / 2.0
+    mu2, hw2 = mu * mu, hw * hw
+    hw4 = hw2 * hw2
+    denom = 3.0 * mu2 + hw2
+    means = origins + directions * (mu + (2.0 * mu * hw2) / denom)
+    dir_variance = hw2 / 3 - (4 / 15) * ((hw4 * (12 * mu2 - hw2)) / (denom * denom))
+    radius_variance = (radius * radius) * (mu2 / 4 + (5 / 12) * hw2 - (4 / 15) * hw4 / denom)
+    return compute_3d_gaussian(directions, means, dir_variance[..., 0], radius_variance[..., 0])
+
+
+def expected_sin(x_means: torch.Tensor, x_vars: torch.Tensor) -> torch.Tensor:
+    """E[sin(x)] for x ~ N(mean, var) (reference :61-63)."""
+    return torch.exp(-0.5 * x_vars) * torch.sin(x_means)
+
+
+def intersect_aabb(origins: torch.Tensor, directions: torch.Tensor, aabb: torch.Tensor, max_bound: float = 1e10,
+                   invalid_value: float = 1e10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slab test of rays against a flat (6,) aabb (reference :66-89): (nears,
+    fars) (...,), nears clipped to [0, max_bound]; a ray that misses gets
+    ``invalid_value`` for both. A direction component under 1e-10 in
+    magnitude is taken as 1e-10."""
+    inv_d = 1.0 / torch.where(torch.abs(directions) < 1e-10, torch.full_like(directions, 1e-10), directions)
+    t_min = (aabb[:3] - origins) * inv_d
+    t_max = (aabb[3:] - origins) * inv_d
+    t1 = torch.minimum(t_min, t_max)
+    t2 = torch.maximum(t_min, t_max)
+    nears = torch.clamp(torch.amax(t1, dim=-1), 0.0, max_bound)
+    fars = torch.clamp_max(torch.amin(t2, dim=-1), max_bound)
+    miss = nears > fars
+    invalid = torch.full_like(nears, invalid_value)
+    return torch.where(miss, invalid, nears), torch.where(miss, invalid, fars)
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

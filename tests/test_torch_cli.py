@@ -245,9 +245,9 @@ def test_train_script_trains_and_evaluates_the_nerfacto_family(method, scene, to
 @pytest.mark.parametrize("method", ["semantic-nerfw", "phototourism"])
 def test_the_shipped_parser_names_its_roadmap_item(method, tool_scenes, tmp_path):
     """Without ``--dataparser`` the method's own parser (sitcoms3d's,
-    phototourism's) is refused, naming ROADMAP queue 1 item 13 and the
+    phototourism's) is refused, naming ROADMAP queue 1 item 15 and the
     flag that reads the capture."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 13.*--dataparser nerfstudio-data"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 15.*--dataparser nerfstudio-data"):
         train.main([method, "--data", str(tool_scenes / "basic"), "--machine.device_type", "cpu",
                     "--trainer.output_dir", str(tmp_path / "out"), "--trainer.vis", "none", *TINY])
 

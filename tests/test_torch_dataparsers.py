@@ -116,7 +116,7 @@ def test_registry_ports_two_parsers_and_names_the_rest():
     assert type(registry.get_dataparser_config("nerfstudio-data")) is NerfstudioDataParserConfig
     assert type(registry.get_dataparser_config("blender")) is BlenderDataParserConfig
     for name in ("colmap", "dnerf-data", "sitcoms3d"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
             registry.get_dataparser_config(name)
     with pytest.raises(KeyError):
         registry.get_dataparser_config("no-such-parser")

@@ -297,7 +297,7 @@ def test_method_config_equals_jax(method):
     """``get_method`` at JAX's shipped values: every trainer, datamanager and
     model field the two share, the dataset kind, the optimizer groups; the
     parser JAX ships (the port names the unported ones, which raise at
-    setup naming ROADMAP queue 1 item 13)."""
+    setup naming ROADMAP queue 1 item 15)."""
     from nerfstudio_tpu.configs.method_configs import get_method as jget_method
     from nerfstudio_torch.configs.method_configs import get_method
 
@@ -322,5 +322,5 @@ def test_method_config_equals_jax(method):
     else:
         name = {"semantic-nerfw": "sitcoms3d-data", "phototourism": "phototourism-data"}[method]
         assert tcfg.dataparser.name == name
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
             tcfg.dataparser.setup()
