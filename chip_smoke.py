@@ -169,7 +169,24 @@ shapes its path gives it, and drives the port's paths from random weights:
   term and gradient compared, one 1024-ray eval chunk under the white
   background override against the CPU, and a 3-step profile by class;
   K8 (plain PyTorch) at tensorf's step's own 18 calls, replayed alone:
-  events and profiler time, launches, bound, share of the busy step.
+  events and profiler time, launches, bound, share of the busy step;
+* instant-ngp (phase 64, scene contraction, 500 steps past its 256-step
+  grid warm-up: ~15 whole-grid refreshes) and instant-ngp-bounded (phase
+  65, 300 steps, over black) through ``scripts.gate``'s loop on the
+  ``blender`` scene at their shipped configs (4096 rays of 48 samples,
+  128 occupancy probes a ray on a 128^3 grid, an L8 F4 T=2^19 field): the
+  loss must fall; at the trained state K1's forward and backward at one
+  more step's calls, K3 at one 8192-ray eval chunk and K1's forward at one
+  whole-grid refresh (2,097,152 cells) against the twins and timed; the
+  refresh on the card against the CPU (the same jitter, the MLPs in
+  float32); one step (flat tables, the MLPs in float32, the PDF jitter and
+  the random background handed in) and one eval chunk card vs CPU; a
+  3-step profile (idle share, the hash grid's share) and K3's share of a
+  profiled eval chunk;
+* nerfacto's sampling options (phase 66): one full-width step on the card
+  against the CPU twins without the occupancy sampler (both proposal nets)
+  and with the grid's PDF alone over its EMA densities
+  (``num_proposal_iterations=0``, ``occ_weight_mode="density"``).
 
 Since phases 61-63 came, phases 36-37, 42-45 and 50-51 run 600 steps
 (1000 before), 55 (nerfacto-big) 1500 of its gate's 3000, 57 750 (1000
@@ -192,7 +209,9 @@ device and ``nvcc``; imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -202,6 +221,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -690,13 +710,14 @@ STEP_GRAD_REL = 5e-2
 STEP_TABLE_SUM_REL = 1e-2
 
 
-def build_training(device, rays, method=None):
+def build_training(device, rays, method=None, options=None):
     """nerfacto at the method config's width and schedule
     (configs/method_configs.py:92-110: field_bwd_level_period=2,
     proposal_freeze_after=2500), or ``method``'s shipped model config and
-    optimizers (nerfacto-huge), random weights from SEED, bench.py's
-    synthetic scene, its pipeline, a fresh per-group Adam and the occupancy
-    hook. Returns (config, pipeline, train state, hook)."""
+    optimizers (nerfacto-huge), with the model config's ``options``
+    replaced, random weights from SEED, bench.py's synthetic scene, its
+    pipeline, a fresh per-group Adam and the occupancy hook. Returns
+    (config, pipeline, train state, hook)."""
     from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
     from nerfstudio_torch.engine.optimizers import PerGroupAdam, nerfacto_optimizers
     from nerfstudio_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
@@ -709,6 +730,8 @@ def build_training(device, rays, method=None):
 
         config = get_method(method)
         cfg, optimizers = config.model, config.optimizers
+    if options:
+        cfg = dataclasses.replace(cfg, **options)
     model = cfg.setup(num_train_data=TRAIN_IMAGES, device=device).train()
     model.reset_parameters(torch.Generator(device=device).manual_seed(SEED))
     images = np.random.default_rng(SEED).integers(0, 255, (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW, 3)).astype(np.uint8)
@@ -853,34 +876,36 @@ def flatten_tables(model, gen):
                 m.hash_table.copy_(values.repeat(1, 128 // F)[:, None, :].expand(L, S, 128))
 
 
-def card_vs_cpu_step(devices=("cuda", "cpu"), method=None):
-    """One training step of the full-width model (or ``method``'s) on the
-    card and on the CPU twins: same weights (the card's, with flat tables),
-    same grid, same draws."""
+def card_vs_cpu_step(devices=("cuda", "cpu"), method=None, options=None):
+    """One training step of the full-width model (or ``method``'s, with
+    ``options`` replaced in its config) on the card and on the CPU twins:
+    same weights (the card's, with flat tables), same grid (a sphere of
+    radius 0.3 occupied, EMA densities 40 exp(-25 r^2)), same draws."""
     from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
     from nerfstudio_torch.models.nerfacto import NerfactoModel
     from nerfstudio_torch.pipelines.base_pipeline import StepDraws
 
     gen = torch.Generator().manual_seed(SEED + 1)
     runs = []
-    draws = StepDraws(
-        torch.stack([torch.randint(0, n, (CHECK_RAYS,), generator=gen)
-                     for n in (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW)], dim=-1),
-        SamplerUniforms(torch.rand((CHECK_RAYS, 1), generator=gen),
-                        (torch.rand((CHECK_RAYS, 1), generator=gen), torch.rand((CHECK_RAYS, 1), generator=gen))),
-    )
+    pixels = torch.stack([torch.randint(0, n, (CHECK_RAYS,), generator=gen)
+                          for n in (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW)], dim=-1)
+    probes, *rounds = (torch.rand((CHECK_RAYS, 1), generator=gen) for _ in range(4))
     weights = None
     for device in devices:
-        cfg, pipeline, state, _ = build_training(device, CHECK_RAYS, method)
+        cfg, pipeline, state, _ = build_training(device, CHECK_RAYS, method, options)
         if weights is None:
             flatten_tables(pipeline.model, torch.Generator().manual_seed(SEED + 2))
             weights = {k: v.detach().cpu().clone() for k, v in pipeline.model.state_dict().items()}
         pipeline.model.load_state_dict(weights)
         grid = state.aux
-        c = (torch.arange(grid.resolution, device=device, dtype=torch.float32) + 0.5) / grid.resolution - 0.5
-        grid.binary = (c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2 <= 0.3**2).reshape(-1)
-        dev_draws = StepDraws(draws.pixels.to(device), SamplerUniforms(
-            draws.sampler.probes.to(device), tuple(u.to(device) for u in draws.sampler.rounds)))
+        if grid is not None:
+            c = (torch.arange(grid.resolution, device=device, dtype=torch.float32) + 0.5) / grid.resolution - 0.5
+            r2 = (c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2).reshape(-1)
+            grid.binary = r2 <= 0.3**2
+            grid.densities = 40.0 * torch.exp(-25.0 * r2)
+        n_rounds = pipeline.model.num_proposal_rounds() + 1
+        dev_draws = StepDraws(pixels.to(device), SamplerUniforms(
+            probes.to(device), tuple(u.to(device) for u in rounds[:n_rounds])))
         kwargs = NerfactoModel.step_kwargs(300, cfg)  # live proposals, full field backward
         metrics = pipeline.train_step(state, draws=dev_draws, **kwargs)
         grads = {n: p.grad.detach().cpu().double() for n, p in pipeline.model.named_parameters()}
@@ -2562,7 +2587,7 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, tim
     wall = time.perf_counter() - t0
     # the JAX package's record of the cell (gate.jax_record, read from
     # benchmarks/): PSNR and SSIM only; its times were taken on a TPU
-    m, (jp, js) = res["metrics"], res["jax_record"].values()
+    m, (jp, js) = res["metrics"], (res["jax_record"] or {"psnr": None, "ssim": None}).values()
     per_step = {k: v / res["steps"] for k, v in res["launches"]["train"].items() if v}
     head, tail, fell = loss_fell(run["base_dir"])
     log(name, f"{method} on {res['scene']} ({' '.join(SCENE_ARGS)}), shipped config, {res['steps']} steps"
@@ -4121,6 +4146,270 @@ def blender_methods(ph, card, disk_root, disk):
     return k8, double
 
 
+# -- instant-ngp and nerfacto's sampling options (phases 64-66) ---------------
+
+# instant-ngp (scene contraction) and instant-ngp-bounded on the blender
+# scene of phase 57 through scripts.gate's loop at their shipped configs,
+# cut in depth: instant-ngp to 500 of its gate's 5000 steps (past the
+# 256-step grid warm-up: ~15 whole-grid refreshes), the bounded variant to
+# 300 of 3000 (the full gates: their own chip call, PERF.md)
+NGP_RUNS = (("instant-ngp", 500), ("instant-ngp-bounded", 300))
+NGP_CHECK_RAYS = 1024  # the card-vs-CPU step
+# the refresh card vs CPU: each density within 1e-4 of the CPU's, relative
+# (plus 1e-6 absolute), the binary cells equal on 99.9% of the grid
+REFRESH_RTOL, REFRESH_ATOL, REFRESH_CELLS = 1e-4, 1e-6, 0.999
+NERFACTO_OPTIONS = (("both proposal nets, no occupancy grid", dict(use_occupancy_sampler=False)),
+                    ("the grid's PDF alone over its EMA densities",
+                     dict(num_proposal_iterations=0, occ_weight_mode="density")))
+
+
+def float32_mlps(model):
+    """Every MLP of ``model`` computes its products in float32."""
+    from nerfstudio_torch.field_components.mlp import MLP
+
+    for m in model.modules():
+        if isinstance(m, MLP):
+            m.dtype = torch.float32
+
+
+def ngp_refresh(name, run, card):
+    """One whole-grid refresh at the trained state, as the hook runs it at
+    the next refresh step (every cell at a jittered point, K1 forward
+    without a graph): K1 at its captured inputs, every design against the
+    twin, timed in turns (events, device, back to back) beside the twin's
+    time and its bounds (the whole table; each touched 128-byte line once);
+    then the same refresh with the same jitter on the card and on the CPU,
+    copies of the trained model computing their MLPs in float32: densities
+    within REFRESH_RTOL, cells equal on REFRESH_CELLS of the grid."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    pipeline, state = run["pipeline"], run["state"]
+    model, cfg = pipeline.model, pipeline.model.config
+    res = cfg.grid_resolution
+    step = (int(state.step) // cfg.grid_update_every + 1) * cfg.grid_update_every
+    jitter = torch.rand((res**3, 3), generator=torch.Generator(device="cuda").manual_seed(SEED + 11), device="cuda")
+    hook = type(model).make_aux_update_fn(model, cfg)
+    calls = capture_kernel_calls({"fwd": (hg, "_block_kernel")},
+                                 lambda: hook(types.SimpleNamespace(aux=state.aux), step, jitter=jitter))["fwd"]
+    if len(calls) != 1:
+        raise AssertionError(f"{name}: a grid refresh called K1 {len(calls)} times, not once")
+    (pos, table), kw = calls[0]
+    kw = dict(kw)
+    kw.pop("exact")
+    L, S, _ = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    n = pos.shape[0]
+    what = (f"K1 fwd at one whole-grid refresh of the trained state (step {step}): N={n} L={L} F={F} "
+            f"T=2^{kw['hash_table_size'].bit_length() - 1} max_res={kw['max_res']}, table "
+            f"{nbytes(table) / 2**20:.0f} MiB")
+    errs, timing, fn_bound = check_block_designs(name, False, pos, table, kw, what)
+    events, dev, bat = time_block_designs(timing)
+    with torch.no_grad():
+        twin_ms = median_ms(timing["twin"], runs=3, warmup=1)
+    lines = touched_line_bytes(pos, table, kw, False)
+    line_bound = bound(nbytes(pos) + n * L * F * 4 + lines, hash_fwd_ops(n, L, F))
+    design = hg._pick_design(F)
+    rec = dict(kernel="K1 fwd", inputs="one whole-grid refresh", n=n, levels=L, features=F,
+               hash_table_size=kw["hash_table_size"], max_res=kw["max_res"], table_bytes=nbytes(table),
+               touched_bytes=lines, design=design, plain_ms=twin_ms, bound_ms=fn_bound[0], bound_by=fn_bound[1],
+               line_bound_ms=line_bound[0], line_bound_by=line_bound[1],
+               designs={d: dict(ms=events[d][0], ms_runs=events[d][1], device_ms=dev[d], batch_ms=bat[d],
+                                max_abs_err=errs[d]) for d in hg.DESIGNS})
+    del calls, pos, table
+    grids = []
+    for device in ("cuda", "cpu"):
+        twin = copy.deepcopy(model).to(device).train()
+        float32_mlps(twin)
+        holder = types.SimpleNamespace(aux=state.aux.to(device))
+        type(twin).make_aux_update_fn(twin, cfg)(holder, step, jitter=jitter.to(device))
+        grids.append(holder.aux)
+        del twin
+    card_g, cpu_g = grids
+    gap = (card_g.densities.cpu() - cpu_g.densities).abs()
+    over = float((gap / (REFRESH_RTOL * cpu_g.densities.abs() + REFRESH_ATOL)).max())
+    big = cpu_g.densities.abs() > 1e-2
+    rel = float((gap[big] / cpu_g.densities[big].abs()).max()) if bool(big.any()) else 0.0
+    cells = float((card_g.binary.cpu() == cpu_g.binary).float().mean())
+    occupied = float(cpu_g.binary.float().mean())
+    d = rec["designs"][design]
+    log(name, f"{what} on {card}: {design} {d['ms']:.4f} ms (events), device {d['device_ms']:.4f}, back to back "
+        f"{d['batch_ms']:.4f}; bound {line_bound[0]:.4f} ms by {line_bound[1]} (the touched lines, "
+        f"{lines / 2**20:.1f} MiB; the whole table's {fn_bound[0]:.4f}); twin {twin_ms:.3f} ms; the other designs: "
+        + ", ".join(f"{k} {v['ms']:.4f} / {v['device_ms']:.4f} / {v['batch_ms']:.4f}" for k, v in rec["designs"].items()
+                    if k != design)
+        + f". The refresh card vs CPU (the same jitter, the MLPs in float32): densities max |card - cpu| / "
+        f"({REFRESH_RTOL} |cpu| + {REFRESH_ATOL}) = {over:.3g} (limit 1; {rel:.3g} relative where the density "
+        f"> 0.01), cells equal on {cells:.6f} of {res}^3 (limit {REFRESH_CELLS}); {occupied:.3f} of the cells "
+        f"occupied")
+    if over > 1.0 or cells < REFRESH_CELLS:
+        raise AssertionError(f"{name}: the grid refresh on the card and on the CPU disagree")
+    rec.update(card_vs_cpu=dict(over=over, rel=rel, cells=cells, occupied=occupied, step=step))
+    return rec
+
+
+def ngp_step_card_vs_cpu(run, method):
+    """One training step at the trained state on the card and on the CPU:
+    copies of the trained model with every hash table set flat per level
+    and feature and every MLP computing in float32, the trained grid, the
+    run's train images and cameras, the same NGP_CHECK_RAYS pixels, PDF
+    jitter and random background drawn on the host, a fresh optimizer each.
+    Returns (card metrics, CPU metrics, loss rel, grads rel, tables rel,
+    {term: rel})."""
+    from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
+    from nerfstudio_torch.engine.optimizers import PerGroupAdam
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws, TrainState, VanillaPipeline
+
+    pipeline, state = run["pipeline"], run["state"]
+    dm, trained = pipeline.datamanager, pipeline.model
+    gen = torch.Generator().manual_seed(SEED + 12)
+    n, h, w = dm.train_images.shape[:3]
+    pixels = torch.stack([torch.randint(0, m, (NGP_CHECK_RAYS,), generator=gen) for m in (n, h, w)], dim=-1)
+    jitter = torch.rand((NGP_CHECK_RAYS, 1), generator=gen)
+    background = torch.rand((NGP_CHECK_RAYS, 3), generator=gen)
+    weights, runs = None, []
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(trained).to(device).train()
+        if weights is None:
+            flatten_tables(model, torch.Generator().manual_seed(SEED + 2))
+            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        float32_mlps(model)
+        data = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=NGP_CHECK_RAYS),
+                                      dm.train_cameras.to(device), dm.train_images.cpu(), device)
+        twin = VanillaPipeline(data, model)
+        st = TrainState(PerGroupAdam(get_method(method).optimizers, model), aux=state.aux.to(device))
+        metrics = twin.train_step(st, draws=StepDraws(pixels.to(device), SamplerUniforms(None, (jitter.to(device),)),
+                                                      background.to(device)))
+        grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads, model))
+        del twin, st, data
+    (m_card, g_card, model), (m_cpu, g_cpu, _) = runs
+    terms = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu if k.endswith("_loss")}
+    return (m_card, m_cpu) + step_rel(m_card, g_card, m_cpu, g_cpu, model) + (terms,)
+
+
+def ngp_eval_card_vs_cpu(run):
+    """One eval chunk (the model's eval_num_rays_per_chunk rays spread evenly
+    over the first test view) through the pipeline's eval path on the card,
+    under the eval background override where the parser has an alpha
+    colour, and through a CPU copy of the model over the same grid under the
+    same override, both as shipped; K3's share of the card's chunk under the
+    profiler. Returns ({output: mean |card - cpu|}, {output: max}, {"busy_ms",
+    "k3_ms", "share"} or None)."""
+    from nerfstudio_torch.model_components import renderers
+
+    pipeline, state = run["pipeline"], run["state"]
+    chunk = pipeline.model.config.eval_num_rays_per_chunk
+    cams = pipeline.datamanager.eval_cameras
+    rb = cams.generate_rays(camera_indices=pipeline.datamanager.eval_image(0)[0]).flatten()
+    stride = max(rb.shape[0] // chunk, 1)
+    rb = rb.map(lambda x: x[::stride][:chunk])
+    card_rb = rb.map(lambda x: x.to("cuda"))
+    card = pipeline.eval_rays(state, card_rb)
+    model = copy.deepcopy(pipeline.model).to("cpu").eval()
+    color = pipeline._eval_background()
+    with torch.no_grad(), (contextlib.nullcontext() if color is None
+                           else renderers.background_color_override_context(color.cpu())):
+        cpu = model(rb.map(lambda x: x.cpu()), model_aux=state.aux.to("cpu"))
+    keys = ("rgb", "accumulation", "depth")
+    mean = {k: float((card[k].cpu() - cpu[k]).abs().mean()) for k in keys}
+    peak = {k: float((card[k].cpu() - cpu[k]).abs().max()) for k in keys}
+    prof = profile_device(lambda: pipeline.eval_rays(state, card_rb), per=1)
+    share = None
+    if prof is not None:
+        rows, busy_ms, _, _ = prof
+        k3_ms = sum(t for nm, t in rows if kernel_class(nm) == "hash-grid kernels")
+        share = dict(busy_ms=busy_ms, k3_ms=k3_ms, share=k3_ms / busy_ms, rays=int(card_rb.shape[0]))
+    del model
+    return mean, peak, share
+
+
+def ngp_after(name, method, card):
+    """The checks at each instant-ngp trained state after the gate loop: the
+    loss fell; K1's forward at one whole-grid refresh against the twin and
+    timed, and the refresh card vs CPU (``ngp_refresh``); one step card vs
+    CPU within phase 11's limits (every loss term too); one eval chunk card
+    vs CPU (rgb and accumulation within CARD_VS_CPU_MEAN_ABS mean abs) and
+    K3's share of it."""
+
+    def after(run):
+        head, tail, fell = loss_fell(run["base_dir"], "rgb_loss")
+        if not fell:
+            raise AssertionError(f"{name}: {method}'s rgb loss did not fall: {head} -> {tail}")
+        refresh = ngp_refresh(name, run, card)
+        m_card, m_cpu, loss_rel, grad_rel, table_rel, terms = ngp_step_card_vs_cpu(run, method)
+        mean, peak, k3 = ngp_eval_card_vs_cpu(run)
+        occupied = float(run["state"].aux.binary.float().mean())
+        log(name, f"{method}: rgb loss {head:.5f} -> {tail:.5f} (first quarter's mean to the last's); the trained "
+            f"grid has {occupied:.4f} of its cells occupied; one step at the trained state ({NGP_CHECK_RAYS} rays, "
+            f"flat tables, the MLPs in float32, the PDF jitter and the background handed in) card vs CPU: loss "
+            f"{m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}), terms "
+            + ", ".join(f"{k} {v:.2g}" for k, v in terms.items())
+            + f"; non-table gradients {grad_rel:.3g} of the peak (limit {STEP_GRAD_REL}); the table per level and "
+            f"feature {table_rel:.3g} (limit {STEP_TABLE_SUM_REL}); one eval chunk, mean |card - cpu| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in mean.items()) + " (max "
+            + ", ".join(f"{k} {v:.3g}" for k, v in peak.items()) + f"; limit {CARD_VS_CPU_MEAN_ABS} on rgb and "
+            "accumulation); K3 in a profiled eval chunk: "
+            + ("not measured" if k3 is None else f"{k3['k3_ms']:.4f} of {k3['busy_ms']:.4f} ms device-busy "
+                                                 f"({k3['share']:.1%}, {k3['rays']} rays)") + f" on {card}")
+        if (loss_rel > STEP_LOSS_RTOL or max(terms.values()) > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL
+                or table_rel > STEP_TABLE_SUM_REL or max(mean["rgb"], mean["accumulation"]) > CARD_VS_CPU_MEAN_ABS):
+            raise AssertionError(f"{name}: card and CPU {method} steps or eval chunks disagree")
+        return dict(loss=(head, tail), occupied=occupied, refresh=refresh, loss_rel=loss_rel, terms=terms,
+                    grad_rel=grad_rel, table_rel=table_rel, eval_mean=mean, eval_max=peak, k3_eval=k3)
+
+    return after
+
+
+def instant_ngp_methods(ph, card, disk_root, disk):
+    """Phases 64-65: instant-ngp and instant-ngp-bounded on the blender scene
+    of phase 57 through ``scripts.gate``'s loop (NGP_RUNS' steps), each
+    checked at its trained state (``gate_phase`` with its kernels timed, and
+    ``ngp_after``): the hash grid's share of the profiled steps and the
+    launches per step. Adds the runs to ``disk``."""
+    blender = os.path.join(disk_root, "blender")
+    for i, (method, steps) in enumerate(NGP_RUNS):
+        name = ph(64 + i, f"{method} on blender, {steps} steps")
+        rec = disk[f"gate_{method}"] = gate_phase(name, method, blender, disk_root, card, NERFACTO_KERNELS,
+                                                  steps=steps, timed=True, after=ngp_after(name, method, card))
+        if rec["scene"] != "blender":
+            raise AssertionError(f"{name}: the gate ran {method} on {rec['scene']}")
+        per_step = {k: v / rec["steps"] for k, v in rec["gate_launches"]["train"].items() if v}
+        idle = rec["idle"]
+        if idle is not None:
+            rec["hash_share"] = idle["classes"].get("hash-grid kernels", 0.0) / idle["busy_ms"]
+        log(name, f"{method}: {rec['train_rays_per_sec']:,.0f} rays/s over the run (host clock); launches per "
+            f"train step {per_step}; per profiled step "
+            + ("not measured" if idle is None else
+               f"{idle['busy_ms']:.2f} ms device-busy, idle {idle['idle']:.1%}, {idle['activities']:.0f} device "
+               f"activities, the hash-grid kernels (K1 fwd and bwd) {idle['classes'].get('hash-grid kernels', 0.0):.3f}"
+               f" ms ({rec['hash_share']:.1%})") + f" on {card}")
+
+
+def nerfacto_option_steps(name, card):
+    """Phase 66: one full-width nerfacto step with each of NERFACTO_OPTIONS
+    on the card and on the CPU twins (``card_vs_cpu_step``: flat tables, the
+    same grid and draws), within phase 11's limits. Returns {option: rels}."""
+    out = {}
+    for label, options in NERFACTO_OPTIONS:
+        zero_counts()
+        m_card, m_cpu, loss_rel, grad_rel, table_rel = card_vs_cpu_step(options=options)
+        counts = {k: v for k, v in read_counts().items() if v}
+        log(name, f"nerfacto with {label} ({options}), one step at step 300 ({CHECK_RAYS} rays, flat tables) card "
+            f"vs CPU: loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}), "
+            f"interlevel {m_card['interlevel_loss']:.6f} vs {m_cpu['interlevel_loss']:.6f}; non-table gradients "
+            f"{grad_rel:.3g} of the peak (limit {STEP_GRAD_REL}); tables per level and feature {table_rel:.3g} "
+            f"(limit {STEP_TABLE_SUM_REL}); the card step's launches {counts} on {card}")
+        if (loss_rel > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL or table_rel > STEP_TABLE_SUM_REL
+                or not counts.get("hash_encode_block") or not counts.get("hash_encode_block_bwd")):
+            raise AssertionError(f"{name}: card and CPU nerfacto steps with {options} disagree")
+        out[label] = dict(options=options, loss_rel=loss_rel, grad_rel=grad_rel, table_rel=table_rel,
+                          launches=counts)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -4134,7 +4423,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 63
+    n_phases = 66
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -4789,6 +5078,10 @@ def main() -> int:
         nerfacto_family(ph, card, scene, disk_root, disk, jobs)
         # 61-63. tensorf, vanilla-nerf and mipnerf on blender
         k8_tensorf, double_backward = blender_methods(ph, card, disk_root, disk)
+        # 64-66. instant-ngp and instant-ngp-bounded on blender; nerfacto's
+        # sampling options
+        instant_ngp_methods(ph, card, disk_root, disk)
+        nerfacto_options = nerfacto_option_steps(ph(66, "nerfacto's sampling options, card vs cpu"), card)
     finally:
         for proc, _, _ in jobs.values():
             proc.kill()
@@ -4998,6 +5291,20 @@ def main() -> int:
     kernels[0]["blender_methods"] = {method: dict(disk[f"gate_{method}"]["after"], idle=disk[f"gate_{method}"]["idle"])
                                      for method, _ in BLENDER_RUNS}
     kernels[0]["double_backward_gap"] = double_backward  # K1, K7, K4, K6: refused, first order vs plain
+    # instant-ngp and its bounded variant (phases 64-65): K1 forward and
+    # backward at one step's calls and K3 at one eval chunk, K1 at one
+    # whole-grid refresh, the checks at the trained state; nerfacto's
+    # sampling options card vs CPU (phase 66)
+    for method, _ in NGP_RUNS:
+        rec = disk[f"gate_{method}"]
+        for e, kernel in ((kernels[0], "K1 fwd"), (kernels[1], "K3"), (kernels[2], "K1 bwd")):
+            e.setdefault("trained_shapes", {})[method] = [r for r in rec["kernels"] if r["kernel"] == kernel]
+        kernels[0]["trained_shapes"][method].append(rec["after"]["refresh"])
+    kernels[0]["instant_ngp"] = {method: dict({k: v for k, v in disk[f"gate_{method}"]["after"].items()
+                                               if k != "refresh"}, idle=disk[f"gate_{method}"]["idle"],
+                                              hash_share=disk[f"gate_{method}"].get("hash_share"))
+                                 for method, _ in NGP_RUNS}
+    kernels[0]["nerfacto_options"] = nerfacto_options
     kernels[-1]["k8_tensorf_step"] = k8_tensorf
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ from nerfstudio_torch.engine.schedulers import ExponentialDecaySchedulerConfig
 from nerfstudio_torch.engine.trainer import TrainerConfig
 from nerfstudio_torch.models.base_model import ModelConfig
 from nerfstudio_torch.models.depth_nerfacto import DepthNerfactoModelConfig
+from nerfstudio_torch.models.instant_ngp import InstantNGPModelConfig
 from nerfstudio_torch.models.mipnerf import MipNerfModelConfig
 from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
 from nerfstudio_torch.models.neus import NeuSFactoModelConfig, NeuSModelConfig
@@ -257,8 +258,34 @@ method_configs["tensorf"] = MethodConfig(
     },
 )
 
+def _instant_ngp_optimizers() -> Dict[str, Dict[str, Any]]:
+    """Adam at 1e-2 (eps 1e-15) on the field, decaying exponentially to 1e-4
+    over 30,000 steps (reference :167-172, :186-191)."""
+    return {"field": {"optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+                      "scheduler": ExponentialDecaySchedulerConfig(lr_final=1e-4, max_steps=30000)}}
+
+
+method_configs["instant-ngp"] = MethodConfig(
+    method_name="instant-ngp",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
+    dataparser=NerfstudioDataParserConfig(),
+    model=InstantNGPModelConfig(eval_num_rays_per_chunk=8192),
+    optimizers=_instant_ngp_optimizers(),
+)
+
+method_configs["instant-ngp-bounded"] = MethodConfig(
+    method_name="instant-ngp-bounded",
+    trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
+    dataparser=NerfstudioDataParserConfig(),
+    model=InstantNGPModelConfig(eval_num_rays_per_chunk=8192, grid_resolution=128, disable_scene_contraction=True,
+                                near_plane=0.01, background_color="black"),
+    optimizers=_instant_ngp_optimizers(),
+)
+
 # the reference's other methods, by the ROADMAP queue 1 item that ports them
-NOT_PORTED = {"instant-ngp": 11, "instant-ngp-bounded": 11, "dnerf": 15, "generfacto": 14}
+NOT_PORTED = {"dnerf": 15, "generfacto": 14}
 
 
 def get_method(name: str) -> MethodConfig:

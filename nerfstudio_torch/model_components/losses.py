@@ -60,7 +60,7 @@ def interlevel_loss(weights_list: List[torch.Tensor], ray_samples_list: List[Ray
     histogram, detached, is the target each proposal level must bound."""
     c = ray_samples_to_sdist(ray_samples_list[-1]).detach()
     w = weights_list[-1][..., 0].detach()
-    loss = 0.0
+    loss = w.new_zeros(())  # 0 without a proposal level (occupancy-PDF sampling alone)
     for rs, wl in zip(ray_samples_list[:-1], weights_list[:-1]):
         loss = loss + torch.mean(lossfun_outer(c, w, ray_samples_to_sdist(rs), wl[..., 0]))
     return loss

@@ -12,7 +12,7 @@ import torch
 
 _COLORS = {"black": (0.0, 0.0, 0.0), "white": (1.0, 1.0, 1.0)}
 
-BackgroundColor = Union[Literal["last_sample", "black", "white"], torch.Tensor]
+BackgroundColor = Union[Literal["random", "last_sample", "black", "white"], torch.Tensor]
 
 # the colour every render composites over while set (reference :24-41)
 BACKGROUND_COLOR_OVERRIDE: Optional[torch.Tensor] = None
@@ -31,17 +31,26 @@ def background_color_override_context(color: torch.Tensor):
         BACKGROUND_COLOR_OVERRIDE = old
 
 
-def get_background_color(background_color: BackgroundColor, shape, device) -> torch.Tensor:
+def get_background_color(background_color: BackgroundColor, shape, device,
+                         generator: Optional[torch.Generator] = None,
+                         draw: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The background of ``shape`` (..., 3) (reference :44-58): the override
-    where one is set, else a named colour or an RGB triple. The random
-    background comes with instant-ngp (ROADMAP queue 1 item 11)."""
+    where one is set, else a named colour, an RGB triple, or for
+    ``"random"`` uniform colours in [0, 1): ``draw`` (of ``shape``) where
+    handed in, else drawn from ``generator``."""
     if BACKGROUND_COLOR_OVERRIDE is not None:
         return BACKGROUND_COLOR_OVERRIDE.to(device, torch.float32).expand(shape)
     if isinstance(background_color, str):
         if background_color in _COLORS:
             return torch.tensor(_COLORS[background_color], device=device).expand(shape)
         if background_color == "random":
-            raise NotImplementedError("the random background is not ported yet (ROADMAP queue 1 item 11)")
+            if draw is not None:
+                if tuple(draw.shape) != tuple(shape):
+                    raise ValueError(f"random background draw of shape {tuple(draw.shape)}, want {tuple(shape)}")
+                return draw.to(device, torch.float32)
+            if generator is None:
+                raise ValueError("the random background needs a generator or a draw")
+            return torch.rand(tuple(shape), generator=generator, device=device)
         raise ValueError(f"background colour {background_color!r}")
     return torch.as_tensor(background_color, dtype=torch.float32, device=device).expand(shape)
 
@@ -51,18 +60,21 @@ def render_rgb(
     weights: torch.Tensor,
     background_color: BackgroundColor = "last_sample",
     return_background: bool = False,
+    generator: Optional[torch.Generator] = None,
+    background: Optional[torch.Tensor] = None,
 ):
     """Weighted-sum compositing + background fill (reference :61-85).
 
     rgb: (..., S, 3); weights: (..., S, 1) -> (..., 3), and the background
     used (..., 3) with ``return_background``. The override replaces every
-    background, ``last_sample`` too."""
+    background, ``last_sample`` too. ``"random"`` takes ``background`` (the
+    draw, (..., 3)) or draws from ``generator``."""
     comp = torch.sum(weights * rgb, dim=-2)
     accumulation = torch.sum(weights, dim=-2)
     if isinstance(background_color, str) and background_color == "last_sample" and BACKGROUND_COLOR_OVERRIDE is None:
         bg = rgb[..., -1, :]
     else:
-        bg = get_background_color(background_color, comp.shape, comp.device)
+        bg = get_background_color(background_color, comp.shape, comp.device, generator, background)
     out = comp + bg * (1.0 - accumulation)
     if return_background:
         return out, bg

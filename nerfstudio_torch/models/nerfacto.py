@@ -8,9 +8,14 @@ depth, accumulation (and the semantic logits of a config with
 interlevel, distortion and camera-opt losses, the per-step schedule
 (``step_kwargs``) and the occupancy-grid update hook
 (``make_aux_update_fn``). The config keeps the reference's field names and
-defaults. Not ported: the sampling options the shipped config does not
-use (checked in ``NerfactoModel.__init__``) and the predicted-normal
-losses."""
+defaults, and its sampling options: without the occupancy sampler every
+proposal net of ``proposal_net_args_list`` runs (upstream nerfacto's
+two-net stack, no grid); with it, ``num_proposal_iterations=0`` samples
+from the grid's PDF alone, ``occ_weight_mode="density"`` weighs the probes
+by the grid's EMA densities, ``proposal_initial_sampler="uniform"`` spaces
+the probes uniformly, and ``disable_scene_contraction`` keeps the scene
+box. Not ported: the non-block proposal net (``prop_block=False``, whose
+one-corner stochastic path is retired) and the predicted-normal losses."""
 
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from nerfstudio_torch.cameras.camera_optimizers import CameraOptimizer, camera_opt_regularizer
 from nerfstudio_torch.core.rays import RayBundle
+from nerfstudio_torch.data.scene_box import SceneBox
 from nerfstudio_torch.field_components.embedding import Embedding
 from nerfstudio_torch.field_components.encodings import HashEncoding
 from nerfstudio_torch.field_components.field_heads import FieldHeadNames, SemanticFieldHead
@@ -31,12 +37,13 @@ from nerfstudio_torch.fields.density_fields import HashMLPDensityField
 from nerfstudio_torch.fields.nerfacto_field import NerfactoField
 from nerfstudio_torch.model_components import renderers
 from nerfstudio_torch.model_components.losses import distortion_loss, interlevel_loss, mse_loss
-from nerfstudio_torch.model_components.ray_samplers import ProposalNetworkSampler, SamplerUniforms
+from nerfstudio_torch.model_components.ray_samplers import ProposalNetworkSampler, SamplerUniforms, UniformSampler
 from nerfstudio_torch.model_components.scene_colliders import NearFarCollider
 from nerfstudio_torch.models.base_model import Model, ModelConfig
 from nerfstudio_torch.ops.occupancy import (
     OccupancyGridState,
     init_occupancy_grid,
+    probe_density,
     probe_occupancy,
     update_occupancy_grid,
 )
@@ -111,7 +118,7 @@ class NerfactoModelConfig(ModelConfig):
 
 
 class NerfactoModel(Model):
-    """(reference nerfacto.py:180-571) with the shipped sampling stack:
+    """(reference nerfacto.py:180-571). The shipped sampling stack:
     occupancy-grid probes, then one learned proposal round. The mode
     (``.train()``/``.eval()``) plays the reference's ``train`` flag."""
 
@@ -119,20 +126,10 @@ class NerfactoModel(Model):
                  num_train_data: int = 1, device=None):
         super().__init__(config, scene_aabb, num_train_data)
         cfg = config
-        unported = {
-            "use_occupancy_sampler=False": not cfg.use_occupancy_sampler,
-            "num_proposal_iterations=0": cfg.num_proposal_iterations < 1,
-            'proposal_initial_sampler="uniform"': cfg.proposal_initial_sampler != "piecewise",
-            'occ_weight_mode="density"': cfg.occ_weight_mode != "binary",
-            "disable_scene_contraction=True": cfg.disable_scene_contraction,
+        if not cfg.prop_block:
             # the reference's non-block proposal net takes the one-corner
-            # stochastic path (prop_stochastic_corner), which is not ported
-            "prop_block=False": not cfg.prop_block,
-        }
-        if any(unported.values()):
-            raise NotImplementedError(
-                "nerfacto options not ported: " + ", ".join(k for k, v in unported.items() if v)
-            )
+            # stochastic path (prop_stochastic_corner), which is retired
+            raise NotImplementedError("nerfacto options not ported: prop_block=False")
         device = resolve_device(device)
         self.field = NerfactoField(
             aabb=scene_aabb,
@@ -151,29 +148,68 @@ class NerfactoModel(Model):
             # semantic-nerfw's config fields (reference nerfacto.py:201-203)
             use_semantics=getattr(cfg, "use_semantics", False),
             num_semantic_classes=getattr(cfg, "num_semantic_classes", 16),
+            disable_scene_contraction=cfg.disable_scene_contraction,
             average_init_density=cfg.average_init_density,
             hash_block=cfg.field_block,
             exact_eval=cfg.eval_exact_trilerp,
             device=device,
         )
-        # the grid replaces the first proposal round; the remaining net is
-        # the fine one, the last entry of the args list
-        net_args = cfg.proposal_net_args_list[-1]
-        if cfg.occ_proposal_levels:
-            net_args = {**net_args, "num_levels": cfg.occ_proposal_levels}
+        # with the occupancy sampler the grid replaces the first proposal
+        # round: the nets left are the last entries of the args list (the
+        # fine one); without it every round has its net (reference :213-233)
+        n_prop = self.num_proposal_rounds()
+        args_list = cfg.proposal_net_args_list
+        if cfg.use_occupancy_sampler:
+            args_list = args_list[len(args_list) - n_prop:]
+            if cfg.occ_proposal_levels:
+                args_list = tuple({**a, "num_levels": cfg.occ_proposal_levels} for a in args_list)
         self.proposal_networks = torch.nn.ModuleList([
             HashMLPDensityField(
-                use_spatial_distortion=True,
+                aabb=scene_aabb,
+                use_spatial_distortion=not cfg.disable_scene_contraction,
                 average_init_density=cfg.average_init_density,
                 block=cfg.prop_block,
                 device=device,
-                **net_args,
+                **args_list[min(i, len(args_list) - 1)],
             )
+            for i in range(n_prop)
         ])
         self.camera_optimizer = CameraOptimizer(
             num_cameras=num_train_data, mode=cfg.camera_optimizer_mode,
             zero_mean_gauge=cfg.camera_opt_zero_mean, device=device,
         )
+
+    def num_proposal_rounds(self) -> int:
+        """Learned proposal rounds (reference :235-242): with the occupancy
+        sampler at most one (none at ``num_proposal_iterations=0``), else
+        ``num_proposal_iterations``."""
+        if self.config.use_occupancy_sampler:
+            return min(1, self.config.num_proposal_iterations)
+        return self.config.num_proposal_iterations
+
+    def normalized_coords(self, positions: torch.Tensor) -> torch.Tensor:
+        """World -> the field's input cube (reference :244-254): contracted
+        and normalised, or normalised by the scene box without contraction."""
+        if not self.config.disable_scene_contraction:
+            return (SceneContraction(order="inf")(positions) + 2.0) / 4.0
+        aabb = torch.tensor(self.scene_aabb, dtype=torch.float32, device=positions.device)
+        return SceneBox.get_normalized_positions(positions, aabb)
+
+    def initial_weights_fn(self, grid: OccupancyGridState) -> Callable:
+        """The probes' weights from the grid (reference :283-309): 1 in an
+        occupied cell and 1e-3 elsewhere, or with ``occ_weight_mode
+        "density"`` the compositing weights of the cells' EMA densities,
+        floored at 1e-3."""
+
+        def binary(probe_samples):
+            occ = probe_occupancy(grid, self.normalized_coords(probe_samples.frustums.get_positions()))
+            return torch.where(occ > 0.5, 1.0, 1e-3)[..., None]
+
+        def density(probe_samples):
+            sigma = probe_density(grid, self.normalized_coords(probe_samples.frustums.get_positions()))
+            return torch.clamp_min(probe_samples.get_weights(sigma[..., None]), 1e-3)
+
+        return density if self.config.occ_weight_mode == "density" else binary
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every parameter as the reference's init does, from ``generator``."""
@@ -193,36 +229,39 @@ class NerfactoModel(Model):
         uniforms: Optional[SamplerUniforms] = None,
     ) -> Dict[str, torch.Tensor]:
         """Render a batch of rays (reference :262-401); ``model_aux`` is the
-        occupancy grid over the contracted, normalised cube (``init_aux``).
-        In training the camera-opt correction applies, the samplers jitter
-        from ``generator`` (or take ``uniforms``), ``update_proposals``
-        gates the proposal gradient and ``field_bwd_levels``/``_scale`` the
-        field's table gradient; the outputs then also carry the background
-        and the per-round weights and samples the losses need."""
+        occupancy grid over the field's input cube (``init_aux``; None
+        without the occupancy sampler). In training the camera-opt
+        correction applies, the samplers jitter from ``generator`` (or take
+        ``uniforms``), a random background is drawn from it,
+        ``update_proposals`` gates the proposal gradient
+        and ``field_bwd_levels``/``_scale`` the field's table gradient; the
+        outputs then also carry the background and the per-round weights and
+        samples the losses need."""
         cfg = self.config
-        if model_aux is None:
+        if cfg.use_occupancy_sampler and model_aux is None:
             raise ValueError("nerfacto renders through its occupancy grid: pass model_aux")
         if self.training:
             ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
+        else:
+            generator = uniforms = None
         if ray_bundle.nears is None or ray_bundle.fars is None:
             ray_bundle = NearFarCollider(cfg.near_plane, cfg.far_plane)(ray_bundle, training=self.training)
 
-        def initial_weights_fn(probe_samples):
-            pos01 = (SceneContraction(order="inf")(probe_samples.frustums.get_positions()) + 2.0) / 4.0
-            return torch.where(probe_occupancy(model_aux, pos01) > 0.5, 1.0, 1e-3)[..., None]
-
+        n_prop = self.num_proposal_rounds()
         sampler = ProposalNetworkSampler(
-            num_proposal_samples_per_ray=tuple(cfg.num_proposal_samples_per_ray[-1:]),
+            num_proposal_samples_per_ray=tuple(cfg.num_proposal_samples_per_ray[-n_prop:]),
             num_nerf_samples_per_ray=cfg.num_nerf_samples_per_ray,
-            num_proposal_network_iterations=1,
+            num_proposal_network_iterations=n_prop,
             single_jitter=cfg.use_single_jitter,
-            initial_weights_fn=initial_weights_fn,
+            initial_sampler=(UniformSampler(cfg.num_proposal_samples_per_ray[0], single_jitter=cfg.use_single_jitter)
+                             if cfg.proposal_initial_sampler == "uniform" else None),
+            initial_weights_fn=self.initial_weights_fn(model_aux) if cfg.use_occupancy_sampler else None,
             num_initial_probes=cfg.occ_num_probes,
         )
         density_fns = [net.density_fn for net in self.proposal_networks]
         ray_samples, weights_list, ray_samples_list = sampler(
-            ray_bundle, density_fns, generator=generator if self.training else None, anneal=anneal,
-            update_proposals=update_proposals, uniforms=uniforms if self.training else None,
+            ray_bundle, density_fns, generator=generator, anneal=anneal, update_proposals=update_proposals,
+            uniforms=uniforms,
         )
 
         field_outputs = self.field(
@@ -230,23 +269,24 @@ class NerfactoModel(Model):
             bwd_levels=field_bwd_levels if self.training else None, bwd_scale=field_bwd_scale,
         )
         weights = ray_samples.get_weights(field_outputs[FieldHeadNames.DENSITY])
-        rgb, background = renderers.render_rgb(
+        rgb, bg = renderers.render_rgb(
             field_outputs[FieldHeadNames.RGB], weights, background_color=cfg.background_color,
-            return_background=True,
+            return_background=True, generator=generator,
         )
         outputs = {
             "rgb": rgb,
             "accumulation": renderers.render_accumulation(weights),
             "depth": renderers.render_depth(weights, ray_samples, method="median"),
             "expected_depth": renderers.render_depth(weights, ray_samples, method="expected"),
-            "prop_depth_0": renderers.render_depth(weights_list[0], ray_samples_list[0], method="median"),
         }
+        for i in range(n_prop):
+            outputs[f"prop_depth_{i}"] = renderers.render_depth(weights_list[i], ray_samples_list[i], method="median")
         if FieldHeadNames.SEMANTICS in field_outputs:
             # the weights detached unless pass_semantic_gradients (reference :367-378)
             sem_w = weights if getattr(cfg, "pass_semantic_gradients", False) else weights.detach()
             outputs["semantics"] = renderers.render_semantics(field_outputs[FieldHeadNames.SEMANTICS], sem_w)
         if self.training:
-            outputs["background"] = background
+            outputs["background"] = bg
             outputs["weights_list"] = weights_list + [weights]
             outputs["ray_samples_list"] = ray_samples_list + [ray_samples]
         return outputs
@@ -319,18 +359,24 @@ class NerfactoModel(Model):
         return kwargs
 
     @staticmethod
-    def init_aux(model: "NerfactoModel", config: NerfactoModelConfig, device=None) -> OccupancyGridState:
-        """A fully occupied grid over the contracted, normalised cube (reference :405-413)."""
+    def init_aux(model: "NerfactoModel", config: NerfactoModelConfig, device=None) -> Optional[OccupancyGridState]:
+        """A fully occupied grid over the field's input cube (reference
+        :405-413); None without the occupancy sampler."""
+        if not config.use_occupancy_sampler:
+            return None
         return init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), config.occ_grid_resolution,
                                    resolve_device(device))
 
     @staticmethod
-    def make_aux_update_fn(model: "NerfactoModel", config: NerfactoModelConfig) -> Callable:
+    def make_aux_update_fn(model: "NerfactoModel", config: NerfactoModelConfig) -> Optional[Callable]:
         """The occupancy hook (reference :416-446): from step
         ``occ_warmup_steps``, every ``occ_update_every`` steps, refresh
         ``occ_cells_per_update`` random cells of ``state.aux`` with the
         field's density (K1 forward, no graph). Call it before the step's
-        train step. ``cells``/``jitter`` hand the draws in."""
+        train step. ``cells``/``jitter`` hand the draws in. None without the
+        occupancy sampler."""
+        if not config.use_occupancy_sampler:
+            return None
 
         def hook(state, step: int, generator: Optional[torch.Generator] = None, cells=None, jitter=None):
             if state.aux is None or step < config.occ_warmup_steps or step % config.occ_update_every != 0:

@@ -4,7 +4,10 @@ The grid is stored flat: ``binary`` and ``densities`` are ``(res^3,)`` with
 cell (i, j, k) at ``(i*res + j)*res + k``. Probing is an index lookup, a
 stock torch gather; the reference's row-packed probe views exist only for
 the TPU's gather unit and are not kept. ``update_occupancy_grid`` is the
-reference's plain ``jnp`` EMA refresh, in stock torch ops."""
+reference's plain ``jnp`` EMA refresh, in stock torch ops.
+``OccupancyGridSampler`` is the reference's stand-in for nerfacc's
+occupancy marching: probes along each ray weighted by the grid, then a
+fixed budget of PDF samples."""
 
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from typing import Callable, Optional
 
 import torch
 
+from nerfstudio_torch.core.rays import RayBundle, RaySamples
+from nerfstudio_torch.model_components.ray_samplers import PDFSampler, SpacedSampler, UniformSampler
 from nerfstudio_torch.utils.device import resolve_device
 
 
@@ -55,6 +60,14 @@ def probe_occupancy(grid: OccupancyGridState, positions: torch.Tensor) -> torch.
     return grid.binary[_cell_indices(positions, grid.aabb, grid.resolution)].to(torch.float32)
 
 
+def probe_density(grid: OccupancyGridState, positions: torch.Tensor) -> torch.Tensor:
+    """The EMA density of the nearest cell at each position (reference
+    :148-154), rounded to bfloat16 as the reference's row gather rounds its
+    table: nerfacto's net-free proposal signal."""
+    cells = _cell_indices(positions, grid.aabb, grid.resolution)
+    return grid.densities[cells].to(torch.bfloat16).to(torch.float32)
+
+
 def update_occupancy_grid(
     grid: OccupancyGridState,
     density_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -95,3 +108,38 @@ def update_occupancy_grid(
     densities = grid.densities.scatter_reduce(0, cells, refreshed, reduce="amax", include_self=False)
     thresh = torch.clamp_max(torch.mean(densities), occ_thre)
     return OccupancyGridState(densities, densities > thresh, grid.aabb, res)
+
+
+@dataclasses.dataclass(frozen=True)
+class OccupancyGridSampler:
+    """Occupancy-driven importance sampling (reference :157-197): the
+    ``initial_sampler``'s probes (by default ``num_coarse_probes`` uniform
+    midpoints, no jitter), mapped into the grid's coordinates by
+    ``coord_fn`` where one is given, weigh 1 where they lie strictly inside
+    the grid's aabb in an occupied cell and ``empty_weight`` elsewhere;
+    ``num_samples`` PDF samples follow those weights (no histogram padding,
+    one jitter per ray)."""
+
+    num_coarse_probes: int = 128
+    num_samples: int = 48
+    empty_weight: float = 1e-3
+    coord_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    initial_sampler: Optional[SpacedSampler] = None
+
+    def probe_weights(self, grid: OccupancyGridState, probes: RaySamples) -> torch.Tensor:
+        """(R, M, 1) weights of the probes."""
+        pos = probes.frustums.get_positions()
+        if self.coord_fn is not None:
+            pos = self.coord_fn(pos)
+        occupied = probe_occupancy(grid, pos) > 0.5
+        inside = torch.all((pos > grid.aabb[0]) & (pos < grid.aabb[1]), dim=-1)
+        return torch.where(occupied & inside, 1.0, self.empty_weight)[..., None]
+
+    def __call__(self, ray_bundle: RayBundle, grid: OccupancyGridState, generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[torch.Tensor] = None) -> RaySamples:
+        """``uniforms``: the PDF's jitter (R, 1) in [0, 1), else drawn from
+        ``generator``; with neither, the PDF's midpoints (eval)."""
+        init = self.initial_sampler or UniformSampler(self.num_coarse_probes, train_stratified=False)
+        coarse = init(ray_bundle)
+        pdf = PDFSampler(num_samples=self.num_samples, histogram_padding=0.0, single_jitter=True)
+        return pdf(ray_bundle, coarse, self.probe_weights(grid, coarse), generator=generator, uniforms=uniforms)

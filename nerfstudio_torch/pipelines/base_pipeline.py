@@ -47,10 +47,13 @@ class TrainState:
 @dataclasses.dataclass(frozen=True)
 class StepDraws:
     """A step's random draws handed in, in place of the generator's: the
-    pixel indices (R, 3) (camera, row, col) and the sampler's uniforms."""
+    pixel indices (R, 3) (camera, row, col), the sampler's uniforms and, for
+    a model that renders over a random background (instant-ngp), its
+    colours (R, 3)."""
 
     pixels: torch.Tensor
     sampler: SamplerUniforms
+    background: Optional[torch.Tensor] = None
 
 
 class VanillaPipeline:
@@ -85,6 +88,8 @@ class VanillaPipeline:
         ray_bundle = generate_rays_from_indices(self.datamanager.train_cameras, idx)
         if state.aux is not None:
             step_kwargs = {"model_aux": state.aux, **step_kwargs}
+        if draws is not None and draws.background is not None:
+            step_kwargs = {"background": draws.background, **step_kwargs}
         outputs = model(
             ray_bundle, generator=generator, uniforms=None if draws is None else draws.sampler, **step_kwargs,
         )

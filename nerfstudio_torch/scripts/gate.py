@@ -16,13 +16,14 @@ ships the nerfstudio parser keeps its ``load_3D_points`` (depth-nerfacto's
 SfM depth). Given a ``basic`` scene, semantic-nerfw trains on the
 ``semantic`` scene beside it and phototourism on ``appearance``
 (``SCENE_ROUTES``, the JAX runner's routes). A method of
-``BLENDER_METHODS`` (neus, tensorf, vanilla-nerf, mipnerf) reads the Blender
-format instead, the ``blender`` scene beside a given ``basic`` one, with its
-train split and every test view: a method that renders over black takes
-the ground truth RGBA, blended over black for the loss and the metrics; one
-that renders over white reads it blended over white at load
-(``alpha_color="white"``) and evaluates over white (the JAX runner's
-route). The
+``BLENDER_METHODS`` (neus, tensorf, vanilla-nerf, mipnerf, instant-ngp and
+instant-ngp-bounded) reads the Blender format instead, on any scene but
+``distorted`` and ``masked`` (the ``blender`` scene beside a given ``basic``
+one), with its train split and every test view: a method that renders over
+black (instant-ngp-bounded) takes the ground truth RGBA, blended over black
+for the loss and the metrics; any other (instant-ngp's random background
+too) reads it blended over white at load (``alpha_color="white"``) and
+evaluates over white (the JAX runner's route). The
 JSON has the keys of ``benchmarks/gate_nerfacto.json``, the card's name
 and power limit, and the kernel launches of training and eval. The gates:
 PSNR > 20 and SSIM > 0.7. Beside the result stands the JAX package's
@@ -48,9 +49,9 @@ import torch
 GATE_STEPS = {"nerfacto": 5000, "nerfacto-big": 3000, "nerfacto-huge": 1500, "depth-nerfacto": 5000,
               "semantic-nerfw": 5000, "phototourism": 5000, "neus": 12000, "splatfacto": 8000,
               "splatfacto-big": 8000, "splatfacto-mcmc": 8000, "tensorf": 5000, "vanilla-nerf": 8000,
-              "mipnerf": 8000}
+              "mipnerf": 8000, "instant-ngp": 5000, "instant-ngp-bounded": 3000}
 # methods the JAX runner trains on the Blender protocol (tools/run_gate_matrix.py:64-65)
-BLENDER_METHODS = ("neus", "tensorf", "vanilla-nerf", "mipnerf")
+BLENDER_METHODS = ("neus", "tensorf", "vanilla-nerf", "mipnerf", "instant-ngp", "instant-ngp-bounded")
 # the scene beside a given basic one that exercises a method's own machinery
 # (tools/run_gate_matrix.py:94-105): the labels, the per-view exposure
 SCENE_ROUTES = {"semantic-nerfw": "semantic", "phototourism": "appearance"}
@@ -219,7 +220,9 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     result["step_ms_by_block"] = {"steps_per_block": BLOCK, "ms": blocks}
     result["final_loss"] = loss
     result["eval_config"] = {"eval_chunk": eval_chunk,
-                             "exact_eval_trilerp": bool(getattr(config.model, "eval_exact_trilerp", False)),
+                             # a block-layout field renders with K3 unless the config asks otherwise
+                             "exact_eval_trilerp": bool(getattr(config.model, "eval_exact_trilerp",
+                                                                getattr(config.model, "field_block", False))),
                              "hash_block_layout": bool(getattr(config.model, "field_block", False))}
     result["metrics"] = {k: round(float(v), 4) for k, v in eval_metrics.items()}
     result["launches"] = {"train": {k: after_train[k] - before[k] for k in before},

@@ -12,9 +12,10 @@ TensoRF's ``plane_coef`` and ``line_coef`` keep their layouts; ``LearnedVariance
 scalar. Every leaf must land on exactly one parameter: anything left
 over on either side raises. ``splat_state_from_jax`` carries a splatfacto
 train state whole: gaussians, densification state and Adam moments.
-``trainer_checkpoint_from_jax`` turns a JAX train state (nerfacto's or
-neus-facto's ``TrainState``, or a ``SplatTrainState``) into the port's
-checkpoint payload, so a JAX-trained run resumes in the port;
+``trainer_checkpoint_from_jax`` turns a JAX train state (the ``TrainState``
+of nerfacto, neus-facto or instant-ngp, whose aux is the occupancy grid, or
+a ``SplatTrainState``) into the port's checkpoint payload, so a JAX-trained
+run resumes in the port;
 ``dataparser_outputs_from_jax`` turns the JAX parser's outputs into the
 port's."""
 

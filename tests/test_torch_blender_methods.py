@@ -131,11 +131,12 @@ def test_tensorf_resume_across_an_upsample_is_bit_equal(blender, tmp_path):
 
 
 def test_unported_methods_name_their_current_items():
-    """dnerf waits for the DNeRF parser and ``times`` (item 15), instant-ngp
-    for its occupancy sampler and random background (item 11)."""
+    """dnerf waits for the DNeRF parser and ``times`` (item 15), generfacto
+    for its diffusion guidance (item 14); instant-ngp and its bounded
+    variant are ported."""
     with pytest.raises(NotImplementedError, match="queue 1 item 15"):
         get_method("dnerf")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        get_method("instant-ngp")
-    for method in ("tensorf", "vanilla-nerf", "mipnerf"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        get_method("generfacto")
+    for method in ("tensorf", "vanilla-nerf", "mipnerf", "instant-ngp", "instant-ngp-bounded"):
         assert get_method(method).method_name == method

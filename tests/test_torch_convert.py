@@ -1,5 +1,7 @@
 """params_from_jax / occupancy_from_jax: every JAX leaf lands on exactly one
-port parameter, with dense kernels transposed and hash tables unchanged."""
+port parameter, with dense kernels transposed and hash tables unchanged; a
+JAX instant-ngp train state becomes a port checkpoint that renders as JAX
+does."""
 
 import jax
 import jax.numpy as jnp
@@ -190,3 +192,47 @@ def test_occupancy_from_jax():
         occupancy_from_jax({k: v for k, v in fields.items() if k != "aabb"})
     with pytest.raises(ValueError, match="packed view"):
         occupancy_from_jax({**fields, "density_rows": np.zeros((64, 128), np.float32)})
+
+
+def test_instant_ngp_checkpoint_converts_and_renders_the_same_view(tmp_path):
+    """A JAX instant-ngp train state after one train step over a refreshed
+    grid (live tables, Adam moments and count 1) becomes the port's
+    checkpoint: the field alone, every Adam moment and the count, the grid
+    with its row-packed views dropped, the step. Restored into the port it
+    renders a test view as JAX does (rgb, accumulation and depth within
+    1e-4, the MLPs in float32 on both sides)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from test_torch_instant_ngp import _build, _widen, jax_float32_mlps
+    from nerfstudio_torch.engine import trainer as ttrainer
+    from nerfstudio_torch.utils.convert import trainer_checkpoint_from_jax
+
+    scene = tmp_path / "blender"
+    subprocess.run([sys.executable, str(Path(__file__).resolve().parent.parent / "tools" / "make_synthetic_dataset.py"),
+                    str(scene), "--scene", "blender", "--hw", "16", "--n-train", "4", "--n-test", "2", "--n-points",
+                    "100"], check=True, capture_output=True, timeout=300)
+    jpipe, host_state, _, pipe, state, _ = _build("instant-ngp", scene)
+    jstate = jax.tree_util.tree_map(jnp.asarray, host_state.replace(params=_widen(host_state.params, 7, flat=False)))
+    with jax_float32_mlps():
+        jstate = jpipe.aux_update_fn(jstate.replace(step=jnp.asarray(256, jnp.int32)), 256, jax.random.PRNGKey(1))
+        jstate, _ = jpipe.train_step(jstate, jpipe.datamanager.train_images, jax.random.PRNGKey(2))
+    host = jax.device_get(jstate)
+    payload = trainer_checkpoint_from_jax(host, pipe.model, state.optimizer)
+    assert set(payload["model"]) == {k for k, _ in pipe.model.named_parameters()}
+    assert all(k.startswith("field.") for k in payload["model"]) and payload["step"] == 257
+    assert payload["optimizer"]["count"] == 1 and set(payload["optimizer"]["optimizers"]) == {"field"}
+    assert set(payload["aux"]) == {"densities", "binary", "aabb", "resolution"}
+    ttrainer.write_checkpoint(tmp_path / "ckpt", 257, payload)
+    ttrainer.restore_train_state(pipe, state, ttrainer.read_checkpoint(tmp_path / "ckpt")[1])
+    np.testing.assert_array_equal(state.aux.binary.numpy(), np.asarray(host.aux.binary))
+    assert 0.0 < float(state.aux.binary.float().mean()) < 1.0
+    mu = state.optimizer.state_dict()["optimizers"]["field"]["state"]
+    assert all(float(v["step"]) == 1.0 and float(v["exp_avg"].abs().max()) > 0 for v in mu.values())
+    cam_idx = pipe.datamanager.eval_image(0)[0]
+    with jax_float32_mlps():
+        want = jpipe.render_camera(jstate.params, jpipe.datamanager.eval_cameras, cam_idx, 128, aux=jstate.aux)
+    got = pipe.render_eval_camera(state, cam_idx, 128)
+    for k in ("rgb", "accumulation", "depth"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=1e-4, err_msg=k)

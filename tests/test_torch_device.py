@@ -14,10 +14,12 @@ from nerfstudio_torch.field_components.encodings import HashEncoding
 from nerfstudio_torch.field_components.mlp import MLP
 from nerfstudio_torch.fields.density_fields import HashMLPDensityField
 from nerfstudio_torch.fields.sdf_field import SDFField
+from nerfstudio_torch.models.instant_ngp import InstantNGPModelConfig
 from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
 from nerfstudio_torch.models.neus import NeuSFactoModelConfig
 from nerfstudio_torch.model_components.bilateral_grid import init_bilateral_grid
 from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig, init_gaussian_params
+from nerfstudio_torch.ops.occupancy import init_occupancy_grid
 from nerfstudio_torch.utils.device import resolve_device
 
 
@@ -41,6 +43,8 @@ ENTRY_POINTS = {
         _cameras(), torch.zeros((2, 8, 8, 3), dtype=torch.uint8), **kw),
     "splat init": lambda **kw: init_gaussian_params(SplatfactoModelConfig(max_gaussians=16, num_random=8), **kw),
     "bilateral grids": lambda **kw: init_bilateral_grid(2, **kw),
+    "instant-ngp": lambda **kw: InstantNGPModelConfig(num_levels=2, log2_hashmap_size=10, max_res=32).setup(**kw),
+    "occupancy grid": lambda **kw: init_occupancy_grid(((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), 8, **kw),
 }
 
 

@@ -118,10 +118,24 @@ def test_cpu_render_used_the_twins(renders):
     ids=lambda d: next(iter(d)),
 )
 def test_unported_nerfacto_options_raise(option):
-    from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
+    """The options still unported raise (predicted normals, the flat field
+    and proposal layouts); the sampling options build their stacks (each
+    held against JAX's step in test_torch_nerfacto_options.py): two
+    proposal nets and no grid without the occupancy sampler, no net at
+    ``num_proposal_iterations=0``, one otherwise."""
+    from nerfstudio_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 
-    with pytest.raises(NotImplementedError):
-        NerfactoModelConfig(num_levels=2, log2_hashmap_size=10, max_res=32, **option).setup(device=CPU)
+    cfg = NerfactoModelConfig(num_levels=2, log2_hashmap_size=10, max_res=32, **option)
+    key = next(iter(option))
+    if key in ("predict_normals", "field_block", "prop_block"):
+        with pytest.raises(NotImplementedError):
+            cfg.setup(device=CPU)
+        return
+    model = cfg.setup(device=CPU)
+    nets = {"use_occupancy_sampler": 2, "num_proposal_iterations": 0}.get(key, 1)
+    assert len(model.proposal_networks) == nets
+    assert (NerfactoModel.init_aux(model, cfg, CPU) is None) == (key == "use_occupancy_sampler")
+    assert (NerfactoModel.make_aux_update_fn(model, cfg) is None) == (key == "use_occupancy_sampler")
 
 
 def test_render_needs_grid():
