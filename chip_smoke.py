@@ -156,8 +156,9 @@ shapes its path gives it, and drives the port's paths from random weights:
   (idle share, the hash grid's share, launches per step); phototourism's
   kernels are also timed there, as nerfacto-huge's are;
 * the Blender-protocol methods (phases 61-63): first a double backward
-  through K1, K7, K4 and K6 on the card, which must raise (their backwards
-  are once differentiable); then through ``scripts.gate``'s loop on the
+  through K1 on the card against its float64 twin (K1bb), and through K7,
+  K4 and K6, which must raise (their backwards are once differentiable);
+  then through ``scripts.gate``'s loop on the
   ``blender`` scene of phase 57, at their shipped configs: tensorf cut to
   2200 of its 5000 steps, through its first grid upsample (step 2000, R 128
   -> 152, the optimizer re-initialised: the loss must fall before it and
@@ -186,7 +187,19 @@ shapes its path gives it, and drives the port's paths from random weights:
 * nerfacto's sampling options (phase 66): one full-width step on the card
   against the CPU twins without the occupancy sampler (both proposal nets)
   and with the grid's PDF alone over its EMA densities
-  (``num_proposal_iterations=0``, ``occ_weight_mode="density"``).
+  (``num_proposal_iterations=0``, ``occ_weight_mode="density"``);
+* nerfacto with ``predict_normals`` (phase 67): K3b (K3's position
+  gradient, the eval normals) at an eval chunk's field samples and K1bb
+  (K1's backward differentiated again, the normals' loss) at a step's, at
+  both phases of the period-2 level cycle, against their float64 twins
+  within float32 summation bounds and timed; then the cell through
+  ``scripts.gate``'s loop on ``basic`` with ``--model.predict-normals
+  True``, cut to 800 of its 5000 steps (the loss must fall, and both normal
+  terms from the run's second quarter); at the trained state K3b and K1bb at one eval chunk's and one
+  step's inputs against the twins and timed, one step card vs CPU (tables
+  constant on the coin's vertex pairs, MLPs in float32: every loss term,
+  every gradient, the pose adjustment's), one eval chunk's normals card
+  vs CPU, and a 3-step profile.
 
 Since phases 61-63 came, phases 36-37, 42-45 and 50-51 run 600 steps
 (1000 before), 55 (nerfacto-big) 1500 of its gate's 3000, 57 750 (1000
@@ -830,7 +843,8 @@ def profile_device(run, per=PROFILED_STEPS):
 
 
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
-    ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact", "bwd_lanes", "bwd_private")),
+    ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact", "block_bwd_bwd", "bwd_lanes",
+                           "bwd_private")),
     ("gsplat kernels", ("project_fwd", "project_bwd", "view_reduce", "tile_keys", "tile_ranges", "tile_count",
                         "tile_scan", "tile_scatter", "tile_sort", "blend_fwd", "blend_bwd")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
@@ -2550,16 +2564,19 @@ def profiled_idle(name, one_step, step_ms, label):
     return dict(busy_ms=busy_ms, step_ms=step_ms, idle=idle, activities=activities, classes=classes)
 
 
-def loss_fell(run_dir, key="loss"):
+def loss_fell(run_dir, key="loss", head_quarter=0):
     """(mean of the first quarter of the logged train losses (or of the
-    term ``key``), of the last quarter, all finite and falling)."""
+    term ``key``; of the quarter ``head_quarter``, counting from 0), of the
+    last quarter, all finite and falling)."""
     losses = train_losses(run_dir, key)
     q = max(len(losses) // 4, 1)
-    head, tail = statistics.fmean(losses[:q]), statistics.fmean(losses[-q:])
+    head = statistics.fmean(losses[head_quarter * q:(head_quarter + 1) * q])
+    tail = statistics.fmean(losses[-q:])
     return head, tail, all(map(math.isfinite, losses)) and tail < head
 
 
-def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, timed=False, after=None):
+def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, timed=False, after=None,
+               overrides=None):
     """``scripts.gate.run_gate`` at the method's gate steps on the scene: it
     fails unless PSNR > 20 and SSIM > 0.7. Prints the result beside the JAX
     record's quality (the same scene protocol), the train seconds and
@@ -2573,14 +2590,15 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, tim
     (a ray method) the kernels at the trained state are also timed
     (``timed_hash_kernels``); a path without kernels (``want`` empty: plain
     neus) has none to check. ``after(run)`` runs last at the trained state
-    (after the profile); its result joins the record as ``after``."""
+    (after the profile); its result joins the record as ``after``.
+    ``overrides`` (``--a.b value`` flags) go to the gate runner."""
     from nerfstudio_torch.scripts import gate
 
     splat = method.startswith("splatfacto")
     undistort = undistort_host_ms(scene) if splat else None
     t0 = time.perf_counter()
     zero_counts()
-    res, run = gate.run_gate(method, scene, os.path.join(root, "gate"), steps)
+    res, run = gate.run_gate(method, scene, os.path.join(root, "gate"), steps, overrides=overrides)
     counts = read_counts()
     check_path(name, counts, want, none=PER_THREAD + ("hash_encode_block_per_thread", "blend_saturating_per_pixel",
                                                     "project_gaussians_bwd_viewmat"))
@@ -2590,7 +2608,8 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, tim
     m, (jp, js) = res["metrics"], (res["jax_record"] or {"psnr": None, "ssim": None}).values()
     per_step = {k: v / res["steps"] for k, v in res["launches"]["train"].items() if v}
     head, tail, fell = loss_fell(run["base_dir"])
-    log(name, f"{method} on {res['scene']} ({' '.join(SCENE_ARGS)}), shipped config, {res['steps']} steps"
+    config = "shipped config" if not overrides else f"shipped config with {' '.join(overrides)} (cell {res['cell']})"
+    log(name, f"{method} on {res['scene']} ({' '.join(SCENE_ARGS)}), {config}, {res['steps']} steps"
         + (f" (cut in depth from {gate.GATE_STEPS[method]}: the gate is not asked; logged loss {head:.4f} -> "
            f"{tail:.4f}, first quarter's mean to the last's)" if steps else "") + ": psnr "
         f"{m['psnr']:.2f} (JAX record {jp}), ssim {m['ssim']:.3f} (JAX record {js}), over every held-out view; "
@@ -4054,12 +4073,18 @@ def blender_after(name, method, card):
 
 
 def double_backward_refused(name, card):
-    """K1's, K7's, K4's and K6's autograd functions on the card: gradients
-    taken with ``create_graph=True`` (a cotangent that carries a graph) must
-    equal a plain backward's (within 1e-5 of their peak: the backwards sum
-    with float atomics, in no fixed order), and their own backward must
-    raise (the kernels' gradients carry no graph: once differentiable).
-    Returns {kernel: largest gap / peak}."""
+    """The hand-written kernels' autograd functions under a double backward
+    on the card. K1 is differentiable twice: the gradient in the positions
+    of <d, u> (d the position gradient of <K1(p), G>, taken with
+    ``create_graph=True``) must equal the float64 twin of K1bb in the
+    positions, the table and G within ``k1bb_bounds`` (levels 0 and 2 at
+    scale 2, 1 and 3 at 0: the subsampled backward), and a cotangent of its
+    table gradient must raise NotImplementedError. K7's, K4's and K6's
+    gradients taken with ``create_graph=True`` must equal a plain
+    backward's (within 1e-5 of their peak: the backwards sum with float
+    atomics, in no fixed order), and their own backward must raise (once
+    differentiable). Returns {kernel: largest gap / peak}, K1's over its
+    bounds' largest ratio."""
     from nerfstudio_torch.ops import hash_grid as hg
     from nerfstudio_torch.ops.gsplat import projection as pj
     from nerfstudio_torch.ops.gsplat import rasterize as rz
@@ -4077,19 +4102,41 @@ def double_backward_refused(name, card):
         m2, dep, con, radii, valid, _ = pj.project_gaussians(means, scales, quats, torch.eye(4), *cam)
     colors = torch.rand((256, 3), generator=gen, device="cuda").requires_grad_(True)
 
+    # K1: differentiable twice
+    cot = torch.randn((4096, 8), generator=gen, device="cuda").requires_grad_(True)
+    u = torch.randn((4096, 3), generator=gen, device="cuda")
+    levels, kw = (0, 2), {k: v for k, v in geom.items() if k != "num_levels"}
+    level_scales = [2.0 if l in levels else 0.0 for l in range(4)]
+    out = hg.hash_encode(pos, table, block=True, bwd_levels=levels, bwd_scale=2.0, **geom)
+    (d,) = torch.autograd.grad((out * cot).sum(), pos, create_graph=True)
+    got = torch.autograd.grad((d * u).sum(), (cot, table, pos))
+    ref = hg._block_stochastic_twin_bwd_bwd(pos.detach(), table.detach(), cot.detach(), u, level_scales,
+                                            dtype=torch.float64, **kw)
+    limits = k1bb_bounds(pos.detach(), table.detach(), cot.detach(), u, level_scales, kw)
+    ratio = max(float(((a.double() - b).abs() / lim).max()) for a, b, lim in zip(got, ref, limits))
+    (g_table,) = torch.autograd.grad((hg.hash_encode(pos, table, block=True, **geom) * cot).sum(), table,
+                                     create_graph=True)
+    try:
+        torch.autograd.grad(g_table.square().sum(), pos)
+        table_raised = False
+    except NotImplementedError:
+        table_raised = True
+    if not (ratio <= 1.0 and table_raised):
+        raise AssertionError(f"{name}: K1's double backward on the card: {ratio:.3g} of its limit against the "
+                             f"float64 twin, a table-gradient cotangent refused {table_raised}")
+    out = {"K1": ratio}
+
     def k6(c):
         rgb, alpha, _ = rz.rasterize(m2, con, c, torch.full((256,), 0.6, device="cuda"), dep, radii, valid,
                                      width=64, height=64)
         return (rgb * rgb).sum() + alpha.sum()
 
     cases = {
-        "K1": ((pos, table), lambda: 0.5 * hg.hash_encode(pos, table, block=True, **geom).square().sum()),
         "K7": ((pos, table), lambda: 0.5 * hg.hash_encode(pos, table, **geom).square().sum()),
         "K4": ((means.requires_grad_(True),), lambda: pj.project_gaussians(means, scales, quats, torch.eye(4),
                                                                           *cam)[0].square().sum()),
         "K6": ((colors,), lambda: k6(colors)),
     }
-    out = {}
     for k, (inputs, loss) in cases.items():
         grads = torch.autograd.grad(loss(), inputs, create_graph=True)
         plain = torch.autograd.grad(loss(), inputs)
@@ -4104,9 +4151,11 @@ def double_backward_refused(name, card):
             raise AssertionError(f"{name}: {k}'s double backward on the card: first order gap {gap:.3g} of the "
                                  f"peak, second order refused {raised}")
         out[k] = gap
-    log(name, f"a double backward through K1, K7, K4 and K6 on the card raises (once differentiable); the "
+    log(name, f"K1's double backward on the card (bwd_levels (0, 2) at scale 2) against its float64 twin: "
+        f"{out['K1']:.3g} of its summation-order limit at worst (d_grad, d_table, d_positions), a cotangent of "
+        f"its table gradient refused; a double backward through K7, K4 and K6 raises (once differentiable), the "
         f"gradients taken with create_graph against a plain backward's, max gap / peak: "
-        + ", ".join(f"{k} {v:.2g}" for k, v in out.items()) + f" (limit 1e-5) on {card}")
+        + ", ".join(f"{k} {out[k]:.2g}" for k in cases) + f" (limit 1e-5) on {card}")
     return out
 
 
@@ -4410,6 +4459,418 @@ def nerfacto_option_steps(name, card):
     return out
 
 
+
+# --------------------------------------------------------------------------
+# nerfacto with predict_normals: K3b (K3's position gradient, the eval
+# normals) and K1bb (K1's backward differentiated again, the normals' loss)
+
+
+NORMALS_STEPS = 800  # phase 67, cut in depth from the cell's 5000 (full run: PERF.md §6)
+NORMALS_FLAGS = ["--model.predict-normals", "True"]
+NORMALS_KERNELS = NERFACTO_KERNELS + ("hash_encode_block_bwd_bwd", "hash_encode_block_exact_bwd")
+NORMALS_EVAL_RAYS = 4096  # the card-vs-CPU eval chunk (the CPU renders it with the normals' gradient)
+NORMALS_TERMS = ("orientation_loss", "pred_normal_loss")
+
+
+def k1bb_bounds(pos, table, g, u, scales, kw):
+    """Per-entry limits on |K1bb - float64 twin| of (d_grad, d_table,
+    d_positions), from the float64 sums of the terms' magnitudes over the
+    geometry: |h_c| <= sum_a |u_a| |dw_a| |w_b| |w_c| (the three products
+    of h_c, each rounded four times, and two adds), the table values
+    bf16-rounded as read. A float32 sum of k terms in any order is off by at
+    most (k-1) u sum|t|; each term's own roundings add a few u more:
+    d_grad 8 corners and ~8 roundings a term; d_table (its atomics'
+    k terms an entry) 8 roundings a term and FLT_MIN a term and a partial
+    sum (atomics flush subnormals to zero); d_positions 2F + 8 roundings a
+    corner term (a_c's F products and sums, the second-derivative products),
+    8 corners, L levels. Subnormal results round to 2^-150 absolute:
+    SUBNORMAL_ULP per rounding, times res (d_grad) or res^2 (d_positions)
+    for the scaling inside the terms."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    L, S, lanes = table.shape
+    T = kw["hash_table_size"]
+    F = 128 * S // T
+    n = pos.shape[0]
+    dev = pos.device
+    grad_sum = torch.zeros((n, L * F), dtype=torch.float64, device=dev)
+    tab_sum = torch.zeros((L, S * lanes), dtype=torch.float64, device=dev)
+    counts = torch.zeros((L, S * lanes), dtype=torch.float64, device=dev)
+    pos_sum = torch.zeros((n, 3), dtype=torch.float64, device=dev)
+    ua = u.abs().double()
+    res_all = hg.compute_level_resolutions(L, kw["min_res"], kw["max_res"])
+    with torch.no_grad():
+        for l, res in enumerate(res_all):
+            idx, phi, dphi = hg._stochastic_level(pos, int(res), T, F)
+            phi = [(a.double().abs(), b.double().abs()) for a, b in phi]
+            dphi = [(a.double().abs(), b.double().abs()) for a, b in dphi]
+            vals = hg._bf16(table[l].reshape(-1)[idx]).double().abs().view(n, 8, F)
+            ga = g[:, l * F:(l + 1) * F].abs().double()
+            habs, second = [], []
+            for c in range(8):
+                bits = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+                p = [phi[a][bits[a]] for a in range(3)]
+                d = [dphi[a][bits[a]] for a in range(3)]
+                habs.append(ua[:, 0] * d[0] * p[1] * p[2] + ua[:, 1] * p[0] * d[1] * p[2]
+                            + ua[:, 2] * p[0] * p[1] * d[2])
+                second.append(torch.stack([d[0] * (d[1] * p[2] * ua[:, 1] + p[1] * d[2] * ua[:, 2]),
+                                           d[1] * (d[0] * p[2] * ua[:, 0] + p[0] * d[2] * ua[:, 2]),
+                                           d[2] * (d[0] * p[1] * ua[:, 0] + p[0] * d[1] * ua[:, 1])], dim=-1))
+            habs = torch.stack(habs, dim=-1)
+            grad_sum[:, l * F:(l + 1) * F] = (habs[:, :, None] * vals).sum(dim=1)
+            if scales[l]:
+                terms = abs(scales[l]) * habs[:, :, None] * ga[:, None, :]
+                tab_sum[l].index_add_(0, idx.reshape(-1), terms.reshape(-1))
+                live = (habs != 0)[:, :, None].expand(n, 8, F)
+                counts[l] += torch.bincount(idx.view(n, 8, F)[live], minlength=S * lanes).double()
+            a_abs = (ga[:, None, :] * vals).sum(dim=-1)
+            pos_sum += (a_abs[:, :, None] * torch.stack(second, dim=1)).sum(dim=1)
+    top = float(max(res_all))
+    grad_b = 16 * (U32 * grad_sum + SUBNORMAL_ULP * top)
+    tab_b = ((counts + 8.0) * (U32 * tab_sum + FLT_MIN)).view(L, S, lanes)
+    k = 2 * F + 16 + 8 + L
+    pos_b = k * (U32 * pos_sum + SUBNORMAL_ULP * top * top)
+    return grad_b, tab_b, pos_b
+
+
+def check_k1bb(name, pos, table, g, u, scales, kw, what):
+    """K1bb against its float64 twin within ``k1bb_bounds``; the levels of
+    scale 0 untouched in the table gradient. Returns its record."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    got = hg._block_bwd_bwd_kernel(pos, table, g, u, scales, **kw)
+    ref = hg._block_stochastic_twin_bwd_bwd(pos, table, g, u, scales, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    bounds = k1bb_bounds(pos, table, g, u, scales, kw)
+    errs, overs = {}, {}
+    for key, a, b, lim in zip(("d_grad", "d_table", "d_positions"), got, ref, bounds):
+        err = (a.double() - b).abs()
+        errs[key] = (float(err.max()), float(b.abs().max()))
+        overs[key] = int((err > lim).sum()) + int((~torch.isfinite(a)).sum())
+    silent = all(not got[1][l].any() for l, s in enumerate(scales) if not s)
+    L, S, _ = table.shape
+    log(name, f"K1bb vs float64 twin, {what}: N={pos.shape[0]} L={L} F={128 * S // kw['hash_table_size']} "
+        f"T=2^{kw['hash_table_size'].bit_length() - 1} scales={list(scales)}: max |kernel - twin| (peak) "
+        + ", ".join(f"{k} {e:.3g} ({p:.3g})" for k, (e, p) in errs.items())
+        + f"; entries over their summation-order limit {overs}; scale-0 levels untouched: {silent}")
+    if any(overs.values()) or not silent:
+        raise AssertionError(f"{name}: K1bb disagrees with its twin ({what})")
+    return dict(inputs=what, n=int(pos.shape[0]), scales=list(scales), max_abs_err=max(e for e, _ in errs.values()),
+                errors={k: dict(max_abs=e, peak=p) for k, (e, p) in errs.items()}, over=overs)
+
+
+def check_k3b(name, pos, table, g, kw, what):
+    """K3b against its float64 twin within ``position_grad_bound`` (the
+    position gradient of K3 has K1 backward's structure: per level a signed
+    sum of 8 corner terms of F products, times res). Returns its record."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    got = hg._block_exact_bwd_kernel(pos, table, g, **kw)
+    ref = hg._block_exact_twin_bwd(pos, table, g, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    L, S, _ = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    err = (got.double() - ref).abs()
+    over = int((err > position_grad_bound(g, table, L, F, kw["min_res"], kw["max_res"])).sum())
+    over += int((~torch.isfinite(got)).sum())
+    log(name, f"K3b vs float64 twin, {what}: N={pos.shape[0]} L={L} F={F} T=2^{kw['hash_table_size'].bit_length() - 1}:"
+        f" max |kernel - twin| {float(err.max()):.3g} (peak {float(ref.abs().max()):.3g}); entries over their "
+        f"summation-order limit {over}")
+    if over:
+        raise AssertionError(f"{name}: K3b disagrees with its twin ({what})")
+    return dict(inputs=what, n=int(pos.shape[0]), max_abs_err=float(err.max()), peak=float(ref.abs().max()))
+
+
+def time_normals_kernel(kernel, twin, moved, ops, key):
+    """Events ms of one call (median), the profiler's device ms of the
+    kernel's records (``key`` in its name), 50 calls back to back, the
+    twin's events ms, and the bound."""
+    bnd = bound(moved, ops)
+    dev, records = kernel_records_ms(kernel, key)
+    return dict(ms=median_ms(kernel), device_ms=dev, device_records=records, batch_ms=batch_ms(kernel),
+                plain_ms=median_ms(twin, runs=3, warmup=1), bound_ms=bnd[0], bound_by=bnd[1], bytes=moved)
+
+
+def normals_kernel_records(name, sets, card):
+    """Check and time K3b and K1bb at each input set: {"K3b": [...],
+    "K1bb": [...]} records with their times and bounds (the touched table
+    lines read once, ``touched_line_bytes``; K1bb's dense table gradient
+    written whole)."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    out = {"K3b": [], "K1bb": []}
+    for what, (pos, table, g), kw in sets["K3b"]:
+        rec = check_k3b(name, pos, table, g, kw, what)
+        L, S, _ = table.shape
+        F = 128 * S // kw["hash_table_size"]
+        n = pos.shape[0]
+        moved = 2 * nbytes(pos) + nbytes(g) + touched_line_bytes(pos, table, kw, True)
+        rec.update(time_normals_kernel(lambda: hg._block_exact_bwd_kernel(pos, table, g, **kw),
+                                       lambda: hg._block_exact_twin_bwd(pos, table, g, **kw), moved,
+                                       n * L * (24 + 8 * (2 * F + 9)), "block_exact_bwd_kernel"))
+        out["K3b"].append(rec)
+    for what, (pos, table, g, u, scales), kw, needs in sets["K1bb"]:
+        rec = check_k1bb(name, pos, table, g, u, scales, kw, what)
+        L, S, _ = table.shape
+        F = 128 * S // kw["hash_table_size"]
+        n = pos.shape[0]
+        moved = (nbytes(pos, g, u) + touched_line_bytes(pos, table, kw, False)
+                 + (nbytes(g) if needs["need_grad"] else 0) + (nbytes(table) if needs["need_table"] else 0)
+                 + (nbytes(pos) if needs["need_positions"] else 0))
+        rec.update(needs=needs, **time_normals_kernel(
+            lambda: hg._block_bwd_bwd_kernel(pos, table, g, u, scales, **needs, **kw),
+            lambda: hg._block_stochastic_twin_bwd_bwd(pos, table, g, u, scales, **needs, **kw), moved,
+            n * L * (30 + 8 * (4 * F + 40)), "block_bwd_bwd_kernel"))
+        out["K1bb"].append(rec)
+    for k, recs in out.items():
+        for r in recs:
+            log(name, f"{k} at {r['inputs']} (N={r['n']}) on {card}: {r['ms']:.4f} ms (events), device "
+                f"{r['device_ms']:.4f} ({r['device_records']} records), back to back {r['batch_ms']:.4f}; bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes'] / 2**20:.1f} MiB); twin "
+                f"{r['plain_ms']:.3f} ms")
+    return out
+
+
+def normals_check_inputs(gen):
+    """K3b at one shipped eval chunk's field samples (32,768 rays x 32) and
+    K1bb at one from-disk step's (4096 rays x 32), at the field's width (L8
+    F4 T=2^19, max_res 2048), K1bb at both phases of the period-2 cycle."""
+    kw = dict(min_res=16, max_res=2048, hash_table_size=2**19)
+    sets = {"K3b": [], "K1bb": []}
+    pos, table = kernel_inputs(CHUNK * 32, 8, 19, 4, 16, 2048, "cuda", gen)
+    g = torch.randn((pos.shape[0], 32), generator=gen, device="cuda")
+    sets["K3b"].append(("check inputs", (pos, table, g), kw))
+    n = 4096 * 32
+    pos, table = kernel_inputs(n, 8, 19, 4, 16, 2048, "cuda", gen)
+    g = torch.randn((n, 32), generator=gen, device="cuda")
+    u = torch.randn((n, 3), generator=gen, device="cuda")
+    needs = dict(need_grad=True, need_table=True, need_positions=True)
+    for scales in ((2.0, 0.0) * 4, (0.0, 2.0) * 4):
+        sets["K1bb"].append((f"check inputs, scales {scales[:2]}", (pos, table, g, u, scales), kw, needs))
+    return sets
+
+
+def pair_constant_tables(model, gen):
+    """Hash tables on which K1's stochastic rounding changes no value, so a
+    step's card and CPU runs agree though their sample positions differ in
+    the last bits: on each dense level the value of vertex v depends on
+    ((v + 1) >> 1) per axis (the two vertices an odd cell's coin chooses
+    between hold one value; an even cell interpolates between two), drawn
+    from ``gen``; a hashed level is flat (one value per feature; its
+    vertices share entries). The dense levels keep a density gradient, so
+    the normals live."""
+    from nerfstudio_torch.field_components.encodings import HashEncoding
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, HashEncoding):
+                continue
+            L, S, _ = m.hash_table.shape
+            T, F = m.hash_table_size, m.features_per_level
+            bpr = 16 // F
+            tab = torch.empty((L, S * 128))
+            for l, res in enumerate(hg.compute_level_resolutions(L, m.min_res, m.max_res)):
+                bs, dense = hg._block_level_layout(int(res), T)
+                if not dense:
+                    tab[l] = (torch.rand((F,), generator=gen) * 2 - 1).repeat(S * 128 // F)
+                    continue
+                tab[l] = 0.0
+                values = torch.rand((bs + 1, bs + 1, bs + 1, F), generator=gen) * 2 - 1
+                b = torch.arange(bs**3)
+                coords = (b // (bs * bs), (b // bs) % bs, b % bs)
+                for c in range(8):
+                    q = [(2 * coords[a] + ((c >> (2 - a)) & 1) + 1) >> 1 for a in range(3)]
+                    lanes = (b // bpr) * 128 + (b % bpr) * (8 * F) + c * F
+                    tab[l, lanes[:, None] + torch.arange(F)] = values[q[0], q[1], q[2]]
+            m.hash_table.copy_(tab.view(L, S, 128).to(m.hash_table.device))
+
+
+def normals_step_card_vs_cpu(run):
+    """One step at the trained state on the card and on the CPU twins:
+    copies of the trained model with ``pair_constant_tables`` and every MLP
+    in float32, the trained grid, the run's images and cameras, the same
+    CHECK_RAYS pixels and jitter drawn on the host, the next step's kwargs,
+    a fresh optimizer each. Returns (card metrics, CPU metrics, loss rel,
+    grads rel (the pose adjustment's among them), tables rel, {term: rel},
+    the pose adjustment's rel)."""
+    from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
+    from nerfstudio_torch.engine.optimizers import PerGroupAdam, nerfacto_optimizers
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws, TrainState, VanillaPipeline
+
+    pipeline, state = run["pipeline"], run["state"]
+    dm, trained = pipeline.datamanager, pipeline.model
+    kwargs = type(trained).step_kwargs(int(state.step), trained.config)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    n, h, w = dm.train_images.shape[:3]
+    pixels = torch.stack([torch.randint(0, m, (CHECK_RAYS,), generator=gen) for m in (n, h, w)], dim=-1)
+    probes, *rounds = (torch.rand((CHECK_RAYS, 1), generator=gen) for _ in range(3))
+    weights, runs = None, []
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(trained).to(device).train()
+        if weights is None:
+            pair_constant_tables(model, torch.Generator().manual_seed(SEED + 14))
+            with torch.no_grad():  # a pose adjustment off zero, so its gradient has a second-order part
+                model.camera_optimizer.pose_adjustment.copy_(
+                    1e-3 * torch.randn(model.camera_optimizer.pose_adjustment.shape, generator=gen))
+            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        float32_mlps(model)
+        data = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=CHECK_RAYS),
+                                      dm.train_cameras.to(device), dm.train_images.cpu(), device)
+        twin = VanillaPipeline(data, model)
+        st = TrainState(PerGroupAdam(nerfacto_optimizers(), model), aux=state.aux.to(device))
+        metrics = twin.train_step(st, draws=StepDraws(pixels.to(device), SamplerUniforms(
+            probes.to(device), tuple(u.to(device) for u in rounds[:model.num_proposal_rounds() + 1]))), **kwargs)
+        grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads, model))
+        del twin, st, data
+    (m_card, g_card, model), (m_cpu, g_cpu, _) = runs
+    terms = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu if k.endswith("_loss")}
+    key = "camera_optimizer.pose_adjustment"
+    pose_rel = float((g_card[key] - g_cpu[key]).abs().max() / g_cpu[key].abs().max().clamp_min(1e-30))
+    return (m_card, m_cpu) + step_rel(m_card, g_card, m_cpu, g_cpu, model) + (terms, pose_rel)
+
+
+def float32_heads(model):
+    """Every MLP and field head of ``model`` computes its products in
+    float32 (``float32_mlps`` and the heads: the predicted-normal head)."""
+    from nerfstudio_torch.field_components.field_heads import FieldHead
+
+    float32_mlps(model)
+    for m in model.modules():
+        if isinstance(m, FieldHead):
+            m.dtype = torch.float32
+    return model
+
+
+def normals_eval_card_vs_cpu(run):
+    """One eval chunk (NORMALS_EVAL_RAYS rays spread over the first test
+    view): the pipeline's eval path on the card as shipped, whose K3b calls
+    are captured; then copies of the trained model on the card and on the
+    CPU over the same grid (K3 and K3b on the card, their twins on the CPU),
+    with every MLP and head in float32 and the proposal net's tables flat
+    (``flatten_tables``: its K1 then gives one value whichever vertex its
+    rounding picks, so both sides place the same samples). The normals are
+    the direction of the density gradient, which the fine levels make turn
+    from one sample position to the next: samples moved by the proposal's
+    redrawn roundings (positions differ in the last bits between the card
+    and the CPU) or bfloat16 products rounded another way give other
+    normals, not a fault of K3b (measured 0.25 mean abs so). Returns
+    ({output: mean |card - cpu|}, {output: max}, K3b's captured calls)."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    pipeline, state = run["pipeline"], run["state"]
+    cams = pipeline.datamanager.eval_cameras
+    rb = cams.generate_rays(camera_indices=pipeline.datamanager.eval_image(0)[0]).flatten()
+    stride = max(rb.shape[0] // NORMALS_EVAL_RAYS, 1)
+    rb = rb.map(lambda x: x[::stride][:NORMALS_EVAL_RAYS])
+    card_rb = rb.map(lambda x: x.to("cuda"))
+    calls = capture_kernel_calls({"k3b": (hg, "_block_exact_bwd_kernel")},
+                                 lambda: pipeline.eval_rays(state, card_rb))["k3b"]
+    out, weights = {}, None
+    for device, bundle in (("cuda", card_rb), ("cpu", rb.map(lambda x: x.cpu()))):
+        model = float32_heads(copy.deepcopy(pipeline.model).to(device).eval())
+        if weights is None:
+            for net in model.proposal_networks:
+                flatten_tables(net, torch.Generator().manual_seed(SEED + 16))
+            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        with torch.no_grad():
+            out[device] = {k: v.cpu() for k, v in model(bundle, model_aux=state.aux.to(device)).items()
+                           if isinstance(v, torch.Tensor)}
+        del model
+    keys = ("rgb", "accumulation", "normals", "pred_normals")
+    mean = {k: float((out["cuda"][k] - out["cpu"][k]).abs().mean()) for k in keys}
+    peak = {k: float((out["cuda"][k] - out["cpu"][k]).abs().max()) for k in keys}
+    return mean, peak, calls
+
+
+def normals_after(name, card):
+    """The checks at the trained state of phase 67: the loss fell from the
+    first quarter of the run to the last, and both normal terms from the
+    second quarter to the last (the terms are sums over the rendering
+    weights, which start near zero at the initial density: on the cell's
+    full run both rise over the first ~300 steps and fall from there, past
+    the first quarter's mean from ~1500 steps, PERF.md §6); K3b and K1bb against their twins at the inputs of one more
+    step (K1bb) and of one eval chunk (K3b), timed; one step card vs CPU
+    (every loss term 2e-3, gradients 5e-2 of the peak, the pose adjustment's
+    too); one eval chunk card vs CPU (the MLPs and heads in float32: rgb,
+    accumulation, normals and predicted normals within
+    CARD_VS_CPU_MEAN_ABS mean abs)."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    def after(run):
+        falls = {k: loss_fell(run["base_dir"], k, head_quarter=int(k in NORMALS_TERMS))
+                 for k in ("loss", "rgb_loss") + NORMALS_TERMS}
+        for k, (head, tail, fell) in falls.items():
+            if not fell:
+                raise AssertionError(f"{name}: nerfacto with normals: {k} did not fall: {head} -> {tail}")
+        calls = capture_kernel_calls({"k1bb": (hg, "_block_bwd_bwd_kernel")}, run["one_step"])["k1bb"]
+        mean, peak, k3b_calls = normals_eval_card_vs_cpu(run)
+        if len(calls) != 1 or not k3b_calls:
+            raise AssertionError(f"{name}: one step called K1bb {len(calls)} times, an eval chunk K3b "
+                                 f"{len(k3b_calls)} times")
+        sets = {"K3b": [], "K1bb": []}
+        for (pos, table, g), kw in k3b_calls[:1]:
+            sets["K3b"].append((f"a {NORMALS_EVAL_RAYS}-ray eval chunk of the trained state", (pos, table, g), kw))
+        for (pos, table, g, u, scales), kw in calls:
+            kw = dict(kw)
+            needs = {k: kw.pop(k) for k in ("need_grad", "need_table", "need_positions")}
+            sets["K1bb"].append(("a trained step", (pos, table, g, u, scales), kw, needs))
+        kernels = normals_kernel_records(name, sets, card)
+        m_card, m_cpu, loss_rel, grad_rel, table_rel, terms, pose_rel = normals_step_card_vs_cpu(run)
+        log(name, "nerfacto with normals: " + ", ".join(f"{k} {h:.6g} -> {t:.6g}" for k, (h, t, _) in falls.items())
+            + f" (the first quarter's mean to the last's; the normal terms from the second quarter's); one step at "
+            f"the trained state ({CHECK_RAYS} rays, tables "
+            f"constant on the coin's vertex pairs, the MLPs in float32) card vs CPU: loss {m_card['loss']:.6f} vs "
+            f"{m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}), terms "
+            + ", ".join(f"{k} {v:.2g}" for k, v in terms.items())
+            + f" (orientation {m_card['orientation_loss']:.4g} vs {m_cpu['orientation_loss']:.4g}, pred-normal "
+            f"{m_card['pred_normal_loss']:.4g} vs {m_cpu['pred_normal_loss']:.4g}); non-table gradients "
+            f"{grad_rel:.3g} of the peak (pose adjustment {pose_rel:.3g}; limit {STEP_GRAD_REL}); tables per level "
+            f"and feature {table_rel:.3g} (limit {STEP_TABLE_SUM_REL}); one eval chunk ({NORMALS_EVAL_RAYS} rays, "
+            "the MLPs and heads in float32) "
+            "mean |card - cpu| " + ", ".join(f"{k} {v:.3g}" for k, v in mean.items()) + " (max "
+            + ", ".join(f"{k} {v:.3g}" for k, v in peak.items()) + f"; limit {CARD_VS_CPU_MEAN_ABS}) on {card}")
+        if (loss_rel > STEP_LOSS_RTOL or max(terms.values()) > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL
+                or pose_rel > STEP_GRAD_REL or table_rel > STEP_TABLE_SUM_REL
+                or max(mean.values()) > CARD_VS_CPU_MEAN_ABS):
+            raise AssertionError(f"{name}: card and CPU nerfacto-with-normals steps or eval chunks disagree")
+        return dict(falls={k: v[:2] for k, v in falls.items()}, loss_rel=loss_rel, terms=terms, grad_rel=grad_rel,
+                    pose_rel=pose_rel, table_rel=table_rel, eval_mean=mean, eval_max=peak, kernels=kernels)
+
+    return after
+
+
+def normals_phase(ph, card, scene, disk_root, disk):
+    """Phase 67: K3b and K1bb against their float64 twins at the check
+    inputs (``normals_check_inputs``) and timed; nerfacto with
+    ``predict_normals`` trained from disk on the basic scene through
+    ``scripts.gate``'s loop for NORMALS_STEPS steps (``gate_phase`` with the
+    override, its own cell: every kernel of the path launched, the loss
+    falls), then ``normals_after`` at the trained state. Returns the
+    check-input records; adds the run to ``disk``."""
+    name = ph(67, f"nerfacto with predict_normals on basic, {NORMALS_STEPS} steps")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    checks = normals_kernel_records(name, normals_check_inputs(gen), card)
+    # a run directory of its own: phase 36's nerfacto run on the same scene
+    # logged its scalars under disk_root's
+    rec = disk["gate_nerfacto_normals"] = gate_phase(name, "nerfacto", scene, os.path.join(disk_root, "normals"),
+                                                     card, NORMALS_KERNELS, steps=NORMALS_STEPS,
+                                                     after=normals_after(name, card), overrides=NORMALS_FLAGS)
+    per_step = {k: v / rec["steps"] for k, v in rec["gate_launches"]["train"].items() if v}
+    idle = rec["idle"]
+    log(name, f"nerfacto with normals: {rec['train_rays_per_sec']:,.0f} rays/s over the run (host clock); launches "
+        f"per train step {per_step}, in the eval {({k: v for k, v in rec['gate_launches']['eval'].items() if v})}; "
+        + ("per profiled step not measured" if idle is None else
+           f"per profiled step {idle['busy_ms']:.2f} ms device-busy of {idle['step_ms']:.2f} ms, idle "
+           f"{idle['idle']:.1%}, the hash-grid kernels {idle['classes'].get('hash-grid kernels', 0.0):.3f} ms")
+        + f" on {card}")
+    return checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -4423,7 +4884,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 66
+    n_phases = 67
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -4468,7 +4929,8 @@ def main() -> int:
         check_outputs(images, FRAME_HW)
     want = NUM_FRAMES * chunks_per_frame
     if render_launches != {"hash_encode_block": want, "hash_encode_block_exact": want, "hash_encode_block_bwd": 0,
-                           "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_per_thread": 0,
+                           "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_exact_bwd": 0,
+                           "hash_encode_block_bwd_bwd": 0, "hash_encode_block_per_thread": 0,
                            "hash_encode_bwd_per_thread": 0, "hash_encode_flat_per_thread": 0}:
         raise AssertionError(f"kernel launches {render_launches}, expected {want} of each forward (one per chunk, "
                              "in the default design)")
@@ -5082,6 +5544,8 @@ def main() -> int:
         # sampling options
         instant_ngp_methods(ph, card, disk_root, disk)
         nerfacto_options = nerfacto_option_steps(ph(66, "nerfacto's sampling options, card vs cpu"), card)
+        # 67. nerfacto with predict_normals: K3b and K1bb
+        normals_checks = normals_phase(ph, card, scene, disk_root, disk)
     finally:
         for proc, _, _ in jobs.values():
             proc.kill()
@@ -5290,7 +5754,7 @@ def main() -> int:
     # grid's card-vs-CPU record of phase 48
     kernels[0]["blender_methods"] = {method: dict(disk[f"gate_{method}"]["after"], idle=disk[f"gate_{method}"]["idle"])
                                      for method, _ in BLENDER_RUNS}
-    kernels[0]["double_backward_gap"] = double_backward  # K1, K7, K4, K6: refused, first order vs plain
+    kernels[0]["double_backward_gap"] = double_backward  # K1 vs its twin; K7, K4, K6 refused, first order vs plain
     # instant-ngp and its bounded variant (phases 64-65): K1 forward and
     # backward at one step's calls and K3 at one eval chunk, K1 at one
     # whole-grid refresh, the checks at the trained state; nerfacto's
@@ -5306,6 +5770,25 @@ def main() -> int:
                                  for method, _ in NGP_RUNS}
     kernels[0]["nerfacto_options"] = nerfacto_options
     kernels[-1]["k8_tensorf_step"] = k8_tensorf
+    # K3b and K1bb (phase 67): their launches in nerfacto-with-normals' run
+    # (training and eval, counted from 0 just before it), the check inputs'
+    # records (times, bound, errors) and the trained state's
+    normals = disk["gate_nerfacto_normals"]
+    for key, kname, label, replaces in (
+            ("K3b", "hash_encode_block_exact_bwd", "hash_encode_block_exact_bwd (K3b, K3's position gradient)",
+             "nerfstudio_tpu/ops/hash_grid.py:696"),
+            ("K1bb", "hash_encode_block_bwd_bwd", "hash_encode_block_bwd_bwd (K1bb, K1's backward differentiated)",
+             "nerfstudio_tpu/ops/hash_grid.py:439")):
+        first, trained = normals_checks[key][0], normals["after"]["kernels"][key]
+        e = entry(label, source, replaces, normals["launches"][kname],
+                  max(r["max_abs_err"] for r in normals_checks[key] + trained), first["ms"], first["plain_ms"],
+                  (first["bound_ms"], first["bound_by"]), design="per-stencil")
+        e.update(device_ms=first["device_ms"], batch_ms=first["batch_ms"], checks=normals_checks[key],
+                 trained=trained, launches_per_train_step=normals["gate_launches"]["train"][kname] / normals["steps"],
+                 eval_launches=normals["gate_launches"]["eval"][kname])
+        kernels.append(e)
+    kernels[0]["nerfacto_normals"] = dict({k: v for k, v in normals["after"].items() if k != "kernels"},
+                                          idle=normals["idle"], loss=normals["loss"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

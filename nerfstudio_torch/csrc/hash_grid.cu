@@ -17,6 +17,12 @@
 //     _row_gather_block_tw_bwd, _row_gather_block_tw_oh_bwd (the one-hot
 //     matmul backward of the dense coarse levels) and _grad_scale, plus
 //     XLA's autodiff of block_level_geometry down to the positions.
+//   * K3b: XLA's autodiff of _block_exact_trilerp (hash_encode(block_exact=
+//     True) under jax.grad in the positions; the eval normals):
+//     block_exact_bwd_kernel.
+//   * K1bb: XLA's autodiff of K1's backward (the same functions
+//     differentiated again, for the cotangent of its position gradient; the
+//     normals' loss in training): block_bwd_bwd_kernel.
 //
 // K7's forward has the same two designs: one thread per (sample, level)
 // (flat_encode_kernel) and, for F = 2 and 4, lane pairs with one level per
@@ -1396,6 +1402,241 @@ cudaError_t launch_bwd_design(bool block, const float* pos, const float* table, 
                        : launch_bwd_lanes<4, false>(a, g, lv, partial, pb, s);
 }
 
+// ---------------------------------------------------------------------------
+// K3b and K1bb: the derivatives that the density-gradient normals take.
+// One thread per (sample, level), levels fastest; a block of kThreads holds
+// whole samples (kThreads / L of them), so each sample's position terms are
+// summed over its levels, in level order, through shared memory, with no
+// atomics. Sample and table indices fit 32 bits (the wrapper checks the
+// lane kernels' limits: n * L < 2^31, a table of fewer than 2^32 floats);
+// offsets into pos, grad and the outputs are 64-bit.
+//
+// The per-axis factors of the corner weights and their derivatives in the
+// position x: the offset o = clip(x*res - i0, 0, 1) has do/dx = res inside
+// the cell, res/2 on its faces (jnp.clip's max/min pair at a tie) and 0
+// outside; its second derivative is 0. K3's factors are (1 - o, o); K1's
+// are the same on an even axis and the coin's constant (upf, 1 - upf) on an
+// odd one.
+//
+// What bounds them: the gathered corner values (K3b: eight F-float groups
+// in up to eight 128-byte lines per stencil; K1bb: one 8F-float block) and,
+// for K1bb's table gradient, one float atomic per (corner of nonzero
+// weight, feature) on the levels of nonzero scale. The arithmetic is a few
+// dozen flops per gathered float. A simple first design: one thread per
+// stencil, scalar loads.
+
+__device__ __forceinline__ void axis_slope_cell(float p, int res, int* i0, float* o, float* slope) {
+  const float s = __fmul_rn(p, (float)res);
+  int c = (int)floorf(s);
+  c = min(max(c, 0), res - 1);
+  *i0 = c;
+  const float t = __fsub_rn(s, (float)c);
+  *o = fminf(fmaxf(t, 0.0f), 1.0f);
+  *slope = (t > 0.0f && t < 1.0f) ? (float)res : (t == 0.0f || t == 1.0f) ? 0.5f * (float)res : 0.0f;
+}
+
+// Sum the threads' three position terms over each sample's L levels (the
+// block holds whole samples: threads [L*k, L*k + L) are sample k's levels)
+// and store them, in level order.
+__device__ __forceinline__ void store_sample_sums(float (*part)[3], const float dp[3], int L, bool live, bool first,
+                                                  float* d_pos, uint32_t i) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) part[threadIdx.x][a] = dp[a];
+  __syncthreads();
+  if (live && first && d_pos != nullptr) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float acc = part[threadIdx.x][a];
+      for (int k = 1; k < L; ++k) acc = __fadd_rn(acc, part[threadIdx.x + k][a]);
+      d_pos[3 * (int64_t)i + a] = acc;
+    }
+  }
+}
+
+// K3b. d_pos[i] = sum over levels and axes of slope * d_o, with
+// d_o[a] = sum_c (+-1) (the other two axes' factors) * a_c and
+// a_c = sum_f g[l*F+f] * bf16(corner c's value f).
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    block_exact_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ table,
+                           const float* __restrict__ grad, float* __restrict__ d_pos, uint32_t n,
+                           uint32_t level_stride, uint32_t nblocks, LevelGeometry g) {
+  constexpr int kBlocksPerRow = kLanes / (8 * F);
+  __shared__ float part[kThreads][3];
+  const int L = g.num_levels;
+  const int per_block = (kThreads / L) * L;
+  const uint32_t t = blockIdx.x * (uint32_t)per_block + threadIdx.x;
+  const bool live = (int)threadIdx.x < per_block && t < n * (uint32_t)L;
+  const uint32_t i = live ? t / (uint32_t)L : 0u;
+  const int l = live ? (int)(t - i * (uint32_t)L) : 0;
+  float dp[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+    const int res = g.res[l];
+    int i0[3];
+    float w[3][2], slope[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float o;
+      axis_slope_cell(__ldg(pos + 3 * (int64_t)i + a), res, &i0[a], &o, &slope[a]);
+      w[a][0] = __fsub_rn(1.0f, o);
+      w[a][1] = o;
+    }
+    float gl[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) gl[f] = __ldg(grad + ((int64_t)i * L + l) * F + f);
+    const float* level_table = table + (uint32_t)l * level_stride;
+    float d_o[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int d[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
+      const int vx = i0[0] + d[0], vy = i0[1] + d[1], vz = i0[2] + d[2];
+      const uint32_t blk = block_index(vx >> 1, vy >> 1, vz >> 1, g.blocks_per_axis[l], g.dense[l], nblocks);
+      const int parity = ((vx & 1) << 2) | ((vy & 1) << 1) | (vz & 1);
+      const float* src = level_table + (blk / kBlocksPerRow) * kLanes + (blk % kBlocksPerRow) * 8 * F + parity * F;
+      float a_c = 0.0f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) a_c = __fadd_rn(a_c, __fmul_rn(gl[f], bf16_round(__ldg(src + f))));
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int b1 = a == 0 ? 1 : 0, b2 = a == 2 ? 1 : 2;  // the other two axes
+        const float term = __fmul_rn(__fmul_rn(a_c, w[b1][d[b1]]), w[b2][d[b2]]);
+        d_o[a] = d[a] ? __fadd_rn(d_o[a], term) : __fsub_rn(d_o[a], term);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dp[a] = __fmul_rn(d_o[a], slope[a]);
+  }
+  store_sample_sums(part, dp, L, live, l == 0, d_pos, i);
+}
+
+// K1bb. For the cotangent u (n, 3) of K1 backward's position gradient,
+// per (sample, level), with h_c = u . grad w8_c and a_c = sum_f g_f v_cf
+// (v the bf16-rounded values of the sample's block):
+//   d_grad[l*F+f] = sum_c h_c v_cf                   (K1's forward, weights h)
+//   d_table[lane(c, f)] += scale[l] * h_c * g_f      (K1's scatter, weights h)
+//   d_pos += sum_c a_c (hess w8_c) u                 (the mixed partials only)
+// Each output is skipped when its pointer is null. d_table is float32 and
+// zeroed by the caller; its atomics skip a corner of h_c = 0 and a level of
+// scale 0 (outside bwd_levels), as K1's backward does.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    block_bwd_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ table,
+                         const float* __restrict__ grad, const float* __restrict__ u, float* __restrict__ d_grad,
+                         float* __restrict__ d_table, float* __restrict__ d_pos, uint32_t n, uint32_t level_stride,
+                         uint32_t nblocks, LevelGeometry g, LevelScales sc) {
+  constexpr int kBlocksPerRow = kLanes / (8 * F);
+  __shared__ float part[kThreads][3];
+  const int L = g.num_levels;
+  const int per_block = (kThreads / L) * L;
+  const uint32_t t = blockIdx.x * (uint32_t)per_block + threadIdx.x;
+  const bool live = (int)threadIdx.x < per_block && t < n * (uint32_t)L;
+  const uint32_t i = live ? t / (uint32_t)L : 0u;
+  const int l = live ? (int)(t - i * (uint32_t)L) : 0;
+  float dp[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+    const int res = g.res[l];
+    float w[3][2], dw[3][2];
+    int bc[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      int i0;
+      float o, slope;
+      axis_slope_cell(__ldg(pos + 3 * (int64_t)i + a), res, &i0, &o, &slope);
+      const bool odd = (i0 & 1) == 1;
+      const bool up = u01_hash(o, kCoinPrimes[a][0], kCoinPrimes[a][1]) < o;
+      bc[a] = (i0 + ((odd && up) ? 1 : 0)) >> 1;
+      const float upf = up ? 1.0f : 0.0f;
+      w[a][0] = odd ? upf : __fsub_rn(1.0f, o);
+      w[a][1] = odd ? __fsub_rn(1.0f, upf) : o;
+      dw[a][0] = odd ? 0.0f : -slope;
+      dw[a][1] = odd ? 0.0f : slope;
+    }
+    const uint32_t blk = block_index(bc[0], bc[1], bc[2], g.blocks_per_axis[l], g.dense[l], nblocks);
+    const uint32_t off = (uint32_t)l * level_stride + (blk / kBlocksPerRow) * kLanes + (blk % kBlocksPerRow) * 8 * F;
+    const int64_t row = ((int64_t)i * L + l) * F;
+    float gl[F], dg[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      gl[f] = __ldg(grad + row + f);
+      dg[f] = 0.0f;
+    }
+    const float* ui = u + 3 * (int64_t)i;
+    const float u0 = __ldg(ui), u1 = __ldg(ui + 1), u2 = __ldg(ui + 2);
+    const float scale = d_table != nullptr ? sc.scale[l] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int bx = (c >> 2) & 1, by = (c >> 1) & 1, bz = c & 1;
+      const float px = w[0][bx], py = w[1][by], pz = w[2][bz];
+      const float dx = dw[0][bx], dy = dw[1][by], dz = dw[2][bz];
+      // h_c = u . grad w8_c
+      float h = __fmul_rn(__fmul_rn(__fmul_rn(u0, dx), py), pz);
+      h = __fadd_rn(h, __fmul_rn(__fmul_rn(__fmul_rn(u1, px), dy), pz));
+      h = __fadd_rn(h, __fmul_rn(__fmul_rn(__fmul_rn(u2, px), py), dz));
+      float v[F];
+      float a_c = 0.0f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        v[f] = bf16_round(__ldg(table + off + c * F + f));
+        a_c = __fadd_rn(a_c, __fmul_rn(gl[f], v[f]));
+        dg[f] = __fadd_rn(dg[f], __fmul_rn(h, v[f]));
+      }
+      if (scale != 0.0f && h != 0.0f) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) atomicAdd(d_table + off + c * F + f, __fmul_rn(__fmul_rn(scale, h), gl[f]));
+      }
+      // (hess w8_c) u: d2 w8_c / dx_a dx_b = dw_a dw_b (the third factor)
+      dp[0] = __fadd_rn(dp[0], __fmul_rn(a_c, __fmul_rn(dx, __fadd_rn(__fmul_rn(__fmul_rn(dy, pz), u1),
+                                                                     __fmul_rn(__fmul_rn(py, dz), u2)))));
+      dp[1] = __fadd_rn(dp[1], __fmul_rn(a_c, __fmul_rn(dy, __fadd_rn(__fmul_rn(__fmul_rn(dx, pz), u0),
+                                                                     __fmul_rn(__fmul_rn(px, dz), u2)))));
+      dp[2] = __fadd_rn(dp[2], __fmul_rn(a_c, __fmul_rn(dz, __fadd_rn(__fmul_rn(__fmul_rn(dx, py), u0),
+                                                                     __fmul_rn(__fmul_rn(px, dy), u1)))));
+    }
+    if (d_grad != nullptr) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) d_grad[row + f] = dg[f];
+    }
+  }
+  store_sample_sums(part, dp, L, live, l == 0, d_pos, i);
+}
+
+// One block per kThreads / L samples.
+template <int F>
+cudaError_t launch_normals_kernel(bool bwd_bwd, const float* pos, const float* table, const float* grad,
+                                  const float* u, float* d_grad, float* d_table, float* d_pos, uint32_t n,
+                                  uint32_t level_stride, uint32_t nblocks, const LevelGeometry& g,
+                                  const LevelScales& sc, cudaStream_t s) {
+  const uint32_t per_block = (uint32_t)(kThreads / g.num_levels);
+  const uint32_t grid = (n + per_block - 1) / per_block;
+  if (bwd_bwd)
+    block_bwd_bwd_kernel<F><<<grid, kThreads, 0, s>>>(pos, table, grad, u, d_grad, d_table, d_pos, n, level_stride,
+                                                      nblocks, g, sc);
+  else
+    block_exact_bwd_kernel<F><<<grid, kThreads, 0, s>>>(pos, table, grad, d_pos, n, level_stride, nblocks, g);
+  return cudaGetLastError();
+}
+
+// The shared entry of K3b and K1bb: checks the 32-bit limits and the width.
+cudaError_t launch_normals(bool bwd_bwd, const float* pos, const float* table, const float* grad, const float* u,
+                           float* d_grad, float* d_table, float* d_pos, long long n, int features,
+                           long long rows_per_level, long long hash_table_size, const LevelGeometry& g,
+                           const float* scales, cudaStream_t s) {
+  if ((uint64_t)n * (uint64_t)g.num_levels >= (1ull << 31) ||
+      (uint64_t)g.num_levels * (uint64_t)rows_per_level * kLanes >= (1ull << 32))
+    return cudaErrorInvalidValue;
+  LevelScales sc;
+  for (int l = 0; l < g.num_levels; ++l) sc.scale[l] = scales != nullptr ? scales[l] : 0.0f;
+  const uint32_t stride = (uint32_t)(rows_per_level * kLanes), nb = (uint32_t)(hash_table_size / 8);
+  switch (features) {
+    case 1: return launch_normals_kernel<1>(bwd_bwd, pos, table, grad, u, d_grad, d_table, d_pos, (uint32_t)n, stride, nb, g, sc, s);
+    case 2: return launch_normals_kernel<2>(bwd_bwd, pos, table, grad, u, d_grad, d_table, d_pos, (uint32_t)n, stride, nb, g, sc, s);
+    case 4: return launch_normals_kernel<4>(bwd_bwd, pos, table, grad, u, d_grad, d_table, d_pos, (uint32_t)n, stride, nb, g, sc, s);
+    case 8: return launch_normals_kernel<8>(bwd_bwd, pos, table, grad, u, d_grad, d_table, d_pos, (uint32_t)n, stride, nb, g, sc, s);
+    case 16: return launch_normals_kernel<16>(bwd_bwd, pos, table, grad, u, d_grad, d_table, d_pos, (uint32_t)n, stride, nb, g, sc, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kExact>
 cudaError_t launch(int features_per_level, const float* pos, const float* table,
                    float* out, int64_t n, int64_t rows_per_level, uint32_t nblocks,
@@ -1695,6 +1936,41 @@ int nst_hash_encode_flat_bwd(const void* pos, const void* table, const void* gra
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K3b: K3's position gradient. pos (n, 3), table (num_levels,
+// rows_per_level, 128) and grad (n, num_levels * features_per_level) are
+// f32 device inputs; d_pos (n, 3) receives the gradient. n * num_levels
+// < 2^31 and a table of fewer than 2^32 floats. Returns a cudaError_t.
+int nst_hash_encode_block_exact_bwd(const void* pos, const void* table, const void* grad, void* d_pos, long long n,
+                                    int num_levels, int features_per_level, long long rows_per_level,
+                                    long long hash_table_size, const int* resolutions, void* stream) {
+  LevelGeometry g;
+  const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
+  if (bad != cudaSuccess) return (int)bad;
+  if (n == 0) return (int)cudaSuccess;
+  return (int)launch_normals(false, (const float*)pos, (const float*)table, (const float*)grad, nullptr, nullptr,
+                             nullptr, (float*)d_pos, n, features_per_level, rows_per_level, hash_table_size, g,
+                             nullptr, (cudaStream_t)stream);
+}
+
+// K1bb: K1's backward differentiated again. pos, table and grad as for K1's
+// backward; u (n, 3) is the cotangent of its position gradient. d_grad (n,
+// num_levels * features_per_level) and d_pos (n, 3) are written; d_table,
+// of the table's shape, must be zeroed by the caller and receives the
+// table gradient times scales[l] (a host array of num_levels floats). Any
+// output may be null to skip it. The limits of K3b. Returns a cudaError_t.
+int nst_hash_encode_block_bwd_bwd(const void* pos, const void* table, const void* grad, const void* u, void* d_grad,
+                                  void* d_table, void* d_pos, long long n, int num_levels, int features_per_level,
+                                  long long rows_per_level, long long hash_table_size, const int* resolutions,
+                                  const float* scales, void* stream) {
+  LevelGeometry g;
+  const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
+  if (bad != cudaSuccess) return (int)bad;
+  if (n == 0 || (d_grad == nullptr && d_table == nullptr && d_pos == nullptr)) return (int)cudaSuccess;
+  return (int)launch_normals(true, (const float*)pos, (const float*)table, (const float*)grad, (const float*)u,
+                             (float*)d_grad, (float*)d_table, (float*)d_pos, n, features_per_level, rows_per_level,
+                             hash_table_size, g, scales, (cudaStream_t)stream);
 }
 
 const char* nst_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -24,9 +24,10 @@ class HashEncoding(nn.Module):
     """Instant-NGP multiresolution hash grid (reference encodings.py:162-230).
 
     Every path reads the (L, S, 128) table. With neither flag it is the flat
-    layout (K7, exact 8-corner trilerp, differentiable). Otherwise the block
-    layout: K1 (stochastic one-block trilerp, differentiable) or K3 (exact
-    8-corner trilerp, forward only), picked by the mode on every call: K3
+    layout (K7, exact 8-corner trilerp, differentiable once). Otherwise the
+    block layout: K1 (stochastic one-block trilerp, differentiable twice) or
+    K3 (exact 8-corner trilerp, differentiable in the positions), picked by
+    the mode on every call: K3
     only when ``block_exact`` is set and the module is in eval mode, K1
     otherwise, as the reference field's ``block_exact=hash_block and not
     train and exact_eval``. ``device`` None means the GPU

@@ -1,7 +1,8 @@
 """Field output names and heads (counterpart of
 ``nerfstudio_tpu/field_components/field_heads.py``): the density and RGB
-heads of the NeRF field and nerfacto's semantic head, each one linear
-layer in bfloat16 products with float32 parameters and output."""
+heads of the NeRF field, nerfacto's semantic head and its predicted-normal
+head, each one linear layer in bfloat16 products with float32 parameters
+and output."""
 
 from __future__ import annotations
 
@@ -83,3 +84,18 @@ class SemanticFieldHead(FieldHead):
 
     def __init__(self, in_dim: int, num_classes: int, device=None):
         super().__init__(in_dim, num_classes, None, device)
+
+
+def tanh_normalize(x: torch.Tensor) -> torch.Tensor:
+    """tanh, then divided by its norm floored at 1e-6 (reference
+    field_heads.py:95-97)."""
+    x = torch.tanh(x)
+    return x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True), 1e-6)
+
+
+class PredNormalsFieldHead(FieldHead):
+    """Predicted normals: three outputs through ``tanh_normalize`` (reference
+    field_heads.py:100-105)."""
+
+    def __init__(self, in_dim: int, device=None):
+        super().__init__(in_dim, 3, tanh_normalize, device)

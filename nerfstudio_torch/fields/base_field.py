@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,12 +46,41 @@ class Field(nn.Module):
     def forward(
         self, ray_samples: RaySamples, compute_normals: bool = False, **density_kwargs
     ) -> Dict[FieldHeadNames, torch.Tensor]:
-        """Density and heads (reference base_field.py:54-86). ``density_kwargs``
-        go to ``get_density`` (nerfacto's ``bwd_levels`` gate). Normals from
-        the density gradient are not ported."""
+        """Density and heads (reference base_field.py:54-90). ``density_kwargs``
+        go to ``get_density`` (nerfacto's ``bwd_levels`` gate). With
+        ``compute_normals`` the same forward gives the density, the
+        embedding and the normals ``-grad sigma / max(|grad sigma|, 1e-10)``
+        (``density_normals``)."""
         if compute_normals:
-            raise NotImplementedError("density-gradient normals are not ported")
-        density, density_embedding = self.get_density(ray_samples, **density_kwargs)
+            density, density_embedding, normals = self.density_normals(ray_samples, **density_kwargs)
+        else:
+            density, density_embedding = self.get_density(ray_samples, **density_kwargs)
         field_outputs = self.get_outputs(ray_samples, density_embedding=density_embedding)
         field_outputs[FieldHeadNames.DENSITY] = density
+        if compute_normals:
+            field_outputs[FieldHeadNames.NORMALS] = normals
         return field_outputs
+
+    def density_normals(self, ray_samples: RaySamples, **density_kwargs):
+        """(density, embedding, normals) from one forward at point-like samples
+        on the sample positions, the density differentiated in the positions
+        as the reference's ``jax.grad(density_of)`` does. The positions keep
+        their graph (camera-opt's pose adjustment reaches the normals through
+        them), and so does the gradient when the caller records one
+        (training: the normals' losses differentiate it again). Under
+        ``no_grad`` (``render_camera``) the gradient is taken locally, in the
+        positions alone, and nothing keeps a graph."""
+        keep_graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            positions = ray_samples.frustums.get_positions()
+            if not positions.requires_grad:
+                positions = positions.detach().requires_grad_(True)
+            zeros = torch.zeros_like(positions[..., :1])
+            frustums = dataclasses.replace(ray_samples.frustums, origins=positions, starts=zeros, ends=zeros)
+            density, embedding = self.get_density(dataclasses.replace(ray_samples, frustums=frustums),
+                                                  **density_kwargs)
+            (grads,) = torch.autograd.grad(density.sum(), positions, create_graph=keep_graph)
+        if not keep_graph:
+            density, embedding = density.detach(), embedding.detach()
+        normals = -grads / torch.clamp_min(torch.linalg.norm(grads, dim=-1, keepdim=True), 1e-10)
+        return density, embedding, normals

@@ -7,9 +7,11 @@ call: training (and the occupancy update) runs the stochastic trilerp K1,
 with its level-subsampled backward; eval runs the exact 8-corner trilerp
 K3, or K1 with ``exact_eval=False``. With ``use_semantics``, a semantic
 head (MLP 2 x 64 and a linear layer to ``num_semantic_classes`` logits)
-reads the geometry feature with its gradient stopped. The transient and
-predicted-normal heads are not ported (the config can ask only for
-predicted normals; the JAX package's semantic-nerfw refuses transients)."""
+reads the geometry feature with its gradient stopped. With
+``use_pred_normals``, a predicted-normal head (MLP 3 x 64 over the
+geometry feature and the raw sample positions, a linear layer to three
+outputs, tanh and normalised). The transient heads are not ported (the
+JAX package's semantic-nerfw refuses them)."""
 
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from nerfstudio_torch.data.scene_box import SceneBox
 from nerfstudio_torch.field_components.activations import trunc_exp
 from nerfstudio_torch.field_components.embedding import Embedding
 from nerfstudio_torch.field_components.encodings import SHEncoding
-from nerfstudio_torch.field_components.field_heads import FieldHeadNames, SemanticFieldHead
+from nerfstudio_torch.field_components.field_heads import FieldHeadNames, PredNormalsFieldHead, SemanticFieldHead
 from nerfstudio_torch.field_components.mlp import MLP, MLPWithHashEncoding
 from nerfstudio_torch.field_components.spatial_distortions import SceneContraction
 from nerfstudio_torch.fields.base_field import Field, get_normalized_directions
@@ -62,8 +64,6 @@ class NerfactoField(Field):
         device=None,
     ):
         super().__init__()
-        if use_pred_normals:
-            raise NotImplementedError("the predicted-normal head is not ported")
         if not hash_block:
             raise NotImplementedError("only the block-layout hash grid is ported")
         device = resolve_device(device)
@@ -92,6 +92,11 @@ class NerfactoField(Field):
         if use_semantics:  # (reference :105-107)
             self.mlp_semantics = MLP(in_dim=geo_feat_dim, num_layers=2, layer_width=64, out_dim=64, device=device)
             self.field_head_semantics = SemanticFieldHead(64, num_semantic_classes, device=device)
+        self.use_pred_normals = use_pred_normals
+        if use_pred_normals:  # (reference :108-110)
+            self.mlp_pred_normals = MLP(in_dim=geo_feat_dim + 3, num_layers=3, layer_width=64, out_dim=64,
+                                        device=device)
+            self.field_head_pred_normals = PredNormalsFieldHead(64, device=device)
         color_in = self.direction_encoding.get_out_dim() + geo_feat_dim
         if self.use_appearance_embedding:
             self.embedding_appearance = Embedding(num_images, appearance_embedding_dim, device=device)
@@ -149,5 +154,8 @@ class NerfactoField(Field):
                     mean_emb = density_embedding.new_zeros((self.appearance_embedding_dim,))
                 emb = mean_emb.expand(density_embedding.shape[:-1] + (self.appearance_embedding_dim,))
             head_inputs.append(emb)
+        if self.use_pred_normals:  # (reference :190-195)
+            pn_in = torch.cat([density_embedding, ray_samples.frustums.get_positions()], dim=-1)
+            outputs[FieldHeadNames.PRED_NORMALS] = self.field_head_pred_normals(self.mlp_pred_normals(pn_in))
         outputs[FieldHeadNames.RGB] = self.mlp_head(torch.cat(head_inputs, dim=-1))
         return outputs

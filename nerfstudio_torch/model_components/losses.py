@@ -2,11 +2,11 @@
 the rgb MSE, mip-NeRF 360's interlevel and distortion losses, TensoRF's
 total variation of its feature planes (``tv_loss``), and the depth
 supervision of depth-nerfacto (DS-NeRF's likelihood and URF's
-line-of-sight loss, ``depth_loss``). The reference's comparison-count
-searchsorted maps to ``torch.searchsorted`` with the same side, and its
-one-hot lane select to ``torch.gather``. Not ported: the orientation and
-predicted-normal losses (they need the density-gradient normals, ROADMAP
-queue 1 item 12), and ``masked_l1``, the MonoSDF normal loss, the scale-
+line-of-sight loss, ``depth_loss``), and Ref-NeRF's orientation and the
+predicted-normal losses of nerfacto with ``predict_normals``. The
+reference's comparison-count searchsorted maps to ``torch.searchsorted``
+with the same side, and its one-hot lane select to ``torch.gather``. Not
+ported: ``masked_l1``, the MonoSDF normal loss, the scale-
 and shift-invariant depth loss, the depth ranking loss and
 ``scale_gradients_by_distance_squared``, which no ported method calls."""
 
@@ -81,6 +81,21 @@ def distortion_loss(weights_list: List[torch.Tensor], ray_samples_list: List[Ray
     c = ray_samples_to_sdist(ray_samples_list[-1])
     w = weights_list[-1][..., 0]
     return torch.mean(lossfun_distortion(c, w))
+
+
+
+def orientation_loss(weights: torch.Tensor, normals: torch.Tensor, view_dirs: torch.Tensor) -> torch.Tensor:
+    """Ref-NeRF's orientation loss: normals must not face away from the
+    camera (reference losses.py:113-121). weights (..., S, 1), normals
+    (..., S, 3), view_dirs (..., 3) -> (...,)."""
+    n_dot_v = torch.sum(normals * -view_dirs[..., None, :], dim=-1)
+    return torch.sum(weights[..., 0] * torch.clamp_max(n_dot_v, 0.0) ** 2, dim=-1)
+
+
+def pred_normal_loss(weights: torch.Tensor, normals: torch.Tensor, pred_normals: torch.Tensor) -> torch.Tensor:
+    """Predicted normals follow the density-gradient normals (reference
+    losses.py:124-129): (...,)."""
+    return torch.sum(weights[..., 0] * (1.0 - torch.sum(normals * pred_normals, dim=-1)), dim=-1)
 
 
 def ds_nerf_depth_loss(weights: torch.Tensor, termination_depth: torch.Tensor, steps: torch.Tensor,

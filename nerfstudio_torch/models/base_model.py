@@ -75,9 +75,10 @@ def render_camera(
     gets no ``model_aux``). The flattened rays are padded to a chunk
     multiple with copies of the last ray, each chunk is rendered, and the
     outputs come back as (H, W, C) tensors on the model's device. A model
-    that needs gradients at eval (the SDF field's normals) enables them
-    itself inside this no-grad render. ``camera_opt_to_camera`` (3, 4)
-    corrects the camera's pose (reference base_model.py:97)."""
+    that needs gradients at eval (the SDF field's normals, nerfacto's
+    density-gradient normals) enables them itself inside this no-grad
+    render. ``camera_opt_to_camera`` (3, 4) corrects the camera's pose
+    (reference base_model.py:97)."""
     if model.training:
         raise ValueError("render_camera renders the eval forward: call model.eval() first")
     device = next(model.parameters()).device

@@ -14,8 +14,12 @@ two-net stack, no grid); with it, ``num_proposal_iterations=0`` samples
 from the grid's PDF alone, ``occ_weight_mode="density"`` weighs the probes
 by the grid's EMA densities, ``proposal_initial_sampler="uniform"`` spaces
 the probes uniformly, and ``disable_scene_contraction`` keeps the scene
-box. Not ported: the non-block proposal net (``prop_block=False``, whose
-one-corner stochastic path is retired) and the predicted-normal losses."""
+box. With ``predict_normals`` the field also gives its density-gradient
+normals and predicted normals: both rendered (``normals``,
+``pred_normals``), and in training the orientation loss and the
+predicted-normal loss (the normals' gradient stopped there). Not ported:
+the non-block proposal net (``prop_block=False``, whose one-corner
+stochastic path is retired)."""
 
 from __future__ import annotations
 
@@ -36,7 +40,13 @@ from nerfstudio_torch.field_components.spatial_distortions import SceneContracti
 from nerfstudio_torch.fields.density_fields import HashMLPDensityField
 from nerfstudio_torch.fields.nerfacto_field import NerfactoField
 from nerfstudio_torch.model_components import renderers
-from nerfstudio_torch.model_components.losses import distortion_loss, interlevel_loss, mse_loss
+from nerfstudio_torch.model_components.losses import (
+    distortion_loss,
+    interlevel_loss,
+    mse_loss,
+    orientation_loss,
+    pred_normal_loss,
+)
 from nerfstudio_torch.model_components.ray_samplers import ProposalNetworkSampler, SamplerUniforms, UniformSampler
 from nerfstudio_torch.model_components.scene_colliders import NearFarCollider
 from nerfstudio_torch.models.base_model import Model, ModelConfig
@@ -285,10 +295,19 @@ class NerfactoModel(Model):
             # the weights detached unless pass_semantic_gradients (reference :367-378)
             sem_w = weights if getattr(cfg, "pass_semantic_gradients", False) else weights.detach()
             outputs["semantics"] = renderers.render_semantics(field_outputs[FieldHeadNames.SEMANTICS], sem_w)
+        if cfg.predict_normals:  # (reference :378-393)
+            outputs["normals"] = renderers.render_normals(field_outputs[FieldHeadNames.NORMALS], weights)
+            outputs["pred_normals"] = renderers.render_normals(field_outputs[FieldHeadNames.PRED_NORMALS], weights)
         if self.training:
             outputs["background"] = bg
             outputs["weights_list"] = weights_list + [weights]
             outputs["ray_samples_list"] = ray_samples_list + [ray_samples]
+            if cfg.predict_normals:
+                outputs["rendered_orientation_loss"] = orientation_loss(
+                    weights, field_outputs[FieldHeadNames.NORMALS], ray_bundle.directions)
+                outputs["rendered_pred_normal_loss"] = pred_normal_loss(
+                    weights, field_outputs[FieldHeadNames.NORMALS].detach(),
+                    field_outputs[FieldHeadNames.PRED_NORMALS])
         return outputs
 
     def get_metrics_dict(self, outputs, batch) -> Dict[str, torch.Tensor]:
@@ -308,7 +327,7 @@ class NerfactoModel(Model):
         return metrics
 
     def get_loss_dict(self, outputs, batch, metrics_dict=None) -> Dict[str, torch.Tensor]:
-        """(reference :466-539), without the predicted-normal losses."""
+        """(reference :466-539)"""
         cfg = self.config
         pred, gt = renderers.blend_background_for_loss_computation(
             outputs["rgb"], batch["image"], background=outputs.get("background")
@@ -323,6 +342,11 @@ class NerfactoModel(Model):
             else:
                 dist = distortion_loss(outputs["weights_list"], outputs["ray_samples_list"])
             loss_dict["distortion_loss"] = cfg.distortion_loss_mult * dist
+            if cfg.predict_normals:
+                loss_dict["orientation_loss"] = cfg.orientation_loss_mult * torch.mean(
+                    outputs["rendered_orientation_loss"])
+                loss_dict["pred_normal_loss"] = cfg.pred_normal_loss_mult * torch.mean(
+                    outputs["rendered_pred_normal_loss"])
             if self.camera_optimizer.mode != "off":
                 loss_dict["camera_opt_regularizer"] = camera_opt_regularizer(
                     self.camera_optimizer.pose_adjustment, trans_l2_penalty=1e-2, rot_l2_penalty=1e-3

@@ -6,33 +6,44 @@ repacking. Three paths are ported:
 
 * ``hash_encode(block=True)`` (K1): one 2x2x2 vertex block per
   (sample, level), odd axes rounded stochastically from a hash of the cell
-  offset's float bits. Differentiable: a ``torch.autograd.Function`` whose
-  backward (K1 bwd, with the reference's one-hot K2 folded in) scatters the
-  table gradient and carries the corner-weight gradient to the positions.
-  ``bwd_levels``/``bwd_scale`` give the level-subsampled backward;
+  offset's float bits. Differentiable twice: a ``torch.autograd.Function``
+  whose backward (K1 bwd, with the reference's one-hot K2 folded in) is
+  itself a Function (``_BlockEncodeBwd``): it scatters the table gradient
+  and carries the corner-weight gradient to the positions, and its own
+  backward (K1bb) takes the cotangent of the position gradient back to the
+  encoding's cotangent, the table and the positions, as the reference's
+  autodiff of its backward does (the density-gradient normals' loss).
+  ``bwd_levels``/``bwd_scale`` give the level-subsampled backward, which
+  scales the second-order table gradient alike. A cotangent of the table
+  gradient itself raises: no path asks for one;
 * ``hash_encode(block_exact=True)`` (K3): the exact 8-corner trilerp through
-  the same layout, forward only (only the eval render reaches it);
+  the same layout, differentiable in the positions (K3b, the eval normals'
+  position gradient); a table gradient through it raises;
 * ``hash_encode()`` with neither flag (K7): the exact 8-corner trilerp over
   the flat layout, entry e of a level at lanes e*F..e*F+F-1 of the
   row-major (S, 128) table, dense or hashed per level, so JAX's tables
-  load without repacking. Differentiable: its backward scatters the table
-  gradient in float32 and carries the corner-weight gradient to the
+  load without repacking. Differentiable once: its backward scatters the
+  table gradient in float32 and carries the corner-weight gradient to the
   positions.
 
 Each dispatches on the device of its inputs: CUDA tensors go to the
 hand-written kernels in ``csrc/hash_grid.cu`` (or the call raises), CPU
 tensors go to the plain PyTorch twins in this module. The one-corner and
-z-pair paths are not ported.
+z-pair paths are not ported. A backward asks only for the gradients that
+the running backward pass reads (``_engine_needs``): the normals' position
+gradient scatters no table gradient, as the reference's dead-code
+elimination drops it.
 
-Every kernel (the forward and backward of K1 and K7, and K3) has two
-designs on the card (``DESIGNS``): a group of lanes per (sample, level)
-with 8- or 16-byte loads and, in the backward, one vector reduction per
-corner, which F = 2 and 4 take; and the first design, one thread per
-(sample, level) or, in the backward, per sample with scalar atomics,
-which the other widths take.
+Every kernel of the first order (the forward and backward of K1 and K7,
+and K3) has two designs on the card (``DESIGNS``): a group of lanes per
+(sample, level) with 8- or 16-byte loads and, in the backward, one vector
+reduction per corner, which F = 2 and 4 take; and the first design, one
+thread per (sample, level) or, in the backward, per sample with scalar
+atomics, which the other widths take.
 K7's backward in lane groups, asked for the table gradient alone, first
 reduces the dense coarse levels in shared memory (``bwd_plan``).
-``chip_smoke.py`` times every design.
+``chip_smoke.py`` times every design. K3b and K1bb have one design, one
+thread per (sample, level) with the levels of a sample in one block.
 
 Integer hashing runs on int64 with the uint32 wrap made explicit
 (``_mul32``), so the twin reproduces the reference's uint32 arithmetic
@@ -68,6 +79,10 @@ launch_counts: Dict[str, int] = {
     "hash_encode_block_bwd": 0,
     "hash_encode_flat": 0,
     "hash_encode_flat_bwd": 0,
+    # K3b: K3's position gradient (the eval normals)
+    "hash_encode_block_exact_bwd": 0,
+    # K1bb: K1's backward differentiated again (the normals' loss in training)
+    "hash_encode_block_bwd_bwd": 0,
     # K1 or K3 launches (counted above too) that took the per-thread design
     "hash_encode_block_per_thread": 0,
     # K1 bwd or K7 bwd launches (counted above too) that took the per-thread design
@@ -214,6 +229,13 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _bf16_through(x: torch.Tensor) -> torch.Tensor:
+    """``_bf16(x)`` whose gradient passes unrounded (``_bf16``'s would round
+    it to bfloat16): ``x + (bf16(x) - x)`` is bf16(x) exactly, the
+    difference being x's low mantissa bits."""
+    return x + (_bf16(x.detach()) - x.detach())
+
+
 def _block_lanes(rows: torch.Tensor, slot: torch.Tensor, f: int) -> torch.Tensor:
     """(n, 8F) flat lane indices of each sample's block within one level."""
     lane0 = rows * 128 + slot * (8 * f)
@@ -249,6 +271,7 @@ def _block_stochastic_twin_bwd(
     hash_table_size: int,
     need_positions: bool = True,
     dtype: torch.dtype = torch.float32,
+    create_graph: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch K1 backward (reference ``_row_gather_block_tw_bwd`` and
     ``_row_gather_block_tw_oh_bwd`` behind ``_grad_scale``/``stop_gradient``).
@@ -260,28 +283,168 @@ def _block_stochastic_twin_bwd(
     ``d_w8[c] = sum_f g[l*F+f] * bf16(table value)`` on every level goes to
     the positions by autograd through ``_level_blocks``, whose clip carries
     the reference's 1/2 at exact cell corners. The geometry stays float32
-    whatever ``dtype`` is, so a float64 run takes the same blocks."""
+    whatever ``dtype`` is, so a float64 run takes the same blocks.
+
+    ``create_graph``: both results carry a graph to ``pos``, ``table`` and
+    ``grad`` (whichever require one), so autograd differentiates the
+    backward again as the reference's autodiff does: the twin of K1bb
+    (``_block_stochastic_twin_bwd_bwd``), which the tests hold it to."""
     L, S, lanes = table.shape
     F = 128 * S // hash_table_size
     n = pos.shape[0]
     d_table = torch.zeros((L, S * lanes), dtype=dtype, device=pos.device)
     d_pos = torch.zeros((n, 3), dtype=dtype, device=pos.device) if need_positions else None
+    if not create_graph:
+        table, grad = table.detach(), grad.detach()
     for l, res in enumerate(compute_level_resolutions(L, min_res, max_res)):
         if not (scales[l] or need_positions):
             continue
         with torch.enable_grad():
-            p = pos.detach().requires_grad_(need_positions)
+            p = pos if create_graph else pos.detach().requires_grad_(need_positions)
             rows, slot, w8 = _level_blocks(p, int(res), hash_table_size, 16 // F, dtype)
         lanes_idx = _block_lanes(rows, slot, F)
         g = grad[:, l * F : (l + 1) * F].to(dtype)
         if scales[l]:
-            contrib = scales[l] * w8.detach()[:, :, None] * g[:, None, :]
+            contrib = scales[l] * (w8 if create_graph else w8.detach())[:, :, None] * g[:, None, :]
             d_table[l].index_add_(0, lanes_idx.reshape(-1), contrib.reshape(-1))
         if need_positions:
-            vals = _bf16(table[l].reshape(-1)[lanes_idx]).to(dtype).view(n, 8, F)
+            if create_graph:  # the reference's table gradient scale, and an unrounded gradient
+                vals = _bf16_through(_grad_scale(table[l], scales[l]).reshape(-1)[lanes_idx])
+            else:
+                vals = _bf16(table[l].reshape(-1)[lanes_idx])
+            vals = vals.to(dtype).view(n, 8, F)
             d_w8 = (g[:, None, :] * vals).sum(dim=-1)
-            d_pos += torch.autograd.grad(w8, p, d_w8)[0].to(dtype)
+            d_pos = d_pos + torch.autograd.grad(w8, p, d_w8, create_graph=create_graph)[0].to(dtype)
     return d_table.view(L, S, lanes), d_pos
+
+
+def _grad_scale(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x``, whose gradient autograd scales by ``c`` (the reference's
+    ``_grad_scale``; ``stop_gradient`` at 0)."""
+    if c == 1:
+        return x
+    return x.detach() if c == 0 else x.detach() + c * (x - x.detach())
+
+
+def _cells_with_slopes(pos: torch.Tensor, res: int):
+    """Per axis, without autograd: (base cell clipped to [0, res-1], offset
+    clipped to [0, 1], d offset / d position), as ``_base_cells`` computes
+    them. The slope is res inside the cell, res/2 on its faces (the
+    reference's clip gradient at a tie) and 0 outside; the clip's second
+    derivative is 0 everywhere."""
+    out = []
+    for a in range(3):
+        s = pos[:, a].detach() * res
+        i0 = torch.clamp(torch.floor(s).to(torch.int64), 0, res - 1)
+        t = s - i0.to(torch.float32)
+        inside, face = (t > 0) & (t < 1), (t == 0) | (t == 1)
+        slope = torch.where(inside, float(res), torch.where(face, 0.5 * res, 0.0))
+        out.append((i0, t.clamp(0.0, 1.0), slope))
+    return out
+
+
+def _stochastic_level(pos: torch.Tensor, res: int, hash_table_size: int, f: int):
+    """One level of K1's geometry without autograd: the block's lanes (n,
+    8F) and, per axis, the corner factors (parity 0, parity 1) and their
+    derivatives in the position, (-slope, slope) on an even axis and 0 on
+    an odd one (the coin's 0/1 weights). The same blocks and weights as
+    ``_level_blocks``."""
+    bs, dense_b = _block_level_layout(res, hash_table_size)
+    bcoords, phi, dphi = [], [], []
+    for (i0, o, slope), (p1, p2) in zip(_cells_with_slopes(pos, res), _COIN_PRIMES):
+        odd = (i0 & 1) == 1
+        up = _u01_hash(o, p1, p2) < o
+        bcoords.append((i0 + (odd & up).to(torch.int64)) >> 1)
+        upf = up.to(torch.float32)
+        phi.append((torch.where(odd, upf, 1.0 - o), torch.where(odd, 1.0 - upf, o)))
+        ds = torch.where(odd, 0.0, slope)
+        dphi.append((-ds, ds))
+    blk = _block_index(*bcoords, bs, dense_b, hash_table_size // 8)
+    bpr = 16 // f
+    return _block_lanes(blk // bpr, blk % bpr, f), phi, dphi
+
+
+def _block_stochastic_twin_bwd_bwd(
+    pos: torch.Tensor,
+    table: torch.Tensor,
+    grad: torch.Tensor,
+    u: torch.Tensor,
+    scales: Sequence[float],
+    *,
+    min_res: int,
+    max_res: int,
+    hash_table_size: int,
+    need_grad: bool = True,
+    need_table: bool = True,
+    need_positions: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain PyTorch K1bb: K1's backward (``_block_stochastic_twin_bwd``)
+    differentiated again, for the cotangent ``u`` (n, 3) of its position
+    gradient (the reference's autodiff of ``_row_gather_block_tw_bwd`` and
+    ``_oh_bwd`` through ``block_level_geometry`` and ``_grad_scale``).
+
+    Per (sample, level), with ``h_c = u . grad w8_c`` and ``a_c = sum_f g_f
+    v_cf`` (v the bf16-rounded corner values): ``d_grad[l*F+f] = sum_c h_c
+    v_cf`` (K1's forward with the weights h); the table lane of corner c,
+    feature f gets ``scales[l] * h_c * g_f`` (K1's scatter with the weights
+    h; nothing on a level of scale 0); the positions get ``sum_c a_c
+    (hess w8_c) u``, whose only terms are the mixed partials of two even
+    axes (w8 is a product of one factor per axis, each linear or constant).
+    Returns (d_grad (n, L*F), d_table (L, S, 128), d_positions (n, 3)),
+    each None unless asked, summed in ``dtype``: the card's oracle, its
+    float64 reference and the CPU's path. The geometry stays float32."""
+    L, S, lanes = table.shape
+    F = 128 * S // hash_table_size
+    n = pos.shape[0]
+    dev = pos.device
+    d_grad = torch.zeros((n, L * F), dtype=dtype, device=dev) if need_grad else None
+    d_table = torch.zeros((L, S * lanes), dtype=dtype, device=dev) if need_table else None
+    d_pos = torch.zeros((n, 3), dtype=dtype, device=dev) if need_positions else None
+    u = u.detach().to(dtype)
+    for l, res in enumerate(compute_level_resolutions(L, min_res, max_res)):
+        table_l = need_table and bool(scales[l])
+        if not (need_grad or table_l or need_positions):
+            continue
+        lanes_idx, phi, dphi = _stochastic_level(pos.detach(), int(res), hash_table_size, F)
+        phi = [(a.to(dtype), b.to(dtype)) for a, b in phi]
+        dphi = [(a.to(dtype), b.to(dtype)) for a, b in dphi]
+        vals = _bf16(table[l].detach().reshape(-1)[lanes_idx]).to(dtype).view(n, 8, F)
+        g = grad[:, l * F : (l + 1) * F].detach().to(dtype)
+        h, second = [], []
+        for c in range(8):
+            bits = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+            p = [phi[a][bits[a]] for a in range(3)]
+            d = [dphi[a][bits[a]] for a in range(3)]
+            h.append(u[:, 0] * d[0] * p[1] * p[2] + u[:, 1] * p[0] * d[1] * p[2] + u[:, 2] * p[0] * p[1] * d[2])
+            second.append(torch.stack([
+                d[0] * (d[1] * p[2] * u[:, 1] + p[1] * d[2] * u[:, 2]),
+                d[1] * (d[0] * p[2] * u[:, 0] + p[0] * d[2] * u[:, 2]),
+                d[2] * (d[0] * p[1] * u[:, 0] + p[0] * d[1] * u[:, 1]),
+            ], dim=-1))
+        h = torch.stack(h, dim=-1)  # (n, 8)
+        if need_grad:
+            d_grad[:, l * F : (l + 1) * F] = (h[:, :, None] * vals).sum(dim=1)
+        if table_l:
+            contrib = scales[l] * h[:, :, None] * g[:, None, :]
+            d_table[l].index_add_(0, lanes_idx.reshape(-1), contrib.reshape(-1))
+        if need_positions:
+            a_c = (g[:, None, :] * vals).sum(dim=-1)  # (n, 8)
+            d_pos += (a_c[:, :, None] * torch.stack(second, dim=1)).sum(dim=1)
+    return d_grad, (None if d_table is None else d_table.view(L, S, lanes)), d_pos
+
+
+def _exact_corner_lanes(ix0, iy0, iz0, *, bs, dense_b, nblocks, bpr, f) -> List[torch.Tensor]:
+    """The first table lane of each of K3's eight corners (reference
+    :696-729): vertex v = base + (dx, dy, dz) in block v >> 1 at parity v & 1."""
+    lanes = []
+    for corner in range(8):
+        dx, dy, dz = (corner >> 2) & 1, (corner >> 1) & 1, corner & 1
+        vx, vy, vz = ix0 + dx, iy0 + dy, iz0 + dz
+        blk = _block_index(vx >> 1, vy >> 1, vz >> 1, bs, dense_b, nblocks)
+        parity = ((vx & 1) << 2) | ((vy & 1) << 1) | (vz & 1)
+        lanes.append((blk // bpr) * 128 + (blk % bpr) * (8 * f) + parity * f)
+    return lanes
 
 
 def _block_exact_trilerp(table_l, ix0, iy0, iz0, ox, oy, oz, *, bs, dense_b, nblocks, bpr, f):
@@ -289,13 +452,10 @@ def _block_exact_trilerp(table_l, ix0, iy0, iz0, ox, oy, oz, *, bs, dense_b, nbl
     flat = table_l.reshape(-1)
     feat = torch.arange(f, device=ox.device)
     acc = None
-    for corner in range(8):
+    lanes = _exact_corner_lanes(ix0, iy0, iz0, bs=bs, dense_b=dense_b, nblocks=nblocks, bpr=bpr, f=f)
+    for corner, lane0 in enumerate(lanes):
         dx, dy, dz = (corner >> 2) & 1, (corner >> 1) & 1, corner & 1
-        vx, vy, vz = ix0 + dx, iy0 + dy, iz0 + dz
-        blk = _block_index(vx >> 1, vy >> 1, vz >> 1, bs, dense_b, nblocks)
-        parity = ((vx & 1) << 2) | ((vy & 1) << 1) | (vz & 1)
         w_c = (ox if dx else 1.0 - ox) * (oy if dy else 1.0 - oy) * (oz if dz else 1.0 - oz)
-        lane0 = (blk // bpr) * 128 + (blk % bpr) * (8 * f) + parity * f
         part = w_c[:, None] * _bf16(flat[lane0[:, None] + feat])
         acc = part if acc is None else acc + part
     return acc
@@ -304,7 +464,8 @@ def _block_exact_trilerp(table_l, ix0, iy0, iz0, ox, oy, oz, *, bs, dense_b, nbl
 def _block_exact_twin(
     pos: torch.Tensor, table: torch.Tensor, *, min_res: int, max_res: int, hash_table_size: int
 ) -> torch.Tensor:
-    """Plain PyTorch K3: (n, 3) -> (n, L*F)."""
+    """Plain PyTorch K3: (n, 3) -> (n, L*F). Differentiable by autograd,
+    the tests' second witness of K3b's twin."""
     L = table.shape[0]
     F = 128 * table.shape[1] // hash_table_size
     out = torch.empty((pos.shape[0], L * F), dtype=torch.float32, device=pos.device)
@@ -317,6 +478,43 @@ def _block_exact_twin(
             bs=bs, dense_b=dense_b, nblocks=hash_table_size // 8, bpr=16 // F, f=F,
         )
     return out
+
+
+def _block_exact_twin_bwd(
+    pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, *, min_res: int, max_res: int,
+    hash_table_size: int, dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch K3b: K3's position gradient (n, 3) for the cotangent
+    ``grad`` (n, L*F) (reference ``_block_exact_trilerp`` under
+    ``jax.grad``), summed in ``dtype``. Per level and axis: ``d_o = sum_c
+    (+-1) (the other two axes' weights) a_c`` with ``a_c = sum_f g_f v_cf``
+    (v the bf16-rounded corner values), and ``d_x = d_o * slope``
+    (``_cells_with_slopes``). The geometry stays float32."""
+    L, S, _ = table.shape
+    F = 128 * S // hash_table_size
+    n = pos.shape[0]
+    feat = torch.arange(F, device=pos.device)
+    d_pos = torch.zeros((n, 3), dtype=dtype, device=pos.device)
+    for l, res in enumerate(compute_level_resolutions(L, min_res, max_res)):
+        res = int(res)
+        bs, dense_b = _block_level_layout(res, hash_table_size)
+        cells = _cells_with_slopes(pos, res)
+        lanes = _exact_corner_lanes(*(c[0] for c in cells), bs=bs, dense_b=dense_b, nblocks=hash_table_size // 8,
+                                    bpr=16 // F, f=F)
+        w = [(1.0 - o.to(dtype), o.to(dtype)) for _, o, _ in cells]
+        flat = table[l].detach().reshape(-1)
+        g = grad[:, l * F : (l + 1) * F].detach().to(dtype)
+        d_o = [torch.zeros((n,), dtype=dtype, device=pos.device) for _ in range(3)]
+        for c, lane0 in enumerate(lanes):
+            a_c = (g * _bf16(flat[lane0[:, None] + feat]).to(dtype)).sum(dim=-1)
+            bits = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+            for a in range(3):
+                b1, b2 = [b for b in range(3) if b != a]
+                term = a_c * w[b1][bits[b1]] * w[b2][bits[b2]]
+                d_o[a] = d_o[a] + term if bits[a] else d_o[a] - term
+        for a in range(3):
+            d_pos[:, a] += d_o[a] * cells[a][2].to(dtype)
+    return d_pos
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -415,6 +613,14 @@ def _kernel_library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
             ctypes.c_uint, ctypes.c_void_p]
         lib.nst_hash_encode_flat_bwd.restype = ctypes.c_int
+        # K3b: pos, table, grad, d_pos, geometry, stream
+        lib.nst_hash_encode_block_exact_bwd.argtypes = [ctypes.c_void_p] * 4 + geometry + [ctypes.c_void_p]
+        lib.nst_hash_encode_block_exact_bwd.restype = ctypes.c_int
+        # K1bb: pos, table, grad, u, d_grad, d_table, d_pos, geometry, scales, stream
+        lib.nst_hash_encode_block_bwd_bwd.argtypes = (
+            [ctypes.c_void_p] * 7 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+        )
+        lib.nst_hash_encode_block_bwd_bwd.restype = ctypes.c_int
         lib.nst_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nst_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -531,12 +737,85 @@ def _block_bwd_kernel(
     return d_table, d_pos
 
 
+def _check_cotangent(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    if t.shape != shape or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _block_exact_bwd_kernel(
+    pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, *, min_res: int, max_res: int, hash_table_size: int,
+) -> torch.Tensor:
+    """Launch the CUDA K3b: K3's position gradient (n, 3) for the cotangent
+    ``grad`` (n, L*F). It indexes in 32 bits, as the lane kernels do."""
+    n = pos.shape[0]
+    L = table.shape[0]
+    d_pos = torch.empty_like(pos)
+    if n == 0:
+        return d_pos
+    _check_cotangent("grad", grad, (n, L * _features(table, hash_table_size)))
+    _check_lane_limits(table, n)
+    _launch("hash_encode_block_exact_bwd", "nst_hash_encode_block_exact_bwd", pos,
+            pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(), d_pos.data_ptr(),
+            *_geometry_args(table, n, min_res, max_res, hash_table_size))
+    return d_pos
+
+
+def _block_bwd_bwd_kernel(
+    pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, u: torch.Tensor, scales: Sequence[float], *,
+    min_res: int, max_res: int, hash_table_size: int, need_grad: bool = True, need_table: bool = True,
+    need_positions: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch the CUDA K1bb (``_block_stochastic_twin_bwd_bwd``'s math) for
+    the cotangent ``u`` (n, 3) of K1 backward's position gradient: (d_grad
+    (n, L*F), d_table (L, S, 128), d_positions (n, 3)), each None unless
+    asked. The table gradient is summed with float32 atomics into a zeroed
+    buffer. It indexes in 32 bits, as the lane kernels do."""
+    n = pos.shape[0]
+    L = table.shape[0]
+    d_grad = torch.empty_like(grad) if need_grad else None
+    d_table = torch.zeros_like(table) if need_table else None
+    d_pos = torch.empty_like(pos) if need_positions else None
+    if n == 0 or not (need_grad or need_table or need_positions):
+        return d_grad, d_table, d_pos
+    _check_cotangent("grad", grad, (n, L * _features(table, hash_table_size)))
+    _check_cotangent("u", u, (n, 3))
+    _check_lane_limits(table, n, *([] if d_table is None else [d_table]))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _launch(
+        "hash_encode_block_bwd_bwd", "nst_hash_encode_block_bwd_bwd", pos,
+        pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(), u.contiguous().data_ptr(), ptr(d_grad),
+        ptr(d_table), ptr(d_pos), *_geometry_args(table, n, min_res, max_res, hash_table_size),
+        (ctypes.c_float * L)(*[float(s) for s in scales]),
+    )
+    return d_grad, d_table, d_pos
+
+
+def _engine_needs(ctx, i: int) -> bool:
+    """Whether the backward pass now running reads the gradient of the
+    Function's ``i``-th input (a tensor input: each Function here takes its
+    tensors first). ``ctx.needs_input_grad`` says only that the input
+    requires one; ``torch.autograd.grad`` with ``inputs`` runs only the
+    nodes that reach them. So the normals' position gradient, taken with
+    the table a parameter, scatters no table gradient, as the reference's
+    dead-code elimination drops it. Under ``torch.autograd.grad`` torch
+    refuses the query for a leaf that is one of the ``inputs`` (it answers
+    False for the other leaves): such a leaf's gradient is read."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    node = ctx.next_functions[i][0]
+    if node is None:
+        return False
+    try:
+        return torch._C._will_engine_execute_node(node)
+    except RuntimeError:
+        return True
+
+
 class _BlockEncode(torch.autograd.Function):
-    """K1 forward and backward. ``scales`` is the per-level factor on the
-    table gradient (0 on levels outside ``bwd_levels``). The backward is
-    once differentiable: the kernel's gradients carry no graph, so a
-    ``create_graph=True`` backward gives gradients whose own backward
-    raises, on the card and on the CPU alike."""
+    """K1 forward. ``scales`` is the per-level factor on the table gradient
+    (0 on levels outside ``bwd_levels``). The backward is ``_BlockEncodeBwd``,
+    a Function of its own: under ``create_graph=True`` its gradients carry a
+    graph whose backward is K1bb, on the card and on the CPU alike."""
 
     @staticmethod
     def forward(ctx, pos, table, scales, geom):
@@ -547,21 +826,78 @@ class _BlockEncode(torch.autograd.Function):
         return _block_stochastic_twin(pos, table, **geom)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         pos, table = ctx.saved_tensors
-        need_pos, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
-        grad = grad.contiguous()
+        need_pos, need_table = _engine_needs(ctx, 0), _engine_needs(ctx, 1)
+        if not (need_pos or need_table):
+            return None, None, None, None
+        d_pos, d_table = _BlockEncodeBwd.apply(pos, table, grad.contiguous(), ctx.scales, ctx.geom, need_pos,
+                                               need_table)
+        return d_pos, d_table, None, None
+
+
+class _BlockEncodeBwd(torch.autograd.Function):
+    """K1's backward (K1 bwd with K2) as a function of (positions, table,
+    the encoding's cotangent) -> (d_positions, d_table), each None unless
+    asked; its backward is K1bb for the cotangent of d_positions, once
+    differentiable. No reference path differentiates the table gradient,
+    so a cotangent of d_table raises."""
+
+    @staticmethod
+    def forward(ctx, pos, table, grad, scales, geom, need_pos, need_table):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(pos, table, grad)
+        ctx.scales, ctx.geom = scales, geom
         if pos.device.type == "cuda":
-            d_table, d_pos = _block_bwd_kernel(
-                pos, table, grad, ctx.scales, need_positions=need_pos, need_table=need_table, **ctx.geom
-            )
+            d_table, d_pos = _block_bwd_kernel(pos, table, grad, scales, need_positions=need_pos,
+                                               need_table=need_table, **geom)
         else:
-            scales = ctx.scales if need_table else [0.0] * len(ctx.scales)
             d_table, d_pos = _block_stochastic_twin_bwd(
-                pos, table, grad, scales, need_positions=need_pos, **ctx.geom
+                pos, table, grad, scales if need_table else [0.0] * len(scales), need_positions=need_pos, **geom
             )
-        return (d_pos if need_pos else None), (d_table if need_table else None), None, None
+        return d_pos, (d_table if need_table else None)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, u_pos, u_table):
+        if u_table is not None:
+            raise NotImplementedError(
+                "K1's table gradient has no derivative here: the reference differentiates only the position "
+                "gradient of its backward (the density-gradient normals)")
+        nones = (None,) * 4
+        if u_pos is None:
+            return (None, None, None) + nones
+        pos, table, grad = ctx.saved_tensors
+        need = dict(need_positions=_engine_needs(ctx, 0), need_table=_engine_needs(ctx, 1),
+                    need_grad=_engine_needs(ctx, 2))
+        bwd_bwd = _block_bwd_bwd_kernel if pos.device.type == "cuda" else _block_stochastic_twin_bwd_bwd
+        d_grad, d_table, d_pos = bwd_bwd(pos, table, grad, u_pos.contiguous(), ctx.scales, **need, **ctx.geom)
+        return (d_pos, d_table, d_grad) + nones
+
+
+class _BlockExactEncode(torch.autograd.Function):
+    """K3 forward and its position gradient K3b, once differentiable. The
+    reference takes K3's gradient in the positions alone (the eval
+    normals), so a table gradient through K3 raises."""
+
+    @staticmethod
+    def forward(ctx, pos, table, geom):
+        ctx.save_for_backward(pos, table)
+        ctx.geom = geom
+        if pos.device.type == "cuda":
+            return _block_kernel(pos, table, exact=True, **geom)
+        return _block_exact_twin(pos, table, **geom)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        if _engine_needs(ctx, 1):
+            raise NotImplementedError("K3 (block_exact) has no table gradient: only the positions' is ported")
+        if not _engine_needs(ctx, 0):
+            return None, None, None
+        pos, table = ctx.saved_tensors
+        bwd = _block_exact_bwd_kernel if pos.device.type == "cuda" else _block_exact_twin_bwd
+        return bwd(pos, table, grad.contiguous(), **ctx.geom), None, None
 
 
 # --------------------------------------------------------------------------
@@ -718,7 +1054,8 @@ def _flat_bwd_kernel(
 
 
 class _FlatEncode(torch.autograd.Function):
-    """K7 forward and backward, once differentiable as K1's."""
+    """K7 forward and backward, once differentiable: the reference
+    differentiates K7 (neus-facto's proposal nets) once only."""
 
     @staticmethod
     def forward(ctx, pos, table, geom):
@@ -793,7 +1130,11 @@ def hash_encode(
 
     ``bwd_levels`` (K1 only): the levels whose table gets a gradient, scaled
     by ``bwd_scale``; the other levels get none. None gives every level an
-    unscaled gradient. Position gradients flow on every level either way."""
+    unscaled gradient. Position gradients flow on every level either way.
+
+    K1 is differentiable twice (its position gradient's own gradient,
+    K1bb, reaches the table on the levels of ``bwd_levels`` at the same
+    scale), K3 once in the positions (K3b), K7 once."""
     _check_inputs(positions, table, num_levels, hash_table_size)
     batch_shape = positions.shape[:-1]
     pos = positions.reshape(-1, 3)
@@ -803,11 +1144,7 @@ def hash_encode(
             raise ValueError("bwd_levels is a block-layout (K1) option")
         out = _FlatEncode.apply(pos, table, geom)
     elif block_exact:
-        if torch.is_grad_enabled() and (positions.requires_grad or table.requires_grad):
-            raise NotImplementedError("K3 (block_exact) is forward only: run it under torch.no_grad()")
-        out = _block_kernel(pos, table, exact=True, **geom) if pos.device.type == "cuda" else _block_exact_twin(
-            pos, table, **geom
-        )
+        out = _BlockExactEncode.apply(pos, table, geom)
     else:
         if bwd_levels is None:
             scales = (1.0,) * num_levels

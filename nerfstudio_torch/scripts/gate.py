@@ -31,7 +31,10 @@ record of the same cell (``benchmarks/gate_<method>[_<scene>].json``, the
 method's hyphens as underscores, the ``basic`` scene without a suffix), its PSNR and SSIM only: its times were
 taken on another accelerator. ``--a.b value`` flags override the config
 (``--machine.device_type cpu`` runs on the CPU); any other than the machine
-marks the run as not at shipped defaults."""
+marks the run as not at shipped defaults. ``--model.predict-normals True``
+makes a cell of its own (on ``basic``: ``basic_normals``): no JAX record
+stands beside it, and its two loss terms are reported, the mean of the
+first and of the last quarter of their logged values (``loss_terms``)."""
 
 from __future__ import annotations
 
@@ -55,6 +58,9 @@ BLENDER_METHODS = ("neus", "tensorf", "vanilla-nerf", "mipnerf", "instant-ngp", 
 # the scene beside a given basic one that exercises a method's own machinery
 # (tools/run_gate_matrix.py:94-105): the labels, the per-view exposure
 SCENE_ROUTES = {"semantic-nerfw": "semantic", "phototourism": "appearance"}
+# the loss terms of nerfacto's predicted normals, a cell the JAX package has
+# no record of
+NORMALS_TERMS = ("orientation_loss", "pred_normal_loss")
 RECORDS = Path(__file__).resolve().parents[2] / "benchmarks"
 PSNR_GATE, SSIM_GATE = 20.0, 0.7
 EVAL_CHUNK = 1 << 14
@@ -138,10 +144,11 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
         raise SystemExit(f"unrecognized arguments: {rest}")
     model_overrides = {overrides[i][2:]: overrides[i + 1] for i in range(0, len(overrides) - 1, 2)
                        if not overrides[i].startswith("--machine.")}
-    result = {"method": method, "scene": scene_dir.name, "steps": steps,
-              "shipped_defaults": not model_overrides, "overrides": model_overrides,
+    normals = bool(getattr(config.model, "predict_normals", False))
+    result = {"method": method, "scene": scene_dir.name, "cell": scene_dir.name + ("_normals" if normals else ""),
+              "steps": steps, "shipped_defaults": not model_overrides, "overrides": model_overrides,
               "gates": {"psnr": PSNR_GATE, "ssim": SSIM_GATE},
-              "jax_record": jax_record(method, scene_dir.name), **card()}
+              "jax_record": None if normals else jax_record(method, scene_dir.name), **card()}
     before = launch_counts()
     blocks = []
     eval_chunk = EVAL_CHUNK
@@ -227,10 +234,28 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     result["metrics"] = {k: round(float(v), 4) for k, v in eval_metrics.items()}
     result["launches"] = {"train": {k: after_train[k] - before[k] for k in before},
                           "eval": {k: after_eval[k] - after_train[k] for k in before}}
+    if normals:
+        result["loss_terms"] = loss_terms(t.get_base_dir(), NORMALS_TERMS)
     result["pass_psnr"] = bool(eval_metrics["psnr"] > PSNR_GATE)
     result["pass_ssim"] = bool(eval_metrics["ssim"] > SSIM_GATE)
     result["pass"] = result["pass_psnr"] and result["pass_ssim"]
     return result, {"pipeline": pipeline, "state": state, "one_step": one_step, "base_dir": t.get_base_dir()}
+
+
+def loss_terms(base_dir: Path, keys) -> Dict[str, Dict[str, float]]:
+    """Per loss term of ``keys``: the mean of the first and of the last
+    quarter of the train values the writer logged (``scalars.jsonl``), and
+    whether every value is finite and the last quarter's mean is lower."""
+    with open(Path(base_dir) / "scalars.jsonl", encoding="utf-8") as f:
+        rows = [r for r in map(json.loads, f) if r["prefix"] == "train"]
+    out = {}
+    for k in keys:
+        vals = [float(r[k]) for r in rows if k in r]
+        q = max(len(vals) // 4, 1)
+        head, tail = sum(vals[:q]) / q, sum(vals[-q:]) / q
+        out[k] = {"first_quarter": head, "last_quarter": tail, "logged": len(vals),
+                  "fell": all(map(math.isfinite, vals)) and tail < head}
+    return out
 
 
 def main(argv=None) -> dict:

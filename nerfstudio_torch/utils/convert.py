@@ -7,7 +7,8 @@ kernels too, beside their ``scale``); hash tables keep their ``(L, S,
 128)`` layout, block and flat alike; list members such as ``layers_0``,
 ``glin_0`` or ``proposal_networks_1`` become ``layers.0``, ``glin.0``,
 ``proposal_networks.1``; a field head's one ``Dense_0`` (the semantic
-head's, the NeRF field's density and colour heads') becomes its ``layer``;
+head's, the predicted-normal head's, the NeRF field's density and colour
+heads') becomes its ``layer``;
 TensoRF's ``plane_coef`` and ``line_coef`` keep their layouts; ``LearnedVariance``'s scalar stays a
 scalar. Every leaf must land on exactly one parameter: anything left
 over on either side raises. ``splat_state_from_jax`` carries a splatfacto

@@ -8,7 +8,9 @@ fields given as ``field=value`` (model fields, ``datamanager.x=value``, or
 ``seed=N`` for the config's seed; the same on both sides), trains through
 its own ``Trainer`` with its own draws from ``config.seed`` and prints,
 every EVERY steps, one JSON line: the mean PSNR and SSIM over the held-out
-views. ``paired`` trains both sides in one process from JAX's init on
+views and, with ``predict_normals=True``, the orientation and
+predicted-normal loss terms, each the mean over the window's every tenth
+step (``terms``). ``paired`` trains both sides in one process from JAX's init on
 JAX's draws (``run_paired``) and prints both sides' numbers, JAX's first.
 Not a test: a witness that the two trainers follow the same trajectory on
 a capture (distorted, masked, basic, unbounded). Run one process per side,
@@ -37,6 +39,24 @@ def _configure(config, parser_cls, scene: Path, steps: int, fields: dict):
     return config
 
 
+TERMS = ("orientation_loss", "pred_normal_loss")
+
+
+def _window(terms, metrics, step):
+    """Add every tenth step's loss terms to ``terms``; return and clear their
+    means at the end of a window."""
+    if step % 10 == 0:
+        for k in TERMS:
+            if k in metrics:
+                terms.setdefault(k, []).append(float(metrics[k]))
+
+
+def _means(terms):
+    out = {k: sum(v) / len(v) for k, v in terms.items() if v}
+    terms.clear()
+    return out
+
+
 def run_jax(scene, steps, every, fields):
     from nerfstudio_tpu.configs.method_configs import get_method
     from nerfstudio_tpu.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
@@ -44,12 +64,12 @@ def run_jax(scene, steps, every, fields):
 
     config = _configure(get_method("nerfacto"), NerfstudioDataParserConfig, scene, steps, fields)
     trainer = build_trainer(config, use_mesh=False)
-    t0 = time.time()
+    t0, terms = time.time(), {}
     for step in range(steps):
-        trainer.train_iteration(step)
+        _window(terms, trainer.train_iteration(step), step)
         if (step + 1) % every == 0:
             m = trainer.pipeline.get_average_eval_image_metrics(trainer.state)
-            yield dict(step=step + 1, psnr=m["psnr"], ssim=m["ssim"], seconds=time.time() - t0)
+            yield dict(step=step + 1, psnr=m["psnr"], ssim=m["ssim"], terms=_means(terms), seconds=time.time() - t0)
 
 
 def run_torch(scene, steps, every, fields):
@@ -60,12 +80,12 @@ def run_torch(scene, steps, every, fields):
     config = _configure(get_method("nerfacto"), NerfstudioDataParserConfig, scene, steps, fields)
     config.machine.device_type = "cpu"
     trainer = build_trainer(config)
-    t0 = time.time()
+    t0, terms = time.time(), {}
     for step in range(steps):
-        trainer.train_iteration(step)
+        _window(terms, trainer.train_iteration(step), step)
         if (step + 1) % every == 0:
             m = trainer.pipeline.get_average_eval_image_metrics(trainer.state)
-            yield dict(step=step + 1, psnr=m["psnr"], ssim=m["ssim"], seconds=time.time() - t0)
+            yield dict(step=step + 1, psnr=m["psnr"], ssim=m["ssim"], terms=_means(terms), seconds=time.time() - t0)
 
 
 def run_paired(scene, steps, every, fields):

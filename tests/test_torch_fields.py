@@ -127,12 +127,20 @@ def test_nerfacto_field_eval(exact_eval):
 
 
 def test_nerfacto_field_training_forward_is_not_ported():
-    """The training forward now runs (K1, with gradients); what it still
-    lacks is the density-gradient normals, which raise."""
+    """The training forward runs (K1, with gradients), and so do the
+    density-gradient normals, which were the part not ported before: unit
+    normals where the density gradient lives, and a loss on them reaches the
+    hash table through K1's second derivative (held against JAX in
+    test_torch_normals.py)."""
     tf = NerfactoField(num_levels=2, base_res=4, max_res=8, log2_hashmap_size=10, features_per_level=4, device=CPU)
     _, trs, _ = _samples(8, 6)
     out = tf(trs)
     out[FieldHeadNames.RGB].sum().backward()
     assert tf.mlp_base.encoding.hash_table.grad is not None
-    with pytest.raises(NotImplementedError):
-        tf(trs, compute_normals=True)
+    tf.zero_grad(set_to_none=True)
+    normals = tf(trs, compute_normals=True)[FieldHeadNames.NORMALS]
+    assert normals.shape == (8, 3) and torch.isfinite(normals).all()
+    norms = torch.linalg.norm(normals.detach(), dim=-1)
+    assert ((norms - 1).abs() < 1e-5).sum() >= 4 and ((norms == 0) | ((norms - 1).abs() < 1e-5)).all()
+    normals.sum().backward()
+    assert float(tf.mlp_base.encoding.hash_table.grad.abs().sum()) > 0

@@ -140,8 +140,9 @@ def test_wrapper_rejects_bad_inputs():
         thg.hash_encode(pos.t().contiguous().t(), table, block=True, **kw)
     with pytest.raises(ValueError):
         thg.hash_encode(pos.to("meta"), table.to("meta"), block=True, **kw)
-    with pytest.raises(NotImplementedError):
-        thg.hash_encode(pos, table.requires_grad_(), block_exact=True, **kw)  # K3 is forward only
+    out = thg.hash_encode(pos, table.requires_grad_(), block_exact=True, **kw)
+    with pytest.raises(NotImplementedError):  # K3 has a position gradient (K3b), no table gradient
+        torch.autograd.grad(out.sum(), table)
 
 
 # The shipped divisors (levels L5 and L8; T/8 at T = 2^17 and 2^19, and at

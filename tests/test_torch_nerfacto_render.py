@@ -118,18 +118,25 @@ def test_cpu_render_used_the_twins(renders):
     ids=lambda d: next(iter(d)),
 )
 def test_unported_nerfacto_options_raise(option):
-    """The options still unported raise (predicted normals, the flat field
-    and proposal layouts); the sampling options build their stacks (each
-    held against JAX's step in test_torch_nerfacto_options.py): two
-    proposal nets and no grid without the occupancy sampler, no net at
-    ``num_proposal_iterations=0``, one otherwise."""
+    """The options still unported raise (the flat field and proposal
+    layouts); predicted normals build the field's predicted-normal head
+    (held against JAX in test_torch_normals.py); the sampling options build
+    their stacks (each held against JAX's step in
+    test_torch_nerfacto_options.py): two proposal nets and no grid without
+    the occupancy sampler, no net at ``num_proposal_iterations=0``, one
+    otherwise."""
     from nerfstudio_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 
     cfg = NerfactoModelConfig(num_levels=2, log2_hashmap_size=10, max_res=32, **option)
     key = next(iter(option))
-    if key in ("predict_normals", "field_block", "prop_block"):
+    if key in ("field_block", "prop_block"):
         with pytest.raises(NotImplementedError):
             cfg.setup(device=CPU)
+        return
+    if key == "predict_normals":
+        model = cfg.setup(device=CPU)
+        assert model.field.use_pred_normals and len(model.field.mlp_pred_normals.layers) == 3
+        assert model.field.field_head_pred_normals.layer.out_features == 3
         return
     model = cfg.setup(device=CPU)
     nets = {"use_occupancy_sampler": 2, "num_proposal_iterations": 0}.get(key, 1)

@@ -1,9 +1,12 @@
-"""The hand-written kernels' backwards are once differentiable: K1's and
-K7's (``_BlockEncode``, ``_FlatEncode``), K4's (``_ProjectGaussians``) and
-K6's (``_BlendSaturating``). Their CUDA kernels return gradients with no
-graph, so a ``create_graph=True`` backward must give gradients whose own
-backward raises, on the CPU twins as on the card, instead of treating the
-kernels' gradients as constants. The first-order gradients stay what the
+"""The hand-written kernels' backwards under a double backward. K7's
+(``_FlatEncode``), K4's (``_ProjectGaussians``) and K6's
+(``_BlendSaturating``) are once differentiable: their CUDA kernels return
+gradients with no graph, so a ``create_graph=True`` backward must give
+gradients whose own backward raises, on the CPU twins as on the card,
+instead of treating the kernels' gradients as constants. K1's is
+differentiable twice (its backward is a Function whose backward is K1bb,
+which the density-gradient normals need) in the positions; a gradient
+through its table gradient raises. The first-order gradients stay what the
 twins' backward functions compute, bit for bit."""
 
 import math
@@ -30,8 +33,12 @@ def test_hash_encode_double_backward_raises(block):
     """K1 (block layout) and K7 (flat): the gradients of half the encoding's
     squared norm, taken with ``create_graph=True`` (the cotangent, the
     encoding itself, then carries a graph), equal the ones of a plain
-    backward bit for bit and the twin's own backward; backpropagating
-    through them raises ``RuntimeError``."""
+    backward bit for bit and the twin's own backward. K7: backpropagating
+    through them raises ``RuntimeError``. K1: backpropagating through the
+    position gradient runs and equals autograd through the twice
+    differentiable twin (``create_graph=True``) within float32 summation
+    order (1e-5 of the peak); through the table gradient it raises
+    ``NotImplementedError``."""
     pos, table = _hash_inputs(block)
     out = hash_grid.hash_encode(pos, table, block=block, **GEOM)
     g_pos, g_table = torch.autograd.grad(0.5 * out.square().sum(), (pos, table), create_graph=True)
@@ -48,6 +55,17 @@ def test_hash_encode_double_backward_raises(block):
                                         **geom)
     assert torch.equal(g_table, twin[0]) and torch.equal(g_pos, twin[1])
     assert g_pos.requires_grad and g_table.requires_grad
+    if block:
+        got = torch.autograd.grad(g_pos.square().sum(), (pos, table), retain_graph=True)
+        again = hash_grid.hash_encode(pos, table, block=True, **GEOM)
+        _, twin_pos = hash_grid._block_stochastic_twin_bwd(pos, table, again, [1.0] * 4, create_graph=True, **geom)
+        ref = torch.autograd.grad(twin_pos.square().sum(), (pos, table))
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+        assert float(got[1].abs().max()) > 0
+        with pytest.raises(NotImplementedError, match="table gradient"):
+            g_table.square().sum().backward()
+        return
     with pytest.raises(RuntimeError, match="once_differentiable"):
         (g_pos.square().sum() + g_table.square().sum()).backward()
 
