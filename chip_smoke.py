@@ -129,7 +129,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
   table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
   twins; the nerfacto-huge gate (1500 steps, 16,384 rays) and the
-  nerfacto-big run (1500 of its gate's 3000 steps, 8192 rays: its loss
+  nerfacto-big run (1000 of its gate's 3000 steps, 8192 rays: its loss
   must fall) on ``basic`` at full width beside the JAX records, each
   followed by K1's forward (the step's proposal and field
   calls, the proposal's at an eval chunk) and backward (both calls) and K3
@@ -139,7 +139,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   once, and by a 3-step profile (idle share, the hash grid's share, rays/s);
   one plain-neus step (the sampler's draws handed in) and one eval chunk on
   the card against the CPU; plain neus on the ``blender`` scene through the
-  Blender parser, cut in depth to 750 of its gate's 12,000 steps (the loss
+  Blender parser, cut in depth to 300 of its gate's 12,000 steps (the loss
   must fall; the PSNR stands beside the JAX record), and its idle share;
 * the rest of the nerfacto family (phases 58-60), each through
   ``scripts.gate``'s loop at its shipped config, cut in depth to 300 of its
@@ -163,7 +163,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   2200 of its 5000 steps, through its first grid upsample (step 2000, R 128
   -> 152, the optimizer re-initialised: the loss must fall before it and
   again after it, the grids must be at 152 and the optimizer's count must
-  have restarted there), vanilla-nerf and mipnerf cut to 500 of their 8000
+  have restarted there), vanilla-nerf and mipnerf cut to 300 of their 8000
   steps (both passes' rgb losses must fall). None launches a hand-written
   kernel. At each trained state one step (256 rays, the draws handed in,
   the MLPs' products in float32) on the card against the CPU, every loss
@@ -191,19 +191,25 @@ shapes its path gives it, and drives the port's paths from random weights:
 * nerfacto with ``predict_normals`` (phase 67): K3b (K3's position
   gradient, the eval normals) at an eval chunk's field samples and K1bb
   (K1's backward differentiated again, the normals' loss) at a step's, at
-  both phases of the period-2 level cycle, against their float64 twins
-  within float32 summation bounds and timed; then the cell through
+  both phases of the period-2 level cycle, each in both designs against
+  its float64 twin within float32 summation bounds, the default design
+  (lane groups) run twice (K3b's d_pos, K1bb's d_grad and d_pos
+  bit-equal), and both designs timed in turns; then the cell through
   ``scripts.gate``'s loop on ``basic`` with ``--model.predict-normals
   True``, cut to 800 of its 5000 steps (the loss must fall, and both normal
-  terms from the run's second quarter); at the trained state K3b and K1bb at one eval chunk's and one
-  step's inputs against the twins and timed, one step card vs CPU (tables
-  constant on the coin's vertex pairs, MLPs in float32: every loss term,
-  every gradient, the pose adjustment's), one eval chunk's normals card
-  vs CPU, and a 3-step profile.
+  terms from the run's second quarter; no per-thread K3b or K1bb launched);
+  at the trained state K3b and K1bb at one eval chunk's and one step's
+  inputs, checked and timed as above, one step card vs CPU (tables
+  constant on the coin's vertex pairs, MLPs in float32, the CPU's hash
+  encodings at the card's positions, which must lie within POSITION_GAP of
+  its own: every loss term, every gradient, the pose adjustment's), one
+  eval chunk's normals card vs CPU, and a 3-step profile.
 
-Since phases 61-63 came, phases 36-37, 42-45 and 50-51 run 600 steps
-(1000 before), 55 (nerfacto-big) 1500 of its gate's 3000, 57 750 (1000
-before) and 58-60 300 (500 before), to keep the run inside its budget.
+Since phases 61-63 came, phases 36-37, 43, 45 and 50-51 run 600 steps
+(1000 before), 42 and 44 (nerfacto distorted and masked) 300, 55
+(nerfacto-big) 1000 of its gate's 3000, 57 300 (1000 before), 58-60 300
+(500 before) and 62-63 300 (500 before), to keep the run inside its
+budget.
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -298,8 +304,12 @@ def hash_bwd_ops(n, levels, f, need_positions=True):
 CARD_VS_CPU_MEAN_ABS = 1e-2
 
 
+_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the phase's report, with the seconds since the script began."""
+    print(f"[{phase}] (+{time.perf_counter() - _START:.0f} s) {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1549,7 +1559,9 @@ NEUS_SAMPLES = (256, 96)  # proposal samples per ray, rounds 1 and 2
 NEUS_EARLY, NEUS_START, NEUS_WARMUP, NEUS_TIMED = 300, 6000, 3, 10
 NEUS_CHECK_RAYS = 128
 NEUS_KERNELS = ("hash_encode_flat", "hash_encode_flat_bwd")
-PER_THREAD = ("hash_encode_flat_per_thread", "hash_encode_bwd_per_thread")  # K7 launches in the first designs
+# launches in the first designs, which no path takes (K7's forward, the
+# backwards of K1 and K7, K3b and K1bb)
+PER_THREAD = ("hash_encode_flat_per_thread", "hash_encode_bwd_per_thread", "hash_encode_normals_per_thread")
 
 # K7 kernel vs twin: the same float32 operations in the same order (the
 # library is built without FMA contraction), so the forward is expected
@@ -3057,8 +3069,11 @@ OPTIONS_FLAGS = ("--model.use-bilateral-grid", "True", "--model.camera-optimizer
 # every gate of phases 36-51 (nerfacto and splatfacto on basic, distorted
 # and masked; splatfacto-mcmc and -big), cut in depth (their full runs:
 # PERF.md §6): 600, past the splat methods' first refine at step 500, to
-# fit phases 61-63
+# fit phases 61-67
 CUT_GATE_STEPS = 600
+# nerfacto's gates on distorted and masked (phases 42 and 44): 300, as the
+# nerfacto family's (their loss must fall)
+NERF_CUT_STEPS = 300
 
 
 def k4_view_random(n, gen, hw=SPLAT_HW):
@@ -3500,9 +3515,9 @@ def options_and_methods(ph, card, scene, disk_root, disk):
 
 
 # nerfacto-big's gate run (phase 55), cut in depth from its 3000 steps to
-# fit phases 61-63 (the full gate: PERF.md §6)
-BIG_CUT_STEPS = 1500
-NEUS_PLAIN_STEPS = 750  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
+# fit phases 61-67 (the full gate: PERF.md §6)
+BIG_CUT_STEPS = 1000
+NEUS_PLAIN_STEPS = 300  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
 NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
 # Card vs CPU, plain neus's eval chunk: the SDF field is float32 on both
 # sides, but the sampler's four SDF passes sum in another order, which moves
@@ -3703,7 +3718,7 @@ def neus_plain_card_vs_cpu(name):
 
 def big_methods_and_neus(ph, card, scene, disk_root, disk):
     """Phases 53-57: one nerfacto-huge step at 1024 rays card vs CPU; the
-    nerfacto-huge (1500 steps) and nerfacto-big (3000) gates on ``scene`` at
+    nerfacto-huge (1500 steps) and nerfacto-big (BIG_CUT_STEPS of 3000) gates on ``scene`` at
     full width, each followed by K1's forward and backward and K3 at its
     trained state in every design against the twins, timed, and by its
     device's idle share and the hash grid's share of the busy time; one
@@ -3849,9 +3864,9 @@ def nerfacto_family(ph, card, scene, disk_root, disk, jobs):
 # tensorf, vanilla-nerf and mipnerf on the blender scene of phase 57 through
 # scripts.gate's loop at their shipped configs, cut in depth: tensorf past
 # its first grid upsample (step 2000, R 128 -> 152, the optimizer
-# re-initialised), the NeRFs to 500 of their 8000 steps (the full gates:
+# re-initialised), the NeRFs to 300 of their 8000 steps (the full gates:
 # their own chip call, PERF.md)
-BLENDER_RUNS = (("tensorf", 2200), ("vanilla-nerf", 500), ("mipnerf", 500))
+BLENDER_RUNS = (("tensorf", 2200), ("vanilla-nerf", 300), ("mipnerf", 300))
 BLENDER_CHECK_RAYS = 256  # the card-vs-CPU step: the CPU runs the 8x256 bfloat16 NeRF MLPs
 BLENDER_EVAL_RAYS = 1024  # the card-vs-CPU eval chunk: rays spread evenly over the first test view
 
@@ -4533,69 +4548,142 @@ def k1bb_bounds(pos, table, g, u, scales, kw):
     return grad_b, tab_b, pos_b
 
 
-def check_k1bb(name, pos, table, g, u, scales, kw, what):
-    """K1bb against its float64 twin within ``k1bb_bounds``; the levels of
-    scale 0 untouched in the table gradient. Returns its record."""
+def check_k1bb(name, pos, table, g, u, scales, kw, what, needs):
+    """K1bb in every design against its float64 twin within ``k1bb_bounds``;
+    the levels of scale 0 untouched in the table gradient; the default
+    design run twice: d_grad and d_positions bit-equal, d_table within its
+    bounds again (its atomics add in any order); d_grad the same bits in
+    both designs (each sums a stencil's corners in corner order). Returns
+    its record, the default design's errors at the top and every design's
+    under ``designs``."""
     from nerfstudio_torch.ops import hash_grid as hg
 
-    got = hg._block_bwd_bwd_kernel(pos, table, g, u, scales, **kw)
-    ref = hg._block_stochastic_twin_bwd_bwd(pos, table, g, u, scales, dtype=torch.float64, **kw)
-    torch.cuda.synchronize()
+    ref = hg._block_stochastic_twin_bwd_bwd(pos, table, g, u, scales, dtype=torch.float64, **needs, **kw)
     bounds = k1bb_bounds(pos, table, g, u, scales, kw)
-    errs, overs = {}, {}
-    for key, a, b, lim in zip(("d_grad", "d_table", "d_positions"), got, ref, bounds):
-        err = (a.double() - b).abs()
-        errs[key] = (float(err.max()), float(b.abs().max()))
-        overs[key] = int((err > lim).sum()) + int((~torch.isfinite(a)).sum())
-    silent = all(not got[1][l].any() for l, s in enumerate(scales) if not s)
+    keys = [k for k, want in zip(("d_grad", "d_table", "d_positions"), ("need_grad", "need_table", "need_positions"))
+            if needs[want]]
     L, S, _ = table.shape
-    log(name, f"K1bb vs float64 twin, {what}: N={pos.shape[0]} L={L} F={128 * S // kw['hash_table_size']} "
-        f"T=2^{kw['hash_table_size'].bit_length() - 1} scales={list(scales)}: max |kernel - twin| (peak) "
-        + ", ".join(f"{k} {e:.3g} ({p:.3g})" for k, (e, p) in errs.items())
-        + f"; entries over their summation-order limit {overs}; scale-0 levels untouched: {silent}")
-    if any(overs.values()) or not silent:
-        raise AssertionError(f"{name}: K1bb disagrees with its twin ({what})")
-    return dict(inputs=what, n=int(pos.shape[0]), scales=list(scales), max_abs_err=max(e for e, _ in errs.values()),
-                errors={k: dict(max_abs=e, peak=p) for k, (e, p) in errs.items()}, over=overs)
+    F = 128 * S // kw["hash_table_size"]
+    default = hg._pick_design(F)
+
+    def errors(got):
+        errs, overs = {}, {}
+        for key, a, b, lim in zip(("d_grad", "d_table", "d_positions"), got, ref, bounds):
+            if key in keys:
+                err = (a.double() - b).abs()
+                errs[key] = (float(err.max()), float(b.abs().max()))
+                overs[key] = int((err > lim).sum()) + int((~torch.isfinite(a)).sum())
+        silent = not needs["need_table"] or all(not got[1][l].any() for l, s in enumerate(scales) if not s)
+        return errs, overs, silent
+
+    designs, bad, d_grads = {}, [], {}
+    for d in hg.DESIGNS:
+        got = hg._block_bwd_bwd_kernel(pos, table, g, u, scales, _design=d, **needs, **kw)
+        torch.cuda.synchronize()
+        d_grads[d] = got[0]
+        errs, overs, silent = errors(got)
+        rec = dict(max_abs_err=max(e for e, _ in errs.values()),
+                   errors={k: dict(max_abs=e, peak=p) for k, (e, p) in errs.items()}, over=overs, silent=silent)
+        if d == default:
+            again = hg._block_bwd_bwd_kernel(pos, table, g, u, scales, _design=d, **needs, **kw)
+            torch.cuda.synchronize()
+            rec["rerun_bit_equal"] = {k: same_bits(a, b) for k, a, b in zip(("d_grad", "d_table", "d_positions"),
+                                                                               got, again)
+                                      if k in keys and k != "d_table"}
+            rec["rerun_over"] = errors(again)[1]
+            if not all(rec["rerun_bit_equal"].values()) or any(rec["rerun_over"].values()):
+                bad.append(f"{d} (rerun)")
+        designs[d] = rec
+        if any(overs.values()) or not silent:
+            bad.append(d)
+    same_d_grad = None if not needs["need_grad"] else same_bits(*d_grads.values())
+    if same_d_grad is False:
+        bad.append("d_grad differs between the designs")
+    log(name, f"K1bb vs float64 twin, {what}: N={pos.shape[0]} L={L} F={F} "
+        f"T=2^{kw['hash_table_size'].bit_length() - 1} scales={list(scales)} {needs}: " + "; ".join(
+            f"{d}: max |kernel - twin| (peak) " + ", ".join(f"{k} {e['max_abs']:.3g} ({e['peak']:.3g})"
+                                                           for k, e in r["errors"].items())
+            + f", entries over their summation-order limit {r['over']}, scale-0 levels untouched {r['silent']}"
+            + (f", a second run bit-equal {r['rerun_bit_equal']} (d_table over its limit {r['rerun_over'].get('d_table', 0)})"
+               if "rerun_bit_equal" in r else "") for d, r in designs.items())
+        + f"; d_grad the same bits in both designs: {same_d_grad}")
+    if bad:
+        raise AssertionError(f"{name}: K1bb disagrees with its twin ({what}): {bad}")
+    return dict(inputs=what, n=int(pos.shape[0]), scales=list(scales), design=default, same_d_grad=same_d_grad,
+                **{k: v for k, v in designs[default].items() if k in ("max_abs_err", "errors", "over")},
+                designs=designs)
 
 
 def check_k3b(name, pos, table, g, kw, what):
-    """K3b against its float64 twin within ``position_grad_bound`` (the
-    position gradient of K3 has K1 backward's structure: per level a signed
-    sum of 8 corner terms of F products, times res). Returns its record."""
+    """K3b in every design against its float64 twin within
+    ``position_grad_bound`` (the position gradient of K3 has K1 backward's
+    structure: per level a signed sum of 8 corner terms of F products,
+    times res); the default design run twice, bit-equal. Returns its
+    record, the default design's error at the top and every design's under
+    ``designs``."""
     from nerfstudio_torch.ops import hash_grid as hg
 
-    got = hg._block_exact_bwd_kernel(pos, table, g, **kw)
     ref = hg._block_exact_twin_bwd(pos, table, g, dtype=torch.float64, **kw)
-    torch.cuda.synchronize()
     L, S, _ = table.shape
     F = 128 * S // kw["hash_table_size"]
-    err = (got.double() - ref).abs()
-    over = int((err > position_grad_bound(g, table, L, F, kw["min_res"], kw["max_res"])).sum())
-    over += int((~torch.isfinite(got)).sum())
-    log(name, f"K3b vs float64 twin, {what}: N={pos.shape[0]} L={L} F={F} T=2^{kw['hash_table_size'].bit_length() - 1}:"
-        f" max |kernel - twin| {float(err.max()):.3g} (peak {float(ref.abs().max()):.3g}); entries over their "
-        f"summation-order limit {over}")
-    if over:
-        raise AssertionError(f"{name}: K3b disagrees with its twin ({what})")
-    return dict(inputs=what, n=int(pos.shape[0]), max_abs_err=float(err.max()), peak=float(ref.abs().max()))
+    limit = position_grad_bound(g, table, L, F, kw["min_res"], kw["max_res"])
+    default = hg._pick_design(F)
+    designs, bad = {}, []
+    for d in hg.DESIGNS:
+        got = hg._block_exact_bwd_kernel(pos, table, g, _design=d, **kw)
+        torch.cuda.synchronize()
+        err = (got.double() - ref).abs()
+        over = int((err > limit).sum()) + int((~torch.isfinite(got)).sum())
+        designs[d] = dict(max_abs_err=float(err.max()), over=over)
+        if d == default:
+            again = hg._block_exact_bwd_kernel(pos, table, g, _design=d, **kw)
+            torch.cuda.synchronize()
+            designs[d]["rerun_bit_equal"] = same_bits(got, again)
+            if not designs[d]["rerun_bit_equal"]:
+                bad.append(f"{d} (rerun)")
+        if over:
+            bad.append(d)
+    log(name, f"K3b vs float64 twin, {what}: N={pos.shape[0]} L={L} F={F} T=2^{kw['hash_table_size'].bit_length() - 1}"
+        f" (peak {float(ref.abs().max()):.3g}): " + "; ".join(
+            f"{d}: max |kernel - twin| {r['max_abs_err']:.3g}, entries over their summation-order limit {r['over']}"
+            + (f", a second run bit-equal {r['rerun_bit_equal']}" if "rerun_bit_equal" in r else "")
+            for d, r in designs.items()))
+    if bad:
+        raise AssertionError(f"{name}: K3b disagrees with its twin ({what}): {bad}")
+    return dict(inputs=what, n=int(pos.shape[0]), design=default, max_abs_err=designs[default]["max_abs_err"],
+                peak=float(ref.abs().max()), designs=designs)
 
 
-def time_normals_kernel(kernel, twin, moved, ops, key):
-    """Events ms of one call (median), the profiler's device ms of the
-    kernel's records (``key`` in its name), 50 calls back to back, the
-    twin's events ms, and the bound."""
+# each design's kernel, by the name the profiler gives it
+NORMALS_KERNEL_NAMES = {
+    "K3b": {"per-thread": "block_exact_bwd_kernel", "lane-groups": "block_exact_bwd_lanes_kernel"},
+    "K1bb": {"per-thread": "block_bwd_bwd_kernel", "lane-groups": "block_bwd_bwd_lanes_kernel"},
+}
+
+
+def time_normals_designs(rec, run, twin, moved, ops, names):
+    """Every design of one kernel timed at one input set: in turns by CUDA
+    events (``paired_ms``), by the profiler's device ms of its kernel's
+    records, and over 50 calls back to back; the twin's events ms, the
+    bound. Adds them to ``rec`` (the default design's at the top)."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    fns = {d: (lambda d=d: run(d)) for d in hg.DESIGNS}
+    paired = paired_ms(fns)
+    for d, fn in fns.items():
+        dev, records = kernel_records_ms(fn, names[d])
+        rec["designs"][d].update(ms=paired[d][0], ms_runs=paired[d][1], device_ms=dev, device_records=records,
+                                 batch_ms=batch_ms(fn))
     bnd = bound(moved, ops)
-    dev, records = kernel_records_ms(kernel, key)
-    return dict(ms=median_ms(kernel), device_ms=dev, device_records=records, batch_ms=batch_ms(kernel),
-                plain_ms=median_ms(twin, runs=3, warmup=1), bound_ms=bnd[0], bound_by=bnd[1], bytes=moved)
+    rec.update({k: rec["designs"][rec["design"]][k] for k in ("ms", "device_ms", "device_records", "batch_ms")},
+               plain_ms=median_ms(twin, runs=3, warmup=1), bound_ms=bnd[0], bound_by=bnd[1], bytes=moved)
 
 
 def normals_kernel_records(name, sets, card):
-    """Check and time K3b and K1bb at each input set: {"K3b": [...],
-    "K1bb": [...]} records with their times and bounds (the touched table
-    lines read once, ``touched_line_bytes``; K1bb's dense table gradient
-    written whole)."""
+    """Check and time K3b and K1bb in every design at each input set:
+    {"K3b": [...], "K1bb": [...]} records with their times and bounds (the
+    touched table lines read once, ``touched_line_bytes``; K1bb's dense
+    table gradient written whole)."""
     from nerfstudio_torch.ops import hash_grid as hg
 
     out = {"K3b": [], "K1bb": []}
@@ -4605,29 +4693,31 @@ def normals_kernel_records(name, sets, card):
         F = 128 * S // kw["hash_table_size"]
         n = pos.shape[0]
         moved = 2 * nbytes(pos) + nbytes(g) + touched_line_bytes(pos, table, kw, True)
-        rec.update(time_normals_kernel(lambda: hg._block_exact_bwd_kernel(pos, table, g, **kw),
-                                       lambda: hg._block_exact_twin_bwd(pos, table, g, **kw), moved,
-                                       n * L * (24 + 8 * (2 * F + 9)), "block_exact_bwd_kernel"))
+        time_normals_designs(rec, lambda d: hg._block_exact_bwd_kernel(pos, table, g, _design=d, **kw),
+                             lambda: hg._block_exact_twin_bwd(pos, table, g, **kw), moved,
+                             n * L * (24 + 8 * (2 * F + 9)), NORMALS_KERNEL_NAMES["K3b"])
         out["K3b"].append(rec)
     for what, (pos, table, g, u, scales), kw, needs in sets["K1bb"]:
-        rec = check_k1bb(name, pos, table, g, u, scales, kw, what)
+        rec = check_k1bb(name, pos, table, g, u, scales, kw, what, needs)
         L, S, _ = table.shape
         F = 128 * S // kw["hash_table_size"]
         n = pos.shape[0]
         moved = (nbytes(pos, g, u) + touched_line_bytes(pos, table, kw, False)
                  + (nbytes(g) if needs["need_grad"] else 0) + (nbytes(table) if needs["need_table"] else 0)
                  + (nbytes(pos) if needs["need_positions"] else 0))
-        rec.update(needs=needs, **time_normals_kernel(
-            lambda: hg._block_bwd_bwd_kernel(pos, table, g, u, scales, **needs, **kw),
-            lambda: hg._block_stochastic_twin_bwd_bwd(pos, table, g, u, scales, **needs, **kw), moved,
-            n * L * (30 + 8 * (4 * F + 40)), "block_bwd_bwd_kernel"))
+        rec["needs"] = needs
+        time_normals_designs(rec, lambda d: hg._block_bwd_bwd_kernel(pos, table, g, u, scales, _design=d, **needs, **kw),
+                             lambda: hg._block_stochastic_twin_bwd_bwd(pos, table, g, u, scales, **needs, **kw), moved,
+                             n * L * (30 + 8 * (4 * F + 40)), NORMALS_KERNEL_NAMES["K1bb"])
         out["K1bb"].append(rec)
     for k, recs in out.items():
         for r in recs:
-            log(name, f"{k} at {r['inputs']} (N={r['n']}) on {card}: {r['ms']:.4f} ms (events), device "
-                f"{r['device_ms']:.4f} ({r['device_records']} records), back to back {r['batch_ms']:.4f}; bound "
-                f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes'] / 2**20:.1f} MiB); twin "
-                f"{r['plain_ms']:.3f} ms")
+            log(name, f"{k} at {r['inputs']} (N={r['n']}) on {card} (events: mean [two medians] / device ms "
+                f"(records) / 50 back to back): " + ", ".join(
+                    f"{d} {x['ms']:.4f} {[round(m, 4) for m in x['ms_runs']]} / {x['device_ms']:.4f} "
+                    f"({x['device_records']}) / {x['batch_ms']:.4f}" for d, x in r["designs"].items())
+                + f"; default {r['design']}; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                f"({r['bytes'] / 2**20:.1f} MiB); twin {r['plain_ms']:.3f} ms")
     return out
 
 
@@ -4686,14 +4776,62 @@ def pair_constant_tables(model, gen):
             m.hash_table.copy_(tab.view(L, S, 128).to(m.hash_table.device))
 
 
+# The largest gap allowed between the card's and the CPU's positions at a
+# hash encoding's input in the step card vs CPU with normals, in [0, 1]
+# coordinates: two cells of the field's finest level (1 / 2048 each). The
+# samplers' float32 sums in another order move a sample by a fraction of a
+# cell (PERF.md); a sample that moved further is another sample.
+POSITION_GAP = 1e-3
+
+
+def replay_positions(model, replay=None):
+    """Forward pre-hooks on every hash encoding of ``model``; returns (the
+    list they fill, their handles). With ``replay`` None each call's input
+    positions are appended (detached, on the CPU). Otherwise the calls take
+    ``replay``'s positions in order, their gradient path unchanged (r + (x
+    - x.detach()): the value r, the derivative 1), and the list receives
+    each call's max |x - r|.
+
+    K1's position gradient jumps at every cell face (an odd cell's axis has
+    no slope, an even cell's has one: the reference's math), so the
+    normals, the direction of the density gradient, turn where a sample
+    moves across a face, and the card's and the CPU's positions differ in
+    the last bits. Replaying the card's positions on the CPU holds the
+    kernels and the twins to the same inputs; the gaps, held to
+    POSITION_GAP, still check the positions."""
+    from nerfstudio_torch.field_components.encodings import HashEncoding
+
+    seen = []
+
+    def hook(module, args, kwargs):
+        x = args[0]
+        if replay is None:
+            seen.append(x.detach().cpu())
+            return None
+        r = replay[len(seen)].to(x.device)
+        if r.shape != x.shape:
+            raise AssertionError(f"hash encoding call {len(seen)}: positions {tuple(x.shape)} on the CPU, "
+                                 f"{tuple(r.shape)} on the card")
+        seen.append(float((x.detach() - r).abs().max()) if x.numel() else 0.0)
+        return (r + (x - x.detach()),) + tuple(args[1:]), kwargs
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True) for m in model.modules()
+               if isinstance(m, HashEncoding)]
+    return seen, handles
+
+
 def normals_step_card_vs_cpu(run):
     """One step at the trained state on the card and on the CPU twins:
     copies of the trained model with ``pair_constant_tables`` and every MLP
     in float32, the trained grid, the run's images and cameras, the same
     CHECK_RAYS pixels and jitter drawn on the host, the next step's kwargs,
-    a fresh optimizer each. Returns (card metrics, CPU metrics, loss rel,
-    grads rel (the pose adjustment's among them), tables rel, {term: rel},
-    the pose adjustment's rel)."""
+    a fresh optimizer each. The CPU runs the step twice: at its own
+    positions, and with every hash encoding taking the card's input
+    positions (``replay_positions``), which the checks compare. Returns
+    (card metrics, CPU metrics, loss rel, grads rel (the pose adjustment's
+    among them), tables rel, {term: rel}, the pose adjustment's rel, the
+    largest position gap, {"loss", "grads", "tables", "pose"}: the rels
+    at the CPU's own positions)."""
     from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
     from nerfstudio_torch.engine.optimizers import PerGroupAdam, nerfacto_optimizers
     from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
@@ -4706,8 +4844,8 @@ def normals_step_card_vs_cpu(run):
     n, h, w = dm.train_images.shape[:3]
     pixels = torch.stack([torch.randint(0, m, (CHECK_RAYS,), generator=gen) for m in (n, h, w)], dim=-1)
     probes, *rounds = (torch.rand((CHECK_RAYS, 1), generator=gen) for _ in range(3))
-    weights, runs = None, []
-    for device in ("cuda", "cpu"):
+    weights, runs, positions, gap = None, [], None, None
+    for device, replay in (("cuda", False), ("cpu", False), ("cpu", True)):
         model = copy.deepcopy(trained).to(device).train()
         if weights is None:
             pair_constant_tables(model, torch.Generator().manual_seed(SEED + 14))
@@ -4721,16 +4859,27 @@ def normals_step_card_vs_cpu(run):
                                       dm.train_cameras.to(device), dm.train_images.cpu(), device)
         twin = VanillaPipeline(data, model)
         st = TrainState(PerGroupAdam(nerfacto_optimizers(), model), aux=state.aux.to(device))
+        seen, hooks = replay_positions(model, positions if replay else None)
         metrics = twin.train_step(st, draws=StepDraws(pixels.to(device), SamplerUniforms(
             probes.to(device), tuple(u.to(device) for u in rounds[:model.num_proposal_rounds() + 1]))), **kwargs)
+        for hook in hooks:
+            hook.remove()
+        if replay:
+            if len(seen) != len(positions):
+                raise AssertionError(f"the CPU step called the hash encodings {len(seen)} times, the card "
+                                     f"{len(positions)}")
+            gap = max(seen)
+        elif positions is None:
+            positions = seen
         grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
         runs.append(({k: float(v) for k, v in metrics.items()}, grads, model))
         del twin, st, data
-    (m_card, g_card, model), (m_cpu, g_cpu, _) = runs
+    (m_card, g_card, model), (m_own, g_own, _), (m_cpu, g_cpu, _) = runs
     terms = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu if k.endswith("_loss")}
     key = "camera_optimizer.pose_adjustment"
-    pose_rel = float((g_card[key] - g_cpu[key]).abs().max() / g_cpu[key].abs().max().clamp_min(1e-30))
-    return (m_card, m_cpu) + step_rel(m_card, g_card, m_cpu, g_cpu, model) + (terms, pose_rel)
+    pose = lambda g: float((g_card[key] - g[key]).abs().max() / g[key].abs().max().clamp_min(1e-30))  # noqa: E731
+    own = dict(zip(("loss", "grads", "tables"), step_rel(m_card, g_card, m_own, g_own, model)), pose=pose(g_own))
+    return (m_card, m_cpu) + step_rel(m_card, g_card, m_cpu, g_cpu, model) + (terms, pose(g_cpu), gap, own)
 
 
 def float32_heads(model):
@@ -4795,8 +4944,9 @@ def normals_after(name, card):
     full run both rise over the first ~300 steps and fall from there, past
     the first quarter's mean from ~1500 steps, PERF.md §6); K3b and K1bb against their twins at the inputs of one more
     step (K1bb) and of one eval chunk (K3b), timed; one step card vs CPU
-    (every loss term 2e-3, gradients 5e-2 of the peak, the pose adjustment's
-    too); one eval chunk card vs CPU (the MLPs and heads in float32: rgb,
+    with the card's positions at the CPU's hash encodings (every loss term
+    2e-3, gradients 5e-2 of the peak, the pose adjustment's too; the
+    positions within POSITION_GAP); one eval chunk card vs CPU (the MLPs and heads in float32: rgb,
     accumulation, normals and predicted normals within
     CARD_VS_CPU_MEAN_ABS mean abs)."""
     from nerfstudio_torch.ops import hash_grid as hg
@@ -4820,11 +4970,14 @@ def normals_after(name, card):
             needs = {k: kw.pop(k) for k in ("need_grad", "need_table", "need_positions")}
             sets["K1bb"].append(("a trained step", (pos, table, g, u, scales), kw, needs))
         kernels = normals_kernel_records(name, sets, card)
-        m_card, m_cpu, loss_rel, grad_rel, table_rel, terms, pose_rel = normals_step_card_vs_cpu(run)
+        m_card, m_cpu, loss_rel, grad_rel, table_rel, terms, pose_rel, gap, own = normals_step_card_vs_cpu(run)
         log(name, "nerfacto with normals: " + ", ".join(f"{k} {h:.6g} -> {t:.6g}" for k, (h, t, _) in falls.items())
             + f" (the first quarter's mean to the last's; the normal terms from the second quarter's); one step at "
             f"the trained state ({CHECK_RAYS} rays, tables "
-            f"constant on the coin's vertex pairs, the MLPs in float32) card vs CPU: loss {m_card['loss']:.6f} vs "
+            f"constant on the coin's vertex pairs, the MLPs in float32) card vs CPU at the CPU's own positions "
+            f"(not held: the normals turn where a sample crosses a cell face): " + ", ".join(
+                f"{k} {v:.3g}" for k, v in own.items()) + f"; with the card's positions at every hash encoding "
+            f"(the CPU's {gap:.3g} away at most, limit {POSITION_GAP}): loss {m_card['loss']:.6f} vs "
             f"{m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}), terms "
             + ", ".join(f"{k} {v:.2g}" for k, v in terms.items())
             + f" (orientation {m_card['orientation_loss']:.4g} vs {m_cpu['orientation_loss']:.4g}, pred-normal "
@@ -4835,11 +4988,12 @@ def normals_after(name, card):
             "mean |card - cpu| " + ", ".join(f"{k} {v:.3g}" for k, v in mean.items()) + " (max "
             + ", ".join(f"{k} {v:.3g}" for k, v in peak.items()) + f"; limit {CARD_VS_CPU_MEAN_ABS}) on {card}")
         if (loss_rel > STEP_LOSS_RTOL or max(terms.values()) > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL
-                or pose_rel > STEP_GRAD_REL or table_rel > STEP_TABLE_SUM_REL
+                or pose_rel > STEP_GRAD_REL or table_rel > STEP_TABLE_SUM_REL or gap > POSITION_GAP
                 or max(mean.values()) > CARD_VS_CPU_MEAN_ABS):
             raise AssertionError(f"{name}: card and CPU nerfacto-with-normals steps or eval chunks disagree")
         return dict(falls={k: v[:2] for k, v in falls.items()}, loss_rel=loss_rel, terms=terms, grad_rel=grad_rel,
-                    pose_rel=pose_rel, table_rel=table_rel, eval_mean=mean, eval_max=peak, kernels=kernels)
+                    pose_rel=pose_rel, table_rel=table_rel, position_gap=gap, own_positions=own, eval_mean=mean,
+                    eval_max=peak, kernels=kernels)
 
     return after
 
@@ -4931,7 +5085,8 @@ def main() -> int:
     if render_launches != {"hash_encode_block": want, "hash_encode_block_exact": want, "hash_encode_block_bwd": 0,
                            "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_exact_bwd": 0,
                            "hash_encode_block_bwd_bwd": 0, "hash_encode_block_per_thread": 0,
-                           "hash_encode_bwd_per_thread": 0, "hash_encode_flat_per_thread": 0}:
+                           "hash_encode_bwd_per_thread": 0, "hash_encode_flat_per_thread": 0,
+                           "hash_encode_normals_per_thread": 0}:
         raise AssertionError(f"kernel launches {render_launches}, expected {want} of each forward (one per chunk, "
                              "in the default design)")
     acc = float(torch.stack([f["accumulation"].mean() for f in frames]).mean())
@@ -5528,8 +5683,9 @@ def main() -> int:
         for i, (method, path) in enumerate(((m, p) for p in (distorted, masked) for m in ("nerfacto", "splatfacto"))):
             want = NERFACTO_KERNELS if method == "nerfacto" else SPLAT_PATH_KERNELS
             key = f"gate_{method}_{os.path.basename(path)}"
-            disk[key] = gate_phase(ph(42 + i, f"{method} {os.path.basename(path)}, {CUT_GATE_STEPS} steps"), method,
-                                   path, disk_root, card, want, steps=CUT_GATE_STEPS)
+            steps = NERF_CUT_STEPS if method == "nerfacto" else CUT_GATE_STEPS
+            disk[key] = gate_phase(ph(42 + i, f"{method} {os.path.basename(path)}, {steps} steps"), method,
+                                   path, disk_root, card, want, steps=steps)
         disk["buckets"] = bucketed_run(ph(46, "nerfacto on masked buckets"), mixed, disk_root, card)
 
         # 47-52. splatfacto's options and methods
@@ -5771,8 +5927,9 @@ def main() -> int:
     kernels[0]["nerfacto_options"] = nerfacto_options
     kernels[-1]["k8_tensorf_step"] = k8_tensorf
     # K3b and K1bb (phase 67): their launches in nerfacto-with-normals' run
-    # (training and eval, counted from 0 just before it), the check inputs'
-    # records (times, bound, errors) and the trained state's
+    # (training and eval, counted from 0 just before it; the per-thread
+    # design's count is 0 there), the check inputs' records (every design's
+    # times and errors, the bound) and the trained state's
     normals = disk["gate_nerfacto_normals"]
     for key, kname, label, replaces in (
             ("K3b", "hash_encode_block_exact_bwd", "hash_encode_block_exact_bwd (K3b, K3's position gradient)",
@@ -5782,10 +5939,13 @@ def main() -> int:
         first, trained = normals_checks[key][0], normals["after"]["kernels"][key]
         e = entry(label, source, replaces, normals["launches"][kname],
                   max(r["max_abs_err"] for r in normals_checks[key] + trained), first["ms"], first["plain_ms"],
-                  (first["bound_ms"], first["bound_by"]), design="per-stencil")
+                  (first["bound_ms"], first["bound_by"]), design=first["design"])
         e.update(device_ms=first["device_ms"], batch_ms=first["batch_ms"], checks=normals_checks[key],
                  trained=trained, launches_per_train_step=normals["gate_launches"]["train"][kname] / normals["steps"],
-                 eval_launches=normals["gate_launches"]["eval"][kname])
+                 eval_launches=normals["gate_launches"]["eval"][kname],
+                 per_thread_launches=normals["launches"]["hash_encode_normals_per_thread"],
+                 designs=[dict(design=d, inputs=[dict(inputs=r["inputs"], n=r["n"], **r["designs"][d])
+                                                 for r in normals_checks[key] + trained]) for d in hg.DESIGNS])
         kernels.append(e)
     kernels[0]["nerfacto_normals"] = dict({k: v for k, v in normals["after"].items() if k != "kernels"},
                                           idle=normals["idle"], loss=normals["loss"])

@@ -19,10 +19,11 @@
 //     XLA's autodiff of block_level_geometry down to the positions.
 //   * K3b: XLA's autodiff of _block_exact_trilerp (hash_encode(block_exact=
 //     True) under jax.grad in the positions; the eval normals):
-//     block_exact_bwd_kernel.
+//     block_exact_bwd_lanes_kernel and block_exact_bwd_kernel.
 //   * K1bb: XLA's autodiff of K1's backward (the same functions
 //     differentiated again, for the cotangent of its position gradient; the
-//     normals' loss in training): block_bwd_bwd_kernel.
+//     normals' loss in training): block_bwd_bwd_lanes_kernel and
+//     block_bwd_bwd_kernel.
 //
 // K7's forward has the same two designs: one thread per (sample, level)
 // (flat_encode_kernel) and, for F = 2 and 4, lane pairs with one level per
@@ -35,6 +36,11 @@
 // reductions (bwd_lanes_kernel), before which K7, asked for the table
 // gradient alone, reduces its dense coarse levels in shared memory
 // (bwd_private_kernel). See the comment above bwd_private_kernel.
+//
+// K3b and K1bb have the same two designs: one thread per (sample, level)
+// with scalar loads and atomics, and, for F = 2 and 4, lane groups with
+// vector loads and reductions (see the comment above
+// block_exact_bwd_kernel).
 //
 // Table layout, shared with the reference: table[l, row, lane], shape
 // (L, S, 128) float32. Vertex v of level l lives in block b = v >> 1 (per
@@ -1404,10 +1410,11 @@ cudaError_t launch_bwd_design(bool block, const float* pos, const float* table, 
 
 // ---------------------------------------------------------------------------
 // K3b and K1bb: the derivatives that the density-gradient normals take.
-// One thread per (sample, level), levels fastest; a block of kThreads holds
-// whole samples (kThreads / L of them), so each sample's position terms are
-// summed over its levels, in level order, through shared memory, with no
-// atomics. Sample and table indices fit 32 bits (the wrapper checks the
+// In both designs levels run fastest and a block (the per-thread kernels:
+// kThreads / L samples) or a warp (the lane groups: 32 / L samples) holds
+// whole samples, so each sample's position terms are summed over its
+// levels, in level order, through shared memory, with no atomics. Sample
+// and table indices fit 32 bits (the wrapper checks the
 // lane kernels' limits: n * L < 2^31, a table of fewer than 2^32 floats);
 // offsets into pos, grad and the outputs are 64-bit.
 //
@@ -1422,8 +1429,37 @@ cudaError_t launch_bwd_design(bool block, const float* pos, const float* table, 
 // in up to eight 128-byte lines per stencil; K1bb: one 8F-float block) and,
 // for K1bb's table gradient, one float atomic per (corner of nonzero
 // weight, feature) on the levels of nonzero scale. The arithmetic is a few
-// dozen flops per gathered float. A simple first design: one thread per
-// stencil, scalar loads.
+// dozen flops per gathered float.
+//
+// Two designs, as the first-order kernels have:
+//   * block_exact_bwd_kernel and block_bwd_bwd_kernel (the first design,
+//     "per-thread"): one thread per stencil, scalar 4-byte loads and, in
+//     K1bb, F scalar atomics per corner. Each lane of a warp is another
+//     stencil, so one load instruction asks L1 for up to 32 lines. Kept for
+//     F in {1, 8, 16}, which no shipped config uses, and so that
+//     chip_smoke.py can time it beside the second design.
+//   * block_exact_bwd_lanes_kernel and block_bwd_bwd_lanes_kernel (the
+//     "lane groups", F = 2 and 4, the default there), in the structure of
+//     K3's and K1's forward lane kernels and bwd_lanes_kernel: lane s of a
+//     warp computes stencil s's geometry once (K1's coins are hashed once,
+//     K3's eight corner blocks once) and writes it to a per-warp table in
+//     shared memory; then a group of lanes serves each stencil. K3b: 8
+//     lanes, one corner each, its F floats as one 8- or 16-byte vector
+//     (the lines K3 reads); each lane forms a_c and its signed terms of the
+//     three axes, and the group sums them with shuffles. K1bb: 2F lanes,
+//     one 16-byte quarter of the block each (one line at F=4); each lane
+//     forms h_c, a_c and the second-derivative terms of its corners, adds
+//     its table gradient with one vector reduction (atomicAdd on float4,
+//     where the first design issued 4 scalar atomics), and the group sums
+//     the position terms with shuffles and d_grad through shared memory in
+//     corner order, as the first design and the twin sum it (F lanes
+//     store one feature each, so a warp's store is contiguous). A warp
+//     holds 32 / L whole samples, levels fastest, so a sample's levels are
+//     summed in shared memory in level order, with no atomics: d_pos (and
+//     K1bb's d_grad) are the same bits from run to run. Every term is
+//     rounded as the first design rounds it; only the summation trees of
+//     the position terms differ, which the float64 bounds of chip_smoke.py
+//     count (terms, not their order).
 
 __device__ __forceinline__ void axis_slope_cell(float p, int res, int* i0, float* o, float* slope) {
   const float s = __fmul_rn(p, (float)res);
@@ -1600,6 +1636,310 @@ __global__ void __launch_bounds__(kThreads)
   store_sample_sums(part, dp, L, live, l == 0, d_pos, i);
 }
 
+// The arguments of the normals' lane kernels (K3b, K1bb).
+struct NormalsArgs {
+  const float* pos;
+  const float* table;
+  const float* grad;
+  const float* u;   // K1bb: the cotangent of K1 backward's position gradient
+  float* d_grad;    // K1bb; null: not asked
+  float* d_table;   // K1bb; null: not asked
+  float* d_pos;     // null: not asked
+  uint32_t n;
+  uint32_t num_levels;
+  uint32_t level_stride;  // floats
+  U32Divisor modulus;     // T / 8 (the block hash)
+};
+
+// F floats at src (8- or 16-byte aligned) as one vector load.
+template <int F>
+__device__ __forceinline__ void load_vec(const float* src, float* v) {
+  if constexpr (F == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(src));
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
+// An entry of a per-warp table in shared memory as four floats.
+__device__ __forceinline__ void unpack4(const float4& x, float* v) { v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w; }
+
+// The sums of a stencil's three position terms t[0..2] over its group of
+// G lanes (G = 4 or 8): group_sum_scatter of (t0, t1, t2, 0), 2 or 4
+// shuffles where three full butterflies take 6 or 9. Returns the axis
+// whose sum the lane holds, 3 for none (the pad, or another lane's copy).
+template <int G>
+__device__ __forceinline__ int axis_sums(float (&t)[4], unsigned lane, float* sum) {
+  t[3] = 0.0f;
+  *sum = group_sum_scatter<G, 4>(t, lane);
+  const int k = (int)(lane & (G - 1));
+  return k % (G / 4) == 0 ? k / (G / 4) : 3;
+}
+
+// The warp's stencils in the normals' lane kernels: 32 / L whole samples,
+// levels fastest; lane s computes stencil s, sample first + s / L at level
+// s % L, whose row of grad and d_grad is first * L + s. Valid stencils are
+// a prefix of the warp's lanes.
+struct WarpStencils {
+  uint32_t first;  // the warp's first sample
+  uint32_t i;      // the lane's sample
+  int l;           // the lane's level
+  bool valid;
+};
+
+__device__ __forceinline__ WarpStencils warp_stencils(const NormalsArgs& a, unsigned lane) {
+  const int L = (int)a.num_levels, spw = 32 / L;
+  const int js = (int)lane / L;
+  WarpStencils w;
+  w.first = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * (uint32_t)spw;
+  w.i = w.first + (uint32_t)js;
+  w.l = (int)lane - js * L;
+  w.valid = js < spw && w.i < a.n;
+  return w;
+}
+
+// Each sample's level terms (dxs[3 * s + axis] of stencil s) summed in
+// level order by the lane of its level 0, and stored.
+__device__ __forceinline__ void store_level_sums(const float* dxs, const WarpStencils& w, int L, unsigned lane,
+                                                 float* d_pos) {
+  __syncwarp();
+  if (!w.valid || w.l != 0) return;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    float acc = 0.0f;
+    for (int m = 0; m < L; ++m) acc = __fadd_rn(acc, dxs[3 * ((int)lane + m) + ax]);
+    d_pos[3 * (size_t)w.i + ax] = acc;
+  }
+}
+
+// K3b, lane groups. Phase 1: lane s computes its stencil's cells, its eight
+// corners' table offsets (each axis's two block coordinates and hash
+// products once, as block_exact_lanes_kernel), each axis's upper weight o
+// and slope d o / d x. Phase 2: 8 rounds of 4 stencils; lane 8q + c reads
+// corner c of stencil 4r + q and the stencil's cotangent row g, each as one
+// F-float vector (the row's 8 lanes make one request; loaded here rather
+// than through the warp's table, its load is in flight with the corners'),
+// forms a_c = <g, bf16 values> and its terms of the three axes' d_o, and
+// the 8 lanes sum them (axis_sums); the lane holding an axis's sum scales
+// it by the axis's slope.
+template <int F>
+__global__ void __launch_bounds__(kThreads) block_exact_bwd_lanes_kernel(NormalsArgs a, LevelGeometry g) {
+  constexpr int kWarps = kThreads / 32, G = 8, R = 32 / G;
+  __shared__ uint32_t offsets[kWarps][8 * 32];  // slot layout
+  __shared__ float4 w1s[kWarps][32];  // each axis's upper weight o, and a pad
+  __shared__ float slopes[kWarps][3 * 32];
+  __shared__ float dxs[kWarps][3 * 32];
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = threadIdx.x >> 5;
+  const int L = (int)a.num_levels;
+  const WarpStencils ws = warp_stencils(a, lane);
+  if (ws.valid) {
+    const int l = ws.l;
+    const int res = g.res[l];
+    const uint32_t bs = (uint32_t)g.blocks_per_axis[l];
+    const bool dense = g.dense[l] != 0;
+    uint32_t bc[3][2], par[3][2];
+    float o[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      int i0;
+      float s;
+      axis_slope_cell(__ldg(a.pos + 3 * (size_t)ws.i + ax), res, &i0, &o[ax], &s);
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        bc[ax][d] = (uint32_t)(i0 + d) >> 1;
+        par[ax][d] = (uint32_t)(i0 + d) & 1u;
+      }
+      slopes[warp][3 * lane + ax] = s;
+    }
+    w1s[warp][lane] = make_float4(o[0], o[1], o[2], 0.0f);
+    if (!dense) {  // the hash's per-axis products
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        bc[1][d] *= 2654435761u;
+        bc[2][d] *= 805459861u;
+      }
+    }
+    const uint32_t base = (uint32_t)l * a.level_stride;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
+      const uint32_t blk = dense ? (bc[0][dx] * bs + bc[1][dy]) * bs + bc[2][dz]
+                                 : umod(bc[0][dx] ^ bc[1][dy] ^ bc[2][dz], a.modulus);
+      const uint32_t parity = (par[0][dx] << 2) | (par[1][dy] << 1) | par[2][dz];
+      offsets[warp][slot<R>(c, lane)] = base + blk * (8 * F) + parity * F;
+    }
+  }
+  const int count = __popc(__ballot_sync(0xffffffffu, ws.valid));
+  if (count == 0) return;  // the same for the whole warp
+  __syncwarp();
+  const int c = lane & (G - 1), q = lane / G;
+  const int bit[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
+  // every round unrolled, so the warp's loads of all its rounds are in
+  // flight together
+#pragma unroll
+  for (int r = 0; r < 32 / R; ++r) {
+    if (R * r >= count) break;  // the same for the whole warp
+    const int s = R * r + q;
+    const bool live = s < count;
+    const int ss = live ? s : 0;
+    float v[F];
+    load_vec<F>(a.table + (live ? offsets[warp][slot<R>(c, ss)] : 0u), v);
+    if constexpr (F == 4) bf16_round2(v[2], v[3]);
+    bf16_round2(v[0], v[1]);
+    float gv[F], o[4];
+    load_vec<F>(a.grad + ((size_t)ws.first * L + ss) * F, gv);  // the group's lanes: one request
+    unpack4(w1s[warp][ss], o);
+    float ac = __fmul_rn(gv[0], v[0]);
+#pragma unroll
+    for (int f = 1; f < F; ++f) ac = __fadd_rn(ac, __fmul_rn(gv[f], v[f]));
+    float w[3];  // each axis's factor of corner c: o if c is up on the axis, else 1 - o
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) w[ax] = bit[ax] ? o[ax] : __fsub_rn(1.0f, o[ax]);
+    float t[4];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const int b1 = ax == 0 ? 1 : 0, b2 = ax == 2 ? 1 : 2;  // the other two axes
+      const float term = __fmul_rn(__fmul_rn(ac, w[b1]), w[b2]);
+      t[ax] = bit[ax] ? term : -term;
+    }
+    float sum;
+    const int ax = axis_sums<G>(t, lane, &sum);
+    if (live && ax < 3) dxs[warp][3 * ss + ax] = __fmul_rn(sum, slopes[warp][3 * ss + ax]);
+  }
+  store_level_sums(dxs[warp], ws, L, lane, a.d_pos);
+}
+
+// K1bb, lane groups. Phase 1: lane s computes its stencil's cells, odd-axis
+// coins and block offset (block_stencil, K1's arithmetic), each axis's
+// upper factor and its derivative's magnitude (0 on an odd axis), and
+// writes them with its sample's u and its level's scale to the warp's
+// table (16-byte entries).
+// Phase 2: 2F rounds of 32/(2F) stencils; lane 2Fq + k reads the k-th
+// 16-byte vector of stencil R*r + q's block (corners 4k/F .. 4k/F + 4/F -
+// 1) and the stencil's cotangent row g (as K3b reads it), forms each
+// corner's h_c = u . grad w8_c, a_c = <g, bf16 values> and
+// second-derivative terms, adds (scale h_c) g to the table gradient with
+// one float4 reduction, and the 2F lanes sum the position terms and d_grad
+// (in corner order).
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    block_bwd_bwd_lanes_kernel(NormalsArgs a, LevelGeometry g, LevelScales sc) {
+  constexpr int kWarps = kThreads / 32, G = 2 * F, R = 32 / G, kCorners = 4 / F;
+  constexpr int kRow = 8 * F + 4;  // a stencil's d_grad terms, corner-major, and a pad (banks)
+  __shared__ float4 us[kWarps][32];   // u, and the block's offset (its bits)
+  __shared__ float4 w1s[kWarps][32];  // each axis's upper factor, and the level's scale
+  __shared__ float4 fxs[kWarps][32];  // each axis's |d factor / d x|, and a pad
+  __shared__ float dxs[kWarps][3 * 32];
+  __shared__ __align__(16) float dgs[kWarps][R * kRow];
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = threadIdx.x >> 5;
+  const int L = (int)a.num_levels;
+  const WarpStencils ws = warp_stencils(a, lane);
+  if (ws.valid) {
+    const int l = ws.l;
+    float p[3], w[8], w1[3], fx[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) p[ax] = __ldg(a.pos + 3 * (size_t)ws.i + ax);
+    const uint32_t blk =
+        block_stencil(p, g.res[l], (uint32_t)g.blocks_per_axis[l], g.dense[l] != 0, a.modulus, w, w1, fx);
+    const float* ui = a.u + 3 * (size_t)ws.i;
+    us[warp][lane] = make_float4(__ldg(ui), __ldg(ui + 1), __ldg(ui + 2),
+                                 __uint_as_float((uint32_t)l * a.level_stride + blk * (8 * F)));
+    w1s[warp][lane] = make_float4(w1[0], w1[1], w1[2], sc.scale[l]);
+    fxs[warp][lane] = make_float4(fx[0], fx[1], fx[2], 0.0f);
+  }
+  const int count = __popc(__ballot_sync(0xffffffffu, ws.valid));
+  if (count == 0) return;  // the same for the whole warp
+  __syncwarp();
+  const int k = lane & (G - 1), q = lane / G;
+  // every round unrolled, so the warp's loads of all its rounds are in
+  // flight together
+#pragma unroll
+  for (int r = 0; r < 32 / R; ++r) {
+    if (R * r >= count) break;  // the same for the whole warp
+    const int s = R * r + q;
+    const bool live = s < count;
+    const int ss = live ? s : 0;
+    float u[4], w1[4], fx[4], gv[F];
+    unpack4(us[warp][ss], u);
+    unpack4(w1s[warp][ss], w1);
+    unpack4(fxs[warp][ss], fx);
+    load_vec<F>(a.grad + ((size_t)ws.first * L + ss) * F, gv);  // the group's lanes: one request
+    const uint32_t off = __float_as_uint(u[3]) + 4 * k;
+    const float sc_l = w1[3];
+    float v[4];
+    load_vec<4>(a.table + (live ? off : 0u), v);
+    bf16_round2(v[0], v[1]);
+    bf16_round2(v[2], v[3]);
+    float dg[4], tab[4], t[4];  // dg, tab: corner k * kCorners + m's feature f at m * F + f
+    bool any = false;
+#pragma unroll
+    for (int m = 0; m < kCorners; ++m) {
+      const int c = k * kCorners + m;
+      // each axis's factor of corner c and its derivative: (w1, fx) if c is
+      // up on the axis, else (1 - w1, -fx)
+      float p3[3], d3[3];
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        const bool up = ((c >> (2 - ax)) & 1) != 0;
+        p3[ax] = up ? w1[ax] : __fsub_rn(1.0f, w1[ax]);
+        d3[ax] = up ? fx[ax] : -fx[ax];
+      }
+      const float px = p3[0], py = p3[1], pz = p3[2], dx = d3[0], dy = d3[1], dz = d3[2];
+      // h_c = u . grad w8_c
+      float h = __fmul_rn(__fmul_rn(__fmul_rn(u[0], dx), py), pz);
+      h = __fadd_rn(h, __fmul_rn(__fmul_rn(__fmul_rn(u[1], px), dy), pz));
+      h = __fadd_rn(h, __fmul_rn(__fmul_rn(__fmul_rn(u[2], px), py), dz));
+      any = any || h != 0.0f;
+      float ac = __fmul_rn(gv[0], v[m * F]);
+#pragma unroll
+      for (int f = 1; f < F; ++f) ac = __fadd_rn(ac, __fmul_rn(gv[f], v[m * F + f]));
+#pragma unroll
+      for (int f = 0; f < F; ++f) dg[m * F + f] = __fmul_rn(h, v[m * F + f]);
+      const float sh = __fmul_rn(sc_l, h);
+#pragma unroll
+      for (int f = 0; f < F; ++f) tab[m * F + f] = h != 0.0f ? __fmul_rn(sh, gv[f]) : 0.0f;
+      // (hess w8_c) u: d2 w8_c / dx_a dx_b = dw_a dw_b (the third factor)
+      const float t0 = __fmul_rn(ac, __fmul_rn(dx, __fadd_rn(__fmul_rn(__fmul_rn(dy, pz), u[1]),
+                                                             __fmul_rn(__fmul_rn(py, dz), u[2]))));
+      const float t1 = __fmul_rn(ac, __fmul_rn(dy, __fadd_rn(__fmul_rn(__fmul_rn(dx, pz), u[0]),
+                                                             __fmul_rn(__fmul_rn(px, dz), u[2]))));
+      const float t2 = __fmul_rn(ac, __fmul_rn(dz, __fadd_rn(__fmul_rn(__fmul_rn(dx, py), u[0]),
+                                                             __fmul_rn(__fmul_rn(px, dy), u[1]))));
+      t[0] = m == 0 ? t0 : __fadd_rn(t[0], t0);
+      t[1] = m == 0 ? t1 : __fadd_rn(t[1], t1);
+      t[2] = m == 0 ? t2 : __fadd_rn(t[2], t2);
+    }
+    // a lane at F=2 with one corner of h_c = 0 adds an exact 0 to that corner
+    if (a.d_table != nullptr && live && any && sc_l != 0.0f)
+      atomicAdd(reinterpret_cast<float4*>(a.d_table + off), make_float4(tab[0], tab[1], tab[2], tab[3]));
+    if (a.d_grad != nullptr) {  // the same for the whole grid
+      // summed over the corners in corner order, as the per-thread design
+      // and the twin sum it: the group's terms through shared memory, one
+      // feature a lane (its first F lanes: a warp's store is contiguous)
+      float* row = dgs[warp] + q * kRow;
+      *reinterpret_cast<float4*>(row + 4 * k) = make_float4(dg[0], dg[1], dg[2], dg[3]);
+      __syncwarp();
+      if (live && k < F) {
+        float sum = 0.0f;  // from +0, as the first design (a sum of zeros is +0)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) sum = __fadd_rn(sum, row[c * F + k]);
+        a.d_grad[((size_t)ws.first * L + s) * F + k] = sum;
+      }
+      __syncwarp();  // the row is read before the next round writes it
+    }
+    if (a.d_pos != nullptr) {  // the same for the whole grid
+      float sum;
+      const int ax = axis_sums<G>(t, lane, &sum);
+      if (live && ax < 3) dxs[warp][3 * ss + ax] = sum;
+    }
+  }
+  if (a.d_pos != nullptr) store_level_sums(dxs[warp], ws, L, lane, a.d_pos);
+}
+
 // One block per kThreads / L samples.
 template <int F>
 cudaError_t launch_normals_kernel(bool bwd_bwd, const float* pos, const float* table, const float* grad,
@@ -1616,17 +1956,54 @@ cudaError_t launch_normals_kernel(bool bwd_bwd, const float* pos, const float* t
   return cudaGetLastError();
 }
 
-// The shared entry of K3b and K1bb: checks the 32-bit limits and the width.
+// The lane groups: one block of kThreads per kThreads / 32 warps of 32 / L
+// whole samples each.
+template <int F>
+cudaError_t launch_normals_lanes(bool bwd_bwd, const NormalsArgs& a, const LevelGeometry& g, const LevelScales& sc,
+                                 cudaStream_t s) {
+  const uint32_t spw = 32u / a.num_levels;
+  const uint32_t warps = (a.n + spw - 1) / spw;
+  const uint32_t grid = (warps + kThreads / 32 - 1) / (kThreads / 32);
+  if (bwd_bwd)
+    block_bwd_bwd_lanes_kernel<F><<<grid, kThreads, 0, s>>>(a, g, sc);
+  else
+    block_exact_bwd_lanes_kernel<F><<<grid, kThreads, 0, s>>>(a, g);
+  return cudaGetLastError();
+}
+
+// The shared entry of K3b and K1bb: checks the 32-bit limits and the width;
+// design 0 takes the per-thread kernels, 1 the lane groups (F = 2 or 4,
+// every array the kernel takes whole 16-byte aligned) with the divisor
+// (magic, shift) of T/8.
 cudaError_t launch_normals(bool bwd_bwd, const float* pos, const float* table, const float* grad, const float* u,
                            float* d_grad, float* d_table, float* d_pos, long long n, int features,
                            long long rows_per_level, long long hash_table_size, const LevelGeometry& g,
-                           const float* scales, cudaStream_t s) {
-  if ((uint64_t)n * (uint64_t)g.num_levels >= (1ull << 31) ||
+                           const float* scales, int design, unsigned magic, unsigned shift, cudaStream_t s) {
+  if ((design != 0 && design != 1) || (uint64_t)n * (uint64_t)g.num_levels >= (1ull << 31) ||
       (uint64_t)g.num_levels * (uint64_t)rows_per_level * kLanes >= (1ull << 32))
     return cudaErrorInvalidValue;
   LevelScales sc;
-  for (int l = 0; l < g.num_levels; ++l) sc.scale[l] = scales != nullptr ? scales[l] : 0.0f;
+  for (int l = 0; l < g.num_levels; ++l) sc.scale[l] = scales != nullptr && d_table != nullptr ? scales[l] : 0.0f;
   const uint32_t stride = (uint32_t)(rows_per_level * kLanes), nb = (uint32_t)(hash_table_size / 8);
+  if (design == 1) {
+    const void* whole[] = {table, grad, u, d_grad, d_table};
+    for (const void* p : whole)
+      if ((uintptr_t)p % 16 != 0) return cudaErrorInvalidValue;
+    if (features != 2 && features != 4) return cudaErrorInvalidValue;
+    NormalsArgs a;
+    a.pos = pos;
+    a.table = table;
+    a.grad = grad;
+    a.u = u;
+    a.d_grad = d_grad;
+    a.d_table = d_table;
+    a.d_pos = d_pos;
+    a.n = (uint32_t)n;
+    a.num_levels = (uint32_t)g.num_levels;
+    a.level_stride = stride;
+    a.modulus = {nb, magic, shift};
+    return features == 2 ? launch_normals_lanes<2>(bwd_bwd, a, g, sc, s) : launch_normals_lanes<4>(bwd_bwd, a, g, sc, s);
+  }
   switch (features) {
     case 1: return launch_normals_kernel<1>(bwd_bwd, pos, table, grad, u, d_grad, d_table, d_pos, (uint32_t)n, stride, nb, g, sc, s);
     case 2: return launch_normals_kernel<2>(bwd_bwd, pos, table, grad, u, d_grad, d_table, d_pos, (uint32_t)n, stride, nb, g, sc, s);
@@ -1941,17 +2318,21 @@ int nst_hash_encode_flat_bwd(const void* pos, const void* table, const void* gra
 // K3b: K3's position gradient. pos (n, 3), table (num_levels,
 // rows_per_level, 128) and grad (n, num_levels * features_per_level) are
 // f32 device inputs; d_pos (n, 3) receives the gradient. n * num_levels
-// < 2^31 and a table of fewer than 2^32 floats. Returns a cudaError_t.
+// < 2^31 and a table of fewer than 2^32 floats. design 0 takes
+// block_exact_bwd_kernel; 1 the lane groups (F = 2 or 4, table and grad
+// 16-byte aligned) with the divisor (magic, shift) of T/8. Returns a
+// cudaError_t.
 int nst_hash_encode_block_exact_bwd(const void* pos, const void* table, const void* grad, void* d_pos, long long n,
                                     int num_levels, int features_per_level, long long rows_per_level,
-                                    long long hash_table_size, const int* resolutions, void* stream) {
+                                    long long hash_table_size, const int* resolutions, int design,
+                                    unsigned block_magic, unsigned block_shift, void* stream) {
   LevelGeometry g;
   const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
   if (bad != cudaSuccess) return (int)bad;
   if (n == 0) return (int)cudaSuccess;
   return (int)launch_normals(false, (const float*)pos, (const float*)table, (const float*)grad, nullptr, nullptr,
                              nullptr, (float*)d_pos, n, features_per_level, rows_per_level, hash_table_size, g,
-                             nullptr, (cudaStream_t)stream);
+                             nullptr, design, block_magic, block_shift, (cudaStream_t)stream);
 }
 
 // K1bb: K1's backward differentiated again. pos, table and grad as for K1's
@@ -1959,18 +2340,21 @@ int nst_hash_encode_block_exact_bwd(const void* pos, const void* table, const vo
 // num_levels * features_per_level) and d_pos (n, 3) are written; d_table,
 // of the table's shape, must be zeroed by the caller and receives the
 // table gradient times scales[l] (a host array of num_levels floats). Any
-// output may be null to skip it. The limits of K3b. Returns a cudaError_t.
+// output may be null to skip it. The limits and designs of K3b; the lane
+// groups also take u, d_grad and d_table 16-byte aligned. Returns a
+// cudaError_t.
 int nst_hash_encode_block_bwd_bwd(const void* pos, const void* table, const void* grad, const void* u, void* d_grad,
                                   void* d_table, void* d_pos, long long n, int num_levels, int features_per_level,
                                   long long rows_per_level, long long hash_table_size, const int* resolutions,
-                                  const float* scales, void* stream) {
+                                  const float* scales, int design, unsigned block_magic, unsigned block_shift,
+                                  void* stream) {
   LevelGeometry g;
   const cudaError_t bad = make_geometry(n, num_levels, rows_per_level, hash_table_size, resolutions, &g);
   if (bad != cudaSuccess) return (int)bad;
   if (n == 0 || (d_grad == nullptr && d_table == nullptr && d_pos == nullptr)) return (int)cudaSuccess;
   return (int)launch_normals(true, (const float*)pos, (const float*)table, (const float*)grad, (const float*)u,
                              (float*)d_grad, (float*)d_table, (float*)d_pos, n, features_per_level, rows_per_level,
-                             hash_table_size, g, scales, (cudaStream_t)stream);
+                             hash_table_size, g, scales, design, block_magic, block_shift, (cudaStream_t)stream);
 }
 
 const char* nst_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

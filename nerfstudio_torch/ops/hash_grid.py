@@ -34,16 +34,15 @@ the running backward pass reads (``_engine_needs``): the normals' position
 gradient scatters no table gradient, as the reference's dead-code
 elimination drops it.
 
-Every kernel of the first order (the forward and backward of K1 and K7,
-and K3) has two designs on the card (``DESIGNS``): a group of lanes per
-(sample, level) with 8- or 16-byte loads and, in the backward, one vector
+Every kernel (the forward and backward of K1 and K7, K3, K3b and K1bb)
+has two designs on the card (``DESIGNS``): a group of lanes per (sample,
+level) with 8- or 16-byte loads and, in the backwards, one vector
 reduction per corner, which F = 2 and 4 take; and the first design, one
-thread per (sample, level) or, in the backward, per sample with scalar
-atomics, which the other widths take.
+thread per (sample, level) or, in the first-order backward, per sample
+with scalar atomics, which the other widths take.
 K7's backward in lane groups, asked for the table gradient alone, first
 reduces the dense coarse levels in shared memory (``bwd_plan``).
-``chip_smoke.py`` times every design. K3b and K1bb have one design, one
-thread per (sample, level) with the levels of a sample in one block.
+``chip_smoke.py`` times every design.
 
 Integer hashing runs on int64 with the uint32 wrap made explicit
 (``_mul32``), so the twin reproduces the reference's uint32 arithmetic
@@ -89,10 +88,12 @@ launch_counts: Dict[str, int] = {
     "hash_encode_bwd_per_thread": 0,
     # K7 forward launches (counted above too) that took the per-thread design
     "hash_encode_flat_per_thread": 0,
+    # K3b or K1bb launches (counted above too) that took the per-thread design
+    "hash_encode_normals_per_thread": 0,
 }
 
-# Designs of every hash-grid kernel (K1 and K7 forward and backward, K3),
-# by their C design codes. "per-thread": one thread per (sample, level)
+# Designs of every hash-grid kernel (K1 and K7 forward and backward, K3,
+# K3b, K1bb), by their C design codes. "per-thread": one thread per (sample, level)
 # (the forward) or per sample (the backward, with scalar atomics);
 # "lane-groups": a stencil's corners loaded by a group of lanes as 8- or
 # 16-byte vectors (K7's forward: a lane pair per stencil, one level per
@@ -104,8 +105,8 @@ DESIGNS = {"per-thread": 0, "lane-groups": 1}
 # The widths the lane groups take, where every kernel takes them by default:
 # the faster design at a render chunk's inputs (forward) and at the
 # training steps' own inputs (backward) on the H100 (chip_smoke.py phases
-# 20, 30 and 31 time both designs in turns; PERF.md records the times). Other
-# widths take the per-thread kernels.
+# 20, 30, 31 and 67 time both designs in turns; PERF.md records the times).
+# Other widths take the per-thread kernels.
 _LANE_WIDTHS = (2, 4)
 _DEFAULT = "lane-groups"
 # Shared memory one block may take on the H100 (227 KB, opt-in above 48 KB).
@@ -574,10 +575,11 @@ def bwd_plan(resolutions: Sequence[int], hash_table_size: int, features: int) ->
     return tuple(picked), total
 
 
-def _check_lane_limits(table: torch.Tensor, n: int, *tensors: torch.Tensor) -> None:
-    """The lane kernels' 32-bit limits and alignment (forward and backward)."""
-    if any(t.data_ptr() % 16 for t in (table, *tensors)):
-        raise ValueError("the lane-group kernels take a 16-byte aligned table (and table gradient)")
+def _check_lane_limits(table: torch.Tensor, n: int, *tensors: Optional[torch.Tensor]) -> None:
+    """The lane kernels' 32-bit limits and alignment: the table and each of
+    ``tensors`` (None: not passed) 16-byte aligned."""
+    if any(t is not None and t.data_ptr() % 16 for t in (table, *tensors)):
+        raise ValueError("the lane-group kernels take a 16-byte aligned table, table gradient and cotangents")
     L = table.shape[0]
     if n * L >= 2**31 or table.numel() >= 2**32:
         raise ValueError(f"the lane-group kernels take n * num_levels < 2^31 and a table of fewer than 2^32 "
@@ -613,12 +615,15 @@ def _kernel_library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
             ctypes.c_uint, ctypes.c_void_p]
         lib.nst_hash_encode_flat_bwd.restype = ctypes.c_int
-        # K3b: pos, table, grad, d_pos, geometry, stream
-        lib.nst_hash_encode_block_exact_bwd.argtypes = [ctypes.c_void_p] * 4 + geometry + [ctypes.c_void_p]
+        # K3b: pos, table, grad, d_pos, geometry, design, divisor (magic, shift), stream
+        lib.nst_hash_encode_block_exact_bwd.argtypes = (
+            [ctypes.c_void_p] * 4 + geometry + [ctypes.c_int] + [ctypes.c_uint] * 2 + [ctypes.c_void_p]
+        )
         lib.nst_hash_encode_block_exact_bwd.restype = ctypes.c_int
-        # K1bb: pos, table, grad, u, d_grad, d_table, d_pos, geometry, scales, stream
+        # K1bb: pos, table, grad, u, d_grad, d_table, d_pos, geometry, scales, design, divisor, stream
         lib.nst_hash_encode_block_bwd_bwd.argtypes = (
-            [ctypes.c_void_p] * 7 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+            [ctypes.c_void_p] * 7 + geometry + [ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+            + [ctypes.c_uint] * 2 + [ctypes.c_void_p]
         )
         lib.nst_hash_encode_block_bwd_bwd.restype = ctypes.c_int
         lib.nst_cuda_error_string.argtypes = [ctypes.c_int]
@@ -744,49 +749,64 @@ def _check_cotangent(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None
 
 def _block_exact_bwd_kernel(
     pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, *, min_res: int, max_res: int, hash_table_size: int,
+    _design: Optional[str] = None,
 ) -> torch.Tensor:
     """Launch the CUDA K3b: K3's position gradient (n, 3) for the cotangent
-    ``grad`` (n, L*F). It indexes in 32 bits, as the lane kernels do."""
+    ``grad`` (n, L*F), in its default design or in ``_design`` (one of
+    ``DESIGNS``, which only chip_smoke.py's comparison of the designs sets).
+    It indexes in 32 bits in both designs."""
     n = pos.shape[0]
     L = table.shape[0]
+    F = _features(table, hash_table_size)
+    design = _pick_design(F, _design)
     d_pos = torch.empty_like(pos)
     if n == 0:
         return d_pos
-    _check_cotangent("grad", grad, (n, L * _features(table, hash_table_size)))
-    _check_lane_limits(table, n)
+    _check_cotangent("grad", grad, (n, L * F))
+    grad = grad.contiguous()
+    _check_lane_limits(table, n, *([grad] if design != "per-thread" else []))
     _launch("hash_encode_block_exact_bwd", "nst_hash_encode_block_exact_bwd", pos,
-            pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(), d_pos.data_ptr(),
-            *_geometry_args(table, n, min_res, max_res, hash_table_size))
+            pos.data_ptr(), table.data_ptr(), grad.data_ptr(), d_pos.data_ptr(),
+            *_geometry_args(table, n, min_res, max_res, hash_table_size), DESIGNS[design],
+            *_u32_divisor(hash_table_size // 8))
+    if design == "per-thread":
+        launch_counts["hash_encode_normals_per_thread"] += 1
     return d_pos
 
 
 def _block_bwd_bwd_kernel(
     pos: torch.Tensor, table: torch.Tensor, grad: torch.Tensor, u: torch.Tensor, scales: Sequence[float], *,
     min_res: int, max_res: int, hash_table_size: int, need_grad: bool = True, need_table: bool = True,
-    need_positions: bool = True,
+    need_positions: bool = True, _design: Optional[str] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Launch the CUDA K1bb (``_block_stochastic_twin_bwd_bwd``'s math) for
-    the cotangent ``u`` (n, 3) of K1 backward's position gradient: (d_grad
-    (n, L*F), d_table (L, S, 128), d_positions (n, 3)), each None unless
-    asked. The table gradient is summed with float32 atomics into a zeroed
-    buffer. It indexes in 32 bits, as the lane kernels do."""
+    the cotangent ``u`` (n, 3) of K1 backward's position gradient, in its
+    default design or in ``_design`` (as ``_block_exact_bwd_kernel``):
+    (d_grad (n, L*F), d_table (L, S, 128), d_positions (n, 3)), each None
+    unless asked. The table gradient is summed with float32 atomics into a
+    zeroed buffer. It indexes in 32 bits in both designs."""
     n = pos.shape[0]
     L = table.shape[0]
+    F = _features(table, hash_table_size)
+    design = _pick_design(F, _design)
     d_grad = torch.empty_like(grad) if need_grad else None
     d_table = torch.zeros_like(table) if need_table else None
     d_pos = torch.empty_like(pos) if need_positions else None
     if n == 0 or not (need_grad or need_table or need_positions):
         return d_grad, d_table, d_pos
-    _check_cotangent("grad", grad, (n, L * _features(table, hash_table_size)))
+    _check_cotangent("grad", grad, (n, L * F))
     _check_cotangent("u", u, (n, 3))
-    _check_lane_limits(table, n, *([] if d_table is None else [d_table]))
+    grad, u = grad.contiguous(), u.contiguous()
+    _check_lane_limits(table, n, d_table, *([grad, u, d_grad] if design != "per-thread" else []))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _launch(
         "hash_encode_block_bwd_bwd", "nst_hash_encode_block_bwd_bwd", pos,
-        pos.data_ptr(), table.data_ptr(), grad.contiguous().data_ptr(), u.contiguous().data_ptr(), ptr(d_grad),
+        pos.data_ptr(), table.data_ptr(), grad.data_ptr(), u.data_ptr(), ptr(d_grad),
         ptr(d_table), ptr(d_pos), *_geometry_args(table, n, min_res, max_res, hash_table_size),
-        (ctypes.c_float * L)(*[float(s) for s in scales]),
+        (ctypes.c_float * L)(*[float(s) for s in scales]), DESIGNS[design], *_u32_divisor(hash_table_size // 8),
     )
+    if design == "per-thread":
+        launch_counts["hash_encode_normals_per_thread"] += 1
     return d_grad, d_table, d_pos
 
 

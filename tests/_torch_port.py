@@ -41,7 +41,8 @@ def cuda_device():
 NO_HASH_LAUNCHES = {"hash_encode_block": 0, "hash_encode_block_exact": 0, "hash_encode_block_bwd": 0,
                     "hash_encode_flat": 0, "hash_encode_flat_bwd": 0, "hash_encode_block_exact_bwd": 0,
                     "hash_encode_block_bwd_bwd": 0, "hash_encode_block_per_thread": 0,
-                    "hash_encode_bwd_per_thread": 0, "hash_encode_flat_per_thread": 0}
+                    "hash_encode_bwd_per_thread": 0, "hash_encode_flat_per_thread": 0,
+                    "hash_encode_normals_per_thread": 0}
 
 # Tiny nerfacto: 4 field levels at T=2^12 (levels 0-1 dense, 2-3 hashed),
 # a 4-level proposal net, 16-wide MLPs, 16 probes / 8 proposal / 8 field
