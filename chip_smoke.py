@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``nerfstudio_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-k4-inputs FILE]
 
 Builds the hand-written kernels from ``nerfstudio_torch/csrc`` (one nvcc
 per source, in parallel), holds each against its plain PyTorch twin at the
@@ -112,7 +112,9 @@ shapes its path gives it, and drives the port's paths from random weights:
   viewmat gradient (camera optimisation) against a float64 run of the twin
   at the check inputs, at 1,000,000 random slots and at one trained MCMC
   step's inputs (bit-equal across two runs), timed in turns beside the
-  default backward; K8 (``grid_sample_1d/2d/3d``, ``resize_linear``) and the
+  default backward, with its registers and spills from the build log
+  (``--save-k4-inputs FILE`` saves the trained step's inputs for
+  ``nerfstudio_torch/scripts/k4_bwd_time.py --inputs``); K8 (``grid_sample_1d/2d/3d``, ``resize_linear``) and the
   bilateral slice with their gradients and one ``color_correct`` on the card
   against the CPU; one MCMC step (its noise draw handed in), one step with
   the bilateral grid, SO3xR3 camera optimisation and scale regularisation
@@ -855,8 +857,8 @@ def profile_device(run, per=PROFILED_STEPS):
 KERNEL_CLASSES = (  # first match wins, on the lower-cased kernel name
     ("hash-grid kernels", ("block_encode", "block_stochastic", "block_exact", "block_bwd_bwd", "bwd_lanes",
                            "bwd_private")),
-    ("gsplat kernels", ("project_fwd", "project_bwd", "view_reduce", "tile_keys", "tile_ranges", "tile_count",
-                        "tile_scan", "tile_scatter", "tile_sort", "blend_fwd", "blend_bwd")),
+    ("gsplat kernels", ("project_fwd", "project_bwd", "tile_keys", "tile_ranges", "tile_count", "tile_scan",
+                        "tile_scatter", "tile_sort", "blend_fwd", "blend_bwd")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
     ("Adam (foreach)", ("multi_tensor_apply",)),
@@ -973,8 +975,7 @@ SPLAT_KERNELS = ("project_gaussians", "project_gaussians_bwd", "tile_bin", "tile
 SPLAT_STEP_LAUNCHES = {**dict.fromkeys(SPLAT_KERNELS, 1), "blend_saturating_per_pixel": 0, "tile_bin_sorted": 0}
 # the gsplat kernels by profiler name (first match), one row each in the
 # splat profiles: every kernel K4, K5 and K6 launch
-GSPLAT_ROWS = (("K4 fwd", "project_fwd"), ("K4 bwd", "project_bwd"), ("K4 bwd viewmat sum", "view_reduce"),
-               ("K5 tile_count", "tile_count"),
+GSPLAT_ROWS = (("K4 fwd", "project_fwd"), ("K4 bwd", "project_bwd"), ("K5 tile_count", "tile_count"),
                ("K5 tile_scan", "tile_scan"), ("K5 tile_scatter", "tile_scatter"), ("K5 tile_sort", "tile_sort"),
                ("K5 sorted design", "tile_keys"), ("K5 sorted design", "tile_ranges"), ("K6 fwd", "blend_fwd"),
                ("K6 bwd", "blend_bwd"))
@@ -3049,11 +3050,15 @@ def bucketed_run(name, scene, root, card):
 
 K4_VIEW_SLOTS = 1_000_000  # splatfacto-big and splatfacto-mcmc's max_gaussians
 # K4 backward's viewmat gradient against a float64 run of the twin: a sum
-# over every gaussian of ~60 products each, reduced in another order than
+# over every gaussian of a few products each, reduced in another order than
 # autograd's. Per entry the kernel may be off by twice the float32 twin's
 # own error plus 32 float32 roundings of the sum of the entry's |terms|
 # (float64, from one viewmat per gaussian): the reduction's depth is below
-# 32 at 2^20 gaussians. The other arrays keep k4_bwd_errors' limit.
+# 32 at 2^20 gaussians (27: a thread's running sum of one term a gaussian
+# over at most 11 of them at the H100's grid of 396 blocks, a 5-level warp
+# tree and a 3-level tree over the warps, then the last block's serial sum
+# of at most 2 partials and the same two trees). The other arrays keep
+# k4_bwd_errors' limit.
 K4_VIEW_ROUNDINGS = 32
 # K8 and the bilateral grid, card vs CPU: the same float32 operations, so
 # values within 1e-6; the gathers' cotangents are scattered with atomics in
@@ -3154,19 +3159,49 @@ def check_k4_viewmat(name, label, m, s, q, cam, cots):
 
 
 def k4_bwd_bounds(m, s, q, cots, antialiased):
-    """(bound without, with the viewmat gradient) of K4's backward: the
-    gaussians and the cotangents it reads once (d_comp, ``cots[3]``, only
-    when antialiased, as the kernel reads it), the gradients written once;
-    with the viewmat gradient also the viewmat's 12 floats read, the
-    per-block partials written and read back and d(viewmat)'s 12 floats
-    written. ~700 float32 operations per gaussian, ~100 more for the
-    viewmat's 12 sums."""
-    from nerfstudio_torch.ops.gsplat import _cuda as sc
-
+    """(bound without, with the viewmat gradient) of K4's backward, counting
+    the work these inputs need: every gaussian's cotangents read once
+    (d_comp, ``cots[3]``, only when antialiased) and gradients written once;
+    means, scales and quats read only for the gaussians with a cotangent
+    (the others' gradients are zero); with the viewmat gradient also the
+    viewmat's 12 floats read and d(viewmat) (4, 4) written. A design's
+    scratch (per-block partials) is not counted. Per gaussian with a
+    cotangent ~300 float32 operations of the forward chain and ~350 of its
+    VJP (a fused product and sum counted as two), ~60 more for the
+    viewmat's 12 terms."""
     n = m.shape[0]
-    moved = nbytes(m, s, q, *(cots if antialiased else cots[:3]), m, s, q)
-    partials = sc.kernel_library().nst_gsplat_view_partials(n)
-    return bound(moved, 700 * n), bound(moved + 4 * (12 + 2 * partials + 12), 800 * n)
+    read = cots if antialiased else cots[:3]
+    n_live = int((torch.cat([c.reshape(n, -1) for c in read], 1) != 0).any(1).sum())
+    # the cotangents in, the gradients (the inputs' shapes) out, the live
+    # gaussians' mean, scales and quaternion in
+    moved = nbytes(*read) + nbytes(m, s, q) + n_live * (m[0].nbytes + s[0].nbytes + q[0].nbytes)
+    return bound(moved, 650 * n_live), bound(moved + 4 * (12 + 16), 710 * n_live)
+
+
+def k4_bwd_registers():
+    """ptxas's registers and spills (bytes) of each instance of K4's backward
+    kernel, from the gsplat library's build log beside it
+    (build/nerfstudio_torch/*.log): {route: {"registers", "spill_stores",
+    "spill_loads"}}; the routes: the host's viewmat (the default), the card's
+    viewmat without and with the viewmat gradient."""
+    import re
+
+    from nerfstudio_torch.ops import cuda_build
+
+    routes = {"0ELb0": "default", "1ELb0": "device_viewmat", "1ELb1": "viewmat"}
+    out, route = {}, None
+    for line in cuda_build.build("gsplat")[0].with_suffix(".log").read_text().splitlines():
+        entry = re.search(r"Compiling entry function '\S*project_bwd_kernelILb(\dELb\d)E", line)
+        if "Compiling entry function" in line:
+            route = routes.get(entry.group(1)) if entry else None
+        elif route is not None:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills:
+                out.setdefault(route, {}).update(spill_stores=int(spills.group(1)), spill_loads=int(spills.group(2)))
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                out.setdefault(route, {})["registers"] = int(used.group(1))
+    return out
 
 
 def time_k4_viewmat(name, m, s, q, cam, cots, label):
@@ -3175,7 +3210,7 @@ def time_k4_viewmat(name, m, s, q, cam, cots, label):
     path) and from the card's, and with the gradient (the card's). Each by
     CUDA events around one call (median), around 50 calls back to back,
     and profiler device ms, the mean per kernel record of the backward
-    kernel and of the viewmat's reducing kernel (robust to dropped records,
+    kernel, one launch on every route (robust to dropped records,
     ``kernel_records_ms``); the twin with the gradient, once."""
     from nerfstudio_torch.ops.gsplat import projection as pj
 
@@ -3187,13 +3222,10 @@ def time_k4_viewmat(name, m, s, q, cam, cots, label):
     rec = {}
     for _ in range(2):
         for k, fn in fns.items():
-            r = rec.setdefault(k, {"ms": [], "batch_ms": [], "device_ms": [], "bwd_record_ms": [],
-                                   "reduce_record_ms": []})
+            r = rec.setdefault(k, {"ms": [], "batch_ms": [], "device_ms": []})
             r["ms"].append(median_ms(fn))
             r["batch_ms"].append(batch_ms(fn))
-            r["bwd_record_ms"].append(kernel_records_ms(fn, "project_bwd")[0])
-            r["reduce_record_ms"].append(kernel_records_ms(fn, "view_reduce")[0] if k == "viewmat" else 0.0)
-            r["device_ms"].append(r["bwd_record_ms"][-1] + r["reduce_record_ms"][-1])
+            r["device_ms"].append(kernel_records_ms(fn, "project_bwd")[0])
     plain_ms = median_ms(lambda: pj._project_twin_bwd(m, s, q, dev, *cots, need_viewmat=True), runs=3, warmup=1)
     out = {k: {kk: statistics.fmean(v) for kk, v in r.items()} for k, r in rec.items()}
     b_default, b_view = k4_bwd_bounds(m, s, q, cots, cam[-1])
@@ -3204,9 +3236,7 @@ def time_k4_viewmat(name, m, s, q, cam, cots, label):
                                                                       ("ms", "batch_ms", "device_ms"))
         + ", with the viewmat gradient " + " / ".join(f"{out['viewmat'][k]:.4f}" for k in
                                                      ("ms", "batch_ms", "device_ms"))
-        + f" (the backward kernel {out['viewmat']['bwd_record_ms']:.4f}, the viewmat's sum "
-        f"{out['viewmat']['reduce_record_ms']:.4f}); bounds {b_default[0]:.4f} / {b_view[0]:.4f} ms ({b_view[1]}); "
-        f"twin with the viewmat {plain_ms:.3f} ms")
+        + f"; bounds {b_default[0]:.4f} / {b_view[0]:.4f} ms ({b_view[1]}); twin with the viewmat {plain_ms:.3f} ms")
     return dict(inputs=label, n=int(m.shape[0]), plain_ms=plain_ms, bound=b_view, default_bound=b_default, **out)
 
 
@@ -3460,7 +3490,7 @@ def options_run(name, scene, root, card):
                 loss=(head, tail), color_corrected=len(corrected), k8_bound_ms=k8_bound[0], k8_bound_by=k8_bound[1])
 
 
-def options_and_methods(ph, card, scene, disk_root, disk):
+def options_and_methods(ph, card, scene, disk_root, disk, k4_inputs_file=None):
     """Phases 47-52: K4's backward with the viewmat gradient against the
     float64 twin (the check inputs, 1M random slots, and after phase 50 a
     trained MCMC step's inputs), timed beside the default backward; K8 and
@@ -3489,6 +3519,10 @@ def options_and_methods(ph, card, scene, disk_root, disk):
                                  *big)]
     k4v_times = [time_k4_viewmat(ph(47, "K4 bwd timing"), *chk, "the check inputs"),
                  time_k4_viewmat(ph(47, "K4 bwd timing"), *big, f"{K4_VIEW_SLOTS:,} slots")]
+    k4_regs = k4_bwd_registers()
+    log(ph(47, "K4 bwd timing"), "K4 bwd registers and spill bytes (stores/loads) per thread, ptxas: "
+        + ", ".join(f"{k} {r.get('registers')} ({r.get('spill_stores')}/{r.get('spill_loads')})"
+                    for k, r in k4_regs.items()))
     del chk, big
     torch.cuda.empty_cache()
     k8 = k8_card_vs_cpu(ph(48, "K8 and the bilateral grid, card vs CPU"), vgen)
@@ -3500,6 +3534,8 @@ def options_and_methods(ph, card, scene, disk_root, disk):
                                               scene, disk_root, card, SPLAT_PATH_KERNELS, steps=CUT_GATE_STEPS,
                                               keep=keep)
     m, s_, q, cam, cots = keep.pop("k4_bwd")
+    if k4_inputs_file:  # for k4_bwd_time.py --inputs
+        torch.save((m, s_, q, cam, cots), k4_inputs_file)
     label = "one trained splatfacto-mcmc step's inputs"
     k4v_recs.append(check_k4_viewmat(ph(47, "K4 bwd with the viewmat gradient"), label, m, s_, q, cam, cots))
     k4v_times.append(time_k4_viewmat(ph(47, "K4 bwd timing"), m, s_, q, cam, cots, label))
@@ -3507,7 +3543,8 @@ def options_and_methods(ph, card, scene, disk_root, disk):
     disk["gate_splatfacto-big"] = gate_phase(ph(51, f"splatfacto-big, {CUT_GATE_STEPS} steps"), "splatfacto-big",
                                              scene, disk_root, card, SPLAT_PATH_KERNELS, steps=CUT_GATE_STEPS)
     disk["options"] = options_run(ph(52, "splatfacto with the three options"), scene, disk_root, card)
-    return dict(k4v_recs=k4v_recs, k4v_times=k4v_times, k8=k8, option_steps=option_steps, mcmc_refine=mcmc_refine)
+    return dict(k4v_recs=k4v_recs, k4v_times=k4v_times, k4_regs=k4_regs, k8=k8, option_steps=option_steps,
+                mcmc_refine=mcmc_refine)
 
 
 # --------------------------------------------------------------------------
@@ -5026,6 +5063,12 @@ def normals_phase(ph, card, scene, disk_root, disk):
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--save-k4-inputs", metavar="FILE", default=None,
+                        help="save the trained splatfacto-mcmc step's K4 backward inputs (phase 47) to FILE")
+    cli = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5689,7 +5732,7 @@ def main() -> int:
         disk["buckets"] = bucketed_run(ph(46, "nerfacto on masked buckets"), mixed, disk_root, card)
 
         # 47-52. splatfacto's options and methods
-        options = options_and_methods(ph, card, scene, disk_root, disk)
+        options = options_and_methods(ph, card, scene, disk_root, disk, cli.save_k4_inputs)
         # 53-57. nerfacto-huge and nerfacto-big at full width, plain neus
         card_vs_cpu = big_methods_and_neus(ph, card, scene, disk_root, disk)
         # 58-60. depth-nerfacto, semantic-nerfw and phototourism
@@ -5749,7 +5792,8 @@ def main() -> int:
         entry("project_gaussians (K4 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/projection.py:39",
               splat_launches["project_gaussians"], k4_err, t["k4"], t["k4_twin"], k4_bounds[0]),
         entry("project_gaussians_bwd (K4 bwd)", gs_source, "nerfstudio_tpu/ops/gsplat/projection.py:39",
-              splat_launches["project_gaussians_bwd"], k4_err, t["k4_bwd"], t["k4_bwd_twin"], k4_bounds[1]),
+              splat_launches["project_gaussians_bwd"], k4_err, t["k4_bwd"], t["k4_bwd_twin"], k4_bounds[1],
+              design="persistent grid, fused VJP through T = J R"),
         entry("tile_bin (K5)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:266", splat_launches["tile_bin"],
               0.0, t["k5"], t["k5_twin"], k5_recs["check"]["bound"], t["k5_sort"], design="bucketed"),
         entry("blend_saturating (K6 fwd)", gs_source, "nerfstudio_tpu/ops/gsplat/rasterize.py:94",
@@ -5864,8 +5908,10 @@ def main() -> int:
                          "nerfstudio_tpu/ops/gsplat/projection.py:39",
                          disk["options"]["launches"]["project_gaussians_bwd_viewmat"],
                          max(r["max_abs_err"] for r in k4v_recs), kv["viewmat"]["ms"], kv["plain_ms"], kv["bound"],
-                         design="block partials, one-block sum"))
+                         design="one launch: persistent grid, fixed-order block sums, the last block's ticket"))
+    next(e for e in kernels if e["name"] == "project_gaussians_bwd (K4 bwd)")["registers"] = options["k4_regs"]
     kernels[-1].update(device_ms=kv["viewmat"]["device_ms"], batch_ms=kv["viewmat"]["batch_ms"], checks=k4v_recs,
+                       registers=options["k4_regs"],
                        times=[dict(t, bound_ms=t["bound"][0], bound_by=t["bound"][1],
                                    default_bound_ms=t["default_bound"][0]) for t in k4v_times],
                        k8_card_vs_cpu=options["k8"], option_steps_card_vs_cpu=options["option_steps"],

@@ -20,12 +20,19 @@
 //
 // What bounds them on this card:
 //   * K4 is a fused elementwise pass: ~40 bytes in and ~30 bytes out per
-//     gaussian and a few hundred flops, so it is bound by memory traffic and
-//     launch latency. One thread per gaussian, structure of arrays. Under
-//     camera optimisation the viewmat comes from device memory and the
-//     backward also sums d(viewmat) over the gaussians: per-block partials
-//     (shuffle tree, then the warps in order) and one block that sums them,
-//     so the gradient is deterministic.
+//     gaussian and a few hundred flops, so its forward is bound by memory
+//     traffic and launch latency (one thread per gaussian, structure of
+//     arrays). Its backward recomputes the forward chain and runs the VJP,
+//     several hundred instructions a gaussian, so it is bound by instruction
+//     throughput and by the registers that set its occupancy as much as by
+//     bytes: a persistent grid strides over the gaussians, the VJP goes
+//     through T = J R with fused products and sums, and quats and d_quats
+//     move as one 16-byte access a gaussian. Under camera optimisation the
+//     viewmat comes from device memory and the same launch sums d(viewmat)
+//     over the gaussians: per-thread sums in shared memory, one fixed-order
+//     reduction per block, and the last block to finish sums the blocks'
+//     partials in block order, so the gradient is deterministic (see the
+//     comment above kBwdMinBlocks).
 //   * K5 reads a few floats per gaussian and writes 12 bytes per live
 //     (tile, gaussian) pair: bound by bytes at best, in practice by its
 //     passes over the window slots and the per-tile sorts (see the comment
@@ -56,7 +63,8 @@
 //
 // The library is built with -fmad=false (cuda_build.NVCC_FLAGS), so every
 // product and sum rounds as the plain PyTorch twins' do; the twins differ
-// only in summation order.
+// only in summation order. K4's backward alone fuses its VJP's products and
+// sums on purpose (__fmaf_rn), after recomputing the forward chain unfused.
 
 #include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
@@ -112,14 +120,14 @@ struct Projected {
   float det, det_safe, inv_det;
 };
 
-// projection.py:64-150, operation for operation.
-__device__ __forceinline__ void project_one(const float* __restrict__ means, const float* __restrict__ scales,
-                                            const float* __restrict__ quats, int64_t i, const Camera& cam,
-                                            Projected& p) {
+// projection.py:64-150, operation for operation, on one gaussian's mean,
+// raw quaternion (wxyz) and linear scales.
+__device__ __forceinline__ void project_chain(const float m[3], const float Q[4], const float sc[3], const Camera& cam,
+                                              Projected& p) {
   const float* R = cam.R;
-  p.mx = means[3 * i];
-  p.my = means[3 * i + 1];
-  p.mz = means[3 * i + 2];
+  p.mx = m[0];
+  p.my = m[1];
+  p.mz = m[2];
   p.px = R[0] * p.mx + R[1] * p.my + R[2] * p.mz + cam.t[0];
   p.py = R[3] * p.mx + R[4] * p.my + R[5] * p.mz + cam.t[1];
   p.z = R[6] * p.mx + R[7] * p.my + R[8] * p.mz + cam.t[2];
@@ -127,7 +135,7 @@ __device__ __forceinline__ void project_one(const float* __restrict__ means, con
   p.xs = p.px * p.inv_z;
   p.ys = p.py * p.inv_z;
 
-  for (int k = 0; k < 4; ++k) p.Q[k] = quats[4 * i + k];
+  for (int k = 0; k < 4; ++k) p.Q[k] = Q[k];
   p.qnorm = sqrtf(p.Q[0] * p.Q[0] + p.Q[1] * p.Q[1] + p.Q[2] * p.Q[2] + p.Q[3] * p.Q[3]);
   p.qden = fmaxf(p.qnorm, 1e-8f);
   for (int k = 0; k < 4; ++k) p.q[k] = p.Q[k] / p.qden;
@@ -143,7 +151,7 @@ __device__ __forceinline__ void project_one(const float* __restrict__ means, con
   g[7] = 2.0f * (qy * qz + qw * qx);
   g[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
   for (int k = 0; k < 3; ++k) {
-    p.sc[k] = scales[3 * i + k];
+    p.sc[k] = sc[k];
     p.s[k] = p.sc[k] * p.sc[k];
   }
   // c_ij = sum_k g_ik g_jk s_k over the upper triangle
@@ -185,6 +193,16 @@ __device__ __forceinline__ void project_one(const float* __restrict__ means, con
   p.det = p.cov00 * p.cov11 - p.cov01 * p.cov01;
   p.det_safe = fmaxf(p.det, 1e-10f);
   p.inv_det = 1.0f / p.det_safe;
+}
+
+// project_chain on gaussian i of the (n, 3), (n, 4), (n, 3) inputs.
+__device__ __forceinline__ void project_one(const float* __restrict__ means, const float* __restrict__ scales,
+                                            const float* __restrict__ quats, int64_t i, const Camera& cam,
+                                            Projected& p) {
+  const float m[3] = {means[3 * i], means[3 * i + 1], means[3 * i + 2]};
+  const float Q[4] = {quats[4 * i], quats[4 * i + 1], quats[4 * i + 2], quats[4 * i + 3]};
+  const float sc[3] = {scales[3 * i], scales[3 * i + 1], scales[3 * i + 2]};
+  project_chain(m, Q, sc, cam, p);
 }
 
 // The camera of a launch: the host's, with rows 0-2 of the viewmat read
@@ -233,203 +251,270 @@ __global__ void __launch_bounds__(kThreads) project_fwd_kernel(
   comp[i] = cam.antialiased ? sqrtf(fmaxf(p.det_orig / p.det_safe, 0.0f)) : 1.0f;
 }
 
-// The VJP of project_one's chain for gaussian i into means, scales and
-// quats, given the cotangents of means2d, depths, conics and, antialiased,
-// the compensation (radii and valid carry none). With kGradView it also
-// adds gaussian i's contribution to d(viewmat rows 0-2) into dview (row-major
-// [R | t], 12 floats): through t = R m + T and through V = R cov3d R^T.
+// K4's backward, one design for both routes (with and without the viewmat
+// gradient). A persistent grid (as many blocks as fit on the card at once,
+// at most one per 256 gaussians) strides over the gaussians, one thread a
+// gaussian at a time. Per gaussian it recomputes project_chain
+// exactly as the forward does (the float64 checks hold it to the float32
+// twin's own error, which that chain's rounding sets), then runs the VJP
+// with explicit fused products and sums (__fmaf_rn; the library is built
+// with -fmad=false) through T = J R, the 2x3 product of the EWA Jacobian and
+// the camera rotation, rather than A = R cov3d and V = A R^T: cov2d = T
+// cov3d T^T, so d(cov3d) = T^T W T and dT = 2 W T cov3d for the symmetric
+// cotangent W of cov2d, and d(cov3d) reaches the rotation as 2 d(cov3d) G S.
+// The quaternion's normalisation takes its gradient as a projection, (dq -
+// (dq . q) q) / max(|Q|, 1e-8), with one reciprocal. With kGradView every
+// thread sums its gaussians' d(viewmat rows 0-2) in a fixed order, in its
+// column of shared memory (12 registers fewer), each block reduces once in
+// a fixed order into its 12-float partial, and the last block to finish (a
+// ticket taken after a fence) sums the partials in block order, writes the
+// (4, 4) gradient and resets the ticket: one launch, and two runs give the
+// same bits on one card. Both routes keep three blocks resident per SM (at
+// most 85 registers; 72 and 80 on the H100, the viewmat route with 12 bytes
+// of spill, which measured faster than its unbounded 96 registers at two
+// blocks, and four blocks at 64 measured slower). Where most gaussians have
+// no cotangent (a trained step: 98% of 1M slots) the loop is a stream of
+// their cotangents, so each iteration prefetches the next one's into L2.
+// Staging the stride-3 rows through shared memory measured slower than
+// these direct loads, which the L1 serves from the same lines; a grid of
+// one block per 256 gaussians measured slower than the persistent one.
+
+// Blocks of K4's backward resident per SM: the launch bounds' minimum
+constexpr int kBwdMinBlocks = 3;
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+// One gaussian's cotangents (dk: the compensation's, 0 unless antialiased)
+// and gradients.
+struct K4Cot {
+  float dm2x, dm2y, dz, dc0, dc1, dc2, dk;
+};
+struct K4Grad {
+  float dm[3], ds[3];
+  float4 dq;
+};
+
+// The viewmat gradient's per-thread running sums, 12 floats row-major
+// [R | t], in the thread's column of shared memory (col[k * kThreads]).
+struct ViewAcc {
+  float* col;
+  __device__ __forceinline__ void add(int k, float v) { col[k * kThreads] += v; }
+};
+
+// The VJP of project_chain for gaussian i into its mean, scales and raw
+// quaternion; with kGradView also adds its d(viewmat rows 0-2) into acc. A
+// gaussian without a cotangent (one no tile blended) reads nothing more and
+// gets zero gradients.
 template <bool kGradView>
-__device__ __forceinline__ void project_bwd_one(
-    const float* __restrict__ means, const float* __restrict__ scales, const float* __restrict__ quats,
-    int64_t i, const Camera& cam, const float* __restrict__ d_means2d, const float* __restrict__ d_depths,
-    const float* __restrict__ d_conics, const float* __restrict__ d_comp, float* __restrict__ d_means,
-    float* __restrict__ d_scales, float* __restrict__ d_quats, float* dview) {
-  const float dm2x = d_means2d[2 * i], dm2y = d_means2d[2 * i + 1], dz_out = d_depths[i];
-  const float dc0 = d_conics[3 * i], dc1 = d_conics[3 * i + 1], dc2 = d_conics[3 * i + 2];
-  const float dk = cam.antialiased ? d_comp[i] : 0.0f;
-  if (dm2x == 0.0f && dm2y == 0.0f && dz_out == 0.0f && dc0 == 0.0f && dc1 == 0.0f && dc2 == 0.0f && dk == 0.0f) {
-    // no cotangent (e.g. a gaussian no tile blended): the gradient is zero
-    for (int k = 0; k < 3; ++k) d_means[3 * i + k] = d_scales[3 * i + k] = 0.0f;
-    for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = 0.0f;
+__device__ __forceinline__ void project_bwd_one(const float* __restrict__ means, const float* __restrict__ scales,
+                                                const float4* __restrict__ quats, int64_t i, const Camera& cam,
+                                                const K4Cot& ct, K4Grad& out, ViewAcc& acc) {
+  if (ct.dm2x == 0.0f && ct.dm2y == 0.0f && ct.dz == 0.0f && ct.dc0 == 0.0f && ct.dc1 == 0.0f && ct.dc2 == 0.0f &&
+      ct.dk == 0.0f) {
+    for (int k = 0; k < 3; ++k) out.dm[k] = out.ds[k] = 0.0f;
+    out.dq = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     return;
   }
+  const float4 qv = __ldg(quats + i);
+  const float m[3] = {__ldg(means + 3 * i), __ldg(means + 3 * i + 1), __ldg(means + 3 * i + 2)};
+  const float Q[4] = {qv.x, qv.y, qv.z, qv.w};
+  const float sc[3] = {__ldg(scales + 3 * i), __ldg(scales + 3 * i + 1), __ldg(scales + 3 * i + 2)};
   Projected p;
-  project_one(means, scales, quats, i, cam, p);
+  project_chain(m, Q, sc, cam, p);
   const float* R = cam.R;
 
-  // conics = (cov11, -cov01, cov00) * inv_det
-  float d_cov00 = dc2 * p.inv_det, d_cov01 = -dc1 * p.inv_det, d_cov11 = dc0 * p.inv_det;
-  const float d_inv_det = dc0 * p.cov11 + dc1 * (-p.cov01) + dc2 * p.cov00;
+  // T = J R, J = [[jx, 0, kx], [0, jy, ky]], and TC = T cov3d
+  const float C[9] = {p.c[0], p.c[1], p.c[2], p.c[1], p.c[3], p.c[4], p.c[2], p.c[4], p.c[5]};
+  float T0[3], T1[3], TC0[3], TC1[3];
+  for (int k = 0; k < 3; ++k) {
+    T0[k] = fma_rn(p.jx, R[k], p.kx * R[6 + k]);
+    T1[k] = fma_rn(p.jy, R[3 + k], p.ky * R[6 + k]);
+  }
+  for (int k = 0; k < 3; ++k) {
+    TC0[k] = fma_rn(T0[0], C[k], fma_rn(T0[1], C[3 + k], T0[2] * C[6 + k]));
+    TC1[k] = fma_rn(T1[0], C[k], fma_rn(T1[1], C[3 + k], T1[2] * C[6 + k]));
+  }
+
+  // conics = (cov11, -cov01, cov00) * inv_det of the dilated cov2d
+  float d00 = ct.dc2 * p.inv_det, d01 = -ct.dc1 * p.inv_det, d11 = ct.dc0 * p.inv_det;
+  const float d_inv_det = fma_rn(ct.dc0, p.cov11, fma_rn(-ct.dc1, p.cov01, ct.dc2 * p.cov00));
   float d_det_safe = -d_inv_det * p.inv_det * p.inv_det;
-  if (dk != 0.0f) {
+  if (ct.dk != 0.0f) {
     // comp = sqrt(max(r, 0)), r = det_orig / det_safe; det_orig of the
     // undilated cov2d, whose entries have the dilated ones' gradient
-    const float r = p.det_orig / p.det_safe;
-    const float m = fmaxf(r, 0.0f);
-    const float d_r = m > 0.0f ? dk * 0.5f / sqrtf(m) * dmax(r, 0.0f) : 0.0f;
-    const float d_det_orig = d_r / p.det_safe;
-    d_det_safe += -d_r * p.det_orig / (p.det_safe * p.det_safe);
-    d_cov00 += d_det_orig * p.pre11;
-    d_cov11 += d_det_orig * p.pre00;
-    d_cov01 += -2.0f * p.cov01 * d_det_orig;
+    const float r = p.det_orig * p.inv_det;
+    if (r > 0.0f) {
+      const float d_det_orig = 0.5f * ct.dk * rsqrtf(r) * p.inv_det;
+      d_det_safe = fma_rn(-d_det_orig, r, d_det_safe);
+      d00 = fma_rn(d_det_orig, p.pre11, d00);
+      d11 = fma_rn(d_det_orig, p.pre00, d11);
+      d01 = fma_rn(-2.0f * p.cov01, d_det_orig, d01);
+    }
   }
   const float d_det = d_det_safe * dmax(p.det, 1e-10f);
-  d_cov00 += d_det * p.cov11;
-  d_cov11 += d_det * p.cov00;
-  d_cov01 += -2.0f * p.cov01 * d_det;
+  d00 = fma_rn(d_det, p.cov11, d00);
+  d11 = fma_rn(d_det, p.cov00, d11);
+  d01 = fma_rn(-2.0f * p.cov01, d_det, d01);
 
-  // cov2d = J V J^T, J = [[jx, 0, kx], [0, jy, ky]]
-  const float v00 = p.v[0], v01 = p.v[1], v02 = p.v[2], v11 = p.v[3], v12 = p.v[4], v22 = p.v[5];
-  const float jx = p.jx, jy = p.jy, kx = p.kx, ky = p.ky;
-  float dv[6];
-  dv[0] = d_cov00 * jx * jx;
-  dv[1] = d_cov01 * jy * jx;
-  dv[2] = d_cov00 * 2.0f * jx * kx + d_cov01 * ky * jx;
-  dv[3] = d_cov11 * jy * jy;
-  dv[4] = d_cov01 * jy * kx + d_cov11 * 2.0f * jy * ky;
-  dv[5] = d_cov00 * kx * kx + d_cov01 * ky * kx + d_cov11 * ky * ky;
-  const float d_jx = d_cov00 * (2.0f * jx * v00 + 2.0f * kx * v02) + d_cov01 * (jy * v01 + ky * v02);
-  const float d_kx = d_cov00 * (2.0f * jx * v02 + 2.0f * kx * v22) + d_cov01 * (jy * v12 + ky * v22);
-  const float d_jy = d_cov01 * (jx * v01 + kx * v12) + d_cov11 * (2.0f * jy * v11 + 2.0f * ky * v12);
-  const float d_ky = d_cov01 * (jx * v02 + kx * v22) + d_cov11 * (2.0f * jy * v12 + 2.0f * ky * v22);
-
-  // jx = fx inv_z, kx = -fx txz inv_z (and y)
-  float d_inv_z = d_jx * cam.fx + d_jy * cam.fy - d_kx * cam.fx * p.txz - d_ky * cam.fy * p.tyz;
-  const float d_txz = -d_kx * cam.fx * p.inv_z;
-  const float d_tyz = -d_ky * cam.fy * p.inv_z;
-  // txz = min(max(xs, -lim), lim)
-  float d_xs = d_txz * dmax(p.xs, -cam.lim_x) * dmin(fmaxf(p.xs, -cam.lim_x), cam.lim_x);
-  float d_ys = d_tyz * dmax(p.ys, -cam.lim_y) * dmin(fmaxf(p.ys, -cam.lim_y), cam.lim_y);
-  // means2d = (xs fx + cx, ys fy + cy), xs = px inv_z
-  d_xs += dm2x * cam.fx;
-  d_ys += dm2y * cam.fy;
-  const float d_px = d_xs * p.inv_z;
-  const float d_py = d_ys * p.inv_z;
-  d_inv_z += d_xs * p.px + d_ys * p.py;
-  // inv_z = 1 / max(z, 1e-6); depths = z
-  const float d_z = dz_out - d_inv_z * p.inv_z * p.inv_z * dmax(p.z, 1e-6f);
-  d_means[3 * i + 0] = R[0] * d_px + R[3] * d_py + R[6] * d_z;
-  d_means[3 * i + 1] = R[1] * d_px + R[4] * d_py + R[7] * d_z;
-  d_means[3 * i + 2] = R[2] * d_px + R[5] * d_py + R[8] * d_z;
-  if (kGradView) {  // p = R m + t
-    const float dp[3] = {d_px, d_py, d_z}, m[3] = {p.mx, p.my, p.mz};
-    for (int r = 0; r < 3; ++r) {
-      for (int k = 0; k < 3; ++k) dview[4 * r + k] += dp[r] * m[k];
-      dview[4 * r + 3] += dp[r];
-    }
-  }
-
-  // V = A R^T over the upper triangle: v_ij = sum_k a_ik R_jk
-  float da[9];
+  // cov2d = T cov3d T^T with W = [[d00, h], [h, d11]] its symmetric
+  // cotangent: dT = 2 W TC, d(cov3d) = E = T^T W T
+  const float h = 0.5f * d01;
+  float dT0[3], dT1[3];
   for (int k = 0; k < 3; ++k) {
-    da[0 + k] = dv[0] * R[k] + dv[1] * R[3 + k] + dv[2] * R[6 + k];
-    da[3 + k] = dv[3] * R[3 + k] + dv[4] * R[6 + k];
-    da[6 + k] = dv[5] * R[6 + k];
+    dT0[k] = 2.0f * fma_rn(d00, TC0[k], h * TC1[k]);
+    dT1[k] = 2.0f * fma_rn(h, TC0[k], d11 * TC1[k]);
   }
-  // A = R cov3d with cov3d symmetric: a_ik = sum_m R_im c_mk
-  float dC[3][3];  // gradient per (m, k) entry of the full matrix
-  for (int m = 0; m < 3; ++m)
-    for (int k = 0; k < 3; ++k) dC[m][k] = da[k] * R[m] + da[3 + k] * R[3 + m] + da[6 + k] * R[6 + m];
-  if (kGradView) {
-    // v_e = sum_k a[ci][k] R[cj][k] over the upper triangle, and
-    // a_rk = sum_m R_rm C_mk with C the full symmetric cov3d
-    const int vi[6] = {0, 0, 0, 1, 1, 2}, vj[6] = {0, 1, 2, 1, 2, 2};
-    for (int e = 0; e < 6; ++e)
-      for (int k = 0; k < 3; ++k) dview[4 * vj[e] + k] += dv[e] * p.a[3 * vi[e] + k];
-    const float C[9] = {p.c[0], p.c[1], p.c[2], p.c[1], p.c[3], p.c[4], p.c[2], p.c[4], p.c[5]};
-    for (int r = 0; r < 3; ++r)
-      for (int m = 0; m < 3; ++m)
-        dview[4 * r + m] += da[3 * r] * C[3 * m] + da[3 * r + 1] * C[3 * m + 1] + da[3 * r + 2] * C[3 * m + 2];
-  }
-  // stored entries: the diagonal once, each off-diagonal for both (m, k) and (k, m)
-  float dc[6];
-  dc[0] = dC[0][0];
-  dc[1] = dC[0][1] + dC[1][0];
-  dc[2] = dC[0][2] + dC[2][0];
-  dc[3] = dC[1][1];
-  dc[4] = dC[1][2] + dC[2][1];
-  dc[5] = dC[2][2];
 
-  // c_ij = sum_k g_ik g_jk s_k
-  const int ci[6] = {0, 0, 0, 1, 1, 2}, cj[6] = {0, 1, 2, 1, 2, 2};
-  float dg[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-  float ds[3] = {0, 0, 0};
-  for (int e = 0; e < 6; ++e) {
-    const int a = ci[e], b = cj[e];
+  // T = J R into J: jx = fx inv_z, kx = -fx txz inv_z (and y); txz =
+  // min(max(xs, -lim), lim); means2d = (xs fx + cx, ys fy + cy), xs = px inv_z
+  const float d_jx = fma_rn(dT0[0], R[0], fma_rn(dT0[1], R[1], dT0[2] * R[2]));
+  const float d_kx = fma_rn(dT0[0], R[6], fma_rn(dT0[1], R[7], dT0[2] * R[8]));
+  const float d_jy = fma_rn(dT1[0], R[3], fma_rn(dT1[1], R[4], dT1[2] * R[5]));
+  const float d_ky = fma_rn(dT1[0], R[6], fma_rn(dT1[1], R[7], dT1[2] * R[8]));
+  float d_inv_z = fma_rn(cam.fx, fma_rn(-d_kx, p.txz, d_jx), cam.fy * fma_rn(-d_ky, p.tyz, d_jy));
+  const float gx = dmax(p.xs, -cam.lim_x) * dmin(fmaxf(p.xs, -cam.lim_x), cam.lim_x);
+  const float gy = dmax(p.ys, -cam.lim_y) * dmin(fmaxf(p.ys, -cam.lim_y), cam.lim_y);
+  const float d_xs = fma_rn(-d_kx * p.jx, gx, ct.dm2x * cam.fx);
+  const float d_ys = fma_rn(-d_ky * p.jy, gy, ct.dm2y * cam.fy);
+  const float d_px = d_xs * p.inv_z, d_py = d_ys * p.inv_z;
+  d_inv_z = fma_rn(d_xs, p.px, fma_rn(d_ys, p.py, d_inv_z));
+  // inv_z = 1 / max(z, 1e-6); depths = z; p = R m + t
+  const float d_z = fma_rn(-d_inv_z * p.inv_z, p.inv_z * dmax(p.z, 1e-6f), ct.dz);
+  for (int k = 0; k < 3; ++k) out.dm[k] = fma_rn(R[k], d_px, fma_rn(R[3 + k], d_py, R[6 + k] * d_z));
+  if (kGradView) {  // through p = R m + t and T = J R, one term per entry
     for (int k = 0; k < 3; ++k) {
-      ds[k] += dc[e] * p.g[3 * a + k] * p.g[3 * b + k];
-      dg[3 * a + k] += dc[e] * p.g[3 * b + k] * p.s[k];
-      dg[3 * b + k] += dc[e] * p.g[3 * a + k] * p.s[k];
+      acc.add(k, fma_rn(d_px, m[k], p.jx * dT0[k]));
+      acc.add(4 + k, fma_rn(d_py, m[k], p.jy * dT1[k]));
+      acc.add(8 + k, fma_rn(d_z, m[k], fma_rn(p.kx, dT0[k], p.ky * dT1[k])));
     }
+    acc.add(3, d_px);
+    acc.add(7, d_py);
+    acc.add(11, d_z);
   }
-  for (int k = 0; k < 3; ++k) d_scales[3 * i + k] = 2.0f * p.sc[k] * ds[k];
 
-  // rotation from the normalised quaternion
+  float WT0[3], WT1[3];
+  for (int k = 0; k < 3; ++k) {
+    WT0[k] = fma_rn(d00, T0[k], h * T1[k]);
+    WT1[k] = fma_rn(h, T0[k], d11 * T1[k]);
+  }
+  float E[9];
+  for (int a = 0; a < 3; ++a)
+    for (int b = a; b < 3; ++b) E[3 * a + b] = E[3 * b + a] = fma_rn(T0[a], WT0[b], T1[a] * WT1[b]);
+
+  // cov3d = G S G^T: d(scale^2)_k = (G^T E G)_kk, dG = 2 E G S
+  const float* g = p.g;
+  float EG[9];
+  for (int a = 0; a < 3; ++a)
+    for (int k = 0; k < 3; ++k)
+      EG[3 * a + k] = fma_rn(E[3 * a], g[k], fma_rn(E[3 * a + 1], g[3 + k], E[3 * a + 2] * g[6 + k]));
+  for (int k = 0; k < 3; ++k) {
+    const float ds = fma_rn(g[k], EG[k], fma_rn(g[3 + k], EG[3 + k], g[6 + k] * EG[6 + k]));
+    out.ds[k] = 2.0f * p.sc[k] * ds;
+  }
+  float hg[9];  // dG / 2
+  for (int a = 0; a < 3; ++a)
+    for (int k = 0; k < 3; ++k) hg[3 * a + k] = EG[3 * a + k] * p.s[k];
+
+  // G from the normalised quaternion q (wxyz), then q = Q / max(|Q|, 1e-8):
+  // dQ = (dq - dmax (dq . q) q) / max(|Q|, 1e-8)
   const float qw = p.q[0], qx = p.q[1], qy = p.q[2], qz = p.q[3];
-  float dq[4];
-  dq[0] = 2.0f * (-qz * dg[1] + qy * dg[2] + qz * dg[3] - qx * dg[5] - qy * dg[6] + qx * dg[7]);
-  dq[1] = 2.0f * (qy * dg[1] + qz * dg[2] + qy * dg[3] - 2.0f * qx * dg[4] - qw * dg[5] + qz * dg[6] +
-                  qw * dg[7] - 2.0f * qx * dg[8]);
-  dq[2] = 2.0f * (-2.0f * qy * dg[0] + qx * dg[1] + qw * dg[2] + qx * dg[3] + qz * dg[5] - qw * dg[6] +
-                  qz * dg[7] - 2.0f * qy * dg[8]);
-  dq[3] = 2.0f * (-2.0f * qz * dg[0] - qw * dg[1] + qx * dg[2] + qw * dg[3] - 2.0f * qz * dg[4] + qy * dg[5] +
-                  qx * dg[6] + qy * dg[7]);
-  // q = Q / max(|Q|, 1e-8)
-  float dot = 0.0f;
-  for (int k = 0; k < 4; ++k) dot += dq[k] * p.Q[k];
-  const float d_den = -dot / (p.qden * p.qden);
-  const float d_norm = p.qnorm > 0.0f ? d_den * dmax(p.qnorm, 1e-8f) / p.qnorm : 0.0f;
-  for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = dq[k] / p.qden + d_norm * p.Q[k];
+  const float a1 = hg[1] + hg[3], b1 = hg[3] - hg[1], a2 = hg[2] + hg[6], b2 = hg[2] - hg[6];
+  const float a5 = hg[5] + hg[7], b5 = hg[7] - hg[5];
+  const float dq[4] = {
+      4.0f * fma_rn(qz, b1, fma_rn(qy, b2, qx * b5)),
+      4.0f * fma_rn(qy, a1, fma_rn(qz, a2, fma_rn(qw, b5, -2.0f * qx * (hg[4] + hg[8])))),
+      4.0f * fma_rn(qx, a1, fma_rn(qw, b2, fma_rn(qz, a5, -2.0f * qy * (hg[0] + hg[8])))),
+      4.0f * fma_rn(qw, b1, fma_rn(qx, a2, fma_rn(qy, a5, -2.0f * qz * (hg[0] + hg[4])))),
+  };
+  const float rq = 1.0f / p.qden;
+  const float proj = -fma_rn(dq[0], qw, fma_rn(dq[1], qx, fma_rn(dq[2], qy, dq[3] * qz))) * dmax(p.qnorm, 1e-8f);
+  out.dq = make_float4(fma_rn(proj, qw, dq[0]) * rq, fma_rn(proj, qx, dq[1]) * rq, fma_rn(proj, qy, dq[2]) * rq,
+                       fma_rn(proj, qz, dq[3]) * rq);
 }
 
-// Sums v (12 values per thread) over the block in a fixed order (a
-// shuffle tree in each warp, then the warps in turn) into out[0..11] by
-// thread 0's warp: the same inputs give the same bits on every run.
-__device__ __forceinline__ void block_sum_12(float* v, float* __restrict__ out) {
-  __shared__ float warp_sums[kThreads / 32][12];
+// Sums v (12 values per thread) over the block in a fixed order (a shuffle
+// tree in each warp, then a tree over the warps) into sums[0..11] in shared
+// memory: the same inputs give the same bits on every run.
+__device__ __forceinline__ void block_sum_12(float* v, float* sums) {
+  __shared__ float warp_sums[12][kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int k = 0; k < 12; ++k)
     for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
   if (lane == 0)
-    for (int k = 0; k < 12; ++k) warp_sums[warp][k] = v[k];
+    for (int k = 0; k < 12; ++k) warp_sums[k][warp] = v[k];
   __syncthreads();
   if (threadIdx.x < 12) {
-    float acc = 0.0f;
-    for (int w = 0; w < kThreads / 32; ++w) acc += warp_sums[w][threadIdx.x];
-    out[threadIdx.x] = acc;
+    float* w = warp_sums[threadIdx.x];
+    for (int half = kThreads / 64; half > 0; half >>= 1)
+      for (int j = 0; j < half; ++j) w[j] += w[j + half];
+    sums[threadIdx.x] = w[0];
   }
+  __syncthreads();
 }
 
-// K4 backward over one gaussian per thread. With kGradView each block
-// writes its gaussians' summed d(viewmat rows 0-2) to view_partials (12
-// floats per block), which view_reduce_kernel then sums: no float atomics,
-// so two runs give the same bits.
+// The end of a kGradView launch: the block's partial (thread 0 writes it,
+// fences and takes the ticket; in the last block it fences again before the
+// block reads the others' partials), then, in the last block to take the
+// ticket, the sum of every block's partial in block order into d_view
+// (4, 4), its last row zero. The ticket is zero at every launch and left
+// zero.
+__device__ __forceinline__ void view_grad_finish(float* v, float* __restrict__ partials,
+                                                 unsigned int* __restrict__ ticket, float* __restrict__ d_view) {
+  __shared__ float sums[12];
+  __shared__ bool last;
+  block_sum_12(v, sums);
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 12; ++k) partials[12 * (int64_t)blockIdx.x + k] = sums[k];
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int k = 0; k < 12; ++k) v[k] = 0.0f;
+  for (unsigned int b = threadIdx.x; b < gridDim.x; b += kThreads)
+    for (int k = 0; k < 12; ++k) v[k] += __ldcg(partials + 12 * (int64_t)b + k);
+  block_sum_12(v, sums);
+  if (threadIdx.x < 16) d_view[threadIdx.x] = threadIdx.x < 12 ? sums[threadIdx.x] : 0.0f;
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
 template <bool kDevView, bool kGradView>
-__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
-    const float* __restrict__ means, const float* __restrict__ scales, const float* __restrict__ quats,
-    int64_t n, Camera host_cam, const float* __restrict__ view, const float* __restrict__ d_means2d,
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks) project_bwd_kernel(
+    const float* __restrict__ means, const float* __restrict__ scales, const float4* __restrict__ quats, int64_t n,
+    Camera host_cam, const float* __restrict__ view, const float* __restrict__ d_means2d,
     const float* __restrict__ d_depths, const float* __restrict__ d_conics, const float* __restrict__ d_comp,
-    float* __restrict__ d_means, float* __restrict__ d_scales, float* __restrict__ d_quats,
-    float* __restrict__ view_partials) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (!kGradView && i >= n) return;
-  float dview[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  if (i < n) {
-    const Camera cam = camera_of<kDevView>(host_cam, view);
-    project_bwd_one<kGradView>(means, scales, quats, i, cam, d_means2d, d_depths, d_conics, d_comp, d_means,
-                               d_scales, d_quats, dview);
+    float* __restrict__ d_means, float* __restrict__ d_scales, float4* __restrict__ d_quats,
+    float* __restrict__ partials, unsigned int* __restrict__ ticket, float* __restrict__ d_view) {
+  const Camera cam = camera_of<kDevView>(host_cam, view);
+  __shared__ float acc_cols[kGradView ? 12 * kThreads : 1];
+  ViewAcc acc = {acc_cols + threadIdx.x};
+  if (kGradView)
+    for (int k = 0; k < 12; ++k) acc.col[k * kThreads] = 0.0f;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+    if (i + stride < n) {  // the next gaussian's cotangents into L2 (see above)
+      const int64_t j = i + stride;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(d_means2d + 2 * j));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(d_depths + j));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(d_conics + 3 * j));
+      if (cam.antialiased) asm volatile("prefetch.global.L2 [%0];" ::"l"(d_comp + j));
+    }
+    const K4Cot ct = {d_means2d[2 * i], d_means2d[2 * i + 1], d_depths[i], d_conics[3 * i], d_conics[3 * i + 1],
+                      d_conics[3 * i + 2], cam.antialiased ? d_comp[i] : 0.0f};
+    K4Grad gr;
+    project_bwd_one<kGradView>(means, scales, quats, i, cam, ct, gr, acc);
+    for (int k = 0; k < 3; ++k) {
+      d_means[3 * i + k] = gr.dm[k];
+      d_scales[3 * i + k] = gr.ds[k];
+    }
+    d_quats[i] = gr.dq;
   }
-  if (kGradView) block_sum_12(dview, view_partials + 12 * (int64_t)blockIdx.x);
-}
-
-// One block: d_view[k] = sum over the partials' blocks, each thread taking
-// the blocks t, t + kThreads, ... in order, then block_sum_12.
-__global__ void __launch_bounds__(kThreads) view_reduce_kernel(const float* __restrict__ partials, int64_t blocks,
-                                                               float* __restrict__ d_view) {
-  float v[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  for (int64_t b = threadIdx.x; b < blocks; b += kThreads)
-    for (int k = 0; k < 12; ++k) v[k] += partials[12 * b + k];
-  block_sum_12(v, d_view);
+  if (kGradView) {
+    float v[12];
+    for (int k = 0; k < 12; ++k) v[k] = acc.col[k * kThreads];
+    view_grad_finish(v, partials, ticket, d_view);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1233,6 +1318,25 @@ cudaError_t make_emission(const void* means2d, const void* radii, const void* de
   return cudaSuccess;
 }
 
+// project_bwd_kernel's persistent grid on the current device: the blocks
+// of that instance resident on one SM at once times the SMs, cached per
+// device (0 if the runtime cannot say).
+constexpr int kMaxDevices = 64;
+
+template <bool kDevView, bool kGradView>
+int64_t bwd_grid_limit() {
+  static int cache[kMaxDevices] = {0};
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, project_bwd_kernel<kDevView, kGradView>, kThreads, 0) !=
+          cudaSuccess)
+    return 0;
+  if (dev < kMaxDevices) cache[dev] = sms * per_sm;
+  return (int64_t)sms * per_sm;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1257,36 +1361,46 @@ int nst_gsplat_project_fwd(const void* means, const void* scales, const void* qu
   return (int)cudaGetLastError();
 }
 
-// The floats of view_partials that nst_gsplat_project_bwd needs for n
-// gaussians: 12 per block of its grid.
-long long nst_gsplat_view_partials(long long n) { return n < 0 ? 0 : 12LL * grid_for(n); }
+// The floats of device scratch that nst_gsplat_project_bwd needs on the
+// current device to sum d(viewmat): a 12-float partial per block of its
+// largest grid, then the ticket (a zeroed uint32) and padding. The scratch
+// is zeroed once and serves every later call on one stream.
+long long nst_gsplat_project_bwd_scratch(void) {
+  const int64_t limit = bwd_grid_limit<true, true>();
+  return limit > 0 ? 12 * limit + 4 : 0;
+}
 
 // K4 backward: the cotangents d_means2d (n, 2), d_depths (n,), d_conics
 // (n, 3) and d_comp (n,) (read only when antialiased) in; d_means (n, 3),
-// d_scales (n, 3), d_quats (n, 4) out (every row written); cam and view as
-// the forward's. With d_view not null (then view must not be null either)
-// also d(viewmat rows 0-2), 12 floats, through view_partials, a device
-// scratch of nst_gsplat_view_partials(n) floats. Returns a cudaError_t.
+// d_scales (n, 3), d_quats (n, 4) out (every row written; quats and d_quats
+// 16-byte aligned); cam and view as the forward's, view (when not null) the
+// first 12 floats of the row-major (4, 4) viewmat. With d_view not null
+// (then view and scratch must not be null either) the same launch also
+// writes d(viewmat) into d_view, 16 floats (4, 4), its last row zero,
+// through scratch (nst_gsplat_project_bwd_scratch() floats, zeroed before
+// its first use). Returns a cudaError_t.
 int nst_gsplat_project_bwd(const void* means, const void* scales, const void* quats, const float* cam,
                            const void* view, int width, int height, int antialiased, long long n,
                            const void* d_means2d, const void* d_depths, const void* d_conics, const void* d_comp,
-                           void* d_means, void* d_scales, void* d_quats, void* view_partials, void* d_view,
-                           void* stream) {
-  if (n < 0 || width < 1 || height < 1 || (d_view && (!view || !view_partials))) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (n == 0) return (int)(d_view ? cudaMemsetAsync(d_view, 0, 12 * sizeof(float), st) : cudaSuccess);
+                           void* d_means, void* d_scales, void* d_quats, void* scratch, void* d_view, void* stream) {
+  if (n < 0 || width < 1 || height < 1 || (d_view && (!view || !scratch)) || ((uintptr_t)quats & 15) ||
+      ((uintptr_t)d_quats & 15))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 && !d_view) return (int)cudaSuccess;
   const Camera c = make_camera(cam, width, height, antialiased);
   auto kernel = d_view ? project_bwd_kernel<true, true>
                        : (view ? project_bwd_kernel<true, false> : project_bwd_kernel<false, false>);
-  kernel<<<grid_for(n), kThreads, 0, st>>>(
-      (const float*)means, (const float*)scales, (const float*)quats, n, c, (const float*)view,
+  const int64_t limit = d_view ? bwd_grid_limit<true, true>()
+                               : (view ? bwd_grid_limit<true, false>() : bwd_grid_limit<false, false>());
+  if (limit <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int64_t tiles = (n + kThreads - 1) / kThreads;
+  const unsigned int grid = (unsigned int)(tiles < 1 ? 1 : (tiles < limit ? tiles : limit));
+  float* partials = (float*)scratch;
+  unsigned int* ticket = d_view ? (unsigned int*)(partials + 12 * limit) : nullptr;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)means, (const float*)scales, (const float4*)quats, n, c, (const float*)view,
       (const float*)d_means2d, (const float*)d_depths, (const float*)d_conics, (const float*)d_comp, (float*)d_means,
-      (float*)d_scales, (float*)d_quats, (float*)view_partials);
-  if (d_view) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    view_reduce_kernel<<<1, kThreads, 0, st>>>((const float*)view_partials, (int64_t)grid_for(n), (float*)d_view);
-  }
+      (float*)d_scales, (float4*)d_quats, partials, ticket, (float*)d_view);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,8 @@ from typing import Dict, Optional
 import torch
 
 # Launches of each hand-written kernel entry. K4's backward counts once
-# more under "project_gaussians_bwd_viewmat" when it also reduced the
-# viewmat's gradient (its second kernel). K5 counts one binning under
+# more under "project_gaussians_bwd_viewmat" when the same launch also
+# summed the viewmat's gradient. K5 counts one binning under
 # "tile_bin" in either design, and once more under "tile_bin_bucketed" when
 # it took the tile-bucketed design (its count, scan, scatter and per-tile
 # sort kernels, launched by one C entry) or under "tile_bin_sorted" when it
@@ -61,8 +61,8 @@ def kernel_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.nst_gsplat_view_partials.argtypes = [ll]
-        lib.nst_gsplat_view_partials.restype = ll
+        lib.nst_gsplat_project_bwd_scratch.argtypes = []
+        lib.nst_gsplat_project_bwd_scratch.restype = ll
         lib.nst_gsplat_error_string.argtypes = [ctypes.c_int]
         lib.nst_gsplat_error_string.restype = ctypes.c_char_p
         _LIB = lib

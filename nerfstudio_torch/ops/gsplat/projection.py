@@ -8,13 +8,14 @@ w2c viewmat, intrinsics (fx, fy, cx, cy), quats wxyz (normalised inside).
 hand-written forward and backward kernels of ``csrc/gsplat.cu`` on CUDA
 tensors, over the plain PyTorch twin ``_project_twin`` (whose backward is
 autograd through it) on CPU tensors. The backward returns the viewmat's
-gradient too when autograd asks for it (camera optimisation); the kernel
-then sums it over the gaussians deterministically and counts the launch
-once more under ``project_gaussians_bwd_viewmat``."""
+gradient too when autograd asks for it (camera optimisation); the same
+backward launch then sums it over the gaussians deterministically and is
+counted once more under ``project_gaussians_bwd_viewmat``."""
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -164,17 +165,29 @@ def _project_twin_bwd(means, scales, quats, cam_args, d_means2d, d_depths, d_con
     return (*grads[:3], grads[3] if need_viewmat else None)
 
 
+@functools.lru_cache(maxsize=256)
+def _device_view_camera(fx, fy, cx, cy, width, height, near, eps2d):
+    """The 20 host floats of a launch that reads its viewmat on the card
+    (the first 12 unused) and their ctypes pointer, made once per camera."""
+    cam = np.concatenate([np.zeros(12, np.float32), intrinsics(fx, fy, cx, cy, width, height, near, eps2d)])
+    return cam, cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float))
+
+
 def _launch_camera(viewmat: torch.Tensor, means: torch.Tensor, cam_args):
-    """(the 20 host floats, the device viewmat rows or None) of a launch: a
-    viewmat on the card is read there (rows 0-2 as 12 contiguous floats),
-    one on the host is copied into the host array."""
+    """(the 20 host floats, their ctypes pointer, the viewmat the kernel
+    reads on the card or None) of a launch. A float32 contiguous (4, 4)
+    viewmat on the card is read where it lies (its first 12 floats are rows
+    0-2, row-major), one of another type or layout after a conversion; one
+    on the host goes into the host floats."""
     _, fx, fy, cx, cy, width, height, near, eps2d, _ = cam_args
     if viewmat.device.type == "cuda":
-        rows = viewmat.detach()[:3].to(torch.float32).contiguous()
-        _cuda.check_cuda("project_gaussians viewmat", means, rows)
-        cam = np.concatenate([np.zeros(12, np.float32), intrinsics(fx, fy, cx, cy, width, height, near, eps2d)])
-        return cam, rows
-    return camera_params(viewmat, fx, fy, cx, cy, width, height, near, eps2d), None
+        view = viewmat.detach()
+        if view.dtype != torch.float32 or not view.is_contiguous():
+            view = view.to(torch.float32).contiguous()
+        _cuda.check_cuda("project_gaussians viewmat", means, view)
+        return (*_device_view_camera(fx, fy, cx, cy, width, height, near, eps2d), view)
+    cam = camera_params(viewmat, fx, fy, cx, cy, width, height, near, eps2d)
+    return cam, cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float)), None
 
 
 def _project_kernel(means, scales, quats, cam_args):
@@ -188,45 +201,69 @@ def _project_kernel(means, scales, quats, cam_args):
     radii = means.new_empty((n,))
     valid = torch.empty((n,), dtype=torch.bool, device=means.device)
     comp = means.new_empty((n,))
-    cam, rows = _launch_camera(viewmat, means, cam_args)
+    _, cam, view = _launch_camera(viewmat, means, cam_args)  # the pointer keeps the floats alive
     _cuda.launch(
         "project_gaussians", "nst_gsplat_project_fwd", means.device,
-        means.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-        cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float)), None if rows is None else rows.data_ptr(),
+        means.data_ptr(), scales.data_ptr(), quats.data_ptr(), cam, None if view is None else view.data_ptr(),
         int(width), int(height), int(antialiased), n, means2d.data_ptr(), depths.data_ptr(), conics.data_ptr(),
         radii.data_ptr(), valid.data_ptr(), comp.data_ptr(),
     )
     return means2d, depths, conics, radii, valid, comp
 
 
+# The viewmat gradient's scratch per (device index, stream): every block's
+# 12-float partial and the ticket the last block takes, zeroed once; the
+# kernel leaves the ticket zero again.
+_BWD_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _bwd_scratch(device: torch.device) -> torch.Tensor:
+    """The scratch of a viewmat-gradient launch on ``device``'s current stream."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    scratch = _BWD_SCRATCH.get(key)
+    if scratch is None:
+        with torch.cuda.device(device):
+            floats = _cuda.kernel_library().nst_gsplat_project_bwd_scratch()
+        if floats <= 0:
+            raise RuntimeError(f"project_gaussians backward: no grid for the viewmat gradient on {device}")
+        scratch = _BWD_SCRATCH[key] = torch.zeros((floats,), dtype=torch.float32, device=device)
+    return scratch
+
+
 def _project_bwd_kernel(means, scales, quats, cam_args, d_means2d, d_depths, d_conics, d_comp, need_viewmat=False):
     """Launch K4 backward: (d_means, d_scales, d_quats, d_viewmat or None).
-    With ``need_viewmat`` the kernel also sums d(viewmat) over the gaussians
-    (per-block partials, then one block), which needs the viewmat on the
-    card; d_viewmat is (4, 4) on the viewmat's device, its last row zero."""
+    With ``need_viewmat`` the same launch also sums d(viewmat) over the
+    gaussians, which needs the viewmat on the card; the kernel writes
+    d_viewmat (4, 4) whole, its last row zero (returned on the viewmat's
+    device, in its dtype). The kernel reads each quaternion and writes its
+    gradient as one 16-byte access: quats not 16-byte aligned raise, before
+    any launch, as does a viewmat that is not (4, 4)."""
     viewmat, _, _, _, _, width, height, _, _, antialiased = cam_args
+    if viewmat.shape != (4, 4):
+        raise ValueError(f"project_gaussians backward: viewmat must be (4, 4), got {tuple(viewmat.shape)}")
     cots = [x.contiguous() for x in (d_means2d, d_depths, d_conics, d_comp)]
     _cuda.check_cuda("project_gaussians backward", means, scales, quats, *cots)
+    if quats.data_ptr() % 16:
+        raise ValueError("project_gaussians backward takes quats 16-byte aligned (one float4 a gaussian)")
     d_means, d_scales, d_quats = torch.empty_like(means), torch.empty_like(scales), torch.empty_like(quats)
-    dev_view = viewmat.to(means.device) if need_viewmat else viewmat
-    cam, rows = _launch_camera(dev_view, means, cam_args)
-    partials = d_view = None
+    _, cam, view = _launch_camera(viewmat.to(means.device) if need_viewmat else viewmat, means, cam_args)
+    scratch = d_view = None
     if need_viewmat:
-        partials = means.new_empty((_cuda.kernel_library().nst_gsplat_view_partials(means.shape[0]),))
-        d_view = means.new_empty((12,))
+        scratch = _bwd_scratch(means.device)
+        d_view = means.new_empty((4, 4))
     _cuda.launch(
         "project_gaussians_bwd", "nst_gsplat_project_bwd", means.device,
-        means.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-        cam.ctypes.data_as(_cuda.ctypes.POINTER(_cuda.ctypes.c_float)), None if rows is None else rows.data_ptr(),
+        means.data_ptr(), scales.data_ptr(), quats.data_ptr(), cam, None if view is None else view.data_ptr(),
         int(width), int(height), int(antialiased), means.shape[0], *(c.data_ptr() for c in cots), d_means.data_ptr(),
-        d_scales.data_ptr(), d_quats.data_ptr(), None if partials is None else partials.data_ptr(),
+        d_scales.data_ptr(), d_quats.data_ptr(), None if scratch is None else scratch.data_ptr(),
         None if d_view is None else d_view.data_ptr(),
     )
     if not need_viewmat:
         return d_means, d_scales, d_quats, None
     _cuda.launch_counts["project_gaussians_bwd_viewmat"] += 1
-    d_viewmat = torch.cat([d_view.view(3, 4), d_view.new_zeros((1, 4))]).to(viewmat.device, viewmat.dtype)
-    return d_means, d_scales, d_quats, d_viewmat
+    if d_view.device != viewmat.device or d_view.dtype != viewmat.dtype:
+        d_view = d_view.to(viewmat.device, viewmat.dtype)
+    return d_means, d_scales, d_quats, d_view
 
 
 class _ProjectGaussians(torch.autograd.Function):
