@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``nerfstudio_torch``) on one GPU.
 
     python3 chip_smoke.py [--save-k4-inputs FILE]
+    python3 chip_smoke.py --gate-cell METHOD SCENE_DIR OUT.json
 
 Builds the hand-written kernels from ``nerfstudio_torch/csrc`` (one nvcc
 per source, in parallel), holds each against its plain PyTorch twin at the
@@ -131,7 +132,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
   table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
   twins; the nerfacto-huge gate (1500 steps, 16,384 rays) and the
-  nerfacto-big run (1000 of its gate's 3000 steps, 8192 rays: its loss
+  nerfacto-big run (600 of its gate's 3000 steps, 8192 rays: its loss
   must fall) on ``basic`` at full width beside the JAX records, each
   followed by K1's forward (the step's proposal and field
   calls, the proposal's at an eval chunk) and backward (both calls) and K3
@@ -205,13 +206,39 @@ shapes its path gives it, and drives the port's paths from random weights:
   constant on the coin's vertex pairs, MLPs in float32, the CPU's hash
   encodings at the card's positions, which must lie within POSITION_GAP of
   its own: every loss term, every gradient, the pose adjustment's), one
-  eval chunk's normals card vs CPU, and a 3-step profile.
+  eval chunk's normals card vs CPU, and a 3-step profile;
+* dnerf (phase 68) on the tool's time-varying ``dnerf`` scene (made in the
+  background from phase 34 on; 40 train views at times i/39, 8 val views
+  at i/7) through ``scripts.gate``'s loop and the D-NeRF parser at its
+  shipped config (two 8x256 NeRF fields and D-NeRF's 4x256 deformation
+  net, 1024 rays), cut in depth to 300 of its gate's 8000 steps: both
+  passes' rgb losses must fall; at the trained state the cameras' times,
+  the distortion's offsets (nonzero, moving with time), one 256-ray step
+  (the draws handed in, the MLPs' products in float32) on the card
+  against the CPU, every loss term and gradient (the distortion's
+  included) compared, one 1024-ray eval chunk of val view 1 (time 1/7,
+  between two train times; the MLPs in float32 too) card vs CPU, the CPU
+  taking the card's fine samples in both, its own within DNERF_CDF_GAP of
+  them in CDF units (``replayed_fine_samples``), and a 3-step profile by
+  class. No hand-written kernel on this path;
+* the newly ported dataparsers (phase 69): COLMAP (text, the port's
+  writers), phototourism, instant-ngp, minimal, sdfstudio (its priors
+  through ``SDFDataset``), ScanNet, ScanNet++, ARKitScenes, NuScenes,
+  NeRF-OSR, DyCheck (times) and Sitcoms3D (labels through
+  ``SemanticDataset``) each read a tiny capture written here with numpy
+  and the port's PNG writer, with no JAX module loaded (a JPEG frame is
+  read through Pillow where it imports, else refused); then nerfacto for
+  50 steps through ``scripts.train --dataparser colmap`` on a COLMAP text
+  model of the ``basic`` scene: its seed points load, the loss falls,
+  K1's forward and backward launch.
 
 Since phases 61-63 came, phases 36-37, 43, 45 and 50-51 run 600 steps
 (1000 before), 42 and 44 (nerfacto distorted and masked) 300, 55
-(nerfacto-big) 1000 of its gate's 3000, 57 300 (1000 before), 58-60 300
-(500 before) and 62-63 300 (500 before), to keep the run inside its
-budget.
+(nerfacto-big) 600 of its gate's 3000 (1000 before phases 68-69), 57 300
+(1000 before), 58-60 300 (500 before) and 62-63 300 (500 before), to keep
+the run inside its budget; since phases 68-69 the scenes are made in the
+background (``basic`` from phase 2, ``distorted`` and ``masked`` beside
+the others from phase 34).
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -230,6 +257,7 @@ device and ``nvcc``; imports no JAX.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -2388,6 +2416,15 @@ def finish_scene(name, job, log_it=True):
     return out
 
 
+def stop_scenes(root, jobs):
+    """Stop the scene jobs still running and remove ``root``."""
+    for proc, _, _ in jobs.values():
+        proc.kill()
+        proc.wait()
+    jobs.clear()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def make_scene(name, root, scene="basic", args=SCENE_ARGS, log_it=True):
     """``start_scene`` and ``finish_scene``: the scene's directory."""
     return finish_scene(name, start_scene(root, scene, args), log_it)
@@ -3552,8 +3589,8 @@ def options_and_methods(ph, card, scene, disk_root, disk, k4_inputs_file=None):
 
 
 # nerfacto-big's gate run (phase 55), cut in depth from its 3000 steps to
-# fit phases 61-67 (the full gate: PERF.md §6)
-BIG_CUT_STEPS = 1000
+# fit phases 61-69 (the full gate: PERF.md §6)
+BIG_CUT_STEPS = 600
 NEUS_PLAIN_STEPS = 300  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
 NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
 # Card vs CPU, plain neus's eval chunk: the SDF field is float32 on both
@@ -3985,7 +4022,74 @@ def k8_step(name, run, card):
                 bound_ms=bnd[0], bound_by=bnd[1])
 
 
-def blender_step_card_vs_cpu(run, method):
+def cdf_at(x, edges, cdf):
+    """The piecewise-linear CDF through (``edges``, ``cdf``), (..., S+1)
+    each, at ``x`` (..., K), in float64."""
+    edges, cdf, x = edges.double(), cdf.double(), x.double()
+    i = torch.clamp(torch.searchsorted(edges.contiguous(), x.contiguous()), 1, edges.shape[-1] - 1)
+    e0, e1 = torch.gather(edges, -1, i - 1), torch.gather(edges, -1, i)
+    c0, c1 = torch.gather(cdf, -1, i - 1), torch.gather(cdf, -1, i)
+    return c0 + (c1 - c0) * torch.clamp((x - e0) / torch.clamp_min(e1 - e0, 1e-30), 0.0, 1.0)
+
+
+@contextlib.contextmanager
+def replayed_fine_samples(gaps):
+    """vanilla_nerf's PDF sampler inside the block: its first call (the
+    card's) records the coarse weights it reads and the fine samples it
+    draws; the next call (the CPU's) draws its own, appends to ``gaps``
+    (max |coarse weight card - CPU|, the largest distance between the two
+    sides' fine bin edges in the spacing domain ([0, 1] along the ray), the
+    same in units of the CPU's CDF), and returns the card's samples. With
+    ``gaps`` None the sampler is left as it is.
+
+    D-NeRF's deformation net amplifies the last bits: the card's and the
+    CPU's float32 products round the coarse samples' offsets differently,
+    the coarse field's top encoding frequency (2^8 x 2 pi) carries that into
+    the coarse weights, and the inverse CDF moves a fine edge by the weight's
+    change over the histogram's density, 100x where a bin holds only its
+    padding (0.01 of the ray's 64 bins); the deformation then amplifies the
+    move again (a trained one by tens: its offsets reach several units).
+    Replaying the card's fine samples on the CPU holds both fine passes to
+    the same inputs; the gaps in CDF units, held to DNERF_CDF_GAP, still
+    check the sampling."""
+    from nerfstudio_torch.models import vanilla_nerf as vn
+
+    if gaps is None:
+        yield
+        return
+    real, card = vn.PDFSampler, []
+
+    class Replay:
+        def __init__(self, *args, **kwargs):
+            self.inner = real(*args, **kwargs)
+
+        def __call__(self, ray_bundle, ray_samples, weights, *args, **kwargs):
+            out = self.inner(ray_bundle, ray_samples, weights, *args, **kwargs)
+            if not card:
+                card.append((out, weights.detach()))
+                return out
+            (rec, w_card), dev = card.pop(), out.spacing_starts.device
+            w = weights.detach()[..., 0].double() + self.inner.histogram_padding
+            cdf = torch.cumsum(w / w.sum(-1, keepdim=True), dim=-1)
+            cdf = torch.cat([torch.zeros_like(cdf[..., :1]), torch.clamp_max(cdf[..., :-1], 1.0),
+                             torch.ones_like(cdf[..., :1])], dim=-1)
+            edges = torch.cat([ray_samples.spacing_starts[..., 0], ray_samples.spacing_ends[..., -1:, 0]], dim=-1)
+            ours = torch.cat([out.spacing_starts[..., 0], out.spacing_ends[..., -1:, 0]], dim=-1)
+            theirs = torch.cat([rec.spacing_starts[..., 0], rec.spacing_ends[..., -1:, 0]], dim=-1).to(dev)
+            gaps.append((float((w_card.to(dev) - weights.detach()).abs().max()), float((theirs - ours).abs().max()),
+                         float((cdf_at(theirs, edges, cdf) - cdf_at(ours, edges, cdf)).abs().max())))
+            return ray_bundle.get_ray_samples(rec.frustums.starts.to(dev), rec.frustums.ends.to(dev),
+                                              rec.spacing_starts.to(dev), rec.spacing_ends.to(dev),
+                                              out.spacing_to_euclidean_fn)
+
+    vn.PDFSampler = Replay
+    try:
+        yield
+    finally:
+        vn.PDFSampler = real
+
+
+def blender_step_card_vs_cpu(run, method, gaps=None):
     """One training step at the trained state on the card and on the CPU:
     copies of the trained model with every MLP and head computing its
     products in float32 (the shipped bfloat16 rounds the 8x256 NeRF nets'
@@ -3993,8 +4097,9 @@ def blender_step_card_vs_cpu(run, method):
     first fine layer's gradient by ~6% of its peak on the H100), the run's train
     images and cameras, the same BLENDER_CHECK_RAYS pixels and sampler
     jitter drawn on the host, a fresh optimizer of the method's groups
-    each. Returns (card metrics, CPU metrics, loss rel, {term: rel},
-    {param: grad max |card - cpu| / peak})."""
+    each; with ``gaps`` (a list) the CPU takes the card's fine samples
+    (``replayed_fine_samples``). Returns (card metrics, CPU metrics, loss
+    rel, {term: rel}, {param: grad max |card - cpu| / peak})."""
     from nerfstudio_torch.configs.method_configs import get_method
     from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
     from nerfstudio_torch.engine.optimizers import PerGroupAdam
@@ -4013,20 +4118,21 @@ def blender_step_card_vs_cpu(run, method):
     pixels = torch.stack([torch.randint(0, m, (BLENDER_CHECK_RAYS,), generator=gen) for m in (n, h, w)], dim=-1)
     jitter = tuple(torch.rand((BLENDER_CHECK_RAYS, k), generator=gen) for k in widths)
     runs = []
-    for device in ("cuda", "cpu"):
-        model = copy.deepcopy(trained).to(device).train()
-        for m in model.modules():
-            if isinstance(m, (MLP, FieldHead)):
-                m.dtype = torch.float32
-        data = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=BLENDER_CHECK_RAYS),
-                                      dm.train_cameras.to(device), dm.train_images.cpu(), device)
-        twin = VanillaPipeline(data, model)
-        st = TrainState(PerGroupAdam(get_method(method).optimizers, model))
-        metrics = twin.train_step(st, draws=StepDraws(pixels.to(device),
-                                                      SamplerUniforms(None, tuple(u.to(device) for u in jitter))))
-        grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
-        runs.append(({k: float(v) for k, v in metrics.items()}, grads))
-        del twin, st, data, model
+    with replayed_fine_samples(gaps):
+        for device in ("cuda", "cpu"):
+            model = copy.deepcopy(trained).to(device).train()
+            for m in model.modules():
+                if isinstance(m, (MLP, FieldHead)):
+                    m.dtype = torch.float32
+            data = DeviceCacheDataManager(DataManagerConfig(train_num_rays_per_batch=BLENDER_CHECK_RAYS),
+                                          dm.train_cameras.to(device), dm.train_images.cpu(), device)
+            twin = VanillaPipeline(data, model)
+            st = TrainState(PerGroupAdam(get_method(method).optimizers, model))
+            metrics = twin.train_step(st, draws=StepDraws(pixels.to(device),
+                                                          SamplerUniforms(None, tuple(u.to(device) for u in jitter))))
+            grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
+            runs.append(({k: float(v) for k, v in metrics.items()}, grads))
+            del twin, st, data, model
     (m_card, g_card), (m_cpu, g_cpu) = runs
     loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
     terms = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu if "loss" in k or "reg" in k}
@@ -4035,26 +4141,38 @@ def blender_step_card_vs_cpu(run, method):
     return m_card, m_cpu, loss_rel, terms, grad_rel
 
 
-def blender_eval_card_vs_cpu(run):
-    """One eval chunk (BLENDER_EVAL_RAYS rays spread evenly over the first
-    test view, object and background) through the pipeline's eval path on
+def blender_eval_card_vs_cpu(run, view=0, gaps=None, float32=False):
+    """One eval chunk (BLENDER_EVAL_RAYS rays spread evenly over the eval
+    view ``view``, object and background) through the pipeline's eval path on
     the card, which renders under the background override (the parser's
-    white), and through a CPU copy of the model under the same override.
+    white), and through a CPU copy of the model under the same override;
+    with ``float32`` both compute every MLP's and head's products in
+    float32, with ``gaps`` the CPU takes the card's fine samples
+    (``replayed_fine_samples``).
     Returns ({output: mean |card - cpu|}, {output: max}, the override, the
     card's mean rgb where the accumulation is below 1e-3: white expected)."""
     from nerfstudio_torch.model_components import renderers
 
     pipeline, state = run["pipeline"], run["state"]
     cams = pipeline.datamanager.eval_cameras
-    cam_idx = pipeline.datamanager.eval_image(0)[0]
+    cam_idx = pipeline.datamanager.eval_image(view)[0]
     rb = cams.generate_rays(camera_indices=cam_idx).flatten()
     stride = max(rb.shape[0] // BLENDER_EVAL_RAYS, 1)
     rb = rb.map(lambda x: x[::stride][:BLENDER_EVAL_RAYS])
     color = pipeline._eval_background()
-    card = pipeline.eval_rays(state, rb.map(lambda x: x.to("cuda")))
     model = copy.deepcopy(pipeline.model).to("cpu").eval()
-    with torch.no_grad(), renderers.background_color_override_context(color.cpu()):
-        cpu = model(rb.map(lambda x: x.cpu()))
+    shipped = {m: m.dtype for m in pipeline.model.modules() if isinstance(getattr(m, "dtype", None), torch.dtype)}
+    if float32:
+        float32_heads(pipeline.model)
+        float32_heads(model)
+    try:
+        with replayed_fine_samples(gaps):
+            card = pipeline.eval_rays(state, rb.map(lambda x: x.to("cuda")))
+            with torch.no_grad(), renderers.background_color_override_context(color.cpu()):
+                cpu = model(rb.map(lambda x: x.cpu()))
+    finally:
+        for m, dtype in shipped.items():
+            m.dtype = dtype
     keys = ("rgb", "accumulation", "depth")
     mean = {k: float((card[k].cpu() - cpu[k]).abs().mean()) for k in keys}
     peak = {k: float((card[k].cpu() - cpu[k]).abs().max()) for k in keys}
@@ -4064,15 +4182,21 @@ def blender_eval_card_vs_cpu(run):
     return mean, peak, color.tolist(), bg
 
 
-def blender_after(name, method, card):
+def blender_after(name, method, card, view=0, replay=False):
     """The checks at each trained state after the gate loop: the losses fell
     (tensorf's before its upsample and again after it, with the grids at
     152 and the optimizer's count restarted at the upsample; both passes'
     rgb losses of the NeRFs); one step card vs CPU (loss and every term
     within STEP_LOSS_RTOL, every gradient within STEP_GRAD_REL of its peak);
-    one eval chunk under the override card vs CPU (rgb and accumulation
-    within CARD_VS_CPU_MEAN_ABS mean abs); tensorf's K8 at its step's own
-    calls (``k8_step``)."""
+    one eval chunk of eval view ``view`` under the override card vs CPU
+    (rgb and accumulation within CARD_VS_CPU_MEAN_ABS mean abs); tensorf's
+    K8 at its step's own calls (``k8_step``). With ``replay`` the CPU's
+    step and eval chunk take the card's fine samples, within DNERF_CDF_GAP
+    of its own in CDF units (``replayed_fine_samples``), and the eval chunk
+    computes its MLPs' and heads' products in float32 on both sides, as the
+    step does. The record names the top-level
+    modules whose parameters took a gradient in the step
+    (``grad_groups``)."""
 
     def after(run):
         base = run["base_dir"]
@@ -4100,9 +4224,16 @@ def blender_after(name, method, card):
             if not all(f for _, _, f in falls.values()):
                 raise AssertionError(f"{name}: {method}'s losses did not fall: {falls}")
             rec["falls"] = {k: v[:2] for k, v in falls.items()}
-        m_card, m_cpu, loss_rel, terms, grad_rel = blender_step_card_vs_cpu(run, method)
+        gaps = [] if replay else None
+        m_card, m_cpu, loss_rel, terms, grad_rel = blender_step_card_vs_cpu(run, method, gaps)
         worst = max(grad_rel, key=grad_rel.get)
-        mean, peak, color, bg = blender_eval_card_vs_cpu(run)
+        mean, peak, color, bg = blender_eval_card_vs_cpu(run, view, gaps, float32=replay)
+        if replay:
+            log(name, f"{method}: the CPU's step and eval chunk took the card's fine samples; (step, eval chunk): "
+                f"coarse weights max |card - cpu| {[round(g[0], 6) for g in gaps]}, the CPU's own fine bin edges from "
+                f"the card's at most {[round(g[1], 5) for g in gaps]} in the spacing domain, "
+                f"{[round(g[2], 6) for g in gaps]} in units of the CPU's CDF (limit {DNERF_CDF_GAP})")
+
         log(name, f"{method}: one step at the trained state ({BLENDER_CHECK_RAYS} rays, the draws handed in, the "
             f"MLPs' products in float32) card "
             f"vs CPU: loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}), "
@@ -4112,11 +4243,16 @@ def blender_after(name, method, card):
                                                                                 mean.items())
             + " (max " + ", ".join(f"{k} {v:.3g}" for k, v in peak.items()) + f"; limit {CARD_VS_CPU_MEAN_ABS} "
             f"on rgb and accumulation), the card's rgb where the accumulation < 1e-3: {bg:.4f} on {card}")
+        if replay and (len(gaps) != 2 or max(g[2] for g in gaps) > DNERF_CDF_GAP):
+            raise AssertionError(f"{name}: the CPU's fine samples lie {gaps} from the card's")
         if (loss_rel > STEP_LOSS_RTOL or max(terms.values()) > STEP_LOSS_RTOL or grad_rel[worst] > STEP_GRAD_REL
                 or max(mean["rgb"], mean["accumulation"]) > CARD_VS_CPU_MEAN_ABS):
             raise AssertionError(f"{name}: card and CPU {method} steps or eval chunks disagree")
         rec.update(loss_rel=loss_rel, terms=terms, grad_rel=grad_rel[worst], eval_mean=mean, eval_max=peak,
-                   background=color, empty_rgb=bg)
+                   background=color, empty_rgb=bg, bin_gaps=gaps)
+        groups = {k.split(".")[0] for k in grad_rel}
+        rec.update(grad_groups=sorted(groups),
+                   grad_rel_by_group={g: max(v for k, v in grad_rel.items() if k.split(".")[0] == g) for g in groups})
         if method == "tensorf":
             rec["k8"] = k8_step(name, run, card)
         return rec
@@ -5062,17 +5198,418 @@ def normals_phase(ph, card, scene, disk_root, disk):
     return checks
 
 
+# -- dnerf and the remaining dataparsers (phases 68-69) -----------------------
+
+# dnerf on the tool's time-varying dnerf scene (made in the background from
+# phase 34 on) through scripts.gate's loop at its shipped config, cut in
+# depth to 300 of its gate's 8000 steps (the full cell: its own chip call,
+# PERF.md); its card-vs-CPU eval chunk takes val view 1, at time 1/7,
+# between the train times 5/39 and 6/39
+DNERF_STEPS = 300
+DNERF_EVAL_VIEW = 1
+# the CPU's fine bin edges against the card's in units of the CPU's CDF,
+# where the CPU's step and eval chunk take the card's
+# (replayed_fine_samples): 1% of a ray's weight
+DNERF_CDF_GAP = 1e-2
+COLMAP_STEPS = 50  # nerfacto from a COLMAP text model of the basic scene (phase 69)
+
+
+def dnerf_after(name, card):
+    """The checks at dnerf's trained state: the cameras carry 40 distinct
+    train times and the eval view's time lies strictly between two of them;
+    the distortion fires (offsets of one eval ray's samples nonzero, and
+    different at another time); then ``blender_after``'s (both passes' rgb
+    losses fell; one step card vs CPU with the MLPs' products in float32,
+    every loss term within STEP_LOSS_RTOL and every gradient, the
+    distortion's included, within STEP_GRAD_REL of its peak; one eval chunk
+    of DNERF_EVAL_VIEW card vs CPU; both with the card's fine samples
+    replayed on the CPU, ``replayed_fine_samples``)."""
+    base_after = blender_after(name, "dnerf", card, view=DNERF_EVAL_VIEW, replay=True)
+
+    def after(run):
+        from nerfstudio_torch.core.rays import RayBundle
+
+        pipeline = run["pipeline"]
+        dm, model = pipeline.datamanager, pipeline.model
+        train_t = torch.unique(dm.train_cameras.times.cpu())
+        cam_idx = dm.eval_image(DNERF_EVAL_VIEW)[0]
+        t_eval = float(dm.eval_cameras.times[cam_idx, 0])
+        below, above = train_t[train_t < t_eval], train_t[train_t > t_eval]
+        if len(train_t) != 40 or not len(below) or not len(above):
+            raise AssertionError(f"{name}: train times {train_t.tolist()}, eval time {t_eval}")
+        rb = dm.eval_cameras.generate_rays(camera_indices=cam_idx).flatten()
+        rb = rb.map(lambda x: x[rb.shape[0] // 2:rb.shape[0] // 2 + 64].to("cuda"))
+        offsets = []
+        edges = torch.linspace(2.0, 6.0, 17, device="cuda").expand(64, 17)[..., None]
+        with torch.no_grad():
+            for t in (t_eval, 1.0 - t_eval):
+                bundle = RayBundle(rb.origins, rb.directions, rb.pixel_area, times=torch.full_like(rb.pixel_area, t))
+                samples = bundle.get_ray_samples(edges[:, :-1], edges[:, 1:])
+                offsets.append(model._distort(samples).frustums.offsets)
+        size = float(offsets[0].norm(dim=-1).mean())
+        moved = float((offsets[0] - offsets[1]).norm(dim=-1).mean())
+        log(name, f"dnerf: {len(train_t)} train times in [{float(train_t[0]):.3f}, {float(train_t[-1]):.3f}]; eval view "
+            f"{DNERF_EVAL_VIEW} at time {t_eval:.4f}, between {float(below[-1]):.4f} and {float(above[0]):.4f}; the "
+            f"trained distortion's offsets at 64 of its rays x 16 samples: mean |offset| {size:.4f}, mean change "
+            f"{moved:.4f} at time {1.0 - t_eval:.4f} on {card}")
+        if not (size > 0 and moved > 0):
+            raise AssertionError(f"{name}: the temporal distortion did not fire: {size}, {moved}")
+        rec = base_after(run)
+        if "temporal_distortion" not in rec["grad_groups"]:
+            raise AssertionError(f"{name}: the card-vs-CPU step gave the distortion no gradient: {rec['grad_groups']}")
+        rec.update(train_times=len(train_t), eval_time=t_eval, between=(float(below[-1]), float(above[0])),
+                   offset_mean=size, offset_change=moved)
+        return rec
+
+    return after
+
+
+def dnerf_phase(ph, card, disk_root, disk, job):
+    """Phase 68: dnerf on the dnerf scene (``job``, a ``start_scene`` job)
+    through ``scripts.gate``'s loop (the D-NeRF parser) for DNERF_STEPS
+    steps at its shipped config (``gate_phase`` with ``dnerf_after``: no
+    hand-written kernel on this path), then a 3-step profile by class.
+    Adds the run to ``disk``."""
+    scene = finish_scene(ph(68, "scene"), job)
+    name = ph(68, f"dnerf on dnerf, {DNERF_STEPS} steps")
+    rec = disk["gate_dnerf"] = gate_phase(name, "dnerf", scene, disk_root, card, (), steps=DNERF_STEPS,
+                                          after=dnerf_after(name, card))
+    if rec["scene"] != "dnerf" or rec["jax_record"] is not None:
+        raise AssertionError(f"{name}: the gate ran dnerf on {rec['scene']} (JAX record {rec['jax_record']})")
+    idle = rec["idle"]
+    if idle is not None:
+        cls = idle["classes"]
+        log(name, f"dnerf: {rec['train_rays_per_sec']:,.0f} rays/s over the run (host clock); per profiled step "
+            f"{idle['busy_ms']:.2f} ms device-busy, idle {idle['idle']:.1%}; GEMMs {cls.get('GEMMs', 0.0):.3f} ms, "
+            f"elementwise {cls.get('elementwise', 0.0):.3f} on {card}")
+
+
+def _qvec(r: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) of a rotation matrix (w > 0 for the orbits here)."""
+    w = math.sqrt(max(1.0 + float(np.trace(r)), 1e-12)) / 2
+    q = np.array([w, (r[2, 1] - r[1, 2]) / (4 * w), (r[0, 2] - r[2, 0]) / (4 * w), (r[1, 0] - r[0, 1]) / (4 * w)])
+    return q / np.linalg.norm(q)
+
+
+def colmap_text_model(scene, out, sparse="colmap/sparse/0", images="images"):
+    """A COLMAP text model of a nerfstudio-format scene, written with the
+    port's writers (``write_cameras_text``, ``write_images_text``) and the
+    scene's seed points as points3D.txt: one PINHOLE camera, each frame's
+    OpenGL camera-to-world as COLMAP's world-to-camera, the images linked
+    under ``images``. Returns the number of frames."""
+    from nerfstudio_torch.data.dataparsers import colmap_parsing_utils as cpu
+    from nerfstudio_torch.exporter.ply_io import read_ply
+
+    with open(os.path.join(scene, "transforms.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    model_dir = os.path.join(out, sparse)
+    os.makedirs(model_dir)
+    os.makedirs(os.path.join(out, images))
+    cams = {1: cpu.ColmapCamera(id=1, model="PINHOLE", width=int(meta["w"]), height=int(meta["h"]),
+                                params=np.array([meta["fl_x"], meta["fl_y"], meta["cx"], meta["cy"]], np.float64))}
+    ims = {}
+    for i, fr in enumerate(meta["frames"]):
+        c2w = np.eye(4)
+        c2w[:3] = np.asarray(fr["transform_matrix"], np.float64)[:3]
+        c2w[:3, 1:3] *= -1  # OpenGL -> OpenCV
+        w2c = np.linalg.inv(c2w)
+        name = fr["file_path"].replace("/", "_")
+        os.symlink(os.path.join(scene, fr["file_path"]), os.path.join(out, images, name))
+        ims[i + 1] = cpu.ColmapImage(id=i + 1, qvec=_qvec(w2c[:3, :3]), tvec=w2c[:3, 3], camera_id=1, name=name,
+                                     xys=np.zeros((0, 2)), point3D_ids=np.zeros(0, np.int64))
+    cpu.write_cameras_text(cams, os.path.join(model_dir, "cameras.txt"))
+    cpu.write_images_text(ims, os.path.join(model_dir, "images.txt"))
+    pts, rgb = read_ply(os.path.join(scene, "points3D.ply"))
+    rgb = np.zeros_like(pts, dtype=np.uint8) if rgb is None else rgb
+    with open(os.path.join(model_dir, "points3D.txt"), "w", encoding="utf-8") as f:
+        f.write("# 3D point list\n")
+        for i, (p, c) in enumerate(zip(pts.tolist(), rgb.tolist())):
+            f.write(f"{i + 1} {p[0]!r} {p[1]!r} {p[2]!r} {c[0]} {c[1]} {c[2]} 0.5\n")
+    return len(ims)
+
+
+def parser_captures(root):
+    """A tiny capture of each format the port's newly ported parsers read,
+    written with numpy and the port's PNG writer: {parser name: (config
+    overrides, frames its train split should hold, an image it reads as
+    PNG or None)}. ScanNet's colour frames are named .jpg, as the format
+    names them (their bytes are PNG)."""
+    from nerfstudio_torch.data.image_io import write_png
+
+    rng = np.random.default_rng(SEED + 20)
+
+    def png(path, hw=8, channels=3):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_png(path, rng.integers(0, 255, (hw, hw, channels), dtype=np.uint8))
+
+    def pose(i, n=4):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [2 * math.cos(2 * math.pi * i / n), 2 * math.sin(2 * math.pi * i / n), 1.0]
+        return c2w
+
+    def sub(*parts):
+        path = os.path.join(root, *parts)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    caps = {}
+    from nerfstudio_torch.data.dataparsers import colmap_parsing_utils as cpu
+
+    for dense, key in ((False, "colmap"), (True, "phototourism-data")):
+        base = sub(key)
+        model = sub(key, "dense", "sparse") if dense else sub(key, "colmap", "sparse", "0")
+        imdir = sub(key, "dense", "images") if dense else sub(key, "images")
+        ims = {}
+        for i in range(4):
+            png(os.path.join(imdir, f"im{i}.png"))
+            w2c = np.linalg.inv(pose(i))
+            ims[i + 1] = cpu.ColmapImage(id=i + 1, qvec=_qvec(w2c[:3, :3]), tvec=w2c[:3, 3], camera_id=1,
+                                         name=f"im{i}.png", xys=np.zeros((0, 2)), point3D_ids=np.zeros(0, np.int64))
+        cpu.write_cameras_text({1: cpu.ColmapCamera(1, "OPENCV", 8, 8, np.array([9.0, 9.0, 4.0, 4.0, 0.01, 0, 0, 0]))},
+                               os.path.join(model, "cameras.txt"))
+        cpu.write_images_text(ims, os.path.join(model, "images.txt"))
+        with open(os.path.join(model, "points3D.txt"), "w", encoding="utf-8") as f:
+            f.write("1 0.1 0.2 0.3 10 20 30 0.5\n2 -0.1 0.0 0.4 40 50 60 0.7\n")
+        caps[key] = (dict(data=base), 3 if not dense else 4, os.path.join(imdir, "im1.png"))
+    d = sub("ngp")
+    for i in range(4):
+        png(os.path.join(d, "images", f"f{i}.png"))
+    with open(os.path.join(d, "transforms.json"), "w", encoding="utf-8") as f:
+        json.dump({"w": 8, "h": 8, "fl_x": 9.0, "aabb_scale": 2, "frames": [
+            {"file_path": f"images/f{i}", "transform_matrix": pose(i).tolist()} for i in range(4)]}, f)
+    caps["instant-ngp-data"] = (dict(data=d), 4, os.path.join(d, "images", "f0.png"))
+    d = sub("minimal")
+    png(os.path.join(d, "m0.png"))
+    np.savez(os.path.join(d, "train.npz"), camera_to_worlds=np.stack([pose(i)[:3] for i in range(2)]),
+             fx=np.full(2, 9.0), fy=np.full(2, 9.0), cx=np.full(2, 4.0), cy=np.full(2, 4.0), width=np.full(2, 8),
+             height=np.full(2, 8), image_filenames=np.array([os.path.join(d, "m0.png")] * 2))
+    caps["minimal-parser"] = (dict(data=d), 2, os.path.join(d, "m0.png"))
+    d = sub("sdfstudio")
+    frames = []
+    for i in range(3):
+        png(os.path.join(d, "rgb", f"{i}.png"), hw=6)
+        os.makedirs(os.path.join(d, "prior"), exist_ok=True)
+        np.save(os.path.join(d, "prior", f"d{i}.npy"), rng.uniform(0.5, 3, (6, 6)).astype(np.float32))
+        np.save(os.path.join(d, "prior", f"n{i}.npy"), rng.uniform(0, 1, (6, 6, 3)).astype(np.float32))
+        frames.append({"rgb_path": f"rgb/{i}.png", "camtoworld": pose(i, 3).tolist(),
+                       "intrinsics": [[7.0, 0, 3, 0], [0, 7.0, 3, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                       "mono_depth_path": f"prior/d{i}.npy", "mono_normal_path": f"prior/n{i}.npy"})
+    with open(os.path.join(d, "meta_data.json"), "w", encoding="utf-8") as f:
+        json.dump({"height": 6, "width": 6, "frames": frames}, f)
+    caps["sdfstudio-data"] = (dict(data=d, include_mono_prior=True), 3, os.path.join(d, "rgb", "0.png"))
+    d = sub("scannet")
+    for i in range(4):
+        png(os.path.join(d, "color", f"{i}.jpg"))
+        png(os.path.join(d, "depth", f"{i}.png"), channels=1)
+        os.makedirs(os.path.join(d, "pose"), exist_ok=True)
+        np.savetxt(os.path.join(d, "pose", f"{i}.txt"), pose(i))
+    os.makedirs(os.path.join(d, "intrinsic"))
+    K = np.diag([9.0, 9.0, 1.0, 1.0])
+    K[0, 2] = K[1, 2] = 4.0
+    np.savetxt(os.path.join(d, "intrinsic", "intrinsic_color.txt"), K)
+    caps["scannet-data"] = (dict(data=d, train_split_fraction=0.75), 3, None)
+    d = sub("scannetpp")
+    fr = [{"file_path": f"f{i}.png", "transform_matrix": pose(i).tolist()} for i in range(4)]
+    for i in range(4):
+        png(os.path.join(d, "dslr", "resized_images", f"f{i}.png"))
+    os.makedirs(os.path.join(d, "dslr", "nerfstudio"))
+    with open(os.path.join(d, "dslr", "nerfstudio", "transforms.json"), "w", encoding="utf-8") as f:
+        json.dump({"fl_x": 9.0, "fl_y": 9.0, "cx": 4.0, "cy": 4.0, "w": 8, "h": 8, "k1": 0.01,
+                   "camera_model": "OPENCV", "frames": fr[:3], "test_frames": fr[3:]}, f)
+    caps["scannetpp-data"] = (dict(data=d), 3, os.path.join(d, "dslr", "resized_images", "f0.png"))
+    d = sub("41069021")
+    fdir = sub("41069021", "41069021_frames")
+    lines = []
+    for i in range(4):
+        ts = f"{1000.0 + i * 0.1:.3f}"
+        png(os.path.join(fdir, "lowres_wide", f"41069021_{ts}.png"))
+        os.makedirs(os.path.join(fdir, "lowres_wide_intrinsics"), exist_ok=True)
+        np.savetxt(os.path.join(fdir, "lowres_wide_intrinsics", f"41069021_{ts}.pincam"),
+                   np.array([[8, 8, 9.0, 9.0, 4.0, 4.0]]))
+        lines.append(f"{ts} 0 0 {0.1 * i} {math.cos(i)} {math.sin(i)} 1.0")
+    with open(os.path.join(fdir, "lowres_wide.traj"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines))
+    caps["arkitscenes-data"] = (dict(data=d, train_split_fraction=0.75), 3,
+                                os.path.join(fdir, "lowres_wide", "41069021_1000.000.png"))
+    d = sub("nuscenes")
+    tdir = sub("nuscenes", "v1.0-mini")
+    tables = {"scene": [{"token": "s0", "name": "scene-0001"}], "sample": [{"token": "a0", "scene_token": "s0"}],
+              "ego_pose": [{"token": "e0", "rotation": [1, 0, 0, 0], "translation": [10.0, 5.0, 0.0]}],
+              "calibrated_sensor": [{"token": "c0", "rotation": [0.5, -0.5, 0.5, -0.5], "translation": [1.0, 0, 1.5],
+                                     "camera_intrinsic": [[1266.0, 0, 800.0], [0, 1266.0, 450.0], [0, 0, 1]]}],
+              "sample_data": [{"token": f"d{i}", "sample_token": "a0", "ego_pose_token": "e0",
+                               "calibrated_sensor_token": "c0", "is_key_frame": True, "timestamp": i,
+                               "filename": f"samples/CAM_FRONT/img{i}.png"} for i in range(2)]}
+    for t, rows in tables.items():
+        with open(os.path.join(tdir, f"{t}.json"), "w", encoding="utf-8") as f:
+            json.dump(rows, f)
+    for i in range(2):
+        png(os.path.join(d, "samples", "CAM_FRONT", f"img{i}.png"))
+    caps["nuscenes-data"] = (dict(data="scene-0001", data_dir=d, train_split_fraction=0.5), 1,
+                             os.path.join(d, "samples", "CAM_FRONT", "img0.png"))
+    d = sub("nerfosr")
+    base = sub("nerfosr", "stjacob", "final", "train")
+    for i in range(3):
+        png(os.path.join(base, "rgb", f"im{i}.png"))
+        for part, arr in (("pose", pose(i)), ("intrinsics", np.diag([9.0, 9.0, 1.0, 1.0]))):
+            os.makedirs(os.path.join(base, part), exist_ok=True)
+            np.savetxt(os.path.join(base, part, f"im{i}.txt"), arr)
+    caps["nerfosr-data"] = (dict(data=d, scene="stjacob"), 3, os.path.join(base, "rgb", "im0.png"))
+    d = sub("dycheck")
+    for fname, obj in (("scene.json", {"center": [0, 0, 0], "scale": 1.0}), ("metadata.json", {"num_frames": 3})):
+        with open(os.path.join(d, fname), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+    os.makedirs(os.path.join(d, "splits"))
+    with open(os.path.join(d, "splits", "train.json"), "w", encoding="utf-8") as f:
+        json.dump({"frame_names": [f"0_{i:05d}" for i in range(3)], "time_ids": [0, 1, 2]}, f)
+    os.makedirs(os.path.join(d, "camera"))
+    for i in range(3):
+        with open(os.path.join(d, "camera", f"0_{i:05d}.json"), "w", encoding="utf-8") as f:
+            json.dump({"orientation": np.eye(3).tolist(), "position": [0.0, 0.0, float(i)], "focal_length": 18.0,
+                       "principal_point": [4.0, 4.0], "image_size": [8, 8]}, f)
+        png(os.path.join(d, "rgb", "2x", f"0_{i:05d}.png"), hw=4)
+    caps["dycheck-data"] = (dict(data=d, downscale_factor=2), 3, os.path.join(d, "rgb", "2x", "0_00000.png"))
+    d = sub("sitcoms3d")
+    frames = []
+    for i in range(3):
+        png(os.path.join(d, "images_4", f"im{i}.png"))
+        png(os.path.join(d, "segmentations_4", "thing", f"im{i}.png"), channels=1)
+        frames.append({"image_name": f"im{i}.png", "intrinsics": [[36.0, 0, 16.0], [0, 36.0, 16.0], [0, 0, 1]],
+                       "camtoworld": pose(i).tolist()})
+    for fname, obj in (("cameras.json", {"frames": frames, "bbox": [[-1, -1, -1], [1, 1, 1]]}),
+                       ("panoptic_classes.json", {"thing": ["person", "chair", "table"]})):
+        with open(os.path.join(d, fname), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+    caps["sitcoms3d-data"] = (dict(data=d), 3, os.path.join(d, "images_4", "im0.png"))
+    return caps
+
+
+def parsers_phase(ph, card, scene, disk_root):
+    """Phase 69: each newly ported parser reads its tiny capture
+    (``parser_captures``): its train split's frames, finite cameras, the
+    times where the format has them, the first image decoded where it is a
+    PNG; sdfstudio's priors through ``SDFDataset`` and sitcoms3d's labels
+    through ``SemanticDataset``; ScanNet's JPEG-named frame read through
+    Pillow where it imports, else refused with ImportError. No JAX module
+    is loaded. Then nerfacto for COLMAP_STEPS steps through
+    ``scripts.train --dataparser colmap`` on a COLMAP text model of the basic
+    scene (``colmap_text_model``): the model's seed points load, the loss
+    falls (the first third of its logged values against the last third's)
+    and nerfacto's kernels launch. Returns the record."""
+    import importlib.util
+
+    from nerfstudio_torch.data.dataparsers.registry import get_dataparser_config
+    from nerfstudio_torch.data.datasets import InputDataset, SDFDataset, SemanticDataset
+    from nerfstudio_torch.scripts import train as train_script
+
+    name = ph(69, "dataparsers on the card machine")
+    t0 = time.perf_counter()
+    root = os.path.join(disk_root, "parsers")
+    caps = parser_captures(root)
+    read = {}
+    for parser, (kw, frames, image) in caps.items():
+        cfg = get_dataparser_config(parser)
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        out = cfg.setup().get_dataparser_outputs("train")
+        c2w = out.cameras.camera_to_worlds
+        if len(out.image_filenames) != frames or c2w.shape != (frames, 3, 4) or not bool(torch.isfinite(c2w).all()):
+            raise AssertionError(f"{name}: {parser} read {len(out.image_filenames)} frames, cameras {tuple(c2w.shape)}")
+        rec = {"frames": frames, "times": None if out.cameras.times is None else out.cameras.times[:, 0].tolist()}
+        if image is not None:
+            i = [str(p) for p in out.image_filenames].index(image) if image in map(str, out.image_filenames) else 0
+            rec["image"] = tuple(InputDataset(out).get_numpy_image(i).shape)
+        if parser == "sdfstudio-data":
+            rec["priors"] = {k: tuple(v.shape) for k, v in SDFDataset(out).get_metadata(0).items()}
+        if parser == "sitcoms3d-data":
+            sem = SemanticDataset(out)
+            rec["labels"] = (tuple(sem.get_metadata(0)["semantics"].shape), sem.semantics.classes)
+        if parser == "scannet-data":
+            pillow = importlib.util.find_spec("PIL") is not None
+            try:
+                rec["jpeg"] = tuple(InputDataset(out).get_numpy_image(0).shape)
+            except ImportError as e:
+                if pillow:
+                    raise
+                rec["jpeg"] = f"refused: {e}"
+        read[parser] = rec
+    if read["dycheck-data"]["times"] != [0.0, 1 / 3, 2 / 3] and not np.allclose(read["dycheck-data"]["times"],
+                                                                                 [0, 1 / 3, 2 / 3]):
+        raise AssertionError(f"{name}: dycheck's times {read['dycheck-data']['times']}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "nerfstudio_tpu"))
+    if loaded:
+        raise AssertionError(f"{name}: JAX modules loaded: {loaded}")
+    log(name, f"{len(read)} parsers read their captures (numpy and PNG only; Pillow "
+        f"{'importable' if importlib.util.find_spec('PIL') else 'absent'}, no JAX module loaded): "
+        + "; ".join(f"{k} {v}" for k, v in read.items()) + f"; {time.perf_counter() - t0:.1f} s wall")
+
+    t0 = time.perf_counter()
+    capture = os.path.join(disk_root, "colmap_basic")
+    n = colmap_text_model(scene, capture)
+    out_dir = os.path.join(disk_root, "colmap_runs")
+    zero_counts()
+    train_script.main(["nerfacto", "--data", capture, "--dataparser", "colmap", "--trainer.output_dir", out_dir,
+                       "--trainer.vis", "none", "--trainer.max_num_iterations", str(COLMAP_STEPS),
+                       "--trainer.steps_per_eval_batch", "0", "--trainer.steps_per_eval_image", "0",
+                       "--trainer.steps_per_eval_all_images", "0", "--trainer.steps_per_save", str(COLMAP_STEPS),
+                       "--trainer.timestamp", "run"])
+    counts = read_counts()
+    check_path(name, counts, ("hash_encode_block", "hash_encode_block_bwd"))
+    from nerfstudio_torch.data.dataparsers.colmap_dataparser import ColmapDataParserConfig
+
+    parsed = ColmapDataParserConfig(data=capture).setup().get_dataparser_outputs("train")
+    losses = train_losses(os.path.join(out_dir, "colmap_basic", "nerfacto", "run"))
+    k = max(len(losses) // 3, 1)  # the trainer logs every 10th step and the last
+    head, tail = statistics.fmean(losses[:k]), statistics.fmean(losses[-k:])
+    wall = time.perf_counter() - t0
+    log(name, f"nerfacto from a COLMAP text model of the basic scene ({n} frames, one PINHOLE camera, "
+        f"{len(parsed.metadata['points3D_xyz'])} seed points; {len(parsed.image_filenames)} train frames): "
+        f"{COLMAP_STEPS} steps, loss {head:.4f} -> {tail:.4f} (the first third's logged mean to the last's); launches "
+        f"{({k: v for k, v in counts.items() if v})}; {wall:.1f} s wall on {card}")
+    if not (all(map(math.isfinite, losses)) and tail < head):
+        raise AssertionError(f"{name}: nerfacto's loss from the COLMAP model did not fall: {head} -> {tail}")
+    return dict(parsers=read, colmap=dict(frames=n, points=len(parsed.metadata["points3D_xyz"]), loss=(head, tail),
+                                          launches=counts, wall_s=wall))
+
+
+def gate_cell(method, scene, out) -> int:
+    """One gate cell in full through ``scripts.gate``'s runner (the gates
+    asked: the record's ``pass``), then the device's idle share over
+    PROFILED_STEPS more steps at the trained state (``profiled_idle``,
+    against the median 1000-step block); the record, with ``idle`` and the
+    card's line, goes to ``out``."""
+    from nerfstudio_torch.scripts import gate
+
+    card = card_line()
+    print(card, flush=True)
+    res, run = gate.run_gate(method, scene, tempfile.mkdtemp(prefix="gate_cell_"))
+    blocks = res["step_ms_by_block"]["ms"]
+    res["idle"] = profiled_idle(f"{method} {res['cell']}", run["one_step"], statistics.median(blocks[:-1] or blocks),
+                                "the trained state")
+    res["card_line"] = card
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps({k: res[k] for k in ("method", "cell", "steps", "metrics", "pass", "train_seconds",
+                                          "step_ms_by_block", "idle")}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save-k4-inputs", metavar="FILE", default=None,
                         help="save the trained splatfacto-mcmc step's K4 backward inputs (phase 47) to FILE")
+    parser.add_argument("--gate-cell", nargs=3, metavar=("METHOD", "SCENE_DIR", "OUT"), default=None,
+                        help="run only one full gate cell (scripts.gate's runner) and its idle share over 3 "
+                             "profiled steps at the trained state, written to OUT")
     cli = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if cli.gate_cell:
+        return gate_cell(*cli.gate_cell)
 
     from nerfstudio_torch.models.base_model import render_camera
     from nerfstudio_torch.ops import cuda_build
@@ -5081,7 +5618,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 67
+    n_phases = 69
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -5098,6 +5635,12 @@ def main() -> int:
     gp.kernel_library()
     log(ph(2, "build"), ", ".join(f"{p.name}: nvcc {s:.1f} s" for p, s in built.values())
         + f"; build+load {time.perf_counter() - t0:.1f} s")
+    # the scenes of phases 34-68, made in their own processes while the
+    # kernels' phases run (the basic scene from here; the others from phase
+    # 34 on), removed and stopped at exit whatever happens
+    disk_root = tempfile.mkdtemp(prefix="chip_smoke_")
+    jobs = {"basic": start_scene(disk_root)}
+    atexit.register(stop_scenes, disk_root, jobs)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # 3-6. kernels vs twins at the slices' shapes: K1 (the proposal net of the
@@ -5703,12 +6246,11 @@ def main() -> int:
 
     # 34-38. a scene on disk through the user's entry points: the train and
     # eval scripts with a resume, both gates, neus-facto through the trainer
-    disk_root = tempfile.mkdtemp(prefix="chip_smoke_")
-    jobs = {}
     try:
-        scene = make_scene(ph(34, "scene"), disk_root)
-        # the scenes of phases 59-60, made while phases 35-58 run
-        jobs = {s: start_scene(disk_root, s) for s in ("semantic", "appearance")}
+        scene = finish_scene(ph(34, "scene"), jobs.pop("basic"))
+        # the scenes of phases 41, 59-60 and 68, made while phases 35-58 run
+        jobs.update({s: start_scene(disk_root, s) for s in ("distorted", "masked", "semantic", "appearance",
+                                                             "dnerf")})
         disk = {"cli": cli_round_trip(ph(35, "CLI round trip"), scene, disk_root, card),
                 "gate_nerfacto": gate_phase(ph(36, f"nerfacto, {CUT_GATE_STEPS} steps"), "nerfacto", scene,
                                             disk_root, card, NERFACTO_KERNELS, steps=CUT_GATE_STEPS),
@@ -5720,8 +6262,8 @@ def main() -> int:
         # a mixed-resolution masked run through the resolution buckets
         raygen_phase(ph(39, "ray generation, card vs CPU"), card)
         sampling_phase(ph(40, "sampling, card vs CPU"), card)
-        distorted = make_scene(ph(41, "scenes"), disk_root, "distorted")
-        masked = make_scene(ph(41, "scenes"), disk_root, "masked")
+        distorted = finish_scene(ph(41, "scenes"), jobs.pop("distorted"))
+        masked = finish_scene(ph(41, "scenes"), jobs.pop("masked"))
         mixed = make_mixed_scene(ph(41, "scenes"), disk_root, masked)
         for i, (method, path) in enumerate(((m, p) for p in (distorted, masked) for m in ("nerfacto", "splatfacto"))):
             want = NERFACTO_KERNELS if method == "nerfacto" else SPLAT_PATH_KERNELS
@@ -5745,11 +6287,12 @@ def main() -> int:
         nerfacto_options = nerfacto_option_steps(ph(66, "nerfacto's sampling options, card vs cpu"), card)
         # 67. nerfacto with predict_normals: K3b and K1bb
         normals_checks = normals_phase(ph, card, scene, disk_root, disk)
+        # 68-69. dnerf on the time-varying scene; the newly ported parsers,
+        # and nerfacto from a COLMAP model
+        dnerf_phase(ph, card, disk_root, disk, jobs.pop("dnerf"))
+        parsers = parsers_phase(ph, card, scene, disk_root)
     finally:
-        for proc, _, _ in jobs.values():
-            proc.kill()
-            proc.wait()
-        shutil.rmtree(disk_root, ignore_errors=True)
+        stop_scenes(disk_root, jobs)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None, design="first"):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -5995,6 +6538,11 @@ def main() -> int:
         kernels.append(e)
     kernels[0]["nerfacto_normals"] = dict({k: v for k, v in normals["after"].items() if k != "kernels"},
                                           idle=normals["idle"], loss=normals["loss"])
+    # dnerf (phase 68, no hand-written kernel on its path) and the parsers
+    # with nerfacto from a COLMAP model (phase 69)
+    kernels[0]["dnerf"] = dict(disk["gate_dnerf"]["after"], idle=disk["gate_dnerf"]["idle"],
+                               metrics=disk["gate_dnerf"]["metrics"])
+    kernels[0]["dataparsers"] = parsers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

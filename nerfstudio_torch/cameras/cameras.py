@@ -12,7 +12,8 @@ reference does, each type present in a batch has its formula computed for
 every ray and the rays take their own camera's; a batch of one type
 computes that type's alone. An all-zero distortion row is the identity,
 so a batch without distortion skips the Newton solve. The formulas are
-plain PyTorch ops on the coords' device."""
+plain PyTorch ops on the coords' device. Cameras of a dynamic scene carry
+a time each, which their rays take."""
 
 from __future__ import annotations
 
@@ -100,6 +101,7 @@ class Cameras:
     # (N, 6) OpenCV k1..k4, p1, p2, or (N, 12) Fisheye624 k1..k6, p1, p2,
     # s1..s4; None for none
     distortion_params: Optional[torch.Tensor] = None
+    times: Optional[torch.Tensor] = None  # (N, 1) float32, a dynamic scene's capture times
     # read once on the host at construction, so that ray generation never
     # syncs the device: the camera types in the batch, and whether any
     # distortion parameter is non-zero
@@ -123,12 +125,14 @@ class Cameras:
         distortion_params=None,
         camera_type: Union[CameraType, int] = CameraType.PERSPECTIVE,
         device=None,
+        times=None,
     ) -> "Cameras":
         """Build from tensors, arrays or scalars, as the reference's
         constructor, on ``device`` (None: the GPU, ``utils.device``).
         ``camera_type`` is one type or one per camera (CameraType members or
         their values); ``distortion_params`` one row per camera or one row
-        for all."""
+        for all; ``times`` one per camera, (N,) or (N, 1) (reference
+        :167-170), or None."""
         c2w = torch.as_tensor(camera_to_worlds, dtype=torch.float32, device=resolve_device(device))
         if c2w.ndim == 2:
             c2w = c2w[None]
@@ -145,7 +149,9 @@ class Cameras:
         if distortion_params is not None:
             distortion_params = torch.as_tensor(distortion_params, **f32)
             distortion_params = distortion_params.expand(n, distortion_params.shape[-1]).contiguous()
-        return cls(c2w, fx, fy, cx, cy, width, height, _column(camera_type, n, **i32), distortion_params)
+        if times is not None:
+            times = _column(times, n, **f32)
+        return cls(c2w, fx, fy, cx, cy, width, height, _column(camera_type, n, **i32), distortion_params, times)
 
     def to(self, device) -> "Cameras":
         """The same cameras with every tensor on ``device``."""
@@ -322,6 +328,7 @@ class Cameras:
             pixel_area=(dx * dy)[..., None],
             camera_indices=camera_indices[..., -1:],
             metadata={"directions_norm": norms[0]},
+            times=None if self.times is None else take(self.times),
         )
 
     @staticmethod

@@ -1,9 +1,8 @@
 """Method registry (counterpart of ``nerfstudio_tpu/configs/method_configs.py``):
 the ported methods' full configs (trainer, datamanager, dataparser, model,
-per-group optimizers), with the reference's settings. The reference's other
-methods raise ``NotImplementedError`` naming their ROADMAP item, and so do
-the unported parsers phototourism and semantic-nerfw ship, until
-``--dataparser`` names a ported one."""
+per-group optimizers), with the reference's settings and parsers. The
+reference's one other method, generfacto, raises ``NotImplementedError``
+naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -16,8 +15,9 @@ from nerfstudio_torch.configs.base_config import MachineConfig
 from nerfstudio_torch.data.datamanagers import DataManagerConfig
 from nerfstudio_torch.data.dataparsers.base_dataparser import DataParserConfig
 from nerfstudio_torch.data.dataparsers.blender_dataparser import BlenderDataParserConfig
+from nerfstudio_torch.data.dataparsers.extra_dataparsers import DNeRFDataParserConfig, PhototourismDataParserConfig
 from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
-from nerfstudio_torch.data.dataparsers.registry import UnportedDataParserConfig
+from nerfstudio_torch.data.dataparsers.specialty_dataparsers import Sitcoms3DDataParserConfig
 from nerfstudio_torch.engine.optimizers import (
     AdamOptimizerConfig,
     RAdamOptimizerConfig,
@@ -73,6 +73,7 @@ descriptions = {
     "neus": "NeuS SDF surface reconstruction.",
     "neus-facto": "NeuS with proposal sampling.",
     "vanilla-nerf": "Original NeRF (coarse/fine MLPs).",
+    "dnerf": "Dynamic NeRF (temporal deformation).",
     "mipnerf": "Mip-NeRF with integrated positional encoding.",
     "tensorf": "TensoRF vector-matrix decomposition.",
 }
@@ -156,7 +157,7 @@ method_configs["semantic-nerfw"] = MethodConfig(
     dataset="semantic",
     trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
     datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
-    dataparser=UnportedDataParserConfig(name="sitcoms3d-data"),
+    dataparser=Sitcoms3DDataParserConfig(),
     model=SemanticNerfWModelConfig(eval_num_rays_per_chunk=1 << 14),
     optimizers=nerfacto_optimizers(),
 )
@@ -167,7 +168,7 @@ method_configs["phototourism"] = MethodConfig(
     method_name="phototourism",
     trainer=TrainerConfig(max_num_iterations=30000, steps_per_eval_image=500),
     datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
-    dataparser=UnportedDataParserConfig(name="phototourism-data"),
+    dataparser=PhototourismDataParserConfig(),
     model=NerfactoModelConfig(eval_num_rays_per_chunk=1 << 15, use_appearance_embedding=True),
     optimizers=nerfacto_optimizers(),
 )
@@ -219,16 +220,29 @@ method_configs["neus-facto"] = MethodConfig(
     optimizers=neus_facto_optimizers(),
 )
 
-# the Blender-protocol methods (reference :237-255, 277-291, 313-325): RAdam
-# at a constant rate for the NeRFs (vanilla-nerf's temporal_distortion group
-# has no parameters without D-NeRF's distortion), Adam decaying 1e-3 -> 1e-4
-# over 30,000 steps for TensoRF
+# the Blender-protocol methods (reference :237-255, 277-325): RAdam at a
+# constant rate for the NeRFs (vanilla-nerf's temporal_distortion group has
+# no parameters without D-NeRF's distortion; dnerf's has them, behind the
+# D-NeRF parser's times), Adam decaying 1e-3 -> 1e-4 over 30,000 steps for
+# TensoRF
 method_configs["vanilla-nerf"] = MethodConfig(
     method_name="vanilla-nerf",
     trainer=TrainerConfig(max_num_iterations=16500, steps_per_eval_image=500),
     datamanager=DataManagerConfig(train_num_rays_per_batch=1024),
     dataparser=BlenderDataParserConfig(),
     model=VanillaModelConfig(),
+    optimizers={
+        "field": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-8), "scheduler": None},
+        "temporal_distortion": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-8), "scheduler": None},
+    },
+)
+
+method_configs["dnerf"] = MethodConfig(
+    method_name="dnerf",
+    trainer=TrainerConfig(max_num_iterations=16500, steps_per_eval_image=500),
+    datamanager=DataManagerConfig(train_num_rays_per_batch=1024),
+    dataparser=DNeRFDataParserConfig(),
+    model=VanillaModelConfig(enable_temporal_distortion=True),
     optimizers={
         "field": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-8), "scheduler": None},
         "temporal_distortion": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-8), "scheduler": None},
@@ -285,7 +299,7 @@ method_configs["instant-ngp-bounded"] = MethodConfig(
 )
 
 # the reference's other methods, by the ROADMAP queue 1 item that ports them
-NOT_PORTED = {"dnerf": 15, "generfacto": 14}
+NOT_PORTED = {"generfacto": 14}
 
 
 def get_method(name: str) -> MethodConfig:

@@ -2,7 +2,9 @@
 
 Counterpart of ``nerfstudio_tpu/core/rays.py``: plain dataclasses of
 tensors with fixed ``(num_rays, num_samples)`` shapes, and the
-alpha-compositing weights as a pure function."""
+alpha-compositing weights as a pure function. A bundle's ``times`` (a
+dynamic scene's camera times) reach its samples, whose frustums carry the
+temporal distortion's ``offsets``."""
 
 from __future__ import annotations
 
@@ -23,10 +25,14 @@ class Frustums:
     starts: torch.Tensor  # (..., 1)
     ends: torch.Tensor  # (..., 1)
     pixel_area: torch.Tensor  # (..., 1)
+    offsets: Optional[torch.Tensor] = None  # (..., 3), D-NeRF's temporal distortion
 
     def get_positions(self) -> torch.Tensor:
-        """Midpoint positions."""
-        return self.origins + self.directions * (self.starts + self.ends) / 2
+        """Midpoint positions, moved by ``offsets`` where set (reference :29-37)."""
+        pos = self.origins + self.directions * (self.starts + self.ends) / 2
+        if self.offsets is not None:
+            pos = pos + self.offsets
+        return pos
 
     def get_gaussian_blob(self):
         """mip-NeRF's Gaussian of each frustum (reference rays.py:43-55): a
@@ -48,6 +54,7 @@ class RaySamples:
     spacing_starts: Optional[torch.Tensor] = None  # (..., num_samples, 1)
     spacing_ends: Optional[torch.Tensor] = None
     metadata: Optional[Dict[str, torch.Tensor]] = None
+    times: Optional[torch.Tensor] = None  # (..., 1)
     spacing_to_euclidean_fn: Optional[Callable] = None
 
     def get_weights(self, densities: torch.Tensor) -> torch.Tensor:
@@ -84,6 +91,7 @@ class RayBundle:
     nears: Optional[torch.Tensor] = None  # (..., 1)
     fars: Optional[torch.Tensor] = None  # (..., 1)
     metadata: Optional[Dict[str, torch.Tensor]] = None
+    times: Optional[torch.Tensor] = None  # (..., 1)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -142,5 +150,6 @@ class RayBundle:
                 if self.metadata is not None
                 else None
             ),
+            times=broadcast(self.times),
             spacing_to_euclidean_fn=spacing_to_euclidean_fn,
         )

@@ -1,44 +1,37 @@
 """Dataparser registry: name -> config class (counterpart of
 ``nerfstudio_tpu/data/dataparsers/registry.py``), for the CLI's
-``--dataparser NAME``. The nerfstudio and Blender parsers are ported; every
-other name of the reference's registry raises, and so does a method config
-that ships one of them (``UnportedDataParserConfig``) unless the user names
-a ported parser."""
+``--dataparser NAME``: every parser of the reference's registry, its
+built-ins and its specialty parsers, each also under its short alias
+without ``-data``."""
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Type
 
 from nerfstudio_torch.data.dataparsers.base_dataparser import DataParserConfig
 from nerfstudio_torch.data.dataparsers.blender_dataparser import BlenderDataParserConfig
+from nerfstudio_torch.data.dataparsers.colmap_dataparser import ColmapDataParserConfig
+from nerfstudio_torch.data.dataparsers.extra_dataparsers import (
+    DNeRFDataParserConfig,
+    InstantNGPDataParserConfig,
+    MinimalDataParserConfig,
+    PhototourismDataParserConfig,
+    SDFStudioDataParserConfig,
+)
 from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
+from nerfstudio_torch.data.dataparsers.specialty_dataparsers import SPECIALTY_PARSERS
 
 DATAPARSERS: Dict[str, Type[DataParserConfig]] = {
     "nerfstudio-data": NerfstudioDataParserConfig,
     "blender-data": BlenderDataParserConfig,
+    "colmap": ColmapDataParserConfig,
+    "instant-ngp-data": InstantNGPDataParserConfig,
+    "minimal-parser": MinimalDataParserConfig,
+    "dnerf-data": DNeRFDataParserConfig,
+    "phototourism-data": PhototourismDataParserConfig,
+    "sdfstudio-data": SDFStudioDataParserConfig,
+    **SPECIALTY_PARSERS,
 }
-# the reference's other parsers (its built-ins and specialty parsers)
-NOT_PORTED = ("colmap", "instant-ngp-data", "minimal-parser", "dnerf-data", "phototourism-data", "sdfstudio-data",
-              "scannet-data", "scannetpp-data", "arkitscenes-data", "nuscenes-data", "nerfosr-data", "dycheck-data",
-              "sitcoms3d-data")
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"dataparser {name!r} is not ported yet (ROADMAP queue 1 item 15); pass "
-                               "--dataparser nerfstudio-data (or blender-data) to read the capture with a ported one")
-
-
-@dataclasses.dataclass
-class UnportedDataParserConfig(DataParserConfig):
-    """The reference's parser ``name`` in a method config (phototourism's,
-    semantic-nerfw's): setting it up raises, naming the ROADMAP item that
-    ports it."""
-
-    name: str = ""
-
-    def setup(self):
-        raise _not_ported(self.name)
 
 
 def get_dataparser_config(name: str) -> DataParserConfig:
@@ -47,6 +40,4 @@ def get_dataparser_config(name: str) -> DataParserConfig:
     for key in (name, f"{name}-data"):
         if key in DATAPARSERS:
             return DATAPARSERS[key]()
-        if key in NOT_PORTED:
-            raise _not_ported(key)
-    raise KeyError(f"unknown dataparser {name!r}; ported: {sorted(DATAPARSERS)}")
+    raise KeyError(f"unknown dataparser {name!r}; available: {sorted(DATAPARSERS)}")

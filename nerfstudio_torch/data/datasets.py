@@ -12,9 +12,10 @@ mixed-resolution split into one stack per resolution (with its depth maps
 where the dataset has them). ``DepthDataset`` reads a depth map per image
 (``.npy`` or PNG, 16-bit grey included, times ``depth_unit_scale_factor``)
 or, without depth files, projects the parser's SfM points into each camera;
-``SemanticDataset`` reads each image's class labels. Resizing by
-``scale_factor``, the C++ batch loader and the SDF dataset are not
-ported."""
+``SemanticDataset`` reads each image's class labels; ``SDFDataset`` reads
+the sdfstudio parser's monocular depth and normal priors (``.npy``), the
+normals turned from camera to world space. Resizing by ``scale_factor``
+and the C++ batch loader are not ported."""
 
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from nerfstudio_torch.data.dataparsers.base_dataparser import DataparserOutputs
+from nerfstudio_torch.data.dataparsers.base_dataparser import DataparserOutputs, Semantics
 from nerfstudio_torch.data.image_io import read_image
 
 
@@ -176,14 +177,50 @@ class DepthDataset(InputDataset):
 
 class SemanticDataset(InputDataset):
     """Per-image class labels (reference datasets.py:271-297): the first
-    channel of each label image, as int32 (H, W, 1). The sitcoms3d-style
-    metadata keys of the reference belong to a parser that is not ported."""
+    channel of each label image, as int32 (H, W, 1). The sitcoms3d parser's
+    flat keys (``semantics_filenames``, ``semantics_classes``) become a
+    ``Semantics`` with a colour per class drawn as the reference draws them."""
 
     def __init__(self, dataparser_outputs: DataparserOutputs, scale_factor: float = 1.0):
         super().__init__(dataparser_outputs, scale_factor)
-        self.semantics = (dataparser_outputs.metadata or {}).get("semantics")
+        md = dataparser_outputs.metadata or {}
+        sem = md.get("semantics")
+        if sem is None and md.get("semantics_filenames"):
+            classes = list(md.get("semantics_classes", []))
+            sem = Semantics(filenames=md["semantics_filenames"], classes=classes,
+                            colors=np.random.default_rng(0).uniform(size=(max(len(classes), 1), 3)).astype(np.float32))
+        self.semantics = sem
 
     def get_metadata(self, image_idx: int) -> Dict:
         if self.semantics is None:
             return {}
         return {"semantics": read_image(self.semantics.filenames[image_idx])[..., :1].astype(np.int32)}
+
+
+class SDFDataset(InputDataset):
+    """Monocular depth and normal priors for SDF training (reference
+    datasets.py:300-323): each frame's depth (H, W) and normal (H, W, 3) in
+    [0, 1] camera space, as ``.npy``; the normals mapped to [-1, 1] and
+    rotated into world space by the camera's rotation. Nothing in the port
+    reads them, as nothing in the reference does."""
+
+    def __init__(self, dataparser_outputs: DataparserOutputs, scale_factor: float = 1.0):
+        super().__init__(dataparser_outputs, scale_factor)
+        md = dataparser_outputs.metadata
+        self.depth_filenames = md.get("depth_filenames")
+        self.normal_filenames = md.get("normal_filenames")
+        self.c2ws = dataparser_outputs.cameras.camera_to_worlds.cpu().numpy()
+
+    def get_metadata(self, image_idx: int) -> Dict:
+        """{"depth_image": (H, W, 1) float32, "normal_image": (H, W, 3)
+        float32}, each where the frame has its file."""
+        out: Dict = {}
+        if self.depth_filenames:
+            depth = np.load(Path(self.depth_filenames[image_idx]))
+            out["depth_image"] = depth[..., None].astype(np.float32) if depth.ndim == 2 else depth
+        if self.normal_filenames:
+            normal = np.load(Path(self.normal_filenames[image_idx])) * 2.0 - 1.0
+            h, w, _ = normal.shape
+            rot = self.c2ws[image_idx, :3, :3]
+            out["normal_image"] = (normal.reshape(-1, 3) @ rot.T).reshape(h, w, 3).astype(np.float32)
+        return out

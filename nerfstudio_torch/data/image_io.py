@@ -6,7 +6,9 @@ routine (``csrc/png_unfilter.cpp``) for the row filters: 8-bit samples of
 colour types 0 (grey), 2 (RGB), 4 (grey and alpha) and 6 (RGBA) as uint8,
 16-bit grey (the depth maps users ship) as uint16, no interlacing, and all
 five row filters. JPEG goes through Pillow where it imports; without it a
-JPEG raises ``ImportError``."""
+JPEG raises ``ImportError``. ``write_png`` writes 8-bit grey, RGB or RGBA
+PNGs (row filter None, zlib), so captures and fixtures are written without
+Pillow too."""
 
 from __future__ import annotations
 
@@ -116,3 +118,21 @@ def image_size(path: Path) -> Tuple[int, int]:
     with open(path, "rb") as f:
         w, h, *_ = _header(f.read(33))
     return w, h
+
+
+def write_png(path: Path, image: np.ndarray) -> None:
+    """(H, W, C) or (H, W) uint8, C in 1, 3, 4 -> an 8-bit PNG at ``path``."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 images, got {image.dtype}")
+    if image.ndim == 2:
+        image = image[..., None]
+    h, w, c = image.shape
+    ctype = {1: 0, 3: 2, 4: 6}[c]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * c)], axis=1).tobytes()
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+
+    Path(path).write_bytes(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+                          + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))

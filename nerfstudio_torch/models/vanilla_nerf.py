@@ -3,8 +3,11 @@
 ``collider_params``; 64 uniform samples through the coarse field, then 128
 PDF samples merged with them through the fine field; each pass composited
 over white. Losses: each pass's rgb MSE against the ground truth blended
-over white. D-NeRF's temporal distortion (``enable_temporal_distortion``,
-the ``dnerf`` method) is not ported yet."""
+over white. With ``enable_temporal_distortion`` (the ``dnerf`` method)
+D-NeRF's deformation network moves each pass's samples of rays that carry
+times: their frustums take ``offsets = distortion(positions, times) -
+positions``, as the reference sets them; rays without times pass through
+undistorted, and the distortion's parameters then take no gradient."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from nerfstudio_torch.core.rays import RayBundle, RaySamples
 from nerfstudio_torch.field_components.field_heads import FieldHeadNames
+from nerfstudio_torch.field_components.temporal_distortions import DNeRFDistortion
 from nerfstudio_torch.fields.vanilla_nerf_field import NeRFField
 from nerfstudio_torch.model_components import renderers
 from nerfstudio_torch.model_components.losses import mse_loss
@@ -48,10 +52,10 @@ class NeRFModel(Model):
     def __init__(self, config: VanillaModelConfig, scene_aabb=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)),
                  num_train_data: int = 1, device=None):
         super().__init__(config, scene_aabb, num_train_data)
+        device = resolve_device(device)
+        self.make_fields(device)
         if config.enable_temporal_distortion:
-            raise NotImplementedError("D-NeRF's temporal distortion (the dnerf method) is not ported yet "
-                                      "(ROADMAP queue 1 item 15)")
-        self.make_fields(resolve_device(device))
+            self.temporal_distortion = DNeRFDistortion(device=device)
 
     def make_fields(self, device) -> None:
         self.field_coarse = NeRFField(device=device)
@@ -64,6 +68,17 @@ class NeRFModel(Model):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         for field in dict.fromkeys(self.fields()):
             field.reset_parameters(generator)
+        if self.config.enable_temporal_distortion:
+            self.temporal_distortion.reset_parameters(generator)
+
+    def _distort(self, ray_samples: RaySamples) -> RaySamples:
+        """The samples with the temporal distortion's offsets where the
+        distortion is on and they carry times (reference :69-76, :87-94)."""
+        if not self.config.enable_temporal_distortion or ray_samples.times is None:
+            return ray_samples
+        positions = ray_samples.frustums.get_positions()
+        offsets = self.temporal_distortion(positions, ray_samples.times) - positions
+        return dataclasses.replace(ray_samples, frustums=dataclasses.replace(ray_samples.frustums, offsets=offsets))
 
     def _render(self, field: NeRFField, ray_samples: RaySamples):
         """(weights, rgb over the background, accumulation, depth) of one pass."""
@@ -85,10 +100,10 @@ class NeRFModel(Model):
         gen = generator if self.training else None
         u_coarse, u_fine = (None, None) if uniforms is None or not self.training else uniforms.rounds
         field_coarse, field_fine = self.fields()
-        rs_coarse = UniformSampler(cfg.num_coarse_samples)(ray_bundle, gen, uniforms=u_coarse)
+        rs_coarse = self._distort(UniformSampler(cfg.num_coarse_samples)(ray_bundle, gen, uniforms=u_coarse))
         w_coarse, rgb_coarse, acc_coarse, depth_coarse = self._render(field_coarse, rs_coarse)
         pdf = PDFSampler(cfg.num_importance_samples, include_original=self.include_original)
-        rs_fine = pdf(ray_bundle, rs_coarse, w_coarse, gen, uniforms=u_fine)
+        rs_fine = self._distort(pdf(ray_bundle, rs_coarse, w_coarse, gen, uniforms=u_fine))
         _, rgb_fine, acc_fine, depth_fine = self._render(field_fine, rs_fine)
         return {"rgb_coarse": rgb_coarse, "rgb_fine": rgb_fine, "rgb": rgb_fine,
                 "accumulation_coarse": acc_coarse, "accumulation_fine": acc_fine, "accumulation": acc_fine,

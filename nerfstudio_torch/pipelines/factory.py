@@ -1,10 +1,10 @@
 """A method config into a runnable pipeline and trainer (counterpart of
 ``nerfstudio_tpu/pipelines/factory.py``): the dataparser's splits as
-the method's datasets (images, or with depths or class labels), the
-datamanager, the model at the scene's aabb (and the dataset's classes) with its
-parameters drawn from ``config.seed``, the per-group Adam, the auxiliary
-state and hook (nerfacto's occupancy update, TensoRF's grid upsampling), on
-the device ``config.machine`` names."""
+the method's datasets (images, or with depths, class labels or SDF
+priors), the datamanager, the model at the scene's aabb (and the dataset's
+classes) with its parameters drawn from ``config.seed``, the per-group
+Adam, the auxiliary state and hook (nerfacto's occupancy update, TensoRF's
+grid upsampling), on the device ``config.machine`` names."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from nerfstudio_torch.data.datamanagers import DeviceCacheDataManager
-from nerfstudio_torch.data.datasets import DepthDataset, InputDataset, SemanticDataset
+from nerfstudio_torch.data.datasets import DepthDataset, InputDataset, SDFDataset, SemanticDataset
 from nerfstudio_torch.engine.optimizers import PerGroupAdam
 from nerfstudio_torch.engine.trainer import Trainer
 from nerfstudio_torch.pipelines.base_pipeline import TrainState, VanillaPipeline
@@ -27,14 +27,12 @@ def _eval_split_candidates(parser) -> Tuple[str, ...]:
 
 
 # the dataset class a method names (reference :41-52)
-DATASETS = {"input": InputDataset, "depth": DepthDataset, "semantic": SemanticDataset}
+DATASETS = {"input": InputDataset, "depth": DepthDataset, "semantic": SemanticDataset, "sdf": SDFDataset}
 
 
 def build_datasets(config):
     """(train dataset, eval dataset, the train split's parser outputs)
     (reference :25-52), of the class ``config.dataset`` names."""
-    if config.dataset == "sdf":
-        raise NotImplementedError("the SDF dataset (sdfstudio captures) is not ported yet (ROADMAP queue 1 item 15)")
     cls = DATASETS[config.dataset]
     if config.data is not None:
         config.dataparser.data = Path(config.data)

@@ -1,8 +1,8 @@
 """Quality gate of a method on a synthetic scene (counterpart of
 ``tools/run_gate_matrix.py``'s ``run_gate`` for the ported methods on the
 scenes of ``tools/make_synthetic_dataset.py``: ``basic``, ``blender``,
-``distorted``, ``masked``, ``semantic``, ``appearance``; the cell is named
-after the scene's directory):
+``distorted``, ``masked``, ``semantic``, ``appearance``, ``dnerf``; the
+cell is named after the scene's directory):
 
     python -m nerfstudio_torch.scripts.gate METHOD SCENE_DIR OUT.json [--steps N] [--a.b value ...]
 
@@ -16,10 +16,15 @@ ships the nerfstudio parser keeps its ``load_3D_points`` (depth-nerfacto's
 SfM depth). Given a ``basic`` scene, semantic-nerfw trains on the
 ``semantic`` scene beside it and phototourism on ``appearance``
 (``SCENE_ROUTES``, the JAX runner's routes). A method of
-``BLENDER_METHODS`` (neus, tensorf, vanilla-nerf, mipnerf, instant-ngp and
-instant-ngp-bounded) reads the Blender format instead, on any scene but
-``distorted`` and ``masked`` (the ``blender`` scene beside a given ``basic``
-one), with its train split and every test view: a method that renders over
+``BLENDER_METHODS`` (neus, tensorf, vanilla-nerf, mipnerf, dnerf,
+instant-ngp and instant-ngp-bounded) reads the Blender format instead, on
+any scene but ``distorted`` and ``masked`` (the ``blender`` scene beside a
+given ``basic`` one), with its train split and every test view; dnerf on
+the time-varying ``dnerf`` scene reads it through the D-NeRF parser, whose
+cameras carry the frames' times, with every val view (the split the
+factory takes for it, as the reference's), and on ``blender`` through the
+Blender parser, without times, as the JAX record of that cell was made: a
+method that renders over
 black (instant-ngp-bounded) takes the ground truth RGBA, blended over black
 for the loss and the metrics; any other (instant-ngp's random background
 too) reads it blended over white at load (``alpha_color="white"``) and
@@ -52,9 +57,12 @@ import torch
 GATE_STEPS = {"nerfacto": 5000, "nerfacto-big": 3000, "nerfacto-huge": 1500, "depth-nerfacto": 5000,
               "semantic-nerfw": 5000, "phototourism": 5000, "neus": 12000, "splatfacto": 8000,
               "splatfacto-big": 8000, "splatfacto-mcmc": 8000, "tensorf": 5000, "vanilla-nerf": 8000,
-              "mipnerf": 8000, "instant-ngp": 5000, "instant-ngp-bounded": 3000}
+              "mipnerf": 8000, "dnerf": 8000, "instant-ngp": 5000, "instant-ngp-bounded": 3000}
 # methods the JAX runner trains on the Blender protocol (tools/run_gate_matrix.py:64-65)
-BLENDER_METHODS = ("neus", "tensorf", "vanilla-nerf", "mipnerf", "instant-ngp", "instant-ngp-bounded")
+BLENDER_METHODS = ("neus", "tensorf", "vanilla-nerf", "mipnerf", "dnerf", "instant-ngp", "instant-ngp-bounded")
+# the time-varying scene that a method reads through its own parser, which
+# carries the frames' times (tools/run_gate_matrix.py:107-116)
+TIMED_SCENES = {"dnerf": "dnerf"}
 # the scene beside a given basic one that exercises a method's own machinery
 # (tools/run_gate_matrix.py:94-105): the labels, the per-view exposure
 SCENE_ROUTES = {"semantic-nerfw": "semantic", "phototourism": "appearance"}
@@ -113,6 +121,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     from nerfstudio_torch.configs.cli import apply_overrides
     from nerfstudio_torch.configs.method_configs import get_method
     from nerfstudio_torch.data.dataparsers.blender_dataparser import BlenderDataParserConfig
+    from nerfstudio_torch.data.dataparsers.extra_dataparsers import DNeRFDataParserConfig
     from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
     from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
 
@@ -124,7 +133,9 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     route = SCENE_ROUTES.get(method)
     if route and scene_dir.name == "basic" and (scene_dir.parent / route).is_dir():
         scene_dir = scene_dir.parent / route
-    if method in BLENDER_METHODS and scene_dir.name not in ("distorted", "masked"):
+    if TIMED_SCENES.get(method) == scene_dir.name:
+        config.dataparser = DNeRFDataParserConfig(data=scene_dir)
+    elif method in BLENDER_METHODS and scene_dir.name not in ("distorted", "masked"):
         if scene_dir.name == "basic" and (scene_dir.parent / "blender").is_dir():
             scene_dir = scene_dir.parent / "blender"
         alpha = None if getattr(config.model, "background_color", "") == "black" else "white"

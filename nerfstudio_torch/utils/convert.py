@@ -11,7 +11,8 @@ head's, the predicted-normal head's, the NeRF field's density and colour
 heads') becomes its ``layer``;
 TensoRF's ``plane_coef`` and ``line_coef`` keep their layouts; ``LearnedVariance``'s scalar stays a
 scalar. Every leaf must land on exactly one parameter: anything left
-over on either side raises. ``splat_state_from_jax`` carries a splatfacto
+over on either side raises; D-NeRF's compact ``temporal_distortion/MLP_0``
+becomes ``temporal_distortion.mlp``. ``splat_state_from_jax`` carries a splatfacto
 train state whole: gaussians, densification state and Adam moments.
 ``trainer_checkpoint_from_jax`` turns a JAX train state (the ``TrainState``
 of nerfacto, neus-facto or instant-ngp, whose aux is the occupancy grid, or
@@ -50,6 +51,8 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
         match = _LIST_MEMBER.fullmatch(m)
         if m == "Dense_0" and parts and parts[-1].startswith(("field_head_", "field_output_")):
             parts.append("layer")  # FieldHead's compact Dense
+        elif m == "MLP_0" and parts == ["temporal_distortion"]:
+            parts.append("mlp")  # DNeRFDistortion's compact MLP
         else:
             parts += [match[1], match[2]] if match else [m]
     if leaf == "kernel":
@@ -69,13 +72,19 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
 # model's tree has no camera optimizer. The port's model always has it, and
 # a tree without it loads the reference's init, zeros.
 _TRAIN_ONLY = ("camera_optimizer.pose_adjustment",)
+# Created by the reference only when samples carry times: a dnerf tree of a
+# model that never saw a time has no temporal distortion. The port's model
+# always has it, and a tree without it keeps the model's own values (they
+# take no gradient until times come).
+_LAZY_PREFIXES = ("temporal_distortion.",)
 
 
 def params_from_jax(tree: Mapping[str, Any], model: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
     """A flax params tree (with or without its ``params`` collection key) ->
     the port's state dict. With ``model``, the keys and shapes must match its
     state dict exactly, except that a tree without the training-only camera
-    optimizer gets its zero init."""
+    optimizer gets its zero init, and one without the temporal distortion
+    keeps the model's."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     state: Dict[str, torch.Tensor] = {}
@@ -90,6 +99,9 @@ def params_from_jax(tree: Mapping[str, Any], model: Optional[torch.nn.Module] = 
         for k in _TRAIN_ONLY:
             if k in expected and k not in state:
                 state[k] = torch.zeros(expected[k].shape, dtype=torch.float32)
+        for prefix in _LAZY_PREFIXES:
+            if not any(k.startswith(prefix) for k in state):
+                state.update({k: v.detach().cpu().clone() for k, v in expected.items() if k.startswith(prefix)})
         missing = sorted(set(expected) - set(state))
         extra = sorted(set(state) - set(expected))
         if missing or extra:
@@ -258,6 +270,12 @@ def trainer_checkpoint_from_jax(state: Any, model: Optional[torch.nn.Module] = N
         mu, nu = (params_from_jax(_present(_fields(x))) for x in (adam.mu, adam.nu))
         template = opt.state_dict()
         names = [name_of[id(p)] for pg in opt.param_groups for p in pg["params"]]
+        if not mu and all(n.startswith(_LAZY_PREFIXES) for n in names):
+            # a group of parameters the reference has not created yet: the
+            # port steps them on zero gradients, so their moments stay zero
+            params = dict(model.named_parameters())
+            mu = {n: torch.zeros_like(params[n], device="cpu") for n in names}
+            nu = {n: torch.zeros_like(params[n], device="cpu") for n in names}
         if set(names) != set(mu):
             raise ValueError(f"group {group}: moments for {sorted(mu)}, parameters {sorted(names)}")
         template["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
@@ -273,7 +291,7 @@ def trainer_checkpoint_from_jax(state: Any, model: Optional[torch.nn.Module] = N
 
 def dataparser_outputs_from_jax(outputs: Any):
     """The JAX dataparser's ``DataparserOutputs`` -> the port's, cameras
-    (types and distortion too) on the CPU."""
+    (types, distortion and times too) on the CPU."""
     from nerfstudio_torch.cameras.cameras import Cameras
     from nerfstudio_torch.data.dataparsers.base_dataparser import DataparserOutputs
     from nerfstudio_torch.data.scene_box import SceneBox
@@ -287,7 +305,7 @@ def dataparser_outputs_from_jax(outputs: Any):
         np.broadcast_to(arr(cams.height).reshape(-1), (n,)).copy(),
         distortion_params=arr(cams.distortion_params),
         camera_type=1 if cams.camera_type is None else _tensor(arr(cams.camera_type).reshape(-1), torch.int32),
-        device="cpu")
+        device="cpu", times=None if cams.times is None else arr(cams.times).reshape(n))
     metadata = {}
     for k in ("points3D_xyz", "points3D_rgb"):
         if outputs.metadata.get(k) is not None:

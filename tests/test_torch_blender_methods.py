@@ -3,15 +3,18 @@ on a tiny RGBA ``blender`` scene of ``tools/make_synthetic_dataset.py``:
 ``scripts/train.py nerfacto --dataparser blender-data`` trains and
 evaluates over white (the eval background override; it raised before);
 ``scripts/train.py``, ``scripts/eval.py`` and ``scripts/gate.py`` run
-tensorf, vanilla-nerf and mipnerf; a tensorf run resumed across a grid
-upsample equals one that never stopped, bit for bit; the methods still
-unported name their ROADMAP items."""
+tensorf, vanilla-nerf, mipnerf and dnerf (on the tool's time-varying
+``dnerf`` scene through its own parser); a tensorf run resumed across a
+grid upsample equals one that never stopped, bit for bit; the one method
+still unported names its ROADMAP item."""
 
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,6 +38,8 @@ SMALL = {
                      "--datamanager.train_num_rays_per_batch", "32", "--model.eval_num_rays_per_chunk", "256"],
     "mipnerf": ["--model.num_coarse_samples", "8", "--model.num_importance_samples", "8",
                 "--datamanager.train_num_rays_per_batch", "32", "--model.eval_num_rays_per_chunk", "256"],
+    "dnerf": ["--model.num_coarse_samples", "8", "--model.num_importance_samples", "8",
+              "--datamanager.train_num_rays_per_batch", "32", "--model.eval_num_rays_per_chunk", "256"],
 }
 
 
@@ -43,6 +48,17 @@ def blender(tmp_path_factory):
     """The tool's ``blender`` scene at 16^2: 4 RGBA train views, 2 test."""
     root = tmp_path_factory.mktemp("scenes") / "blender"
     subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_dataset.py"), str(root), "--scene", "blender",
+                    "--hw", "16", "--n-train", "4", "--n-test", "2", "--n-points", "100"], check=True,
+                   capture_output=True, timeout=300)
+    return root
+
+
+@pytest.fixture(scope="module")
+def dnerf_scene(blender):
+    """The tool's time-varying ``dnerf`` scene at 16^2 beside ``blender``:
+    4 RGBA train views at times 0, 1/3, 2/3 and 1, 2 val and 2 test."""
+    root = blender.parent / "dnerf"
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_dataset.py"), str(root), "--scene", "dnerf",
                     "--hw", "16", "--n-train", "4", "--n-test", "2", "--n-points", "100"], check=True,
                    capture_output=True, timeout=300)
     return root
@@ -77,16 +93,20 @@ def test_nerfacto_evaluates_over_white_through_the_blender_parser(blender, tmp_p
 
 
 @pytest.mark.parametrize("method", sorted(SMALL))
-def test_train_eval_and_gate_of_the_blender_methods(method, blender, tmp_path, capsys):
-    """Two steps through ``scripts/train.py`` (the shipped Blender parser,
-    white ``alpha_color``) and ``scripts/eval.py`` on its checkpoint; then
+def test_train_eval_and_gate_of_the_blender_methods(method, blender, dnerf_scene, tmp_path, capsys):
+    """Two steps through ``scripts/train.py`` (the shipped parser: the
+    Blender one, white ``alpha_color``; dnerf's D-NeRF parser on the
+    ``dnerf`` scene) and ``scripts/eval.py`` on its checkpoint; then
     ``scripts/gate.py``'s runner for two steps: the ``blender`` cell over
-    white, beside its JAX record (``benchmarks/gate_<method>_blender.json``)
-    at the record's steps."""
-    train.main([method, "--data", str(blender), *CPU_RUN, *SMALL[method], "--trainer.output_dir", str(tmp_path / "out"),
+    white, through the Blender parser, beside its JAX record
+    (``benchmarks/gate_<method>_blender.json``) at the record's steps; for
+    dnerf also the ``dnerf`` cell through its own parser, whose cameras
+    carry the frames' times, with no JAX record beside it."""
+    scene = dnerf_scene if method == "dnerf" else blender
+    train.main([method, "--data", str(scene), *CPU_RUN, *SMALL[method], "--trainer.output_dir", str(tmp_path / "out"),
                 "--trainer.max_num_iterations", "2", "--trainer.timestamp", "run"])
     assert "[train 0]" in capsys.readouterr().out
-    run = tmp_path / "out" / "blender" / method / "run"
+    run = tmp_path / "out" / scene.name / method / "run"
     info = teval.main([str(run), "--output-path", str(tmp_path / "eval.json")])
     assert info["step"] == 2 and {"psnr", "ssim"} <= set(info["results"])
     result, gate_run = gate.run_gate(method, blender, tmp_path / "gate", steps=2, overrides=["--machine.device_type",
@@ -98,6 +118,14 @@ def test_train_eval_and_gate_of_the_blender_methods(method, blender, tmp_path, c
     dm = gate_run["pipeline"].datamanager
     assert torch.equal(dm.eval_dataset.alpha_color, torch.ones(3)) and len(dm.eval_dataset) == 2
     assert dm.train_images.shape[-1] == 4  # RGBA: the loss blends it over the renderer's white
+    assert dm.train_cameras.times is None
+    if method == "dnerf":
+        result, gate_run = gate.run_gate(method, dnerf_scene, tmp_path / "gate_dnerf", steps=2,
+                                         overrides=["--machine.device_type", "cpu", *SMALL[method]])
+        assert result["scene"] == "dnerf" and result["jax_record"] is None and math.isfinite(result["metrics"]["psnr"])
+        dm = gate_run["pipeline"].datamanager
+        np.testing.assert_allclose(dm.train_cameras.times[:, 0].numpy(), [0, 1 / 3, 2 / 3, 1], rtol=1e-6)
+        assert dm.eval_cameras.times is not None and len(dm.eval_dataset) == 2
 
 
 def test_tensorf_resume_across_an_upsample_is_bit_equal(blender, tmp_path):
@@ -131,12 +159,13 @@ def test_tensorf_resume_across_an_upsample_is_bit_equal(blender, tmp_path):
 
 
 def test_unported_methods_name_their_current_items():
-    """dnerf waits for the DNeRF parser and ``times`` (item 15), generfacto
-    for its diffusion guidance (item 14); instant-ngp and its bounded
-    variant are ported."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        get_method("dnerf")
+    """generfacto waits for its diffusion guidance (item 14), the one
+    method still refused; dnerf (with the D-NeRF parser and the cameras'
+    times), instant-ngp and its bounded variant are ported."""
+    from nerfstudio_torch.configs.method_configs import NOT_PORTED
+
+    assert NOT_PORTED == {"generfacto": 14}
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         get_method("generfacto")
-    for method in ("tensorf", "vanilla-nerf", "mipnerf", "instant-ngp", "instant-ngp-bounded"):
+    for method in ("tensorf", "vanilla-nerf", "mipnerf", "dnerf", "instant-ngp", "instant-ngp-bounded"):
         assert get_method(method).method_name == method

@@ -6,6 +6,7 @@ Blender parser (the fixture and the tool's scene) at its three splits.
 Cameras and intrinsics to 1e-6, the scene box, scale and transform to
 1e-6, split filenames and seed points exactly."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -113,11 +114,23 @@ def test_split_fraction_of_the_gate_scene(scenes):
 
 
 def test_registry_ports_two_parsers_and_names_the_rest():
+    """Every parser of the reference's registry is ported: each name (and
+    each short alias without ``-data``) gives a fresh config of the port's
+    class of the same name, with the same fields and defaults (JAX's
+    ``_target`` class aside); an unknown name raises."""
+    from nerfstudio_tpu.data.dataparsers.registry import dataparser_registry
+
     assert type(registry.get_dataparser_config("nerfstudio-data")) is NerfstudioDataParserConfig
     assert type(registry.get_dataparser_config("blender")) is BlenderDataParserConfig
-    for name in ("colmap", "dnerf-data", "sitcoms3d"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-            registry.get_dataparser_config(name)
+    reference = dataparser_registry()
+    assert set(registry.DATAPARSERS) == {k for k in reference if k.endswith("-data") or k in ("colmap",
+                                                                                             "minimal-parser")}
+    for name, jcls in reference.items():
+        cfg = registry.get_dataparser_config(name)
+        assert type(cfg).__name__ == jcls.__name__, name
+        jcfg = jcls()
+        assert {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)} == \
+            {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name != "_target"}, name
     with pytest.raises(KeyError):
         registry.get_dataparser_config("no-such-parser")
 

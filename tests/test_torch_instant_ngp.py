@@ -503,7 +503,7 @@ def test_method_config_matches_jax(method):
     same_config(method)
     from nerfstudio_torch.configs.method_configs import NOT_PORTED, get_method
 
-    assert set(NOT_PORTED) == {"dnerf", "generfacto"}
+    assert set(NOT_PORTED) == {"generfacto"}
     assert get_method(method).model.disable_scene_contraction == (method == "instant-ngp-bounded")
 
 

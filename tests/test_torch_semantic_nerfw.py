@@ -296,8 +296,8 @@ def _leaves(obj, prefix=""):
 def test_method_config_equals_jax(method):
     """``get_method`` at JAX's shipped values: every trainer, datamanager and
     model field the two share, the dataset kind, the optimizer groups; the
-    parser JAX ships (the port names the unported ones, which raise at
-    setup naming ROADMAP queue 1 item 15)."""
+    parser JAX ships, field for field (sitcoms3d's for semantic-nerfw,
+    phototourism's for phototourism), which sets up into its parser."""
     from nerfstudio_tpu.configs.method_configs import get_method as jget_method
     from nerfstudio_torch.configs.method_configs import get_method
 
@@ -320,7 +320,8 @@ def test_method_config_equals_jax(method):
         assert t["dataparser.load_3D_points"] and {k: t[k] for k in t if k.startswith("dataparser.")} == \
             {k: j[k] for k in j if k.startswith("dataparser.")}
     else:
-        name = {"semantic-nerfw": "sitcoms3d-data", "phototourism": "phototourism-data"}[method]
-        assert tcfg.dataparser.name == name
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-            tcfg.dataparser.setup()
+        name = {"semantic-nerfw": "Sitcoms3D", "phototourism": "Phototourism"}[method]
+        assert type(tcfg.dataparser).__name__ == type(jcfg.dataparser).__name__ == f"{name}DataParserConfig"
+        assert {k: t[k] for k in t if k.startswith("dataparser.")} == \
+            {k: j[k] for k in j if k.startswith("dataparser.")}
+        assert type(tcfg.dataparser.setup()).__name__.startswith(name)

@@ -282,8 +282,10 @@ def test_eval_forward_matches_jax(method, monkeypatch):
 
 def test_mipnerf_shares_one_field_and_dnerf_is_refused():
     """mip-NeRF's coarse and fine passes read one field (16 position
-    frequencies, integrated); vanilla-nerf has two; the temporal
-    distortion raises naming the dnerf item."""
+    frequencies, integrated); vanilla-nerf has two and no temporal
+    distortion; with ``enable_temporal_distortion`` (dnerf, no longer
+    refused) the model adds D-NeRF's deformation net (84 features, 4 x 256,
+    out 3), whose parameters form the ``temporal_distortion`` group."""
     mip = get_method("mipnerf").model.setup(device=CPU)
     assert mip.fields()[0] is mip.fields()[1] and mip.field.use_integrated_encoding
     assert mip.field.position_encoding.get_out_dim() == 99
@@ -291,8 +293,12 @@ def test_mipnerf_shares_one_field_and_dnerf_is_refused():
     nerf = get_method("vanilla-nerf").model.setup(device=CPU)
     assert nerf.field_coarse is not nerf.field_fine
     assert nerf.field_coarse.mlp_base.layers[4].in_features == 256 + 63
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        dataclasses.replace(get_method("vanilla-nerf").model, enable_temporal_distortion=True).setup(device=CPU)
+    assert not hasattr(nerf, "temporal_distortion")
+    dnerf = dataclasses.replace(get_method("vanilla-nerf").model, enable_temporal_distortion=True).setup(device=CPU)
+    assert [layer.in_features for layer in dnerf.temporal_distortion.mlp.layers] == [84, 256, 256, 256]
+    assert dnerf.temporal_distortion.mlp.layers[-1].out_features == 3
+    assert {n.split(".")[0] for n, _ in dnerf.named_parameters()} == {"field_coarse", "field_fine",
+                                                                        "temporal_distortion"}
 
 
 # --------------------------------------------------------------------------
