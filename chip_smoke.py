@@ -131,9 +131,10 @@ shapes its path gives it, and drives the port's paths from random weights:
 * the largest ray methods and plain NeuS (phases 53-57): one nerfacto-huge
   step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
   table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
-  twins; the nerfacto-huge gate (1500 steps, 16,384 rays) and the
-  nerfacto-big run (600 of its gate's 3000 steps, 8192 rays: its loss
-  must fall) on ``basic`` at full width beside the JAX records, each
+  twins; the nerfacto-huge run (500 of its gate's 1500 steps since
+  phase 70, 16,384 rays) and the nerfacto-big run (600 of its gate's 3000
+  steps, 8192 rays; the loss of each must fall) on ``basic`` at full
+  width beside the JAX records, each
   followed by K1's forward (the step's proposal and field
   calls, the proposal's at an eval chunk) and backward (both calls) and K3
   (one eval chunk of 32,768 rays) at its trained state, every design
@@ -142,7 +143,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   once, and by a 3-step profile (idle share, the hash grid's share, rays/s);
   one plain-neus step (the sampler's draws handed in) and one eval chunk on
   the card against the CPU; plain neus on the ``blender`` scene through the
-  Blender parser, cut in depth to 300 of its gate's 12,000 steps (the loss
+  Blender parser, cut in depth to 200 of its gate's 12,000 steps (the loss
   must fall; the PSNR stands beside the JAX record), and its idle share;
 * the rest of the nerfacto family (phases 58-60), each through
   ``scripts.gate``'s loop at its shipped config, cut in depth to 300 of its
@@ -166,7 +167,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   2200 of its 5000 steps, through its first grid upsample (step 2000, R 128
   -> 152, the optimizer re-initialised: the loss must fall before it and
   again after it, the grids must be at 152 and the optimizer's count must
-  have restarted there), vanilla-nerf and mipnerf cut to 300 of their 8000
+  have restarted there), vanilla-nerf and mipnerf cut to 200 of their 8000
   steps (both passes' rgb losses must fall). None launches a hand-written
   kernel. At each trained state one step (256 rays, the draws handed in,
   the MLPs' products in float32) on the card against the CPU, every loss
@@ -230,15 +231,33 @@ shapes its path gives it, and drives the port's paths from random weights:
   read through Pillow where it imports, else refused); then nerfacto for
   50 steps through ``scripts.train --dataparser colmap`` on a COLMAP text
   model of the ``basic`` scene: its seed points load, the loss falls,
-  K1's forward and backward launch.
+  K1's forward and backward launch;
+* rendering and exporting (phase 70) the trained runs of phases 35
+  (nerfacto through the CLI), 37 (splatfacto's gate run) and 38
+  (neus-facto through the trainer), each through ``scripts.render``: the
+  eval views with rgb and depth, a spiral (neus-facto's cut to 8 frames)
+  and viewer camera-path JSONs of one 512^2 fisheye and one
+  equirectangular camera; every render launches its path's forward
+  kernels (K1 and K3; K4, K5 and K6; K7) and no backward, and every frame
+  is a PNG the port's reader decodes; one 96^2 render-CLI frame of
+  nerfacto against the CPU twins. Then ``scripts.exporter``'s seven modes
+  at the CLI defaults (pointcloud, cameras, marching-cubes, tsdf, poisson
+  and texture-mesh on nerfacto, gaussian-splat and cameras on splatfacto),
+  each timed and its launches checked (the density grid K3 alone): every
+  PLY's vertex count matches its header and its size, the meshes are
+  non-empty, the textured OBJ's faces are the density mesh's, the splat
+  PLY holds the live gaussians; then TSDF fusion, the Poisson solve and
+  LPIPS card vs CPU on the same inputs.
 
 Since phases 61-63 came, phases 36-37, 43, 45 and 50-51 run 600 steps
 (1000 before), 42 and 44 (nerfacto distorted and masked) 300, 55
-(nerfacto-big) 600 of its gate's 3000 (1000 before phases 68-69), 57 300
-(1000 before), 58-60 300 (500 before) and 62-63 300 (500 before), to keep
-the run inside its budget; since phases 68-69 the scenes are made in the
-background (``basic`` from phase 2, ``distorted`` and ``masked`` beside
-the others from phase 34).
+(nerfacto-big) 600 of its gate's 3000 (1000 before phases 68-69), 57 200
+(1000 before, 300 before phase 70), 58-60 300 (500 before) and 62-63 200
+(500 before, 300 before phase 70), to keep the run inside its budget;
+since phases 68-69 the scenes are made in the background (``basic`` from
+phase 2, ``distorted`` and ``masked`` beside the others from phase 34);
+since phase 70 phase 54 (nerfacto-huge) runs 500 of its gate's 1500 steps
+(the full gate before; the loss must now fall, the gate is not asked).
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -2494,7 +2513,8 @@ def cli_round_trip(name, scene, root, card):
     if not all(math.isfinite(x) for x in losses) or not last["psnr"] > first["psnr"]:
         raise AssertionError(f"{name}: losses finite {all(map(math.isfinite, losses))}, psnr {first['psnr']} -> "
                              f"{last['psnr']}")
-    return dict(steps=CLI_RESUME_TO, psnr=(first["psnr"], last["psnr"]), launches=counts, wall_s=wall)
+    return dict(steps=CLI_RESUME_TO, psnr=(first["psnr"], last["psnr"]), launches=counts, wall_s=wall,
+                run_dir=run2)
 
 
 def check_splat_step(name, one_step, label, keep=None):
@@ -2692,10 +2712,11 @@ def gate_phase(name, method, scene, root, card, want, steps=None, keep=None, tim
     step_ms = statistics.median(res["step_ms_by_block"]["ms"][:-1] or res["step_ms_by_block"]["ms"])
     idle = profiled_idle(name, run["one_step"], step_ms, label)
     extra = None if after is None else after(run)
+    run_dir = str(run["base_dir"])
     del run
     torch.cuda.empty_cache()
     return dict(res, gate_launches=res["launches"], launches=counts, wall_s=wall, max_abs_err=errs, idle=idle,
-                undistort=undistort, loss=(head, tail), kernels=kernels, after=extra)
+                undistort=undistort, loss=(head, tail), kernels=kernels, after=extra, run_dir=run_dir)
 
 
 def neus_from_disk(name, scene, root, card):
@@ -2705,6 +2726,7 @@ def neus_from_disk(name, scene, root, card):
     launches per step."""
     from nerfstudio_torch.configs.method_configs import get_method
     from nerfstudio_torch.pipelines.factory import build_trainer
+    from nerfstudio_torch.scripts.train import save_config
 
     t0 = time.perf_counter()
     config = get_method("neus-facto")
@@ -2713,6 +2735,7 @@ def neus_from_disk(name, scene, root, card):
     t.output_dir, t.timestamp, t.vis, t.max_num_iterations = os.path.join(root, "runs"), "neus", "none", NEUS_DISK_STEPS
     t.steps_per_eval_batch = t.steps_per_eval_image = t.steps_per_eval_all_images = t.steps_per_save = 0
     trainer = build_trainer(config)
+    save_config(config, t.get_base_dir())  # a run directory phase 70 renders, as scripts.train leaves one
     losses, step_once = [], trainer.train_iteration
 
     def iteration(step):
@@ -2743,7 +2766,8 @@ def neus_from_disk(name, scene, root, card):
                            "neus-facto's trained state", "K7")
     del trainer
     torch.cuda.empty_cache()
-    return dict(steps=NEUS_DISK_STEPS, loss=(head, tail), launches=counts, wall_s=wall, max_abs_err=errs)
+    return dict(steps=NEUS_DISK_STEPS, loss=(head, tail), launches=counts, wall_s=wall, max_abs_err=errs,
+                run_dir=str(t.get_base_dir()))
 
 
 # --------------------------------------------------------------------------
@@ -3589,9 +3613,11 @@ def options_and_methods(ph, card, scene, disk_root, disk, k4_inputs_file=None):
 
 
 # nerfacto-big's gate run (phase 55), cut in depth from its 3000 steps to
-# fit phases 61-69 (the full gate: PERF.md §6)
+# fit phases 61-69, and nerfacto-huge's (phase 54) from its 1500 to fit
+# phase 70 (the full gates: PERF.md §6)
 BIG_CUT_STEPS = 600
-NEUS_PLAIN_STEPS = 300  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
+HUGE_CUT_STEPS = 500
+NEUS_PLAIN_STEPS = 200  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
 NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
 # Card vs CPU, plain neus's eval chunk: the SDF field is float32 on both
 # sides, but the sampler's four SDF passes sum in another order, which moves
@@ -3792,7 +3818,7 @@ def neus_plain_card_vs_cpu(name):
 
 def big_methods_and_neus(ph, card, scene, disk_root, disk):
     """Phases 53-57: one nerfacto-huge step at 1024 rays card vs CPU; the
-    nerfacto-huge (1500 steps) and nerfacto-big (BIG_CUT_STEPS of 3000) gates on ``scene`` at
+    nerfacto-huge (HUGE_CUT_STEPS of 1500) and nerfacto-big (BIG_CUT_STEPS of 3000) gate runs on ``scene`` at
     full width, each followed by K1's forward and backward and K3 at its
     trained state in every design against the twins, timed, and by its
     device's idle share and the hash grid's share of the busy time; one
@@ -3810,7 +3836,7 @@ def big_methods_and_neus(ph, card, scene, disk_root, disk):
         raise AssertionError(f"{name}: card and CPU nerfacto-huge steps disagree")
     huge_step = dict(loss_rel=loss_rel, grad_rel=grad_rel, table_rel=table_rel)
     torch.cuda.empty_cache()
-    for i, method, steps in ((54, "nerfacto-huge", None), (55, "nerfacto-big", BIG_CUT_STEPS)):
+    for i, method, steps in ((54, "nerfacto-huge", HUGE_CUT_STEPS), (55, "nerfacto-big", BIG_CUT_STEPS)):
         name = ph(i, f"gate {method}" + (f", {steps} steps" if steps else ""))
         rec = disk[f"gate_{method}"] = gate_phase(name, method, scene, disk_root, card, NERFACTO_KERNELS, steps=steps,
                                                   timed=True)
@@ -3938,9 +3964,9 @@ def nerfacto_family(ph, card, scene, disk_root, disk, jobs):
 # tensorf, vanilla-nerf and mipnerf on the blender scene of phase 57 through
 # scripts.gate's loop at their shipped configs, cut in depth: tensorf past
 # its first grid upsample (step 2000, R 128 -> 152, the optimizer
-# re-initialised), the NeRFs to 300 of their 8000 steps (the full gates:
+# re-initialised), the NeRFs to 200 of their 8000 steps (the full gates:
 # their own chip call, PERF.md)
-BLENDER_RUNS = (("tensorf", 2200), ("vanilla-nerf", 300), ("mipnerf", 300))
+BLENDER_RUNS = (("tensorf", 2200), ("vanilla-nerf", 200), ("mipnerf", 200))
 BLENDER_CHECK_RAYS = 256  # the card-vs-CPU step: the CPU runs the 8x256 bfloat16 NeRF MLPs
 BLENDER_EVAL_RAYS = 1024  # the card-vs-CPU eval chunk: rays spread evenly over the first test view
 
@@ -5572,6 +5598,290 @@ def parsers_phase(ph, card, scene, disk_root):
                                           launches=counts, wall_s=wall))
 
 
+# --------------------------------------------------------------------------
+# rendering and exporting trained runs (phase 70)
+
+PATH_HW = 512  # the viewer camera-path JSON's fisheye and equirectangular cameras
+TWIN_HW = 96  # the render-CLI frame held against the CPU twins
+NEUS_SPIRAL_STEPS = 8
+TSDF_CHECK_VIEWS = 4
+POISSON_CHECK_POINTS = 200_000
+# card vs CPU on the same inputs: TSDF values within 1e-5 where both
+# observe a voxel (|tsdf| < 0.99) and the observed masks equal on 99.9% of
+# voxels (a voxel whose projection lands an ulp from an image edge may flip);
+# the Poisson chi within 1e-4 of its peak (its scatter adds in float32 in no
+# fixed order on the card); LPIPS within 1e-5 relative
+TSDF_ATOL, TSDF_MASK_SHARE = 1e-5, 0.999
+POISSON_PEAK_REL = 1e-4
+LPIPS_REL = 1e-5
+# no render or export trains: none of these may launch
+BACKWARDS = ("hash_encode_block_bwd", "hash_encode_flat_bwd", "hash_encode_block_exact_bwd",
+             "hash_encode_block_bwd_bwd", "project_gaussians_bwd", "project_gaussians_bwd_viewmat",
+             "blend_saturating_bwd")
+RENDER_KERNELS = {"nerfacto": ("hash_encode_block", "hash_encode_block_exact"),
+                  "splatfacto": ("project_gaussians", "tile_bin", "tile_bin_bucketed", "blend_saturating"),
+                  "neus-facto": ("hash_encode_flat",)}
+# each nerfacto export mode's kernels: the renders K1 (proposal) and K3
+# (field); the density grid K3 alone (the eval model's field)
+EXPORT_KERNELS = {"pointcloud": RENDER_KERNELS["nerfacto"], "cameras": (), "marching-cubes":
+                  ("hash_encode_block_exact",), "tsdf": RENDER_KERNELS["nerfacto"], "poisson":
+                  RENDER_KERNELS["nerfacto"], "texture-mesh": RENDER_KERNELS["nerfacto"]}
+
+
+def ply_vertices(path) -> int:
+    """The vertex count of a binary PLY the exporter wrote, checked against
+    its header's properties and the bytes after it."""
+    with open(path, "rb") as f:
+        head, body = f.read().split(b"end_header\n", 1)
+    lines = head.decode().splitlines()
+    n = int(next(l for l in lines if l.startswith("element vertex")).split()[-1])
+    width = sum(4 if l.split()[1] == "float" else 1 for l in lines if l.startswith("property"))
+    if lines[:2] != ["ply", "format binary_little_endian 1.0"] or len(body) != n * width:
+        raise AssertionError(f"{path}: malformed PLY ({lines[:2]}, {n} vertices of {width} bytes, {len(body)} bytes)")
+    return n
+
+
+def camera_path_file(path, cams, idx, camera_type, hw):
+    """A viewer keyframe JSON of one hw^2 camera of ``camera_type`` at train
+    camera ``idx``'s pose, a 60 degree field of view."""
+    c2w = np.concatenate([cams.camera_to_worlds[idx].cpu().numpy(), [[0.0, 0.0, 0.0, 1.0]]])
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"render_height": hw, "render_width": hw, "camera_type": camera_type,
+                   "camera_path": [{"camera_to_world": c2w.reshape(-1).tolist(), "fov": 60.0}]}, f)
+    return path
+
+
+def render_cli(name, method, run, args, out):
+    """``scripts.render`` on a run with the launches counted from 0: every
+    kernel of the method's render path launched, no backward; every frame
+    a PNG the port's reader decodes."""
+    from nerfstudio_torch.data.image_io import read_image
+    from nerfstudio_torch.scripts import render
+
+    zero_counts()
+    info = render.main(args[:1] + ["--load-config", run, "--output-path", out] + args[1:])
+    counts = read_counts()
+    check_path(f"{name} {method} {args[0]}", counts, RENDER_KERNELS[method], none=PER_THREAD + BACKWARDS)
+    frames = sorted(os.listdir(out))
+    shapes = {read_image(os.path.join(out, f)).shape for f in frames}
+    if len(frames) != info["frames"] or len(shapes) != 1 or next(iter(shapes))[-1] != 3:
+        raise AssertionError(f"{name}: {method} {args[0]} wrote {len(frames)} of {info['frames']} frames, {shapes}")
+    # a camera path is named by its file (the camera type), so every render has its own label
+    mode = args[0] if args[0] != "camera-path" else f"camera-path {os.path.basename(args[2])[:-5]}"
+    return dict(mode=mode, frames=info["frames"], hw=list(next(iter(shapes))[:2]),
+                ms_per_frame=info["render_seconds"] * 1e3 / info["frames"],
+                launches_per_frame={k: v / info["frames"] for k, v in counts.items() if v})
+
+
+def export_cli(name, run, mode, out, want):
+    """``scripts.exporter MODE`` at the CLI defaults with the launches counted
+    from 0; its wall time (the run's load included)."""
+    from nerfstudio_torch.scripts import exporter
+
+    zero_counts()
+    t0 = time.perf_counter()
+    exporter.main([mode, "--load-config", run, "--output-dir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_path(f"{name} {mode}", counts, want, none=PER_THREAD + BACKWARDS)
+    if mode == "marching-cubes" and counts.get("hash_encode_block"):
+        raise AssertionError(f"{name}: the density grid launched K1 ({counts}): the eval model runs K3")
+    return dict(wall_s=wall, launches={k: v for k, v in counts.items() if v})
+
+
+def twin_frame(name, pipeline, state, json_path, frame_path):
+    """The render CLI's frame of the TWIN_HW^2 camera against the CPU twins'
+    render of the same camera (a copy of the model and grid on the CPU,
+    under the same eval background): rgb mean |card - cpu| over the PNG's
+    8-bit levels."""
+    from nerfstudio_torch.cameras.camera_paths import get_path_from_json
+    from nerfstudio_torch.data.image_io import read_image
+    from nerfstudio_torch.model_components.renderers import background_color_override_context
+    from nerfstudio_torch.models.base_model import render_camera
+
+    with open(json_path, encoding="utf-8") as f:
+        cams = get_path_from_json(json.load(f), device="cpu")
+    cpu_model = copy.deepcopy(pipeline.model).cpu().eval()
+    aux = None if state.aux is None else state.aux.to("cpu")
+    color = pipeline._eval_background()
+    with contextlib.ExitStack() as stack:
+        if color is not None:
+            stack.enter_context(background_color_override_context(color.cpu()))
+        out = render_camera(cpu_model, None, cams, 0, cpu_model.config.eval_num_rays_per_chunk, aux=aux)
+    cpu = (torch.clamp(out["rgb"], 0, 1) * 255).to(torch.uint8).numpy().astype(np.float64)
+    card = read_image(frame_path).astype(np.float64)
+    err = float(np.abs(card - cpu).mean() / 255.0)
+    if not err <= CARD_VS_CPU_MEAN_ABS:
+        raise AssertionError(f"{name}: the render CLI's frame and the CPU twins' differ by {err} mean abs")
+    return err
+
+
+def tsdf_card_vs_cpu(name, pipeline, state):
+    """TSDF fusion of TSDF_CHECK_VIEWS rendered train views on the card and
+    on the CPU from the same depths and colours, at the exporter's 128^3."""
+    from nerfstudio_torch.exporter.tsdf_utils import tsdf_fusion
+
+    cams = pipeline.datamanager.train_cameras
+    idx = [i * (len(cams) // TSDF_CHECK_VIEWS) for i in range(TSDF_CHECK_VIEWS)]
+    views = [pipeline.render_camera(state, cams, i, 8192) for i in idx]
+    c2ws = cams.camera_to_worlds[idx].cpu().numpy()
+    Ks = np.stack([[float(getattr(cams, k)[i, 0]) for k in ("fx", "fy", "cx", "cy")] for i in idx])
+    depths = np.stack([v["depth"][..., 0].cpu().numpy() for v in views])
+    rgbs = np.stack([v["rgb"].cpu().numpy() for v in views])
+    aabb = np.asarray(pipeline.model.scene_aabb, np.float32)
+    box = (tuple(aabb[0]), tuple(aabb[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, card_c = tsdf_fusion(c2ws, Ks, depths, rgbs, box, resolution=128, device="cuda")
+    card_s = time.perf_counter() - t0
+    cpu, cpu_c = tsdf_fusion(c2ws, Ks, depths, rgbs, box, resolution=128, device="cpu")
+    obs_card, obs_cpu = np.abs(card) < 0.99, np.abs(cpu) < 0.99
+    both = obs_card & obs_cpu
+    share = float((obs_card == obs_cpu).mean())
+    gap = float(np.abs(card[both] - cpu[both]).max()) if both.any() else 0.0
+    color_gap = float(np.abs(card_c[both] - cpu_c[both]).max()) if both.any() else 0.0
+    if not (both.sum() > 0 and share >= TSDF_MASK_SHARE and gap <= TSDF_ATOL and color_gap <= TSDF_ATOL):
+        raise AssertionError(f"{name}: TSDF card vs CPU: {int(both.sum())} voxels observed in both, masks agree on "
+                             f"{share}, tsdf gap {gap}, colour gap {color_gap}")
+    return dict(views=TSDF_CHECK_VIEWS, resolution=128, observed_both=int(both.sum()), mask_share=share,
+                max_abs=gap, color_max_abs=color_gap, card_ms=card_s * 1e3)
+
+
+def poisson_card_vs_cpu(name, pipeline, state):
+    """The Poisson solve of POISSON_CHECK_POINTS rendered points with their
+    normals on the card and on the CPU, at the exporter's 128^3."""
+    from nerfstudio_torch.exporter.exporter_utils import generate_point_cloud
+    from nerfstudio_torch.exporter.poisson import poisson_reconstruct
+
+    pts, _, normals = generate_point_cloud(pipeline, state, num_points=POISSON_CHECK_POINTS, return_normals=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chi, iso, _ = poisson_reconstruct(pts, normals, resolution=128, device="cuda")
+    card_s = time.perf_counter() - t0
+    chi_cpu, iso_cpu, _ = poisson_reconstruct(pts, normals, resolution=128, device="cpu")
+    peak = float(np.abs(chi_cpu).max())
+    gap, iso_gap = float(np.abs(chi - chi_cpu).max()), abs(iso - iso_cpu)
+    if not (peak > 0 and gap <= POISSON_PEAK_REL * peak and iso_gap <= POISSON_PEAK_REL * peak):
+        raise AssertionError(f"{name}: Poisson card vs CPU: chi gap {gap}, iso gap {iso_gap}, peak {peak}")
+    return dict(points=len(pts), resolution=128, peak=peak, max_abs=gap, iso=iso, iso_cpu=iso_cpu,
+                card_ms=card_s * 1e3)
+
+
+def lpips_card_vs_cpu(name, pipeline, state):
+    """LPIPS (the random-VGG mode: no weights file on the machine) of eval
+    view 0's render against its ground truth, on the card and on the CPU."""
+    from nerfstudio_torch.utils.lpips import lpips_fn
+
+    _, batch = pipeline.datamanager.eval_image(0)
+    gt = torch.from_numpy(np.ascontiguousarray(batch["image"][..., :3]))
+    pred = pipeline.render_eval_camera(state, 0)["rgb"].float()
+    fn, mode = lpips_fn()
+    card = float(fn(pred, gt.to(pred.device)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(pred, gt.to(pred.device)).item()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    cpu = float(fn(pred.cpu(), gt))
+    rel = abs(card - cpu) / abs(cpu)
+    if not rel <= LPIPS_REL:
+        raise AssertionError(f"{name}: LPIPS card {card} vs CPU {cpu} ({rel} relative)")
+    return dict(mode=mode, hw=list(pred.shape[:2]), card=card, cpu=cpu, rel=rel, card_ms=card_ms)
+
+
+def render_export_phase(name, card, disk_root, runs):
+    """Phase 70: the trained runs of phases 35, 37 and 38 (nerfacto through
+    the CLI, splatfacto's gate run, neus-facto through the trainer) through
+    ``scripts.render``: the eval views (``dataset``, rgb and depth), a
+    ``spiral`` (neus-facto's cut to NEUS_SPIRAL_STEPS frames) and viewer
+    camera-path JSONs of one PATH_HW^2 fisheye and one equirectangular
+    camera (splatfacto renders them as pinholes, as the reference does),
+    each launching its path's kernels and no backward, every frame a PNG
+    the port's reader decodes; one TWIN_HW^2 render-CLI frame of nerfacto
+    against the CPU twins. Then ``scripts.exporter``'s seven modes at the
+    CLI defaults (six on nerfacto, ``gaussian-splat`` and ``cameras`` on
+    splatfacto), each launching its kernels: every PLY's vertex count
+    matches its header and size, the meshes are non-empty, the textured
+    OBJ's faces are the density mesh's, its PNG decodes, the splat PLY
+    holds the live gaussians. Last, card vs CPU on the same inputs: TSDF
+    fusion, the Poisson solve and LPIPS."""
+    from nerfstudio_torch.data.image_io import read_image
+    from nerfstudio_torch.scripts import exporter
+    from nerfstudio_torch.utils.eval_utils import eval_setup
+
+    t0 = time.perf_counter()
+    root = os.path.join(disk_root, "render_export")
+    os.makedirs(root)
+    _, pipeline, state = eval_setup(runs["nerfacto"])
+    cams = pipeline.datamanager.train_cameras
+    paths = {ct: camera_path_file(os.path.join(root, f"{ct}.json"), cams, i, ct, PATH_HW)
+             for i, ct in enumerate(("fisheye", "equirectangular"))}
+    twin_json = camera_path_file(os.path.join(root, "perspective.json"), cams, 0, "perspective", TWIN_HW)
+    renders = {}
+    for method, run in runs.items():
+        cases = [["dataset", "--rendered-output-names", "rgb,depth"],
+                 ["spiral"] + (["--steps", str(NEUS_SPIRAL_STEPS)] if method == "neus-facto" else [])]
+        cases += [["camera-path", "--camera-path-filename", path] for path in paths.values()]
+        if method == "nerfacto":
+            cases.append(["camera-path", "--camera-path-filename", twin_json])
+        recs = []
+        for i, args in enumerate(cases):
+            recs.append(render_cli(name, method, run, args, os.path.join(root, f"{method}_{i}")))
+        renders[method] = recs
+    twin_err = twin_frame(name, pipeline, state, twin_json,
+                          os.path.join(root, f"nerfacto_{len(renders['nerfacto']) - 1}", "00000.png"))
+    log(name, "renders on " + card + ": " + "; ".join(
+        f"{m} " + ", ".join(f"{r['mode']} {r['frames']}x{r['hw'][0]}x{r['hw'][1]} {r['ms_per_frame']:.1f} ms/frame "
+                            f"{ {k: round(v, 2) for k, v in r['launches_per_frame'].items()} }" for r in recs)
+        for m, recs in renders.items())
+        + f"; the {TWIN_HW}^2 CLI frame vs the CPU twins {twin_err:.3g} mean abs (limit {CARD_VS_CPU_MEAN_ABS})")
+
+    exports, out = {}, os.path.join(root, "exports")
+    for mode, want in EXPORT_KERNELS.items():
+        exports[mode] = export_cli(name, runs["nerfacto"], mode, out, want)
+    splat_out = os.path.join(root, "splat_exports")
+    for mode in ("gaussian-splat", "cameras"):
+        exports[f"splatfacto {mode}"] = export_cli(name, runs["splatfacto"], mode, splat_out, ())
+    counts = {f: ply_vertices(os.path.join(out, f)) for f in ("point_cloud.ply", "mesh_points.ply", "tsdf_mesh.ply",
+                                                               "poisson_mesh.ply")}
+    faces = {k: len(np.load(os.path.join(out, f"{k}_faces.npy"))) for k in ("tsdf", "poisson")}
+    _, mesh_faces = exporter.density_mesh(pipeline, 128)
+    with open(os.path.join(out, "textured_mesh.obj"), encoding="utf-8") as f:
+        obj_faces = sum(line.startswith("f ") for line in f)
+    tex = read_image(os.path.join(out, "textured_mesh.png"))
+    _, _, splat_state = eval_setup(runs["splatfacto"])
+    alive = int(splat_state.aux.alive.sum())
+    del splat_state
+    counts["splat.ply"] = ply_vertices(os.path.join(splat_out, "splat.ply"))
+    with open(os.path.join(out, "cameras.json"), encoding="utf-8") as f:
+        n_cams = len(json.load(f))
+    if (min(counts.values()) <= 0 or min(faces.values()) <= 0 or obj_faces != len(mesh_faces) or obj_faces <= 0
+            or counts["splat.ply"] != alive or n_cams != len(cams) or tex.shape[-1] != 3):
+        raise AssertionError(f"{name}: exports {counts}, faces {faces}, OBJ faces {obj_faces} vs the mesh's "
+                             f"{len(mesh_faces)}, splat vertices vs {alive} alive, {n_cams} cameras of {len(cams)}, "
+                             f"texture {tex.shape}")
+    log(name, f"exports on {card} (wall s, the run's load included; launches): " + "; ".join(
+        f"{m} {r['wall_s']:.2f} s {r['launches']}" for m, r in exports.items())
+        + f"; vertices {counts}, faces {faces}, textured OBJ {obj_faces} faces on a {tex.shape[1]}x{tex.shape[0]} "
+        f"atlas, {n_cams} cameras")
+
+    checks = {"tsdf": tsdf_card_vs_cpu(name, pipeline, state), "poisson": poisson_card_vs_cpu(name, pipeline, state),
+              "lpips": lpips_card_vs_cpu(name, pipeline, state)}
+    t, p, lp = checks["tsdf"], checks["poisson"], checks["lpips"]
+    wall = time.perf_counter() - t0
+    log(name, f"card vs CPU: TSDF of {t['views']} views at 128^3 {t['max_abs']:.3g} max abs where both observe "
+        f"({t['observed_both']} voxels; limit {TSDF_ATOL}), masks agree on {t['mask_share']:.6f} (limit "
+        f"{TSDF_MASK_SHARE}), colours {t['color_max_abs']:.3g}, {t['card_ms']:.1f} ms on the card; Poisson chi of "
+        f"{p['points']} points {p['max_abs']:.3g} of peak {p['peak']:.3g} (limit {POISSON_PEAK_REL} of peak), iso "
+        f"{p['iso']:.6g} vs {p['iso_cpu']:.6g}, {p['card_ms']:.1f} ms on the card; LPIPS ({lp['mode']}, "
+        f"{lp['hw'][0]}x{lp['hw'][1]}) {lp['card']:.6f} vs {lp['cpu']:.6f} ({lp['rel']:.3g} relative, limit "
+        f"{LPIPS_REL}), {lp['card_ms']:.1f} ms on the card; {wall:.1f} s wall")
+    del pipeline, state
+    torch.cuda.empty_cache()
+    return dict(renders=renders, twin_frame_mean_abs=twin_err, exports=exports, vertices=counts, faces=faces,
+                textured_faces=obj_faces, checks=checks, wall_s=wall)
+
+
 def gate_cell(method, scene, out) -> int:
     """One gate cell in full through ``scripts.gate``'s runner (the gates
     asked: the record's ``pass``), then the device's idle share over
@@ -5618,7 +5928,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 69
+    n_phases = 70
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -6291,6 +6601,10 @@ def main() -> int:
         # and nerfacto from a COLMAP model
         dnerf_phase(ph, card, disk_root, disk, jobs.pop("dnerf"))
         parsers = parsers_phase(ph, card, scene, disk_root)
+        # 70. the runs of phases 35, 37 and 38 rendered and exported
+        render_export = render_export_phase(ph(70, "render and export"), card, disk_root, {
+            "nerfacto": disk["cli"]["run_dir"], "splatfacto": disk["gate_splatfacto"]["run_dir"],
+            "neus-facto": disk["neus_facto"]["run_dir"]})
     finally:
         stop_scenes(disk_root, jobs)
 
@@ -6543,6 +6857,17 @@ def main() -> int:
     kernels[0]["dnerf"] = dict(disk["gate_dnerf"]["after"], idle=disk["gate_dnerf"]["idle"],
                                metrics=disk["gate_dnerf"]["metrics"])
     kernels[0]["dataparsers"] = parsers
+    # the renders' and exports' launches (phase 70): per frame of each render,
+    # per export run
+    kernels[0]["render_export"] = render_export
+    for e in kernels:
+        key = launch_key.get(e["name"]) or next(
+            (k for k in ("hash_encode_flat",) if e["name"].startswith(k + " ")), None)
+        per = {f"{m} {r['mode']} (per frame)": r["launches_per_frame"].get(key, 0)
+               for m, recs in render_export["renders"].items() for r in recs}
+        per.update({f"{m} (per run)": r["launches"].get(key, 0) for m, r in render_export["exports"].items()})
+        if key is not None and any(per.values()):
+            e["render_export_launches"] = {k: v for k, v in per.items() if v}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

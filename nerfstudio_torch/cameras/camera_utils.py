@@ -1,18 +1,166 @@
 """Camera utilities (counterpart of ``nerfstudio_tpu/cameras/camera_utils.py``):
-on the host, in numpy, the packed distortion parameters and the orientation
-and centring of a capture's poses, which the dataparsers call; on tensors,
-the lens models that ray generation calls: the Newton undistortion of
-OpenCV radial and tangential distortion and the Fisheye624 projection and
-its inverse. The lens models are plain PyTorch ops, float32 throughout, on
-whatever device their inputs lie. Pose interpolation (camera paths) is not
-ported."""
+on the host, in numpy, the packed distortion parameters, the orientation
+and centring of a capture's poses, which the dataparsers call, and the pose
+interpolation and look-at helpers of the camera paths
+(``cameras/camera_paths.py``); on tensors, the lens models that ray
+generation calls: the Newton undistortion of OpenCV radial and tangential
+distortion and the Fisheye624 projection and its inverse. The lens models
+are plain PyTorch ops, float32 throughout, on whatever device their inputs
+lie."""
 
 from __future__ import annotations
 
-from typing import Literal, Tuple
+import math
+from typing import List, Literal, Optional, Tuple
 
 import numpy as np
 import torch
+
+_EPS = np.finfo(np.float32).eps * 4.0
+
+
+def unit_vector(data, axis: Optional[int] = None):
+    """``data`` over its length along ``axis`` (all of it when None), in
+    float64 (reference :19-26)."""
+    data = np.array(data, dtype=np.float64, copy=True)
+    if axis is None:
+        return data / math.sqrt(np.dot(data, data))
+    length = np.atleast_1d(np.sum(data * data, axis))
+    np.sqrt(length, length)
+    length = np.expand_dims(length, axis)
+    return data / length
+
+
+def quaternion_from_matrix(matrix) -> np.ndarray:
+    """Rotation matrix -> unit quaternion wxyz, w >= 0: the dominant
+    eigenvector of Bar-Itzhack's symmetric 4x4 K matrix (reference :29-56)."""
+    R = np.asarray(matrix, dtype=np.float64)[:3, :3]
+    Km = np.empty((4, 4))
+    # order (x, y, z, w)
+    Km[0, 0] = R[0, 0] - R[1, 1] - R[2, 2]
+    Km[1, 1] = R[1, 1] - R[0, 0] - R[2, 2]
+    Km[2, 2] = R[2, 2] - R[0, 0] - R[1, 1]
+    Km[3, 3] = R[0, 0] + R[1, 1] + R[2, 2]
+    Km[0, 1] = Km[1, 0] = R[0, 1] + R[1, 0]
+    Km[0, 2] = Km[2, 0] = R[0, 2] + R[2, 0]
+    Km[1, 2] = Km[2, 1] = R[1, 2] + R[2, 1]
+    Km[0, 3] = Km[3, 0] = R[2, 1] - R[1, 2]
+    Km[1, 3] = Km[3, 1] = R[0, 2] - R[2, 0]
+    Km[2, 3] = Km[3, 2] = R[1, 0] - R[0, 1]
+    Km /= 3.0
+    eigvals, eigvecs = np.linalg.eigh(Km)
+    q = eigvecs[:, np.argmax(eigvals)]  # (x, y, z, w)
+    q = q[[3, 0, 1, 2]]  # -> wxyz
+    return q if q[0] >= 0.0 else -q
+
+
+def quaternion_slerp(quat0, quat1, fraction: float, shortestpath: bool = True) -> np.ndarray:
+    """slerp(q0, q1, t) = [sin((1-t)θ) q0 + sin(tθ) q1] / sin(θ), cos θ = q0·q1;
+    a normalised lerp where θ is below float32's 4 eps (reference :59-75)."""
+    q0 = unit_vector(np.asarray(quat0, np.float64)[:4])
+    q1 = unit_vector(np.asarray(quat1, np.float64)[:4])
+    d = float(np.dot(q0, q1))
+    if shortestpath and d < 0.0:
+        d, q1 = -d, -q1
+    d = min(max(d, -1.0), 1.0)
+    theta = math.acos(d)
+    if theta < _EPS:
+        out = (1.0 - fraction) * q0 + fraction * q1
+        return out / np.linalg.norm(out)
+    return (math.sin((1.0 - fraction) * theta) * q0 + math.sin(fraction * theta) * q1) / math.sin(theta)
+
+
+def quaternion_matrix(quaternion) -> np.ndarray:
+    """Quaternion wxyz -> 4x4 rotation matrix (reference :78-92)."""
+    q = np.array(quaternion, dtype=np.float64, copy=True)
+    n = np.dot(q, q)
+    if n < _EPS:
+        return np.identity(4)
+    q *= math.sqrt(2.0 / n)
+    q = np.outer(q, q)
+    return np.array(
+        [
+            [1.0 - q[2, 2] - q[3, 3], q[1, 2] - q[3, 0], q[1, 3] + q[2, 0], 0.0],
+            [q[1, 2] + q[3, 0], 1.0 - q[1, 1] - q[3, 3], q[2, 3] - q[1, 0], 0.0],
+            [q[1, 3] - q[2, 0], q[2, 3] + q[1, 0], 1.0 - q[1, 1] - q[2, 2], 0.0],
+            [0.0, 0.0, 0.0, 1.0],
+        ]
+    )
+
+
+def get_interpolated_poses(pose_a: np.ndarray, pose_b: np.ndarray, steps: int = 10) -> List[np.ndarray]:
+    """``steps`` 3x4 poses from a to b: slerp of the rotation, lerp of the
+    translation (reference :95-110)."""
+    quat_a = quaternion_from_matrix(pose_a[:3, :3])
+    quat_b = quaternion_from_matrix(pose_b[:3, :3])
+    poses = []
+    for t in np.linspace(0, 1, steps):
+        pose = np.eye(4)
+        pose[:3, :3] = quaternion_matrix(quaternion_slerp(quat_a, quat_b, float(t)))[:3, :3]
+        pose[:3, 3] = (1 - t) * pose_a[:3, 3] + t * pose_b[:3, 3]
+        poses.append(pose[:3])
+    return poses
+
+
+def get_interpolated_k(k_a: np.ndarray, k_b: np.ndarray, steps: int = 10) -> List[np.ndarray]:
+    """``steps`` intrinsics matrices from a to b, linearly (reference :113-115)."""
+    return [(1 - t) * k_a + t * k_b for t in np.linspace(0, 1, steps)]
+
+
+def get_ordered_poses_and_k(poses: np.ndarray, Ks: np.ndarray):
+    """The poses (and their Ks) in greedy nearest-neighbour order from the
+    first (reference :118-133)."""
+    poses_num = len(poses)
+    ordered_poses = poses[:1]
+    ordered_ks = Ks[:1]
+    poses = poses[1:]
+    Ks = Ks[1:]
+    for _ in range(poses_num - 1):
+        distances = np.linalg.norm(poses[:, :3, 3] - ordered_poses[-1, :3, 3], axis=1)
+        idx = np.argmin(distances)
+        ordered_poses = np.concatenate([ordered_poses, poses[idx : idx + 1]], axis=0)
+        ordered_ks = np.concatenate([ordered_ks, Ks[idx : idx + 1]], axis=0)
+        poses = np.delete(poses, idx, axis=0)
+        Ks = np.delete(Ks, idx, axis=0)
+    return ordered_poses, ordered_ks
+
+
+def get_interpolated_poses_many(
+    poses: np.ndarray,
+    Ks: np.ndarray,
+    steps_per_transition: int = 10,
+    order_poses: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Every transition between consecutive poses, ``steps_per_transition``
+    poses and Ks each, as float32 (N, 3, 4) and (N, 3, 3) (reference
+    :136-150)."""
+    traj = []
+    k_interp = []
+    if order_poses:
+        poses, Ks = get_ordered_poses_and_k(poses, Ks)
+    for idx in range(len(poses) - 1):
+        traj += get_interpolated_poses(poses[idx], poses[idx + 1], steps=steps_per_transition)
+        k_interp += get_interpolated_k(Ks[idx], Ks[idx + 1], steps=steps_per_transition)
+    return np.stack(traj, axis=0).astype(np.float32), np.stack(k_interp, axis=0).astype(np.float32)
+
+
+def normalize(x) -> np.ndarray:
+    return x / np.linalg.norm(x)
+
+
+def normalize_with_norm(x: np.ndarray, axis: int) -> Tuple[np.ndarray, np.ndarray]:
+    norm = np.maximum(np.linalg.norm(x, axis=axis, keepdims=True), 1e-10)
+    return x / norm, norm
+
+
+def viewmatrix(lookat: np.ndarray, up: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """Camera-to-world (3, 4) from a look-at direction, an up vector and a
+    position (reference :162-168)."""
+    vec2 = normalize(lookat)
+    vec1_avg = normalize(up)
+    vec0 = normalize(np.cross(vec1_avg, vec2))
+    vec1 = normalize(np.cross(vec2, vec0))
+    return np.stack([vec0, vec1, vec2, pos], axis=1)
 
 
 def get_distortion_params(

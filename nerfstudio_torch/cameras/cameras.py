@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -166,6 +166,21 @@ class Cameras:
     def is_jagged(self) -> bool:
         """Whether the cameras differ in resolution (reference :186-190)."""
         return bool((self.height != self.height[0]).any() or (self.width != self.width[0]).any())
+
+    def to_json(self, camera_idx: int, image=None, max_size=None) -> Dict:
+        """One camera as the viewer's JSON (reference :546-559); ``image`` and
+        ``max_size`` are accepted and unused, as there."""
+        i = int(camera_idx)
+        return {
+            "type": "PinholeCamera",
+            "cx": float(self.cx[i, 0]),
+            "cy": float(self.cy[i, 0]),
+            "fx": float(self.fx[i, 0]),
+            "fy": float(self.fy[i, 0]),
+            "camera_to_world": self.camera_to_worlds[i].tolist(),
+            "camera_index": camera_idx,
+            "times": float(self.times[i, 0]) if self.times is not None else None,
+        }
 
     def get_image_coords(self, pixel_offset: float = 0.5, index: int = 0) -> torch.Tensor:
         """Dense (H, W, 2) grid of (row, col) + offset of camera ``index``

@@ -1,10 +1,13 @@
-"""PLY reader (counterpart of ``nerfstudio_tpu/exporter/ply_io.py``'s
-``read_ply``): host-side numpy, for the dataparsers' seed points."""
+"""PLY reader and writer (counterpart of ``nerfstudio_tpu/exporter/ply_io.py``):
+host-side numpy. ``read_ply`` reads the dataparsers' seed points;
+``write_ply`` writes the exporter's point clouds, meshes' vertices and 3DGS
+splats as binary little-endian PLYs, byte for byte as the reference writes
+them."""
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -60,3 +63,24 @@ def read_ply(path: Path) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     if "red" in cols:
         rgb = np.stack([cols["red"], cols["green"], cols["blue"]], axis=-1).astype(np.uint8)
     return xyz, rgb
+
+
+def write_ply(path: Path, count: int, fields: Dict[str, np.ndarray]) -> None:
+    """A binary little-endian PLY of ``count`` vertices with one float32 or
+    uint8 property per field, in the order given (reference :68-94)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    for name, arr in fields.items():
+        if arr.shape != (count,):
+            raise ValueError(f"field {name} has shape {arr.shape}, expected ({count},)")
+        if arr.dtype not in (np.float32, np.uint8):
+            raise ValueError(f"field {name} dtype {arr.dtype} must be float32 or uint8")
+    stacked = np.empty(count, dtype=np.dtype([(n, a.dtype) for n, a in fields.items()]))
+    for name, arr in fields.items():
+        stacked[name] = arr
+    header = ["ply", "format binary_little_endian 1.0", "comment Generated by nerfstudio_tpu",
+              f"element vertex {count}"]
+    header += [f"property {'float' if a.dtype == np.float32 else 'uchar'} {n}" for n, a in fields.items()]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header + ["end_header"]) + "\n").encode())
+        f.write(stacked.tobytes())

@@ -6,13 +6,15 @@ One step samples pixels from the device-resident images, generates their
 rays, runs the model's training forward, the metrics and the losses, then
 the backward and the optimizer step. Nothing in it reads a device value on
 the host: ``loss.item()`` and the like are the caller's. The eval side
-renders eval images in chunks (``models.base_model.render_camera``) and
-reports PSNR, SSIM and render speed; where the eval dataset's parser
-blends RGBA onto an ``alpha_color`` the eval renders composite onto that
-colour too (the reference's eval background override). The reference's
-multi-step scan dispatch (``build_train_step_scan``), the per-loss
-coefficients (every caller keeps the default 1), the viewer's preview
-renderer and LPIPS are not ported."""
+renders any camera in chunks (``render_camera``: the eval views, the
+render script's camera paths, the exporter's train views) and reports
+PSNR, SSIM, LPIPS where the reference reports it
+(``utils.lpips.eval_lpips``) and render speed; where the eval dataset's parser blends RGBA onto an
+``alpha_color`` the renders composite onto that colour too (the
+reference's eval background override). The reference's multi-step scan
+dispatch (``build_train_step_scan``), the per-loss coefficients (every
+caller keeps the default 1) and the viewer's preview renderer are not
+ported."""
 
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from nerfstudio_torch.model_components.renderers import background_color_overrid
 from nerfstudio_torch.model_components.ray_generators import generate_rays_from_indices
 from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
 from nerfstudio_torch.models.base_model import Model, render_camera
+from nerfstudio_torch.utils.lpips import eval_lpips
 from nerfstudio_torch.utils.metrics import psnr, ssim
 
 
@@ -137,19 +140,26 @@ class VanillaPipeline:
         with self._eval_context() as model, torch.no_grad():
             return model(ray_bundle, **kwargs)
 
-    def render_eval_camera(self, state: TrainState, camera_idx: int, chunk_size: Optional[int] = None):
-        """One eval camera's image outputs (H, W, C), rendered in chunks of
-        ``chunk_size`` rays (None: the model's ``eval_num_rays_per_chunk``)."""
+    def render_camera(self, state: TrainState, cameras, camera_idx: int, chunk_size: Optional[int] = None):
+        """One camera's image outputs (H, W, C) on the device, the cameras
+        moved there, rendered in chunks of ``chunk_size`` rays (None: the
+        model's ``eval_num_rays_per_chunk``) under the eval background
+        (reference :318-332, without the viewer's preview)."""
         chunk = chunk_size or self.model.config.eval_num_rays_per_chunk
         with self._eval_context() as model:
-            return render_camera(model, None, self.datamanager.eval_cameras, camera_idx, chunk, aux=state.aux)
+            return render_camera(model, None, cameras.to(self.device), camera_idx, chunk, aux=state.aux)
+
+    def render_eval_camera(self, state: TrainState, camera_idx: int, chunk_size: Optional[int] = None):
+        """One eval camera's image outputs (``render_camera``)."""
+        return self.render_camera(state, self.datamanager.eval_cameras, camera_idx, chunk_size)
 
     def get_eval_image_metrics_and_images(self, state: TrainState, camera_idx: int,
                                           chunk_size: Optional[int] = None) -> Tuple[Dict[str, float], Dict]:
-        """PSNR, SSIM and the render's rays/s and fps of one eval image, and
-        the images (reference base_pipeline.py:334-382). An RGBA ground truth
-        is blended over the model's background colour (black for
-        ``last_sample`` and ``random``)."""
+        """PSNR, SSIM, LPIPS (``utils.lpips.eval_lpips``) and the render's
+        rays/s and fps of one eval image, and the images (reference
+        base_pipeline.py:334-382). An RGBA ground truth is blended over the
+        model's background colour (black for ``last_sample`` and
+        ``random``)."""
         cam_idx, batch = self.datamanager.eval_image(camera_idx)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -165,7 +175,7 @@ class VanillaPipeline:
             color = 1.0 if bg == "white" else 0.0
             gt = gt[..., :3] * gt[..., 3:] + color * (1.0 - gt[..., 3:])
         h, w = pred.shape[:2]
-        metrics = {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt)),
+        metrics = {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt)), **eval_lpips(pred, gt),
                    "num_rays_per_sec": h * w / render_dt, "fps": 1.0 / render_dt}
         images = {"img": torch.cat([gt, pred], dim=1).cpu().numpy()}
         images.update({k: v for k, v in outputs.items() if k != "rgb"})

@@ -16,7 +16,8 @@ config and ``train_splat`` is the CLI's training run; a checkpoint (one
 gaussians, the Adam moments and counts, the densification state, the step
 and the generators' and camera order's states, so a resumed run continues
 bit-equal. The multi-camera mesh step (the reference takes it only on a
-mesh of more than one device) and LPIPS are not ported."""
+mesh of more than one device) is not ported. The eval reports PSNR, SSIM
+and LPIPS under the reference's rule (``utils.lpips.eval_lpips``)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from nerfstudio_torch.engine.optimizers import SplatAdam, splat_means_lr
 from nerfstudio_torch.engine.trainer import aux_from_state, aux_state, read_checkpoint, write_checkpoint
 from nerfstudio_torch.model_components.bilateral_grid import color_correct, slice_bilateral_grid
 from nerfstudio_torch.models.splatfacto import InitDraws, SplatAux, SplatfactoModel, init_gaussian_params
+from nerfstudio_torch.utils.lpips import eval_lpips
 from nerfstudio_torch.utils.math import clip
 from nerfstudio_torch.utils.metrics import psnr, ssim
 from nerfstudio_torch.utils.poses import multiply as pose_multiply
@@ -283,17 +285,18 @@ class SplatPipeline:
                                  sh_degree_active=self.model.config.sh_degree, background=self._eval_background())
 
     def get_eval_image_metrics(self, state: SplatTrainState, camera_idx: int):
-        """PSNR and SSIM of one eval view (reference :687-726; LPIPS is not
-        ported): (metrics, outputs)."""
+        """PSNR, SSIM and LPIPS (``utils.lpips.eval_lpips``) of one eval
+        view (reference :687-726): (metrics, outputs)."""
         out = self.render_eval_image(state, camera_idx)
         return self._image_metrics(out, camera_idx, self.model.config.use_bilateral_grid), out
 
     def _image_metrics(self, out: Dict[str, torch.Tensor], camera_idx: int,
                        color_corrected: bool = False) -> Dict[str, float]:
-        """PSNR and SSIM against the view's ground truth, undistorted on the
-        host first where its camera carries distortion (the render is a
-        pinhole's; reference :687-705), of the render colour-corrected to it
-        with ``color_corrected`` (a config that trains bilateral grids)."""
+        """PSNR, SSIM and LPIPS (``utils.lpips.eval_lpips``) against the
+        view's ground truth, undistorted on the host first where its camera
+        carries distortion (the render is a pinhole's; reference :687-705),
+        of the render colour-corrected to it with ``color_corrected`` (a
+        config that trains bilateral grids)."""
         gt = self.datamanager.eval_image(camera_idx)
         cams = self.datamanager.eval_cameras
         if cams.distorted:
@@ -304,7 +307,7 @@ class SplatPipeline:
         if color_corrected:
             # eval views have no learned grid: fit the colours post hoc (reference :708-714)
             pred = color_correct(pred, gt)
-        return {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt))}
+        return {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt)), **eval_lpips(pred, gt)}
 
     def get_average_eval_image_metrics(self, state: SplatTrainState) -> Dict[str, float]:
         """Every eval view's PSNR, SSIM and render rays/s and fps, mean and

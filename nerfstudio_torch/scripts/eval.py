@@ -3,7 +3,8 @@
 
     python -m nerfstudio_torch.scripts.eval RUN_DIR [--output-path out.json]
 
-PSNR, SSIM, rays/s and fps over every eval image, mean and std."""
+PSNR, SSIM, LPIPS (where ``utils.lpips.eval_lpips`` reports it), rays/s and
+fps over every eval image, mean and std."""
 
 from __future__ import annotations
 

@@ -111,7 +111,9 @@ def _sync(device: torch.device) -> None:
 def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] = None,
              overrides: Optional[List[str]] = None) -> Tuple[dict, Dict[str, Any]]:
     """Train and evaluate one gate cell through the user's own loop, its
-    run directory (scalars, the final checkpoint) under ``run_dir``:
+    run directory (the config as ``scripts.train`` saves it, scalars, the
+    final checkpoint: ``scripts.eval``, ``scripts.render`` and
+    ``scripts.exporter`` read it) under ``run_dir``:
     ``Trainer.train`` for a ray method, ``SplatPipeline.train`` with the
     writer and a final save as ``train_splat`` runs it for splatfacto. The
     training time is the whole loop's, host syncs and writes included.
@@ -124,6 +126,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
     from nerfstudio_torch.data.dataparsers.extra_dataparsers import DNeRFDataParserConfig
     from nerfstudio_torch.data.dataparsers.nerfstudio_dataparser import NerfstudioDataParserConfig
     from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
+    from nerfstudio_torch.scripts.train import save_config
 
     if method not in GATE_STEPS:
         raise NotImplementedError(f"the gate runner takes {sorted(GATE_STEPS)}, not {method!r}")
@@ -155,6 +158,7 @@ def run_gate(method: str, scene_dir: Path, run_dir: Path, steps: Optional[int] =
         raise SystemExit(f"unrecognized arguments: {rest}")
     model_overrides = {overrides[i][2:]: overrides[i + 1] for i in range(0, len(overrides) - 1, 2)
                        if not overrides[i].startswith("--machine.")}
+    save_config(config, t.get_base_dir())
     normals = bool(getattr(config.model, "predict_normals", False))
     result = {"method": method, "scene": scene_dir.name, "cell": scene_dir.name + ("_normals" if normals else ""),
               "steps": steps, "shipped_defaults": not model_overrides, "overrides": model_overrides,

@@ -1,5 +1,6 @@
-"""Image metrics (counterpart of ``nerfstudio_tpu/utils/metrics.py``): PSNR
-and SSIM. LPIPS is not ported (its weights are not in the repo)."""
+"""Image metrics (counterpart of ``nerfstudio_tpu/utils/metrics.py``): PSNR,
+SSIM, and LPIPS through ``utils/lpips.py`` (real weights where
+``NST_LPIPS_WEIGHTS`` names them, else the random-VGG mode)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,12 @@ def ssim(
     c2 = (k2 * max_val) ** 2
     ssim_map = ((2 * mu_p * mu_t + c1) * (2 * sigma_pt + c2)) / ((mu_p**2 + mu_t**2 + c1) * (sigma_p + sigma_t + c2))
     return torch.mean(ssim_map)
+
+
+def lpips(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """LPIPS of (H, W, 3) images in [0, 1] in the mode ``lpips.lpips_fn``
+    picks (reference :86-91)."""
+    from nerfstudio_torch.utils.lpips import lpips_fn
+
+    fn, _ = lpips_fn()
+    return fn(pred, target)
