@@ -131,8 +131,8 @@ shapes its path gives it, and drives the port's paths from random weights:
 * the largest ray methods and plain NeuS (phases 53-57): one nerfacto-huge
   step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
   table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
-  twins; the nerfacto-huge run (500 of its gate's 1500 steps since
-  phase 70, 16,384 rays) and the nerfacto-big run (600 of its gate's 3000
+  twins; the nerfacto-huge run (250 of its gate's 1500 steps since
+  phases 71-72, 16,384 rays) and the nerfacto-big run (600 of its gate's 3000
   steps, 8192 rays; the loss of each must fall) on ``basic`` at full
   width beside the JAX records, each
   followed by K1's forward (the step's proposal and field
@@ -200,7 +200,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   (lane groups) run twice (K3b's d_pos, K1bb's d_grad and d_pos
   bit-equal), and both designs timed in turns; then the cell through
   ``scripts.gate``'s loop on ``basic`` with ``--model.predict-normals
-  True``, cut to 800 of its 5000 steps (the loss must fall, and both normal
+  True``, cut to 600 of its 5000 steps (the loss must fall, and both normal
   terms from the run's second quarter; no per-thread K3b or K1bb launched);
   at the trained state K3b and K1bb at one eval chunk's and one step's
   inputs, checked and timed as above, one step card vs CPU (tables
@@ -247,7 +247,30 @@ shapes its path gives it, and drives the port's paths from random weights:
   PLY's vertex count matches its header and its size, the meshes are
   non-empty, the textured OBJ's faces are the density mesh's, the splat
   PLY holds the live gaussians; then TSDF fusion, the Poisson solve and
-  LPIPS card vs CPU on the same inputs.
+  LPIPS card vs CPU on the same inputs;
+* the viewer (phase 71): ``viewer.server.Viewer`` on the runs of phases 35
+  and 37 on free localhost ports, driven by a standard library websocket
+  client written here (``WsClient``: the RFC 6455 handshake, masked
+  frames): a camera, then frames through the 128^2 and 256^2 previews to
+  four exact 512^2 frames; each render's launches counted around it
+  (nerfacto's preview 2 K1 per chunk, its exact frame 1 K1 and 1 K3 per
+  chunk; splatfacto K4, K5 and K6 forward once; no backward) and every
+  frame's PNG equal, byte for byte, to ``render_camera(..., preview=...)``
+  (splatfacto's ``render``) of its camera, quantised the same way; one
+  96^2 preview card vs CPU (the card's positions replayed into the CPU's
+  hash encodings: the preview's K1 hashes position bits; the gap without
+  the replay reported); then ``scripts.train nerfacto --trainer.vis
+  viewer`` for 100 steps on ``basic`` with the client on the trainer's
+  port moving the camera after each frame: frames at several steps, a
+  pause that holds the step (its checkpoint saved) and a resume, the loss
+  falls, the step ms beside phase 35's (both from the writer's rays/s);
+* process_data on the card's host (phase 72), no JAX loaded, PNGs only:
+  ``colmap`` on phase 69's COLMAP text model of ``basic``; ``images`` on
+  its 48 PNG frames with 3 downscales in a process whose PATH holds no
+  colmap (the pyramids written, then the SfM step refused as the
+  reference's); the equirectangular crops of a synthetic 512x1024
+  panorama; nerfacto for 50 steps from ``colmap``'s transforms.json (the
+  loss falls, K1 launches).
 
 Since phases 61-63 came, phases 36-37, 43, 45 and 50-51 run 600 steps
 (1000 before), 42 and 44 (nerfacto distorted and masked) 300, 55
@@ -257,7 +280,9 @@ Since phases 61-63 came, phases 36-37, 43, 45 and 50-51 run 600 steps
 since phases 68-69 the scenes are made in the background (``basic`` from
 phase 2, ``distorted`` and ``masked`` beside the others from phase 34);
 since phase 70 phase 54 (nerfacto-huge) runs 500 of its gate's 1500 steps
-(the full gate before; the loss must now fall, the gate is not asked).
+(the full gate before; the loss must now fall, the gate is not asked);
+phases 71-72 (~21 s) are paid for by phase 54 at 250 steps and phase 67
+(nerfacto with predict_normals) at 600 of its 5000 (800 before).
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -3616,7 +3641,7 @@ def options_and_methods(ph, card, scene, disk_root, disk, k4_inputs_file=None):
 # fit phases 61-69, and nerfacto-huge's (phase 54) from its 1500 to fit
 # phase 70 (the full gates: PERF.md §6)
 BIG_CUT_STEPS = 600
-HUGE_CUT_STEPS = 500
+HUGE_CUT_STEPS = 250
 NEUS_PLAIN_STEPS = 200  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
 NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
 # Card vs CPU, plain neus's eval chunk: the SDF field is float32 on both
@@ -4679,7 +4704,7 @@ def nerfacto_option_steps(name, card):
 # normals) and K1bb (K1's backward differentiated again, the normals' loss)
 
 
-NORMALS_STEPS = 800  # phase 67, cut in depth from the cell's 5000 (full run: PERF.md §6)
+NORMALS_STEPS = 600  # phase 67, cut in depth from the cell's 5000 (full run: PERF.md §6)
 NORMALS_FLAGS = ["--model.predict-normals", "True"]
 NORMALS_KERNELS = NERFACTO_KERNELS + ("hash_encode_block_bwd_bwd", "hash_encode_block_exact_bwd")
 NORMALS_EVAL_RAYS = 4096  # the card-vs-CPU eval chunk (the CPU renders it with the normals' gradient)
@@ -5882,6 +5907,505 @@ def render_export_phase(name, card, disk_root, runs):
                 textured_faces=obj_faces, checks=checks, wall_s=wall)
 
 
+# --------------------------------------------------------------------------
+# watching a run live (phase 71) and ingesting captures (phase 72)
+
+VIEWER_MAX_RES = 512  # the viewer's default max_resolution: 128^2 and 256^2 previews, then 512^2 exact
+VIEWER_HIGH_FRAMES = 4  # exact frames collected per method (the first pays its allocations)
+VIEWER_TWIN_HW = 96  # the preview frame held against the CPU twins
+VIEWER_LIVE_STEPS = 100  # scripts.train nerfacto --trainer.vis viewer
+VIEWER_PORTS = (7007, 7008)  # the trainer's viewer: websocket and page (the reference's defaults)
+VIEWER_PAUSE_S = 1.5  # the pause lasts this long and three frames at least
+PD_DOWNSCALES = 3
+PD_STEPS = 50  # nerfacto from process_data's transforms.json
+PANORAMA_HW = (512, 1024)
+WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"  # RFC 6455 1.3
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class WsClient:
+    """A websocket client on a bare socket, written here apart from the
+    server it drives: the RFC 6455 handshake (the accept key checked),
+    masked text frames out with 7-, 16- or 64-bit lengths, the server's
+    frames in, pings answered."""
+
+    def __init__(self, port: int, timeout: float = 120.0):
+        import base64
+        import hashlib
+        import socket
+
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                self.sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+                break
+            except OSError:
+                if time.perf_counter() > deadline:
+                    raise
+                time.sleep(0.1)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET / HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\nConnection: Upgrade"
+                           f"\r\nSec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            byte = self.sock.recv(1)
+            if not byte:
+                raise ConnectionError("the server closed during the handshake")
+            head += byte
+        lines = head.decode().split("\r\n")
+        headers = {k.lower(): v for k, v in (line.split(": ", 1) for line in lines[1:] if ": " in line)}
+        want = base64.b64encode(hashlib.sha1((key + WS_GUID).encode()).digest()).decode()
+        if not lines[0].startswith("HTTP/1.1 101") or headers.get("sec-websocket-accept") != want:
+            raise AssertionError(f"websocket handshake: {lines[0]!r}, accept {headers.get('sec-websocket-accept')}")
+
+    def send(self, message: dict) -> None:
+        import struct
+
+        payload = json.dumps(message).encode()
+        n, key = len(payload), os.urandom(4)
+        if n < 126:
+            head = struct.pack(">BB", 0x81, 0x80 | n)
+        elif n < 1 << 16:
+            head = struct.pack(">BBH", 0x81, 0x80 | 126, n)
+        else:
+            head = struct.pack(">BBQ", 0x81, 0x80 | 127, n)
+        masked = (np.frombuffer(payload, np.uint8) ^ np.resize(np.frombuffer(key, np.uint8), n)).tobytes()
+        self.sock.sendall(head + key + masked)
+
+    def _exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the server closed the connection")
+            buf += chunk
+        return buf
+
+    def recv(self):
+        """The next text message as a dict; None once the server closes."""
+        import struct
+
+        while True:
+            try:
+                b0, b1 = self._exact(2)
+            except ConnectionError:
+                return None
+            n = b1 & 0x7F
+            if n == 126:
+                (n,) = struct.unpack(">H", self._exact(2))
+            elif n == 127:
+                (n,) = struct.unpack(">Q", self._exact(8))
+            payload = self._exact(n)
+            opcode = b0 & 0x0F
+            if opcode == 0x8:
+                return None
+            if opcode == 0x1:
+                return json.loads(payload)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def viewer_camera(pipeline, fov: float, turn: float = 0.0) -> dict:
+    """A camera message at train view 0's pose turned by ``turn`` radians
+    about the world's z axis through the origin."""
+    c2w = pipeline.datamanager.train_cameras.camera_to_worlds[0].cpu().numpy().astype(np.float64)
+    c, s = math.cos(turn), math.sin(turn)
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    return {"type": "camera", "c2w": (rot @ c2w).reshape(-1).tolist(), "fov": fov}
+
+
+def viewer_frame_kernels(method, res, preview, chunk):
+    """A frame's launches: nerfacto's proposal K1 per chunk and its field's
+    K1 in a preview, K3 in an exact frame; splatfacto's K4, K5 and K6 once."""
+    if method == "splatfacto":
+        return {"project_gaussians": 1, "tile_bin": 1, "tile_bin_bucketed": 1, "blend_saturating": 1}
+    chunks = -(-res * res // min(res * res, chunk))
+    return {"hash_encode_block": 2 * chunks} if preview else {"hash_encode_block": chunks,
+                                                               "hash_encode_block_exact": chunks}
+
+
+def viewer_frames(name, method, run, disk_root):
+    """The port's Viewer on a trained run, driven by WsClient: a camera, then
+    frames through 128^2 and 256^2 previews to VIEWER_HIGH_FRAMES exact
+    512^2 frames. Each render's launches are counted around it (nothing else
+    launches meanwhile) and must be the table's; after the viewer stops,
+    each frame's PNG must equal the port's render of its camera, quantised
+    the same way, byte for byte. Returns the record, the pipeline and state."""
+    from nerfstudio_torch.data.image_io import decode_png
+    from nerfstudio_torch.utils.eval_utils import eval_setup
+    from nerfstudio_torch.viewer.panels import to_uint8
+    from nerfstudio_torch.viewer.server import Viewer
+    import base64
+
+    _, pipeline, state = eval_setup(run)
+    viewer = Viewer(pipeline, lambda: state, websocket_port=free_port(), http_port=free_port(),
+                    max_resolution=VIEWER_MAX_RES)
+    viewer.output_dir = os.path.join(disk_root, "viewer_outputs")
+    viewer.control.apply({"train_util": 0.0})  # no training to yield to
+    renders = []
+    render_view = viewer.render_view
+
+    def counted(cam, res, preview=False):
+        before = read_counts()
+        out = render_view(cam, res, preview)  # ends in a copy to the host
+        renders.append((res, preview, {k: v - before.get(k, 0) for k, v in read_counts().items()
+                                       if v != before.get(k, 0)}))
+        return out
+
+    viewer.render_view = counted
+    chunk = getattr(pipeline.model.config, "eval_num_rays_per_chunk", 0)
+    zero_counts()
+    viewer.start()
+    frames, others = [], []
+    try:
+        client = WsClient(viewer.websocket_port)
+        client.send(viewer_camera(pipeline, 50.0))
+        deadline = time.perf_counter() + 180
+        while sum(f["res"] == VIEWER_MAX_RES for f in frames) < VIEWER_HIGH_FRAMES:
+            msg = client.recv()
+            if msg is None or time.perf_counter() > deadline:
+                raise AssertionError(f"{name}: {method}: the viewer sent {[f['res'] for f in frames]} "
+                                     f"(errors {viewer.errors})")
+            (frames if msg["type"] == "frame" else others).append(msg)
+        client.close()
+    finally:
+        viewer.stop()
+    counts = {k: v for k, v in read_counts().items() if v}
+    summed = {}
+    for _, _, d in renders:
+        for k, v in d.items():
+            summed[k] = summed.get(k, 0) + v
+    bad = [(res, preview, d) for res, preview, d in renders if d != viewer_frame_kernels(method, res, preview, chunk)]
+    states = [min(128, VIEWER_MAX_RES), min(256, VIEWER_MAX_RES), VIEWER_MAX_RES]
+    if viewer.errors or bad or summed != counts or [f["res"] for f in frames[:3]] != states:
+        raise AssertionError(f"{name}: {method}: errors {viewer.errors}, frames {[f['res'] for f in frames]}, "
+                             f"launches off the table {bad}, per-frame sum {summed} vs counted {counts}")
+    scene = next(m for m in others if m["type"] == "scene")
+    if method == "splatfacto" and len(scene["points"]) != min(int(state.aux.alive.sum()), len(scene["points"])):
+        raise AssertionError(f"{name}: the scene payload's points")
+    with torch.no_grad():
+        for f in frames:
+            res = f["res"]
+            cam = viewer.camera(np.asarray(f["c2w"], np.float32).reshape(3, 4), f["fov"], res)
+            if method == "splatfacto":
+                focal = float(cam.fx[0, 0])
+                out = pipeline.model.render(state.params, state.aux.alive, cam.camera_to_worlds[0],
+                                            (focal, focal, res / 2, res / 2), res, res,
+                                            sh_degree_active=pipeline.model.config.sh_degree,
+                                            background=torch.zeros(3, device=state.params["means"].device))
+            else:
+                out = pipeline.render_camera(state, cam, 0, min(res * res, chunk), preview=f["preview"])
+            want = to_uint8(out["rgb"].float().cpu().numpy())
+            got = decode_png(base64.b64decode(f["image"]))
+            if got.shape != want.shape or not np.array_equal(got, want):
+                diff = np.abs(got.astype(int) - want.astype(int)) if got.shape == want.shape else None
+                raise AssertionError(f"{name}: {method} frame at {res}^2 (preview {f['preview']}) is not the port's "
+                                     f"render: {None if diff is None else (int(diff.max()), float((diff > 0).mean()))}")
+    by_state = {}
+    for f in frames:
+        by_state.setdefault(f"{f['res']}{' preview' if f['preview'] else ''}", []).append(f)
+    times = {k: dict(frames=len(v), render_ms=[x["render_ms"] for x in v], encode_ms=[x["encode_ms"] for x in v],
+                     png_bytes=[len(x["image"]) * 3 // 4 for x in v]) for k, v in by_state.items()}
+    per_frame = {f"{res}{' preview' if preview else ''}": d for res, preview, d in renders}
+    return dict(frames=times, launches=counts, launches_per_frame=per_frame, scene_points=len(scene.get("points", ())),
+                renders=len(renders)), viewer, pipeline, state
+
+
+def viewer_twin(name, viewer, pipeline, state):
+    """One VIEWER_TWIN_HW^2 preview frame on the card against the CPU twins'
+    preview of the same camera (a copy of the model and grid on the CPU):
+    rgb mean abs, held to CARD_VS_CPU_MEAN_ABS with the card's positions
+    replayed into the CPU's hash encodings (``replay_positions``; their max
+    gap reported): the preview's K1 hashes each sample's position bits, so
+    a last-bit gap redraws its rounding. The viewer's frame must equal the
+    pipeline's preview render, and the gap without the replay is reported."""
+    from nerfstudio_torch.pipelines.base_pipeline import TrainState, VanillaPipeline
+
+    msg = viewer_camera(pipeline, 50.0)
+    hw = VIEWER_TWIN_HW
+    cam = viewer.camera(np.asarray(msg["c2w"], np.float32).reshape(3, 4), msg["fov"], hw)
+    seen, handles = replay_positions(pipeline.preview_model())
+    card = pipeline.render_camera(state, cam, 0, hw * hw, preview=True)["rgb"].float().cpu().numpy()
+    for h in handles:
+        h.remove()
+    through_viewer = viewer.render_view(cam, hw, preview=True)
+    cpu_model = copy.deepcopy(pipeline.model).cpu()
+    cpu_pipe = VanillaPipeline(types.SimpleNamespace(device=torch.device("cpu"),
+                                                     eval_dataset=pipeline.datamanager.eval_dataset), cpu_model)
+    cpu_state = TrainState(optimizer=None, aux=None if state.aux is None else state.aux.to("cpu"))
+    raw = cpu_pipe.render_camera(cpu_state, cam, 0, hw * hw, preview=True)["rgb"].numpy()
+    gaps, handles = replay_positions(cpu_pipe.preview_model(), replay=seen)
+    replayed = cpu_pipe.render_camera(cpu_state, cam, 0, hw * hw, preview=True)["rgb"].numpy()
+    for h in handles:
+        h.remove()
+    err, err_raw = float(np.abs(card - replayed).mean()), float(np.abs(card - raw).mean())
+    if not (np.array_equal(through_viewer, card) and err <= CARD_VS_CPU_MEAN_ABS and len(gaps) == len(seen)):
+        raise AssertionError(f"{name}: the {hw}^2 preview: the viewer's frame equals the pipeline's "
+                             f"{np.array_equal(through_viewer, card)}; card vs CPU {err} with the card's positions "
+                             f"({len(gaps)} of {len(seen)} encoding calls replayed), {err_raw} without")
+    return dict(mean_abs=err, mean_abs_without_replay=err_raw, position_gap=max(gaps), encoding_calls=len(seen))
+
+
+def step_ms(run_dir, rays: int) -> list:
+    """Each logged interval's ms per step, from the writer's rays/s."""
+    with open(os.path.join(run_dir, "scalars.jsonl"), encoding="utf-8") as f:
+        rows = [r for r in map(json.loads, f) if r["prefix"] == "train"]
+    return [rays / r["train_rays_per_sec"] * 1e3 for r in rows[1:]]  # the first holds the warm-up
+
+
+def viewer_live(name, scene, disk_root, cli_run):
+    """``scripts.train nerfacto --trainer.vis viewer`` for VIEWER_LIVE_STEPS
+    steps on the basic scene with a WsClient connected on the trainer's
+    port, moving the camera after each frame: frames must arrive at several
+    training steps, a pause must hold the step (and save its checkpoint), a
+    resume must restart it, the loss must fall and the run must stop its
+    viewer. The step ms against ``cli_run``'s (phase 35), both from the
+    writer's rays/s."""
+    import socket
+    import threading
+
+    from nerfstudio_torch.scripts import train as train_script
+
+    for port in VIEWER_PORTS:  # as the viewer's servers bind them
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("0.0.0.0", port))
+            except OSError as e:
+                raise AssertionError(f"{name}: the trainer's viewer port {port} is taken: {e}") from None
+    out = os.path.join(disk_root, "viewer_runs")
+    run_dir = os.path.join(out, "basic", "nerfacto", "live")
+    log_ = {"frames": [], "paused_steps": [], "error": None}
+
+    def run_client():  # moves the camera from train view 0's pose, which the scene payload carries
+        try:
+            c = WsClient(VIEWER_PORTS[0], timeout=300)
+            scene_msg = None
+            while scene_msg is None:
+                msg = c.recv()
+                if msg is None:
+                    raise ConnectionError("closed before the scene payload")
+                scene_msg = msg if msg["type"] == "scene" else None
+            c2w0 = np.asarray(scene_msg["cameras"][0], np.float64).reshape(3, 4)
+            turn, pause_at = 0.0, None
+
+            def camera():
+                cs, sn = math.cos(turn), math.sin(turn)
+                rot = np.array([[cs, -sn, 0.0], [sn, cs, 0.0], [0.0, 0.0, 1.0]])
+                return {"type": "camera", "c2w": (rot @ c2w0).reshape(-1).tolist(), "fov": 50.0}
+
+            c.send(camera())
+            pause_sent = paused_seen = None
+            resumed = False
+            while True:
+                msg = c.recv()
+                if msg is None:
+                    return  # the run stopped its viewer
+                if msg["type"] != "frame":
+                    continue
+                now = time.perf_counter()
+                log_["frames"].append((now, msg["step"], msg["res"], msg["preview"], msg["paused"], msg["render_ms"],
+                                       msg["encode_ms"]))
+                if pause_sent is None and msg["step"] >= 10:
+                    c.send({"type": "setting", "updates": {"paused": True}})
+                    pause_sent = now
+                elif pause_sent is not None and paused_seen is None and msg["paused"]:
+                    paused_seen = now
+                if paused_seen is not None and not resumed and now > paused_seen + 0.5:  # the step in flight ended
+                    log_["paused_steps"].append(msg["step"])
+                    if len(log_["paused_steps"]) >= 3 and now > paused_seen + 0.5 + VIEWER_PAUSE_S:
+                        c.send({"type": "setting", "updates": {"paused": False}})
+                        resumed = True
+                turn += 0.05
+                c.send(camera())
+        except Exception as e:  # noqa: BLE001 — reported by the main thread
+            log_["error"] = repr(e)
+
+    th = threading.Thread(target=run_client, daemon=True)
+    th.start()
+    zero_counts()
+    t0 = time.perf_counter()
+    train_script.main(["nerfacto", "--data", scene, "--trainer.vis", "viewer", "--trainer.output_dir", out,
+                       "--trainer.max_num_iterations", str(VIEWER_LIVE_STEPS), "--trainer.steps_per_eval_batch", "0",
+                       "--trainer.steps_per_eval_image", "0", "--trainer.steps_per_eval_all_images", "0",
+                       "--trainer.steps_per_save", str(VIEWER_LIVE_STEPS), "--trainer.save_only_latest_checkpoint",
+                       "false", "--trainer.timestamp", "live"])
+    wall = time.perf_counter() - t0
+    th.join(timeout=60)
+    counts = {k: v for k, v in read_counts().items() if v}
+    check_path(name, counts, ("hash_encode_block", "hash_encode_block_bwd"))
+    frames = log_["frames"]
+    steps_seen = sorted({f[1] for f in frames})
+    paused = log_["paused_steps"]
+    held = len(paused) >= 2 and len(set(paused)) == 1
+    resumed = held and any(f[1] > paused[0] for f in frames)
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "nerfstudio_models")))
+    losses = train_losses(run_dir)
+    k = max(len(losses) // 3, 1)
+    head, tail = statistics.fmean(losses[:k]), statistics.fmean(losses[-k:])
+    from nerfstudio_torch.configs.method_configs import get_method
+
+    rays = get_method("nerfacto").datamanager.train_num_rays_per_batch
+    live_ms, cli_ms = step_ms(run_dir, rays), step_ms(cli_run, rays)
+    if (log_["error"] or th.is_alive() or len(steps_seen) < 3 or not held or not resumed or tail >= head
+            or f"step-{paused[0] + 1:09d}.ckpt" not in ckpts):
+        raise AssertionError(f"{name}: live viewing: client error {log_['error']}, client alive {th.is_alive()}, "
+                             f"frames at steps {steps_seen}, steps while paused {paused}, resumed {resumed}, "
+                             f"checkpoints {ckpts}, loss {head} -> {tail}")
+    return dict(steps=VIEWER_LIVE_STEPS, wall_s=wall, frames=len(frames), steps_with_frames=len(steps_seen),
+                paused_at=paused[0], paused_frames=len(paused), loss=(head, tail), launches=counts,
+                step_ms=dict(live=statistics.median(live_ms), cli=statistics.median(cli_ms), live_all=live_ms),
+                frame_render_ms=statistics.median(f[5] for f in frames),
+                frame_encode_ms=statistics.median(f[6] for f in frames))
+
+
+def viewer_phase(name, card, disk_root, runs, scene):
+    """Phase 71: the port's viewer on the trained nerfacto (phase 35) and
+    splatfacto (phase 37) runs (``viewer_frames``), one 96^2 preview frame
+    against the CPU twins (``viewer_twin``), then live viewing of a training
+    run (``viewer_live``). Returns the record."""
+    t0 = time.perf_counter()
+    rec = {}
+    for method in ("nerfacto", "splatfacto"):
+        rec[method], viewer, pipeline, state = viewer_frames(name, method, runs[method], disk_root)
+        if method == "nerfacto":
+            rec["twin"] = viewer_twin(name, viewer, pipeline, state)
+        del viewer, pipeline, state
+        torch.cuda.empty_cache()
+        r = rec[method]
+        log(name, f"{method} on {card}: frames " + "; ".join(
+            f"{k}: {v['frames']} x render {statistics.median(v['render_ms']):.2f} ms + png "
+            f"{statistics.median(v['encode_ms']):.2f} ms ({statistics.median(v['png_bytes'])} B)"
+            for k, v in r["frames"].items())
+            + f"; launches per frame {r['launches_per_frame']}; {r['renders']} renders, every frame the port's render "
+            f"byte for byte; scene payload {r['scene_points']} points"
+            + (f"; the {VIEWER_TWIN_HW}^2 preview vs the CPU twins {rec['twin']['mean_abs']:.3g} mean abs with the "
+               f"card's positions replayed (limit {CARD_VS_CPU_MEAN_ABS}; max position gap "
+               f"{rec['twin']['position_gap']:.3g} over {rec['twin']['encoding_calls']} encoding calls), "
+               f"{rec['twin']['mean_abs_without_replay']:.3g} without" if method == "nerfacto" else ""))
+    rec["live"] = live = viewer_live(name, scene, disk_root, runs["nerfacto"])
+    log(name, f"scripts.train nerfacto --trainer.vis viewer, {live['steps']} steps on {card}: {live['frames']} frames "
+        f"at {live['steps_with_frames']} steps (median render {live['frame_render_ms']:.2f} ms + png "
+        f"{live['frame_encode_ms']:.2f} ms), paused at step {live['paused_at']} for {live['paused_frames']} frames "
+        f"and resumed; loss {live['loss'][0]:.4f} -> {live['loss'][1]:.4f}; step {live['step_ms']['live']:.2f} ms "
+        f"with the viewer vs {live['step_ms']['cli']:.2f} ms in phase 35 (medians of the writer's intervals); "
+        f"launches {live['launches']}; {live['wall_s']:.1f} s wall; phase {time.perf_counter() - t0:.1f} s")
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def process_data_phase(name, card, disk_root, scene):
+    """Phase 72: ``scripts.process_data`` on the card's host, no JAX loaded,
+    PNGs only: ``colmap`` on phase 69's COLMAP text model of basic;
+    ``images`` on the scene's PNG frames with PD_DOWNSCALES downscales, as a
+    user runs it, in a process whose PATH holds no colmap: it must write
+    the pyramids (Pillow's bicubic, ported) and then refuse at the SfM step
+    as the reference does; the equirectangular crops of a synthetic
+    PANORAMA_HW panorama (the forward view's centre at the panorama's
+    centre); then nerfacto for PD_STEPS steps from the colmap subcommand's
+    transforms.json: the loss falls and K1 launches."""
+    import importlib.util
+    import pathlib
+
+    from nerfstudio_torch.data.image_io import read_image, write_png
+    from nerfstudio_torch.process_data.equirect_utils import (
+        generate_planar_projections_from_equirectangular,
+        sample_view_directions,
+    )
+    from nerfstudio_torch.scripts import process_data
+    from nerfstudio_torch.scripts import train as train_script
+
+    t0 = time.perf_counter()
+    root = os.path.join(disk_root, "process_data")
+    model = os.path.join(disk_root, "colmap_basic", "colmap", "sparse", "0")
+    colmap_out = os.path.join(root, "from_colmap")
+    process_data.entrypoint(["colmap", "--data", model, "--output-dir", colmap_out])
+    os.symlink(os.path.join(disk_root, "colmap_basic", "images"), os.path.join(colmap_out, "images"))
+    with open(os.path.join(colmap_out, "transforms.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    colmap_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    photos = os.path.join(root, "photos")
+    os.makedirs(photos)
+    for fr in meta["frames"]:
+        os.symlink(os.path.join(colmap_out, fr["file_path"]), os.path.join(photos, os.path.basename(fr["file_path"])))
+    images_out = os.path.join(root, "from_images")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable))
+    proc = subprocess.run([sys.executable, "-m", "nerfstudio_torch.scripts.process_data", "images", "--data", photos,
+                           "--output-dir", images_out, "--num-downscales", str(PD_DOWNSCALES)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    images_s = time.perf_counter() - t1
+    shapes = {}
+    for level in ["images"] + [f"images_{2 ** i}" for i in range(1, PD_DOWNSCALES + 1)]:
+        files = sorted(os.listdir(os.path.join(images_out, level)))
+        shapes[level] = (len(files), read_image(os.path.join(images_out, level, files[0])).shape)
+    if (proc.returncode == 0 or "colmap binary not found" not in proc.stderr
+            or {n for n, _ in shapes.values()} != {len(meta["frames"])}
+            or shapes["images_8"][1][:2] != (meta["h"] // 8, meta["w"] // 8)):
+        raise AssertionError(f"{name}: images: rc {proc.returncode}, stderr tail {proc.stderr[-400:]!r}, "
+                             f"pyramids {shapes}")
+
+    t2 = time.perf_counter()
+    pano_dir = os.path.join(root, "panorama")
+    os.makedirs(pano_dir)
+    h, w = PANORAMA_HW
+    pano = np.zeros((h, w, 3), np.uint8)
+    pano[..., 0] = np.round(np.linspace(0, 255, w))[None, :]  # red ramps with longitude
+    pano[..., 1] = np.round(np.linspace(0, 255, h))[:, None]  # green with latitude
+    write_png(os.path.join(pano_dir, "pano.png"), pano)
+    crops_dir = generate_planar_projections_from_equirectangular(pathlib.Path(pano_dir), (256, 256), 8)
+    crops = sorted(os.listdir(crops_dir))
+    views = sample_view_directions(8)
+    forward = next(i for i, (yaw, pitch) in enumerate(views) if pitch == 0.0 and abs(yaw) < 46)
+    centre = read_image(os.path.join(crops_dir, crops[forward]))[128, 128].astype(int)
+    yaw = views[forward][0]
+    want_red = (yaw / 360 + 0.5) * 255
+    equirect_s = time.perf_counter() - t2
+    if len(crops) != len(views) or abs(centre[0] - want_red) > 3 or abs(centre[1] - 127.5) > 3:
+        raise AssertionError(f"{name}: equirect crops {len(crops)} of {len(views)}, forward centre {centre} "
+                             f"(red {want_red:.1f} expected at yaw {yaw})")
+
+    t3 = time.perf_counter()
+    out_dir = os.path.join(root, "runs")
+    zero_counts()
+    train_script.main(["nerfacto", "--data", colmap_out, "--trainer.output_dir", out_dir, "--trainer.vis", "none",
+                       "--trainer.max_num_iterations", str(PD_STEPS), "--trainer.steps_per_eval_batch", "0",
+                       "--trainer.steps_per_eval_image", "0", "--trainer.steps_per_eval_all_images", "0",
+                       "--trainer.steps_per_save", str(PD_STEPS), "--trainer.timestamp", "run"])
+    counts = {k: v for k, v in read_counts().items() if v}
+    check_path(name, counts, ("hash_encode_block", "hash_encode_block_bwd"))
+    losses = train_losses(os.path.join(out_dir, "from_colmap", "nerfacto", "run"))
+    k = max(len(losses) // 3, 1)
+    head, tail = statistics.fmean(losses[:k]), statistics.fmean(losses[-k:])
+    train_s = time.perf_counter() - t3
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "nerfstudio_tpu"))
+    if loaded or not (all(map(math.isfinite, losses)) and tail < head):
+        raise AssertionError(f"{name}: JAX modules loaded {loaded}; loss {head} -> {tail}")
+    wall = time.perf_counter() - t0
+    pillow = importlib.util.find_spec("PIL") is not None
+    log(name, f"on {card}'s host (Pillow {'importable' if pillow else 'absent'}, no JAX module loaded): colmap -> "
+        f"transforms.json of {len(meta['frames'])} frames and {meta.get('ply_file_path')} in {colmap_s:.2f} s; images "
+        f"with {PD_DOWNSCALES} downscales {shapes}, then the SfM step refused without colmap (rc {proc.returncode}) "
+        f"in {images_s:.2f} s; {len(crops)} equirect crops of 256^2 from a {h}x{w} panorama in {equirect_s:.2f} s "
+        f"(forward centre {centre.tolist()}); nerfacto from process_data's transforms.json, {PD_STEPS} steps: loss "
+        f"{head:.4f} -> {tail:.4f}, launches {counts} in {train_s:.1f} s; {wall:.1f} s wall")
+    return dict(frames=len(meta["frames"]), colmap_s=colmap_s, pyramids={k: [n, list(s)] for k, (n, s) in
+                                                                         shapes.items()},
+                images_s=images_s, sfm_refused=True, equirect_crops=len(crops), equirect_s=equirect_s,
+                loss=(head, tail), launches=counts, train_s=train_s, pillow=pillow, wall_s=wall)
+
+
 def gate_cell(method, scene, out) -> int:
     """One gate cell in full through ``scripts.gate``'s runner (the gates
     asked: the record's ``pass``), then the device's idle share over
@@ -5928,7 +6452,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 70
+    n_phases = 72
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -6605,6 +7129,11 @@ def main() -> int:
         render_export = render_export_phase(ph(70, "render and export"), card, disk_root, {
             "nerfacto": disk["cli"]["run_dir"], "splatfacto": disk["gate_splatfacto"]["run_dir"],
             "neus-facto": disk["neus_facto"]["run_dir"]})
+        # 71. the viewer on the runs of phases 35 and 37, then live viewing of
+        # a training run; 72. process_data on the card's host
+        viewer = viewer_phase(ph(71, "viewer"), card, disk_root, {
+            "nerfacto": disk["cli"]["run_dir"], "splatfacto": disk["gate_splatfacto"]["run_dir"]}, scene)
+        process = process_data_phase(ph(72, "process_data"), card, disk_root, scene)
     finally:
         stop_scenes(disk_root, jobs)
 
@@ -6868,6 +7397,15 @@ def main() -> int:
         per.update({f"{m} (per run)": r["launches"].get(key, 0) for m, r in render_export["exports"].items()})
         if key is not None and any(per.values()):
             e["render_export_launches"] = {k: v for k, v in per.items() if v}
+        # the viewer's frames (phase 71): per frame of each render state, and
+        # the live run's whole count
+        per = {f"{m} {state} (per frame)": d.get(key, 0) for m in ("nerfacto", "splatfacto")
+               for state, d in viewer[m]["launches_per_frame"].items()}
+        per["live viewing (per run)"] = viewer["live"]["launches"].get(key, 0)
+        if key is not None and any(per.values()):
+            e["viewer_launches"] = {k: v for k, v in per.items() if v}
+    kernels[0]["viewer"] = viewer
+    kernels[0]["process_data"] = process
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -303,9 +303,20 @@ NOT_PORTED = {"generfacto": 14}
 
 
 def get_method(name: str) -> MethodConfig:
-    """A fresh copy of the method's config."""
+    """A fresh copy of the method's config: a built-in one, or one a plugin
+    registers (``plugins.discover_methods``; reference :414-434). A
+    catalogued external method that is not installed exits with its install
+    text."""
     if name in NOT_PORTED:
         raise NotImplementedError(f"method {name!r} is not ported yet (ROADMAP queue 1 item {NOT_PORTED[name]})")
-    if name not in method_configs:
-        raise SystemExit(f"unknown method {name!r}; available: {', '.join(sorted(method_configs))}")
-    return copy.deepcopy(method_configs[name])
+    from nerfstudio_torch.plugins import discover_methods
+
+    all_methods = {**method_configs, **discover_methods()}
+    if name not in all_methods:
+        from nerfstudio_torch.configs.external_methods import get_external_methods
+
+        _, install = get_external_methods()
+        if name in install:
+            raise SystemExit(f"method {name!r} is an external plugin. Install it first:\n\n{install[name]}\n")
+        raise SystemExit(f"unknown method {name!r}; available: {', '.join(sorted(all_methods))}")
+    return copy.deepcopy(all_methods[name])

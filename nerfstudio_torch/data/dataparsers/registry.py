@@ -1,8 +1,8 @@
 """Dataparser registry: name -> config class (counterpart of
 ``nerfstudio_tpu/data/dataparsers/registry.py``), for the CLI's
 ``--dataparser NAME``: every parser of the reference's registry, its
-built-ins and its specialty parsers, each also under its short alias
-without ``-data``."""
+built-ins and its specialty parsers, and the parsers plugins register,
+each also under its short alias without ``-data``."""
 
 from __future__ import annotations
 
@@ -34,10 +34,21 @@ DATAPARSERS: Dict[str, Type[DataParserConfig]] = {
 }
 
 
+def dataparser_registry() -> Dict[str, Type[DataParserConfig]]:
+    """The built-in parsers, the ones plugins register
+    (``plugins.discover_dataparsers``; reference registry.py:46-48), and
+    each ``-data`` name's short alias."""
+    from nerfstudio_torch.plugins import discover_dataparsers
+
+    reg = {**DATAPARSERS, **discover_dataparsers()}
+    aliases = {name.removesuffix("-data"): cfg for name, cfg in reg.items() if name.endswith("-data")}
+    return {**aliases, **reg}
+
+
 def get_dataparser_config(name: str) -> DataParserConfig:
     """A fresh config of the parser ``name`` (or its short alias without
     ``-data``)."""
-    for key in (name, f"{name}-data"):
-        if key in DATAPARSERS:
-            return DATAPARSERS[key]()
-    raise KeyError(f"unknown dataparser {name!r}; available: {sorted(DATAPARSERS)}")
+    reg = dataparser_registry()
+    if name not in reg:
+        raise KeyError(f"unknown dataparser {name!r}; available: {sorted(reg)}")
+    return reg[name]()

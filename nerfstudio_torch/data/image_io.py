@@ -8,7 +8,8 @@ colour types 0 (grey), 2 (RGB), 4 (grey and alpha) and 6 (RGBA) as uint8,
 five row filters. JPEG goes through Pillow where it imports; without it a
 JPEG raises ``ImportError``. ``write_png`` writes 8-bit grey, RGB or RGBA
 PNGs (row filter None, zlib), so captures and fixtures are written without
-Pillow too."""
+Pillow too; ``encode_png`` makes the same bytes in memory (the viewer's
+frames)."""
 
 from __future__ import annotations
 
@@ -120,11 +121,12 @@ def image_size(path: Path) -> Tuple[int, int]:
     return w, h
 
 
-def write_png(path: Path, image: np.ndarray) -> None:
-    """(H, W, C) or (H, W) uint8, C in 1, 3, 4 -> an 8-bit PNG at ``path``."""
+def encode_png(image: np.ndarray, level: int = 6) -> bytes:
+    """(H, W, C) or (H, W) uint8, C in 1, 3, 4 -> the bytes of an 8-bit PNG
+    (row filter None, zlib at ``level``)."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8 images, got {image.dtype}")
+        raise ValueError(f"PNG encoding takes uint8 images, got {image.dtype}")
     if image.ndim == 2:
         image = image[..., None]
     h, w, c = image.shape
@@ -134,5 +136,10 @@ def write_png(path: Path, image: np.ndarray) -> None:
     def chunk(tag: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
 
-    Path(path).write_bytes(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
-                          + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    return (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b""))
+
+
+def write_png(path: Path, image: np.ndarray) -> None:
+    """(H, W, C) or (H, W) uint8, C in 1, 3, 4 -> an 8-bit PNG at ``path``."""
+    Path(path).write_bytes(encode_png(image))

@@ -3,7 +3,10 @@
 The loop around the pipeline's train step: each step the model's
 ``step_kwargs`` and auxiliary hook (nerfacto's occupancy update), then one
 train step; the eval cadences (a batch of eval rays, one eval image, every
-eval image), rays/s to the writer, and checkpoints.
+eval image), rays/s to the writer, and checkpoints. With ``"viewer"`` in
+``vis`` a live viewer (``viewer/server.py``) renders the training state
+between steps: each step runs under ``train_lock``, under which the viewer
+clones the state it renders, and a pause in the viewer holds the loop.
 
 A checkpoint is one ``torch.save`` file per step,
 ``<checkpoint dir>/step-<step>.ckpt``: the model's state dict, every Adam
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from nerfstudio_torch.utils import writer as writer_lib
+from nerfstudio_torch.utils.profiler import time_function
 
 _CHECKPOINT = re.compile(r"step-(\d+)\.ckpt")
 
@@ -136,6 +141,12 @@ class Trainer:
         self.checkpoint_dir = config.get_checkpoint_dir(self.base_dir)
         self.generator = torch.Generator(device=pipeline.device).manual_seed(seed)
         self.writer = writer_lib.EventWriter(self.base_dir, vis=config.vis)
+        self.viewer = None
+        self.last_host_metrics: Dict[str, float] = {}
+        # serialises each step against the viewer's clone of the state it
+        # renders (reference trainer.py:117 train_lock): the optimizer
+        # updates the parameters in place
+        self.train_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def checkpoint(self) -> Dict[str, Any]:
@@ -156,20 +167,37 @@ class Trainer:
         print(f"loaded checkpoint at step {step} from {self.config.load_dir}", flush=True)
 
     # ------------------------------------------------------------------
+    @time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         """(reference trainer.py:165-180): the resident images' reload on its
-        cadence, the auxiliary hook, then one step."""
+        cadence, then the auxiliary hook and one step under ``train_lock``."""
         kwargs = self.step_kwargs_fn(step)
         self.pipeline.datamanager.maybe_reload(step)
-        if self.pipeline.aux_update_fn is not None:
-            self.pipeline.aux_update_fn(self.state, step, self.generator)
-        return self.pipeline.train_step(self.state, self.generator, **kwargs)
+        with self.train_lock:
+            if self.pipeline.aux_update_fn is not None:
+                self.pipeline.aux_update_fn(self.state, step, self.generator)
+            return self.pipeline.train_step(self.state, self.generator, **kwargs)
 
     def train(self) -> None:
-        """The main loop (reference trainer.py:174-238)."""
+        """The main loop (reference trainer.py:174-238), with the viewer
+        ``vis`` asks for, started here and stopped when the loop ends."""
+        cfg = self.config
+        self.base_dir.mkdir(parents=True, exist_ok=True)
+        own_viewer = "viewer" in cfg.vis and self.viewer is None
+        if own_viewer:
+            from nerfstudio_torch.viewer.server import Viewer
+
+            self.viewer = Viewer(self.pipeline, lambda: self.state, train_lock=self.train_lock)
+            self.viewer.start()
+        try:
+            self._train_loop()
+        finally:
+            if own_viewer:  # the viewer the run started lives as long as the run
+                self.viewer.stop()
+
+    def _train_loop(self) -> None:
         cfg = self.config
         num_rays = self.pipeline.datamanager.config.train_num_rays_per_batch
-        self.base_dir.mkdir(parents=True, exist_ok=True)
         t_last = time.perf_counter()
         steps_since_log = 0
         for step in range(int(self.state.step), cfg.max_num_iterations):
@@ -181,6 +209,9 @@ class Trainer:
                 host_metrics["train_rays_per_sec"] = num_rays * steps_since_log / (now - t_last)
                 t_last, steps_since_log = now, 0
                 self.writer.put_dict("train", host_metrics, step)
+                self.last_host_metrics = host_metrics
+            if self.viewer is not None:
+                self.viewer_step(step)
             if cfg.steps_per_eval_batch and step % cfg.steps_per_eval_batch == 0 and step > 0:
                 self.eval_batch_iteration(step)
             if cfg.steps_per_eval_image and step % cfg.steps_per_eval_image == 0 and step > 0:
@@ -192,6 +223,22 @@ class Trainer:
         self.save_checkpoint(cfg.max_num_iterations)
         self.writer.flush()
         print(f"training finished; checkpoints in {self.checkpoint_dir}", flush=True)
+
+    def viewer_step(self, step: int) -> None:
+        """The viewer's hook after each step (reference trainer.py:374): its
+        stats, then, while it is paused, a spin that flushes the writer and
+        saves one checkpoint first, so a long pause loses no work."""
+        cfg = self.config
+        self.viewer.update(self, step)
+        paused_once = False
+        while self.viewer.paused:
+            if not paused_once:
+                paused_once = True
+                self.writer.flush()
+                if cfg.steps_per_save:
+                    self.save_checkpoint(step + 1)
+            self.viewer.update(self, step)
+            time.sleep(0.1)
 
     def eval_batch_iteration(self, step: int) -> Dict[str, float]:
         """PSNR of 1024 random pixels of a random eval image, both drawn from

@@ -68,14 +68,20 @@ def color_correct(img: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Post-hoc per-channel quadratic colour fit of ``img`` to ``ref``
     (reference :72-91): the ridge normal equations over the features [r, g,
     b, rg, rb, gb, r^2, g^2, b^2, 1], one 10x10 ``torch.linalg.solve`` per
-    channel in float32, the fit clipped to [0, 1]."""
+    channel, the fit clipped to [0, 1]. The normal equations sum every
+    pixel and the solve amplifies their roundings, so they are summed and
+    solved in float64: in float32 the fit moved with the BLAS's order of
+    summation (at 200^2, 3e-4 off a float64 fit on one CPU thread, 1e-5 on
+    eight; the reference's XLA sum 3e-5). The fit is evaluated in the
+    image's dtype."""
     img_f = img.reshape(-1, 3)
     ref_f = ref.reshape(-1, 3)
     r, g, b = img_f.unbind(-1)
     A = torch.stack([r, g, b, r * g, r * b, g * b, r * r, g * g, b * b, torch.ones_like(r)], dim=-1)
-    AtA = A.t() @ A + 1e-4 * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    A64 = A.double()
+    AtA = A64.t() @ A64 + 1e-4 * torch.eye(A.shape[-1], dtype=torch.float64, device=A.device)
     out = []
     for c in range(3):
-        w = torch.linalg.solve(AtA, A.t() @ ref_f[:, c])
-        out.append(clip(A @ w, 0.0, 1.0))
+        w = torch.linalg.solve(AtA, A64.t() @ ref_f[:, c].double())
+        out.append(clip(A @ w.to(A.dtype), 0.0, 1.0))
     return torch.stack(out, dim=-1).reshape(img.shape)

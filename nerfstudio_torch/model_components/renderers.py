@@ -1,11 +1,17 @@
 """Renderers (counterpart of ``nerfstudio_tpu/model_components/renderers.py``):
 composite per-sample (..., num_samples, C) quantities along rays, and the
 background override the eval renders run under (``BACKGROUND_COLOR_OVERRIDE``,
-set by ``background_color_override_context``)."""
+set by ``background_color_override_context``).
+
+The override is per thread. JAX reads it while tracing, so a render never
+reaches a jitted train step; in eager PyTorch a viewer thread rendering
+under it while the trainer steps on another would otherwise composite the
+training rays over the eval background."""
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Literal, Optional, Union
 
 import torch
@@ -14,21 +20,32 @@ _COLORS = {"black": (0.0, 0.0, 0.0), "white": (1.0, 1.0, 1.0)}
 
 BackgroundColor = Union[Literal["random", "last_sample", "black", "white"], torch.Tensor]
 
-# the colour every render composites over while set (reference :24-41)
-BACKGROUND_COLOR_OVERRIDE: Optional[torch.Tensor] = None
+# the colour every render of this thread composites over while set
+# (reference :24-41); read as the module attribute BACKGROUND_COLOR_OVERRIDE
+_override = threading.local()
+
+
+def _current_override() -> Optional[torch.Tensor]:
+    return getattr(_override, "color", None)
+
+
+def __getattr__(name: str):
+    if name == "BACKGROUND_COLOR_OVERRIDE":
+        return _current_override()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @contextlib.contextmanager
 def background_color_override_context(color: torch.Tensor):
     """Render over ``color`` (3,) inside the block, whatever the model's
-    background (reference :33-41); the previous override comes back after."""
-    global BACKGROUND_COLOR_OVERRIDE
-    old = BACKGROUND_COLOR_OVERRIDE
+    background (reference :33-41), in this thread only; the previous
+    override comes back after."""
+    old = _current_override()
     try:
-        BACKGROUND_COLOR_OVERRIDE = color
+        _override.color = color
         yield
     finally:
-        BACKGROUND_COLOR_OVERRIDE = old
+        _override.color = old
 
 
 def get_background_color(background_color: BackgroundColor, shape, device,
@@ -38,8 +55,9 @@ def get_background_color(background_color: BackgroundColor, shape, device,
     where one is set, else a named colour, an RGB triple, or for
     ``"random"`` uniform colours in [0, 1): ``draw`` (of ``shape``) where
     handed in, else drawn from ``generator``."""
-    if BACKGROUND_COLOR_OVERRIDE is not None:
-        return BACKGROUND_COLOR_OVERRIDE.to(device, torch.float32).expand(shape)
+    override = _current_override()
+    if override is not None:
+        return override.to(device, torch.float32).expand(shape)
     if isinstance(background_color, str):
         if background_color in _COLORS:
             return torch.tensor(_COLORS[background_color], device=device).expand(shape)
@@ -71,7 +89,7 @@ def render_rgb(
     draw, (..., 3)) or draws from ``generator``."""
     comp = torch.sum(weights * rgb, dim=-2)
     accumulation = torch.sum(weights, dim=-2)
-    if isinstance(background_color, str) and background_color == "last_sample" and BACKGROUND_COLOR_OVERRIDE is None:
+    if isinstance(background_color, str) and background_color == "last_sample" and _current_override() is None:
         bg = rgb[..., -1, :]
     else:
         bg = get_background_color(background_color, comp.shape, comp.device, generator, background)

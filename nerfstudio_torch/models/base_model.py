@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, Mapping, Optional, Tuple, Type
 
@@ -54,6 +55,26 @@ class Model(nn.Module):
 
     def get_outputs(self, ray_bundle: RayBundle, **kwargs) -> Dict[str, Any]:
         raise NotImplementedError
+
+
+def module_twin(module: nn.Module, clone_tensors: bool = False) -> nn.Module:
+    """A copy of ``module``'s tree whose modules are new objects, each with
+    its own mode (``train``/``eval``), plain attributes and hook tables,
+    sharing every parameter and buffer with ``module`` or, with
+    ``clone_tensors``, holding clones of them; any other attribute is
+    shared, not copied."""
+    twin = copy.copy(module)
+    for name, value in module.__dict__.items():  # the hook tables: a hook added to one is not the other's
+        if name.startswith("_") and isinstance(value, (dict, set)):
+            twin.__dict__[name] = copy.copy(value)
+    twin.__dict__["_modules"] = {name: None if m is None else module_twin(m, clone_tensors)
+                                 for name, m in module._modules.items()}
+    if clone_tensors:
+        twin.__dict__["_parameters"] = {
+            name: None if p is None else nn.Parameter(p.detach().clone(), requires_grad=p.requires_grad)
+            for name, p in module._parameters.items()}
+        twin.__dict__["_buffers"] = {name: None if b is None else b.clone() for name, b in module._buffers.items()}
+    return twin
 
 
 @torch.no_grad()

@@ -11,10 +11,11 @@ render script's camera paths, the exporter's train views) and reports
 PSNR, SSIM, LPIPS where the reference reports it
 (``utils.lpips.eval_lpips``) and render speed; where the eval dataset's parser blends RGBA onto an
 ``alpha_color`` the renders composite onto that colour too (the
-reference's eval background override). The reference's multi-step scan
-dispatch (``build_train_step_scan``), the per-loss coefficients (every
-caller keeps the default 1) and the viewer's preview renderer are not
-ported."""
+reference's eval background override). ``render_camera(..., preview=True)``
+is the viewer's preview: the field's stochastic one-block trilerp (K1) at
+eval in place of the exact one (K3). The reference's multi-step scan
+dispatch (``build_train_step_scan``) and the per-loss coefficients (every
+caller keeps the default 1) are not ported."""
 
 from __future__ import annotations
 
@@ -27,10 +28,11 @@ import numpy as np
 import torch
 
 from nerfstudio_torch.data.datamanagers import DeviceCacheDataManager
+from nerfstudio_torch.field_components.encodings import HashEncoding
 from nerfstudio_torch.model_components.renderers import background_color_override_context
 from nerfstudio_torch.model_components.ray_generators import generate_rays_from_indices
 from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
-from nerfstudio_torch.models.base_model import Model, render_camera
+from nerfstudio_torch.models.base_model import Model, module_twin, render_camera
 from nerfstudio_torch.utils.lpips import eval_lpips
 from nerfstudio_torch.utils.metrics import psnr, ssim
 
@@ -140,14 +142,43 @@ class VanillaPipeline:
         with self._eval_context() as model, torch.no_grad():
             return model(ray_bundle, **kwargs)
 
-    def render_camera(self, state: TrainState, cameras, camera_idx: int, chunk_size: Optional[int] = None):
+    def preview_model(self) -> Optional[Model]:
+        """The model the viewer's preview renders through (reference
+        ``build_eval_chunk_preview``, :282-313): a twin in eval mode that
+        shares every parameter and buffer with ``self.model`` and whose config
+        has ``eval_exact_trilerp=False``, so its field runs K1's stochastic
+        trilerp at eval, as the model built from that config would (the flag
+        is the field encoding's ``block_exact``). None for a model without
+        the flag set, which previews exactly, as the reference's does. Made
+        once per model."""
+        cfg = self.model.config
+        if not getattr(cfg, "eval_exact_trilerp", False):
+            return None
+        made = getattr(self, "_preview", None)
+        if made is None or made[0] is not self.model:
+            twin = module_twin(self.model)
+            twin.config = dataclasses.replace(cfg, eval_exact_trilerp=False)
+            for module in twin.modules():
+                if isinstance(module, HashEncoding):
+                    module.block_exact = False
+            self._preview = (self.model, twin.eval())
+        return self._preview[1]
+
+    def render_camera(self, state: TrainState, cameras, camera_idx: int, chunk_size: Optional[int] = None,
+                      preview: bool = False):
         """One camera's image outputs (H, W, C) on the device, the cameras
         moved there, rendered in chunks of ``chunk_size`` rays (None: the
         model's ``eval_num_rays_per_chunk``) under the eval background
-        (reference :318-332, without the viewer's preview)."""
+        (reference :318-332). ``preview`` renders through ``preview_model``
+        where the model has one; it never changes ``self.model``'s mode."""
         chunk = chunk_size or self.model.config.eval_num_rays_per_chunk
-        with self._eval_context() as model:
-            return render_camera(model, None, cameras.to(self.device), camera_idx, chunk, aux=state.aux)
+        twin = self.preview_model() if preview else None
+        if twin is None:
+            with self._eval_context() as model:
+                return render_camera(model, None, cameras.to(self.device), camera_idx, chunk, aux=state.aux)
+        color = self._eval_background()
+        with contextlib.nullcontext() if color is None else background_color_override_context(color):
+            return render_camera(twin, None, cameras.to(self.device), camera_idx, chunk, aux=state.aux)
 
     def render_eval_camera(self, state: TrainState, camera_idx: int, chunk_size: Optional[int] = None):
         """One eval camera's image outputs (``render_camera``)."""

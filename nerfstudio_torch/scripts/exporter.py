@@ -119,12 +119,20 @@ def export_marching_cubes(run_dir: Path, output_dir: Path, resolution: int = 256
 def export_tsdf(run_dir: Path, output_dir: Path, resolution: int = 128, num_views: int = 40) -> None:
     """TSDF fusion of rendered train-view depths -> coloured mesh vertices
     and faces (reference :116-139)."""
-    from nerfstudio_torch.exporter.ply_io import write_ply
     from nerfstudio_torch.exporter.tsdf_utils import export_tsdf_mesh
     from nerfstudio_torch.utils.eval_utils import eval_setup
 
     _, pipeline, state = eval_setup(run_dir)
     verts, faces, colors = export_tsdf_mesh(pipeline, state, output_dir, resolution=resolution, num_views=num_views)
+    write_tsdf_mesh(output_dir, verts, faces, colors)
+    print(f"exported TSDF mesh: {len(verts)} vertices", flush=True)
+
+
+def write_tsdf_mesh(output_dir: Path, verts: np.ndarray, faces, colors) -> None:
+    """``tsdf_mesh.ply`` (vertices, coloured where ``colors``) and
+    ``tsdf_faces.npy`` in ``output_dir``."""
+    from nerfstudio_torch.exporter.ply_io import write_ply
+
     fields = xyz_fields(verts)
     if colors is not None:
         for i, c in enumerate(("red", "green", "blue")):
@@ -132,7 +140,6 @@ def export_tsdf(run_dir: Path, output_dir: Path, resolution: int = 128, num_view
     write_ply(output_dir / "tsdf_mesh.ply", len(verts), fields)
     if faces is not None:
         np.save(output_dir / "tsdf_faces.npy", faces)
-    print(f"exported TSDF mesh: {len(verts)} vertices", flush=True)
 
 
 def export_poisson(run_dir: Path, output_dir: Path, num_points: int = 500000, resolution: int = 128) -> None:

@@ -5,7 +5,7 @@ setup(
     version="0.1.0",
     description="TPU-native neural rendering framework (nerfstudio-class) on JAX/XLA/Pallas",
     packages=find_packages(include=["nerfstudio_tpu*", "nerfstudio_torch*"]),
-    package_data={"nerfstudio_torch": ["csrc/*.cu"]},
+    package_data={"nerfstudio_torch": ["csrc/*.cu", "viewer/client.html"]},
     python_requires=">=3.10",
     entry_points={
         "console_scripts": [

@@ -7,6 +7,7 @@ port through ``nerfstudio_torch.utils.convert.params_from_jax``."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -16,6 +17,12 @@ import torch
 # The port's entry points run on the GPU unless asked otherwise; every port
 # test runs on the CPU and says so with this device.
 CPU = "cpu"
+
+# Each xdist worker takes its share of the cores for torch's intra-op
+# threads: six workers at torch's default of one thread per core
+# oversubscribe the machine several times over, and the slowest tests ran
+# ~30x longer in the suite than alone. Set before the first parallel op.
+torch.set_num_threads(max(1, os.cpu_count() // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 # torch's CPU sin runs MKL's threaded vmsSin, asked for high accuracy. On
 # the first call in a process one of MKL's threads now and then computes its

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 import torch
 
 from nerfstudio_tpu.model_components import bilateral_grid as jbg

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 import torch
 
 from test_torch_cli import TINY

@@ -17,6 +17,7 @@ import struct
 
 import numpy as np
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 
 from fixtures import look_at_origin
 from test_torch_dataparsers import assert_outputs_match

@@ -7,6 +7,7 @@ nerfacto configs' block layout) has no private pass: its launches carry an
 empty plan in every design."""
 
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 import torch
 
 from nerfstudio_torch.ops import hash_grid as thg

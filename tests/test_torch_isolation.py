@@ -7,6 +7,7 @@ import ast
 from pathlib import Path
 
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "nerfstudio_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

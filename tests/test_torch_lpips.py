@@ -8,6 +8,7 @@ the eval's rule for reporting it (``lpips`` with real weights,
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 import torch
 
 from nerfstudio_tpu.utils import lpips as jlp

@@ -12,6 +12,7 @@ twins' backward functions compute, bit for bit."""
 import math
 
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 import torch
 
 from nerfstudio_torch.ops import hash_grid

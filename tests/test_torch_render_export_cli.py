@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import _torch_port  # noqa: F401  (caps torch's threads per xdist worker)
 import torch
 
 sys.path.insert(0, str(Path(__file__).parent))
