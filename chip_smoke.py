@@ -41,8 +41,9 @@ shapes its path gives it, and drives the port's paths from random weights:
   training on bench.py's scene at 2048 rays (steps 300-301, then warm-up
   and timed steps from 6000, two K7 forward and two backward launches
   checked per step), a profile of three steps, one 512^2 eval frame through
-  ``render_camera`` (timed with K7's forward in each design in turns, and
-  profiled by kernel class) and one step on the card against the CPU
+  ``render_camera`` (timed with K7's forward in each design in turns; a
+  256^2 frame of the same view, a quarter of its chunks, profiled by
+  kernel class) and one step on the card against the CPU
   twins;
 * K6's backward at the inputs of one trained-state splat step (phase 28);
 * K6's forward in both designs (phase 32), culled per warp and per pixel:
@@ -80,7 +81,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   gate records' protocol (48 frames of 200^2), ``scripts.train`` nerfacto
   for 300 steps with a save at 150, a resume to 400, the eval of the first
   save and ``scripts.eval`` of the end (the PSNR must rise); the nerfacto
-  and splatfacto gate runs through ``scripts.gate``, cut in depth to 600
+  and splatfacto gate runs through ``scripts.gate``, cut in depth to 400
   of their 5000 and 8000 steps (the loss must fall; their full runs stand
   in PERF.md), beside the JAX records' quality; neus-facto for 200 steps
   through the trainer (the loss must fall). Each
@@ -106,8 +107,8 @@ shapes its path gives it, and drives the port's paths from random weights:
   splat train images too); and 200 nerfacto steps through the resolution
   buckets of the mixed-resolution masked scene (the loss must fall), with
   one step on the card against the CPU twins. The four gates on
-  ``distorted`` and ``masked`` run 600 of their 8000 or 5000 steps (cut in
-  depth): their loss must fall, and every kernel of each path holds at its
+  ``distorted`` and ``masked`` run 400 (splatfacto, of 8000) and 300
+  (nerfacto, of 5000) steps (cut in depth): their loss must fall, and every kernel of each path holds at its
   trained state;
 * splatfacto's options and methods (phases 47-52): K4's backward with the
   viewmat gradient (camera optimisation) against a float64 run of the twin
@@ -122,7 +123,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   (the grids' and tangents' gradients compared too) and one MCMC refine, slot
   for slot with the CPU's draws, on the card against the CPU; the
   splatfacto-mcmc and splatfacto-big gate runs on ``basic`` at 1,000,000
-  slots, cut in depth to 600 of their 8000 steps (the loss must fall; their
+  slots, cut in depth to 400 of their 8000 steps (the loss must fall; their
   full runs stand in PERF.md), each followed by its path's kernels against
   their twins at its trained state and its idle share; splatfacto with the
   three options on for 400 steps through ``scripts.gate``'s loop (the loss
@@ -132,7 +133,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
   table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
   twins; the nerfacto-huge run (250 of its gate's 1500 steps since
-  phases 71-72, 16,384 rays) and the nerfacto-big run (600 of its gate's 3000
+  phases 71-72, 16,384 rays) and the nerfacto-big run (300 of its gate's 3000
   steps, 8192 rays; the loss of each must fall) on ``basic`` at full
   width beside the JAX records, each
   followed by K1's forward (the step's proposal and field
@@ -270,11 +271,37 @@ shapes its path gives it, and drives the port's paths from random weights:
   colmap (the pyramids written, then the SfM step refused as the
   reference's); the equirectangular crops of a synthetic 512x1024
   panorama; nerfacto for 50 steps from ``colmap``'s transforms.json (the
-  loss falls, K1 launches).
+  loss falls, K1 launches);
+* generfacto (phase 73): ``scripts.train generfacto`` at the shipped config
+  (the flat hash grid K7 at L16 F2 T=2^19 over levels 16..2048, 64^2
+  renders of 64 samples, Adam at 1e-2), with the stub guidance the card's
+  machine takes for want of diffusers and weights (the line names it), cut
+  in depth to 500 of its 20,000 steps: K7 forward and backward launched
+  once a step and nothing else of the hash grid, the losses finite, the
+  config and checkpoint written; from the checkpoint 20 timed steps (one
+  step's K7 backward asked for the table gradient alone, its coarse dense
+  levels privatised) and a 3-step profile (idle share, K7's share); the 8
+  eval views at 256^2 (4,194,304 samples with the density-gradient
+  normals: one K7 forward and one backward for the positions alone a
+  view), each timed; eval view 0's mean accumulation below the init's and
+  its colour's distances to the stub's colour reported (the stub colour is
+  salted per process, and under the reference's dynamics the distance
+  falls for some colours and rises for others); what the guidance alone
+  moves held: 100 steps from the init end nearer the stub's objective
+  than the same steps and draws with its gradient zeroed; K7 at the
+  step's and the eval view's captured inputs in both designs against the
+  twins (the forward within K7_MAX_ABS, the backward with the positions
+  alone, the table alone and both within the float64 twin's summation
+  bounds), timed beside a bound that reads each touched table line once;
+  one step (MLPs in float32, the CPU's draws) and one 64^2 eval render
+  card vs CPU (depth and normals over the pixels of accumulation > 0.5;
+  the normals with the CPU's K7 position gradient faulted reported, the
+  finest level dropped held beyond the limit).
 
 Since phases 61-63 came, phases 36-37, 43, 45 and 50-51 run 600 steps
-(1000 before), 42 and 44 (nerfacto distorted and masked) 300, 55
-(nerfacto-big) 600 of its gate's 3000 (1000 before phases 68-69), 57 200
+(1000 before; 400 since phase 73), 42 and 44 (nerfacto distorted and
+masked) 300, 55 (nerfacto-big) 600 of its gate's 3000 (1000 before phases
+68-69; 300 since phase 73), 57 200
 (1000 before, 300 before phase 70), 58-60 300 (500 before) and 62-63 200
 (500 before, 300 before phase 70), to keep the run inside its budget;
 since phases 68-69 the scenes are made in the background (``basic`` from
@@ -282,7 +309,10 @@ phase 2, ``distorted`` and ``masked`` beside the others from phase 34);
 since phase 70 phase 54 (nerfacto-huge) runs 500 of its gate's 1500 steps
 (the full gate before; the loss must now fall, the gate is not asked);
 phases 71-72 (~21 s) are paid for by phase 54 at 250 steps and phase 67
-(nerfacto with predict_normals) at 600 of its 5000 (800 before).
+(nerfacto with predict_normals) at 600 of its 5000 (800 before); phase 73
+(~48 s) is paid for by phases 36-37, 43, 45 and 50-51 at 400 steps,
+phase 55 (nerfacto-big) at 300 and phase 25's profile over a 256^2 frame
+of the same view (the 512^2 frame before: ~50 s under the profiler).
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -1628,6 +1658,7 @@ def splat_card_vs_cpu():
 # contraction): L5 F2 T=2^17, resolutions 16..128 (3 dense, 2 hashed levels)
 PROP_LEVELS, PROP_LOG2_T, PROP_F, PROP_MIN_RES, PROP_MAX_RES = 5, 17, 2, 16, 128
 NEUS_RAYS = 2048  # the method config's train_num_rays_per_batch and eval chunk
+PROFILED_HW = 256  # phase 25's profiled neus-facto frame: a quarter of FRAME_HW^2's chunks
 NEUS_SAMPLES = (256, 96)  # proposal samples per ray, rounds 1 and 2
 NEUS_EARLY, NEUS_START, NEUS_WARMUP, NEUS_TIMED = 300, 6000, 3, 10
 NEUS_CHECK_RAYS = 128
@@ -3161,7 +3192,7 @@ OPTIONS_FLAGS = ("--model.use-bilateral-grid", "True", "--model.camera-optimizer
 # and masked; splatfacto-mcmc and -big), cut in depth (their full runs:
 # PERF.md §6): 600, past the splat methods' first refine at step 500, to
 # fit phases 61-67
-CUT_GATE_STEPS = 600
+CUT_GATE_STEPS = 400
 # nerfacto's gates on distorted and masked (phases 42 and 44): 300, as the
 # nerfacto family's (their loss must fall)
 NERF_CUT_STEPS = 300
@@ -3640,7 +3671,7 @@ def options_and_methods(ph, card, scene, disk_root, disk, k4_inputs_file=None):
 # nerfacto-big's gate run (phase 55), cut in depth from its 3000 steps to
 # fit phases 61-69, and nerfacto-huge's (phase 54) from its 1500 to fit
 # phase 70 (the full gates: PERF.md §6)
-BIG_CUT_STEPS = 600
+BIG_CUT_STEPS = 300
 HUGE_CUT_STEPS = 250
 NEUS_PLAIN_STEPS = 200  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
 NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
@@ -6406,6 +6437,463 @@ def process_data_phase(name, card, disk_root, scene):
                 loss=(head, tail), launches=counts, train_s=train_s, pillow=pillow, wall_s=wall)
 
 
+# --------------------------------------------------------------------------
+# generfacto (phase 73): text-to-3D through the CLI with the stub guidance
+
+
+GEN_STEPS = 500  # cut in depth from the method config's 20,000
+GEN_WARMUP, GEN_TIMED = 3, 20
+GEN_CHECK_EVAL_HW = 64  # the eval render held card vs CPU
+# one step card vs CPU: the loss and its terms, every gradient of its peak
+# (MLPs in float32 on both sides: K7 is the exact trilerp, so the step
+# differs only in summation order); the eval render's outputs mean abs
+GEN_LOSS_RTOL, GEN_GRAD_REL, GEN_EVAL_MEAN_ABS = 2e-3, 5e-2, 1e-2
+# K7's launches per training step (the table gradient alone) and per eval
+# view (the normals' position gradient alone); no block-layout kernel
+GEN_LAUNCHES = {"hash_encode_flat": 1, "hash_encode_flat_bwd": 1}
+# The stub pulls the training renders (over random backgrounds) toward a
+# colour seeded by hash(prompt), which Python salts per process, while the
+# opacity term thins the object: where the accumulation is small the
+# colour head overshoots the colour to move the composite, so eval view
+# 0's distance to it falls for some colours and rises for others, in the
+# reference's own trajectory too (tests/generfacto_trajectory_vs_jax.py,
+# paired on the CPU). That distance is reported. What is held is what the
+# guidance alone moves: GEN_GUIDED_STEPS steps from the init with the
+# stub's gradient end nearer the stub's objective than the same steps and
+# draws with that gradient zeroed (``guidance_pull``).
+GEN_GUIDED_STEPS = 100
+# the eval render card vs CPU: depth and normals held over the pixels of
+# accumulation > 0.5; the same gap with the CPU's position gradient
+# faulted is reported (the finest level dropped, which must exceed the
+# limit, so the check can see a wrong normals path; the first hashed
+# level's sign flipped, a subtler fault)
+GEN_LIVE_ACC = 0.5
+GEN_NONE = ("hash_encode_block", "hash_encode_block_bwd", "hash_encode_block_exact", "hash_encode_block_exact_bwd",
+            "hash_encode_block_bwd_bwd", "hash_encode_block_per_thread") + PER_THREAD
+
+
+def flat_touched_line_bytes(pos, table, kw):
+    """Bytes of the distinct 128-byte lines of ``table`` that K7 reads at
+    ``pos``: each level's 8 corners' F floats (an entry lies within one
+    line at F <= 32), every line read once from HBM. Generfacto's table
+    (64 MiB) is beyond the 50 MB L2."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    L, S, _ = table.shape
+    T = kw["hash_table_size"]
+    F = 128 * S // T
+    total = 0
+    with torch.no_grad():
+        for res in hg.compute_level_resolutions(L, kw["min_res"], kw["max_res"]):
+            entries, _ = hg._level_corners(pos, int(res), T)
+            total += int(torch.unique(entries * F // 32).numel()) * 128
+    return total
+
+
+def generfacto_counts(name, counts, per, label):
+    """K7 forward and backward launched ``per`` times each, nothing else of the hash grid."""
+    want = {k: v * per for k, v in GEN_LAUNCHES.items()}
+    got = {k: counts.get(k, 0) for k in want}
+    stray = {k: counts[k] for k in GEN_NONE if counts.get(k)}
+    if got != want or stray:
+        raise AssertionError(f"{name}: {label}: K7 launches {got}, want {want}; others launched {stray}")
+
+
+def colour_gaps(out, target):
+    """Distances of eval view 0's colour to the stub's target colour: the
+    mean rgb over the pixels of accumulation > 0.5 (None where there is
+    none) with their count, and the field's own colour, the composite
+    without the white background, sum(rgb - (1 - acc)) / sum(acc), which
+    stays defined however far the opacity term thins the object."""
+    rgb, acc = out["rgb"], out["accumulation"]
+    target = target.to(rgb.device)
+    live = acc[..., 0] > 0.5
+    n = int(live.sum())
+    masked = float(torch.linalg.norm(rgb[live].mean(dim=0) - target)) if n else None
+    field = (rgb - (1.0 - acc)).reshape(-1, 3).sum(dim=0) / acc.sum()
+    return masked, n, float(torch.linalg.norm(field - target)), float(acc.mean())
+
+
+def generfacto_pipeline(config, device, seed, eval_hw=None):
+    """A fresh generative pipeline of ``config`` (its eval views at
+    ``eval_hw`` if given) with its init state from ``seed``."""
+    from nerfstudio_torch.data.random_cameras_datamanager import RandomCamerasConfig
+    from nerfstudio_torch.pipelines.generative_pipeline import GenerativePipeline
+
+    config = copy.deepcopy(config)
+    if eval_hw is not None:
+        config.random_cameras = RandomCamerasConfig(eval_resolution=eval_hw)
+    pipe = GenerativePipeline(config, seed=seed, device=device)
+    return pipe, pipe.init_state(torch.Generator(device=device).manual_seed(seed))
+
+
+def stub_objective(pipe, step, seed):
+    """The stub's objective on the 8 eval views: the mean squared distance
+    to the stub's colour of training-mode renders at ``step``'s blob
+    strength (rgb alone), each over a random background drawn from one
+    generator seeded with ``seed``."""
+    from nerfstudio_torch.models.generfacto import GenerfactoModel
+
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    errs = []
+    for cams in pipe.datamanager.eval_cameras():
+        with torch.no_grad():
+            rgb = pipe.model(cams.generate_rays(camera_indices=0).flatten(), generator=gen, loss_only=True,
+                             **GenerfactoModel.step_kwargs(step, pipe.model_cfg))["rgb"]
+        errs.append(float(((rgb - pipe.text_embedding) ** 2).sum(-1).mean()))
+    return statistics.fmean(errs)
+
+
+def guidance_pull(config, steps, device="cuda"):
+    """What the guidance alone moves: from the init at ``config.seed`` (as
+    the CLI draws it), ``steps`` steps with the stub's gradient, then the
+    same steps and draws with it zeroed (the stub still called, its result
+    scaled by 0); the stub's objective (``stub_objective``) at the init and
+    after each run."""
+    from nerfstudio_torch.pipelines.generative_pipeline import GenerativePipeline
+
+    out = {}
+    for mode in ("guided", "zeroed"):
+        pipe = GenerativePipeline(config, seed=config.seed, device=device)
+        gen = torch.Generator(device=device).manual_seed(config.seed)
+        state = pipe.init_state(gen)
+        if mode == "guided":
+            out["init"] = stub_objective(pipe, 0, SEED)
+        else:
+            stub = pipe.guidance.sds_grad
+            pipe.guidance.sds_grad = lambda *a, **k: stub(*a, **k) * 0.0
+        pipe.train(state, steps, gen)
+        out[mode] = stub_objective(pipe, steps, SEED)
+        del pipe, state
+    return out
+
+
+def drop_finest_level(grad, levels, T):
+    """The cotangent with the finest level's columns zeroed."""
+    F = grad.shape[1] // len(levels)
+    grad = grad.clone()
+    grad[:, -F:] = 0
+    return grad
+
+
+def flip_first_hashed_level(grad, levels, T):
+    """The cotangent with the first hashed level's columns negated (a level
+    is dense while (res + 1)^3 <= T)."""
+    F = grad.shape[1] // len(levels)
+    lvl = next(i for i, res in enumerate(levels) if (int(res) + 1) ** 3 > T)
+    grad = grad.clone()
+    grad[:, lvl * F:(lvl + 1) * F] *= -1
+    return grad
+
+
+def faulted_normals(pipe, state, view, fault):
+    """``render_eval_image``'s normals on the CPU with K7's position
+    gradient faulted: ``fault(grad, levels, T)`` maps the cotangent
+    (n, L*F) of every K7 backward that asks for the positions."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    twin_bwd = hg._flat_twin_bwd
+
+    def bwd(pos, table, grad, **kw):
+        if kw.get("need_positions", True):
+            levels = hg.compute_level_resolutions(table.shape[0], kw["min_res"], kw["max_res"])
+            grad = fault(grad, levels, kw["hash_table_size"])
+        return twin_bwd(pos, table, grad, **kw)
+
+    hg._flat_twin_bwd = bwd
+    try:
+        return pipe.render_eval_image(state, view)["normals"].float()
+    finally:
+        hg._flat_twin_bwd = twin_bwd
+
+
+def live_gap(a, b, live):
+    """Mean abs of ``a - b`` over the pixels ``live`` (res, res)."""
+    return float((a - b)[live].abs().mean())
+
+
+def generfacto_card_vs_cpu(config, payload):
+    """One step at the trained state on the card and on the CPU twins with
+    the CPU's draws handed in, the MLPs in float32 on both sides: the loss
+    and its terms within GEN_LOSS_RTOL, every gradient within GEN_GRAD_REL
+    of its peak; then one GEN_CHECK_EVAL_HW^2 eval render (view 1): rgb
+    and accumulation within GEN_EVAL_MEAN_ABS mean abs over every pixel,
+    depth and normals (ratios over the ray's weights, which vanish off the
+    object) within it over the pixels of the CPU's accumulation >
+    GEN_LIVE_ACC. Reported beside: depth and normals over every pixel and
+    weighed by the accumulation, and the normals' gap with the CPU's K7
+    position gradient faulted: the finest level dropped, which must exceed
+    the limit, and the first hashed level's sign flipped."""
+    from nerfstudio_torch.data.random_cameras_datamanager import RandomCamerasConfig
+    from nerfstudio_torch.models.generfacto import GenerfactoDraws
+    from nerfstudio_torch.pipelines.generative_pipeline import GenerativeDraws
+
+    res = RandomCamerasConfig().train_resolution
+    gen = torch.Generator().manual_seed(SEED + 73)
+    rays = res * res
+    draws = GenerativeDraws(GenerfactoDraws(jitter=torch.rand((rays, 1), generator=gen),
+                                            background=torch.rand((rays, 3), generator=gen)),
+                            sds_noise=torch.randn((res, res, 3), generator=gen))
+    metrics, grads, evals = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        pipe, state = generfacto_pipeline(config, device, config.seed, eval_hw=GEN_CHECK_EVAL_HW)
+        pipe.restore(state, payload)
+        float32_mlps(pipe.model)
+        on = GenerativeDraws(GenerfactoDraws(**{k: v.to(device) for k, v in vars(draws.model).items()
+                                                if v is not None}), draws.sds_noise.to(device))
+        m = pipe.train_step(state, state.step, draws=on)
+        metrics[device] = {k: float(v) for k, v in m.items()}
+        grads[device] = {n: p.grad.detach().double().cpu() for n, p in pipe.model.named_parameters()}
+        # the eval render at the parameters before the step's update
+        pipe.restore(state, payload)
+        evals[device] = {k: v.float().cpu() for k, v in pipe.render_eval_image(state, 1).items()}
+        if device == "cpu":
+            faulted = {name: faulted_normals(pipe, state, 1, fault) for name, fault in
+                       (("finest level dropped", drop_finest_level),
+                        ("first hashed level flipped", flip_first_hashed_level))}
+        del pipe, state
+    loss_rel = {k: abs(metrics["cuda"][k] - v) / abs(v) for k, v in metrics["cpu"].items()}
+    grad_rel = {n: float((grads["cuda"][n] - g).abs().max() / g.abs().max()) for n, g in grads["cpu"].items()}
+    # rgb and accumulation over every pixel; depth and normals, ratios over
+    # the weights that vanish off the object, over the object's pixels
+    acc = evals["cpu"]["accumulation"]
+    live = acc[..., 0] > GEN_LIVE_ACC
+    n_live = int(live.sum())
+    eval_gap = {k: float((evals["cuda"][k] - v).abs().mean()) if k in ("rgb", "accumulation") else
+                (live_gap(evals["cuda"][k], v, live) if n_live else math.inf)
+                for k, v in evals["cpu"].items()}
+    beside = {k: dict(every_pixel=float((evals["cuda"][k] - v).abs().mean()),
+                      weighed=float(((evals["cuda"][k] - v).abs() * acc).sum() / (acc.sum() * v.shape[-1])))
+              for k, v in evals["cpu"].items() if k not in ("rgb", "accumulation")}
+    fault_gap = {k: live_gap(evals["cuda"]["normals"], v, live) if n_live else 0.0 for k, v in faulted.items()}
+    ok = (max(loss_rel.values()) <= GEN_LOSS_RTOL and max(grad_rel.values()) <= GEN_GRAD_REL
+          and max(eval_gap.values()) <= GEN_EVAL_MEAN_ABS
+          and fault_gap["finest level dropped"] > GEN_EVAL_MEAN_ABS)
+    return dict(loss=metrics, loss_rel=loss_rel, grad_rel=grad_rel, eval_mean_abs=eval_gap, live_pixels=n_live,
+                eval_beside=beside, faulted_normals=fault_gap, ok=ok)
+
+
+def k7_generfacto_records(name, label, fwd_call, bwd_call, card, yardstick):
+    """K7 at one of generfacto's shapes, from a captured forward call and
+    backward call: the forward in every design against its twin (within
+    K7_MAX_ABS), the backward with the positions alone, the table alone and
+    both against the float64 twin (within the summation-order bounds), each
+    timed (CUDA events in turns, profiler device time, 50 back to back)
+    beside the twin and a bound that reads each touched 128-byte table line
+    once (the table gradient, where asked, written whole)."""
+    from nerfstudio_torch.ops import hash_grid as hg
+
+    (pos, table), kw = fwd_call
+    L, S, _ = table.shape
+    F = 128 * S // kw["hash_table_size"]
+    n = pos.shape[0]
+    g = bwd_call[0][2]
+    what = f"{label}: N={n} L={L} F={F} T=2^{kw['hash_table_size'].bit_length() - 1} res {kw['min_res']}-{kw['max_res']}"
+    errs, timing, fn_bound = check_flat(name, pos, table, kw, what)
+    times = time_flat(timing)
+    default = hg._pick_design(F)
+    with torch.no_grad():
+        twin_ms = median_ms(timing["twin"], runs=3, warmup=1)
+        fwd_batch = batch_ms(timing["kernel"])
+    lines = flat_touched_line_bytes(pos, table, kw)
+    fwd_bound = bound(nbytes(pos) + n * L * F * 4 + lines, hash_fwd_ops(n, L, F))
+    recs = [dict(kernel="K7 fwd", inputs=label, n=n, levels=L, features=F, hash_table_size=kw["hash_table_size"],
+                 max_res=kw["max_res"], table_bytes=nbytes(table), touched_bytes=lines, design=default,
+                 ms=times[default][0], device_ms=times[default][2], batch_ms=fwd_batch, plain_ms=twin_ms,
+                 bound_ms=fwd_bound[0], bound_by=fwd_bound[1], table_bound_ms=fn_bound[0],
+                 max_abs_err=errs[default],
+                 designs={d: dict(ms=times[d][0], ms_runs=times[d][1], device_ms=times[d][2], max_abs_err=errs[d])
+                          for d in hg.DESIGNS})]
+    for needs in (dict(need_positions=True, need_table=False), dict(need_positions=False, need_table=True),
+                  dict(need_positions=True, need_table=True)):
+        rec = check_bwd_designs(f"{name}, {label}", "K7", pos, table, g, kw, yardstick=yardstick and needs["need_table"],
+                                **needs)
+        with torch.no_grad():
+            twin_ms = median_ms(lambda: hg._flat_twin_bwd(pos, table, g, **needs, **kw), runs=3, warmup=1)
+        moved = (nbytes(pos, g) + (lines + nbytes(pos) if needs["need_positions"] else 0)
+                 + (nbytes(table) if needs["need_table"] else 0))
+        line_bound = bound(moved, hash_bwd_ops(n, L, F, needs["need_positions"]))
+        d = rec["designs"][default]
+        recs.append(dict(kernel="K7 bwd", inputs=label, n=n, levels=L, features=F,
+                         hash_table_size=kw["hash_table_size"], max_res=kw["max_res"], table_bytes=nbytes(table),
+                         touched_bytes=lines, **needs, privatised_levels=rec["privatised_levels"], design=default,
+                         ms=d["ms"], device_ms=d["device_ms"], batch_ms=d["batch_ms"], plain_ms=twin_ms,
+                         bound_ms=line_bound[0], bound_by=line_bound[1], table_bound_ms=rec["bound_ms"],
+                         max_abs_err=max(r["max_abs_err"] for r in rec["designs"].values()),
+                         scatter_alone=rec["scatter_alone"], designs=rec["designs"]))
+    for r in recs:
+        asked = ("" if r["kernel"] == "K7 fwd" else
+                 f" ({'positions' if r['need_positions'] else ''}{' and ' if r['need_positions'] and r['need_table'] else ''}"
+                 f"{'table' if r['need_table'] else ''}{' alone' if r['need_positions'] != r['need_table'] else ''}"
+                 f", privatised levels {r['privatised_levels']})")
+        log(name, f"{r['kernel']}{asked} at {label} (N={r['n']}, touched lines {r['touched_bytes'] / 2**20:.1f} MiB of "
+            f"the {r['table_bytes'] / 2**20:.0f} MiB table) on {card}: {r['design']} {r['ms']:.4f} ms (events), "
+            f"device {r['device_ms']:.4f}, back to back {r['batch_ms']:.4f}; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} (the touched lines; the whole table's {r['table_bound_ms']:.4f}); twin "
+            f"{r['plain_ms']:.3f} ms; max |err| {r['max_abs_err']:.3g}; the other designs: "
+            + ", ".join(f"{k} {v['ms']:.4f} / {v['device_ms']:.4f}" for k, v in r["designs"].items()
+                        if k != r["design"]))
+    return recs
+
+
+def generfacto_phase(name, card, disk_root):
+    """Phase 73: ``scripts.train generfacto`` on the card at the shipped
+    config (the flat field L16 F2 T=2^19 at levels 16..2048, 64^2 renders
+    of 64 samples, the stub guidance, which the card's machine takes for
+    want of diffusers and weights), cut in depth to GEN_STEPS of its 20,000
+    steps: the launches (K7 forward and backward once a step, nothing else
+    of the hash grid), the losses finite, the config and checkpoint
+    written. From the checkpoint: GEN_TIMED timed steps (one step's K7
+    backward asked for the table alone), a 3-step profile (idle share, K7's
+    share); the 8 eval views at 256^2 (K7 forward and backward once a view,
+    the positions alone), each timed; eval view 0's mean accumulation
+    below the init's, and its colour's distances to the stub's at the init
+    and the end (``colour_gaps``; reported, as the note at GEN_NONE says);
+    GEN_GUIDED_STEPS steps from the init nearer the stub's objective with
+    the guidance than with it zeroed (``guidance_pull``); K7 at the step's
+    and at eval view 0's captured inputs in every design against the twins
+    (``k7_generfacto_records``); one step and one 64^2 eval render card vs
+    CPU (``generfacto_card_vs_cpu``)."""
+    from nerfstudio_torch.configs.method_configs import get_method
+    from nerfstudio_torch.engine.trainer import read_checkpoint
+    from nerfstudio_torch.ops import hash_grid as hg
+    from nerfstudio_torch.scripts import train as train_script
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(disk_root, "generfacto")
+    zero_counts()
+    t0 = time.perf_counter()
+    train_script.main(["generfacto", "--trainer.max_num_iterations", str(GEN_STEPS), "--trainer.output_dir",
+                       out_dir, "--trainer.timestamp", "run", "--trainer.vis", "none"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    generfacto_counts(name, launches, GEN_STEPS, f"{GEN_STEPS} CLI steps")
+    run_dir = os.path.join(out_dir, "unnamed", "generfacto", "run")
+    with open(os.path.join(run_dir, "config.yml"), encoding="utf-8") as f:
+        written = json.load(f)
+    if written["method_name"] != "generfacto" or not os.path.isfile(os.path.join(run_dir, "config.pkl")):
+        raise AssertionError(f"{name}: the run's config was not written")
+    losses = train_losses(run_dir)
+    if len(losses) != GEN_STEPS // 50 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: logged losses {losses}")
+    step, payload = read_checkpoint(os.path.join(run_dir, "nerfstudio_models"))
+    if step != GEN_STEPS or not all(torch.isfinite(v).all() for v in payload["model"].values()):
+        raise AssertionError(f"{name}: checkpoint at step {step}, finite {[k for k, v in payload['model'].items()]}")
+
+    config = get_method("generfacto")
+    pipe, state = generfacto_pipeline(config, "cuda", config.seed)
+    guidance = type(pipe.guidance).__name__
+    target = pipe.text_embedding
+    first = colour_gaps(pipe.render_eval_image(state, 0), target)
+    pipe.restore(state, payload)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7300)
+
+    def one_step():
+        return pipe.train_step(state, state.step, gen)
+
+    calls = capture_kernel_calls({"fwd": (hg, "_flat_kernel"), "bwd": (hg, "_flat_bwd_kernel")}, one_step)
+    if len(calls["fwd"]) != 1 or len(calls["bwd"]) != 1 or calls["bwd"][0][1]["need_positions"] \
+            or not calls["bwd"][0][1]["need_table"]:
+        raise AssertionError(f"{name}: one step called K7 {len(calls['fwd'])} times, its backward "
+                             f"{[c[1] for c in calls['bwd']]}")
+    for _ in range(GEN_WARMUP):
+        one_step()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GEN_TIMED):
+        metrics = one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / GEN_TIMED * 1e3
+    generfacto_counts(name, read_counts(), GEN_TIMED, f"{GEN_TIMED} timed steps")
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"{name}: step metrics {metrics}")
+    # the device-busy time of PROFILED_STEPS profiled steps against the
+    # unprofiled step's host time: the idle share, and K7's share of the busy time
+    prof = profile_device(lambda: [one_step() for _ in range(PROFILED_STEPS)])
+    idle = k7_share = None
+    if prof is not None:
+        rows, busy_ms, activities, _ = prof
+        idle = dict(busy_ms=busy_ms, step_ms=step_ms, idle=1 - busy_ms / step_ms, activities=activities,
+                    top=[(n[:80], t) for n, t in rows[:8]])
+        k7_share = sum(t for n, t in rows if is_k7(n)) / busy_ms
+
+    # the eval views: K7 forward and backward (the positions alone) once each
+    view_ms, last = [], None
+    eval_calls = None
+    for v in range(pipe.datamanager.config.num_eval_angles):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if v == 0:
+            eval_calls = capture_kernel_calls({"fwd": (hg, "_flat_kernel"), "bwd": (hg, "_flat_bwd_kernel")},
+                                              lambda: pipe.render_eval_image(state, 0))
+            out = None
+        else:
+            out = pipe.render_eval_image(state, v)
+        torch.cuda.synchronize()
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        generfacto_counts(name, read_counts(), 1, f"eval view {v}")
+        if out is not None and not all(torch.isfinite(x).all() for x in out.values()):
+            raise AssertionError(f"{name}: eval view {v} has non-finite outputs")
+    bwd_needs = eval_calls["bwd"][0][1]
+    if not bwd_needs["need_positions"] or bwd_needs["need_table"]:
+        raise AssertionError(f"{name}: the eval view's K7 backward asked {bwd_needs}")
+    last = colour_gaps(pipe.render_eval_image(state, 0), target)
+    # the opacity term thins the object whatever the stub's colour; the
+    # colour's distance is reported, not held (the note at GEN_NONE)
+    if not last[3] < first[3]:
+        raise AssertionError(f"{name}: eval view 0's mean accumulation did not fall: {first} -> {last}")
+    pull = guidance_pull(config, GEN_GUIDED_STEPS)
+    if not pull["guided"] < pull["zeroed"]:
+        raise AssertionError(f"{name}: the guidance did not pull the renders toward the stub's colour: {pull}")
+    log(name, f"scripts.train generfacto on {card}, guidance {guidance} (no diffusers or weights on this machine), "
+        f"{GEN_STEPS} of the config's 20,000 steps in {train_s:.1f} s: launches {dict((k, launches[k]) for k in GEN_LAUNCHES)} "
+        f"(K7 fwd and bwd once a step, the bwd for the table alone), loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"step {step_ms:.2f} ms (host clock over {GEN_TIMED} steps), idle "
+        + ("not measured (no device activity profiled)" if idle is None else
+           f"{idle['idle']:.1%} ({idle['busy_ms']:.3f} ms device-busy of a step over {PROFILED_STEPS} profiled steps, "
+           f"K7 {k7_share:.1%} of it; the costliest: "
+           + ", ".join(f"{n[:40]} {t:.3f}" for n, t in idle["top"][:5]) + ")")
+        + f"; eval views at 256^2 (4,194,304 samples, normals) {[round(m, 1) for m in view_ms]} ms, each K7 fwd 1 and "
+        f"bwd 1 (positions alone); eval view 0's distance to the stub's colour "
+        f"{[round(float(x), 4) for x in target.cpu()]}: mean rgb where accumulation > 0.5 "
+        f"{'n/a' if first[0] is None else round(first[0], 4)} -> {'n/a' if last[0] is None else round(last[0], 4)} "
+        f"({first[1]} -> {last[1]} such pixels of 65,536), the field's colour {first[2]:.4f} -> {last[2]:.4f} "
+        f"(reported, not held); mean accumulation {first[3]:.4f} -> {last[3]:.4f}; the stub's objective on the 8 "
+        f"eval views (mean squared distance to its colour over one random background) at the init "
+        f"{pull['init']:.6f}, after {GEN_GUIDED_STEPS} steps from it {pull['guided']:.6f} guided against "
+        f"{pull['zeroed']:.6f} with the same draws and the guidance zeroed")
+    del pipe, state
+
+    k7 = (k7_generfacto_records(name, f"a training step (64^2 x 64 samples)", calls["fwd"][0], calls["bwd"][0], card,
+                                yardstick=True)
+          + k7_generfacto_records(name, "an eval view (256^2 x 64 samples)", eval_calls["fwd"][0],
+                                  eval_calls["bwd"][0], card, yardstick=False))
+    del calls, eval_calls
+    torch.cuda.empty_cache()
+    versus = generfacto_card_vs_cpu(config, payload)
+    log(name, f"one step at step {GEN_STEPS} card vs CPU (MLPs float32, the CPU's draws): loss rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in versus["loss_rel"].items())
+        + f" (limit {GEN_LOSS_RTOL}); gradients of their peak max {max(versus['grad_rel'].values()):.2e} (limit "
+        f"{GEN_GRAD_REL}); a {GEN_CHECK_EVAL_HW}^2 eval render mean abs (rgb and accumulation over every pixel, "
+        f"depth and normals over the {versus['live_pixels']} of accumulation > {GEN_LIVE_ACC}) "
+        + ", ".join(f"{k} {v:.2e}" for k, v in versus["eval_mean_abs"].items())
+        + f" (limit {GEN_EVAL_MEAN_ABS}); beside, over every pixel / weighed by the accumulation: "
+        + ", ".join(f"{k} {v['every_pixel']:.2e} / {v['weighed']:.2e}" for k, v in versus["eval_beside"].items())
+        + "; the normals with the CPU's K7 position gradient faulted (the first must exceed the limit): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in versus["faulted_normals"].items()))
+    if not versus["ok"]:
+        raise AssertionError(f"{name}: card vs CPU beyond its limits")
+    wall = time.perf_counter() - t_phase
+    log(name, f"{wall:.1f} s wall")
+    return dict(guidance=guidance, steps=GEN_STEPS, train_s=train_s, launches={k: launches[k] for k in GEN_LAUNCHES},
+                launches_per_step=dict(GEN_LAUNCHES), launches_per_eval_view=dict(GEN_LAUNCHES), losses=losses,
+                step_ms=step_ms, idle=idle, k7_share=k7_share, eval_view_ms=view_ms,
+                colour_gaps=dict(first=first, last=last), guidance_pull=pull, k7=k7, card_vs_cpu=versus, run_dir=run_dir, wall_s=wall)
+
+
 def gate_cell(method, scene, out) -> int:
     """One gate cell in full through ``scripts.gate``'s runner (the gates
     asked: the record's ``pass``), then the device's idle share over
@@ -6452,7 +6940,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 72
+    n_phases = 73
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -6926,7 +7414,12 @@ def main() -> int:
     log(ph(25, "neus-facto frame by K7 design"), f"on {card}, in turns (CUDA events, mean [two frames]): "
         + ", ".join(f"{v} {ms:.1f} {[round(m, 1) for m in runs]}" for v, (ms, runs) in neus_frames.items())
         + f"; the default is {flat_default}")
-    neus_prof = profile_device(lambda: render_camera(model, None, cams, 1, NEUS_RAYS), per=1)
+    # the profile takes a PROFILED_HW^2 frame of the same view: the same
+    # 2048-ray chunks, a quarter as many (the profiler's cost grows with
+    # the frame's activities), its idle share against that frame unprofiled
+    prof_cams = orbit_cameras(NUM_CAMERAS, PROFILED_HW, "cuda")
+    prof_frame_ms = median_ms(lambda: render_camera(model, None, prof_cams, 1, NEUS_RAYS), runs=1, warmup=1)
+    neus_prof = profile_device(lambda: render_camera(model, None, prof_cams, 1, NEUS_RAYS), per=1)
     neus_frame_prof = None
     if neus_prof is None:
         log(ph(25, "neus-facto frame profile"), "torch.profiler saw no device activity: device time not measured")
@@ -6937,11 +7430,11 @@ def main() -> int:
             cls = "K7 (flat hash grid)" if is_k7(name) else kernel_class(name)
             classes[cls] = classes.get(cls, 0.0) + tm
         k7_ms = classes.get("K7 (flat hash grid)", 0.0)
-        neus_frame_prof = dict(busy_ms=busy_ms, idle=1 - busy_ms / neus_frame_ms, activities=activities, k7_ms=k7_ms,
-                               classes=classes)
-        log(ph(25, "neus-facto frame profile"), f"one {FRAME_HW}^2 frame under torch.profiler: {activities:.0f} "
-            f"device activities and {busy_ms:.2f} ms of device-busy time, i.e. the device idles "
-            f"{1 - busy_ms / neus_frame_ms:.1%} of the unprofiled {neus_frame_ms:.1f} ms frame; K7 {k7_ms:.3f} ms "
+        neus_frame_prof = dict(profiled_hw=PROFILED_HW, profiled_frame_ms=prof_frame_ms, busy_ms=busy_ms,
+                               idle=1 - busy_ms / prof_frame_ms, activities=activities, k7_ms=k7_ms, classes=classes)
+        log(ph(25, "neus-facto frame profile"), f"one {PROFILED_HW}^2 frame of the same view under torch.profiler: "
+            f"{activities:.0f} device activities and {busy_ms:.2f} ms of device-busy time, i.e. the device idles "
+            f"{1 - busy_ms / prof_frame_ms:.1%} of the unprofiled {prof_frame_ms:.1f} ms frame; K7 {k7_ms:.3f} ms "
             f"({k7_ms / busy_ms:.1%} of busy); matrix products {gemm_flops / 1e9:.1f} GFLOP; by class (ms/frame): "
             + ", ".join(f"{c} {tm:.3f}" for c, tm in sorted(classes.items(), key=lambda kv: -kv[1])))
         for name, tm in rows[:12]:
@@ -7134,6 +7627,8 @@ def main() -> int:
         viewer = viewer_phase(ph(71, "viewer"), card, disk_root, {
             "nerfacto": disk["cli"]["run_dir"], "splatfacto": disk["gate_splatfacto"]["run_dir"]}, scene)
         process = process_data_phase(ph(72, "process_data"), card, disk_root, scene)
+        # 73. generfacto through the CLI with the stub guidance
+        generfacto = generfacto_phase(ph(73, "generfacto"), card, disk_root)
     finally:
         stop_scenes(disk_root, jobs)
 
@@ -7406,6 +7901,16 @@ def main() -> int:
             e["viewer_launches"] = {k: v for k, v in per.items() if v}
     kernels[0]["viewer"] = viewer
     kernels[0]["process_data"] = process
+    # generfacto (phase 73): K7 at its training and eval shapes, its
+    # launches per step and per eval view, the path's own record
+    for e, kernel in ((next(e for e in kernels if e["name"].startswith("hash_encode_flat ")), "K7 fwd"),
+                      (next(e for e in kernels if e["name"].startswith("hash_encode_flat_bwd ")), "K7 bwd")):
+        key = "hash_encode_flat" if kernel == "K7 fwd" else "hash_encode_flat_bwd"
+        e["generfacto"] = dict(launches=generfacto["launches"][key],
+                               launches_per_step=generfacto["launches_per_step"][key],
+                               launches_per_eval_view=generfacto["launches_per_eval_view"][key],
+                               shapes=[r for r in generfacto["k7"] if r["kernel"] == kernel])
+    kernels[0]["generfacto"] = {k: v for k, v in generfacto.items() if k != "k7"}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

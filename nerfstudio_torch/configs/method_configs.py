@@ -1,8 +1,10 @@
 """Method registry (counterpart of ``nerfstudio_tpu/configs/method_configs.py``):
 the ported methods' full configs (trainer, datamanager, dataparser, model,
-per-group optimizers), with the reference's settings and parsers. The
-reference's one other method, generfacto, raises ``NotImplementedError``
-naming its ROADMAP item."""
+per-group optimizers), with the reference's settings and parsers, every
+method of the reference's registry among them. Generfacto trains through
+its own pipeline (``pipelines/generative_pipeline.py``): its Adam lives
+there, so its ``optimizers`` are empty, and its datamanager and parser go
+unread (random cameras, no images), as the reference's."""
 
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from nerfstudio_torch.engine.schedulers import ExponentialDecaySchedulerConfig
 from nerfstudio_torch.engine.trainer import TrainerConfig
 from nerfstudio_torch.models.base_model import ModelConfig
 from nerfstudio_torch.models.depth_nerfacto import DepthNerfactoModelConfig
+from nerfstudio_torch.models.generfacto import GenerfactoModelConfig
 from nerfstudio_torch.models.instant_ngp import InstantNGPModelConfig
 from nerfstudio_torch.models.mipnerf import MipNerfModelConfig
 from nerfstudio_torch.models.nerfacto import NerfactoModelConfig
@@ -76,6 +79,7 @@ descriptions = {
     "dnerf": "Dynamic NeRF (temporal deformation).",
     "mipnerf": "Mip-NeRF with integrated positional encoding.",
     "tensorf": "TensoRF vector-matrix decomposition.",
+    "generfacto": "Text-to-3D (SDS).",
 }
 
 method_configs["nerfacto"] = MethodConfig(
@@ -298,8 +302,17 @@ method_configs["instant-ngp-bounded"] = MethodConfig(
     optimizers=_instant_ngp_optimizers(),
 )
 
-# the reference's other methods, by the ROADMAP queue 1 item that ports them
-NOT_PORTED = {"generfacto": 14}
+method_configs["generfacto"] = MethodConfig(
+    method_name="generfacto",
+    trainer=TrainerConfig(max_num_iterations=20000, steps_per_eval_image=0, steps_per_save=5000),
+    datamanager=DataManagerConfig(),
+    dataparser=NerfstudioDataParserConfig(),  # unread: random cameras
+    model=GenerfactoModelConfig(),
+    optimizers={},
+)
+
+# the reference's methods still to port, by the ROADMAP queue 1 item that ports them
+NOT_PORTED: Dict[str, int] = {}
 
 
 def get_method(name: str) -> MethodConfig:

@@ -14,8 +14,10 @@ where the dataset has them). ``DepthDataset`` reads a depth map per image
 or, without depth files, projects the parser's SfM points into each camera;
 ``SemanticDataset`` reads each image's class labels; ``SDFDataset`` reads
 the sdfstudio parser's monocular depth and normal priors (``.npy``), the
-normals turned from camera to world space. Resizing by ``scale_factor``
-and the C++ batch loader are not ported."""
+normals turned from camera to world space. ``scale_factor`` rescales the
+cameras and resizes each image as the reference's Pillow ``BILINEAR`` does;
+the images alone are resized, as the reference resizes them. The C++ batch
+loader is not ported: ``data/image_io`` takes its place."""
 
 from __future__ import annotations
 
@@ -26,19 +28,20 @@ import numpy as np
 
 from nerfstudio_torch.data.dataparsers.base_dataparser import DataparserOutputs, Semantics
 from nerfstudio_torch.data.image_io import read_image
+from nerfstudio_torch.process_data.process_data_utils import resize_bilinear
 
 
 class InputDataset:
     """(reference datasets.py:18-87)"""
 
     def __init__(self, dataparser_outputs: DataparserOutputs, scale_factor: float = 1.0):
-        if scale_factor != 1.0:
-            raise NotImplementedError("resizing a dataset's images (scale_factor != 1) is not ported")
         self._dataparser_outputs = dataparser_outputs
         self.scale_factor = scale_factor
         self.scene_box = dataparser_outputs.scene_box
         self.metadata = dataparser_outputs.metadata
         self.cameras = dataparser_outputs.cameras
+        if scale_factor != 1.0:
+            self.cameras = self.cameras.rescale_output_resolution(scaling_factor=scale_factor)
 
     def __len__(self) -> int:
         return len(self._dataparser_outputs.image_filenames)
@@ -48,8 +51,14 @@ class InputDataset:
         return self._dataparser_outputs.alpha_color
 
     def get_numpy_image(self, image_idx: int) -> np.ndarray:
-        """uint8 (H, W, C) image; grey becomes three channels (reference :36-51)."""
+        """uint8 (H, W, C) image, resized by ``scale_factor`` to (int(w s),
+        int(h s)) as Pillow's ``BILINEAR`` resize does, byte for byte
+        (``resize_bilinear``); grey becomes three channels (reference
+        :36-51)."""
         image = read_image(self._dataparser_outputs.image_filenames[image_idx])
+        if self.scale_factor != 1.0:
+            h, w = image.shape[:2]
+            image = resize_bilinear(image, int(w * self.scale_factor), int(h * self.scale_factor))
         if image.shape[-1] == 1:
             image = np.repeat(image, 3, axis=-1)
         return image

@@ -5,7 +5,9 @@ encoding; the per-camera appearance embedding in training, its mean at
 eval; colour MLP (3 x 64, sigmoid). The mode picks the hash path on every
 call: training (and the occupancy update) runs the stochastic trilerp K1,
 with its level-subsampled backward; eval runs the exact 8-corner trilerp
-K3, or K1 with ``exact_eval=False``. With ``use_semantics``, a semantic
+K3, or K1 with ``exact_eval=False``. With ``hash_block=False`` (the
+reference field's default, generfacto's) every call runs the flat layout's
+exact trilerp K7. With ``use_semantics``, a semantic
 head (MLP 2 x 64 and a linear layer to ``num_semantic_classes`` logits)
 reads the geometry feature with its gradient stopped. With
 ``use_pred_normals``, a predicted-normal head (MLP 3 x 64 over the
@@ -64,8 +66,6 @@ class NerfactoField(Field):
         device=None,
     ):
         super().__init__()
-        if not hash_block:
-            raise NotImplementedError("only the block-layout hash grid is ported")
         device = resolve_device(device)
         self.aabb = aabb
         self.geo_feat_dim = geo_feat_dim
@@ -84,8 +84,8 @@ class NerfactoField(Field):
             num_layers=num_layers,
             layer_width=hidden_dim,
             out_dim=1 + geo_feat_dim,
-            block=True,
-            block_exact=exact_eval,
+            block=hash_block,
+            block_exact=hash_block and exact_eval,
             device=device,
         )
         self.use_semantics = use_semantics

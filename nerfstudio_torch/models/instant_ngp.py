@@ -83,6 +83,8 @@ class InstantNGPModel(Model):
         super().__init__(config, scene_aabb, num_train_data)
         if config.field_z_pair:
             raise NotImplementedError("the z-pair hash layout is not ported: the port keeps the block layout")
+        if not config.field_block:
+            raise NotImplementedError("instant-ngp options not ported: field_block=False")
         self.field = NerfactoField(
             aabb=scene_aabb,
             num_images=num_train_data,

@@ -19,7 +19,7 @@ normals and predicted normals: both rendered (``normals``,
 ``pred_normals``), and in training the orientation loss and the
 predicted-normal loss (the normals' gradient stopped there). Not ported:
 the non-block proposal net (``prop_block=False``, whose one-corner
-stochastic path is retired)."""
+stochastic path is retired) and the flat-layout field (``field_block=False``)."""
 
 from __future__ import annotations
 
@@ -140,6 +140,10 @@ class NerfactoModel(Model):
             # the reference's non-block proposal net takes the one-corner
             # stochastic path (prop_stochastic_corner), which is retired
             raise NotImplementedError("nerfacto options not ported: prop_block=False")
+        if not cfg.field_block:
+            # the flat field runs only where a step of it is held against the
+            # reference (generfacto's)
+            raise NotImplementedError("nerfacto options not ported: field_block=False")
         device = resolve_device(device)
         self.field = NerfactoField(
             aabb=scene_aabb,

@@ -1075,7 +1075,9 @@ def _flat_bwd_kernel(
 
 class _FlatEncode(torch.autograd.Function):
     """K7 forward and backward, once differentiable: the reference
-    differentiates K7 (neus-facto's proposal nets) once only."""
+    differentiates K7 (neus-facto's proposal nets, generfacto's field) once
+    only. The backward asks for what the pass reads (``_engine_needs``):
+    generfacto's eval normals take the position gradient alone."""
 
     @staticmethod
     def forward(ctx, pos, table, geom):
@@ -1089,7 +1091,7 @@ class _FlatEncode(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         pos, table = ctx.saved_tensors
-        need_pos, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        need_pos, need_table = _engine_needs(ctx, 0), _engine_needs(ctx, 1)
         grad = grad.contiguous()
         bwd = _flat_bwd_kernel if pos.device.type == "cuda" else _flat_twin_bwd
         d_table, d_pos = bwd(pos, table, grad, need_positions=need_pos, need_table=need_table, **ctx.geom)

@@ -7,7 +7,8 @@ pyramids, and extracting video frames with ffmpeg (a subprocess; it raises
 without the binary). The pyramids are resized as the reference's Pillow
 ``Image.resize`` does by default, with Pillow's antialiased bicubic filter
 ported here in numpy (``resize_bicubic``) to Pillow's bytes, so PNG
-captures need no Pillow. JPEG, TIFF and BMP files are read and written
+captures need no Pillow; the same engine with Pillow's triangle filter is
+its bilinear resize (``resize_bilinear``, the datasets' ``scale_factor``). JPEG, TIFF and BMP files are read and written
 through Pillow where it imports and refused where it does not, as
 ``data/image_io`` rules for JPEG."""
 
@@ -41,23 +42,35 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """The triangle kernel, support 1 (Pillow's ``bilinear_filter``)."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# Pillow's filters as (kernel, support)
+BICUBIC = (_bicubic, 2.0)
+BILINEAR = (_triangle, 1.0)
+
+
+def _coefficients(in_size: int, out_size: int, filt=BICUBIC) -> Tuple[np.ndarray, np.ndarray]:
     """(first input index (out,), fixed-point weights (out, ksize) int64) of
-    one axis, as Pillow's ``precompute_coeffs`` and
+    one axis under ``filt``, as Pillow's ``precompute_coeffs`` and
     ``normalize_coeffs_8bpc`` make them: the filter's support scaled by the
     downscale factor, each output's taps in double precision, normalised to
     sum 1, then rounded half away from zero to 22 fractional bits; taps past
     the input's edge are dropped before the normalisation."""
+    kernel, filter_support = filt
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) truncates toward zero; a negative start clamps to 0 either way
     xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
     x = np.arange(ksize)[None, :]
-    w = _bicubic((x + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = kernel((x + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(x < xmax[:, None], w, 0.0)
     total = np.zeros((out_size, 1))
     for t in range(ksize):  # in tap order, as Pillow sums them
@@ -67,13 +80,13 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     return xmin, fixed.astype(np.int64)
 
 
-def _resample_axis(image: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(image: np.ndarray, out_size: int, axis: int, filt=BICUBIC) -> np.ndarray:
     """One 8-bit pass along ``axis`` (0 rows, 1 columns) of (H, W, C) uint8,
     as Pillow's ``ImagingResampleHorizontal/Vertical_8bpc``: a sum of
     uint8 x fixed-point products from half a unit, then shifted down and
     clipped to 0..255."""
     in_size = image.shape[axis]
-    xmin, k = _coefficients(in_size, out_size)
+    xmin, k = _coefficients(in_size, out_size, filt)
     src = np.moveaxis(image, axis, 0).astype(np.int64)
     acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
     for t in range(k.shape[1]):
@@ -99,13 +112,14 @@ def _unpremultiply(image: np.ndarray) -> np.ndarray:
     return np.concatenate([c, a], axis=-1).astype(np.uint8)
 
 
-def resize_bicubic(image: np.ndarray, width: int, height: int) -> np.ndarray:
+def resize_bicubic(image: np.ndarray, width: int, height: int, filt=BICUBIC) -> np.ndarray:
     """(H, W, C) or (H, W) uint8 -> (height, width[, C]) uint8, the bytes of
     Pillow's ``Image.resize((width, height))`` at its default filter
-    (antialiased bicubic) of an "L", "LA", "RGB" or "RGBA" image: the
-    horizontal pass first, then the vertical, each skipped where its size
-    does not change; an image with alpha resized premultiplied, as Pillow
-    does; the same size is a copy."""
+    (antialiased bicubic), or at ``filt`` (``BILINEAR``: ``resize_bilinear``),
+    of an "L", "LA", "RGB" or "RGBA" image: the horizontal pass first, then
+    the vertical, each skipped where its size does not change; an image
+    with alpha resized premultiplied, as Pillow does; the same size is a
+    copy."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
         raise ValueError(f"the resampler takes uint8 images, got {image.dtype}")
@@ -117,12 +131,18 @@ def resize_bicubic(image: np.ndarray, width: int, height: int) -> np.ndarray:
     if alpha:
         out = _premultiply(out)
     if width != out.shape[1]:
-        out = _resample_axis(out, width, 1)
+        out = _resample_axis(out, width, 1, filt)
     if height != out.shape[0]:
-        out = _resample_axis(out, height, 0)
+        out = _resample_axis(out, height, 0, filt)
     if alpha:
         out = _unpremultiply(out)
     return out[..., 0] if grey else out
+
+
+def resize_bilinear(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """The bytes of Pillow's ``Image.resize((width, height),
+    Image.BILINEAR)``: ``resize_bicubic`` with the triangle filter."""
+    return resize_bicubic(image, width, height, BILINEAR)
 
 
 def _pillow():

@@ -1,9 +1,11 @@
 """Train a method (counterpart of ``nerfstudio_tpu/scripts/train.py``):
 
     python -m nerfstudio_torch.scripts.train METHOD --data PATH [--dataparser NAME] [--a.b value ...]
+    python -m nerfstudio_torch.scripts.train generfacto [--model.prompt TEXT ...]
 
 ``--machine.device_type cpu`` runs on the CPU; the default is the GPU.
-Resume with ``--trainer.load_dir RUN/nerfstudio_models``. The run
+Resume with ``--trainer.load_dir RUN/nerfstudio_models`` (not generfacto,
+which the reference does not resume either). The run
 directory gets ``config.yml`` (the config as JSON, which YAML readers
 read too) and ``config.pkl`` (the config itself, for ``scripts/eval.py``)."""
 
@@ -45,10 +47,17 @@ def main(argv=None) -> None:
     if config.trainer.experiment_name is None:
         config.trainer.experiment_name = Path(config.data).name if config.data is not None else "unnamed"
 
+    from nerfstudio_torch.models.generfacto import GenerfactoModelConfig
     from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
 
     base = config.trainer.get_base_dir()
     config.trainer.timestamp = base.name  # one run directory from here on
+    if isinstance(config.model, GenerfactoModelConfig):  # random cameras: no --data
+        from nerfstudio_torch.pipelines.generative_pipeline import train_generfacto
+
+        save_config(config, base)
+        train_generfacto(config)
+        return
     if isinstance(config.model, SplatfactoModelConfig):
         from nerfstudio_torch.pipelines.splat_pipeline import train_splat
 

@@ -15,9 +15,11 @@ over on either side raises; D-NeRF's compact ``temporal_distortion/MLP_0``
 becomes ``temporal_distortion.mlp``. ``splat_state_from_jax`` carries a splatfacto
 train state whole: gaussians, densification state and Adam moments.
 ``trainer_checkpoint_from_jax`` turns a JAX train state (the ``TrainState``
-of nerfacto, neus-facto or instant-ngp, whose aux is the occupancy grid, or
-a ``SplatTrainState``) into the port's checkpoint payload, so a JAX-trained
-run resumes in the port;
+of nerfacto, neus-facto or instant-ngp, whose aux is the occupancy grid,
+generfacto's ``GenerativeTrainState``, whose one Adam covers every
+parameter, or a ``SplatTrainState``) into the port's checkpoint payload, so
+a JAX-trained run resumes in the port (generfacto's through
+``GenerativePipeline.restore``);
 ``dataparser_outputs_from_jax`` turns the JAX parser's outputs into the
 port's."""
 
@@ -234,11 +236,12 @@ def _present(tree: Mapping[str, Any]) -> Dict[str, Any]:
 def trainer_checkpoint_from_jax(state: Any, model: Optional[torch.nn.Module] = None, optimizer: Any = None,
                                 max_steps: int = 30000) -> Dict[str, Any]:
     """A JAX train state (numpy leaves) -> the port's checkpoint payload
-    (``engine.trainer.write_checkpoint``): for a ``TrainState`` the
-    model's state dict (``model`` gives the names and shapes), the per-group
-    Adam moments and counts laid out as ``optimizer`` (the port's
-    ``PerGroupAdam`` over ``model``) holds them, the occupancy grid and the
-    step; for a ``SplatTrainState`` the gaussians, ``SplatAdam``'s state
+    (``engine.trainer.write_checkpoint``): for a ``TrainState`` (or a
+    ``GenerativeTrainState``, whose optax Adam is one chain over every
+    parameter, against a ``PerGroupAdam`` of one group) the model's state
+    dict (``model`` gives the names and shapes), the per-group Adam moments
+    and counts laid out as ``optimizer`` (the port's ``PerGroupAdam`` over
+    ``model``) holds them, the occupancy grid and the step; for a ``SplatTrainState`` the gaussians, ``SplatAdam``'s state
     (means schedule over ``max_steps``), the densification state and the
     step. The generators' states are not carried: the resumed run draws
     from its own seed."""
@@ -255,7 +258,11 @@ def trainer_checkpoint_from_jax(state: Any, model: Optional[torch.nn.Module] = N
     if model is None or optimizer is None:
         raise ValueError("a TrainState converts against the port's model and its PerGroupAdam")
     state_dict, grid, step = train_state_from_jax(state, model)
-    inner = _fields(fields["opt_state"])["inner_states"]
+    opt_state = fields["opt_state"]
+    if hasattr(opt_state, "inner_states"):
+        inner = _fields(opt_state)["inner_states"]
+    else:  # one optax Adam over every parameter (generfacto's): the port's one group
+        inner = {group: opt_state for group in optimizer.optimizers}
     if set(inner) != set(optimizer.optimizers):
         raise ValueError(f"optimizer groups {sorted(inner)} vs the port's {sorted(optimizer.optimizers)}")
     name_of = {id(p): n for n, p in model.named_parameters()}

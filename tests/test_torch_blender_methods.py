@@ -160,13 +160,13 @@ def test_tensorf_resume_across_an_upsample_is_bit_equal(blender, tmp_path):
 
 
 def test_unported_methods_name_their_current_items():
-    """generfacto waits for its diffusion guidance (item 14), the one
-    method still refused; dnerf (with the D-NeRF parser and the cameras'
-    times), instant-ngp and its bounded variant are ported."""
+    """No method is refused any more: generfacto (item 14) is ported, its
+    config equal to JAX's field by field; dnerf (with the D-NeRF parser and
+    the cameras' times), instant-ngp and its bounded variant are ported."""
     from nerfstudio_torch.configs.method_configs import NOT_PORTED
+    from test_torch_vanilla_mipnerf import test_method_config_matches_jax as same_config
 
-    assert NOT_PORTED == {"generfacto": 14}
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_method("generfacto")
-    for method in ("tensorf", "vanilla-nerf", "mipnerf", "dnerf", "instant-ngp", "instant-ngp-bounded"):
+    assert NOT_PORTED == {}
+    same_config("generfacto")
+    for method in ("tensorf", "vanilla-nerf", "mipnerf", "dnerf", "instant-ngp", "instant-ngp-bounded", "generfacto"):
         assert get_method(method).method_name == method

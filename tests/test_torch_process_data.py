@@ -373,8 +373,8 @@ my_parser = DataParserSpecification(config=MyParserConfig, description="a plugin
 def test_plugins_register_through_the_environment(tmp_path, monkeypatch):
     """``NERFSTUDIO_TORCH_METHOD_CONFIGS`` and
     ``NERFSTUDIO_TORCH_DATAPARSER_CONFIGS`` register a method and a parser
-    (its ``-data`` alias too); the built-ins stay; generfacto is still
-    refused."""
+    (its ``-data`` alias too); the built-ins stay, generfacto among them
+    with JAX's config field by field."""
     from nerfstudio_torch.configs.method_configs import NOT_PORTED, get_method
     from nerfstudio_torch.data.dataparsers.registry import dataparser_registry, get_dataparser_config
 
@@ -389,9 +389,10 @@ def test_plugins_register_through_the_environment(tmp_path, monkeypatch):
         parser = get_dataparser_config(name)
         assert type(parser).__name__ == "MyParserConfig" and parser.scale_factor == 0.25
     assert {"mine", "mine-data", "blender", "blender-data", "colmap"} <= set(dataparser_registry())
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError):
-            get_method(name)
+    from test_torch_vanilla_mipnerf import test_method_config_matches_jax as same_config
+
+    assert "generfacto" not in NOT_PORTED
+    same_config("generfacto")
 
 
 @pytest.mark.parametrize("name", ["lerf", "kplanes-dynamic", "zipnerf", "no-such-method"])
