@@ -81,8 +81,8 @@ shapes its path gives it, and drives the port's paths from random weights:
   gate records' protocol (48 frames of 200^2), ``scripts.train`` nerfacto
   for 300 steps with a save at 150, a resume to 400, the eval of the first
   save and ``scripts.eval`` of the end (the PSNR must rise); the nerfacto
-  and splatfacto gate runs through ``scripts.gate``, cut in depth to 400
-  of their 5000 and 8000 steps (the loss must fall; their full runs stand
+  and splatfacto gate runs through ``scripts.gate``, cut in depth to 300
+  and 400 of their 5000 and 8000 steps (the loss must fall; their full runs stand
   in PERF.md), beside the JAX records' quality; neus-facto for 200 steps
   through the trainer (the loss must fall). Each
   path's kernel launches are zeroed before it and read after; each must
@@ -132,8 +132,8 @@ shapes its path gives it, and drives the port's paths from random weights:
 * the largest ray methods and plain NeuS (phases 53-57): one nerfacto-huge
   step at 1024 rays and the shipped width (field L16 F4 T=2^21, a 512 MiB
   table, 256-wide MLPs; an L7 proposal net) on the card against the CPU
-  twins; the nerfacto-huge run (250 of its gate's 1500 steps since
-  phases 71-72, 16,384 rays) and the nerfacto-big run (300 of its gate's 3000
+  twins; the nerfacto-huge run (150 of its gate's 1500 steps since
+  phase 74, 16,384 rays) and the nerfacto-big run (300 of its gate's 3000
   steps, 8192 rays; the loss of each must fall) on ``basic`` at full
   width beside the JAX records, each
   followed by K1's forward (the step's proposal and field
@@ -165,7 +165,7 @@ shapes its path gives it, and drives the port's paths from random weights:
   K4 and K6, which must raise (their backwards are once differentiable);
   then through ``scripts.gate``'s loop on the
   ``blender`` scene of phase 57, at their shipped configs: tensorf cut to
-  2200 of its 5000 steps, through its first grid upsample (step 2000, R 128
+  2100 of its 5000 steps, through its first grid upsample (step 2000, R 128
   -> 152, the optimizer re-initialised: the loss must fall before it and
   again after it, the grids must be at 152 and the optimizer's count must
   have restarted there), vanilla-nerf and mipnerf cut to 200 of their 8000
@@ -205,9 +205,10 @@ shapes its path gives it, and drives the port's paths from random weights:
   terms from the run's second quarter; no per-thread K3b or K1bb launched);
   at the trained state K3b and K1bb at one eval chunk's and one step's
   inputs, checked and timed as above, one step card vs CPU (tables
-  constant on the coin's vertex pairs, MLPs in float32, the CPU's hash
-  encodings at the card's positions, which must lie within POSITION_GAP of
-  its own: every loss term, every gradient, the pose adjustment's), one
+  constant on the coin's vertex pairs, MLPs in float32, the CPU's PDF
+  samplers fed the card's weights and its hash encodings the card's
+  positions, which must lie within POSITION_GAP of its own: every loss
+  term, every gradient, the pose adjustment's), one
   eval chunk's normals card vs CPU, and a 3-step profile;
 * dnerf (phase 68) on the tool's time-varying ``dnerf`` scene (made in the
   background from phase 34 on; 40 train views at times i/39, 8 val views
@@ -296,7 +297,23 @@ shapes its path gives it, and drives the port's paths from random weights:
   one step (MLPs in float32, the CPU's draws) and one 64^2 eval render
   card vs CPU (depth and normals over the pixels of accumulation > 0.5;
   the normals with the CPU's K7 position gradient faulted reported, the
-  finest level dropped held beyond the limit).
+  finest level dropped held beyond the limit);
+* training on two ranks (phase 74, ``nerfstudio_torch/parallel/mesh.py``):
+  each path for DDP_ONE_RANK_STEPS steps in a world-1 NCCL group on
+  cuda:0 (every collective must return its input bit for bit) and twice
+  without a group (the step ms at one rank); then nerfacto from phase
+  36's config (basic, 4096 rays a step, 2048 a rank) from its init
+  through the ``Trainer`` and splatfacto (2 cameras a step) resumed from
+  phase 37's save past its first refine, on 2 gloo ranks sharing cuda:0
+  through ``mesh.launch`` (NCCL refuses two ranks on one device): in each
+  rank every kernel of the path launched as one rank's step launches it
+  (K3 only at rank 0's eval image), the loss falls, every parameter,
+  moment and aux tensor bit-equal on both ranks (SHA-256 digests), the
+  step ms per rank and the gradient all-reduce's bytes and ms; one 2-rank
+  step (full-width nerfacto at DDP_CHECK_RAYS rays, splatfacto at 128^2)
+  against the same step of 2 gloo ranks on the CPU twins at phase 11's
+  and 18's limits; 2 NCCL ranks on 2 cards where the machine has them (a
+  line says when it has not).
 
 Since phases 61-63 came, phases 36-37, 43, 45 and 50-51 run 600 steps
 (1000 before; 400 since phase 73), 42 and 44 (nerfacto distorted and
@@ -312,7 +329,10 @@ phases 71-72 (~21 s) are paid for by phase 54 at 250 steps and phase 67
 (nerfacto with predict_normals) at 600 of its 5000 (800 before); phase 73
 (~48 s) is paid for by phases 36-37, 43, 45 and 50-51 at 400 steps,
 phase 55 (nerfacto-big) at 300 and phase 25's profile over a 256^2 frame
-of the same view (the 512^2 frame before: ~50 s under the profiler).
+of the same view (the 512^2 frame before: ~50 s under the profiler);
+phase 74 is paid for by phase 36 (nerfacto on basic) at 300 steps, phase
+54 (nerfacto-huge) at 150 and phase 61 (tensorf) at 2100, 100 steps past
+its first upsample (2200 before).
 
 Times the kernels, their twins and their library calls, the nerfacto frame
 and training rays/s, the splatfacto step, refine and eval frame, and the
@@ -3670,9 +3690,9 @@ def options_and_methods(ph, card, scene, disk_root, disk, k4_inputs_file=None):
 
 # nerfacto-big's gate run (phase 55), cut in depth from its 3000 steps to
 # fit phases 61-69, and nerfacto-huge's (phase 54) from its 1500 to fit
-# phase 70 (the full gates: PERF.md §6)
+# phases 70 and 74 (the full gates: PERF.md §6)
 BIG_CUT_STEPS = 300
-HUGE_CUT_STEPS = 250
+HUGE_CUT_STEPS = 150
 NEUS_PLAIN_STEPS = 200  # plain neus on blender, cut in depth from its gate's 12000 (full run: PERF.md §6)
 NEUS_PLAIN_EVAL_HW = 32  # one eval chunk of the method config's 1024 rays
 # Card vs CPU, plain neus's eval chunk: the SDF field is float32 on both
@@ -4022,7 +4042,7 @@ def nerfacto_family(ph, card, scene, disk_root, disk, jobs):
 # its first grid upsample (step 2000, R 128 -> 152, the optimizer
 # re-initialised), the NeRFs to 200 of their 8000 steps (the full gates:
 # their own chip call, PERF.md)
-BLENDER_RUNS = (("tensorf", 2200), ("vanilla-nerf", 200), ("mipnerf", 200))
+BLENDER_RUNS = (("tensorf", 2100), ("vanilla-nerf", 200), ("mipnerf", 200))
 BLENDER_CHECK_RAYS = 256  # the card-vs-CPU step: the CPU runs the 8x256 bfloat16 NeRF MLPs
 BLENDER_EVAL_RAYS = 1024  # the card-vs-CPU eval chunk: rays spread evenly over the first test view
 
@@ -5033,9 +5053,13 @@ def pair_constant_tables(model, gen):
 
 # The largest gap allowed between the card's and the CPU's positions at a
 # hash encoding's input in the step card vs CPU with normals, in [0, 1]
-# coordinates: two cells of the field's finest level (1 / 2048 each). The
-# samplers' float32 sums in another order move a sample by a fraction of a
-# cell (PERF.md); a sample that moved further is another sample.
+# coordinates: two cells of the field's finest level (1 / 2048 each), with
+# the CPU's PDF samplers fed the card's weights (``replay_sampler_weights``).
+# Their float32 sums in another order then move a sample by a fraction of a
+# cell; a sample that moved further is another sample. From its own weights
+# the CPU's sampler may move one further: the occupancy probes' weights jump
+# from 1e-3 to 1 at a cell face, and the proposal's weights reach the
+# samples amplified (PERF.md §6).
 POSITION_GAP = 1e-3
 
 
@@ -5075,6 +5099,34 @@ def replay_positions(model, replay=None):
     return seen, handles
 
 
+def replay_sampler_weights(replay=None):
+    """``PDFSampler.__call__`` patched to record or replay the weights each
+    call samples from; returns (the list it fills, the undo). With
+    ``replay`` None each call's weights are appended (detached, on the
+    CPU). Otherwise the calls sample from ``replay``'s weights in order and
+    the list receives each call's max |own - replayed|. The sampler stops
+    the gradient at its bins, so the replay changes no gradient path: the
+    CPU's own weights still render and enter the losses."""
+    from nerfstudio_torch.model_components.ray_samplers import PDFSampler
+
+    seen, call = [], PDFSampler.__call__
+
+    def patched(self, ray_bundle, ray_samples, weights, *args, **kwargs):
+        if replay is None:
+            seen.append(weights.detach().cpu())
+        else:
+            r = replay[len(seen)].to(weights.device)
+            if r.shape != weights.shape:
+                raise AssertionError(f"PDF sampler call {len(seen)}: weights {tuple(weights.shape)} on the CPU, "
+                                     f"{tuple(r.shape)} on the card")
+            seen.append(float((weights.detach() - r).abs().max()))
+            weights = r
+        return call(self, ray_bundle, ray_samples, weights, *args, **kwargs)
+
+    PDFSampler.__call__ = patched
+    return seen, lambda: setattr(PDFSampler, "__call__", call)
+
+
 def normals_step_card_vs_cpu(run):
     """One step at the trained state on the card and on the CPU twins:
     copies of the trained model with ``pair_constant_tables`` and every MLP
@@ -5082,11 +5134,14 @@ def normals_step_card_vs_cpu(run):
     CHECK_RAYS pixels and jitter drawn on the host, the next step's kwargs,
     a fresh optimizer each. The CPU runs the step twice: at its own
     positions, and with every hash encoding taking the card's input
-    positions (``replay_positions``), which the checks compare. Returns
+    positions (``replay_positions``) and every PDF sampler the card's
+    weights (``replay_sampler_weights``), which the checks compare. Returns
     (card metrics, CPU metrics, loss rel, grads rel (the pose adjustment's
     among them), tables rel, {term: rel}, the pose adjustment's rel, the
-    largest position gap, {"loss", "grads", "tables", "pose"}: the rels
-    at the CPU's own positions)."""
+    largest position gap, {"loss", "grads", "tables", "pose", "positions"}:
+    the rels and the largest position gap at the CPU's own positions and
+    weights, the largest gap of the samplers' weights in the replayed
+    step)."""
     from nerfstudio_torch.data.datamanagers import DataManagerConfig, DeviceCacheDataManager
     from nerfstudio_torch.engine.optimizers import PerGroupAdam, nerfacto_optimizers
     from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
@@ -5099,7 +5154,7 @@ def normals_step_card_vs_cpu(run):
     n, h, w = dm.train_images.shape[:3]
     pixels = torch.stack([torch.randint(0, m, (CHECK_RAYS,), generator=gen) for m in (n, h, w)], dim=-1)
     probes, *rounds = (torch.rand((CHECK_RAYS, 1), generator=gen) for _ in range(3))
-    weights, runs, positions, gap = None, [], None, None
+    weights, runs, positions, sampled, gap, own_gap, weight_gap = None, [], None, None, None, None, None
     for device, replay in (("cuda", False), ("cpu", False), ("cpu", True)):
         model = copy.deepcopy(trained).to(device).train()
         if weights is None:
@@ -5115,17 +5170,24 @@ def normals_step_card_vs_cpu(run):
         twin = VanillaPipeline(data, model)
         st = TrainState(PerGroupAdam(nerfacto_optimizers(), model), aux=state.aux.to(device))
         seen, hooks = replay_positions(model, positions if replay else None)
-        metrics = twin.train_step(st, draws=StepDraws(pixels.to(device), SamplerUniforms(
-            probes.to(device), tuple(u.to(device) for u in rounds[:model.num_proposal_rounds() + 1]))), **kwargs)
-        for hook in hooks:
-            hook.remove()
+        drawn, undo = replay_sampler_weights(sampled if replay else None)
+        try:
+            metrics = twin.train_step(st, draws=StepDraws(pixels.to(device), SamplerUniforms(
+                probes.to(device), tuple(u.to(device) for u in rounds[:model.num_proposal_rounds() + 1]))),
+                **kwargs)
+        finally:
+            undo()
+            for hook in hooks:
+                hook.remove()
         if replay:
-            if len(seen) != len(positions):
-                raise AssertionError(f"the CPU step called the hash encodings {len(seen)} times, the card "
-                                     f"{len(positions)}")
-            gap = max(seen)
+            if (len(seen), len(drawn)) != (len(positions), len(sampled)):
+                raise AssertionError(f"the CPU step called the hash encodings {len(seen)} times and the PDF "
+                                     f"samplers {len(drawn)}, the card {len(positions)} and {len(sampled)}")
+            gap, weight_gap = max(seen), max(drawn, default=0.0)
         elif positions is None:
-            positions = seen
+            positions, sampled = seen, drawn
+        else:
+            own_gap = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(seen, positions))
         grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters() if p.grad is not None}
         runs.append(({k: float(v) for k, v in metrics.items()}, grads, model))
         del twin, st, data
@@ -5133,7 +5195,8 @@ def normals_step_card_vs_cpu(run):
     terms = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu if k.endswith("_loss")}
     key = "camera_optimizer.pose_adjustment"
     pose = lambda g: float((g_card[key] - g[key]).abs().max() / g[key].abs().max().clamp_min(1e-30))  # noqa: E731
-    own = dict(zip(("loss", "grads", "tables"), step_rel(m_card, g_card, m_own, g_own, model)), pose=pose(g_own))
+    own = dict(zip(("loss", "grads", "tables"), step_rel(m_card, g_card, m_own, g_own, model)), pose=pose(g_own),
+               positions=own_gap, sampler_weights=weight_gap)
     return (m_card, m_cpu) + step_rel(m_card, g_card, m_cpu, g_cpu, model) + (terms, pose(g_cpu), gap, own)
 
 
@@ -5199,9 +5262,10 @@ def normals_after(name, card):
     full run both rise over the first ~300 steps and fall from there, past
     the first quarter's mean from ~1500 steps, PERF.md §6); K3b and K1bb against their twins at the inputs of one more
     step (K1bb) and of one eval chunk (K3b), timed; one step card vs CPU
-    with the card's positions at the CPU's hash encodings (every loss term
-    2e-3, gradients 5e-2 of the peak, the pose adjustment's too; the
-    positions within POSITION_GAP); one eval chunk card vs CPU (the MLPs and heads in float32: rgb,
+    with the card's positions at the CPU's hash encodings and the card's
+    weights at its PDF samplers (every loss term 2e-3, gradients 5e-2 of
+    the peak, the pose adjustment's too; the positions within
+    POSITION_GAP); one eval chunk card vs CPU (the MLPs and heads in float32: rgb,
     accumulation, normals and predicted normals within
     CARD_VS_CPU_MEAN_ABS mean abs)."""
     from nerfstudio_torch.ops import hash_grid as hg
@@ -5226,13 +5290,16 @@ def normals_after(name, card):
             sets["K1bb"].append(("a trained step", (pos, table, g, u, scales), kw, needs))
         kernels = normals_kernel_records(name, sets, card)
         m_card, m_cpu, loss_rel, grad_rel, table_rel, terms, pose_rel, gap, own = normals_step_card_vs_cpu(run)
+        weight_gap = own.pop("sampler_weights")
         log(name, "nerfacto with normals: " + ", ".join(f"{k} {h:.6g} -> {t:.6g}" for k, (h, t, _) in falls.items())
             + f" (the first quarter's mean to the last's; the normal terms from the second quarter's); one step at "
             f"the trained state ({CHECK_RAYS} rays, tables "
             f"constant on the coin's vertex pairs, the MLPs in float32) card vs CPU at the CPU's own positions "
-            f"(not held: the normals turn where a sample crosses a cell face): " + ", ".join(
-                f"{k} {v:.3g}" for k, v in own.items()) + f"; with the card's positions at every hash encoding "
-            f"(the CPU's {gap:.3g} away at most, limit {POSITION_GAP}): loss {m_card['loss']:.6f} vs "
+            f"and weights (not held: the normals turn where a sample crosses a cell face, and the samplers move "
+            f"samples where the weights differ): " + ", ".join(f"{k} {v:.3g}" for k, v in own.items())
+            + f"; with the card's weights at every PDF sampler (the CPU's own {weight_gap:.3g} away at most) and "
+            f"the card's positions at every hash encoding (the CPU's {gap:.3g} away at most, limit "
+            f"{POSITION_GAP}): loss {m_card['loss']:.6f} vs "
             f"{m_cpu['loss']:.6f} (rel {loss_rel:.2g}, limit {STEP_LOSS_RTOL}), terms "
             + ", ".join(f"{k} {v:.2g}" for k, v in terms.items())
             + f" (orientation {m_card['orientation_loss']:.4g} vs {m_cpu['orientation_loss']:.4g}, pred-normal "
@@ -5247,7 +5314,8 @@ def normals_after(name, card):
                 or max(mean.values()) > CARD_VS_CPU_MEAN_ABS):
             raise AssertionError(f"{name}: card and CPU nerfacto-with-normals steps or eval chunks disagree")
         return dict(falls={k: v[:2] for k, v in falls.items()}, loss_rel=loss_rel, terms=terms, grad_rel=grad_rel,
-                    pose_rel=pose_rel, table_rel=table_rel, position_gap=gap, own_positions=own, eval_mean=mean,
+                    pose_rel=pose_rel, table_rel=table_rel, position_gap=gap, sampler_weight_gap=weight_gap,
+                    own_positions=own, eval_mean=mean,
                     eval_max=peak, kernels=kernels)
 
     return after
@@ -6894,6 +6962,409 @@ def generfacto_phase(name, card, disk_root):
                 colour_gaps=dict(first=first, last=last), guidance_pull=pull, k7=k7, card_vs_cpu=versus, run_dir=run_dir, wall_s=wall)
 
 
+# --------------------------------------------------------------------------
+# phase 74: training on two ranks (nerfstudio_torch/parallel/mesh.py)
+
+
+DDP_NERF_STEPS = 80  # nerfacto on basic from its init: 4096 rays a step, 2048 a rank
+DDP_SPLAT_END = 601  # splatfacto from phase 37's save at step 400 through its first refine (at step 600)
+DDP_ONE_RANK_STEPS = 20  # each path's steps in a world-1 NCCL group, and without a group
+DDP_CHECK_RAYS = 2 * CHECK_RAYS  # the card-vs-CPU nerfacto step's global batch: CHECK_RAYS a rank
+
+
+class CollectiveLog:
+    """``torch.distributed.all_reduce`` wrapped inside the block: each call's
+    bytes and host ms (synchronised on both sides), and with ``identity``
+    whether its output equals its input bit for bit (a group of one rank)."""
+
+    def __init__(self, identity: bool = False):
+        self.identity = identity
+        self.calls = []
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._orig = orig = dist.all_reduce
+
+        def wrapped(t, *args, **kwargs):
+            before = t.clone() if self.identity else None
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+            out = orig(t, *args, **kwargs)
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            self.calls.append(dict(bytes=t.numel() * t.element_size(), ms=(time.perf_counter() - t0) * 1e3,
+                                   identity=None if before is None else torch.equal(before, t)))
+            return out
+
+        dist.all_reduce = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._orig
+
+    def gradients(self) -> dict:
+        """The gradient all-reduces (the largest calls, one a step): their
+        count, bytes and median ms."""
+        if not self.calls:
+            return dict(calls=0, bytes=0, ms=None)
+        most = max(c["bytes"] for c in self.calls)
+        big = [c for c in self.calls if c["bytes"] == most]
+        return dict(calls=len(big), bytes=most, ms=statistics.median(c["ms"] for c in big))
+
+
+def timed_calls(obj, attr, times):
+    """``obj.attr`` wrapped: each call's host ms (synchronised) into ``times``."""
+    fn = getattr(obj, attr)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, attr, timed)
+
+
+def ddp_nerfacto(config, steps):
+    """``Trainer.train`` of ``config`` (nerfacto on basic) for ``steps``
+    steps in this rank, one eval image at the last step (on rank 0): the
+    launches by kernel, each step's host ms, the collectives, the state."""
+    from nerfstudio_torch.models.nerfacto import NerfactoModel
+    from nerfstudio_torch.pipelines.factory import build_trainer
+
+    t = config.trainer
+    t.max_num_iterations, t.steps_per_eval_image, t.steps_per_eval_batch = steps, steps - 1, 0
+    t.steps_per_eval_all_images = t.steps_per_save = 0
+    trainer = build_trainer(config)
+    times = []
+    timed_calls(trainer, "train_iteration", times)
+    zero_counts()
+    with CollectiveLog() as coll:
+        trainer.train()
+    cfg = config.model
+    want_fwd = sum(2 + (s >= cfg.occ_warmup_steps and s % cfg.occ_update_every == 0) for s in range(steps))
+    want_bwd = sum(1 + bool(NerfactoModel.step_kwargs(s, cfg)["update_proposals"]) for s in range(steps))
+    return dict(counts=read_counts(), want_fwd=want_fwd, want_bwd=want_bwd, step_ms=times,
+                allreduce=coll.gradients(), state=trainer.checkpoint(), run_dir=str(trainer.base_dir))
+
+
+def ddp_splat(config, end):
+    """splatfacto resumed from ``config.trainer.load_dir`` and trained to
+    ``end`` through ``SplatPipeline.train`` in this rank: the launches, each
+    step's host ms and loss (this rank's camera), the live gaussians before
+    and after, the collectives, the state."""
+    from nerfstudio_torch.engine.trainer import aux_state
+    from nerfstudio_torch.pipelines.splat_pipeline import build_splat_pipeline
+
+    pipeline, state = build_splat_pipeline(config)
+    gen = torch.Generator(device=state.params["means"].device).manual_seed(config.seed)
+    pipeline.load_checkpoint(state, config.trainer.load_dir, generator=gen)
+    start, alive = state.step, int(state.aux.alive.sum())
+    times, losses = [], []
+    step_fn = pipeline.train_step
+
+    def step(*args, **kwargs):
+        metrics = step_fn(*args, **kwargs)
+        losses.append(float(metrics["loss"]))
+        return metrics
+
+    pipeline.train_step = step
+    timed_calls(pipeline, "train_step", times)
+    zero_counts()
+    with CollectiveLog() as coll:
+        state, metrics = pipeline.train(state, end, gen)
+    return dict(counts=read_counts(), steps=end - start, start=start, alive=(alive, int(state.aux.alive.sum())),
+                step_ms=times, losses=losses, allreduce=coll.gradients(),
+                state=dict(params={k: v.detach() for k, v in state.params.items()},
+                           optimizer=state.optimizer.state_dict(), aux=aux_state(state.aux), step=state.step,
+                           generator=gen.get_state()))
+
+
+def ddp_check_steps(device, weights_path, source):
+    """One 2-rank step on ``device`` of the full-width nerfacto (bench.py's
+    setup, flat tables, phase 11's grid; the weights of the ``source`` run,
+    the card's, saved to ``weights_path`` by its rank 0, read by the CPU's) at
+    DDP_CHECK_RAYS global rays with draws handed in, and one of splatfacto
+    at 128^2 (phase 18's params; rank r on camera 1 + r with background r):
+    each rank's global loss and all-reduced gradients."""
+    from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
+    from nerfstudio_torch.models.nerfacto import NerfactoModel
+    from nerfstudio_torch.parallel import mesh
+    from nerfstudio_torch.pipelines.base_pipeline import StepDraws
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    pixels = torch.stack([torch.randint(0, n, (DDP_CHECK_RAYS,), generator=gen)
+                          for n in (TRAIN_IMAGES, TRAIN_HW, TRAIN_HW)], dim=-1)
+    probes, *rounds = (torch.rand((DDP_CHECK_RAYS, 1), generator=gen) for _ in range(4))
+    cfg, pipeline, state, _ = build_training(device, DDP_CHECK_RAYS)
+    if source:
+        flatten_tables(pipeline.model, torch.Generator().manual_seed(SEED + 2))
+        if mesh.rank() == 0:
+            torch.save({k: v.detach().cpu() for k, v in pipeline.model.state_dict().items()}, weights_path)
+        mesh.barrier()
+    pipeline.model.load_state_dict(torch.load(weights_path, map_location=device, weights_only=True))
+    grid = state.aux
+    c = (torch.arange(grid.resolution, device=device, dtype=torch.float32) + 0.5) / grid.resolution - 0.5
+    r2 = (c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2).reshape(-1)
+    grid.binary, grid.densities = r2 <= 0.3**2, 40.0 * torch.exp(-25.0 * r2)
+    n_rounds = pipeline.model.num_proposal_rounds() + 1
+    draws = StepDraws(pixels.to(device), SamplerUniforms(probes.to(device), tuple(u.to(device) for u in rounds[:n_rounds])))
+    metrics = pipeline.global_metrics(pipeline.train_step(state, draws=draws, **NerfactoModel.step_kwargs(300, cfg)))
+    nerf = ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu().double() for n, p in pipeline.model.named_parameters()})
+    del pipeline, state
+    sgen = torch.Generator().manual_seed(SEED + 3)
+    _, sstate = build_splat("cpu", SPLAT_CHECK_HW, SPLAT_CHECK_GAUSS, SPLAT_CHECK_GAUSS)
+    n = SPLAT_CHECK_GAUSS
+    params = {k: v.detach().clone() for k, v in sstate.params.items()}
+    params["scales"] += torch.rand((n, 3), generator=sgen) - 0.5
+    params["quats"] = torch.randn((n, 4), generator=sgen)
+    params["features_rest"] = torch.randn(params["features_rest"].shape, generator=sgen) * 0.1
+    bgs = torch.rand((2, 3), generator=sgen)
+    spipe, sstate = build_splat(device, SPLAT_CHECK_HW, n, n, params=params)
+    r = mesh.rank()
+    c2w, K, w, h = spipe.camera(spipe.datamanager.train_cameras, 1 + r)
+    smetrics = mesh.global_means(spipe.train_step(sstate, c2w, K, spipe.datamanager.train_images[1 + r],
+                                                  bgs[r].to(device), w, h, 3))
+    splat = (float(smetrics["loss"]), {k: p.grad.detach().cpu().double() for k, p in sstate.params.items()})
+    return dict(nerfacto=nerf, splatfacto=splat)
+
+
+def digests(tree):
+    """Every tensor of ``tree`` as a SHA-256 of its dtype, shape and bytes:
+    two replicas' digests are equal where their tensors are bit for bit."""
+    import hashlib
+
+    if isinstance(tree, dict):
+        return {k: digests(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [digests(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu().contiguous()
+        return f"{t.dtype} {tuple(t.shape)} " + hashlib.sha256(t.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+    return tree
+
+
+def ddp_rank(out, nerf_config, splat_config, twins):
+    """One rank of phase 74 (started by ``mesh.launch``): the nerfacto and
+    splatfacto runs on the card (their states as ``digests``) and the check
+    steps on the card, then with ``twins`` (a gloo group, which also joins
+    CPU tensors) the same check steps on the CPU twins; its record to
+    ``out/rank{r}.pt``."""
+    from nerfstudio_torch.ops import gather_probes as gp
+    from nerfstudio_torch.ops import hash_grid as hg
+    from nerfstudio_torch.ops.gsplat import _cuda as sc
+    from nerfstudio_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hg._kernel_library()
+    sc.kernel_library()
+    gp.kernel_library()
+    res = dict(device=str(torch.device("cuda", torch.cuda.current_device())),
+               nerfacto=ddp_nerfacto(nerf_config, DDP_NERF_STEPS), splatfacto=ddp_splat(splat_config, DDP_SPLAT_END))
+    for path in ("nerfacto", "splatfacto"):
+        res[path]["state"] = digests(res[path]["state"])
+    weights = os.path.join(out, "check_weights.pt")
+    res["check"] = ddp_check_steps("cuda", weights, True)
+    if twins:
+        res["check_cpu"] = ddp_check_steps("cpu", weights, False)
+    res["rank"], res["world"] = mesh.rank(), mesh.world_size()
+    torch.save(res, os.path.join(out, f"rank{mesh.rank()}.pt"))
+
+
+def ddp_launch(out, nerf_config, splat_config, devices, backend, twins):
+    """``mesh.launch`` of ``ddp_rank`` on ``devices`` with ``backend``; the
+    ranks' records."""
+    from nerfstudio_torch.parallel import mesh
+
+    os.makedirs(out, exist_ok=True)
+    mesh.launch(ddp_rank, (out, nerf_config, splat_config, twins), devices=devices, backend=backend,
+                timeout_s=600.0)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), map_location="cpu", weights_only=False)
+            for r in range(len(devices))]
+
+
+def tree_gaps(a, b, path="") -> list:
+    """The paths at which two trees of tensors and plain values differ (tensors bit for bit)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [path + " keys"]
+        return [g for k in a for g in tree_gaps(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        return [g for i, (x, y) in enumerate(zip(a, b)) for g in tree_gaps(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor):
+        return [] if a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()) else [path]
+    return [] if a == b else [path]
+
+
+def one_rank_runs(name, nerf_config, splat_config, start, root):
+    """Each path for DDP_ONE_RANK_STEPS steps in this process in a world-1
+    NCCL group on cuda:0 (every collective through NCCL: each output must
+    equal its input bit for bit), then twice without a group: the step ms,
+    the parameters' largest gap between the group's run and the first
+    plain one and between the two plain ones (the backwards' float atomics
+    make two runs of the card differ)."""
+    import torch.distributed as dist
+    from nerfstudio_torch.parallel import mesh
+
+    out = {}
+    for label in ("nccl", "plain", "plain again"):
+        nc, sc_ = copy.deepcopy(nerf_config), copy.deepcopy(splat_config)
+        nc.trainer.output_dir = sc_.trainer.output_dir = os.path.join(root, label.replace(" ", "_"))
+        if label == "nccl":
+            torch.cuda.set_device(0)
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{mesh.free_port()}", world_size=1, rank=0)
+        try:
+            with CollectiveLog(identity=True) as coll:
+                nerf = ddp_nerfacto(nc, DDP_ONE_RANK_STEPS)
+                splat = ddp_splat(sc_, start + DDP_ONE_RANK_STEPS)
+        finally:
+            if label == "nccl":
+                dist.destroy_process_group()
+        out[label] = dict(nerfacto=nerf, splatfacto=splat, calls=coll.calls)
+    calls = out["nccl"]["calls"]
+    if not calls or not all(c["identity"] for c in calls) or out["plain"]["calls"]:
+        raise AssertionError(f"{name}: a world-1 NCCL group's collectives must return their inputs: {calls[:4]}; "
+                             f"without a group none runs: {len(out['plain']['calls'])}")
+
+    def gap(a, b, path):
+        x, y = a[path[0]]["state"][path[1]], b[path[0]]["state"][path[1]]
+        return max(float((x[k].float() - y[k].float()).abs().max()) for k in x if x[k].is_floating_point())
+
+    gaps = {p: (gap(out["nccl"], out["plain"], (p, key)), gap(out["plain again"], out["plain"], (p, key)))
+            for p, key in (("nerfacto", "model"), ("splatfacto", "params"))}
+    ms = {p: statistics.median(out["nccl"][p]["step_ms"][5:]) for p in ("nerfacto", "splatfacto")}
+    plain_ms = {p: statistics.median(out["plain"][p]["step_ms"][5:]) for p in ("nerfacto", "splatfacto")}
+    log(name, f"one rank, {DDP_ONE_RANK_STEPS} steps of each path: in a world-1 NCCL group on cuda:0 "
+        f"{len(calls)} collectives ({sum(c['bytes'] for c in calls) / 2**20:.1f} MiB) each returned its input bit "
+        f"for bit; step ms (host, median) nerfacto {ms['nerfacto']:.2f} (no group {plain_ms['nerfacto']:.2f}), "
+        f"splatfacto {ms['splatfacto']:.2f} (no group {plain_ms['splatfacto']:.2f}); the parameters' largest gap "
+        "to a run without a group, beside two runs without one (the backwards' float atomics): "
+        + ", ".join(f"{p} {a:.3g} ({b:.3g})" for p, (a, b) in gaps.items()))
+    return dict(step_ms=ms, plain_step_ms=plain_ms, collectives=len(calls), gaps=gaps)
+
+
+def ddp_phase(name, card, disk_root, nerf_run, splat_run):
+    """Phase 74: training on two ranks. nerfacto at the shipped config from
+    the ``basic`` scene (phase 36's config: 4096 rays a step, 2048 a rank)
+    from its init for DDP_NERF_STEPS steps through the ``Trainer``, and
+    splatfacto at the shipped config (2 cameras a step) resumed from phase
+    37's save (step 400) to DDP_SPLAT_END, past its first refine, each on 2
+    gloo ranks sharing cuda:0 through ``mesh.launch`` (NCCL refuses two
+    ranks on one device): every kernel of each path launched in each rank
+    as one rank's step launches it (K3 at rank 0's eval image alone), the
+    loss falls, every parameter, moment and aux tensor bit-equal across the
+    ranks; one 2-rank step card vs the 2-rank CPU twins (phase 11's and
+    18's limits; the same ranks run the CPU twins' step: a gloo group joins
+    CPU tensors too); each path in a world-1 NCCL group
+    (``one_rank_runs``); 2 NCCL ranks on 2 cards where the machine has them. The step ms per rank
+    at 1 and 2 ranks, the gradient all-reduce's bytes and ms."""
+    import pickle
+
+    from nerfstudio_torch.models.nerfacto import NerfactoModel  # noqa: F401  (the configs' targets)
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    root = os.path.join(disk_root, "ddp")
+    with open(os.path.join(nerf_run, "config.pkl"), "rb") as f:
+        nerf_config = pickle.load(f)
+    with open(os.path.join(splat_run, "config.pkl"), "rb") as f:
+        splat_config = pickle.load(f)
+    for c in (nerf_config, splat_config):
+        c.trainer.output_dir, c.trainer.timestamp, c.trainer.vis = os.path.join(root, "runs"), "ddp", "none"
+    from nerfstudio_torch.engine.trainer import checkpoint_steps
+
+    from nerfstudio_torch.configs.method_configs import get_method
+
+    splat_config.trainer.load_dir = os.path.join(splat_run, "nerfstudio_models")
+    # the shipped run's length, which the means' rate schedule spans (the gate run was cut to 400)
+    splat_config.trainer.max_num_iterations = get_method("splatfacto").trainer.max_num_iterations
+    start = checkpoint_steps(splat_config.trainer.load_dir)[-1]
+    one = one_rank_runs(name, nerf_config, splat_config, start, os.path.join(root, "one"))
+    recs = ddp_launch(os.path.join(root, "gloo"), nerf_config, splat_config, ["cuda:0", "cuda:0"], "gloo", True)
+    if any(r["world"] != 2 for r in recs):
+        raise AssertionError(f"{name}: the ranks saw worlds {[r['world'] for r in recs]}")
+    cpu = recs[0]["check_cpu"]
+    rec = check_ddp_records(name, card, recs, cpu, splat_run)
+    rec["one_rank"] = one
+    if torch.cuda.device_count() >= 2:
+        nccl = ddp_launch(os.path.join(root, "nccl"), nerf_config, splat_config, ["cuda:0", "cuda:1"], "nccl", False)
+        rec["nccl_two_cards"] = check_ddp_records(f"{name}, 2 NCCL ranks on 2 cards", card, nccl, cpu, splat_run)
+    else:
+        log(name, f"2 NCCL ranks on 2 cards not run: this machine has {torch.cuda.device_count()} CUDA device(s)")
+    rec["wall_s"] = time.perf_counter() - t0
+    log(name, f"{rec['wall_s']:.1f} s wall on {card}")
+    return rec
+
+
+def check_ddp_records(name, card, recs, cpu, splat_run):
+    """The checks of phase 74 on the ranks' records (see ``ddp_phase``;
+    ``cpu``: the CPU twins' check steps of the gloo run's rank 0);
+    the phase's record: launches per rank and step by kernel, step ms per
+    rank, the all-reduces, the card-vs-CPU gaps."""
+    nerf = [r["nerfacto"] for r in recs]
+    splat = [r["splatfacto"] for r in recs]
+    gaps = {p: tree_gaps(a["state"], b["state"]) for p, (a, b) in (("nerfacto", nerf), ("splatfacto", splat))}
+    if any(gaps.values()):
+        raise AssertionError(f"{name}: the ranks' states differ at {({k: v[:5] for k, v in gaps.items()})}")
+    launches = {}
+    for r, (n, s) in enumerate(zip(nerf, splat)):
+        c, k3 = n["counts"], n["counts"]["hash_encode_block_exact"]
+        want_k3 = (k3 > 0) if r == 0 else (k3 == 0)
+        if c["hash_encode_block_bwd"] != n["want_bwd"] or c["hash_encode_block"] != n["want_fwd"] + k3 or not want_k3:
+            raise AssertionError(f"{name}: nerfacto rank {r} launched {c}, expected K1 fwd {n['want_fwd']} (+ one per "
+                                 f"K3 on rank 0's eval), bwd {n['want_bwd']}")
+        sc_ = s["counts"]
+        if any(sc_[k] != s["steps"] for k in SPLAT_PATH_KERNELS) or sc_["blend_saturating_per_pixel"]:
+            raise AssertionError(f"{name}: splatfacto rank {r} launched {sc_} over {s['steps']} steps")
+        train = dict(c, hash_encode_block=c["hash_encode_block"] - k3, hash_encode_block_exact=0)
+        launches[r] = dict(nerfacto={k: train[k] / DDP_NERF_STEPS for k in NERFACTO_KERNELS},
+                           nerfacto_eval_k3=k3, splatfacto={k: sc_[k] / s["steps"] for k in SPLAT_PATH_KERNELS})
+    head, tail, fell = loss_fell(nerf[0]["run_dir"])
+    splat_head = loss_fell(splat_run)[0]
+    splat_mean = statistics.fmean(x for s in splat for x in s["losses"])
+    if not fell or not splat_mean < splat_head or splat[0]["alive"][0] == splat[0]["alive"][1]:
+        raise AssertionError(f"{name}: nerfacto's loss {head} -> {tail}, splatfacto's {splat_head} (phase 37's first "
+                             f"quarter) -> {splat_mean}, live gaussians {splat[0]['alive']}")
+    (m_card, g_card), (m_cpu, g_cpu) = recs[0]["check"]["nerfacto"], cpu["nerfacto"]
+    model = build_training("cpu", 64)[1].model
+    loss_rel, grad_rel, table_rel = step_rel(m_card, g_card, m_cpu, g_cpu, model)
+    (sl_card, sg_card), (sl_cpu, sg_cpu) = recs[0]["check"]["splatfacto"], cpu["splatfacto"]
+    s_loss_rel = abs(sl_card - sl_cpu) / abs(sl_cpu)
+    s_rel = {k: float((sg_card[k] - sg_cpu[k]).abs().max() / sg_cpu[k].abs().max()) for k in sg_cpu}
+    same_check = all(not tree_gaps(recs[0]["check"][p][1], recs[1]["check"][p][1]) for p in ("nerfacto", "splatfacto"))
+    ms = {p: [statistics.median(r[p]["step_ms"][5:]) for r in recs] for p in ("nerfacto", "splatfacto")}
+    allreduce = {p: recs[0][p]["allreduce"] for p in ("nerfacto", "splatfacto")}
+    log(name, f"2 ranks on {sorted({r['device'] for r in recs})} ({card}): nerfacto {DDP_NERF_STEPS} steps from its "
+        f"init, logged loss {head:.4f} -> {tail:.4f} (first quarter's mean to the last's); splatfacto steps "
+        f"{splat[0]['start']}-{DDP_SPLAT_END - 1} (2 cameras a step), mean loss {splat_mean:.4f} against phase 37's "
+        f"first quarter {splat_head:.4f}, live gaussians {splat[0]['alive'][0]} -> {splat[0]['alive'][1]} across "
+        f"its refines; every parameter, moment and aux tensor bit-equal on both ranks; launches per rank and "
+        f"step (K1 fwd without rank 0's eval image; K3 per eval image) {launches}; step ms per rank (host, median) nerfacto {[round(x, 2) for x in ms['nerfacto']]}, "
+        f"splatfacto {[round(x, 2) for x in ms['splatfacto']]}; the gradient all-reduce "
+        + ", ".join(f"{p} {a['bytes'] / 2**20:.1f} MiB in {a['ms']:.2f} ms ({a['calls']} calls)"
+                    for p, a in allreduce.items())
+        + f"; one 2-rank step card vs the CPU twins' 2 ranks: nerfacto loss {loss_rel:.3g} (limit {STEP_LOSS_RTOL}),"
+        f" gradients {grad_rel:.3g} of the peak (limit {STEP_GRAD_REL}), tables per level {table_rel:.3g} (limit "
+        f"{STEP_TABLE_SUM_REL}); splatfacto loss {s_loss_rel:.3g} (limit {SPLAT_LOSS_RTOL}), gradients "
+        f"{max(s_rel.values()):.3g} of the peak (limit {SPLAT_GRAD_REL}); the ranks' all-reduced gradients "
+        f"{'bit-equal' if same_check else 'DIFFERENT'}")
+    if (loss_rel > STEP_LOSS_RTOL or grad_rel > STEP_GRAD_REL or table_rel > STEP_TABLE_SUM_REL
+            or s_loss_rel > SPLAT_LOSS_RTOL or max(s_rel.values()) > SPLAT_GRAD_REL or not same_check):
+        raise AssertionError(f"{name}: the 2-rank step on the card disagrees with the CPU twins'")
+    return dict(launches_per_rank=launches, step_ms=ms, allreduce=allreduce, nerfacto_loss=(head, tail),
+                splat_loss=(splat_head, splat_mean), alive=splat[0]["alive"],
+                card_vs_cpu=dict(nerfacto=(loss_rel, grad_rel, table_rel), splatfacto=(s_loss_rel, s_rel)))
+
+
+
 def gate_cell(method, scene, out) -> int:
     """One gate cell in full through ``scripts.gate``'s runner (the gates
     asked: the record's ``pass``), then the device's idle share over
@@ -6940,7 +7411,7 @@ def main() -> int:
     from nerfstudio_torch.ops.gsplat import _cuda as sc
     from nerfstudio_torch.ops.gsplat import rasterize as rz
 
-    n_phases = 73
+    n_phases = 74
     ph = lambda i, name: f"{i}/{n_phases} {name}"  # noqa: E731
 
     # 1. card
@@ -7579,8 +8050,8 @@ def main() -> int:
         jobs.update({s: start_scene(disk_root, s) for s in ("distorted", "masked", "semantic", "appearance",
                                                              "dnerf")})
         disk = {"cli": cli_round_trip(ph(35, "CLI round trip"), scene, disk_root, card),
-                "gate_nerfacto": gate_phase(ph(36, f"nerfacto, {CUT_GATE_STEPS} steps"), "nerfacto", scene,
-                                            disk_root, card, NERFACTO_KERNELS, steps=CUT_GATE_STEPS),
+                "gate_nerfacto": gate_phase(ph(36, f"nerfacto, {NERF_CUT_STEPS} steps"), "nerfacto", scene,
+                                            disk_root, card, NERFACTO_KERNELS, steps=NERF_CUT_STEPS),
                 "gate_splatfacto": gate_phase(ph(37, f"splatfacto, {CUT_GATE_STEPS} steps"), "splatfacto", scene,
                                               disk_root, card, SPLAT_PATH_KERNELS, steps=CUT_GATE_STEPS),
                 "neus_facto": neus_from_disk(ph(38, "neus-facto from disk"), scene, disk_root, card)}
@@ -7629,6 +8100,10 @@ def main() -> int:
         process = process_data_phase(ph(72, "process_data"), card, disk_root, scene)
         # 73. generfacto through the CLI with the stub guidance
         generfacto = generfacto_phase(ph(73, "generfacto"), card, disk_root)
+        # 74. nerfacto and splatfacto on two ranks sharing the card, from
+        # phase 36's config and phase 37's save
+        ddp = ddp_phase(ph(74, "two ranks"), card, disk_root, disk["gate_nerfacto"]["run_dir"],
+                        disk["gate_splatfacto"]["run_dir"])
     finally:
         stop_scenes(disk_root, jobs)
 
@@ -7911,6 +8386,18 @@ def main() -> int:
                                launches_per_eval_view=generfacto["launches_per_eval_view"][key],
                                shapes=[r for r in generfacto["k7"] if r["kernel"] == kernel])
     kernels[0]["generfacto"] = {k: v for k, v in generfacto.items() if k != "k7"}
+    # two ranks (phase 74): each kernel's launches per rank and step of the
+    # nerfacto and splatfacto runs (K3: at rank 0's eval image, per image)
+    for e in kernels:
+        key = launch_key.get(e["name"]) or next(
+            (k for k in ("hash_encode_block_bwd",) if e["name"].startswith(k + " ")), None)
+        for path in ("nerfacto", "splatfacto"):
+            per = {f"rank {r}": rec[path].get(key) for r, rec in ddp["launches_per_rank"].items()}
+            if key == "hash_encode_block_exact" and path == "nerfacto":
+                per = {f"rank {r}": rec["nerfacto_eval_k3"] for r, rec in ddp["launches_per_rank"].items()}
+            if any(v is not None for v in per.values()):
+                e.setdefault("ddp_launches_per_rank", {})[path] = per
+    kernels[0]["two_ranks"] = {k: v for k, v in ddp.items() if k != "launches_per_rank"}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

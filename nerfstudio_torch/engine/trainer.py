@@ -12,7 +12,16 @@ A checkpoint is one ``torch.save`` file per step,
 ``<checkpoint dir>/step-<step>.ckpt``: the model's state dict, every Adam
 moment and count, the auxiliary state, the step and the state of the
 trainer's generator, so a resumed run continues bit-equal to one that never
-stopped. ``save_only_latest_checkpoint`` deletes the older files."""
+stopped. ``save_only_latest_checkpoint`` deletes the older files.
+
+In a process group (``parallel/mesh.py``) every rank runs the loop on the
+same generator and loads the same checkpoint on resume; rank 0 alone
+writes the events, the checkpoints and the eval images and runs the
+viewer, while the other ranks wait at a barrier after each eval and save.
+The aux hook runs on every rank on the shared generator, so the aux state
+stays replicated. The metrics the loop logs are the global batch's
+(``VanillaPipeline.global_metrics``) and ``train_rays_per_sec`` counts the
+global batch."""
 
 from __future__ import annotations
 
@@ -27,7 +36,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from nerfstudio_torch.parallel import mesh
 from nerfstudio_torch.utils import writer as writer_lib
+from nerfstudio_torch.utils.decorators import check_main_thread
 from nerfstudio_torch.utils.profiler import time_function
 
 _CHECKPOINT = re.compile(r"step-(\d+)\.ckpt")
@@ -154,8 +165,9 @@ class Trainer:
                 "optimizer": self.state.optimizer.state_dict(), "aux": aux_state(self.state.aux),
                 "generator": self.generator.get_state()}
 
+    @check_main_thread
     def save_checkpoint(self, step: int) -> None:
-        """(reference trainer.py:99-115)"""
+        """(reference trainer.py:99-115), on rank 0 alone."""
         write_checkpoint(self.checkpoint_dir, step, self.checkpoint(), self.config.save_only_latest_checkpoint)
 
     def load_checkpoint(self) -> None:
@@ -183,7 +195,7 @@ class Trainer:
         ``vis`` asks for, started here and stopped when the loop ends."""
         cfg = self.config
         self.base_dir.mkdir(parents=True, exist_ok=True)
-        own_viewer = "viewer" in cfg.vis and self.viewer is None
+        own_viewer = "viewer" in cfg.vis and self.viewer is None and mesh.is_main_process()
         if own_viewer:
             from nerfstudio_torch.viewer.server import Viewer
 
@@ -195,15 +207,23 @@ class Trainer:
             if own_viewer:  # the viewer the run started lives as long as the run
                 self.viewer.stop()
 
+    def _on_main(self, fn: Callable, step: int):
+        """``fn(step)`` on rank 0 while the other ranks wait at a barrier."""
+        out = fn(step) if mesh.is_main_process() else None
+        mesh.barrier()
+        return out
+
     def _train_loop(self) -> None:
         cfg = self.config
-        num_rays = self.pipeline.datamanager.config.train_num_rays_per_batch
+        num_rays = self.pipeline.datamanager.config.train_num_rays_per_batch  # the global batch
         t_last = time.perf_counter()
         steps_since_log = 0
         for step in range(int(self.state.step), cfg.max_num_iterations):
             metrics = self.train_iteration(step)
             steps_since_log += 1
             if step % 10 == 0 or step == cfg.max_num_iterations - 1:
+                if mesh.is_initialized():
+                    metrics = self.pipeline.global_metrics(metrics)
                 host_metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
                 now = time.perf_counter()
                 host_metrics["train_rays_per_sec"] = num_rays * steps_since_log / (now - t_last)
@@ -213,16 +233,17 @@ class Trainer:
             if self.viewer is not None:
                 self.viewer_step(step)
             if cfg.steps_per_eval_batch and step % cfg.steps_per_eval_batch == 0 and step > 0:
-                self.eval_batch_iteration(step)
+                self._on_main(self.eval_batch_iteration, step)
             if cfg.steps_per_eval_image and step % cfg.steps_per_eval_image == 0 and step > 0:
-                self.eval_iteration(step)
+                self._on_main(self.eval_iteration, step)
             if cfg.steps_per_eval_all_images and step % cfg.steps_per_eval_all_images == 0 and step > 0:
-                self.writer.put_dict("eval_all", self.pipeline.get_average_eval_image_metrics(self.state), step)
+                self._on_main(self.eval_all_iteration, step)
             if cfg.steps_per_save and (step + 1) % cfg.steps_per_save == 0:
-                self.save_checkpoint(step + 1)
-        self.save_checkpoint(cfg.max_num_iterations)
+                self._on_main(self.save_checkpoint, step + 1)
+        self._on_main(self.save_checkpoint, cfg.max_num_iterations)
         self.writer.flush()
-        print(f"training finished; checkpoints in {self.checkpoint_dir}", flush=True)
+        if mesh.is_main_process():
+            print(f"training finished; checkpoints in {self.checkpoint_dir}", flush=True)
 
     def viewer_step(self, step: int) -> None:
         """The viewer's hook after each step (reference trainer.py:374): its
@@ -258,6 +279,12 @@ class Trainer:
         gt_px = torch.from_numpy(np.ascontiguousarray(gt[rows, cols])).to(self.pipeline.device)
         metrics = {"eval_batch_psnr": float(psnr(out["rgb"], gt_px))}
         self.writer.put_dict("eval_batch", metrics, step)
+        return metrics
+
+    def eval_all_iteration(self, step: int) -> Dict[str, float]:
+        """Every eval image's metrics, mean and std, to the writer."""
+        metrics = self.pipeline.get_average_eval_image_metrics(self.state)
+        self.writer.put_dict("eval_all", metrics, step)
         return metrics
 
     def eval_iteration(self, step: int) -> Dict[str, float]:

@@ -17,6 +17,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from nerfstudio_torch.core.rays import RayBundle, RaySamples
+from nerfstudio_torch.parallel.mesh import rand_rays
 
 
 def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
@@ -62,7 +63,7 @@ class SpacedSampler:
 
         jitter_shape = num_rays + ((1,) if self.single_jitter else (n + 1,))
         if self.train_stratified and generator is not None and uniforms is None:
-            uniforms = torch.rand(jitter_shape, generator=generator, device=device)
+            uniforms = rand_rays(jitter_shape, generator, device)
         if self.train_stratified and uniforms is not None:
             t_rand = uniforms.reshape(jitter_shape)
             bin_centers = (bins[..., 1:] + bins[..., :-1]) / 2.0
@@ -162,7 +163,7 @@ class PDFSampler:
         u = linspace(0.0, 1.0 - (1.0 / num_bins), num_bins, cdf.device)
         jitter_shape = lead + ((1,) if self.single_jitter else (num_bins,))
         if self.train_stratified and generator is not None and uniforms is None:
-            uniforms = torch.rand(jitter_shape, generator=generator, device=cdf.device)
+            uniforms = rand_rays(jitter_shape, generator, cdf.device)
         if self.train_stratified and uniforms is not None:
             u = u + uniforms.reshape(jitter_shape) / num_bins
         else:

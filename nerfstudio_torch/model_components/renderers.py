@@ -16,6 +16,8 @@ from typing import Literal, Optional, Union
 
 import torch
 
+from nerfstudio_torch.parallel.mesh import rand_rays
+
 _COLORS = {"black": (0.0, 0.0, 0.0), "white": (1.0, 1.0, 1.0)}
 
 BackgroundColor = Union[Literal["random", "last_sample", "black", "white"], torch.Tensor]
@@ -68,7 +70,7 @@ def get_background_color(background_color: BackgroundColor, shape, device,
                 return draw.to(device, torch.float32)
             if generator is None:
                 raise ValueError("the random background needs a generator or a draw")
-            return torch.rand(tuple(shape), generator=generator, device=device)
+            return rand_rays(shape, generator, device)
         raise ValueError(f"background colour {background_color!r}")
     return torch.as_tensor(background_color, dtype=torch.float32, device=device).expand(shape)
 

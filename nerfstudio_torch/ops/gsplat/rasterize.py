@@ -45,6 +45,9 @@ TILE = 16
 _COORD_LIMIT = float(2**30)
 # Elements of one (tiles, pixels, entries) intermediate in the K6 twins.
 _TWIN_BATCH_ELEMENTS = 1 << 24
+# a pixel blends an entry while its transmittance in front of it is at least
+# this (gsplat's rule; csrc/gsplat.cu's kTransmittanceEps)
+TRANSMITTANCE_EPS = 1e-4
 
 
 # K6 forward's designs on the card, by their C design codes: "culled" (the
@@ -421,10 +424,10 @@ def _blend_tiles(means2d, conics, ch, opac, bins: TileBins, t0: int, t1: int, k:
         keep = keep & ~skip[:, warp_of_pixel, :]
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
     # front to back; a pixel blends an entry while its transmittance in
-    # front of it is at least 1e-4
+    # front of it is at least TRANSMITTANCE_EPS
     trans = torch.cumprod(1.0 - alpha, dim=-1)
     t_front = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
-    w = alpha * t_front * (t_front.detach() >= 1e-4)
+    w = alpha * t_front * (t_front.detach() >= TRANSMITTANCE_EPS)
     return torch.bmm(w, ch[gids])
 
 

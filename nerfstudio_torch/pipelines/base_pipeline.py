@@ -33,6 +33,7 @@ from nerfstudio_torch.model_components.renderers import background_color_overrid
 from nerfstudio_torch.model_components.ray_generators import generate_rays_from_indices
 from nerfstudio_torch.model_components.ray_samplers import SamplerUniforms
 from nerfstudio_torch.models.base_model import Model, module_twin, render_camera
+from nerfstudio_torch.parallel import mesh
 from nerfstudio_torch.utils.lpips import eval_lpips
 from nerfstudio_torch.utils.metrics import psnr, ssim
 
@@ -85,27 +86,60 @@ class VanillaPipeline:
         """One optimizer step on a fresh ray batch; ``step_kwargs`` are the
         model's (``NerfactoModel.step_kwargs``, ``NeuSFactoModel.step_kwargs``).
         A state without aux passes the model no ``model_aux``. Returns the
-        loss, the loss terms and the metrics, detached and on the device."""
+        loss, the loss terms and the metrics, detached and on the device.
+
+        In a process group of W ranks (``parallel/mesh.py``) the step is
+        the reference's mesh step: every rank draws the global batch of
+        ``train_num_rays_per_batch`` rays (``draws`` hand in the global
+        draws), keeps its shard of R / W rays (R must divide by W), runs the
+        model and the losses on it with the model's own draws sharded the
+        same way (``ray_shard``), and averages the gradients over the ranks
+        before the optimizer steps. Every loss term of the port is a mean
+        over the rays or a term of the parameters alone, so over equal
+        shards the ranks' mean is the global batch's loss and its gradient.
+        The returned values are this rank's shard's; ``global_metrics``
+        gives the global batch's."""
         model = self.model
         if not model.training:
             raise ValueError("train_step trains the model: call model.train() first")
         idx, batch = self.datamanager.sample_train_batch(generator, indices=None if draws is None else draws.pixels)
+        idx, batch = mesh.shard_rays((idx, batch))
         ray_bundle = generate_rays_from_indices(self.datamanager.train_cameras, idx)
         if state.aux is not None:
             step_kwargs = {"model_aux": state.aux, **step_kwargs}
         if draws is not None and draws.background is not None:
-            step_kwargs = {"background": draws.background, **step_kwargs}
-        outputs = model(
-            ray_bundle, generator=generator, uniforms=None if draws is None else draws.sampler, **step_kwargs,
-        )
+            step_kwargs = {"background": mesh.shard_rays(draws.background), **step_kwargs}
+        with mesh.ray_shard():
+            outputs = model(
+                ray_bundle, generator=generator, uniforms=None if draws is None else mesh.shard_rays(draws.sampler),
+                **step_kwargs,
+            )
         metrics = model.get_metrics_dict(outputs, batch)
         loss_dict = model.get_loss_dict(outputs, batch, metrics)
         loss = sum(loss_dict.values())  # the reference's loss coefficients default to 1
         state.optimizer.zero_grad()
         loss.backward()
+        mesh.all_reduce_grads(model.parameters())
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in {"loss": loss, **loss_dict, **metrics}.items()}
+
+    @staticmethod
+    def global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A step's metrics over the global batch: each value's mean over
+        the ranks, which over equal shards is the global mean, but PSNR
+        through its mean squared error (-10 log10 of the ranks' mean MSE,
+        the global batch's PSNR); the metrics as they are without a process
+        group. Every rank calls it at the same steps (one ``all_reduce``)."""
+        if not mesh.is_initialized():
+            return metrics
+        values = dict(metrics)
+        if "psnr" in values:
+            values["psnr"] = torch.pow(10.0, -values["psnr"].float() / 10.0)
+        out = mesh.global_means(values)
+        if "psnr" in out:
+            out["psnr"] = -10.0 * torch.log10(out["psnr"])
+        return out
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager

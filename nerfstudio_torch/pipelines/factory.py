@@ -17,6 +17,7 @@ from nerfstudio_torch.data.datamanagers import DeviceCacheDataManager
 from nerfstudio_torch.data.datasets import DepthDataset, InputDataset, SDFDataset, SemanticDataset
 from nerfstudio_torch.engine.optimizers import PerGroupAdam
 from nerfstudio_torch.engine.trainer import Trainer
+from nerfstudio_torch.parallel import mesh
 from nerfstudio_torch.pipelines.base_pipeline import TrainState, VanillaPipeline
 
 
@@ -56,8 +57,14 @@ def build_pipeline(config) -> Tuple[VanillaPipeline, TrainState, object]:
     """(pipeline, train state, config) of a ray-based method (reference
     :55-90). A semantic dataset's classes set the model's
     ``num_semantic_classes``. The model's parameters are drawn from a
-    generator seeded with ``config.seed``."""
+    generator seeded with ``config.seed``, the same on every rank of a
+    process group, whose ranks share the global batch of
+    ``train_num_rays_per_batch`` rays (it must divide by their count)."""
     device = config.machine.device()
+    world = mesh.world_size()
+    if config.datamanager.train_num_rays_per_batch % world:
+        raise ValueError(f"train_num_rays_per_batch {config.datamanager.train_num_rays_per_batch} does not divide "
+                         f"over {world} ranks")
     train_ds, eval_ds, train_out = build_datasets(config)
     datamanager = DeviceCacheDataManager.from_datasets(config.datamanager, train_ds, eval_ds, device)
     sem = getattr(train_ds, "semantics", None)

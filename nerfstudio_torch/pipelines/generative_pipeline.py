@@ -139,13 +139,23 @@ class GenerativePipeline:
         return {k: v.reshape(res, res, -1) for k, v in out.items()}
 
 
+def check_one_device(config) -> None:
+    """Refuse a generfacto config that asks for more than one rank (the
+    default, every card, means one for generfacto)."""
+    machine = config.machine
+    if (machine.num_devices or 1) > 1 or machine.num_machines > 1:
+        raise ValueError("generfacto trains on one device: set --machine.num-devices 1 and --machine.num-machines 1")
+
+
 def train_generfacto(config) -> Tuple[GenerativePipeline, GenerativeTrainState]:
     """The CLI's generfacto run on ``config.machine``'s device: parameters
     and draws from one generator seeded with ``config.seed``,
     ``trainer.max_num_iterations`` steps, the loss logged every 50 steps,
-    one checkpoint at the end."""
+    one checkpoint at the end. One device: the reference trains it without
+    the mesh."""
     from nerfstudio_torch.utils.writer import EventWriter
 
+    check_one_device(config)
     device = config.machine.device()
     pipeline = GenerativePipeline(config, seed=config.seed, device=device)
     generator = torch.Generator(device=device).manual_seed(config.seed)

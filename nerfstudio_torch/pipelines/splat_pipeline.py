@@ -15,9 +15,17 @@ config and ``train_splat`` is the CLI's training run; a checkpoint (one
 ``torch.save`` file, ``engine.trainer.write_checkpoint``) holds the
 gaussians, the Adam moments and counts, the densification state, the step
 and the generators' and camera order's states, so a resumed run continues
-bit-equal. The multi-camera mesh step (the reference takes it only on a
-mesh of more than one device) is not ported. The eval reports PSNR, SSIM
-and LPIPS under the reference's rule (``utils.lpips.eval_lpips``)."""
+bit-equal. The eval reports PSNR, SSIM and LPIPS under the reference's
+rule (``utils.lpips.eval_lpips``).
+
+In a process group of W ranks (``parallel/mesh.py``) a step is the
+reference's mesh step (``build_train_step_batch``): each rank renders one
+camera, pick r of the W cameras every rank's datamanager draws in the same
+order, and the gradients are averaged over the ranks, which is the
+gradient of the mean loss over the W cameras. The densification
+statistics take each view at the one-camera scale (each rank's loss is
+its camera's alone), summed over the views (the maximum for the radii).
+Rank 0 alone writes checkpoints and events and runs the final eval."""
 
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from nerfstudio_torch.engine.optimizers import SplatAdam, splat_means_lr
 from nerfstudio_torch.engine.trainer import aux_from_state, aux_state, read_checkpoint, write_checkpoint
 from nerfstudio_torch.model_components.bilateral_grid import color_correct, slice_bilateral_grid
 from nerfstudio_torch.models.splatfacto import InitDraws, SplatAux, SplatfactoModel, init_gaussian_params
+from nerfstudio_torch.parallel import mesh
+from nerfstudio_torch.utils.decorators import check_main_thread
 from nerfstudio_torch.utils.lpips import eval_lpips
 from nerfstudio_torch.utils.math import clip
 from nerfstudio_torch.utils.metrics import psnr, ssim
@@ -117,6 +127,7 @@ class SplatPipeline:
         loss, loss_dict = self.model.get_loss(outputs, gt_image, params, aux.alive)
         state.optimizer.zero_grad()
         loss.backward()
+        mesh.all_reduce_grads(params.values())
         state.optimizer.step()
         if cfg.strategy == "mcmc":
             if noise is None:
@@ -124,9 +135,17 @@ class SplatPipeline:
             with torch.no_grad():
                 params["means"].copy_(self.model.mcmc_noise(params, aux.alive, noise, means_lr))
         with torch.no_grad():
-            # screen-gradient norm in pixel units (reference :231-243)
+            # screen-gradient norm in pixel units (reference :231-243); in a
+            # process group each rank's loss is its one camera's, so the
+            # norm is at the one-camera scale (reference :359-364)
             g_norm = torch.linalg.vector_norm(probe.grad, dim=-1) * (0.5 * max(width, height))
             visible = outputs["visible"]
+            view_accum = torch.where(visible, g_norm, torch.zeros_like(g_norm))
+            view_count = visible.to(torch.float32)
+            radii = outputs["radii"] / float(max(width, height))
+            if mesh.is_initialized():  # every rank's view: summed, the radii's maximum (reference :367-375)
+                view_accum, view_count = mesh.all_reduce_(torch.stack([view_accum, view_count])).unbind()
+                mesh.all_reduce_(radii, "max")
             metrics = {
                 "loss": loss.detach(),
                 "l1": loss_dict["l1"].detach(),
@@ -136,9 +155,9 @@ class SplatPipeline:
             }
             state.aux = SplatAux(
                 alive=aux.alive,
-                grad_accum=aux.grad_accum + torch.where(visible, g_norm, torch.zeros_like(g_norm)),
-                grad_count=aux.grad_count + visible.to(torch.float32),
-                max_radii=torch.maximum(aux.max_radii, outputs["radii"] / float(max(width, height))),
+                grad_accum=aux.grad_accum + view_accum,
+                grad_count=aux.grad_count + view_count,
+                max_radii=torch.maximum(aux.max_radii, radii),
             )
         state.step += 1
         return metrics
@@ -191,16 +210,25 @@ class SplatPipeline:
         MCMC, its (N, 3) position noise; each refine draws its two normal
         draws or its MCMC sources. Every 50 steps the metrics go to
         ``writer``; every ``steps_per_save`` steps a checkpoint to
-        ``ckpt_dir``. Returns (state, the last step's metrics)."""
+        ``ckpt_dir``. Returns (state, the last step's metrics).
+
+        In a process group of W ranks every rank draws the step's W cameras
+        in order and takes pick r, and the W random backgrounds and takes
+        its own; the MCMC noise and the refines' draws are one draw shared
+        by all. The step's cameras share one resolution, as the reference
+        asserts (:549-552): the datamanager holds one (N, H, W, C) stack
+        and refuses a capture of several. The logged and returned metrics
+        are the means over the ranks' cameras (reference :379-384)."""
         cfg = self.model.config
         dm = self.datamanager
+        world, r = mesh.world_size(), mesh.rank()
         metrics = None
         c2w_dev = None
         if cfg.camera_optimizer_mode != "off":  # the corrected pose is made on the card: no copy per step
             c2w_dev = dm.train_cameras.camera_to_worlds.to(state.params["means"].device)
         for step in range(state.step, num_iterations):
             d = self.model.downscale_at(step)
-            cam_idx, image = dm.next_train(step)
+            cam_idx, image = [dm.next_train(step) for _ in range(world)][r]
             c2w, K, w, h = self.camera(dm.train_cameras, cam_idx, d)
             if d > 1:
                 # the reference's jax.image.resize "linear" (antialiased)
@@ -209,7 +237,7 @@ class SplatPipeline:
             background = noise = None
             dev = generator.device if generator is not None else image.device
             if cfg.background_color == "random":
-                background = torch.rand((3,), generator=generator, device=dev).to(image.device)
+                background = torch.rand((3 * world,), generator=generator, device=dev)[3 * r:3 * r + 3].to(image.device)
             if cfg.strategy == "mcmc":
                 noise = torch.randn(tuple(state.params["means"].shape), generator=generator, device=dev)
             if c2w_dev is not None:
@@ -229,18 +257,22 @@ class SplatPipeline:
                         reset_alpha=step % reset_period == 0 and step < cfg.stop_split_at,
                         use_screen_size=reset_period < step < cfg.stop_screen_size_at,
                     )
-            if writer is not None and step % 50 == 0:
-                writer.put_dict("train", {k: float(v) for k, v in metrics.items()}, step)
+            if step % 50 == 0:
+                logged = mesh.global_means(metrics)  # every rank takes part, writer or not
+                if writer is not None:
+                    writer.put_dict("train", {k: float(v) for k, v in logged.items()}, step)
             if ckpt_dir is not None and steps_per_save and (step + 1) % steps_per_save == 0:
                 self.save_checkpoint(state, ckpt_dir, step + 1, generator, only_latest)
-        return state, metrics
+                mesh.barrier()
+        return state, None if metrics is None else mesh.global_means(metrics)
 
     # ------------------------------------------------------------------
+    @check_main_thread
     def save_checkpoint(self, state: SplatTrainState, ckpt_dir: Path, step: int,
                         generator: Optional[torch.Generator] = None, only_latest: bool = True) -> None:
         """(reference :435-452) One file at ``step``: the gaussians, the Adam
         state, the densification state, the step, the generator's state and
-        the camera order's."""
+        the camera order's; on rank 0 alone."""
         write_checkpoint(ckpt_dir, step, {
             "step": state.step, "params": {k: v.detach() for k, v in state.params.items()},
             "optimizer": state.optimizer.state_dict(), "aux": aux_state(state.aux),
@@ -378,7 +410,9 @@ def train_splat(config) -> Tuple[SplatPipeline, SplatTrainState]:
                               ckpt_dir=ckpt_dir, steps_per_save=tcfg.steps_per_save,
                               only_latest=tcfg.save_only_latest_checkpoint)
     pipeline.save_checkpoint(state, ckpt_dir, state.step, gen, tcfg.save_only_latest_checkpoint)
-    metrics, _ = pipeline.get_eval_image_metrics(state, 0)
-    print("eval:", metrics, flush=True)
-    print(f"training finished; checkpoints in {ckpt_dir}", flush=True)
+    if mesh.is_main_process():
+        metrics, _ = pipeline.get_eval_image_metrics(state, 0)
+        print("eval:", metrics, flush=True)
+        print(f"training finished; checkpoints in {ckpt_dir}", flush=True)
+    mesh.barrier()
     return pipeline, state

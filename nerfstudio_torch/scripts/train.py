@@ -4,6 +4,12 @@
     python -m nerfstudio_torch.scripts.train generfacto [--model.prompt TEXT ...]
 
 ``--machine.device_type cpu`` runs on the CPU; the default is the GPU.
+``--machine.num-devices N`` trains on N ranks of this machine (one card
+each with NCCL, or N CPU processes with gloo), and ``--machine.num-machines
+M --machine.machine-rank K --machine.dist-url tcp://HOST:PORT`` on M
+machines; the batch is the global one, sharded over the ranks, as the
+reference's mesh shards it (``parallel/mesh.py``). Rank 0 alone writes the
+run directory.
 Resume with ``--trainer.load_dir RUN/nerfstudio_models`` (not generfacto,
 which the reference does not resume either). The run
 directory gets ``config.yml`` (the config as JSON, which YAML readers
@@ -48,26 +54,41 @@ def main(argv=None) -> None:
         config.trainer.experiment_name = Path(config.data).name if config.data is not None else "unnamed"
 
     from nerfstudio_torch.models.generfacto import GenerfactoModelConfig
-    from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
+    from nerfstudio_torch.parallel.mesh import launch
 
     base = config.trainer.get_base_dir()
     config.trainer.timestamp = base.name  # one run directory from here on
     if isinstance(config.model, GenerfactoModelConfig):  # random cameras: no --data
-        from nerfstudio_torch.pipelines.generative_pipeline import train_generfacto
+        from nerfstudio_torch.pipelines.generative_pipeline import check_one_device, train_generfacto
 
+        check_one_device(config)
         save_config(config, base)
         train_generfacto(config)
         return
+    machine = config.machine
+    launch(train_rank, (config,), devices=machine.devices(), backend=machine.backend(),
+           num_machines=machine.num_machines, machine_rank=machine.machine_rank, dist_url=machine.dist_url)
+
+
+def train_rank(config) -> None:
+    """One rank's run of a ray method or splatfacto (every rank of a
+    process group runs it; rank 0 writes the config)."""
+    from nerfstudio_torch.models.splatfacto import SplatfactoModelConfig
+    from nerfstudio_torch.parallel import mesh
+
+    base = config.trainer.get_base_dir()
     if isinstance(config.model, SplatfactoModelConfig):
         from nerfstudio_torch.pipelines.splat_pipeline import train_splat
 
-        save_config(config, base)
+        if mesh.is_main_process():
+            save_config(config, base)
         train_splat(config)
         return
     from nerfstudio_torch.pipelines.factory import build_trainer
 
     trainer = build_trainer(config)
-    save_config(config, base)
+    if mesh.is_main_process():
+        save_config(config, base)
     trainer.train()
 
 

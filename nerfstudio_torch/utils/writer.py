@@ -1,7 +1,8 @@
 """Event writer (counterpart of ``nerfstudio_tpu/utils/writer.py``):
 scalars to stdout and to ``scalars.jsonl`` in the run directory, one JSON
 object per (prefix, step). TensorBoard (tensorboardX) and wandb are used
-only where they import, as the reference gates them."""
+only where they import, as the reference gates them. In a process group
+only rank 0 writes (``utils.decorators.check_main_thread``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from pathlib import Path
 from typing import Dict
 
 import numpy as np
+
+from nerfstudio_torch.utils.decorators import check_main_thread
 
 SCALARS_FILE = "scalars.jsonl"
 
@@ -24,6 +27,10 @@ class EventWriter:
         self._tb = None
         self._wandb = None
         self._last_print: Dict[str, float] = {}
+        self._open_backends(vis)
+
+    @check_main_thread
+    def _open_backends(self, vis: str) -> None:
         if "tensorboard" in vis:
             try:
                 from tensorboardX import SummaryWriter
@@ -41,6 +48,7 @@ class EventWriter:
             except ImportError:
                 pass
 
+    @check_main_thread
     def put_dict(self, prefix: str, values: Dict[str, float], step: int) -> None:
         """Scalars of one step under ``prefix``: appended to the scalars
         file, sent to TensorBoard/wandb where on, printed at most every 2 s
@@ -59,6 +67,7 @@ class EventWriter:
             self._last_print[prefix] = now
             print(f"[{prefix} {step}] " + " ".join(f"{k}={v:.4g}" for k, v in values.items()), flush=True)
 
+    @check_main_thread
     def put_image(self, name: str, image, step: int) -> None:
         if self._tb is None and self._wandb is None:
             return
@@ -70,6 +79,7 @@ class EventWriter:
         if self._wandb is not None:
             self._wandb.log({name: self._wandb.Image(img)}, step=step)
 
+    @check_main_thread
     def flush(self) -> None:
         if self._tb is not None:
             self._tb.flush()
